@@ -1,0 +1,477 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``x2vlm_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N] [--profile DIR]
+
+Run from the repository root, on a machine with a CUDA card and ``nvcc``.
+Phases (any failure exits non-zero and prints no result line):
+
+1. build every CUDA kernel of the port from ``x2vlm_tpu_torch/csrc`` (one
+   ``nvcc`` per source, all started together);
+2. hold each kernel against its plain PyTorch version on the card: at the
+   main path's shapes in bf16, with fp32 plain as truth and the rule
+   kernel_err <= max(4 x plain_bf16_err, 1e-3 x max|truth|), and over the
+   rest of each kernel's contract (key masks, fully masked rows, causal,
+   Sq != Skv, fp32, other head dims) at small shapes; time the kernel, its
+   plain version and one PyTorch library call with CUDA events;
+3. the main path: X2VLM-base at 224 px with weights drawn from ``--seed``
+   serves ``encode_images`` (128 images), ``encode_texts`` (128 texts of 40
+   tokens, some padded) and ``itm_score`` (128 pairs) through
+   ``RetrievalServer``; the launch counts of each request are read and
+   checked (12 flash per image batch, 12 tiny per text batch, 12 tiny per
+   rerank batch), outputs are checked for shape and finiteness, and the
+   requests are timed;
+4. the same weights on the port's CPU path in fp32 for 2 rows, against the
+   card's rows.
+
+Prints the card's name and power limit (``nvidia-smi``), one JSON line of
+kernels, and as its last line ``{"ok": true, "device": {...}}``.
+``--profile DIR`` also writes a torch.profiler table of one round of
+requests to ``DIR/chip_smoke_profile.txt``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import ctypes
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+import torch.nn.functional as F
+
+from x2vlm_tpu_torch.models import XVLMConfig, XVLMForRetrieval
+from x2vlm_tpu_torch.ops import _build
+from x2vlm_tpu_torch.ops.flash_attention import (
+    flash_attention_fwd, flash_attention_reference,
+)
+from x2vlm_tpu_torch.ops.tiny_attention import (
+    smem_bytes as tiny_smem_bytes, tiny_attention_fwd, tiny_attention_reference,
+)
+from x2vlm_tpu_torch.serving import RetrievalServer
+
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (data sheet)
+BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak (data sheet)
+BATCH, TEXT_LEN = 128, 40
+
+FAILURES = []
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    FAILURES.append(msg)
+    log(f"FAIL {msg}")
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def time_ms(fn, inner: int = 10, reps: int = 7, warmup: int = 2) -> float:
+    """Median over ``reps`` of the per-call device time of ``inner``
+    back-to-back calls, from CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+def rule_bf16(name, kernel_out, plain_bf16_out, truth) -> float:
+    """kernel_err <= max(4 x plain_bf16_err, 1e-3 x max|truth|) (the rule
+    of tools/verify_kernels.py)."""
+    ek = max_err(kernel_out, truth)
+    ex = max_err(plain_bf16_out, truth)
+    bound = max(4.0 * ex, 1e-3 * max(truth.float().abs().max().item(), 1e-6))
+    ok = math.isfinite(ek) and ek <= bound
+    log(f"check {name}: kernel_err={ek:.3e} plain_bf16_err={ex:.3e} "
+        f"bound={bound:.3e} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name}: kernel error {ek:.3e} above {bound:.3e}")
+    return ek
+
+
+def rule_f32(name, kernel_out, truth) -> float:
+    """fp32 kernel against fp32 plain: sums in another order only."""
+    ek = max_err(kernel_out, truth)
+    bound = 1e-4 * max(truth.float().abs().max().item(), 1.0)
+    ok = math.isfinite(ek) and ek <= bound
+    log(f"check {name}: kernel_err={ek:.3e} bound={bound:.3e} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name}: kernel error {ek:.3e} above {bound:.3e}")
+    return ek
+
+
+def flash_inputs(gen, dev, B, H, Sq, Skv, D, dtype, bias_shape=None):
+    q = torch.randn(B, H, Sq, D, generator=gen, device=dev) * D ** -0.5
+    k = torch.randn(B, H, Skv, D, generator=gen, device=dev)
+    v = torch.randn(B, H, Skv, D, generator=gen, device=dev)
+    bias = None if bias_shape is None else \
+        torch.randn(*bias_shape, generator=gen, device=dev)
+    cast = lambda t: None if t is None else t.to(dtype)
+    return cast(q), cast(k), cast(v), cast(bias)
+
+
+def tiny_inputs(gen, dev, B, Sq, Skv, H, D, dtype):
+    q = torch.randn(B, Sq, H * D, generator=gen, device=dev)
+    k = torch.randn(B, Skv, H * D, generator=gen, device=dev)
+    v = torch.randn(B, Skv, H * D, generator=gen, device=dev)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def as_f32(*ts):
+    return [None if t is None else t.float() for t in ts]
+
+
+def check_flash(gen, dev):
+    """Main-path shape in bf16 (checked and timed), then the contract."""
+    B, H, S, D = BATCH, 12, 197, 64
+    q, k, v, bias = flash_inputs(gen, dev, B, H, S, S, D, torch.bfloat16, (1, H, S, S))
+    out, lse = flash_attention_fwd(q, k, v, bias)
+    p_out, p_lse = flash_attention_reference(q, k, v, bias)
+    t_out, t_lse = flash_attention_reference(*as_f32(q, k, v, bias))
+    err = rule_bf16("flash_attention_fwd out B128 H12 S197 D64 bias(1,H,S,S) bf16",
+                    out, p_out, t_out)
+    rule_bf16("flash_attention_fwd lse B128 H12 S197 D64", lse, p_lse, t_lse)
+    ms = time_ms(lambda: flash_attention_fwd(q, k, v, bias))
+    plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, bias), inner=2, reps=5)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                                            scale=1.0))
+    b_ms, b_by = bound_ms(nbytes(q, k, v, out, bias, lse), 4.0 * B * H * S * S * D)
+    entry = dict(name="flash_attention_fwd", shape=f"B{B} H{H} S{S} D{D} bias(1,{H},{S},{S}) bf16",
+                 route="cuda", source="x2vlm_tpu_torch/csrc/flash_attention_fwd.cu",
+                 replaces="x2vlm_tpu/ops/flash_attention.py:174",
+                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                 bound_by=b_by, library_ms=lib_ms)
+    log(f"time flash_attention_fwd: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    # the rest of the contract, at small shapes
+    for name, (B, H, Sq, Skv, D, bias_shape, masked, causal) in {
+        "bias(B,H) D128": (3, 2, 150, 150, 128, (3, 2, 150, 150), False, False),
+        "key_mask+fully_masked_row": (3, 2, 130, 130, 64, None, True, False),
+        "causal": (2, 3, 200, 200, 64, (1, 3, 200, 200), False, True),
+        "cross Sq100 Skv300 key_mask": (2, 2, 100, 300, 64, None, True, False),
+        "bias(1,1) D256": (2, 2, 70, 129, 256, (1, 1, 70, 129), False, False),
+    }.items():
+        km = None
+        if masked:
+            km = (torch.rand(B, Skv, generator=gen, device=dev) > 0.3).to(torch.int32)
+            km[1] = 0
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, bias = flash_inputs(gen, dev, B, H, Sq, Skv, D, dtype, bias_shape)
+            out, lse = flash_attention_fwd(q, k, v, bias, km, causal)
+            t_out, t_lse = flash_attention_reference(*as_f32(q, k, v, bias), km, causal)
+            tag = f"flash_attention_fwd {name} {str(dtype)[6:]}"
+            if dtype == torch.bfloat16:
+                p_out, p_lse = flash_attention_reference(q, k, v, bias, km, causal)
+                rule_bf16(tag, out, p_out, t_out)
+            else:
+                rule_f32(tag, out, t_out)
+                # a fully masked row's lse is -1e30 in both; compare the rest
+                hide = lambda t: torch.where(t_lse < -1e29, 0.0, t)
+                rule_f32(tag + " lse", hide(lse), hide(t_lse))
+    return entry
+
+
+def check_tiny(gen, dev):
+    entries = []
+    H, D = 12, 64
+    for label, Sq, Skv in (("text self-attention", TEXT_LEN, TEXT_LEN),
+                           ("fusion cross-attention", TEXT_LEN, 200)):
+        q, k, v = tiny_inputs(gen, dev, BATCH, Sq, Skv, H, D, torch.bfloat16)
+        km = torch.ones(BATCH, Skv, dtype=torch.int32, device=dev)
+        if Skv == Sq:   # padded texts
+            lens = torch.randint(5, Skv + 1, (BATCH,), generator=gen, device=dev)
+            km = (torch.arange(Skv, device=dev)[None] < lens[:, None]).to(torch.int32)
+        else:           # the 197 -> 200 pad of the image stream
+            km[:, 197:] = 0
+        scale = D ** -0.5
+        out, _ = tiny_attention_fwd(q, k, v, H, km, scale=scale)
+        p_out, _ = tiny_attention_reference(q, k, v, H, km, scale=scale)
+        t_out, _ = tiny_attention_reference(*as_f32(q, k, v), H, km, scale=scale)
+        err = rule_bf16(f"tiny_attention_fwd {label} B{BATCH} {Sq}x{Skv} H{H} D{D} bf16",
+                        out, p_out, t_out)
+        ms = time_ms(lambda: tiny_attention_fwd(q, k, v, H, km, scale=scale))
+        plain_ms = time_ms(lambda: tiny_attention_reference(q, k, v, H, km, scale=scale),
+                           inner=3, reps=5)
+        views = [t.view(BATCH, t.shape[1], H, D).transpose(1, 2) for t in (q, k, v)]
+        amask = (km != 0)[:, None, None, :]
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            *views, attn_mask=amask, scale=scale))
+        b_ms, b_by = bound_ms(nbytes(q, k, v, out) + km.numel(),
+                              4.0 * BATCH * H * Sq * Skv * D)
+        log(f"time tiny_attention_fwd {label}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        entries.append(dict(
+            name="tiny_attention_fwd", shape=f"B{BATCH} {Sq}x{Skv} H{H} D{D} key_mask bf16",
+            route="cuda", source="x2vlm_tpu_torch/csrc/tiny_attention_fwd.cu",
+            replaces="x2vlm_tpu/ops/tiny_attention.py:88", sq_skv=(Sq, Skv),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms))
+
+    # the dropout multiplier and the fp32 probabilities (the training operands)
+    Sq = Skv = TEXT_LEN
+    q, k, v = tiny_inputs(gen, dev, BATCH, Sq, Skv, H, D, torch.bfloat16)
+    km = torch.ones(BATCH, Skv, dtype=torch.int32, device=dev)
+    km[::3, 30:] = 0
+    keep = torch.rand(BATCH, Sq, H * Skv, generator=gen, device=dev) >= 0.1
+    dmask = torch.where(keep, 1.0 / 0.9, 0.0).to(torch.bfloat16)
+    out, probs = tiny_attention_fwd(q, k, v, H, km, dmask, scale=D ** -0.5,
+                                    return_probs=True)
+    p_out, p_probs = tiny_attention_reference(q, k, v, H, km, dmask, scale=D ** -0.5)
+    t_out, t_probs = tiny_attention_reference(*as_f32(q, k, v), H, km, dmask.float(),
+                                              scale=D ** -0.5)
+    rule_bf16(f"tiny_attention_fwd dropout out B{BATCH} {Sq}x{Skv} bf16", out, p_out, t_out)
+    rule_bf16(f"tiny_attention_fwd dropout probs B{BATCH} {Sq}x{Skv} bf16",
+              probs, p_probs, t_probs)
+
+    # the dispatch rule's shared-memory formula is the kernel's
+    lib = _build.load("tiny_attention_fwd")
+    lib.x2_tiny_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.x2_tiny_attention_smem_bytes.restype = ctypes.c_longlong
+    for Skv, D in ((40, 64), (200, 64), (420, 64), (421, 64), (97, 128)):
+        c_bytes = lib.x2_tiny_attention_smem_bytes(Skv, D)
+        if c_bytes != tiny_smem_bytes(Skv, D):
+            fail(f"tiny smem formula: Skv={Skv} D={D}: kernel {c_bytes}, "
+                 f"dispatch {tiny_smem_bytes(Skv, D)}")
+
+    # the rest of the contract, at small shapes
+    for name, (B, Sq, Skv, H, D, masked) in {
+        "non-multiple-of-8 13x27 D32": (3, 13, 27, 4, 32, True),
+        "no mask 64x420 D64": (2, 64, 420, 2, 64, False),
+        "1x7 D128": (2, 1, 7, 3, 128, True),
+    }.items():
+        km = None
+        if masked:
+            km = torch.ones(B, Skv, dtype=torch.int32, device=dev)
+            km[0, Skv // 2:] = 0
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = tiny_inputs(gen, dev, B, Sq, Skv, H, D, dtype)
+            dm = torch.where(torch.rand(B, Sq, H * Skv, generator=gen, device=dev) >= 0.2,
+                             1.25, 0.0).to(dtype)
+            out, probs = tiny_attention_fwd(q, k, v, H, km, dm, scale=D ** -0.5,
+                                            return_probs=True)
+            t_out, t_probs = tiny_attention_reference(*as_f32(q, k, v), H, km, dm.float(),
+                                                      scale=D ** -0.5)
+            tag = f"tiny_attention_fwd {name} {str(dtype)[6:]}"
+            if dtype == torch.bfloat16:
+                p_out, p_probs = tiny_attention_reference(q, k, v, H, km, dm,
+                                                          scale=D ** -0.5)
+                rule_bf16(tag, out, p_out, t_out)
+                rule_bf16(tag + " probs", probs, p_probs, t_probs)
+            else:
+                rule_f32(tag, out, t_out)
+                rule_f32(tag + " probs", probs, t_probs)
+    return entries
+
+
+def reset_counts() -> None:
+    flash_attention_fwd.launches = 0
+    tiny_attention_fwd.launches = 0
+    tiny_attention_fwd.launches_by_shape.clear()
+
+
+def counts():
+    return flash_attention_fwd.launches, tiny_attention_fwd.launches
+
+
+def serve(server, images, ids, atts):
+    """The main path, one request of each program; the launch counts are
+    set to 0 just before each request and read just after it."""
+    per_request, by_shape = {}, collections.Counter()
+
+    def run(name, fn, *inputs):
+        reset_counts()
+        out = fn(*inputs)
+        torch.cuda.synchronize()
+        per_request[name] = counts()
+        by_shape.update(tiny_attention_fwd.launches_by_shape)
+        return out
+
+    img_embeds, img_feat = run("encode_images", server.encode_images, images)
+    txt_embeds, txt_feat = run("encode_texts", server.encode_texts, ids, atts)
+    scores = run("itm_score", server.itm_score, img_embeds, txt_embeds, atts)
+    return (img_embeds, img_feat, txt_embeds, txt_feat, scores), per_request, by_shape
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", metavar="DIR",
+                    help="write a torch.profiler table of one round of requests "
+                         "to DIR/chip_smoke_profile.txt")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible; this script runs the port "
+              "on the GPU", file=sys.stderr)
+        return 2
+    return run(args, torch.device("cuda", 0))
+
+
+def run(args, dev: torch.device) -> int:
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    log(smi)
+
+    secs = _build.build()
+    log(f"build: {json.dumps({k: round(v, 1) for k, v in secs.items()})}")
+    for name in _build.KERNELS:
+        log(f"ptxas {name}:\n{_build.ptxas_report(name)}")
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    with torch.inference_mode():
+        flash_entry = check_flash(gen, dev)
+        tiny_entries = check_tiny(gen, dev)
+    torch.cuda.empty_cache()
+
+    # ---- the main path: X2VLM-base retrieval serving at full width ----
+    cfg = XVLMConfig.base()
+    t0 = time.perf_counter()
+    model = XVLMForRetrieval(cfg, dtype=torch.bfloat16, device=dev, seed=args.seed)
+    server = RetrievalServer(model)
+    res = cfg.vision.image_res
+    images = torch.randint(0, 256, (BATCH, res, res, 3), generator=gen,
+                           device=dev).to(torch.uint8)
+    ids = torch.randint(1, cfg.text.vocab_size, (BATCH, TEXT_LEN), generator=gen,
+                        device=dev)
+    lens = torch.randint(5, TEXT_LEN + 1, (BATCH,), generator=gen, device=dev)
+    lens[0] = TEXT_LEN
+    atts = (torch.arange(TEXT_LEN, device=dev)[None] < lens[:, None]).to(torch.int32)
+    ids = ids * atts
+    torch.cuda.synchronize()
+    log(f"model: X2VLM-base 224px, {sum(p.numel() for p in model.parameters())} "
+        f"params, built in {time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    outs, per_request, by_shape = serve(server, images, ids, atts)
+    img_embeds, img_feat, txt_embeds, txt_feat, scores = outs
+    log(f"launches per request: {json.dumps(per_request)}")
+    # X2VLM-base: 12 BEiT-2 blocks; 12 text layers; 6 fusion layers with a
+    # self- and a cross-attention each
+    n_fusion = cfg.text.num_layers - cfg.text.fusion_layer
+    want = {"encode_images": (cfg.vision.depth, 0),
+            "encode_texts": (0, cfg.text.fusion_layer),
+            "itm_score": (0, 2 * n_fusion)}
+    for req, n in want.items():
+        if tuple(per_request[req]) != n:
+            fail(f"{req}: (flash, tiny) launches {per_request[req]}, expected {n}")
+    n_img = cfg.vision.num_patches + 1
+    expect_shapes = {"image_embeds": (img_embeds, (BATCH, n_img, cfg.vision.embed_dim)),
+                     "image_feat": (img_feat, (BATCH, cfg.embed_dim)),
+                     "text_embeds": (txt_embeds, (BATCH, TEXT_LEN, cfg.text.hidden_size)),
+                     "text_feat": (txt_feat, (BATCH, cfg.embed_dim)),
+                     "itm_score": (scores, (BATCH,))}
+    for name, (t, shape) in expect_shapes.items():
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+            fail(f"{name}: shape {tuple(t.shape)} (want {shape}), "
+                 f"finite={bool(torch.isfinite(t).all())}")
+    log(f"peak device memory of one round of requests: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    req_ms = {
+        "encode_images": time_ms(lambda: server.encode_images(images), inner=1, reps=5),
+        "encode_texts": time_ms(lambda: server.encode_texts(ids, atts), inner=1, reps=5),
+        "itm_score": time_ms(lambda: server.itm_score(img_embeds, txt_embeds, atts),
+                             inner=1, reps=5),
+    }
+    log(f"request ms (B={BATCH}, CUDA events, median of 5): "
+        f"{json.dumps({k: round(v, 3) for k, v in req_ms.items()})}")
+    log(f"throughput: images/s {BATCH / req_ms['encode_images'] * 1e3:.1f}, "
+        f"texts/s {BATCH / req_ms['encode_texts'] * 1e3:.1f}, "
+        f"itm pairs/s {BATCH / req_ms['itm_score'] * 1e3:.1f}, encode pairs/s "
+        f"{BATCH / (req_ms['encode_images'] + req_ms['encode_texts']) * 1e3:.1f}")
+
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            serve(server, images, ids, atts)
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
+        os.makedirs(args.profile, exist_ok=True)
+        with open(os.path.join(args.profile, "chip_smoke_profile.txt"), "w") as f:
+            f.write(f"{smi}\n{table}\n")
+        log(table[:6000])
+
+    # ---- the same weights on the port's CPU path, fp32, 2 rows ----
+    n = 2
+    cpu_model = XVLMForRetrieval(cfg, dtype=torch.float32, device="cpu", seed=None)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.inference_mode():
+        c_img, c_ifeat = cpu_model.encode_images(images[:n].cpu())
+        c_txt, c_tfeat = cpu_model.encode_texts(ids[:n].cpu(), atts[:n].cpu())
+        c_score = cpu_model.itm_score(c_img, c_txt, atts[:n].cpu())
+    e2e = {}
+    for name, card, ref in (("image_embeds", img_embeds, c_img),
+                            ("text_embeds", txt_embeds, c_txt),
+                            ("image_feat", img_feat, c_ifeat),
+                            ("text_feat", txt_feat, c_tfeat),
+                            ("itm_score", scores, c_score)):
+        card = card[:n].float().cpu()
+        e2e[name] = {"max_abs_err": max_err(card, ref),
+                     "max_abs_ref": ref.abs().max().item()}
+        if name.endswith("feat"):
+            e2e[name]["min_cosine"] = F.cosine_similarity(card, ref, dim=-1).min().item()
+    log(f"card bf16 vs CPU fp32 ({n} rows): {json.dumps(e2e)}")
+    for name in ("image_feat", "text_feat"):
+        if not e2e[name]["min_cosine"] >= 0.99:
+            fail(f"{name}: cosine to the fp32 CPU path {e2e[name]['min_cosine']:.5f} < 0.99")
+    itm = e2e["itm_score"]
+    if not itm["max_abs_err"] <= 0.05 + 0.05 * itm["max_abs_ref"]:
+        fail(f"itm_score: error to the fp32 CPU path {itm['max_abs_err']:.4f}")
+
+    kernels = [dict(flash_entry, launches=sum(p[0] for p in per_request.values()))]
+    for e in tiny_entries:
+        e = dict(e)
+        e["launches"] = by_shape.get(tuple(e.pop("sq_skv")), 0)
+        kernels.append(e)
+    for e in kernels:
+        if e["launches"] == 0:
+            fail(f"{e['name']} ({e['shape']}) was not launched on the main path")
+    log(f"seconds: {time.perf_counter() - t_start:.1f}")
+    if FAILURES:
+        log(f"chip_smoke: {len(FAILURES)} failure(s): {FAILURES}")
+        return 1
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,133 @@
+"""Boundaries of the PyTorch port: it imports nothing of JAX or of the JAX
+package, its entry points refuse to fall back to the CPU quietly, and its
+kernel sources and build rules are in place."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from x2vlm_tpu_torch.convert import convert_jax_params  # noqa: E402
+from x2vlm_tpu_torch.models import (  # noqa: E402
+    BEiT2, BEiT2Config, BertConfig, BertEncoder, XVLMConfig, XVLMForRetrieval,
+)
+from x2vlm_tpu_torch.ops import _build, layers  # noqa: E402
+from x2vlm_tpu_torch.serving import RetrievalServer  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "x2vlm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "x2vlm_tpu")
+TINY = XVLMConfig(
+    vision=BEiT2Config(image_res=32, patch_size=16, embed_dim=32, depth=1, num_heads=2),
+    text=BertConfig(vocab_size=50, hidden_size=32, num_layers=2, fusion_layer=1,
+                    num_heads=2, intermediate_size=64, encoder_width=32,
+                    max_position_embeddings=16),
+    embed_dim=8)
+
+
+def _imported_roots(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_imports_nothing_of_jax(path):
+    bad = [m for m in _imported_roots(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert bad == [], f"{path} imports {bad}"
+
+
+def test_port_imports_with_jax_blocked():
+    """Import every port module (and chip_smoke) in a fresh interpreter in
+    which importing jax, flax or the JAX package fails."""
+    modules = [".".join(p.relative_to(ROOT).with_suffix("").parts)
+               for p in PORT_FILES]
+    modules = [m[:-len(".__init__")] if m.endswith(".__init__") else m for m in modules]
+    code = ("import sys\n"
+            f"for name in {list(FORBIDDEN)!r}:\n"
+            "    sys.modules[name] = None\n"
+            f"for m in {modules!r}:\n"
+            "    __import__(m)\n"
+            "print('imported', len(" + repr(modules) + "))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "imported" in res.stdout
+
+
+@pytest.mark.parametrize("entry", [
+    "XVLMForRetrieval", "BEiT2", "BertEncoder", "PatchEmbed", "MultiHeadAttention",
+    "convert_jax_params", "RetrievalServer.from_npz",
+])
+def test_entry_points_default_to_the_card(entry, tmp_path):
+    """Without a GPU an entry point raises unless device='cpu' is given; the
+    device is resolved before anything is read or allocated."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default device is valid here")
+    npz = tmp_path / "params.npz"
+    calls = {
+        "XVLMForRetrieval": lambda **kw: XVLMForRetrieval(TINY, **kw),
+        "BEiT2": lambda **kw: BEiT2(TINY.vision, **kw),
+        "BertEncoder": lambda **kw: BertEncoder(TINY.text, **kw),
+        "PatchEmbed": lambda **kw: layers.PatchEmbed(8, 4, **kw),
+        "MultiHeadAttention": lambda **kw: layers.MultiHeadAttention(8, 2, **kw),
+        "convert_jax_params": lambda **kw: convert_jax_params({}, **kw),
+        "RetrievalServer.from_npz": lambda **kw: RetrievalServer.from_npz(npz, TINY, **kw),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+    if entry == "convert_jax_params":
+        with pytest.raises(KeyError):  # past the device check: empty params
+            calls[entry](device="cpu")
+    elif entry == "RetrievalServer.from_npz":
+        with pytest.raises(FileNotFoundError):
+            calls[entry](device="cpu")
+    else:
+        calls[entry](device="cpu")
+
+
+def test_kernel_sources_and_build_rules():
+    for name in _build.KERNELS:
+        src = _build.CSRC / f"{name}.cu"
+        text = src.read_text()
+        assert f"x2_{name}" in text and "cudaGetLastError" in text
+        assert "Replaces: x2vlm_tpu/ops/" in text
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    # the library name follows the source: an edit forces a rebuild
+    assert _build._lib_path("flash_attention_fwd") != _build._lib_path("tiny_attention_fwd")
+    assert _build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
+    assert "/build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("this machine has the CUDA toolkit")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
+
+
+def test_kernel_wrappers_refuse_gradients_on_cuda_only():
+    """Forward-only kernels: a CPU tensor that requires grad still runs the
+    differentiable plain version; the refusal is the CUDA path's."""
+    q = torch.randn(1, 2, 130, 64, generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
+    from x2vlm_tpu_torch.ops.flash_attention import flash_attention_fwd
+    out, _ = flash_attention_fwd(q, q, q)
+    out.sum().backward()
+    assert q.grad is not None
+    with pytest.raises(NotImplementedError, match="training slice"):
+        _build.check_no_grad(q)
+    with torch.no_grad():
+        _build.check_no_grad(q)

@@ -1,0 +1,19 @@
+"""PyTorch + CUDA (Hopper, sm_90a) port of the X2-VLM framework.
+
+The JAX package ``x2vlm_tpu`` beside this one is the reference: the same
+reference-named weights go into both, and the outputs must agree. This
+package imports ``torch``, ``numpy`` and the standard library only; where it
+needs something of the JAX package it keeps its own copy.
+
+Slice 1 covers the retrieval serving path (``models.heads.XVLMForRetrieval``
+behind ``serving.RetrievalServer``): BEiT-2 image encode, BERT text encode
+and the ITM rerank head, with attention in two hand-written CUDA kernels
+(``ops/flash_attention.py``, ``ops/tiny_attention.py``).
+
+Entry points run on the card unless the caller passes ``device="cpu"``
+(see ``device.resolve_device``).
+"""
+
+from x2vlm_tpu_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

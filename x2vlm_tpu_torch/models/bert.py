@@ -1,0 +1,240 @@
+"""BERT text / fusion stack (counterpart of x2vlm_tpu/models/bert.py).
+
+- ``mode='text'`` runs layers [0, fusion_layer)
+- ``mode='fusion'`` runs layers [fusion_layer, N) on given embeddings, with
+  cross-attention K/V projected from the vision width
+- ``mode='multi_modal'`` runs all layers
+- cross-attention exists only in layers >= fusion_layer
+
+Post-LN layers. Parameter names are the reference's HF BERT names under
+``text_encoder.bert`` (``embeddings.*``, ``encoder.layer.N.attention.self.
+{query,key,value}``, ``attention.output.{dense,LayerNorm}``,
+``crossattention.*``, ``intermediate.dense``, ``output.{dense,LayerNorm}``).
+The MLM head (``text_encoder.cls``) and the decoder cache arrive with later
+slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from x2vlm_tpu_torch.device import resolve_device
+from x2vlm_tpu_torch.ops.layers import (
+    ACTIVATIONS, DropPath, FusedLayerNorm, LayerNorm, MultiHeadAttention, dense,
+    dropout, linear,
+)
+
+__all__ = ["BertConfig", "BertEncoder", "BertLayer", "TextEncoder",
+           "drop_path_schedule"]
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_layers: int = 18           # text layers + fusion layers
+    fusion_layer: int = 12         # first fusion layer
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    encoder_width: int = 768       # width of the cross-attention K/V source
+    ln_eps: float = 1e-12
+    hidden_dropout: float = 0.1
+    attn_dropout: float = 0.1
+    act: str = "gelu"              # "gelu" (erf) | "gelu_fast" (tanh)
+    quant_int8: bool = False       # int8 serving path: a later slice
+    text_drop_path_rate: float = 0.0
+    cross_drop_path_rate: float = 0.0
+
+    def __post_init__(self):
+        if self.text_drop_path_rate > 0:
+            # text drop-path requires cross drop-path and replaces hidden
+            # dropout (reference xbert.py:637-641)
+            if not self.cross_drop_path_rate > 0:
+                raise ValueError("text_drop_path_rate > 0 requires "
+                                 "cross_drop_path_rate > 0")
+            object.__setattr__(self, "hidden_dropout", 0.0)
+
+    @classmethod
+    def bert_base(cls, num_layers=18, fusion_layer=12, encoder_width=768, **kw):
+        return cls(num_layers=num_layers, fusion_layer=fusion_layer,
+                   encoder_width=encoder_width, **kw)
+
+
+def drop_path_schedule(cfg: BertConfig) -> List[float]:
+    """Per-layer stochastic-depth rates: linspace(0, text rate) over the text
+    layers, then linspace(0, cross rate) over the fusion layers."""
+    n_text = min(cfg.fusion_layer, cfg.num_layers)
+    n_cross = cfg.num_layers - n_text
+    return [float(r) for r in
+            list(np.linspace(0.0, cfg.text_drop_path_rate, n_text))
+            + list(np.linspace(0.0, cfg.cross_drop_path_rate, n_cross))]
+
+
+class BertEmbeddings(nn.Module):
+    def __init__(self, cfg: BertConfig, *, dtype: torch.dtype, device):
+        super().__init__()
+        self.config = cfg
+        self.dtype = dtype
+        emb = lambda n: torch.nn.utils.skip_init(nn.Embedding, n, cfg.hidden_size,
+                                                 device=device)
+        self.word_embeddings = emb(cfg.vocab_size)
+        self.position_embeddings = emb(cfg.max_position_embeddings)
+        self.token_type_embeddings = emb(cfg.type_vocab_size)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.ln_eps, dtype=dtype,
+                                   device=device)
+
+    def forward(self, input_ids: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        cfg, dt = self.config, self.dtype
+        S = input_ids.shape[1]
+        word = F.embedding(input_ids.long(), self.word_embeddings.weight).to(dt)
+        pos = self.position_embeddings.weight[:S].to(dt)[None]
+        tok = self.token_type_embeddings.weight[0].to(dt)
+        x = self.LayerNorm(word + pos + tok)
+        return dropout(x, cfg.hidden_dropout, generator, self.training)
+
+
+class BertOutput(nn.Module):
+    """``dense`` -> dropout -> drop-path -> ``LayerNorm(residual + h)``."""
+
+    def __init__(self, in_dim: int, cfg: BertConfig, *, dtype: torch.dtype, device):
+        super().__init__()
+        self.dtype = dtype
+        self.dropout_rate = cfg.hidden_dropout
+        self.dense = linear(in_dim, cfg.hidden_size, device=device)
+        self.LayerNorm = FusedLayerNorm(cfg.hidden_size, cfg.ln_eps, device=device)
+
+    def forward(self, h, residual, drop_path: DropPath,
+                generator: Optional[torch.Generator] = None):
+        h = dense(h, self.dense.weight, self.dense.bias, self.dtype)
+        h = drop_path(dropout(h, self.dropout_rate, generator, self.training),
+                      generator)
+        return self.LayerNorm((residual + h).to(self.dtype))
+
+
+class BertAttention(nn.Module):
+    """``self``: projections + attention core; ``output``: out projection +
+    post-LN residual."""
+
+    def __init__(self, cfg: BertConfig, kv_dim: Optional[int] = None, *,
+                 dtype: torch.dtype, device):
+        super().__init__()
+        self.self = MultiHeadAttention(
+            cfg.hidden_size, cfg.num_heads, kv_dim=kv_dim, qkv_bias_mode="full",
+            attn_dropout_rate=cfg.attn_dropout, dtype=dtype,
+            quant=cfg.quant_int8, device=device)
+        self.output = BertOutput(cfg.hidden_size, cfg, dtype=dtype, device=device)
+
+    def forward(self, x, kv=None, *, key_mask=None, drop_path: DropPath,
+                generator=None):
+        h = self.self(x, kv, key_mask=key_mask, generator=generator)
+        return self.output(h, x, drop_path, generator)
+
+
+class BertIntermediate(nn.Module):
+    def __init__(self, cfg: BertConfig, *, dtype: torch.dtype, device):
+        super().__init__()
+        self.dtype = dtype
+        self.act = ACTIVATIONS[cfg.act]
+        self.dense = linear(cfg.hidden_size, cfg.intermediate_size, device=device)
+
+    def forward(self, x):
+        return self.act(dense(x, self.dense.weight, self.dense.bias, self.dtype))
+
+
+class BertLayer(nn.Module):
+    """Post-LN transformer layer; cross-attention sublayer when ``has_cross``."""
+
+    def __init__(self, cfg: BertConfig, has_cross: bool, drop_path: float = 0.0, *,
+                 dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.dtype = dtype
+        self.attention = BertAttention(cfg, dtype=dtype, device=device)
+        self.crossattention = (BertAttention(cfg, kv_dim=cfg.encoder_width,
+                                             dtype=dtype, device=device)
+                               if has_cross else None)
+        self.intermediate = BertIntermediate(cfg, dtype=dtype, device=device)
+        self.output = BertOutput(cfg.intermediate_size, cfg, dtype=dtype,
+                                 device=device)
+        self.drop_path = DropPath(drop_path)
+
+    def forward(self, x, attention_mask=None, encoder_hidden_states=None,
+                encoder_attention_mask=None,
+                generator: Optional[torch.Generator] = None):
+        x = self.attention(x, key_mask=attention_mask, drop_path=self.drop_path,
+                           generator=generator)
+        # cross-attention is skipped (not an error) without an image stream:
+        # the text-only path runs the full stack uni-modally
+        if self.crossattention is not None and encoder_hidden_states is not None:
+            x = self.crossattention(x, encoder_hidden_states.to(self.dtype),
+                                    key_mask=encoder_attention_mask,
+                                    drop_path=self.drop_path, generator=generator)
+        return self.output(self.intermediate(x), x, self.drop_path, generator)
+
+
+class _LayerStack(nn.Module):
+    """Holds the layers under the reference's name ``encoder.layer``."""
+
+    def __init__(self, layers):
+        super().__init__()
+        self.layer = nn.ModuleList(layers)
+
+
+class BertEncoder(nn.Module):
+    """The text / fusion stack. Call with mode='text'|'fusion'|'multi_modal'."""
+
+    def __init__(self, config: BertConfig, add_embeddings: bool = True, *,
+                 dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        cfg = self.config = config
+        self.dtype = dtype
+        self.embeddings = (BertEmbeddings(cfg, dtype=dtype, device=device)
+                           if add_embeddings else None)
+        dpr = drop_path_schedule(cfg)
+        self.encoder = _LayerStack(
+            BertLayer(cfg, has_cross=i >= cfg.fusion_layer,
+                      drop_path=dpr[i], dtype=dtype, device=device)
+            for i in range(cfg.num_layers))
+
+    def forward(self, input_ids=None, attention_mask=None, encoder_embeds=None,
+                encoder_hidden_states=None, encoder_attention_mask=None,
+                mode: str = "multi_modal", generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        cfg = self.config
+        if mode == "fusion":
+            lo, hi = cfg.fusion_layer, cfg.num_layers
+            if encoder_embeds is None:
+                raise ValueError("mode='fusion' requires encoder_embeds")
+            x = encoder_embeds.to(self.dtype)
+        elif mode in ("text", "multi_modal"):
+            lo, hi = 0, (cfg.fusion_layer if mode == "text" else cfg.num_layers)
+            x = (encoder_embeds.to(self.dtype) if encoder_embeds is not None
+                 else self.embeddings(input_ids, generator))
+        else:
+            raise ValueError(f"mode {mode!r}: one of text, fusion, multi_modal")
+        for layer in self.encoder.layer[lo:hi]:
+            x = layer(x, attention_mask, encoder_hidden_states,
+                      encoder_attention_mask, generator)
+        return x
+
+
+class TextEncoder(nn.Module):
+    """The text tower under the reference's name: ``text_encoder.bert``
+    (the MLM head ``text_encoder.cls`` joins it with the training slice)."""
+
+    def __init__(self, config: BertConfig, *, dtype: torch.dtype = torch.bfloat16,
+                 device=None):
+        super().__init__()
+        self.bert = BertEncoder(config, dtype=dtype, device=device)
+
+    def forward(self, *args, **kwargs) -> torch.Tensor:
+        return self.bert(*args, **kwargs)

@@ -1,0 +1,320 @@
+"""Shared building blocks of the encoder stacks (counterpart of
+x2vlm_tpu/ops/layers.py).
+
+Precision contract, as in the JAX package: parameters are fp32, matmuls run
+in the module's compute ``dtype`` (bf16 by default), LayerNorm statistics
+and softmax run in fp32.
+
+Parameters are created uninitialised (no global RNG is touched); a model
+fills them with :func:`init_weights` from an explicit ``torch.Generator`` or
+loads them (``convert.py``). Parameter names are the reference X2-VLM
+checkpoint names, so a released state dict loads with ``load_state_dict``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from x2vlm_tpu_torch.device import resolve_device
+from x2vlm_tpu_torch.ops.attention import dot_product_attention
+from x2vlm_tpu_torch.ops.flash_attention import flash_attention, flash_supported
+from x2vlm_tpu_torch.ops.tiny_attention import tiny_block_attention, tiny_supported
+
+__all__ = ["LayerNorm", "FusedLayerNorm", "Mlp", "DropPath", "MultiHeadAttention",
+           "PatchEmbed", "gelu_exact", "gelu_fast", "ACTIVATIONS", "dense",
+           "dropout", "init_weights", "linear", "layer_norm", "IMAGE_MEAN",
+           "IMAGE_STD"]
+
+# CLIP image statistics (same values as x2vlm_tpu/data/transforms.py; the
+# uint8 path must match host normalization bit for bit)
+IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
+IMAGE_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def linear(in_features: int, out_features: int, bias: bool = True,
+           device=None) -> nn.Linear:
+    """An ``nn.Linear`` whose parameters are allocated but not initialised."""
+    return torch.nn.utils.skip_init(nn.Linear, in_features, out_features,
+                                    bias=bias, device=device)
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+          dtype: torch.dtype) -> torch.Tensor:
+    """``x @ weight.T + bias`` with inputs and parameters cast to ``dtype``."""
+    return F.linear(x.to(dtype), weight.to(dtype),
+                    None if bias is None else bias.to(dtype))
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            training: bool) -> torch.Tensor:
+    """Inverted dropout drawing from an explicit generator."""
+    if not training or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+class PatchEmbed(nn.Module):
+    """Non-overlapping patchify as space-to-depth + one matmul over NHWC
+    pixels; the weight keeps the reference's conv layout
+    (``proj.weight`` (C, in, p, p), ``proj.bias``). uint8 pixels are
+    CLIP-normalised in fp32 first. Returns (B, num_patches, C)."""
+
+    def __init__(self, embed_dim: int, patch_size: int, in_chans: int = 3, *,
+                 dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.patch_size = patch_size
+        self.dtype = dtype
+        self.proj = torch.nn.utils.skip_init(
+            nn.Conv2d, in_chans, embed_dim, patch_size, stride=patch_size,
+            device=device)
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        p = self.patch_size
+        B, H, W, C = pixels.shape
+        if pixels.dtype == torch.uint8:
+            mean = torch.tensor(IMAGE_MEAN, dtype=torch.float32, device=pixels.device)
+            std = torch.tensor(IMAGE_STD, dtype=torch.float32, device=pixels.device)
+            pixels = (pixels.to(torch.float32) / 255.0 - mean) / std
+        x = pixels.to(self.dtype)
+        # (B, H, W, C) -> (B, N, p*p*C), flattened in (ph, pw, C) order
+        x = x.reshape(B, H // p, p, W // p, p, C).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(B, (H // p) * (W // p), p * p * C)
+        w = self.proj.weight.permute(0, 2, 3, 1).reshape(-1, p * p * C)
+        return dense(x, w, self.proj.bias, self.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """fp32 LayerNorm with the fast-variance formula E[x^2] - E[x]^2 (as
+    flax's and the JAX FusedLayerNorm); returns fp32."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf * xf).mean(dim=-1, keepdim=True) - mean * mean
+    return (xf - mean) * torch.rsqrt(var + eps) * weight + bias
+
+
+class FusedLayerNorm(nn.LayerNorm):
+    """LayerNorm with fp32 statistics that returns its input's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, *, device=None):
+        super().__init__(dim, eps=eps, device=resolve_device(device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps).to(x.dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """fp32 LayerNorm returning ``dtype``."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, *,
+                 dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__(dim, eps=eps, device=resolve_device(device))
+        self.out_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps).to(self.out_dtype)
+
+
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """erf GELU computed in fp32 (the JAX package's tanh-polynomial form of
+    the same function is within 4.8e-7 of it)."""
+    return F.gelu(x.float()).to(x.dtype)
+
+
+def gelu_fast(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximated GELU."""
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {"gelu": gelu_exact, "gelu_exact": gelu_exact,
+               "gelu_fast": gelu_fast}
+
+
+class Mlp(nn.Module):
+    """Transformer FFN: ``fc1`` -> act -> ``fc2`` (+ dropout)."""
+
+    def __init__(self, dim: int, hidden_dim: int, out_dim: Optional[int] = None, *,
+                 act: Callable = gelu_exact, dropout_rate: float = 0.0,
+                 dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        self.act = act
+        self.dropout_rate = dropout_rate
+        self.dtype = dtype
+        self.fc1 = linear(dim, hidden_dim, device=device)
+        self.fc2 = linear(hidden_dim, out_dim or dim, device=device)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.act(dense(x, self.fc1.weight, self.fc1.bias, self.dtype))
+        x = dense(x, self.fc2.weight, self.fc2.bias, self.dtype)
+        return dropout(x, self.dropout_rate, generator, self.training)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth per sample: the identity in eval; in training each row
+    is dropped with probability ``rate`` (drawn from ``generator``) and the
+    kept rows are scaled by 1/(1-rate)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class MultiHeadAttention(nn.Module):
+    """Q/K/V projections around the attention core, with the kernel dispatch
+    of the JAX package's ``MultiHeadAttention``:
+
+    - short queries (Sq <= 64) with no bias, whose head's K/V fit the
+      kernel's shared memory (``tiny_supported``), go to the tiny kernel on
+      the projection layout; q is scaled in the compute dtype after its
+      projection;
+    - Sq and Skv >= 128 (no attention dropout) go to the flash kernel on
+      the (B, H, S, D) layout, with the softmax scale folded into the query
+      weights and bias in fp32 before the cast;
+    - anything else runs the plain ``dot_product_attention``, with the scale
+      folded the same way.
+
+    Parameter names follow the reference checkpoints. ``qkv_bias_mode="qv"``
+    is BEiT-2's fused ``qkv`` weight with ``q_bias`` / ``v_bias`` (no key
+    bias); "full" (q, k, v biases) and "none" are BERT's separate ``query`` /
+    ``key`` / ``value``. ``out_proj=True`` adds the output projection
+    ``proj`` (BEiT-2); BERT keeps its output projection outside, in
+    ``attention.output.dense``. Without ``proj`` the module returns the
+    merged heads, (B, Sq, H*D).
+    """
+
+    def __init__(self, dim: int, num_heads: int, *, kv_dim: Optional[int] = None,
+                 qkv_bias_mode: str = "full", out_proj: bool = False,
+                 attn_dropout_rate: float = 0.0, proj_dropout_rate: float = 0.0,
+                 dtype: torch.dtype = torch.bfloat16, quant: bool = False,
+                 device=None):
+        super().__init__()
+        if quant:
+            raise NotImplementedError(
+                "int8 W8A8 projections (quant_int8) are ported with the int8 "
+                "matmul kernel in a later slice")
+        device = resolve_device(device)
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        inner = self.head_dim * num_heads
+        kv_dim = kv_dim or dim
+        self.qkv_bias_mode = qkv_bias_mode
+        self.attn_dropout_rate = attn_dropout_rate
+        self.proj_dropout_rate = proj_dropout_rate
+        self.dtype = dtype
+        if qkv_bias_mode == "qv":
+            if kv_dim != dim:
+                raise ValueError("the fused qkv projection is self-attention only")
+            self.qkv = linear(dim, 3 * inner, bias=False, device=device)
+            self.q_bias = nn.Parameter(torch.empty(inner, device=device))
+            self.v_bias = nn.Parameter(torch.empty(inner, device=device))
+        elif qkv_bias_mode in ("full", "none"):
+            with_bias = qkv_bias_mode == "full"
+            self.query = linear(dim, inner, with_bias, device=device)
+            self.key = linear(kv_dim, inner, with_bias, device=device)
+            self.value = linear(kv_dim, inner, with_bias, device=device)
+        else:
+            raise ValueError(f"qkv_bias_mode {qkv_bias_mode!r}: one of full, qv, none")
+        self.proj = linear(inner, dim, device=device) if out_proj else None
+
+    def _project(self, x, kv_src, q_scale: float):
+        """(q, k, v) in (B, S, H*D); ``q_scale`` is folded into the query
+        weight and bias in fp32 before the cast to the compute dtype."""
+        dt = self.dtype
+        if self.qkv_bias_mode == "qv":
+            inner = self.q_bias.shape[0]
+            w = self.qkv.weight
+            if q_scale != 1.0:
+                w = torch.cat([w[:inner] * q_scale, w[inner:]])
+            b = torch.cat([self.q_bias * q_scale, torch.zeros_like(self.v_bias),
+                           self.v_bias])
+            return dense(x, w, b, dt).split(inner, dim=-1)
+
+        def fold(layer):
+            b = layer.bias
+            if q_scale == 1.0:
+                return layer.weight, b
+            return layer.weight * q_scale, None if b is None else b * q_scale
+
+        q = dense(x, *fold(self.query), dt)
+        k = dense(kv_src, self.key.weight, self.key.bias, dt)
+        v = dense(kv_src, self.value.weight, self.value.bias, dt)
+        return q, k, v
+
+    def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None, *,
+                bias: Optional[torch.Tensor] = None,
+                key_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                cache=None) -> torch.Tensor:
+        if cache is not None:
+            raise NotImplementedError(
+                "the static decode cache (captioning) arrives with a later slice")
+        B, Sq, _ = x.shape
+        kv_src = x if kv is None else kv
+        Skv = kv_src.shape[1]
+        H, D = self.num_heads, self.head_dim
+        scale = D ** -0.5
+        drop = self.attn_dropout_rate if self.training else 0.0
+
+        if bias is None and tiny_supported(Sq, Skv, D):
+            q, k, v = self._project(x, kv_src, 1.0)
+            out = tiny_block_attention(q, k, v, num_heads=H, key_mask=key_mask,
+                                       dropout_rate=drop, generator=generator,
+                                       training=self.training, scale=scale)
+        else:
+            q, k, v = self._project(x, kv_src, scale)
+            q = q.reshape(B, Sq, H, D).transpose(1, 2).contiguous()
+            k = k.reshape(B, Skv, H, D).transpose(1, 2).contiguous()
+            v = v.reshape(B, Skv, H, D).transpose(1, 2).contiguous()
+            if drop == 0.0 and flash_supported(q, k):
+                out = flash_attention(q, k, v, bias=bias, key_mask=key_mask,
+                                      scale=1.0)
+            else:
+                out = dot_product_attention(
+                    q, k, v, bias=bias, key_mask=key_mask, scale=1.0,
+                    dropout_rate=drop, generator=generator,
+                    training=self.training)
+            out = out.transpose(1, 2).reshape(B, Sq, H * D)
+        if self.proj is not None:
+            out = dense(out, self.proj.weight, self.proj.bias, self.dtype)
+            out = dropout(out, self.proj_dropout_rate, generator, self.training)
+        return out
+
+
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: torch.Generator,
+                 std: float = 0.02) -> None:
+    """Fill every parameter of ``module`` from ``generator``: linear, conv and
+    embedding weights ~ N(0, std), biases 0, LayerNorm 1 / 0; a submodule
+    with an ``init_extra(generator, std)`` method fills its own parameters
+    after that."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Embedding)):
+            m.weight.normal_(0.0, std, generator=generator)
+            if getattr(m, "bias", None) is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, MultiHeadAttention) and m.qkv_bias_mode == "qv":
+            m.q_bias.zero_()
+            m.v_bias.zero_()
+    for m in module.modules():
+        if hasattr(m, "init_extra"):
+            m.init_extra(generator, std)

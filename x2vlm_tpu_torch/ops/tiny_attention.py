@@ -1,0 +1,186 @@
+"""Short-query multi-head attention on the projection layout — text
+self-attention (Sq = Skv ~ 40) and the fusion layers' cross-attention to the
+image stream (Sq ~ 40, Skv ~ 200).
+
+Counterpart of x2vlm_tpu/ops/tiny_attention.py. Three functions:
+
+- :func:`tiny_attention_fwd` is the kernel's wrapper: for CUDA tensors it
+  launches the hand-written Hopper kernel (``csrc/tiny_attention_fwd.cu``)
+  or raises; for CPU tensors it runs :func:`tiny_attention_reference`.
+  It returns ``(out, probs)``: the fp32 pre-dropout probabilities
+  (B, Sq, H*Skv) when ``return_probs`` (the backward of the training slice
+  reads them), else None. ``tiny_attention_fwd.launches`` counts kernel
+  launches and ``tiny_attention_fwd.launches_by_shape`` splits them by
+  (Sq, Skv).
+- :func:`tiny_attention_reference` is the plain PyTorch version (counterpart
+  of ``_xla_reference``).
+- :func:`tiny_block_attention` is the public entry (the JAX name), which
+  draws the dropout multiplier from an explicit generator when training.
+
+I/O is the projection layout: q (B, Sq, H*D), k/v (B, Skv, H*D), out
+(B, Sq, H*D). q is multiplied by ``scale`` in q's dtype, as the reference's
+``qw * scale`` does. Sequence lengths need no padding.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from x2vlm_tpu_torch.ops import _build
+from x2vlm_tpu_torch.ops.attention import NEG_INF, dropout_multiplier
+
+__all__ = ["tiny_attention_fwd", "tiny_attention_reference",
+           "tiny_block_attention", "tiny_supported", "smem_bytes"]
+
+MAX_QUERY_LEN = 64  # the dispatch rule's short-query bound
+_DTYPES = _build.DTYPE_CODES
+_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+_WARPS = 8            # warps per block in csrc/tiny_attention_fwd.cu
+
+
+def smem_bytes(Skv: int, head_dim: int) -> int:
+    """Shared memory one block takes: one head's K (row stride D+1) and V in
+    fp32, and one probability row and one query row per warp. The same
+    formula as ``smem_bytes`` in csrc/tiny_attention_fwd.cu (chip_smoke.py
+    holds the two equal)."""
+    return 4 * (Skv * (head_dim + 1) + Skv * head_dim + _WARPS * Skv
+                + _WARPS * head_dim)
+
+
+def tiny_supported(Sq: int, Skv: int, head_dim: int) -> bool:
+    """Dispatch rule: short queries whose head's K/V fit one block's shared
+    memory (Skv up to 420 at D=64)."""
+    return Sq <= MAX_QUERY_LEN and smem_bytes(Skv, head_dim) <= _SMEM_LIMIT
+
+
+def _dtype_scale(scale: float, dtype: torch.dtype) -> float:
+    """``scale`` rounded to ``dtype`` (the reference casts it before the multiply)."""
+    return float(torch.tensor(scale, dtype=dtype))
+
+
+def tiny_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+    key_mask: Optional[torch.Tensor] = None,
+    dmask: Optional[torch.Tensor] = None,
+    scale: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch tiny attention; returns (out, probs f32 pre-dropout)."""
+    B, Sq, HD = q.shape
+    Skv = k.shape[1]
+    H = num_heads
+    D = HD // H
+    qs = q * _dtype_scale(scale, q.dtype)
+    q4 = qs.view(B, Sq, H, D).transpose(1, 2)
+    k4 = k.view(B, Skv, H, D).transpose(1, 2)
+    v4 = v.view(B, Skv, H, D).transpose(1, 2)
+    logits = torch.matmul(q4.float(), k4.float().transpose(-1, -2))
+    if key_mask is not None:
+        krow = torch.where(key_mask != 0, 0.0, NEG_INF).to(torch.float32)
+        logits = logits + krow[:, None, None, :]
+    p = torch.softmax(logits, dim=-1)                     # (B, H, Sq, Skv)
+    probs = p.transpose(1, 2).reshape(B, Sq, H * Skv)
+    if dmask is not None:
+        p = p * dmask.view(B, Sq, H, Skv).transpose(1, 2).float()
+    out = torch.matmul(p.to(v.dtype), v4)                 # (B, H, Sq, D)
+    return out.transpose(1, 2).reshape(B, Sq, HD), probs
+
+
+def tiny_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+    key_mask: Optional[torch.Tensor] = None,
+    dmask: Optional[torch.Tensor] = None,
+    scale: float = 1.0,
+    return_probs: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Tiny attention forward; returns (out, probs or None). See module doc."""
+    if q.device.type == "cpu":
+        out, probs = tiny_attention_reference(q, k, v, num_heads, key_mask,
+                                              dmask, scale)
+        return out, (probs if return_probs else None)
+    if q.device.type != "cuda":
+        raise ValueError(f"tiny_attention_fwd: unsupported device {q.device}")
+    _build.check_no_grad(q, k, v)
+    B, Sq, HD = q.shape
+    Skv = k.shape[1]
+    H = num_heads
+    if HD % H:
+        raise ValueError(f"tiny_attention_fwd: width {HD} not divisible by {H} heads")
+    D = HD // H
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"tiny_attention_fwd takes f32 or bf16 q/k/v of one "
+                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if k.shape != (B, Skv, HD) or v.shape != k.shape:
+        raise ValueError(f"tiny_attention_fwd: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)} do not match")
+    for t in (k, v, key_mask, dmask):
+        if t is not None and t.device != q.device:
+            raise ValueError("tiny_attention_fwd: operands on different devices")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    km_ptr = None
+    if key_mask is not None:
+        if tuple(key_mask.shape) != (B, Skv):
+            raise ValueError(f"tiny_attention_fwd: key_mask {tuple(key_mask.shape)} "
+                             f"is not ({B}, {Skv})")
+        key_mask = (key_mask != 0).to(torch.uint8).contiguous()
+        km_ptr = key_mask.data_ptr()
+    dm_ptr, dm_kind = None, 0
+    if dmask is not None:
+        if tuple(dmask.shape) != (B, Sq, H * Skv) or dmask.dtype not in _build.OPERAND_KINDS:
+            raise ValueError(f"tiny_attention_fwd: dmask {tuple(dmask.shape)} "
+                             f"{dmask.dtype} is not ({B}, {Sq}, {H * Skv}) f32/bf16")
+        dmask = dmask.contiguous()
+        dm_ptr, dm_kind = dmask.data_ptr(), _build.OPERAND_KINDS[dmask.dtype]
+
+    if smem_bytes(Skv, D) > _SMEM_LIMIT:
+        raise ValueError(f"tiny_attention_fwd: Skv={Skv}, D={D} needs "
+                         f"{smem_bytes(Skv, D)} B of shared memory per block "
+                         f"(limit {_SMEM_LIMIT})")
+    lib = _build.load("tiny_attention_fwd")
+    out = torch.empty_like(q)
+    probs = torch.empty((B, Sq, H * Skv), dtype=torch.float32,
+                        device=q.device) if return_probs else None
+    fn = lib.x2_tiny_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + \
+        [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), km_ptr, dm_ptr, dm_kind,
+                 out.data_ptr(), None if probs is None else probs.data_ptr(),
+                 B, Sq, Skv, H, D, _DTYPES[q.dtype],
+                 _dtype_scale(scale, q.dtype), stream)
+    _build.check(lib, err, "tiny_attention_fwd")
+    tiny_attention_fwd.launches += 1
+    tiny_attention_fwd.launches_by_shape[(Sq, Skv)] += 1
+    return out, probs
+
+
+tiny_attention_fwd.launches = 0
+tiny_attention_fwd.launches_by_shape = collections.Counter()
+
+
+def tiny_block_attention(
+    qw: torch.Tensor, kw: torch.Tensor, vw: torch.Tensor, *,
+    num_heads: int,
+    key_mask: Optional[torch.Tensor] = None,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    training: bool = False,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Multi-head attention on projection-layout inputs; returns (B, Sq, H*D).
+
+    Attention-probability dropout (``training`` and ``dropout_rate > 0``) is
+    a multiplier drawn from ``generator`` and passed to the kernel."""
+    B, Sq, HD = qw.shape
+    if scale is None:
+        scale = (HD // num_heads) ** -0.5
+    dmask = None
+    if training and dropout_rate > 0.0:
+        dmask = dropout_multiplier((B, Sq, num_heads * kw.shape[1]), dropout_rate,
+                                   generator, qw.dtype, qw.device)
+    return tiny_attention_fwd(qw, kw, vw, num_heads, key_mask, dmask, scale)[0]
