@@ -8,26 +8,37 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. build every CUDA kernel of the port from ``x2vlm_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together);
-2. hold each kernel against its plain PyTorch version on the card: at the
-   main path's shapes in bf16, with fp32 plain as truth and the rule
+2. hold each kernel (flash forward, dQ, dK/dV, dBias; tiny forward and
+   backward) against its plain PyTorch version on the card: at the main
+   paths' shapes in bf16, with fp32 plain as truth and the rule
    kernel_err <= max(4 x plain_bf16_err, 1e-3 x max|truth|), and over the
    rest of each kernel's contract (key masks, fully masked rows, causal,
-   Sq != Skv, fp32, other head dims) at small shapes; time the kernel, its
-   plain version and one PyTorch library call with CUDA events;
-3. the main path: X2VLM-base at 224 px with weights drawn from ``--seed``
-   serves ``encode_images`` (128 images), ``encode_texts`` (128 texts of 40
-   tokens, some padded) and ``itm_score`` (128 pairs) through
+   Sq != Skv, per-batch and head-shared bias, dropout multiplier, fp32,
+   other head dims) at small shapes; time the kernel, its plain version and
+   one PyTorch library call (SDPA forward or backward) with CUDA events;
+3. the serving path: X2VLM-base at 224 px with weights drawn from
+   ``--seed`` serves ``encode_images`` (128 images), ``encode_texts`` (128
+   texts of 40 tokens, some padded) and ``itm_score`` (128 pairs) through
    ``RetrievalServer``; the launch counts of each request are read and
    checked (12 flash per image batch, 12 tiny per text batch, 12 tiny per
    rerank batch), outputs are checked for shape and finiteness, and the
-   requests are timed;
-4. the same weights on the port's CPU path in fp32 for 2 rows, against the
-   card's rows.
+   requests are timed; the same weights on the port's CPU path in fp32 for
+   2 rows, against the card's rows;
+4. the training path: X2VLM-base pretraining steps (ITC + ITM + MLM,
+   AdamW, ``lr_schedule(1e-4, 1000, 100)``) at B=32, 40 tokens, 12 masked,
+   uint8 images, the config's dropouts on; the launch counts of one step
+   are read and checked (12 flash forward / dQ / dK-dV / dBias; tiny
+   forward and backward 12 + 6 at 40x40 and 6 at 40x200), the losses and
+   the gradient norm must be finite, the step is timed (median of 7 after
+   2 warm-up steps) with its peak device memory; then the same weights
+   with dropout off at B=2 and injected hard negatives, card bf16 against
+   the port's CPU fp32 path: losses, and gradient cosines >= 0.99.
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line of
-kernels, and as its last line ``{"ok": true, "device": {...}}``.
-``--profile DIR`` also writes a torch.profiler table of one round of
-requests to ``DIR/chip_smoke_profile.txt``.
+kernels (with their launches on the two main paths), and as its last line
+``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes
+torch.profiler tables of one round of requests and of one train step to
+``DIR/chip_smoke_profile.txt`` and ``DIR/chip_smoke_train_profile.txt``.
 """
 
 from __future__ import annotations
@@ -46,19 +57,27 @@ import time
 import torch
 import torch.nn.functional as F
 
-from x2vlm_tpu_torch.models import XVLMConfig, XVLMForRetrieval
+from x2vlm_tpu_torch.models import XVLMConfig, XVLMForPretrain, XVLMForRetrieval
 from x2vlm_tpu_torch.ops import _build
 from x2vlm_tpu_torch.ops.flash_attention import (
+    _bwd_launchers, flash_attention_bwd, flash_attention_bwd_reference,
     flash_attention_fwd, flash_attention_reference,
 )
 from x2vlm_tpu_torch.ops.tiny_attention import (
-    smem_bytes as tiny_smem_bytes, tiny_attention_fwd, tiny_attention_reference,
+    bwd_smem_bytes as tiny_bwd_smem_bytes, smem_bytes as tiny_smem_bytes,
+    tiny_attention_bwd, tiny_attention_bwd_reference, tiny_attention_fwd,
+    tiny_attention_reference,
 )
 from x2vlm_tpu_torch.serving import RetrievalServer
+from x2vlm_tpu_torch.train import create_optimizer, lr_schedule, make_train_step, param_labels
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (data sheet)
 BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak (data sheet)
-BATCH, TEXT_LEN = 128, 40
+BATCH, TEXT_LEN = 128, 40          # serving requests
+TRAIN_BATCH, N_MASKED = 32, 12     # the pretraining step (bench.py:104-121)
+FLASH_BWD_REPLACES = {"dq": "x2vlm_tpu/ops/flash_attention.py:368",
+                      "dkv": "x2vlm_tpu/ops/flash_attention.py:413",
+                      "dbias": "x2vlm_tpu/ops/flash_attention.py:480"}
 
 FAILURES = []
 
@@ -234,7 +253,7 @@ def check_tiny(gen, dev):
         entries.append(dict(
             name="tiny_attention_fwd", shape=f"B{BATCH} {Sq}x{Skv} H{H} D{D} key_mask bf16",
             route="cuda", source="x2vlm_tpu_torch/csrc/tiny_attention_fwd.cu",
-            replaces="x2vlm_tpu/ops/tiny_attention.py:88", sq_skv=(Sq, Skv),
+            replaces="x2vlm_tpu/ops/tiny_attention.py:88", key=(BATCH, Sq, Skv),
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms))
 
@@ -294,10 +313,213 @@ def check_tiny(gen, dev):
     return entries
 
 
+def _sdpa_bwd_ms(q, k, v, mask, dout, scale):
+    """One SDPA forward + autograd.grad, timed on the backward alone: the
+    backward of a graph kept with retain_graph. Returns ms or None with the
+    reason logged (a yardstick only: the port never calls SDPA)."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    m = mask
+    if mask is not None and mask.dtype != torch.bool:
+        m = mask.detach().requires_grad_()
+        leaves.append(m)
+    try:
+        with torch.inference_mode(False), torch.enable_grad():
+            o = F.scaled_dot_product_attention(*leaves[:3], attn_mask=m, scale=scale)
+            return time_ms(lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True),
+                           inner=5, reps=5)
+    except RuntimeError as e:   # no SDPA backend takes these operands
+        log(f"sdpa backward not timed: {str(e).splitlines()[0][:200]}")
+        return None
+
+
+def check_flash_bwd(gen, dev):
+    """K2/K3/K4 at the training step's shape in bf16 (checked and timed),
+    then over the contract at small shapes."""
+    B, H, S, D = TRAIN_BATCH, 12, 197, 64
+    q, k, v, bias = flash_inputs(gen, dev, B, H, S, S, D, torch.bfloat16, (1, H, S, S))
+    dout = torch.randn(B, H, S, D, generator=gen, device=dev).to(torch.bfloat16)
+    out, lse = flash_attention_fwd(q, k, v, bias)
+    got = flash_attention_bwd(q, k, v, bias, None, out, lse, dout)
+    p_out, p_lse = flash_attention_reference(q, k, v, bias)
+    plain = flash_attention_bwd_reference(q, k, v, bias, None, p_out, p_lse, dout)
+    tq, tk, tv, tb, tdo = as_f32(q, k, v, bias, dout)
+    t_out, t_lse = flash_attention_reference(tq, tk, tv, tb)
+    truth = flash_attention_bwd_reference(tq, tk, tv, tb, None, t_out, t_lse, tdo)
+    errs = {}
+    for label, a, p, t in zip(("dq", "dk", "dv", "dbias"), got, plain, truth):
+        errs[label] = rule_bf16(f"flash_attention_bwd {label} B{B} H{H} S{S} D{D} "
+                                f"bias(1,H,S,S) bf16", a, p, t)
+
+    launch = _bwd_launchers(q, k, v, bias, None, out, lse, dout, False, 1.0)
+    plain_ms = time_ms(lambda: flash_attention_bwd_reference(q, k, v, bias, None, out, lse,
+                                                             dout), inner=2, reps=5)
+    lib_ms = _sdpa_bwd_ms(q, k, v, bias, dout, 1.0)
+    read = nbytes(q, k, v, dout, bias, lse) + lse.numel() * 4   # + delta
+    ops = float(B * H * S * S * D)
+    shape = f"B{B} H{H} S{S} D{D} bias(1,{H},{S},{S}) bf16"
+    entries = []
+    for name, kern, wbytes, flops, err in (
+            ("flash_attention_bwd_dq", "dq", nbytes(q), 6 * ops, errs["dq"]),
+            ("flash_attention_bwd_dkv", "dkv", nbytes(k, v), 8 * ops,
+             max(errs["dk"], errs["dv"])),
+            ("flash_attention_bwd_dbias", "dbias", H * S * S * 4, 4 * ops, errs["dbias"])):
+        ms = time_ms(launch[kern])
+        b_ms, b_by = bound_ms(read + wbytes, flops)
+        log(f"time {name}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        entries.append(dict(
+            name=name, shape=shape, route="cuda",
+            source="x2vlm_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces=FLASH_BWD_REPLACES[kern], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            plain_and_library_cover="dq+dk+dv+dbias"))
+    log(f"time flash_attention_bwd plain (all three) {plain_ms:.4f} ms, sdpa backward "
+        f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms")
+
+    # the rest of the contract, at small shapes
+    for name, (B, H, Sq, Skv, D, bias_shape, masked, causal) in {
+        "bias(B,H) D128": (3, 2, 150, 150, 128, (3, 2, 150, 150), False, False),
+        "bias(1,1) D256 130x129": (2, 3, 130, 129, 256, (1, 1, 130, 129), False, False),
+        "key_mask+fully_masked_row D192": (3, 2, 130, 130, 192, None, True, False),
+        "causal bias(1,H)": (2, 3, 200, 200, 64, (1, 3, 200, 200), False, True),
+        "cross Sq100 Skv300 key_mask": (2, 2, 100, 300, 64, None, True, False),
+    }.items():
+        km = None
+        if masked:
+            km = (torch.rand(B, Skv, generator=gen, device=dev) > 0.3).to(torch.int32)
+            km[1] = 0
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, bias = flash_inputs(gen, dev, B, H, Sq, Skv, D, dtype, bias_shape)
+            dout = torch.randn(B, H, Sq, D, generator=gen, device=dev).to(dtype)
+            out, lse = flash_attention_fwd(q, k, v, bias, km, causal)
+            got = flash_attention_bwd(q, k, v, bias, km, out, lse, dout, causal)
+            tq, tk, tv, tb, tdo = as_f32(q, k, v, bias, dout)
+            t_out, t_lse = flash_attention_reference(tq, tk, tv, tb, km, causal)
+            truth = flash_attention_bwd_reference(tq, tk, tv, tb, km, t_out, t_lse, tdo,
+                                                  causal)
+            tag = f"flash_attention_bwd {name} {str(dtype)[6:]}"
+            if dtype == torch.bfloat16:
+                p_out, p_lse = flash_attention_reference(q, k, v, bias, km, causal)
+                plain = flash_attention_bwd_reference(q, k, v, bias, km, p_out, p_lse,
+                                                      dout, causal)
+            for i, label in enumerate(("dq", "dk", "dv", "dbias")):
+                if truth[i] is None:
+                    continue
+                if dtype == torch.bfloat16:
+                    rule_bf16(f"{tag} {label}", got[i], plain[i], truth[i])
+                else:
+                    rule_f32(f"{tag} {label}", got[i], truth[i])
+    return entries
+
+
+def check_tiny_bwd(gen, dev):
+    """K6 at the training step's three shapes in bf16 with key mask and
+    dropout multiplier (checked and timed), then over the contract."""
+    entries = []
+    H, D = 12, 64
+    scale = D ** -0.5
+    for label, B, Sq, Skv in (("text self-attention", 2 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN),
+                              ("fusion self-attention", 4 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN),
+                              ("fusion cross-attention", 4 * TRAIN_BATCH, TEXT_LEN, 200)):
+        q, k, v = tiny_inputs(gen, dev, B, Sq, Skv, H, D, torch.bfloat16)
+        g = torch.randn(B, Sq, H * D, generator=gen, device=dev).to(torch.bfloat16)
+        km = torch.ones(B, Skv, dtype=torch.int32, device=dev)
+        if Skv == Sq:
+            lens = torch.randint(5, Skv + 1, (B,), generator=gen, device=dev)
+            km = (torch.arange(Skv, device=dev)[None] < lens[:, None]).to(torch.int32)
+        else:
+            km[:, 197:] = 0
+        keep = torch.rand(B, Sq, H * Skv, generator=gen, device=dev) >= 0.1
+        dm = torch.where(keep, 1.0 / 0.9, 0.0).to(torch.bfloat16)
+        _, probs = tiny_attention_fwd(q, k, v, H, km, dm, scale, return_probs=True)
+        got = tiny_attention_bwd(q, k, v, probs, dm, g, H, scale)
+        _, p_probs = tiny_attention_reference(q, k, v, H, km, dm, scale)
+        plain = tiny_attention_bwd_reference(q, k, v, p_probs, dm, g, H, scale)
+        tq, tk, tv, tg, tdm = as_f32(q, k, v, g, dm)
+        _, t_probs = tiny_attention_reference(tq, tk, tv, H, km, tdm, scale)
+        truth = tiny_attention_bwd_reference(tq, tk, tv, t_probs, tdm, tg, H, scale)
+        err = max(rule_bf16(f"tiny_attention_bwd {lab} {label} B{B} {Sq}x{Skv} H{H} "
+                            f"D{D} key_mask dropout bf16", a, p, t)
+                  for lab, a, p, t in zip(("dq", "dk", "dv"), got, plain, truth))
+        ms = time_ms(lambda: tiny_attention_bwd(q, k, v, probs, dm, g, H, scale))
+        plain_ms = time_ms(lambda: tiny_attention_bwd_reference(q, k, v, probs, dm, g, H,
+                                                                scale), inner=3, reps=5)
+        views = [t.view(B, t.shape[1], H, D).transpose(1, 2) for t in (q, k, v)]
+        lib_ms = _sdpa_bwd_ms(*views, (km != 0)[:, None, None, :],
+                              g.view(B, Sq, H, D).transpose(1, 2), scale)
+        b_ms, b_by = bound_ms(nbytes(q, k, v, g, probs, dm) + nbytes(q, k, v),
+                              8.0 * B * H * Sq * Skv * D)
+        log(f"time tiny_attention_bwd {label}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa backward {lib_ms} ms, bound {b_ms:.4f} ms ({b_by})")
+        entries.append(dict(
+            name="tiny_attention_bwd",
+            shape=f"B{B} {Sq}x{Skv} H{H} D{D} key_mask dropout bf16",
+            route="cuda", source="x2vlm_tpu_torch/csrc/tiny_attention_bwd.cu",
+            replaces="x2vlm_tpu/ops/tiny_attention.py:135", key=(B, Sq, Skv),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms))
+
+    # the dispatch rule's backward shared-memory formula is the kernel's
+    lib = _build.load("tiny_attention_bwd")
+    lib.x2_tiny_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.x2_tiny_attention_bwd_smem_bytes.restype = ctypes.c_longlong
+    for Sq, Skv, D in ((40, 40, 64), (40, 200, 64), (40, 257, 64), (64, 209, 64),
+                       (13, 27, 32), (1, 7, 128)):
+        c_bytes = lib.x2_tiny_attention_bwd_smem_bytes(Sq, Skv, D)
+        if c_bytes != tiny_bwd_smem_bytes(Sq, Skv, D):
+            fail(f"tiny bwd smem formula: Sq={Sq} Skv={Skv} D={D}: kernel {c_bytes}, "
+                 f"dispatch {tiny_bwd_smem_bytes(Sq, Skv, D)}")
+
+    for name, (B, Sq, Skv, H, D, masked, drop) in {
+        "non-multiple-of-8 13x27 D32": (3, 13, 27, 4, 32, True, True),
+        "no mask 64x209 D64": (2, 64, 209, 2, 64, False, True),
+        "1x7 D128 no dropout": (2, 1, 7, 3, 128, True, False),
+        "5x9 D256": (2, 5, 9, 2, 256, True, True),
+    }.items():
+        km = None
+        if masked:
+            km = torch.ones(B, Skv, dtype=torch.int32, device=dev)
+            km[0, Skv // 2:] = 0
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = tiny_inputs(gen, dev, B, Sq, Skv, H, D, dtype)
+            g = torch.randn(B, Sq, H * D, generator=gen, device=dev).to(dtype)
+            dm = None
+            if drop:
+                dm = torch.where(torch.rand(B, Sq, H * Skv, generator=gen, device=dev)
+                                 >= 0.2, 1.25, 0.0).to(dtype)
+            _, probs = tiny_attention_fwd(q, k, v, H, km, dm, D ** -0.5, return_probs=True)
+            got = tiny_attention_bwd(q, k, v, probs, dm, g, H, D ** -0.5)
+            tq, tk, tv, tg, tdm = as_f32(q, k, v, g, dm)
+            _, t_probs = tiny_attention_reference(tq, tk, tv, H, km, tdm, D ** -0.5)
+            truth = tiny_attention_bwd_reference(tq, tk, tv, t_probs, tdm, tg, H, D ** -0.5)
+            tag = f"tiny_attention_bwd {name} {str(dtype)[6:]}"
+            if dtype == torch.bfloat16:
+                _, p_probs = tiny_attention_reference(q, k, v, H, km, dm, D ** -0.5)
+                plain = tiny_attention_bwd_reference(q, k, v, p_probs, dm, g, H,
+                                                     D ** -0.5)
+            for i, label in enumerate(("dq", "dk", "dv")):
+                if dtype == torch.bfloat16:
+                    rule_bf16(f"{tag} {label}", got[i], plain[i], truth[i])
+                else:
+                    rule_f32(f"{tag} {label}", got[i], truth[i])
+    return entries
+
+
 def reset_counts() -> None:
     flash_attention_fwd.launches = 0
-    tiny_attention_fwd.launches = 0
-    tiny_attention_fwd.launches_by_shape.clear()
+    flash_attention_bwd.launches.clear()
+    for fn in (tiny_attention_fwd, tiny_attention_bwd):
+        fn.launches = 0
+        fn.launches_by_shape.clear()
+
+
+def train_counts():
+    """Launches of every kernel since the last reset: flash by kernel, tiny
+    by (B, Sq, Skv)."""
+    return {"flash_attention_fwd": flash_attention_fwd.launches,
+            **{f"flash_attention_bwd_{k}": flash_attention_bwd.launches[k]
+               for k in ("dq", "dkv", "dbias")},
+            "tiny_attention_fwd": collections.Counter(tiny_attention_fwd.launches_by_shape),
+            "tiny_attention_bwd": collections.Counter(tiny_attention_bwd.launches_by_shape)}
 
 
 def counts():
@@ -323,12 +545,157 @@ def serve(server, images, ids, atts):
     return (img_embeds, img_feat, txt_embeds, txt_feat, scores), per_request, by_shape
 
 
+def train_batch(gen, dev, cfg, B):
+    """A pretraining batch as bench.py's: uint8 images, 40-token texts of
+    lengths 5-40 (row 0 full), 12 masked positions inside each text."""
+    res, V = cfg.vision.image_res, cfg.text.vocab_size
+    lens = torch.randint(5, TEXT_LEN + 1, (B,), generator=gen, device=dev)
+    lens[0] = TEXT_LEN
+    atts = (torch.arange(TEXT_LEN, device=dev)[None] < lens[:, None]).to(torch.int32)
+    ids = torch.randint(1, V, (B, TEXT_LEN), generator=gen, device=dev) * atts
+    pos = (torch.rand(B, N_MASKED, generator=gen, device=dev) * lens[:, None]).long()
+    masked = ids.scatter(1, pos, 103)                       # [MASK]
+    return {"image": torch.randint(0, 256, (B, res, res, 3), generator=gen,
+                                   device=dev).to(torch.uint8),
+            "text_ids": ids, "text_atts": atts, "text_ids_masked": masked,
+            "masked_pos": pos, "masked_ids": torch.gather(ids, 1, pos)}
+
+
+def cosine_params(cfg):
+    """Gradients held to the CPU path: through K2/K3 (qkv), K4 (the rel-pos
+    table), K6 in a text and a fusion cross-attention layer, the tied MLM
+    decoder and ITC."""
+    return ("base.vision_encoder.blocks.0.attn.qkv.weight",
+            "base.vision_encoder.blocks.0.attn.relative_position_bias_table",
+            "base.text_encoder.bert.encoder.layer.0.attention.self.query.weight",
+            f"base.text_encoder.bert.encoder.layer.{cfg.text.fusion_layer}"
+            ".crossattention.self.key.weight",
+            "base.text_encoder.bert.embeddings.word_embeddings.weight",
+            "base.temp")
+
+
+def train_phase(args, dev, gen, smi):
+    """The second main path: X2VLM-base pretraining steps (ITC + ITM + MLM,
+    AdamW) at B=32 with the config's dropouts on. Returns the launches of
+    one step by kernel."""
+    cfg = XVLMConfig.base()
+    t0 = time.perf_counter()
+    model = XVLMForPretrain(cfg, dtype=torch.bfloat16, device=dev, seed=args.seed)
+    opt = create_optimizer(model, lr_schedule(1e-4, 1000, 100),
+                           labels=param_labels(model.named_parameters(),
+                                               cfg.text.fusion_layer))
+    step = make_train_step(model, opt)
+    batch = train_batch(gen, dev, cfg, TRAIN_BATCH)
+    itm_gen = torch.Generator(device=dev)
+    itm_gen.manual_seed(args.seed + 1)
+    drop_gen = torch.Generator(device=dev)
+    drop_gen.manual_seed(args.seed + 2)
+    torch.cuda.synchronize()
+    log(f"train model: X2VLM-base pretrain, {sum(p.numel() for p in model.parameters())} "
+        f"params, built in {time.perf_counter() - t0:.1f} s")
+
+    # the main path: one step, the counts set to 0 just before and read after
+    reset_counts()
+    metrics = step(batch, itm_gen, drop_gen)
+    torch.cuda.synchronize()
+    launches = train_counts()
+    shown = {k: v if isinstance(v, int) else {str(s): n for s, n in v.items()}
+             for k, v in launches.items()}
+    log(f"launches per train step: {json.dumps(shown)}")
+    n_fusion = cfg.text.num_layers - cfg.text.fusion_layer
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dbias"):
+        if launches[name] != cfg.vision.depth:
+            fail(f"train step: {name} launched {launches[name]} times, "
+                 f"expected {cfg.vision.depth}")
+    n_img = cfg.vision.num_patches + 1
+    n_img += -n_img % 8                  # the fusion pass pads the image stream
+    want_tiny = {(2 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): cfg.text.fusion_layer,
+                 (4 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): n_fusion,
+                 (4 * TRAIN_BATCH, TEXT_LEN, n_img): n_fusion}
+    for name in ("tiny_attention_fwd", "tiny_attention_bwd"):
+        if dict(launches[name]) != want_tiny:
+            fail(f"train step: {name} launches {dict(launches[name])}, expected {want_tiny}")
+    vals = {k: v.item() for k, v in metrics.items()}
+    log(f"train step 1 metrics: {json.dumps(vals)}")
+    if not all(math.isfinite(v) for v in vals.values()):
+        fail(f"train step: non-finite metrics {vals}")
+
+    # step time: 2 warm-up steps, then the median of 7, CUDA events
+    for _ in range(2):
+        step(batch, itm_gen, drop_gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(7):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(batch, itm_gen, drop_gen)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(m["loss_total"].item())
+    step_ms = statistics.median(times)
+    log(f"train step ms (B={TRAIN_BATCH}, CUDA events, median of 7 after 2 warm-up): "
+        f"{step_ms:.3f} [{min(times):.3f}-{max(times):.3f}]; samples/s "
+        f"{TRAIN_BATCH / step_ms * 1e3:.1f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; loss_total per step "
+        f"{[round(x, 4) for x in losses]}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train steps: non-finite loss_total {losses}")
+
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(batch, itm_gen, drop_gen)
+            torch.cuda.synchronize()
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
+        os.makedirs(args.profile, exist_ok=True)
+        with open(os.path.join(args.profile, "chip_smoke_train_profile.txt"), "w") as f:
+            f.write(f"{smi}\n{table}\n")
+        log(table[:8000])
+
+    # the same weights, dropout off, B=2, injected negatives: card bf16
+    # against the port's CPU fp32 path, losses and gradients
+    n = 2
+    small = {k: v[:n] for k, v in batch.items()}
+    neg = (torch.tensor([1, 0]), torch.tensor([1, 0]))
+    cpu_model = XVLMForPretrain(cfg, dtype=torch.float32, device="cpu", seed=None)
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    grads, card_losses = {}, {}
+    for tag, m, b, ng in (("card", model, small, tuple(t.to(dev) for t in neg)),
+                          ("cpu", cpu_model, {k: v.cpu() for k, v in small.items()}, neg)):
+        m.eval()
+        m.zero_grad(set_to_none=True)
+        losses = m(b, neg_idx=ng)
+        sum(losses.values()).backward()
+        card_losses[tag] = {k: v.item() for k, v in losses.items()}
+        params = dict(m.named_parameters())
+        grads[tag] = {k: params[k].grad.detach().double().cpu().reshape(-1)
+                      for k in cosine_params(cfg)}
+    cos = {k: F.cosine_similarity(grads["card"][k], grads["cpu"][k], dim=0).item()
+           for k in cosine_params(cfg)}
+    log(f"train card bf16 vs CPU fp32 (B={n}, dropout off, injected negatives): losses "
+        f"{json.dumps(card_losses)}; gradient cosine {json.dumps(cos)}")
+    for k, c in cos.items():
+        if not c >= 0.99:
+            fail(f"train gradient {k}: cosine to the fp32 CPU path {c:.5f} < 0.99")
+    for k, ref in card_losses["cpu"].items():
+        if not abs(card_losses["card"][k] - ref) <= 0.05 + 0.02 * abs(ref):
+            fail(f"train {k}: card {card_losses['card'][k]:.5f} vs CPU fp32 {ref:.5f}")
+    del model, opt, cpu_model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="DIR",
-                    help="write a torch.profiler table of one round of requests "
-                         "to DIR/chip_smoke_profile.txt")
+                    help="write torch.profiler tables of one round of requests and "
+                         "one train step to DIR")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs the port "
@@ -357,6 +724,9 @@ def run(args, dev: torch.device) -> int:
     with torch.inference_mode():
         flash_entry = check_flash(gen, dev)
         tiny_entries = check_tiny(gen, dev)
+    with torch.no_grad():
+        flash_bwd_entries = check_flash_bwd(gen, dev)
+        tiny_bwd_entries = check_tiny_bwd(gen, dev)
     torch.cuda.empty_cache()
 
     # ---- the main path: X2VLM-base retrieval serving at full width ----
@@ -454,11 +824,26 @@ def run(args, dev: torch.device) -> int:
     if not itm["max_abs_err"] <= 0.05 + 0.05 * itm["max_abs_ref"]:
         fail(f"itm_score: error to the fp32 CPU path {itm['max_abs_err']:.4f}")
 
-    kernels = [dict(flash_entry, launches=sum(p[0] for p in per_request.values()))]
+    del server, model, cpu_model
+    torch.cuda.empty_cache()
+
+    # ---- the second main path: X2VLM-base pretraining steps ----
+    train = train_phase(args, dev, gen, smi)
+
+    # launches on the main paths: serving requests + one train step
+    def entry(e, serving, training):
+        e = {k: v for k, v in e.items() if k != "key"}
+        return dict(e, launches=serving + training,
+                    launches_by_path={"serving": serving, "train_step": training})
+
+    kernels = [entry(flash_entry, sum(p[0] for p in per_request.values()),
+                     train["flash_attention_fwd"])]
     for e in tiny_entries:
-        e = dict(e)
-        e["launches"] = by_shape.get(tuple(e.pop("sq_skv")), 0)
-        kernels.append(e)
+        kernels.append(entry(e, by_shape.get(e["key"], 0), train["tiny_attention_fwd"][e["key"]]))
+    for e in flash_bwd_entries:
+        kernels.append(entry(e, 0, train[e["name"]]))
+    for e in tiny_bwd_entries:
+        kernels.append(entry(e, 0, train["tiny_attention_bwd"][e["key"]]))
     for e in kernels:
         if e["launches"] == 0:
             fail(f"{e['name']} ({e['shape']}) was not launched on the main path")

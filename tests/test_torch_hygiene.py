@@ -14,7 +14,8 @@ torch = pytest.importorskip("torch")
 
 from x2vlm_tpu_torch.convert import convert_jax_params  # noqa: E402
 from x2vlm_tpu_torch.models import (  # noqa: E402
-    BEiT2, BEiT2Config, BertConfig, BertEncoder, XVLMConfig, XVLMForRetrieval,
+    BEiT2, BEiT2Config, BertConfig, BertEncoder, XVLMConfig, XVLMForPretrain,
+    XVLMForRetrieval,
 )
 from x2vlm_tpu_torch.ops import _build, layers  # noqa: E402
 from x2vlm_tpu_torch.serving import RetrievalServer  # noqa: E402
@@ -66,8 +67,8 @@ def test_port_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("entry", [
-    "XVLMForRetrieval", "BEiT2", "BertEncoder", "PatchEmbed", "MultiHeadAttention",
-    "convert_jax_params", "RetrievalServer.from_npz",
+    "XVLMForRetrieval", "XVLMForPretrain", "BEiT2", "BertEncoder", "PatchEmbed",
+    "MultiHeadAttention", "convert_jax_params", "RetrievalServer.from_npz",
 ])
 def test_entry_points_default_to_the_card(entry, tmp_path):
     """Without a GPU an entry point raises unless device='cpu' is given; the
@@ -77,6 +78,7 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
     npz = tmp_path / "params.npz"
     calls = {
         "XVLMForRetrieval": lambda **kw: XVLMForRetrieval(TINY, **kw),
+        "XVLMForPretrain": lambda **kw: XVLMForPretrain(TINY, **kw),
         "BEiT2": lambda **kw: BEiT2(TINY.vision, **kw),
         "BertEncoder": lambda **kw: BertEncoder(TINY.text, **kw),
         "PatchEmbed": lambda **kw: layers.PatchEmbed(8, 4, **kw),
@@ -118,16 +120,35 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.nvcc_path()
 
 
-def test_kernel_wrappers_refuse_gradients_on_cuda_only():
-    """Forward-only kernels: a CPU tensor that requires grad still runs the
-    differentiable plain version; the refusal is the CUDA path's."""
-    q = torch.randn(1, 2, 130, 64, generator=torch.Generator().manual_seed(0),
-                    requires_grad=True)
-    from x2vlm_tpu_torch.ops.flash_attention import flash_attention_fwd
-    out, _ = flash_attention_fwd(q, q, q)
-    out.sum().backward()
-    assert q.grad is not None
-    with pytest.raises(NotImplementedError, match="training slice"):
-        _build.check_no_grad(q)
+@pytest.mark.parametrize("kernel", ["flash", "tiny"])
+def test_gradients_flow_through_the_autograd_wrappers_on_cpu(kernel):
+    """On CPU tensors the autograd Functions run the plain forward and
+    backward versions; their gradients equal autograd through the plain
+    forward version."""
+    gen = torch.Generator().manual_seed(0)
+    if kernel == "flash":
+        from x2vlm_tpu_torch.ops.flash_attention import (
+            flash_attention, flash_attention_reference,
+        )
+        shapes = [(2, 2, 130, 64)] * 3 + [(1, 2, 130, 130)]
+        fused = lambda q, k, v, b: flash_attention(q, k, v, bias=b, scale=0.125)
+        plain = lambda q, k, v, b: flash_attention_reference(q, k, v, b, scale=0.125)[0]
+    else:
+        from x2vlm_tpu_torch.ops.tiny_attention import (
+            tiny_attention_reference, tiny_block_attention,
+        )
+        shapes = [(2, 10, 64), (2, 30, 64), (2, 30, 64)]
+        fused = lambda q, k, v: tiny_block_attention(q, k, v, num_heads=4)
+        plain = lambda q, k, v: tiny_attention_reference(q, k, v, 4, scale=0.25)[0]
+    inputs = [torch.randn(s, generator=gen) for s in shapes]
+    g = torch.randn(shapes[0], generator=gen)
+    grads = []
+    for fn in (fused, plain):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        fn(*leaves).backward(g)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    # no grad wanted: the forward alone runs and nothing is saved
     with torch.no_grad():
-        _build.check_no_grad(q)
+        assert fused(*inputs).grad_fn is None

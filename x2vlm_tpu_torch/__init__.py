@@ -7,8 +7,11 @@ needs something of the JAX package it keeps its own copy.
 
 Slice 1 covers the retrieval serving path (``models.heads.XVLMForRetrieval``
 behind ``serving.RetrievalServer``): BEiT-2 image encode, BERT text encode
-and the ITM rerank head, with attention in two hand-written CUDA kernels
-(``ops/flash_attention.py``, ``ops/tiny_attention.py``).
+and the ITM rerank head. Slice 2 covers the pretraining step
+(``models.heads.XVLMForPretrain``: ITC + ITM with hard negatives + MLM;
+``train.create_optimizer`` / ``train.make_train_step``). Attention runs in
+hand-written CUDA kernels, forward and backward (``ops/flash_attention.py``,
+``ops/tiny_attention.py``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (see ``device.resolve_device``).

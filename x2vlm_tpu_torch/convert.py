@@ -4,10 +4,11 @@ Input: the flat ``'/'``-joined numpy dict that the JAX package's
 ``serving.save_params_npz`` writes (``params.npz``), or the nested
 parameter tree in memory. Output: the port's state dict, under the
 reference X2-VLM checkpoint names (the exact inverse of the JAX package's
-``train/checkpoint.convert_xvlm_state_dict`` for the modules this slice
-carries): flax kernels (in, out) become torch Linear weights (out, in), the
-BEiT-2 query/key/value kernels are fused into ``attn.qkv.weight``, the patch
-kernel (p, p, in, C) becomes the conv weight (C, in, p, p).
+``train/checkpoint.convert_xvlm_state_dict`` for the modules the port
+carries, the tied MLM head included): flax kernels (in, out) become torch
+Linear weights (out, in), the BEiT-2 query/key/value kernels are fused into
+``attn.qkv.weight``, the patch kernel (p, p, in, C) becomes the conv weight
+(C, in, p, p).
 """
 
 from __future__ import annotations
@@ -110,6 +111,11 @@ def _text(sd, src) -> None:
 
 
 def _heads(sd, src) -> None:
+    if "mlm_head/transform_dense/kernel" in src:
+        m = "text_encoder.cls.predictions"
+        _linear(sd, src, "mlm_head/transform_dense", f"{m}.transform.dense")
+        _norm(sd, src, "mlm_head/transform_ln", f"{m}.transform.LayerNorm")
+        sd[f"{m}.bias"] = src.pop("mlm_head/decoder_bias")
     for name in ("vision_proj", "text_proj"):
         if f"{name}/kernel" in src:
             _linear(sd, src, name, name)
@@ -123,9 +129,12 @@ def _heads(sd, src) -> None:
 
 def convert_jax_params(params: Mapping, *, device=None
                        ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
-    """JAX ``XVLMForRetrieval`` / ``XVLMBase`` params -> (port state dict on
-    ``device`` (the card unless ``device="cpu"``), sorted JAX keys this
-    slice does not carry, e.g. the MLM and bbox heads)."""
+    """JAX ``XVLMForRetrieval`` / ``XVLMForPretrain`` / ``XVLMBase`` params
+    -> (state dict of the port's ``XVLMBase`` under the reference names, on
+    ``device`` (the card unless ``device="cpu"``); sorted JAX keys the port
+    does not carry yet, e.g. the bbox head). The ``params/`` collection and
+    a task head's ``base/`` scope are dropped: load the result into
+    ``XVLMForRetrieval`` itself or into ``XVLMForPretrain.base``."""
     device = resolve_device(device)
     flat = params if all(not isinstance(v, Mapping) for v in params.values()) \
         else flatten_params(params)

@@ -10,7 +10,7 @@
 // optional key mask (B, Skv) applied as a -1e30 logit, causal masking
 // (key c visible to query r iff c <= r + Skv - Sq), Sq != Skv. Writes `out`
 // in q's dtype and the per-row log-sum-exp `lse` in fp32, which the
-// backward (training slice) reads.
+// backward (csrc/flash_attention_bwd.cu) reads.
 //
 // What bounds it on the H100: at the main path's shape (BEiT-2 base,
 // B=128, H=12, S=197, D=64, bias (1,12,197,197) bf16) the work is ~15 GFLOP

@@ -7,8 +7,9 @@
 // does), an optional key mask (B, Skv) adds -1e30 to the masked logits, a
 // per-head softmax in fp32, an optional dropout multiplier (B, Sq, H*Skv)
 // applied after the softmax, then P @ V. Optionally writes the pre-dropout
-// fp32 probabilities (B, Sq, H*Skv), which the backward (training slice)
-// reads; the serving path passes a null pointer and skips that write.
+// fp32 probabilities (B, Sq, H*Skv), which the backward
+// (tiny_attention_bwd.cu) reads; the serving path passes a null pointer and
+// skips that write.
 //
 // What bounds it on the H100: at the main path's shapes (B=128, H=12, D=64;
 // text self-attention 40x40, fusion cross-attention 40x200) it moves

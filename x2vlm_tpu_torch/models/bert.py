@@ -10,8 +10,10 @@ Post-LN layers. Parameter names are the reference's HF BERT names under
 ``text_encoder.bert`` (``embeddings.*``, ``encoder.layer.N.attention.self.
 {query,key,value}``, ``attention.output.{dense,LayerNorm}``,
 ``crossattention.*``, ``intermediate.dense``, ``output.{dense,LayerNorm}``).
-The MLM head (``text_encoder.cls``) and the decoder cache arrive with later
-slices.
+The MLM head is ``text_encoder.cls.predictions.{transform.dense,
+transform.LayerNorm, bias}`` with its decoder tied to
+``embeddings.word_embeddings.weight``. The decoder cache arrives with a
+later slice.
 """
 
 from __future__ import annotations
@@ -25,12 +27,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from x2vlm_tpu_torch.device import resolve_device
+from x2vlm_tpu_torch.ops.fused_ce import fused_vocab_ce
 from x2vlm_tpu_torch.ops.layers import (
     ACTIVATIONS, DropPath, FusedLayerNorm, LayerNorm, MultiHeadAttention, dense,
-    dropout, linear,
+    dropout, gelu_exact, layer_norm, linear,
 )
 
-__all__ = ["BertConfig", "BertEncoder", "BertLayer", "TextEncoder",
+__all__ = ["BertConfig", "BertEncoder", "BertLayer", "BertMLMHead", "TextEncoder",
            "drop_path_schedule"]
 
 
@@ -134,8 +137,9 @@ class BertAttention(nn.Module):
         self.output = BertOutput(cfg.hidden_size, cfg, dtype=dtype, device=device)
 
     def forward(self, x, kv=None, *, key_mask=None, drop_path: DropPath,
-                generator=None):
-        h = self.self(x, kv, key_mask=key_mask, generator=generator)
+                generator=None, kv_gather_idx=None):
+        h = self.self(x, kv, key_mask=key_mask, generator=generator,
+                      kv_gather_idx=kv_gather_idx)
         return self.output(h, x, drop_path, generator)
 
 
@@ -169,7 +173,10 @@ class BertLayer(nn.Module):
 
     def forward(self, x, attention_mask=None, encoder_hidden_states=None,
                 encoder_attention_mask=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                encoder_gather_idx: Optional[torch.Tensor] = None):
+        """``encoder_gather_idx`` (B,): the row of ``encoder_hidden_states``
+        each query row attends to (the stream holds only unique rows)."""
         x = self.attention(x, key_mask=attention_mask, drop_path=self.drop_path,
                            generator=generator)
         # cross-attention is skipped (not an error) without an image stream:
@@ -177,7 +184,8 @@ class BertLayer(nn.Module):
         if self.crossattention is not None and encoder_hidden_states is not None:
             x = self.crossattention(x, encoder_hidden_states.to(self.dtype),
                                     key_mask=encoder_attention_mask,
-                                    drop_path=self.drop_path, generator=generator)
+                                    drop_path=self.drop_path, generator=generator,
+                                    kv_gather_idx=encoder_gather_idx)
         return self.output(self.intermediate(x), x, self.drop_path, generator)
 
 
@@ -208,7 +216,8 @@ class BertEncoder(nn.Module):
 
     def forward(self, input_ids=None, attention_mask=None, encoder_embeds=None,
                 encoder_hidden_states=None, encoder_attention_mask=None,
-                mode: str = "multi_modal", generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                mode: str = "multi_modal", generator: Optional[torch.Generator] = None,
+                encoder_gather_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.config
         if mode == "fusion":
             lo, hi = cfg.fusion_layer, cfg.num_layers
@@ -223,18 +232,74 @@ class BertEncoder(nn.Module):
             raise ValueError(f"mode {mode!r}: one of text, fusion, multi_modal")
         for layer in self.encoder.layer[lo:hi]:
             x = layer(x, attention_mask, encoder_hidden_states,
-                      encoder_attention_mask, generator)
+                      encoder_attention_mask, generator, encoder_gather_idx)
         return x
 
 
-class TextEncoder(nn.Module):
-    """The text tower under the reference's name: ``text_encoder.bert``
-    (the MLM head ``text_encoder.cls`` joins it with the training slice)."""
+class _MLMTransform(nn.Module):
+    """``dense`` -> erf GELU -> ``LayerNorm`` (fp32 statistics)."""
 
-    def __init__(self, config: BertConfig, *, dtype: torch.dtype = torch.bfloat16,
+    def __init__(self, cfg: BertConfig, *, device):
+        super().__init__()
+        self.dense = linear(cfg.hidden_size, cfg.hidden_size, device=device)
+        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.ln_eps, device=device)
+
+
+class BertMLMHead(nn.Module):
+    """The MLM head under the reference's name ``cls.predictions``:
+    ``transform`` (dense -> GELU -> LayerNorm) at the masked positions only,
+    then the tied decoder (the word-embedding table passed in, and ``bias``)
+    fused with the cross-entropy (``ops/fused_ce.py``), so the (B*M, vocab)
+    logits are never held at once. Counterpart of the JAX ``BertMLMHead``
+    on its tied-decoder path with labels."""
+
+    def __init__(self, cfg: BertConfig, *, dtype: torch.dtype = torch.bfloat16,
                  device=None):
         super().__init__()
+        device = resolve_device(device)
+        self.dtype = dtype
+        self.transform = _MLMTransform(cfg, device=device)
+        self.bias = nn.Parameter(torch.empty(cfg.vocab_size, device=device))
+
+    def init_extra(self, generator: torch.Generator, std: float) -> None:
+        self.bias.zero_()
+
+    def forward(self, hidden: torch.Tensor, masked_pos: torch.Tensor,
+                embedding_table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """hidden (B, S, C), masked_pos / labels (B, M) -> mean MLM loss (fp32)
+        over the labels that are not -100."""
+        t = self.transform
+        h = torch.gather(hidden, 1, masked_pos.long()[:, :, None].expand(
+            -1, -1, hidden.shape[-1]))
+        h = gelu_exact(dense(h, t.dense.weight, t.dense.bias, self.dtype))
+        h = layer_norm(h, t.LayerNorm.weight, t.LayerNorm.bias,
+                       t.LayerNorm.eps).to(self.dtype)
+        flat = labels.reshape(-1)
+        return fused_vocab_ce(h.reshape(-1, h.shape[-1]), embedding_table, self.bias,
+                              flat, torch.ones_like(flat, dtype=torch.bool))
+
+
+class _MLMPredictions(nn.Module):
+    def __init__(self, head: BertMLMHead):
+        super().__init__()
+        self.predictions = head
+
+
+class TextEncoder(nn.Module):
+    """The text tower under the reference's names: ``text_encoder.bert`` and,
+    with ``mlm_head``, ``text_encoder.cls.predictions`` (:class:`BertMLMHead`,
+    reached as ``.mlm_head``)."""
+
+    def __init__(self, config: BertConfig, *, dtype: torch.dtype = torch.bfloat16,
+                 device=None, mlm_head: bool = False):
+        super().__init__()
         self.bert = BertEncoder(config, dtype=dtype, device=device)
+        self.cls = (_MLMPredictions(BertMLMHead(config, dtype=dtype, device=device))
+                    if mlm_head else None)
+
+    @property
+    def mlm_head(self) -> Optional[BertMLMHead]:
+        return None if self.cls is None else self.cls.predictions
 
     def forward(self, *args, **kwargs) -> torch.Tensor:
         return self.bert(*args, **kwargs)

@@ -1,21 +1,100 @@
 """Task heads over the XVLM composition core (counterpart of
-x2vlm_tpu/models/heads.py). This slice carries the retrieval serving
-programs; the training losses arrive with the training slice."""
+x2vlm_tpu/models/heads.py): the pretraining losses of the image-text and
+text streams, and retrieval (fine-tuning losses and the serving programs).
+
+Randomness is explicit: ``generator`` draws the ITM hard negatives and
+``dropout_generator`` every dropout / drop-path mask (both may be None, then
+torch's default generator of the device is used)."""
 
 from __future__ import annotations
 
+from typing import Dict, Optional
+
 import torch
+from torch import nn
 
-from x2vlm_tpu_torch.models.xvlm import XVLMBase
+from x2vlm_tpu_torch.models.xvlm import XVLMBase, XVLMConfig
 
-__all__ = ["XVLMForRetrieval"]
+__all__ = ["XVLMForPretrain", "XVLMForRetrieval"]
+
+
+class XVLMForPretrain(nn.Module):
+    """Pretraining losses over one stream batch (the JAX ``XVLMForPretrain``
+    without the region stream's bbox losses). Like the JAX module it holds
+    the composition core under ``base``, so its state dict keys are
+    ``base.<reference name>``. Modules start in eval mode: call ``.train()``
+    for dropout."""
+
+    def __init__(self, config: Optional[XVLMConfig] = None, *,
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 seed: Optional[int] = 0):
+        super().__init__()
+        self.base = XVLMBase(config, dtype=dtype, device=device, seed=seed,
+                             mlm_head=True)
+        self.config = self.base.config
+        self.eval()
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None,
+                dropout_generator: Optional[torch.Generator] = None,
+                neg_idx=None) -> Dict[str, torch.Tensor]:
+        if batch.get("image") is None:
+            return self.forward_text(batch, dropout_generator)
+        return self.forward_multimodal(batch, generator, dropout_generator, neg_idx)
+
+    def forward_multimodal(self, batch, generator=None, dropout_generator=None,
+                           neg_idx=None):
+        """ITC, then ITM + MLM through one fused fusion pass. ``neg_idx``:
+        injected (image_neg_idx, text_neg_idx) for the ITM negatives."""
+        base = self.base
+        text_ids, text_atts = batch["text_ids"], batch["text_atts"]
+        image_embeds, image_atts = base.get_vision_embeds(batch["image"],
+                                                          dropout_generator)
+        # one text-mode pass over the clean and the masked text
+        both = base.get_text_embeds(torch.cat([text_ids, batch["text_ids_masked"]]),
+                                    torch.cat([text_atts, text_atts]), dropout_generator)
+        text_embeds, mlm_text_embeds = both.chunk(2)
+        image_feat = base.get_features(image_embeds=image_embeds)
+        text_feat = base.get_features(text_embeds=text_embeds)
+        loss_itm, loss_mlm = base.get_matching_and_mlm_loss(
+            image_embeds, image_atts, image_feat, text_embeds, text_atts, text_feat,
+            mlm_text_embeds, batch["masked_pos"], batch["masked_ids"], generator,
+            neg_idx=neg_idx, dropout_generator=dropout_generator)
+        return {"loss_itc": base.get_contrastive_loss(image_feat, text_feat),
+                "loss_itm": loss_itm, "loss_mlm": loss_mlm}
+
+    def forward_text(self, batch, dropout_generator=None):
+        """The text-only stream: MLM through the whole stack."""
+        return {"loss_mlm": self.base.get_mlm_loss(
+            batch["text_ids_masked"], batch["text_atts"], batch["masked_pos"],
+            batch["masked_ids"], dropout_generator)}
 
 
 class XVLMForRetrieval(XVLMBase):
-    """Two-stage retrieval: ITC encoders for the shortlist, ITM for the rerank.
+    """Two-stage retrieval: ITC encoders for the shortlist, ITM for the rerank;
+    ``forward`` is the fine-tuning loss (ITC + ITM with duplicate-caption
+    aware ``idx``).
 
     Like the reference's retrieval model it *is* the composition core, so
     its state dict carries the reference names without a prefix."""
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None,
+                dropout_generator: Optional[torch.Generator] = None,
+                neg_idx=None) -> Dict[str, torch.Tensor]:
+        """batch: image, text_ids, text_atts, idx -> {loss_itc, loss_itm}."""
+        text_atts, idx = batch["text_atts"], batch["idx"]
+        image_embeds, image_atts = self.get_vision_embeds(batch["image"],
+                                                          dropout_generator)
+        text_embeds = self.get_text_embeds(batch["text_ids"], text_atts, dropout_generator)
+        image_feat = self.get_features(image_embeds=image_embeds)
+        text_feat = self.get_features(text_embeds=text_embeds)
+        return {
+            "loss_itc": self.get_contrastive_loss(image_feat, text_feat, idx=idx),
+            "loss_itm": self.get_matching_loss(
+                image_embeds, image_atts, image_feat, text_embeds, text_atts, text_feat,
+                generator, idx=idx, neg_idx=neg_idx, dropout_generator=dropout_generator),
+        }
 
     def encode_images(self, image: torch.Tensor):
         """(B, H, W, 3) -> (embeds (B, S+1, C) compute dtype, feat (B, E) fp32)."""

@@ -3,15 +3,20 @@ vision tower, the BERT text / fusion stack, the contrastive projections, the
 temperature and the ITM head.
 
 Parameter names are the reference's (``vision_encoder.*``,
-``text_encoder.bert.*``, ``vision_proj``, ``text_proj``, ``temp``,
-``itm_head.{0,1,3}``). This slice carries what the retrieval serving path
-runs; the MLM and bbox heads and the losses arrive with the training slice.
+``text_encoder.bert.*``, ``text_encoder.cls.predictions.*``, ``vision_proj``,
+``text_proj``, ``temp``, ``itm_head.{0,1,3}``). The losses of the image-text
+stream are here: ITC (``get_contrastive_loss``), ITM with hard negatives
+(``get_hard_negatives``, ``get_matching_loss``) and MLM, the last two fused
+into one fusion pass (``get_matching_and_mlm_loss``). All loss math is fp32.
+Single card: the JAX package's ITC all-gather and sharding constraints have
+no counterpart here. The bbox head (region stream) arrives with a later
+slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -20,9 +25,10 @@ from torch import nn
 from x2vlm_tpu_torch.device import resolve_device
 from x2vlm_tpu_torch.models.beit2 import BEiT2, BEiT2Config
 from x2vlm_tpu_torch.models.bert import BertConfig, TextEncoder
+from x2vlm_tpu_torch.ops.fused_ce import softmax_ce
 from x2vlm_tpu_torch.ops.layers import dense, init_weights, layer_norm, linear
 
-__all__ = ["XVLMConfig", "XVLMBase", "MlpHead"]
+__all__ = ["XVLMConfig", "XVLMBase", "MlpHead", "cross_entropy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,11 +37,18 @@ class XVLMConfig:
     text: BertConfig = dataclasses.field(default_factory=BertConfig)
     embed_dim: int = 256
     temp: float = 0.07
+    fix_temp: bool = False
+    # ITM hard negatives: 0 = sample from the whole batch; > 0 = only within
+    # blocks of this many rows along the batch
+    itm_neg_block: int = 0
 
     @classmethod
     def base(cls, image_res: int = 224, **kw) -> "XVLMConfig":
         return cls(vision=BEiT2Config.base(image_res=image_res),
                    text=BertConfig.bert_base(), **kw)
+
+
+cross_entropy = softmax_ce  # the JAX package's models.xvlm.cross_entropy
 
 
 class MlpHead(nn.Sequential):
@@ -60,11 +73,12 @@ class MlpHead(nn.Sequential):
 class XVLMBase(nn.Module):
     """Composition core. ``seed`` fills every parameter from a
     ``torch.Generator`` on ``device``; ``seed=None`` leaves them for
-    ``load_state_dict``. Modules start in eval mode."""
+    ``load_state_dict``. Modules start in eval mode. ``mlm_head`` builds
+    the MLM head (a task that trains it)."""
 
     def __init__(self, config: Optional[XVLMConfig] = None, *,
                  dtype: torch.dtype = torch.bfloat16, device=None,
-                 seed: Optional[int] = 0):
+                 seed: Optional[int] = 0, mlm_head: bool = False):
         super().__init__()
         device = resolve_device(device)
         cfg = self.config = config or XVLMConfig.base()
@@ -73,11 +87,13 @@ class XVLMBase(nn.Module):
                 f"vision tower {type(cfg.vision).__name__}: this slice ports BEiT-2")
         self.dtype = dtype
         self.vision_encoder = BEiT2(cfg.vision, dtype=dtype, device=device)
-        self.text_encoder = TextEncoder(cfg.text, dtype=dtype, device=device)
+        self.text_encoder = TextEncoder(cfg.text, dtype=dtype, device=device,
+                                        mlm_head=mlm_head)
         vw, tw = cfg.vision.embed_dim, cfg.text.hidden_size
         self.vision_proj = linear(vw, cfg.embed_dim, device=device)
         self.text_proj = linear(tw, cfg.embed_dim, device=device)
-        self.temp = nn.Parameter(torch.empty((), device=device))
+        if not cfg.fix_temp:
+            self.temp = nn.Parameter(torch.empty((), device=device))
         self.itm_head = MlpHead(tw, 2, dtype=dtype, device=device)
         if seed is not None:
             gen = torch.Generator(device=device)
@@ -86,7 +102,8 @@ class XVLMBase(nn.Module):
         self.eval()
 
     def init_extra(self, generator: torch.Generator, std: float) -> None:
-        self.temp.fill_(self.config.temp)
+        if not self.config.fix_temp:
+            self.temp.fill_(self.config.temp)
 
     def get_vision_embeds(self, image: torch.Tensor, generator=None):
         """NHWC image (float, or uint8 normalised on the device) ->
@@ -100,7 +117,11 @@ class XVLMBase(nn.Module):
                                  generator=generator)
 
     def get_cross_embeds(self, image_embeds, image_atts, text_ids=None,
-                         text_embeds=None, text_atts=None, generator=None):
+                         text_embeds=None, text_atts=None, generator=None,
+                         encoder_gather_idx=None):
+        """The fusion stack over the text rows; ``encoder_gather_idx`` (B,)
+        names the row of ``image_embeds`` (the unique images) each text row
+        attends to, with ``image_atts`` already per text row."""
         if text_atts is None:
             raise ValueError("get_cross_embeds requires text_atts")
         # pad the image stream to a multiple of 8 (197 -> 200) with masked
@@ -114,13 +135,15 @@ class XVLMBase(nn.Module):
                                      attention_mask=text_atts,
                                      encoder_hidden_states=image_embeds,
                                      encoder_attention_mask=image_atts,
-                                     mode="fusion", generator=generator)
+                                     mode="fusion", generator=generator,
+                                     encoder_gather_idx=encoder_gather_idx)
         if text_ids is None:
             raise ValueError("get_cross_embeds requires text_ids or text_embeds")
         return self.text_encoder(text_ids, attention_mask=text_atts,
                                  encoder_hidden_states=image_embeds,
                                  encoder_attention_mask=image_atts,
-                                 mode="multi_modal", generator=generator)
+                                 mode="multi_modal", generator=generator,
+                                 encoder_gather_idx=encoder_gather_idx)
 
     def get_features(self, image_embeds=None, text_embeds=None):
         """L2-normalised CLS projection (fp32) of the one stream given."""
@@ -128,3 +151,123 @@ class XVLMBase(nn.Module):
                         else (image_embeds, self.vision_proj))
         f = F.linear(embeds[:, 0, :].float(), proj.weight, proj.bias)
         return f / torch.linalg.norm(f, dim=-1, keepdim=True)
+
+    # ---------- losses ----------
+
+    def get_temp(self) -> torch.Tensor:
+        if self.config.fix_temp:
+            return torch.tensor(self.config.temp, dtype=torch.float32,
+                                device=self.text_proj.weight.device)
+        # clamped in the graph; the optimizer also projects the parameter
+        return self.temp.clamp(0.001, 0.5)
+
+    def get_contrastive_loss(self, image_feat, text_feat, idx=None) -> torch.Tensor:
+        """In-batch ITC, both directions; ``idx`` (B,) marks rows that share
+        an image id as positives of each other (soft labels)."""
+        temp = self.get_temp()
+        logits = image_feat @ text_feat.t() / temp
+        logits_t = text_feat @ image_feat.t() / temp
+        if idx is None:
+            labels = torch.arange(logits.shape[0], device=logits.device)
+            return (cross_entropy(logits, labels) + cross_entropy(logits_t, labels)) / 2
+        idx = idx.reshape(-1, 1)
+        pos = (idx == idx.t()).float()
+        soft = pos / pos.sum(dim=1, keepdim=True)
+        loss_i2t = -(torch.log_softmax(logits, dim=1) * soft).sum(1).mean()
+        loss_t2i = -(torch.log_softmax(logits_t, dim=1) * soft).sum(1).mean()
+        return (loss_i2t + loss_t2i) / 2
+
+    @torch.no_grad()
+    def get_hard_negatives(self, image_feat, text_feat,
+                           generator: Optional[torch.Generator] = None, idx=None,
+                           neg_idx: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """One hard negative per row, drawn from softmax(similarity / temp)
+        with the positives masked at -1e30 (Gumbel-max: one categorical draw
+        per row from ``generator``). Returns (image_neg_idx, text_neg_idx);
+        ``neg_idx`` passes given indices through (tests inject the JAX
+        package's draws)."""
+        if neg_idx is not None:
+            return neg_idx
+        sim = (image_feat @ text_feat.t()) / self.get_temp()
+        bsz = sim.shape[0]
+        dev = sim.device
+        if idx is None:
+            pos = torch.eye(bsz, dtype=torch.bool, device=dev)
+        else:
+            idx = idx.reshape(-1, 1)
+            pos = idx == idx.t()
+        if self.config.itm_neg_block > 0:
+            blk = torch.arange(bsz, device=dev) // self.config.itm_neg_block
+            pos = pos | (blk[:, None] != blk[None, :])
+        masked_i2t = sim.masked_fill(pos, -1e30)
+        masked_t2i = sim.t().masked_fill(pos, -1e30)
+
+        def draw(logits):
+            u = torch.rand(logits.shape, generator=generator, device=dev)
+            gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
+            return torch.argmax(logits + gumbel, dim=-1)
+
+        text_neg_idx = draw(masked_i2t)
+        image_neg_idx = draw(masked_t2i)
+        return image_neg_idx, text_neg_idx
+
+    def get_matching_loss(self, image_embeds, image_atts, image_feat, text_embeds,
+                          text_atts, text_feat, generator=None, idx=None,
+                          neg_idx=None, dropout_generator=None) -> torch.Tensor:
+        """ITM: one positive and two hard-negative rows per pair through one
+        fusion pass (K/V projected once per unique image) -> 2-way head."""
+        bs = image_embeds.shape[0]
+        image_neg_idx, text_neg_idx = self.get_hard_negatives(
+            image_feat, text_feat, generator, idx=idx, neg_idx=neg_idx)
+        ar = torch.arange(bs, device=image_embeds.device)
+        gather_idx = torch.cat([ar, ar, image_neg_idx])
+        cross = self.get_cross_embeds(
+            image_embeds, image_atts.index_select(0, gather_idx),
+            text_embeds=torch.cat([text_embeds, text_embeds.index_select(0, text_neg_idx),
+                                   text_embeds]),
+            text_atts=torch.cat([text_atts, text_atts.index_select(0, text_neg_idx),
+                                 text_atts]),
+            generator=dropout_generator, encoder_gather_idx=gather_idx)[:, 0, :]
+        labels = torch.cat([torch.ones(bs, dtype=torch.long, device=ar.device),
+                            torch.zeros(2 * bs, dtype=torch.long, device=ar.device)])
+        return cross_entropy(self.itm_head(cross), labels)
+
+    def _tied_table(self) -> torch.Tensor:
+        return self.text_encoder.bert.embeddings.word_embeddings.weight
+
+    def get_matching_and_mlm_loss(self, image_embeds, image_atts, image_feat,
+                                  text_embeds, text_atts, text_feat, mlm_text_embeds,
+                                  masked_pos, masked_ids, generator=None, idx=None,
+                                  neg_idx=None, dropout_generator=None):
+        """ITM + MLM through ONE fusion pass over 4·bs rows
+        [pos | (img, text_neg) | (img_neg, text) | (img, masked text)];
+        ``mlm_text_embeds`` is the text-mode encoding of the masked ids.
+        Returns (loss_itm, loss_mlm)."""
+        bs = image_embeds.shape[0]
+        image_neg_idx, text_neg_idx = self.get_hard_negatives(
+            image_feat, text_feat, generator, idx=idx, neg_idx=neg_idx)
+        ar = torch.arange(bs, device=image_embeds.device)
+        gather_idx = torch.cat([ar, ar, image_neg_idx, ar])
+        text_all = torch.cat([text_embeds, text_embeds.index_select(0, text_neg_idx),
+                              text_embeds, mlm_text_embeds])
+        atts_all = torch.cat([text_atts, text_atts.index_select(0, text_neg_idx),
+                              text_atts, text_atts])
+        cross = self.get_cross_embeds(
+            image_embeds, image_atts.index_select(0, gather_idx), text_embeds=text_all,
+            text_atts=atts_all, generator=dropout_generator,
+            encoder_gather_idx=gather_idx)
+        labels = torch.cat([torch.ones(bs, dtype=torch.long, device=ar.device),
+                            torch.zeros(2 * bs, dtype=torch.long, device=ar.device)])
+        loss_itm = cross_entropy(self.itm_head(cross[:3 * bs, 0, :]), labels)
+        loss_mlm = self.text_encoder.mlm_head(cross[3 * bs:], masked_pos,
+                                              self._tied_table(), masked_ids)
+        return loss_itm, loss_mlm
+
+    def get_mlm_loss(self, text_ids_masked, text_atts, masked_pos, masked_ids,
+                     dropout_generator=None) -> torch.Tensor:
+        """MLM of the text-only stream: the whole stack from the masked ids,
+        the fusion layers without cross-attention."""
+        cross = self.text_encoder(text_ids_masked, attention_mask=text_atts,
+                                  mode="multi_modal", generator=dropout_generator)
+        return self.text_encoder.mlm_head(cross, masked_pos, self._tied_table(),
+                                          masked_ids)

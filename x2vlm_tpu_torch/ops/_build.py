@@ -23,12 +23,13 @@ from typing import Dict, Iterable
 
 import torch
 
-__all__ = ["DTYPE_CODES", "KERNELS", "OPERAND_KINDS", "build", "check",
-           "check_no_grad", "load", "nvcc_path", "ptxas_report"]
+__all__ = ["DTYPE_CODES", "KERNELS", "OPERAND_KINDS", "build", "check", "load",
+           "nvcc_path", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "x2vlm_tpu_torch"
-KERNELS = ("flash_attention_fwd", "tiny_attention_fwd")
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "tiny_attention_fwd",
+           "tiny_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 # Codes of the C interface (csrc/common.cuh): the element type of q/k/v/out
@@ -126,12 +127,3 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         msg = lib.x2_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{what} kernel failed: CUDA error {err} ({msg})")
 
-
-def check_no_grad(*tensors) -> None:
-    """The kernels are forward-only: refuse inputs that would need a gradient."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "the CUDA attention kernels are forward-only: their backward "
-            "(flash dQ/dK/dV/dBias, tiny dq/dk/dv) arrives with the training "
-            "slice — run under torch.no_grad() / torch.inference_mode()")

@@ -1,24 +1,36 @@
-"""Flash attention forward over (B, H, S, D) tensors — the BEiT-2 vision
-self-attention with its trained relative-position bias.
+"""Flash attention over (B, H, S, D) tensors — the BEiT-2 vision
+self-attention with its trained relative-position bias — forward and
+backward.
 
-Counterpart of x2vlm_tpu/ops/flash_attention.py. Three functions:
+Counterpart of x2vlm_tpu/ops/flash_attention.py. The functions:
 
-- :func:`flash_attention_fwd` is the kernel's wrapper: for CUDA tensors it
-  launches the hand-written Hopper kernel (``csrc/flash_attention_fwd.cu``)
-  or raises; for CPU tensors it runs :func:`flash_attention_reference`.
-  It returns ``(out, lse)``; ``lse`` (B, H, Sq, 1) fp32 is what the backward
-  of the training slice will read. ``flash_attention_fwd.launches`` counts
-  kernel launches.
-- :func:`flash_attention_reference` is the plain PyTorch version of the same
-  function (counterpart of ``_xla_attention``).
+- :func:`flash_attention_fwd` is the forward kernel's wrapper: for CUDA
+  tensors it launches the hand-written Hopper kernel
+  (``csrc/flash_attention_fwd.cu``) or raises; for CPU tensors it runs
+  :func:`flash_attention_reference`. It returns ``(out, lse)``; ``lse``
+  (B, H, Sq, 1) fp32 is what the backward reads. ``flash_attention_fwd.
+  launches`` counts kernel launches.
+- :func:`flash_attention_bwd` is the backward kernels' wrapper (dQ, dK/dV
+  and dBias, ``csrc/flash_attention_bwd.cu``); for CPU tensors it runs
+  :func:`flash_attention_bwd_reference`. ``flash_attention_bwd.launches``
+  counts the launches of each kernel ("dq", "dkv", "dbias").
+- :func:`flash_attention_reference` / :func:`flash_attention_bwd_reference`
+  are the plain PyTorch versions (counterparts of ``_xla_attention`` and of
+  the math of ``_flash_backward``).
 - :func:`flash_attention` is the public entry (same signature as the JAX
-  one), returning ``out``.
+  one), returning ``out``. When a gradient is needed it goes through an
+  autograd Function that saves (q, k, v, bias, key_mask, out, lse), as the
+  JAX ``_flash_fwd`` does; otherwise it calls the forward alone.
 
-The kernel has no backward yet: on CUDA, inputs that require grad raise.
+A masked or causally hidden logit is a constant, so its dS is 0, also on a
+row whose every key is hidden (there the forward averaged V, so P = 1/Skv).
+The Pallas ``_dq_kernel`` gives such a row dS = (1/n)(dP - delta); the port
+follows the plain / XLA semantics that the JAX package computes off the TPU.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Tuple
 
@@ -27,11 +39,12 @@ import torch
 from x2vlm_tpu_torch.ops import _build
 from x2vlm_tpu_torch.ops.attention import NEG_INF, make_attention_mask
 
-__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_reference",
-           "flash_supported"]
+__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_bwd_reference",
+           "flash_attention_fwd", "flash_attention_reference", "flash_supported"]
 
 _DTYPES = _build.DTYPE_CODES
 _HEAD_DIMS = (64, 128, 192, 256)
+_DEAD_LSE = -1e29  # lse of a row with no visible key (every logit is -1e30)
 
 
 def flash_supported(q: torch.Tensor, k: torch.Tensor) -> bool:
@@ -64,6 +77,48 @@ def flash_attention_reference(
     return torch.matmul(probs, v), lse
 
 
+def _kernel_operands(name, q, k, v, bias, key_mask):
+    """Check the operands a CUDA kernel takes; returns contiguous q, k, v,
+    the bias pointer, kind and (batch, head, row) strides, and the uint8 key
+    mask (or None)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{name} takes f32 or bf16 q/k/v of one "
+                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} not in {_HEAD_DIMS}")
+    if k.shape != (B, H, Skv, D) or v.shape != k.shape:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)} do not match")
+    for t in (k, v, bias, key_mask):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"{name}: operands on different devices")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+
+    bias_ptr, bias_kind, strides = None, 0, (0, 0, 0)
+    if bias is not None:
+        if bias.dim() != 4 or bias.shape[0] not in (1, B) or \
+                bias.shape[1] not in (1, H) or tuple(bias.shape[2:]) != (Sq, Skv):
+            raise ValueError(f"{name}: bias {tuple(bias.shape)} does "
+                             f"not broadcast as (1|{B}, 1|{H}, {Sq}, {Skv})")
+        if bias.dtype not in _build.OPERAND_KINDS:
+            raise TypeError(f"{name}: bias dtype {bias.dtype}")
+        if bias.stride(3) != 1:
+            bias = bias.contiguous()
+        bias_ptr, bias_kind = bias.data_ptr(), _build.OPERAND_KINDS[bias.dtype]
+        strides = (0 if bias.shape[0] == 1 else bias.stride(0),
+                   0 if bias.shape[1] == 1 else bias.stride(1), bias.stride(2))
+    if key_mask is not None:
+        if tuple(key_mask.shape) != (B, Skv):
+            raise ValueError(f"{name}: key_mask {tuple(key_mask.shape)} "
+                             f"is not ({B}, {Skv})")
+        key_mask = (key_mask != 0).to(torch.uint8).contiguous()
+    return q, k, v, (bias, bias_ptr, bias_kind, strides), key_mask
+
+
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
@@ -78,44 +133,11 @@ def flash_attention_fwd(
     nonzero = attend. ``scale`` multiplies the fp32 logits."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias, key_mask, causal, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd: unsupported device {q.device}")
-    _build.check_no_grad(q, k, v, bias)
+    q, k, v, (bias, bias_ptr, bias_kind, strides), key_mask = _kernel_operands(
+        "flash_attention_fwd", q, k, v, bias, key_mask)
     B, H, Sq, D = q.shape
     Skv = k.shape[2]
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_fwd takes f32 or bf16 q/k/v of one "
-                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head dim {D} not in {_HEAD_DIMS}")
-    if k.shape != (B, H, Skv, D) or v.shape != k.shape:
-        raise ValueError(f"flash_attention_fwd: shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)} do not match")
-    for t in (k, v, bias, key_mask):
-        if t is not None and t.device != q.device:
-            raise ValueError("flash_attention_fwd: operands on different devices")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-
-    bias_ptr, bias_kind, strides = None, 0, (0, 0, 0)
-    if bias is not None:
-        if bias.dim() != 4 or bias.shape[0] not in (1, B) or \
-                bias.shape[1] not in (1, H) or tuple(bias.shape[2:]) != (Sq, Skv):
-            raise ValueError(f"flash_attention_fwd: bias {tuple(bias.shape)} does "
-                             f"not broadcast as (1|{B}, 1|{H}, {Sq}, {Skv})")
-        if bias.dtype not in _build.OPERAND_KINDS:
-            raise TypeError(f"flash_attention_fwd: bias dtype {bias.dtype}")
-        if bias.stride(3) != 1:
-            bias = bias.contiguous()
-        bias_ptr, bias_kind = bias.data_ptr(), _build.OPERAND_KINDS[bias.dtype]
-        strides = (0 if bias.shape[0] == 1 else bias.stride(0),
-                   0 if bias.shape[1] == 1 else bias.stride(1), bias.stride(2))
-    km_ptr = None
-    if key_mask is not None:
-        if tuple(key_mask.shape) != (B, Skv):
-            raise ValueError(f"flash_attention_fwd: key_mask {tuple(key_mask.shape)} "
-                             f"is not ({B}, {Skv})")
-        key_mask = (key_mask != 0).to(torch.uint8).contiguous()
-        km_ptr = key_mask.data_ptr()
+    km_ptr = None if key_mask is None else key_mask.data_ptr()
 
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq, 1), dtype=torch.float32, device=q.device)
@@ -138,6 +160,155 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 
 
+def flash_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    bias: Optional[torch.Tensor], key_mask: Optional[torch.Tensor],
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    causal: bool = False, scale: float = 1.0, need_dbias: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Plain PyTorch flash backward: P recomputed from ``lse``,
+    delta = rowsum(dO * O), dS = P * (dO.V^T - delta) and 0 where a key is
+    hidden; P and dS cast to the input dtype before their products, as the
+    JAX kernels cast them. Returns (dq, dk, dv, dbias or None); dbias has the
+    bias's shape and dtype (summed over broadcast batch / head dims)."""
+    Sq, Skv = q.shape[2], k.shape[2]
+    dt = q.dtype
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    p = torch.exp(logits - lse)
+    dead = lse < _DEAD_LSE                 # no visible key: the forward averaged V
+    p = torch.where(dead, torch.full_like(p, 1.0 / Skv), p)
+    visible = None                         # (B|1, 1, Sq, Skv): the keys each query sees
+    if key_mask is not None or causal:
+        visible = make_attention_mask(key_mask, Sq, causal=causal, kv_len=Skv,
+                                      device=q.device)
+        p = torch.where(visible | dead, p, torch.zeros_like(p))
+    delta = (dout.float() * out.float()).sum(-1, keepdim=True)
+    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    ds = p * (dp - delta)
+    ds = torch.where(dead, torch.zeros_like(ds), ds)
+    if visible is not None:
+        ds = torch.where(visible, ds, torch.zeros_like(ds))
+    dsc = ds.to(dt).float()
+    dq = (torch.matmul(dsc, k.float()) * scale).to(dt)
+    dk = (torch.matmul(dsc.transpose(-1, -2), q.float()) * scale).to(k.dtype)
+    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), dout.float()).to(v.dtype)
+    dbias = None
+    if bias is not None and need_dbias:
+        dims = [i for i in (0, 1) if bias.shape[i] == 1 and ds.shape[i] != 1]
+        dbias = (ds.sum(dim=dims, keepdim=True) if dims else ds).to(bias.dtype)
+    return dq, dk, dv, dbias
+
+
+def _bwd_launchers(q, k, v, bias, key_mask, out, lse, dout, causal, scale):
+    """Check the backward's operands; returns ``{"dq", "dkv", "dbias"}`` ->
+    a function that launches that kernel on the current stream and returns
+    its outputs ("dbias" only with a bias; its output is (Bb, H, Sq, Skv)
+    fp32, before the head sum and the cast)."""
+    q, k, v, (bias, bias_ptr, bias_kind, strides), key_mask = _kernel_operands(
+        "flash_attention_bwd", q, k, v, bias, key_mask)
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    if dout.shape != q.shape or out.shape != q.shape or lse.shape != (B, H, Sq, 1):
+        raise ValueError(f"flash_attention_bwd: dout {tuple(dout.shape)}, out "
+                         f"{tuple(out.shape)}, lse {tuple(lse.shape)} do not match "
+                         f"q {tuple(q.shape)}")
+    dout = dout.to(q.dtype).contiguous()
+    lse = lse.float().contiguous()
+    delta = (dout.float() * out.float()).sum(-1).contiguous()   # (B, H, Sq)
+    km_ptr = None if key_mask is None else key_mask.data_ptr()
+    lib = _build.load("flash_attention_bwd")
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, bias_kind, *strides,
+              km_ptr, dout.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    tail = (H, Sq, Skv, D, _DTYPES[q.dtype], int(causal), float(scale))
+
+    # the default argument keeps every operand alive while a launcher exists
+    def call(name, n_out, *args, _operands=(q, k, v, bias, key_mask, dout, lse, delta)):
+        fn = getattr(lib, f"x2_flash_attention_bwd_{name}")
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 3 + \
+            [ctypes.c_void_p] * (4 + n_out) + [ctypes.c_int] * (len(args) - n_out + 6) + \
+            [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = fn(*common, *args, *tail, stream)
+        _build.check(lib, err, f"flash_attention_bwd {name}")
+        flash_attention_bwd.launches[name] += 1
+
+    def dq():
+        dq_ = torch.empty_like(q)
+        call("dq", 1, dq_.data_ptr(), B)
+        return dq_
+
+    def dkv():
+        dk_, dv_ = torch.empty_like(k), torch.empty_like(v)
+        call("dkv", 2, dk_.data_ptr(), dv_.data_ptr(), B)
+        return dk_, dv_
+
+    def dbias():
+        db = torch.empty((bias.shape[0], H, Sq, Skv), dtype=torch.float32,
+                         device=q.device)
+        call("dbias", 1, db.data_ptr(), bias.shape[0], B)
+        return db
+
+    launchers = {"dq": dq, "dkv": dkv}
+    if bias is not None:
+        launchers["dbias"] = dbias
+    return launchers
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    bias: Optional[torch.Tensor], key_mask: Optional[torch.Tensor],
+    out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+    causal: bool = False, scale: float = 1.0, need_dbias: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """Flash attention backward; returns (dq, dk, dv, dbias or None).
+
+    The operands of :func:`flash_attention_fwd` plus its ``out`` and ``lse``
+    and the output gradient ``dout``. Launches the dQ and dK/dV kernels, and
+    the dBias kernel when ``need_dbias`` and a bias is given; dbias has the
+    bias's shape and dtype. delta = rowsum(dO * O) is a torch reduction, as
+    the JAX package computes it outside its kernels."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, bias, key_mask, out, lse, dout,
+                                             causal, scale, need_dbias)
+    launch = _bwd_launchers(q, k, v, bias, key_mask, out, lse, dout, causal, scale)
+    dq = launch["dq"]()
+    dk, dv = launch["dkv"]()
+    dbias = None
+    if bias is not None and need_dbias:
+        db = launch["dbias"]()
+        if bias.shape[1] == 1 and q.shape[1] > 1:
+            db = db.sum(dim=1, keepdim=True)   # head-shared bias: outside the kernel
+        dbias = db.to(bias.dtype)
+    return dq, dk, dv, dbias
+
+
+flash_attention_bwd.launches = collections.Counter()
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel with lse saved; backward kernels. Saves (q, k, v,
+    bias, key_mask, out, lse), as the JAX ``_flash_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, key_mask, causal, scale):
+        out, lse = flash_attention_fwd(q, k, v, bias, key_mask, causal, scale)
+        ctx.save_for_backward(q, k, v, bias, key_mask, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, bias, key_mask, out, lse = ctx.saved_tensors
+        need_dbias = bias is not None and ctx.needs_input_grad[3]
+        dq, dk, dv, dbias = flash_attention_bwd(q, k, v, bias, key_mask, out, lse, dout,
+                                                ctx.causal, ctx.scale, need_dbias)
+        return dq, dk, dv, dbias, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bias: Optional[torch.Tensor] = None,
@@ -145,7 +316,10 @@ def flash_attention(
     causal: bool = False,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Flash attention over (B, H, S, D) tensors; ``scale`` defaults to D^-0.5."""
+    """Flash attention over (B, H, S, D) tensors; ``scale`` defaults to D^-0.5.
+
+    Differentiable in q, k, v and bias. Without grad autograd records no
+    node, so what the forward saves is released with its output."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return flash_attention_fwd(q, k, v, bias, key_mask, causal, scale)[0]
+    return _FlashAttention.apply(q, k, v, bias, key_mask, causal, scale)

@@ -197,6 +197,12 @@ class MultiHeadAttention(nn.Module):
     ``proj`` (BEiT-2); BERT keeps its output projection outside, in
     ``attention.output.dense``. Without ``proj`` the module returns the
     merged heads, (B, Sq, H*D).
+
+    ``kv_gather_idx`` (B,) says which row of ``kv`` each query row attends
+    to: ``kv`` then holds only the unique K/V sources (the fusion pass of
+    hard-negative ITM has 4·bs rows over bs images), K/V are projected once
+    per unique row and gathered to the query rows with ``index_select``
+    (whose autograd is the scatter-add).
     """
 
     def __init__(self, dim: int, num_heads: int, *, kv_dim: Optional[int] = None,
@@ -257,10 +263,17 @@ class MultiHeadAttention(nn.Module):
         v = dense(kv_src, self.value.weight, self.value.bias, dt)
         return q, k, v
 
+    @staticmethod
+    def _gather(q, k, v, kv_gather_idx):
+        if kv_gather_idx is None:
+            return q, k, v
+        return q, k.index_select(0, kv_gather_idx), v.index_select(0, kv_gather_idx)
+
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None, *,
                 bias: Optional[torch.Tensor] = None,
                 key_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
+                kv_gather_idx: Optional[torch.Tensor] = None,
                 cache=None) -> torch.Tensor:
         if cache is not None:
             raise NotImplementedError(
@@ -273,12 +286,12 @@ class MultiHeadAttention(nn.Module):
         drop = self.attn_dropout_rate if self.training else 0.0
 
         if bias is None and tiny_supported(Sq, Skv, D):
-            q, k, v = self._project(x, kv_src, 1.0)
+            q, k, v = self._gather(*self._project(x, kv_src, 1.0), kv_gather_idx)
             out = tiny_block_attention(q, k, v, num_heads=H, key_mask=key_mask,
                                        dropout_rate=drop, generator=generator,
                                        training=self.training, scale=scale)
         else:
-            q, k, v = self._project(x, kv_src, scale)
+            q, k, v = self._gather(*self._project(x, kv_src, scale), kv_gather_idx)
             q = q.reshape(B, Sq, H, D).transpose(1, 2).contiguous()
             k = k.reshape(B, Skv, H, D).transpose(1, 2).contiguous()
             v = v.reshape(B, Skv, H, D).transpose(1, 2).contiguous()

@@ -1,25 +1,33 @@
 """Short-query multi-head attention on the projection layout — text
 self-attention (Sq = Skv ~ 40) and the fusion layers' cross-attention to the
-image stream (Sq ~ 40, Skv ~ 200).
+image stream (Sq ~ 40, Skv ~ 200) — forward and backward.
 
-Counterpart of x2vlm_tpu/ops/tiny_attention.py. Three functions:
+Counterpart of x2vlm_tpu/ops/tiny_attention.py. The functions:
 
-- :func:`tiny_attention_fwd` is the kernel's wrapper: for CUDA tensors it
-  launches the hand-written Hopper kernel (``csrc/tiny_attention_fwd.cu``)
-  or raises; for CPU tensors it runs :func:`tiny_attention_reference`.
-  It returns ``(out, probs)``: the fp32 pre-dropout probabilities
-  (B, Sq, H*Skv) when ``return_probs`` (the backward of the training slice
-  reads them), else None. ``tiny_attention_fwd.launches`` counts kernel
-  launches and ``tiny_attention_fwd.launches_by_shape`` splits them by
-  (Sq, Skv).
-- :func:`tiny_attention_reference` is the plain PyTorch version (counterpart
-  of ``_xla_reference``).
+- :func:`tiny_attention_fwd` is the forward kernel's wrapper: for CUDA
+  tensors it launches the hand-written Hopper kernel
+  (``csrc/tiny_attention_fwd.cu``) or raises; for CPU tensors it runs
+  :func:`tiny_attention_reference`. It returns ``(out, probs)``: the fp32
+  pre-dropout probabilities (B, Sq, H*Skv) when ``return_probs`` (the
+  backward reads them), else None.
+- :func:`tiny_attention_bwd` is the backward kernel's wrapper
+  (``csrc/tiny_attention_bwd.cu``); for CPU tensors it runs
+  :func:`tiny_attention_bwd_reference`.
+- Each wrapper's ``.launches`` counts its kernel launches and
+  ``.launches_by_shape`` splits them by (B, Sq, Skv).
+- :func:`tiny_attention_reference` / :func:`tiny_attention_bwd_reference`
+  are the plain PyTorch versions (counterparts of ``_xla_reference`` and of
+  the math of ``_bwd_kernel``).
 - :func:`tiny_block_attention` is the public entry (the JAX name), which
   draws the dropout multiplier from an explicit generator when training.
+  When a gradient is needed it goes through an autograd Function that runs
+  the forward with ``return_probs=True`` and saves (q, k, v, probs, dmask),
+  as the JAX ``_tiny_vjp_fwd`` does; otherwise it calls the forward alone.
 
 I/O is the projection layout: q (B, Sq, H*D), k/v (B, Skv, H*D), out
 (B, Sq, H*D). q is multiplied by ``scale`` in q's dtype, as the reference's
-``qw * scale`` does. Sequence lengths need no padding.
+``qw * scale`` does; the backward returns the gradient of the unscaled q.
+Sequence lengths need no padding.
 """
 
 from __future__ import annotations
@@ -33,13 +41,16 @@ import torch
 from x2vlm_tpu_torch.ops import _build
 from x2vlm_tpu_torch.ops.attention import NEG_INF, dropout_multiplier
 
-__all__ = ["tiny_attention_fwd", "tiny_attention_reference",
-           "tiny_block_attention", "tiny_supported", "smem_bytes"]
+__all__ = ["tiny_attention_bwd", "tiny_attention_bwd_reference", "tiny_attention_fwd",
+           "tiny_attention_reference", "tiny_block_attention", "tiny_supported",
+           "smem_bytes", "bwd_smem_bytes"]
 
 MAX_QUERY_LEN = 64  # the dispatch rule's short-query bound
 _DTYPES = _build.DTYPE_CODES
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+_MAX_HEAD_DIM = 256   # the backward kernel's per-lane accumulators
 _WARPS = 8            # warps per block in csrc/tiny_attention_fwd.cu
+_BWD_WARPS = 16       # and in csrc/tiny_attention_bwd.cu
 
 
 def smem_bytes(Skv: int, head_dim: int) -> int:
@@ -51,10 +62,23 @@ def smem_bytes(Skv: int, head_dim: int) -> int:
                 + _WARPS * head_dim)
 
 
+def bwd_smem_bytes(Sq: int, Skv: int, head_dim: int) -> int:
+    """Shared memory one backward block takes: one head's K and V (row
+    stride D+1) in fp32, reused for g and the scaled q; the (Sq, Skv) fp32
+    dL and P * dm; four g rows per warp. The same formula as ``smem_bytes``
+    in csrc/tiny_attention_bwd.cu (chip_smoke.py holds the two equal)."""
+    kv = 2 * Skv * (head_dim + 1)
+    gq = 2 * Sq * head_dim
+    return 4 * (max(kv, gq) + 2 * Sq * Skv + _BWD_WARPS * 4 * head_dim)
+
+
 def tiny_supported(Sq: int, Skv: int, head_dim: int) -> bool:
-    """Dispatch rule: short queries whose head's K/V fit one block's shared
-    memory (Skv up to 420 at D=64)."""
-    return Sq <= MAX_QUERY_LEN and smem_bytes(Skv, head_dim) <= _SMEM_LIMIT
+    """Dispatch rule: short queries whose head fits one block's shared memory
+    in the forward AND the backward kernel, as the JAX ``_pick_nb`` admits a
+    shape only when both fit (Skv up to 257 at Sq=40, D=64; 209 at Sq=64)."""
+    return (Sq <= MAX_QUERY_LEN and head_dim <= _MAX_HEAD_DIM
+            and smem_bytes(Skv, head_dim) <= _SMEM_LIMIT
+            and bwd_smem_bytes(Sq, Skv, head_dim) <= _SMEM_LIMIT)
 
 
 def _dtype_scale(scale: float, dtype: torch.dtype) -> float:
@@ -103,7 +127,6 @@ def tiny_attention_fwd(
         return out, (probs if return_probs else None)
     if q.device.type != "cuda":
         raise ValueError(f"tiny_attention_fwd: unsupported device {q.device}")
-    _build.check_no_grad(q, k, v)
     B, Sq, HD = q.shape
     Skv = k.shape[1]
     H = num_heads
@@ -155,12 +178,130 @@ def tiny_attention_fwd(
                  _dtype_scale(scale, q.dtype), stream)
     _build.check(lib, err, "tiny_attention_fwd")
     tiny_attention_fwd.launches += 1
-    tiny_attention_fwd.launches_by_shape[(Sq, Skv)] += 1
+    tiny_attention_fwd.launches_by_shape[(B, Sq, Skv)] += 1
     return out, probs
 
 
 tiny_attention_fwd.launches = 0
 tiny_attention_fwd.launches_by_shape = collections.Counter()
+
+
+def tiny_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, probs: torch.Tensor,
+    dmask: Optional[torch.Tensor], g: torch.Tensor, num_heads: int,
+    scale: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch tiny backward from the forward's fp32 probabilities:
+    returns (dq, dk, dv) on the projection layout, dq for the unscaled q.
+    dL and P * dm are cast to the input dtype before their products, as the
+    JAX ``_bwd_kernel`` casts them; products accumulate in fp32."""
+    B, Sq, HD = q.shape
+    Skv = k.shape[1]
+    H = num_heads
+    D = HD // H
+    dt = q.dtype
+    s = _dtype_scale(scale, dt)
+    heads = lambda t, n: t.view(B, n, H, D).transpose(1, 2).float()
+    qs4 = heads(q * s, Sq)
+    k4, v4, g4 = heads(k, Skv), heads(v, Skv), heads(g, Sq)
+    p = probs.view(B, Sq, H, Skv).transpose(1, 2).float()       # (B, H, Sq, Skv)
+    dm = None if dmask is None else dmask.view(B, Sq, H, Skv).transpose(1, 2).float()
+    pu = p if dm is None else p * dm
+    dv4 = torch.matmul(pu.to(dt).float().transpose(-1, -2), g4)
+    dp = torch.matmul(g4, v4.transpose(-1, -2))
+    if dm is not None:
+        dp = dp * dm
+    dl = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(dt).float()
+    dqs4 = torch.matmul(dl, k4).to(dt)
+    dk4 = torch.matmul(dl.transpose(-1, -2), qs4)
+    merge = lambda t, n: t.transpose(1, 2).reshape(B, n, HD)
+    return (merge(dqs4 * s, Sq).to(dt), merge(dk4, Skv).to(k.dtype),
+            merge(dv4, Skv).to(v.dtype))
+
+
+def tiny_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, probs: torch.Tensor,
+    dmask: Optional[torch.Tensor], g: torch.Tensor, num_heads: int,
+    scale: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Tiny attention backward; returns (dq, dk, dv). ``probs`` is the
+    forward's fp32 pre-dropout probabilities, ``dmask`` its dropout
+    multiplier (or None), ``g`` the output gradient. See module doc."""
+    if q.device.type == "cpu":
+        return tiny_attention_bwd_reference(q, k, v, probs, dmask, g, num_heads, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"tiny_attention_bwd: unsupported device {q.device}")
+    B, Sq, HD = q.shape
+    Skv = k.shape[1]
+    H = num_heads
+    if HD % H:
+        raise ValueError(f"tiny_attention_bwd: width {HD} not divisible by {H} heads")
+    D = HD // H
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"tiny_attention_bwd takes f32 or bf16 q/k/v of one "
+                        f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if k.shape != (B, Skv, HD) or v.shape != k.shape or g.shape != q.shape:
+        raise ValueError(f"tiny_attention_bwd: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)} g {tuple(g.shape)} "
+                         f"do not match")
+    if probs.shape != (B, Sq, H * Skv) or probs.dtype != torch.float32:
+        raise ValueError(f"tiny_attention_bwd: probs {tuple(probs.shape)} "
+                         f"{probs.dtype} is not ({B}, {Sq}, {H * Skv}) f32")
+    for t in (k, v, probs, dmask, g):
+        if t is not None and t.device != q.device:
+            raise ValueError("tiny_attention_bwd: operands on different devices")
+    dm_ptr, dm_kind = None, 0
+    if dmask is not None:
+        if tuple(dmask.shape) != (B, Sq, H * Skv) or dmask.dtype not in _build.OPERAND_KINDS:
+            raise ValueError(f"tiny_attention_bwd: dmask {tuple(dmask.shape)} "
+                             f"{dmask.dtype} is not ({B}, {Sq}, {H * Skv}) f32/bf16")
+        dmask = dmask.contiguous()
+        dm_ptr, dm_kind = dmask.data_ptr(), _build.OPERAND_KINDS[dmask.dtype]
+    if D > _MAX_HEAD_DIM or bwd_smem_bytes(Sq, Skv, D) > _SMEM_LIMIT:
+        raise ValueError(f"tiny_attention_bwd: Sq={Sq}, Skv={Skv}, D={D} needs "
+                         f"{bwd_smem_bytes(Sq, Skv, D)} B of shared memory per "
+                         f"block (limit {_SMEM_LIMIT}) or D > {_MAX_HEAD_DIM}")
+    q, k, v, probs = q.contiguous(), k.contiguous(), v.contiguous(), probs.contiguous()
+    g = g.to(q.dtype).contiguous()
+    lib = _build.load("tiny_attention_bwd")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    fn = lib.x2_tiny_attention_bwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + \
+        [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), probs.data_ptr(), dm_ptr,
+                 dm_kind, g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 B, Sq, Skv, H, D, _DTYPES[q.dtype], _dtype_scale(scale, q.dtype), stream)
+    _build.check(lib, err, "tiny_attention_bwd")
+    tiny_attention_bwd.launches += 1
+    tiny_attention_bwd.launches_by_shape[(B, Sq, Skv)] += 1
+    return dq, dk, dv
+
+
+tiny_attention_bwd.launches = 0
+tiny_attention_bwd.launches_by_shape = collections.Counter()
+
+
+class _TinyAttention(torch.autograd.Function):
+    """Forward kernel with the fp32 probabilities kept; backward kernel.
+    Saves (q, k, v, probs, dmask), as the JAX ``_tiny_vjp_fwd`` does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, dmask, num_heads, scale):
+        out, probs = tiny_attention_fwd(q, k, v, num_heads, key_mask, dmask, scale,
+                                        return_probs=True)
+        ctx.save_for_backward(q, k, v, probs, dmask)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, probs, dmask = ctx.saved_tensors
+        dq, dk, dv = tiny_attention_bwd(q, k, v, probs, dmask, g, ctx.num_heads,
+                                        ctx.scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def tiny_block_attention(
@@ -175,7 +316,8 @@ def tiny_block_attention(
     """Multi-head attention on projection-layout inputs; returns (B, Sq, H*D).
 
     Attention-probability dropout (``training`` and ``dropout_rate > 0``) is
-    a multiplier drawn from ``generator`` and passed to the kernel."""
+    a multiplier drawn from ``generator`` and passed to the kernel (and kept
+    for the backward). Differentiable in qw, kw, vw when grad is enabled."""
     B, Sq, HD = qw.shape
     if scale is None:
         scale = (HD // num_heads) ** -0.5
@@ -183,4 +325,7 @@ def tiny_block_attention(
     if training and dropout_rate > 0.0:
         dmask = dropout_multiplier((B, Sq, num_heads * kw.shape[1]), dropout_rate,
                                    generator, qw.dtype, qw.device)
+    if torch.is_grad_enabled() and (qw.requires_grad or kw.requires_grad
+                                    or vw.requires_grad):
+        return _TinyAttention.apply(qw, kw, vw, key_mask, dmask, num_heads, scale)
     return tiny_attention_fwd(qw, kw, vw, num_heads, key_mask, dmask, scale)[0]
