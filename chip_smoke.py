@@ -24,7 +24,23 @@ Phases (any failure exits non-zero and prints no result line):
    rerank batch), outputs are checked for shape and finiteness, and the
    requests are timed; the same weights on the port's CPU path in fp32 for
    2 rows, against the card's rows;
-4. the training path: X2VLM-base pretraining steps (ITC + ITM + MLM,
+4. K7, the int8 matmul (its quantize and GEMM kernels), at every shape of
+   the int8 serving path and over its contract (M off every tile, 3-D
+   input, no bias, each activation, fp32 in and out, zero rows, an
+   outlier, odd N, K off the 64-byte tile): (xq, sx) and, without an
+   activation, the output must equal the plain version bit for bit; with
+   one, within 1e-6 x max|out| in fp32 and one bf16 ulp (2^-7 x max|out|)
+   in bf16. Timed beside its plain version, ``torch._int_mm`` on the same
+   int8 operands and the bf16 ``F.linear`` of the float path;
+5. the int8 serving path: X2VLM-base with ``quant_int8`` and the tanh GELU
+   on both towers (``bench.py``'s ``X2VLM_BENCH=int8`` variant), loaded
+   from phase 3's state dict, serves the same requests; launches checked
+   (K7 GEMM / quantize 48 / 48 per image batch, 72 / 48 per text batch,
+   60 / 42 per rerank batch; attention as in phase 3), int8 against bf16
+   with the same weights and GELU (feature cosine >= 0.99), card int8
+   against the port's CPU fp32 int8 path on 2 rows, requests timed beside
+   the bf16 ones;
+6. the training path: X2VLM-base pretraining steps (ITC + ITM + MLM,
    AdamW, ``lr_schedule(1e-4, 1000, 100)``) at B=32, 40 tokens, 12 masked,
    uint8 images, the config's dropouts on; the launch counts of one step
    are read and checked (12 flash forward / dQ / dK-dV / dBias; tiny
@@ -35,10 +51,11 @@ Phases (any failure exits non-zero and prints no result line):
    the port's CPU fp32 path: losses, and gradient cosines >= 0.99.
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line of
-kernels (with their launches on the two main paths), and as its last line
+kernels (with their launches on the three main paths), and as its last line
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes
-torch.profiler tables of one round of requests and of one train step to
-``DIR/chip_smoke_profile.txt`` and ``DIR/chip_smoke_train_profile.txt``.
+torch.profiler tables of one round of requests, one int8 round and one
+train step to ``DIR/chip_smoke_profile.txt``,
+``DIR/chip_smoke_int8_profile.txt`` and ``DIR/chip_smoke_train_profile.txt``.
 """
 
 from __future__ import annotations
@@ -46,6 +63,7 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
+import dataclasses
 import json
 import math
 import os
@@ -63,6 +81,10 @@ from x2vlm_tpu_torch.ops.flash_attention import (
     _bwd_launchers, flash_attention_bwd, flash_attention_bwd_reference,
     flash_attention_fwd, flash_attention_reference,
 )
+from x2vlm_tpu_torch.ops.int8_matmul import (
+    int8_matmul, int8_matmul_reference, int8_scale, quantize_act, quantize_act_reference,
+)
+from x2vlm_tpu_torch.ops.quant import quantize_weight
 from x2vlm_tpu_torch.ops.tiny_attention import (
     bwd_smem_bytes as tiny_bwd_smem_bytes, smem_bytes as tiny_smem_bytes,
     tiny_attention_bwd, tiny_attention_bwd_reference, tiny_attention_fwd,
@@ -73,7 +95,20 @@ from x2vlm_tpu_torch.train import create_optimizer, lr_schedule, make_train_step
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (data sheet)
 BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak (data sheet)
+INT8_OP_PER_S = 1979e12      # H100 SXM dense int8 tensor-core peak (data sheet)
+FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores (data sheet)
 BATCH, TEXT_LEN = 128, 40          # serving requests
+N_IMG = 197                        # image stream at 224 px; 200 once padded to 8
+# (label, M, K, N, act) of every int8 matmul of the int8 serving path at B=128
+INT8_SHAPES = (("vision qkv", BATCH * N_IMG, 768, 2304, None),
+               ("vision proj", BATCH * N_IMG, 768, 768, None),
+               ("vision fc1", BATCH * N_IMG, 768, 3072, "gelu_fast"),
+               ("vision fc2", BATCH * N_IMG, 3072, 768, None),
+               ("text q/k/v/out", BATCH * TEXT_LEN, 768, 768, None),
+               ("text fc1", BATCH * TEXT_LEN, 768, 3072, "gelu_fast"),
+               ("text fc2", BATCH * TEXT_LEN, 3072, 768, None),
+               ("fusion cross k/v", BATCH * 200, 768, 768, None))
+INT8_REPLACES = "x2vlm_tpu/ops/int8_matmul.py:63"
 TRAIN_BATCH, N_MASKED = 32, 12     # the pretraining step (bench.py:104-121)
 FLASH_BWD_REPLACES = {"dq": "x2vlm_tpu/ops/flash_attention.py:368",
                       "dkv": "x2vlm_tpu/ops/flash_attention.py:413",
@@ -91,9 +126,9 @@ def fail(msg: str) -> None:
     log(f"FAIL {msg}")
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -101,9 +136,13 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def time_ms(fn, inner: int = 10, reps: int = 7, warmup: int = 2) -> float:
+def time_ms(fn, inner: int = 10, reps: int = 7, warmup: int = 2,
+            host_ahead: bool = False) -> float:
     """Median over ``reps`` of the per-call device time of ``inner``
-    back-to-back calls, from CUDA events."""
+    back-to-back calls, from CUDA events. ``host_ahead`` first queues a
+    ~1 ms spin on the stream, so the host enqueues the calls before the
+    card reaches them and a call shorter than its Python wrapper is timed on
+    the card, not on the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -111,6 +150,8 @@ def time_ms(fn, inner: int = 10, reps: int = 7, warmup: int = 2) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if host_ahead:
+            torch.cuda._sleep(2_000_000)
         start.record()
         for _ in range(inner):
             fn()
@@ -504,10 +545,139 @@ def check_tiny_bwd(gen, dev):
     return entries
 
 
+def int8_inputs(gen, dev, lead, K, N, with_bias=True, dtype=torch.bfloat16):
+    """Activations ~ N(0, 1) (a LayerNorm's output), an fp32 weight (N, K)
+    ~ N(0, 0.02) quantized per output row, an fp32 bias."""
+    x = torch.randn(*lead, K, generator=gen, device=dev).to(dtype)
+    w = torch.randn(N, K, generator=gen, device=dev) * 0.02
+    bias = torch.randn(N, generator=gen, device=dev) * 0.02 if with_bias else None
+    wq, sw = quantize_weight(w)
+    return x, w, wq, sw, bias
+
+
+def rule_int8(name, got, plain, act) -> float:
+    """K7 against its plain version: bit-equal without an activation; with
+    one, within 1e-6 x max|out| in fp32, and within one bf16 ulp (2^-7 x
+    max|out|) in bf16, where an fp32 difference of an ulp in the GELU can
+    round the other way."""
+    err = max_err(got, plain)
+    if act is None:
+        bound, ok = 0.0, got.shape == plain.shape and torch.equal(got, plain)
+    else:
+        scale = plain.float().abs().max().item()
+        bound = (1e-6 if got.dtype == torch.float32 else 2.0 ** -7) * scale
+        ok = got.shape == plain.shape and math.isfinite(err) and err <= bound
+    log(f"check {name}: max_abs_err={err:.3e} bound={bound:.3e} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{name}: error {err:.3e} above {bound:.3e} (or shapes differ)")
+    return err
+
+
+def check_quantized(name, xq, sx, x) -> bool:
+    p_xq, p_sx = quantize_act_reference(x)
+    ok = (xq.shape == p_xq.shape and sx.shape == p_sx.shape
+          and torch.equal(xq, p_xq) and torch.equal(sx, p_sx))
+    n_diff = int((xq != p_xq).sum()) if xq.shape == p_xq.shape else -1
+    log(f"check int8 quantize {name}: xq / sx bit-equal: {ok} ({n_diff} int8 values differ)")
+    if not ok:
+        fail(f"int8 quantize {name}: (xq, sx) differ from the plain version")
+    return ok
+
+
+def _int_mm_ms(xq, wq):
+    """cuBLASLt's int8 product (int32 out, no epilogue) through
+    ``torch._int_mm`` on the same operands: a yardstick only, the port
+    never calls it. Returns ms or None with the reason logged."""
+    try:
+        torch._int_mm(xq, wq.t())
+        return time_ms(lambda: torch._int_mm(xq, wq.t()), host_ahead=True)
+    except RuntimeError as e:
+        log(f"torch._int_mm not timed: {str(e).splitlines()[0][:200]}")
+        return None
+
+
+def check_int8(gen, dev):
+    """K7 at every shape of the int8 serving path, bf16 in (checked and
+    timed), then over the contract at small shapes. Returns the entries of
+    the GEMM kernel by (M, K, N) and of the quantize kernel by (M, K)."""
+    gemm_entries, quant_entries = [], {}
+    for label, M, K, N, act in INT8_SHAPES:
+        x, w, wq, sw, bias = int8_inputs(gen, dev, (M,), K, N)
+        xq, sx = quantize_act(x)
+        q_ok = check_quantized(f"{label} M{M} K{K}", xq, sx, x)
+        errs = []
+        for out_dtype in (torch.bfloat16, torch.float32):
+            got = int8_matmul(x, wq, sw, bias, act=act, out_dtype=out_dtype, xq=xq, sx=sx)
+            plain = int8_matmul_reference(x, wq, sw, bias, act=act, out_dtype=out_dtype,
+                                          xq=xq, sx=sx)
+            errs.append(rule_int8(f"int8_matmul {label} M{M} K{K} N{N} act={act} "
+                                  f"out {str(out_dtype)[6:]}", got, plain, act))
+        ms = time_ms(lambda: int8_matmul(x, wq, sw, bias, act=act, xq=xq, sx=sx),
+                     host_ahead=True)
+        plain_ms = time_ms(lambda: int8_matmul_reference(x, wq, sw, bias, act=act, xq=xq,
+                                                         sx=sx), inner=2, reps=5,
+                           host_ahead=True)
+        lib_ms = _int_mm_ms(xq, wq)
+        wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+        lin_ms = time_ms(lambda: F.linear(x, wb, bb), host_ahead=True)
+        b_ms, b_by = bound_ms(nbytes(xq, sx, wq, sw, bias) + 2 * M * N, 2.0 * M * N * K,
+                              INT8_OP_PER_S)
+        log(f"time int8_matmul {label} M{M} K{K} N{N}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, torch._int_mm {lib_ms} ms, bf16 F.linear {lin_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        gemm_entries.append(dict(
+            name="int8_matmul", shape=f"{label} M{M} K{K} N{N} act={act} bf16 out",
+            route="cuda", source="x2vlm_tpu_torch/csrc/int8_matmul.cu",
+            replaces=INT8_REPLACES, key=(M, K, N), max_abs_err=max(errs), ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library="torch._int_mm (int32 product only)", bf16_linear_ms=lin_ms))
+        if (M, K) not in quant_entries:
+            q_ms = time_ms(lambda: quantize_act(x), host_ahead=True)
+            qp_ms = time_ms(lambda: quantize_act_reference(x), inner=3, reps=5,
+                            host_ahead=True)
+            qb_ms, qb_by = bound_ms(nbytes(x, xq, sx), 4.0 * M * K, FP32_FLOP_PER_S)
+            log(f"time int8 quantize M{M} K{K}: kernel {q_ms:.4f} ms, plain {qp_ms:.4f} ms, "
+                f"bound {qb_ms:.4f} ms ({qb_by})")
+            quant_entries[(M, K)] = dict(
+                name="int8_quantize", shape=f"M{M} K{K} bf16", route="cuda",
+                source="x2vlm_tpu_torch/csrc/int8_matmul.cu", replaces=INT8_REPLACES,
+                key=(M, K), max_abs_err=0.0 if q_ok else float("nan"), ms=q_ms,
+                plain_ms=qp_ms, bound_ms=qb_ms, bound_by=qb_by, library_ms=None)
+        del x, w, wq, sw, bias, xq, sx, got, plain
+
+    # the rest of the contract, at small shapes; here the wrapper quantizes
+    # x itself (the path without a shared (xq, sx))
+    bf, f32 = torch.bfloat16, torch.float32
+    for name, (lead, K, N, act, with_bias, in_dt, out_dt) in {
+        "M200 bias": ((200,), 768, 768, None, True, bf, bf),
+        "M197 gelu_fast fp32 out": ((197,), 768, 3072, "gelu_fast", True, bf, f32),
+        "3-D (4, 50) gelu": ((4, 50), 768, 768, "gelu", True, bf, bf),
+        "no bias fp32 in and out": ((130,), 3072, 768, None, False, f32, f32),
+        "zero rows and an outlier": ((64,), 768, 768, None, True, bf, bf),
+        "N77 K784 gelu fp32 out": ((33,), 784, 77, "gelu", True, bf, f32),
+        "M1 N130 gelu_fast fp32 in": ((1,), 64, 130, "gelu_fast", True, f32, bf),
+    }.items():
+        x, _, wq, sw, bias = int8_inputs(gen, dev, lead, K, N, with_bias, in_dt)
+        if name.startswith("zero rows"):
+            x[::7] = 0.0
+            x[3, 5] = 1000.0
+        xq, sx = quantize_act(x)
+        check_quantized(name, xq, sx, x)
+        got = int8_matmul(x, wq, sw, bias, act=act, out_dtype=out_dt)
+        plain = int8_matmul_reference(x, wq, sw, bias, act=act, out_dtype=out_dt)
+        rule_int8(f"int8_matmul {name} {tuple(lead)} K{K} N{N} act={act}", got, plain, act)
+        if name.startswith("zero rows"):
+            zero_ok = bool((xq[::7] == 0).all()) and bool(
+                (sx[::7] == int8_scale(torch.zeros((), device=dev))).all())
+            if not zero_ok:
+                fail("int8 quantize: an all-zero row is not xq = 0, sx = 1e-6 / 127")
+    return gemm_entries, list(quant_entries.values())
+
+
 def reset_counts() -> None:
     flash_attention_fwd.launches = 0
     flash_attention_bwd.launches.clear()
-    for fn in (tiny_attention_fwd, tiny_attention_bwd):
+    for fn in (tiny_attention_fwd, tiny_attention_bwd, int8_matmul, quantize_act):
         fn.launches = 0
         fn.launches_by_shape.clear()
 
@@ -523,26 +693,173 @@ def train_counts():
 
 
 def counts():
-    return flash_attention_fwd.launches, tiny_attention_fwd.launches
+    """(flash, tiny, int8 GEMM, int8 quantize) launches since the last reset."""
+    return (flash_attention_fwd.launches, tiny_attention_fwd.launches,
+            int8_matmul.launches, quantize_act.launches)
 
 
 def serve(server, images, ids, atts):
     """The main path, one request of each program; the launch counts are
-    set to 0 just before each request and read just after it."""
-    per_request, by_shape = {}, collections.Counter()
+    set to 0 just before each request and read just after it. Returns the
+    outputs, the counts of each request and the launches by shape of the
+    tiny and the two int8 kernels over the three."""
+    per_request = {}
+    by_shape = {"tiny": collections.Counter(), "int8_matmul": collections.Counter(),
+                "int8_quantize": collections.Counter()}
 
     def run(name, fn, *inputs):
         reset_counts()
         out = fn(*inputs)
         torch.cuda.synchronize()
         per_request[name] = counts()
-        by_shape.update(tiny_attention_fwd.launches_by_shape)
+        by_shape["tiny"].update(tiny_attention_fwd.launches_by_shape)
+        by_shape["int8_matmul"].update(int8_matmul.launches_by_shape)
+        by_shape["int8_quantize"].update(quantize_act.launches_by_shape)
         return out
 
     img_embeds, img_feat = run("encode_images", server.encode_images, images)
     txt_embeds, txt_feat = run("encode_texts", server.encode_texts, ids, atts)
     scores = run("itm_score", server.itm_score, img_embeds, txt_embeds, atts)
     return (img_embeds, img_feat, txt_embeds, txt_feat, scores), per_request, by_shape
+
+
+def want_launches(cfg, quant: bool):
+    """(flash, tiny, int8 GEMM, int8 quantize) launches of each request.
+    X2VLM-base: 12 BEiT-2 blocks (int8: fused qkv, proj, fc1, fc2, each
+    quantizing its input); 12 text layers (q/k/v sharing one quantization,
+    out, fc1, fc2); 6 fusion layers with a self- and a cross-attention each
+    (q/k/v, out twice, the cross K/V source quantized once, fc1, fc2)."""
+    depth, n_text = cfg.vision.depth, cfg.text.fusion_layer
+    n_fusion = cfg.text.num_layers - cfg.text.fusion_layer
+    q = int(quant)
+    return {"encode_images": (depth, 0, 4 * depth * q, 4 * depth * q),
+            "encode_texts": (0, n_text, 6 * n_text * q, 4 * n_text * q),
+            "itm_score": (0, 2 * n_fusion, 10 * n_fusion * q, 7 * n_fusion * q)}
+
+
+def check_round(tag, cfg, outs, per_request, want) -> None:
+    """Launches, shapes and finiteness of one round of requests."""
+    log(f"launches per request ({tag}; flash, tiny, int8 GEMM, int8 quantize): "
+        f"{json.dumps(per_request)}")
+    for req, n in want.items():
+        if tuple(per_request[req]) != n:
+            fail(f"{tag} {req}: launches {per_request[req]}, expected {n}")
+    img_embeds, img_feat, txt_embeds, txt_feat, scores = outs
+    n_img = cfg.vision.num_patches + 1
+    expect_shapes = {"image_embeds": (img_embeds, (BATCH, n_img, cfg.vision.embed_dim)),
+                     "image_feat": (img_feat, (BATCH, cfg.embed_dim)),
+                     "text_embeds": (txt_embeds, (BATCH, TEXT_LEN, cfg.text.hidden_size)),
+                     "text_feat": (txt_feat, (BATCH, cfg.embed_dim)),
+                     "itm_score": (scores, (BATCH,))}
+    for name, (t, shape) in expect_shapes.items():
+        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
+            fail(f"{tag} {name}: shape {tuple(t.shape)} (want {shape}), "
+                 f"finite={bool(torch.isfinite(t).all())}")
+    log(f"peak device memory of one round of requests ({tag}): "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def time_requests(server, requests, outs):
+    images, ids, atts = requests
+    img_embeds, _, txt_embeds = outs[:3]
+    return {
+        "encode_images": time_ms(lambda: server.encode_images(images), inner=1, reps=5),
+        "encode_texts": time_ms(lambda: server.encode_texts(ids, atts), inner=1, reps=5),
+        "itm_score": time_ms(lambda: server.itm_score(img_embeds, txt_embeds, atts),
+                             inner=1, reps=5),
+    }
+
+
+def profile_round(args, smi, server, requests, fname) -> None:
+    if not args.profile:
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        serve(server, *requests)
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
+    os.makedirs(args.profile, exist_ok=True)
+    with open(os.path.join(args.profile, fname), "w") as f:
+        f.write(f"{smi}\n{table}\n")
+    log(table[:6000])
+
+
+def against_cpu(tag, cfg, cpu_state, outs, requests, n: int = 2) -> None:
+    """The same weights on the port's CPU path in fp32 for ``n`` rows:
+    feature cosine >= 0.99, ITM error <= 0.05 + 5% of the score scale."""
+    images, ids, atts = (t[:n].cpu() for t in requests)
+    cpu_model = XVLMForRetrieval(cfg, dtype=torch.float32, device="cpu", seed=None)
+    cpu_model.load_state_dict(cpu_state)
+    with torch.inference_mode():
+        c_img, c_ifeat = cpu_model.encode_images(images)
+        c_txt, c_tfeat = cpu_model.encode_texts(ids, atts)
+        c_score = cpu_model.itm_score(c_img, c_txt, atts)
+    e2e = {}
+    for name, card, ref in zip(("image_embeds", "image_feat", "text_embeds", "text_feat",
+                                "itm_score"), outs, (c_img, c_ifeat, c_txt, c_tfeat, c_score)):
+        card = card[:n].float().cpu()
+        e2e[name] = {"max_abs_err": max_err(card, ref),
+                     "max_abs_ref": ref.abs().max().item()}
+        if name.endswith("feat"):
+            e2e[name]["min_cosine"] = F.cosine_similarity(card, ref, dim=-1).min().item()
+    log(f"{tag} vs CPU fp32 ({n} rows): {json.dumps(e2e)}")
+    for name in ("image_feat", "text_feat"):
+        if not e2e[name]["min_cosine"] >= 0.99:
+            fail(f"{tag} {name}: cosine to the fp32 CPU path "
+                 f"{e2e[name]['min_cosine']:.5f} < 0.99")
+    itm = e2e["itm_score"]
+    if not itm["max_abs_err"] <= 0.05 + 0.05 * itm["max_abs_ref"]:
+        fail(f"{tag} itm_score: error to the fp32 CPU path {itm['max_abs_err']:.4f}")
+
+
+def int8_phase(args, dev, state, cpu_state, requests, smi):
+    """The int8 serving path (bench.py's X2VLM_BENCH=int8 variant: quant_int8
+    and the tanh GELU on both towers) with the bf16 phase's weights, beside
+    the bf16 model with the same weights and GELU. Returns the launches of
+    each int8 request and by shape."""
+    base = XVLMConfig.base()
+
+    def variant(quant):
+        return dataclasses.replace(
+            base, vision=dataclasses.replace(base.vision, act="gelu_fast", quant_int8=quant),
+            text=dataclasses.replace(base.text, act="gelu_fast", quant_int8=quant))
+
+    qcfg = variant(True)
+    servers = {}
+    for tag, cfg in (("int8", qcfg), ("bf16 gelu_fast", variant(False))):
+        m = XVLMForRetrieval(cfg, dtype=torch.bfloat16, device=dev, seed=None)
+        m.load_state_dict(state)
+        servers[tag] = RetrievalServer(m)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    outs, per_request, by_shape = serve(servers["int8"], *requests)
+    check_round("int8", qcfg, outs, per_request, want_launches(qcfg, quant=True))
+
+    # int8 against bf16, the same weights and GELU, every row
+    f_outs, _, _ = serve(servers["bf16 gelu_fast"], *requests)
+    cmp = {name: F.cosine_similarity(outs[i].float(), f_outs[i].float(), dim=-1).min().item()
+           for i, name in ((1, "image_feat"), (3, "text_feat"))}
+    cmp["itm_max_abs_diff"] = max_err(outs[4], f_outs[4])
+    cmp["itm_max_abs_bf16"] = f_outs[4].abs().max().item()
+    log(f"card int8 vs card bf16 (same weights, gelu_fast, {BATCH} rows): {json.dumps(cmp)}")
+    for name in ("image_feat", "text_feat"):
+        if not cmp[name] >= 0.99:
+            fail(f"int8 {name}: min cosine to the bf16 path {cmp[name]:.5f} < 0.99")
+
+    # requests timed in turns: int8, bf16, bf16, int8
+    times = collections.defaultdict(list)
+    for tag in ("int8", "bf16 gelu_fast", "bf16 gelu_fast", "int8"):
+        for req, ms in time_requests(servers[tag], requests,
+                                     outs if tag == "int8" else f_outs).items():
+            times[(tag, req)].append(ms)
+    req_ms = {f"{tag} {req}": [round(x, 3) for x in v] for (tag, req), v in times.items()}
+    log(f"request ms (B={BATCH}, CUDA events, median of 5 in each of two turns, in the "
+        f"order int8, bf16, bf16, int8; both with gelu_fast): {json.dumps(req_ms)}")
+    profile_round(args, smi, servers["int8"], requests, "chip_smoke_int8_profile.txt")
+
+    against_cpu("card int8", qcfg, cpu_state, outs, requests)
+    del servers, outs, f_outs
+    return per_request, by_shape
 
 
 def train_batch(gen, dev, cfg, B):
@@ -743,107 +1060,62 @@ def run(args, dev: torch.device) -> int:
     lens[0] = TEXT_LEN
     atts = (torch.arange(TEXT_LEN, device=dev)[None] < lens[:, None]).to(torch.int32)
     ids = ids * atts
+    requests = (images, ids, atts)
     torch.cuda.synchronize()
     log(f"model: X2VLM-base 224px, {sum(p.numel() for p in model.parameters())} "
         f"params, built in {time.perf_counter() - t0:.1f} s")
 
     torch.cuda.reset_peak_memory_stats()
-    outs, per_request, by_shape = serve(server, images, ids, atts)
-    img_embeds, img_feat, txt_embeds, txt_feat, scores = outs
-    log(f"launches per request: {json.dumps(per_request)}")
-    # X2VLM-base: 12 BEiT-2 blocks; 12 text layers; 6 fusion layers with a
-    # self- and a cross-attention each
-    n_fusion = cfg.text.num_layers - cfg.text.fusion_layer
-    want = {"encode_images": (cfg.vision.depth, 0),
-            "encode_texts": (0, cfg.text.fusion_layer),
-            "itm_score": (0, 2 * n_fusion)}
-    for req, n in want.items():
-        if tuple(per_request[req]) != n:
-            fail(f"{req}: (flash, tiny) launches {per_request[req]}, expected {n}")
-    n_img = cfg.vision.num_patches + 1
-    expect_shapes = {"image_embeds": (img_embeds, (BATCH, n_img, cfg.vision.embed_dim)),
-                     "image_feat": (img_feat, (BATCH, cfg.embed_dim)),
-                     "text_embeds": (txt_embeds, (BATCH, TEXT_LEN, cfg.text.hidden_size)),
-                     "text_feat": (txt_feat, (BATCH, cfg.embed_dim)),
-                     "itm_score": (scores, (BATCH,))}
-    for name, (t, shape) in expect_shapes.items():
-        if tuple(t.shape) != shape or not bool(torch.isfinite(t).all()):
-            fail(f"{name}: shape {tuple(t.shape)} (want {shape}), "
-                 f"finite={bool(torch.isfinite(t).all())}")
-    log(f"peak device memory of one round of requests: "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-
-    req_ms = {
-        "encode_images": time_ms(lambda: server.encode_images(images), inner=1, reps=5),
-        "encode_texts": time_ms(lambda: server.encode_texts(ids, atts), inner=1, reps=5),
-        "itm_score": time_ms(lambda: server.itm_score(img_embeds, txt_embeds, atts),
-                             inner=1, reps=5),
-    }
+    outs, per_request, by_shape = serve(server, *requests)
+    check_round("bf16", cfg, outs, per_request, want_launches(cfg, quant=False))
+    req_ms = time_requests(server, requests, outs)
     log(f"request ms (B={BATCH}, CUDA events, median of 5): "
         f"{json.dumps({k: round(v, 3) for k, v in req_ms.items()})}")
     log(f"throughput: images/s {BATCH / req_ms['encode_images'] * 1e3:.1f}, "
         f"texts/s {BATCH / req_ms['encode_texts'] * 1e3:.1f}, "
         f"itm pairs/s {BATCH / req_ms['itm_score'] * 1e3:.1f}, encode pairs/s "
         f"{BATCH / (req_ms['encode_images'] + req_ms['encode_texts']) * 1e3:.1f}")
-
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            serve(server, images, ids, atts)
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
-        os.makedirs(args.profile, exist_ok=True)
-        with open(os.path.join(args.profile, "chip_smoke_profile.txt"), "w") as f:
-            f.write(f"{smi}\n{table}\n")
-        log(table[:6000])
+    profile_round(args, smi, server, requests, "chip_smoke_profile.txt")
 
     # ---- the same weights on the port's CPU path, fp32, 2 rows ----
-    n = 2
-    cpu_model = XVLMForRetrieval(cfg, dtype=torch.float32, device="cpu", seed=None)
-    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    with torch.inference_mode():
-        c_img, c_ifeat = cpu_model.encode_images(images[:n].cpu())
-        c_txt, c_tfeat = cpu_model.encode_texts(ids[:n].cpu(), atts[:n].cpu())
-        c_score = cpu_model.itm_score(c_img, c_txt, atts[:n].cpu())
-    e2e = {}
-    for name, card, ref in (("image_embeds", img_embeds, c_img),
-                            ("text_embeds", txt_embeds, c_txt),
-                            ("image_feat", img_feat, c_ifeat),
-                            ("text_feat", txt_feat, c_tfeat),
-                            ("itm_score", scores, c_score)):
-        card = card[:n].float().cpu()
-        e2e[name] = {"max_abs_err": max_err(card, ref),
-                     "max_abs_ref": ref.abs().max().item()}
-        if name.endswith("feat"):
-            e2e[name]["min_cosine"] = F.cosine_similarity(card, ref, dim=-1).min().item()
-    log(f"card bf16 vs CPU fp32 ({n} rows): {json.dumps(e2e)}")
-    for name in ("image_feat", "text_feat"):
-        if not e2e[name]["min_cosine"] >= 0.99:
-            fail(f"{name}: cosine to the fp32 CPU path {e2e[name]['min_cosine']:.5f} < 0.99")
-    itm = e2e["itm_score"]
-    if not itm["max_abs_err"] <= 0.05 + 0.05 * itm["max_abs_ref"]:
-        fail(f"itm_score: error to the fp32 CPU path {itm['max_abs_err']:.4f}")
+    state = model.state_dict()
+    cpu_state = {k: v.cpu() for k, v in state.items()}
+    against_cpu("card bf16", cfg, cpu_state, outs, requests)
+    del server, model, outs
+    torch.cuda.empty_cache()
 
-    del server, model, cpu_model
+    # ---- the int8 serving path, the same weights ----
+    with torch.inference_mode():
+        int8_gemm_entries, int8_quant_entries = check_int8(gen, dev)
+    torch.cuda.empty_cache()
+    q_per_request, q_by_shape = int8_phase(args, dev, state, cpu_state, requests, smi)
+    del state, cpu_state
     torch.cuda.empty_cache()
 
     # ---- the second main path: X2VLM-base pretraining steps ----
     train = train_phase(args, dev, gen, smi)
 
-    # launches on the main paths: serving requests + one train step
-    def entry(e, serving, training):
+    # launches on the main paths: bf16 serving requests, one train step,
+    # int8 serving requests
+    def entry(e, serving, training, int8=0):
         e = {k: v for k, v in e.items() if k != "key"}
-        return dict(e, launches=serving + training,
-                    launches_by_path={"serving": serving, "train_step": training})
+        return dict(e, launches=serving + training + int8,
+                    launches_by_path={"serving": serving, "train_step": training,
+                                      "int8_serving": int8})
 
     kernels = [entry(flash_entry, sum(p[0] for p in per_request.values()),
-                     train["flash_attention_fwd"])]
+                     train["flash_attention_fwd"], sum(p[0] for p in q_per_request.values()))]
     for e in tiny_entries:
-        kernels.append(entry(e, by_shape.get(e["key"], 0), train["tiny_attention_fwd"][e["key"]]))
+        kernels.append(entry(e, by_shape["tiny"][e["key"]], train["tiny_attention_fwd"][e["key"]],
+                             q_by_shape["tiny"][e["key"]]))
     for e in flash_bwd_entries:
         kernels.append(entry(e, 0, train[e["name"]]))
     for e in tiny_bwd_entries:
         kernels.append(entry(e, 0, train["tiny_attention_bwd"][e["key"]]))
+    for e in int8_gemm_entries:
+        kernels.append(entry(e, 0, 0, q_by_shape["int8_matmul"][e["key"]]))
+    for e in int8_quant_entries:
+        kernels.append(entry(e, 0, 0, q_by_shape["int8_quantize"][e["key"]]))
     for e in kernels:
         if e["launches"] == 0:
             fail(f"{e['name']} ({e['shape']}) was not launched on the main path")
@@ -856,7 +1128,6 @@ def run(args, dev: torch.device) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

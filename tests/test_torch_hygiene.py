@@ -3,7 +3,10 @@ package, its entry points refuse to fall back to the CPU quietly, and its
 kernel sources and build rules are in place."""
 
 import ast
+import importlib
+import math
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -105,6 +108,9 @@ def test_kernel_sources_and_build_rules():
         assert f"x2_{name}" in text and "cudaGetLastError" in text
         assert "Replaces: x2vlm_tpu/ops/" in text
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    # the int8 kernel's IEEE division and unfused dequantize are bit-exact
+    # against the plain version only without fast math
+    assert not any("fast_math" in f or "fmad" in f for f in _build.NVCC_FLAGS)
     # the library name follows the source: an edit forces a rebuild
     assert _build._lib_path("flash_attention_fwd") != _build._lib_path("tiny_attention_fwd")
     assert _build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
@@ -152,3 +158,62 @@ def test_gradients_flow_through_the_autograd_wrappers_on_cpu(kernel):
     # no grad wanted: the forward alone runs and nothing is saved
     with torch.no_grad():
         assert fused(*inputs).grad_fn is None
+
+
+@pytest.mark.parametrize("name", _build.KERNELS)
+def test_every_kernel_has_a_plain_version(name):
+    """Each kernel library's module holds, beside every wrapper that counts
+    launches, the plain ``*_reference`` the wrapper runs for CPU tensors."""
+    module = importlib.import_module(
+        f"x2vlm_tpu_torch.ops.{re.sub(r'_(fwd|bwd)$', '', name)}")
+    assert f'_build.load("{name}")' in Path(module.__file__).read_text()
+    wrappers = [f for f in vars(module).values()
+                if callable(f) and hasattr(f, "launches")
+                and getattr(f, "__module__", None) == module.__name__]
+    assert wrappers, f"no launch-counting wrapper in {module.__name__}"
+    for w in wrappers:
+        ref = re.sub(r"_fwd$", "", w.__name__) + "_reference"
+        assert callable(getattr(module, ref, None)), f"{w.__name__}: no {ref}"
+
+
+class _CudaStandIn:
+    """The metadata of a CUDA tensor, for a machine without a card: what the
+    int8 wrappers read before they load their kernel library."""
+
+    def __init__(self, shape, dtype):
+        self.shape, self.dtype = torch.Size(shape), dtype
+        self.device = torch.device("cuda", 0)
+
+    def dim(self):
+        return len(self.shape)
+
+    def numel(self):
+        return math.prod(self.shape)
+
+
+@pytest.mark.parametrize("wrapper", ["quantize_act", "int8_matmul"])
+def test_int8_wrappers_raise_for_cuda_without_the_library(wrapper, monkeypatch, tmp_path):
+    """For a CUDA tensor the int8 wrappers launch the kernel or raise: with
+    no nvcc to build the library they raise, and never run the plain
+    version."""
+    from x2vlm_tpu_torch.ops import int8_matmul as im
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("the CUDA toolkit is installed: nvcc would build the library")
+    monkeypatch.setattr(_build, "_LIBS", {})
+
+    def no_fallback(*a, **k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(im, "quantize_act_reference", no_fallback)
+    monkeypatch.setattr(im, "int8_matmul_reference", no_fallback)
+    x = _CudaStandIn((4, 8, 32), torch.bfloat16)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        if wrapper == "quantize_act":
+            im.quantize_act(x)
+        else:
+            im.int8_matmul(x, _CudaStandIn((16, 32), torch.int8),
+                           _CudaStandIn((16,), torch.float32),
+                           xq=_CudaStandIn((4, 8, 32), torch.int8),
+                           sx=_CudaStandIn((4, 8, 1), torch.float32))

@@ -46,7 +46,7 @@ class BEiT2Config:
     attn_dropout_rate: float = 0.0
     ln_eps: float = 1e-6
     act: str = "gelu"          # "gelu" (erf) | "gelu_fast" (tanh)
-    quant_int8: bool = False   # int8 serving path: a later slice
+    quant_int8: bool = False   # int8 W8A8 projections and FFN (serving only)
 
     @property
     def window(self) -> Tuple[int, int]:
@@ -119,7 +119,7 @@ class BEiT2Block(nn.Module):
         self.norm2 = FusedLayerNorm(cfg.embed_dim, cfg.ln_eps, device=device)
         self.mlp = Mlp(cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio),
                        act=ACTIVATIONS[cfg.act], dropout_rate=cfg.dropout_rate,
-                       dtype=dtype, device=device)
+                       dtype=dtype, quant=cfg.quant_int8, device=device)
         self.drop_path = DropPath(drop_path)
 
     def init_extra(self, generator: torch.Generator, std: float) -> None:

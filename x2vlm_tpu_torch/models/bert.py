@@ -30,8 +30,9 @@ from x2vlm_tpu_torch.device import resolve_device
 from x2vlm_tpu_torch.ops.fused_ce import fused_vocab_ce
 from x2vlm_tpu_torch.ops.layers import (
     ACTIVATIONS, DropPath, FusedLayerNorm, LayerNorm, MultiHeadAttention, dense,
-    dropout, gelu_exact, layer_norm, linear,
+    dropout, epilogue_act, gelu_exact, layer_norm, linear, serving_only,
 )
+from x2vlm_tpu_torch.ops.quant import qdense
 
 __all__ = ["BertConfig", "BertEncoder", "BertLayer", "BertMLMHead", "TextEncoder",
            "drop_path_schedule"]
@@ -52,7 +53,7 @@ class BertConfig:
     hidden_dropout: float = 0.1
     attn_dropout: float = 0.1
     act: str = "gelu"              # "gelu" (erf) | "gelu_fast" (tanh)
-    quant_int8: bool = False       # int8 serving path: a later slice
+    quant_int8: bool = False       # int8 W8A8 projections and FFN (serving only)
     text_drop_path_rate: float = 0.0
     cross_drop_path_rate: float = 0.0
 
@@ -106,18 +107,25 @@ class BertEmbeddings(nn.Module):
 
 
 class BertOutput(nn.Module):
-    """``dense`` -> dropout -> drop-path -> ``LayerNorm(residual + h)``."""
+    """``dense`` -> dropout -> drop-path -> ``LayerNorm(residual + h)``;
+    ``dense`` in int8 with ``quant_int8`` (the attention's output projection,
+    which the JAX package keeps inside ``MultiHeadAttention``, and fc2)."""
 
     def __init__(self, in_dim: int, cfg: BertConfig, *, dtype: torch.dtype, device):
         super().__init__()
         self.dtype = dtype
+        self.quant = cfg.quant_int8
         self.dropout_rate = cfg.hidden_dropout
         self.dense = linear(in_dim, cfg.hidden_size, device=device)
         self.LayerNorm = FusedLayerNorm(cfg.hidden_size, cfg.ln_eps, device=device)
 
     def forward(self, h, residual, drop_path: DropPath,
                 generator: Optional[torch.Generator] = None):
-        h = dense(h, self.dense.weight, self.dense.bias, self.dtype)
+        if self.quant:
+            serving_only(self)
+            h = qdense(h, self.dense.weight, self.dense.bias, dtype=self.dtype)
+        else:
+            h = dense(h, self.dense.weight, self.dense.bias, self.dtype)
         h = drop_path(dropout(h, self.dropout_rate, generator, self.training),
                       generator)
         return self.LayerNorm((residual + h).to(self.dtype))
@@ -144,13 +152,21 @@ class BertAttention(nn.Module):
 
 
 class BertIntermediate(nn.Module):
+    """``dense`` -> act; with ``quant_int8`` one int8 launch with the act in
+    its epilogue."""
+
     def __init__(self, cfg: BertConfig, *, dtype: torch.dtype, device):
         super().__init__()
         self.dtype = dtype
+        self.quant = cfg.quant_int8
         self.act = ACTIVATIONS[cfg.act]
         self.dense = linear(cfg.hidden_size, cfg.intermediate_size, device=device)
 
     def forward(self, x):
+        if self.quant:
+            serving_only(self)
+            return qdense(x, self.dense.weight, self.dense.bias,
+                          act=epilogue_act(self.act), dtype=self.dtype)
         return self.act(dense(x, self.dense.weight, self.dense.bias, self.dtype))
 
 

@@ -29,7 +29,7 @@ __all__ = ["DTYPE_CODES", "KERNELS", "OPERAND_KINDS", "build", "check", "load",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "x2vlm_tpu_torch"
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "tiny_attention_fwd",
-           "tiny_attention_bwd")
+           "tiny_attention_bwd", "int8_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 # Codes of the C interface (csrc/common.cuh): the element type of q/k/v/out

@@ -22,12 +22,13 @@ from torch import nn
 from x2vlm_tpu_torch.device import resolve_device
 from x2vlm_tpu_torch.ops.attention import dot_product_attention
 from x2vlm_tpu_torch.ops.flash_attention import flash_attention, flash_supported
+from x2vlm_tpu_torch.ops.quant import qdense, quantize_act
 from x2vlm_tpu_torch.ops.tiny_attention import tiny_block_attention, tiny_supported
 
 __all__ = ["LayerNorm", "FusedLayerNorm", "Mlp", "DropPath", "MultiHeadAttention",
            "PatchEmbed", "gelu_exact", "gelu_fast", "ACTIVATIONS", "dense",
-           "dropout", "init_weights", "linear", "layer_norm", "IMAGE_MEAN",
-           "IMAGE_STD"]
+           "dropout", "epilogue_act", "init_weights", "linear", "layer_norm",
+           "serving_only", "IMAGE_MEAN", "IMAGE_STD"]
 
 # CLIP image statistics (same values as x2vlm_tpu/data/transforms.py; the
 # uint8 path must match host normalization bit for bit)
@@ -136,22 +137,47 @@ ACTIVATIONS = {"gelu": gelu_exact, "gelu_exact": gelu_exact,
                "gelu_fast": gelu_fast}
 
 
+def epilogue_act(act: Callable) -> str:
+    """The int8 kernel's epilogue activation for ``act``: "gelu_fast" for
+    the tanh GELU, else the erf "gelu" (the JAX ``Mlp``'s rule)."""
+    return "gelu_fast" if act is gelu_fast else "gelu"
+
+
+def serving_only(module: nn.Module) -> None:
+    """Refuse training mode in an int8 (``quant_int8``) layer."""
+    if module.training:
+        raise ValueError(
+            "quant_int8 is serving-only: round() has zero gradient, so training "
+            "through the int8 layers learns nothing; disable quant_int8 for "
+            "training, or call .eval() to serve")
+
+
 class Mlp(nn.Module):
-    """Transformer FFN: ``fc1`` -> act -> ``fc2`` (+ dropout)."""
+    """Transformer FFN: ``fc1`` -> act -> ``fc2`` (+ dropout).
+
+    ``quant=True``: both matmuls in int8 W8A8 (``ops/quant.qdense``, the
+    same parameters), the activation fused into fc1's epilogue; serving
+    only."""
 
     def __init__(self, dim: int, hidden_dim: int, out_dim: Optional[int] = None, *,
                  act: Callable = gelu_exact, dropout_rate: float = 0.0,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16, quant: bool = False, device=None):
         super().__init__()
         device = resolve_device(device)
         self.act = act
         self.dropout_rate = dropout_rate
         self.dtype = dtype
+        self.quant = quant
         self.fc1 = linear(dim, hidden_dim, device=device)
         self.fc2 = linear(hidden_dim, out_dim or dim, device=device)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.quant:
+            serving_only(self)
+            x = qdense(x, self.fc1.weight, self.fc1.bias, act=epilogue_act(self.act),
+                       dtype=self.dtype)
+            return qdense(x, self.fc2.weight, self.fc2.bias, dtype=self.dtype)
         x = self.act(dense(x, self.fc1.weight, self.fc1.bias, self.dtype))
         x = dense(x, self.fc2.weight, self.fc2.bias, self.dtype)
         return dropout(x, self.dropout_rate, generator, self.training)
@@ -190,6 +216,13 @@ class MultiHeadAttention(nn.Module):
     - anything else runs the plain ``dot_product_attention``, with the scale
       folded the same way.
 
+    ``quant=True`` (serving only) projects through the int8 kernel
+    (``ops/quant.qdense``) with each source (x, and ``kv`` when given)
+    quantized once and shared by the projections it feeds; the output
+    projection is int8 too. The query weight is quantized unscaled and the
+    softmax scale goes to the attention core, as the JAX package's int8
+    path does (at D = 64 the two agree bit for bit: 1/8 is a power of 2).
+
     Parameter names follow the reference checkpoints. ``qkv_bias_mode="qv"``
     is BEiT-2's fused ``qkv`` weight with ``q_bias`` / ``v_bias`` (no key
     bias); "full" (q, k, v biases) and "none" are BERT's separate ``query`` /
@@ -211,11 +244,8 @@ class MultiHeadAttention(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, quant: bool = False,
                  device=None):
         super().__init__()
-        if quant:
-            raise NotImplementedError(
-                "int8 W8A8 projections (quant_int8) are ported with the int8 "
-                "matmul kernel in a later slice")
         device = resolve_device(device)
+        self.quant = quant
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         inner = self.head_dim * num_heads
@@ -243,6 +273,8 @@ class MultiHeadAttention(nn.Module):
         """(q, k, v) in (B, S, H*D); ``q_scale`` is folded into the query
         weight and bias in fp32 before the cast to the compute dtype."""
         dt = self.dtype
+        if self.quant:
+            return self._project_int8(x, kv_src)
         if self.qkv_bias_mode == "qv":
             inner = self.q_bias.shape[0]
             w = self.qkv.weight
@@ -263,6 +295,22 @@ class MultiHeadAttention(nn.Module):
         v = dense(kv_src, self.value.weight, self.value.bias, dt)
         return q, k, v
 
+    def _project_int8(self, x, kv_src):
+        """(q, k, v) through the int8 kernel from the unscaled weights. The
+        fused ``qkv`` is one launch (per-row weight scales make it equal to
+        three); separate projections share one quantization per source."""
+        dt = self.dtype
+        if self.qkv_bias_mode == "qv":
+            inner = self.q_bias.shape[0]
+            b = torch.cat([self.q_bias, torch.zeros_like(self.v_bias), self.v_bias])
+            return qdense(x, self.qkv.weight, b, dtype=dt).split(inner, dim=-1)
+        xq, sx = quantize_act(x)
+        kvq, skv = (xq, sx) if kv_src is x else quantize_act(kv_src)
+        q = qdense(x, self.query.weight, self.query.bias, xq=xq, sx=sx, dtype=dt)
+        k = qdense(kv_src, self.key.weight, self.key.bias, xq=kvq, sx=skv, dtype=dt)
+        v = qdense(kv_src, self.value.weight, self.value.bias, xq=kvq, sx=skv, dtype=dt)
+        return q, k, v
+
     @staticmethod
     def _gather(q, k, v, kv_gather_idx):
         if kv_gather_idx is None:
@@ -278,6 +326,8 @@ class MultiHeadAttention(nn.Module):
         if cache is not None:
             raise NotImplementedError(
                 "the static decode cache (captioning) arrives with a later slice")
+        if self.quant:
+            serving_only(self)
         B, Sq, _ = x.shape
         kv_src = x if kv is None else kv
         Skv = kv_src.shape[1]
@@ -291,21 +341,27 @@ class MultiHeadAttention(nn.Module):
                                        dropout_rate=drop, generator=generator,
                                        training=self.training, scale=scale)
         else:
-            q, k, v = self._gather(*self._project(x, kv_src, scale), kv_gather_idx)
+            # float: the scale is folded into the query weight; int8: it is
+            # applied by the attention core
+            q_scale, core_scale = (1.0, scale) if self.quant else (scale, 1.0)
+            q, k, v = self._gather(*self._project(x, kv_src, q_scale), kv_gather_idx)
             q = q.reshape(B, Sq, H, D).transpose(1, 2).contiguous()
             k = k.reshape(B, Skv, H, D).transpose(1, 2).contiguous()
             v = v.reshape(B, Skv, H, D).transpose(1, 2).contiguous()
             if drop == 0.0 and flash_supported(q, k):
                 out = flash_attention(q, k, v, bias=bias, key_mask=key_mask,
-                                      scale=1.0)
+                                      scale=core_scale)
             else:
                 out = dot_product_attention(
-                    q, k, v, bias=bias, key_mask=key_mask, scale=1.0,
+                    q, k, v, bias=bias, key_mask=key_mask, scale=core_scale,
                     dropout_rate=drop, generator=generator,
                     training=self.training)
             out = out.transpose(1, 2).reshape(B, Sq, H * D)
         if self.proj is not None:
-            out = dense(out, self.proj.weight, self.proj.bias, self.dtype)
+            if self.quant:
+                out = qdense(out, self.proj.weight, self.proj.bias, dtype=self.dtype)
+            else:
+                out = dense(out, self.proj.weight, self.proj.bias, self.dtype)
             out = dropout(out, self.proj_dropout_rate, generator, self.training)
         return out
 
