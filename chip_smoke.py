@@ -14,16 +14,24 @@ Phases (any failure exits non-zero and prints no result line):
    kernel_err <= max(4 x plain_bf16_err, 1e-3 x max|truth|), and over the
    rest of each kernel's contract (key masks, fully masked rows, causal,
    Sq != Skv, per-batch and head-shared bias, dropout multiplier, fp32,
-   other head dims) at small shapes; time the kernel, its plain version and
-   one PyTorch library call (SDPA forward or backward) with CUDA events;
+   other head dims: for the tiny kernels each one the tensor-core route
+   builds, 16 to 128) at small shapes; time the kernel, its plain version and
+   one PyTorch library call (SDPA forward or backward) with CUDA events
+   (the tiny kernels and their yardsticks with the card running ahead of
+   the host, as they are shorter than their Python calls). The tiny
+   kernels have two routes (``tiny_route``): the main paths' bf16 D=64
+   launches must take the tensor-core route, fp32 and bf16 D=256 the
+   CUDA-core route; the C route rule and each route's shared-memory
+   formulas must equal the Python ones;
 3. the serving path: X2VLM-base at 224 px with weights drawn from
    ``--seed`` serves ``encode_images`` (128 images), ``encode_texts`` (128
    texts of 40 tokens, some padded) and ``itm_score`` (128 pairs) through
    ``RetrievalServer``; the launch counts of each request are read and
    checked (12 flash per image batch, 12 tiny per text batch, 12 tiny per
-   rerank batch), outputs are checked for shape and finiteness, and the
-   requests are timed; the same weights on the port's CPU path in fp32 for
-   2 rows, against the card's rows;
+   rerank batch, every tiny launch on the tensor-core route), outputs are
+   checked for shape and finiteness, and the requests are timed; the
+   same weights on the port's CPU path in fp32 for 2 rows, against the
+   card's rows;
 4. K7, the int8 matmul (its quantize and GEMM kernels), at every shape of
    the int8 serving path and over its contract (M off every tile, 3-D
    input, no bias, each activation, fp32 in and out, zero rows, an
@@ -44,7 +52,8 @@ Phases (any failure exits non-zero and prints no result line):
    AdamW, ``lr_schedule(1e-4, 1000, 100)``) at B=32, 40 tokens, 12 masked,
    uint8 images, the config's dropouts on; the launch counts of one step
    are read and checked (12 flash forward / dQ / dK-dV / dBias; tiny
-   forward and backward 12 + 6 at 40x40 and 6 at 40x200), the losses and
+   forward and backward 12 + 6 at 40x40 and 6 at 40x200, all on the
+   tensor-core route), the losses and
    the gradient norm must be finite, the step is timed (median of 7 after
    2 warm-up steps) with its peak device memory; then the same weights
    with dropout off at B=2 and injected hard negatives, card bf16 against
@@ -55,14 +64,14 @@ kernels (with their launches on the three main paths), and as its last line
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes
 torch.profiler tables of one round of requests, one int8 round and one
 train step to ``DIR/chip_smoke_profile.txt``,
-``DIR/chip_smoke_int8_profile.txt`` and ``DIR/chip_smoke_train_profile.txt``.
+``DIR/chip_smoke_int8_profile.txt`` and ``DIR/chip_smoke_train_profile.txt``,
+each with a last line of the tiny kernels' device time and launches.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
-import ctypes
 import dataclasses
 import json
 import math
@@ -86,9 +95,9 @@ from x2vlm_tpu_torch.ops.int8_matmul import (
 )
 from x2vlm_tpu_torch.ops.quant import quantize_weight
 from x2vlm_tpu_torch.ops.tiny_attention import (
-    bwd_smem_bytes as tiny_bwd_smem_bytes, smem_bytes as tiny_smem_bytes,
-    tiny_attention_bwd, tiny_attention_bwd_reference, tiny_attention_fwd,
-    tiny_attention_reference,
+    ROUTE_CODES, TENSOR_CORE, bwd_smem_bytes as tiny_bwd_smem_bytes,
+    smem_bytes as tiny_smem_bytes, tiny_attention_bwd, tiny_attention_bwd_reference,
+    tiny_attention_fwd, tiny_attention_reference, tiny_route, typed_lib,
 )
 from x2vlm_tpu_torch.serving import RetrievalServer
 from x2vlm_tpu_torch.train import create_optimizer, lr_schedule, make_train_step, param_labels
@@ -110,6 +119,8 @@ INT8_SHAPES = (("vision qkv", BATCH * N_IMG, 768, 2304, None),
                ("fusion cross k/v", BATCH * 200, 768, 768, None))
 INT8_REPLACES = "x2vlm_tpu/ops/int8_matmul.py:63"
 TRAIN_BATCH, N_MASKED = 32, 12     # the pretraining step (bench.py:104-121)
+TINY_REPLACES = {"tiny_attention_fwd": "x2vlm_tpu/ops/tiny_attention.py:88",
+                 "tiny_attention_bwd": "x2vlm_tpu/ops/tiny_attention.py:135"}
 FLASH_BWD_REPLACES = {"dq": "x2vlm_tpu/ops/flash_attention.py:368",
                       "dkv": "x2vlm_tpu/ops/flash_attention.py:413",
                       "dbias": "x2vlm_tpu/ops/flash_attention.py:480"}
@@ -140,9 +151,10 @@ def time_ms(fn, inner: int = 10, reps: int = 7, warmup: int = 2,
             host_ahead: bool = False) -> float:
     """Median over ``reps`` of the per-call device time of ``inner``
     back-to-back calls, from CUDA events. ``host_ahead`` first queues a
-    ~1 ms spin on the stream, so the host enqueues the calls before the
-    card reaches them and a call shorter than its Python wrapper is timed on
-    the card, not on the host."""
+    ~10 ms spin on the stream, so the host enqueues the calls before the
+    card reaches them and a call shorter than its Python wrapper (or than
+    an autograd backward's host work) is timed on the card, not on the
+    host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -151,7 +163,7 @@ def time_ms(fn, inner: int = 10, reps: int = 7, warmup: int = 2,
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if host_ahead:
-            torch.cuda._sleep(2_000_000)
+            torch.cuda._sleep(20_000_000)
         start.record()
         for _ in range(inner):
             fn()
@@ -262,99 +274,177 @@ def check_flash(gen, dev):
     return entry
 
 
-def check_tiny(gen, dev):
-    entries = []
-    H, D = 12, 64
-    for label, Sq, Skv in (("text self-attention", TEXT_LEN, TEXT_LEN),
-                           ("fusion cross-attention", TEXT_LEN, 200)):
-        q, k, v = tiny_inputs(gen, dev, BATCH, Sq, Skv, H, D, torch.bfloat16)
-        km = torch.ones(BATCH, Skv, dtype=torch.int32, device=dev)
+def tiny_operands(gen, dev, B, Sq, Skv, H, D, dtype, mask, drop):
+    """q/k/v, an int32 key mask (None; "pad": the 197 -> 200 pad of the image
+    stream, or per-row text lengths when Sq == Skv; "half": row 0's second
+    half; "full_row": random, with batch row 1 wholly masked) and a dropout
+    multiplier (1/0.9 or 0, in ``dtype``) when ``drop``."""
+    q, k, v = tiny_inputs(gen, dev, B, Sq, Skv, H, D, dtype)
+    km = None
+    if mask == "pad":
+        km = torch.ones(B, Skv, dtype=torch.int32, device=dev)
         if Skv == Sq:   # padded texts
-            lens = torch.randint(5, Skv + 1, (BATCH,), generator=gen, device=dev)
+            lens = torch.randint(5, Skv + 1, (B,), generator=gen, device=dev)
             km = (torch.arange(Skv, device=dev)[None] < lens[:, None]).to(torch.int32)
         else:           # the 197 -> 200 pad of the image stream
             km[:, 197:] = 0
-        scale = D ** -0.5
-        out, _ = tiny_attention_fwd(q, k, v, H, km, scale=scale)
-        p_out, _ = tiny_attention_reference(q, k, v, H, km, scale=scale)
-        t_out, _ = tiny_attention_reference(*as_f32(q, k, v), H, km, scale=scale)
-        err = rule_bf16(f"tiny_attention_fwd {label} B{BATCH} {Sq}x{Skv} H{H} D{D} bf16",
-                        out, p_out, t_out)
-        ms = time_ms(lambda: tiny_attention_fwd(q, k, v, H, km, scale=scale))
-        plain_ms = time_ms(lambda: tiny_attention_reference(q, k, v, H, km, scale=scale),
-                           inner=3, reps=5)
+    elif mask == "half":
+        km = torch.ones(B, Skv, dtype=torch.int32, device=dev)
+        km[0, Skv // 2:] = 0
+    elif mask == "full_row":
+        km = (torch.rand(B, Skv, generator=gen, device=dev) > 0.3).to(torch.int32)
+        km[1] = 0
+    dm = None
+    if drop:
+        keep = torch.rand(B, Sq, H * Skv, generator=gen, device=dev) >= 0.1
+        dm = torch.where(keep, 1.0 / 0.9, 0.0).to(dtype)
+    return q, k, v, km, dm
+
+
+def route_delta(fn, before) -> dict:
+    return {r: n - before.get(r, 0) for r, n in fn.launches_by_route.items()
+            if n != before.get(r, 0)}
+
+
+def expect_route(tag, fn, before, dtype, D) -> None:
+    """The launches since ``before`` all took ``tiny_route(dtype, D)``."""
+    want = tiny_route(dtype, D)
+    got = route_delta(fn, before)
+    if set(got) != {want}:
+        fail(f"{tag}: launches by route {got}, expected {want} only")
+
+
+def check_tiny_rules() -> None:
+    """The C route rule and each route's shared-memory formulas are the
+    Python ones (the dispatch and the wrappers' checks rely on them)."""
+    fwd = typed_lib(_build.load("tiny_attention_fwd"))
+    bwd = typed_lib(_build.load("tiny_attention_bwd"))
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (8, 16, 24, 32, 48, 64, 96, 100, 128, 144, 256):
+            want = ROUTE_CODES[tiny_route(dtype, D)]
+            for lib in (fwd, bwd):
+                got = lib.x2_tiny_attention_route(_build.DTYPE_CODES[dtype], D)
+                if got != want:
+                    fail(f"tiny route rule: {dtype} D={D}: kernel {got}, python {want}")
+    for route, code in ROUTE_CODES.items():
+        for Skv, D in ((40, 64), (200, 64), (197, 64), (420, 64), (421, 64), (97, 128),
+                       (27, 32), (7, 128), (9, 256), (33, 16), (77, 48), (61, 96), (45, 112)):
+            c_bytes = fwd.x2_tiny_attention_smem_bytes(Skv, D, code)
+            if c_bytes != tiny_smem_bytes(Skv, D, route):
+                fail(f"tiny smem formula ({route}): Skv={Skv} D={D}: kernel {c_bytes}, "
+                     f"python {tiny_smem_bytes(Skv, D, route)}")
+        for Sq, Skv, D in ((40, 40, 64), (40, 200, 64), (40, 257, 64), (64, 209, 64),
+                           (13, 27, 32), (1, 7, 128), (1, 197, 64), (5, 9, 256), (17, 33, 16),
+                           (40, 77, 48), (24, 61, 96), (9, 45, 112)):
+            c_bytes = bwd.x2_tiny_attention_bwd_smem_bytes(Sq, Skv, D, code)
+            if c_bytes != tiny_bwd_smem_bytes(Sq, Skv, D, route):
+                fail(f"tiny bwd smem formula ({route}): Sq={Sq} Skv={Skv} D={D}: kernel "
+                     f"{c_bytes}, python {tiny_bwd_smem_bytes(Sq, Skv, D, route)}")
+
+
+def tiny_entry(name, shape, key, err, ms, plain_ms, b_ms, b_by, lib_ms, **extra):
+    src = "fwd" if name == "tiny_attention_fwd" else "bwd"
+    return dict(name=name, shape=shape, route="cuda",
+                source=f"x2vlm_tpu_torch/csrc/tiny_attention_{src}.cu",
+                replaces=TINY_REPLACES[name], key=key, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                tiny_route=TENSOR_CORE, **extra)
+
+
+def check_tiny(gen, dev):
+    """K5 at the serving path's two shapes in bf16, and with the training
+    operands at 40x200 (checked and timed, the card running ahead of the
+    host), then over the contract at small shapes on both routes."""
+    entries = []
+    H, D = 12, 64
+    scale = D ** -0.5
+    for label, Sq, Skv, train_ops in (("text self-attention", TEXT_LEN, TEXT_LEN, False),
+                                      ("fusion cross-attention", TEXT_LEN, 200, False),
+                                      ("fusion self-attention, training operands",
+                                       TEXT_LEN, TEXT_LEN, True),
+                                      ("fusion cross-attention, training operands",
+                                       TEXT_LEN, 200, True)):
+        q, k, v, km, dm = tiny_operands(gen, dev, BATCH, Sq, Skv, H, D, torch.bfloat16,
+                                        "pad", train_ops)
+        before = dict(tiny_attention_fwd.launches_by_route)
+        out, probs = tiny_attention_fwd(q, k, v, H, km, dm, scale, return_probs=train_ops)
+        expect_route(f"tiny_attention_fwd {label}", tiny_attention_fwd, before,
+                     torch.bfloat16, D)
+        p_out, p_probs = tiny_attention_reference(q, k, v, H, km, dm, scale=scale)
+        t_out, t_probs = tiny_attention_reference(*as_f32(q, k, v), H, km,
+                                                  None if dm is None else dm.float(),
+                                                  scale=scale)
+        ops = "key_mask dropout probs" if train_ops else "key_mask"
+        tag = f"tiny_attention_fwd {label} B{BATCH} {Sq}x{Skv} H{H} D{D} bf16"
+        err = rule_bf16(tag, out, p_out, t_out)
+        if train_ops:
+            err = max(err, rule_bf16(tag + " probs", probs, p_probs, t_probs))
+        ms = time_ms(lambda: tiny_attention_fwd(q, k, v, H, km, dm, scale,
+                                                return_probs=train_ops), host_ahead=True)
+        plain_ms = time_ms(lambda: tiny_attention_reference(q, k, v, H, km, dm, scale=scale),
+                           inner=3, reps=5, host_ahead=True)
         views = [t.view(BATCH, t.shape[1], H, D).transpose(1, 2) for t in (q, k, v)]
         amask = (km != 0)[:, None, None, :]
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            *views, attn_mask=amask, scale=scale))
-        b_ms, b_by = bound_ms(nbytes(q, k, v, out) + km.numel(),
+            *views, attn_mask=amask, scale=scale), host_ahead=True)
+        b_ms, b_by = bound_ms(nbytes(q, k, v, out, probs, dm) + km.numel(),
                               4.0 * BATCH * H * Sq * Skv * D)
         log(f"time tiny_attention_fwd {label}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        entries.append(dict(
-            name="tiny_attention_fwd", shape=f"B{BATCH} {Sq}x{Skv} H{H} D{D} key_mask bf16",
-            route="cuda", source="x2vlm_tpu_torch/csrc/tiny_attention_fwd.cu",
-            replaces="x2vlm_tpu/ops/tiny_attention.py:88", key=(BATCH, Sq, Skv),
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms))
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (no dropout, no probabilities), "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        entries.append(tiny_entry(
+            "tiny_attention_fwd", f"B{BATCH} {Sq}x{Skv} H{H} D{D} {ops} bf16",
+            (BATCH, Sq, Skv), err, ms, plain_ms, b_ms, b_by, lib_ms,
+            main_path_launches="train_step" if train_ops else "all"))
 
-    # the dropout multiplier and the fp32 probabilities (the training operands)
-    Sq = Skv = TEXT_LEN
-    q, k, v = tiny_inputs(gen, dev, BATCH, Sq, Skv, H, D, torch.bfloat16)
-    km = torch.ones(BATCH, Skv, dtype=torch.int32, device=dev)
-    km[::3, 30:] = 0
-    keep = torch.rand(BATCH, Sq, H * Skv, generator=gen, device=dev) >= 0.1
-    dmask = torch.where(keep, 1.0 / 0.9, 0.0).to(torch.bfloat16)
-    out, probs = tiny_attention_fwd(q, k, v, H, km, dmask, scale=D ** -0.5,
-                                    return_probs=True)
-    p_out, p_probs = tiny_attention_reference(q, k, v, H, km, dmask, scale=D ** -0.5)
-    t_out, t_probs = tiny_attention_reference(*as_f32(q, k, v), H, km, dmask.float(),
-                                              scale=D ** -0.5)
-    rule_bf16(f"tiny_attention_fwd dropout out B{BATCH} {Sq}x{Skv} bf16", out, p_out, t_out)
-    rule_bf16(f"tiny_attention_fwd dropout probs B{BATCH} {Sq}x{Skv} bf16",
-              probs, p_probs, t_probs)
-
-    # the dispatch rule's shared-memory formula is the kernel's
-    lib = _build.load("tiny_attention_fwd")
-    lib.x2_tiny_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.x2_tiny_attention_smem_bytes.restype = ctypes.c_longlong
-    for Skv, D in ((40, 64), (200, 64), (420, 64), (421, 64), (97, 128)):
-        c_bytes = lib.x2_tiny_attention_smem_bytes(Skv, D)
-        if c_bytes != tiny_smem_bytes(Skv, D):
-            fail(f"tiny smem formula: Skv={Skv} D={D}: kernel {c_bytes}, "
-                 f"dispatch {tiny_smem_bytes(Skv, D)}")
-
-    # the rest of the contract, at small shapes
-    for name, (B, Sq, Skv, H, D, masked) in {
-        "non-multiple-of-8 13x27 D32": (3, 13, 27, 4, 32, True),
-        "no mask 64x420 D64": (2, 64, 420, 2, 64, False),
-        "1x7 D128": (2, 1, 7, 3, 128, True),
+    # the rest of the contract, at small shapes: bf16 on the tensor cores
+    # (D = 256 on the CUDA cores), fp32 on the CUDA cores
+    for name, (B, Sq, Skv, H, D, mask) in {
+        "non-multiple-of-8 13x27 D32": (3, 13, 27, 4, 32, "half"),
+        "no mask 64x420 D64": (2, 64, 420, 2, 64, None),
+        "1x7 D128": (2, 1, 7, 3, 128, "half"),
+        "fully masked row 40x200 D64": (3, 40, 200, 2, 64, "full_row"),
+        "40x197 D64 (Skv off the 16-key tile) fp32 multiplier": (2, 40, 197, 3, 64, "half"),
+        "80x50 D64 (two row tiles a warp)": (2, 80, 50, 2, 64, "half"),
+        # the other tensor-core head dims: one k-step, odd k-step counts, padded tiles
+        "17x33 D16": (2, 17, 33, 3, 16, "half"),
+        "40x77 D48": (2, 40, 77, 2, 48, "full_row"),
+        "24x61 D96": (2, 24, 61, 2, 96, "half"),
+        "9x45 D112": (2, 9, 45, 2, 112, "half"),
+        "5x9 D256": (2, 5, 9, 2, 256, "half"),
     }.items():
-        km = None
-        if masked:
-            km = torch.ones(B, Skv, dtype=torch.int32, device=dev)
-            km[0, Skv // 2:] = 0
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = tiny_inputs(gen, dev, B, Sq, Skv, H, D, dtype)
-            dm = torch.where(torch.rand(B, Sq, H * Skv, generator=gen, device=dev) >= 0.2,
-                             1.25, 0.0).to(dtype)
+            q, k, v, km, dm = tiny_operands(gen, dev, B, Sq, Skv, H, D, dtype, mask, True)
+            dm = torch.where(dm != 0, 1.25, 0.0).to(
+                torch.float32 if name.endswith("fp32 multiplier") else dtype)
+            before = dict(tiny_attention_fwd.launches_by_route)
             out, probs = tiny_attention_fwd(q, k, v, H, km, dm, scale=D ** -0.5,
                                             return_probs=True)
+            # and without the probabilities (on the tensor cores: one walk)
+            out1, _ = tiny_attention_fwd(q, k, v, H, km, dm, scale=D ** -0.5)
+            tag = f"tiny_attention_fwd {name} {str(dtype)[6:]} ({tiny_route(dtype, D)})"
+            expect_route(tag, tiny_attention_fwd, before, dtype, D)
             t_out, t_probs = tiny_attention_reference(*as_f32(q, k, v), H, km, dm.float(),
                                                       scale=D ** -0.5)
-            tag = f"tiny_attention_fwd {name} {str(dtype)[6:]}"
             if dtype == torch.bfloat16:
                 p_out, p_probs = tiny_attention_reference(q, k, v, H, km, dm,
                                                           scale=D ** -0.5)
                 rule_bf16(tag, out, p_out, t_out)
                 rule_bf16(tag + " probs", probs, p_probs, t_probs)
+                rule_bf16(tag + " without probs", out1, p_out, t_out)
             else:
                 rule_f32(tag, out, t_out)
                 rule_f32(tag + " probs", probs, t_probs)
+                rule_f32(tag + " without probs", out1, t_out)
+            if mask == "full_row":   # P = 1 / Skv over the real keys
+                uniform = probs.view(B, Sq, H, Skv)[1]
+                u_err = (uniform - 1.0 / Skv).abs().max().item()
+                if not u_err <= 1e-6 / Skv:
+                    fail(f"{tag}: a fully masked row's P is off 1/Skv by {u_err:.3e}")
     return entries
 
 
-def _sdpa_bwd_ms(q, k, v, mask, dout, scale):
+def _sdpa_bwd_ms(q, k, v, mask, dout, scale, host_ahead=False):
     """One SDPA forward + autograd.grad, timed on the backward alone: the
     backward of a graph kept with retain_graph. Returns ms or None with the
     reason logged (a yardstick only: the port never calls SDPA)."""
@@ -367,7 +457,7 @@ def _sdpa_bwd_ms(q, k, v, mask, dout, scale):
         with torch.inference_mode(False), torch.enable_grad():
             o = F.scaled_dot_product_attention(*leaves[:3], attn_mask=m, scale=scale)
             return time_ms(lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True),
-                           inner=5, reps=5)
+                           inner=5, reps=5, host_ahead=host_ahead)
     except RuntimeError as e:   # no SDPA backend takes these operands
         log(f"sdpa backward not timed: {str(e).splitlines()[0][:200]}")
         return None
@@ -454,25 +544,22 @@ def check_flash_bwd(gen, dev):
 
 def check_tiny_bwd(gen, dev):
     """K6 at the training step's three shapes in bf16 with key mask and
-    dropout multiplier (checked and timed), then over the contract."""
+    dropout multiplier (checked and timed, the card running ahead of the
+    host), then over the contract on both routes."""
     entries = []
     H, D = 12, 64
     scale = D ** -0.5
     for label, B, Sq, Skv in (("text self-attention", 2 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN),
                               ("fusion self-attention", 4 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN),
                               ("fusion cross-attention", 4 * TRAIN_BATCH, TEXT_LEN, 200)):
-        q, k, v = tiny_inputs(gen, dev, B, Sq, Skv, H, D, torch.bfloat16)
+        q, k, v, km, dm = tiny_operands(gen, dev, B, Sq, Skv, H, D, torch.bfloat16, "pad",
+                                        True)
         g = torch.randn(B, Sq, H * D, generator=gen, device=dev).to(torch.bfloat16)
-        km = torch.ones(B, Skv, dtype=torch.int32, device=dev)
-        if Skv == Sq:
-            lens = torch.randint(5, Skv + 1, (B,), generator=gen, device=dev)
-            km = (torch.arange(Skv, device=dev)[None] < lens[:, None]).to(torch.int32)
-        else:
-            km[:, 197:] = 0
-        keep = torch.rand(B, Sq, H * Skv, generator=gen, device=dev) >= 0.1
-        dm = torch.where(keep, 1.0 / 0.9, 0.0).to(torch.bfloat16)
         _, probs = tiny_attention_fwd(q, k, v, H, km, dm, scale, return_probs=True)
+        before = dict(tiny_attention_bwd.launches_by_route)
         got = tiny_attention_bwd(q, k, v, probs, dm, g, H, scale)
+        expect_route(f"tiny_attention_bwd {label}", tiny_attention_bwd, before,
+                     torch.bfloat16, D)
         _, p_probs = tiny_attention_reference(q, k, v, H, km, dm, scale)
         plain = tiny_attention_bwd_reference(q, k, v, p_probs, dm, g, H, scale)
         tq, tk, tv, tg, tdm = as_f32(q, k, v, g, dm)
@@ -481,58 +568,51 @@ def check_tiny_bwd(gen, dev):
         err = max(rule_bf16(f"tiny_attention_bwd {lab} {label} B{B} {Sq}x{Skv} H{H} "
                             f"D{D} key_mask dropout bf16", a, p, t)
                   for lab, a, p, t in zip(("dq", "dk", "dv"), got, plain, truth))
-        ms = time_ms(lambda: tiny_attention_bwd(q, k, v, probs, dm, g, H, scale))
+        ms = time_ms(lambda: tiny_attention_bwd(q, k, v, probs, dm, g, H, scale),
+                     host_ahead=True)
         plain_ms = time_ms(lambda: tiny_attention_bwd_reference(q, k, v, probs, dm, g, H,
-                                                                scale), inner=3, reps=5)
+                                                                scale), inner=3, reps=5,
+                           host_ahead=True)
         views = [t.view(B, t.shape[1], H, D).transpose(1, 2) for t in (q, k, v)]
         lib_ms = _sdpa_bwd_ms(*views, (km != 0)[:, None, None, :],
-                              g.view(B, Sq, H, D).transpose(1, 2), scale)
+                              g.view(B, Sq, H, D).transpose(1, 2), scale, host_ahead=True)
         b_ms, b_by = bound_ms(nbytes(q, k, v, g, probs, dm) + nbytes(q, k, v),
                               8.0 * B * H * Sq * Skv * D)
         log(f"time tiny_attention_bwd {label}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa backward {lib_ms} ms, bound {b_ms:.4f} ms ({b_by})")
-        entries.append(dict(
-            name="tiny_attention_bwd",
-            shape=f"B{B} {Sq}x{Skv} H{H} D{D} key_mask dropout bf16",
-            route="cuda", source="x2vlm_tpu_torch/csrc/tiny_attention_bwd.cu",
-            replaces="x2vlm_tpu/ops/tiny_attention.py:135", key=(B, Sq, Skv),
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms))
+        entries.append(tiny_entry(
+            "tiny_attention_bwd", f"B{B} {Sq}x{Skv} H{H} D{D} key_mask dropout bf16",
+            (B, Sq, Skv), err, ms, plain_ms, b_ms, b_by, lib_ms))
 
-    # the dispatch rule's backward shared-memory formula is the kernel's
-    lib = _build.load("tiny_attention_bwd")
-    lib.x2_tiny_attention_bwd_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.x2_tiny_attention_bwd_smem_bytes.restype = ctypes.c_longlong
-    for Sq, Skv, D in ((40, 40, 64), (40, 200, 64), (40, 257, 64), (64, 209, 64),
-                       (13, 27, 32), (1, 7, 128)):
-        c_bytes = lib.x2_tiny_attention_bwd_smem_bytes(Sq, Skv, D)
-        if c_bytes != tiny_bwd_smem_bytes(Sq, Skv, D):
-            fail(f"tiny bwd smem formula: Sq={Sq} Skv={Skv} D={D}: kernel {c_bytes}, "
-                 f"dispatch {tiny_bwd_smem_bytes(Sq, Skv, D)}")
-
-    for name, (B, Sq, Skv, H, D, masked, drop) in {
-        "non-multiple-of-8 13x27 D32": (3, 13, 27, 4, 32, True, True),
-        "no mask 64x209 D64": (2, 64, 209, 2, 64, False, True),
-        "1x7 D128 no dropout": (2, 1, 7, 3, 128, True, False),
-        "5x9 D256": (2, 5, 9, 2, 256, True, True),
+    for name, (B, Sq, Skv, H, D, mask, drop) in {
+        "non-multiple-of-8 13x27 D32": (3, 13, 27, 4, 32, "half", True),
+        "no mask 64x209 D64": (2, 64, 209, 2, 64, None, True),
+        "1x7 D128 no dropout": (2, 1, 7, 3, 128, "half", False),
+        "fully masked row 40x200 D64": (3, 40, 200, 2, 64, "full_row", True),
+        "40x197 D64 (Skv off the 16-key tile)": (2, 40, 197, 3, 64, "half", True),
+        "40x120 D128 fp32 multiplier": (2, 40, 120, 2, 128, "half", True),
+        "80x50 D64 (two row tiles a warp)": (2, 80, 50, 2, 64, "half", True),
+        # the other tensor-core head dims: one k-step, odd k-step counts, padded tiles
+        "17x33 D16": (2, 17, 33, 3, 16, "half", True),
+        "40x77 D48": (2, 40, 77, 2, 48, "full_row", True),
+        "24x61 D96 no dropout": (2, 24, 61, 2, 96, "half", False),
+        "9x45 D112": (2, 9, 45, 2, 112, "half", True),
+        "5x9 D256": (2, 5, 9, 2, 256, "half", True),
     }.items():
-        km = None
-        if masked:
-            km = torch.ones(B, Skv, dtype=torch.int32, device=dev)
-            km[0, Skv // 2:] = 0
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = tiny_inputs(gen, dev, B, Sq, Skv, H, D, dtype)
+            q, k, v, km, dm = tiny_operands(gen, dev, B, Sq, Skv, H, D, dtype, mask, drop)
+            if dm is not None:
+                dm = torch.where(dm != 0, 1.25, 0.0).to(
+                    torch.float32 if name.endswith("fp32 multiplier") else dtype)
             g = torch.randn(B, Sq, H * D, generator=gen, device=dev).to(dtype)
-            dm = None
-            if drop:
-                dm = torch.where(torch.rand(B, Sq, H * Skv, generator=gen, device=dev)
-                                 >= 0.2, 1.25, 0.0).to(dtype)
             _, probs = tiny_attention_fwd(q, k, v, H, km, dm, D ** -0.5, return_probs=True)
+            before = dict(tiny_attention_bwd.launches_by_route)
             got = tiny_attention_bwd(q, k, v, probs, dm, g, H, D ** -0.5)
+            tag = f"tiny_attention_bwd {name} {str(dtype)[6:]} ({tiny_route(dtype, D)})"
+            expect_route(tag, tiny_attention_bwd, before, dtype, D)
             tq, tk, tv, tg, tdm = as_f32(q, k, v, g, dm)
             _, t_probs = tiny_attention_reference(tq, tk, tv, H, km, tdm, D ** -0.5)
             truth = tiny_attention_bwd_reference(tq, tk, tv, t_probs, tdm, tg, H, D ** -0.5)
-            tag = f"tiny_attention_bwd {name} {str(dtype)[6:]}"
             if dtype == torch.bfloat16:
                 _, p_probs = tiny_attention_reference(q, k, v, H, km, dm, D ** -0.5)
                 plain = tiny_attention_bwd_reference(q, k, v, p_probs, dm, g, H,
@@ -680,6 +760,8 @@ def reset_counts() -> None:
     for fn in (tiny_attention_fwd, tiny_attention_bwd, int8_matmul, quantize_act):
         fn.launches = 0
         fn.launches_by_shape.clear()
+    for fn in (tiny_attention_fwd, tiny_attention_bwd):
+        fn.launches_by_route.clear()
 
 
 def train_counts():
@@ -689,7 +771,9 @@ def train_counts():
             **{f"flash_attention_bwd_{k}": flash_attention_bwd.launches[k]
                for k in ("dq", "dkv", "dbias")},
             "tiny_attention_fwd": collections.Counter(tiny_attention_fwd.launches_by_shape),
-            "tiny_attention_bwd": collections.Counter(tiny_attention_bwd.launches_by_shape)}
+            "tiny_attention_bwd": collections.Counter(tiny_attention_bwd.launches_by_shape),
+            "tiny_routes": {"tiny_attention_fwd": dict(tiny_attention_fwd.launches_by_route),
+                            "tiny_attention_bwd": dict(tiny_attention_bwd.launches_by_route)}}
 
 
 def counts():
@@ -705,7 +789,7 @@ def serve(server, images, ids, atts):
     tiny and the two int8 kernels over the three."""
     per_request = {}
     by_shape = {"tiny": collections.Counter(), "int8_matmul": collections.Counter(),
-                "int8_quantize": collections.Counter()}
+                "int8_quantize": collections.Counter(), "tiny_route": collections.Counter()}
 
     def run(name, fn, *inputs):
         reset_counts()
@@ -713,6 +797,7 @@ def serve(server, images, ids, atts):
         torch.cuda.synchronize()
         per_request[name] = counts()
         by_shape["tiny"].update(tiny_attention_fwd.launches_by_shape)
+        by_shape["tiny_route"].update(tiny_attention_fwd.launches_by_route)
         by_shape["int8_matmul"].update(int8_matmul.launches_by_shape)
         by_shape["int8_quantize"].update(quantize_act.launches_by_shape)
         return out
@@ -735,6 +820,14 @@ def want_launches(cfg, quant: bool):
     return {"encode_images": (depth, 0, 4 * depth * q, 4 * depth * q),
             "encode_texts": (0, n_text, 6 * n_text * q, 4 * n_text * q),
             "itm_score": (0, 2 * n_fusion, 10 * n_fusion * q, 7 * n_fusion * q)}
+
+
+def check_tiny_routes(tag, routes) -> None:
+    """Every K5 / K6 launch of a main path took the tensor-core route."""
+    log(f"tiny launches by route ({tag}): {json.dumps(routes)}")
+    for name, by_route in routes.items():
+        if not by_route or set(by_route) != {TENSOR_CORE}:
+            fail(f"{tag}: {name} launches by route {by_route}, expected {TENSOR_CORE} only")
 
 
 def check_round(tag, cfg, outs, per_request, want) -> None:
@@ -770,6 +863,31 @@ def time_requests(server, requests, outs):
     }
 
 
+TINY_KERNEL_NAMES = {"tiny_attention_fwd": ("tc::fwd_kernel", "tiny_fwd_kernel"),
+                     "tiny_attention_bwd": ("tc::bwd_kernel", "tiny_bwd_kernel")}
+
+
+def write_profile(args, smi, prof, fname, rows) -> None:
+    """The profiler table and the tiny kernels' device time (both routes)
+    to ``args.profile/fname``; both logged."""
+    averages = prof.key_averages()
+    tiny = {}
+    for e in averages:
+        for name, symbols in TINY_KERNEL_NAMES.items():
+            if any(sym in e.key for sym in symbols):
+                t = tiny.setdefault(name, {"device_ms": 0.0, "launches": 0})
+                t["device_ms"] += getattr(e, "self_device_time_total",
+                                          getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+                t["launches"] += e.count
+    tiny_line = f"tiny kernels in this profile ({fname}): {json.dumps(tiny)}"
+    table = averages.table(sort_by="cuda_time_total", row_limit=rows)
+    os.makedirs(args.profile, exist_ok=True)
+    with open(os.path.join(args.profile, fname), "w") as f:
+        f.write(f"{smi}\n{table}\n{tiny_line}\n")
+    log(table[:8000])
+    log(tiny_line)
+
+
 def profile_round(args, smi, server, requests, fname) -> None:
     if not args.profile:
         return
@@ -777,11 +895,7 @@ def profile_round(args, smi, server, requests, fname) -> None:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         serve(server, *requests)
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=30)
-    os.makedirs(args.profile, exist_ok=True)
-    with open(os.path.join(args.profile, fname), "w") as f:
-        f.write(f"{smi}\n{table}\n")
-    log(table[:6000])
+    write_profile(args, smi, prof, fname, 30)
 
 
 def against_cpu(tag, cfg, cpu_state, outs, requests, n: int = 2) -> None:
@@ -834,6 +948,7 @@ def int8_phase(args, dev, state, cpu_state, requests, smi):
     torch.cuda.reset_peak_memory_stats()
     outs, per_request, by_shape = serve(servers["int8"], *requests)
     check_round("int8", qcfg, outs, per_request, want_launches(qcfg, quant=True))
+    check_tiny_routes("int8 serving", {"tiny_attention_fwd": dict(by_shape["tiny_route"])})
 
     # int8 against bf16, the same weights and GELU, every row
     f_outs, _, _ = serve(servers["bf16 gelu_fast"], *requests)
@@ -933,6 +1048,7 @@ def train_phase(args, dev, gen, smi):
     for name in ("tiny_attention_fwd", "tiny_attention_bwd"):
         if dict(launches[name]) != want_tiny:
             fail(f"train step: {name} launches {dict(launches[name])}, expected {want_tiny}")
+    check_tiny_routes("train step", launches["tiny_routes"])
     vals = {k: v.item() for k, v in metrics.items()}
     log(f"train step 1 metrics: {json.dumps(vals)}")
     if not all(math.isfinite(v) for v in vals.values()):
@@ -968,11 +1084,7 @@ def train_phase(args, dev, gen, smi):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step(batch, itm_gen, drop_gen)
             torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-        os.makedirs(args.profile, exist_ok=True)
-        with open(os.path.join(args.profile, "chip_smoke_train_profile.txt"), "w") as f:
-            f.write(f"{smi}\n{table}\n")
-        log(table[:8000])
+        write_profile(args, smi, prof, "chip_smoke_train_profile.txt", 40)
 
     # the same weights, dropout off, B=2, injected negatives: card bf16
     # against the port's CPU fp32 path, losses and gradients
@@ -1040,6 +1152,7 @@ def run(args, dev: torch.device) -> int:
     gen.manual_seed(args.seed)
     with torch.inference_mode():
         flash_entry = check_flash(gen, dev)
+        check_tiny_rules()
         tiny_entries = check_tiny(gen, dev)
     with torch.no_grad():
         flash_bwd_entries = check_flash_bwd(gen, dev)
@@ -1068,6 +1181,7 @@ def run(args, dev: torch.device) -> int:
     torch.cuda.reset_peak_memory_stats()
     outs, per_request, by_shape = serve(server, *requests)
     check_round("bf16", cfg, outs, per_request, want_launches(cfg, quant=False))
+    check_tiny_routes("bf16 serving", {"tiny_attention_fwd": dict(by_shape["tiny_route"])})
     req_ms = time_requests(server, requests, outs)
     log(f"request ms (B={BATCH}, CUDA events, median of 5): "
         f"{json.dumps({k: round(v, 3) for k, v in req_ms.items()})}")
@@ -1106,8 +1220,10 @@ def run(args, dev: torch.device) -> int:
     kernels = [entry(flash_entry, sum(p[0] for p in per_request.values()),
                      train["flash_attention_fwd"], sum(p[0] for p in q_per_request.values()))]
     for e in tiny_entries:
-        kernels.append(entry(e, by_shape["tiny"][e["key"]], train["tiny_attention_fwd"][e["key"]],
-                             q_by_shape["tiny"][e["key"]]))
+        serving = e.pop("main_path_launches") == "all"
+        kernels.append(entry(e, by_shape["tiny"][e["key"]] if serving else 0,
+                             train["tiny_attention_fwd"][e["key"]],
+                             q_by_shape["tiny"][e["key"]] if serving else 0))
     for e in flash_bwd_entries:
         kernels.append(entry(e, 0, train[e["name"]]))
     for e in tiny_bwd_entries:

@@ -97,6 +97,7 @@ TINY_CASES = {
     "cross_40x200_mask": (2, 40, 200, 4, 32, True),
     "h16_d64": (2, 24, 30, 16, 64, True),
     "non_multiple_of_8": (2, 13, 27, 3, 8, True),
+    "cross_40x200_full_row_masked": (2, 40, 200, 4, 32, "full_row"),
 }
 
 
@@ -110,7 +111,9 @@ def test_tiny_plain_matches_jax(name):
     key_mask = None
     if masked:
         key_mask = np.ones((B, Skv), np.int32)
-        key_mask[0, Skv // 2:] = 0  # a padded row; every row keeps a key
+        key_mask[0, Skv // 2:] = 0  # a padded row
+        if masked == "full_row":
+            key_mask[1] = 0  # batch row 1: every key masked -> P = 1/Skv
     scale = D ** -0.5
     want = jax_tiny(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), num_heads=H,
                     key_mask=None if key_mask is None else jnp.asarray(key_mask),
@@ -119,6 +122,12 @@ def test_tiny_plain_matches_jax(name):
                                key_mask=None if key_mask is None else _t(key_mask),
                                scale=scale)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if masked == "full_row":  # the masked row averages the values of its Skv keys
+        _, probs = tiny_attention_fwd(_t(q), _t(k), _t(v), H, _t(key_mask), scale=scale,
+                                      return_probs=True)
+        np.testing.assert_allclose(probs.numpy()[1], 1.0 / Skv, rtol=1e-6)
+        np.testing.assert_allclose(got.numpy()[1],
+                                   np.broadcast_to(v[1].mean(0), got.shape[1:]), **TOL)
 
 
 def test_tiny_dropout_multiplier_and_probs_match_jax():

@@ -134,6 +134,7 @@ TINY_CASES = {
     "cross_40x200_mask_dropout": (2, 40, 200, 2, 32, True, True),
     "cross_40x197_no_mask": (2, 40, 197, 2, 32, False, False),
     "non_multiple_of_8": (2, 13, 27, 3, 8, True, True),
+    "cross_40x200_full_row_masked": (2, 40, 200, 2, 32, "full_row", True),
 }
 
 
@@ -148,6 +149,8 @@ def _tiny_inputs(name):
     if masked:
         key_mask = np.ones((B, Skv), np.int32)
         key_mask[0, Skv // 2:] = 0
+        if masked == "full_row":
+            key_mask[1] = 0  # batch row 1: every key masked -> P = 1/Skv
     dmask = None
     if dropout:
         dmask = np.where(rng.random((B, Sq, H * Skv)) >= 0.1, 1.0 / 0.9,

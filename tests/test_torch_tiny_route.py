@@ -1,0 +1,187 @@
+"""The tiny attention kernels' two routes, on the CPU: which kernel a launch
+takes (``tiny_route``), each route's shared-memory need against Hopper's
+per-block limit, the dispatch rule ``tiny_supported``, and the wrappers'
+refusal to run the plain version for a CUDA tensor when the kernel cannot
+be built. The kernels themselves run only on the card (``chip_smoke.py``
+holds the C route rule and the C formulas equal to these)."""
+
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tests.test_torch_hygiene import _CudaStandIn  # noqa: E402
+from x2vlm_tpu_torch.ops import _build  # noqa: E402
+from x2vlm_tpu_torch.ops import tiny_attention as ta  # noqa: E402
+from x2vlm_tpu_torch.ops.tiny_attention import (  # noqa: E402
+    CUDA_CORE, TENSOR_CORE, bwd_smem_bytes, smem_bytes, tiny_route, tiny_supported,
+)
+
+SMEM_LIMIT = 232448          # bytes one block may use on Hopper
+CUDA_CORE_FWD_40x200 = 111648  # the CUDA-core forward's need at 40x200, D=64
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,head_dim,route", [
+    (BF16, 64, TENSOR_CORE),   # the main path: text 40x40, fusion 40x40 and 40x200
+    (BF16, 16, TENSOR_CORE),
+    (BF16, 32, TENSOR_CORE),
+    (BF16, 128, TENSOR_CORE),
+    (BF16, 8, CUDA_CORE),      # not a multiple of 16
+    (BF16, 24, CUDA_CORE),
+    (BF16, 144, CUDA_CORE),    # above 128
+    (BF16, 256, CUDA_CORE),    # the backward contract's D=256
+    (F32, 32, CUDA_CORE),      # fp32 keeps fp32 arithmetic at every head dim
+    (F32, 64, CUDA_CORE),
+    (F32, 128, CUDA_CORE),
+    (F32, 256, CUDA_CORE),
+])
+def test_tiny_route(dtype, head_dim, route):
+    assert tiny_route(dtype, head_dim) == route
+
+
+# (Sq, Skv, D) of every shape the kernels are held to on the card: the main
+# path's and the contract's (chip_smoke.py check_tiny / check_tiny_bwd)
+FWD_SHAPES = [(40, 40, 64), (40, 200, 64), (40, 197, 64), (64, 420, 64), (13, 27, 32),
+              (80, 50, 64), (1, 7, 128), (5, 9, 256), (17, 33, 16), (40, 77, 48),
+              (24, 61, 96), (9, 45, 112)]
+BWD_SHAPES = [(40, 40, 64), (40, 200, 64), (40, 197, 64), (64, 209, 64), (13, 27, 32),
+              (1, 7, 128), (5, 9, 256), (40, 257, 64), (40, 120, 128), (80, 50, 64),
+              (17, 33, 16), (40, 77, 48), (24, 61, 96), (9, 45, 112)]
+
+
+@pytest.mark.parametrize("Sq,Skv,D", FWD_SHAPES)
+def test_forward_smem_fits_a_block_on_both_routes(Sq, Skv, D):
+    for route in (CUDA_CORE, TENSOR_CORE):
+        if route == TENSOR_CORE and tiny_route(BF16, D) != TENSOR_CORE:
+            continue
+        assert 0 < smem_bytes(Skv, D, route) <= SMEM_LIMIT, (route, Skv, D)
+
+
+@pytest.mark.parametrize("Sq,Skv,D", BWD_SHAPES)
+def test_backward_smem_fits_a_block_on_both_routes(Sq, Skv, D):
+    for route in (CUDA_CORE, TENSOR_CORE):
+        if route == TENSOR_CORE and tiny_route(BF16, D) != TENSOR_CORE:
+            continue
+        assert 0 < bwd_smem_bytes(Sq, Skv, D, route) <= SMEM_LIMIT, (route, Sq, Skv, D)
+
+
+def test_tensor_core_forward_needs_less_smem_than_the_cuda_core_one():
+    assert smem_bytes(200, 64) == CUDA_CORE_FWD_40x200
+    assert smem_bytes(200, 64, TENSOR_CORE) < CUDA_CORE_FWD_40x200
+    assert bwd_smem_bytes(40, 200, 64, TENSOR_CORE) < bwd_smem_bytes(40, 200, 64)
+
+
+def test_every_shape_the_dispatch_admits_fits_the_tensor_core_kernels():
+    """``tiny_supported`` takes the CUDA-core kernels' need; each shape it
+    admits at a tensor-core head dim fits the tensor-core kernels too."""
+    for D in (16, 32, 48, 64, 80, 96, 112, 128):
+        for Sq in range(1, ta.MAX_QUERY_LEN + 1):
+            for Skv in range(1, 1000):
+                if not tiny_supported(Sq, Skv, D):
+                    break
+                assert smem_bytes(Skv, D, TENSOR_CORE) <= SMEM_LIMIT, (Sq, Skv, D)
+                assert bwd_smem_bytes(Sq, Skv, D, TENSOR_CORE) <= SMEM_LIMIT, (Sq, Skv, D)
+
+
+def _supported_before(Sq, Skv, D):
+    """The dispatch rule as the CUDA-core kernels alone set it."""
+    fwd = 4 * (Skv * (D + 1) + Skv * D + 8 * Skv + 8 * D)
+    bwd = 4 * (max(2 * Skv * (D + 1), 2 * Sq * D) + 2 * Sq * Skv + 16 * 4 * D)
+    return Sq <= 64 and D <= 256 and fwd <= SMEM_LIMIT and bwd <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+def test_tiny_supported_answers_are_unchanged(D):
+    for Sq in (1, 13, 40, 64, 65):
+        for Skv in list(range(1, 300, 7)) + [196, 197, 200, 209, 210, 257, 258, 420]:
+            assert tiny_supported(Sq, Skv, D) == _supported_before(Sq, Skv, D), (Sq, Skv, D)
+
+
+def test_dtype_scale_is_the_rounded_scale():
+    for s in (64 ** -0.5, 60 ** -0.5, 1.0, 0.3):
+        for dt in (BF16, F32):
+            assert ta._dtype_scale(s, dt) == float(torch.tensor(s, dtype=dt))
+
+
+class _FakeLib:
+    """A loaded library's C functions, as ctypes presents them."""
+
+    def __init__(self):
+        for name in ta._SIGNATURES:
+            setattr(self, name, type("CFunc", (), {})())
+
+
+def test_typed_lib_types_each_library_object_once():
+    """The mark lives on the library object, so a second library is typed
+    even if it reuses the address of one that was freed."""
+    first = _FakeLib()
+    assert ta.typed_lib(first) is first
+    for name, (argtypes, restype) in ta._SIGNATURES.items():
+        assert getattr(first, name).argtypes == argtypes
+        assert getattr(first, name).restype == restype
+    first.x2_tiny_attention_fwd.argtypes = None   # typed once: not set again
+    ta.typed_lib(first)
+    assert first.x2_tiny_attention_fwd.argtypes is None
+    second = _FakeLib()
+    ta.typed_lib(second)
+    assert second.x2_tiny_attention_fwd.argtypes == ta._SIGNATURES["x2_tiny_attention_fwd"][0]
+
+
+class _Operand(_CudaStandIn):
+    """A CUDA operand's metadata; the wrapper may ask for its contiguous form."""
+
+    def contiguous(self):
+        return self
+
+
+@pytest.mark.parametrize("wrapper,dtype,head_dim", [
+    ("tiny_attention_fwd", BF16, 64), ("tiny_attention_fwd", F32, 64),
+    ("tiny_attention_fwd", BF16, 256),
+    ("tiny_attention_bwd", BF16, 64), ("tiny_attention_bwd", F32, 64),
+    ("tiny_attention_bwd", BF16, 256),
+])
+def test_tiny_wrappers_raise_for_cuda_without_the_library(wrapper, dtype, head_dim,
+                                                          monkeypatch, tmp_path):
+    """For a CUDA tensor the tiny wrappers launch a kernel (of either route)
+    or raise: with no nvcc to build the library they raise, and never run
+    the plain version or count a launch."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("the CUDA toolkit is installed: nvcc would build the library")
+    monkeypatch.setattr(_build, "_LIBS", {})
+
+    def no_fallback(*a, **k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(ta, "tiny_attention_reference", no_fallback)
+    monkeypatch.setattr(ta, "tiny_attention_bwd_reference", no_fallback)
+    B, H = 2, 2
+    Sq, Skv = (40, 200) if head_dim == 64 else (5, 9)   # shapes each route admits
+    q, g = (_Operand((B, Sq, H * head_dim), dtype) for _ in range(2))
+    k, v = (_Operand((B, Skv, H * head_dim), dtype) for _ in range(2))
+    fn = getattr(ta, wrapper)
+    before = (fn.launches, dict(fn.launches_by_route))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        if wrapper == "tiny_attention_fwd":
+            fn(q, k, v, H, scale=head_dim ** -0.5, return_probs=True)
+        else:
+            fn(q, k, v, _Operand((B, Sq, H * Skv), F32), None, g, H, head_dim ** -0.5)
+    assert (fn.launches, dict(fn.launches_by_route)) == before
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    rng = np.random.default_rng(0)
+    B, Sq, Skv, H, D = 2, 5, 9, 2, 16
+    q = torch.from_numpy(rng.standard_normal((B, Sq, H * D)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, Skv, H * D)).astype(np.float32))
+            for _ in range(2))
+    before = (ta.tiny_attention_fwd.launches, dict(ta.tiny_attention_fwd.launches_by_route))
+    out, probs = ta.tiny_attention_fwd(q, k, v, H, scale=0.25, return_probs=True)
+    ref, ref_probs = ta.tiny_attention_reference(q, k, v, H, scale=0.25)
+    assert torch.equal(out, ref) and torch.equal(probs, ref_probs)
+    assert (ta.tiny_attention_fwd.launches,
+            dict(ta.tiny_attention_fwd.launches_by_route)) == before

@@ -19,25 +19,51 @@
 //
 // What bounds it on the H100: at the main path's shapes (B=64 text 40x40,
 // B=128 fusion 40x40 and 40x200, H=12, D=64) it moves the fp32
-// probabilities, the bf16 multiplier and five (B, S, H*D) tensors: ~255 MB
-// at 40x200 for ~4 GFLOP, so it is memory-bound (~0.076 ms at 3.35 TB/s).
-// This first version computes in fp32 on the CUDA cores.
+// probabilities, the bf16 multiplier and seven (B, S, H*D) tensors: ~255 MB
+// at 40x200 for ~6 GFLOP, so it is bound by bytes (~0.076 ms at 3.35 TB/s;
+// the bf16 tensor-core work is ~0.006 ms).
 //
-// Design: one block of 512 threads per (head h, batch row b), as the
-// forward, so each K/V/P byte is read from device memory once; its shared
-// memory fills an SM at 40x200, so the block brings 16 warps to hide the
-// latency of its loads. Two phases:
-// 1. that head's K and V (Skv x D, row stride D+1 floats) in shared memory;
-//    each warp takes four query rows at a time: lanes over keys for dP and
-//    the softmax backward (warp shuffles for the row sums), lanes over the
-//    head dim for dQ; each row's dL and Pu = P * dm stay in shared memory
-//    (Sq x Skv fp32 each);
-// 2. K/V's space is reused for g and Qs (Sq x D each); each warp takes four
-//    keys at a time, lanes over the head dim, and sums dV and dK over the
-//    query rows from shared memory only.
-// Carrying four rows (keys) per warp reuses each K/V (g/Qs) element loaded
-// from shared memory four times: the loops are bound by shared-memory load
-// issue, not by FMAs.
+// Two routes, chosen by x2::tiny_route (ops/tiny_attention.py `tiny_route`):
+//
+// - Tensor cores (bf16, D % 16 == 0, D <= 128; the main path). One block of
+//   4 warps per (head h, batch row b), as the forward, so each K/V/P byte
+//   is read from device memory once. g, V and P come into shared memory by
+//   cp.async in one group, K in a second that lands during pass 1; Qs =
+//   q * scale rounded to bf16 beside them. bf16 tiles are XOR-swizzled or
+//   padded for conflict-free ldmatrix and zero-filled to 16 rows; P is one
+//   fp32 word per (query row, key). Each warp owns a 16-row query tile, its
+//   bf16 multipliers loaded once into registers in the mma C layout (each
+//   lane two adjacent keys of two rows), and walks the keys twice, 16 at a
+//   time, with mma.sync m16n8k16 (bf16 in, fp32 sums):
+//   1. dP = g . V^T; rowsum(dP * dm * P), summed per lane and merged over
+//      the fragment quad by shuffles;
+//   2. dP again; dL = P * (dP * dm - rowsum) and Pu = P * dm, each rounded
+//      to bf16 as the plain version rounds them; dQ += dL . K with dL as
+//      the A fragment straight from registers and K through ldmatrix.trans;
+//      the 16 words of P of the key group are rewritten in place as its dL
+//      (16 bf16) and Pu (16 bf16); dQ * scale is stored.
+//   After a barrier, dK = dL^T . Qs and dV = Pu^T . g: 16 keys by D per
+//   task, the query rows as the k dimension, both operands through
+//   ldmatrix.trans, tasks spread over the warps; each output tile goes
+//   through shared memory (K/V's, dead by then) to 16-byte row stores.
+//   Shared memory 106,240 B at 40x200 (the CUDA-core kernel takes 184 KB),
+//   so 2 blocks share an SM.
+// - CUDA cores (fp32 at any D, bf16 at other D up to 256): the first design,
+//   in fp32. One block of 512 threads per (head h, batch row b); its shared
+//   memory fills an SM at 40x200, so the block brings 16 warps to hide the
+//   latency of its loads. Two phases:
+//   1. that head's K and V (Skv x D, row stride D+1 floats) in shared
+//      memory; each warp takes four query rows at a time: lanes over keys
+//      for dP and the softmax backward (warp shuffles for the row sums),
+//      lanes over the head dim for dQ; each row's dL and Pu = P * dm stay in
+//      shared memory (Sq x Skv fp32 each);
+//   2. K/V's space is reused for g and Qs (Sq x D each); each warp takes
+//      four keys at a time, lanes over the head dim, and sums dV and dK over
+//      the query rows from shared memory only.
+//   Carrying four rows (keys) per warp reuses each K/V (g/Qs) element
+//   loaded from shared memory four times: the loops are bound by
+//   shared-memory load issue, not by FMAs. fp32 keeps fp32 products.
+//
 // The block-diagonal K/V scratch of the TPU kernel (it cut MXU dispatches)
 // is not carried over. Shared memory bounds the shapes: ops/tiny_attention.py
 // admits a shape only when both the forward and this kernel fit.
@@ -45,6 +71,12 @@
 #include "common.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// ---------------------------------------------------------------------------
+// CUDA-core route
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 512;  // 16 warps: one block fills an SM's shared memory
 constexpr int kWarps = kThreads / 32;
@@ -235,16 +267,388 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* prob
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core route
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kThreads = 128;   // 4 warps, each owning 16-row query tiles
+constexpr int kWarps = kThreads / 32;
+constexpr int kRegGroups = 16;  // 16-key groups whose bf16 multipliers a lane holds
+
+size_t smem_bytes(int Sq, int Skv, int D) {
+  const size_t sq = x2::round_up16(Sq), skv = x2::round_up16(Skv);
+  return sizeof(bf16) * (2 * skv + 2 * sq) * x2::tile_ld(D) + sizeof(float) * sq * (skv + 4);
+}
+
+// Fragment coordinates as in tiny_attention_fwd.cu: lane = 4 g + t; for the
+// 16 keys of group gi (from n0 = 16 gi), c[4T + 2R + e] is row g + 8R, key
+// n0 + 8T + 2t + e, and the A fragment of those keys is a[i] = (c[2i],
+// c[2i + 1]).
+//
+// W, one 32-bit word per (query row, key), holds P (fp32) from the start;
+// pass 2 rewrites the 16 words of a row's key group as the group's dL (16
+// bf16, 32 bytes) followed by its Pu (16 bf16), which phase 3 reads with
+// ldmatrix.trans. Its row stride Skv16 + 4 words keeps those reads
+// conflict-free.
+//
+// kRegDm: the multiplier is bf16 and Skv <= 16 kRegGroups, so each lane
+// loads its multipliers of the row tile once, into registers, before pass 1
+// (one round trip to device memory, while the copies land) and keeps them
+// for pass 2; otherwise both passes load them group by group. On an H100
+// (chip_smoke.py check_tiny_bwd, H=12, D=64, training operands) it takes
+// 40x200 at B=128 from 0.260 to 0.142 ms and 40x40 at B=64 from 0.028 to
+// 0.025 ms; 40x40 at B=128 is within 3% either way (0.054 / 0.053).
+
+template <int D, bool kRegDm>
+__global__ void __launch_bounds__(kThreads)
+bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+           const float* __restrict__ probs, const void* __restrict__ dmask, int dmask_kind,
+           const bf16* __restrict__ g, bf16* __restrict__ dq, bf16* __restrict__ dk,
+           bf16* __restrict__ dv, int Sq, int Skv, int H, float scale) {
+  using L = x2::TileLayout<D>;  // K, V, g, Qs
+  constexpr int KS = D / 16;
+  constexpr int NT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Skv16 = x2::round_up16(Skv), Sq16 = x2::round_up16(Sq), ngroups = Skv16 / 16;
+  const int LDW = Skv16 + 4;  // W row stride (words)
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);         // Skv16 rows
+  bf16* Vs = Ks + Skv16 * L::kLD;                       // Skv16 rows
+  bf16* Gs = Vs + Skv16 * L::kLD;                       // Sq16 rows
+  bf16* Qs = Gs + Sq16 * L::kLD;                        // Sq16 rows
+  float* W = reinterpret_cast<float*>(Qs + Sq16 * L::kLD);  // Sq16 x LDW
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, t = lane & 3;
+  const int HD = H * D;
+  const long long kv_base = static_cast<long long>(b) * Skv * HD + static_cast<long long>(h) * D;
+  const long long q_base = static_cast<long long>(b) * Sq * HD + static_cast<long long>(h) * D;
+  const long long prow_stride = static_cast<long long>(H) * Skv;
+  const long long p_base = static_cast<long long>(b) * Sq * prow_stride +
+                           static_cast<long long>(h) * Skv;
+
+  // group 1: g, V and P (pass 1); group 2: K (pass 2)
+  x2::stage_rows<D>(Gs, g + q_base, Sq, Sq16, HD, tid, kThreads);
+  x2::stage_rows<D>(Vs, v + kv_base, Skv, Skv16, HD, tid, kThreads);
+  if ((Skv & 3) == 0) {  // P rows start 16-byte aligned
+    const int chunks = Skv16 / 4;
+    for (int i = tid; i < Sq16 * chunks; i += kThreads) {
+      const int r = i / chunks, c = (i - r * chunks) * 4;
+      const bool ok = r < Sq && c < Skv;
+      x2::cp_async16(W + r * LDW + c, probs + p_base + (ok ? r * prow_stride + c : 0),
+                     ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < Sq16 * Skv16; i += kThreads) {
+      const int r = i / Skv16, c = i - r * Skv16;
+      const bool ok = r < Sq && c < Skv;
+      x2::cp_async4(W + r * LDW + c, probs + p_base + (ok ? r * prow_stride + c : 0),
+                    ok ? 4 : 0);
+    }
+  }
+  x2::cp_async_commit();
+  x2::stage_rows<D>(Ks, k + kv_base, Skv, Skv16, HD, tid, kThreads);
+  x2::cp_async_commit();
+  // Qs = q * scale rounded to bf16, as the forward rounds it; rows past Sq are zeros
+  constexpr int kRowChunks = D / 8;
+  for (int i = tid; i < Sq16 * kRowChunks; i += kThreads) {
+    const int r = i / kRowChunks, c = (i % kRowChunks) * 8;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (r < Sq) {
+      raw = *reinterpret_cast<const uint4*>(q + q_base + static_cast<long long>(r) * HD + c);
+      unsigned* w = reinterpret_cast<unsigned*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = x2::unpack_bf16(w[e]);
+        w[e] = x2::pack_bf16(x.x * scale, x.y * scale);
+      }
+    }
+    *reinterpret_cast<uint4*>(Qs + L::off(r, c)) = raw;
+  }
+
+  const bool vec = (Skv & 1) == 0;
+  const bf16* dm16 = static_cast<const bf16*>(dmask);
+  unsigned dmr[kRegDm ? kRegGroups : 1][2][2];  // [group][T][R] packed multipliers (kRegDm)
+  bool row_ok[2];
+  long long prow[2];
+  unsigned ga[KS][4];  // g rows r0 .. r0 + 15 as A fragments
+  int r0 = 0;
+
+  // multipliers of group gi (keys 16 gi + 8T + 2t, + 1; rows gr + 8R)
+  auto mult = [&](int gi, int T, int R) -> float2 {
+    if constexpr (kRegDm) {
+      return x2::unpack_bf16(dmr[gi][T][R]);
+    } else {
+      if (dmask == nullptr) return make_float2(1.f, 1.f);
+      const int j = 16 * gi + 8 * T + 2 * t;
+      return x2::load_pair(dmask, dmask_kind, prow[R] + j, row_ok[R] && j < Skv,
+                           row_ok[R] && j + 1 < Skv, vec);
+    }
+  };
+  auto dp16 = [&](int gi, float (&c)[8]) {  // g . V^T for the 16 keys of group gi
+    const int n0 = 16 * gi;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) c[i] = 0.f;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      unsigned vb[4];
+      x2::ldmatrix_x4(vb, Vs + L::off(n0 + (lane & 7) + ((lane >> 4) << 3), 16 * s + (lane & 8)));
+      x2::mma_bf16(c, ga[s], vb);
+      x2::mma_bf16(c + 4, ga[s], vb + 2);
+    }
+  };
+  auto p_pair = [&](int gi, int T, int R) -> float2 {  // P at (row gr + 8R, keys ..) from W
+    return *reinterpret_cast<const float2*>(W + (r0 + gr + 8 * R) * LDW + 16 * gi + 8 * T + 2 * t);
+  };
+  auto pass1_group = [&](int gi, float (&dot)[2]) {
+    float c[8];
+    dp16(gi, c);
+#pragma unroll
+    for (int T = 0; T < 2; ++T)
+#pragma unroll
+      for (int R = 0; R < 2; ++R) {
+        const float2 p = p_pair(gi, T, R), m = mult(gi, T, R);
+        dot[R] += c[4 * T + 2 * R] * m.x * p.x + c[4 * T + 2 * R + 1] * m.y * p.y;
+      }
+  };
+  auto pass2_group = [&](int gi, const float (&dot)[2], float (&acc)[NT][4]) {
+    const int n0 = 16 * gi;
+    float c[8], pu[8];
+    dp16(gi, c);
+#pragma unroll
+    for (int T = 0; T < 2; ++T)
+#pragma unroll
+      for (int R = 0; R < 2; ++R) {
+        const float2 p = p_pair(gi, T, R), m = mult(gi, T, R);
+        float* cc = c + 4 * T + 2 * R;
+        float* uu = pu + 4 * T + 2 * R;
+        cc[0] = p.x * (cc[0] * m.x - dot[R]);
+        cc[1] = p.y * (cc[1] * m.y - dot[R]);
+        uu[0] = p.x * m.x;
+        uu[1] = p.y * m.y;
+      }
+    const unsigned la[4] = {x2::pack_bf16(c[0], c[1]), x2::pack_bf16(c[2], c[3]),
+                            x2::pack_bf16(c[4], c[5]), x2::pack_bf16(c[6], c[7])};
+    const unsigned ua[4] = {x2::pack_bf16(pu[0], pu[1]), x2::pack_bf16(pu[2], pu[3]),
+                            x2::pack_bf16(pu[4], pu[5]), x2::pack_bf16(pu[6], pu[7])};
+    __syncwarp();  // every lane has read this group's P before it becomes dL | Pu
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // a[i]: row gr + 8 (i & 1), keys n0 + 8 (i >> 1) + 2t
+      unsigned* w = reinterpret_cast<unsigned*>(W + (r0 + gr + 8 * (i & 1)) * LDW + n0);
+      w[4 * (i >> 1) + t] = la[i];      // dL: bf16 key 8 (i >> 1) + 2t of the group
+      w[8 + 4 * (i >> 1) + t] = ua[i];  // Pu: 32 bytes on
+    }
+#pragma unroll
+    for (int dn = 0; dn < D; dn += 16) {
+      unsigned kb[4];
+      x2::ldmatrix_x4_trans(kb, Ks + L::off(n0 + (lane & 7) + (lane & 8), dn + ((lane >> 4) << 3)));
+      x2::mma_bf16(acc[dn / 8], la, kb);
+      x2::mma_bf16(acc[dn / 8 + 1], la, kb + 2);
+    }
+  };
+
+  // ---- passes 1 and 2: dL, Pu and dQ, one 16-row tile per warp and step;
+  // every warp runs the same number of steps, so the barriers of the first
+  // step are reached by all ----
+  const int steps = (Sq + kWarps * 16 - 1) / (kWarps * 16);
+  for (int it = 0; it < steps; ++it) {
+    r0 = 16 * (kWarps * it + warp);
+    const bool valid = r0 < Sq;
+    if (valid) {
+      row_ok[0] = r0 + gr < Sq;
+      row_ok[1] = r0 + gr + 8 < Sq;
+      prow[0] = p_base + (r0 + gr) * prow_stride;
+      prow[1] = prow[0] + 8 * prow_stride;
+      if constexpr (kRegDm) {  // overlaps the copies
+#pragma unroll
+        for (int gi = 0; gi < kRegGroups; ++gi)
+#pragma unroll
+          for (int T = 0; T < 2; ++T)
+#pragma unroll
+            for (int R = 0; R < 2; ++R) {
+              const int j = 16 * gi + 8 * T + 2 * t;
+              dmr[gi][T][R] = x2::load_bf16_pair(dm16, prow[R] + j, row_ok[R] && j < Skv,
+                                                 row_ok[R] && j + 1 < Skv, vec);
+            }
+      }
+    }
+    if (it == 0) {
+      x2::cp_async_wait_group<1>();  // g, V, P
+      __syncthreads();
+    }
+    float dot[2] = {0.f, 0.f};  // rowsum(dP * dm * P) of rows gr and gr + 8
+    if (valid) {
+#pragma unroll
+      for (int s = 0; s < KS; ++s)
+        x2::ldmatrix_x4(ga[s], Gs + L::off(r0 + (lane & 15), 16 * s + ((lane >> 4) << 3)));
+      if constexpr (kRegDm) {
+#pragma unroll
+        for (int gi = 0; gi < kRegGroups; ++gi)
+          if (gi < ngroups) pass1_group(gi, dot);
+      } else {
+        for (int gi = 0; gi < ngroups; ++gi) pass1_group(gi, dot);
+      }
+#pragma unroll
+      for (int R = 0; R < 2; ++R) {
+        dot[R] += __shfl_xor_sync(0xffffffffu, dot[R], 1);
+        dot[R] += __shfl_xor_sync(0xffffffffu, dot[R], 2);
+      }
+    }
+    if (it == 0) {
+      x2::cp_async_wait_all();  // K
+      __syncthreads();
+    }
+    if (!valid) continue;
+
+    float acc[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+    if constexpr (kRegDm) {
+#pragma unroll
+      for (int gi = 0; gi < kRegGroups; ++gi)
+        if (gi < ngroups) pass2_group(gi, dot, acc);
+    } else {
+      for (int gi = 0; gi < ngroups; ++gi) pass2_group(gi, dot, acc);
+    }
+    bf16* qrow = dq + q_base + static_cast<long long>(r0 + gr) * HD;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int d = 8 * nt + 2 * t;
+      if (row_ok[0])
+        *reinterpret_cast<unsigned*>(qrow + d) =
+            x2::pack_bf16(acc[nt][0] * scale, acc[nt][1] * scale);
+      if (row_ok[1])
+        *reinterpret_cast<unsigned*>(qrow + 8LL * HD + d) =
+            x2::pack_bf16(acc[nt][2] * scale, acc[nt][3] * scale);
+    }
+  }
+  __syncthreads();  // every dL / Pu row is in W
+
+  // ---- dK = dL^T . Qs and dV = Pu^T . g, 16 keys by D per task ----
+  const int tasks = ngroups * 2;
+  bf16* Os = Ks + warp * 16 * L::kLD;  // the warp's output tile; a warp with tasks fits in K/V
+  for (int task = warp; task < tasks; task += kWarps) {
+    const int m0 = (task >> 1) * 16;
+    const bool is_dv = task & 1;
+    // A^T: the group's dL (or Pu, 32 bytes on) of rows 0 .. Sq16, read transposed
+    const unsigned char* A = reinterpret_cast<const unsigned char*>(W + m0) + (is_dv ? 32 : 0);
+    const bf16* Bm = is_dv ? Gs : Qs;  // Sq16 rows
+    float o[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+    for (int k0 = 0; k0 < Sq16; k0 += 16) {
+      unsigned a[4];
+      x2::ldmatrix_x4_trans(a, A + (k0 + (lane & 7) + ((lane >> 4) << 3)) * LDW * 4 +
+                                   (lane & 8) * 2);
+#pragma unroll
+      for (int dn = 0; dn < D; dn += 16) {
+        unsigned bb[4];
+        x2::ldmatrix_x4_trans(bb,
+                              Bm + L::off(k0 + (lane & 7) + (lane & 8), dn + ((lane >> 4) << 3)));
+        x2::mma_bf16(o[dn / 8], a, bb);
+        x2::mma_bf16(o[dn / 8 + 1], a, bb + 2);
+      }
+    }
+    // through the warp's 16-row tile in K/V's space (no longer read), so the
+    // rows go out as 16-byte stores
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      *reinterpret_cast<unsigned*>(Os + L::off(gr, 8 * nt) + 2 * t) =
+          x2::pack_bf16(o[nt][0], o[nt][1]);
+      *reinterpret_cast<unsigned*>(Os + L::off(gr + 8, 8 * nt) + 2 * t) =
+          x2::pack_bf16(o[nt][2], o[nt][3]);
+    }
+    __syncwarp();
+    bf16* dst = (is_dv ? dv : dk) + kv_base;
+#pragma unroll
+    for (int i = lane; i < 16 * (D / 8); i += 32) {
+      const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+      if (m0 + r < Skv)
+        *reinterpret_cast<uint4*>(dst + static_cast<long long>(m0 + r) * HD + c) =
+            *reinterpret_cast<const uint4*>(Os + L::off(r, c));
+    }
+    __syncwarp();  // the tile is rewritten by the warp's next task
+  }
+}
+
+template <int D, bool kRegDm>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* probs,
+                   const void* dmask, int dmask_kind, const void* g, void* dq, void* dk,
+                   void* dv, int B, int Sq, int Skv, int H, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes(Sq, Skv, D);
+  auto kernel = bwd_kernel<D, kRegDm>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  // as much of the SM's 228 KB as shared memory as it takes: 2 blocks at 40x200
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(H, B), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(probs), dmask, dmask_kind, static_cast<const bf16*>(g),
+      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, H, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v, const void* probs,
+                     const void* dmask, int dmask_kind, const void* g, void* dq, void* dk,
+                     void* dv, int B, int Sq, int Skv, int H, float scale, cudaStream_t st) {
+  if constexpr (D <= 64) {  // registers: the multipliers beside g and dQ
+    if (dmask != nullptr && dmask_kind == x2::kOperandBF16 &&
+        x2::round_up16(Skv) <= 16 * kRegGroups)
+      return launch<D, true>(q, k, v, probs, dmask, dmask_kind, g, dq, dk, dv, B, Sq, Skv, H,
+                             scale, st);
+  }
+  return launch<D, false>(q, k, v, probs, dmask, dmask_kind, g, dq, dk, dv, B, Sq, Skv, H, scale,
+                          st);
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, const void* probs,
+                     const void* dmask, int dmask_kind, const void* g, void* dq, void* dk,
+                     void* dv, int B, int Sq, int Skv, int H, int D, float scale,
+                     cudaStream_t st) {
+  switch (D) {
+#define X2_TINY_BWD_CASE(DD)                                                                     \
+  case DD:                                                                                       \
+    return launch_d<DD>(q, k, v, probs, dmask, dmask_kind, g, dq, dk, dv, B, Sq, Skv, H, scale, \
+                        st);
+    X2_TINY_BWD_CASE(16)
+    X2_TINY_BWD_CASE(32)
+    X2_TINY_BWD_CASE(48)
+    X2_TINY_BWD_CASE(64)
+    X2_TINY_BWD_CASE(80)
+    X2_TINY_BWD_CASE(96)
+    X2_TINY_BWD_CASE(112)
+    X2_TINY_BWD_CASE(128)
+#undef X2_TINY_BWD_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// Shared memory (bytes) one block needs; ops/tiny_attention.py keeps the
-// same formula for its dispatch rule and refuses larger shapes before launch.
-extern "C" long long x2_tiny_attention_bwd_smem_bytes(int Sq, int Skv, int D) {
-  return static_cast<long long>(smem_bytes(Sq, Skv, D));
+// The route (x2::TinyRoute) the kernels take for q/k/v of `dtype` at head
+// dim D; ops/tiny_attention.py `tiny_route` keeps the same rule.
+extern "C" int x2_tiny_attention_route(int dtype, int D) { return x2::tiny_route(dtype, D); }
+
+// Shared memory (bytes) one block of `route` needs; ops/tiny_attention.py
+// keeps the same formulas for its dispatch rule and refuses larger shapes
+// before launch.
+extern "C" long long x2_tiny_attention_bwd_smem_bytes(int Sq, int Skv, int D, int route) {
+  return static_cast<long long>(route == x2::kRouteTensorCore ? tc::smem_bytes(Sq, Skv, D)
+                                                              : smem_bytes(Sq, Skv, D));
 }
 
 // q, g, dq: (B, Sq, H*D); k, v, dk, dv: (B, Skv, H*D); all contiguous, dtype
-// `dtype` (x2::DType). probs: (B, Sq, H*Skv) f32, the forward's pre-dropout
+// `dtype` (x2::DType); on the tensor-core route every operand 16-byte
+// aligned. probs: (B, Sq, H*Skv) f32, the forward's pre-dropout
 // probabilities. dmask: null or (B, Sq, H*Skv), f32 or bf16 per dmask_kind
 // (x2::OperandKind). `scale` is the forward's (already rounded to the
 // dtype). Returns cudaGetLastError() after the launch.
@@ -258,6 +662,9 @@ extern "C" int x2_tiny_attention_bwd(const void* q, const void* k, const void* v
   if (dmask != nullptr && dmask_kind != x2::kOperandF32 && dmask_kind != x2::kOperandBF16)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x2::tiny_route(dtype, D) == x2::kRouteTensorCore)
+    return static_cast<int>(tc::dispatch(q, k, v, probs, dmask, dmask_kind, g, dq, dk, dv, B,
+                                         Sq, Skv, H, D, scale, st));
   if (dtype == x2::kF32)
     return static_cast<int>(launch<float>(q, k, v, probs, dmask, dmask_kind, g, dq, dk, dv, B,
                                           Sq, Skv, H, D, scale, st));

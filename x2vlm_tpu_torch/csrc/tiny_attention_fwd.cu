@@ -9,25 +9,58 @@
 // applied after the softmax, then P @ V. Optionally writes the pre-dropout
 // fp32 probabilities (B, Sq, H*Skv), which the backward
 // (tiny_attention_bwd.cu) reads; the serving path passes a null pointer and
-// skips that write.
+// skips that write. A row whose every key is masked averages the values of
+// its Skv real keys (P = 1/Skv).
 //
 // What bounds it on the H100: at the main path's shapes (B=128, H=12, D=64;
 // text self-attention 40x40, fusion cross-attention 40x200) it moves
-// 31-94 MB for 1-4 GFLOP, so it is memory-bound at the tensor-core rate
-// (~0.009 / ~0.028 ms at 3.35 TB/s). This first version computes in fp32
-// on the CUDA cores. Design: one block per (head h, batch row b), so every
-// K/V byte is read from device memory once; that head's K and V slices
-// (Skv x D, 2 x 51 KB in fp32 at Skv=200) are staged in shared memory, K with
-// a row stride of D+1 floats so the 32 lanes that each take one key read 32
-// different banks. Each warp takes one query row at a time: lanes over keys
-// for the logits, warp shuffles for the row max and sum, lanes over the
-// head dim for P @ V. The TPU kernel's block-diagonal K/V scratch (it cut
-// MXU dispatches), its H*D >= 256 gate and head chunking are Mosaic devices
-// and are not carried over.
+// 31-94 MB (serving) for 0.6-3 GFLOP, so it is bound by bytes: ~0.009 /
+// ~0.028 ms at 3.35 TB/s, against ~0.001 / ~0.003 ms of bf16 tensor-core
+// work; with the training operands (the fp32 probabilities written, a bf16
+// multiplier read) 40x200 moves ~168 MB (~0.050 ms).
+//
+// Two routes, chosen by x2::tiny_route (ops/tiny_attention.py `tiny_route`):
+//
+// - Tensor cores (bf16, D % 16 == 0, D <= 128; the main path). One block of
+//   4 warps per (head h, batch row b), so every K/V byte is read from device
+//   memory once. The head's K and V rows (row stride H*D) come into bf16
+//   shared memory by 16-byte cp.async, K and V in separate groups so the
+//   first walk over K runs while V lands; tiles XOR-swizzled (D % 64 == 0)
+//   or padded so ldmatrix reads distinct banks, zero-filled to a multiple of
+//   16 keys. Beside them one fp32 bias per key: 0, -1e30 where masked (as
+//   the reference adds), -3e38 past Skv, so pad keys never enter a row sum
+//   and a fully masked row still gives 1/Skv. 54,080 B at 40x200 (the
+//   CUDA-core kernel takes 111,648 B), so 4 blocks share an SM. Each warp
+//   owns a 16-row query tile; q * scale, rounded to bf16, goes straight from
+//   device memory into mma A fragments while K/V land. S = Qs K^T by
+//   mma.sync m16n8k16 (bf16 in, fp32 sums), 16 keys at a time, never a
+//   whole row of S in registers. Without probabilities (serving) one walk
+//   with the online softmax (kOnePass below); with them two walks, so the
+//   stored probabilities are final. P * dm is rounded to bf16 and the C
+//   fragments of two adjacent 8-key tiles become the A fragment of P . V,
+//   whose B fragments come from V by ldmatrix.trans. Past 64 keys the bf16
+//   multiplier of a row tile (training) is loaded into registers before
+//   its first walk (kRegDm below). exp is exp2f of (x - m) * log2(e).
+// - CUDA cores (fp32 at any D, bf16 at other D): the first design, in fp32:
+//   K/V staged as fp32, K with a row stride of D+1 floats so the 32 lanes
+//   that each take one key read 32 different banks; each warp takes one
+//   query row at a time: lanes over keys for the logits, warp shuffles for
+//   the row max and sum, lanes over the head dim for P @ V. fp32 keeps its
+//   fp32 products (no TF32).
+//
+// The TPU kernel's block-diagonal K/V scratch (it cut MXU dispatches), its
+// H*D >= 256 gate and head chunking are Mosaic devices and are not carried
+// over.
 
 #include "common.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// ---------------------------------------------------------------------------
+// CUDA-core route
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -131,18 +164,404 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* key_
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core route
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kThreads = 128;          // 4 warps, each owning 16-row query tiles
+constexpr int kWarps = kThreads / 32;
+constexpr int kRegGroups = 16;         // 16-key groups whose bf16 multipliers a lane holds
+constexpr int kRegDmMinSkv = 64;       // fewer keys: the group-by-group loads are faster
+constexpr float kPadLogit = -3.0e38f;  // keys past Skv: below any real or masked logit
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float expo(float x) { return exp2f(x * kLog2e); }
+
+size_t smem_bytes(int Skv, int D) {
+  const size_t skv = x2::round_up16(Skv);
+  return sizeof(bf16) * 2 * skv * x2::tile_ld(D) + sizeof(float) * skv;
+}
+
+// Fragment coordinates: lane = 4 g + t holds rows g and g + 8 of a 16-row
+// tile; in a 16 x 8 C tile, columns 2t and 2t + 1. For the 16 keys of group
+// gi (keys n0 = 16 gi ...) the kernel keeps two C tiles in c[8]:
+// c[4T + 2R + e] is row g + 8R, key n0 + 8T + 2t + e, which is also the
+// order of the A fragment of those 16 keys: a[i] = (c[2i], c[2i + 1]).
+//
+// kOnePass (no probabilities asked for, the serving path): one walk over
+// the keys with the online softmax: a running row max m and sum l, the
+// output tile rescaled by exp(m_old - m_new) when m grows and divided by l
+// at the end; P * dm is rounded to bf16 before P . V as a probability
+// relative to the running max. Otherwise two walks, so the probabilities
+// are final when they are stored: pass 1 for m and l, pass 2 for P, its
+// store and P . V.
+//
+// kRegDm (two walks only): the multiplier is bf16 and kRegDmMinSkv < Skv <=
+// 16 kRegGroups, so each lane loads its multipliers of the row tile into
+// registers before pass 1, while K and V land, and pass 2 never waits on
+// them; otherwise pass 2 loads them group by group. Either way they are
+// read once. The registers cost occupancy (D=64: 168 against 113, 3 blocks
+// an SM against 4), which pays at many keys and not at few: on an H100
+// (chip_smoke.py check_tiny, B=128, H=12, training operands) 40x200 takes
+// 0.105 ms with it against 0.130 ms without, 40x40 0.047 against 0.041 ms.
+
+template <int D, bool kRegDm, bool kOnePass>
+__global__ void __launch_bounds__(kThreads)
+fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+           const uint8_t* __restrict__ key_mask, const void* __restrict__ dmask,
+           int dmask_kind, bf16* __restrict__ out, float* __restrict__ probs, int Sq, int Skv,
+           int H, float scale) {
+  using L = x2::TileLayout<D>;
+  constexpr int KS = D / 16;
+  constexpr int NT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Skv16 = x2::round_up16(Skv), ngroups = Skv16 / 16;
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);                 // Skv16 rows
+  bf16* Vs = Ks + Skv16 * L::kLD;                               // Skv16 rows
+  float* kbias = reinterpret_cast<float*>(Vs + Skv16 * L::kLD);  // Skv16
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int HD = H * D;
+  const long long kv_base = static_cast<long long>(b) * Skv * HD + static_cast<long long>(h) * D;
+  // K first, V second: pass 1 runs while V lands
+  x2::stage_rows<D>(Ks, k + kv_base, Skv, Skv16, HD, tid, kThreads);
+  x2::cp_async_commit();
+  x2::stage_rows<D>(Vs, v + kv_base, Skv, Skv16, HD, tid, kThreads);
+  x2::cp_async_commit();
+  // what each key adds to its logit: 0, -1e30 where masked (as the
+  // reference), -3e38 past Skv (its K row is zeros)
+  const uint8_t* km = key_mask != nullptr ? key_mask + static_cast<long long>(b) * Skv : nullptr;
+  for (int j = tid; j < Skv16; j += kThreads)
+    kbias[j] = j >= Skv ? kPadLogit : (km != nullptr && km[j] == 0 ? x2::kNegInf : 0.f);
+
+  const long long prow_stride = static_cast<long long>(H) * Skv;
+  const bool vec = (Skv & 1) == 0;
+  const bf16* dm16 = static_cast<const bf16*>(dmask);
+
+  unsigned qa[KS][4];  // q * scale of the warp's 16 rows, rounded to bf16, as A fragments
+  unsigned dmr[kRegDm ? kRegGroups : 1][2][2];  // [group][T][R] packed multipliers (kRegDm)
+  bool row_ok[2];
+  long long prow[2];
+
+  auto load_tile = [&](int r0) {
+    row_ok[0] = r0 + g < Sq;
+    row_ok[1] = r0 + g + 8 < Sq;
+    const long long rb = static_cast<long long>(b) * Sq + r0 + g;
+    prow[0] = rb * prow_stride + static_cast<long long>(h) * Skv;
+    prow[1] = prow[0] + 8 * prow_stride;
+    const bf16* qb = q + rb * HD + static_cast<long long>(h) * D;
+    auto pair = [&](int R, int d) -> unsigned {
+      if (!row_ok[R]) return 0u;
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(qb + 8LL * R * HD + d));
+      return x2::pack_bf16(x.x * scale, x.y * scale);
+    };
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      qa[s][0] = pair(0, 16 * s + 2 * t);
+      qa[s][1] = pair(1, 16 * s + 2 * t);
+      qa[s][2] = pair(0, 16 * s + 8 + 2 * t);
+      qa[s][3] = pair(1, 16 * s + 8 + 2 * t);
+    }
+    if constexpr (kRegDm) {
+#pragma unroll
+      for (int gi = 0; gi < kRegGroups; ++gi)
+#pragma unroll
+        for (int T = 0; T < 2; ++T)
+#pragma unroll
+          for (int R = 0; R < 2; ++R) {
+            const int j = 16 * gi + 8 * T + 2 * t;
+            dmr[gi][T][R] = x2::load_bf16_pair(dm16, prow[R] + j, row_ok[R] && j < Skv,
+                                               row_ok[R] && j + 1 < Skv, vec);
+          }
+    }
+  };
+  // biased logits of the 16 keys of group gi (layout above)
+  auto logits16 = [&](int gi, float (&c)[8]) {
+    const int n0 = 16 * gi;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) c[i] = 0.f;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      unsigned kb[4];
+      x2::ldmatrix_x4(kb, Ks + L::off(n0 + (lane & 7) + ((lane >> 4) << 3), 16 * s + (lane & 8)));
+      x2::mma_bf16(c, qa[s], kb);
+      x2::mma_bf16(c + 4, qa[s], kb + 2);
+    }
+#pragma unroll
+    for (int T = 0; T < 2; ++T) {
+      const float2 a = *reinterpret_cast<const float2*>(kbias + n0 + 8 * T + 2 * t);
+      c[4 * T] += a.x;
+      c[4 * T + 1] += a.y;
+      c[4 * T + 2] += a.x;
+      c[4 * T + 3] += a.y;
+    }
+  };
+  // o += P . V for the 16 keys of group gi, P in C fragments (rounded to bf16 here)
+  auto pv16 = [&](int gi, const float (&c)[8], float (&o)[NT][4]) {
+    const int n0 = 16 * gi;
+    const unsigned pa[4] = {x2::pack_bf16(c[0], c[1]), x2::pack_bf16(c[2], c[3]),
+                            x2::pack_bf16(c[4], c[5]), x2::pack_bf16(c[6], c[7])};
+#pragma unroll
+    for (int dn = 0; dn < D; dn += 16) {
+      unsigned vb[4];
+      x2::ldmatrix_x4_trans(vb, Vs + L::off(n0 + (lane & 7) + (lane & 8), dn + ((lane >> 4) << 3)));
+      x2::mma_bf16(o[dn / 8], pa, vb);
+      x2::mma_bf16(o[dn / 8 + 1], pa, vb + 2);
+    }
+  };
+  // the one walk on group gi: the running max and sum, o rescaled, o += (P * dm) . V
+  auto one_pass_group = [&](int gi, const float2 (&dm)[2][2], float (&m)[2], float (&l)[2],
+                            float (&o)[NT][4]) {
+    float c[8];
+    logits16(gi, c);
+#pragma unroll
+    for (int R = 0; R < 2; ++R) {
+      float mx = fmaxf(fmaxf(c[2 * R], c[2 * R + 1]), fmaxf(c[4 + 2 * R], c[5 + 2 * R]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[R], mx);  // the same in the four lanes of the row
+      const float alpha = expo(m[R] - mn);
+      m[R] = mn;
+      l[R] *= alpha;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        o[nt][2 * R] *= alpha;
+        o[nt][2 * R + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int T = 0; T < 2; ++T)
+#pragma unroll
+      for (int R = 0; R < 2; ++R) {
+        float& p0 = c[4 * T + 2 * R];
+        float& p1 = c[4 * T + 2 * R + 1];
+        p0 = expo(p0 - m[R]);
+        p1 = expo(p1 - m[R]);
+        l[R] += p0 + p1;
+        p0 *= dm[T][R].x;
+        p1 *= dm[T][R].y;
+      }
+    pv16(gi, c, o);
+  };
+  // pass 2 on group gi: P, the probabilities, the multiplier, o += (P * dm) . V
+  auto pass2_group = [&](int gi, const float2 (&dm)[2][2], const float (&m)[2],
+                         const float (&inv_l)[2], float (&o)[NT][4]) {
+    const int n0 = 16 * gi;
+    float c[8];
+    logits16(gi, c);
+#pragma unroll
+    for (int T = 0; T < 2; ++T)
+#pragma unroll
+      for (int R = 0; R < 2; ++R) {
+        float& p0 = c[4 * T + 2 * R];
+        float& p1 = c[4 * T + 2 * R + 1];
+        p0 = expo(p0 - m[R]) * inv_l[R];
+        p1 = expo(p1 - m[R]) * inv_l[R];
+        const int j = n0 + 8 * T + 2 * t;
+        if (probs != nullptr && row_ok[R] && j < Skv) {
+          float* pp = probs + prow[R] + j;
+          if (j + 1 < Skv && vec) {
+            *reinterpret_cast<float2*>(pp) = make_float2(p0, p1);
+          } else {
+            pp[0] = p0;
+            if (j + 1 < Skv) pp[1] = p1;
+          }
+        }
+        p0 *= dm[T][R].x;
+        p1 *= dm[T][R].y;
+      }
+    pv16(gi, c, o);
+  };
+  // the multipliers of group gi, loaded from device memory (1 without dmask)
+  auto load_dm = [&](int gi, float2 (&dm)[2][2]) {
+#pragma unroll
+    for (int T = 0; T < 2; ++T)
+#pragma unroll
+      for (int R = 0; R < 2; ++R) {
+        const int j = 16 * gi + 8 * T + 2 * t;
+        dm[T][R] = dmask == nullptr
+                       ? make_float2(1.f, 1.f)
+                       : x2::load_pair(dmask, dmask_kind, prow[R] + j, row_ok[R] && j < Skv,
+                                       row_ok[R] && j + 1 < Skv, vec);
+      }
+  };
+
+  // every warp runs the same number of tile steps, so the two barriers of
+  // the first step are reached by all
+  const int steps = (Sq + kWarps * 16 - 1) / (kWarps * 16);
+  for (int it = 0; it < steps; ++it) {
+    const int r0 = 16 * (kWarps * it + warp);
+    const bool valid = r0 < Sq;
+    if (valid) load_tile(r0);  // the first tile's loads overlap the K/V copies
+    if (it == 0) {
+      x2::cp_async_wait_group<1>();  // K
+      __syncthreads();
+    }
+
+    // pass 1: each lane's running max and sum over its keys, then the quad's
+    float m[2] = {kPadLogit, kPadLogit}, l[2] = {0.f, 0.f}, inv_l[2];
+    if (valid && !kOnePass) {
+      for (int gi = 0; gi < ngroups; ++gi) {
+        float c[8];
+        logits16(gi, c);
+#pragma unroll
+        for (int R = 0; R < 2; ++R) {
+          const float mx = fmaxf(fmaxf(c[2 * R], c[2 * R + 1]), fmaxf(c[4 + 2 * R], c[5 + 2 * R]));
+          const float mn = fmaxf(m[R], mx);
+          l[R] = l[R] * expo(m[R] - mn) + expo(c[2 * R] - mn) + expo(c[2 * R + 1] - mn) +
+                 expo(c[4 + 2 * R] - mn) + expo(c[5 + 2 * R] - mn);
+          m[R] = mn;
+        }
+      }
+#pragma unroll
+      for (int R = 0; R < 2; ++R) {
+#pragma unroll
+        for (int sh = 1; sh <= 2; sh <<= 1) {
+          const float mo = __shfl_xor_sync(0xffffffffu, m[R], sh);
+          const float lo = __shfl_xor_sync(0xffffffffu, l[R], sh);
+          const float mn = fmaxf(m[R], mo);
+          l[R] = l[R] * expo(m[R] - mn) + lo * expo(mo - mn);
+          m[R] = mn;
+        }
+        inv_l[R] = 1.f / l[R];
+      }
+    }
+    if (it == 0) {
+      x2::cp_async_wait_all();  // V
+      __syncthreads();
+    }
+    if (!valid) continue;
+
+    float o[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+    if constexpr (kOnePass) {
+#pragma unroll 2
+      for (int gi = 0; gi < ngroups; ++gi) {
+        float2 dm[2][2];
+        load_dm(gi, dm);
+        one_pass_group(gi, dm, m, l, o);
+      }
+#pragma unroll
+      for (int R = 0; R < 2; ++R) {
+        l[R] += __shfl_xor_sync(0xffffffffu, l[R], 1);
+        l[R] += __shfl_xor_sync(0xffffffffu, l[R], 2);
+        const float inv = 1.f / l[R];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          o[nt][2 * R] *= inv;
+          o[nt][2 * R + 1] *= inv;
+        }
+      }
+    } else if constexpr (kRegDm) {  // pass 2
+#pragma unroll
+      for (int gi = 0; gi < kRegGroups; ++gi) {
+        if (gi < ngroups) {
+          const float2 dm[2][2] = {
+              {x2::unpack_bf16(dmr[gi][0][0]), x2::unpack_bf16(dmr[gi][0][1])},
+              {x2::unpack_bf16(dmr[gi][1][0]), x2::unpack_bf16(dmr[gi][1][1])}};
+          pass2_group(gi, dm, m, inv_l, o);
+        }
+      }
+    } else {  // pass 2
+      for (int gi = 0; gi < ngroups; ++gi) {
+        float2 dm[2][2];
+        load_dm(gi, dm);
+        pass2_group(gi, dm, m, inv_l, o);
+      }
+    }
+
+    bf16* ob = out + (static_cast<long long>(b) * Sq + r0 + g) * HD + static_cast<long long>(h) * D;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int d = 8 * nt + 2 * t;
+      if (row_ok[0]) *reinterpret_cast<unsigned*>(ob + d) = x2::pack_bf16(o[nt][0], o[nt][1]);
+      if (row_ok[1])
+        *reinterpret_cast<unsigned*>(ob + 8LL * HD + d) = x2::pack_bf16(o[nt][2], o[nt][3]);
+    }
+  }
+}
+
+template <int D, bool kRegDm, bool kOnePass>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* key_mask,
+                   const void* dmask, int dmask_kind, void* out, void* probs, int B, int Sq,
+                   int Skv, int H, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes(Skv, D);
+  auto kernel = fwd_kernel<D, kRegDm, kOnePass>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(H, B), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const uint8_t*>(key_mask), dmask, dmask_kind, static_cast<bf16*>(out),
+      static_cast<float*>(probs), Sq, Skv, H, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v, const void* key_mask,
+                     const void* dmask, int dmask_kind, void* out, void* probs, int B, int Sq,
+                     int Skv, int H, float scale, cudaStream_t st) {
+  if (probs == nullptr)
+    return launch<D, false, true>(q, k, v, key_mask, dmask, dmask_kind, out, probs, B, Sq, Skv,
+                                  H, scale, st);
+  if constexpr (D <= 64) {  // registers: the multipliers beside q and the output tile
+    if (dmask != nullptr && dmask_kind == x2::kOperandBF16 && Skv > kRegDmMinSkv &&
+        x2::round_up16(Skv) <= 16 * kRegGroups)
+      return launch<D, true, false>(q, k, v, key_mask, dmask, dmask_kind, out, probs, B, Sq, Skv,
+                                    H, scale, st);
+  }
+  return launch<D, false, false>(q, k, v, key_mask, dmask, dmask_kind, out, probs, B, Sq, Skv, H,
+                                 scale, st);
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, const void* key_mask,
+                     const void* dmask, int dmask_kind, void* out, void* probs, int B, int Sq,
+                     int Skv, int H, int D, float scale, cudaStream_t st) {
+  switch (D) {
+#define X2_TINY_FWD_CASE(DD)                                                                   \
+  case DD:                                                                                     \
+    return launch_d<DD>(q, k, v, key_mask, dmask, dmask_kind, out, probs, B, Sq, Skv, H, scale, \
+                        st);
+    X2_TINY_FWD_CASE(16)
+    X2_TINY_FWD_CASE(32)
+    X2_TINY_FWD_CASE(48)
+    X2_TINY_FWD_CASE(64)
+    X2_TINY_FWD_CASE(80)
+    X2_TINY_FWD_CASE(96)
+    X2_TINY_FWD_CASE(112)
+    X2_TINY_FWD_CASE(128)
+#undef X2_TINY_FWD_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// Shared memory (bytes) one block needs; ops/tiny_attention.py keeps the
-// same formula for its dispatch rule and refuses larger shapes before launch.
-extern "C" long long x2_tiny_attention_smem_bytes(int Skv, int D) {
-  return static_cast<long long>(smem_bytes(Skv, D));
+// The route (x2::TinyRoute) the kernels take for q/k/v of `dtype` at head
+// dim D; ops/tiny_attention.py `tiny_route` keeps the same rule.
+extern "C" int x2_tiny_attention_route(int dtype, int D) { return x2::tiny_route(dtype, D); }
+
+// Shared memory (bytes) one block of `route` needs; ops/tiny_attention.py
+// keeps the same formulas and refuses larger shapes before launch.
+extern "C" long long x2_tiny_attention_smem_bytes(int Skv, int D, int route) {
+  return static_cast<long long>(route == x2::kRouteTensorCore ? tc::smem_bytes(Skv, D)
+                                                              : smem_bytes(Skv, D));
 }
 
 // q, out: (B, Sq, H*D); k, v: (B, Skv, H*D); all contiguous, dtype `dtype`
-// (x2::DType). key_mask: null or (B, Skv) uint8, 0 = masked. dmask: null or
-// (B, Sq, H*Skv), f32 or bf16 per dmask_kind (x2::OperandKind). probs: null
-// or (B, Sq, H*Skv) f32. Returns cudaGetLastError() after the launch.
+// (x2::DType); on the tensor-core route 16-byte aligned. key_mask: null or
+// (B, Skv) uint8, 0 = masked. dmask: null or (B, Sq, H*Skv), f32 or bf16 per
+// dmask_kind (x2::OperandKind). probs: null or (B, Sq, H*Skv) f32. Returns
+// cudaGetLastError() after the launch.
 extern "C" int x2_tiny_attention_fwd(const void* q, const void* k, const void* v,
                                      const void* key_mask, const void* dmask, int dmask_kind,
                                      void* out, void* probs, int B, int Sq, int Skv, int H,
@@ -151,6 +570,9 @@ extern "C" int x2_tiny_attention_fwd(const void* q, const void* k, const void* v
   if (dmask != nullptr && dmask_kind != x2::kOperandF32 && dmask_kind != x2::kOperandBF16)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x2::tiny_route(dtype, D) == x2::kRouteTensorCore)
+    return static_cast<int>(tc::dispatch(q, k, v, key_mask, dmask, dmask_kind, out, probs, B,
+                                         Sq, Skv, H, D, scale, st));
   if (dtype == x2::kF32)
     return static_cast<int>(launch<float>(q, k, v, key_mask, dmask, dmask_kind, out, probs, B,
                                           Sq, Skv, H, D, scale, st));

@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 
 import torch
 
-__all__ = ["DTYPE_CODES", "KERNELS", "OPERAND_KINDS", "build", "check", "load",
+__all__ = ["DTYPE_CODES", "KERNELS", "OPERAND_KINDS", "aligned", "build", "check", "load",
            "nvcc_path", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -119,6 +119,13 @@ def load(name: str) -> ctypes.CDLL:
             lib.x2_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
         return lib
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, its data 16-byte aligned (the kernels' cp.async and
+    vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

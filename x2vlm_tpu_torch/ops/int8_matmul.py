@@ -101,12 +101,6 @@ def _check_cuda(name: str, *tensors) -> None:
             raise ValueError(f"{name}: operands on different devices")
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous, its data 16-byte aligned (the kernel's cp.async)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token int8 quantization; returns (xq int8 (..., K), sx fp32
     (..., 1)). See module doc."""
@@ -178,8 +172,8 @@ def int8_matmul(
     if M == 0 or sx.numel() != M:
         raise ValueError(f"int8_matmul: {M} rows, sx holds {sx.numel()}")
     lib = _build.load("int8_matmul")
-    xq2 = _aligned(xq.reshape(M, K))
-    wq = _aligned(wq)
+    xq2 = _build.aligned(xq.reshape(M, K))
+    wq = _build.aligned(wq)
     sx = sx.reshape(M).float().contiguous()
     sw = sw.reshape(N).float().contiguous()
     if bias is not None:

@@ -13,8 +13,9 @@ Counterpart of x2vlm_tpu/ops/tiny_attention.py. The functions:
 - :func:`tiny_attention_bwd` is the backward kernel's wrapper
   (``csrc/tiny_attention_bwd.cu``); for CPU tensors it runs
   :func:`tiny_attention_bwd_reference`.
-- Each wrapper's ``.launches`` counts its kernel launches and
-  ``.launches_by_shape`` splits them by (B, Sq, Skv).
+- Each wrapper's ``.launches`` counts its kernel launches,
+  ``.launches_by_shape`` splits them by (B, Sq, Skv) and
+  ``.launches_by_route`` by route.
 - :func:`tiny_attention_reference` / :func:`tiny_attention_bwd_reference`
   are the plain PyTorch versions (counterparts of ``_xla_reference`` and of
   the math of ``_bwd_kernel``).
@@ -23,6 +24,16 @@ Counterpart of x2vlm_tpu/ops/tiny_attention.py. The functions:
   When a gradient is needed it goes through an autograd Function that runs
   the forward with ``return_probs=True`` and saves (q, k, v, probs, dmask),
   as the JAX ``_tiny_vjp_fwd`` does; otherwise it calls the forward alone.
+
+Each CUDA source holds two hand-written kernels, and :func:`tiny_route`
+picks one by dtype and head dim (the C side keeps the same rule):
+``"tensor_core"`` for bf16 with D % 16 == 0 and D <= 128 (the main path:
+mma.sync on bf16 tiles staged by cp.async) and ``"cuda_core"`` for fp32 at
+any D and bf16 at other D (fp32 arithmetic, which keeps fp32 inputs at fp32
+accuracy). The choice is a dispatch between two kernels, not a fallback: a
+failed build or launch raises on either route. :func:`tiny_supported`, the
+layers' dispatch rule, admits a shape when the CUDA-core kernels fit, which
+every tensor-core shape it admits does too.
 
 I/O is the projection layout: q (B, Sq, H*D), k/v (B, Skv, H*D), out
 (B, Sq, H*D). q is multiplied by ``scale`` in q's dtype, as the reference's
@@ -34,6 +45,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -41,32 +53,66 @@ import torch
 from x2vlm_tpu_torch.ops import _build
 from x2vlm_tpu_torch.ops.attention import NEG_INF, dropout_multiplier
 
-__all__ = ["tiny_attention_bwd", "tiny_attention_bwd_reference", "tiny_attention_fwd",
-           "tiny_attention_reference", "tiny_block_attention", "tiny_supported",
-           "smem_bytes", "bwd_smem_bytes"]
+__all__ = ["CUDA_CORE", "ROUTE_CODES", "TENSOR_CORE", "tiny_attention_bwd",
+           "tiny_attention_bwd_reference", "tiny_attention_fwd", "tiny_attention_reference",
+           "tiny_block_attention", "tiny_route", "tiny_supported", "smem_bytes",
+           "bwd_smem_bytes", "typed_lib"]
 
 MAX_QUERY_LEN = 64  # the dispatch rule's short-query bound
 _DTYPES = _build.DTYPE_CODES
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 _MAX_HEAD_DIM = 256   # the backward kernel's per-lane accumulators
-_WARPS = 8            # warps per block in csrc/tiny_attention_fwd.cu
+_WARPS = 8            # warps per block in csrc/tiny_attention_fwd.cu (CUDA-core route)
 _BWD_WARPS = 16       # and in csrc/tiny_attention_bwd.cu
+CUDA_CORE, TENSOR_CORE = "cuda_core", "tensor_core"
+ROUTE_CODES = {CUDA_CORE: 0, TENSOR_CORE: 1}   # x2::TinyRoute in csrc/common.cuh
 
 
-def smem_bytes(Skv: int, head_dim: int) -> int:
-    """Shared memory one block takes: one head's K (row stride D+1) and V in
-    fp32, and one probability row and one query row per warp. The same
-    formula as ``smem_bytes`` in csrc/tiny_attention_fwd.cu (chip_smoke.py
-    holds the two equal)."""
+def tiny_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a launch takes: the tensor cores for bf16 with a head dim
+    that is a multiple of 16 up to 128, the CUDA cores otherwise. The same
+    rule as ``x2::tiny_route`` in csrc/common.cuh (chip_smoke.py holds the
+    two equal)."""
+    if dtype == torch.bfloat16 and head_dim % 16 == 0 and 0 < head_dim <= 128:
+        return TENSOR_CORE
+    return CUDA_CORE
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _tile_ld(head_dim: int) -> int:
+    """Row stride (elements) of a tensor-core route's bf16 shared tile:
+    D when D % 64 == 0 (16-byte chunks XOR-swizzled by row), else D + 8
+    (``x2::tile_ld`` in csrc/common.cuh)."""
+    return head_dim if head_dim % 64 == 0 else head_dim + 8
+
+
+def smem_bytes(Skv: int, head_dim: int, route: str = CUDA_CORE) -> int:
+    """Shared memory one forward block takes. CUDA cores: one head's K (row
+    stride D+1) and V in fp32, one probability row and one query row per
+    warp. Tensor cores: K and V in bf16 (Skv padded to 16 rows) and an fp32
+    logit bias per key. The formulas of ``smem_bytes`` / ``tc::smem_bytes``
+    in csrc/tiny_attention_fwd.cu (chip_smoke.py holds them equal)."""
+    if route == TENSOR_CORE:
+        return 2 * 2 * _round16(Skv) * _tile_ld(head_dim) + 4 * _round16(Skv)
     return 4 * (Skv * (head_dim + 1) + Skv * head_dim + _WARPS * Skv
                 + _WARPS * head_dim)
 
 
-def bwd_smem_bytes(Sq: int, Skv: int, head_dim: int) -> int:
-    """Shared memory one backward block takes: one head's K and V (row
-    stride D+1) in fp32, reused for g and the scaled q; the (Sq, Skv) fp32
-    dL and P * dm; four g rows per warp. The same formula as ``smem_bytes``
-    in csrc/tiny_attention_bwd.cu (chip_smoke.py holds the two equal)."""
+def bwd_smem_bytes(Sq: int, Skv: int, head_dim: int, route: str = CUDA_CORE) -> int:
+    """Shared memory one backward block takes. CUDA cores: one head's K and
+    V (row stride D+1) in fp32, reused for g and the scaled q; the (Sq, Skv)
+    fp32 dL and P * dm; four g rows per warp. Tensor cores: K, V, g and the
+    scaled q in bf16 (rows padded to 16), and one 32-bit word per (query
+    row, key) that holds P and then the bf16 dL and P * dm (rows of the
+    padded Skv + 4 words). The formulas of
+    ``smem_bytes`` / ``tc::smem_bytes`` in csrc/tiny_attention_bwd.cu
+    (chip_smoke.py holds them equal)."""
+    if route == TENSOR_CORE:
+        sq, skv = _round16(Sq), _round16(Skv)
+        return 2 * (2 * skv + 2 * sq) * _tile_ld(head_dim) + 4 * sq * (skv + 4)
     kv = 2 * Skv * (head_dim + 1)
     gq = 2 * Sq * head_dim
     return 4 * (max(kv, gq) + 2 * Sq * Skv + _BWD_WARPS * 4 * head_dim)
@@ -75,15 +121,47 @@ def bwd_smem_bytes(Sq: int, Skv: int, head_dim: int) -> int:
 def tiny_supported(Sq: int, Skv: int, head_dim: int) -> bool:
     """Dispatch rule: short queries whose head fits one block's shared memory
     in the forward AND the backward kernel, as the JAX ``_pick_nb`` admits a
-    shape only when both fit (Skv up to 257 at Sq=40, D=64; 209 at Sq=64)."""
+    shape only when both fit (Skv up to 257 at Sq=40, D=64; 209 at Sq=64).
+    It takes the CUDA-core kernels' need, which bounds the tensor-core
+    kernels' at every shape it admits (the layers do not know the dtype)."""
     return (Sq <= MAX_QUERY_LEN and head_dim <= _MAX_HEAD_DIM
             and smem_bytes(Skv, head_dim) <= _SMEM_LIMIT
             and bwd_smem_bytes(Sq, Skv, head_dim) <= _SMEM_LIMIT)
 
 
+@functools.lru_cache(maxsize=256)
 def _dtype_scale(scale: float, dtype: torch.dtype) -> float:
-    """``scale`` rounded to ``dtype`` (the reference casts it before the multiply)."""
+    """``scale`` rounded to ``dtype`` (the reference casts it before the
+    multiply); cached, so a launch builds no tensor for it."""
     return float(torch.tensor(scale, dtype=dtype))
+
+
+# the C entry points' signatures, set once per loaded library by typed_lib
+_SIGNATURES = {
+    "x2_tiny_attention_fwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                              + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+                              ctypes.c_int),
+    "x2_tiny_attention_bwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+                              + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+                              ctypes.c_int),
+    "x2_tiny_attention_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_longlong),
+    "x2_tiny_attention_bwd_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_longlong),
+    "x2_tiny_attention_route": ([ctypes.c_int] * 2, ctypes.c_int),
+}
+
+
+def typed_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument and result types of the tiny attention C
+    functions it exports set (once per library: the library object itself
+    carries the mark, so a new library is typed even if it reuses the
+    address of one that was freed)."""
+    if not getattr(lib, "_x2_typed", False):
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = restype
+        lib._x2_typed = True
+    return lib
 
 
 def tiny_attention_reference(
@@ -142,48 +220,47 @@ def tiny_attention_fwd(
     for t in (k, v, key_mask, dmask):
         if t is not None and t.device != q.device:
             raise ValueError("tiny_attention_fwd: operands on different devices")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if key_mask is not None and tuple(key_mask.shape) != (B, Skv):
+        raise ValueError(f"tiny_attention_fwd: key_mask {tuple(key_mask.shape)} "
+                         f"is not ({B}, {Skv})")
+    if dmask is not None and (tuple(dmask.shape) != (B, Sq, H * Skv)
+                              or dmask.dtype not in _build.OPERAND_KINDS):
+        raise ValueError(f"tiny_attention_fwd: dmask {tuple(dmask.shape)} "
+                         f"{dmask.dtype} is not ({B}, {Sq}, {H * Skv}) f32/bf16")
+    route = tiny_route(q.dtype, D)
+    if smem_bytes(Skv, D, route) > _SMEM_LIMIT:
+        raise ValueError(f"tiny_attention_fwd: Skv={Skv}, D={D} needs "
+                         f"{smem_bytes(Skv, D, route)} B of shared memory per block "
+                         f"on the {route} route (limit {_SMEM_LIMIT})")
+    lib = typed_lib(_build.load("tiny_attention_fwd"))
+    q, k, v = (_build.aligned(t) for t in (q, k, v))
     km_ptr = None
     if key_mask is not None:
-        if tuple(key_mask.shape) != (B, Skv):
-            raise ValueError(f"tiny_attention_fwd: key_mask {tuple(key_mask.shape)} "
-                             f"is not ({B}, {Skv})")
         key_mask = (key_mask != 0).to(torch.uint8).contiguous()
         km_ptr = key_mask.data_ptr()
     dm_ptr, dm_kind = None, 0
     if dmask is not None:
-        if tuple(dmask.shape) != (B, Sq, H * Skv) or dmask.dtype not in _build.OPERAND_KINDS:
-            raise ValueError(f"tiny_attention_fwd: dmask {tuple(dmask.shape)} "
-                             f"{dmask.dtype} is not ({B}, {Sq}, {H * Skv}) f32/bf16")
-        dmask = dmask.contiguous()
+        dmask = _build.aligned(dmask)
         dm_ptr, dm_kind = dmask.data_ptr(), _build.OPERAND_KINDS[dmask.dtype]
-
-    if smem_bytes(Skv, D) > _SMEM_LIMIT:
-        raise ValueError(f"tiny_attention_fwd: Skv={Skv}, D={D} needs "
-                         f"{smem_bytes(Skv, D)} B of shared memory per block "
-                         f"(limit {_SMEM_LIMIT})")
-    lib = _build.load("tiny_attention_fwd")
     out = torch.empty_like(q)
     probs = torch.empty((B, Sq, H * Skv), dtype=torch.float32,
                         device=q.device) if return_probs else None
-    fn = lib.x2_tiny_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + \
-        [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), km_ptr, dm_ptr, dm_kind,
-                 out.data_ptr(), None if probs is None else probs.data_ptr(),
-                 B, Sq, Skv, H, D, _DTYPES[q.dtype],
-                 _dtype_scale(scale, q.dtype), stream)
+        err = lib.x2_tiny_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), km_ptr, dm_ptr, dm_kind,
+            out.data_ptr(), None if probs is None else probs.data_ptr(),
+            B, Sq, Skv, H, D, _DTYPES[q.dtype], _dtype_scale(scale, q.dtype), stream)
     _build.check(lib, err, "tiny_attention_fwd")
     tiny_attention_fwd.launches += 1
     tiny_attention_fwd.launches_by_shape[(B, Sq, Skv)] += 1
+    tiny_attention_fwd.launches_by_route[route] += 1
     return out, probs
 
 
 tiny_attention_fwd.launches = 0
 tiny_attention_fwd.launches_by_shape = collections.Counter()
+tiny_attention_fwd.launches_by_route = collections.Counter()
 
 
 def tiny_attention_bwd_reference(
@@ -250,38 +327,40 @@ def tiny_attention_bwd(
     for t in (k, v, probs, dmask, g):
         if t is not None and t.device != q.device:
             raise ValueError("tiny_attention_bwd: operands on different devices")
+    if dmask is not None and (tuple(dmask.shape) != (B, Sq, H * Skv)
+                              or dmask.dtype not in _build.OPERAND_KINDS):
+        raise ValueError(f"tiny_attention_bwd: dmask {tuple(dmask.shape)} "
+                         f"{dmask.dtype} is not ({B}, {Sq}, {H * Skv}) f32/bf16")
+    route = tiny_route(q.dtype, D)
+    if D > _MAX_HEAD_DIM or bwd_smem_bytes(Sq, Skv, D, route) > _SMEM_LIMIT:
+        raise ValueError(f"tiny_attention_bwd: Sq={Sq}, Skv={Skv}, D={D} needs "
+                         f"{bwd_smem_bytes(Sq, Skv, D, route)} B of shared memory per "
+                         f"block on the {route} route (limit {_SMEM_LIMIT}) or "
+                         f"D > {_MAX_HEAD_DIM}")
+    lib = typed_lib(_build.load("tiny_attention_bwd"))
+    q, k, v, probs = (_build.aligned(t) for t in (q, k, v, probs))
+    g = _build.aligned(g.to(q.dtype))
     dm_ptr, dm_kind = None, 0
     if dmask is not None:
-        if tuple(dmask.shape) != (B, Sq, H * Skv) or dmask.dtype not in _build.OPERAND_KINDS:
-            raise ValueError(f"tiny_attention_bwd: dmask {tuple(dmask.shape)} "
-                             f"{dmask.dtype} is not ({B}, {Sq}, {H * Skv}) f32/bf16")
-        dmask = dmask.contiguous()
+        dmask = _build.aligned(dmask)
         dm_ptr, dm_kind = dmask.data_ptr(), _build.OPERAND_KINDS[dmask.dtype]
-    if D > _MAX_HEAD_DIM or bwd_smem_bytes(Sq, Skv, D) > _SMEM_LIMIT:
-        raise ValueError(f"tiny_attention_bwd: Sq={Sq}, Skv={Skv}, D={D} needs "
-                         f"{bwd_smem_bytes(Sq, Skv, D)} B of shared memory per "
-                         f"block (limit {_SMEM_LIMIT}) or D > {_MAX_HEAD_DIM}")
-    q, k, v, probs = q.contiguous(), k.contiguous(), v.contiguous(), probs.contiguous()
-    g = g.to(q.dtype).contiguous()
-    lib = _build.load("tiny_attention_bwd")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    fn = lib.x2_tiny_attention_bwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + \
-        [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), probs.data_ptr(), dm_ptr,
-                 dm_kind, g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 B, Sq, Skv, H, D, _DTYPES[q.dtype], _dtype_scale(scale, q.dtype), stream)
+        err = lib.x2_tiny_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), probs.data_ptr(), dm_ptr, dm_kind,
+            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, Sq, Skv, H, D, _DTYPES[q.dtype], _dtype_scale(scale, q.dtype), stream)
     _build.check(lib, err, "tiny_attention_bwd")
     tiny_attention_bwd.launches += 1
     tiny_attention_bwd.launches_by_shape[(B, Sq, Skv)] += 1
+    tiny_attention_bwd.launches_by_route[route] += 1
     return dq, dk, dv
 
 
 tiny_attention_bwd.launches = 0
 tiny_attention_bwd.launches_by_shape = collections.Counter()
+tiny_attention_bwd.launches_by_route = collections.Counter()
 
 
 class _TinyAttention(torch.autograd.Function):
