@@ -17,12 +17,15 @@ Phases (any failure exits non-zero and prints no result line):
    other head dims: for the tiny kernels each one the tensor-core route
    builds, 16 to 128) at small shapes; time the kernel, its plain version and
    one PyTorch library call (SDPA forward or backward) with CUDA events
-   (the tiny kernels and their yardsticks with the card running ahead of
-   the host, as they are shorter than their Python calls). The tiny
-   kernels have two routes (``tiny_route``): the main paths' bf16 D=64
-   launches must take the tensor-core route, fp32 and bf16 D=256 the
-   CUDA-core route; the C route rule and each route's shared-memory
-   formulas must equal the Python ones;
+   (the tiny kernels, the flash backward and their yardsticks with the
+   card running ahead of the host, as they are shorter than their Python
+   calls; the flash backward beside two SDPA backwards, dq/dk/dv with the
+   bias as a constant and all four gradients). The tiny kernels
+   (``tiny_route``) and the flash dQ and dK/dV kernels
+   (``flash_bwd_route``) have two routes: the main paths' bf16 D=64
+   launches must take the tensor-core route, fp32 and bf16 at other head
+   dims the CUDA-core route; the C route rules and each route's
+   shared-memory formulas must equal the Python ones;
 3. the serving path: X2VLM-base at 224 px with weights drawn from
    ``--seed`` serves ``encode_images`` (128 images), ``encode_texts`` (128
    texts of 40 tokens, some padded) and ``itm_score`` (128 pairs) through
@@ -51,9 +54,9 @@ Phases (any failure exits non-zero and prints no result line):
 6. the training path: X2VLM-base pretraining steps (ITC + ITM + MLM,
    AdamW, ``lr_schedule(1e-4, 1000, 100)``) at B=32, 40 tokens, 12 masked,
    uint8 images, the config's dropouts on; the launch counts of one step
-   are read and checked (12 flash forward / dQ / dK-dV / dBias; tiny
-   forward and backward 12 + 6 at 40x40 and 6 at 40x200, all on the
-   tensor-core route), the losses and
+   are read and checked (12 flash forward / dQ / dK-dV / dBias, dQ and
+   dK-dV on the tensor-core route; tiny forward and backward 12 + 6 at
+   40x40 and 6 at 40x200, all on the tensor-core route), the losses and
    the gradient norm must be finite, the step is timed (median of 7 after
    2 warm-up steps) with its peak device memory; then the same weights
    with dropout off at B=2 and injected hard negatives, card bf16 against
@@ -65,7 +68,7 @@ kernels (with their launches on the three main paths), and as its last line
 torch.profiler tables of one round of requests, one int8 round and one
 train step to ``DIR/chip_smoke_profile.txt``,
 ``DIR/chip_smoke_int8_profile.txt`` and ``DIR/chip_smoke_train_profile.txt``,
-each with a last line of the tiny kernels' device time and launches.
+each with a last line of the attention kernels' device time and launches.
 """
 
 from __future__ import annotations
@@ -87,15 +90,18 @@ import torch.nn.functional as F
 from x2vlm_tpu_torch.models import XVLMConfig, XVLMForPretrain, XVLMForRetrieval
 from x2vlm_tpu_torch.ops import _build
 from x2vlm_tpu_torch.ops.flash_attention import (
-    _bwd_launchers, flash_attention_bwd, flash_attention_bwd_reference,
-    flash_attention_fwd, flash_attention_reference,
+    BWD_KERNELS, _HEAD_DIMS as FLASH_HEAD_DIMS, _bwd_launchers,
+    bwd_smem_bytes as flash_bwd_smem_bytes, flash_attention_bwd, flash_attention_bwd_reference,
+    flash_attention_fwd, flash_attention_reference, flash_bwd_route,
+    typed_lib as flash_typed_lib,
 )
 from x2vlm_tpu_torch.ops.int8_matmul import (
     int8_matmul, int8_matmul_reference, int8_scale, quantize_act, quantize_act_reference,
 )
 from x2vlm_tpu_torch.ops.quant import quantize_weight
 from x2vlm_tpu_torch.ops.tiny_attention import (
-    ROUTE_CODES, TENSOR_CORE, bwd_smem_bytes as tiny_bwd_smem_bytes,
+    CUDA_CORE as CUDA_CORE_ROUTE, ROUTE_CODES, TENSOR_CORE,
+    bwd_smem_bytes as tiny_bwd_smem_bytes,
     smem_bytes as tiny_smem_bytes, tiny_attention_bwd, tiny_attention_bwd_reference,
     tiny_attention_fwd, tiny_attention_reference, tiny_route, typed_lib,
 )
@@ -444,13 +450,15 @@ def check_tiny(gen, dev):
     return entries
 
 
-def _sdpa_bwd_ms(q, k, v, mask, dout, scale, host_ahead=False):
+def _sdpa_bwd_ms(q, k, v, mask, dout, scale, host_ahead=False, mask_grad=True):
     """One SDPA forward + autograd.grad, timed on the backward alone: the
-    backward of a graph kept with retain_graph. Returns ms or None with the
-    reason logged (a yardstick only: the port never calls SDPA)."""
+    backward of a graph kept with retain_graph. A float mask is a bias whose
+    gradient is asked for unless ``mask_grad`` is False (then dq, dk, dv
+    only). Returns ms or None with the reason logged (a yardstick only: the
+    port never calls SDPA)."""
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     m = mask
-    if mask is not None and mask.dtype != torch.bool:
+    if mask is not None and mask.dtype != torch.bool and mask_grad:
         m = mask.detach().requires_grad_()
         leaves.append(m)
     try:
@@ -463,14 +471,56 @@ def _sdpa_bwd_ms(q, k, v, mask, dout, scale, host_ahead=False):
         return None
 
 
+def check_flash_bwd_rules() -> None:
+    """The C route rule of dQ / dK-dV and each route's shared-memory
+    formulas are the Python ones."""
+    lib = flash_typed_lib(_build.load("flash_attention_bwd"))
+    for dtype in (torch.float32, torch.bfloat16):
+        for D in (16, 32, 48, 64, 96, 128, 192, 256):
+            want = ROUTE_CODES[flash_bwd_route(dtype, D)]
+            got = lib.x2_flash_attention_bwd_route(_build.DTYPE_CODES[dtype], D)
+            if got != want:
+                fail(f"flash bwd route rule: {dtype} D={D}: kernel {got}, python {want}")
+    for route, code in ROUTE_CODES.items():
+        for kernel, which in BWD_KERNELS.items():
+            for D in FLASH_HEAD_DIMS:
+                for kind in (0, *_build.OPERAND_KINDS.values()):
+                    c_bytes = lib.x2_flash_attention_bwd_smem_bytes(which, D, code, kind)
+                    py_bytes = flash_bwd_smem_bytes(kernel, D, route, kind)
+                    if c_bytes != py_bytes:
+                        fail(f"flash bwd smem formula ({kernel}, {route}, bias kind {kind}): "
+                             f"D={D}: kernel {c_bytes}, python {py_bytes}")
+
+
+def flash_bwd_route_delta(before) -> dict:
+    now = flash_attention_bwd.launches_by_route
+    return {f"{k}/{r}": n - before.get((k, r), 0) for (k, r), n in now.items()
+            if n != before.get((k, r), 0)}
+
+
+def expect_flash_bwd_route(tag, before, dtype, D, with_dbias) -> None:
+    """The dQ and dK/dV launches since ``before`` took ``flash_bwd_route``
+    (one each), dBias the CUDA cores."""
+    route = flash_bwd_route(dtype, D)
+    want = {f"dq/{route}": 1, f"dkv/{route}": 1}
+    if with_dbias:
+        want["dbias/cuda_core"] = 1
+    got = flash_bwd_route_delta(before)
+    if got != want:
+        fail(f"{tag}: launches by route {got}, expected {want}")
+
+
 def check_flash_bwd(gen, dev):
-    """K2/K3/K4 at the training step's shape in bf16 (checked and timed),
-    then over the contract at small shapes."""
+    """K2/K3/K4 at the training step's shape in bf16 (checked and timed with
+    the card ahead of the host, beside two SDPA backward yardsticks), then
+    over the contract at small shapes on both routes."""
     B, H, S, D = TRAIN_BATCH, 12, 197, 64
     q, k, v, bias = flash_inputs(gen, dev, B, H, S, S, D, torch.bfloat16, (1, H, S, S))
     dout = torch.randn(B, H, S, D, generator=gen, device=dev).to(torch.bfloat16)
     out, lse = flash_attention_fwd(q, k, v, bias)
+    before = dict(flash_attention_bwd.launches_by_route)
     got = flash_attention_bwd(q, k, v, bias, None, out, lse, dout)
+    expect_flash_bwd_route("flash_attention_bwd main shape", before, torch.bfloat16, D, True)
     p_out, p_lse = flash_attention_reference(q, k, v, bias)
     plain = flash_attention_bwd_reference(q, k, v, bias, None, p_out, p_lse, dout)
     tq, tk, tv, tb, tdo = as_f32(q, k, v, bias, dout)
@@ -479,59 +529,90 @@ def check_flash_bwd(gen, dev):
     errs = {}
     for label, a, p, t in zip(("dq", "dk", "dv", "dbias"), got, plain, truth):
         errs[label] = rule_bf16(f"flash_attention_bwd {label} B{B} H{H} S{S} D{D} "
-                                f"bias(1,H,S,S) bf16", a, p, t)
+                                f"bias(1,H,S,S) bf16 ({flash_bwd_route(q.dtype, D)})", a, p, t)
 
     launch = _bwd_launchers(q, k, v, bias, None, out, lse, dout, False, 1.0)
     plain_ms = time_ms(lambda: flash_attention_bwd_reference(q, k, v, bias, None, out, lse,
-                                                             dout), inner=2, reps=5)
-    lib_ms = _sdpa_bwd_ms(q, k, v, bias, dout, 1.0)
+                                                             dout), inner=2, reps=5,
+                       host_ahead=True)
+    lib_all = _sdpa_bwd_ms(q, k, v, bias, dout, 1.0, host_ahead=True)
+    lib_qkv = _sdpa_bwd_ms(q, k, v, bias, dout, 1.0, host_ahead=True, mask_grad=False)
     read = nbytes(q, k, v, dout, bias, lse) + lse.numel() * 4   # + delta
     ops = float(B * H * S * S * D)
     shape = f"B{B} H{H} S{S} D{D} bias(1,{H},{S},{S}) bf16"
-    entries = []
+    entries, ms_of = [], {}
     for name, kern, wbytes, flops, err in (
             ("flash_attention_bwd_dq", "dq", nbytes(q), 6 * ops, errs["dq"]),
             ("flash_attention_bwd_dkv", "dkv", nbytes(k, v), 8 * ops,
              max(errs["dk"], errs["dv"])),
             ("flash_attention_bwd_dbias", "dbias", H * S * S * 4, 4 * ops, errs["dbias"])):
-        ms = time_ms(launch[kern])
+        ms_of[kern] = ms = time_ms(launch[kern], host_ahead=True)
         b_ms, b_by = bound_ms(read + wbytes, flops)
+        lib_ms, lib_cover = (lib_all, "dq+dk+dv+dbias") if kern == "dbias" else \
+            (lib_qkv, "dq+dk+dv")
         log(f"time {name}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         entries.append(dict(
             name=name, shape=shape, route="cuda",
             source="x2vlm_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces=FLASH_BWD_REPLACES[kern], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            plain_and_library_cover="dq+dk+dv+dbias"))
+            plain_and_library_cover=f"plain: dq+dk+dv+dbias; library: {lib_cover}",
+            flash_bwd_route=CUDA_CORE_ROUTE if kern == "dbias" else flash_bwd_route(
+                q.dtype, D)))
+    fmt = lambda x: x if x is None else round(x, 4)
     log(f"time flash_attention_bwd plain (all three) {plain_ms:.4f} ms, sdpa backward "
-        f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms")
+        f"dq+dk+dv {fmt(lib_qkv)} ms, dq+dk+dv+dbias {fmt(lib_all)} ms")
+    if lib_qkv:
+        log(f"flash backward K2 + K3 {ms_of['dq'] + ms_of['dkv']:.4f} ms against sdpa "
+            f"backward dq+dk+dv {lib_qkv:.4f} ms: factor "
+            f"{(ms_of['dq'] + ms_of['dkv']) / lib_qkv:.3f}")
 
-    # the rest of the contract, at small shapes
-    for name, (B, H, Sq, Skv, D, bias_shape, masked, causal) in {
-        "bias(B,H) D128": (3, 2, 150, 150, 128, (3, 2, 150, 150), False, False),
-        "bias(1,1) D256 130x129": (2, 3, 130, 129, 256, (1, 1, 130, 129), False, False),
-        "key_mask+fully_masked_row D192": (3, 2, 130, 130, 192, None, True, False),
-        "causal bias(1,H)": (2, 3, 200, 200, 64, (1, 3, 200, 200), False, True),
-        "cross Sq100 Skv300 key_mask": (2, 2, 100, 300, 64, None, True, False),
+    # the rest of the contract, at small shapes, with scale = D^-0.5: bf16
+    # at D = 64 on the tensor cores (D = 128 / 192 / 256 on the CUDA cores),
+    # fp32 on the CUDA cores
+    for name, (B, H, Sq, Skv, D, bias_shape, masked, causal, f32_bias) in {
+        "bias(B,H) D128": (3, 2, 150, 150, 128, (3, 2, 150, 150), False, False, False),
+        "bias(1,1) D256 130x129": (2, 3, 130, 129, 256, (1, 1, 130, 129), False, False, False),
+        "key_mask+fully_masked_row D192": (3, 2, 130, 130, 192, None, True, False, False),
+        "causal bias(1,H)": (2, 3, 200, 200, 64, (1, 3, 200, 200), False, True, False),
+        "cross Sq100 Skv300 key_mask": (2, 2, 100, 300, 64, None, True, False, False),
+        "key_mask+fully_masked_row D64": (3, 2, 130, 130, 64, None, True, False, False),
+        "ragged 130x129 bias(1,H) D64": (2, 3, 130, 129, 64, (1, 3, 130, 129), False, False,
+                                         False),
+        "bias(B,H) D64": (3, 2, 150, 150, 64, (3, 2, 150, 150), False, False, False),
+        "bias(1,1) D64 70x129": (2, 2, 70, 129, 64, (1, 1, 70, 129), False, False, False),
+        "fp32 bias(1,H) D64": (2, 2, 197, 197, 64, (1, 2, 197, 197), False, False, True),
+        "fp32 bias(1,H) causal key_mask D64 150x160": (2, 2, 150, 160, 64, (1, 2, 150, 160),
+                                                       True, True, True),
+        "no bias D64": (2, 2, 197, 197, 64, None, False, False, False),
+        "197x200 (off every tile) bias(1,H) key_mask D64": (2, 2, 197, 200, 64, (1, 2, 197, 200),
+                                                            True, False, False),
+        "causal Sq150 Skv100 (rows with no key) D64": (2, 2, 150, 100, 64, None, False, True,
+                                                       False),
     }.items():
         km = None
         if masked:
             km = (torch.rand(B, Skv, generator=gen, device=dev) > 0.3).to(torch.int32)
             km[1] = 0
+        sc = D ** -0.5
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, bias = flash_inputs(gen, dev, B, H, Sq, Skv, D, dtype, bias_shape)
+            if f32_bias:
+                bias = bias.float()
             dout = torch.randn(B, H, Sq, D, generator=gen, device=dev).to(dtype)
-            out, lse = flash_attention_fwd(q, k, v, bias, km, causal)
-            got = flash_attention_bwd(q, k, v, bias, km, out, lse, dout, causal)
+            out, lse = flash_attention_fwd(q, k, v, bias, km, causal, sc)
+            tag = f"flash_attention_bwd {name} {str(dtype)[6:]} ({flash_bwd_route(dtype, D)})"
+            before = dict(flash_attention_bwd.launches_by_route)
+            got = flash_attention_bwd(q, k, v, bias, km, out, lse, dout, causal, sc)
+            expect_flash_bwd_route(tag, before, dtype, D, bias is not None)
             tq, tk, tv, tb, tdo = as_f32(q, k, v, bias, dout)
-            t_out, t_lse = flash_attention_reference(tq, tk, tv, tb, km, causal)
+            t_out, t_lse = flash_attention_reference(tq, tk, tv, tb, km, causal, sc)
             truth = flash_attention_bwd_reference(tq, tk, tv, tb, km, t_out, t_lse, tdo,
-                                                  causal)
-            tag = f"flash_attention_bwd {name} {str(dtype)[6:]}"
+                                                  causal, sc)
             if dtype == torch.bfloat16:
-                p_out, p_lse = flash_attention_reference(q, k, v, bias, km, causal)
+                p_out, p_lse = flash_attention_reference(q, k, v, bias, km, causal, sc)
                 plain = flash_attention_bwd_reference(q, k, v, bias, km, p_out, p_lse,
-                                                      dout, causal)
+                                                      dout, causal, sc)
             for i, label in enumerate(("dq", "dk", "dv", "dbias")):
                 if truth[i] is None:
                     continue
@@ -757,6 +838,7 @@ def check_int8(gen, dev):
 def reset_counts() -> None:
     flash_attention_fwd.launches = 0
     flash_attention_bwd.launches.clear()
+    flash_attention_bwd.launches_by_route.clear()
     for fn in (tiny_attention_fwd, tiny_attention_bwd, int8_matmul, quantize_act):
         fn.launches = 0
         fn.launches_by_shape.clear()
@@ -773,7 +855,8 @@ def train_counts():
             "tiny_attention_fwd": collections.Counter(tiny_attention_fwd.launches_by_shape),
             "tiny_attention_bwd": collections.Counter(tiny_attention_bwd.launches_by_shape),
             "tiny_routes": {"tiny_attention_fwd": dict(tiny_attention_fwd.launches_by_route),
-                            "tiny_attention_bwd": dict(tiny_attention_bwd.launches_by_route)}}
+                            "tiny_attention_bwd": dict(tiny_attention_bwd.launches_by_route)},
+            "flash_bwd_routes": flash_bwd_route_delta({})}
 
 
 def counts():
@@ -863,23 +946,27 @@ def time_requests(server, requests, outs):
     }
 
 
-TINY_KERNEL_NAMES = {"tiny_attention_fwd": ("tc::fwd_kernel", "tiny_fwd_kernel"),
-                     "tiny_attention_bwd": ("tc::bwd_kernel", "tiny_bwd_kernel")}
+# kernel symbols of each wrapper in a profile (tensor-core route first)
+KERNEL_NAMES = {"tiny_attention_fwd": ("tc::fwd_kernel", "tiny_fwd_kernel"),
+                "tiny_attention_bwd": ("tc::bwd_kernel", "tiny_bwd_kernel"),
+                "flash_attention_bwd_dq": ("tc::dq_kernel", "flash_bwd_dq_kernel"),
+                "flash_attention_bwd_dkv": ("tc::dkv_kernel", "flash_bwd_dkv_kernel"),
+                "flash_attention_bwd_dbias": ("flash_bwd_dbias_kernel",)}
 
 
 def write_profile(args, smi, prof, fname, rows) -> None:
-    """The profiler table and the tiny kernels' device time (both routes)
-    to ``args.profile/fname``; both logged."""
+    """The profiler table and the attention kernels' device time (both
+    routes) to ``args.profile/fname``; both logged."""
     averages = prof.key_averages()
-    tiny = {}
+    kernels = {}
     for e in averages:
-        for name, symbols in TINY_KERNEL_NAMES.items():
+        for name, symbols in KERNEL_NAMES.items():
             if any(sym in e.key for sym in symbols):
-                t = tiny.setdefault(name, {"device_ms": 0.0, "launches": 0})
+                t = kernels.setdefault(name, {"device_ms": 0.0, "launches": 0})
                 t["device_ms"] += getattr(e, "self_device_time_total",
                                           getattr(e, "self_cuda_time_total", 0.0)) / 1e3
                 t["launches"] += e.count
-    tiny_line = f"tiny kernels in this profile ({fname}): {json.dumps(tiny)}"
+    tiny_line = f"attention kernels in this profile ({fname}): {json.dumps(kernels)}"
     table = averages.table(sort_by="cuda_time_total", row_limit=rows)
     os.makedirs(args.profile, exist_ok=True)
     with open(os.path.join(args.profile, fname), "w") as f:
@@ -1049,6 +1136,11 @@ def train_phase(args, dev, gen, smi):
         if dict(launches[name]) != want_tiny:
             fail(f"train step: {name} launches {dict(launches[name])}, expected {want_tiny}")
     check_tiny_routes("train step", launches["tiny_routes"])
+    want_routes = {f"dq/{TENSOR_CORE}": cfg.vision.depth, f"dkv/{TENSOR_CORE}": cfg.vision.depth,
+                   f"dbias/{CUDA_CORE_ROUTE}": cfg.vision.depth}
+    if launches["flash_bwd_routes"] != want_routes:
+        fail(f"train step: flash backward launches by route {launches['flash_bwd_routes']}, "
+             f"expected {want_routes}")
     vals = {k: v.item() for k, v in metrics.items()}
     log(f"train step 1 metrics: {json.dumps(vals)}")
     if not all(math.isfinite(v) for v in vals.values()):
@@ -1155,6 +1247,7 @@ def run(args, dev: torch.device) -> int:
         check_tiny_rules()
         tiny_entries = check_tiny(gen, dev)
     with torch.no_grad():
+        check_flash_bwd_rules()
         flash_bwd_entries = check_flash_bwd(gen, dev)
         tiny_bwd_entries = check_tiny_bwd(gen, dev)
     torch.cuda.empty_cache()

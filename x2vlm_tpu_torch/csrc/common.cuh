@@ -56,6 +56,14 @@ inline int tiny_route(int dtype, int D) {
                                                            : kRouteCudaCore;
 }
 
+// ---- the flash backward's dQ and dK/dV routes (ops/flash_attention.py
+// `flash_bwd_route`) ----
+// bf16 at head dim 64 (the main path) runs on the tensor cores; fp32 (any
+// D) and bf16 at the other head dims on the CUDA cores. dBias has one route.
+inline int flash_bwd_route(int dtype, int D) {
+  return dtype == kBF16 && D == 64 ? kRouteTensorCore : kRouteCudaCore;
+}
+
 __host__ __device__ constexpr int round_up16(int x) { return (x + 15) & ~15; }
 
 // Row stride (elements) of a TileLayout<D> tile (below), for the host.

@@ -23,8 +23,8 @@ from typing import Dict, Iterable
 
 import torch
 
-__all__ = ["DTYPE_CODES", "KERNELS", "OPERAND_KINDS", "aligned", "build", "check", "load",
-           "nvcc_path", "ptxas_report"]
+__all__ = ["CUDA_CORE", "DTYPE_CODES", "KERNELS", "OPERAND_KINDS", "ROUTE_CODES", "TENSOR_CORE",
+           "aligned", "build", "check", "load", "nvcc_path", "ptxas_report", "typed"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "x2vlm_tpu_torch"
@@ -36,6 +36,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # (x2::DType) and the type of an optional operand (x2::OperandKind; 0 = absent).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 OPERAND_KINDS = {torch.float32: 1, torch.bfloat16: 2}
+# The two kernels of an attention op that has a route rule (x2::TinyRoute):
+# fp32 arithmetic on the CUDA cores, or bf16 mma.sync on the tensor cores.
+CUDA_CORE, TENSOR_CORE = "cuda_core", "tensor_core"
+ROUTE_CODES = {CUDA_CORE: 0, TENSOR_CORE: 1}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -119,6 +123,20 @@ def load(name: str) -> ctypes.CDLL:
             lib.x2_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
         return lib
+
+
+def typed(lib: ctypes.CDLL, signatures) -> ctypes.CDLL:
+    """``lib`` with the argument and result types of the C functions in
+    ``signatures`` (name -> (argtypes, restype)) that it exports set, once
+    per library: the library object itself carries the mark, so a new
+    library is typed even if it reuses the address of one that was freed."""
+    if not getattr(lib, "_x2_typed", False):
+        for name, (argtypes, restype) in signatures.items():
+            if hasattr(lib, name):
+                getattr(lib, name).argtypes = argtypes
+                getattr(lib, name).restype = restype
+        lib._x2_typed = True
+    return lib
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,8 @@ Counterpart of x2vlm_tpu/ops/flash_attention.py. The functions:
 - :func:`flash_attention_bwd` is the backward kernels' wrapper (dQ, dK/dV
   and dBias, ``csrc/flash_attention_bwd.cu``); for CPU tensors it runs
   :func:`flash_attention_bwd_reference`. ``flash_attention_bwd.launches``
-  counts the launches of each kernel ("dq", "dkv", "dbias").
+  counts the launches of each kernel ("dq", "dkv", "dbias"),
+  ``.launches_by_route`` by (kernel, route).
 - :func:`flash_attention_reference` / :func:`flash_attention_bwd_reference`
   are the plain PyTorch versions (counterparts of ``_xla_attention`` and of
   the math of ``_flash_backward``).
@@ -21,6 +22,14 @@ Counterpart of x2vlm_tpu/ops/flash_attention.py. The functions:
   one), returning ``out``. When a gradient is needed it goes through an
   autograd Function that saves (q, k, v, bias, key_mask, out, lse), as the
   JAX ``_flash_fwd`` does; otherwise it calls the forward alone.
+
+dQ and dK/dV have two hand-written kernels each, and :func:`flash_bwd_route`
+picks one by dtype and head dim (the C side keeps the same rule):
+``"tensor_core"`` for bf16 at D = 64 (the main path: mma.sync on bf16 tiles
+staged by cp.async, P and dS in registers) and ``"cuda_core"`` for fp32 at
+any D and bf16 at the other head dims (fp32 arithmetic). The choice is a
+dispatch, not a fallback: a failed build or launch raises on either route.
+dBias has one kernel, on the CUDA cores.
 
 A masked or causally hidden logit is a constant, so its dS is 0, also on a
 row whose every key is hidden (there the forward averaged V, so P = 1/Skv).
@@ -39,12 +48,68 @@ import torch
 from x2vlm_tpu_torch.ops import _build
 from x2vlm_tpu_torch.ops.attention import NEG_INF, make_attention_mask
 
-__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_bwd_reference",
-           "flash_attention_fwd", "flash_attention_reference", "flash_supported"]
+__all__ = ["BWD_KERNELS", "bwd_smem_bytes", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_reference", "flash_attention_fwd", "flash_attention_reference",
+           "flash_bwd_route", "flash_supported", "typed_lib"]
 
 _DTYPES = _build.DTYPE_CODES
 _HEAD_DIMS = (64, 128, 192, 256)
 _DEAD_LSE = -1e29  # lse of a row with no visible key (every logit is -1e30)
+CUDA_CORE, TENSOR_CORE = _build.CUDA_CORE, _build.TENSOR_CORE
+BWD_KERNELS = {"dq": 0, "dkv": 1, "dbias": 2}   # `Which` in csrc/flash_attention_bwd.cu
+_TC_TILE = 64   # rows of a tensor-core block's tile and of a walked tile
+
+
+def flash_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a dQ or dK/dV launch takes: the tensor cores for bf16 at
+    head dim 64, the CUDA cores otherwise (dBias always). The same rule as
+    ``x2::flash_bwd_route`` in csrc/common.cuh (chip_smoke.py holds the two
+    equal)."""
+    return TENSOR_CORE if dtype == torch.bfloat16 and head_dim == 64 else CUDA_CORE
+
+
+def bwd_smem_bytes(kernel: str, head_dim: int, route: str = CUDA_CORE,
+                   bias_kind: int = 0) -> int:
+    """Shared memory one block of backward ``kernel`` ("dq", "dkv", "dbias")
+    takes with a bias of ``bias_kind`` (``_build.OPERAND_KINDS``; 0 = none).
+    CUDA cores: tiles of BQ query rows and BKV keys (64, or 32 above D =
+    128) of Q, dO, K and V in fp32 (row stride D+1), plus dS (dQ) or P^T and
+    dS^T (dK/dV); the bias is read from device memory. Tensor cores: six
+    64-row bf16 tiles (the block's own two and two stages of the walked
+    two), two stages of a 64 x 64 bias tile (rows of 36 words for bf16, 68
+    for fp32) and, for dK/dV, of the walked queries' fp32 lse and delta. The
+    formulas of ``smem_bytes`` in csrc/flash_attention_bwd.cu (chip_smoke.py
+    holds them equal)."""
+    if route == TENSOR_CORE and kernel != "dbias":
+        ld = head_dim if head_dim % 64 == 0 else head_dim + 8   # x2::tile_ld
+        bias_words = {0: 0, 1: 68, 2: 36}[bias_kind] * _TC_TILE
+        return (2 * 6 * _TC_TILE * ld + 4 * 2 * bias_words
+                + (4 * 2 * 2 * _TC_TILE if kernel == "dkv" else 0))
+    bq = 64 if head_dim <= 128 else 32
+    staged = 4 * bq * (head_dim + 1)
+    return 4 * (staged + {"dq": 1, "dkv": 2, "dbias": 0}[kernel] * bq * (bq + 1))
+
+
+# the C entry points' signatures, set once per loaded library by typed_lib
+_OPERANDS = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 3
+_SIGNATURES = {
+    "x2_flash_attention_fwd": (_OPERANDS + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                               + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "x2_flash_attention_bwd_dq": (_OPERANDS + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                                  + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "x2_flash_attention_bwd_dkv": (_OPERANDS + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                                   + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "x2_flash_attention_bwd_dbias": (_OPERANDS + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                                     + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "x2_flash_attention_bwd_route": ([ctypes.c_int] * 2, ctypes.c_int),
+    "x2_flash_attention_bwd_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_longlong),
+}
+
+
+def typed_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument and result types of the flash attention C
+    functions it exports set, once per library object (``_build.typed``)."""
+    return _build.typed(lib, _SIGNATURES)
 
 
 def flash_supported(q: torch.Tensor, k: torch.Tensor) -> bool:
@@ -78,9 +143,9 @@ def flash_attention_reference(
 
 
 def _kernel_operands(name, q, k, v, bias, key_mask):
-    """Check the operands a CUDA kernel takes; returns contiguous q, k, v,
-    the bias pointer, kind and (batch, head, row) strides, and the uint8 key
-    mask (or None)."""
+    """Check the operands a CUDA kernel takes; returns q, k, v, the bias
+    (unit stride on its last dim, 16-byte aligned), its pointer, kind and (batch, head, row)
+    strides, and the uint8 key mask (or None)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     B, H, Sq, D = q.shape
@@ -96,8 +161,6 @@ def _kernel_operands(name, q, k, v, bias, key_mask):
     for t in (k, v, bias, key_mask):
         if t is not None and t.device != q.device:
             raise ValueError(f"{name}: operands on different devices")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-
     bias_ptr, bias_kind, strides = None, 0, (0, 0, 0)
     if bias is not None:
         if bias.dim() != 4 or bias.shape[0] not in (1, B) or \
@@ -106,8 +169,8 @@ def _kernel_operands(name, q, k, v, bias, key_mask):
                              f"not broadcast as (1|{B}, 1|{H}, {Sq}, {Skv})")
         if bias.dtype not in _build.OPERAND_KINDS:
             raise TypeError(f"{name}: bias dtype {bias.dtype}")
-        if bias.stride(3) != 1:
-            bias = bias.contiguous()
+        if bias.stride(3) != 1 or bias.data_ptr() % 16:
+            bias = bias.clone(memory_format=torch.contiguous_format)
         bias_ptr, bias_kind = bias.data_ptr(), _build.OPERAND_KINDS[bias.dtype]
         strides = (0 if bias.shape[0] == 1 else bias.stride(0),
                    0 if bias.shape[1] == 1 else bias.stride(1), bias.stride(2))
@@ -138,20 +201,17 @@ def flash_attention_fwd(
     B, H, Sq, D = q.shape
     Skv = k.shape[2]
     km_ptr = None if key_mask is None else key_mask.data_ptr()
+    lib = typed_lib(_build.load("flash_attention_fwd"))
+    q, k, v = (_build.aligned(t) for t in (q, k, v))
 
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq, 1), dtype=torch.float32, device=q.device)
-    lib = _build.load("flash_attention_fwd")
-    fn = lib.x2_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 3 + \
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, bias_kind,
-                 *strides, km_ptr, out.data_ptr(), lse.data_ptr(),
-                 B, H, Sq, Skv, D, _DTYPES[q.dtype], int(causal), float(scale),
-                 stream)
+        err = lib.x2_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, bias_kind, *strides, km_ptr,
+            out.data_ptr(), lse.data_ptr(), B, H, Sq, Skv, D, _DTYPES[q.dtype], int(causal),
+            float(scale), stream)
     _build.check(lib, err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
@@ -214,42 +274,42 @@ def _bwd_launchers(q, k, v, bias, key_mask, out, lse, dout, causal, scale):
         raise ValueError(f"flash_attention_bwd: dout {tuple(dout.shape)}, out "
                          f"{tuple(out.shape)}, lse {tuple(lse.shape)} do not match "
                          f"q {tuple(q.shape)}")
-    dout = dout.to(q.dtype).contiguous()
+    lib = typed_lib(_build.load("flash_attention_bwd"))
+    route = flash_bwd_route(q.dtype, D)
+    q, k, v = (_build.aligned(t) for t in (q, k, v))
+    dout = _build.aligned(dout.to(q.dtype))
     lse = lse.float().contiguous()
     delta = (dout.float() * out.float()).sum(-1).contiguous()   # (B, H, Sq)
     km_ptr = None if key_mask is None else key_mask.data_ptr()
-    lib = _build.load("flash_attention_bwd")
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, bias_kind, *strides,
               km_ptr, dout.data_ptr(), lse.data_ptr(), delta.data_ptr())
     tail = (H, Sq, Skv, D, _DTYPES[q.dtype], int(causal), float(scale))
 
     # the default argument keeps every operand alive while a launcher exists
-    def call(name, n_out, *args, _operands=(q, k, v, bias, key_mask, dout, lse, delta)):
+    def call(name, *args, _operands=(q, k, v, bias, key_mask, dout, lse, delta)):
         fn = getattr(lib, f"x2_flash_attention_bwd_{name}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 3 + \
-            [ctypes.c_void_p] * (4 + n_out) + [ctypes.c_int] * (len(args) - n_out + 6) + \
-            [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = fn(*common, *args, *tail, stream)
         _build.check(lib, err, f"flash_attention_bwd {name}")
         flash_attention_bwd.launches[name] += 1
+        flash_attention_bwd.launches_by_route[
+            (name, CUDA_CORE if name == "dbias" else route)] += 1
 
     def dq():
         dq_ = torch.empty_like(q)
-        call("dq", 1, dq_.data_ptr(), B)
+        call("dq", dq_.data_ptr(), B)
         return dq_
 
     def dkv():
         dk_, dv_ = torch.empty_like(k), torch.empty_like(v)
-        call("dkv", 2, dk_.data_ptr(), dv_.data_ptr(), B)
+        call("dkv", dk_.data_ptr(), dv_.data_ptr(), B)
         return dk_, dv_
 
     def dbias():
         db = torch.empty((bias.shape[0], H, Sq, Skv), dtype=torch.float32,
                          device=q.device)
-        call("dbias", 1, db.data_ptr(), bias.shape[0], B)
+        call("dbias", db.data_ptr(), bias.shape[0], B)
         return db
 
     launchers = {"dq": dq, "dkv": dkv}
@@ -287,6 +347,7 @@ def flash_attention_bwd(
 
 
 flash_attention_bwd.launches = collections.Counter()
+flash_attention_bwd.launches_by_route = collections.Counter()
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -64,8 +64,8 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 _MAX_HEAD_DIM = 256   # the backward kernel's per-lane accumulators
 _WARPS = 8            # warps per block in csrc/tiny_attention_fwd.cu (CUDA-core route)
 _BWD_WARPS = 16       # and in csrc/tiny_attention_bwd.cu
-CUDA_CORE, TENSOR_CORE = "cuda_core", "tensor_core"
-ROUTE_CODES = {CUDA_CORE: 0, TENSOR_CORE: 1}   # x2::TinyRoute in csrc/common.cuh
+CUDA_CORE, TENSOR_CORE = _build.CUDA_CORE, _build.TENSOR_CORE
+ROUTE_CODES = _build.ROUTE_CODES   # x2::TinyRoute in csrc/common.cuh
 
 
 def tiny_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -152,16 +152,8 @@ _SIGNATURES = {
 
 def typed_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` with the argument and result types of the tiny attention C
-    functions it exports set (once per library: the library object itself
-    carries the mark, so a new library is typed even if it reuses the
-    address of one that was freed)."""
-    if not getattr(lib, "_x2_typed", False):
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            if hasattr(lib, name):
-                getattr(lib, name).argtypes = argtypes
-                getattr(lib, name).restype = restype
-        lib._x2_typed = True
-    return lib
+    functions it exports set, once per library object (``_build.typed``)."""
+    return _build.typed(lib, _SIGNATURES)
 
 
 def tiny_attention_reference(
