@@ -16,25 +16,25 @@ Phases (any failure exits non-zero and prints no result line):
    Sq != Skv, per-batch and head-shared bias, dropout multiplier, fp32,
    other head dims: for the tiny kernels each one the tensor-core route
    builds, 16 to 128) at small shapes; time the kernel, its plain version and
-   one PyTorch library call (SDPA forward or backward) with CUDA events
-   (the tiny kernels, the flash backward and their yardsticks with the
-   card running ahead of the host, as they are shorter than their Python
-   calls; the flash backward beside two SDPA backwards, dq/dk/dv with the
-   bias as a constant and all four gradients). The tiny kernels
-   (``tiny_route``) and the flash dQ and dK/dV kernels
-   (``flash_bwd_route``) have two routes: the main paths' bf16 D=64
-   launches must take the tensor-core route, fp32 and bf16 at other head
-   dims the CUDA-core route; the C route rules and each route's
-   shared-memory formulas must equal the Python ones;
+   one PyTorch library call (SDPA forward or backward) with CUDA events,
+   the card running ahead of the host (the flash forward at B=128 and at
+   the step's B=32; the flash backward beside two SDPA backwards, dq/dk/dv
+   with the bias as a constant and all four gradients; dBias must be the
+   same bit for bit in two launches). The tiny kernels (``tiny_route``) and
+   the four flash kernels (``flash_route``) have two routes: the main
+   paths' bf16 D=64 launches must take the tensor-core route, fp32 and bf16
+   at other head dims the CUDA-core route; the C route rules, each route's
+   shared-memory formulas and the dBias group count must equal the Python
+   ones;
 3. the serving path: X2VLM-base at 224 px with weights drawn from
    ``--seed`` serves ``encode_images`` (128 images), ``encode_texts`` (128
    texts of 40 tokens, some padded) and ``itm_score`` (128 pairs) through
    ``RetrievalServer``; the launch counts of each request are read and
    checked (12 flash per image batch, 12 tiny per text batch, 12 tiny per
-   rerank batch, every tiny launch on the tensor-core route), outputs are
-   checked for shape and finiteness, and the requests are timed; the
-   same weights on the port's CPU path in fp32 for 2 rows, against the
-   card's rows;
+   rerank batch, every flash and tiny launch on the tensor-core route),
+   outputs are checked for shape and finiteness, and the requests are
+   timed; the same weights on the port's CPU path in fp32 for 2 rows,
+   against the card's rows;
 4. K7, the int8 matmul (its quantize and GEMM kernels), at every shape of
    the int8 serving path and over its contract (M off every tile, 3-D
    input, no bias, each activation, fp32 in and out, zero rows, an
@@ -54,8 +54,8 @@ Phases (any failure exits non-zero and prints no result line):
 6. the training path: X2VLM-base pretraining steps (ITC + ITM + MLM,
    AdamW, ``lr_schedule(1e-4, 1000, 100)``) at B=32, 40 tokens, 12 masked,
    uint8 images, the config's dropouts on; the launch counts of one step
-   are read and checked (12 flash forward / dQ / dK-dV / dBias, dQ and
-   dK-dV on the tensor-core route; tiny forward and backward 12 + 6 at
+   are read and checked (12 flash forward / dQ / dK-dV / dBias, all on the
+   tensor-core route; tiny forward and backward 12 + 6 at
    40x40 and 6 at 40x200, all on the tensor-core route), the losses and
    the gradient norm must be finite, the step is timed (median of 7 after
    2 warm-up steps) with its peak device memory; then the same weights
@@ -91,16 +91,16 @@ from x2vlm_tpu_torch.models import XVLMConfig, XVLMForPretrain, XVLMForRetrieval
 from x2vlm_tpu_torch.ops import _build
 from x2vlm_tpu_torch.ops.flash_attention import (
     BWD_KERNELS, _HEAD_DIMS as FLASH_HEAD_DIMS, _bwd_launchers,
-    bwd_smem_bytes as flash_bwd_smem_bytes, flash_attention_bwd, flash_attention_bwd_reference,
-    flash_attention_fwd, flash_attention_reference, flash_bwd_route,
-    typed_lib as flash_typed_lib,
+    bwd_smem_bytes as flash_bwd_smem_bytes, dbias_groups, flash_attention_bwd,
+    flash_attention_bwd_reference, flash_attention_fwd, flash_attention_reference, flash_route,
+    fwd_smem_bytes as flash_fwd_smem_bytes, typed_lib as flash_typed_lib,
 )
 from x2vlm_tpu_torch.ops.int8_matmul import (
     int8_matmul, int8_matmul_reference, int8_scale, quantize_act, quantize_act_reference,
 )
 from x2vlm_tpu_torch.ops.quant import quantize_weight
 from x2vlm_tpu_torch.ops.tiny_attention import (
-    CUDA_CORE as CUDA_CORE_ROUTE, ROUTE_CODES, TENSOR_CORE,
+    ROUTE_CODES, TENSOR_CORE,
     bwd_smem_bytes as tiny_bwd_smem_bytes,
     smem_bytes as tiny_smem_bytes, tiny_attention_bwd, tiny_attention_bwd_reference,
     tiny_attention_fwd, tiny_attention_reference, tiny_route, typed_lib,
@@ -229,36 +229,68 @@ def as_f32(*ts):
     return [None if t is None else t.float() for t in ts]
 
 
-def check_flash(gen, dev):
-    """Main-path shape in bf16 (checked and timed), then the contract."""
-    B, H, S, D = BATCH, 12, 197, 64
-    q, k, v, bias = flash_inputs(gen, dev, B, H, S, S, D, torch.bfloat16, (1, H, S, S))
-    out, lse = flash_attention_fwd(q, k, v, bias)
-    p_out, p_lse = flash_attention_reference(q, k, v, bias)
-    t_out, t_lse = flash_attention_reference(*as_f32(q, k, v, bias))
-    err = rule_bf16("flash_attention_fwd out B128 H12 S197 D64 bias(1,H,S,S) bf16",
-                    out, p_out, t_out)
-    rule_bf16("flash_attention_fwd lse B128 H12 S197 D64", lse, p_lse, t_lse)
-    ms = time_ms(lambda: flash_attention_fwd(q, k, v, bias))
-    plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, bias), inner=2, reps=5)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
-                                                            scale=1.0))
-    b_ms, b_by = bound_ms(nbytes(q, k, v, out, bias, lse), 4.0 * B * H * S * S * D)
-    entry = dict(name="flash_attention_fwd", shape=f"B{B} H{H} S{S} D{D} bias(1,{H},{S},{S}) bf16",
-                 route="cuda", source="x2vlm_tpu_torch/csrc/flash_attention_fwd.cu",
-                 replaces="x2vlm_tpu/ops/flash_attention.py:174",
-                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                 bound_by=b_by, library_ms=lib_ms)
-    log(f"time flash_attention_fwd: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+def expect_flash_fwd_route(tag, before, dtype, D, n=1) -> None:
+    """The flash forward launches since ``before`` were ``n``, all on
+    ``flash_route(dtype, D)``."""
+    want = {flash_route(dtype, D): n}
+    got = route_delta(flash_attention_fwd, before)
+    if got != want:
+        fail(f"{tag}: flash forward launches by route {got}, expected {want}")
 
-    # the rest of the contract, at small shapes
-    for name, (B, H, Sq, Skv, D, bias_shape, masked, causal) in {
-        "bias(B,H) D128": (3, 2, 150, 150, 128, (3, 2, 150, 150), False, False),
-        "key_mask+fully_masked_row": (3, 2, 130, 130, 64, None, True, False),
-        "causal": (2, 3, 200, 200, 64, (1, 3, 200, 200), False, True),
-        "cross Sq100 Skv300 key_mask": (2, 2, 100, 300, 64, None, True, False),
-        "bias(1,1) D256": (2, 2, 70, 129, 256, (1, 1, 70, 129), False, False),
+
+def check_flash(gen, dev):
+    """K1 at the serving (B=128) and training (B=32) shapes in bf16 (checked
+    and timed with the card ahead of the host, beside SDPA), then over the
+    contract at small shapes on both routes. Returns an entry per shape."""
+    entries = []
+    H, S, D = 12, 197, 64
+    for B, path in ((BATCH, "serving"), (TRAIN_BATCH, "train_step")):
+        q, k, v, bias = flash_inputs(gen, dev, B, H, S, S, D, torch.bfloat16, (1, H, S, S))
+        before = dict(flash_attention_fwd.launches_by_route)
+        out, lse = flash_attention_fwd(q, k, v, bias)
+        expect_flash_fwd_route(f"flash_attention_fwd B{B}", before, q.dtype, D)
+        p_out, p_lse = flash_attention_reference(q, k, v, bias)
+        t_out, t_lse = flash_attention_reference(*as_f32(q, k, v, bias))
+        route = flash_route(q.dtype, D)
+        err = rule_bf16(f"flash_attention_fwd out B{B} H{H} S{S} D{D} bias(1,H,S,S) bf16 "
+                        f"({route})", out, p_out, t_out)
+        rule_bf16(f"flash_attention_fwd lse B{B} H{H} S{S} D{D} ({route})", lse, p_lse, t_lse)
+        ms = time_ms(lambda: flash_attention_fwd(q, k, v, bias), host_ahead=True)
+        plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, bias), inner=2, reps=5,
+                           host_ahead=True)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                                                scale=1.0), host_ahead=True)
+        b_ms, b_by = bound_ms(nbytes(q, k, v, out, bias, lse), 4.0 * B * H * S * S * D)
+        entries.append(dict(
+            name="flash_attention_fwd", shape=f"B{B} H{H} S{S} D{D} bias(1,{H},{S},{S}) bf16",
+            route="cuda", source="x2vlm_tpu_torch/csrc/flash_attention_fwd.cu",
+            replaces="x2vlm_tpu/ops/flash_attention.py:174", max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            flash_route=route, path=path))
+        log(f"time flash_attention_fwd B{B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del q, k, v, bias, out, lse, p_out, p_lse, t_out, t_lse
+
+    # the rest of the contract, at small shapes: bf16 at D = 64 on the
+    # tensor cores (D = 128 / 256 on the CUDA cores), fp32 on the CUDA cores
+    for name, (B, H, Sq, Skv, D, bias_shape, masked, causal, f32_bias) in {
+        "bias(B,H) D128": (3, 2, 150, 150, 128, (3, 2, 150, 150), False, False, False),
+        "key_mask+fully_masked_row D64": (3, 2, 130, 130, 64, None, True, False, False),
+        "causal bias(1,H) D64": (2, 3, 200, 200, 64, (1, 3, 200, 200), False, True, False),
+        "cross Sq100 Skv300 key_mask D64": (2, 2, 100, 300, 64, None, True, False, False),
+        "bias(1,1) D256": (2, 2, 70, 129, 256, (1, 1, 70, 129), False, False, False),
+        "ragged 130x129 bias(1,H) D64": (2, 3, 130, 129, 64, (1, 3, 130, 129), False, False,
+                                         False),
+        "bias(B,H) D64": (3, 2, 150, 150, 64, (3, 2, 150, 150), False, False, False),
+        "bias(1,1) D64 70x129": (2, 2, 70, 129, 64, (1, 1, 70, 129), False, False, False),
+        "fp32 bias(1,H) D64": (2, 2, 197, 197, 64, (1, 2, 197, 197), False, False, True),
+        "fp32 bias(1,H) causal key_mask D64 150x160": (2, 2, 150, 160, 64, (1, 2, 150, 160),
+                                                       True, True, True),
+        "no bias D64": (2, 2, 197, 197, 64, None, False, False, False),
+        "197x200 (off every tile) bias(1,H) key_mask D64": (2, 2, 197, 200, 64, (1, 2, 197, 200),
+                                                            True, False, False),
+        "causal Sq150 Skv100 (rows with no key) D64": (2, 2, 150, 100, 64, None, False, True,
+                                                       False),
     }.items():
         km = None
         if masked:
@@ -266,18 +298,26 @@ def check_flash(gen, dev):
             km[1] = 0
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, bias = flash_inputs(gen, dev, B, H, Sq, Skv, D, dtype, bias_shape)
-            out, lse = flash_attention_fwd(q, k, v, bias, km, causal)
-            t_out, t_lse = flash_attention_reference(*as_f32(q, k, v, bias), km, causal)
-            tag = f"flash_attention_fwd {name} {str(dtype)[6:]}"
+            if f32_bias:
+                bias = bias.float()
+            tag = f"flash_attention_fwd {name} {str(dtype)[6:]} ({flash_route(dtype, D)})"
+            before = dict(flash_attention_fwd.launches_by_route)
+            out, lse = flash_attention_fwd(q, k, v, bias, km, causal, D ** -0.5)
+            expect_flash_fwd_route(tag, before, dtype, D)
+            t_out, t_lse = flash_attention_reference(*as_f32(q, k, v, bias), km, causal,
+                                                     D ** -0.5)
+            # a row with no visible key has lse ~ -1e30 in both; compare the rest
+            hide = lambda t: torch.where(t_lse < -1e29, 0.0, t)
             if dtype == torch.bfloat16:
-                p_out, p_lse = flash_attention_reference(q, k, v, bias, km, causal)
+                p_out, p_lse = flash_attention_reference(q, k, v, bias, km, causal, D ** -0.5)
                 rule_bf16(tag, out, p_out, t_out)
+                rule_bf16(tag + " lse", hide(lse), hide(p_lse), hide(t_lse))
             else:
                 rule_f32(tag, out, t_out)
-                # a fully masked row's lse is -1e30 in both; compare the rest
-                hide = lambda t: torch.where(t_lse < -1e29, 0.0, t)
                 rule_f32(tag + " lse", hide(lse), hide(t_lse))
-    return entry
+            if not bool((lse < -1e29).eq(t_lse < -1e29).all()):
+                fail(f"{tag}: the rows with no visible key differ from the plain version's")
+    return entries
 
 
 def tiny_operands(gen, dev, B, Sq, Skv, H, D, dtype, mask, drop):
@@ -472,24 +512,47 @@ def _sdpa_bwd_ms(q, k, v, mask, dout, scale, host_ahead=False, mask_grad=True):
 
 
 def check_flash_bwd_rules() -> None:
-    """The C route rule of dQ / dK-dV and each route's shared-memory
-    formulas are the Python ones."""
+    """The C route rule of the four flash kernels, each route's
+    shared-memory formulas and the dBias group count are the Python ones."""
+    fwd = flash_typed_lib(_build.load("flash_attention_fwd"))
     lib = flash_typed_lib(_build.load("flash_attention_bwd"))
     for dtype in (torch.float32, torch.bfloat16):
         for D in (16, 32, 48, 64, 96, 128, 192, 256):
-            want = ROUTE_CODES[flash_bwd_route(dtype, D)]
-            got = lib.x2_flash_attention_bwd_route(_build.DTYPE_CODES[dtype], D)
-            if got != want:
-                fail(f"flash bwd route rule: {dtype} D={D}: kernel {got}, python {want}")
+            want = ROUTE_CODES[flash_route(dtype, D)]
+            for which, c_lib in (("fwd", fwd), ("bwd", lib)):
+                got = getattr(c_lib, f"x2_flash_attention_{which}_route")(
+                    _build.DTYPE_CODES[dtype], D)
+                if got != want:
+                    fail(f"flash {which} route rule: {dtype} D={D}: kernel {got}, "
+                         f"python {want}")
+
+    def py_smem(formula, *args):   # -1, as in C, where the route runs no kernel
+        try:
+            return formula(*args)
+        except ValueError:
+            return -1
+
     for route, code in ROUTE_CODES.items():
-        for kernel, which in BWD_KERNELS.items():
-            for D in FLASH_HEAD_DIMS:
-                for kind in (0, *_build.OPERAND_KINDS.values()):
+        for D in FLASH_HEAD_DIMS:
+            for kind in (0, *_build.OPERAND_KINDS.values()):
+                c_bytes = fwd.x2_flash_attention_fwd_smem_bytes(D, code, kind)
+                py_bytes = py_smem(flash_fwd_smem_bytes, D, route, kind)
+                if c_bytes != py_bytes:
+                    fail(f"flash fwd smem formula ({route}, bias kind {kind}): D={D}: "
+                         f"kernel {c_bytes}, python {py_bytes}")
+                for kernel, which in BWD_KERNELS.items():
                     c_bytes = lib.x2_flash_attention_bwd_smem_bytes(which, D, code, kind)
-                    py_bytes = flash_bwd_smem_bytes(kernel, D, route, kind)
+                    py_bytes = py_smem(flash_bwd_smem_bytes, kernel, D, route, kind)
                     if c_bytes != py_bytes:
                         fail(f"flash bwd smem formula ({kernel}, {route}, bias kind {kind}): "
                              f"D={D}: kernel {c_bytes}, python {py_bytes}")
+    for B in (1, 2, 3, 7, 32, 128, 1000):
+        for tiles in (1, 4, 16, 25, 400):
+            for H in (1, 2, 12, 16):
+                c_groups = lib.x2_flash_attention_bwd_dbias_groups(B, tiles, H)
+                if c_groups != dbias_groups(B, tiles, H):
+                    fail(f"dbias groups: B={B} tiles={tiles} H={H}: kernel {c_groups}, "
+                         f"python {dbias_groups(B, tiles, H)}")
 
 
 def flash_bwd_route_delta(before) -> dict:
@@ -499,12 +562,12 @@ def flash_bwd_route_delta(before) -> dict:
 
 
 def expect_flash_bwd_route(tag, before, dtype, D, with_dbias) -> None:
-    """The dQ and dK/dV launches since ``before`` took ``flash_bwd_route``
-    (one each), dBias the CUDA cores."""
-    route = flash_bwd_route(dtype, D)
+    """The dQ, dK/dV and (with a bias) dBias launches since ``before`` took
+    ``flash_route``, one each."""
+    route = flash_route(dtype, D)
     want = {f"dq/{route}": 1, f"dkv/{route}": 1}
     if with_dbias:
-        want["dbias/cuda_core"] = 1
+        want[f"dbias/{route}"] = 1
     got = flash_bwd_route_delta(before)
     if got != want:
         fail(f"{tag}: launches by route {got}, expected {want}")
@@ -529,9 +592,16 @@ def check_flash_bwd(gen, dev):
     errs = {}
     for label, a, p, t in zip(("dq", "dk", "dv", "dbias"), got, plain, truth):
         errs[label] = rule_bf16(f"flash_attention_bwd {label} B{B} H{H} S{S} D{D} "
-                                f"bias(1,H,S,S) bf16 ({flash_bwd_route(q.dtype, D)})", a, p, t)
+                                f"bias(1,H,S,S) bf16 ({flash_route(q.dtype, D)})", a, p, t)
 
     launch = _bwd_launchers(q, k, v, bias, None, out, lse, dout, False, 1.0)
+    # dBias sums the batch in a fixed order (no atomics): bit-identical run to run
+    db1, db2 = launch["dbias"](), launch["dbias"]()
+    same = torch.equal(db1, db2)
+    log(f"check flash_attention_bwd dbias B{B} bit-identical across two launches: {same}")
+    if not same:
+        fail(f"flash_attention_bwd dbias: two launches differ by {max_err(db1, db2):.3e}")
+    del db1, db2
     plain_ms = time_ms(lambda: flash_attention_bwd_reference(q, k, v, bias, None, out, lse,
                                                              dout), inner=2, reps=5,
                        host_ahead=True)
@@ -557,8 +627,7 @@ def check_flash_bwd(gen, dev):
             replaces=FLASH_BWD_REPLACES[kern], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             plain_and_library_cover=f"plain: dq+dk+dv+dbias; library: {lib_cover}",
-            flash_bwd_route=CUDA_CORE_ROUTE if kern == "dbias" else flash_bwd_route(
-                q.dtype, D)))
+            flash_route=flash_route(q.dtype, D)))
     fmt = lambda x: x if x is None else round(x, 4)
     log(f"time flash_attention_bwd plain (all three) {plain_ms:.4f} ms, sdpa backward "
         f"dq+dk+dv {fmt(lib_qkv)} ms, dq+dk+dv+dbias {fmt(lib_all)} ms")
@@ -601,7 +670,7 @@ def check_flash_bwd(gen, dev):
                 bias = bias.float()
             dout = torch.randn(B, H, Sq, D, generator=gen, device=dev).to(dtype)
             out, lse = flash_attention_fwd(q, k, v, bias, km, causal, sc)
-            tag = f"flash_attention_bwd {name} {str(dtype)[6:]} ({flash_bwd_route(dtype, D)})"
+            tag = f"flash_attention_bwd {name} {str(dtype)[6:]} ({flash_route(dtype, D)})"
             before = dict(flash_attention_bwd.launches_by_route)
             got = flash_attention_bwd(q, k, v, bias, km, out, lse, dout, causal, sc)
             expect_flash_bwd_route(tag, before, dtype, D, bias is not None)
@@ -837,6 +906,7 @@ def check_int8(gen, dev):
 
 def reset_counts() -> None:
     flash_attention_fwd.launches = 0
+    flash_attention_fwd.launches_by_route.clear()
     flash_attention_bwd.launches.clear()
     flash_attention_bwd.launches_by_route.clear()
     for fn in (tiny_attention_fwd, tiny_attention_bwd, int8_matmul, quantize_act):
@@ -856,6 +926,7 @@ def train_counts():
             "tiny_attention_bwd": collections.Counter(tiny_attention_bwd.launches_by_shape),
             "tiny_routes": {"tiny_attention_fwd": dict(tiny_attention_fwd.launches_by_route),
                             "tiny_attention_bwd": dict(tiny_attention_bwd.launches_by_route)},
+            "flash_fwd_routes": dict(flash_attention_fwd.launches_by_route),
             "flash_bwd_routes": flash_bwd_route_delta({})}
 
 
@@ -872,7 +943,8 @@ def serve(server, images, ids, atts):
     tiny and the two int8 kernels over the three."""
     per_request = {}
     by_shape = {"tiny": collections.Counter(), "int8_matmul": collections.Counter(),
-                "int8_quantize": collections.Counter(), "tiny_route": collections.Counter()}
+                "int8_quantize": collections.Counter(), "tiny_route": collections.Counter(),
+                "flash_route": collections.Counter()}
 
     def run(name, fn, *inputs):
         reset_counts()
@@ -881,6 +953,7 @@ def serve(server, images, ids, atts):
         per_request[name] = counts()
         by_shape["tiny"].update(tiny_attention_fwd.launches_by_shape)
         by_shape["tiny_route"].update(tiny_attention_fwd.launches_by_route)
+        by_shape["flash_route"].update(flash_attention_fwd.launches_by_route)
         by_shape["int8_matmul"].update(int8_matmul.launches_by_shape)
         by_shape["int8_quantize"].update(quantize_act.launches_by_shape)
         return out
@@ -903,6 +976,14 @@ def want_launches(cfg, quant: bool):
     return {"encode_images": (depth, 0, 4 * depth * q, 4 * depth * q),
             "encode_texts": (0, n_text, 6 * n_text * q, 4 * n_text * q),
             "itm_score": (0, 2 * n_fusion, 10 * n_fusion * q, 7 * n_fusion * q)}
+
+
+def check_flash_fwd_routes(tag, routes, n) -> None:
+    """The ``n`` K1 launches of a main path all took the tensor-core route."""
+    log(f"flash forward launches by route ({tag}): {json.dumps(routes)}")
+    if routes != {TENSOR_CORE: n}:
+        fail(f"{tag}: flash_attention_fwd launches by route {routes}, expected "
+             f"{ {TENSOR_CORE: n} }")
 
 
 def check_tiny_routes(tag, routes) -> None:
@@ -947,11 +1028,13 @@ def time_requests(server, requests, outs):
 
 
 # kernel symbols of each wrapper in a profile (tensor-core route first)
-KERNEL_NAMES = {"tiny_attention_fwd": ("tc::fwd_kernel", "tiny_fwd_kernel"),
+KERNEL_NAMES = {"flash_attention_fwd": ("flash_fwd_kernel",),
+                "tiny_attention_fwd": ("tc::fwd_kernel", "tiny_fwd_kernel"),
                 "tiny_attention_bwd": ("tc::bwd_kernel", "tiny_bwd_kernel"),
                 "flash_attention_bwd_dq": ("tc::dq_kernel", "flash_bwd_dq_kernel"),
                 "flash_attention_bwd_dkv": ("tc::dkv_kernel", "flash_bwd_dkv_kernel"),
-                "flash_attention_bwd_dbias": ("flash_bwd_dbias_kernel",)}
+                "flash_attention_bwd_dbias": ("tc::dbias_kernel", "tc::dbias_sum_kernel",
+                                              "flash_bwd_dbias_kernel")}
 
 
 def write_profile(args, smi, prof, fname, rows) -> None:
@@ -1036,6 +1119,7 @@ def int8_phase(args, dev, state, cpu_state, requests, smi):
     outs, per_request, by_shape = serve(servers["int8"], *requests)
     check_round("int8", qcfg, outs, per_request, want_launches(qcfg, quant=True))
     check_tiny_routes("int8 serving", {"tiny_attention_fwd": dict(by_shape["tiny_route"])})
+    check_flash_fwd_routes("int8 serving", dict(by_shape["flash_route"]), qcfg.vision.depth)
 
     # int8 against bf16, the same weights and GELU, every row
     f_outs, _, _ = serve(servers["bf16 gelu_fast"], *requests)
@@ -1136,8 +1220,8 @@ def train_phase(args, dev, gen, smi):
         if dict(launches[name]) != want_tiny:
             fail(f"train step: {name} launches {dict(launches[name])}, expected {want_tiny}")
     check_tiny_routes("train step", launches["tiny_routes"])
-    want_routes = {f"dq/{TENSOR_CORE}": cfg.vision.depth, f"dkv/{TENSOR_CORE}": cfg.vision.depth,
-                   f"dbias/{CUDA_CORE_ROUTE}": cfg.vision.depth}
+    check_flash_fwd_routes("train step", launches["flash_fwd_routes"], cfg.vision.depth)
+    want_routes = {f"{k}/{TENSOR_CORE}": cfg.vision.depth for k in ("dq", "dkv", "dbias")}
     if launches["flash_bwd_routes"] != want_routes:
         fail(f"train step: flash backward launches by route {launches['flash_bwd_routes']}, "
              f"expected {want_routes}")
@@ -1243,7 +1327,7 @@ def run(args, dev: torch.device) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     with torch.inference_mode():
-        flash_entry = check_flash(gen, dev)
+        flash_entries = check_flash(gen, dev)
         check_tiny_rules()
         tiny_entries = check_tiny(gen, dev)
     with torch.no_grad():
@@ -1275,6 +1359,7 @@ def run(args, dev: torch.device) -> int:
     outs, per_request, by_shape = serve(server, *requests)
     check_round("bf16", cfg, outs, per_request, want_launches(cfg, quant=False))
     check_tiny_routes("bf16 serving", {"tiny_attention_fwd": dict(by_shape["tiny_route"])})
+    check_flash_fwd_routes("bf16 serving", dict(by_shape["flash_route"]), cfg.vision.depth)
     req_ms = time_requests(server, requests, outs)
     log(f"request ms (B={BATCH}, CUDA events, median of 5): "
         f"{json.dumps({k: round(v, 3) for k, v in req_ms.items()})}")
@@ -1310,8 +1395,12 @@ def run(args, dev: torch.device) -> int:
                     launches_by_path={"serving": serving, "train_step": training,
                                       "int8_serving": int8})
 
-    kernels = [entry(flash_entry, sum(p[0] for p in per_request.values()),
-                     train["flash_attention_fwd"], sum(p[0] for p in q_per_request.values()))]
+    kernels = []
+    for e in flash_entries:   # B=128 on the serving paths, B=32 in the train step
+        serving = e.pop("path") == "serving"
+        kernels.append(entry(e, sum(p[0] for p in per_request.values()) if serving else 0,
+                             0 if serving else train["flash_attention_fwd"],
+                             sum(p[0] for p in q_per_request.values()) if serving else 0))
     for e in tiny_entries:
         serving = e.pop("main_path_launches") == "all"
         kernels.append(entry(e, by_shape["tiny"][e["key"]] if serving else 0,

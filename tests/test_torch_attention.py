@@ -43,6 +43,10 @@ FLASH_CASES = {
     "key_mask_fully_masked_row": (3, 2, 150, 150, None, "full_row", False),
     "causal": (2, 2, 140, 140, None, None, True),
     "cross_100x300": (2, 2, 100, 300, None, None, False),
+    # the tensor-core route's ragged edges: 130 rows and 129 keys off every
+    # 64 tile, a (1, H) bias; 197 x 200 with a bias and a key mask
+    "ragged_130x129_bias": (2, 3, 130, 129, 1, None, False),
+    "key_mask_197x200_bias": (2, 2, 197, 200, 1, "random", False),
 }
 
 
@@ -57,8 +61,9 @@ def test_flash_plain_matches_jax(name):
     bias = None if bias_b is None else \
         rng.standard_normal((bias_b, H, Sq, Skv)).astype(np.float32)
     key_mask = None
-    if mask_kind == "full_row":
+    if mask_kind is not None:
         key_mask = (rng.random((B, Skv)) > 0.3).astype(np.int32)
+    if mask_kind == "full_row":
         key_mask[1] = 0  # batch row 1: every key masked -> finite average
     scale = D ** -0.5
     want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),

@@ -56,11 +56,11 @@ inline int tiny_route(int dtype, int D) {
                                                            : kRouteCudaCore;
 }
 
-// ---- the flash backward's dQ and dK/dV routes (ops/flash_attention.py
-// `flash_bwd_route`) ----
-// bf16 at head dim 64 (the main path) runs on the tensor cores; fp32 (any
-// D) and bf16 at the other head dims on the CUDA cores. dBias has one route.
-inline int flash_bwd_route(int dtype, int D) {
+// ---- the flash kernels' routes (ops/flash_attention.py `flash_route`) ----
+// One rule for the forward, dQ, dK/dV and dBias: bf16 at head dim 64 (the
+// main path) runs on the tensor cores; fp32 (any D) and bf16 at the other
+// head dims on the CUDA cores.
+inline int flash_route(int dtype, int D) {
   return dtype == kBF16 && D == 64 ? kRouteTensorCore : kRouteCudaCore;
 }
 
@@ -184,6 +184,146 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat
     const int r = i / kChunks, c = (i % kChunks) * 8;
     const bool ok = r < rows;
     cp_async16(dst + TileLayout<D>::off(r, c), src + (ok ? r * stride : 0) + c, ok ? 16 : 0);
+  }
+}
+
+// ---- the flash kernels' tensor-core route (bf16, D = 64) ----
+
+constexpr int kTcThreads = 128;  // 4 warps, 16 rows of a 64-row tile each
+constexpr int kTcTile = 64;      // rows of a block's own tile and of a walked tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x in one MUFU instruction; a result below 2^-126 flushes to 0. exp2f
+// adds the steps that keep such results: on an H100 at the main shape with
+// a bf16 bias, dQ took 0.065 ms with it against 0.053 with this, dK/dV
+// 0.076 against 0.071 (tools/flash_bwd_variants.py, exp2f).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A 64 x 64 (query rows x keys) tile of the bias in shared memory, copied
+// by 16-byte cp.async from a 16-byte aligned bias: a bias row need not start
+// on a 16-byte boundary (the main path's bf16 rows are 197 elements), so
+// each row is copied from the aligned chunk that holds its first key, and
+// `shift` (0 .. 7 for bf16, 0 .. 3 for fp32) says where that key lies in
+// the row. A row is 9 chunks (bf16) or 17 (fp32), 36 or 68 words: the
+// kernels' reads meet at most 2-way bank conflicts.
+template <int kBias>
+struct BiasTile {
+  static constexpr bool kBF16 = kBias == kOperandBF16;
+  static constexpr int kPerChunk = kBF16 ? 8 : 4;  // elements in 16 bytes
+  static constexpr int kChunks = kBias == 0 ? 0 : kTcTile / kPerChunk + 1;
+  static constexpr int kLW = 4 * kChunks;  // row stride (words)
+  static constexpr int kStageWords = kTcTile * kLW;
+
+  // the shift of the row whose key c0 is element e0
+  __device__ static int shift_of(long long e0) {
+    return static_cast<int>(e0 & (kPerChunk - 1));
+  }
+  // rows [0, nrows) of the tile are bias rows row0 + r (element base +
+  // (row0 + r) sq of `bias`), keys c0 .. c0 + 63 of Skv; rows past nrows and
+  // chunks with no key below Skv are zeros. A chunk that runs past the
+  // row's key Skv - 1 copies only up to it (zeros after), so no copy reads
+  // past the bias.
+  __device__ static void stage(unsigned* dst, const void* bias, long long sq, int Skv,
+                               long long base, int row0, int nrows, int c0, int tid) {
+    if constexpr (kBias != 0) {
+      const char* src = static_cast<const char*>(bias);
+      for (int i = tid; i < kTcTile * kChunks; i += kTcThreads) {
+        const int r = i / kChunks, c = i - r * kChunks;
+        const long long e0 = base + static_cast<long long>(row0 + r) * sq + c0;
+        const int sh = shift_of(e0);
+        const int left = Skv - (c0 - sh + kPerChunk * c);  // keys of the row from the chunk on
+        const bool ok = r < nrows && left > 0;
+        cp_async16(dst + r * kLW + 4 * c, ok ? src + 16 * ((e0 - sh) / kPerChunk + c) : src,
+                   ok ? min(16, left * (16 / kPerChunk)) : 0);
+      }
+    }
+  }
+  // the bias at row r, key c0 + j of a staged tile whose row r has `shift`
+  __device__ static float at(const unsigned* tile, int r, int j, int shift) {
+    if constexpr (kBF16)
+      return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(tile + r * kLW)[j + shift]);
+    else
+      return reinterpret_cast<const float*>(tile + r * kLW)[j + shift];
+  }
+};
+
+// Words of one staged bias tile of `bias_kind`, for the host.
+inline size_t bias_tile_words(int bias_kind) {
+  return bias_kind == kOperandBF16 ? BiasTile<kOperandBF16>::kStageWords
+         : bias_kind == kOperandF32 ? BiasTile<kOperandF32>::kStageWords
+                                    : 0;
+}
+
+// Fragment coordinates (as in tiny_attention_fwd.cu): lane = 4 g + t holds
+// rows g and g + 8 of a 16-row tile. For a 16 x 16 product tile kept as two
+// 16 x 8 C tiles in c[8], c[4T + 2R + e] is row g + 8R, column 8T + 2t + e,
+// and the A fragment of that tile is a[i] = (c[2i], c[2i + 1]) packed.
+__device__ __forceinline__ void pack_a(unsigned (&a)[4], const float (&c)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = pack_bf16(c[2 * i], c[2 * i + 1]);
+}
+
+// c[8] (zeroed first) = A (16 rows, KS 16-column fragments) . B^T, B the 16
+// rows of `Bs` from row n0 (B fragments by ldmatrix: B's rows are the n
+// dimension).
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&c)[8], const unsigned (&a)[D / 16][4],
+                                        const __nv_bfloat16* Bs, int n0, int lane) {
+  using L = TileLayout<D>;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) c[i] = 0.f;
+#pragma unroll
+  for (int s = 0; s < D / 16; ++s) {
+    unsigned b[4];
+    ldmatrix_x4(b, Bs + L::off(n0 + (lane & 7) + ((lane >> 4) << 3), 16 * s + (lane & 8)));
+    mma_bf16(c, a[s], b);
+    mma_bf16(c + 4, a[s], b + 2);
+  }
+}
+
+// acc (16 x D) += A (16 x 16, one A fragment) . B, B the 16 rows of `Bs`
+// from row k0 (ldmatrix.trans: B's rows are the k dimension).
+template <int D>
+__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const unsigned (&a)[4],
+                                       const __nv_bfloat16* Bs, int k0, int lane) {
+  using L = TileLayout<D>;
+#pragma unroll
+  for (int dn = 0; dn < D; dn += 16) {
+    unsigned b[4];
+    ldmatrix_x4_trans(b, Bs + L::off(k0 + (lane & 7) + (lane & 8), dn + ((lane >> 4) << 3)));
+    mma_bf16(acc[dn / 8], a, b);
+    mma_bf16(acc[dn / 8 + 1], a, b + 2);
+  }
+}
+
+// A warp's 16 x D accumulator * mul, through its own 16 rows `Os` of a
+// tile (no other warp reads them), to rows row0.. of `dst` (rows D apart)
+// as 16-byte stores; rows at or past `nrows` are not written.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float mul,
+                                           __nv_bfloat16* Os, __nv_bfloat16* dst, int row0,
+                                           int nrows, int lane) {
+  using L = TileLayout<D>;
+  const int g = lane >> 2, t = lane & 3;
+  __syncwarp();  // every lane is done reading the rows
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    *reinterpret_cast<unsigned*>(Os + L::off(g, 8 * nt) + 2 * t) =
+        pack_bf16(acc[nt][0] * mul, acc[nt][1] * mul);
+    *reinterpret_cast<unsigned*>(Os + L::off(g + 8, 8 * nt) + 2 * t) =
+        pack_bf16(acc[nt][2] * mul, acc[nt][3] * mul);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * (D / 8); i += 32) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    if (row0 + r < nrows)
+      *reinterpret_cast<uint4*>(dst + static_cast<long long>(row0 + r) * D + c) =
+          *reinterpret_cast<const uint4*>(Os + L::off(r, c));
   }
 }
 

@@ -30,16 +30,19 @@
 //
 // What bounds it on the H100: at the main path's shape (BEiT-2 base, B=32,
 // H=12, S=197, D=64, bias (1,12,197,197) bf16) dQ moves ~50 MB (q/k/v/dO,
-// lse, delta and the bias in, dQ out; bound 0.0149 ms at 3.35 TB/s) and
-// dK/dV ~60 MB (0.0178 ms) against 5.7 and 7.6 GFLOP of bf16 products
-// (0.0058 and 0.0077 ms at 989 TFLOP/s): with the products on the tensor
-// cores both are bound by bytes. What keeps the tensor-core kernels at 3.5
-// and 4x their bound is mostly mma and staging latency: with P and dS cut
-// to one multiply they took dQ 0.0445 and dK/dV 0.0545 ms against 0.0525
-// and 0.0709 (tools/flash_bwd_variants.py, no_elementwise; H100).
+// lse, delta and the bias in, dQ out; bound 0.0149 ms at 3.35 TB/s), dK/dV
+// ~60 MB (0.0178 ms) and dBias ~42 MB (0.0126 ms) against 5.7, 7.6 and 3.8
+// GFLOP of bf16 products (0.0058, 0.0077 and 0.0038 ms at 989 TFLOP/s):
+// with the products on the tensor cores all three are bound by bytes. What
+// keeps the tensor-core dQ and dK/dV at 3.5 and 4x their bound is mostly
+// mma and staging latency: with P and dS cut to one multiply they took dQ
+// 0.0445 and dK/dV 0.0545 ms against 0.0525 and 0.0709
+// (tools/flash_bwd_variants.py, no_elementwise; H100). dBias walks 64 x 64
+// tiles of Q, dO, K and V, so each is read 4 times from L2 at S=197.
 //
-// Two routes for dQ and dK/dV, chosen by x2::flash_bwd_route
-// (ops/flash_attention.py `flash_bwd_route`); a dispatch, not a fallback:
+// Two routes for each of dQ, dK/dV and dBias, chosen by x2::flash_route
+// (ops/flash_attention.py `flash_route`), the forward's rule too; a
+// dispatch, not a fallback:
 //
 // - Tensor cores (bf16, D = 64; the main path), namespace tc. Blocks of 4
 //   warps, each warp owning 16 rows of a 64-row tile, so a tile past the
@@ -75,6 +78,23 @@
 //     double-buffered. Per 16-query group: S^T = K.Q^T and dP^T = V.dO^T,
 //     so P^T and dS^T come out in the A layout of dV += P^T.dO and dK +=
 //     dS^T.Q. dK * scale and dV leave through the warp's own K / V rows.
+//   - dBias (K4): the (1, H, Sq, Skv) rel-pos bias is shared by every batch
+//     row, so dBias is a sum over the batch: a reduction across what would
+//     be separate blocks. One block per (64-query tile, 64-key tile, h,
+//     batch group): the batch is split into G groups (tc::dbias_groups), so
+//     that the grid has about 384 blocks, one wave of 3 blocks on each of
+//     the 132 SMs (G = 2 at the main shape). With the bf16 bias G = 1, 2, 4
+//     and 8 took 0.0697, 0.0545, 0.0571 and 0.0638 ms (192 blocks leave
+//     half the card idle; more groups add partial sums to write and read;
+//     tools/flash_bwd_variants.py dbias_blocks_*). The block stages its
+//     bias tile once, then walks its group's batch rows with Q, dO, K, V
+//     and lse / delta double-buffered, recomputes S and dP by mma and sums
+//     dS = P (dP - delta) in fp32 registers (32 a thread). Each group writes its
+//     partial sum; tc::dbias_sum_kernel adds the G partials in the fixed
+//     order g = 0 .. G-1, so dBias is the same bit for bit from run to run
+//     (no atomics). A per-batch bias is G = B, each block its own output.
+//     On an H100 (700 W): 0.0545 ms against 0.63 for the CUDA-core design
+//     and 0.27 for SDPA's whole backward with the bias gradient.
 // - CUDA cores (fp32 at any D, bf16 at D 128, 192, 256): the first design,
 //   in fp32, so FMA issue and shared-memory bandwidth set its time. 256
 //   threads as 16 x 16 (ty, tx); a tile pair of BQ query rows x BKV keys (64
@@ -89,18 +109,16 @@
 //   - dK/dV (K3): one block per (b, h, key tile), a loop over query tiles;
 //     P^T and dS^T go through shared memory; each thread accumulates dK and
 //     dV of its keys' columns.
-// - dBias (K4, CUDA cores on every route): the (1, H, Sq, Skv) rel-pos bias
-//   is shared by every batch row, so dBias is a sum over the batch, a
-//   reduction across what would be separate blocks. It is made deterministic
-//   without atomics: one block per (query tile, key tile, h) loops over the
-//   batch rows and writes its tile once (fp32; the caller sums heads for a
-//   head-broadcast bias and casts). A per-batch bias gets one block per
-//   (tile, tile, h, b).
+//   - dBias (K4): one block per (query tile, key tile, h) loops over the
+//     batch rows and writes its tile once, deterministic without atomics
+//     (fp32; the caller sums heads for a head-broadcast bias and casts). A
+//     per-batch bias gets one block per (tile, tile, h, b).
 // Keys past Skv are not keys (P = 0); rows past Sq have no lse, so their P
 // is forced to 0 (zero-filled tiles alone would not do it) and they add
 // nothing to dK / dV. No causal tile skipping: a fully hidden row still
 // feeds dV.
 
+#include <algorithm>
 #include <type_traits>
 
 #include "common.cuh"
@@ -462,161 +480,53 @@ flash_bwd_dbias_kernel(Args<T> a, float* __restrict__ dbias, int nb) {
 enum Which { kDQ = 0, kDKV = 1, kDBias = 2 };
 
 // ---------------------------------------------------------------------------
-// Tensor-core route (bf16, D = 64): dQ and dK/dV
+// Tensor-core route (bf16, D = 64): dQ, dK/dV and dBias
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
 using bf16 = __nv_bfloat16;
-constexpr int kThreads = 128;  // 4 warps, 16 rows (dQ) or keys (dK/dV) each
+using x2::BiasTile;
+using x2::ex2;
+using x2::kLog2e;
+using x2::mma_ab;
+using x2::mma_abt;
+using x2::pack_a;
+using x2::store_rows;
+constexpr int kThreads = x2::kTcThreads;  // 4 warps, 16 rows (dQ, dBias) or keys (dK/dV) each
 // blocks an SM: at most 170 registers a thread (dK/dV spills up to 40
 // bytes); on an H100 at the main shape with a bf16 bias, 2 blocks (207
 // registers, no spill) took dK/dV from 0.071 to 0.077 ms and 4 (128
 // registers, ~300 bytes of spills) to 0.104 (tools/flash_bwd_variants.py,
 // min_blocks_2 / min_blocks_4)
 constexpr int kMinBlocks = 3;
-constexpr int kTile = 64;  // rows of a block's own tile and of a walked tile
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x in one MUFU instruction; a result below 2^-126 flushes to 0. exp2f
-// adds the steps that keep such results: on an H100 at the main shape with
-// a bf16 bias, dQ took 0.065 ms with it against 0.053 with this, dK/dV
-// 0.076 against 0.071 (tools/flash_bwd_variants.py, exp2f).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// A 64 x 64 (query rows x keys) tile of the bias in shared memory, copied
-// by 16-byte cp.async from a 16-byte aligned bias: a bias row need not start
-// on a 16-byte boundary (the main path's bf16 rows are 197 elements), so
-// each row is copied from the aligned chunk that holds its first key, and
-// `shift` (0 .. 7 for bf16, 0 .. 3 for fp32) says where that key lies in
-// the row. A row is 9 chunks (bf16) or 17 (fp32), 36 or 68 words: the
-// kernels' reads meet at most 2-way bank conflicts.
-template <int kBias>
-struct BiasTile {
-  static constexpr bool kBF16 = kBias == x2::kOperandBF16;
-  static constexpr int kPerChunk = kBF16 ? 8 : 4;  // elements in 16 bytes
-  static constexpr int kChunks = kBias == 0 ? 0 : kTile / kPerChunk + 1;
-  static constexpr int kLW = 4 * kChunks;  // row stride (words)
-  static constexpr int kStageWords = kTile * kLW;
-
-  // the shift of the row whose key c0 is element e0
-  __device__ static int shift_of(long long e0) {
-    return static_cast<int>(e0 & (kPerChunk - 1));
-  }
-  // rows [0, nrows) of the tile are bias rows row0 + r (element base +
-  // (row0 + r) sq), keys c0 .. c0 + 63; rows past nrows and chunks with no
-  // key below Skv are zeros. A chunk that runs past the row's key Skv - 1
-  // copies only up to it (zeros after), so no copy reads past the bias.
-  __device__ static void stage(unsigned* dst, const Args<bf16>& a, long long base, int row0,
-                               int nrows, int c0, int tid) {
-    if constexpr (kBias != 0) {
-      const char* src = static_cast<const char*>(a.bias);
-      for (int i = tid; i < kTile * kChunks; i += kThreads) {
-        const int r = i / kChunks, c = i - r * kChunks;
-        const long long e0 = base + static_cast<long long>(row0 + r) * a.bias_sq + c0;
-        const int sh = shift_of(e0);
-        const int left = a.Skv - (c0 - sh + kPerChunk * c);  // keys of the row from the chunk on
-        const bool ok = r < nrows && left > 0;
-        x2::cp_async16(dst + r * kLW + 4 * c,
-                       ok ? src + 16 * ((e0 - sh) / kPerChunk + c) : src,
-                       ok ? min(16, left * (16 / kPerChunk)) : 0);
-      }
-    }
-  }
-  // the bias at row r, key c0 + j of a staged tile whose row r has `shift`
-  __device__ static float at(const unsigned* tile, int r, int j, int shift) {
-    if constexpr (kBF16)
-      return __bfloat162float(reinterpret_cast<const bf16*>(tile + r * kLW)[j + shift]);
-    else
-      return reinterpret_cast<const float*>(tile + r * kLW)[j + shift];
-  }
-};
+constexpr int kTile = x2::kTcTile;  // rows of a block's own tile and of a walked tile
+// blocks the dBias grid aims at for a batch-shared bias (ops/flash_attention.py
+// `_DBIAS_BLOCKS`), by splitting the batch into groups
+constexpr int kDBiasBlocks = 384;
 
 // Shared memory of one block: dQ holds Q and dO (one tile each) and two
 // stages of K | V | the bias tile; dK/dV holds K and V and two stages of Q
-// | dO | the bias tile | lse and delta (fp32).
-size_t bias_words(int bias_kind) {  // of one stage
-  return bias_kind == x2::kOperandBF16 ? BiasTile<x2::kOperandBF16>::kStageWords
-         : bias_kind == x2::kOperandF32 ? BiasTile<x2::kOperandF32>::kStageWords
-                                        : 0;
-}
+// | dO | the bias tile | lse and delta (fp32); dBias two stages of Q | dO |
+// K | V | lse and delta, and one bias tile (staged once a block).
 size_t dq_smem(int D, int bias_kind) {
-  return sizeof(bf16) * (2 + 2 * 2) * kTile * x2::tile_ld(D) + 4 * 2 * bias_words(bias_kind);
+  return sizeof(bf16) * (2 + 2 * 2) * kTile * x2::tile_ld(D) +
+         4 * 2 * x2::bias_tile_words(bias_kind);
 }
 size_t dkv_smem(int D, int bias_kind) {
   return dq_smem(D, bias_kind) + sizeof(float) * 2 * 2 * kTile;
 }
-
-// Fragment coordinates (as in tiny_attention_fwd.cu): lane = 4 g + t holds
-// rows g and g + 8 of a 16-row tile. For a 16 x 16 product tile kept as two
-// 16 x 8 C tiles in c[8], c[4T + 2R + e] is row g + 8R, column 8T + 2t + e,
-// and the A fragment of that tile is a[i] = (c[2i], c[2i + 1]) packed.
-__device__ __forceinline__ void pack_a(unsigned (&a)[4], const float (&c)[8]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) a[i] = x2::pack_bf16(c[2 * i], c[2 * i + 1]);
+size_t dbias_smem(int D, int bias_kind) {
+  return sizeof(bf16) * 2 * 4 * kTile * x2::tile_ld(D) + sizeof(float) * 2 * 2 * kTile +
+         4 * x2::bias_tile_words(bias_kind);
 }
 
-// c[8] (zeroed first) = A (16 rows, KS 16-column fragments) . B^T, B the 16
-// rows of `Bs` from row n0 (B fragments by ldmatrix: B's rows are the n
-// dimension).
-template <int D>
-__device__ __forceinline__ void mma_abt(float (&c)[8], const unsigned (&a)[D / 16][4],
-                                        const bf16* Bs, int n0, int lane) {
-  using L = x2::TileLayout<D>;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) c[i] = 0.f;
-#pragma unroll
-  for (int s = 0; s < D / 16; ++s) {
-    unsigned b[4];
-    x2::ldmatrix_x4(b, Bs + L::off(n0 + (lane & 7) + ((lane >> 4) << 3), 16 * s + (lane & 8)));
-    x2::mma_bf16(c, a[s], b);
-    x2::mma_bf16(c + 4, a[s], b + 2);
-  }
-}
-
-// acc (16 x D) += A (16 x 16, one A fragment) . B, B the 16 rows of `Bs`
-// from row k0 (ldmatrix.trans: B's rows are the k dimension).
-template <int D>
-__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const unsigned (&a)[4],
-                                       const bf16* Bs, int k0, int lane) {
-  using L = x2::TileLayout<D>;
-#pragma unroll
-  for (int dn = 0; dn < D; dn += 16) {
-    unsigned b[4];
-    x2::ldmatrix_x4_trans(b, Bs + L::off(k0 + (lane & 7) + (lane & 8), dn + ((lane >> 4) << 3)));
-    x2::mma_bf16(acc[dn / 8], a, b);
-    x2::mma_bf16(acc[dn / 8 + 1], a, b + 2);
-  }
-}
-
-// A warp's 16 x D accumulator * mul, through its own 16 rows `Os` of a
-// tile (no other warp reads them), to rows row0.. of `dst` (rows D apart)
-// as 16-byte stores; rows at or past `nrows` are not written.
-template <int D>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float mul, bf16* Os,
-                                           bf16* dst, int row0, int nrows, int lane) {
-  using L = x2::TileLayout<D>;
-  const int g = lane >> 2, t = lane & 3;
-  __syncwarp();  // every lane is done reading the rows
-#pragma unroll
-  for (int nt = 0; nt < D / 8; ++nt) {
-    *reinterpret_cast<unsigned*>(Os + L::off(g, 8 * nt) + 2 * t) =
-        x2::pack_bf16(acc[nt][0] * mul, acc[nt][1] * mul);
-    *reinterpret_cast<unsigned*>(Os + L::off(g + 8, 8 * nt) + 2 * t) =
-        x2::pack_bf16(acc[nt][2] * mul, acc[nt][3] * mul);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int i = lane; i < 16 * (D / 8); i += 32) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    if (row0 + r < nrows)
-      *reinterpret_cast<uint4*>(dst + static_cast<long long>(row0 + r) * D + c) =
-          *reinterpret_cast<const uint4*>(Os + L::off(r, c));
-  }
+// Batch groups of the dBias kernel for a batch-shared bias: enough that
+// the grid (tiles x H x groups) has about kDBiasBlocks blocks, at most one
+// group a batch row (ops/flash_attention.py `dbias_groups`).
+int dbias_groups(int B, int tiles, int H) {
+  const int per_group = tiles * H;
+  return std::max(1, std::min(B, (kDBiasBlocks + per_group - 1) / per_group));
 }
 
 // grid (query tiles, H, B); kMask: a key mask or causal masking
@@ -648,7 +558,7 @@ dq_kernel(Args<bf16> a, bf16* __restrict__ dq) {
     x2::stage_rows<D>(Kd, kb + static_cast<long long>(c0) * D, nk, pad, D, tid, kThreads);
     x2::stage_rows<D>(Kd + kTileElems, vb + static_cast<long long>(c0) * D, nk, pad, D, tid,
                       kThreads);
-    BT::stage(Bias + s * BT::kStageWords, a, bbase, q0, nq, c0, tid);
+    BT::stage(Bias + s * BT::kStageWords, a.bias, a.bias_sq, Skv, bbase, q0, nq, c0, tid);
   };
   stage_kv(0, 0);
   x2::cp_async_commit();
@@ -765,7 +675,7 @@ dkv_kernel(Args<bf16> a, bf16* __restrict__ dk, bf16* __restrict__ dv) {
     x2::stage_rows<D>(Qd, qb + static_cast<long long>(q0) * D, nq, pad, D, tid, kThreads);
     x2::stage_rows<D>(Qd + kTileElems, ob + static_cast<long long>(q0) * D, nq, pad, D, tid,
                       kThreads);
-    BT::stage(Bias + s * BT::kStageWords, a, bbase, q0, nq, k0, tid);
+    BT::stage(Bias + s * BT::kStageWords, a.bias, a.bias_sq, Skv, bbase, q0, nq, k0, tid);
     float* Ld = LDs + 2 * s * kTile;
     for (int i = tid; i < kTile; i += kThreads) {  // rows past Sq: zeros
       const bool ok = i < nq;
@@ -870,13 +780,168 @@ dkv_kernel(Args<bf16> a, bf16* __restrict__ dk, bf16* __restrict__ dv) {
   }
 }
 
+// grid (query tiles, key tiles, H * G); block (qt, kt, h + H grp) sums dS
+// of its 64 x 64 tile over the batch rows [grp B / G, (grp + 1) B / G) in
+// fp32 registers and writes it to out (G, H, Sq, Skv). A per-batch bias has
+// G = B (one row a block); a batch-shared bias is staged once a block.
+// kMask: a key mask or causal masking
+template <int D, int kBias, bool kMask>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+dbias_kernel(Args<bf16> a, float* __restrict__ out, int B, int G) {
+  using L = x2::TileLayout<D>;
+  using BT = BiasTile<kBias>;
+  constexpr int KS = D / 16, NG = kTile / 16, kTileElems = kTile * L::kLD;
+  constexpr int kStageElems = 4 * kTileElems;  // Q | dO | K | V
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Tiles = reinterpret_cast<bf16*>(smem_raw);  // stage s at s kStageElems
+  // stage s: lse, delta at 2 s kTile
+  float* LDs = reinterpret_cast<float*>(Tiles + 2 * kStageElems);
+  unsigned* Bias = reinterpret_cast<unsigned*>(LDs + 4 * kTile);
+
+  const int q0 = blockIdx.x * kTile, c0 = blockIdx.y * kTile;
+  const int h = blockIdx.z % a.H, grp = blockIdx.z / a.H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int Sq = a.Sq, Skv = a.Skv;
+  const int nq = min(kTile, Sq - q0), nk = min(kTile, Skv - c0);
+  const int b0 = static_cast<int>(static_cast<long long>(grp) * B / G);
+  const int b1 = static_cast<int>(static_cast<long long>(grp + 1) * B / G);
+  const long long bbase = b0 * a.bias_sb + h * a.bias_sh;
+  BT::stage(Bias, a.bias, a.bias_sq, Skv, bbase, q0, nq, c0, tid);
+  auto stage_b = [&](int b, int s) {
+    const long long bh = static_cast<long long>(b) * a.H + h;
+    bf16* Td = Tiles + s * kStageElems;
+    const int pq = x2::round_up16(nq), pk = x2::round_up16(nk);
+    x2::stage_rows<D>(Td, a.q + (bh * Sq + q0) * D, nq, pq, D, tid, kThreads);
+    x2::stage_rows<D>(Td + kTileElems, a.dout + (bh * Sq + q0) * D, nq, pq, D, tid, kThreads);
+    x2::stage_rows<D>(Td + 2 * kTileElems, a.k + (bh * Skv + c0) * D, nk, pk, D, tid, kThreads);
+    x2::stage_rows<D>(Td + 3 * kTileElems, a.v + (bh * Skv + c0) * D, nk, pk, D, tid, kThreads);
+    float* Ld = LDs + 2 * s * kTile;
+    for (int i = tid; i < kTile; i += kThreads) {  // rows past Sq: zeros
+      const bool ok = i < nq;
+      x2::cp_async4(Ld + i, a.lse + bh * Sq + (ok ? q0 + i : 0), ok ? 4 : 0);
+      x2::cp_async4(Ld + kTile + i, a.delta + bh * Sq + (ok ? q0 + i : 0), ok ? 4 : 0);
+    }
+  };
+  stage_b(b0, 0);
+  x2::cp_async_commit();
+
+  // the lane's two rows: q0 + rr[R], rr = 16 warp + g + 8R; its keys
+  // c0 + 16 gi + 8T + 2t + e
+  const int r0 = 16 * warp;
+  const bool active = r0 < nq;
+  int qr[2], rr[2], shift[2];
+#pragma unroll
+  for (int R = 0; R < 2; ++R) {
+    rr[R] = r0 + g + 8 * R;
+    qr[R] = q0 + rr[R];
+    shift[R] = BT::shift_of(bbase + qr[R] * a.bias_sq);  // + c0, a multiple of 64
+  }
+  const float scale2 = a.scale * kLog2e;
+  float acc[NG][8], bl[NG][8];  // the dS sums; the bias * log2e
+#pragma unroll
+  for (int gi = 0; gi < NG; ++gi)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[gi][i] = bl[gi][i] = 0.f;
+
+  for (int b = b0; b < b1; ++b) {
+    const int s = (b - b0) & 1;
+    x2::cp_async_wait_all();
+    // this row's tiles have landed (and, first, the bias), and every warp
+    // is done with the last row's, whose stage the next row now takes
+    __syncthreads();
+    if (b + 1 < b1) {
+      stage_b(b + 1, s ^ 1);
+      x2::cp_async_commit();
+    }
+    if (!active) continue;
+    if (kBias != 0 && b == b0) {  // the bias tile in the C layout, once a block
+#pragma unroll
+      for (int gi = 0; gi < NG; ++gi)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int R = (i >> 1) & 1, j = 16 * gi + 8 * (i >> 2) + 2 * t + (i & 1);
+          bl[gi][i] = BT::at(Bias, rr[R], j, shift[R]) * kLog2e;
+        }
+    }
+    const bf16* Qs = Tiles + s * kStageElems;
+    const bf16* dOs = Qs + kTileElems;
+    const bf16* Ks = Qs + 2 * kTileElems;
+    const bf16* Vs = Qs + 3 * kTileElems;
+    const float* Ls = LDs + 2 * s * kTile;
+    unsigned qa[KS][4], da[KS][4];  // the warp's Q and dO rows as A fragments
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      x2::ldmatrix_x4(qa[ks], Qs + L::off(r0 + (lane & 15), 16 * ks + ((lane >> 4) << 3)));
+      x2::ldmatrix_x4(da[ks], dOs + L::off(r0 + (lane & 15), 16 * ks + ((lane >> 4) << 3)));
+    }
+    float lse2[2], delta[2];
+    bool live[2];
+#pragma unroll
+    for (int R = 0; R < 2; ++R) {
+      const float lse = Ls[rr[R]];
+      delta[R] = Ls[kTile + rr[R]];
+      live[R] = qr[R] < Sq && lse >= kDeadLse;  // a dead row's dS is 0
+      lse2[R] = lse * kLog2e;
+    }
+    const uint8_t* km =
+        kMask && a.key_mask != nullptr ? a.key_mask + static_cast<long long>(b) * Skv : nullptr;
+#pragma unroll
+    for (int gi = 0; gi < NG; ++gi) {
+      if (c0 + 16 * gi >= Skv) break;
+      float sv[8], dp[8];
+      mma_abt<D>(sv, qa, Ks, 16 * gi, lane);
+      mma_abt<D>(dp, da, Vs, 16 * gi, lane);
+#pragma unroll
+      for (int T = 0; T < 2; ++T)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kc = c0 + 16 * gi + 8 * T + 2 * t + e;
+          const bool kok = kc < Skv && (!kMask || km == nullptr || km[kc] != 0);
+#pragma unroll
+          for (int R = 0; R < 2; ++R) {
+            const int i = 4 * T + 2 * R + e;
+            const bool vis = live[R] && kok && (!kMask || !a.causal || kc <= qr[R] + Skv - Sq);
+            const float p = ex2(fmaf(sv[i], scale2, bl[gi][i]) - lse2[R]);
+            acc[gi][i] += vis ? p * (dp[i] - delta[R]) : 0.f;
+          }
+        }
+    }
+  }
+  if (active) {
+    float* o = out + (static_cast<long long>(grp) * a.H + h) * Sq * Skv;
+#pragma unroll
+    for (int gi = 0; gi < NG; ++gi)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int R = (i >> 1) & 1, kc = c0 + 16 * gi + 8 * (i >> 2) + 2 * t + (i & 1);
+        if (qr[R] < Sq && kc < Skv) o[static_cast<long long>(qr[R]) * Skv + kc] = acc[gi][i];
+      }
+  }
+}
+
+// out[i] = sum over g = 0 .. G-1 in that order of part[g n + i]: the dBias
+// groups' partial sums, added in a fixed order, so dBias is the same bit
+// for bit from run to run (no atomics)
+__global__ void __launch_bounds__(256) dbias_sum_kernel(const float* __restrict__ part,
+                                                        float* __restrict__ out, long long n,
+                                                        int G) {
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n; i += 256LL * gridDim.x) {
+    float s = part[i];
+    for (int g = 1; g < G; ++g) s += part[g * n + i];
+    out[i] = s;
+  }
+}
+
 template <int D, int kBias, bool kMask>
 cudaError_t launch_kind(int which, const Args<bf16>& a, int B, void* out0, void* out1,
-                        cudaStream_t stream) {
-  const bool dq = which == kDQ;
-  const size_t smem = dq ? dq_smem(D, kBias) : dkv_smem(D, kBias);
-  const void* kernel = dq ? reinterpret_cast<const void*>(dq_kernel<D, kBias, kMask>)
-                          : reinterpret_cast<const void*>(dkv_kernel<D, kBias, kMask>);
+                        int groups, cudaStream_t stream) {
+  const size_t smem = which == kDQ    ? dq_smem(D, kBias)
+                      : which == kDKV ? dkv_smem(D, kBias)
+                                      : dbias_smem(D, kBias);
+  const void* kernel =
+      which == kDQ    ? reinterpret_cast<const void*>(dq_kernel<D, kBias, kMask>)
+      : which == kDKV ? reinterpret_cast<const void*>(dkv_kernel<D, kBias, kMask>)
+                      : reinterpret_cast<const void*>(dbias_kernel<D, kBias, kMask>);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -884,26 +949,41 @@ cudaError_t launch_kind(int which, const Args<bf16>& a, int B, void* out0, void*
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  const int n = dq ? a.Sq : a.Skv;
-  const dim3 grid((n + kTile - 1) / kTile, a.H, B);
-  if (dq)
-    dq_kernel<D, kBias, kMask><<<grid, kThreads, smem, stream>>>(a, static_cast<bf16*>(out0));
-  else
-    dkv_kernel<D, kBias, kMask><<<grid, kThreads, smem, stream>>>(
+  const int nq = (a.Sq + kTile - 1) / kTile, nk = (a.Skv + kTile - 1) / kTile;
+  if (which == kDQ) {
+    dq_kernel<D, kBias, kMask><<<dim3(nq, a.H, B), kThreads, smem, stream>>>(
+        a, static_cast<bf16*>(out0));
+  } else if (which == kDKV) {
+    dkv_kernel<D, kBias, kMask><<<dim3(nk, a.H, B), kThreads, smem, stream>>>(
         a, static_cast<bf16*>(out0), static_cast<bf16*>(out1));
+  } else {
+    // out1: the groups' partial sums (groups, H, Sq, Skv), summed into out0;
+    // null when each group is its own output row (one group, or a per-batch bias)
+    float* dst = static_cast<float*>(out1 != nullptr ? out1 : out0);
+    dbias_kernel<D, kBias, kMask><<<dim3(nq, nk, a.H * groups), kThreads, smem, stream>>>(
+        a, dst, B, groups);
+    if (out1 != nullptr) {
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      const long long n = static_cast<long long>(a.H) * a.Sq * a.Skv;
+      const int blocks = static_cast<int>(std::min<long long>((n + 255) / 256, 132 * 8));
+      dbias_sum_kernel<<<blocks, 256, 0, stream>>>(dst, static_cast<float*>(out0), n, groups);
+    }
+  }
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch(int which, const Args<bf16>& a, int B, void* out0, void* out1,
+cudaError_t launch(int which, const Args<bf16>& a, int B, void* out0, void* out1, int groups,
                    cudaStream_t stream) {
   // the bias tile's 16-byte copies need a 16-byte aligned bias
   if (a.bias != nullptr && reinterpret_cast<uintptr_t>(a.bias) % 16 != 0)
     return cudaErrorInvalidValue;
   const int kind = a.bias == nullptr ? 0 : a.bias_kind;
   const bool masked = a.key_mask != nullptr || a.causal;
-#define X2_TC_LAUNCH(K, M) \
-  if (kind == (K) && masked == (M)) return launch_kind<D, K, M>(which, a, B, out0, out1, stream);
+#define X2_TC_LAUNCH(K, M)                                                               \
+  if (kind == (K) && masked == (M))                                                      \
+    return launch_kind<D, K, M>(which, a, B, out0, out1, groups, stream);
   X2_TC_LAUNCH(0, false)
   X2_TC_LAUNCH(0, true)
   X2_TC_LAUNCH(x2::kOperandF32, false)
@@ -956,15 +1036,16 @@ template <typename T>
 cudaError_t dispatch(int which, int route, const void* q, const void* k, const void* v,
                      const void* bias, int bias_kind, long long sb, long long sh, long long sq,
                      const void* key_mask, const void* dout, const void* lse,
-                     const void* delta, void* out0, void* out1, int bias_b, int B, int H,
-                     int Sq, int Skv, int D, int causal, float scale, cudaStream_t stream) {
+                     const void* delta, void* out0, void* out1, int groups, int bias_b, int B,
+                     int H, int Sq, int Skv, int D, int causal, float scale,
+                     cudaStream_t stream) {
   Args<T> a{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
             static_cast<const T*>(dout), static_cast<const float*>(lse),
             static_cast<const float*>(delta), bias, bias_kind, sb, sh, sq,
             static_cast<const uint8_t*>(key_mask), H, Sq, Skv, causal, scale};
-  if (route == x2::kRouteTensorCore) {  // x2::flash_bwd_route: bf16, D = 64
+  if (route == x2::kRouteTensorCore) {  // x2::flash_route: bf16, D = 64
     if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-      if (D == 64) return tc::launch<64>(which, a, B, out0, out1, stream);
+      if (D == 64) return tc::launch<64>(which, a, B, out0, out1, groups, stream);
     }
     return cudaErrorInvalidValue;
   }
@@ -977,38 +1058,59 @@ cudaError_t dispatch(int which, int route, const void* q, const void* k, const v
   }
 }
 
+// The batch groups the dBias kernel of `route` writes for a bias of batch
+// dim bias_b: B for a per-batch bias (a group is its batch row's dBias),
+// on the tensor cores tc::dbias_groups for a batch-shared one (partial
+// sums, then added in order), else 1 (the CUDA-core kernel sums the whole
+// batch in a block). ops/flash_attention.py `_dbias_launch_groups` keeps
+// the same rule.
+int dbias_groups_of(int route, int B, int H, int Sq, int Skv, int bias_b) {
+  if (bias_b == B) return B;
+  if (route != x2::kRouteTensorCore) return 1;
+  const int tiles = ((Sq + tc::kTile - 1) / tc::kTile) * ((Skv + tc::kTile - 1) / tc::kTile);
+  return tc::dbias_groups(B, tiles, H);
+}
+
 int entry(int which, const void* q, const void* k, const void* v, const void* bias,
           int bias_kind, long long sb, long long sh, long long sq, const void* key_mask,
           const void* dout, const void* lse, const void* delta, void* out0, void* out1,
-          int bias_b, int B, int H, int Sq, int Skv, int D, int dtype, int causal, float scale,
-          void* stream) {
+          int groups, int bias_b, int B, int H, int Sq, int Skv, int D, int dtype, int causal,
+          float scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0) return cudaErrorInvalidValue;
   if (bias != nullptr && bias_kind != x2::kOperandF32 && bias_kind != x2::kOperandBF16)
     return cudaErrorInvalidValue;
-  if (which == kDBias && bias == nullptr) return cudaErrorInvalidValue;
+  const int route = x2::flash_route(dtype, D);
+  if (which == kDBias) {
+    // the caller sized the partial sums (out1) by the same group rule
+    if (bias == nullptr || (bias_b != 1 && bias_b != B) ||
+        groups != dbias_groups_of(route, B, H, Sq, Skv, bias_b) ||
+        (out1 != nullptr) != (groups > bias_b))
+      return cudaErrorInvalidValue;
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int route = which == kDBias ? x2::kRouteCudaCore : x2::flash_bwd_route(dtype, D);
   if (dtype == x2::kF32)
     return static_cast<int>(dispatch<float>(which, route, q, k, v, bias, bias_kind, sb, sh, sq,
-                                            key_mask, dout, lse, delta, out0, out1, bias_b, B,
-                                            H, Sq, Skv, D, causal, scale, st));
+                                            key_mask, dout, lse, delta, out0, out1, groups,
+                                            bias_b, B, H, Sq, Skv, D, causal, scale, st));
   if (dtype == x2::kBF16)
     return static_cast<int>(dispatch<__nv_bfloat16>(which, route, q, k, v, bias, bias_kind, sb,
                                                     sh, sq, key_mask, dout, lse, delta, out0,
-                                                    out1, bias_b, B, H, Sq, Skv, D, causal,
-                                                    scale, st));
+                                                    out1, groups, bias_b, B, H, Sq, Skv, D,
+                                                    causal, scale, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Shared memory (bytes) of one block of kernel `which` (kDQ, kDKV, kDBias)
 // at head dim D on `route` with a bias of `bias_kind` (x2::OperandKind; the
-// CUDA-core kernels do not stage the bias), for the CUDA-core kernels' head dims (64, 128,
-// 192, 256); -1 for another D. ops/flash_attention.py `bwd_smem_bytes`
-// keeps the same formulas.
+// CUDA-core kernels do not stage the bias), for the head dims each route
+// runs (tensor cores 64; CUDA cores 64, 128, 192, 256); -1 for another D.
+// ops/flash_attention.py `bwd_smem_bytes` keeps the same formulas.
 long long smem_bytes(int which, int D, int route, int bias_kind) {
-  if (route == x2::kRouteTensorCore && which != kDBias)
-    return static_cast<long long>(which == kDQ ? tc::dq_smem(D, bias_kind)
-                                               : tc::dkv_smem(D, bias_kind));
+  if (route == x2::kRouteTensorCore && D != 64) return -1;
+  if (route == x2::kRouteTensorCore)
+    return static_cast<long long>(which == kDQ    ? tc::dq_smem(D, bias_kind)
+                                  : which == kDKV ? tc::dkv_smem(D, bias_kind)
+                                                  : tc::dbias_smem(D, bias_kind));
   auto pick = [&](auto tile) -> long long {
     constexpr int DD = decltype(tile)::value;
     return static_cast<long long>(which == kDQ ? dq_smem<DD>()
@@ -1025,11 +1127,11 @@ long long smem_bytes(int which, int D, int route, int bias_kind) {
 
 }  // namespace
 
-// The route (x2::TinyRoute codes) that dQ and dK/dV take for q/k/v of
-// `dtype` at head dim D; ops/flash_attention.py `flash_bwd_route` keeps the
-// same rule (dBias always runs on the CUDA cores).
+// The route (x2::TinyRoute codes) that dQ, dK/dV and dBias take for q/k/v
+// of `dtype` at head dim D; ops/flash_attention.py `flash_route` keeps the
+// same rule.
 extern "C" int x2_flash_attention_bwd_route(int dtype, int D) {
-  return x2::flash_bwd_route(dtype, D);
+  return x2::flash_route(dtype, D);
 }
 
 // Shared memory (bytes) of one block of kernel `which` (0 dQ, 1 dK/dV, 2
@@ -1039,14 +1141,21 @@ extern "C" long long x2_flash_attention_bwd_smem_bytes(int which, int D, int rou
   return smem_bytes(which, D, route, bias_kind);
 }
 
+// The batch groups of the tensor-core dBias kernel for a batch-shared bias
+// at B batch rows, `tiles` (64-row query tiles x 64-key tiles) and H heads.
+extern "C" int x2_flash_attention_bwd_dbias_groups(int B, int tiles, int H) {
+  return tc::dbias_groups(B, tiles, H);
+}
+
 // q, dout, dq: (B, H, Sq, D); k, v, dk, dv: (B, H, Skv, D); all contiguous,
 // dtype `dtype` (x2::DType). lse, delta: (B, H, Sq) f32. bias: null or
 // (.., Sq, Skv) with unit stride on the last dim and element strides
 // sb / sh / sq (0 where the dim broadcasts), f32 or bf16 per bias_kind; on
 // the tensor-core route q, k, v, dout and the bias 16-byte aligned.
 // key_mask: null or (B, Skv) uint8, 0 = masked. dbias: (bias_b, H, Sq, Skv)
-// f32, bias_b = 1 (summed over the batch) or B. Each entry returns
-// cudaGetLastError() after its launch.
+// f32, bias_b = 1 (summed over the batch) or B; partial: null, or scratch
+// of (groups, H, Sq, Skv) f32 when groups (the rule of `dbias_groups_of`)
+// exceeds bias_b. Each entry returns cudaGetLastError() after its launch.
 extern "C" int x2_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                          const void* bias, int bias_kind, long long sb,
                                          long long sh, long long sq, const void* key_mask,
@@ -1054,7 +1163,7 @@ extern "C" int x2_flash_attention_bwd_dq(const void* q, const void* k, const voi
                                          void* dq, int B, int H, int Sq, int Skv, int D,
                                          int dtype, int causal, float scale, void* stream) {
   return entry(kDQ, q, k, v, bias, bias_kind, sb, sh, sq, key_mask, dout, lse, delta, dq,
-               nullptr, 1, B, H, Sq, Skv, D, dtype, causal, scale, stream);
+               nullptr, 1, 1, B, H, Sq, Skv, D, dtype, causal, scale, stream);
 }
 
 extern "C" int x2_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -1065,16 +1174,17 @@ extern "C" int x2_flash_attention_bwd_dkv(const void* q, const void* k, const vo
                                           int D, int dtype, int causal, float scale,
                                           void* stream) {
   return entry(kDKV, q, k, v, bias, bias_kind, sb, sh, sq, key_mask, dout, lse, delta, dk, dv,
-               1, B, H, Sq, Skv, D, dtype, causal, scale, stream);
+               1, 1, B, H, Sq, Skv, D, dtype, causal, scale, stream);
 }
 
 extern "C" int x2_flash_attention_bwd_dbias(const void* q, const void* k, const void* v,
                                             const void* bias, int bias_kind, long long sb,
                                             long long sh, long long sq, const void* key_mask,
                                             const void* dout, const void* lse,
-                                            const void* delta, void* dbias, int bias_b, int B,
-                                            int H, int Sq, int Skv, int D, int dtype,
-                                            int causal, float scale, void* stream) {
+                                            const void* delta, void* dbias, void* partial,
+                                            int groups, int bias_b, int B, int H, int Sq,
+                                            int Skv, int D, int dtype, int causal, float scale,
+                                            void* stream) {
   return entry(kDBias, q, k, v, bias, bias_kind, sb, sh, sq, key_mask, dout, lse, delta,
-               dbias, nullptr, bias_b, B, H, Sq, Skv, D, dtype, causal, scale, stream);
+               dbias, partial, groups, bias_b, B, H, Sq, Skv, D, dtype, causal, scale, stream);
 }

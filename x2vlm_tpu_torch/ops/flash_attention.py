@@ -9,7 +9,7 @@ Counterpart of x2vlm_tpu/ops/flash_attention.py. The functions:
   (``csrc/flash_attention_fwd.cu``) or raises; for CPU tensors it runs
   :func:`flash_attention_reference`. It returns ``(out, lse)``; ``lse``
   (B, H, Sq, 1) fp32 is what the backward reads. ``flash_attention_fwd.
-  launches`` counts kernel launches.
+  launches`` counts kernel launches, ``.launches_by_route`` by route.
 - :func:`flash_attention_bwd` is the backward kernels' wrapper (dQ, dK/dV
   and dBias, ``csrc/flash_attention_bwd.cu``); for CPU tensors it runs
   :func:`flash_attention_bwd_reference`. ``flash_attention_bwd.launches``
@@ -23,13 +23,16 @@ Counterpart of x2vlm_tpu/ops/flash_attention.py. The functions:
   autograd Function that saves (q, k, v, bias, key_mask, out, lse), as the
   JAX ``_flash_fwd`` does; otherwise it calls the forward alone.
 
-dQ and dK/dV have two hand-written kernels each, and :func:`flash_bwd_route`
-picks one by dtype and head dim (the C side keeps the same rule):
-``"tensor_core"`` for bf16 at D = 64 (the main path: mma.sync on bf16 tiles
-staged by cp.async, P and dS in registers) and ``"cuda_core"`` for fp32 at
-any D and bf16 at the other head dims (fp32 arithmetic). The choice is a
-dispatch, not a fallback: a failed build or launch raises on either route.
-dBias has one kernel, on the CUDA cores.
+The forward, dQ, dK/dV and dBias have two hand-written kernels each, and
+:func:`flash_route` picks one by dtype and head dim (the C side keeps the
+same rule): ``"tensor_core"`` for bf16 at D = 64 (the main path: mma.sync
+on bf16 tiles staged by cp.async, P and dS in registers) and
+``"cuda_core"`` for fp32 at any D and bf16 at the other head dims (fp32
+arithmetic). The choice is a dispatch, not a fallback: a failed build or
+launch raises on either route. On the tensor cores dBias sums a
+batch-shared bias's gradient over :func:`dbias_groups` groups of batch rows
+in parallel, then adds the groups' partial sums in a fixed order, so it is
+the same bit for bit from run to run.
 
 A masked or causally hidden logit is a constant, so its dS is 0, also on a
 row whose every key is hidden (there the forward averaged V, so P = 1/Skv).
@@ -48,9 +51,10 @@ import torch
 from x2vlm_tpu_torch.ops import _build
 from x2vlm_tpu_torch.ops.attention import NEG_INF, make_attention_mask
 
-__all__ = ["BWD_KERNELS", "bwd_smem_bytes", "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_reference", "flash_attention_fwd", "flash_attention_reference",
-           "flash_bwd_route", "flash_supported", "typed_lib"]
+__all__ = ["BWD_KERNELS", "bwd_smem_bytes", "dbias_groups", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_reference", "flash_attention_fwd",
+           "flash_attention_reference", "flash_route", "flash_supported", "fwd_smem_bytes",
+           "typed_lib"]
 
 _DTYPES = _build.DTYPE_CODES
 _HEAD_DIMS = (64, 128, 192, 256)
@@ -58,14 +62,40 @@ _DEAD_LSE = -1e29  # lse of a row with no visible key (every logit is -1e30)
 CUDA_CORE, TENSOR_CORE = _build.CUDA_CORE, _build.TENSOR_CORE
 BWD_KERNELS = {"dq": 0, "dkv": 1, "dbias": 2}   # `Which` in csrc/flash_attention_bwd.cu
 _TC_TILE = 64   # rows of a tensor-core block's tile and of a walked tile
+_DBIAS_BLOCKS = 384   # blocks the tensor-core dBias grid aims at (`kDBiasBlocks`)
 
 
-def flash_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel a dQ or dK/dV launch takes: the tensor cores for bf16 at
-    head dim 64, the CUDA cores otherwise (dBias always). The same rule as
-    ``x2::flash_bwd_route`` in csrc/common.cuh (chip_smoke.py holds the two
+def flash_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a forward, dQ, dK/dV or dBias launch takes: the tensor
+    cores for bf16 at head dim 64, the CUDA cores otherwise. The same rule
+    as ``x2::flash_route`` in csrc/common.cuh (chip_smoke.py holds the two
     equal)."""
     return TENSOR_CORE if dtype == torch.bfloat16 and head_dim == 64 else CUDA_CORE
+
+
+def _tc_tile_words(head_dim: int, bias_kind: int) -> Tuple[int, int]:
+    """(elements of a row of a bf16 tile, words of one staged 64 x 64 bias
+    tile (rows of 36 words for bf16, 68 for fp32)) on the tensor-core route,
+    which runs only at head dim 64 (there is no tensor-core kernel of
+    another head dim to size)."""
+    if head_dim != 64:
+        raise ValueError(f"the flash kernels' tensor-core route runs at head dim 64, "
+                         f"not {head_dim}")
+    return head_dim, {0: 0, 1: 68, 2: 36}[bias_kind] * _TC_TILE
+
+
+def fwd_smem_bytes(head_dim: int, route: str = CUDA_CORE, bias_kind: int = 0) -> int:
+    """Shared memory one forward block takes with a bias of ``bias_kind``
+    (``_build.OPERAND_KINDS``; 0 = none). CUDA cores: 64-row fp32 tiles of
+    Q and K (row stride D+1), V, and the probabilities (row stride 65); the
+    bias is read from device memory. Tensor cores (head dim 64 only): the
+    bf16 Q tile and two stages of K, V and the 64 x 64 bias tile. The
+    formulas of ``fwd_smem`` in csrc/flash_attention_fwd.cu (chip_smoke.py
+    holds them equal)."""
+    if route == TENSOR_CORE:
+        ld, bias_words = _tc_tile_words(head_dim, bias_kind)
+        return 2 * 5 * _TC_TILE * ld + 4 * 2 * bias_words
+    return 4 * (2 * 64 * (head_dim + 1) + 64 * head_dim + 64 * 65)
 
 
 def bwd_smem_bytes(kernel: str, head_dim: int, route: str = CUDA_CORE,
@@ -74,15 +104,18 @@ def bwd_smem_bytes(kernel: str, head_dim: int, route: str = CUDA_CORE,
     takes with a bias of ``bias_kind`` (``_build.OPERAND_KINDS``; 0 = none).
     CUDA cores: tiles of BQ query rows and BKV keys (64, or 32 above D =
     128) of Q, dO, K and V in fp32 (row stride D+1), plus dS (dQ) or P^T and
-    dS^T (dK/dV); the bias is read from device memory. Tensor cores: six
-    64-row bf16 tiles (the block's own two and two stages of the walked
-    two), two stages of a 64 x 64 bias tile (rows of 36 words for bf16, 68
-    for fp32) and, for dK/dV, of the walked queries' fp32 lse and delta. The
+    dS^T (dK/dV); the bias is read from device memory. Tensor cores (head
+    dim 64 only), dQ and dK/dV: six 64-row bf16 tiles (the block's own two
+    and two stages of the walked two), two stages of a 64 x 64 bias tile
+    and, for dK/dV, of the walked queries' fp32 lse and delta; dBias: two
+    stages of its four bf16 tiles (Q, dO, K, V of one batch row) and of
+    their fp32 lse and delta, and one bias tile (staged once a block). The
     formulas of ``smem_bytes`` in csrc/flash_attention_bwd.cu (chip_smoke.py
     holds them equal)."""
-    if route == TENSOR_CORE and kernel != "dbias":
-        ld = head_dim if head_dim % 64 == 0 else head_dim + 8   # x2::tile_ld
-        bias_words = {0: 0, 1: 68, 2: 36}[bias_kind] * _TC_TILE
+    if route == TENSOR_CORE:
+        ld, bias_words = _tc_tile_words(head_dim, bias_kind)
+        if kernel == "dbias":
+            return 2 * 2 * 4 * _TC_TILE * ld + 4 * 2 * 2 * _TC_TILE + 4 * bias_words
         return (2 * 6 * _TC_TILE * ld + 4 * 2 * bias_words
                 + (4 * 2 * 2 * _TC_TILE if kernel == "dkv" else 0))
     bq = 64 if head_dim <= 128 else 32
@@ -90,19 +123,46 @@ def bwd_smem_bytes(kernel: str, head_dim: int, route: str = CUDA_CORE,
     return 4 * (staged + {"dq": 1, "dkv": 2, "dbias": 0}[kernel] * bq * (bq + 1))
 
 
+def dbias_groups(batch: int, tiles: int, heads: int) -> int:
+    """Groups of batch rows the tensor-core dBias kernel sums a
+    batch-shared bias's gradient over, in parallel: enough that its grid
+    (``tiles`` = 64-row query tiles x 64-key tiles, times ``heads``, times
+    the groups) has about ``_DBIAS_BLOCKS`` blocks, at most one group a
+    batch row. The same rule as ``tc::dbias_groups`` in
+    csrc/flash_attention_bwd.cu (chip_smoke.py holds the two equal)."""
+    per_group = tiles * heads
+    return max(1, min(batch, -(-_DBIAS_BLOCKS // per_group)))
+
+
+def _dbias_launch_groups(route: str, B: int, H: int, Sq: int, Skv: int, bias_b: int) -> int:
+    """The groups a dBias launch writes (``dbias_groups_of`` in
+    csrc/flash_attention_bwd.cu): B for a per-batch bias, one group a batch
+    row; :func:`dbias_groups` on the tensor cores for a batch-shared bias;
+    else 1 (the CUDA-core kernel sums the batch in one block)."""
+    if bias_b == B:
+        return B
+    if route != TENSOR_CORE:
+        return 1
+    tiles = -(-Sq // _TC_TILE) * -(-Skv // _TC_TILE)
+    return dbias_groups(B, tiles, H)
+
+
 # the C entry points' signatures, set once per loaded library by typed_lib
 _OPERANDS = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 3
 _SIGNATURES = {
     "x2_flash_attention_fwd": (_OPERANDS + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                                + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "x2_flash_attention_fwd_route": ([ctypes.c_int] * 2, ctypes.c_int),
+    "x2_flash_attention_fwd_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_longlong),
     "x2_flash_attention_bwd_dq": (_OPERANDS + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                                   + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
     "x2_flash_attention_bwd_dkv": (_OPERANDS + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                                    + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
-    "x2_flash_attention_bwd_dbias": (_OPERANDS + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+    "x2_flash_attention_bwd_dbias": (_OPERANDS + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                                      + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
     "x2_flash_attention_bwd_route": ([ctypes.c_int] * 2, ctypes.c_int),
     "x2_flash_attention_bwd_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_longlong),
+    "x2_flash_attention_bwd_dbias_groups": ([ctypes.c_int] * 3, ctypes.c_int),
 }
 
 
@@ -214,10 +274,12 @@ def flash_attention_fwd(
             float(scale), stream)
     _build.check(lib, err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_route[flash_route(q.dtype, D)] += 1
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_route = collections.Counter()
 
 
 def flash_attention_bwd_reference(
@@ -275,7 +337,7 @@ def _bwd_launchers(q, k, v, bias, key_mask, out, lse, dout, causal, scale):
                          f"{tuple(out.shape)}, lse {tuple(lse.shape)} do not match "
                          f"q {tuple(q.shape)}")
     lib = typed_lib(_build.load("flash_attention_bwd"))
-    route = flash_bwd_route(q.dtype, D)
+    route = flash_route(q.dtype, D)
     q, k, v = (_build.aligned(t) for t in (q, k, v))
     dout = _build.aligned(dout.to(q.dtype))
     lse = lse.float().contiguous()
@@ -293,8 +355,7 @@ def _bwd_launchers(q, k, v, bias, key_mask, out, lse, dout, causal, scale):
             err = fn(*common, *args, *tail, stream)
         _build.check(lib, err, f"flash_attention_bwd {name}")
         flash_attention_bwd.launches[name] += 1
-        flash_attention_bwd.launches_by_route[
-            (name, CUDA_CORE if name == "dbias" else route)] += 1
+        flash_attention_bwd.launches_by_route[(name, route)] += 1
 
     def dq():
         dq_ = torch.empty_like(q)
@@ -307,9 +368,14 @@ def _bwd_launchers(q, k, v, bias, key_mask, out, lse, dout, causal, scale):
         return dk_, dv_
 
     def dbias():
-        db = torch.empty((bias.shape[0], H, Sq, Skv), dtype=torch.float32,
-                         device=q.device)
-        call("dbias", db.data_ptr(), bias.shape[0], B)
+        bias_b = bias.shape[0]
+        db = torch.empty((bias_b, H, Sq, Skv), dtype=torch.float32, device=q.device)
+        groups = _dbias_launch_groups(route, B, H, Sq, Skv, bias_b)
+        # the groups' partial sums, added in order by the kernel's second pass
+        partial = torch.empty((groups, H, Sq, Skv), dtype=torch.float32,
+                              device=q.device) if groups > bias_b else None
+        call("dbias", db.data_ptr(), None if partial is None else partial.data_ptr(),
+             groups, bias_b, B)
         return db
 
     launchers = {"dq": dq, "dkv": dkv}
