@@ -38,11 +38,14 @@ Phases (any failure exits non-zero and prints no result line):
 4. K7, the int8 matmul (its quantize and GEMM kernels), at every shape of
    the int8 serving path and over its contract (M off every tile, 3-D
    input, no bias, each activation, fp32 in and out, zero rows, an
-   outlier, odd N, K off the 64-byte tile): (xq, sx) and, without an
-   activation, the output must equal the plain version bit for bit; with
-   one, within 1e-6 x max|out| in fp32 and one bf16 ulp (2^-7 x max|out|)
-   in bf16. Timed beside its plain version, ``torch._int_mm`` on the same
-   int8 operands and the bf16 ``F.linear`` of the float path;
+   outlier, odd N, K off the 128-byte K tile, K = 16, M and N on either
+   side of the 128 x 128 tile, a tile count that is no multiple of the
+   SM count): (xq, sx) and, without an activation, the output must equal
+   the plain version bit for bit; with one, within 1e-6 x max|out| in fp32
+   and one bf16 ulp (2^-7 x max|out|) in bf16. The GEMM's C plan and
+   shared memory must equal the Python mirror (``GEMM_PLAN``,
+   ``gemm_smem_bytes``). Timed beside its plain version, ``torch._int_mm``
+   on the same int8 operands and the bf16 ``F.linear`` of the float path;
 5. the int8 serving path: X2VLM-base with ``quant_int8`` and the tanh GELU
    on both towers (``bench.py``'s ``X2VLM_BENCH=int8`` variant), loaded
    from phase 3's state dict, serves the same requests; launches checked
@@ -68,7 +71,8 @@ kernels (with their launches on the three main paths), and as its last line
 torch.profiler tables of one round of requests, one int8 round and one
 train step to ``DIR/chip_smoke_profile.txt``,
 ``DIR/chip_smoke_int8_profile.txt`` and ``DIR/chip_smoke_train_profile.txt``,
-each with a last line of the attention kernels' device time and launches.
+each with a last line of the port kernels' (attention and K7) device time
+and launches.
 """
 
 from __future__ import annotations
@@ -96,7 +100,8 @@ from x2vlm_tpu_torch.ops.flash_attention import (
     fwd_smem_bytes as flash_fwd_smem_bytes, typed_lib as flash_typed_lib,
 )
 from x2vlm_tpu_torch.ops.int8_matmul import (
-    int8_matmul, int8_matmul_reference, int8_scale, quantize_act, quantize_act_reference,
+    GEMM_DESIGN, GEMM_PLAN, gemm_smem_bytes, int8_matmul, int8_matmul_reference, int8_scale,
+    quantize_act, quantize_act_reference, typed_lib as int8_typed_lib,
 )
 from x2vlm_tpu_torch.ops.quant import quantize_weight
 from x2vlm_tpu_torch.ops.tiny_attention import (
@@ -124,6 +129,9 @@ INT8_SHAPES = (("vision qkv", BATCH * N_IMG, 768, 2304, None),
                ("text fc2", BATCH * TEXT_LEN, 3072, 768, None),
                ("fusion cross k/v", BATCH * 200, 768, 768, None))
 INT8_REPLACES = "x2vlm_tpu/ops/int8_matmul.py:63"
+# the quantize kernel's design, named in its entries of the kernels line (the
+# GEMM's is GEMM_DESIGN)
+INT8_QUANT_DESIGN = "row_in_registers"
 TRAIN_BATCH, N_MASKED = 32, 12     # the pretraining step (bench.py:104-121)
 TINY_REPLACES = {"tiny_attention_fwd": "x2vlm_tpu/ops/tiny_attention.py:88",
                  "tiny_attention_bwd": "x2vlm_tpu/ops/tiny_attention.py:135"}
@@ -826,10 +834,26 @@ def _int_mm_ms(xq, wq):
         return None
 
 
+def check_int8_plan() -> None:
+    """The GEMM's tile plan and shared memory, fixed in C, are the Python
+    mirror's; the ptxas lines of both K7 kernels are logged."""
+    lib = int8_typed_lib(_build.load("int8_matmul"))
+    c_plan = {k: lib.x2_int8_matmul_plan(i) for i, k in enumerate(GEMM_PLAN)}
+    c_smem = lib.x2_int8_matmul_smem_bytes()
+    log(f"int8 GEMM plan ({GEMM_DESIGN}): C {json.dumps(c_plan)}, {c_smem} B of shared memory "
+        f"a block; python {json.dumps(GEMM_PLAN)}, {gemm_smem_bytes()} B")
+    if c_plan != GEMM_PLAN or c_smem != gemm_smem_bytes():
+        fail("int8 GEMM plan / shared memory: the C numbers differ from the Python mirror")
+    log("ptxas int8 kernels:\n" + "\n".join(
+        line for line in _build.ptxas_report("int8_matmul").splitlines()
+        if "int8" in line or "quantize" in line or "Used" in line or "spill" in line))
+
+
 def check_int8(gen, dev):
     """K7 at every shape of the int8 serving path, bf16 in (checked and
     timed), then over the contract at small shapes. Returns the entries of
     the GEMM kernel by (M, K, N) and of the quantize kernel by (M, K)."""
+    check_int8_plan()
     gemm_entries, quant_entries = [], {}
     for label, M, K, N, act in INT8_SHAPES:
         x, w, wq, sw, bias = int8_inputs(gen, dev, (M,), K, N)
@@ -857,7 +881,7 @@ def check_int8(gen, dev):
             f"bound {b_ms:.4f} ms ({b_by})")
         gemm_entries.append(dict(
             name="int8_matmul", shape=f"{label} M{M} K{K} N{N} act={act} bf16 out",
-            route="cuda", source="x2vlm_tpu_torch/csrc/int8_matmul.cu",
+            route="cuda", int8_route=GEMM_DESIGN, source="x2vlm_tpu_torch/csrc/int8_matmul.cu",
             replaces=INT8_REPLACES, key=(M, K, N), max_abs_err=max(errs), ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             library="torch._int_mm (int32 product only)", bf16_linear_ms=lin_ms))
@@ -870,6 +894,7 @@ def check_int8(gen, dev):
                 f"bound {qb_ms:.4f} ms ({qb_by})")
             quant_entries[(M, K)] = dict(
                 name="int8_quantize", shape=f"M{M} K{K} bf16", route="cuda",
+                int8_route=INT8_QUANT_DESIGN,
                 source="x2vlm_tpu_torch/csrc/int8_matmul.cu", replaces=INT8_REPLACES,
                 key=(M, K), max_abs_err=0.0 if q_ok else float("nan"), ms=q_ms,
                 plain_ms=qp_ms, bound_ms=qb_ms, bound_by=qb_by, library_ms=None)
@@ -886,6 +911,19 @@ def check_int8(gen, dev):
         "zero rows and an outlier": ((64,), 768, 768, None, True, bf, bf),
         "N77 K784 gelu fp32 out": ((33,), 784, 77, "gelu", True, bf, f32),
         "M1 N130 gelu_fast fp32 in": ((1,), 64, 130, "gelu_fast", True, f32, bf),
+        # the 128 x 128 x 128-byte tiles' edges: K = 16 (one K tile, 16 bytes
+        # of it read), K one tile plus 16 bytes and six tiles plus 16, M and N
+        # one short of and one past a tile, a row of out off 16 bytes (N odd)
+        "K16": ((100,), 16, 96, None, True, bf, bf),
+        "M127 N129 K144": ((127,), 144, 129, None, True, bf, bf),
+        "M129 N127 K912 fp32 out": ((129,), 912, 127, None, True, bf, f32),
+        "M255 N257 K784": ((255,), 784, 257, None, False, bf, bf),
+        "M257 N255 K16 fp32 in": ((257,), 16, 255, None, True, f32, bf),
+        "M256 N256 gelu_fast": ((256,), 768, 256, "gelu_fast", True, bf, bf),
+        # 133 x 3 = 399 tiles: 3 waves of 132 blocks and 3 blocks with a fourth tile
+        "399 tiles": ((17000,), 768, 384, None, True, bf, bf),
+        # 2 x 6 = 12 tiles, fewer than the SMs: one tile a block
+        "12 tiles": ((200,), 3072, 768, None, True, bf, bf),
     }.items():
         x, _, wq, sw, bias = int8_inputs(gen, dev, lead, K, N, with_bias, in_dt)
         if name.startswith("zero rows"):
@@ -1028,7 +1066,9 @@ def time_requests(server, requests, outs):
 
 
 # kernel symbols of each wrapper in a profile (tensor-core route first)
-KERNEL_NAMES = {"flash_attention_fwd": ("flash_fwd_kernel",),
+KERNEL_NAMES = {"int8_matmul": ("int8_gemm_kernel",),
+                "int8_quantize": ("quantize_rows_kernel",),
+                "flash_attention_fwd": ("flash_fwd_kernel",),
                 "tiny_attention_fwd": ("tc::fwd_kernel", "tiny_fwd_kernel"),
                 "tiny_attention_bwd": ("tc::bwd_kernel", "tiny_bwd_kernel"),
                 "flash_attention_bwd_dq": ("tc::dq_kernel", "flash_bwd_dq_kernel"),
@@ -1038,8 +1078,9 @@ KERNEL_NAMES = {"flash_attention_fwd": ("flash_fwd_kernel",),
 
 
 def write_profile(args, smi, prof, fname, rows) -> None:
-    """The profiler table and the attention kernels' device time (both
-    routes) to ``args.profile/fname``; both logged."""
+    """The profiler table and the device time of the port's kernels (the
+    attention kernels on both routes, K7's two) to ``args.profile/fname``;
+    both logged."""
     averages = prof.key_averages()
     kernels = {}
     for e in averages:
@@ -1049,7 +1090,7 @@ def write_profile(args, smi, prof, fname, rows) -> None:
                 t["device_ms"] += getattr(e, "self_device_time_total",
                                           getattr(e, "self_cuda_time_total", 0.0)) / 1e3
                 t["launches"] += e.count
-    tiny_line = f"attention kernels in this profile ({fname}): {json.dumps(kernels)}"
+    tiny_line = f"port kernels in this profile ({fname}): {json.dumps(kernels)}"
     table = averages.table(sort_by="cuda_time_total", row_limit=rows)
     os.makedirs(args.profile, exist_ok=True)
     with open(os.path.join(args.profile, fname), "w") as f:

@@ -1,9 +1,9 @@
 """The flash attention kernels' two routes, on the CPU: which kernel a
 forward, dQ, dK/dV or dBias launch takes (``flash_route``), each route's
 shared-memory need against Hopper's per-block limit, the dBias kernel's
-batch groups, the C signatures the wrappers set once per library, and the
-wrappers' refusal to run the plain version for a CUDA tensor when the kernel
-cannot be built. The kernels themselves run only on the card
+batch groups, the C signatures the wrappers set once per library (the
+int8 library's too), and the wrappers' refusal to run the plain version for
+a CUDA tensor when the kernel cannot be built. The kernels themselves run only on the card
 (``chip_smoke.py`` holds the C route rule, the C formulas and the C group
 count equal to these)."""
 
@@ -23,6 +23,7 @@ torch = pytest.importorskip("torch")
 from tests.test_torch_hygiene import _CudaStandIn  # noqa: E402
 from x2vlm_tpu_torch.ops import _build  # noqa: E402
 from x2vlm_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from x2vlm_tpu_torch.ops import int8_matmul as im  # noqa: E402
 from x2vlm_tpu_torch.ops.flash_attention import (  # noqa: E402
     BWD_KERNELS, CUDA_CORE, TENSOR_CORE, bwd_smem_bytes, dbias_groups, flash_route,
     fwd_smem_bytes,
@@ -143,17 +144,23 @@ def _c_signatures(source: str):
     sigs = {}
     for ret, name, params in re.findall(
             r'extern "C" (int|long long|const char\*) (\w+)\(([^)]*)\)', source):
-        types = [_C_TYPES[re.sub(r"\s+\w+$", "", p.strip())] for p in params.split(",")]
+        types = [] if params.strip() in ("", "void") else \
+            [_C_TYPES[re.sub(r"\s+\w+$", "", p.strip())] for p in params.split(",")]
         sigs[name] = (types, _C_TYPES[ret])
     return sigs
 
 
-@pytest.mark.parametrize("name", sorted(fa._SIGNATURES))
+# the ctypes signatures of every kernel library whose wrappers type it once
+_ALL_SIGNATURES = {**fa._SIGNATURES, **im._SIGNATURES}
+
+
+@pytest.mark.parametrize("name", sorted(_ALL_SIGNATURES))
 def test_signatures_match_the_c_entry_points(name):
-    lib = "flash_attention_fwd" if name.startswith("x2_flash_attention_fwd") \
-        else "flash_attention_bwd"
+    lib = ("int8_matmul" if name.startswith("x2_int8_")
+           else "flash_attention_fwd" if name.startswith("x2_flash_attention_fwd")
+           else "flash_attention_bwd")
     c_sigs = _c_signatures((CSRC / f"{lib}.cu").read_text())
-    argtypes, restype = fa._SIGNATURES[name]
+    argtypes, restype = _ALL_SIGNATURES[name]
     assert c_sigs[name] == (argtypes, restype)
 
 

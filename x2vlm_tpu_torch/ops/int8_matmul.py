@@ -18,6 +18,11 @@ x2vlm_tpu/ops/quant.py). The functions:
   :func:`int8_matmul_reference`, the counterpart of ``int8_matmul_xla``.
 - Each wrapper's ``.launches`` counts its kernel launches and
   ``.launches_by_shape`` splits them by (M, K) / (M, K, N).
+- :data:`GEMM_PLAN` and :func:`gemm_smem_bytes` mirror the GEMM's tile
+  plan and shared memory, fixed in the source (``x2_int8_matmul_plan``,
+  ``x2_int8_matmul_smem_bytes``): a block of 384 threads, one TMA producer
+  warp and two ``wgmma`` consumer warpgroups that take 128 x 128 output
+  tiles in turns, a persistent grid of one block an SM.
 
 The TPU kernel fuses both steps: it quantizes a row block on the first N
 tile of its sequential grid and keeps the int8 rows in VMEM across the N
@@ -38,11 +43,49 @@ import torch.nn.functional as F
 
 from x2vlm_tpu_torch.ops import _build
 
-__all__ = ["ACTS", "int8_matmul", "int8_matmul_reference", "int8_scale",
-           "quantize_act", "quantize_act_reference"]
+__all__ = ["ACTS", "GEMM_DESIGN", "GEMM_PLAN", "SMEM_LIMIT", "gemm_smem_bytes", "int8_matmul",
+           "int8_matmul_reference", "int8_scale", "quantize_act", "quantize_act_reference",
+           "typed_lib"]
 
 ACTS = {None: 0, "gelu": 1, "gelu_fast": 2}   # codes of csrc/int8_matmul.cu `Act`
 _DTYPES = _build.DTYPE_CODES
+
+# The GEMM kernel's design and plan (csrc/int8_matmul.cu BM, BN, BK,
+# kStages, kEpiBytes; x2_int8_matmul_plan gives them in this order).
+GEMM_DESIGN = "wgmma_tma"
+GEMM_PLAN = {"block_m": 128, "block_n": 128, "block_k": 128, "stages": 5, "epi_bytes": 128}
+SMEM_LIMIT = 232448       # shared memory one block may use on an H100
+
+
+def gemm_smem_bytes(plan: dict = GEMM_PLAN) -> int:
+    """The GEMM's dynamic shared memory a block (``kGemmSmem``): 1024 bytes
+    of slack to align the ring for the 128-byte swizzle, ``stages`` stages
+    of (block_m + block_n) x block_k int8, then for each of the two
+    consumer warpgroups the output staging of a tile's block_m rows
+    (``epi_bytes`` + 16 bytes a row) and their fp32 scales with the tile's
+    block_n scales and biases, two 8-byte mbarriers a stage and the
+    consumers' two turn mbarriers. It depends on no shape: every launch
+    takes the same block."""
+    ring = plan["stages"] * (plan["block_m"] + plan["block_n"]) * plan["block_k"]
+    return (1024 + ring + 2 * plan["block_m"] * (plan["epi_bytes"] + 16)
+            + 2 * (plan["block_m"] + 2 * plan["block_n"]) * 4 + (2 * plan["stages"] + 2) * 8)
+
+
+# the C entry points' signatures, set once per loaded library by typed_lib
+_SIGNATURES = {
+    "x2_int8_quantize": ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                         ctypes.c_int),
+    "x2_int8_matmul": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+                       ctypes.c_int),
+    "x2_int8_matmul_smem_bytes": ([], ctypes.c_longlong),
+    "x2_int8_matmul_plan": ([ctypes.c_int], ctypes.c_int),
+}
+
+
+def typed_lib(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument and result types of the int8 C functions
+    it exports set, once per library object (``_build.typed``)."""
+    return _build.typed(lib, _SIGNATURES)
 
 
 def int8_scale(amax: torch.Tensor) -> torch.Tensor:
@@ -113,16 +156,14 @@ def quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     M = math.prod(x.shape[:-1])
     if M == 0 or K == 0:
         raise ValueError(f"quantize_act: empty input {tuple(x.shape)}")
-    lib = _build.load("int8_matmul")
+    lib = typed_lib(_build.load("int8_matmul"))
     x2 = x.reshape(M, K).contiguous()
     xq = torch.empty((M, K), dtype=torch.int8, device=x.device)
     sx = torch.empty((M,), dtype=torch.float32, device=x.device)
-    fn = lib.x2_int8_quantize
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), M, K, _DTYPES[x.dtype], stream)
+        err = lib.x2_int8_quantize(x2.data_ptr(), xq.data_ptr(), sx.data_ptr(), M, K,
+                                   _DTYPES[x.dtype], stream)
     _build.check(lib, err, "int8 quantize")
     quantize_act.launches += 1
     quantize_act.launches_by_shape[(M, K)] += 1
@@ -171,7 +212,7 @@ def int8_matmul(
     M = math.prod(lead)
     if M == 0 or sx.numel() != M:
         raise ValueError(f"int8_matmul: {M} rows, sx holds {sx.numel()}")
-    lib = _build.load("int8_matmul")
+    lib = typed_lib(_build.load("int8_matmul"))
     xq2 = _build.aligned(xq.reshape(M, K))
     wq = _build.aligned(wq)
     sx = sx.reshape(M).float().contiguous()
@@ -179,14 +220,11 @@ def int8_matmul(
     if bias is not None:
         bias = bias.reshape(N).float().contiguous()
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    fn = lib.x2_int8_matmul
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(xq2.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
-                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                 M, N, K, ACTS[act], _DTYPES[out_dtype], stream)
+        err = lib.x2_int8_matmul(xq2.data_ptr(), sx.data_ptr(), wq.data_ptr(), sw.data_ptr(),
+                                 None if bias is None else bias.data_ptr(), out.data_ptr(),
+                                 M, N, K, ACTS[act], _DTYPES[out_dtype], stream)
     _build.check(lib, err, "int8_matmul")
     int8_matmul.launches += 1
     int8_matmul.launches_by_shape[(M, K, N)] += 1
