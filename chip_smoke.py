@@ -63,7 +63,44 @@ Phases (any failure exits non-zero and prints no result line):
    the gradient norm must be finite, the step is timed (median of 7 after
    2 warm-up steps) with its peak device memory; then the same weights
    with dropout off at B=2 and injected hard negatives, card bf16 against
-   the port's CPU fp32 path: losses, and gradient cosines >= 0.99.
+   the port's CPU fp32 path: losses, and gradient cosines >= 0.99;
+7. the launcher's pretraining task, ``x2vlm_tpu_torch.run.main`` in process
+   on data written to a temporary directory (a 30,522-entry BERT vocab
+   drawn from ``--seed``, 64 base64 PNG image-text lines of 256 px and 64
+   text lines): ``configs/pretrain/x2vlm_base_4m.yaml`` read with the
+   port's ``load_config``, the data paths pointed there, the region stream
+   cut (the port raises for it, ROADMAP A5), a text stream added, batch
+   32, a save every 2 steps; 4 steps, then
+   ``--resume`` to step 6. Checked: finite losses, no broken sample, the
+   launches of the 4 steps (12 of each flash kernel a step on the
+   tensor-core route; tiny forward and backward as phase 6 plus 18 at
+   32 x 40 x 40 for the text stream, all tensor-core, all on the resident
+   walk; no plain attention), the resumed run's parameters, AdamW state
+   and data cursors equal to the saved ones bit for bit; the final weights
+   exported as a reference-named ``.th``;
+8. the launcher's retrieval task at 384 px from that ``.th`` (rel-pos
+   tables interpolated 14 -> 24): ``configs/finetune/retrieval_flickr_base
+   .yaml`` with the data paths pointed at 64 PNG images of 320 px with 5 captions each, 4
+   fine-tune steps at batch 32, then the two-stage eval with k_test 128.
+   Checked: nothing missing in the import, the eval metrics of
+   ``itm_eval`` finite, every flash launch (S = 577) on the tensor-core
+   route, every tiny launch on the tensor-core route and each 40 x 584 one
+   on the key-tiled walk, no plain attention, the launch counts; and the
+   fine-tuned model's own ``itm_score`` on 2 x 4 pairs on the card in bf16
+   (tensor-core kernels) and in fp32 (CUDA-core kernels) against the
+   port's CPU fp32 path: each bf16 40 x 584 call into K5 held to the plain
+   version on the operands the model gave it (half the bf16 rule), the fusion
+   CLS features' error over the pairs' spread within ``FUSION_LIMITS``,
+   the ITM scores within phase 3's rule, the 40 x 584 launches key-tiled
+   on their route (``tools/fusion384_faults.py`` reads this hold on
+   copies with planted faults); fine-tune step times and the eval's wall
+   time are printed.
+
+The 40 x 584 shapes of phase 8 (the fine-tune's 96-row ITM pass with
+dropout, the 32-row batch, the 1024-row rerank) are held in phase 2 too:
+K5 and K6 on the key-tiled walk against their plain version, timed beside
+SDPA, with the walk rule and its shared-memory formulas held to Python's
+and contract cases of the walk on both routes.
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line of
 kernels (with their launches on the three main paths), and as its last line
@@ -78,18 +115,27 @@ and launches.
 from __future__ import annotations
 
 import argparse
+import base64
 import collections
+import contextlib
 import dataclasses
+import functools
+import io
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+
+import numpy as np
 
 import torch
 import torch.nn.functional as F
+
+from torch.profiler import ProfilerActivity, profile
 
 from x2vlm_tpu_torch.models import XVLMConfig, XVLMForPretrain, XVLMForRetrieval
 from x2vlm_tpu_torch.ops import _build
@@ -103,22 +149,30 @@ from x2vlm_tpu_torch.ops.int8_matmul import (
     GEMM_DESIGN, GEMM_PLAN, gemm_smem_bytes, int8_matmul, int8_matmul_reference, int8_scale,
     quantize_act, quantize_act_reference, typed_lib as int8_typed_lib,
 )
+from x2vlm_tpu_torch.ops.attention import dot_product_attention
 from x2vlm_tpu_torch.ops.quant import quantize_weight
 from x2vlm_tpu_torch.ops.tiny_attention import (
-    ROUTE_CODES, TENSOR_CORE,
-    bwd_smem_bytes as tiny_bwd_smem_bytes,
-    smem_bytes as tiny_smem_bytes, tiny_attention_bwd, tiny_attention_bwd_reference,
-    tiny_attention_fwd, tiny_attention_reference, tiny_route, typed_lib,
+    CUDA_CORE, RESIDENT, ROUTE_CODES, TENSOR_CORE, TILED, WALK_CODES,
+    bwd_smem_bytes as tiny_bwd_smem_bytes, smem_bytes as tiny_smem_bytes,
+    tiled_bwd_smem_bytes as tiny_tiled_bwd_smem_bytes,
+    tiled_smem_bytes as tiny_tiled_smem_bytes, tiny_attention_bwd, tiny_attention_bwd_reference,
+    tiny_attention_fwd, tiny_attention_reference, tiny_route, tiny_walk, typed_lib,
 )
+from x2vlm_tpu_torch.core.config import load_config
+from x2vlm_tpu_torch.factory import xvlm_config_from_yaml
 from x2vlm_tpu_torch.serving import RetrievalServer
+from x2vlm_tpu_torch.train import checkpoint as ckpt_lib
 from x2vlm_tpu_torch.train import create_optimizer, lr_schedule, make_train_step, param_labels
 
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (data sheet)
 BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak (data sheet)
 INT8_OP_PER_S = 1979e12      # H100 SXM dense int8 tensor-core peak (data sheet)
 FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores (data sheet)
 BATCH, TEXT_LEN = 128, 40          # serving requests
 N_IMG = 197                        # image stream at 224 px; 200 once padded to 8
+N_IMG_384 = 577                    # at 384 px (the retrieval fine-tune); 584 once padded
+RERANK_BATCH = 1024                # ITM rerank rows a call at 384 px: 8 images x k_test 128
 # (label, M, K, N, act) of every int8 matmul of the int8 serving path at B=128
 INT8_SHAPES = (("vision qkv", BATCH * N_IMG, 768, 2304, None),
                ("vision proj", BATCH * N_IMG, 768, 768, None),
@@ -340,8 +394,8 @@ def tiny_operands(gen, dev, B, Sq, Skv, H, D, dtype, mask, drop):
         if Skv == Sq:   # padded texts
             lens = torch.randint(5, Skv + 1, (B,), generator=gen, device=dev)
             km = (torch.arange(Skv, device=dev)[None] < lens[:, None]).to(torch.int32)
-        else:           # the 197 -> 200 pad of the image stream
-            km[:, 197:] = 0
+        else:           # the 197 -> 200 (577 -> 584) pad of the image stream
+            km[:, N_IMG if Skv <= 200 else N_IMG_384:] = 0
     elif mask == "half":
         km = torch.ones(B, Skv, dtype=torch.int32, device=dev)
         km[0, Skv // 2:] = 0
@@ -394,6 +448,25 @@ def check_tiny_rules() -> None:
             if c_bytes != tiny_bwd_smem_bytes(Sq, Skv, D, route):
                 fail(f"tiny bwd smem formula ({route}): Sq={Sq} Skv={Skv} D={D}: kernel "
                      f"{c_bytes}, python {tiny_bwd_smem_bytes(Sq, Skv, D, route)}")
+        for Sq, D in ((40, 64), (1, 16), (13, 32), (17, 48), (24, 96), (9, 112), (64, 128),
+                      (5, 40)):
+            for lib, c_fn, py_fn in ((fwd, "x2_tiny_attention_tiled_smem_bytes",
+                                      tiny_tiled_smem_bytes),
+                                     (bwd, "x2_tiny_attention_bwd_tiled_smem_bytes",
+                                      tiny_tiled_bwd_smem_bytes)):
+                c_bytes = getattr(lib, c_fn)(Sq, D, code)
+                if c_bytes != py_fn(Sq, D, route):
+                    fail(f"tiny {c_fn} ({route}): Sq={Sq} D={D}: kernel {c_bytes}, "
+                         f"python {py_fn(Sq, D, route)}")
+    for Sq in (1, 13, 40, 64, 80):
+        for Skv in (40, 200, 257, 258, 420, 421, 584, 1000, 2000):
+            for D in (16, 32, 40, 48, 64, 96, 112, 128, 256):
+                want = WALK_CODES[tiny_walk(Sq, Skv, D)]
+                for lib in (fwd, bwd):
+                    got = lib.x2_tiny_attention_walk(Sq, Skv, D)
+                    if got != want:
+                        fail(f"tiny walk rule: Sq={Sq} Skv={Skv} D={D}: kernel {got}, "
+                             f"python {want}")
 
 
 def tiny_entry(name, shape, key, err, ms, plain_ms, b_ms, b_by, lib_ms, **extra):
@@ -783,6 +856,153 @@ def check_tiny_bwd(gen, dev):
     return entries
 
 
+# the key-tiled walk's contract cases (B, Sq, Skv, H, D, mask, drop), each
+# past the resident shapes: odd Skv and Skv off 4 (the 4-byte probability
+# copies), fully masked rows, every tensor-core head dim's tile shapes, a
+# head dim off 16 (bf16 on the CUDA cores), one query row, 64 query rows
+TILED_CASES = {
+    "40x584 D64 fully masked row": (2, 40, 584, 2, 64, "full_row", True),
+    "40x583 D64 (Skv off 4) fp32 multiplier": (2, 40, 583, 3, 64, "half", True),
+    "13x901 D32 (odd Skv)": (2, 13, 901, 2, 32, "half", True),
+    "64x1000 D128 no mask": (2, 64, 1000, 2, 128, None, True),
+    "1x2000 D16 no dropout": (2, 1, 2000, 2, 16, "half", False),
+    "17x700 D48": (2, 17, 700, 2, 48, "full_row", True),
+    "24x500 D96": (2, 24, 500, 2, 96, "half", True),
+    "9x400 D112 no dropout": (2, 9, 400, 2, 112, "half", False),
+    "5x700 D40": (2, 5, 700, 2, 40, "half", True),
+}
+
+
+# (B, dropout, label) of the 40 x 584 checks: the retrieval fine-tune's ITM
+# fusion pass (batch 32: 96 rows, positives and two negatives each), the
+# fine-tune batch itself, and the two-stage eval's ITM rerank (8 images x 128
+# candidate texts)
+TILED_MAIN_SHAPES = ((3 * TRAIN_BATCH, True, "fine-tune ITM"),
+                     (TRAIN_BATCH, True, "fine-tune"),
+                     (RERANK_BATCH, False, "ITM rerank"))
+
+
+def walk_delta(fn, before) -> dict:
+    return {w: n - before.get(w, 0) for w, n in fn.launches_by_walk.items()
+            if n != before.get(w, 0)}
+
+
+def check_tiny_tiled(gen, dev, shapes):
+    """K5 and K6 on the key-tiled walk: at the 384 px fusion cross-attention
+    (40 x 584) at each (B, mask, dropout) of ``shapes`` in bf16, forward and
+    backward, checked and timed beside SDPA forward / backward (the card
+    running ahead of the host); then over the walk's contract at small
+    shapes on both routes. Returns the kernels-line entries."""
+    entries = []
+    H, D, Sq, Skv = 12, 64, TEXT_LEN, 584
+    scale = D ** -0.5
+    for B, drop, label in shapes:
+        q, k, v, km, dm = tiny_operands(gen, dev, B, Sq, Skv, H, D, torch.bfloat16, "pad",
+                                        drop)
+        probs_wanted = drop   # the fine-tune saves them; the rerank serves
+        ops = "key_mask dropout" if drop else "key_mask"
+        f_before = dict(tiny_attention_fwd.launches_by_walk)
+        out, probs = tiny_attention_fwd(q, k, v, H, km, dm, scale, return_probs=True)
+        out1, _ = tiny_attention_fwd(q, k, v, H, km, dm, scale)
+        if walk_delta(tiny_attention_fwd, f_before) != {TILED: 2}:
+            fail(f"tiny_attention_fwd {label}: walks "
+                 f"{walk_delta(tiny_attention_fwd, f_before)}, expected 2 tiled")
+        p_out, p_probs = tiny_attention_reference(q, k, v, H, km, dm, scale=scale)
+        tq, tk, tv, tdm = as_f32(q, k, v, dm)
+        t_out, t_probs = tiny_attention_reference(tq, tk, tv, H, km, tdm, scale=scale)
+        tag = f"tiny_attention_fwd {label} B{B} {Sq}x{Skv} H{H} D{D} {ops} bf16 (tiled)"
+        err = max(rule_bf16(tag, out, p_out, t_out),
+                  rule_bf16(tag + " probs", probs, p_probs, t_probs),
+                  rule_bf16(tag + " without probs", out1, p_out, t_out))
+        ms = time_ms(lambda: tiny_attention_fwd(q, k, v, H, km, dm, scale,
+                                                return_probs=probs_wanted), host_ahead=True)
+        plain_ms = time_ms(lambda: tiny_attention_reference(q, k, v, H, km, dm, scale=scale),
+                           inner=2, reps=3, host_ahead=True)
+        views = [t.view(B, t.shape[1], H, D).transpose(1, 2) for t in (q, k, v)]
+        amask = (km != 0)[:, None, None, :]
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            *views, attn_mask=amask, scale=scale), host_ahead=True)
+        b_ms, b_by = bound_ms(nbytes(q, k, v, out, probs if probs_wanted else None, dm)
+                              + km.numel(), 4.0 * B * H * Sq * Skv * D)
+        log(f"time tiny_attention_fwd {label} (tiled, probabilities {probs_wanted}): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (no dropout, no "
+            f"probabilities), bound {b_ms:.4f} ms ({b_by})")
+        entries.append(tiny_entry(
+            "tiny_attention_fwd", f"B{B} {Sq}x{Skv} H{H} D{D} {ops}"
+            f"{' probs' if probs_wanted else ''} bf16", (B, Sq, Skv), err, ms, plain_ms, b_ms,
+            b_by, lib_ms, tiny_walk=TILED))
+
+        g = torch.randn(B, Sq, H * D, generator=gen, device=dev).to(torch.bfloat16)
+        b_before = dict(tiny_attention_bwd.launches_by_walk)
+        got = tiny_attention_bwd(q, k, v, probs, dm, g, H, scale)
+        if walk_delta(tiny_attention_bwd, b_before) != {TILED: 1}:
+            fail(f"tiny_attention_bwd {label}: walks "
+                 f"{walk_delta(tiny_attention_bwd, b_before)}, expected 1 tiled")
+        plain = tiny_attention_bwd_reference(q, k, v, p_probs, dm, g, H, scale)
+        truth = tiny_attention_bwd_reference(tq, tk, tv, t_probs, tdm, g.float(), H, scale)
+        tag = f"tiny_attention_bwd {label} B{B} {Sq}x{Skv} H{H} D{D} {ops} bf16 (tiled)"
+        err = max(rule_bf16(f"{tag} {lab}", a, p, t)
+                  for lab, a, p, t in zip(("dq", "dk", "dv"), got, plain, truth))
+        del plain, truth, t_probs, p_probs
+        ms = time_ms(lambda: tiny_attention_bwd(q, k, v, probs, dm, g, H, scale),
+                     host_ahead=True)
+        plain_ms = time_ms(lambda: tiny_attention_bwd_reference(q, k, v, probs, dm, g, H,
+                                                                scale), inner=2, reps=3,
+                           host_ahead=True)
+        lib_ms = _sdpa_bwd_ms(*views, amask, g.view(B, Sq, H, D).transpose(1, 2), scale,
+                              host_ahead=True)
+        b_ms, b_by = bound_ms(nbytes(q, k, v, g, probs, dm) + nbytes(q, k, v),
+                              8.0 * B * H * Sq * Skv * D)
+        log(f"time tiny_attention_bwd {label} (tiled): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa backward {lib_ms} ms, bound {b_ms:.4f} ms ({b_by})")
+        entries.append(tiny_entry(
+            "tiny_attention_bwd", f"B{B} {Sq}x{Skv} H{H} D{D} {ops} bf16", (B, Sq, Skv), err,
+            ms, plain_ms, b_ms, b_by, lib_ms, tiny_walk=TILED))
+        del q, k, v, km, dm, out, out1, probs, g, got, views
+        torch.cuda.empty_cache()
+
+    for name, (B, Sq, Skv, H, D, mask, drop) in TILED_CASES.items():
+        if tiny_walk(Sq, Skv, D) != TILED:
+            fail(f"tiny tiled case {name}: the rule puts it on the {tiny_walk(Sq, Skv, D)} walk")
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, km, dm = tiny_operands(gen, dev, B, Sq, Skv, H, D, dtype, mask, drop)
+            if dm is not None:
+                dm = torch.where(dm != 0, 1.25, 0.0).to(
+                    torch.float32 if name.endswith("fp32 multiplier") else dtype)
+            sc = D ** -0.5
+            f_before = dict(tiny_attention_fwd.launches_by_route)
+            out, probs = tiny_attention_fwd(q, k, v, H, km, dm, sc, return_probs=True)
+            out1, _ = tiny_attention_fwd(q, k, v, H, km, dm, sc)
+            g = torch.randn(B, Sq, H * D, generator=gen, device=dev).to(dtype)
+            b_before = dict(tiny_attention_bwd.launches_by_route)
+            got = tiny_attention_bwd(q, k, v, probs, dm, g, H, sc)
+            tag = f"tiny tiled {name} {str(dtype)[6:]} ({tiny_route(dtype, D)})"
+            expect_route(tag + " fwd", tiny_attention_fwd, f_before, dtype, D)
+            expect_route(tag + " bwd", tiny_attention_bwd, b_before, dtype, D)
+            tq, tk, tv, tg, tdm = as_f32(q, k, v, g, dm)
+            t_out, t_probs = tiny_attention_reference(tq, tk, tv, H, km, tdm, scale=sc)
+            truth = tiny_attention_bwd_reference(tq, tk, tv, t_probs, tdm, tg, H, sc)
+            if dtype == torch.bfloat16:
+                p_out, p_probs = tiny_attention_reference(q, k, v, H, km, dm, scale=sc)
+                plain = tiny_attention_bwd_reference(q, k, v, p_probs, dm, g, H, sc)
+                rule_bf16(tag + " out", out, p_out, t_out)
+                rule_bf16(tag + " probs", probs, p_probs, t_probs)
+                rule_bf16(tag + " out without probs", out1, p_out, t_out)
+                for i, lab in enumerate(("dq", "dk", "dv")):
+                    rule_bf16(f"{tag} {lab}", got[i], plain[i], truth[i])
+            else:
+                rule_f32(tag + " out", out, t_out)
+                rule_f32(tag + " probs", probs, t_probs)
+                rule_f32(tag + " out without probs", out1, t_out)
+                for i, lab in enumerate(("dq", "dk", "dv")):
+                    rule_f32(f"{tag} {lab}", got[i], truth[i])
+            if mask == "full_row":   # P = 1 / Skv over the real keys
+                u_err = (probs.view(B, Sq, H, Skv)[1] - 1.0 / Skv).abs().max().item()
+                if not u_err <= 1e-6 / Skv:
+                    fail(f"{tag}: a fully masked row's P is off 1/Skv by {u_err:.3e}")
+    return entries
+
+
 def int8_inputs(gen, dev, lead, K, N, with_bias=True, dtype=torch.bfloat16):
     """Activations ~ N(0, 1) (a LayerNorm's output), an fp32 weight (N, K)
     ~ N(0, 0.02) quantized per output row, an fp32 bias."""
@@ -952,6 +1172,8 @@ def reset_counts() -> None:
         fn.launches_by_shape.clear()
     for fn in (tiny_attention_fwd, tiny_attention_bwd):
         fn.launches_by_route.clear()
+        fn.launches_by_walk.clear()
+    dot_product_attention.calls = 0
 
 
 def train_counts():
@@ -1069,8 +1291,10 @@ def time_requests(server, requests, outs):
 KERNEL_NAMES = {"int8_matmul": ("int8_gemm_kernel",),
                 "int8_quantize": ("quantize_rows_kernel",),
                 "flash_attention_fwd": ("flash_fwd_kernel",),
-                "tiny_attention_fwd": ("tc::fwd_kernel", "tiny_fwd_kernel"),
-                "tiny_attention_bwd": ("tc::bwd_kernel", "tiny_bwd_kernel"),
+                "tiny_attention_fwd": ("tc::fwd_kernel", "tiny_fwd_kernel",
+                                       "tc::fwd_tiled_kernel", "tiny_fwd_tiled_kernel"),
+                "tiny_attention_bwd": ("tc::bwd_kernel", "tiny_bwd_kernel",
+                                       "tc::bwd_tiled_kernel", "tiny_bwd_tiled_kernel"),
                 "flash_attention_bwd_dq": ("tc::dq_kernel", "flash_bwd_dq_kernel"),
                 "flash_attention_bwd_dkv": ("tc::dkv_kernel", "flash_bwd_dkv_kernel"),
                 "flash_attention_bwd_dbias": ("tc::dbias_kernel", "tc::dbias_sum_kernel",
@@ -1090,6 +1314,12 @@ def write_profile(args, smi, prof, fname, rows) -> None:
                 t["device_ms"] += getattr(e, "self_device_time_total",
                                           getattr(e, "self_cuda_time_total", 0.0)) / 1e3
                 t["launches"] += e.count
+    # the device's busy time: the kernels' and copies' own rows (an operator's
+    # row repeats the time of the kernels it launched)
+    total = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+                for e in averages
+                if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA) / 1e3
+    kernels["all device ms"] = round(total, 3)
     tiny_line = f"port kernels in this profile ({fname}): {json.dumps(kernels)}"
     table = averages.table(sort_by="cuda_time_total", row_limit=rows)
     os.makedirs(args.profile, exist_ok=True)
@@ -1102,8 +1332,6 @@ def write_profile(args, smi, prof, fname, rows) -> None:
 def profile_round(args, smi, server, requests, fname) -> None:
     if not args.profile:
         return
-    from torch.profiler import ProfilerActivity, profile
-
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         serve(server, *requests)
     write_profile(args, smi, prof, fname, 30)
@@ -1296,8 +1524,6 @@ def train_phase(args, dev, gen, smi):
         fail(f"train steps: non-finite loss_total {losses}")
 
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step(batch, itm_gen, drop_gen)
             torch.cuda.synchronize()
@@ -1334,6 +1560,473 @@ def train_phase(args, dev, gen, smi):
     del model, opt, cpu_model
     torch.cuda.empty_cache()
     return launches
+
+
+# ---- phases 7 and 8: the launcher's tasks on data written here ----
+
+# the shipped configs phases 7 and 8 start from; they change the data paths
+# and what the phases list as cut
+PRETRAIN_CONFIG = "configs/pretrain/x2vlm_base_4m.yaml"
+RETRIEVAL_CONFIG = "configs/finetune/retrieval_flickr_base.yaml"
+SPECIAL_TOKENS = {0: "[PAD]", 100: "[UNK]", 101: "[CLS]", 102: "[SEP]", 103: "[MASK]"}
+VOCAB_SIZE = 30522
+N_LAUNCH_IMAGES = 64                 # image-text lines of phase 7; images of phase 8
+LAUNCH_STEPS, RESUME_STEPS = 4, 6    # phase 7: 4 steps, then --resume to step 6
+N_FT_STEPS = 4                       # phase 8: fine-tune steps (128 train captions, B=32)
+
+
+def write_vocab(root: str, rng: np.random.Generator):
+    """A BERT vocab of 30,522 entries: the special tokens at their BERT ids,
+    the rest lower-case words and ``##`` pieces drawn from ``rng``. Returns
+    the text-encoder directory and the whole words."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    seen, words, pieces = set(SPECIAL_TOKENS.values()), [], []
+    n_free = VOCAB_SIZE - len(SPECIAL_TOKENS)
+    while len(words) + len(pieces) < n_free:
+        tok = "".join(rng.choice(letters, int(rng.integers(2, 9))))
+        tok = tok if rng.random() < 0.8 else "##" + tok
+        if tok not in seen:
+            seen.add(tok)
+            (pieces if tok.startswith("##") else words).append(tok)
+    free = iter(words + pieces)
+    vocab = [SPECIAL_TOKENS.get(i) or next(free) for i in range(VOCAB_SIZE)]
+    tok_dir = os.path.join(root, "bert-base-uncased")
+    os.makedirs(tok_dir)
+    with open(os.path.join(tok_dir, "vocab.txt"), "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    return tok_dir, words
+
+
+def shipped_config(rel: str) -> dict:
+    """A config file of the repository, read as the launcher reads it."""
+    return load_config(os.path.join(REPO_ROOT, rel)).to_dict()
+
+
+def random_png(rng: np.random.Generator, side: int) -> bytes:
+    """A ``side`` x ``side`` RGB PNG: smooth colour fields and noise."""
+    from PIL import Image
+
+    low = rng.integers(0, 256, (side // 32, side // 32, 3)).astype(np.float32)
+    img = np.kron(low, np.ones((32, 32, 1), np.float32))
+    img = img + rng.normal(0, 12, img.shape)
+    buf = io.BytesIO()
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def caption(rng: np.random.Generator, words, lo: int = 6, hi: int = 30) -> str:
+    return " ".join(words[i] for i in rng.integers(0, len(words), int(rng.integers(lo, hi))))
+
+
+def launch_counts():
+    """Every attention launch since the last reset, by kernel, shape, route
+    and walk, and the plain attention's calls."""
+    return {"flash_fwd": flash_attention_fwd.launches,
+            "flash_fwd_routes": dict(flash_attention_fwd.launches_by_route),
+            "flash_bwd": dict(flash_attention_bwd.launches),
+            "flash_bwd_routes": flash_bwd_route_delta({}),
+            "tiny_fwd": collections.Counter(tiny_attention_fwd.launches_by_shape),
+            "tiny_bwd": collections.Counter(tiny_attention_bwd.launches_by_shape),
+            "tiny_routes": {"tiny_attention_fwd": dict(tiny_attention_fwd.launches_by_route),
+                            "tiny_attention_bwd": dict(tiny_attention_bwd.launches_by_route)},
+            "tiny_walks": {"tiny_attention_fwd": dict(tiny_attention_fwd.launches_by_walk),
+                           "tiny_attention_bwd": dict(tiny_attention_bwd.launches_by_walk)},
+            "plain_attention": dot_product_attention.calls}
+
+
+def show_counts(c) -> str:
+    return json.dumps({k: ({str(s): n for s, n in v.items()} if isinstance(v, collections.Counter)
+                           else v) for k, v in c.items()})
+
+
+def check_launcher_counts(tag, c, n_flash_fwd, n_flash_bwd, want_tiny) -> None:
+    """Every flash launch on the tensor-core route, every tiny launch on the
+    tensor-core route and on the walk its shape takes, no plain attention,
+    and the counts expected."""
+    log(f"launches ({tag}): {show_counts(c)}")
+    if c["plain_attention"]:
+        fail(f"{tag}: the plain attention ran {c['plain_attention']} times")
+    if c["flash_fwd"] != n_flash_fwd or c["flash_fwd_routes"] != {TENSOR_CORE: n_flash_fwd}:
+        fail(f"{tag}: flash forward {c['flash_fwd']} launches, routes "
+             f"{c['flash_fwd_routes']}, expected {n_flash_fwd} on {TENSOR_CORE}")
+    want_bwd = {f"{k}/{TENSOR_CORE}": n_flash_bwd for k in ("dq", "dkv", "dbias")
+                if n_flash_bwd}
+    if c["flash_bwd_routes"] != want_bwd:
+        fail(f"{tag}: flash backward routes {c['flash_bwd_routes']}, expected {want_bwd}")
+    check_tiny_routes(tag, c["tiny_routes"])
+    for name, key in (("tiny_attention_fwd", "tiny_fwd"), ("tiny_attention_bwd", "tiny_bwd")):
+        walks = collections.Counter()
+        for (b, sq, skv), n in c[key].items():
+            walks[tiny_walk(sq, skv, 64)] += n
+        if dict(walks) != c["tiny_walks"][name]:
+            fail(f"{tag}: {name} walks {c['tiny_walks'][name]}, the shapes' rule gives "
+                 f"{dict(walks)}")
+        if want_tiny.get(key) is not None and dict(c[key]) != want_tiny[key]:
+            fail(f"{tag}: {name} launches {dict(c[key])}, expected {want_tiny[key]}")
+
+
+def pretrain_launcher_phase(root: str, seed: int, dev):
+    """Phase 7: ``x2vlm_tpu_torch.run --task pretrain`` in process on data
+    written under ``root``: 4 steps, then ``--resume`` to step 6; the run's
+    final weights exported as a reference-named ``.th``. Returns its path
+    and the phase's launch counts."""
+    from x2vlm_tpu_torch import run as run_mod
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 7)
+    tok_dir, words = write_vocab(root, rng)
+    img_file, txt_file = os.path.join(root, "images.jsonl"), os.path.join(root, "texts.jsonl")
+    with open(img_file, "w") as f:
+        for _ in range(N_LAUNCH_IMAGES):
+            f.write(json.dumps({"binary": base64.b64encode(random_png(rng, 256)).decode(),
+                                "desc": caption(rng, words)}) + "\n")
+    with open(txt_file, "w") as f:
+        for _ in range(N_LAUNCH_IMAGES):
+            f.write(json.dumps({"text": caption(rng, words, 10, 45)}) + "\n")
+    shipped = shipped_config(PRETRAIN_CONFIG)
+    cfg = {k: v for k, v in shipped.items() if k not in ("train_file_regions", "regions")}
+    cfg.update(train_file=[img_file], text_encoder=tok_dir, ckpt_frequent_step=2,
+               images=dict(shipped["images"], batch_size=TRAIN_BATCH),
+               train_dataset_size=2 * TRAIN_BATCH,      # 2 steps an epoch
+               train_file_text=[txt_file],
+               texts={"caption_key": "text", "batch_size": TRAIN_BATCH, "iter_perc": 1,
+                      "num_workers": 2})
+    cfg_path = os.path.join(root, "pretrain.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    out = os.path.join(root, "out_pretrain")
+    argv = ["--task", "pretrain", "--config", cfg_path, "--output_dir", out,
+            "--seed", str(seed), "--device", dev.type]
+    log(f"phase 7 data and config: {time.perf_counter() - t0:.1f} s")
+
+    t1 = time.perf_counter()
+    reset_counts()
+    record = run_mod.main(argv + ["--epoch", str(LAUNCH_STEPS // 2)])
+    torch.cuda.synchronize()
+    counts1 = launch_counts()
+    log(f"phase 7 run 1 ({LAUNCH_STEPS} steps): {time.perf_counter() - t1:.1f} s; "
+        f"{json.dumps(record)}")
+    if not all(math.isfinite(v) for v in record.values() if isinstance(v, float)):
+        fail(f"pretrain launcher: non-finite metrics {record}")
+    if record.get("broken", -1) != 0:
+        fail(f"pretrain launcher: broken samples {record.get('broken')}")
+    n = LAUNCH_STEPS
+    n_fusion = 6
+    check_launcher_counts(
+        "pretrain launcher", counts1, 12 * n, 12 * n,
+        {"tiny_fwd": {(2 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 12 * n,
+                      (4 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): n_fusion * n,
+                      (4 * TRAIN_BATCH, TEXT_LEN, 200): n_fusion * n,
+                      (TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 18 * n},
+         "tiny_bwd": {(2 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 12 * n,
+                      (4 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): n_fusion * n,
+                      (4 * TRAIN_BATCH, TEXT_LEN, 200): n_fusion * n,
+                      (TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 18 * n}})
+
+    # --resume: the run must start from the saved state bit for bit
+    state_path = os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE)
+    saved = torch.load(state_path, map_location="cpu", weights_only=False)
+    seen = {}
+    orig = run_mod.maybe_resume
+
+    def resumed(a, model, optimizer):
+        step, data_state = orig(a, model, optimizer)
+        params = dict(model.named_parameters())
+        seen.update(
+            step=step, data_state=data_state,
+            params=all(torch.equal(params[k].detach().cpu(), v)
+                       for k, v in saved["params"].items()),
+            mu=all(torch.equal(m.cpu(), saved["mu"][k])
+                   for k, m in zip(optimizer.names, optimizer.mu)),
+            nu=all(torch.equal(v.cpu(), saved["nu"][k])
+                   for k, v in zip(optimizer.names, optimizer.nu)),
+            count=optimizer.count == saved["count"])
+        return step, data_state
+
+    t2 = time.perf_counter()
+    run_mod.maybe_resume = resumed
+    try:
+        record2 = run_mod.main(argv + ["--resume", "--epoch", str(RESUME_STEPS // 2)])
+    finally:
+        run_mod.maybe_resume = orig
+    torch.cuda.synchronize()
+    log(f"phase 7 run 2 (--resume to step {RESUME_STEPS}): {time.perf_counter() - t2:.1f} s; "
+        f"resumed at step {seen.get('step')}, data cursors {seen.get('data_state')}; "
+        f"equal to the saved state: params {seen.get('params')}, mu {seen.get('mu')}, "
+        f"nu {seen.get('nu')}, count {seen.get('count')}; {json.dumps(record2)}")
+    if not (seen.get("step") == LAUNCH_STEPS and seen.get("params") and seen.get("mu")
+            and seen.get("nu") and seen.get("count")
+            and seen.get("data_state") == saved["data_state"] and saved["data_state"]):
+        fail(f"pretrain launcher --resume: {seen} against the saved step {saved['step']}")
+    if record2.get("pretrain_steps") != [LAUNCH_STEPS, RESUME_STEPS] or \
+            record2.get("broken", -1) != 0:
+        fail(f"pretrain launcher --resume: {record2}")
+
+    final = torch.load(state_path, map_location="cpu", weights_only=False)
+    th_path = os.path.join(root, "x2vlm_phase7.th")
+    torch.save({"model": {k[len("base."):]: v for k, v in final["params"].items()}}, th_path)
+    log(f"phase 7 seconds: {time.perf_counter() - t0:.1f}")
+    return th_path, tok_dir, words, counts1
+
+
+# Phase 8's hold on the fine-tuned model at 384 px, through its own calls:
+# (1) every 40 x 584 call the model makes into the tiny kernel in bf16 is
+# held, on the operands the model gave it, to the plain version: a call's
+# ``ratio`` is its error over the bf16 rule's bound, at most
+# ``FUSION_CALL_RATIO`` (half the rule: the kernel rounds as the plain bf16
+# version does, 0.22-0.26, while a key mask ignored reads 1.07-1.26);
+# (2) the fusion stack's CLS output of 8 pairs (the ITM head's input) on the
+# card against the port's CPU fp32 path, its error over the pairs' spread
+# (the distance of the CPU features from their mean over the pairs, so what
+# is common to every pair does not hide a fault): in fp32 the card runs the
+# CUDA-core kernels and the error is rounding only; in bf16 the limit is a
+# gross guard, ~2.7x the readings of the sources as they are. The limits
+# sit between the readings of the sources and of copies with a planted
+# fault (tools/fusion384_faults.py; PERF.md).
+FUSION_LIMITS = {"bf16": 0.25, "fp32": 1e-3}
+FUSION_CALL_RATIO = 0.5
+N_KEYS_384 = N_IMG_384 + (-N_IMG_384 % 8)   # 584: the fusion's padded image stream
+
+
+def fusion_384_readings(state, mcfg, images, ids, atts, dev) -> dict:
+    """``itm_score`` of every image against every text with the weights
+    ``state`` on the card in bf16 and fp32 and on the CPU in fp32; the
+    fusion CLS features are read at the ITM head's input and the card's
+    bf16 40 x 584 tiny calls at ``ops.layers.tiny_block_attention``.
+    Returns, per card dtype, the largest error of a pair's features over
+    the median spread (``spread_err``) and over its own norm
+    (``rel_err``), the ITM scores' largest error and the card run's tiny
+    and plain-attention launches; for bf16 also each held call's ratio;
+    and the CPU scores' range."""
+    from x2vlm_tpu_torch.ops import layers as layers_mod
+
+    n_img, n_txt = images.shape[0], ids.shape[0]
+    feats, scores, counts, ratios = {}, {}, {}, []
+    block_attention = layers_mod.tiny_block_attention
+
+    def held(qw, kw, vw, **kwargs):
+        out = block_attention(qw, kw, vw, **kwargs)
+        if out.is_cuda and out.dtype == torch.bfloat16 and kw.shape[1] == N_KEYS_384:
+            ref = functools.partial(tiny_attention_reference, num_heads=kwargs["num_heads"],
+                                    key_mask=kwargs.get("key_mask"), scale=kwargs["scale"])
+            truth = ref(qw.float(), kw.float(), vw.float())[0]
+            bound = max(4.0 * max_err(ref(qw, kw, vw)[0], truth),
+                        1e-3 * max(truth.abs().max().item(), 1e-6))
+            ratios.append(max_err(out, truth) / bound)
+        return out
+
+    for tag, dtype, device in (("bf16", torch.bfloat16, dev), ("fp32", torch.float32, dev),
+                               ("cpu", torch.float32, torch.device("cpu"))):
+        model = XVLMForRetrieval(mcfg, dtype=dtype, device=device, seed=None)
+        model.load_state_dict(state)
+        hook = model.itm_head.register_forward_hook(
+            lambda mod, inp, out, tag=tag: feats.__setitem__(tag, inp[0].float().cpu()))
+        reset_counts()
+        dot_product_attention.calls = 0
+        layers_mod.tiny_block_attention = held
+        try:
+            with torch.inference_mode():
+                img, _ = model.encode_images(images.to(device))
+                txt, _ = model.encode_texts(ids.to(device), atts.to(device))
+                scores[tag] = model.itm_score(
+                    img.repeat_interleave(n_txt, 0), txt.repeat(n_img, 1, 1),
+                    atts.to(device).repeat(n_img, 1)).float().cpu()
+        finally:
+            layers_mod.tiny_block_attention = block_attention
+            hook.remove()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            c = launch_counts()
+            counts[tag] = {"tiny_fwd": {str(k): v for k, v in c["tiny_fwd"].items()},
+                           "tiny_routes": c["tiny_routes"]["tiny_attention_fwd"],
+                           "tiny_walks": c["tiny_walks"]["tiny_attention_fwd"],
+                           "plain_attention": c["plain_attention"]}
+        del model
+    torch.cuda.empty_cache()
+    ref = feats["cpu"]
+    spread = (ref - ref.mean(0)).norm(dim=1).median().item()
+    out = {"pairs": n_img * n_txt, "spread": spread,
+           "cpu_score_range": [scores["cpu"].min().item(), scores["cpu"].max().item()]}
+    for tag in ("bf16", "fp32"):
+        err = (feats[tag] - ref).norm(dim=1)
+        out[tag] = {"spread_err": err.max().item() / spread,
+                    "rel_err": (err / ref.norm(dim=1)).max().item(),
+                    "itm_err": max_err(scores[tag], scores["cpu"]), **counts[tag]}
+    out["bf16"]["call_ratios"] = ratios
+    return out
+
+
+def fusion_384_faults(r: dict) -> list:
+    """What phase 8's hold finds wrong in ``fusion_384_readings``: a held
+    call past ``FUSION_CALL_RATIO``, an error over its limit, the ITM
+    scores past phase 3's rule, or a 40 x 584 launch off its route and
+    walk."""
+    faults = []
+    ratios = r["bf16"]["call_ratios"]
+    if len(ratios) != 6 or not all(x <= FUSION_CALL_RATIO for x in ratios):
+        faults.append(f"bf16: the 40 x {N_KEYS_384} calls' errors over the rule's bound "
+                      f"{[round(x, 3) for x in ratios]}, expected 6 at most "
+                      f"{FUSION_CALL_RATIO}")
+    scale = max(abs(x) for x in r["cpu_score_range"])
+    shape = str((r["pairs"], TEXT_LEN, N_KEYS_384))
+    for tag, route in (("bf16", TENSOR_CORE), ("fp32", CUDA_CORE)):
+        x = r[tag]
+        if not x["spread_err"] <= FUSION_LIMITS[tag]:
+            faults.append(f"{tag}: feature error {x['spread_err']:.4g} of the pairs' spread "
+                          f"> {FUSION_LIMITS[tag]}")
+        if not x["itm_err"] <= 0.05 + 0.05 * scale:
+            faults.append(f"{tag}: ITM score error {x['itm_err']:.4f} > 0.05 + 5% of {scale:.4f}")
+        if x["plain_attention"] or x["tiny_fwd"].get(shape, 0) != 6 or \
+                x["tiny_routes"] != {route: sum(x["tiny_fwd"].values())} or \
+                x["tiny_walks"].get(TILED, 0) != 6:
+            faults.append(f"{tag}: launches {x}, expected 6 at {shape} on {route}, key-tiled, "
+                          f"and no plain attention")
+    return faults
+
+
+def retrieval_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, dev,
+                             smi: str = ""):
+    """Phase 8: ``x2vlm_tpu_torch.run --task retrieval`` at 384 px from
+    phase 7's ``.th`` (rel-pos tables interpolated 14 -> 24): 4 fine-tune
+    steps at batch 32, then the two-stage eval with k_test 128; the card's
+    ITM scores against the port's CPU fp32 path. With ``--profile`` the last
+    fine-tune step and the eval run under torch.profiler (their wall times
+    then include its cost). Returns the launch counts."""
+    from x2vlm_tpu_torch import run as run_mod
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.tasks import retrieval as retrieval_mod
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 8)
+    img_root = os.path.join(root, "flickr")
+    os.makedirs(img_root)
+    test_ann = []
+    for i in range(N_LAUNCH_IMAGES):
+        with open(os.path.join(img_root, f"{i}.png"), "wb") as f:
+            f.write(random_png(rng, 320))
+        test_ann.append({"image": f"{i}.png", "image_id": i,
+                         "caption": [caption(rng, words) for _ in range(5)]})
+    train_ann = [{"image": a["image"], "image_id": a["image_id"], "caption": c}
+                 for a in test_ann[:N_FT_STEPS * TRAIN_BATCH // 2] for c in a["caption"][:2]]
+    paths = {}
+    for name, ann in (("train", train_ann), ("test", test_ann)):
+        paths[name] = os.path.join(root, f"flickr_{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(ann, f)
+    cfg = dict(shipped_config(RETRIEVAL_CONFIG), train_file=[paths["train"]],
+               test_file=[paths["test"]], image_root=img_root, text_encoder=tok_dir)
+    cfg_path = os.path.join(root, "retrieval.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    out = os.path.join(root, "out_retrieval")
+    log(f"phase 8 data and config: {time.perf_counter() - t0:.1f} s")
+
+    imported = {}
+    orig_load = ckpt_lib.load_reference_checkpoint
+    orig_step = run_mod.make_train_step
+    step_ms = []
+
+    def load(model, path):
+        imported["missing"], imported["unexpected"] = orig_load(model, path)
+        return imported["missing"], imported["unexpected"]
+
+    def make_step(model, optimizer, **kw):
+        step = orig_step(model, optimizer, **kw)
+
+        def timed(*a):
+            last = args.profile and len(step_ms) == N_FT_STEPS - 1   # profiled
+            with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if last
+                  else contextlib.nullcontext()) as prof:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t = time.perf_counter()
+                start.record()
+                m = step(*a)
+                end.record()
+                end.synchronize()
+            step_ms.append((start.elapsed_time(end), (time.perf_counter() - t) * 1e3))
+            if last:
+                write_profile(args, smi, prof, "chip_smoke_finetune384_profile.txt", 40)
+            return m
+
+        return timed
+
+    orig_eval = retrieval_mod.evaluate_retrieval
+
+    def evaluate(*a, **kw):
+        if not args.profile:
+            return orig_eval(*a, **kw)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            metrics = orig_eval(*a, **kw)
+            torch.cuda.synchronize()
+        write_profile(args, smi, prof, "chip_smoke_eval384_profile.txt", 40)
+        return metrics
+
+    t1 = time.perf_counter()
+    reset_counts()
+    ckpt_lib.load_reference_checkpoint, run_mod.make_train_step = load, make_step
+    retrieval_mod.evaluate_retrieval = evaluate
+    try:
+        record = run_mod.main(["--task", "retrieval", "--config", cfg_path, "--output_dir", out,
+                               "--checkpoint", th_path, "--epoch", "1", "--seed",
+                               str(args.seed), "--device", dev.type])
+    finally:
+        ckpt_lib.load_reference_checkpoint, run_mod.make_train_step = orig_load, orig_step
+        retrieval_mod.evaluate_retrieval = orig_eval
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"phase 8 run ({len(step_ms)} fine-tune steps + eval): {time.perf_counter() - t1:.1f} s; "
+        f"{json.dumps(record)}")
+    log(f"phase 8 fine-tune step ms at 384 px, B={TRAIN_BATCH} (CUDA events, wall): "
+        f"{json.dumps([[round(a, 3), round(b, 3)] for a, b in step_ms])}"
+        f"{' (the last one profiled)' if args.profile else ''}; eval seconds "
+        f"{record.get('eval_eval_seconds')} ({N_LAUNCH_IMAGES} images, "
+        f"{5 * N_LAUNCH_IMAGES} texts, k_test {cfg['k_test']})")
+    # the import: the 224 px .th at 384 px, every parameter loaded
+    unexpected = imported.get("unexpected", [])
+    log(f"phase 8 import: missing {imported.get('missing')}, unexpected {len(unexpected)} "
+        f"({sorted({'.'.join(k.split('.')[:2]) for k in unexpected})})")
+    if imported.get("missing") != [] or not all(
+            k.startswith("text_encoder.cls.predictions.") for k in imported.get("unexpected", [])):
+        fail(f"retrieval launcher import of {th_path}: missing {imported.get('missing')}, "
+             f"unexpected {imported.get('unexpected')}")
+    keys = ("txt_r1", "txt_r5", "txt_r10", "txt_r_mean", "img_r1", "img_r5", "img_r10",
+            "img_r_mean", "r1_mean", "r_mean")
+    vals = [record.get(f"eval_{k}") for k in keys]
+    if not all(isinstance(v, float) and math.isfinite(v) for v in vals):
+        fail(f"retrieval launcher: eval metrics {dict(zip(keys, vals))}")
+    if len(step_ms) != N_FT_STEPS or not math.isfinite(record.get("loss_total", math.nan)):
+        fail(f"retrieval launcher: {len(step_ms)} steps, loss {record.get('loss_total')}")
+    n_fusion = 6
+    n_i2t, n_t2i = N_LAUNCH_IMAGES // 8, 5 * N_LAUNCH_IMAGES // 8
+    n_img_384 = N_IMG_384 + (-N_IMG_384 % 8)
+    check_launcher_counts(
+        "retrieval launcher", counts, 12 * (N_FT_STEPS + 1), 12 * N_FT_STEPS,
+        {"tiny_fwd": {(TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 12 * N_FT_STEPS,
+                      (3 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): n_fusion * N_FT_STEPS,
+                      (3 * TRAIN_BATCH, TEXT_LEN, n_img_384): n_fusion * N_FT_STEPS,
+                      (256, TEXT_LEN, TEXT_LEN): 12 * 2,
+                      (RERANK_BATCH, TEXT_LEN, TEXT_LEN): n_fusion * n_i2t,
+                      (RERANK_BATCH, TEXT_LEN, n_img_384): n_fusion * n_i2t,
+                      (RERANK_BATCH // 2, TEXT_LEN, TEXT_LEN): n_fusion * n_t2i,
+                      (RERANK_BATCH // 2, TEXT_LEN, n_img_384): n_fusion * n_t2i},
+         "tiny_bwd": {(TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 12 * N_FT_STEPS,
+                      (3 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): n_fusion * N_FT_STEPS,
+                      (3 * TRAIN_BATCH, TEXT_LEN, n_img_384): n_fusion * N_FT_STEPS}})
+
+    # the fine-tuned weights through the model's own calls at 384 px: the
+    # card in bf16 and in fp32 against the port's CPU fp32 path, 8 pairs
+    state = torch.load(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE),
+                       map_location="cpu", weights_only=False)["params"]
+    _, test_ds = create_dataset("retrieval", cfg, evaluate=True)
+    images = torch.from_numpy(test_ds.image_batch([0, 1]))
+    ids, atts = (torch.from_numpy(a) for a in test_ds.text_batch([0, 1, 5, 6]))
+    readings = fusion_384_readings(state, xvlm_config_from_yaml(cfg), images, ids, atts, dev)
+    log(f"phase 8 fusion at 384 px, 8 pairs, card vs CPU fp32: {json.dumps(readings)}")
+    for msg in fusion_384_faults(readings):
+        fail(f"retrieval launcher, fusion at 384 px: {msg}")
+    log(f"phase 8 seconds: {time.perf_counter() - t0:.1f}")
+    return counts
 
 
 def main(argv=None) -> int:
@@ -1375,6 +2068,9 @@ def run(args, dev: torch.device) -> int:
         check_flash_bwd_rules()
         flash_bwd_entries = check_flash_bwd(gen, dev)
         tiny_bwd_entries = check_tiny_bwd(gen, dev)
+        t_tiled = time.perf_counter()
+        tiled_entries = check_tiny_tiled(gen, dev, TILED_MAIN_SHAPES)
+        log(f"key-tiled tiny checks: {time.perf_counter() - t_tiled:.1f} s")
     torch.cuda.empty_cache()
 
     # ---- the main path: X2VLM-base retrieval serving at full width ----
@@ -1428,13 +2124,26 @@ def run(args, dev: torch.device) -> int:
     # ---- the second main path: X2VLM-base pretraining steps ----
     train = train_phase(args, dev, gen, smi)
 
+    # ---- phases 7 and 8: the launcher's pretrain and retrieval tasks ----
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        th_path, tok_dir, words, pre_counts = pretrain_launcher_phase(root, args.seed, dev)
+        torch.cuda.empty_cache()
+        ret_counts = retrieval_launcher_phase(args, root, th_path, tok_dir, words, dev, smi)
+    torch.cuda.empty_cache()
+
     # launches on the main paths: bf16 serving requests, one train step,
     # int8 serving requests
-    def entry(e, serving, training, int8=0):
+    def entry(e, serving, training, int8=0, pretrain_launcher=0, retrieval_launcher=0):
         e = {k: v for k, v in e.items() if k != "key"}
-        return dict(e, launches=serving + training + int8,
+        return dict(e, launches=serving + training + int8 + pretrain_launcher
+                    + retrieval_launcher,
                     launches_by_path={"serving": serving, "train_step": training,
-                                      "int8_serving": int8})
+                                      "int8_serving": int8,
+                                      "pretrain_launcher": pretrain_launcher,
+                                      "retrieval_launcher": retrieval_launcher})
+
+    def launcher(e, counts):   # a tiny entry's launches in phase 7 or 8, by shape
+        return counts["tiny_fwd" if e["name"] == "tiny_attention_fwd" else "tiny_bwd"][e["key"]]
 
     kernels = []
     for e in flash_entries:   # B=128 on the serving paths, B=32 in the train step
@@ -1446,11 +2155,19 @@ def run(args, dev: torch.device) -> int:
         serving = e.pop("main_path_launches") == "all"
         kernels.append(entry(e, by_shape["tiny"][e["key"]] if serving else 0,
                              train["tiny_attention_fwd"][e["key"]],
-                             q_by_shape["tiny"][e["key"]] if serving else 0))
+                             q_by_shape["tiny"][e["key"]] if serving else 0,
+                             launcher(e, pre_counts), launcher(e, ret_counts)))
+    for e in tiled_entries:   # the 40 x 584 shapes: phase 8's fine-tune and rerank
+        if launcher(e, ret_counts) or launcher(e, pre_counts):
+            kernels.append(entry(e, 0, 0, 0, launcher(e, pre_counts), launcher(e, ret_counts)))
+        else:
+            log(f"{e['name']} {e['shape']}: checked and timed; no main-path launch at this "
+                f"shape, so not in the kernels line")
     for e in flash_bwd_entries:
         kernels.append(entry(e, 0, train[e["name"]]))
     for e in tiny_bwd_entries:
-        kernels.append(entry(e, 0, train["tiny_attention_bwd"][e["key"]]))
+        kernels.append(entry(e, 0, train["tiny_attention_bwd"][e["key"]], 0,
+                             launcher(e, pre_counts), launcher(e, ret_counts)))
     for e in int8_gemm_entries:
         kernels.append(entry(e, 0, 0, q_by_shape["int8_matmul"][e["key"]]))
     for e in int8_quant_entries:

@@ -216,9 +216,15 @@ def test_tiny_block_attention_keeps_its_dropout_multiplier_for_the_backward():
 
 
 def test_tiny_dispatch_admits_only_shapes_both_kernels_fit():
+    """Both kernels take every admitted shape: on the resident walk up to
+    257 keys at Sq=40 (209 at Sq=64), on the key-tiled walk past that."""
+    from x2vlm_tpu_torch.ops.tiny_attention import RESIDENT, TILED, tiny_walk
+
     assert tiny_supported(40, 40, 64) and tiny_supported(40, 200, 64)
-    assert tiny_supported(40, 257, 64) and not tiny_supported(40, 258, 64)
-    assert tiny_supported(64, 209, 64) and not tiny_supported(64, 210, 64)
+    assert tiny_walk(40, 257, 64) == RESIDENT and tiny_walk(40, 258, 64) == TILED
+    assert tiny_walk(64, 209, 64) == RESIDENT and tiny_walk(64, 210, 64) == TILED
+    assert tiny_supported(40, 258, 64) and tiny_supported(40, 584, 64)
+    assert tiny_supported(64, 210, 64)
     assert not tiny_supported(65, 40, 64)
 
 

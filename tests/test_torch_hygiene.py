@@ -50,6 +50,51 @@ def test_port_file_imports_nothing_of_jax(path):
     assert bad == [], f"{path} imports {bad}"
 
 
+def _module_level_roots(path):
+    """The roots a file imports when it is imported: top-level statements
+    (through if / try / with blocks), not function or class bodies."""
+    def walk(stmts):
+        for node in stmts:
+            if isinstance(node, ast.Import):
+                yield from (a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                yield node.module
+            elif isinstance(node, (ast.If, ast.Try, ast.With)):
+                for field in ("body", "orelse", "finalbody", "handlers"):
+                    for sub in getattr(node, field, []) or []:
+                        yield from walk(getattr(sub, "body", [sub]))
+    yield from walk(ast.parse(path.read_text(), str(path)).body)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_needs_no_transformers_pil_or_yaml_to_import(path):
+    """No port file imports ``transformers`` anywhere (the tokenizer is the
+    port's own), and none imports PIL or yaml when it is imported (only
+    inside the functions that decode images or read YAML)."""
+    anywhere = [m for m in _imported_roots(path) if m.split(".")[0] == "transformers"]
+    assert anywhere == [], f"{path} imports {anywhere}"
+    top = [m for m in _module_level_roots(path) if m.split(".")[0] in ("PIL", "yaml")]
+    assert top == [], f"{path} imports {top} at module level"
+
+
+def test_port_imports_with_transformers_pil_and_yaml_blocked():
+    """Import every port module (and chip_smoke) in a fresh interpreter in
+    which importing transformers, PIL or yaml fails."""
+    modules = [".".join(p.relative_to(ROOT).with_suffix("").parts) for p in PORT_FILES]
+    modules = [m[:-len(".__init__")] if m.endswith(".__init__") else m for m in modules]
+    code = ("import sys\n"
+            "for name in ('transformers', 'PIL', 'yaml'):\n"
+            "    sys.modules[name] = None\n"
+            f"for m in {modules!r}:\n"
+            "    __import__(m)\n"
+            "print('imported', len(" + repr(modules) + "))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "imported" in res.stdout
+
+
 def test_port_imports_with_jax_blocked():
     """Import every port module (and chip_smoke) in a fresh interpreter in
     which importing jax, flax or the JAX package fails."""

@@ -16,7 +16,8 @@ from tests.test_torch_hygiene import _CudaStandIn  # noqa: E402
 from x2vlm_tpu_torch.ops import _build  # noqa: E402
 from x2vlm_tpu_torch.ops import tiny_attention as ta  # noqa: E402
 from x2vlm_tpu_torch.ops.tiny_attention import (  # noqa: E402
-    CUDA_CORE, TENSOR_CORE, bwd_smem_bytes, smem_bytes, tiny_route, tiny_supported,
+    CUDA_CORE, RESIDENT, TENSOR_CORE, TILED, bwd_smem_bytes, smem_bytes, tiled_bwd_smem_bytes,
+    tiled_smem_bytes, tiny_route, tiny_supported, tiny_walk,
 )
 
 SMEM_LIMIT = 232448          # bytes one block may use on Hopper
@@ -75,15 +76,19 @@ def test_tensor_core_forward_needs_less_smem_than_the_cuda_core_one():
 
 
 def test_every_shape_the_dispatch_admits_fits_the_tensor_core_kernels():
-    """``tiny_supported`` takes the CUDA-core kernels' need; each shape it
-    admits at a tensor-core head dim fits the tensor-core kernels too."""
+    """Each shape ``tiny_supported`` admits at a tensor-core head dim fits
+    the tensor-core kernels of its walk: the resident ones where the
+    CUDA-core resident kernels fit, the key-tiled ones past that."""
     for D in (16, 32, 48, 64, 80, 96, 112, 128):
         for Sq in range(1, ta.MAX_QUERY_LEN + 1):
             for Skv in range(1, 1000):
-                if not tiny_supported(Sq, Skv, D):
-                    break
-                assert smem_bytes(Skv, D, TENSOR_CORE) <= SMEM_LIMIT, (Sq, Skv, D)
-                assert bwd_smem_bytes(Sq, Skv, D, TENSOR_CORE) <= SMEM_LIMIT, (Sq, Skv, D)
+                assert tiny_supported(Sq, Skv, D), (Sq, Skv, D)
+                if tiny_walk(Sq, Skv, D) == RESIDENT:
+                    assert smem_bytes(Skv, D, TENSOR_CORE) <= SMEM_LIMIT, (Sq, Skv, D)
+                    assert bwd_smem_bytes(Sq, Skv, D, TENSOR_CORE) <= SMEM_LIMIT, (Sq, Skv, D)
+            for route in (CUDA_CORE, TENSOR_CORE):
+                assert tiled_smem_bytes(Sq, D, route) <= SMEM_LIMIT, (route, Sq, D)
+                assert tiled_bwd_smem_bytes(Sq, D, route) <= SMEM_LIMIT, (route, Sq, D)
 
 
 def _supported_before(Sq, Skv, D):
@@ -95,9 +100,15 @@ def _supported_before(Sq, Skv, D):
 
 @pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
 def test_tiny_supported_answers_are_unchanged(D):
+    """Every shape the resident kernels alone admitted is still admitted, on
+    the resident walk (its kernels and times unchanged); past them the
+    key-tiled walk admits every short-query shape at D <= 128."""
     for Sq in (1, 13, 40, 64, 65):
-        for Skv in list(range(1, 300, 7)) + [196, 197, 200, 209, 210, 257, 258, 420]:
-            assert tiny_supported(Sq, Skv, D) == _supported_before(Sq, Skv, D), (Sq, Skv, D)
+        for Skv in list(range(1, 300, 7)) + [196, 197, 200, 209, 210, 257, 258, 420, 584]:
+            before = _supported_before(Sq, Skv, D)
+            if before:
+                assert tiny_walk(Sq, Skv, D) == RESIDENT, (Sq, Skv, D)
+            assert tiny_supported(Sq, Skv, D) == (before or (Sq <= 64 and D <= 128)), (Sq, Skv, D)
 
 
 def test_dtype_scale_is_the_rounded_scale():
@@ -185,3 +196,87 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert torch.equal(out, ref) and torch.equal(probs, ref_probs)
     assert (ta.tiny_attention_fwd.launches,
             dict(ta.tiny_attention_fwd.launches_by_route)) == before
+
+
+# ---- the key-tiled walk (the fusion cross-attention at 384 px: 40 x 584) ----
+
+def test_the_384px_fusion_shape_takes_the_key_tiled_walk():
+    from x2vlm_tpu.ops import tiny_attention as jta
+    assert jta.tiny_supported(32, 40, 584, 12, 64, has_mask=True, has_drop=True)
+    assert tiny_supported(40, 584, 64) and tiny_walk(40, 584, 64) == TILED
+    # the resident kernels' need there, above the limit on every route
+    assert smem_bytes(584, 64) > SMEM_LIMIT and bwd_smem_bytes(40, 584, 64) > SMEM_LIMIT
+    assert bwd_smem_bytes(40, 584, 64, TENSOR_CORE) > SMEM_LIMIT
+    # the tiled kernels' at the main path's shape (C formulas held equal on the card)
+    assert tiled_smem_bytes(40, 64, TENSOR_CORE) == 16640
+    assert tiled_bwd_smem_bytes(40, 64, TENSOR_CORE) == 41728
+    assert tiled_smem_bytes(40, 64) == 4 * (32 * 129 + 2 * 40 * 64 + 8 * 32)
+    assert tiled_bwd_smem_bytes(40, 64) == 4 * (2 * 32 * 65 + 3 * 40 * 64 + 2 * 40 * 32)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_tiny_supported_admits_every_shape_the_jax_rule_admits(D):
+    """On a grid of Sq <= 64, Skv <= 1024: whatever the JAX rule admits (at
+    the batch sizes and head counts of the fine-tune and the ITM rerank,
+    with and without mask and dropout), the port admits, and the port admits
+    every Sq <= 64 at D <= 128."""
+    from x2vlm_tpu.ops import tiny_attention as jta
+    for Sq in (1, 8, 16, 40, 64):
+        for Skv in sorted(set(range(8, 1025, 61)) | {40, 200, 577, 584, 1024}):
+            assert tiny_supported(Sq, Skv, D), (Sq, Skv, D)
+            for B, H in ((32, 12), (1024, 12), (32, 16)):
+                for mask, drop in ((True, True), (True, False), (False, False)):
+                    if jta.tiny_supported(B, Sq, Skv, H, D, has_mask=mask, has_drop=drop):
+                        assert tiny_supported(Sq, Skv, D), (B, Sq, Skv, H, D)
+    assert not tiny_supported(65, 584, D) and not jta.tiny_supported(32, 65, 584, 12, D)
+
+
+@pytest.mark.parametrize("Sq,D", [(1, 16), (40, 64), (64, 64), (64, 128), (13, 48)])
+def test_tiled_smem_does_not_grow_with_skv(Sq, D):
+    """The key-tiled formulas take no Skv; they fit a block at every Sq <= 64."""
+    for route in (CUDA_CORE, TENSOR_CORE):
+        assert 0 < tiled_smem_bytes(Sq, D, route) <= SMEM_LIMIT
+        assert 0 < tiled_bwd_smem_bytes(Sq, D, route) <= SMEM_LIMIT
+    assert tiny_walk(Sq, 4096, D) == TILED and tiny_supported(Sq, 4096, D)
+
+
+@pytest.mark.parametrize("wrapper", ["tiny_attention_fwd", "tiny_attention_bwd"])
+def test_wrappers_refuse_shapes_no_walk_takes(wrapper, monkeypatch):
+    """Past the resident shapes at Sq > 64 (or D > 128) neither walk fits:
+    the wrapper raises before it loads a library or counts a launch."""
+    monkeypatch.setattr(_build, "load", lambda name: pytest.fail("loaded a library"))
+    B, H, D, Sq, Skv = 2, 2, 64, 80, 600
+    q, g = (_Operand((B, Sq, H * D), BF16) for _ in range(2))
+    k, v = (_Operand((B, Skv, H * D), BF16) for _ in range(2))
+    fn = getattr(ta, wrapper)
+    before = (fn.launches, dict(fn.launches_by_walk))
+    with pytest.raises(ValueError, match="key-tiled walk"):
+        if wrapper == "tiny_attention_fwd":
+            fn(q, k, v, H, return_probs=True)
+        else:
+            fn(q, k, v, _Operand((B, Sq, H * Skv), F32), None, g, H)
+    assert (fn.launches, dict(fn.launches_by_walk)) == before
+
+
+def _faults_tool():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "tools" / "fusion384_faults.py"
+    spec = importlib.util.spec_from_file_location("fusion384_faults", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("variant", ["base", "model_pad_unmasked", "wrapper_mask_dropped",
+                                     "tc_mask_ignored", "tc_tile_dropped", "cc_tile_dropped"])
+def test_every_planted_fault_applies_to_the_source(variant):
+    """``tools/fusion384_faults.py`` plants faults in copies of the port to
+    read phase 8's hold on them; each patch text must be found once, and
+    only the base variant leaves the sources as they are."""
+    tool = _faults_tool()
+    assert variant in tool.VARIANTS
+    texts = tool.patched_sources(variant)
+    same = all(text == open(os.path.join(tool.ROOT, f)).read() for f, text in texts.items())
+    assert same == (variant == "base")

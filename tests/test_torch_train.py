@@ -173,10 +173,17 @@ def test_train_step_accumulation_is_the_mean_of_microbatch_gradients(jax_params)
     model = _port_model(jax_params)
     opt = create_optimizer(model, lr_schedule(1e-4, 1000, 100))
     step = make_train_step(model, opt, accum_steps=2)
+    accum, opt_step = {}, opt.step
+
+    def read_grads_then_step():   # the step clears .grad after the update
+        accum.update({n: p.grad.clone() for n, p in model.named_parameters()})
+        return opt_step()
+
+    opt.step = read_grads_then_step
     metrics = step(batch, torch.Generator().manual_seed(3), torch.Generator().manual_seed(4))
     assert set(metrics) == {"loss_itc", "loss_itm", "loss_mlm", "loss_total", "grad_norm"}
     assert all(torch.isfinite(v) for v in metrics.values())
-    accum = {n: p.grad.clone() for n, p in model.named_parameters()}
+    assert all(p.grad is None for p in model.parameters())
 
     ref = _port_model(jax_params).train()
     gen, dgen = torch.Generator().manual_seed(3), torch.Generator().manual_seed(4)

@@ -11,7 +11,14 @@ and the ITM rerank head. Slice 2 covers the pretraining step
 (``models.heads.XVLMForPretrain``: ITC + ITM with hard negatives + MLM;
 ``train.create_optimizer`` / ``train.make_train_step``). Attention runs in
 hand-written CUDA kernels, forward and backward (``ops/flash_attention.py``,
-``ops/tiny_attention.py``).
+``ops/tiny_attention.py``). Slice 3 adds int8 W8A8 serving
+(``ops/int8_matmul.py``). Slice 4 adds the launcher for the ``pretrain`` and
+``retrieval`` tasks (``python -m x2vlm_tpu_torch.run``) with what it
+needs: configs and their key registry (``core/``), the BERT WordPiece
+tokenizer, image decode and transforms, the data streams and datasets
+(``data/``), the model factory (``factory.py``), the reference ``.th``
+import and save / resume (``train/checkpoint.py``), the multi-stream step
+(``train/trainer.py``) and the tasks' loops (``tasks/``).
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (see ``device.resolve_device``).

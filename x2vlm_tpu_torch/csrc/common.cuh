@@ -56,6 +56,39 @@ inline int tiny_route(int dtype, int D) {
                                                            : kRouteCudaCore;
 }
 
+// ---- the tiny kernels' two walks over the keys (ops/tiny_attention.py `tiny_walk`) ----
+// Resident: a block holds its head's whole K and V (and, in the backward,
+// the whole (Sq, Skv) probability block) in shared memory. Taken wherever
+// the CUDA-core resident kernels of both directions fit, which bounds the
+// tensor-core ones: up to 257 keys at Sq = 40, D = 64. Tiled: beyond that
+// (the fusion cross-attention at 384 px, 40 x 584) the block walks the keys
+// in tiles and its shared memory does not grow with Skv; it takes Sq <= 64
+// (one 16-row query tile a warp) and D <= 128.
+enum TinyWalk : int { kWalkResident = 0, kWalkTiled = 1 };
+constexpr size_t kSmemLimit = 232448;  // bytes of shared memory one block may use
+constexpr int kTinyTiledMaxSq = 64;
+constexpr int kTinyTiledMaxD = 128;
+
+// Shared memory of the CUDA-core resident kernels (tiny_attention_fwd.cu:
+// 8 warps; tiny_attention_bwd.cu: 16 warps carrying 4 rows each).
+inline size_t tiny_fwd_resident_cc_smem(int Skv, int D) {
+  return sizeof(float) * (static_cast<size_t>(Skv) * (D + 1) + static_cast<size_t>(Skv) * D +
+                          8 * static_cast<size_t>(Skv) + 8 * static_cast<size_t>(D));
+}
+inline size_t tiny_bwd_resident_cc_smem(int Sq, int Skv, int D) {
+  const size_t kv = static_cast<size_t>(Skv) * 2 * (D + 1);
+  const size_t gq = static_cast<size_t>(Sq) * 2 * D;
+  return sizeof(float) * ((kv > gq ? kv : gq) + 2 * static_cast<size_t>(Sq) * Skv +
+                          16 * 4 * static_cast<size_t>(D));
+}
+
+inline int tiny_walk(int Sq, int Skv, int D) {
+  return D <= 256 && tiny_fwd_resident_cc_smem(Skv, D) <= kSmemLimit &&
+                 tiny_bwd_resident_cc_smem(Sq, Skv, D) <= kSmemLimit
+             ? kWalkResident
+             : kWalkTiled;
+}
+
 // ---- the flash kernels' routes (ops/flash_attention.py `flash_route`) ----
 // One rule for the forward, dQ, dK/dV and dBias: bf16 at head dim 64 (the
 // main path) runs on the tensor cores; fp32 (any D) and bf16 at the other

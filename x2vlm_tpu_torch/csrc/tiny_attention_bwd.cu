@@ -84,12 +84,8 @@ constexpr int kMaxDPerLane = 8;  // head dims up to 256
 constexpr int kRows = 4;         // query rows a warp carries at once (phase 1)
 constexpr int kKeys = 4;         // keys a warp carries at once (phase 2)
 
-size_t smem_bytes(int Sq, int Skv, int D) {
-  const size_t kv = static_cast<size_t>(Skv) * 2 * (D + 1);
-  const size_t gq = static_cast<size_t>(Sq) * 2 * D;
-  return sizeof(float) * ((kv > gq ? kv : gq) + 2 * static_cast<size_t>(Sq) * Skv +
-                          static_cast<size_t>(kWarps) * kRows * D);
-}
+static_assert(kWarps == 16 && kRows == 4, "x2::tiny_bwd_resident_cc_smem counts 16 x 4 rows");
+size_t smem_bytes(int Sq, int Skv, int D) { return x2::tiny_bwd_resident_cc_smem(Sq, Skv, D); }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -261,6 +257,157 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* prob
       tiny_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   tiny_bwd_kernel<T><<<dim3(H, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(probs), dmask, dmask_kind, static_cast<const T*>(g),
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, H, D, scale);
+  return cudaGetLastError();
+}
+
+// Key-tiled walk (x2::tiny_walk; Sq <= 64, D <= 128): 256 threads, the
+// keys kTileKeys at a time, one a lane. g, Qs and the dQ sums (Sq x D
+// each) stay in shared memory; per tile only its K and V rows and the
+// tile's dL and Pu columns. Pass 1 over the V tiles: rowsum(dP * dm * P) of
+// each row (each warp its rows, each lane its keys, then a warp sum). Pass
+// 2 over K and V tiles: dL and Pu of the tile's columns, then dQ += dL . K
+// (threads over (row, d)) and the tile's dK = dL^T . Qs, dV = Pu^T . g
+// (threads over (key, d)), stored at once: no other block has those keys.
+constexpr int kTiledThreads = 256;
+constexpr int kTiledWarps = kTiledThreads / 32;
+constexpr int kTileKeys = 32;
+constexpr int kMaxRows = x2::kTinyTiledMaxSq / kTiledWarps;
+
+size_t tiled_smem_bytes(int Sq, int D) {
+  return sizeof(float) * (2 * static_cast<size_t>(kTileKeys) * (D + 1) +
+                          3 * static_cast<size_t>(Sq) * D + 2 * static_cast<size_t>(Sq) * kTileKeys);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTiledThreads)
+tiny_bwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const float* __restrict__ probs, const void* __restrict__ dmask,
+                      int dmask_kind, const T* __restrict__ g, T* __restrict__ dq,
+                      T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv, int H, int D,
+                      float scale) {
+  extern __shared__ float smem[];
+  const int LD = D + 1;
+  float* Ks = smem;                        // kTileKeys x LD
+  float* Vs = Ks + kTileKeys * LD;         // kTileKeys x LD
+  float* Gs = Vs + kTileKeys * LD;         // Sq x D
+  float* Qs = Gs + Sq * D;                 // Sq x D: q * scale
+  float* dQ = Qs + Sq * D;                 // Sq x D: dL . K sums
+  float* dL = dQ + Sq * D;                 // Sq x kTileKeys
+  float* Pu = dL + Sq * kTileKeys;         // Sq x kTileKeys: P * dm
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int HD = H * D;
+  const long long kv_base = static_cast<long long>(b) * Skv * HD + static_cast<long long>(h) * D;
+  const long long q_base = static_cast<long long>(b) * Sq * HD + static_cast<long long>(h) * D;
+  const long long prow_stride = static_cast<long long>(H) * Skv;
+  const long long p_base = static_cast<long long>(b) * Sq * prow_stride +
+                           static_cast<long long>(h) * Skv;
+
+  for (int i = tid; i < Sq * D; i += kTiledThreads) {
+    const int r = i / D, d = i - r * D;
+    const long long gi = q_base + static_cast<long long>(r) * HD + d;
+    Gs[i] = x2::to_f(g[gi]);
+    Qs[i] = x2::to_f(x2::from_f<T>(x2::to_f(q[gi]) * scale));  // as the forward rounds it
+    dQ[i] = 0.f;
+  }
+  auto stage = [&](int t0, bool with_k) {
+    __syncthreads();  // the previous tile is no longer read
+    const int rows = min(kTileKeys, Skv - t0);
+    for (int i = tid; i < kTileKeys * D; i += kTiledThreads) {
+      const int j = i / D, d = i - j * D;
+      const long long gi = kv_base + static_cast<long long>(t0 + j) * HD + d;
+      Vs[j * LD + d] = j < rows ? x2::to_f(v[gi]) : 0.f;
+      if (with_k) Ks[j * LD + d] = j < rows ? x2::to_f(k[gi]) : 0.f;
+    }
+    __syncthreads();
+  };
+  auto dp_at = [&](int r) {  // (g . V^T) at row r and the lane's key of the tile
+    const float* gr = Gs + r * D;
+    const float* vr = Vs + lane * LD;
+    float s = 0.f;
+    for (int d = 0; d < D; ++d) s = fmaf(gr[d], vr[d], s);
+    return s;
+  };
+
+  float dot[kMaxRows];  // rowsum(dP * dm * P) of the warp's rows
+#pragma unroll
+  for (int i = 0; i < kMaxRows; ++i) dot[i] = 0.f;
+  for (int t0 = 0; t0 < Skv; t0 += kTileKeys) {  // pass 1
+    stage(t0, false);
+    const int j = t0 + lane;
+#pragma unroll
+    for (int i = 0; i < kMaxRows; ++i) {
+      const int r = warp + kTiledWarps * i;
+      if (r < Sq && j < Skv) {
+        const long long pi = p_base + static_cast<long long>(r) * prow_stride + j;
+        const float m = dmask != nullptr ? x2::load_operand(dmask, dmask_kind, pi) : 1.f;
+        dot[i] = fmaf(dp_at(r) * m, probs[pi], dot[i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxRows; ++i) dot[i] = x2::warp_sum(dot[i]);
+
+  for (int t0 = 0; t0 < Skv; t0 += kTileKeys) {  // pass 2
+    stage(t0, true);
+    const int j = t0 + lane;
+#pragma unroll
+    for (int i = 0; i < kMaxRows; ++i) {
+      const int r = warp + kTiledWarps * i;
+      if (r >= Sq) continue;
+      float dl = 0.f, pu = 0.f;
+      if (j < Skv) {
+        const long long pi = p_base + static_cast<long long>(r) * prow_stride + j;
+        const float m = dmask != nullptr ? x2::load_operand(dmask, dmask_kind, pi) : 1.f;
+        const float p = probs[pi];
+        dl = p * (dp_at(r) * m - dot[i]);
+        pu = p * m;
+      }
+      dL[r * kTileKeys + lane] = dl;
+      Pu[r * kTileKeys + lane] = pu;
+    }
+    __syncthreads();
+    for (int i = tid; i < Sq * D; i += kTiledThreads) {
+      const int r = i / D, d = i - r * D;
+      float a = dQ[i];
+      for (int jj = 0; jj < kTileKeys; ++jj) a = fmaf(dL[r * kTileKeys + jj], Ks[jj * LD + d], a);
+      dQ[i] = a;
+    }
+    const int rows = min(kTileKeys, Skv - t0);
+    for (int i = tid; i < rows * D; i += kTiledThreads) {
+      const int jj = i / D, d = i - jj * D;
+      float ak = 0.f, av = 0.f;
+      for (int r = 0; r < Sq; ++r) {
+        ak = fmaf(dL[r * kTileKeys + jj], Qs[r * D + d], ak);
+        av = fmaf(Pu[r * kTileKeys + jj], Gs[r * D + d], av);
+      }
+      const long long gi = kv_base + static_cast<long long>(t0 + jj) * HD + d;
+      dk[gi] = x2::from_f<T>(ak);
+      dv[gi] = x2::from_f<T>(av);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < Sq * D; i += kTiledThreads) {
+    const int r = i / D, d = i - r * D;
+    dq[q_base + static_cast<long long>(r) * HD + d] = x2::from_f<T>(dQ[i] * scale);
+  }
+}
+
+template <typename T>
+cudaError_t launch_tiled(const void* q, const void* k, const void* v, const void* probs,
+                         const void* dmask, int dmask_kind, const void* g, void* dq, void* dk,
+                         void* dv, int B, int Sq, int Skv, int H, int D, float scale,
+                         cudaStream_t stream) {
+  const size_t smem = tiled_smem_bytes(Sq, D);
+  cudaError_t err = cudaFuncSetAttribute(tiny_bwd_tiled_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  tiny_bwd_tiled_kernel<T><<<dim3(H, B), kTiledThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const float*>(probs), dmask, dmask_kind, static_cast<const T*>(g),
       static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, H, D, scale);
@@ -593,10 +740,258 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* prob
   return cudaGetLastError();
 }
 
+// Key-tiled walk (x2::tiny_walk; Sq <= 64, so each warp owns at most one
+// 16-row query tile). g and Qs are staged once; the keys come kKeyTile at
+// a time. Pass 1 over the V tiles: dP = g . V^T and rowsum(dP * dm * P),
+// P and dm read straight from device memory (each element once in this
+// pass). Pass 2 over K and V tiles with the tile's P block in W: the
+// resident kernel's pass 2 (dL and Pu rewritten into W, dQ += dL . K in
+// registers across tiles), a barrier, then its dK / dV tasks on the tile's
+// keys, which no other block has. Shared memory is one K / V tile, g, Qs
+// and the tile's P block, whatever Skv (41,728 B at Sq = 40, D = 64).
+constexpr int kKeyTile = 64;
+
+size_t tiled_smem_bytes(int Sq, int D) {
+  const size_t sq = x2::round_up16(Sq);
+  return sizeof(bf16) * (2 * kKeyTile + 2 * sq) * x2::tile_ld(D) +
+         sizeof(float) * sq * (kKeyTile + 4);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+bwd_tiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const float* __restrict__ probs,
+                 const void* __restrict__ dmask, int dmask_kind, const bf16* __restrict__ g,
+                 bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
+                 int Skv, int H, float scale) {
+  using L = x2::TileLayout<D>;  // K, V, g, Qs
+  constexpr int KS = D / 16;
+  constexpr int NT = D / 8;
+  constexpr int LDW = kKeyTile + 4;  // W row stride (words)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Sq16 = x2::round_up16(Sq);
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);             // kKeyTile rows
+  bf16* Vs = Ks + kKeyTile * L::kLD;                        // kKeyTile rows
+  bf16* Gs = Vs + kKeyTile * L::kLD;                        // Sq16 rows
+  bf16* Qs = Gs + Sq16 * L::kLD;                            // Sq16 rows
+  float* W = reinterpret_cast<float*>(Qs + Sq16 * L::kLD);  // Sq16 x LDW
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, t = lane & 3;
+  const int HD = H * D;
+  const long long kv_base = static_cast<long long>(b) * Skv * HD + static_cast<long long>(h) * D;
+  const long long q_base = static_cast<long long>(b) * Sq * HD + static_cast<long long>(h) * D;
+  const long long prow_stride = static_cast<long long>(H) * Skv;
+  const long long p_base = static_cast<long long>(b) * Sq * prow_stride +
+                           static_cast<long long>(h) * Skv;
+
+  x2::stage_rows<D>(Gs, g + q_base, Sq, Sq16, HD, tid, kThreads);
+  x2::cp_async_commit();
+  constexpr int kRowChunks = D / 8;  // Qs = q * scale rounded to bf16; rows past Sq are zeros
+  for (int i = tid; i < Sq16 * kRowChunks; i += kThreads) {
+    const int r = i / kRowChunks, c = (i % kRowChunks) * 8;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (r < Sq) {
+      raw = *reinterpret_cast<const uint4*>(q + q_base + static_cast<long long>(r) * HD + c);
+      unsigned* w = reinterpret_cast<unsigned*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 x = x2::unpack_bf16(w[e]);
+        w[e] = x2::pack_bf16(x.x * scale, x.y * scale);
+      }
+    }
+    *reinterpret_cast<uint4*>(Qs + L::off(r, c)) = raw;
+  }
+
+  const bool vec = (Skv & 1) == 0;
+  const int r0 = 16 * warp;
+  const bool valid = r0 < Sq;
+  const bool row_ok[2] = {r0 + gr < Sq, r0 + gr + 8 < Sq};
+  const long long prow[2] = {p_base + (r0 + gr) * prow_stride,
+                             p_base + (r0 + gr + 8) * prow_stride};
+
+  // keys t0 .. t0 + kKeyTile - 1: V, and with_kp K and the P block into W;
+  // returns the tile's 16-key groups
+  auto stage = [&](int t0, bool with_kp) -> int {
+    __syncthreads();  // the previous tile is no longer read
+    const int rows = min(kKeyTile, Skv - t0);
+    x2::stage_rows<D>(Vs, v + kv_base + static_cast<long long>(t0) * HD, rows, kKeyTile, HD, tid,
+                      kThreads);
+    if (with_kp) {
+      x2::stage_rows<D>(Ks, k + kv_base + static_cast<long long>(t0) * HD, rows, kKeyTile, HD,
+                        tid, kThreads);
+      if ((Skv & 3) == 0) {  // P rows start 16-byte aligned
+        constexpr int chunks = kKeyTile / 4;
+        for (int i = tid; i < Sq16 * chunks; i += kThreads) {
+          const int r = i / chunks, c = (i - r * chunks) * 4;
+          const bool ok = r < Sq && c < rows;
+          x2::cp_async16(W + r * LDW + c, probs + p_base + (ok ? r * prow_stride + t0 + c : 0),
+                         ok ? 16 : 0);
+        }
+      } else {
+        for (int i = tid; i < Sq16 * kKeyTile; i += kThreads) {
+          const int r = i / kKeyTile, c = i - r * kKeyTile;
+          const bool ok = r < Sq && c < rows;
+          x2::cp_async4(W + r * LDW + c, probs + p_base + (ok ? r * prow_stride + t0 + c : 0),
+                        ok ? 4 : 0);
+        }
+      }
+    }
+    x2::cp_async_commit();
+    x2::cp_async_wait_all();
+    __syncthreads();
+    return x2::round_up16(rows) / 16;
+  };
+  auto mult = [&](int j, int R) -> float2 {  // dm at keys j, j + 1 of row gr + 8R
+    if (dmask == nullptr) return make_float2(1.f, 1.f);
+    return x2::load_pair(dmask, dmask_kind, prow[R] + j, row_ok[R] && j < Skv,
+                         row_ok[R] && j + 1 < Skv, vec);
+  };
+
+  unsigned ga[KS][4];  // g rows r0 .. r0 + 15 as A fragments
+  float dot[2] = {0.f, 0.f};  // rowsum(dP * dm * P) of rows gr and gr + 8
+  for (int t0 = 0; t0 < Skv; t0 += kKeyTile) {  // pass 1
+    const int ng = stage(t0, false);
+    if (!valid) continue;
+    if (t0 == 0) {
+#pragma unroll
+      for (int s = 0; s < KS; ++s)
+        x2::ldmatrix_x4(ga[s], Gs + L::off(r0 + (lane & 15), 16 * s + ((lane >> 4) << 3)));
+    }
+    for (int gi = 0; gi < ng; ++gi) {
+      float c[8];
+      x2::mma_abt<D>(c, ga, Vs, 16 * gi, lane);
+#pragma unroll
+      for (int T = 0; T < 2; ++T)
+#pragma unroll
+        for (int R = 0; R < 2; ++R) {
+          const int j = t0 + 16 * gi + 8 * T + 2 * t;
+          const float2 p = x2::load_pair(probs, x2::kOperandF32, prow[R] + j,
+                                         row_ok[R] && j < Skv, row_ok[R] && j + 1 < Skv, vec);
+          const float2 m = mult(j, R);
+          dot[R] += c[4 * T + 2 * R] * m.x * p.x + c[4 * T + 2 * R + 1] * m.y * p.y;
+        }
+    }
+  }
+#pragma unroll
+  for (int R = 0; R < 2; ++R) {
+    dot[R] += __shfl_xor_sync(0xffffffffu, dot[R], 1);
+    dot[R] += __shfl_xor_sync(0xffffffffu, dot[R], 2);
+  }
+
+  float acc[NT][4];  // dQs of the warp's rows
+#pragma unroll
+  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  bf16* Os = Ks + warp * 16 * L::kLD;  // the warp's output tile in K's space (dead by then)
+  for (int t0 = 0; t0 < Skv; t0 += kKeyTile) {  // pass 2
+    const int ng = stage(t0, true);
+    if (valid) {
+      for (int gi = 0; gi < ng; ++gi) {
+        const int n0 = 16 * gi;
+        float c[8], pu[8];
+        x2::mma_abt<D>(c, ga, Vs, n0, lane);
+#pragma unroll
+        for (int T = 0; T < 2; ++T)
+#pragma unroll
+          for (int R = 0; R < 2; ++R) {
+            const float2 p = *reinterpret_cast<const float2*>(W + (r0 + gr + 8 * R) * LDW + n0 +
+                                                              8 * T + 2 * t);
+            const float2 m = mult(t0 + n0 + 8 * T + 2 * t, R);
+            float* cc = c + 4 * T + 2 * R;
+            float* uu = pu + 4 * T + 2 * R;
+            cc[0] = p.x * (cc[0] * m.x - dot[R]);
+            cc[1] = p.y * (cc[1] * m.y - dot[R]);
+            uu[0] = p.x * m.x;
+            uu[1] = p.y * m.y;
+          }
+        unsigned la[4], ua[4];
+        x2::pack_a(la, c);
+        x2::pack_a(ua, pu);
+        __syncwarp();  // every lane has read this group's P before it becomes dL | Pu
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {  // a[i]: row gr + 8 (i & 1), keys n0 + 8 (i >> 1) + 2t
+          unsigned* w = reinterpret_cast<unsigned*>(W + (r0 + gr + 8 * (i & 1)) * LDW + n0);
+          w[4 * (i >> 1) + t] = la[i];      // dL: bf16 key 8 (i >> 1) + 2t of the group
+          w[8 + 4 * (i >> 1) + t] = ua[i];  // Pu: 32 bytes on
+        }
+        x2::mma_ab<D>(acc, la, Ks, n0, lane);
+      }
+    }
+    __syncthreads();  // every dL / Pu row of the tile is in W; K and V are no longer read
+    // dK = dL^T . Qs and dV = Pu^T . g for the tile's keys, 16 keys by D per task
+    for (int task = warp; task < 2 * ng; task += kWarps) {
+      const int m0 = (task >> 1) * 16;
+      const bool is_dv = task & 1;
+      const unsigned char* A = reinterpret_cast<const unsigned char*>(W + m0) + (is_dv ? 32 : 0);
+      const bf16* Bm = is_dv ? Gs : Qs;
+      float o[NT][4];
+#pragma unroll
+      for (int i = 0; i < NT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+      for (int k0 = 0; k0 < Sq16; k0 += 16) {
+        unsigned a[4];
+        x2::ldmatrix_x4_trans(a, A + (k0 + (lane & 7) + ((lane >> 4) << 3)) * LDW * 4 +
+                                     (lane & 8) * 2);
+        x2::mma_ab<D>(o, a, Bm, k0, lane);
+      }
+      // through the warp's 16-row tile, so the rows go out as 16-byte stores
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        *reinterpret_cast<unsigned*>(Os + L::off(gr, 8 * nt) + 2 * t) =
+            x2::pack_bf16(o[nt][0], o[nt][1]);
+        *reinterpret_cast<unsigned*>(Os + L::off(gr + 8, 8 * nt) + 2 * t) =
+            x2::pack_bf16(o[nt][2], o[nt][3]);
+      }
+      __syncwarp();
+      bf16* dst = (is_dv ? dv : dk) + kv_base;
+#pragma unroll
+      for (int i = lane; i < 16 * (D / 8); i += 32) {
+        const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+        const int key = t0 + m0 + r;
+        if (key < Skv)
+          *reinterpret_cast<uint4*>(dst + static_cast<long long>(key) * HD + c) =
+              *reinterpret_cast<const uint4*>(Os + L::off(r, c));
+      }
+      __syncwarp();  // the tile is rewritten by the warp's next task
+    }
+  }
+  if (!valid) return;
+  bf16* qrow = dq + q_base + static_cast<long long>(r0 + gr) * HD;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int d = 8 * nt + 2 * t;
+    if (row_ok[0])
+      *reinterpret_cast<unsigned*>(qrow + d) = x2::pack_bf16(acc[nt][0] * scale, acc[nt][1] * scale);
+    if (row_ok[1])
+      *reinterpret_cast<unsigned*>(qrow + 8LL * HD + d) =
+          x2::pack_bf16(acc[nt][2] * scale, acc[nt][3] * scale);
+  }
+}
+
+template <int D>
+cudaError_t launch_tiled(const void* q, const void* k, const void* v, const void* probs,
+                         const void* dmask, int dmask_kind, const void* g, void* dq, void* dk,
+                         void* dv, int B, int Sq, int Skv, int H, float scale,
+                         cudaStream_t stream) {
+  const size_t smem = tiled_smem_bytes(Sq, D);
+  auto kernel = bwd_tiled_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(H, B), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(probs), dmask, dmask_kind, static_cast<const bf16*>(g),
+      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, H, scale);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const void* probs,
                      const void* dmask, int dmask_kind, const void* g, void* dq, void* dk,
                      void* dv, int B, int Sq, int Skv, int H, float scale, cudaStream_t st) {
+  if (x2::tiny_walk(Sq, Skv, D) == x2::kWalkTiled)
+    return launch_tiled<D>(q, k, v, probs, dmask, dmask_kind, g, dq, dk, dv, B, Sq, Skv, H, scale,
+                           st);
   if constexpr (D <= 64) {  // registers: the multipliers beside g and dQ
     if (dmask != nullptr && dmask_kind == x2::kOperandBF16 &&
         x2::round_up16(Skv) <= 16 * kRegGroups)
@@ -646,6 +1041,16 @@ extern "C" long long x2_tiny_attention_bwd_smem_bytes(int Sq, int Skv, int D, in
                                                               : smem_bytes(Sq, Skv, D));
 }
 
+// The walk (x2::TinyWalk) both kernels take at (Sq, Skv, D).
+extern "C" int x2_tiny_attention_walk(int Sq, int Skv, int D) { return x2::tiny_walk(Sq, Skv, D); }
+
+// Shared memory (bytes) one block of the key-tiled walk on `route` needs;
+// it does not depend on Skv (ops/tiny_attention.py `tiled_bwd_smem_bytes`).
+extern "C" long long x2_tiny_attention_bwd_tiled_smem_bytes(int Sq, int D, int route) {
+  return static_cast<long long>(route == x2::kRouteTensorCore ? tc::tiled_smem_bytes(Sq, D)
+                                                              : tiled_smem_bytes(Sq, D));
+}
+
 // q, g, dq: (B, Sq, H*D); k, v, dk, dv: (B, Skv, H*D); all contiguous, dtype
 // `dtype` (x2::DType); on the tensor-core route every operand 16-byte
 // aligned. probs: (B, Sq, H*Skv) f32, the forward's pre-dropout
@@ -661,10 +1066,18 @@ extern "C" int x2_tiny_attention_bwd(const void* q, const void* k, const void* v
     return cudaErrorInvalidValue;
   if (dmask != nullptr && dmask_kind != x2::kOperandF32 && dmask_kind != x2::kOperandBF16)
     return cudaErrorInvalidValue;
+  const bool tiled = x2::tiny_walk(Sq, Skv, D) == x2::kWalkTiled;
+  if (tiled && (Sq > x2::kTinyTiledMaxSq || D > x2::kTinyTiledMaxD)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x2::tiny_route(dtype, D) == x2::kRouteTensorCore)
     return static_cast<int>(tc::dispatch(q, k, v, probs, dmask, dmask_kind, g, dq, dk, dv, B,
                                          Sq, Skv, H, D, scale, st));
+  if (tiled && dtype == x2::kF32)
+    return static_cast<int>(launch_tiled<float>(q, k, v, probs, dmask, dmask_kind, g, dq, dk, dv,
+                                                B, Sq, Skv, H, D, scale, st));
+  if (tiled && dtype == x2::kBF16)
+    return static_cast<int>(launch_tiled<__nv_bfloat16>(q, k, v, probs, dmask, dmask_kind, g, dq,
+                                                        dk, dv, B, Sq, Skv, H, D, scale, st));
   if (dtype == x2::kF32)
     return static_cast<int>(launch<float>(q, k, v, probs, dmask, dmask_kind, g, dq, dk, dv, B,
                                           Sq, Skv, H, D, scale, st));

@@ -65,10 +65,8 @@ using bf16 = __nv_bfloat16;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-size_t smem_bytes(int Skv, int D) {
-  return sizeof(float) * (static_cast<size_t>(Skv) * (D + 1) + static_cast<size_t>(Skv) * D +
-                          static_cast<size_t>(kWarps) * Skv + static_cast<size_t>(kWarps) * D);
-}
+static_assert(kWarps == 8, "x2::tiny_fwd_resident_cc_smem counts 8 warps");
+size_t smem_bytes(int Skv, int D) { return x2::tiny_fwd_resident_cc_smem(Skv, D); }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -158,6 +156,143 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* key_
   if (err != cudaSuccess) return err;
   const dim3 grid(H, B);
   tiny_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(key_mask), dmask, dmask_kind, static_cast<T*>(out),
+      static_cast<float*>(probs), Sq, Skv, H, D, scale);
+  return cudaGetLastError();
+}
+
+// Key-tiled walk (x2::tiny_walk): kTileKeys keys at a time, one a lane, so
+// shared memory holds one K / V tile, the block's scaled query rows and
+// their output sums (Sq <= 64: each warp owns at most kMaxRows rows). Two
+// passes over the tiles: the row max and sum (each lane its keys, merged by
+// shuffles), then P, its store, the multiplier and P . V into the sums.
+constexpr int kTileKeys = 32;
+constexpr int kMaxRows = x2::kTinyTiledMaxSq / kWarps;
+constexpr float kPadLogit = -3.0e38f;  // a lane with no key yet: below any real or masked logit
+
+size_t tiled_smem_bytes(int Sq, int D) {
+  return sizeof(float) * (static_cast<size_t>(kTileKeys) * (2 * D + 1) +
+                          2 * static_cast<size_t>(Sq) * D + static_cast<size_t>(kWarps) * kTileKeys);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+tiny_fwd_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const uint8_t* __restrict__ key_mask, const void* __restrict__ dmask,
+                      int dmask_kind, T* __restrict__ out, float* __restrict__ probs, int Sq,
+                      int Skv, int H, int D, float scale) {
+  extern __shared__ float smem[];
+  const int LD = D + 1;
+  float* Ks = smem;                   // kTileKeys x LD
+  float* Vs = Ks + kTileKeys * LD;    // kTileKeys x D
+  float* Qs = Vs + kTileKeys * D;     // Sq x D: q * scale
+  float* Os = Qs + Sq * D;            // Sq x D: the rows' P . V sums
+  float* Pw = Os + Sq * D;            // kWarps x kTileKeys: each warp's probabilities
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int HD = H * D;
+  const long long kv_base = static_cast<long long>(b) * Skv * HD + static_cast<long long>(h) * D;
+  const long long q_base = static_cast<long long>(b) * Sq * HD + static_cast<long long>(h) * D;
+  const long long prow_stride = static_cast<long long>(H) * Skv;
+  const long long p_base = static_cast<long long>(b) * Sq * prow_stride +
+                           static_cast<long long>(h) * Skv;
+  const uint8_t* km = key_mask != nullptr ? key_mask + static_cast<long long>(b) * Skv : nullptr;
+
+  for (int i = tid; i < Sq * D; i += kThreads) {
+    const int r = i / D, d = i - r * D;
+    Qs[i] = x2::to_f(x2::from_f<T>(x2::to_f(q[q_base + static_cast<long long>(r) * HD + d]) * scale));
+    Os[i] = 0.f;
+  }
+  auto stage = [&](int t0, bool with_v) {
+    __syncthreads();  // the previous tile is no longer read
+    const int rows = min(kTileKeys, Skv - t0);
+    for (int i = tid; i < kTileKeys * D; i += kThreads) {
+      const int j = i / D, d = i - j * D;
+      const long long gi = kv_base + static_cast<long long>(t0 + j) * HD + d;
+      Ks[j * LD + d] = j < rows ? x2::to_f(k[gi]) : 0.f;
+      if (with_v) Vs[j * D + d] = j < rows ? x2::to_f(v[gi]) : 0.f;
+    }
+    __syncthreads();
+  };
+  auto logit = [&](int r, int j) {  // row r, key j = t0 + lane (< Skv)
+    const float* qr = Qs + r * D;
+    const float* kr = Ks + lane * LD;
+    float s = 0.f;
+    for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
+    return km != nullptr && km[j] == 0 ? s + x2::kNegInf : s;
+  };
+
+  float m[kMaxRows], l[kMaxRows];
+#pragma unroll
+  for (int i = 0; i < kMaxRows; ++i) {
+    m[i] = kPadLogit;
+    l[i] = 0.f;
+  }
+  for (int t0 = 0; t0 < Skv; t0 += kTileKeys) {  // pass 1
+    stage(t0, false);
+    const int j = t0 + lane;
+#pragma unroll
+    for (int i = 0; i < kMaxRows; ++i) {
+      const int r = warp + kWarps * i;
+      if (r < Sq && j < Skv) {
+        const float s = logit(r, j);
+        const float mn = fmaxf(m[i], s);
+        l[i] = l[i] * expf(m[i] - mn) + expf(s - mn);
+        m[i] = mn;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kMaxRows; ++i) {
+    const float mx = x2::warp_max(m[i]);
+    l[i] = x2::warp_sum(l[i] * expf(m[i] - mx));
+    m[i] = mx;
+  }
+  float* pw = Pw + warp * kTileKeys;
+  for (int t0 = 0; t0 < Skv; t0 += kTileKeys) {  // pass 2
+    stage(t0, true);
+    const int j = t0 + lane;
+#pragma unroll
+    for (int i = 0; i < kMaxRows; ++i) {
+      const int r = warp + kWarps * i;
+      if (r >= Sq) continue;
+      float p = 0.f;
+      if (j < Skv) {
+        const long long pi = p_base + static_cast<long long>(r) * prow_stride + j;
+        p = expf(logit(r, j) - m[i]) / l[i];
+        if (probs != nullptr) probs[pi] = p;
+        if (dmask != nullptr) p *= x2::load_operand(dmask, dmask_kind, pi);
+      }
+      pw[lane] = p;
+      __syncwarp();
+      float* orow = Os + r * D;
+      for (int d = lane; d < D; d += 32) {
+        float o = orow[d];
+        for (int jj = 0; jj < kTileKeys; ++jj) o = fmaf(pw[jj], Vs[jj * D + d], o);
+        orow[d] = o;
+      }
+      __syncwarp();  // pw is rewritten for the next row
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < Sq * D; i += kThreads) {
+    const int r = i / D, d = i - r * D;
+    out[q_base + static_cast<long long>(r) * HD + d] = x2::from_f<T>(Os[i]);
+  }
+}
+
+template <typename T>
+cudaError_t launch_tiled(const void* q, const void* k, const void* v, const void* key_mask,
+                         const void* dmask, int dmask_kind, void* out, void* probs, int B, int Sq,
+                         int Skv, int H, int D, float scale, cudaStream_t stream) {
+  const size_t smem = tiled_smem_bytes(Sq, D);
+  cudaError_t err = cudaFuncSetAttribute(tiny_fwd_tiled_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  tiny_fwd_tiled_kernel<T><<<dim3(H, B), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(key_mask), dmask, dmask_kind, static_cast<T*>(out),
       static_cast<float*>(probs), Sq, Skv, H, D, scale);
@@ -503,10 +638,269 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* key_
   return cudaGetLastError();
 }
 
+// Key-tiled walk (x2::tiny_walk; Sq <= 64, so each warp owns at most one
+// 16-row query tile): the block stages kKeyTile keys at a time (K, V and
+// their logit biases, by cp.async) and every warp runs the group steps of
+// the resident kernel on that tile before the block moves on. Serving: one
+// walk, the online softmax's max, sum and output tile carried from tile to
+// tile; with probabilities: pass 1 over the K tiles for the row max and
+// sum, pass 2 over K and V tiles for P, its store and P . V. Shared memory
+// is one tile, whatever Skv (16,640 B at D = 64).
+constexpr int kKeyTile = 64;
+
+size_t tiled_smem_bytes(int D) {
+  return sizeof(bf16) * 2 * kKeyTile * x2::tile_ld(D) + sizeof(float) * kKeyTile;
+}
+
+template <int D, bool kOnePass>
+__global__ void __launch_bounds__(kThreads)
+fwd_tiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const uint8_t* __restrict__ key_mask,
+                 const void* __restrict__ dmask, int dmask_kind, bf16* __restrict__ out,
+                 float* __restrict__ probs, int Sq, int Skv, int H, float scale) {
+  using L = x2::TileLayout<D>;
+  constexpr int KS = D / 16;
+  constexpr int NT = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);                    // kKeyTile rows
+  bf16* Vs = Ks + kKeyTile * L::kLD;                               // kKeyTile rows
+  float* kbias = reinterpret_cast<float*>(Vs + kKeyTile * L::kLD);  // kKeyTile
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int HD = H * D;
+  const long long kv_base = static_cast<long long>(b) * Skv * HD + static_cast<long long>(h) * D;
+  const uint8_t* km = key_mask != nullptr ? key_mask + static_cast<long long>(b) * Skv : nullptr;
+  const long long prow_stride = static_cast<long long>(H) * Skv;
+  const bool vec = (Skv & 1) == 0;
+  const int r0 = 16 * warp;
+  const bool valid = r0 < Sq;
+  const bool row_ok[2] = {r0 + g < Sq, r0 + g + 8 < Sq};
+  const long long rb = static_cast<long long>(b) * Sq + r0 + g;
+  const long long prow[2] = {rb * prow_stride + static_cast<long long>(h) * Skv,
+                             (rb + 8) * prow_stride + static_cast<long long>(h) * Skv};
+
+  unsigned qa[KS][4];  // q * scale of the warp's 16 rows, rounded to bf16, as A fragments
+  if (valid) {
+    const bf16* qb = q + rb * HD + static_cast<long long>(h) * D;
+    auto pair = [&](int R, int d) -> unsigned {
+      if (!row_ok[R]) return 0u;
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(qb + 8LL * R * HD + d));
+      return x2::pack_bf16(x.x * scale, x.y * scale);
+    };
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      qa[s][0] = pair(0, 16 * s + 2 * t);
+      qa[s][1] = pair(1, 16 * s + 2 * t);
+      qa[s][2] = pair(0, 16 * s + 8 + 2 * t);
+      qa[s][3] = pair(1, 16 * s + 8 + 2 * t);
+    }
+  }
+  // keys t0 .. t0 + kKeyTile - 1 into shared memory; returns the tile's 16-key groups
+  auto stage = [&](int t0, bool with_v) -> int {
+    __syncthreads();  // the previous tile is no longer read
+    const int rows = min(kKeyTile, Skv - t0);
+    x2::stage_rows<D>(Ks, k + kv_base + static_cast<long long>(t0) * HD, rows, kKeyTile, HD, tid,
+                      kThreads);
+    if (with_v)
+      x2::stage_rows<D>(Vs, v + kv_base + static_cast<long long>(t0) * HD, rows, kKeyTile, HD,
+                        tid, kThreads);
+    x2::cp_async_commit();
+    for (int j = tid; j < kKeyTile; j += kThreads)
+      kbias[j] = j >= rows ? kPadLogit
+                           : (km != nullptr && km[t0 + j] == 0 ? x2::kNegInf : 0.f);
+    x2::cp_async_wait_all();
+    __syncthreads();
+    return x2::round_up16(rows) / 16;
+  };
+  // biased logits of the 16 keys of the tile's group gi (layout as above)
+  auto logits16 = [&](int gi, float (&c)[8]) {
+    const int n0 = 16 * gi;
+    x2::mma_abt<D>(c, qa, Ks, n0, lane);
+#pragma unroll
+    for (int T = 0; T < 2; ++T) {
+      const float2 a = *reinterpret_cast<const float2*>(kbias + n0 + 8 * T + 2 * t);
+      c[4 * T] += a.x;
+      c[4 * T + 1] += a.y;
+      c[4 * T + 2] += a.x;
+      c[4 * T + 3] += a.y;
+    }
+  };
+  // o += P . V for the tile's group gi, P in C fragments (rounded to bf16 here)
+  auto pv16 = [&](int gi, const float (&c)[8], float (&o)[NT][4]) {
+    unsigned pa[4];
+    x2::pack_a(pa, c);
+    x2::mma_ab<D>(o, pa, Vs, 16 * gi, lane);
+  };
+  // the multipliers of keys j0 + 8T + 2t, + 1 (1 without dmask)
+  auto load_dm = [&](int j0, float2 (&dm)[2][2]) {
+#pragma unroll
+    for (int T = 0; T < 2; ++T)
+#pragma unroll
+      for (int R = 0; R < 2; ++R) {
+        const int j = j0 + 8 * T + 2 * t;
+        dm[T][R] = dmask == nullptr
+                       ? make_float2(1.f, 1.f)
+                       : x2::load_pair(dmask, dmask_kind, prow[R] + j, row_ok[R] && j < Skv,
+                                       row_ok[R] && j + 1 < Skv, vec);
+      }
+  };
+
+  float m[2] = {kPadLogit, kPadLogit}, l[2] = {0.f, 0.f};
+  float o[NT][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  if constexpr (kOnePass) {
+    for (int t0 = 0; t0 < Skv; t0 += kKeyTile) {
+      const int ng = stage(t0, true);
+      if (!valid) continue;
+      for (int gi = 0; gi < ng; ++gi) {
+        float c[8];
+        float2 dm[2][2];
+        load_dm(t0 + 16 * gi, dm);
+        logits16(gi, c);
+#pragma unroll
+        for (int R = 0; R < 2; ++R) {
+          float mx = fmaxf(fmaxf(c[2 * R], c[2 * R + 1]), fmaxf(c[4 + 2 * R], c[5 + 2 * R]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float mn = fmaxf(m[R], mx);  // the same in the four lanes of the row
+          const float alpha = expo(m[R] - mn);
+          m[R] = mn;
+          l[R] *= alpha;
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            o[nt][2 * R] *= alpha;
+            o[nt][2 * R + 1] *= alpha;
+          }
+        }
+#pragma unroll
+        for (int T = 0; T < 2; ++T)
+#pragma unroll
+          for (int R = 0; R < 2; ++R) {
+            float& p0 = c[4 * T + 2 * R];
+            float& p1 = c[4 * T + 2 * R + 1];
+            p0 = expo(p0 - m[R]);
+            p1 = expo(p1 - m[R]);
+            l[R] += p0 + p1;
+            p0 *= dm[T][R].x;
+            p1 *= dm[T][R].y;
+          }
+        pv16(gi, c, o);
+      }
+    }
+#pragma unroll
+    for (int R = 0; R < 2; ++R) {
+      l[R] += __shfl_xor_sync(0xffffffffu, l[R], 1);
+      l[R] += __shfl_xor_sync(0xffffffffu, l[R], 2);
+      const float inv = 1.f / l[R];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        o[nt][2 * R] *= inv;
+        o[nt][2 * R + 1] *= inv;
+      }
+    }
+  } else {
+    for (int t0 = 0; t0 < Skv; t0 += kKeyTile) {  // pass 1: each lane's max and sum
+      const int ng = stage(t0, false);
+      if (!valid) continue;
+      for (int gi = 0; gi < ng; ++gi) {
+        float c[8];
+        logits16(gi, c);
+#pragma unroll
+        for (int R = 0; R < 2; ++R) {
+          const float mx = fmaxf(fmaxf(c[2 * R], c[2 * R + 1]), fmaxf(c[4 + 2 * R], c[5 + 2 * R]));
+          const float mn = fmaxf(m[R], mx);
+          l[R] = l[R] * expo(m[R] - mn) + expo(c[2 * R] - mn) + expo(c[2 * R + 1] - mn) +
+                 expo(c[4 + 2 * R] - mn) + expo(c[5 + 2 * R] - mn);
+          m[R] = mn;
+        }
+      }
+    }
+    float inv_l[2];
+#pragma unroll
+    for (int R = 0; R < 2; ++R) {  // the quad's
+#pragma unroll
+      for (int sh = 1; sh <= 2; sh <<= 1) {
+        const float mo = __shfl_xor_sync(0xffffffffu, m[R], sh);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[R], sh);
+        const float mn = fmaxf(m[R], mo);
+        l[R] = l[R] * expo(m[R] - mn) + lo * expo(mo - mn);
+        m[R] = mn;
+      }
+      inv_l[R] = 1.f / l[R];
+    }
+    for (int t0 = 0; t0 < Skv; t0 += kKeyTile) {  // pass 2
+      const int ng = stage(t0, true);
+      if (!valid) continue;
+      for (int gi = 0; gi < ng; ++gi) {
+        float c[8];
+        float2 dm[2][2];
+        load_dm(t0 + 16 * gi, dm);
+        logits16(gi, c);
+#pragma unroll
+        for (int T = 0; T < 2; ++T)
+#pragma unroll
+          for (int R = 0; R < 2; ++R) {
+            float& p0 = c[4 * T + 2 * R];
+            float& p1 = c[4 * T + 2 * R + 1];
+            p0 = expo(p0 - m[R]) * inv_l[R];
+            p1 = expo(p1 - m[R]) * inv_l[R];
+            const int j = t0 + 16 * gi + 8 * T + 2 * t;
+            if (probs != nullptr && row_ok[R] && j < Skv) {
+              float* pp = probs + prow[R] + j;
+              if (j + 1 < Skv && vec) {
+                *reinterpret_cast<float2*>(pp) = make_float2(p0, p1);
+              } else {
+                pp[0] = p0;
+                if (j + 1 < Skv) pp[1] = p1;
+              }
+            }
+            p0 *= dm[T][R].x;
+            p1 *= dm[T][R].y;
+          }
+        pv16(gi, c, o);
+      }
+    }
+  }
+  if (!valid) return;
+  bf16* ob = out + rb * HD + static_cast<long long>(h) * D;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int d = 8 * nt + 2 * t;
+    if (row_ok[0]) *reinterpret_cast<unsigned*>(ob + d) = x2::pack_bf16(o[nt][0], o[nt][1]);
+    if (row_ok[1])
+      *reinterpret_cast<unsigned*>(ob + 8LL * HD + d) = x2::pack_bf16(o[nt][2], o[nt][3]);
+  }
+}
+
+template <int D, bool kOnePass>
+cudaError_t launch_tiled(const void* q, const void* k, const void* v, const void* key_mask,
+                         const void* dmask, int dmask_kind, void* out, void* probs, int B,
+                         int Sq, int Skv, int H, float scale, cudaStream_t stream) {
+  const size_t smem = tiled_smem_bytes(D);
+  auto kernel = fwd_tiled_kernel<D, kOnePass>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(H, B), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const uint8_t*>(key_mask), dmask, dmask_kind, static_cast<bf16*>(out),
+      static_cast<float*>(probs), Sq, Skv, H, scale);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const void* key_mask,
                      const void* dmask, int dmask_kind, void* out, void* probs, int B, int Sq,
                      int Skv, int H, float scale, cudaStream_t st) {
+  if (x2::tiny_walk(Sq, Skv, D) == x2::kWalkTiled)
+    return probs == nullptr ? launch_tiled<D, true>(q, k, v, key_mask, dmask, dmask_kind, out,
+                                                    probs, B, Sq, Skv, H, scale, st)
+                            : launch_tiled<D, false>(q, k, v, key_mask, dmask, dmask_kind, out,
+                                                     probs, B, Sq, Skv, H, scale, st);
   if (probs == nullptr)
     return launch<D, false, true>(q, k, v, key_mask, dmask, dmask_kind, out, probs, B, Sq, Skv,
                                   H, scale, st);
@@ -557,6 +951,17 @@ extern "C" long long x2_tiny_attention_smem_bytes(int Skv, int D, int route) {
                                                               : smem_bytes(Skv, D));
 }
 
+// The walk (x2::TinyWalk) both kernels take at (Sq, Skv, D);
+// ops/tiny_attention.py `tiny_walk` keeps the same rule.
+extern "C" int x2_tiny_attention_walk(int Sq, int Skv, int D) { return x2::tiny_walk(Sq, Skv, D); }
+
+// Shared memory (bytes) one block of the key-tiled walk on `route` needs;
+// it does not depend on Skv (ops/tiny_attention.py `tiled_smem_bytes`).
+extern "C" long long x2_tiny_attention_tiled_smem_bytes(int Sq, int D, int route) {
+  return static_cast<long long>(route == x2::kRouteTensorCore ? tc::tiled_smem_bytes(D)
+                                                              : tiled_smem_bytes(Sq, D));
+}
+
 // q, out: (B, Sq, H*D); k, v: (B, Skv, H*D); all contiguous, dtype `dtype`
 // (x2::DType); on the tensor-core route 16-byte aligned. key_mask: null or
 // (B, Skv) uint8, 0 = masked. dmask: null or (B, Sq, H*Skv), f32 or bf16 per
@@ -569,10 +974,18 @@ extern "C" int x2_tiny_attention_fwd(const void* q, const void* k, const void* v
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || D <= 0) return cudaErrorInvalidValue;
   if (dmask != nullptr && dmask_kind != x2::kOperandF32 && dmask_kind != x2::kOperandBF16)
     return cudaErrorInvalidValue;
+  const bool tiled = x2::tiny_walk(Sq, Skv, D) == x2::kWalkTiled;
+  if (tiled && (Sq > x2::kTinyTiledMaxSq || D > x2::kTinyTiledMaxD)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x2::tiny_route(dtype, D) == x2::kRouteTensorCore)
     return static_cast<int>(tc::dispatch(q, k, v, key_mask, dmask, dmask_kind, out, probs, B,
                                          Sq, Skv, H, D, scale, st));
+  if (tiled && dtype == x2::kF32)
+    return static_cast<int>(launch_tiled<float>(q, k, v, key_mask, dmask, dmask_kind, out, probs,
+                                                B, Sq, Skv, H, D, scale, st));
+  if (tiled && dtype == x2::kBF16)
+    return static_cast<int>(launch_tiled<__nv_bfloat16>(q, k, v, key_mask, dmask, dmask_kind,
+                                                        out, probs, B, Sq, Skv, H, D, scale, st));
   if (dtype == x2::kF32)
     return static_cast<int>(launch<float>(q, k, v, key_mask, dmask, dmask_kind, out, probs, B,
                                           Sq, Skv, H, D, scale, st));

@@ -1,0 +1,136 @@
+"""Config-driven model construction (the port's counterpart of
+x2vlm_tpu/factory.py): the YAML schema's vision / text / XVLM keys ->
+``XVLMConfig`` and the task's model.
+
+The port builds BEiT-2 + BERT X2-VLM models for ``"pretrain"``
+(``XVLMForPretrain``) and ``"retrieval"`` (``XVLMForRetrieval``). A config
+that asks for what the port does not build raises, naming the ROADMAP
+queue item that brings it: CLIP / Swin towers (A7), RoBERTa text encoders
+and ``model_type: cclm`` / video encodings (A8), other tasks' heads (A6),
+int8 serving from a config, and ``remat`` (not ported, by decision: the
+step peaks far below the card's memory).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict
+
+import torch
+
+from x2vlm_tpu_torch.core.config import Config, read_json
+from x2vlm_tpu_torch.models.beit2 import BEiT2Config
+from x2vlm_tpu_torch.models.bert import BertConfig
+from x2vlm_tpu_torch.models.xvlm import XVLMConfig
+
+__all__ = ["vision_config_from_yaml", "text_config_from_yaml", "xvlm_config_from_yaml",
+           "model_dtype", "build_model"]
+
+
+def _refuse(what: str, item: str) -> None:
+    raise NotImplementedError(f"{what} comes with ROADMAP queue item {item}; the port "
+                              f"builds BEiT-2 + BERT X2-VLM models")
+
+
+def vision_config_from_yaml(config: Dict) -> BEiT2Config:
+    image_res = config["image_res"]
+    vc_path = config.get("vision_config")
+    vc = read_json(vc_path) if vc_path and os.path.exists(vc_path) else Config(
+        config.get("vision_config_inline", {}))
+    switches = [k for k in ("use_clip_vit", "use_swin", "use_beit_v2") if config.get(k, False)]
+    if len(switches) > 1:
+        raise ValueError(f"vision switches are mutually exclusive: {switches}")
+    if config.get("use_clip_vit", False):
+        _refuse("the CLIP ViT vision tower (use_clip_vit)", "A7")
+    if config.get("use_swin", False):
+        _refuse("the Swin vision tower (use_swin)", "A7")
+    if vc.get("local_attn_depth", 0) > 0:
+        _refuse("local_attn_depth (CLIP ViT)", "A7")
+    width = vc.get("vision_width", 768)
+    patch = vc.get("patch_size", config.get("patch_size", 16))
+    if "num_hidden_layers" in vc or "num_attention_heads" in vc:
+        return BEiT2Config(image_res=image_res, patch_size=patch, embed_dim=width,
+                           depth=vc.get("num_hidden_layers", 12),
+                           num_heads=vc.get("num_attention_heads", 12))
+    if width >= 1024:   # the JAX BEiT2Config.large preset
+        return BEiT2Config(image_res=image_res, patch_size=patch, embed_dim=1024, depth=24,
+                           num_heads=16)
+    return BEiT2Config.base(image_res=image_res, patch_size=patch)
+
+
+def text_config_from_yaml(config: Dict, vision_width: int) -> BertConfig:
+    name = str(config.get("text_encoder", "bert-base-uncased")).lower()
+    num_layers = config.get("text_num_hidden_layers", 18)
+    fusion = config.get("text_fusion_start_at", config.get("text_fusion_layer", num_layers))
+    if "xlm-roberta" in name or "roberta" in name:
+        _refuse(f"the RoBERTa / XLM-R text encoder ({name})", "A8")
+    if "large" in name:   # the JAX BertConfig.bert_large preset
+        out = BertConfig(hidden_size=1024, num_heads=16, intermediate_size=4096,
+                         num_layers=num_layers, fusion_layer=fusion,
+                         encoder_width=vision_width)
+    else:
+        out = BertConfig.bert_base(num_layers=num_layers, fusion_layer=fusion,
+                                   encoder_width=vision_width)
+    # hidden dropout, then the stochastic-depth knobs: BertConfig zeroes
+    # hidden_dropout whenever text_drop_path_rate > 0 (reference xbert.py:637-641)
+    overrides = {}
+    if "dropout" in config:
+        overrides["hidden_dropout"] = float(config["dropout"])
+    if "text_drop_path_rate" in config or "cross_drop_path_rate" in config:
+        overrides["text_drop_path_rate"] = float(config.get("text_drop_path_rate", 0.0))
+        overrides["cross_drop_path_rate"] = float(config.get("cross_drop_path_rate", 0.0))
+    if overrides:
+        out = dataclasses.replace(out, **overrides)
+    inline = dict(config.get("text_config_inline") or {})
+    if inline:
+        fields = {f.name for f in dataclasses.fields(BertConfig)}
+        unported = sorted(set(inline) - fields)
+        if unported:
+            _refuse(f"text_config_inline keys {unported}", "A8")
+        out = dataclasses.replace(out, **inline)
+    return out
+
+
+def xvlm_config_from_yaml(config: Dict) -> XVLMConfig:
+    if config.get("model_type", "") in ("xvlm_plus", "cclm") or \
+            config.get("replace_text_encoder", False):
+        _refuse("model_type xvlm_plus / cclm", "A8")
+    if config.get("video_encoding") or config.get("frame_len", 1) != 1:
+        _refuse("video encoding (video_encoding / frame_len)", "A8")
+    if config.get("remat", False):
+        raise NotImplementedError("remat: gradient checkpointing is not ported (by "
+                                  "decision: ROADMAP 'Not ported'), drop the key")
+    vision = vision_config_from_yaml(config)
+    text = text_config_from_yaml(config, vision.embed_dim)
+    return XVLMConfig(vision=vision, text=text, embed_dim=config.get("embed_dim", 256),
+                      temp=config.get("temp", 0.07), fix_temp=config.get("fix_temp", False))
+
+
+def model_dtype(config: Dict) -> torch.dtype:
+    """Compute dtype from accelerator.MIXED_PRECISION: bf16 (default; the
+    reference's fp16 levels map to bf16) or no / fp32."""
+    mp = str(config.get("accelerator", {}).get("MIXED_PRECISION", "bf16")).lower()
+    if mp in ("no", "fp32", "o0"):
+        return torch.float32
+    if mp in ("bf16", "fp16", "o1", "o2"):
+        return torch.bfloat16
+    raise ValueError(f"unknown accelerator.MIXED_PRECISION: {mp!r}")
+
+
+def build_model(config: Dict, task: str, *, device, dtype=None, seed=0):
+    """(model, XVLMConfig) for ``task`` ("pretrain" | "retrieval") on
+    ``device``, its parameters filled from ``seed`` (None: left for
+    ``load_state_dict``)."""
+    from x2vlm_tpu_torch.models.heads import XVLMForPretrain, XVLMForRetrieval
+
+    dtype = dtype or model_dtype(config)
+    cfg = xvlm_config_from_yaml(config)
+    if task == "pretrain":
+        return XVLMForPretrain(cfg, dtype=dtype, device=device, seed=seed), cfg
+    if task == "retrieval":
+        return XVLMForRetrieval(cfg, dtype=dtype, device=device, seed=seed), cfg
+    if task in ("vqa", "nlvr", "grounding", "captioning", "classification",
+                "multiple_choice"):
+        _refuse(f"the {task} model", "A6")
+    raise ValueError(f"unknown task {task!r}")

@@ -37,15 +37,20 @@ class XVLMForPretrain(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 dropout_generator: Optional[torch.Generator] = None,
-                neg_idx=None) -> Dict[str, torch.Tensor]:
+                neg_idx=None, ret_match_loss: bool = True) -> Dict[str, torch.Tensor]:
         if batch.get("image") is None:
             return self.forward_text(batch, dropout_generator)
-        return self.forward_multimodal(batch, generator, dropout_generator, neg_idx)
+        return self.forward_multimodal(batch, generator, dropout_generator, neg_idx,
+                                       ret_match_loss)
 
     def forward_multimodal(self, batch, generator=None, dropout_generator=None,
-                           neg_idx=None):
+                           neg_idx=None, ret_match_loss: bool = True):
         """ITC, then ITM + MLM through one fused fusion pass. ``neg_idx``:
-        injected (image_neg_idx, text_neg_idx) for the ITM negatives."""
+        injected (image_neg_idx, text_neg_idx) for the ITM negatives.
+        ``ret_match_loss=False`` (an image stream whose matching loss is off:
+        noisy data beside an aux stream, or past ``stop_calc_itm``): no ITM
+        (``loss_itm`` 0, no negatives drawn) and MLM through the whole stack
+        from the masked ids with cross-attention to the image."""
         base = self.base
         text_ids, text_atts = batch["text_ids"], batch["text_atts"]
         image_embeds, image_atts = base.get_vision_embeds(batch["image"],
@@ -56,6 +61,14 @@ class XVLMForPretrain(nn.Module):
         text_embeds, mlm_text_embeds = both.chunk(2)
         image_feat = base.get_features(image_embeds=image_embeds)
         text_feat = base.get_features(text_embeds=text_embeds)
+        if not ret_match_loss:
+            return {"loss_itc": base.get_contrastive_loss(image_feat, text_feat),
+                    "loss_itm": torch.zeros((), dtype=torch.float32,
+                                            device=image_feat.device),
+                    "loss_mlm": base.get_mlm_loss(
+                        batch["text_ids_masked"], text_atts, batch["masked_pos"],
+                        batch["masked_ids"], dropout_generator, image_embeds=image_embeds,
+                        image_atts=image_atts)}
         loss_itm, loss_mlm = base.get_matching_and_mlm_loss(
             image_embeds, image_atts, image_feat, text_embeds, text_atts, text_feat,
             mlm_text_embeds, batch["masked_pos"], batch["masked_ids"], generator,

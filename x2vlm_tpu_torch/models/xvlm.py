@@ -264,10 +264,17 @@ class XVLMBase(nn.Module):
         return loss_itm, loss_mlm
 
     def get_mlm_loss(self, text_ids_masked, text_atts, masked_pos, masked_ids,
-                     dropout_generator=None) -> torch.Tensor:
-        """MLM of the text-only stream: the whole stack from the masked ids,
-        the fusion layers without cross-attention."""
-        cross = self.text_encoder(text_ids_masked, attention_mask=text_atts,
-                                  mode="multi_modal", generator=dropout_generator)
+                     dropout_generator=None, image_embeds=None,
+                     image_atts=None) -> torch.Tensor:
+        """MLM through the whole stack from the masked ids: the fusion layers
+        attend to ``image_embeds`` when given (the image stream without the
+        matching loss, the JAX ``get_mlm_loss``), else they run without
+        cross-attention (the text-only stream)."""
+        if image_embeds is not None:
+            cross = self.get_cross_embeds(image_embeds, image_atts, text_ids=text_ids_masked,
+                                          text_atts=text_atts, generator=dropout_generator)
+        else:
+            cross = self.text_encoder(text_ids_masked, attention_mask=text_atts,
+                                      mode="multi_modal", generator=dropout_generator)
         return self.text_encoder.mlm_head(cross, masked_pos, self._tied_table(),
                                           masked_ids)

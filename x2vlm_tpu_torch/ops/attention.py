@@ -68,7 +68,10 @@ def dot_product_attention(
     training: bool = False,
 ) -> torch.Tensor:
     """Scaled dot-product attention with ``torch.matmul``; returns
-    (B, H, Sq, D) in q's dtype. Dropout is active only with ``training``."""
+    (B, H, Sq, D) in q's dtype. Dropout is active only with ``training``.
+    ``dot_product_attention.calls`` counts the calls, so a run can show that
+    a path took the kernels instead."""
+    dot_product_attention.calls += 1
     Sq, D = q.shape[2], q.shape[3]
     if scale is None:
         scale = D ** -0.5
@@ -87,3 +90,6 @@ def dot_product_attention(
         probs = probs * dropout_multiplier(probs.shape, dropout_rate, generator,
                                            torch.float32, probs.device)
     return torch.matmul(probs.to(q.dtype), v)
+
+
+dot_product_attention.calls = 0

@@ -206,10 +206,10 @@ class MultiHeadAttention(nn.Module):
     """Q/K/V projections around the attention core, with the kernel dispatch
     of the JAX package's ``MultiHeadAttention``:
 
-    - short queries (Sq <= 64) with no bias, whose head's K/V fit the
-      kernel's shared memory (``tiny_supported``), go to the tiny kernel on
-      the projection layout; q is scaled in the compute dtype after its
-      projection;
+    - short queries (Sq <= 64) with no bias that one of the tiny kernel's
+      walks takes (``tiny_supported``: any Skv at D <= 128), go to the tiny
+      kernel on the projection layout; q is scaled in the compute dtype
+      after its projection;
     - Sq and Skv >= 128 (no attention dropout) go to the flash kernel on
       the (B, H, S, D) layout, with the softmax scale folded into the query
       weights and bias in fp32 before the cast;

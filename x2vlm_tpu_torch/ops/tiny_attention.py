@@ -31,9 +31,17 @@ picks one by dtype and head dim (the C side keeps the same rule):
 mma.sync on bf16 tiles staged by cp.async) and ``"cuda_core"`` for fp32 at
 any D and bf16 at other D (fp32 arithmetic, which keeps fp32 inputs at fp32
 accuracy). The choice is a dispatch between two kernels, not a fallback: a
-failed build or launch raises on either route. :func:`tiny_supported`, the
-layers' dispatch rule, admits a shape when the CUDA-core kernels fit, which
-every tensor-core shape it admits does too.
+failed build or launch raises on either route.
+
+Each route walks the keys one of two ways, by :func:`tiny_walk` (the C side
+keeps the same rule): ``"resident"``, a block holding its head's whole K
+and V (and in the backward the whole probability block) in shared memory,
+wherever the CUDA-core resident kernels of both directions fit (up to 257
+keys at Sq = 40, D = 64); else ``"tiled"``, the block walking the keys in
+tiles with shared memory that does not grow with Skv (Sq <= 64, D <= 128;
+the fusion cross-attention at 384 px, 40 x 584). :func:`tiny_supported`,
+the layers' dispatch rule, admits every short-query shape one of the walks
+takes.
 
 I/O is the projection layout: q (B, Sq, H*D), k/v (B, Skv, H*D), out
 (B, Sq, H*D). q is multiplied by ``scale`` in q's dtype, as the reference's
@@ -53,10 +61,11 @@ import torch
 from x2vlm_tpu_torch.ops import _build
 from x2vlm_tpu_torch.ops.attention import NEG_INF, dropout_multiplier
 
-__all__ = ["CUDA_CORE", "ROUTE_CODES", "TENSOR_CORE", "tiny_attention_bwd",
-           "tiny_attention_bwd_reference", "tiny_attention_fwd", "tiny_attention_reference",
-           "tiny_block_attention", "tiny_route", "tiny_supported", "smem_bytes",
-           "bwd_smem_bytes", "typed_lib"]
+__all__ = ["CUDA_CORE", "RESIDENT", "ROUTE_CODES", "TENSOR_CORE", "TILED", "WALK_CODES",
+           "tiny_attention_bwd", "tiny_attention_bwd_reference", "tiny_attention_fwd",
+           "tiny_attention_reference", "tiny_block_attention", "tiny_route", "tiny_supported",
+           "tiny_walk", "smem_bytes", "bwd_smem_bytes", "tiled_smem_bytes",
+           "tiled_bwd_smem_bytes", "typed_lib"]
 
 MAX_QUERY_LEN = 64  # the dispatch rule's short-query bound
 _DTYPES = _build.DTYPE_CODES
@@ -64,8 +73,13 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 _MAX_HEAD_DIM = 256   # the backward kernel's per-lane accumulators
 _WARPS = 8            # warps per block in csrc/tiny_attention_fwd.cu (CUDA-core route)
 _BWD_WARPS = 16       # and in csrc/tiny_attention_bwd.cu
+_TILED_MAX_SQ, _TILED_MAX_D = 64, 128   # x2::kTinyTiledMaxSq / kTinyTiledMaxD
+_TC_KEY_TILE = 64     # keys a tiled tensor-core block stages at a time (tc::kKeyTile)
+_CC_KEY_TILE = 32     # and a tiled CUDA-core block, one a lane (kTileKeys)
 CUDA_CORE, TENSOR_CORE = _build.CUDA_CORE, _build.TENSOR_CORE
 ROUTE_CODES = _build.ROUTE_CODES   # x2::TinyRoute in csrc/common.cuh
+RESIDENT, TILED = "resident", "tiled"
+WALK_CODES = {RESIDENT: 0, TILED: 1}   # x2::TinyWalk in csrc/common.cuh
 
 
 def tiny_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -118,15 +132,59 @@ def bwd_smem_bytes(Sq: int, Skv: int, head_dim: int, route: str = CUDA_CORE) -> 
     return 4 * (max(kv, gq) + 2 * Sq * Skv + _BWD_WARPS * 4 * head_dim)
 
 
+def tiled_smem_bytes(Sq: int, head_dim: int, route: str = CUDA_CORE) -> int:
+    """Shared memory one forward block of the key-tiled walk takes, whatever
+    Skv. CUDA cores: a K tile (row stride D+1) and a V tile of 32 keys in
+    fp32, the block's scaled query rows and output sums, one probability
+    row of the tile per warp. Tensor cores: K and V tiles of 64 keys in bf16
+    and their logit biases. ``tiled_smem_bytes`` / ``tc::tiled_smem_bytes``
+    in csrc/tiny_attention_fwd.cu (chip_smoke.py holds them equal)."""
+    if route == TENSOR_CORE:
+        return 2 * 2 * _TC_KEY_TILE * _tile_ld(head_dim) + 4 * _TC_KEY_TILE
+    return 4 * (_CC_KEY_TILE * (2 * head_dim + 1) + 2 * Sq * head_dim
+                + _WARPS * _CC_KEY_TILE)
+
+
+def tiled_bwd_smem_bytes(Sq: int, head_dim: int, route: str = CUDA_CORE) -> int:
+    """Shared memory one backward block of the key-tiled walk takes,
+    whatever Skv. CUDA cores: K and V tiles of 32 keys (row stride D+1), g,
+    the scaled q and the dQ sums, and the tile's dL and P * dm columns, all
+    fp32. Tensor cores: K and V tiles of 64 keys and g and the scaled q
+    (rows padded to 16) in bf16, and the tile's probability block (row
+    stride 68 words). ``tiled_smem_bytes`` / ``tc::tiled_smem_bytes`` in
+    csrc/tiny_attention_bwd.cu (chip_smoke.py holds them equal)."""
+    if route == TENSOR_CORE:
+        sq = _round16(Sq)
+        return (2 * (2 * _TC_KEY_TILE + 2 * sq) * _tile_ld(head_dim)
+                + 4 * sq * (_TC_KEY_TILE + 4))
+    return 4 * (2 * _CC_KEY_TILE * (head_dim + 1) + 3 * Sq * head_dim
+                + 2 * Sq * _CC_KEY_TILE)
+
+
+def tiny_walk(Sq: int, Skv: int, head_dim: int) -> str:
+    """How both kernels walk the keys at (Sq, Skv, D): ``"resident"`` where
+    the CUDA-core resident kernels of the forward and the backward fit one
+    block's shared memory (which bounds the tensor-core ones), else
+    ``"tiled"``. The same rule as ``x2::tiny_walk`` in csrc/common.cuh
+    (chip_smoke.py holds the two equal)."""
+    if (head_dim <= _MAX_HEAD_DIM and smem_bytes(Skv, head_dim) <= _SMEM_LIMIT
+            and bwd_smem_bytes(Sq, Skv, head_dim) <= _SMEM_LIMIT):
+        return RESIDENT
+    return TILED
+
+
+def _walk_ok(Sq: int, Skv: int, head_dim: int) -> bool:
+    return (tiny_walk(Sq, Skv, head_dim) == RESIDENT
+            or (Sq <= _TILED_MAX_SQ and head_dim <= _TILED_MAX_D))
+
+
 def tiny_supported(Sq: int, Skv: int, head_dim: int) -> bool:
-    """Dispatch rule: short queries whose head fits one block's shared memory
-    in the forward AND the backward kernel, as the JAX ``_pick_nb`` admits a
-    shape only when both fit (Skv up to 257 at Sq=40, D=64; 209 at Sq=64).
-    It takes the CUDA-core kernels' need, which bounds the tensor-core
-    kernels' at every shape it admits (the layers do not know the dtype)."""
-    return (Sq <= MAX_QUERY_LEN and head_dim <= _MAX_HEAD_DIM
-            and smem_bytes(Skv, head_dim) <= _SMEM_LIMIT
-            and bwd_smem_bytes(Sq, Skv, head_dim) <= _SMEM_LIMIT)
+    """Dispatch rule: short queries (Sq <= 64, the JAX rule's bound) that one
+    of the walks takes: any Skv at D <= 128 (tiled past the resident
+    shapes), and the resident shapes up to D = 256. Every shape the JAX
+    ``tiny_supported`` admits is admitted; the JAX rule's VMEM budget and
+    its H*D >= 256 gate are Mosaic limits the port does not have."""
+    return Sq <= MAX_QUERY_LEN and _walk_ok(Sq, Skv, head_dim)
 
 
 @functools.lru_cache(maxsize=256)
@@ -147,6 +205,9 @@ _SIGNATURES = {
     "x2_tiny_attention_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_longlong),
     "x2_tiny_attention_bwd_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_longlong),
     "x2_tiny_attention_route": ([ctypes.c_int] * 2, ctypes.c_int),
+    "x2_tiny_attention_walk": ([ctypes.c_int] * 3, ctypes.c_int),
+    "x2_tiny_attention_tiled_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_longlong),
+    "x2_tiny_attention_bwd_tiled_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_longlong),
 }
 
 
@@ -219,11 +280,11 @@ def tiny_attention_fwd(
                               or dmask.dtype not in _build.OPERAND_KINDS):
         raise ValueError(f"tiny_attention_fwd: dmask {tuple(dmask.shape)} "
                          f"{dmask.dtype} is not ({B}, {Sq}, {H * Skv}) f32/bf16")
-    route = tiny_route(q.dtype, D)
-    if smem_bytes(Skv, D, route) > _SMEM_LIMIT:
-        raise ValueError(f"tiny_attention_fwd: Skv={Skv}, D={D} needs "
-                         f"{smem_bytes(Skv, D, route)} B of shared memory per block "
-                         f"on the {route} route (limit {_SMEM_LIMIT})")
+    route, walk = tiny_route(q.dtype, D), tiny_walk(Sq, Skv, D)
+    if not _walk_ok(Sq, Skv, D):
+        raise ValueError(f"tiny_attention_fwd: Sq={Sq}, Skv={Skv}, D={D} is past the "
+                         f"resident shapes and the key-tiled walk takes Sq <= "
+                         f"{_TILED_MAX_SQ}, D <= {_TILED_MAX_D}")
     lib = typed_lib(_build.load("tiny_attention_fwd"))
     q, k, v = (_build.aligned(t) for t in (q, k, v))
     km_ptr = None
@@ -247,12 +308,14 @@ def tiny_attention_fwd(
     tiny_attention_fwd.launches += 1
     tiny_attention_fwd.launches_by_shape[(B, Sq, Skv)] += 1
     tiny_attention_fwd.launches_by_route[route] += 1
+    tiny_attention_fwd.launches_by_walk[walk] += 1
     return out, probs
 
 
 tiny_attention_fwd.launches = 0
 tiny_attention_fwd.launches_by_shape = collections.Counter()
 tiny_attention_fwd.launches_by_route = collections.Counter()
+tiny_attention_fwd.launches_by_walk = collections.Counter()
 
 
 def tiny_attention_bwd_reference(
@@ -323,12 +386,11 @@ def tiny_attention_bwd(
                               or dmask.dtype not in _build.OPERAND_KINDS):
         raise ValueError(f"tiny_attention_bwd: dmask {tuple(dmask.shape)} "
                          f"{dmask.dtype} is not ({B}, {Sq}, {H * Skv}) f32/bf16")
-    route = tiny_route(q.dtype, D)
-    if D > _MAX_HEAD_DIM or bwd_smem_bytes(Sq, Skv, D, route) > _SMEM_LIMIT:
-        raise ValueError(f"tiny_attention_bwd: Sq={Sq}, Skv={Skv}, D={D} needs "
-                         f"{bwd_smem_bytes(Sq, Skv, D, route)} B of shared memory per "
-                         f"block on the {route} route (limit {_SMEM_LIMIT}) or "
-                         f"D > {_MAX_HEAD_DIM}")
+    route, walk = tiny_route(q.dtype, D), tiny_walk(Sq, Skv, D)
+    if not _walk_ok(Sq, Skv, D):
+        raise ValueError(f"tiny_attention_bwd: Sq={Sq}, Skv={Skv}, D={D} is past the "
+                         f"resident shapes and the key-tiled walk takes Sq <= "
+                         f"{_TILED_MAX_SQ}, D <= {_TILED_MAX_D}")
     lib = typed_lib(_build.load("tiny_attention_bwd"))
     q, k, v, probs = (_build.aligned(t) for t in (q, k, v, probs))
     g = _build.aligned(g.to(q.dtype))
@@ -347,12 +409,14 @@ def tiny_attention_bwd(
     tiny_attention_bwd.launches += 1
     tiny_attention_bwd.launches_by_shape[(B, Sq, Skv)] += 1
     tiny_attention_bwd.launches_by_route[route] += 1
+    tiny_attention_bwd.launches_by_walk[walk] += 1
     return dq, dk, dv
 
 
 tiny_attention_bwd.launches = 0
 tiny_attention_bwd.launches_by_shape = collections.Counter()
 tiny_attention_bwd.launches_by_route = collections.Counter()
+tiny_attention_bwd.launches_by_walk = collections.Counter()
 
 
 class _TinyAttention(torch.autograd.Function):

@@ -1,0 +1,436 @@
+"""The launcher (the port's counterpart of x2vlm_tpu/run.py), for the tasks
+the port has: ``pretrain`` and ``retrieval``.
+
+Usage:
+    python -m x2vlm_tpu_torch.run --task retrieval \\
+        --config configs/finetune/retrieval_flickr_base.yaml --output_dir out/ \\
+        [--checkpoint x2vlm_base_4m.th] [--evaluate] [--resume] \\
+        [--override_cfg "batch_size:64;optimizer.lr:2e-5"] [--device cuda]
+
+The flags are the JAX launcher's, less ``--fsdp`` and ``--output_hdfs``
+(multi-GPU and remote storage, ROADMAP A4), plus ``--device`` (default
+``cuda``; ``cpu`` runs the plain PyTorch path, as the tests do). One
+process, one card.
+
+- ``--checkpoint`` a reference ``.th``: imported under the reference names,
+  the rel-pos tables interpolated to the config's resolution
+  (train/checkpoint.py); the parameters it leaves fresh train at
+  ``optimizer.lr_mult``. A directory: the parameters of a train state this
+  launcher saved.
+- ``--resume`` restores the train state in ``output_dir/ckpt`` (parameters,
+  AdamW ``mu`` / ``nu`` / ``count``, step) and, for pretraining, the data
+  cursors of the streams, so the run continues where it stopped.
+- ``--evaluate`` evaluates only (retrieval).
+
+The config is validated against the JAX package's key registry
+(core/config_schema.py). What the port does not run raises, naming its
+ROADMAP item: every other task (A6, A8), the region / video / parallel-text
+streams (A5, A8), other vision towers and converters (A7), and, as in the
+JAX launcher, ``mixed_in_batch: false`` and ``tokenized: true``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import random
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from x2vlm_tpu_torch.core import config as config_lib
+from x2vlm_tpu_torch.core import config_schema
+from x2vlm_tpu_torch.data.loader import MapLoader, Prefetcher, collate
+from x2vlm_tpu_torch.device import resolve_device
+from x2vlm_tpu_torch.factory import build_model
+from x2vlm_tpu_torch.tasks.finetune import append_log, train_epochs
+from x2vlm_tpu_torch.tasks.pretrain import step_generators
+from x2vlm_tpu_torch.train import create_optimizer, lr_schedule, make_train_step, param_labels
+from x2vlm_tpu_torch.train import checkpoint as ckpt_lib
+
+__all__ = ["TASKS", "UNPORTED", "parse_args", "setup", "make_optimizer", "maybe_resume",
+           "load_initial_params", "run_retrieval", "run_pretrain", "main", "to_device"]
+
+TASKS = ("pretrain", "retrieval", "xretrieval", "wit", "xflickrco", "video_retrieval", "vqa",
+         "xgqa", "nlvr", "marvl", "grounding", "captioning", "classification", "xvnli",
+         "video_qa", "next_qa_mc")
+# the JAX launcher's other tasks and the ROADMAP items that bring them
+UNPORTED = {"xretrieval": "A8", "wit": "A8", "xflickrco": "A8", "video_retrieval": "A8",
+            "xgqa": "A8", "marvl": "A8", "xvnli": "A8", "video_qa": "A8", "next_qa_mc": "A8",
+            "vqa": "A6", "nlvr": "A6", "grounding": "A6", "captioning": "A6",
+            "classification": "A6"}
+# pretraining streams the port does not build: (config file key, block) -> item
+UNPORTED_STREAMS = {("train_file_regions", "regions"): "A5",
+                    ("train_file_videos", "videos"): "A8",
+                    ("train_file_videos_aux", "videos"): "A8",
+                    ("train_file_mtext", "mtexts"): "A8"}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--task", required=True, choices=TASKS)
+    p.add_argument("--config", required=True)
+    p.add_argument("--output_dir", required=True)
+    p.add_argument("--checkpoint", default="",
+                   help="a reference .th to import, or a train-state directory")
+    p.add_argument("--evaluate", action="store_true")
+    p.add_argument("--resume", action="store_true",
+                   help="resume the train state (+ the pretraining data cursors) from "
+                        "output_dir/ckpt")
+    p.add_argument("--override_cfg", default="")
+    p.add_argument("--seed", default=42, type=int)
+    p.add_argument("--bs", default=-1, type=int, help="override batch_size")
+    p.add_argument("--epoch", default=-1, type=int, help="override epochs")
+    p.add_argument("--wait", default=0, type=int, help="minutes to sleep before starting")
+    p.add_argument("--fewshot", default="", help="IGLUE few-shot (ROADMAP A8)")
+    p.add_argument("--lr", default=0.0, type=float, help="override the learning rate")
+    p.add_argument("--k_test", default=-1, type=int, help="override the rerank depth")
+    p.add_argument("--num_workers", default=-1, type=int,
+                   help="override every stream block's num_workers")
+    p.add_argument("--pick_best_r1", action="store_true",
+                   help="retrieval: track the best checkpoint by mean(txt_r1, img_r1)")
+    p.add_argument("--gmt", action="store_true",
+                   help="use the machine-translated test set (test_file := gmt_test_file)")
+    p.add_argument("--device", default="cuda",
+                   help="the card (default) or cpu, the plain PyTorch path")
+    return p.parse_args(argv)
+
+
+def setup(args):
+    """The config with the command line's overrides, validated and dumped
+    to ``output_dir/config.json``; the global RNGs seeded."""
+    if args.task in UNPORTED:
+        raise NotImplementedError(f"--task {args.task} comes with ROADMAP queue item "
+                                  f"{UNPORTED[args.task]}; the port runs pretrain and "
+                                  f"retrieval")
+    if args.fewshot:
+        raise NotImplementedError("--fewshot (IGLUE) comes with ROADMAP queue item A8")
+    os.makedirs(args.output_dir, exist_ok=True)
+    cfg = config_lib.load_config(args.config, overrides=args.override_cfg)
+    config_schema.validate_config(cfg, source=args.config)
+    if args.bs > 0:
+        cfg["batch_size"] = args.bs
+    if args.epoch > 0:
+        cfg["schedular"] = dict(cfg.get("schedular", {}), epochs=args.epoch)
+    if args.lr > 0:
+        cfg["optimizer"] = dict(cfg.get("optimizer", {}), lr=args.lr)
+        cfg["schedular"] = dict(cfg.get("schedular", {}), lr=args.lr)
+    if args.k_test > 0:
+        cfg["k_test"] = args.k_test
+    if args.num_workers > 0:
+        for block in ("images", "regions", "videos", "texts", "mtexts"):
+            if isinstance(cfg.get(block), dict):
+                cfg[block] = dict(cfg[block], num_workers=args.num_workers)
+    if args.pick_best_r1:
+        cfg["pick_best_r1"] = True
+    if args.gmt:
+        if "gmt_test_file" not in cfg:
+            raise ValueError("--gmt requires `gmt_test_file` in the config")
+        cfg["test_file"] = cfg["gmt_test_file"]
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    torch.manual_seed(args.seed)
+    with open(os.path.join(args.output_dir, "config.json"), "w") as f:
+        json.dump(cfg.to_dict(), f, indent=1)
+    return cfg
+
+
+def make_optimizer(cfg, model, total_steps: int, fusion_layer: int, fresh_names=()):
+    """AdamW with the reference's groups (reference optim.py:26-104): the
+    base lr, per-tower vision / text / cross lr, ``lr_mult`` on the
+    parameters the checkpoint left fresh; the linear warmup-decay schedule."""
+    opt = cfg.get("optimizer", {})
+    sched_cfg = cfg.get("schedular", {})
+    if str(opt.get("opt", "adamW")).lower() != "adamw":
+        raise ValueError(f"unsupported optimizer.opt: {opt.get('opt')!r} (only adamW, as "
+                         f"the reference optim.py)")
+    if sched_cfg.get("sched", "linear") != "linear":
+        raise ValueError(f"unsupported schedular.sched: {sched_cfg.get('sched')!r} "
+                         f"(only linear)")
+    if cfg.get("flat_optimizer", False):
+        raise NotImplementedError("flat_optimizer is not ported (by decision: ROADMAP "
+                                  "'Not ported'); drop the key")
+    base_lr = float(opt.get("lr", sched_cfg.get("lr", 1e-4)))
+    sched = lr_schedule(base_lr, total_steps,
+                        warmup_steps=sched_cfg.get("num_warmup_steps", 0.1),
+                        min_rate=sched_cfg.get("min_rate", 0.0))
+    labels = param_labels(model.named_parameters(), fusion_layer, fresh_names=fresh_names)
+    return create_optimizer(
+        model, sched, weight_decay=float(opt.get("weight_decay", 0.01)),
+        clip_grad_norm=cfg.get("accelerator", {}).get("CLIP_GRAD_NORM", 1.0),
+        lr_mult=float(opt.get("lr_mult", 1.0)),
+        vision_lr_scale=float(opt.get("vision_lr", base_lr)) / base_lr,
+        text_lr_scale=float(opt.get("text_lr", base_lr)) / base_lr,
+        cross_lr_scale=float(opt.get("cross_lr", base_lr)) / base_lr,
+        labels=labels)
+
+
+def maybe_resume(args, model, optimizer):
+    """--resume: (step, data cursors) restored from ``output_dir/ckpt``, or
+    (0, {}) without --resume or a saved state."""
+    if not args.resume:
+        return 0, {}
+    ckpt_dir = os.path.join(args.output_dir, "ckpt")
+    step, data_state = ckpt_lib.restore_train_state(ckpt_dir, model, optimizer)
+    if step is None:
+        print(f"### --resume: no checkpoint in {ckpt_dir}, starting fresh")
+        return 0, {}
+    print(f"### resumed train state at step {step}")
+    return step, data_state
+
+
+def load_initial_params(args, cfg, model) -> List[str]:
+    """The ``--checkpoint`` import; returns the names (inside the
+    composition core) of the parameters it left fresh."""
+    if not args.checkpoint:
+        vc_path = cfg.get("vision_config")
+        raw = []
+        if vc_path and os.path.exists(vc_path):
+            vp = config_lib.read_json(vc_path).get("ckpt")
+            if vp and os.path.exists(vp):
+                raw.append(vp)
+        tbin = os.path.join(str(cfg.get("text_encoder", "")), "pytorch_model.bin")
+        if os.path.exists(tbin):
+            raw.append(tbin)
+        if raw:
+            raise NotImplementedError(
+                f"initialising from raw BEiT-2 / HF BERT weights ({raw}) comes with the "
+                f"converters of ROADMAP queue item A7; give a reference .th as --checkpoint")
+        return []
+    if os.path.isdir(args.checkpoint):
+        path = os.path.join(args.checkpoint, ckpt_lib.TRAIN_STATE_FILE)
+        state = torch.load(path, map_location="cpu", weights_only=False)
+        model.load_state_dict(state["params"], strict=True)
+        print(f"### parameters of step {state['step']} from {path}")
+        return []
+    missing, unexpected = ckpt_lib.load_reference_checkpoint(model, args.checkpoint)
+    print(ckpt_lib.import_report(model, missing, unexpected, args.checkpoint))
+    return missing
+
+
+def to_device(batch: Dict, device: torch.device) -> Dict:
+    """A host batch (numpy) as tensors on ``device``: attention masks int32,
+    other integer arrays int64, images and floats as they are."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        if t.dtype == torch.int32 and not k.endswith("atts"):
+            t = t.long()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def run_retrieval(args, cfg, device):
+    """Fine-tune and / or evaluate with the two-stage ITC -> ITM protocol
+    (reference Retrieval.py)."""
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.tasks.retrieval import evaluate_retrieval
+
+    model, mcfg = build_model(cfg, "retrieval", device=device, seed=args.seed)
+    train_ds, test_ds = create_dataset("retrieval", cfg, evaluate=args.evaluate,
+                                       rng=random.Random(args.seed))
+    fresh = load_initial_params(args, cfg, model)
+    metric_key = ("img_r_mean" if cfg.get("pick_best_t2v") else
+                  "r1_mean" if cfg.get("pick_best_r1") else "r_mean")
+
+    def eval_fn():
+        kw = dict(device=device, k_test=cfg.get("k_test", 128),
+                  batch_images=cfg.get("batch_size_test", 64),
+                  batch_texts=cfg.get("batch_size_test_text", 256))
+        if isinstance(test_ds, dict):
+            out, vals = {}, []
+            for lang, ds in test_ds.items():
+                m = evaluate_retrieval(model, ds, **kw)
+                out.update({f"{lang}_{k}": v for k, v in m.items()})
+                vals.append(m[metric_key])
+            out[metric_key] = sum(vals) / len(vals)
+            return out
+        return evaluate_retrieval(model, test_ds, **kw)
+
+    if args.evaluate:
+        metrics = eval_fn()
+        print(metrics)
+        append_log(args.output_dir, {"eval": metrics})
+        return metrics
+
+    epochs = cfg.get("schedular", {}).get("epochs", 5)
+    accum = int(cfg.get("accumulate_steps", 1))
+    loader = MapLoader(train_ds, cfg.get("batch_size", 32), seed=args.seed)
+    steps_per_epoch = max(1, len(loader))
+    optimizer = make_optimizer(cfg, model, steps_per_epoch * epochs,
+                               mcfg.text.fusion_layer, fresh_names=fresh)
+    resumed_step, _ = maybe_resume(args, model, optimizer)
+    start_epoch = min(resumed_step // steps_per_epoch, epochs)
+    step = make_train_step(model, optimizer, accum_steps=accum)
+
+    def step_fn(batch, i):
+        return step(to_device(batch, device), *step_generators(device, args.seed, i, 0))
+
+    def save_fn(epoch, best):
+        n = (epoch + 1) * steps_per_epoch
+        ckpt_lib.save_train_state(os.path.join(args.output_dir, "ckpt"), model, optimizer, n)
+        if best:
+            ckpt_lib.save_train_state(os.path.join(args.output_dir, "ckpt_best"), model,
+                                      optimizer, n)
+
+    return train_epochs(step_fn, loader, num_epochs=epochs, start_epoch=start_epoch,
+                        eval_fn=eval_fn, eval_start_epoch=int(cfg.get("start_eval", 0)),
+                        metric_key=metric_key, output_dir=args.output_dir, save_fn=save_fn)
+
+
+class _Tracked:
+    """A prefetched stream of (batch, cursor) pairs, handing out the
+    batches and keeping the reader cursor after the last one handed out
+    (the cursor a resume continues from)."""
+
+    def __init__(self, pairs, depth: int, start_state):
+        self.prefetcher = Prefetcher(pairs, depth=depth)
+        self._it = iter(self.prefetcher)
+        self.cursor = start_state
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch, self.cursor = next(self._it)
+        return batch
+
+
+def _stream_pairs(name: str, stream, rng: random.Random, batch_size: int, seed: int):
+    """(batch, cursor after it) pairs of ``stream``; the stream's ``rng``
+    (transform, masking and caption draws) is seeded from the cursor at
+    each batch's start, so a batch depends only on where it starts and a
+    resumed run reads what the uninterrupted one would."""
+    it = iter(stream)
+    while True:
+        s = stream.reader.state()
+        rng.seed(f"{seed}/{name}/{s['epoch']}/{s['file_idx']}/{s['line_idx']}")
+        samples = [next(it) for _ in range(batch_size)]
+        yield collate(samples), stream.reader.state()
+
+
+def run_pretrain(args, cfg, device):
+    """Mixed-stream pretraining: the image-text stream (+ the aux clean-data
+    replacement) and the text stream (reference Pretrain.py:255-423)."""
+    from x2vlm_tpu_torch.data import transforms as T
+    from x2vlm_tpu_torch.data.pretrain import ImageTextStream, TextStream
+    from x2vlm_tpu_torch.data.streaming import DistLineReader
+    from x2vlm_tpu_torch.data.tokenization import TextPreprocessor, build_tokenizer
+    from x2vlm_tpu_torch.tasks.pretrain import PretrainStreams, pretrain_loop
+
+    if not cfg.get("mixed_in_batch", True):
+        raise ValueError("mixed_in_batch: false is not implemented (reference "
+                         "Pretrain.py:359 raises too)")
+    for block in ("images", "regions", "videos", "texts", "mtexts"):
+        if (cfg.get(block) or {}).get("tokenized", False):
+            raise ValueError(f"{block}.tokenized: true is not implemented (reference "
+                             f"pretrain_dataset.py:147)")
+        if (cfg.get(block) or {}).get("languages"):
+            raise NotImplementedError(f"{block}.languages (multilingual streams) comes "
+                                      f"with ROADMAP queue item A8")
+    for (key, block), item in UNPORTED_STREAMS.items():
+        if cfg.get(key) or (key == "train_file_regions" and cfg.get(block)):
+            raise NotImplementedError(f"the {block} stream ({key}) comes with ROADMAP "
+                                      f"queue item {item}; drop it from the config")
+
+    model, mcfg = build_model(cfg, "pretrain", device=device, seed=args.seed)
+    tokenizer = build_tokenizer(cfg["text_encoder"])
+    fresh = load_initial_params(args, cfg, model)
+
+    icfg = dict(cfg.get("images", {}))
+    icfg.setdefault("caption_key", "desc")
+    sched_cfg = cfg.get("schedular", {})
+    steps_per_epoch = cfg.get("train_dataset_size", 10 ** 6) // icfg.get("batch_size", 128)
+    total_steps = steps_per_epoch * sched_cfg.get("epochs", 3)
+    optimizer = make_optimizer(cfg, model, total_steps, mcfg.text.fusion_layer,
+                               fresh_names=fresh)
+    start_step, data_state = maybe_resume(args, model, optimizer)
+
+    def preprocessor(rng):
+        return TextPreprocessor(
+            tokenizer, max_tokens=cfg.get("max_tokens", 40), max_words=cfg.get("max_words", 40),
+            max_masks=cfg.get("max_masks", 12), mask_prob=cfg.get("mask_prob", 0.5),
+            mask_whole_word=cfg.get("mask_whole_word", True),
+            skipgram_prb=cfg.get("skipgram_prb", 0.2), skipgram_size=cfg.get("skipgram_size", 3),
+            rng=rng)
+
+    streams: Dict[str, _Tracked] = {}
+    counted = []
+
+    def add(name, block, paths, make):
+        rng = random.Random()
+        reader = DistLineReader(paths, seed=args.seed, start_state=data_state.get(name))
+        stream = make(reader, preprocessor(rng), rng, block.get("batch_size", 128))
+        counted.append(stream)
+        pairs = _stream_pairs(name, stream, rng, block.get("batch_size", 128), args.seed)
+        streams[name] = _Tracked(pairs, max(1, int(block.get("num_workers", 2))),
+                                 data_state.get(name))
+
+    def image_stream(blk):
+        return lambda reader, pre, rng, bs: ImageTextStream(
+            reader, pre, T.pretrain_transform(cfg["image_res"], rng=rng, as_float=False),
+            image_key=blk.get("image_key", "binary"), caption_key=blk["caption_key"],
+            is_image_rpath=blk.get("is_image_rpath", False), rng=rng,
+            max_consecutive_broken=bs)
+
+    add("image", icfg, cfg["train_file"], image_stream(icfg))
+    if cfg.get("train_file_aux"):
+        aux = dict(icfg, caption_key=icfg.get("aux_caption_key",
+                                              icfg.get("caption_key", "caption")))
+        add("aux", aux, cfg["train_file_aux"], image_stream(aux))
+    tcfg = cfg.get("texts")
+    if tcfg and cfg.get("train_file_text"):
+        add("text", tcfg, cfg["train_file_text"],
+            lambda reader, pre, rng, bs: TextStream(
+                reader, pre, caption_key=tcfg.get("caption_key", "text"), rng=rng,
+                max_consecutive_broken=bs))
+
+    ps = PretrainStreams(
+        image=streams["image"], text=streams.get("text"), aux=streams.get("aux"),
+        image_weight=icfg.get("iter_perc", 1.0),
+        text_weight=(tcfg or {}).get("iter_perc", 1.0),
+        aux_perc=cfg.get("aux_iter_perc", 0.0), rng=random.Random(args.seed))
+    ckpt_dir = os.path.join(args.output_dir, "ckpt")
+
+    def checkpoint_fn(step):
+        cursors = {k: s.cursor for k, s in streams.items()}
+        ckpt_lib.save_train_state(ckpt_dir, model, optimizer, step, data_state=cursors)
+        print(f"### saved the train state at step {step} (data cursors {cursors})")
+
+    try:
+        logger = pretrain_loop(
+            model, optimizer, ps, num_steps=total_steps, seed=args.seed,
+            to_device=lambda b: to_device(b, device),
+            stop_calc_itm_after=cfg.get("stop_calc_itm"), start_step=start_step,
+            checkpoint_fn=checkpoint_fn, checkpoint_every=cfg.get("ckpt_frequent_step", 50000),
+            epoch_steps=steps_per_epoch, epoch_save_frequent=int(cfg.get("ckpt_frequent", 1)),
+            extra_metrics=lambda: {"broken": float(sum(s.broken for s in counted))})
+    finally:
+        for tracked in streams.values():
+            tracked.prefetcher.close()
+    record = {"pretrain_steps": [start_step, total_steps], **logger.to_dict()}
+    append_log(args.output_dir, record)
+    return record
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.wait:
+        print(f"### waiting {args.wait} minutes", flush=True)
+        time.sleep(args.wait * 60)
+    cfg = setup(args)
+    device = resolve_device(args.device)
+    t0 = time.time()
+    if args.task == "pretrain":
+        out = run_pretrain(args, cfg, device)
+    else:
+        out = run_retrieval(args, cfg, device)
+    print(f"total time: {time.time() - t0:.0f}s")
+    return out
+
+
+if __name__ == "__main__":
+    main()

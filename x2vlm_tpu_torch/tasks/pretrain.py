@@ -1,0 +1,140 @@
+"""Mixed-stream pretraining loop (the port's counterpart of
+x2vlm_tpu/tasks/pretrain.py; reference Pretrain.py:189-423).
+
+As in the JAX package:
+
+- every stream with a loader is drawn every iteration; its loss is weighted
+  by the config's ``iter_perc`` (a loss weight, not a draw probability);
+- ``aux_iter_perc`` is a probability: with it the image batch is replaced
+  by a clean-data (aux) batch; when an aux stream exists, noisy image
+  batches never compute the matching loss;
+- ``stop_calc_itm`` turns the matching loss off from that step on;
+- the streams' gradients are summed in ``.grad`` and applied in one
+  optimizer step (``train/trainer.py`` ``make_grad_fn`` /
+  ``make_apply_grads``).
+
+Randomness: each step draws its hard negatives and dropout masks from
+generators seeded by (seed, step, stream), as the JAX loop folds the step
+into its key, so a resumed run draws what the uninterrupted one would.
+The region, video and parallel-text streams come with ROADMAP items A5 and
+A8.
+"""
+
+from __future__ import annotations
+
+import random
+from typing import Callable, Dict, Iterator, Optional
+
+import torch
+from torch import nn
+
+from x2vlm_tpu_torch.train.metrics import MetricLogger
+from x2vlm_tpu_torch.train.trainer import make_apply_grads, make_grad_fn
+
+__all__ = ["PretrainStreams", "pretrain_loop", "step_generators"]
+
+
+class PretrainStreams:
+    """Per-stream infinite batch iterators, their loss weights (``iter_perc``)
+    and the aux replacement probability (``aux_iter_perc``)."""
+
+    def __init__(self, image: Iterator, text: Optional[Iterator] = None,
+                 aux: Optional[Iterator] = None, image_weight: float = 1.0,
+                 text_weight: float = 1.0, aux_perc: float = 0.0,
+                 rng: Optional[random.Random] = None):
+        self.image = image
+        self.text = text
+        self.aux = aux
+        self.image_weight = image_weight
+        self.text_weight = text_weight
+        self.aux_perc = aux_perc
+        self.rng = rng or random.Random(0)
+
+
+def step_generators(device, seed: int, step: int, stream: int):
+    """(negatives generator, dropout generator) of one stream at one step."""
+    gens = []
+    for i in range(2):
+        g = torch.Generator(device=device)
+        g.manual_seed(((seed * 1_000_003 + step) * 8 + stream) * 2 + i)
+        gens.append(g)
+    return tuple(gens)
+
+
+def pretrain_loop(
+    model: nn.Module,
+    optimizer,
+    streams: PretrainStreams,
+    *,
+    num_steps: int,
+    seed: int,
+    to_device: Callable[[Dict], Dict],
+    stop_calc_itm_after: Optional[int] = None,
+    start_step: int = 0,
+    log_every: int = 50,
+    logger: Optional[MetricLogger] = None,
+    checkpoint_fn: Optional[Callable[[int], None]] = None,
+    checkpoint_every: int = 0,
+    epoch_steps: int = 0,
+    epoch_save_frequent: int = 1,
+    extra_metrics: Optional[Callable[[], Dict[str, float]]] = None,
+) -> MetricLogger:
+    """Run mixed iterations from ``start_step`` (resume) to ``num_steps``.
+
+    ``to_device`` turns a host batch (numpy) into the model's tensors.
+    ``checkpoint_fn(step)`` runs every ``checkpoint_every`` steps
+    (``ckpt_frequent_step``), at every ``epoch_save_frequent``-th epoch
+    boundary of ``epoch_steps`` steps (``ckpt_frequent``) and after the last
+    step. ``extra_metrics()`` adds host counters (the streams' ``broken``)
+    to every step's record. Returns the logger."""
+    logger = logger or MetricLogger()
+    s = streams
+    device = next(model.parameters()).device
+    image_grads: Dict = {}
+
+    def image_grad_fn(weight, itm):
+        if (weight, itm) not in image_grads:
+            image_grads[(weight, itm)] = make_grad_fn(
+                model, loss_scale=weight, apply_kwargs={"ret_match_loss": itm})
+        return image_grads[(weight, itm)]
+
+    grad_text = make_grad_fn(model, loss_scale=s.text_weight)
+    apply_grads = make_apply_grads(optimizer)
+    for p in optimizer.params:
+        p.grad = None
+
+    last_saved = -1
+    for it in logger.log_every(range(start_step, num_steps), log_every, header="Pretrain:",
+                               total=num_steps):
+        calc_itm = stop_calc_itm_after is None or it < stop_calc_itm_after
+        if s.aux is not None:
+            if s.rng.random() < s.aux_perc:
+                batch, itm = next(s.aux), calc_itm
+            else:
+                batch, itm = next(s.image), False   # noisy: no matching loss
+        else:
+            batch, itm = next(s.image), calc_itm
+        losses = image_grad_fn(s.image_weight, itm)(
+            to_device(batch), *step_generators(device, seed, it, 0))
+        metrics = {f"image_{k}": v for k, v in losses.items()}
+        if s.text is not None:
+            tb = dict(to_device(next(s.text)))
+            tb["image"] = None
+            losses = grad_text(tb, *step_generators(device, seed, it, 3))
+            metrics.update({f"text_{k}": v for k, v in losses.items()})
+        metrics["grad_norm"] = apply_grads()
+        logger.update(**metrics)
+        if extra_metrics is not None:
+            logger.update(**extra_metrics())
+
+        if checkpoint_fn:
+            step_hit = checkpoint_every and (it + 1) % checkpoint_every == 0
+            epoch_hit = (epoch_steps and (it + 1) % epoch_steps == 0
+                         and (((it + 1) // epoch_steps) % max(1, epoch_save_frequent) == 0
+                              or it + 1 == num_steps))
+            if (step_hit or epoch_hit) and last_saved != it + 1:
+                checkpoint_fn(it + 1)
+                last_saved = it + 1
+    if checkpoint_fn and last_saved != num_steps:
+        checkpoint_fn(num_steps)
+    return logger

@@ -1,15 +1,20 @@
 """The train step (counterpart of x2vlm_tpu/train/trainer.py).
 
-``make_train_step(model, optimizer)`` returns ``step(batch, generator,
-dropout_generator) -> metrics``: the model in train mode, forward, the
-weighted total loss, backward, the optimizer update. ``generator`` draws
-the ITM hard negatives and ``dropout_generator`` every dropout mask, so a
-step is reproducible from the two generators' states.
+A step is :func:`make_grad_fn` on each part of the step (its loss times a
+weight, backward into the same ``.grad``) and one :func:`make_apply_grads`
+after the last part: one AdamW step, one clip over the summed gradient, as
+the JAX ``make_grad_fn`` / ``make_apply_grads`` sum their gradient trees.
+The multi-stream step of pretraining takes one part per stream, weighted by
+its ``iter_perc``.
 
-``accum_steps > 1`` splits the batch along its first dim into that many
-microbatches, sums their gradients and divides by ``accum_steps`` (the JAX
-package's scan). In-batch losses (ITC, ITM negatives) then see
-microbatch-local negatives, as in the reference's accumulation.
+``make_train_step(model, optimizer)`` returns ``step(batch, generator,
+dropout_generator) -> metrics`` for one stream. ``generator`` draws the ITM
+hard negatives and ``dropout_generator`` every dropout mask, so a step is
+reproducible from the two generators' states. ``accum_steps > 1`` splits
+the batch along its first dim into that many microbatches, each a part
+weighted ``1 / accum_steps`` (the JAX package's scan). In-batch losses
+(ITC, ITM negatives) then see microbatch-local negatives, as in the
+reference's accumulation.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ from torch import nn
 
 from x2vlm_tpu_torch.train.optim import AdamW
 
-__all__ = ["make_train_step"]
+__all__ = ["make_train_step", "make_grad_fn", "make_apply_grads"]
 
 
 def _total_loss(losses: Dict[str, torch.Tensor],
@@ -33,18 +38,58 @@ def _total_loss(losses: Dict[str, torch.Tensor],
     return total
 
 
+def make_grad_fn(model: nn.Module, *, loss_weights: Optional[Dict[str, float]] = None,
+                 loss_scale: float = 1.0, apply_kwargs: Optional[Dict] = None
+                 ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """One stream's part of the multi-stream step: ``grad_fn(batch,
+    generator, dropout_generator)`` runs the model in train mode (with
+    ``apply_kwargs``, e.g. ``ret_match_loss``) and adds the gradient of
+    ``loss_scale`` times the weighted total into each parameter's
+    ``.grad``. Returns the losses unscaled (device scalars), with
+    ``loss_total`` the scaled total, as the JAX ``make_grad_fn``."""
+    kwargs = dict(apply_kwargs or {})
+
+    def grad_fn(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+                dropout_generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        model.train()
+        losses = model(batch, generator, dropout_generator, **kwargs)
+        total = loss_scale * _total_loss(losses, loss_weights)
+        total.backward()
+        out = {k: v.detach().float() for k, v in losses.items()}
+        out["loss_total"] = total.detach()
+        return out
+
+    return grad_fn
+
+
+def make_apply_grads(optimizer: AdamW) -> Callable[[], torch.Tensor]:
+    """``apply_grads()``: one optimizer step over the summed ``.grad`` of
+    the streams, which it then clears for the next step. Returns the
+    pre-clip gradient norm."""
+
+    def apply_grads() -> torch.Tensor:
+        g_norm = optimizer.step()
+        for p in optimizer.params:
+            p.grad = None
+        return g_norm
+
+    return apply_grads
+
+
 def make_train_step(model: nn.Module, optimizer: AdamW, *,
                     loss_weights: Optional[Dict[str, float]] = None,
                     accum_steps: int = 1) -> Callable[..., Dict[str, torch.Tensor]]:
-    """One optimizer step per call. The metrics are the losses (means over
-    the microbatches), ``loss_total`` and the pre-clip ``grad_norm``, as
-    device scalars. The averaged gradients stay in ``.grad`` until the next
-    step."""
+    """One optimizer step per call: :func:`make_grad_fn` on each microbatch
+    with ``loss_scale = 1 / accum_steps``, then :func:`make_apply_grads`.
+    The metrics are the losses (means over the microbatches),
+    ``loss_total`` and the pre-clip ``grad_norm``, as device scalars."""
+    grad_fn = make_grad_fn(model, loss_weights=loss_weights, loss_scale=1.0 / accum_steps)
+    apply_grads = make_apply_grads(optimizer)
 
     def step(batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              dropout_generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        model.train()
         for p in optimizer.params:
             p.grad = None
         n = accum_steps
@@ -56,15 +101,10 @@ def make_train_step(model: nn.Module, optimizer: AdamW, *,
         for i in range(n):
             mb = {k: v[i * mb_rows:(i + 1) * mb_rows] if torch.is_tensor(v) else v
                   for k, v in batch.items()}
-            losses = model(mb, generator, dropout_generator)
-            losses["loss_total"] = _total_loss(losses, loss_weights)
-            losses["loss_total"].backward()
-            for k, v in losses.items():
-                sums[k] = sums.get(k, 0.0) + v.detach().float()
-        if n > 1:
-            torch._foreach_div_([p.grad for p in optimizer.params if p.grad is not None], n)
-        metrics = {k: v / n for k, v in sums.items()}
-        metrics["grad_norm"] = optimizer.step()
+            for k, v in grad_fn(mb, generator, dropout_generator).items():
+                sums[k] = sums.get(k, 0.0) + v
+        metrics = {k: v if k == "loss_total" else v / n for k, v in sums.items()}
+        metrics["grad_norm"] = apply_grads()
         return metrics
 
     return step
