@@ -786,9 +786,9 @@ def check_tiny_bwd(gen, dev):
         q, k, v, km, dm = tiny_operands(gen, dev, B, Sq, Skv, H, D, torch.bfloat16, "pad",
                                         True)
         g = torch.randn(B, Sq, H * D, generator=gen, device=dev).to(torch.bfloat16)
-        _, probs = tiny_attention_fwd(q, k, v, H, km, dm, scale, return_probs=True)
+        out, probs = tiny_attention_fwd(q, k, v, H, km, dm, scale, return_probs=True)
         before = dict(tiny_attention_bwd.launches_by_route)
-        got = tiny_attention_bwd(q, k, v, probs, dm, g, H, scale)
+        got = tiny_attention_bwd(q, k, v, probs, dm, g, H, scale, out=out)
         expect_route(f"tiny_attention_bwd {label}", tiny_attention_bwd, before,
                      torch.bfloat16, D)
         _, p_probs = tiny_attention_reference(q, k, v, H, km, dm, scale)
@@ -799,7 +799,7 @@ def check_tiny_bwd(gen, dev):
         err = max(rule_bf16(f"tiny_attention_bwd {lab} {label} B{B} {Sq}x{Skv} H{H} "
                             f"D{D} key_mask dropout bf16", a, p, t)
                   for lab, a, p, t in zip(("dq", "dk", "dv"), got, plain, truth))
-        ms = time_ms(lambda: tiny_attention_bwd(q, k, v, probs, dm, g, H, scale),
+        ms = time_ms(lambda: tiny_attention_bwd(q, k, v, probs, dm, g, H, scale, out=out),
                      host_ahead=True)
         plain_ms = time_ms(lambda: tiny_attention_bwd_reference(q, k, v, probs, dm, g, H,
                                                                 scale), inner=3, reps=5,
@@ -836,9 +836,9 @@ def check_tiny_bwd(gen, dev):
                 dm = torch.where(dm != 0, 1.25, 0.0).to(
                     torch.float32 if name.endswith("fp32 multiplier") else dtype)
             g = torch.randn(B, Sq, H * D, generator=gen, device=dev).to(dtype)
-            _, probs = tiny_attention_fwd(q, k, v, H, km, dm, D ** -0.5, return_probs=True)
+            out, probs = tiny_attention_fwd(q, k, v, H, km, dm, D ** -0.5, return_probs=True)
             before = dict(tiny_attention_bwd.launches_by_route)
-            got = tiny_attention_bwd(q, k, v, probs, dm, g, H, D ** -0.5)
+            got = tiny_attention_bwd(q, k, v, probs, dm, g, H, D ** -0.5, out=out)
             tag = f"tiny_attention_bwd {name} {str(dtype)[6:]} ({tiny_route(dtype, D)})"
             expect_route(tag, tiny_attention_bwd, before, dtype, D)
             tq, tk, tv, tg, tdm = as_f32(q, k, v, g, dm)
@@ -857,10 +857,23 @@ def check_tiny_bwd(gen, dev):
 
 
 # the key-tiled walk's contract cases (B, Sq, Skv, H, D, mask, drop), each
-# past the resident shapes: odd Skv and Skv off 4 (the 4-byte probability
-# copies), fully masked rows, every tensor-core head dim's tile shapes, a
-# head dim off 16 (bf16 on the CUDA cores), one query row, 64 query rows
+# past the resident shapes: odd Skv and Skv off 4 (rows off 16 bytes),
+# fully masked rows, every tensor-core head dim's tile shapes, a head dim
+# off 16 (bf16 on the CUDA cores), one query row, 64 query rows; the
+# tensor-core kernels' edges: the smallest tiled Skv at 40 rows (a last tile
+# of 2 keys), the unpadded 577 image keys (a last tile of 1), one tile past
+# the forward's 3-stage ring and past two turns of the backward's 2-stage
+# one, 33 and 48 rows (the third row tile partly and wholly filled, one
+# warp a row tile),
+# and the backward fed the out of a forward with dropout (its row sums)
 TILED_CASES = {
+    "40x258 D64 (a last tile of 2 keys)": (2, 40, 258, 2, 64, "half", True),
+    "40x577 D64 (a last tile of 1 key)": (2, 40, 577, 3, 64, "half", True),
+    "64x193 D128 (one tile past the forward's ring)": (2, 64, 193, 2, 128, "half", True),
+    "64x257 D64 (one tile past two backward rings)": (2, 64, 257, 2, 64, "full_row", True),
+    "33x600 D64 (one row in the third row tile)": (2, 33, 600, 2, 64, "half", True),
+    "48x700 D64 (three whole row tiles)": (2, 48, 700, 2, 64, "full_row", True),
+    "40x584 D64 out of a forward with dropout": (3, 40, 584, 3, 64, "pad", True),
     "40x584 D64 fully masked row": (2, 40, 584, 2, 64, "full_row", True),
     "40x583 D64 (Skv off 4) fp32 multiplier": (2, 40, 583, 3, 64, "half", True),
     "13x901 D32 (odd Skv)": (2, 13, 901, 2, 32, "half", True),
@@ -876,10 +889,11 @@ TILED_CASES = {
 # (B, dropout, label) of the 40 x 584 checks: the retrieval fine-tune's ITM
 # fusion pass (batch 32: 96 rows, positives and two negatives each), the
 # fine-tune batch itself, and the two-stage eval's ITM rerank (8 images x 128
-# candidate texts)
+# candidate texts; 8 texts x the 64 images of phase 8, its most launched)
 TILED_MAIN_SHAPES = ((3 * TRAIN_BATCH, True, "fine-tune ITM"),
                      (TRAIN_BATCH, True, "fine-tune"),
-                     (RERANK_BATCH, False, "ITM rerank"))
+                     (RERANK_BATCH, False, "ITM rerank"),
+                     (RERANK_BATCH // 2, False, "ITM rerank, texts to images"))
 
 
 def walk_delta(fn, before) -> dict:
@@ -934,7 +948,7 @@ def check_tiny_tiled(gen, dev, shapes):
 
         g = torch.randn(B, Sq, H * D, generator=gen, device=dev).to(torch.bfloat16)
         b_before = dict(tiny_attention_bwd.launches_by_walk)
-        got = tiny_attention_bwd(q, k, v, probs, dm, g, H, scale)
+        got = tiny_attention_bwd(q, k, v, probs, dm, g, H, scale, out=out)
         if walk_delta(tiny_attention_bwd, b_before) != {TILED: 1}:
             fail(f"tiny_attention_bwd {label}: walks "
                  f"{walk_delta(tiny_attention_bwd, b_before)}, expected 1 tiled")
@@ -944,7 +958,7 @@ def check_tiny_tiled(gen, dev, shapes):
         err = max(rule_bf16(f"{tag} {lab}", a, p, t)
                   for lab, a, p, t in zip(("dq", "dk", "dv"), got, plain, truth))
         del plain, truth, t_probs, p_probs
-        ms = time_ms(lambda: tiny_attention_bwd(q, k, v, probs, dm, g, H, scale),
+        ms = time_ms(lambda: tiny_attention_bwd(q, k, v, probs, dm, g, H, scale, out=out),
                      host_ahead=True)
         plain_ms = time_ms(lambda: tiny_attention_bwd_reference(q, k, v, probs, dm, g, H,
                                                                 scale), inner=2, reps=3,
@@ -975,7 +989,7 @@ def check_tiny_tiled(gen, dev, shapes):
             out1, _ = tiny_attention_fwd(q, k, v, H, km, dm, sc)
             g = torch.randn(B, Sq, H * D, generator=gen, device=dev).to(dtype)
             b_before = dict(tiny_attention_bwd.launches_by_route)
-            got = tiny_attention_bwd(q, k, v, probs, dm, g, H, sc)
+            got = tiny_attention_bwd(q, k, v, probs, dm, g, H, sc, out=out)
             tag = f"tiny tiled {name} {str(dtype)[6:]} ({tiny_route(dtype, D)})"
             expect_route(tag + " fwd", tiny_attention_fwd, f_before, dtype, D)
             expect_route(tag + " bwd", tiny_attention_bwd, b_before, dtype, D)

@@ -231,10 +231,86 @@ def test_tiny_dispatch_admits_only_shapes_both_kernels_fit():
 def test_tiny_bwd_wrapper_takes_the_plain_version_on_cpu():
     q, k, v, g, key_mask, dmask, H, scale = _tiny_inputs("non_multiple_of_8")
     n0 = tiny_attention_bwd.launches
-    _, probs = tiny_attention_fwd(_t(q), _t(k), _t(v), H, _t(key_mask), _t(dmask),
-                                  scale, return_probs=True)
-    got = tiny_attention_bwd(_t(q), _t(k), _t(v), probs, _t(dmask), _t(g), H, scale)
+    out, probs = tiny_attention_fwd(_t(q), _t(k), _t(v), H, _t(key_mask), _t(dmask),
+                                    scale, return_probs=True)
+    got = tiny_attention_bwd(_t(q), _t(k), _t(v), probs, _t(dmask), _t(g), H, scale,
+                             out=out)
     ref = tiny_attention_bwd_reference(_t(q), _t(k), _t(v), probs, _t(dmask), _t(g), H,
                                        scale)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert tiny_attention_bwd.launches == n0
+
+
+@pytest.mark.parametrize("name", ["self_40x40_mask_dropout", "cross_40x200_full_row_masked",
+                                  "cross_40x197_no_mask"])
+def test_rowsum_g_out_is_the_softmax_backward_row_sum(name):
+    """The key-tiled backward takes the softmax backward's row sums as
+    rowsum(g * out) per head: equal to rowsum(dP * dm * P), dP = g . V^T,
+    since out = (P * dm) . V; in fp32 with dropout on, with a partly masked
+    batch row and (full_row) a wholly masked one."""
+    q, k, v, g, key_mask, dmask, H, scale = _tiny_inputs(name)
+    B, Sq, HD = q.shape
+    Skv, D = k.shape[1], HD // H
+    dm = None if dmask is None else _t(dmask)
+    out, probs = tiny_attention_fwd(_t(q), _t(k), _t(v), H,
+                                    None if key_mask is None else _t(key_mask), dm, scale,
+                                    return_probs=True)
+    heads = lambda t, n: t.view(B, n, H, D).transpose(1, 2)
+    p = probs.view(B, Sq, H, Skv).transpose(1, 2)
+    pu = p if dm is None else p * dm.view(B, Sq, H, Skv).transpose(1, 2)
+    dp = torch.matmul(heads(_t(g), Sq), heads(_t(v), Skv).transpose(-1, -2))
+    want = (dp * pu).sum(-1)                                   # (B, H, Sq)
+    got = (heads(_t(g), Sq) * heads(out, Sq)).sum(-1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+class _StandInFn:
+    def __init__(self, name, calls):
+        self.name, self.calls = name, calls
+
+    def __call__(self, *args):
+        self.calls.append((self.name, args))
+        return 0
+
+
+@pytest.mark.parametrize("Sq,Skv", [(40, 584), (40, 258), (40, 200)])
+def test_tiny_bwd_wrapper_passes_out_to_the_library(Sq, Skv, monkeypatch):
+    """On meta tensors with a stand-in library: the backward wrapper hands
+    the forward's out to the C entry (after g), on the key-tiled walk (40 x
+    584, 40 x 258) and on the resident one (40 x 200) alike."""
+    import contextlib
+    import types
+
+    from x2vlm_tpu_torch.ops import _build
+    from x2vlm_tpu_torch.ops import tiny_attention as ta
+
+    calls = []
+    lib = type("Lib", (), {})()
+    for fn_name in ta._SIGNATURES:
+        setattr(lib, fn_name, _StandInFn(fn_name, calls))
+    monkeypatch.setattr(_build, "load", lambda n: lib)
+    monkeypatch.setattr(ta, "_check_cuda", lambda *a: None)   # meta tensors stand in
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(tiny_attention_bwd, "launches", 0)
+    B, H, D = 2, 12, 64
+    meta = dict(device="meta", dtype=torch.bfloat16)
+    q, g, out = (torch.empty(B, Sq, H * D, **meta) for _ in range(3))
+    k, v = (torch.empty(B, Skv, H * D, **meta) for _ in range(2))
+    probs = torch.empty(B, Sq, H * Skv, device="meta")
+    dm = torch.empty(B, Sq, H * Skv, **meta)
+    operands = (q, k, v, probs, dm, g, out)
+    ptrs = {id(t): 16 * (i + 1) for i, t in enumerate(operands)}   # meta tensors' are all 0
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: ptrs.get(id(self), 0))
+    with pytest.raises(TypeError, match="out"):
+        tiny_attention_bwd(q, k, v, probs, dm, g, H, D ** -0.5)
+    assert calls == [] and tiny_attention_bwd.launches == 0
+    dq, dk, dv = tiny_attention_bwd(q, k, v, probs, dm, g, H, D ** -0.5, out=out)
+    (fn_name, c_args), = calls
+    assert fn_name == "x2_tiny_attention_bwd"
+    assert len(c_args) == len(ta._SIGNATURES[fn_name][0])
+    # q k v probs dm | kind | g out | dq dk dv
+    assert c_args[:5] + c_args[6:8] == tuple(16 * (i + 1) for i in range(7))
+    assert c_args[11:17] == (B, Sq, Skv, H, D, 1)
+    assert dq.shape == q.shape and dk.shape == k.shape and tiny_attention_bwd.launches == 1

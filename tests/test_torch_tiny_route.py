@@ -180,7 +180,8 @@ def test_tiny_wrappers_raise_for_cuda_without_the_library(wrapper, dtype, head_d
         if wrapper == "tiny_attention_fwd":
             fn(q, k, v, H, scale=head_dim ** -0.5, return_probs=True)
         else:
-            fn(q, k, v, _Operand((B, Sq, H * Skv), F32), None, g, H, head_dim ** -0.5)
+            fn(q, k, v, _Operand((B, Sq, H * Skv), F32), None, g, H, head_dim ** -0.5,
+               out=_Operand((B, Sq, H * head_dim), dtype))
     assert (fn.launches, dict(fn.launches_by_route)) == before
 
 
@@ -207,9 +208,15 @@ def test_the_384px_fusion_shape_takes_the_key_tiled_walk():
     # the resident kernels' need there, above the limit on every route
     assert smem_bytes(584, 64) > SMEM_LIMIT and bwd_smem_bytes(40, 584, 64) > SMEM_LIMIT
     assert bwd_smem_bytes(40, 584, 64, TENSOR_CORE) > SMEM_LIMIT
-    # the tiled kernels' at the main path's shape (C formulas held equal on the card)
-    assert tiled_smem_bytes(40, 64, TENSOR_CORE) == 16640
-    assert tiled_bwd_smem_bytes(40, 64, TENSOR_CORE) == 41728
+    # the tiled kernels' at the main path's shape (C formulas held equal on the
+    # card, their constants to the sources' below): the forward's 3-stage ring
+    # of K, V, mask and (fp32) multiplier rows and 4 warps' P blocks; the
+    # backward's 2-stage ring of K, V, P and multiplier rows, g, Qs, the dL /
+    # Pu planes and the row sums
+    assert tiled_smem_bytes(40, 64, TENSOR_CORE) == \
+        3 * (2 * 2 * 64 * 64 + 4 * 20 + 4 * 48 * 68) + 4 * 4 * 16 * 20 == 93680
+    assert tiled_bwd_smem_bytes(40, 64, TENSOR_CORE) == \
+        2 * (2 * 2 * 64 * 64 + 4 * 48 * 68) + 2 * 2 * 48 * (64 + 72) + 4 * 64 == 85248
     assert tiled_smem_bytes(40, 64) == 4 * (32 * 129 + 2 * 40 * 64 + 8 * 32)
     assert tiled_bwd_smem_bytes(40, 64) == 4 * (2 * 32 * 65 + 3 * 40 * 64 + 2 * 40 * 32)
 
@@ -254,8 +261,68 @@ def test_wrappers_refuse_shapes_no_walk_takes(wrapper, monkeypatch):
         if wrapper == "tiny_attention_fwd":
             fn(q, k, v, H, return_probs=True)
         else:
-            fn(q, k, v, _Operand((B, Sq, H * Skv), F32), None, g, H)
+            fn(q, k, v, _Operand((B, Sq, H * Skv), F32), None, g, H,
+               out=_Operand((B, Sq, H * D), BF16))
     assert (fn.launches, dict(fn.launches_by_walk)) == before
+
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "x2vlm_tpu_torch", "csrc")
+
+
+def _constexpr(source: str, name: str) -> str:
+    import re
+    m = re.search(rf"constexpr int {name} = ([^;]+);", source)
+    assert m, f"constexpr {name} not found"
+    return m.group(1)
+
+
+def test_tiled_smem_constants_are_the_sources():
+    """The Python mirror of the key-tiled tensor-core kernels' shared memory
+    takes its constants from the sources: key tile, ring depths, warps,
+    scratch and plane widths, the multiplier's staging chunks (the C
+    formulas themselves are held equal to the Python ones on the card)."""
+    fwd = open(os.path.join(_CSRC, "tiny_attention_fwd.cu")).read()
+    bwd = open(os.path.join(_CSRC, "tiny_attention_bwd.cu")).read()
+    common = open(os.path.join(_CSRC, "common.cuh")).read()
+    tc_fwd = fwd[fwd.index("namespace tc {"):]
+    tc_bwd = bwd[bwd.index("namespace tc {"):]
+    assert int(_constexpr(tc_fwd, "kKeyTile")) == int(_constexpr(tc_bwd, "kKeyTile")) == \
+        ta._TC_KEY_TILE == 64
+    assert int(_constexpr(tc_fwd, "kStages")) == ta._TC_FWD_STAGES
+    assert int(_constexpr(tc_bwd, "kBwdStages")) == ta._TC_BWD_STAGES
+    assert int(_constexpr(tc_fwd, "kThreads")) == 32 * ta._TC_FWD_WARPS
+    assert int(_constexpr(tc_fwd, "kScratchLW")) == ta._TC_SCRATCH_LW
+    assert _constexpr(tc_bwd, "kWLD") == "kKeyTile + 8" and ta._TC_PLANE_LD == 72
+    assert int(_constexpr(common, "kTinyTiledMaxSq")) == ta._TILED_MAX_SQ
+    assert "static constexpr int kChunks = 64 / kPerChunk + 1;" in common
+    assert [ta._key_rows_words(n) for n in (1, 2, 4)] == [20, 36, 68]
+
+
+def _variants_tool():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "tools" / "tiny_variants.py"
+    spec = importlib.util.spec_from_file_location("tiny_variants", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("variant", ["base", "fwd_stages_2", "bwd_stages_3", "no_dm",
+                                     "no_p_stores", "no_fwd_pass1_loads", "no_loads",
+                                     "serve_no_math", "no_dq"])
+def test_every_variant_patch_applies_to_the_source(variant):
+    """``tools/tiny_variants.py`` times text patches of the key-tiled
+    kernels' sources; each patch text of this tree's variants must be found
+    once, and only the base variant leaves the sources as they are."""
+    tool = _variants_tool()
+    assert variant in tool.VARIANTS
+    srcs = tool.patched_sources(variant)
+    assert set(srcs) == {"tiny_attention_fwd.cu", "tiny_attention_bwd.cu", "common.cuh"}
+    same = all(text == open(os.path.join(_CSRC, f)).read() for f, text in srcs.items())
+    assert same == (variant == "base")
 
 
 def _faults_tool():

@@ -51,13 +51,12 @@ VARIANTS = {
     "wrapper_mask_dropped": [(TINY, "        km_ptr = key_mask.data_ptr()\n",
                               "        km_ptr = None\n")],
     # the tensor-core key-tiled forward ignores the key mask
-    "tc_mask_ignored": [(FWD, ": (km != nullptr && km[t0 + j] == 0 ? x2::kNegInf : 0.f);",
+    "tc_mask_ignored": [(FWD, ": (key_mask != nullptr && mb[j] == 0 ? x2::kNegInf : 0.f);",
                          ": 0.f;")],
     # the tensor-core key-tiled forward (serving walk) skips its first 64 keys
-    "tc_tile_dropped": [(FWD, "  if constexpr (kOnePass) {\n"
-                              "    for (int t0 = 0; t0 < Skv; t0 += kKeyTile) {",
-                         "  if constexpr (kOnePass) {\n"
-                         "    for (int t0 = kKeyTile; t0 < Skv; t0 += kKeyTile) {")],
+    "tc_tile_dropped": [(FWD, "    if (!active) continue;\n    const int slot = s % kStages",
+                         "    if (!active || (kOnePass && s == 0)) continue;\n"
+                         "    const int slot = s % kStages")],
     # the CUDA-core key-tiled forward leaves its first 32 keys out of P . V
     "cc_tile_dropped": [(FWD, "for (int t0 = 0; t0 < Skv; t0 += kTileKeys) {  // pass 2",
                          "for (int t0 = kTileKeys; t0 < Skv; t0 += kTileKeys) {  // pass 2")],

@@ -220,6 +220,50 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat
   }
 }
 
+// A (rows x 64 keys) block of a row-major operand of kElemBytes-byte
+// elements, rows `stride` elements apart, each Skv keys long, whatever its
+// alignment (the tiny kernels' key-tiled walks: the key mask, the dropout
+// multiplier and the probabilities, at any Skv): row r (element base + r *
+// stride) is copied by 16-byte cp.async from the 16-byte chunk that holds
+// its key c0, into a row of kLW words, so its key c0 + j is element j +
+// shift of that row (shift = (base + r * stride + c0) mod kPerChunk). Rows
+// in [nrows, rows_pad) and bytes past a row's key Skv - 1 are zeros, and no
+// copy reads past that key. The operand itself is 16-byte aligned.
+template <int kElemBytes>
+struct KeyRows {
+  static constexpr int kPerChunk = 16 / kElemBytes;  // elements in 16 bytes
+  static constexpr int kChunks = 64 / kPerChunk + 1;
+  static constexpr int kLW = 4 * kChunks;  // row stride (words)
+
+  __device__ static int shift(long long e0) { return static_cast<int>(e0 & (kPerChunk - 1)); }
+  __device__ static void stage(unsigned* dst, const void* src, long long base, long long stride,
+                               int nrows, int rows_pad, int c0, int Skv, int tid,
+                               int nthreads) {
+    const char* s = static_cast<const char*>(src);
+    for (int i = tid; i < rows_pad * kChunks; i += nthreads) {
+      const int r = i / kChunks, c = i - r * kChunks;
+      const long long e0 = base + r * stride + c0;
+      const int sh = shift(e0);
+      const int left = Skv - (c0 - sh + kPerChunk * c);  // keys of the row from the chunk on
+      const bool ok = r < nrows && left > 0;
+      cp_async16(dst + r * kLW + 4 * c, ok ? s + 16 * ((e0 - sh) / kPerChunk + c) : s,
+                 ok ? min(16, left * kElemBytes) : 0);
+    }
+  }
+};
+
+// Keys j and j + 1 (j even) of a staged KeyRows row `row` whose shift is
+// `sh`, as floats: fp32 (kElemBytes 4) or bf16 (2).
+__device__ __forceinline__ float2 key_pair_f32(const unsigned* row, int j, int sh) {
+  const float* f = reinterpret_cast<const float*>(row) + j + sh;
+  return (sh & 1) == 0 ? *reinterpret_cast<const float2*>(f) : make_float2(f[0], f[1]);
+}
+__device__ __forceinline__ float2 key_pair_bf16(const unsigned* row, int j, int sh) {
+  const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(row) + j + sh;
+  return (sh & 1) == 0 ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x))
+                       : make_float2(__bfloat162float(x[0]), __bfloat162float(x[1]));
+}
+
 // ---- the flash kernels' tensor-core route (bf16, D = 64) ----
 
 constexpr int kTcThreads = 128;  // 4 warps, 16 rows of a 64-row tile each

@@ -740,41 +740,80 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* prob
   return cudaGetLastError();
 }
 
-// Key-tiled walk (x2::tiny_walk; Sq <= 64, so each warp owns at most one
-// 16-row query tile). g and Qs are staged once; the keys come kKeyTile at
-// a time. Pass 1 over the V tiles: dP = g . V^T and rowsum(dP * dm * P),
-// P and dm read straight from device memory (each element once in this
-// pass). Pass 2 over K and V tiles with the tile's P block in W: the
-// resident kernel's pass 2 (dL and Pu rewritten into W, dQ += dL . K in
-// registers across tiles), a barrier, then its dK / dV tasks on the tile's
-// keys, which no other block has. Shared memory is one K / V tile, g, Qs
-// and the tile's P block, whatever Skv (41,728 B at Sq = 40, D = 64).
+// Key-tiled walk (x2::tiny_walk; Sq <= 64, D <= 128). What bounds it at the
+// 384 px fusion cross-attention (40 x 584, H = 12, D = 64) is bytes: the fp32
+// probabilities, the bf16 multiplier and q, g, out, K, V, dq, dk, dv once
+// each, ~530 MB at B = 96 (0.158 ms at 3.35 TB/s). So the design reads each
+// of them once and keeps loads in flight:
+// - one walk: the softmax backward's row sums rowsum(dP * dm * P) are taken
+//   as rowsum(g * out) (equal, since out = (P * dm) . V) in the prologue,
+//   from the block's rows of g and of the forward's out, so no walk reads
+//   V, P and the multiplier only for them;
+// - a ring of kBwdStages 64-key tiles: K and V (TileLayout rows) and the
+//   multiplier (KeyRows: 16-byte copies at any alignment), by cp.async
+//   groups, so tile t + 1 lands during tile t's two phases; P, read once,
+//   goes from device memory straight into registers, each warp's values of
+//   tile t + 1 loaded as it is done with tile t's, so the ring stays small
+//   enough for 3 blocks an SM;
+// - phase A: dP = g . V^T, dL = P * (dP * dm - rowsum) and Pu = P * dm for
+//   (16-row tile, 16-key group) units, warp w taking group w of every row
+//   tile, dL and Pu rounded to bf16 into two planes (rows of 72 elements:
+//   conflict-free ldmatrix both ways);
+// - phase B, after a barrier: the tile's dK = dL^T . Qs and dV = Pu^T . g
+//   (16 keys by D a task, staged through the tile's V rows, dead by then,
+//   to 16-byte row stores; no other block has these keys), and dQ += dL . K
+//   in (16-row, 16-column) units that each warp owns for the whole walk.
+// Shared memory does not grow with Skv: kBwdStages tiles, g, Qs, the two
+// planes and the row sums, 72,960 B at Sq = 40, D = 64 with a bf16
+// multiplier (3 blocks an SM); tiled_smem_bytes is the most (fp32).
 constexpr int kKeyTile = 64;
+constexpr int kBwdStages = 2;
+constexpr int kWLD = kKeyTile + 8;  // row stride (elements) of the dL and Pu planes
+using DmRows16 = x2::KeyRows<2>;
+using DmRows32 = x2::KeyRows<4>;
 
-size_t tiled_smem_bytes(int Sq, int D) {
-  const size_t sq = x2::round_up16(Sq);
-  return sizeof(bf16) * (2 * kKeyTile + 2 * sq) * x2::tile_ld(D) +
-         sizeof(float) * sq * (kKeyTile + 4);
+// words of a multiplier row in a ring stage: none, bf16 or fp32 (x2::OperandKind)
+__host__ __device__ inline int dm_row_words(int dm_kind) {
+  return dm_kind == x2::kOperandBF16 ? DmRows16::kLW : dm_kind == x2::kOperandF32 ? DmRows32::kLW : 0;
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+// bytes of one ring stage: K and V tiles and the multiplier's Sq16 rows
+__host__ __device__ inline size_t tiled_stage_bytes(int Sq16, int ld, int dm_kind) {
+  return sizeof(bf16) * 2 * kKeyTile * ld +
+         sizeof(unsigned) * static_cast<size_t>(Sq16) * dm_row_words(dm_kind);
+}
+
+size_t tiled_instance_smem_bytes(int Sq, int D, int dm_kind) {
+  const int sq = x2::round_up16(Sq), ld = static_cast<int>(x2::tile_ld(D));
+  return kBwdStages * tiled_stage_bytes(sq, ld, dm_kind) + sizeof(bf16) * 2 * sq * (ld + kWLD) +
+         sizeof(float) * x2::kTinyTiledMaxSq;
+}
+
+// the most one block takes: an fp32 multiplier
+size_t tiled_smem_bytes(int Sq, int D) { return tiled_instance_smem_bytes(Sq, D, x2::kOperandF32); }
+
+template <int D, bool kDm>
+__global__ void __launch_bounds__(kThreads, 3)
 bwd_tiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ probs,
                  const void* __restrict__ dmask, int dmask_kind, const bf16* __restrict__ g,
-                 bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq,
-                 int Skv, int H, float scale) {
+                 const bf16* __restrict__ out, bf16* __restrict__ dq, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv, int Sq, int Skv, int H, float scale) {
   using L = x2::TileLayout<D>;  // K, V, g, Qs
   constexpr int KS = D / 16;
   constexpr int NT = D / 8;
-  constexpr int LDW = kKeyTile + 4;  // W row stride (words)
+  constexpr int kDqUnits = D / 16;  // (16-row, 16-column) dQ units a warp owns, at most
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Sq16 = x2::round_up16(Sq);
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);             // kKeyTile rows
-  bf16* Vs = Ks + kKeyTile * L::kLD;                        // kKeyTile rows
-  bf16* Gs = Vs + kKeyTile * L::kLD;                        // Sq16 rows
-  bf16* Qs = Gs + Sq16 * L::kLD;                            // Sq16 rows
-  float* W = reinterpret_cast<float*>(Qs + Sq16 * L::kLD);  // Sq16 x LDW
+  const int Sq16 = x2::round_up16(Sq), NR = Sq16 / 16;
+  const size_t stage_bytes = tiled_stage_bytes(Sq16, L::kLD, kDm ? dmask_kind : 0);
+  auto Ks = [&](int slot) { return reinterpret_cast<bf16*>(smem_raw + slot * stage_bytes); };
+  auto Vs = [&](int slot) { return Ks(slot) + kKeyTile * L::kLD; };
+  auto Ds = [&](int slot) { return reinterpret_cast<unsigned*>(Vs(slot) + kKeyTile * L::kLD); };
+  bf16* Gs = reinterpret_cast<bf16*>(smem_raw + kBwdStages * stage_bytes);  // Sq16 rows
+  bf16* Qs = Gs + Sq16 * L::kLD;                                            // Sq16 rows
+  bf16* Wl = Qs + Sq16 * L::kLD;                                            // dL, Sq16 x kWLD
+  bf16* Wu = Wl + Sq16 * kWLD;                                              // Pu
+  float* delta = reinterpret_cast<float*>(Wu + Sq16 * kWLD);                // rowsum, Sq16
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -785,9 +824,32 @@ bwd_tiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const long long prow_stride = static_cast<long long>(H) * Skv;
   const long long p_base = static_cast<long long>(b) * Sq * prow_stride +
                            static_cast<long long>(h) * Skv;
+  const bool dm16 = dmask_kind == x2::kOperandBF16;
+  const int dm_lw = dm_row_words(dmask_kind);
+  const int ntiles = (Skv + kKeyTile - 1) / kKeyTile;
+  const bool vec = (Skv & 1) == 0;
 
-  x2::stage_rows<D>(Gs, g + q_base, Sq, Sq16, HD, tid, kThreads);
-  x2::cp_async_commit();
+  // tile s into slot s % kBwdStages (one cp.async group, empty past the end)
+  auto load_step = [&](int s) {
+    if (s < ntiles) {
+      const int slot = s % kBwdStages, t0 = s * kKeyTile, rows = min(kKeyTile, Skv - t0);
+      x2::stage_rows<D>(Ks(slot), k + kv_base + static_cast<long long>(t0) * HD, rows, kKeyTile,
+                        HD, tid, kThreads);
+      x2::stage_rows<D>(Vs(slot), v + kv_base + static_cast<long long>(t0) * HD, rows, kKeyTile,
+                        HD, tid, kThreads);
+      if constexpr (kDm) {
+        if (dm16)
+          DmRows16::stage(Ds(slot), dmask, p_base, prow_stride, Sq, Sq16, t0, Skv, tid, kThreads);
+        else
+          DmRows32::stage(Ds(slot), dmask, p_base, prow_stride, Sq, Sq16, t0, Skv, tid, kThreads);
+      }
+    }
+    x2::cp_async_commit();
+  };
+
+  x2::stage_rows<D>(Gs, g + q_base, Sq, Sq16, HD, tid, kThreads);  // lands with tile 0
+#pragma unroll
+  for (int s = 0; s < kBwdStages - 1; ++s) load_step(s);
   constexpr int kRowChunks = D / 8;  // Qs = q * scale rounded to bf16; rows past Sq are zeros
   for (int i = tid; i < Sq16 * kRowChunks; i += kThreads) {
     const int r = i / kRowChunks, c = (i % kRowChunks) * 8;
@@ -803,138 +865,117 @@ bwd_tiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     *reinterpret_cast<uint4*>(Qs + L::off(r, c)) = raw;
   }
-
-  const bool vec = (Skv & 1) == 0;
-  const int r0 = 16 * warp;
-  const bool valid = r0 < Sq;
-  const bool row_ok[2] = {r0 + gr < Sq, r0 + gr + 8 < Sq};
-  const long long prow[2] = {p_base + (r0 + gr) * prow_stride,
-                             p_base + (r0 + gr + 8) * prow_stride};
-
-  // keys t0 .. t0 + kKeyTile - 1: V, and with_kp K and the P block into W;
-  // returns the tile's 16-key groups
-  auto stage = [&](int t0, bool with_kp) -> int {
-    __syncthreads();  // the previous tile is no longer read
-    const int rows = min(kKeyTile, Skv - t0);
-    x2::stage_rows<D>(Vs, v + kv_base + static_cast<long long>(t0) * HD, rows, kKeyTile, HD, tid,
-                      kThreads);
-    if (with_kp) {
-      x2::stage_rows<D>(Ks, k + kv_base + static_cast<long long>(t0) * HD, rows, kKeyTile, HD,
-                        tid, kThreads);
-      if ((Skv & 3) == 0) {  // P rows start 16-byte aligned
-        constexpr int chunks = kKeyTile / 4;
-        for (int i = tid; i < Sq16 * chunks; i += kThreads) {
-          const int r = i / chunks, c = (i - r * chunks) * 4;
-          const bool ok = r < Sq && c < rows;
-          x2::cp_async16(W + r * LDW + c, probs + p_base + (ok ? r * prow_stride + t0 + c : 0),
-                         ok ? 16 : 0);
-        }
-      } else {
-        for (int i = tid; i < Sq16 * kKeyTile; i += kThreads) {
-          const int r = i / kKeyTile, c = i - r * kKeyTile;
-          const bool ok = r < Sq && c < rows;
-          x2::cp_async4(W + r * LDW + c, probs + p_base + (ok ? r * prow_stride + t0 + c : 0),
-                        ok ? 4 : 0);
-        }
+  for (int r = warp; r < Sq16; r += kWarps) {  // rowsum(g * out), 0 past Sq
+    float sum = 0.f;
+    if (r < Sq) {
+      const long long base = q_base + static_cast<long long>(r) * HD;
+      for (int d = 2 * lane; d < D; d += 64) {
+        const float2 a = x2::unpack_bf16(*reinterpret_cast<const unsigned*>(g + base + d));
+        const float2 o = x2::unpack_bf16(*reinterpret_cast<const unsigned*>(out + base + d));
+        sum += a.x * o.x + a.y * o.y;
       }
     }
-    x2::cp_async_commit();
-    x2::cp_async_wait_all();
-    __syncthreads();
-    return x2::round_up16(rows) / 16;
-  };
-  auto mult = [&](int j, int R) -> float2 {  // dm at keys j, j + 1 of row gr + 8R
-    if (dmask == nullptr) return make_float2(1.f, 1.f);
-    return x2::load_pair(dmask, dmask_kind, prow[R] + j, row_ok[R] && j < Skv,
-                         row_ok[R] && j + 1 < Skv, vec);
-  };
+    sum = x2::warp_sum(sum);
+    if (lane == 0) delta[r] = sum;
+  }
 
-  unsigned ga[KS][4];  // g rows r0 .. r0 + 15 as A fragments
-  float dot[2] = {0.f, 0.f};  // rowsum(dP * dm * P) of rows gr and gr + 8
-  for (int t0 = 0; t0 < Skv; t0 += kKeyTile) {  // pass 1
-    const int ng = stage(t0, false);
-    if (!valid) continue;
-    if (t0 == 0) {
+  // P of the warp's units (row tile rt, its key group `warp`) of the tile in
+  // hand: p[rt][R][T] is row 16 rt + gr + 8R, keys 16 warp + 8T + 2t, + 1
+  float2 p[4][2][2];
+  auto load_p = [&](int rt, int s) {
 #pragma unroll
-      for (int s = 0; s < KS; ++s)
-        x2::ldmatrix_x4(ga[s], Gs + L::off(r0 + (lane & 15), 16 * s + ((lane >> 4) << 3)));
-    }
-    for (int gi = 0; gi < ng; ++gi) {
-      float c[8];
-      x2::mma_abt<D>(c, ga, Vs, 16 * gi, lane);
+    for (int R = 0; R < 2; ++R)
+#pragma unroll
+      for (int T = 0; T < 2; ++T) {
+        const int rr = 16 * rt + gr + 8 * R, j = s * kKeyTile + 16 * warp + 8 * T + 2 * t;
+        const bool ok = rr < Sq && s < ntiles;
+        p[rt][R][T] = x2::load_pair(probs, x2::kOperandF32, p_base + rr * prow_stride + j,
+                                    ok && j < Skv, ok && j + 1 < Skv, vec);
+      }
+  };
+#pragma unroll
+  for (int rt = 0; rt < 4; ++rt)
+    if (rt < NR) load_p(rt, 0);
+
+  float dqa[kDqUnits][2][4];  // the warp's dQs units (unit warp + 4i: row tile, 16 columns)
+#pragma unroll
+  for (int i = 0; i < kDqUnits; ++i)
+#pragma unroll
+    for (int n = 0; n < 2; ++n) dqa[i][n][0] = dqa[i][n][1] = dqa[i][n][2] = dqa[i][n][3] = 0.f;
+
+  for (int s = 0; s < ntiles; ++s) {
+    x2::cp_async_wait_group<kBwdStages - 2>();  // tile s (and g)
+    __syncthreads();  // ... for every thread; tile s - 1's slot and the planes are free
+    load_step(s + kBwdStages - 1);
+    const int slot = s % kBwdStages, t0 = s * kKeyTile;
+    const int ng = (min(kKeyTile, Skv - t0) + 15) / 16;
+
+    // phase A: dL and Pu of (row tile, key group) units, then P of the next tile
+#pragma unroll
+    for (int rt = 0; rt < 4; ++rt) {
+      if (rt >= NR) continue;
+      if (warp >= ng) {
+        load_p(rt, s + 1);
+        continue;
+      }
+      const int n0 = 16 * warp;
+      unsigned ga[KS][4];  // g rows 16 rt .. as A fragments
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        x2::ldmatrix_x4(ga[ks], Gs + L::off(16 * rt + (lane & 15), 16 * ks + ((lane >> 4) << 3)));
+      float c[8], pu[8];
+      x2::mma_abt<D>(c, ga, Vs(slot), n0, lane);
+#pragma unroll
+      for (int R = 0; R < 2; ++R) {
+        const int rr = 16 * rt + gr + 8 * R;
+        const long long e0 = p_base + rr * prow_stride + t0;
+        const float dl_sum = delta[rr];
+#pragma unroll
+        for (int T = 0; T < 2; ++T) {
+          const int j = n0 + 8 * T + 2 * t;
+          const float2 pp = p[rt][R][T];
+          float2 m = make_float2(1.f, 1.f);
+          if constexpr (kDm) {
+            const unsigned* drow = Ds(slot) + rr * dm_lw;
+            m = dm16 ? x2::key_pair_bf16(drow, j, DmRows16::shift(e0))
+                     : x2::key_pair_f32(drow, j, DmRows32::shift(e0));
+          }
+          float* cc = c + 4 * T + 2 * R;
+          float* uu = pu + 4 * T + 2 * R;
+          cc[0] = pp.x * (cc[0] * m.x - dl_sum);
+          cc[1] = pp.y * (cc[1] * m.y - dl_sum);
+          uu[0] = pp.x * m.x;
+          uu[1] = pp.y * m.y;
+        }
+      }
+      load_p(rt, s + 1);
 #pragma unroll
       for (int T = 0; T < 2; ++T)
 #pragma unroll
         for (int R = 0; R < 2; ++R) {
-          const int j = t0 + 16 * gi + 8 * T + 2 * t;
-          const float2 p = x2::load_pair(probs, x2::kOperandF32, prow[R] + j,
-                                         row_ok[R] && j < Skv, row_ok[R] && j + 1 < Skv, vec);
-          const float2 m = mult(j, R);
-          dot[R] += c[4 * T + 2 * R] * m.x * p.x + c[4 * T + 2 * R + 1] * m.y * p.y;
+          const int off = (16 * rt + gr + 8 * R) * kWLD + n0 + 8 * T + 2 * t;
+          *reinterpret_cast<unsigned*>(Wl + off) = x2::pack_bf16(c[4 * T + 2 * R], c[4 * T + 2 * R + 1]);
+          *reinterpret_cast<unsigned*>(Wu + off) = x2::pack_bf16(pu[4 * T + 2 * R], pu[4 * T + 2 * R + 1]);
         }
     }
-  }
-#pragma unroll
-  for (int R = 0; R < 2; ++R) {
-    dot[R] += __shfl_xor_sync(0xffffffffu, dot[R], 1);
-    dot[R] += __shfl_xor_sync(0xffffffffu, dot[R], 2);
-  }
+    __syncthreads();  // every dL / Pu of the tile is in the planes; V is no longer read
 
-  float acc[NT][4];  // dQs of the warp's rows
-#pragma unroll
-  for (int i = 0; i < NT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  bf16* Os = Ks + warp * 16 * L::kLD;  // the warp's output tile in K's space (dead by then)
-  for (int t0 = 0; t0 < Skv; t0 += kKeyTile) {  // pass 2
-    const int ng = stage(t0, true);
-    if (valid) {
-      for (int gi = 0; gi < ng; ++gi) {
-        const int n0 = 16 * gi;
-        float c[8], pu[8];
-        x2::mma_abt<D>(c, ga, Vs, n0, lane);
-#pragma unroll
-        for (int T = 0; T < 2; ++T)
-#pragma unroll
-          for (int R = 0; R < 2; ++R) {
-            const float2 p = *reinterpret_cast<const float2*>(W + (r0 + gr + 8 * R) * LDW + n0 +
-                                                              8 * T + 2 * t);
-            const float2 m = mult(t0 + n0 + 8 * T + 2 * t, R);
-            float* cc = c + 4 * T + 2 * R;
-            float* uu = pu + 4 * T + 2 * R;
-            cc[0] = p.x * (cc[0] * m.x - dot[R]);
-            cc[1] = p.y * (cc[1] * m.y - dot[R]);
-            uu[0] = p.x * m.x;
-            uu[1] = p.y * m.y;
-          }
-        unsigned la[4], ua[4];
-        x2::pack_a(la, c);
-        x2::pack_a(ua, pu);
-        __syncwarp();  // every lane has read this group's P before it becomes dL | Pu
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {  // a[i]: row gr + 8 (i & 1), keys n0 + 8 (i >> 1) + 2t
-          unsigned* w = reinterpret_cast<unsigned*>(W + (r0 + gr + 8 * (i & 1)) * LDW + n0);
-          w[4 * (i >> 1) + t] = la[i];      // dL: bf16 key 8 (i >> 1) + 2t of the group
-          w[8 + 4 * (i >> 1) + t] = ua[i];  // Pu: 32 bytes on
-        }
-        x2::mma_ab<D>(acc, la, Ks, n0, lane);
-      }
-    }
-    __syncthreads();  // every dL / Pu row of the tile is in W; K and V are no longer read
-    // dK = dL^T . Qs and dV = Pu^T . g for the tile's keys, 16 keys by D per task
+    // phase B: dK = dL^T . Qs and dV = Pu^T . g, 16 keys by D a task
+    bf16* Os = Vs(slot) + warp * 16 * L::kLD;  // the warp's 16 rows of the dead V tile
     for (int task = warp; task < 2 * ng; task += kWarps) {
       const int m0 = (task >> 1) * 16;
       const bool is_dv = task & 1;
-      const unsigned char* A = reinterpret_cast<const unsigned char*>(W + m0) + (is_dv ? 32 : 0);
+      const bf16* A = is_dv ? Wu : Wl;
       const bf16* Bm = is_dv ? Gs : Qs;
       float o[NT][4];
 #pragma unroll
       for (int i = 0; i < NT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
       for (int k0 = 0; k0 < Sq16; k0 += 16) {
-        unsigned a[4];
-        x2::ldmatrix_x4_trans(a, A + (k0 + (lane & 7) + ((lane >> 4) << 3)) * LDW * 4 +
-                                     (lane & 8) * 2);
+        unsigned a[4];  // (keys m0 .., rows k0 ..), read transposed
+        x2::ldmatrix_x4_trans(a, A + (k0 + (lane & 7) + ((lane >> 4) << 3)) * kWLD + m0 + (lane & 8));
         x2::mma_ab<D>(o, a, Bm, k0, lane);
       }
-      // through the warp's 16-row tile, so the rows go out as 16-byte stores
+      // through the warp's 16 rows, so the rows go out as 16-byte stores
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         *reinterpret_cast<unsigned*>(Os + L::off(gr, 8 * nt) + 2 * t) =
@@ -952,46 +993,77 @@ bwd_tiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           *reinterpret_cast<uint4*>(dst + static_cast<long long>(key) * HD + c) =
               *reinterpret_cast<const uint4*>(Os + L::off(r, c));
       }
-      __syncwarp();  // the tile is rewritten by the warp's next task
+      __syncwarp();  // the rows are rewritten by the warp's next task
+    }
+    // dQs += dL . K, the warp's units
+#pragma unroll
+    for (int i = 0; i < kDqUnits; ++i) {
+      const int unit = warp + kWarps * i;
+      if (unit >= NR * kDqUnits) continue;
+      const int rt = unit / kDqUnits, dc = unit % kDqUnits;
+      for (int gi = 0; gi < ng; ++gi) {
+        unsigned a[4], kb[4];
+        x2::ldmatrix_x4(a, Wl + (16 * rt + (lane & 15)) * kWLD + 16 * gi + ((lane >> 4) << 3));
+        x2::ldmatrix_x4_trans(kb, Ks(slot) + L::off(16 * gi + (lane & 7) + (lane & 8),
+                                                    16 * dc + ((lane >> 4) << 3)));
+        x2::mma_bf16(dqa[i][0], a, kb);
+        x2::mma_bf16(dqa[i][1], a, kb + 2);
+      }
     }
   }
-  if (!valid) return;
-  bf16* qrow = dq + q_base + static_cast<long long>(r0 + gr) * HD;
+
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    const int d = 8 * nt + 2 * t;
-    if (row_ok[0])
-      *reinterpret_cast<unsigned*>(qrow + d) = x2::pack_bf16(acc[nt][0] * scale, acc[nt][1] * scale);
-    if (row_ok[1])
-      *reinterpret_cast<unsigned*>(qrow + 8LL * HD + d) =
-          x2::pack_bf16(acc[nt][2] * scale, acc[nt][3] * scale);
+  for (int i = 0; i < kDqUnits; ++i) {
+    const int unit = warp + kWarps * i;
+    if (unit >= NR * kDqUnits) continue;
+    const int rt = unit / kDqUnits, dc = unit % kDqUnits;
+    bf16* qrow = dq + q_base + static_cast<long long>(16 * rt + gr) * HD + 16 * dc;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      const int d = 8 * n + 2 * t;
+      if (16 * rt + gr < Sq)
+        *reinterpret_cast<unsigned*>(qrow + d) =
+            x2::pack_bf16(dqa[i][n][0] * scale, dqa[i][n][1] * scale);
+      if (16 * rt + gr + 8 < Sq)
+        *reinterpret_cast<unsigned*>(qrow + 8LL * HD + d) =
+            x2::pack_bf16(dqa[i][n][2] * scale, dqa[i][n][3] * scale);
+    }
   }
 }
 
-template <int D>
+template <int D, bool kDm>
 cudaError_t launch_tiled(const void* q, const void* k, const void* v, const void* probs,
-                         const void* dmask, int dmask_kind, const void* g, void* dq, void* dk,
-                         void* dv, int B, int Sq, int Skv, int H, float scale,
+                         const void* dmask, int dmask_kind, const void* g, const void* out,
+                         void* dq, void* dk, void* dv, int B, int Sq, int Skv, int H, float scale,
                          cudaStream_t stream) {
-  const size_t smem = tiled_smem_bytes(Sq, D);
-  auto kernel = bwd_tiled_kernel<D>;
+  const size_t smem = tiled_instance_smem_bytes(Sq, D, kDm ? dmask_kind : 0);
+  auto kernel = bwd_tiled_kernel<D, kDm>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  // as much of the SM's 228 KB as shared memory as it takes: 3 blocks at Sq = 40, D = 64
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(H, B), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const float*>(probs), dmask, dmask_kind, static_cast<const bf16*>(g),
-      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Skv, H, scale);
+      static_cast<const bf16*>(out), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), Sq, Skv, H, scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const void* probs,
-                     const void* dmask, int dmask_kind, const void* g, void* dq, void* dk,
-                     void* dv, int B, int Sq, int Skv, int H, float scale, cudaStream_t st) {
-  if (x2::tiny_walk(Sq, Skv, D) == x2::kWalkTiled)
-    return launch_tiled<D>(q, k, v, probs, dmask, dmask_kind, g, dq, dk, dv, B, Sq, Skv, H, scale,
-                           st);
+                     const void* dmask, int dmask_kind, const void* g, const void* out, void* dq,
+                     void* dk, void* dv, int B, int Sq, int Skv, int H, float scale,
+                     cudaStream_t st) {
+  if (x2::tiny_walk(Sq, Skv, D) == x2::kWalkTiled) {
+    return dmask == nullptr ? launch_tiled<D, false>(q, k, v, probs, dmask, dmask_kind, g, out, dq,
+                                                     dk, dv, B, Sq, Skv, H, scale, st)
+                            : launch_tiled<D, true>(q, k, v, probs, dmask, dmask_kind, g, out, dq,
+                                                    dk, dv, B, Sq, Skv, H, scale, st);
+  }
   if constexpr (D <= 64) {  // registers: the multipliers beside g and dQ
     if (dmask != nullptr && dmask_kind == x2::kOperandBF16 &&
         x2::round_up16(Skv) <= 16 * kRegGroups)
@@ -1003,14 +1075,14 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, const void* pr
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* probs,
-                     const void* dmask, int dmask_kind, const void* g, void* dq, void* dk,
-                     void* dv, int B, int Sq, int Skv, int H, int D, float scale,
+                     const void* dmask, int dmask_kind, const void* g, const void* out, void* dq,
+                     void* dk, void* dv, int B, int Sq, int Skv, int H, int D, float scale,
                      cudaStream_t st) {
   switch (D) {
-#define X2_TINY_BWD_CASE(DD)                                                                     \
-  case DD:                                                                                       \
-    return launch_d<DD>(q, k, v, probs, dmask, dmask_kind, g, dq, dk, dv, B, Sq, Skv, H, scale, \
-                        st);
+#define X2_TINY_BWD_CASE(DD)                                                                   \
+  case DD:                                                                                     \
+    return launch_d<DD>(q, k, v, probs, dmask, dmask_kind, g, out, dq, dk, dv, B, Sq, Skv, H, \
+                        scale, st);
     X2_TINY_BWD_CASE(16)
     X2_TINY_BWD_CASE(32)
     X2_TINY_BWD_CASE(48)
@@ -1055,13 +1127,15 @@ extern "C" long long x2_tiny_attention_bwd_tiled_smem_bytes(int Sq, int D, int r
 // `dtype` (x2::DType); on the tensor-core route every operand 16-byte
 // aligned. probs: (B, Sq, H*Skv) f32, the forward's pre-dropout
 // probabilities. dmask: null or (B, Sq, H*Skv), f32 or bf16 per dmask_kind
-// (x2::OperandKind). `scale` is the forward's (already rounded to the
+// (x2::OperandKind). out: the forward's output (B, Sq, H*D), from which the
+// key-tiled tensor-core kernel takes its row sums (rowsum(g * out)); the
+// others ignore it. `scale` is the forward's (already rounded to the
 // dtype). Returns cudaGetLastError() after the launch.
 extern "C" int x2_tiny_attention_bwd(const void* q, const void* k, const void* v,
                                      const void* probs, const void* dmask, int dmask_kind,
-                                     const void* g, void* dq, void* dk, void* dv, int B,
-                                     int Sq, int Skv, int H, int D, int dtype, float scale,
-                                     void* stream) {
+                                     const void* g, const void* out, void* dq, void* dk,
+                                     void* dv, int B, int Sq, int Skv, int H, int D, int dtype,
+                                     float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || H <= 0 || D <= 0 || D > 32 * kMaxDPerLane)
     return cudaErrorInvalidValue;
   if (dmask != nullptr && dmask_kind != x2::kOperandF32 && dmask_kind != x2::kOperandBF16)
@@ -1070,8 +1144,8 @@ extern "C" int x2_tiny_attention_bwd(const void* q, const void* k, const void* v
   if (tiled && (Sq > x2::kTinyTiledMaxSq || D > x2::kTinyTiledMaxD)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x2::tiny_route(dtype, D) == x2::kRouteTensorCore)
-    return static_cast<int>(tc::dispatch(q, k, v, probs, dmask, dmask_kind, g, dq, dk, dv, B,
-                                         Sq, Skv, H, D, scale, st));
+    return static_cast<int>(tc::dispatch(q, k, v, probs, dmask, dmask_kind, g, out, dq, dk, dv,
+                                         B, Sq, Skv, H, D, scale, st));
   if (tiled && dtype == x2::kF32)
     return static_cast<int>(launch_tiled<float>(q, k, v, probs, dmask, dmask_kind, g, dq, dk, dv,
                                                 B, Sq, Skv, H, D, scale, st));

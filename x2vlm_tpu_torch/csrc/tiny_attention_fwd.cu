@@ -638,22 +638,71 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* key_
   return cudaGetLastError();
 }
 
-// Key-tiled walk (x2::tiny_walk; Sq <= 64, so each warp owns at most one
-// 16-row query tile): the block stages kKeyTile keys at a time (K, V and
-// their logit biases, by cp.async) and every warp runs the group steps of
-// the resident kernel on that tile before the block moves on. Serving: one
-// walk, the online softmax's max, sum and output tile carried from tile to
-// tile; with probabilities: pass 1 over the K tiles for the row max and
-// sum, pass 2 over K and V tiles for P, its store and P . V. Shared memory
-// is one tile, whatever Skv (16,640 B at D = 64).
+// Key-tiled walk (x2::tiny_walk; Sq <= 64, D <= 128). What bounds it at the
+// 384 px fusion cross-attention (40 x 584, H = 12, D = 64) is bytes: K and V
+// once, and with the training operands the bf16 multiplier read and the fp32
+// probabilities written, ~345 MB at B = 96 (0.103 ms at 3.35 TB/s); the
+// tensor-core work is ~0.002 ms. The walk's math (exp, the online softmax,
+// the staged operands' reads) is latency-bound at the warps an SM holds, so
+// the design keeps loads in flight and the warps' math independent:
+// - a ring of kStages stages, each one 64-key tile: K and V (TileLayout
+//   rows), the key mask bytes and, with dropout, the multiplier's rows
+//   (KeyRows: 16-byte copies at any alignment), by cp.async groups, so
+//   tiles t + 1 and t + 2 land while tile t is on the tensor cores; the
+//   multiplier is read from shared memory, never from device memory in the
+//   inner loop; a tile with no masked or padding key skips the logit bias;
+// - one warp a 16-row query tile, taking the tile's four 16-key groups at
+//   once: four independent products between the softmax's dependent steps.
+//   (Two warps a row tile, each taking every second group and merging their
+//   sums at the end, lost at every 40 x 584 shape on an H100: more warps,
+//   fewer blocks an SM, less work between the steps of each; PERF.md);
+// - serving: one walk, the online softmax rescaled once a tile (the max
+//   over its four groups), not once a group;
+// - with probabilities: pass 1 computes only Q K^T over the K tiles for the
+//   row max and sum; pass 2 walks the tiles backwards, so it starts on the
+//   K tiles pass 1 read last (still in the ring and in L2), and stores P
+//   normalised, each warp's 16 x 16 block through shared memory as 16-byte
+//   row pieces;
+// - exp by one ex2.approx.ftz (a probability below 2^-126 flushes to 0).
+// Shared memory does not grow with Skv: at Sq = 40, D = 64 a serving block
+// takes 49,392 B (4 an SM), one with probabilities and a bf16 multiplier
+// 75,248 B (3 an SM); tiled_smem_bytes is the most (an fp32 multiplier).
 constexpr int kKeyTile = 64;
+constexpr int kStages = 3;
+constexpr int kScratchLW = 20;  // row stride (words) of a warp's 16 x 16 fp32 probability block
+constexpr int kGroups = kKeyTile / 16;  // 16-key groups of a tile
+using MaskRows = x2::KeyRows<1>;
+using DmRows16 = x2::KeyRows<2>;
+using DmRows32 = x2::KeyRows<4>;
 
-size_t tiled_smem_bytes(int D) {
-  return sizeof(bf16) * 2 * kKeyTile * x2::tile_ld(D) + sizeof(float) * kKeyTile;
+__device__ __forceinline__ float ex2e(float x) { return x2::ex2(x * kLog2e); }
+
+// words of a multiplier row in a ring stage: none, bf16 or fp32 (x2::OperandKind)
+__host__ __device__ inline int dm_row_words(int dm_kind) {
+  return dm_kind == x2::kOperandBF16 ? DmRows16::kLW : dm_kind == x2::kOperandF32 ? DmRows32::kLW : 0;
 }
 
-template <int D, bool kOnePass>
-__global__ void __launch_bounds__(kThreads)
+// bytes of one ring stage: K and V tiles, the key mask bytes and the
+// multiplier's Sq16 rows
+__host__ __device__ inline size_t tiled_stage_bytes(int Sq16, int ld, int dm_kind) {
+  return sizeof(bf16) * 2 * kKeyTile * ld + sizeof(unsigned) * MaskRows::kLW +
+         sizeof(unsigned) * static_cast<size_t>(Sq16) * dm_row_words(dm_kind);
+}
+
+// one block's shared memory: the ring and, with probabilities, each warp's P block
+size_t tiled_instance_smem_bytes(int Sq, int D, bool one_pass, int dm_kind) {
+  return kStages * tiled_stage_bytes(x2::round_up16(Sq), static_cast<int>(x2::tile_ld(D)),
+                                     dm_kind) +
+         (one_pass ? 0 : sizeof(float) * kWarps * 16 * kScratchLW);
+}
+
+// the most one block takes: the two walks with an fp32 multiplier
+size_t tiled_smem_bytes(int Sq, int D) {
+  return tiled_instance_smem_bytes(Sq, D, false, x2::kOperandF32);
+}
+
+template <int D, bool kOnePass, bool kDm>
+__global__ void __launch_bounds__(kThreads, 4)
 fwd_tiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const uint8_t* __restrict__ key_mask,
                  const void* __restrict__ dmask, int dmask_kind, bf16* __restrict__ out,
@@ -662,28 +711,40 @@ fwd_tiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int KS = D / 16;
   constexpr int NT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);                    // kKeyTile rows
-  bf16* Vs = Ks + kKeyTile * L::kLD;                               // kKeyTile rows
-  float* kbias = reinterpret_cast<float*>(Vs + kKeyTile * L::kLD);  // kKeyTile
+  const int Sq16 = x2::round_up16(Sq);
+  const size_t stage_bytes = tiled_stage_bytes(Sq16, L::kLD, kDm ? dmask_kind : 0);
+  auto Ks = [&](int slot) { return reinterpret_cast<bf16*>(smem_raw + slot * stage_bytes); };
+  auto Vs = [&](int slot) { return Ks(slot) + kKeyTile * L::kLD; };
+  auto Ms = [&](int slot) { return reinterpret_cast<unsigned*>(Vs(slot) + kKeyTile * L::kLD); };
+  auto Ds = [&](int slot) { return Ms(slot) + MaskRows::kLW; };
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  float* scratch = reinterpret_cast<float*>(smem_raw + kStages * stage_bytes) +
+                   warp * 16 * kScratchLW;
   const int HD = H * D;
   const long long kv_base = static_cast<long long>(b) * Skv * HD + static_cast<long long>(h) * D;
-  const uint8_t* km = key_mask != nullptr ? key_mask + static_cast<long long>(b) * Skv : nullptr;
   const long long prow_stride = static_cast<long long>(H) * Skv;
-  const bool vec = (Skv & 1) == 0;
+  const long long p_base = static_cast<long long>(b) * Sq * prow_stride +
+                           static_cast<long long>(h) * Skv;
+  const long long m_base = static_cast<long long>(b) * Skv;  // the key mask row
   const int r0 = 16 * warp;
-  const bool valid = r0 < Sq;
+  const bool active = r0 < Sq;
   const bool row_ok[2] = {r0 + g < Sq, r0 + g + 8 < Sq};
-  const long long rb = static_cast<long long>(b) * Sq + r0 + g;
-  const long long prow[2] = {rb * prow_stride + static_cast<long long>(h) * Skv,
-                             (rb + 8) * prow_stride + static_cast<long long>(h) * Skv};
+  const long long prow[2] = {p_base + (r0 + g) * prow_stride, p_base + (r0 + g + 8) * prow_stride};
+  const bool dm16 = dmask_kind == x2::kOperandBF16;
+  const int dm_lw = dm_row_words(dmask_kind);
+  const int ntiles = (Skv + kKeyTile - 1) / kKeyTile;
+  const int nsteps = kOnePass ? ntiles : 2 * ntiles;
+  // step s: pass 1 on tile s (K only) while s < ntiles, else pass 2 on
+  // tile 2 ntiles - 1 - s (backwards); serving: tile s
+  auto tile_of = [&](int s) { return kOnePass || s < ntiles ? s : 2 * ntiles - 1 - s; };
+  auto full = [&](int s) { return kOnePass || s >= ntiles; };
 
   unsigned qa[KS][4];  // q * scale of the warp's 16 rows, rounded to bf16, as A fragments
-  if (valid) {
-    const bf16* qb = q + rb * HD + static_cast<long long>(h) * D;
+  if (active) {
+    const bf16* qb = q + (static_cast<long long>(b) * Sq + r0 + g) * HD + static_cast<long long>(h) * D;
     auto pair = [&](int R, int d) -> unsigned {
       if (!row_ok[R]) return 0u;
       const float2 x = __bfloat1622float2(
@@ -698,190 +759,250 @@ fwd_tiled_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       qa[s][3] = pair(1, 16 * s + 8 + 2 * t);
     }
   }
-  // keys t0 .. t0 + kKeyTile - 1 into shared memory; returns the tile's 16-key groups
-  auto stage = [&](int t0, bool with_v) -> int {
-    __syncthreads();  // the previous tile is no longer read
-    const int rows = min(kKeyTile, Skv - t0);
-    x2::stage_rows<D>(Ks, k + kv_base + static_cast<long long>(t0) * HD, rows, kKeyTile, HD, tid,
-                      kThreads);
-    if (with_v)
-      x2::stage_rows<D>(Vs, v + kv_base + static_cast<long long>(t0) * HD, rows, kKeyTile, HD,
-                        tid, kThreads);
-    x2::cp_async_commit();
-    for (int j = tid; j < kKeyTile; j += kThreads)
-      kbias[j] = j >= rows ? kPadLogit
-                           : (km != nullptr && km[t0 + j] == 0 ? x2::kNegInf : 0.f);
-    x2::cp_async_wait_all();
-    __syncthreads();
-    return x2::round_up16(rows) / 16;
-  };
-  // biased logits of the 16 keys of the tile's group gi (layout as above)
-  auto logits16 = [&](int gi, float (&c)[8]) {
-    const int n0 = 16 * gi;
-    x2::mma_abt<D>(c, qa, Ks, n0, lane);
-#pragma unroll
-    for (int T = 0; T < 2; ++T) {
-      const float2 a = *reinterpret_cast<const float2*>(kbias + n0 + 8 * T + 2 * t);
-      c[4 * T] += a.x;
-      c[4 * T + 1] += a.y;
-      c[4 * T + 2] += a.x;
-      c[4 * T + 3] += a.y;
+
+  // step s's tile into slot s % kStages (one cp.async group, empty past the end)
+  auto load_step = [&](int s) {
+    if (s < nsteps) {
+      const int slot = s % kStages, t0 = tile_of(s) * kKeyTile;
+      const int rows = min(kKeyTile, Skv - t0);
+      x2::stage_rows<D>(Ks(slot), k + kv_base + static_cast<long long>(t0) * HD, rows, kKeyTile,
+                        HD, tid, kThreads);
+      if (key_mask != nullptr)
+        MaskRows::stage(Ms(slot), key_mask, m_base, 0, 1, 1, t0, Skv, tid, kThreads);
+      if (full(s)) {
+        x2::stage_rows<D>(Vs(slot), v + kv_base + static_cast<long long>(t0) * HD, rows,
+                          kKeyTile, HD, tid, kThreads);
+        if constexpr (kDm) {
+          if (dm16)
+            DmRows16::stage(Ds(slot), dmask, p_base, prow_stride, Sq, Sq16, t0, Skv, tid,
+                            kThreads);
+          else
+            DmRows32::stage(Ds(slot), dmask, p_base, prow_stride, Sq, Sq16, t0, Skv, tid,
+                            kThreads);
+        }
+      }
     }
+    x2::cp_async_commit();
   };
-  // o += P . V for the tile's group gi, P in C fragments (rounded to bf16 here)
-  auto pv16 = [&](int gi, const float (&c)[8], float (&o)[NT][4]) {
-    unsigned pa[4];
-    x2::pack_a(pa, c);
-    x2::mma_ab<D>(o, pa, Vs, 16 * gi, lane);
+  // whether the tile in `slot` (keys from t0) has a masked or padding key
+  auto biased = [&](int slot, int t0) {
+    if (t0 + kKeyTile > Skv) return true;
+    if (key_mask == nullptr) return false;
+    const unsigned char* mb = reinterpret_cast<const unsigned char*>(Ms(slot)) +
+                              MaskRows::shift(m_base + t0);
+    return !__all_sync(0xffffffffu, mb[2 * lane] != 0 && mb[2 * lane + 1] != 0);
   };
-  // the multipliers of keys j0 + 8T + 2t, + 1 (1 without dmask)
-  auto load_dm = [&](int j0, float2 (&dm)[2][2]) {
+  // logits of the 16 keys of group gi of the tile in `slot`, biased when
+  // `bias`: c[4T + 2R + e] is row r0 + g + 8R, key 16 gi + 8T + 2t + e
+  auto logits16 = [&](int slot, int t0, int gi, bool bias, float (&c)[8]) {
+    x2::mma_abt<D>(c, qa, Ks(slot), 16 * gi, lane);
+    if (!bias) return;
+    const unsigned char* mb = reinterpret_cast<const unsigned char*>(Ms(slot)) +
+                              MaskRows::shift(m_base + t0);
 #pragma unroll
     for (int T = 0; T < 2; ++T)
 #pragma unroll
-      for (int R = 0; R < 2; ++R) {
-        const int j = j0 + 8 * T + 2 * t;
-        dm[T][R] = dmask == nullptr
-                       ? make_float2(1.f, 1.f)
-                       : x2::load_pair(dmask, dmask_kind, prow[R] + j, row_ok[R] && j < Skv,
-                                       row_ok[R] && j + 1 < Skv, vec);
+      for (int e = 0; e < 2; ++e) {
+        const int j = 16 * gi + 8 * T + 2 * t + e;
+        const float kb = t0 + j >= Skv ? kPadLogit
+                         : (key_mask != nullptr && mb[j] == 0 ? x2::kNegInf : 0.f);
+        c[4 * T + e] += kb;
+        c[4 * T + 2 + e] += kb;
       }
   };
+  // the multipliers of keys 16 gi + 8T + 2t, + 1 of rows r0 + g + 8R
+  auto mult = [&](int slot, int t0, int gi, int T, int R) -> float2 {
+    const int rr = r0 + g + 8 * R, j = 16 * gi + 8 * T + 2 * t;
+    const unsigned* row = Ds(slot) + rr * dm_lw;
+    return dm16 ? x2::key_pair_bf16(row, j, DmRows16::shift(prow[R] + t0))
+                : x2::key_pair_f32(row, j, DmRows32::shift(prow[R] + t0));
+  };
+  auto pv16 = [&](int slot, int gi, const float (&c)[8], float (&o)[NT][4]) {
+    unsigned pa[4];
+    x2::pack_a(pa, c);
+    x2::mma_ab<D>(o, pa, Vs(slot), 16 * gi, lane);
+  };
+  // the warp's 16 x 16 block of P (keys from j0) to device memory as
+  // 16-byte row pieces, through its own block of shared memory
+  const bool vec4 = (Skv & 3) == 0;
+  auto store_p = [&](int j0, const float (&c)[8]) {
+    __syncwarp();  // the previous block has been read
+#pragma unroll
+    for (int T = 0; T < 2; ++T)
+#pragma unroll
+      for (int R = 0; R < 2; ++R)
+        *reinterpret_cast<float2*>(scratch + (g + 8 * R) * kScratchLW + 8 * T + 2 * t) =
+            make_float2(c[4 * T + 2 * R], c[4 * T + 2 * R + 1]);
+    __syncwarp();
+#pragma unroll
+    for (int i = lane; i < 64; i += 32) {
+      const int r = i >> 2, c4 = 4 * (i & 3), j = j0 + c4;
+      if (r0 + r >= Sq || j >= Skv) continue;
+      const float4 p = *reinterpret_cast<const float4*>(scratch + r * kScratchLW + c4);
+      float* dst = probs + p_base + (r0 + r) * prow_stride + j;
+      if (vec4 && j + 3 < Skv) {
+        *reinterpret_cast<float4*>(dst) = p;
+      } else {
+        dst[0] = p.x;
+        if (j + 1 < Skv) dst[1] = p.y;
+        if (j + 2 < Skv) dst[2] = p.z;
+        if (j + 3 < Skv) dst[3] = p.w;
+      }
+    }
+  };
 
-  float m[2] = {kPadLogit, kPadLogit}, l[2] = {0.f, 0.f};
+  float m[2] = {kPadLogit, kPadLogit}, l[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f};
   float o[NT][4];
 #pragma unroll
   for (int i = 0; i < NT; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  if constexpr (kOnePass) {
-    for (int t0 = 0; t0 < Skv; t0 += kKeyTile) {
-      const int ng = stage(t0, true);
-      if (!valid) continue;
-      for (int gi = 0; gi < ng; ++gi) {
-        float c[8];
-        float2 dm[2][2];
-        load_dm(t0 + 16 * gi, dm);
-        logits16(gi, c);
+
 #pragma unroll
-        for (int R = 0; R < 2; ++R) {
-          float mx = fmaxf(fmaxf(c[2 * R], c[2 * R + 1]), fmaxf(c[4 + 2 * R], c[5 + 2 * R]));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-          const float mn = fmaxf(m[R], mx);  // the same in the four lanes of the row
-          const float alpha = expo(m[R] - mn);
+  for (int s = 0; s < kStages - 1; ++s) load_step(s);
+  for (int s = 0; s < nsteps; ++s) {
+    x2::cp_async_wait_group<kStages - 2>();  // step s's tile
+    __syncthreads();  // ... for every thread; the slot of step s - 1 is free
+    load_step(s + kStages - 1);
+    if (!kOnePass && s == ntiles) {  // pass 1 done: the row max and sum
+#pragma unroll
+      for (int R = 0; R < 2; ++R) {
+#pragma unroll
+        for (int sh = 1; sh <= 2; sh <<= 1) {  // the quad's
+          const float mo = __shfl_xor_sync(0xffffffffu, m[R], sh);
+          const float lo = __shfl_xor_sync(0xffffffffu, l[R], sh);
+          const float mn = fmaxf(m[R], mo);
+          l[R] = l[R] * ex2e(m[R] - mn) + lo * ex2e(mo - mn);
           m[R] = mn;
-          l[R] *= alpha;
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            o[nt][2 * R] *= alpha;
-            o[nt][2 * R + 1] *= alpha;
-          }
         }
-#pragma unroll
-        for (int T = 0; T < 2; ++T)
-#pragma unroll
-          for (int R = 0; R < 2; ++R) {
-            float& p0 = c[4 * T + 2 * R];
-            float& p1 = c[4 * T + 2 * R + 1];
-            p0 = expo(p0 - m[R]);
-            p1 = expo(p1 - m[R]);
-            l[R] += p0 + p1;
-            p0 *= dm[T][R].x;
-            p1 *= dm[T][R].y;
-          }
-        pv16(gi, c, o);
       }
-    }
 #pragma unroll
-    for (int R = 0; R < 2; ++R) {
-      l[R] += __shfl_xor_sync(0xffffffffu, l[R], 1);
-      l[R] += __shfl_xor_sync(0xffffffffu, l[R], 2);
-      const float inv = 1.f / l[R];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        o[nt][2 * R] *= inv;
-        o[nt][2 * R + 1] *= inv;
-      }
+      for (int R = 0; R < 2; ++R) inv_l[R] = 1.f / l[R];
     }
-  } else {
-    for (int t0 = 0; t0 < Skv; t0 += kKeyTile) {  // pass 1: each lane's max and sum
-      const int ng = stage(t0, false);
-      if (!valid) continue;
-      for (int gi = 0; gi < ng; ++gi) {
+    if (!active) continue;
+    const int slot = s % kStages, t0 = tile_of(s) * kKeyTile;
+    const int ng = (min(kKeyTile, Skv - t0) + 15) / 16;
+    const bool bias = biased(slot, t0);
+    if (!full(s)) {  // pass 1: each lane's running max and sum over its keys
+#pragma unroll
+      for (int gi = 0; gi < kGroups; ++gi) {
+        if (gi >= ng) continue;
         float c[8];
-        logits16(gi, c);
+        logits16(slot, t0, gi, bias, c);
 #pragma unroll
         for (int R = 0; R < 2; ++R) {
           const float mx = fmaxf(fmaxf(c[2 * R], c[2 * R + 1]), fmaxf(c[4 + 2 * R], c[5 + 2 * R]));
           const float mn = fmaxf(m[R], mx);
-          l[R] = l[R] * expo(m[R] - mn) + expo(c[2 * R] - mn) + expo(c[2 * R + 1] - mn) +
-                 expo(c[4 + 2 * R] - mn) + expo(c[5 + 2 * R] - mn);
+          l[R] = l[R] * ex2e(m[R] - mn) + ex2e(c[2 * R] - mn) + ex2e(c[2 * R + 1] - mn) +
+                 ex2e(c[4 + 2 * R] - mn) + ex2e(c[5 + 2 * R] - mn);
           m[R] = mn;
         }
       }
-    }
-    float inv_l[2];
+    } else if constexpr (kOnePass) {  // the tile's groups; one rescale
+      float c[kGroups][8];
 #pragma unroll
-    for (int R = 0; R < 2; ++R) {  // the quad's
+      for (int gi = 0; gi < kGroups; ++gi) {
+        if (gi < ng) {
+          logits16(slot, t0, gi, bias, c[gi]);
+        } else {
 #pragma unroll
-      for (int sh = 1; sh <= 2; sh <<= 1) {
-        const float mo = __shfl_xor_sync(0xffffffffu, m[R], sh);
-        const float lo = __shfl_xor_sync(0xffffffffu, l[R], sh);
-        const float mn = fmaxf(m[R], mo);
-        l[R] = l[R] * expo(m[R] - mn) + lo * expo(mo - mn);
-        m[R] = mn;
+          for (int i = 0; i < 8; ++i) c[gi][i] = kPadLogit;
+        }
       }
-      inv_l[R] = 1.f / l[R];
-    }
-    for (int t0 = 0; t0 < Skv; t0 += kKeyTile) {  // pass 2
-      const int ng = stage(t0, true);
-      if (!valid) continue;
-      for (int gi = 0; gi < ng; ++gi) {
-        float c[8];
-        float2 dm[2][2];
-        load_dm(t0 + 16 * gi, dm);
-        logits16(gi, c);
+#pragma unroll
+      for (int R = 0; R < 2; ++R) {
+        float mx = kPadLogit;
+#pragma unroll
+        for (int gi = 0; gi < kGroups; ++gi)
+          mx = fmaxf(mx, fmaxf(fmaxf(c[gi][2 * R], c[gi][2 * R + 1]),
+                               fmaxf(c[gi][4 + 2 * R], c[gi][5 + 2 * R])));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float mn = fmaxf(m[R], mx);  // the same in the four lanes of the row
+        const float alpha = ex2e(m[R] - mn);
+        m[R] = mn;
+        l[R] *= alpha;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          o[nt][2 * R] *= alpha;
+          o[nt][2 * R + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int gi = 0; gi < kGroups; ++gi) {
+        if (gi >= ng) continue;
 #pragma unroll
         for (int T = 0; T < 2; ++T)
 #pragma unroll
           for (int R = 0; R < 2; ++R) {
-            float& p0 = c[4 * T + 2 * R];
-            float& p1 = c[4 * T + 2 * R + 1];
-            p0 = expo(p0 - m[R]) * inv_l[R];
-            p1 = expo(p1 - m[R]) * inv_l[R];
-            const int j = t0 + 16 * gi + 8 * T + 2 * t;
-            if (probs != nullptr && row_ok[R] && j < Skv) {
-              float* pp = probs + prow[R] + j;
-              if (j + 1 < Skv && vec) {
-                *reinterpret_cast<float2*>(pp) = make_float2(p0, p1);
-              } else {
-                pp[0] = p0;
-                if (j + 1 < Skv) pp[1] = p1;
-              }
+            float& p0 = c[gi][4 * T + 2 * R];
+            float& p1 = c[gi][4 * T + 2 * R + 1];
+            p0 = ex2e(p0 - m[R]);
+            p1 = ex2e(p1 - m[R]);
+            l[R] += p0 + p1;
+            if constexpr (kDm) {
+              const float2 dm = mult(slot, t0, gi, T, R);
+              p0 *= dm.x;
+              p1 *= dm.y;
             }
-            p0 *= dm[T][R].x;
-            p1 *= dm[T][R].y;
           }
-        pv16(gi, c, o);
+        pv16(slot, gi, c[gi], o);
+      }
+    } else {  // pass 2: P final, stored, times the multiplier, into o
+#pragma unroll
+      for (int gi = 0; gi < kGroups; ++gi) {
+        if (gi >= ng) continue;
+        float c[8];
+        logits16(slot, t0, gi, bias, c);
+#pragma unroll
+        for (int T = 0; T < 2; ++T)
+#pragma unroll
+          for (int R = 0; R < 2; ++R) {
+            c[4 * T + 2 * R] = ex2e(c[4 * T + 2 * R] - m[R]) * inv_l[R];
+            c[4 * T + 2 * R + 1] = ex2e(c[4 * T + 2 * R + 1] - m[R]) * inv_l[R];
+          }
+        store_p(t0 + 16 * gi, c);
+        if constexpr (kDm) {
+#pragma unroll
+          for (int T = 0; T < 2; ++T)
+#pragma unroll
+            for (int R = 0; R < 2; ++R) {
+              const float2 dm = mult(slot, t0, gi, T, R);
+              c[4 * T + 2 * R] *= dm.x;
+              c[4 * T + 2 * R + 1] *= dm.y;
+            }
+        }
+        pv16(slot, gi, c, o);
       }
     }
   }
-  if (!valid) return;
-  bf16* ob = out + rb * HD + static_cast<long long>(h) * D;
+
+  if (!active) return;
+  float inv[2] = {1.f, 1.f};  // with probabilities o is already normalised
+  if (kOnePass) {
+#pragma unroll
+    for (int R = 0; R < 2; ++R) {  // the quad's sum
+      l[R] += __shfl_xor_sync(0xffffffffu, l[R], 1);
+      l[R] += __shfl_xor_sync(0xffffffffu, l[R], 2);
+      inv[R] = 1.f / l[R];
+    }
+  }
+  bf16* ob = out + (static_cast<long long>(b) * Sq + r0 + g) * HD + static_cast<long long>(h) * D;
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
     const int d = 8 * nt + 2 * t;
-    if (row_ok[0]) *reinterpret_cast<unsigned*>(ob + d) = x2::pack_bf16(o[nt][0], o[nt][1]);
+    if (row_ok[0])
+      *reinterpret_cast<unsigned*>(ob + d) = x2::pack_bf16(o[nt][0] * inv[0], o[nt][1] * inv[0]);
     if (row_ok[1])
-      *reinterpret_cast<unsigned*>(ob + 8LL * HD + d) = x2::pack_bf16(o[nt][2], o[nt][3]);
+      *reinterpret_cast<unsigned*>(ob + 8LL * HD + d) =
+          x2::pack_bf16(o[nt][2] * inv[1], o[nt][3] * inv[1]);
   }
 }
 
-template <int D, bool kOnePass>
+template <int D, bool kOnePass, bool kDm>
 cudaError_t launch_tiled(const void* q, const void* k, const void* v, const void* key_mask,
                          const void* dmask, int dmask_kind, void* out, void* probs, int B,
                          int Sq, int Skv, int H, float scale, cudaStream_t stream) {
-  const size_t smem = tiled_smem_bytes(D);
-  auto kernel = fwd_tiled_kernel<D, kOnePass>;
+  const size_t smem = tiled_instance_smem_bytes(Sq, D, kOnePass, kDm ? dmask_kind : 0);
+  auto kernel = fwd_tiled_kernel<D, kOnePass, kDm>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -892,15 +1013,26 @@ cudaError_t launch_tiled(const void* q, const void* k, const void* v, const void
   return cudaGetLastError();
 }
 
+template <int D, bool kDm>
+cudaError_t launch_tiled_dm(const void* q, const void* k, const void* v, const void* key_mask,
+                            const void* dmask, int dmask_kind, void* out, void* probs, int B,
+                            int Sq, int Skv, int H, float scale, cudaStream_t st) {
+  return probs == nullptr
+             ? launch_tiled<D, true, kDm>(q, k, v, key_mask, dmask, dmask_kind, out, probs, B, Sq,
+                                          Skv, H, scale, st)
+             : launch_tiled<D, false, kDm>(q, k, v, key_mask, dmask, dmask_kind, out, probs, B,
+                                           Sq, Skv, H, scale, st);
+}
+
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const void* key_mask,
                      const void* dmask, int dmask_kind, void* out, void* probs, int B, int Sq,
                      int Skv, int H, float scale, cudaStream_t st) {
   if (x2::tiny_walk(Sq, Skv, D) == x2::kWalkTiled)
-    return probs == nullptr ? launch_tiled<D, true>(q, k, v, key_mask, dmask, dmask_kind, out,
-                                                    probs, B, Sq, Skv, H, scale, st)
-                            : launch_tiled<D, false>(q, k, v, key_mask, dmask, dmask_kind, out,
-                                                     probs, B, Sq, Skv, H, scale, st);
+    return dmask == nullptr ? launch_tiled_dm<D, false>(q, k, v, key_mask, dmask, dmask_kind, out,
+                                                        probs, B, Sq, Skv, H, scale, st)
+                            : launch_tiled_dm<D, true>(q, k, v, key_mask, dmask, dmask_kind, out,
+                                                       probs, B, Sq, Skv, H, scale, st);
   if (probs == nullptr)
     return launch<D, false, true>(q, k, v, key_mask, dmask, dmask_kind, out, probs, B, Sq, Skv,
                                   H, scale, st);
@@ -958,7 +1090,7 @@ extern "C" int x2_tiny_attention_walk(int Sq, int Skv, int D) { return x2::tiny_
 // Shared memory (bytes) one block of the key-tiled walk on `route` needs;
 // it does not depend on Skv (ops/tiny_attention.py `tiled_smem_bytes`).
 extern "C" long long x2_tiny_attention_tiled_smem_bytes(int Sq, int D, int route) {
-  return static_cast<long long>(route == x2::kRouteTensorCore ? tc::tiled_smem_bytes(D)
+  return static_cast<long long>(route == x2::kRouteTensorCore ? tc::tiled_smem_bytes(Sq, D)
                                                               : tiled_smem_bytes(Sq, D));
 }
 

@@ -12,7 +12,9 @@ Counterpart of x2vlm_tpu/ops/tiny_attention.py. The functions:
   backward reads them), else None.
 - :func:`tiny_attention_bwd` is the backward kernel's wrapper
   (``csrc/tiny_attention_bwd.cu``); for CPU tensors it runs
-  :func:`tiny_attention_bwd_reference`.
+  :func:`tiny_attention_bwd_reference`. It also takes the forward's
+  ``out``, from which the key-tiled tensor-core kernel takes its softmax
+  row sums, rowsum(g * out).
 - Each wrapper's ``.launches`` counts its kernel launches,
   ``.launches_by_shape`` splits them by (B, Sq, Skv) and
   ``.launches_by_route`` by route.
@@ -23,7 +25,8 @@ Counterpart of x2vlm_tpu/ops/tiny_attention.py. The functions:
   draws the dropout multiplier from an explicit generator when training.
   When a gradient is needed it goes through an autograd Function that runs
   the forward with ``return_probs=True`` and saves (q, k, v, probs, dmask),
-  as the JAX ``_tiny_vjp_fwd`` does; otherwise it calls the forward alone.
+  as the JAX ``_tiny_vjp_fwd`` does, and the output; otherwise it calls the
+  forward alone.
 
 Each CUDA source holds two hand-written kernels, and :func:`tiny_route`
 picks one by dtype and head dim (the C side keeps the same rule):
@@ -75,6 +78,11 @@ _WARPS = 8            # warps per block in csrc/tiny_attention_fwd.cu (CUDA-core
 _BWD_WARPS = 16       # and in csrc/tiny_attention_bwd.cu
 _TILED_MAX_SQ, _TILED_MAX_D = 64, 128   # x2::kTinyTiledMaxSq / kTinyTiledMaxD
 _TC_KEY_TILE = 64     # keys a tiled tensor-core block stages at a time (tc::kKeyTile)
+_TC_FWD_STAGES = 3    # key tiles in the tiled tensor-core forward's ring (tc::kStages)
+_TC_BWD_STAGES = 2    # and in the backward's (tc::kBwdStages)
+_TC_FWD_WARPS = 4     # warps of a tiled tensor-core forward block, one a row tile (tc::kWarps)
+_TC_SCRATCH_LW = 20   # row stride (words) of a forward warp's 16 x 16 P block (tc::kScratchLW)
+_TC_PLANE_LD = _TC_KEY_TILE + 8   # row stride (elements) of the backward's dL / Pu planes
 _CC_KEY_TILE = 32     # and a tiled CUDA-core block, one a lane (kTileKeys)
 CUDA_CORE, TENSOR_CORE = _build.CUDA_CORE, _build.TENSOR_CORE
 ROUTE_CODES = _build.ROUTE_CODES   # x2::TinyRoute in csrc/common.cuh
@@ -132,15 +140,26 @@ def bwd_smem_bytes(Sq: int, Skv: int, head_dim: int, route: str = CUDA_CORE) -> 
     return 4 * (max(kv, gq) + 2 * Sq * Skv + _BWD_WARPS * 4 * head_dim)
 
 
+def _key_rows_words(elem_bytes: int) -> int:
+    """Row stride (words) of a 64-key ``x2::KeyRows`` block: 64 keys plus
+    the 16-byte chunk a row's shift may reach into."""
+    return 4 * (64 // (16 // elem_bytes) + 1)
+
+
 def tiled_smem_bytes(Sq: int, head_dim: int, route: str = CUDA_CORE) -> int:
     """Shared memory one forward block of the key-tiled walk takes, whatever
     Skv. CUDA cores: a K tile (row stride D+1) and a V tile of 32 keys in
     fp32, the block's scaled query rows and output sums, one probability
-    row of the tile per warp. Tensor cores: K and V tiles of 64 keys in bf16
-    and their logit biases. ``tiled_smem_bytes`` / ``tc::tiled_smem_bytes``
-    in csrc/tiny_attention_fwd.cu (chip_smoke.py holds them equal)."""
+    row of the tile per warp. Tensor cores, the most a block takes (the
+    two walks with an fp32 multiplier): a ring of 3 stages, each a K and a
+    V tile of 64 keys in bf16, the tile's key-mask bytes and the
+    multiplier's rows; each warp's 16 x 16 fp32 probability block.
+    ``tiled_smem_bytes`` / ``tc::tiled_smem_bytes`` in
+    csrc/tiny_attention_fwd.cu (chip_smoke.py holds them equal)."""
     if route == TENSOR_CORE:
-        return 2 * 2 * _TC_KEY_TILE * _tile_ld(head_dim) + 4 * _TC_KEY_TILE
+        stage = (2 * 2 * _TC_KEY_TILE * _tile_ld(head_dim) + 4 * _key_rows_words(1)
+                 + 4 * _round16(Sq) * _key_rows_words(4))
+        return _TC_FWD_STAGES * stage + 4 * _TC_FWD_WARPS * 16 * _TC_SCRATCH_LW
     return 4 * (_CC_KEY_TILE * (2 * head_dim + 1) + 2 * Sq * head_dim
                 + _WARPS * _CC_KEY_TILE)
 
@@ -149,14 +168,17 @@ def tiled_bwd_smem_bytes(Sq: int, head_dim: int, route: str = CUDA_CORE) -> int:
     """Shared memory one backward block of the key-tiled walk takes,
     whatever Skv. CUDA cores: K and V tiles of 32 keys (row stride D+1), g,
     the scaled q and the dQ sums, and the tile's dL and P * dm columns, all
-    fp32. Tensor cores: K and V tiles of 64 keys and g and the scaled q
-    (rows padded to 16) in bf16, and the tile's probability block (row
-    stride 68 words). ``tiled_smem_bytes`` / ``tc::tiled_smem_bytes`` in
+    fp32. Tensor cores, the most a block takes (an fp32 multiplier): a ring
+    of 2 stages, each a K and a V tile of 64 keys in bf16 and the tile's
+    multiplier rows; g and the scaled q in bf16 (rows padded to 16); the
+    bf16 dL and P * dm planes (rows of 72 elements); one row sum a query
+    row. ``tiled_smem_bytes`` / ``tc::tiled_smem_bytes`` in
     csrc/tiny_attention_bwd.cu (chip_smoke.py holds them equal)."""
     if route == TENSOR_CORE:
-        sq = _round16(Sq)
-        return (2 * (2 * _TC_KEY_TILE + 2 * sq) * _tile_ld(head_dim)
-                + 4 * sq * (_TC_KEY_TILE + 4))
+        sq, ld = _round16(Sq), _tile_ld(head_dim)
+        stage = 2 * 2 * _TC_KEY_TILE * ld + 4 * sq * _key_rows_words(4)
+        return (_TC_BWD_STAGES * stage + 2 * 2 * sq * (ld + _TC_PLANE_LD)
+                + 4 * _TILED_MAX_SQ)
     return 4 * (2 * _CC_KEY_TILE * (head_dim + 1) + 3 * Sq * head_dim
                 + 2 * Sq * _CC_KEY_TILE)
 
@@ -187,6 +209,11 @@ def tiny_supported(Sq: int, Skv: int, head_dim: int) -> bool:
     return Sq <= MAX_QUERY_LEN and _walk_ok(Sq, Skv, head_dim)
 
 
+def _check_cuda(name: str, q: torch.Tensor) -> None:
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+
+
 @functools.lru_cache(maxsize=256)
 def _dtype_scale(scale: float, dtype: torch.dtype) -> float:
     """``scale`` rounded to ``dtype`` (the reference casts it before the
@@ -199,7 +226,7 @@ _SIGNATURES = {
     "x2_tiny_attention_fwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 2
                               + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
                               ctypes.c_int),
-    "x2_tiny_attention_bwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+    "x2_tiny_attention_bwd": ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 5
                               + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
                               ctypes.c_int),
     "x2_tiny_attention_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_longlong),
@@ -256,8 +283,7 @@ def tiny_attention_fwd(
         out, probs = tiny_attention_reference(q, k, v, num_heads, key_mask,
                                               dmask, scale)
         return out, (probs if return_probs else None)
-    if q.device.type != "cuda":
-        raise ValueError(f"tiny_attention_fwd: unsupported device {q.device}")
+    _check_cuda("tiny_attention_fwd", q)
     B, Sq, HD = q.shape
     Skv = k.shape[1]
     H = num_heads
@@ -354,15 +380,18 @@ def tiny_attention_bwd_reference(
 def tiny_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, probs: torch.Tensor,
     dmask: Optional[torch.Tensor], g: torch.Tensor, num_heads: int,
-    scale: float = 1.0,
+    scale: float = 1.0, *, out: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Tiny attention backward; returns (dq, dk, dv). ``probs`` is the
     forward's fp32 pre-dropout probabilities, ``dmask`` its dropout
-    multiplier (or None), ``g`` the output gradient. See module doc."""
+    multiplier (or None), ``g`` the output gradient, ``out`` the forward's
+    output: the key-tiled tensor-core kernel takes its softmax-backward row
+    sums as rowsum(g * out) (equal to rowsum(dP * dm * P), since out =
+    (P * dm) . V); the other kernels and the plain version ignore it. See
+    module doc."""
     if q.device.type == "cpu":
         return tiny_attention_bwd_reference(q, k, v, probs, dmask, g, num_heads, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"tiny_attention_bwd: unsupported device {q.device}")
+    _check_cuda("tiny_attention_bwd", q)
     B, Sq, HD = q.shape
     Skv = k.shape[1]
     H = num_heads
@@ -379,9 +408,12 @@ def tiny_attention_bwd(
     if probs.shape != (B, Sq, H * Skv) or probs.dtype != torch.float32:
         raise ValueError(f"tiny_attention_bwd: probs {tuple(probs.shape)} "
                          f"{probs.dtype} is not ({B}, {Sq}, {H * Skv}) f32")
-    for t in (k, v, probs, dmask, g):
+    for t in (k, v, probs, dmask, g, out):
         if t is not None and t.device != q.device:
             raise ValueError("tiny_attention_bwd: operands on different devices")
+    if out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"tiny_attention_bwd: out {tuple(out.shape)} {out.dtype} is not "
+                         f"q's {tuple(q.shape)} {q.dtype}")
     if dmask is not None and (tuple(dmask.shape) != (B, Sq, H * Skv)
                               or dmask.dtype not in _build.OPERAND_KINDS):
         raise ValueError(f"tiny_attention_bwd: dmask {tuple(dmask.shape)} "
@@ -392,7 +424,7 @@ def tiny_attention_bwd(
                          f"resident shapes and the key-tiled walk takes Sq <= "
                          f"{_TILED_MAX_SQ}, D <= {_TILED_MAX_D}")
     lib = typed_lib(_build.load("tiny_attention_bwd"))
-    q, k, v, probs = (_build.aligned(t) for t in (q, k, v, probs))
+    q, k, v, probs, out = (_build.aligned(t) for t in (q, k, v, probs, out))
     g = _build.aligned(g.to(q.dtype))
     dm_ptr, dm_kind = None, 0
     if dmask is not None:
@@ -403,7 +435,7 @@ def tiny_attention_bwd(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.x2_tiny_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), probs.data_ptr(), dm_ptr, dm_kind,
-            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            g.data_ptr(), out.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, Sq, Skv, H, D, _DTYPES[q.dtype], _dtype_scale(scale, q.dtype), stream)
     _build.check(lib, err, "tiny_attention_bwd")
     tiny_attention_bwd.launches += 1
@@ -421,21 +453,22 @@ tiny_attention_bwd.launches_by_walk = collections.Counter()
 
 class _TinyAttention(torch.autograd.Function):
     """Forward kernel with the fp32 probabilities kept; backward kernel.
-    Saves (q, k, v, probs, dmask), as the JAX ``_tiny_vjp_fwd`` does."""
+    Saves (q, k, v, probs, dmask), as the JAX ``_tiny_vjp_fwd`` does, and
+    the output, from which the key-tiled backward takes its row sums."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, dmask, num_heads, scale):
         out, probs = tiny_attention_fwd(q, k, v, num_heads, key_mask, dmask, scale,
                                         return_probs=True)
-        ctx.save_for_backward(q, k, v, probs, dmask)
+        ctx.save_for_backward(q, k, v, probs, dmask, out)
         ctx.num_heads, ctx.scale = num_heads, scale
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, probs, dmask = ctx.saved_tensors
+        q, k, v, probs, dmask, out = ctx.saved_tensors
         dq, dk, dv = tiny_attention_bwd(q, k, v, probs, dmask, g, ctx.num_heads,
-                                        ctx.scale)
+                                        ctx.scale, out=out)
         return dq, dk, dv, None, None, None, None
 
 
