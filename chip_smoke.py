@@ -17,10 +17,13 @@ Phases (any failure exits non-zero and prints no result line):
    other head dims: for the tiny kernels each one the tensor-core route
    builds, 16 to 128) at small shapes; time the kernel, its plain version and
    one PyTorch library call (SDPA forward or backward) with CUDA events,
-   the card running ahead of the host (the flash forward at B=128 and at
-   the step's B=32; the flash backward beside two SDPA backwards, dq/dk/dv
-   with the bias as a constant and all four gradients; dBias must be the
-   same bit for bit in two launches). The tiny kernels (``tiny_route``) and
+   the card running ahead of the host (the flash forward at B=128, at the
+   step's B=32 and at the region stream's B=50 images; the flash backward
+   at B=32 and B=50 beside two SDPA backwards, dq/dk/dv with the bias as a
+   constant and all four gradients; dBias must be the same bit for bit in
+   two launches; the tiny kernels also at the region stream's 256 / 512
+   rows, its 40 x 200 calls with region bitmaps as key masks). The tiny
+   kernels (``tiny_route``) and
    the four flash kernels (``flash_route``) have two routes: the main
    paths' bf16 D=64 launches must take the tensor-core route, fp32 and bf16
    at other head dims the CUDA-core route; the C route rules, each route's
@@ -63,26 +66,39 @@ Phases (any failure exits non-zero and prints no result line):
    the gradient norm must be finite, the step is timed (median of 7 after
    2 warm-up steps) with its peak device memory; then the same weights
    with dropout off at B=2 and injected hard negatives, card bf16 against
-   the port's CPU fp32 path: losses, and gradient cosines >= 0.99;
+   the port's CPU fp32 path: losses, and gradient cosines >= 0.99; and the
+   region step (2 images, 6 region rows of 1 to 40 patches, a full-image
+   row, a degenerate target) likewise: its five losses (ITC, ITM, MLM,
+   bbox L1, GIoU) within 0.05 + 2%, gradient cosines >= 0.99 in the vision
+   tower, a fusion layer and the ITM and bbox heads, and each bf16 40 x 200
+   call of its ITM + MLM fusion pass (region bitmaps as key masks) held on
+   the model's operands to the plain version, within half the bf16 rule;
 7. the launcher's pretraining task, ``x2vlm_tpu_torch.run.main`` in process
    on data written to a temporary directory (a 30,522-entry BERT vocab
-   drawn from ``--seed``, 64 base64 PNG image-text lines of 256 px and 64
-   text lines): ``configs/pretrain/x2vlm_base_4m.yaml`` read with the
-   port's ``load_config``, the data paths pointed there, the region stream
-   cut (the port raises for it, ROADMAP A5), a text stream added, batch
-   32, a save every 2 steps; 4 steps, then
-   ``--resume`` to step 6. Checked: finite losses, no broken sample, the
-   launches of the 4 steps (12 of each flash kernel a step on the
-   tensor-core route; tiny forward and backward as phase 6 plus 18 at
-   32 x 40 x 40 for the text stream, all tensor-core, all on the resident
-   walk; no plain attention), the resumed run's parameters, AdamW state
-   and data cursors equal to the saved ones bit for bit; the final weights
-   exported as a reference-named ``.th``;
+   drawn from ``--seed``, 64 base64 PNG image-text lines of 256 px, 64
+   region lines of 256 px with 1-6 boxes each and 64 text lines):
+   ``configs/pretrain/x2vlm_base_4m.yaml`` read with the port's
+   ``load_config``, the data paths pointed there, the region block as
+   shipped (128 rows over 50 images a step), a text stream added, the
+   images at batch 32, a save every 2 steps; 4 steps, then ``--resume`` to
+   step 6. Checked: finite losses (the region stream's bbox L1 and GIoU
+   among them), no broken sample, the launches of the 4 steps (24 of each
+   flash kernel a step on the tensor-core route, 12 at B=32 and 12 at
+   B=50; tiny forward and backward as phase 6, 18 at 32 x 40 x 40 for the
+   text stream and the region stream's, all tensor-core, all on the
+   resident walk; no plain attention), each region-stream call's own
+   launches (12 of each flash kernel; tiny at 256 x 40 x 40 x12, 512 x 40
+   x 40 x6, 512 x 40 x 200 x6, 128 x 40 x 40 x6, 128 x 40 x 200 x6), the
+   resumed run's parameters, AdamW state and data cursors (the region
+   stream's included) equal to the saved ones bit for bit; each stream's
+   CUDA-event and wall ms and peak device memory printed; the final
+   weights exported as a reference-named ``.th``;
 8. the launcher's retrieval task at 384 px from that ``.th`` (rel-pos
    tables interpolated 14 -> 24): ``configs/finetune/retrieval_flickr_base
    .yaml`` with the data paths pointed at 64 PNG images of 320 px with 5 captions each, 4
    fine-tune steps at batch 32, then the two-stage eval with k_test 128.
-   Checked: nothing missing in the import, the eval metrics of
+   Checked: nothing missing in the import (left over: the MLM and bbox
+   heads, which a retrieval model does not carry), the eval metrics of
    ``itm_eval`` finite, every flash launch (S = 577) on the tensor-core
    route, every tiny launch on the tensor-core route and each 40 x 584 one
    on the key-tiled walk, no plain attention, the launch counts; and the
@@ -105,11 +121,12 @@ and contract cases of the walk on both routes.
 Prints the card's name and power limit (``nvidia-smi``), one JSON line of
 kernels (with their launches on the three main paths), and as its last line
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes
-torch.profiler tables of one round of requests, one int8 round and one
-train step to ``DIR/chip_smoke_profile.txt``,
-``DIR/chip_smoke_int8_profile.txt`` and ``DIR/chip_smoke_train_profile.txt``,
-each with a last line of the port kernels' (attention and K7) device time
-and launches.
+torch.profiler tables of one round of requests, one int8 round, one train
+step and one region-stream call of phase 7 to ``DIR/chip_smoke_profile.txt``,
+``DIR/chip_smoke_int8_profile.txt``, ``DIR/chip_smoke_train_profile.txt``
+and ``DIR/chip_smoke_region_profile.txt`` (and phase 8's two), each with a
+last line of the port kernels' (attention and K7) device time and
+launches.
 """
 
 from __future__ import annotations
@@ -187,6 +204,9 @@ INT8_REPLACES = "x2vlm_tpu/ops/int8_matmul.py:63"
 # GEMM's is GEMM_DESIGN)
 INT8_QUANT_DESIGN = "row_in_registers"
 TRAIN_BATCH, N_MASKED = 32, 12     # the pretraining step (bench.py:104-121)
+# the region stream of configs/pretrain/x2vlm_base_4m.yaml: its images a
+# batch (max_images) and its region rows (batch_size)
+REGION_IMAGES, REGION_ROWS = 50, 128
 TINY_REPLACES = {"tiny_attention_fwd": "x2vlm_tpu/ops/tiny_attention.py:88",
                  "tiny_attention_bwd": "x2vlm_tpu/ops/tiny_attention.py:135"}
 FLASH_BWD_REPLACES = {"dq": "x2vlm_tpu/ops/flash_attention.py:368",
@@ -301,12 +321,14 @@ def expect_flash_fwd_route(tag, before, dtype, D, n=1) -> None:
 
 
 def check_flash(gen, dev):
-    """K1 at the serving (B=128) and training (B=32) shapes in bf16 (checked
-    and timed with the card ahead of the host, beside SDPA), then over the
-    contract at small shapes on both routes. Returns an entry per shape."""
+    """K1 at the serving (B=128), training (B=32) and region-stream (B=50)
+    shapes in bf16 (checked and timed with the card ahead of the host,
+    beside SDPA), then over the contract at small shapes on both routes.
+    Returns an entry per shape."""
     entries = []
     H, S, D = 12, 197, 64
-    for B, path in ((BATCH, "serving"), (TRAIN_BATCH, "train_step")):
+    for B, path in ((BATCH, "serving"), (TRAIN_BATCH, "train_step"),
+                    (REGION_IMAGES, "region")):
         q, k, v, bias = flash_inputs(gen, dev, B, H, S, S, D, torch.bfloat16, (1, H, S, S))
         before = dict(flash_attention_fwd.launches_by_route)
         out, lse = flash_attention_fwd(q, k, v, bias)
@@ -383,13 +405,17 @@ def check_flash(gen, dev):
 
 
 def tiny_operands(gen, dev, B, Sq, Skv, H, D, dtype, mask, drop):
-    """q/k/v, an int32 key mask (None; "pad": the 197 -> 200 pad of the image
+    """q/k/v, a key mask (None; "pad": the 197 -> 200 pad of the image
     stream, or per-row text lengths when Sq == Skv; "half": row 0's second
-    half; "full_row": random, with batch row 1 wholly masked) and a dropout
-    multiplier (1/0.9 or 0, in ``dtype``) when ``drop``."""
+    half; "full_row": random, with batch row 1 wholly masked; int32; and
+    "region": the region stream's float32 bitmaps over the 197 -> 200 image
+    keys) and a dropout multiplier (1/0.9 or 0, in ``dtype``) when
+    ``drop``."""
     q, k, v = tiny_inputs(gen, dev, B, Sq, Skv, H, D, dtype)
     km = None
-    if mask == "pad":
+    if mask == "region":
+        km = region_bitmaps(gen, dev, B, Skv)
+    elif mask == "pad":
         km = torch.ones(B, Skv, dtype=torch.int32, device=dev)
         if Skv == Sq:   # padded texts
             lens = torch.randint(5, Skv + 1, (B,), generator=gen, device=dev)
@@ -407,6 +433,26 @@ def tiny_operands(gen, dev, B, Sq, Skv, H, D, dtype, mask, drop):
         keep = torch.rand(B, Sq, H * Skv, generator=gen, device=dev) >= 0.1
         dm = torch.where(keep, 1.0 / 0.9, 0.0).to(dtype)
     return q, k, v, km, dm
+
+
+def region_bitmaps(gen, dev, B, Skv=N_IMG, side=14):
+    """(B, Skv) float32 region bitmaps as ``RegionTextStream`` makes them:
+    the CLS slot and a box of 1 x 1 to 8 x 5 patches on the ``side`` x
+    ``side`` grid (1 to 40 live patches), every eighth row the whole image
+    (a full-image caption row); the keys past the image (the pad to 200)
+    off."""
+    w = torch.randint(1, 9, (B, 1), generator=gen, device=dev)
+    h = torch.randint(1, 6, (B, 1), generator=gen, device=dev)
+    x0 = (torch.rand(B, 1, generator=gen, device=dev) * (side - w + 1)).long()
+    y0 = (torch.rand(B, 1, generator=gen, device=dev) * (side - h + 1)).long()
+    cell = torch.arange(side * side, device=dev)[None]
+    col, row = cell % side, cell // side
+    inside = (col >= x0) & (col < x0 + w) & (row >= y0) & (row < y0 + h)
+    inside[::8] = True
+    km = torch.zeros(B, Skv, dtype=torch.float32, device=dev)
+    km[:, 0] = 1
+    km[:, 1:1 + side * side] = inside.float()
+    return km
 
 
 def route_delta(fn, before) -> dict:
@@ -479,20 +525,28 @@ def tiny_entry(name, shape, key, err, ms, plain_ms, b_ms, b_by, lib_ms, **extra)
 
 
 def check_tiny(gen, dev):
-    """K5 at the serving path's two shapes in bf16, and with the training
-    operands at 40x200 (checked and timed, the card running ahead of the
-    host), then over the contract at small shapes on both routes."""
+    """K5 at the serving path's two shapes in bf16, with the training
+    operands at 40x40 and 40x200, and at the region stream's three shapes
+    of its own (the 40x200 one with region bitmaps as key masks), each
+    checked and timed, the card running ahead of the host; then over the
+    contract at small shapes on both routes."""
     entries = []
     H, D = 12, 64
     scale = D ** -0.5
-    for label, Sq, Skv, train_ops in (("text self-attention", TEXT_LEN, TEXT_LEN, False),
-                                      ("fusion cross-attention", TEXT_LEN, 200, False),
-                                      ("fusion self-attention, training operands",
-                                       TEXT_LEN, TEXT_LEN, True),
-                                      ("fusion cross-attention, training operands",
-                                       TEXT_LEN, 200, True)):
-        q, k, v, km, dm = tiny_operands(gen, dev, BATCH, Sq, Skv, H, D, torch.bfloat16,
-                                        "pad", train_ops)
+    for label, B, Sq, Skv, train_ops, mask in (
+            ("text self-attention", BATCH, TEXT_LEN, TEXT_LEN, False, "pad"),
+            ("fusion cross-attention", BATCH, TEXT_LEN, 200, False, "pad"),
+            ("fusion self-attention, training operands", BATCH, TEXT_LEN, TEXT_LEN, True,
+             "pad"),
+            ("fusion cross-attention, training operands", BATCH, TEXT_LEN, 200, True, "pad"),
+            ("region text self-attention, training operands", 2 * REGION_ROWS, TEXT_LEN,
+             TEXT_LEN, True, "pad"),
+            ("region fusion self-attention, training operands", 4 * REGION_ROWS, TEXT_LEN,
+             TEXT_LEN, True, "pad"),
+            ("region fusion cross-attention, region key masks, training operands",
+             4 * REGION_ROWS, TEXT_LEN, 200, True, "region")):
+        q, k, v, km, dm = tiny_operands(gen, dev, B, Sq, Skv, H, D, torch.bfloat16,
+                                        mask, train_ops)
         before = dict(tiny_attention_fwd.launches_by_route)
         out, probs = tiny_attention_fwd(q, k, v, H, km, dm, scale, return_probs=train_ops)
         expect_route(f"tiny_attention_fwd {label}", tiny_attention_fwd, before,
@@ -501,8 +555,9 @@ def check_tiny(gen, dev):
         t_out, t_probs = tiny_attention_reference(*as_f32(q, k, v), H, km,
                                                   None if dm is None else dm.float(),
                                                   scale=scale)
-        ops = "key_mask dropout probs" if train_ops else "key_mask"
-        tag = f"tiny_attention_fwd {label} B{BATCH} {Sq}x{Skv} H{H} D{D} bf16"
+        ops = ("region_key_mask" if mask == "region" else "key_mask") + \
+            (" dropout probs" if train_ops else "")
+        tag = f"tiny_attention_fwd {label} B{B} {Sq}x{Skv} H{H} D{D} bf16"
         err = rule_bf16(tag, out, p_out, t_out)
         if train_ops:
             err = max(err, rule_bf16(tag + " probs", probs, p_probs, t_probs))
@@ -510,18 +565,18 @@ def check_tiny(gen, dev):
                                                 return_probs=train_ops), host_ahead=True)
         plain_ms = time_ms(lambda: tiny_attention_reference(q, k, v, H, km, dm, scale=scale),
                            inner=3, reps=5, host_ahead=True)
-        views = [t.view(BATCH, t.shape[1], H, D).transpose(1, 2) for t in (q, k, v)]
+        views = [t.view(B, t.shape[1], H, D).transpose(1, 2) for t in (q, k, v)]
         amask = (km != 0)[:, None, None, :]
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             *views, attn_mask=amask, scale=scale), host_ahead=True)
         b_ms, b_by = bound_ms(nbytes(q, k, v, out, probs, dm) + km.numel(),
-                              4.0 * BATCH * H * Sq * Skv * D)
+                              4.0 * B * H * Sq * Skv * D)
         log(f"time tiny_attention_fwd {label}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (no dropout, no probabilities), "
             f"bound {b_ms:.4f} ms ({b_by})")
         entries.append(tiny_entry(
-            "tiny_attention_fwd", f"B{BATCH} {Sq}x{Skv} H{H} D{D} {ops} bf16",
-            (BATCH, Sq, Skv), err, ms, plain_ms, b_ms, b_by, lib_ms,
+            "tiny_attention_fwd", f"B{B} {Sq}x{Skv} H{H} D{D} {ops} bf16",
+            (B, Sq, Skv), err, ms, plain_ms, b_ms, b_by, lib_ms,
             main_path_launches="train_step" if train_ops else "all"))
 
     # the rest of the contract, at small shapes: bf16 on the tensor cores
@@ -654,17 +709,17 @@ def expect_flash_bwd_route(tag, before, dtype, D, with_dbias) -> None:
         fail(f"{tag}: launches by route {got}, expected {want}")
 
 
-def check_flash_bwd(gen, dev):
-    """K2/K3/K4 at the training step's shape in bf16 (checked and timed with
-    the card ahead of the host, beside two SDPA backward yardsticks), then
-    over the contract at small shapes on both routes."""
-    B, H, S, D = TRAIN_BATCH, 12, 197, 64
+def _check_flash_bwd_main(gen, dev, B, path):
+    """K2/K3/K4 at (B, 12, 197, 64) with the shared bias, bf16: checked
+    against the plain version, dBias bit-identical in two launches, timed.
+    Returns their entries, tagged with ``path``."""
+    H, S, D = 12, 197, 64
     q, k, v, bias = flash_inputs(gen, dev, B, H, S, S, D, torch.bfloat16, (1, H, S, S))
     dout = torch.randn(B, H, S, D, generator=gen, device=dev).to(torch.bfloat16)
     out, lse = flash_attention_fwd(q, k, v, bias)
     before = dict(flash_attention_bwd.launches_by_route)
     got = flash_attention_bwd(q, k, v, bias, None, out, lse, dout)
-    expect_flash_bwd_route("flash_attention_bwd main shape", before, torch.bfloat16, D, True)
+    expect_flash_bwd_route(f"flash_attention_bwd B{B}", before, torch.bfloat16, D, True)
     p_out, p_lse = flash_attention_reference(q, k, v, bias)
     plain = flash_attention_bwd_reference(q, k, v, bias, None, p_out, p_lse, dout)
     tq, tk, tv, tb, tdo = as_f32(q, k, v, bias, dout)
@@ -681,7 +736,7 @@ def check_flash_bwd(gen, dev):
     same = torch.equal(db1, db2)
     log(f"check flash_attention_bwd dbias B{B} bit-identical across two launches: {same}")
     if not same:
-        fail(f"flash_attention_bwd dbias: two launches differ by {max_err(db1, db2):.3e}")
+        fail(f"flash_attention_bwd dbias B{B}: two launches differ by {max_err(db1, db2):.3e}")
     del db1, db2
     plain_ms = time_ms(lambda: flash_attention_bwd_reference(q, k, v, bias, None, out, lse,
                                                              dout), inner=2, reps=5,
@@ -701,21 +756,32 @@ def check_flash_bwd(gen, dev):
         b_ms, b_by = bound_ms(read + wbytes, flops)
         lib_ms, lib_cover = (lib_all, "dq+dk+dv+dbias") if kern == "dbias" else \
             (lib_qkv, "dq+dk+dv")
-        log(f"time {name}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        log(f"time {name} B{B}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         entries.append(dict(
             name=name, shape=shape, route="cuda",
             source="x2vlm_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces=FLASH_BWD_REPLACES[kern], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             plain_and_library_cover=f"plain: dq+dk+dv+dbias; library: {lib_cover}",
-            flash_route=flash_route(q.dtype, D)))
+            flash_route=flash_route(q.dtype, D), path=path))
     fmt = lambda x: x if x is None else round(x, 4)
-    log(f"time flash_attention_bwd plain (all three) {plain_ms:.4f} ms, sdpa backward "
+    log(f"time flash_attention_bwd B{B} plain (all three) {plain_ms:.4f} ms, sdpa backward "
         f"dq+dk+dv {fmt(lib_qkv)} ms, dq+dk+dv+dbias {fmt(lib_all)} ms")
     if lib_qkv:
-        log(f"flash backward K2 + K3 {ms_of['dq'] + ms_of['dkv']:.4f} ms against sdpa "
+        log(f"flash backward B{B} K2 + K3 {ms_of['dq'] + ms_of['dkv']:.4f} ms against sdpa "
             f"backward dq+dk+dv {lib_qkv:.4f} ms: factor "
             f"{(ms_of['dq'] + ms_of['dkv']) / lib_qkv:.3f}")
+    return entries
+
+
+def check_flash_bwd(gen, dev):
+    """K2/K3/K4 at the training step's shape (B=32) and the region stream's
+    (B=50) in bf16 (checked and timed with the card ahead of the host,
+    beside two SDPA backward yardsticks), then over the contract at small
+    shapes on both routes."""
+    entries = []
+    for B, path in ((TRAIN_BATCH, "train_step"), (REGION_IMAGES, "region")):
+        entries += _check_flash_bwd_main(gen, dev, B, path)
 
     # the rest of the contract, at small shapes, with scale = D^-0.5: bf16
     # at D = 64 on the tensor cores (D = 128 / 192 / 256 on the CUDA cores),
@@ -774,17 +840,23 @@ def check_flash_bwd(gen, dev):
 
 
 def check_tiny_bwd(gen, dev):
-    """K6 at the training step's three shapes in bf16 with key mask and
-    dropout multiplier (checked and timed, the card running ahead of the
-    host), then over the contract on both routes."""
+    """K6 at the training step's three shapes and the region stream's three
+    of its own (the 40x200 one with region bitmaps as key masks) in bf16
+    with key mask and dropout multiplier (checked and timed, the card
+    running ahead of the host), then over the contract on both routes."""
     entries = []
     H, D = 12, 64
     scale = D ** -0.5
-    for label, B, Sq, Skv in (("text self-attention", 2 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN),
-                              ("fusion self-attention", 4 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN),
-                              ("fusion cross-attention", 4 * TRAIN_BATCH, TEXT_LEN, 200)):
-        q, k, v, km, dm = tiny_operands(gen, dev, B, Sq, Skv, H, D, torch.bfloat16, "pad",
+    for label, B, Sq, Skv, mask in (
+            ("text self-attention", 2 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN, "pad"),
+            ("fusion self-attention", 4 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN, "pad"),
+            ("fusion cross-attention", 4 * TRAIN_BATCH, TEXT_LEN, 200, "pad"),
+            ("region text self-attention", 2 * REGION_ROWS, TEXT_LEN, TEXT_LEN, "pad"),
+            ("region fusion self-attention", 4 * REGION_ROWS, TEXT_LEN, TEXT_LEN, "pad"),
+            ("region fusion cross-attention", 4 * REGION_ROWS, TEXT_LEN, 200, "region")):
+        q, k, v, km, dm = tiny_operands(gen, dev, B, Sq, Skv, H, D, torch.bfloat16, mask,
                                         True)
+        ops = "region_key_mask" if mask == "region" else "key_mask"
         g = torch.randn(B, Sq, H * D, generator=gen, device=dev).to(torch.bfloat16)
         out, probs = tiny_attention_fwd(q, k, v, H, km, dm, scale, return_probs=True)
         before = dict(tiny_attention_bwd.launches_by_route)
@@ -797,7 +869,7 @@ def check_tiny_bwd(gen, dev):
         _, t_probs = tiny_attention_reference(tq, tk, tv, H, km, tdm, scale)
         truth = tiny_attention_bwd_reference(tq, tk, tv, t_probs, tdm, tg, H, scale)
         err = max(rule_bf16(f"tiny_attention_bwd {lab} {label} B{B} {Sq}x{Skv} H{H} "
-                            f"D{D} key_mask dropout bf16", a, p, t)
+                            f"D{D} {ops} dropout bf16", a, p, t)
                   for lab, a, p, t in zip(("dq", "dk", "dv"), got, plain, truth))
         ms = time_ms(lambda: tiny_attention_bwd(q, k, v, probs, dm, g, H, scale, out=out),
                      host_ahead=True)
@@ -812,7 +884,7 @@ def check_tiny_bwd(gen, dev):
         log(f"time tiny_attention_bwd {label}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa backward {lib_ms} ms, bound {b_ms:.4f} ms ({b_by})")
         entries.append(tiny_entry(
-            "tiny_attention_bwd", f"B{B} {Sq}x{Skv} H{H} D{D} key_mask dropout bf16",
+            "tiny_attention_bwd", f"B{B} {Sq}x{Skv} H{H} D{D} {ops} dropout bf16",
             (B, Sq, Skv), err, ms, plain_ms, b_ms, b_by, lib_ms))
 
     for name, (B, Sq, Skv, H, D, mask, drop) in {
@@ -1571,9 +1643,101 @@ def train_phase(args, dev, gen, smi):
     for k, ref in card_losses["cpu"].items():
         if not abs(card_losses["card"][k] - ref) <= 0.05 + 0.02 * abs(ref):
             fail(f"train {k}: card {card_losses['card'][k]:.5f} vs CPU fp32 {ref:.5f}")
+    region_hold(model, cpu_model, gen, dev, cfg)
     del model, opt, cpu_model
     torch.cuda.empty_cache()
     return launches
+
+
+# the region hold's rows: (x, y, w, h) in patches of each row's box, None for
+# a full-image caption row; 1 to 40 patches
+REGION_HOLD_BOXES = ((0, 0, 1, 1), (3, 4, 2, 2), None, (6, 2, 4, 5), (1, 7, 5, 6),
+                     (8, 5, 5, 8))
+REGION_HOLD_DEGENERATE = 4          # this row's target box has a negative width
+
+
+def region_hold_batch(gen, dev, cfg):
+    """A region batch of 2 images and one row per ``REGION_HOLD_BOXES`` entry,
+    as ``region_collate`` lays it out: the bitmaps of the boxes, their
+    cxcywh targets (one degenerate), a full-image row with ``is_image`` 1,
+    40-token texts with 12 masked positions."""
+    side = cfg.vision.image_res // cfg.vision.patch_size
+    n = len(REGION_HOLD_BOXES)
+    grid = torch.zeros(n, side, side)
+    target = torch.tensor([[0.5, 0.5, 1.0, 1.0]]).repeat(n, 1)
+    for r, b in enumerate(REGION_HOLD_BOXES):
+        if b is None:
+            grid[r] = 1
+            continue
+        x, y, w, h = b
+        grid[r, y:y + h, x:x + w] = 1
+        target[r] = torch.tensor([x + w / 2, y + h / 2, w, h]) / side
+    target[REGION_HOLD_DEGENERATE, 2] *= -1
+    batch = train_batch(gen, dev, cfg, n)
+    return dict(
+        batch, image=torch.randn(2, cfg.vision.image_res, cfg.vision.image_res, 3,
+                                 generator=gen, device=dev),
+        image_atts=torch.cat([torch.ones(n, 1), grid.view(n, -1)], 1).to(dev),
+        idx_to_group_img=torch.tensor([0, 1, 0, 1, 0, 1], device=dev),
+        target_bbox=target.to(dev),
+        is_image=torch.tensor([float(b is None) for b in REGION_HOLD_BOXES], device=dev))
+
+
+def region_cosine_params(cfg):
+    """Region-step gradients held to the CPU path: the vision tower (K2/K3,
+    K4), a fusion layer's self and cross attention (K6 with region key
+    masks), the ITM and bbox heads."""
+    f = f"base.text_encoder.bert.encoder.layer.{cfg.text.fusion_layer}"
+    return ("base.vision_encoder.blocks.0.attn.qkv.weight",
+            "base.vision_encoder.blocks.0.attn.relative_position_bias_table",
+            f"{f}.attention.self.query.weight", f"{f}.crossattention.self.key.weight",
+            f"{f}.crossattention.self.value.weight", "base.itm_head.0.weight",
+            "base.bbox_head.0.weight", "base.bbox_head.3.weight")
+
+
+def region_hold(model, cpu_model, gen, dev, cfg) -> None:
+    """The region step with the weights of ``model``, dropout off and
+    injected negatives, card bf16 against the port's CPU fp32 path: the five
+    losses within 0.05 + 2%, gradient cosines >= 0.99; and each bf16 call of
+    the ITM + MLM fusion pass into the tiny kernel (40 x 200, the region
+    bitmaps as key masks) held on the model's operands to the plain version,
+    within ``FUSION_CALL_RATIO`` of the bf16 rule's bound."""
+    batch = region_hold_batch(gen, dev, cfg)
+    neg = (torch.tensor([1, 0, 3, 2, 5, 4]), torch.tensor([2, 3, 4, 5, 0, 1]))
+    ratios, grads, losses = [], {}, {}
+    n_fusion = cfg.text.num_layers - cfg.text.fusion_layer
+
+    def region_masked(km):   # a key mask with a row narrower than the image
+        return km is not None and bool(((km != 0).sum(1) < N_IMG).any())
+
+    for tag, m, b, ng in (("card", model, batch, tuple(t.to(dev) for t in neg)),
+                          ("cpu", cpu_model, {k: v.cpu() for k, v in batch.items()}, neg)):
+        m.eval()
+        m.zero_grad(set_to_none=True)
+        with held_tiny_calls(N_IMG + (-N_IMG % 8), ratios, only=region_masked):
+            out = m(b, neg_idx=ng, ret_bbox_loss=True)
+        sum(out.values()).backward()
+        losses[tag] = {k: v.item() for k, v in out.items()}
+        params = dict(m.named_parameters())
+        grads[tag] = {k: params[k].grad.detach().double().cpu().reshape(-1)
+                      for k in region_cosine_params(cfg)}
+    cos = {k: F.cosine_similarity(grads["card"][k], grads["cpu"][k], dim=0).item()
+           for k in region_cosine_params(cfg)}
+    log(f"region card bf16 vs CPU fp32 (2 images, {len(REGION_HOLD_BOXES)} rows, dropout off, "
+        f"injected negatives): losses {json.dumps(losses)}; gradient cosine {json.dumps(cos)}; "
+        f"held 40 x 200 region-masked calls, error over the bf16 rule's bound "
+        f"{[round(x, 3) for x in ratios]}")
+    if set(losses["card"]) != {"loss_itc", "loss_itm", "loss_mlm", "loss_bbox", "loss_giou"}:
+        fail(f"region step: losses {sorted(losses['card'])}")
+    for k, ref in losses["cpu"].items():
+        if not abs(losses["card"][k] - ref) <= 0.05 + 0.02 * abs(ref):
+            fail(f"region {k}: card {losses['card'][k]:.5f} vs CPU fp32 {ref:.5f}")
+    for k, c in cos.items():
+        if not c >= 0.99:
+            fail(f"region gradient {k}: cosine to the fp32 CPU path {c:.5f} < 0.99")
+    if len(ratios) != n_fusion or not all(x <= FUSION_CALL_RATIO for x in ratios):
+        fail(f"region step: the region-masked 40 x 200 calls' errors over the rule's bound "
+             f"{ratios}, expected {n_fusion} at most {FUSION_CALL_RATIO}")
 
 
 # ---- phases 7 and 8: the launcher's tasks on data written here ----
@@ -1679,17 +1843,148 @@ def check_launcher_counts(tag, c, n_flash_fwd, n_flash_bwd, want_tiny) -> None:
             fail(f"{tag}: {name} launches {dict(c[key])}, expected {want_tiny[key]}")
 
 
-def pretrain_launcher_phase(root: str, seed: int, dev):
+def write_region_corpus(path: str, rng: np.random.Generator, words) -> None:
+    """``N_LAUNCH_IMAGES`` region lines as the region corpora of the shipped
+    config hold them (reference RegionTextJsonDataset): a base64 PNG of 256
+    px, 1-6 ``elems`` each with a pixel box ``bb`` = (x, y, w, h) and a
+    caption (two for some), some with ``attributes``, some naming "left" or
+    "right" (the careful hflip), about half with a full-image ``caption``."""
+    side = 256
+    with open(path, "w") as f:
+        for _ in range(N_LAUNCH_IMAGES):
+            elems = []
+            for _ in range(int(rng.integers(1, 7))):
+                w, h = (int(x) for x in rng.integers(16, side // 2, 2))
+                x, y = int(rng.integers(0, side - w)), int(rng.integers(0, side - h))
+                cap = caption(rng, words, 2, 10)
+                if rng.random() < 0.2:
+                    cap += " on the left" if rng.random() < 0.5 else " to the right"
+                elem = {"bb": [x, y, w, h],
+                        "caption": [cap, caption(rng, words, 2, 10)] if rng.random() < 0.3
+                        else cap}
+                if rng.random() < 0.3:
+                    elem["attributes"] = [caption(rng, words, 1, 3)]
+                elems.append(elem)
+            line = {"binary": base64.b64encode(random_png(rng, side)).decode(), "elems": elems}
+            if rng.random() < 0.5:
+                line["caption"] = caption(rng, words)
+            f.write(json.dumps(line) + "\n")
+
+
+def counts_delta(after: dict, before: dict) -> dict:
+    """``launch_counts()`` after less before, zero counts dropped."""
+    def sub(a, b):
+        if isinstance(a, dict):
+            out = collections.Counter() if isinstance(a, collections.Counter) else {}
+            for k, v in a.items():
+                d = sub(v, b.get(k, {} if isinstance(v, dict) else 0))
+                if d or isinstance(v, dict):
+                    out[k] = d
+            return out
+        return a - b
+
+    return {k: sub(v, before[k]) for k, v in after.items()}
+
+
+def region_step_launches(n_fusion: int = 6, n_text: int = 12) -> dict:
+    """The tiny launches of one region-stream step (forward and backward
+    alike): the text pass over the clean and masked rows, the ITM + MLM
+    fusion pass over 4 x 128 rows (region key masks) and the bbox pass over
+    the 128 rows' full images."""
+    R = REGION_ROWS
+    return {(2 * R, TEXT_LEN, TEXT_LEN): n_text, (4 * R, TEXT_LEN, TEXT_LEN): n_fusion,
+            (4 * R, TEXT_LEN, 200): n_fusion, (R, TEXT_LEN, TEXT_LEN): n_fusion,
+            (R, TEXT_LEN, 200): n_fusion}
+
+
+class StreamTimer:
+    """Wraps the pretraining loop's per-stream grad functions and its
+    optimizer step (``tasks.pretrain.make_grad_fn`` / ``make_apply_grads``):
+    each call's CUDA-event ms, wall ms and peak device memory by stream, and
+    the region stream's launches per call. With ``profile_call`` (stream,
+    index) that call runs under torch.profiler, written to ``profile_to``
+    (args, smi, file name)."""
+
+    def __init__(self, profile_call=None, profile_to=None):
+        from x2vlm_tpu_torch.tasks import pretrain as pretrain_mod
+
+        self.mod = pretrain_mod
+        self.calls = collections.defaultdict(list)
+        self.profile_call, self.profile_to = profile_call, profile_to
+
+    def _timed(self, stream, fn):
+        def call(*a):
+            record = {}
+            last = self.profile_call == (stream, len(self.calls[stream]))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = launch_counts()
+            with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if last
+                  else contextlib.nullcontext()) as prof:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t = time.perf_counter()
+                start.record()
+                out = fn(*a)
+                end.record()
+                end.synchronize()
+            record.update(ms=start.elapsed_time(end), wall_ms=(time.perf_counter() - t) * 1e3,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                          launches=counts_delta(launch_counts(), before))
+            self.calls[stream].append(record)
+            if last:
+                args, smi, fname = self.profile_to
+                write_profile(args, smi, prof, fname, 40)
+            return out
+
+        return call
+
+    def __enter__(self):
+        self.orig = self.mod.make_grad_fn, self.mod.make_apply_grads
+
+        def make_grad_fn(model, **kw):
+            apply = kw.get("apply_kwargs") or {}
+            stream = ("region" if apply.get("ret_bbox_loss") else
+                      "image" if "ret_match_loss" in apply else "text")
+            return self._timed(stream, self.orig[0](model, **kw))
+
+        self.mod.make_grad_fn = make_grad_fn
+        self.mod.make_apply_grads = lambda opt: self._timed("apply", self.orig[1](opt))
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_grad_fn, self.mod.make_apply_grads = self.orig
+
+    def summary(self) -> dict:
+        """Median ms, wall ms and the largest peak GiB of each stream's calls,
+        and the region stream's share of the step."""
+        out = {k: {"calls": len(v), "ms": statistics.median(r["ms"] for r in v),
+                   "wall_ms": statistics.median(r["wall_ms"] for r in v),
+                   "peak_gib": max(r["peak_gib"] for r in v)}
+               for k, v in self.calls.items()}
+        step_ms = sum(x["ms"] for x in out.values())
+        step_wall = sum(x["wall_ms"] for x in out.values())
+        if "region" in out and step_ms:
+            out["region_share"] = {"ms": out["region"]["ms"] / step_ms,
+                                   "wall_ms": out["region"]["wall_ms"] / step_wall}
+        return out
+
+
+def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = ""):
     """Phase 7: ``x2vlm_tpu_torch.run --task pretrain`` in process on data
-    written under ``root``: 4 steps, then ``--resume`` to step 6; the run's
-    final weights exported as a reference-named ``.th``. Returns its path
-    and the phase's launch counts."""
+    written under ``root``, the image, region and text streams: 4 steps,
+    then ``--resume`` to step 6; each stream's calls timed, the region
+    stream's launches read per call; the run's final weights exported as a
+    reference-named ``.th``. Returns its path, the tokenizer directory and
+    words, the phase's launch counts and the region stream's summed over
+    the first run."""
     from x2vlm_tpu_torch import run as run_mod
 
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed + 7)
     tok_dir, words = write_vocab(root, rng)
     img_file, txt_file = os.path.join(root, "images.jsonl"), os.path.join(root, "texts.jsonl")
+    region_file = os.path.join(root, "regions.jsonl")
     with open(img_file, "w") as f:
         for _ in range(N_LAUNCH_IMAGES):
             f.write(json.dumps({"binary": base64.b64encode(random_png(rng, 256)).decode(),
@@ -1697,14 +1992,21 @@ def pretrain_launcher_phase(root: str, seed: int, dev):
     with open(txt_file, "w") as f:
         for _ in range(N_LAUNCH_IMAGES):
             f.write(json.dumps({"text": caption(rng, words, 10, 45)}) + "\n")
+    write_region_corpus(region_file, rng, words)
     shipped = shipped_config(PRETRAIN_CONFIG)
-    cfg = {k: v for k, v in shipped.items() if k not in ("train_file_regions", "regions")}
-    cfg.update(train_file=[img_file], text_encoder=tok_dir, ckpt_frequent_step=2,
+    cfg = dict(shipped)
+    # the region block as shipped (128 rows, 50 images); the images at batch 32
+    cfg.update(train_file=[img_file], train_file_regions=[region_file],
+               text_encoder=tok_dir, ckpt_frequent_step=2,
                images=dict(shipped["images"], batch_size=TRAIN_BATCH),
                train_dataset_size=2 * TRAIN_BATCH,      # 2 steps an epoch
                train_file_text=[txt_file],
                texts={"caption_key": "text", "batch_size": TRAIN_BATCH, "iter_perc": 1,
                       "num_workers": 2})
+    if (cfg["regions"]["batch_size"], cfg["regions"]["max_images"]) != \
+            (REGION_ROWS, REGION_IMAGES):
+        fail(f"pretrain launcher: the shipped region block is {cfg['regions']}, this phase "
+             f"expects {REGION_ROWS} rows over {REGION_IMAGES} images")
     cfg_path = os.path.join(root, "pretrain.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
@@ -1715,7 +2017,10 @@ def pretrain_launcher_phase(root: str, seed: int, dev):
 
     t1 = time.perf_counter()
     reset_counts()
-    record = run_mod.main(argv + ["--epoch", str(LAUNCH_STEPS // 2)])
+    profiled = args is not None and args.profile
+    with StreamTimer(("region", LAUNCH_STEPS - 1) if profiled else None,
+                     (args, smi, "chip_smoke_region_profile.txt")) as timer:
+        record = run_mod.main(argv + ["--epoch", str(LAUNCH_STEPS // 2)])
     torch.cuda.synchronize()
     counts1 = launch_counts()
     log(f"phase 7 run 1 ({LAUNCH_STEPS} steps): {time.perf_counter() - t1:.1f} s; "
@@ -1724,18 +2029,35 @@ def pretrain_launcher_phase(root: str, seed: int, dev):
         fail(f"pretrain launcher: non-finite metrics {record}")
     if record.get("broken", -1) != 0:
         fail(f"pretrain launcher: broken samples {record.get('broken')}")
+    want_losses = [f"region_loss_{k}" for k in ("itc", "itm", "mlm", "bbox", "giou")]
+    if not all(isinstance(record.get(k), float) for k in want_losses):
+        fail(f"pretrain launcher: region losses {[record.get(k) for k in want_losses]}")
     n = LAUNCH_STEPS
     n_fusion = 6
-    check_launcher_counts(
-        "pretrain launcher", counts1, 12 * n, 12 * n,
-        {"tiny_fwd": {(2 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 12 * n,
-                      (4 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): n_fusion * n,
-                      (4 * TRAIN_BATCH, TEXT_LEN, 200): n_fusion * n,
-                      (TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 18 * n},
-         "tiny_bwd": {(2 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 12 * n,
-                      (4 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): n_fusion * n,
-                      (4 * TRAIN_BATCH, TEXT_LEN, 200): n_fusion * n,
-                      (TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 18 * n}})
+    region = region_step_launches(n_fusion)
+    want_tiny = collections.Counter({(2 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 12 * n,
+                                     (4 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): n_fusion * n,
+                                     (4 * TRAIN_BATCH, TEXT_LEN, 200): n_fusion * n,
+                                     (TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 18 * n})
+    want_tiny.update({k: v * n for k, v in region.items()})
+    check_launcher_counts("pretrain launcher", counts1, 24 * n, 24 * n,
+                          {"tiny_fwd": dict(want_tiny), "tiny_bwd": dict(want_tiny)})
+    # the region stream alone, each of its calls: 12 of each flash kernel at
+    # B=50, its tiny launches, all on the tensor-core route
+    region_calls = timer.calls["region"]
+    if len(region_calls) != n:
+        fail(f"pretrain launcher: {len(region_calls)} region-stream calls, expected {n}")
+    for i, c in enumerate(region_calls):
+        check_launcher_counts(f"pretrain launcher region step {i}", c["launches"], 12, 12,
+                              {"tiny_fwd": region, "tiny_bwd": region})
+    # the flash launches at B=50, for the kernels line
+    region_flash = {"flash_attention_fwd": sum(c["launches"]["flash_fwd"]
+                                               for c in region_calls)}
+    for k in ("dq", "dkv", "dbias"):
+        region_flash[f"flash_attention_bwd_{k}"] = sum(c["launches"]["flash_bwd"].get(k, 0)
+                                                       for c in region_calls)
+    log(f"phase 7 by stream (CUDA-event ms and wall ms of each call, median; peak GiB; "
+        f"{smi}): {json.dumps(timer.summary())}")
 
     # --resume: the run must start from the saved state bit for bit
     state_path = os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE)
@@ -1770,7 +2092,8 @@ def pretrain_launcher_phase(root: str, seed: int, dev):
         f"nu {seen.get('nu')}, count {seen.get('count')}; {json.dumps(record2)}")
     if not (seen.get("step") == LAUNCH_STEPS and seen.get("params") and seen.get("mu")
             and seen.get("nu") and seen.get("count")
-            and seen.get("data_state") == saved["data_state"] and saved["data_state"]):
+            and seen.get("data_state") == saved["data_state"]
+            and set(saved["data_state"]) == {"image", "region", "text"}):
         fail(f"pretrain launcher --resume: {seen} against the saved step {saved['step']}")
     if record2.get("pretrain_steps") != [LAUNCH_STEPS, RESUME_STEPS] or \
             record2.get("broken", -1) != 0:
@@ -1780,7 +2103,7 @@ def pretrain_launcher_phase(root: str, seed: int, dev):
     th_path = os.path.join(root, "x2vlm_phase7.th")
     torch.save({"model": {k[len("base."):]: v for k, v in final["params"].items()}}, th_path)
     log(f"phase 7 seconds: {time.perf_counter() - t0:.1f}")
-    return th_path, tok_dir, words, counts1
+    return th_path, tok_dir, words, counts1, region_flash
 
 
 # Phase 8's hold on the fine-tuned model at 384 px, through its own calls:
@@ -1802,6 +2125,40 @@ FUSION_CALL_RATIO = 0.5
 N_KEYS_384 = N_IMG_384 + (-N_IMG_384 % 8)   # 584: the fusion's padded image stream
 
 
+@contextlib.contextmanager
+def held_tiny_calls(n_keys: int, ratios: list, only=None):
+    """Within the block, each bf16 call the model makes on the card into the
+    tiny kernel (``ops.layers.tiny_block_attention``) with ``n_keys`` keys,
+    no dropout and, given ``only``, ``only(key_mask)`` true, is held on the
+    operands the model gave it to the plain version: its error over the
+    bf16 rule's bound is appended to ``ratios``."""
+    from x2vlm_tpu_torch.ops import layers as layers_mod
+
+    block_attention = layers_mod.tiny_block_attention
+
+    def held(qw, kw, vw, **kwargs):
+        out = block_attention(qw, kw, vw, **kwargs)
+        km = kwargs.get("key_mask")
+        dropout = kwargs.get("training") and kwargs.get("dropout_rate", 0.0) > 0.0
+        if out.is_cuda and out.dtype == torch.bfloat16 and kw.shape[1] == n_keys and \
+                not dropout and (only is None or only(km)):
+            with torch.no_grad():
+                ref = functools.partial(tiny_attention_reference,
+                                        num_heads=kwargs["num_heads"], key_mask=km,
+                                        scale=kwargs["scale"])
+                truth = ref(qw.float(), kw.float(), vw.float())[0]
+                bound = max(4.0 * max_err(ref(qw, kw, vw)[0], truth),
+                            1e-3 * max(truth.abs().max().item(), 1e-6))
+                ratios.append(max_err(out.detach(), truth) / bound)
+        return out
+
+    layers_mod.tiny_block_attention = held
+    try:
+        yield
+    finally:
+        layers_mod.tiny_block_attention = block_attention
+
+
 def fusion_384_readings(state, mcfg, images, ids, atts, dev) -> dict:
     """``itm_score`` of every image against every text with the weights
     ``state`` on the card in bf16 and fp32 and on the CPU in fp32; the
@@ -1812,23 +2169,8 @@ def fusion_384_readings(state, mcfg, images, ids, atts, dev) -> dict:
     (``rel_err``), the ITM scores' largest error and the card run's tiny
     and plain-attention launches; for bf16 also each held call's ratio;
     and the CPU scores' range."""
-    from x2vlm_tpu_torch.ops import layers as layers_mod
-
     n_img, n_txt = images.shape[0], ids.shape[0]
     feats, scores, counts, ratios = {}, {}, {}, []
-    block_attention = layers_mod.tiny_block_attention
-
-    def held(qw, kw, vw, **kwargs):
-        out = block_attention(qw, kw, vw, **kwargs)
-        if out.is_cuda and out.dtype == torch.bfloat16 and kw.shape[1] == N_KEYS_384:
-            ref = functools.partial(tiny_attention_reference, num_heads=kwargs["num_heads"],
-                                    key_mask=kwargs.get("key_mask"), scale=kwargs["scale"])
-            truth = ref(qw.float(), kw.float(), vw.float())[0]
-            bound = max(4.0 * max_err(ref(qw, kw, vw)[0], truth),
-                        1e-3 * max(truth.abs().max().item(), 1e-6))
-            ratios.append(max_err(out, truth) / bound)
-        return out
-
     for tag, dtype, device in (("bf16", torch.bfloat16, dev), ("fp32", torch.float32, dev),
                                ("cpu", torch.float32, torch.device("cpu"))):
         model = XVLMForRetrieval(mcfg, dtype=dtype, device=device, seed=None)
@@ -1837,16 +2179,14 @@ def fusion_384_readings(state, mcfg, images, ids, atts, dev) -> dict:
             lambda mod, inp, out, tag=tag: feats.__setitem__(tag, inp[0].float().cpu()))
         reset_counts()
         dot_product_attention.calls = 0
-        layers_mod.tiny_block_attention = held
         try:
-            with torch.inference_mode():
+            with held_tiny_calls(N_KEYS_384, ratios), torch.inference_mode():
                 img, _ = model.encode_images(images.to(device))
                 txt, _ = model.encode_texts(ids.to(device), atts.to(device))
                 scores[tag] = model.itm_score(
                     img.repeat_interleave(n_txt, 0), txt.repeat(n_img, 1, 1),
                     atts.to(device).repeat(n_img, 1)).float().cpu()
         finally:
-            layers_mod.tiny_block_attention = block_attention
             hook.remove()
         if device.type == "cuda":
             torch.cuda.synchronize()
@@ -1996,12 +2336,14 @@ def retrieval_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
         f"{' (the last one profiled)' if args.profile else ''}; eval seconds "
         f"{record.get('eval_eval_seconds')} ({N_LAUNCH_IMAGES} images, "
         f"{5 * N_LAUNCH_IMAGES} texts, k_test {cfg['k_test']})")
-    # the import: the 224 px .th at 384 px, every parameter loaded
+    # the import: the 224 px .th at 384 px, every parameter loaded; left over
+    # are the MLM and bbox heads, which a retrieval model does not carry
     unexpected = imported.get("unexpected", [])
     log(f"phase 8 import: missing {imported.get('missing')}, unexpected {len(unexpected)} "
         f"({sorted({'.'.join(k.split('.')[:2]) for k in unexpected})})")
     if imported.get("missing") != [] or not all(
-            k.startswith("text_encoder.cls.predictions.") for k in imported.get("unexpected", [])):
+            k.startswith(("text_encoder.cls.predictions.", "bbox_head."))
+            for k in imported.get("unexpected", [])):
         fail(f"retrieval launcher import of {th_path}: missing {imported.get('missing')}, "
              f"unexpected {imported.get('unexpected')}")
     keys = ("txt_r1", "txt_r5", "txt_r10", "txt_r_mean", "img_r1", "img_r5", "img_r10",
@@ -2140,7 +2482,8 @@ def run(args, dev: torch.device) -> int:
 
     # ---- phases 7 and 8: the launcher's pretrain and retrieval tasks ----
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        th_path, tok_dir, words, pre_counts = pretrain_launcher_phase(root, args.seed, dev)
+        th_path, tok_dir, words, pre_counts, region_flash = pretrain_launcher_phase(
+            root, args.seed, dev, args, smi)
         torch.cuda.empty_cache()
         ret_counts = retrieval_launcher_phase(args, root, th_path, tok_dir, words, dev, smi)
     torch.cuda.empty_cache()
@@ -2160,8 +2503,12 @@ def run(args, dev: torch.device) -> int:
         return counts["tiny_fwd" if e["name"] == "tiny_attention_fwd" else "tiny_bwd"][e["key"]]
 
     kernels = []
-    for e in flash_entries:   # B=128 on the serving paths, B=32 in the train step
-        serving = e.pop("path") == "serving"
+    for e in flash_entries:   # B=128 serving, B=32 the train step, B=50 the region stream
+        path = e.pop("path")
+        if path == "region":
+            kernels.append(entry(e, 0, 0, 0, region_flash["flash_attention_fwd"]))
+            continue
+        serving = path == "serving"
         kernels.append(entry(e, sum(p[0] for p in per_request.values()) if serving else 0,
                              0 if serving else train["flash_attention_fwd"],
                              sum(p[0] for p in q_per_request.values()) if serving else 0))
@@ -2177,8 +2524,11 @@ def run(args, dev: torch.device) -> int:
         else:
             log(f"{e['name']} {e['shape']}: checked and timed; no main-path launch at this "
                 f"shape, so not in the kernels line")
-    for e in flash_bwd_entries:
-        kernels.append(entry(e, 0, train[e["name"]]))
+    for e in flash_bwd_entries:   # B=32 the train step, B=50 the region stream
+        if e.pop("path") == "region":
+            kernels.append(entry(e, 0, 0, 0, region_flash[e["name"]]))
+        else:
+            kernels.append(entry(e, 0, train[e["name"]]))
     for e in tiny_bwd_entries:
         kernels.append(entry(e, 0, train["tiny_attention_bwd"][e["key"]], 0,
                              launcher(e, pre_counts), launcher(e, ret_counts)))

@@ -164,8 +164,8 @@ def test_unported_tasks_raise_naming_their_item(corpus, task, item):
 
 
 @pytest.mark.parametrize("extra,err,match", [
-    ({"train_file_regions": ["r.jsonl"], "regions": {"batch_size": 4}}, NotImplementedError,
-     "A5"),
+    ({"train_file_regions": ["r.jsonl"], "regions": {"batch_size": 4, "languages": ["en"]}},
+     NotImplementedError, "A8"),
     ({"train_file_videos": ["v.jsonl"], "videos": {"batch_size": 4}}, NotImplementedError,
      "A8"),
     ({"mixed_in_batch": False}, ValueError, "mixed_in_batch"),

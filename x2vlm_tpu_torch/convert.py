@@ -121,10 +121,11 @@ def _heads(sd, src) -> None:
             _linear(sd, src, name, name)
     if "temp" in src:
         sd["temp"] = np.asarray(src.pop("temp")).reshape(())
-    if "itm_head/fc1/kernel" in src:
-        _linear(sd, src, "itm_head/fc1", "itm_head.0")
-        _norm(sd, src, "itm_head/ln", "itm_head.1")
-        _linear(sd, src, "itm_head/fc2", "itm_head.3")
+    for head in ("itm_head", "bbox_head"):
+        if f"{head}/fc1/kernel" in src:
+            _linear(sd, src, f"{head}/fc1", f"{head}.0")
+            _norm(sd, src, f"{head}/ln", f"{head}.1")
+            _linear(sd, src, f"{head}/fc2", f"{head}.3")
 
 
 def convert_jax_params(params: Mapping, *, device=None
@@ -132,7 +133,7 @@ def convert_jax_params(params: Mapping, *, device=None
     """JAX ``XVLMForRetrieval`` / ``XVLMForPretrain`` / ``XVLMBase`` params
     -> (state dict of the port's ``XVLMBase`` under the reference names, on
     ``device`` (the card unless ``device="cpu"``); sorted JAX keys the port
-    does not carry yet, e.g. the bbox head). The ``params/`` collection and
+    does not carry, none for these models). The ``params/`` collection and
     a task head's ``base/`` scope are dropped: load the result into
     ``XVLMForRetrieval`` itself or into ``XVLMForPretrain.base``."""
     device = resolve_device(device)

@@ -1,33 +1,45 @@
 """Pretraining data streams (the port's counterpart of
-x2vlm_tpu/data/pretrain.py): the image-text and the text-only JSONL
-streams over the sharded line reader, emitting fixed-shape numpy samples.
+x2vlm_tpu/data/pretrain.py): the image-text, the region-text and the
+text-only JSONL streams over the sharded line reader, emitting fixed-shape
+numpy samples, and ``region_collate``, the region stream's batches.
 
 A broken sample (an undecodable image, a missing key) is skipped and
 counted in ``broken``, as in the JAX package; and once
 ``max_consecutive_broken`` samples in a row have broken (a batch's worth,
 as the launcher sets it) the stream raises instead of spinning, so a
-missing decoder cannot turn into a stream that never yields. The region
-and video streams come with ROADMAP items A5 and A8; the JAX package's
-native decode path is not ported.
+missing decoder cannot turn into a stream that never yields. The video
+and multilingual streams come with ROADMAP item A8; the JAX package's
+native decode path is not ported (the region stream decodes with PIL, as
+the JAX package's PIL path does).
 """
 
 from __future__ import annotations
 
+import math
 import random
 from base64 import b64decode
-from typing import Callable, Dict, Iterator, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from x2vlm_tpu_torch.data.imageio import decode_image, open_image
+from x2vlm_tpu_torch.data.imageio import decode_image, open_image, pil
+from x2vlm_tpu_torch.data.loader import collate
 from x2vlm_tpu_torch.data.streaming import DistLineReader
 from x2vlm_tpu_torch.data.tokenization import TextPreprocessor
+from x2vlm_tpu_torch.data.transforms import hflip
 
-__all__ = ["ImageTextStream", "TextStream", "BrokenStreamError"]
+__all__ = ["ImageTextStream", "RegionTextStream", "TextStream", "BrokenStreamError",
+           "region_collate"]
 
 
 class BrokenStreamError(RuntimeError):
     """Every one of the last ``max_consecutive_broken`` samples was broken."""
+
+
+def _image(ann: dict, image_key: str, is_rpath: bool):
+    if is_rpath:
+        return open_image(ann[image_key])
+    return decode_image(b64decode(ann[image_key]))
 
 
 def _choose_caption(caption, rng) -> str:
@@ -77,11 +89,7 @@ class ImageTextStream(_StreamBase):
         self.is_image_rpath = is_image_rpath
 
     def _sample(self, ann: dict) -> Dict:
-        if self.is_image_rpath:
-            img = open_image(ann[self.image_key])
-        else:
-            img = decode_image(b64decode(ann[self.image_key]))
-        image = np.asarray(self.transform(img))
+        image = np.asarray(self.transform(_image(ann, self.image_key, self.is_image_rpath)))
         caption = _choose_caption(ann[self.caption_key], self.rng)
         ids, atts, ids_masked, pos, labels = self.text_pre(caption, with_masking=True)
         return {"image": image, "text_ids": ids, "text_atts": atts,
@@ -107,3 +115,159 @@ class TextStream(_StreamBase):
 
     def __iter__(self):
         return self._samples(self._sample)
+
+
+class RegionTextStream(_StreamBase):
+    """Region-text stream (reference RegionTextJsonDataset:427-610): a
+    box-aware random crop around one region, a careful hflip (never when a
+    caption names "left" or "right"), then per region its caption, its
+    patch bitmap and its normalised cxcywh box, plus the full-image caption
+    as a row of its own (``is_image`` 1) where the line has one. Each
+    sample is ``{"image": (H, W, 3) float32, "rows": [row, ...]}``.
+
+    ``box_transform`` augments the resized crop (``transforms.box_transform``
+    with its own rng, so the stream's draws from ``rng`` come in the JAX
+    package's order: the region, the crop corners, the flip, the captions
+    and the shuffle)."""
+
+    def __init__(self, reader, text_pre, box_transform: Callable, *,
+                 image_res: int, patch_size: int, max_regions: int = 5,
+                 min_perc_in_image: float = 0.5, careful_hflip: bool = True,
+                 image_key: str = "binary", is_image_rpath: bool = False,
+                 rng=None, max_consecutive_broken: int = 128):
+        super().__init__(reader, text_pre, rng, max_consecutive_broken)
+        self.box_transform = box_transform
+        self.image_res = image_res
+        self.patch_size = patch_size
+        self.num_patch = image_res // patch_size
+        self.max_regions = max_regions
+        self.min_perc = min_perc_in_image
+        self.careful_hflip = careful_hflip
+        self.image_key = image_key
+        self.is_image_rpath = is_image_rpath
+
+    def get_image_attns(self, x, y, w, h) -> np.ndarray:
+        """Patch bitmap over the region, plus the CLS slot (reference
+        :595-610)."""
+        P, ps = self.num_patch, self.patch_size
+        x_min = min(math.floor(x / ps), P - 1)
+        x_max = max(x_min + 1, min(math.ceil((x + w) / ps), P))
+        y_min = min(math.floor(y / ps), P - 1)
+        y_max = max(y_min + 1, min(math.ceil((y + h) / ps), P))
+        atts = np.zeros(1 + P * P, np.float32)
+        atts[0] = 1
+        grid = atts[1:].reshape(P, P)
+        grid[y_min:y_max, x_min:x_max] = 1
+        return atts
+
+    @staticmethod
+    def _left_right_in_captions(ann) -> bool:
+        def named(caption):
+            caps = caption if isinstance(caption, list) else [caption]
+            return any(("left" in c) or ("right" in c) for c in caps)
+
+        if "caption" in ann and named(ann["caption"]):
+            return True
+        return any("caption" in e and named(e["caption"]) for e in ann["elems"])
+
+    def _row(self, cap: str, image_atts, target_bbox, is_image: float) -> Dict:
+        ids, atts, ids_m, pos, labels = self.text_pre(cap, with_masking=True)
+        return {"text_ids": ids, "text_atts": atts, "text_ids_masked": ids_m,
+                "masked_pos": pos, "masked_ids": labels, "image_atts": image_atts,
+                "target_bbox": np.asarray(target_bbox, np.float32),
+                "is_image": np.float32(is_image)}
+
+    def _sample(self, ann: dict) -> Dict:
+        rng = self.rng
+        img = _image(ann, self.image_key, self.is_image_rpath)
+        W, H = img.size
+        x, y, w, h = [int(v) for v in rng.choice(ann["elems"])["bb"]]
+        if not (x >= 0 and y >= 0 and x + w <= W and y + h <= H and w > 0 and h > 0):
+            raise ValueError(f"box {(x, y, w, h)} outside the {W}x{H} image")
+
+        # a crop that holds the chosen region whole
+        x0, y0 = rng.randint(0, x), rng.randint(0, y)
+        x1 = rng.randint(min(x + w, W), W)
+        y1 = rng.randint(min(y + h, H), H)
+        w0, h0 = x1 - x0, y1 - y0
+        do_hflip = bool(rng.random() < 0.5 and not (
+            self.careful_hflip and self._left_right_in_captions(ann)))
+
+        img = img.crop((x0, y0, x1, y1))
+        W, H = img.size
+        if do_hflip:
+            img = hflip(img)
+        img = img.resize((self.image_res, self.image_res), pil().BICUBIC)
+        image = self.box_transform(img).astype(np.float32)
+
+        rows: List[Dict] = []
+        max_elems = self.max_regions
+        res = self.image_res
+        if "caption" in ann:
+            rows.append(self._row(_choose_caption(ann["caption"], rng),
+                                  np.ones(1 + self.num_patch ** 2, np.float32),
+                                  [0.5, 0.5, 1, 1], 1))
+            max_elems -= 1
+
+        elems = list(ann["elems"])
+        rng.shuffle(elems)
+        for elem in elems:
+            if max_elems <= 0:
+                break
+            x, y, w, h = [int(v) for v in elem["bb"]]
+            xx, yy = max(x0, x), max(y0, y)
+            xm, ym = min(x0 + w0, x + w), min(y0 + h0, y + h)
+            if not (xm > xx and ym > yy):
+                continue
+            if (xm - xx) * (ym - yy) / (w * h) <= self.min_perc:
+                continue
+            # the part inside the crop, in the resized crop's pixels
+            x, y, w, h = xx - x0, yy - y0, xm - xx, ym - yy
+            if do_hflip:
+                x = (W - x) - w
+            x, w = res / W * x, res / W * w
+            y, h = res / H * y, res / H * h
+            cap = _choose_caption(elem["caption"], rng)
+            if "attributes" in elem:
+                cap = _choose_caption(elem["attributes"], rng) + " " + cap
+            rows.append(self._row(cap, self.get_image_attns(x, y, w, h),
+                                  [(x + w / 2) / res, (y + h / 2) / res, w / res, h / res], 0))
+            max_elems -= 1
+
+        if not rows:
+            raise ValueError("no region of the line lies in the crop")
+        return {"image": image, "rows": rows}
+
+    def __iter__(self):
+        return self._samples(self._sample)
+
+
+def region_collate(samples: Sequence[Dict], batch_size: int, max_images: int,
+                   rng: Optional[random.Random] = None) -> Dict[str, np.ndarray]:
+    """A region batch of fixed shape (reference collate_fn:612-660): the
+    rows of up to ``max_images`` images, ``batch_size`` of them sampled
+    without replacement (or all of them, then padded by draws with
+    replacement), ``idx_to_group_img`` naming each row's image, and the
+    images padded with zero images to ``max_images``."""
+    rng = rng or random
+    samples = list(samples)[:max_images]
+    images = [s["image"] for s in samples]
+    rows, idx_to_group = [], []
+    for ii, s in enumerate(samples):
+        for r in s["rows"]:
+            rows.append(r)
+            idx_to_group.append(ii)
+
+    n = len(rows)
+    if n >= batch_size:
+        keep = rng.sample(range(n), batch_size)
+    else:
+        keep = list(range(n))
+        while len(keep) < batch_size:
+            keep.append(rng.choice(range(n)))
+    batch = collate([rows[i] for i in keep])
+    batch["idx_to_group_img"] = np.asarray([idx_to_group[i] for i in keep], np.int32)
+    while len(images) < max_images:
+        images.append(np.zeros_like(images[0]))
+    batch["image"] = np.stack(images)
+    return batch

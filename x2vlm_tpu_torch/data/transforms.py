@@ -5,14 +5,14 @@ dataset/randaugment.py).
 Every transform takes the PIL image data/imageio.py decodes and runs the
 JAX package's PIL code, so both packages give equal arrays for the same
 ``random`` draws. Pillow is imported where a transform runs
-(data/imageio.pil). ``box_transform`` (the region stream) comes with
-ROADMAP item A5.
+(data/imageio.pil). ``box_transform`` is the region stream's: it only
+augments, the crop and the flip being done box-aware by the stream.
 """
 
 from __future__ import annotations
 
 import random
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -20,8 +20,8 @@ from x2vlm_tpu_torch.data.imageio import pil
 
 __all__ = [
     "CLIP_MEAN", "CLIP_STD", "normalize", "to_uint8", "random_resized_crop",
-    "hflip", "RandomAugment", "pretrain_transform", "train_transform",
-    "test_transform",
+    "hflip", "RandomAugment", "DEFAULT_AUGS", "BOX_AUGS", "pretrain_transform",
+    "train_transform", "box_transform", "test_transform",
 ]
 
 CLIP_MEAN = np.asarray([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -96,18 +96,22 @@ _AUG_RANGES = {
 }
 DEFAULT_AUGS = ["Identity", "AutoContrast", "Equalize", "Brightness", "Sharpness",
                 "ShearX", "ShearY", "TranslateX", "TranslateY", "Rotate"]
+BOX_AUGS = ["Identity", "AutoContrast", "Equalize", "Brightness", "Sharpness"]
 
 
 class RandomAugment:
-    """2 random ops at magnitude 7/10 (reference randaugment.py:310-339)."""
+    """2 random ops of ``augs`` at magnitude 7/10 (reference
+    randaugment.py:310-339)."""
 
     n, m = 2, 7
 
-    def __init__(self, rng: Optional[random.Random] = None):
+    def __init__(self, rng: Optional[random.Random] = None,
+                 augs: Sequence[str] = tuple(DEFAULT_AUGS)):
         self.rng = rng or random
+        self.augs = list(augs)
 
     def __call__(self, img):
-        for name in [self.rng.choice(DEFAULT_AUGS) for _ in range(self.n)]:
+        for name in [self.rng.choice(self.augs) for _ in range(self.n)]:
             lo, hi = _AUG_RANGES[name]
             img = _aug(name, img, lo + (hi - lo) * (self.m / 10.0))
         return img
@@ -138,6 +142,17 @@ def train_transform(image_res: int, rng: Optional[random.Random] = None):
         img = random_resized_crop(img, image_res, scale=(0.5, 1.0), rng=rng)
         if rng.random() < 0.5:
             img = hflip(img)
+        return normalize(aug(img))
+
+    return f
+
+
+def box_transform(rng: Optional[random.Random] = None):
+    """The region stream's transform: ``BOX_AUGS`` only, normalised (the
+    stream crops and flips with the boxes)."""
+    aug = RandomAugment(rng, augs=BOX_AUGS)
+
+    def f(img):
         return normalize(aug(img))
 
     return f

@@ -7,6 +7,8 @@ extra cls-interaction rows. All depth x H tables are gathered in one indexed
 read per forward and handed to the attention in the compute dtype, shared
 over the batch as (1, H, S, S). Output: (B, num_patches + 1, C) =
 [mean-pooled patch tokens after fc_norm || patch tokens].
+``grouped_image_embeds`` turns the per-image output into the region
+stream's rows.
 
 Parameter names are the reference's (``patch_embed.proj``, ``cls_token``,
 ``blocks.N.{norm1, attn.qkv, attn.q_bias, attn.v_bias, attn.proj,
@@ -29,7 +31,8 @@ from x2vlm_tpu_torch.ops.layers import (
     PatchEmbed,
 )
 
-__all__ = ["BEiT2Config", "BEiT2", "BEiT2Block", "relative_position_index"]
+__all__ = ["BEiT2Config", "BEiT2", "BEiT2Block", "relative_position_index",
+           "grouped_image_embeds"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,3 +194,19 @@ class BEiT2(nn.Module):
         patches = self.fc_norm(x[:, 1:].float())
         pooled = patches.mean(dim=1, keepdim=True)
         return torch.cat([pooled, patches], dim=1).to(self.dtype)
+
+
+def grouped_image_embeds(vision_embeds: torch.Tensor, idx_to_group_img: torch.Tensor,
+                         image_atts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The region stream's rows: ``vision_embeds`` (B_img, S+1, C) gathered
+    to the region rows by ``idx_to_group_img`` (B_r,), the pooled slot
+    replaced by the mean of the patches inside the region (``image_atts``
+    (B_r, S+1), 1 on the region's patches; slot 0 is the CLS slot), summed
+    in the patches' dtype with the ``max(sum, 1e-6)`` guard, as the JAX
+    package does. Returns (region rows, the gathered full rows)."""
+    full = vision_embeds.index_select(0, idx_to_group_img)
+    patches = full[:, 1:, :]
+    weights = image_atts[:, 1:, None].to(patches.dtype)
+    pooled = (weights * patches).sum(dim=1, keepdim=True) / \
+        weights.sum(dim=1, keepdim=True).clamp(min=1e-6)
+    return torch.cat([pooled, patches], dim=1), full

@@ -96,14 +96,15 @@ class BertEmbeddings(nn.Module):
                                    device=device)
 
     def forward(self, input_ids: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                deterministic: bool = False) -> torch.Tensor:
         cfg, dt = self.config, self.dtype
         S = input_ids.shape[1]
         word = F.embedding(input_ids.long(), self.word_embeddings.weight).to(dt)
         pos = self.position_embeddings.weight[:S].to(dt)[None]
         tok = self.token_type_embeddings.weight[0].to(dt)
         x = self.LayerNorm(word + pos + tok)
-        return dropout(x, cfg.hidden_dropout, generator, self.training)
+        return dropout(x, cfg.hidden_dropout, generator, self.training and not deterministic)
 
 
 class BertOutput(nn.Module):
@@ -120,14 +121,15 @@ class BertOutput(nn.Module):
         self.LayerNorm = FusedLayerNorm(cfg.hidden_size, cfg.ln_eps, device=device)
 
     def forward(self, h, residual, drop_path: DropPath,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, deterministic: bool = False):
         if self.quant:
             serving_only(self)
             h = qdense(h, self.dense.weight, self.dense.bias, dtype=self.dtype)
         else:
             h = dense(h, self.dense.weight, self.dense.bias, self.dtype)
-        h = drop_path(dropout(h, self.dropout_rate, generator, self.training),
-                      generator)
+        h = drop_path(dropout(h, self.dropout_rate, generator,
+                              self.training and not deterministic),
+                      generator, deterministic)
         return self.LayerNorm((residual + h).to(self.dtype))
 
 
@@ -145,10 +147,10 @@ class BertAttention(nn.Module):
         self.output = BertOutput(cfg.hidden_size, cfg, dtype=dtype, device=device)
 
     def forward(self, x, kv=None, *, key_mask=None, drop_path: DropPath,
-                generator=None, kv_gather_idx=None):
+                generator=None, kv_gather_idx=None, deterministic: bool = False):
         h = self.self(x, kv, key_mask=key_mask, generator=generator,
-                      kv_gather_idx=kv_gather_idx)
-        return self.output(h, x, drop_path, generator)
+                      kv_gather_idx=kv_gather_idx, deterministic=deterministic)
+        return self.output(h, x, drop_path, generator, deterministic)
 
 
 class BertIntermediate(nn.Module):
@@ -190,19 +192,23 @@ class BertLayer(nn.Module):
     def forward(self, x, attention_mask=None, encoder_hidden_states=None,
                 encoder_attention_mask=None,
                 generator: Optional[torch.Generator] = None,
-                encoder_gather_idx: Optional[torch.Tensor] = None):
+                encoder_gather_idx: Optional[torch.Tensor] = None,
+                deterministic: bool = False):
         """``encoder_gather_idx`` (B,): the row of ``encoder_hidden_states``
-        each query row attends to (the stream holds only unique rows)."""
+        each query row attends to (the stream holds only unique rows).
+        ``deterministic`` turns dropout and drop-path off in training mode."""
         x = self.attention(x, key_mask=attention_mask, drop_path=self.drop_path,
-                           generator=generator)
+                           generator=generator, deterministic=deterministic)
         # cross-attention is skipped (not an error) without an image stream:
         # the text-only path runs the full stack uni-modally
         if self.crossattention is not None and encoder_hidden_states is not None:
             x = self.crossattention(x, encoder_hidden_states.to(self.dtype),
                                     key_mask=encoder_attention_mask,
                                     drop_path=self.drop_path, generator=generator,
-                                    kv_gather_idx=encoder_gather_idx)
-        return self.output(self.intermediate(x), x, self.drop_path, generator)
+                                    kv_gather_idx=encoder_gather_idx,
+                                    deterministic=deterministic)
+        return self.output(self.intermediate(x), x, self.drop_path, generator,
+                           deterministic)
 
 
 class _LayerStack(nn.Module):
@@ -233,7 +239,8 @@ class BertEncoder(nn.Module):
     def forward(self, input_ids=None, attention_mask=None, encoder_embeds=None,
                 encoder_hidden_states=None, encoder_attention_mask=None,
                 mode: str = "multi_modal", generator: Optional[torch.Generator] = None,
-                encoder_gather_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+                encoder_gather_idx: Optional[torch.Tensor] = None,
+                deterministic: bool = False) -> torch.Tensor:
         cfg = self.config
         if mode == "fusion":
             lo, hi = cfg.fusion_layer, cfg.num_layers
@@ -243,12 +250,13 @@ class BertEncoder(nn.Module):
         elif mode in ("text", "multi_modal"):
             lo, hi = 0, (cfg.fusion_layer if mode == "text" else cfg.num_layers)
             x = (encoder_embeds.to(self.dtype) if encoder_embeds is not None
-                 else self.embeddings(input_ids, generator))
+                 else self.embeddings(input_ids, generator, deterministic))
         else:
             raise ValueError(f"mode {mode!r}: one of text, fusion, multi_modal")
         for layer in self.encoder.layer[lo:hi]:
             x = layer(x, attention_mask, encoder_hidden_states,
-                      encoder_attention_mask, generator, encoder_gather_idx)
+                      encoder_attention_mask, generator, encoder_gather_idx,
+                      deterministic)
         return x
 
 

@@ -1,6 +1,7 @@
 """Task heads over the XVLM composition core (counterpart of
-x2vlm_tpu/models/heads.py): the pretraining losses of the image-text and
-text streams, and retrieval (fine-tuning losses and the serving programs).
+x2vlm_tpu/models/heads.py): the pretraining losses of the image-text,
+region-text and text streams, and retrieval (fine-tuning losses and the
+serving programs).
 
 Randomness is explicit: ``generator`` draws the ITM hard negatives and
 ``dropout_generator`` every dropout / drop-path mask (both may be None, then
@@ -19,9 +20,8 @@ __all__ = ["XVLMForPretrain", "XVLMForRetrieval"]
 
 
 class XVLMForPretrain(nn.Module):
-    """Pretraining losses over one stream batch (the JAX ``XVLMForPretrain``
-    without the region stream's bbox losses). Like the JAX module it holds
-    the composition core under ``base``, so its state dict keys are
+    """Pretraining losses over one stream batch. Like the JAX module it
+    holds the composition core under ``base``, so its state dict keys are
     ``base.<reference name>``. Modules start in eval mode: call ``.train()``
     for dropout."""
 
@@ -30,51 +30,68 @@ class XVLMForPretrain(nn.Module):
                  seed: Optional[int] = 0):
         super().__init__()
         self.base = XVLMBase(config, dtype=dtype, device=device, seed=seed,
-                             mlm_head=True)
+                             mlm_head=True, bbox_head=True)
         self.config = self.base.config
         self.eval()
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 dropout_generator: Optional[torch.Generator] = None,
-                neg_idx=None, ret_match_loss: bool = True) -> Dict[str, torch.Tensor]:
+                neg_idx=None, ret_match_loss: bool = True,
+                ret_bbox_loss: bool = False) -> Dict[str, torch.Tensor]:
         if batch.get("image") is None:
             return self.forward_text(batch, dropout_generator)
         return self.forward_multimodal(batch, generator, dropout_generator, neg_idx,
-                                       ret_match_loss)
+                                       ret_match_loss, ret_bbox_loss)
 
     def forward_multimodal(self, batch, generator=None, dropout_generator=None,
-                           neg_idx=None, ret_match_loss: bool = True):
+                           neg_idx=None, ret_match_loss: bool = True,
+                           ret_bbox_loss: bool = False):
         """ITC, then ITM + MLM through one fused fusion pass. ``neg_idx``:
         injected (image_neg_idx, text_neg_idx) for the ITM negatives.
         ``ret_match_loss=False`` (an image stream whose matching loss is off:
         noisy data beside an aux stream, or past ``stop_calc_itm``): no ITM
         (``loss_itm`` 0, no negatives drawn) and MLM through the whole stack
-        from the masked ids with cross-attention to the image."""
+        from the masked ids with cross-attention to the image.
+
+        ``ret_bbox_loss`` (the region stream: ``idx_to_group_img``,
+        ``image_atts``, ``target_bbox``, ``is_image``): the losses run on the
+        region rows, the region bitmaps as the image key mask, and
+        ``loss_bbox`` / ``loss_giou`` come from the bbox head over the full
+        rows."""
         base = self.base
         text_ids, text_atts = batch["text_ids"], batch["text_atts"]
-        image_embeds, image_atts = base.get_vision_embeds(batch["image"],
-                                                          dropout_generator)
+        if ret_bbox_loss:
+            image_embeds, image_atts, full_embeds = base.get_vision_embeds(
+                batch["image"], dropout_generator, image_atts=batch["image_atts"],
+                idx_to_group_img=batch["idx_to_group_img"])
+        else:
+            image_embeds, image_atts = base.get_vision_embeds(batch["image"],
+                                                              dropout_generator)
         # one text-mode pass over the clean and the masked text
         both = base.get_text_embeds(torch.cat([text_ids, batch["text_ids_masked"]]),
                                     torch.cat([text_atts, text_atts]), dropout_generator)
         text_embeds, mlm_text_embeds = both.chunk(2)
         image_feat = base.get_features(image_embeds=image_embeds)
         text_feat = base.get_features(text_embeds=text_embeds)
-        if not ret_match_loss:
-            return {"loss_itc": base.get_contrastive_loss(image_feat, text_feat),
-                    "loss_itm": torch.zeros((), dtype=torch.float32,
-                                            device=image_feat.device),
-                    "loss_mlm": base.get_mlm_loss(
-                        batch["text_ids_masked"], text_atts, batch["masked_pos"],
-                        batch["masked_ids"], dropout_generator, image_embeds=image_embeds,
-                        image_atts=image_atts)}
-        loss_itm, loss_mlm = base.get_matching_and_mlm_loss(
-            image_embeds, image_atts, image_feat, text_embeds, text_atts, text_feat,
-            mlm_text_embeds, batch["masked_pos"], batch["masked_ids"], generator,
-            neg_idx=neg_idx, dropout_generator=dropout_generator)
-        return {"loss_itc": base.get_contrastive_loss(image_feat, text_feat),
-                "loss_itm": loss_itm, "loss_mlm": loss_mlm}
+        losses = {"loss_itc": base.get_contrastive_loss(image_feat, text_feat)}
+        if ret_match_loss:
+            losses["loss_itm"], losses["loss_mlm"] = base.get_matching_and_mlm_loss(
+                image_embeds, image_atts, image_feat, text_embeds, text_atts, text_feat,
+                mlm_text_embeds, batch["masked_pos"], batch["masked_ids"], generator,
+                neg_idx=neg_idx, dropout_generator=dropout_generator)
+        else:
+            losses["loss_itm"] = torch.zeros((), dtype=torch.float32,
+                                             device=image_feat.device)
+            losses["loss_mlm"] = base.get_mlm_loss(
+                batch["text_ids_masked"], text_atts, batch["masked_pos"],
+                batch["masked_ids"], dropout_generator, image_embeds=image_embeds,
+                image_atts=image_atts)
+        if ret_bbox_loss:
+            output_coord = base.predict_bbox(full_embeds, text_embeds, text_atts)
+            losses["loss_bbox"], losses["loss_giou"] = base.get_bbox_loss(
+                output_coord, batch["target_bbox"], batch.get("is_image"))
+        return losses
 
     def forward_text(self, batch, dropout_generator=None):
         """The text-only stream: MLM through the whole stack."""

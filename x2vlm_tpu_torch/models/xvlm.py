@@ -1,16 +1,16 @@
 """XVLM composition (counterpart of x2vlm_tpu/models/xvlm.py): the BEiT-2
 vision tower, the BERT text / fusion stack, the contrastive projections, the
-temperature and the ITM head.
+temperature, the ITM head and the bbox head.
 
 Parameter names are the reference's (``vision_encoder.*``,
 ``text_encoder.bert.*``, ``text_encoder.cls.predictions.*``, ``vision_proj``,
-``text_proj``, ``temp``, ``itm_head.{0,1,3}``). The losses of the image-text
-stream are here: ITC (``get_contrastive_loss``), ITM with hard negatives
+``text_proj``, ``temp``, ``itm_head.{0,1,3}``, ``bbox_head.{0,1,3}``). The
+losses are here: ITC (``get_contrastive_loss``), ITM with hard negatives
 (``get_hard_negatives``, ``get_matching_loss``) and MLM, the last two fused
-into one fusion pass (``get_matching_and_mlm_loss``). All loss math is fp32.
-Single card: the JAX package's ITC all-gather and sharding constraints have
-no counterpart here. The bbox head (region stream) arrives with a later
-slice.
+into one fusion pass (``get_matching_and_mlm_loss``), and the region
+stream's box losses (``predict_bbox``, ``get_bbox_loss``: L1 + GIoU). All
+loss math is fp32. Single card: the JAX package's ITC all-gather and
+sharding constraints have no counterpart here.
 """
 
 from __future__ import annotations
@@ -23,8 +23,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from x2vlm_tpu_torch.device import resolve_device
-from x2vlm_tpu_torch.models.beit2 import BEiT2, BEiT2Config
+from x2vlm_tpu_torch.models.beit2 import BEiT2, BEiT2Config, grouped_image_embeds
 from x2vlm_tpu_torch.models.bert import BertConfig, TextEncoder
+from x2vlm_tpu_torch.ops import box as box_ops
 from x2vlm_tpu_torch.ops.fused_ce import softmax_ce
 from x2vlm_tpu_torch.ops.layers import dense, init_weights, layer_norm, linear
 
@@ -74,11 +75,14 @@ class XVLMBase(nn.Module):
     """Composition core. ``seed`` fills every parameter from a
     ``torch.Generator`` on ``device``; ``seed=None`` leaves them for
     ``load_state_dict``. Modules start in eval mode. ``mlm_head`` builds
-    the MLM head (a task that trains it)."""
+    the MLM head and ``bbox_head`` the bbox head, for a task that trains
+    them: the JAX package creates a head's parameters only where a task
+    calls it."""
 
     def __init__(self, config: Optional[XVLMConfig] = None, *,
                  dtype: torch.dtype = torch.bfloat16, device=None,
-                 seed: Optional[int] = 0, mlm_head: bool = False):
+                 seed: Optional[int] = 0, mlm_head: bool = False,
+                 bbox_head: bool = False):
         super().__init__()
         device = resolve_device(device)
         cfg = self.config = config or XVLMConfig.base()
@@ -95,6 +99,8 @@ class XVLMBase(nn.Module):
         if not cfg.fix_temp:
             self.temp = nn.Parameter(torch.empty((), device=device))
         self.itm_head = MlpHead(tw, 2, dtype=dtype, device=device)
+        if bbox_head:
+            self.bbox_head = MlpHead(tw, 4, dtype=dtype, device=device)
         if seed is not None:
             gen = torch.Generator(device=device)
             gen.manual_seed(seed)
@@ -105,10 +111,21 @@ class XVLMBase(nn.Module):
         if not self.config.fix_temp:
             self.temp.fill_(self.config.temp)
 
-    def get_vision_embeds(self, image: torch.Tensor, generator=None):
+    def get_vision_embeds(self, image: torch.Tensor, generator=None, image_atts=None,
+                          idx_to_group_img=None):
         """NHWC image (float, or uint8 normalised on the device) ->
-        (embeds (B, S+1, C), atts (B, S+1))."""
+        (embeds (B, S+1, C), atts (B, S+1)). With ``idx_to_group_img``
+        (B_r,) and the region bitmaps ``image_atts`` (B_r, S+1), the region
+        stream's rows of the images: (region rows with the region-masked
+        pooled slot, ``image_atts``, the full rows for the bbox head)."""
+        if idx_to_group_img is not None and image_atts is None:
+            raise NotImplementedError(
+                "idx_to_group_img without region bitmaps (grounding) comes with "
+                "ROADMAP item A6")
         embeds = self.vision_encoder(image, generator)
+        if idx_to_group_img is not None:
+            region, full = grouped_image_embeds(embeds, idx_to_group_img, image_atts)
+            return region, image_atts, full
         atts = torch.ones(embeds.shape[:2], dtype=torch.int32, device=embeds.device)
         return embeds, atts
 
@@ -118,10 +135,11 @@ class XVLMBase(nn.Module):
 
     def get_cross_embeds(self, image_embeds, image_atts, text_ids=None,
                          text_embeds=None, text_atts=None, generator=None,
-                         encoder_gather_idx=None):
+                         encoder_gather_idx=None, deterministic: bool = False):
         """The fusion stack over the text rows; ``encoder_gather_idx`` (B,)
         names the row of ``image_embeds`` (the unique images) each text row
-        attends to, with ``image_atts`` already per text row."""
+        attends to, with ``image_atts`` already per text row.
+        ``deterministic`` turns dropout and drop-path off in training mode."""
         if text_atts is None:
             raise ValueError("get_cross_embeds requires text_atts")
         # pad the image stream to a multiple of 8 (197 -> 200) with masked
@@ -136,14 +154,16 @@ class XVLMBase(nn.Module):
                                      encoder_hidden_states=image_embeds,
                                      encoder_attention_mask=image_atts,
                                      mode="fusion", generator=generator,
-                                     encoder_gather_idx=encoder_gather_idx)
+                                     encoder_gather_idx=encoder_gather_idx,
+                                     deterministic=deterministic)
         if text_ids is None:
             raise ValueError("get_cross_embeds requires text_ids or text_embeds")
         return self.text_encoder(text_ids, attention_mask=text_atts,
                                  encoder_hidden_states=image_embeds,
                                  encoder_attention_mask=image_atts,
                                  mode="multi_modal", generator=generator,
-                                 encoder_gather_idx=encoder_gather_idx)
+                                 encoder_gather_idx=encoder_gather_idx,
+                                 deterministic=deterministic)
 
     def get_features(self, image_embeds=None, text_embeds=None):
         """L2-normalised CLS projection (fp32) of the one stream given."""
@@ -278,3 +298,40 @@ class XVLMBase(nn.Module):
                                       mode="multi_modal", generator=dropout_generator)
         return self.text_encoder.mlm_head(cross, masked_pos, self._tied_table(),
                                           masked_ids)
+
+    # ---------- the region stream's box losses ----------
+
+    def predict_bbox(self, image_embeds, text_embeds, text_atts) -> torch.Tensor:
+        """The fusion stack's CLS over the full image rows (an all-ones image
+        mask) -> bbox head -> sigmoid cxcywh, fp32 (reference
+        xvlm.py:910-925). The fusion pass runs without dropout, in training
+        too, as the JAX ``predict_bbox`` runs it deterministic."""
+        image_atts = torch.ones(image_embeds.shape[:2], dtype=torch.int32,
+                                device=image_embeds.device)
+        cls = self.get_cross_embeds(image_embeds, image_atts, text_embeds=text_embeds,
+                                    text_atts=text_atts, deterministic=True)[:, 0, :]
+        return torch.sigmoid(self.bbox_head(cls).float())
+
+    @staticmethod
+    def get_bbox_loss(output_coord, target_bbox, is_image=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(L1, 1 - GIoU), each summed over the rows and divided by the rows
+        kept: ``is_image`` rows (full-image captions) are left out. A row
+        whose predicted or target box is degenerate adds 0 to the GIoU loss
+        (README deviation 4: the reference zeroes the whole batch's)."""
+        output_coord = output_coord.float()
+        target_bbox = target_bbox.float()
+        loss_l1 = (output_coord - target_bbox).abs()
+        b1 = box_ops.box_cxcywh_to_xyxy(output_coord)
+        b2 = box_ops.box_cxcywh_to_xyxy(target_bbox)
+        degenerate = (b1[:, 2:] < b1[:, :2]).any(dim=-1) | (b2[:, 2:] < b2[:, :2]).any(dim=-1)
+        giou = box_ops.elementwise_generalized_box_iou(b1, b2)
+        loss_giou = torch.where(degenerate, torch.zeros_like(giou), 1.0 - giou)
+        if is_image is None:
+            num = output_coord.shape[0]
+        else:
+            keep = 1.0 - is_image.float()
+            num = keep.sum().clamp(min=1.0)
+            loss_l1 = loss_l1 * keep[:, None]
+            loss_giou = loss_giou * keep
+        return loss_l1.sum() / num, loss_giou.sum() / num

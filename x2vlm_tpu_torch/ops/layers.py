@@ -184,17 +184,18 @@ class Mlp(nn.Module):
 
 
 class DropPath(nn.Module):
-    """Stochastic depth per sample: the identity in eval; in training each row
-    is dropped with probability ``rate`` (drawn from ``generator``) and the
-    kept rows are scaled by 1/(1-rate)."""
+    """Stochastic depth per sample: the identity in eval and with
+    ``deterministic``; in training each row is dropped with probability
+    ``rate`` (drawn from ``generator``) and the kept rows are scaled by
+    1/(1-rate)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        if self.rate == 0.0 or not self.training:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                deterministic: bool = False) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training or deterministic:
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
@@ -229,7 +230,8 @@ class MultiHeadAttention(nn.Module):
     ``key`` / ``value``. ``out_proj=True`` adds the output projection
     ``proj`` (BEiT-2); BERT keeps its output projection outside, in
     ``attention.output.dense``. Without ``proj`` the module returns the
-    merged heads, (B, Sq, H*D).
+    merged heads, (B, Sq, H*D). ``deterministic`` turns the attention and
+    output dropout off in training mode (the JAX module's argument).
 
     ``kv_gather_idx`` (B,) says which row of ``kv`` each query row attends
     to: ``kv`` then holds only the unique K/V sources (the fusion pass of
@@ -322,7 +324,7 @@ class MultiHeadAttention(nn.Module):
                 key_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 kv_gather_idx: Optional[torch.Tensor] = None,
-                cache=None) -> torch.Tensor:
+                cache=None, deterministic: bool = False) -> torch.Tensor:
         if cache is not None:
             raise NotImplementedError(
                 "the static decode cache (captioning) arrives with a later slice")
@@ -333,13 +335,14 @@ class MultiHeadAttention(nn.Module):
         Skv = kv_src.shape[1]
         H, D = self.num_heads, self.head_dim
         scale = D ** -0.5
-        drop = self.attn_dropout_rate if self.training else 0.0
+        training = self.training and not deterministic
+        drop = self.attn_dropout_rate if training else 0.0
 
         if bias is None and tiny_supported(Sq, Skv, D):
             q, k, v = self._gather(*self._project(x, kv_src, 1.0), kv_gather_idx)
             out = tiny_block_attention(q, k, v, num_heads=H, key_mask=key_mask,
                                        dropout_rate=drop, generator=generator,
-                                       training=self.training, scale=scale)
+                                       training=training, scale=scale)
         else:
             # float: the scale is folded into the query weight; int8: it is
             # applied by the attention core
@@ -355,14 +358,14 @@ class MultiHeadAttention(nn.Module):
                 out = dot_product_attention(
                     q, k, v, bias=bias, key_mask=key_mask, scale=core_scale,
                     dropout_rate=drop, generator=generator,
-                    training=self.training)
+                    training=training)
             out = out.transpose(1, 2).reshape(B, Sq, H * D)
         if self.proj is not None:
             if self.quant:
                 out = qdense(out, self.proj.weight, self.proj.bias, dtype=self.dtype)
             else:
                 out = dense(out, self.proj.weight, self.proj.bias, self.dtype)
-            out = dropout(out, self.proj_dropout_rate, generator, self.training)
+            out = dropout(out, self.proj_dropout_rate, generator, training)
         return out
 
 

@@ -19,14 +19,16 @@ process, one card.
   launcher saved.
 - ``--resume`` restores the train state in ``output_dir/ckpt`` (parameters,
   AdamW ``mu`` / ``nu`` / ``count``, step) and, for pretraining, the data
-  cursors of the streams, so the run continues where it stopped.
+  cursors of the streams (image, aux, region, text), so the run continues
+  where it stopped.
 - ``--evaluate`` evaluates only (retrieval).
 
 The config is validated against the JAX package's key registry
 (core/config_schema.py). What the port does not run raises, naming its
-ROADMAP item: every other task (A6, A8), the region / video / parallel-text
-streams (A5, A8), other vision towers and converters (A7), and, as in the
-JAX launcher, ``mixed_in_batch: false`` and ``tokenized: true``.
+ROADMAP item: every other task (A6, A8), the video / parallel-text and
+multilingual (``languages``) streams (A8), other vision towers and
+converters (A7), and, as in the JAX launcher, ``mixed_in_batch: false``
+and ``tokenized: true``.
 """
 
 from __future__ import annotations
@@ -63,8 +65,7 @@ UNPORTED = {"xretrieval": "A8", "wit": "A8", "xflickrco": "A8", "video_retrieval
             "vqa": "A6", "nlvr": "A6", "grounding": "A6", "captioning": "A6",
             "classification": "A6"}
 # pretraining streams the port does not build: (config file key, block) -> item
-UNPORTED_STREAMS = {("train_file_regions", "regions"): "A5",
-                    ("train_file_videos", "videos"): "A8",
+UNPORTED_STREAMS = {("train_file_videos", "videos"): "A8",
                     ("train_file_videos_aux", "videos"): "A8",
                     ("train_file_mtext", "mtexts"): "A8"}
 
@@ -299,24 +300,31 @@ class _Tracked:
         return batch
 
 
-def _stream_pairs(name: str, stream, rng: random.Random, batch_size: int, seed: int):
-    """(batch, cursor after it) pairs of ``stream``; the stream's ``rng``
-    (transform, masking and caption draws) is seeded from the cursor at
-    each batch's start, so a batch depends only on where it starts and a
-    resumed run reads what the uninterrupted one would."""
+def _stream_pairs(name: str, stream, rngs, n_samples: int, seed: int, batch_fn=collate):
+    """(batch, cursor after it) pairs of ``stream``, a batch being
+    ``batch_fn`` of ``n_samples`` samples. Each of ``rngs`` (the stream's
+    transform, masking and caption draws; the region stream's box
+    transform and collate) is seeded from the cursor at each batch's start,
+    so a batch depends only on where it starts and a resumed run reads what
+    the uninterrupted one would."""
     it = iter(stream)
     while True:
         s = stream.reader.state()
-        rng.seed(f"{seed}/{name}/{s['epoch']}/{s['file_idx']}/{s['line_idx']}")
-        samples = [next(it) for _ in range(batch_size)]
-        yield collate(samples), stream.reader.state()
+        at = f"{seed}/{name}/{s['epoch']}/{s['file_idx']}/{s['line_idx']}"
+        for i, rng in enumerate(rngs):
+            rng.seed(at if i == 0 else f"{at}/{i}")
+        samples = [next(it) for _ in range(n_samples)]
+        yield batch_fn(samples), stream.reader.state()
 
 
 def run_pretrain(args, cfg, device):
     """Mixed-stream pretraining: the image-text stream (+ the aux clean-data
-    replacement) and the text stream (reference Pretrain.py:255-423)."""
+    replacement), the region-text stream and the text stream (reference
+    Pretrain.py:255-423)."""
     from x2vlm_tpu_torch.data import transforms as T
-    from x2vlm_tpu_torch.data.pretrain import ImageTextStream, TextStream
+    from x2vlm_tpu_torch.data.pretrain import (
+        ImageTextStream, RegionTextStream, TextStream, region_collate,
+    )
     from x2vlm_tpu_torch.data.streaming import DistLineReader
     from x2vlm_tpu_torch.data.tokenization import TextPreprocessor, build_tokenizer
     from x2vlm_tpu_torch.tasks.pretrain import PretrainStreams, pretrain_loop
@@ -332,7 +340,7 @@ def run_pretrain(args, cfg, device):
             raise NotImplementedError(f"{block}.languages (multilingual streams) comes "
                                       f"with ROADMAP queue item A8")
     for (key, block), item in UNPORTED_STREAMS.items():
-        if cfg.get(key) or (key == "train_file_regions" and cfg.get(block)):
+        if cfg.get(key):
             raise NotImplementedError(f"the {block} stream ({key}) comes with ROADMAP "
                                       f"queue item {item}; drop it from the config")
 
@@ -360,12 +368,14 @@ def run_pretrain(args, cfg, device):
     streams: Dict[str, _Tracked] = {}
     counted = []
 
-    def add(name, block, paths, make):
-        rng = random.Random()
+    def add(name, block, paths, make, n_samples=None, batch_fn=collate, rngs=None):
+        """``rngs[0]`` is the stream's, the others its transform's own."""
+        rngs = rngs or (random.Random(),)
+        n = n_samples or block.get("batch_size", 128)
         reader = DistLineReader(paths, seed=args.seed, start_state=data_state.get(name))
-        stream = make(reader, preprocessor(rng), rng, block.get("batch_size", 128))
+        stream = make(reader, preprocessor(rngs[0]), rngs[0], n)
         counted.append(stream)
-        pairs = _stream_pairs(name, stream, rng, block.get("batch_size", 128), args.seed)
+        pairs = _stream_pairs(name, stream, rngs, n, args.seed, batch_fn)
         streams[name] = _Tracked(pairs, max(1, int(block.get("num_workers", 2))),
                                  data_state.get(name))
 
@@ -381,6 +391,27 @@ def run_pretrain(args, cfg, device):
         aux = dict(icfg, caption_key=icfg.get("aux_caption_key",
                                               icfg.get("caption_key", "caption")))
         add("aux", aux, cfg["train_file_aux"], image_stream(aux))
+    rcfg = cfg.get("regions")
+    if rcfg and cfg.get("train_file_regions"):
+        # the JAX launcher's PIL path: the crop and flip box-aware in the
+        # stream, the augmentation by box_transform with its own rng; a batch
+        # is region_collate of max_images samples, drawing from the stream's rng
+        region_rng, box_rng = random.Random(), random.Random()
+        max_images = rcfg.get("max_images", 50)
+
+        def region_stream(reader, pre, rng, n):
+            return RegionTextStream(
+                reader, pre, T.box_transform(box_rng), image_res=mcfg.vision.image_res,
+                patch_size=mcfg.vision.patch_size, max_regions=rcfg.get("max_regions", 5),
+                min_perc_in_image=rcfg.get("min_perc_in_image", 0.5),
+                careful_hflip=rcfg.get("careful_hflip", True),
+                image_key=rcfg.get("image_key", "binary"), rng=rng,
+                max_consecutive_broken=n)
+
+        add("region", rcfg, cfg["train_file_regions"], region_stream, n_samples=max_images,
+            batch_fn=lambda samples: region_collate(samples, rcfg.get("batch_size", 128),
+                                                    max_images, region_rng),
+            rngs=(region_rng, box_rng))
     tcfg = cfg.get("texts")
     if tcfg and cfg.get("train_file_text"):
         add("text", tcfg, cfg["train_file_text"],
@@ -389,10 +420,13 @@ def run_pretrain(args, cfg, device):
                 max_consecutive_broken=bs))
 
     ps = PretrainStreams(
-        image=streams["image"], text=streams.get("text"), aux=streams.get("aux"),
-        image_weight=icfg.get("iter_perc", 1.0),
+        image=streams["image"], region=streams.get("region"), text=streams.get("text"),
+        aux=streams.get("aux"), image_weight=icfg.get("iter_perc", 1.0),
+        region_weight=(rcfg or {}).get("iter_perc", 1.0),
         text_weight=(tcfg or {}).get("iter_perc", 1.0),
-        aux_perc=cfg.get("aux_iter_perc", 0.0), rng=random.Random(args.seed))
+        aux_perc=cfg.get("aux_iter_perc", 0.0),
+        regions_use_bbox_only=cfg.get("regions_use_bbox_only", False),
+        rng=random.Random(args.seed))
     ckpt_dir = os.path.join(args.output_dir, "ckpt")
 
     def checkpoint_fn(step):
@@ -404,7 +438,8 @@ def run_pretrain(args, cfg, device):
         logger = pretrain_loop(
             model, optimizer, ps, num_steps=total_steps, seed=args.seed,
             to_device=lambda b: to_device(b, device),
-            stop_calc_itm_after=cfg.get("stop_calc_itm"), start_step=start_step,
+            stop_calc_itm_after=cfg.get("stop_calc_itm"),
+            calc_image_bbox_loss=cfg.get("calc_image_bbox_loss", False), start_step=start_step,
             checkpoint_fn=checkpoint_fn, checkpoint_every=cfg.get("ckpt_frequent_step", 50000),
             epoch_steps=steps_per_epoch, epoch_save_frequent=int(cfg.get("ckpt_frequent", 1)),
             extra_metrics=lambda: {"broken": float(sum(s.broken for s in counted))})

@@ -8,7 +8,11 @@ As in the JAX package:
 - ``aux_iter_perc`` is a probability: with it the image batch is replaced
   by a clean-data (aux) batch; when an aux stream exists, noisy image
   batches never compute the matching loss;
-- ``stop_calc_itm`` turns the matching loss off from that step on;
+- ``stop_calc_itm`` turns the matching loss off from that step on, on the
+  image and the region streams;
+- the region stream adds the bbox losses (L1 + GIoU); with
+  ``regions_use_bbox_only`` its ITC / ITM / MLM weigh 0, and
+  ``calc_image_bbox_loss`` keeps its full-image rows in the bbox losses;
 - the streams' gradients are summed in ``.grad`` and applied in one
   optimizer step (``train/trainer.py`` ``make_grad_fn`` /
   ``make_apply_grads``).
@@ -16,8 +20,7 @@ As in the JAX package:
 Randomness: each step draws its hard negatives and dropout masks from
 generators seeded by (seed, step, stream), as the JAX loop folds the step
 into its key, so a resumed run draws what the uninterrupted one would.
-The region, video and parallel-text streams come with ROADMAP items A5 and
-A8.
+The video and parallel-text streams come with ROADMAP item A8.
 """
 
 from __future__ import annotations
@@ -35,19 +38,25 @@ __all__ = ["PretrainStreams", "pretrain_loop", "step_generators"]
 
 
 class PretrainStreams:
-    """Per-stream infinite batch iterators, their loss weights (``iter_perc``)
-    and the aux replacement probability (``aux_iter_perc``)."""
+    """Per-stream infinite batch iterators, their loss weights (``iter_perc``),
+    the aux replacement probability (``aux_iter_perc``) and
+    ``regions_use_bbox_only``."""
 
-    def __init__(self, image: Iterator, text: Optional[Iterator] = None,
-                 aux: Optional[Iterator] = None, image_weight: float = 1.0,
+    def __init__(self, image: Iterator, region: Optional[Iterator] = None,
+                 text: Optional[Iterator] = None, aux: Optional[Iterator] = None,
+                 image_weight: float = 1.0, region_weight: float = 1.0,
                  text_weight: float = 1.0, aux_perc: float = 0.0,
+                 regions_use_bbox_only: bool = False,
                  rng: Optional[random.Random] = None):
         self.image = image
+        self.region = region
         self.text = text
         self.aux = aux
         self.image_weight = image_weight
+        self.region_weight = region_weight
         self.text_weight = text_weight
         self.aux_perc = aux_perc
+        self.regions_use_bbox_only = regions_use_bbox_only
         self.rng = rng or random.Random(0)
 
 
@@ -70,6 +79,7 @@ def pretrain_loop(
     seed: int,
     to_device: Callable[[Dict], Dict],
     stop_calc_itm_after: Optional[int] = None,
+    calc_image_bbox_loss: bool = False,
     start_step: int = 0,
     log_every: int = 50,
     logger: Optional[MetricLogger] = None,
@@ -82,6 +92,8 @@ def pretrain_loop(
     """Run mixed iterations from ``start_step`` (resume) to ``num_steps``.
 
     ``to_device`` turns a host batch (numpy) into the model's tensors.
+    ``calc_image_bbox_loss`` keeps the region stream's full-image rows in
+    the bbox losses (its ``is_image`` zeroed, the shape kept).
     ``checkpoint_fn(step)`` runs every ``checkpoint_every`` steps
     (``ckpt_frequent_step``), at every ``epoch_save_frequent``-th epoch
     boundary of ``epoch_steps`` steps (``ckpt_frequent``) and after the last
@@ -98,6 +110,14 @@ def pretrain_loop(
                 model, loss_scale=weight, apply_kwargs={"ret_match_loss": itm})
         return image_grads[(weight, itm)]
 
+    # bbox-only regions: ITC / ITM / MLM weigh 0 (reference Pretrain.py:216-220)
+    region_weights = ({"loss_itc": 0.0, "loss_itm": 0.0, "loss_mlm": 0.0}
+                      if s.regions_use_bbox_only else None)
+    grad_region = {itm: make_grad_fn(model, loss_scale=s.region_weight,
+                                     loss_weights=region_weights,
+                                     apply_kwargs={"ret_bbox_loss": True,
+                                                   "ret_match_loss": itm})
+                   for itm in (True, False)}
     grad_text = make_grad_fn(model, loss_scale=s.text_weight)
     apply_grads = make_apply_grads(optimizer)
     for p in optimizer.params:
@@ -117,6 +137,12 @@ def pretrain_loop(
         losses = image_grad_fn(s.image_weight, itm)(
             to_device(batch), *step_generators(device, seed, it, 0))
         metrics = {f"image_{k}": v for k, v in losses.items()}
+        if s.region is not None:
+            rb = dict(next(s.region))
+            if calc_image_bbox_loss:
+                rb["is_image"] = rb["is_image"] * 0
+            losses = grad_region[calc_itm](to_device(rb), *step_generators(device, seed, it, 1))
+            metrics.update({f"region_{k}": v for k, v in losses.items()})
         if s.text is not None:
             tb = dict(to_device(next(s.text)))
             tb["image"] = None

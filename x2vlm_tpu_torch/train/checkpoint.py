@@ -10,9 +10,11 @@ the image resolution differs (:func:`interp_rel_pos_table`, the
 reference's geometric-grid bicubic scheme, an own numpy / scipy copy of the
 JAX ``_interp_rel_pos_table``), checks shapes and loads with
 ``load_state_dict(strict=False)``. Keys the model has no place for are
-reported as unexpected: the bbox head (ROADMAP A5), the tied MLM decoder
-(the word-embedding table), the static relative-position index (rebuilt
-from the window) and, in a retrieval model, the MLM head. Parameters the
+reported as unexpected: the tied MLM decoder (the word-embedding table),
+the static relative-position index (rebuilt from the window) and, in a
+retrieval model, the MLM and bbox heads (its JAX counterpart has neither:
+flax creates a head's parameters only where the task calls it). The bbox
+head ``bbox_head.{0,1,3}`` loads into a pretraining model. Parameters the
 file lacks stay fresh; their names (inside the composition core) are
 returned for the optimizer's ``lr_mult`` group, and :func:`import_report`
 names the subtrees left wholly fresh, as the JAX launcher's
