@@ -18,11 +18,15 @@ Phases (any failure exits non-zero and prints no result line):
    builds, 16 to 128) at small shapes; time the kernel, its plain version and
    one PyTorch library call (SDPA forward or backward) with CUDA events,
    the card running ahead of the host (the flash forward at B=128, at the
-   step's B=32 and at the region stream's B=50 images; the flash backward
-   at B=32 and B=50 beside two SDPA backwards, dq/dk/dv with the bias as a
-   constant and all four gradients; dBias must be the same bit for bit in
-   two launches; the tiny kernels also at the region stream's 256 / 512
-   rows, its 40 x 200 calls with region bitmaps as key masks). The tiny
+   step's B=32 and at the region stream's B=50 images, and at 384 px
+   (S=577) at the grounding step's B=20, the 32 images of the NLVR2 step
+   and the 64 of the NLVR2 eval; the flash backward at B=32 and B=50, and
+   at S=577 at B=20 and B=32, beside two SDPA backwards, dq/dk/dv with the
+   bias as a constant and all four gradients; dBias must be the same bit
+   for bit in two launches; the tiny kernels at every 40 x 40 and 40 x 200
+   shape of the main paths, with serving or training operands as the path
+   gives them, the region stream's 40 x 200 calls with region bitmaps as
+   key masks). The tiny
    kernels (``tiny_route``) and
    the four flash kernels (``flash_route``) have two routes: the main
    paths' bf16 D=64 launches must take the tensor-core route, fp32 and bf16
@@ -72,7 +76,9 @@ Phases (any failure exits non-zero and prints no result line):
    bbox L1, GIoU) within 0.05 + 2%, gradient cosines >= 0.99 in the vision
    tower, a fusion layer and the ITM and bbox heads, and each bf16 40 x 200
    call of its ITM + MLM fusion pass (region bitmaps as key masks) held on
-   the model's operands to the plain version, within half the bf16 rule;
+   the model's operands to the plain version, within half the bf16 rule
+   (the box targets off the L1 and GIoU losses' kinks, ``off_kink_targets``;
+   ``tools/region_kink_witness.py`` reads why);
 7. the launcher's pretraining task, ``x2vlm_tpu_torch.run.main`` in process
    on data written to a temporary directory (a 30,522-entry BERT vocab
    drawn from ``--seed``, 64 base64 PNG image-text lines of 256 px, 64
@@ -110,21 +116,57 @@ Phases (any failure exits non-zero and prints no result line):
    the ITM scores within phase 3's rule, the 40 x 584 launches key-tiled
    on their route (``tools/fusion384_faults.py`` reads this hold on
    copies with planted faults); fine-tune step times and the eval's wall
-   time are printed.
+   time are printed;
+9. the launcher's grounding and NLVR2 fine-tunes at 384 px from phase 7's
+   ``.th``: ``configs/finetune/refcoco_grounding_base.yaml`` and
+   ``nlvr_base.yaml`` at their own batch sizes (20 and 16 a step, 32 an
+   eval call), the data paths pointed at phase 8's PNGs (RefCOCO-style
+   lines with pixel boxes, some texts naming left or right, a
+   ``refs_file`` over the val / testA / testB splits; NLVR2 lines with two
+   images and a True / False label), cut to 4 fine-tune steps and 64 eval
+   lines each. Checked: finite losses and eval metrics (``val_acc`` per
+   split, ``accuracy``); the import (grounding: nothing missing, its bbox
+   head from the ``.th``; NLVR2: only ``cls_head`` fresh); the launches of
+   each step and eval call (a grounding step: 12 of each flash kernel at
+   B=20, tiny forward and backward 18 at 20 x 40 x 40 and 6 at 20 x 40 x
+   584 without a multiplier; an NLVR2 step: 12 of each flash kernel at 32
+   images, tiny 24 at 16 x 40 x 40 and 12 at 16 x 40 x 584; an eval call
+   at batch 32: 12 flash forwards, tiny 18 + 6 or 24 + 12), every flash
+   launch on the tensor-core route, every 40 x 584 launch key-tiled, no
+   plain attention; grounding's ``--resume``, whose restored parameters
+   and AdamW state must equal the saved ones bit for bit; and the
+   fine-tuned weights on 2 rows with dropout off, card bf16 against the
+   port's CPU fp32 path: grounding's boxes within 0.02, NLVR2's logits
+   within 0.05 + 5% of their scale, the losses within 0.05 + 2%, gradient
+   cosines >= 0.99 (the vision tower, a fusion layer, the task's head),
+   and each bf16 40 x 584 call of the card's pass into the tiny forward
+   and backward held on the model's operands to the plain version (the
+   backward's taking its row sums from the forward's output, as the kernel
+   does), within half the bf16 rule. Step times (CUDA events and wall), the
+   eval's wall seconds and the peak device memory of each are printed.
 
-The 40 x 584 shapes of phase 8 (the fine-tune's 96-row ITM pass with
-dropout, the 32-row batch, the 1024-row rerank) are held in phase 2 too:
+The 40 x 584 shapes of phases 8 and 9 (the fine-tune's 96-row ITM pass
+with dropout, the 1024- and 512-row rerank, grounding's 20-row bbox pass
+with probabilities and no multiplier, NLVR2's 16-row passes with dropout,
+the 32-row evals) are held in phase 2 too:
 K5 and K6 on the key-tiled walk against their plain version, timed beside
 SDPA, with the walk rule and its shared-memory formulas held to Python's
 and contract cases of the walk on both routes.
 
+Every attention launch of phases 3 and 5-9 is counted by kernel, shape and
+operands (serving: no multiplier, no probabilities; training) and must fall
+on a shape phase 2 checked and timed (``FLASH_MAIN_SHAPES``,
+``TINY_MAIN_SHAPES``, ``TILED_MAIN_SHAPES``); the kernels line gives each
+such shape its launches by path.
+
 Prints the card's name and power limit (``nvidia-smi``), one JSON line of
-kernels (with their launches on the three main paths), and as its last line
+kernels (with their launches on the main paths), and as its last line
 ``{"ok": true, "device": {...}}``. ``--profile DIR`` also writes
 torch.profiler tables of one round of requests, one int8 round, one train
 step and one region-stream call of phase 7 to ``DIR/chip_smoke_profile.txt``,
 ``DIR/chip_smoke_int8_profile.txt``, ``DIR/chip_smoke_train_profile.txt``
-and ``DIR/chip_smoke_region_profile.txt`` (and phase 8's two), each with a
+and ``DIR/chip_smoke_region_profile.txt`` (and phase 8's two, and phase
+9's ``chip_smoke_{grounding,nlvr}_{step,eval}_profile.txt``), each with a
 last line of the port kernels' (attention and K7) device time and
 launches.
 """
@@ -141,6 +183,7 @@ import io
 import json
 import math
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -166,6 +209,7 @@ from x2vlm_tpu_torch.ops.int8_matmul import (
     GEMM_DESIGN, GEMM_PLAN, gemm_smem_bytes, int8_matmul, int8_matmul_reference, int8_scale,
     quantize_act, quantize_act_reference, typed_lib as int8_typed_lib,
 )
+from x2vlm_tpu_torch.ops import box as box_ops
 from x2vlm_tpu_torch.ops.attention import dot_product_attention
 from x2vlm_tpu_torch.ops.quant import quantize_weight
 from x2vlm_tpu_torch.ops.tiny_attention import (
@@ -204,6 +248,10 @@ INT8_REPLACES = "x2vlm_tpu/ops/int8_matmul.py:63"
 # GEMM's is GEMM_DESIGN)
 INT8_QUANT_DESIGN = "row_in_registers"
 TRAIN_BATCH, N_MASKED = 32, 12     # the pretraining step (bench.py:104-121)
+# the shipped fine-tune configs of phase 9: refcoco_grounding_base.yaml's
+# batch (its vision pass) and nlvr_base.yaml's (two images a row: its vision
+# pass runs 2 x 16 = 32 images); both evaluate at batch 32
+GROUNDING_BATCH, NLVR_BATCH, FT_EVAL_BATCH = 20, 16, 32
 # the region stream of configs/pretrain/x2vlm_base_4m.yaml: its images a
 # batch (max_images) and its region rows (batch_size)
 REGION_IMAGES, REGION_ROWS = 50, 128
@@ -320,15 +368,24 @@ def expect_flash_fwd_route(tag, before, dtype, D, n=1) -> None:
         fail(f"{tag}: flash forward launches by route {got}, expected {want}")
 
 
+# (B, S, with a backward) of the flash checks, every shape a main path
+# launches: serving at B=128, the pretraining step (and phase 7's image
+# stream) at B=32 and the region stream at B=50 at 224 px (S=197); at 384 px
+# (S=577) the grounding step's B=20, the 32 images of the NLVR2 step, of
+# phase 8's fine-tune step and of the grounding eval, and the 64 of the
+# NLVR2 eval and of phase 8's eval
+FLASH_MAIN_SHAPES = ((BATCH, N_IMG, False), (TRAIN_BATCH, N_IMG, True),
+                     (REGION_IMAGES, N_IMG, True), (GROUNDING_BATCH, N_IMG_384, True),
+                     (2 * NLVR_BATCH, N_IMG_384, True), (2 * FT_EVAL_BATCH, N_IMG_384, False))
+
+
 def check_flash(gen, dev):
-    """K1 at the serving (B=128), training (B=32) and region-stream (B=50)
-    shapes in bf16 (checked and timed with the card ahead of the host,
-    beside SDPA), then over the contract at small shapes on both routes.
-    Returns an entry per shape."""
+    """K1 at ``FLASH_MAIN_SHAPES`` in bf16 (checked and timed with the card
+    ahead of the host, beside SDPA), then over the contract at small shapes
+    on both routes. Returns an entry per shape."""
     entries = []
-    H, S, D = 12, 197, 64
-    for B, path in ((BATCH, "serving"), (TRAIN_BATCH, "train_step"),
-                    (REGION_IMAGES, "region")):
+    H, D = 12, 64
+    for B, S, _ in FLASH_MAIN_SHAPES:
         q, k, v, bias = flash_inputs(gen, dev, B, H, S, S, D, torch.bfloat16, (1, H, S, S))
         before = dict(flash_attention_fwd.launches_by_route)
         out, lse = flash_attention_fwd(q, k, v, bias)
@@ -350,8 +407,8 @@ def check_flash(gen, dev):
             route="cuda", source="x2vlm_tpu_torch/csrc/flash_attention_fwd.cu",
             replaces="x2vlm_tpu/ops/flash_attention.py:174", max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            flash_route=route, path=path))
-        log(f"time flash_attention_fwd B{B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            flash_route=route, key=(B, S, S)))
+        log(f"time flash_attention_fwd B{B} S{S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         del q, k, v, bias, out, lse, p_out, p_lse, t_out, t_lse
 
@@ -524,43 +581,66 @@ def tiny_entry(name, shape, key, err, ms, plain_ms, b_ms, b_by, lib_ms, **extra)
                 tiny_route=TENSOR_CORE, **extra)
 
 
+# (label, B, Sq, Skv, training operands, key mask) of the resident tiny
+# checks: every 40 x 40 and 40 x 200 shape a main path launches. Serving
+# operands (no multiplier, no probabilities): the serving requests at
+# B=128, phase 8's eval (its 256 texts a call, the ITM rerank's 1024 and 512
+# rows) and phase 9's evals (32 rows). Training operands (a dropout
+# multiplier, the probabilities saved): the pretraining step (the text pass
+# over 2 x 32 rows, the fusion passes over 4 x 32) and phase 7's text stream
+# (32), the region stream (2, 4 and 1 x 128 rows), phase 8's fine-tune step
+# (32; ITM 3 x 32) and phase 9's steps (grounding 20, NLVR2 16)
+TINY_MAIN_SHAPES = (
+    ("text self-attention", BATCH, TEXT_LEN, TEXT_LEN, False, "pad"),
+    ("fusion cross-attention", BATCH, TEXT_LEN, 200, False, "pad"),
+    ("retrieval eval text self-attention", 256, TEXT_LEN, TEXT_LEN, False, "pad"),
+    ("ITM rerank fusion self-attention", RERANK_BATCH, TEXT_LEN, TEXT_LEN, False, "pad"),
+    ("ITM rerank fusion self-attention, texts to images", RERANK_BATCH // 2, TEXT_LEN,
+     TEXT_LEN, False, "pad"),
+    ("grounding / NLVR2 eval self-attention", FT_EVAL_BATCH, TEXT_LEN, TEXT_LEN, False, "pad"),
+    ("fusion self-attention", BATCH, TEXT_LEN, TEXT_LEN, True, "pad"),
+    ("fusion cross-attention", BATCH, TEXT_LEN, 200, True, "pad"),
+    ("text self-attention, clean and masked rows", 2 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN, True,
+     "pad"),
+    ("text self-attention", TRAIN_BATCH, TEXT_LEN, TEXT_LEN, True, "pad"),
+    ("fine-tune ITM fusion self-attention", 3 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN, True, "pad"),
+    ("grounding step self-attention", GROUNDING_BATCH, TEXT_LEN, TEXT_LEN, True, "pad"),
+    ("NLVR2 step self-attention", NLVR_BATCH, TEXT_LEN, TEXT_LEN, True, "pad"),
+    ("region text self-attention", 2 * REGION_ROWS, TEXT_LEN, TEXT_LEN, True, "pad"),
+    ("region fusion self-attention", 4 * REGION_ROWS, TEXT_LEN, TEXT_LEN, True, "pad"),
+    ("region fusion cross-attention, region key masks", 4 * REGION_ROWS, TEXT_LEN, 200, True,
+     "region"))
+
+
 def check_tiny(gen, dev):
-    """K5 at the serving path's two shapes in bf16, with the training
-    operands at 40x40 and 40x200, and at the region stream's three shapes
-    of its own (the 40x200 one with region bitmaps as key masks), each
-    checked and timed, the card running ahead of the host; then over the
-    contract at small shapes on both routes."""
+    """K5 at ``TINY_MAIN_SHAPES`` in bf16, each checked and timed, the card
+    running ahead of the host; with training operands also checked with the
+    probabilities saved and no multiplier (the deterministic passes: the
+    region stream's and grounding's bbox pass); then over the contract at
+    small shapes on both routes."""
     entries = []
     H, D = 12, 64
     scale = D ** -0.5
-    for label, B, Sq, Skv, train_ops, mask in (
-            ("text self-attention", BATCH, TEXT_LEN, TEXT_LEN, False, "pad"),
-            ("fusion cross-attention", BATCH, TEXT_LEN, 200, False, "pad"),
-            ("fusion self-attention, training operands", BATCH, TEXT_LEN, TEXT_LEN, True,
-             "pad"),
-            ("fusion cross-attention, training operands", BATCH, TEXT_LEN, 200, True, "pad"),
-            ("region text self-attention, training operands", 2 * REGION_ROWS, TEXT_LEN,
-             TEXT_LEN, True, "pad"),
-            ("region fusion self-attention, training operands", 4 * REGION_ROWS, TEXT_LEN,
-             TEXT_LEN, True, "pad"),
-            ("region fusion cross-attention, region key masks, training operands",
-             4 * REGION_ROWS, TEXT_LEN, 200, True, "region")):
+    for label, B, Sq, Skv, train_ops, mask in TINY_MAIN_SHAPES:
         q, k, v, km, dm = tiny_operands(gen, dev, B, Sq, Skv, H, D, torch.bfloat16,
                                         mask, train_ops)
-        before = dict(tiny_attention_fwd.launches_by_route)
-        out, probs = tiny_attention_fwd(q, k, v, H, km, dm, scale, return_probs=train_ops)
-        expect_route(f"tiny_attention_fwd {label}", tiny_attention_fwd, before,
-                     torch.bfloat16, D)
-        p_out, p_probs = tiny_attention_reference(q, k, v, H, km, dm, scale=scale)
-        t_out, t_probs = tiny_attention_reference(*as_f32(q, k, v), H, km,
-                                                  None if dm is None else dm.float(),
-                                                  scale=scale)
         ops = ("region_key_mask" if mask == "region" else "key_mask") + \
             (" dropout probs" if train_ops else "")
-        tag = f"tiny_attention_fwd {label} B{B} {Sq}x{Skv} H{H} D{D} bf16"
-        err = rule_bf16(tag, out, p_out, t_out)
-        if train_ops:
-            err = max(err, rule_bf16(tag + " probs", probs, p_probs, t_probs))
+        tag = f"tiny_attention_fwd {label} B{B} {Sq}x{Skv} H{H} D{D} {ops} bf16"
+        err = 0.0
+        for mult in ((dm, None) if train_ops else (None,)):
+            before = dict(tiny_attention_fwd.launches_by_route)
+            out, probs = tiny_attention_fwd(q, k, v, H, km, mult, scale, return_probs=train_ops)
+            expect_route(tag, tiny_attention_fwd, before, torch.bfloat16, D)
+            p_out, p_probs = tiny_attention_reference(q, k, v, H, km, mult, scale=scale)
+            t_out, t_probs = tiny_attention_reference(*as_f32(q, k, v), H, km,
+                                                      None if mult is None else mult.float(),
+                                                      scale=scale)
+            t = tag if mult is not None or not train_ops else tag + ", no multiplier"
+            err = max(err, rule_bf16(t, out, p_out, t_out))
+            if train_ops:
+                err = max(err, rule_bf16(t + " probs", probs, p_probs, t_probs))
+        out, probs = tiny_attention_fwd(q, k, v, H, km, dm, scale, return_probs=train_ops)
         ms = time_ms(lambda: tiny_attention_fwd(q, k, v, H, km, dm, scale,
                                                 return_probs=train_ops), host_ahead=True)
         plain_ms = time_ms(lambda: tiny_attention_reference(q, k, v, H, km, dm, scale=scale),
@@ -571,13 +651,13 @@ def check_tiny(gen, dev):
             *views, attn_mask=amask, scale=scale), host_ahead=True)
         b_ms, b_by = bound_ms(nbytes(q, k, v, out, probs, dm) + km.numel(),
                               4.0 * B * H * Sq * Skv * D)
-        log(f"time tiny_attention_fwd {label}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (no dropout, no probabilities), "
-            f"bound {b_ms:.4f} ms ({b_by})")
+        log(f"time tiny_attention_fwd {label} B{B}{' training' if train_ops else ''}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (no dropout, no "
+            f"probabilities), bound {b_ms:.4f} ms ({b_by})")
         entries.append(tiny_entry(
             "tiny_attention_fwd", f"B{B} {Sq}x{Skv} H{H} D{D} {ops} bf16",
             (B, Sq, Skv), err, ms, plain_ms, b_ms, b_by, lib_ms,
-            main_path_launches="train_step" if train_ops else "all"))
+            operands="training" if train_ops else "serving"))
 
     # the rest of the contract, at small shapes: bf16 on the tensor cores
     # (D = 256 on the CUDA cores), fp32 on the CUDA cores
@@ -709,11 +789,11 @@ def expect_flash_bwd_route(tag, before, dtype, D, with_dbias) -> None:
         fail(f"{tag}: launches by route {got}, expected {want}")
 
 
-def _check_flash_bwd_main(gen, dev, B, path):
-    """K2/K3/K4 at (B, 12, 197, 64) with the shared bias, bf16: checked
+def _check_flash_bwd_main(gen, dev, B, S):
+    """K2/K3/K4 at (B, 12, S, 64) with the shared bias, bf16: checked
     against the plain version, dBias bit-identical in two launches, timed.
-    Returns their entries, tagged with ``path``."""
-    H, S, D = 12, 197, 64
+    Returns their entries."""
+    H, D = 12, 64
     q, k, v, bias = flash_inputs(gen, dev, B, H, S, S, D, torch.bfloat16, (1, H, S, S))
     dout = torch.randn(B, H, S, D, generator=gen, device=dev).to(torch.bfloat16)
     out, lse = flash_attention_fwd(q, k, v, bias)
@@ -756,32 +836,34 @@ def _check_flash_bwd_main(gen, dev, B, path):
         b_ms, b_by = bound_ms(read + wbytes, flops)
         lib_ms, lib_cover = (lib_all, "dq+dk+dv+dbias") if kern == "dbias" else \
             (lib_qkv, "dq+dk+dv")
-        log(f"time {name} B{B}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        log(f"time {name} B{B} S{S}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         entries.append(dict(
             name=name, shape=shape, route="cuda",
             source="x2vlm_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces=FLASH_BWD_REPLACES[kern], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             plain_and_library_cover=f"plain: dq+dk+dv+dbias; library: {lib_cover}",
-            flash_route=flash_route(q.dtype, D), path=path))
+            flash_route=flash_route(q.dtype, D), key=(B, S, S)))
     fmt = lambda x: x if x is None else round(x, 4)
-    log(f"time flash_attention_bwd B{B} plain (all three) {plain_ms:.4f} ms, sdpa backward "
+    log(f"time flash_attention_bwd B{B} S{S} plain (all three) {plain_ms:.4f} ms, sdpa backward "
         f"dq+dk+dv {fmt(lib_qkv)} ms, dq+dk+dv+dbias {fmt(lib_all)} ms")
     if lib_qkv:
-        log(f"flash backward B{B} K2 + K3 {ms_of['dq'] + ms_of['dkv']:.4f} ms against sdpa "
+        log(f"flash backward B{B} S{S} K2 + K3 {ms_of['dq'] + ms_of['dkv']:.4f} ms against sdpa "
             f"backward dq+dk+dv {lib_qkv:.4f} ms: factor "
             f"{(ms_of['dq'] + ms_of['dkv']) / lib_qkv:.3f}")
     return entries
 
 
 def check_flash_bwd(gen, dev):
-    """K2/K3/K4 at the training step's shape (B=32) and the region stream's
-    (B=50) in bf16 (checked and timed with the card ahead of the host,
-    beside two SDPA backward yardsticks), then over the contract at small
-    shapes on both routes."""
+    """K2/K3/K4 at the training shapes of ``FLASH_MAIN_SHAPES`` (the
+    pretraining step's B=32 and the region stream's B=50 at S=197, the
+    fine-tune steps' B=20 and B=32 at S=577) in bf16 (checked and timed with
+    the card ahead of the host, beside two SDPA backward yardsticks), then
+    over the contract at small shapes on both routes."""
     entries = []
-    for B, path in ((TRAIN_BATCH, "train_step"), (REGION_IMAGES, "region")):
-        entries += _check_flash_bwd_main(gen, dev, B, path)
+    for B, S, backward in FLASH_MAIN_SHAPES:
+        if backward:
+            entries += _check_flash_bwd_main(gen, dev, B, S)
 
     # the rest of the contract, at small shapes, with scale = D^-0.5: bf16
     # at D = 64 on the tensor cores (D = 128 / 192 / 256 on the CUDA cores),
@@ -840,37 +922,38 @@ def check_flash_bwd(gen, dev):
 
 
 def check_tiny_bwd(gen, dev):
-    """K6 at the training step's three shapes and the region stream's three
-    of its own (the 40x200 one with region bitmaps as key masks) in bf16
-    with key mask and dropout multiplier (checked and timed, the card
-    running ahead of the host), then over the contract on both routes."""
+    """K6 at every training shape of ``TINY_MAIN_SHAPES`` in bf16 with key
+    mask and dropout multiplier (checked and timed, the card running ahead
+    of the host), also checked without a multiplier (the deterministic
+    passes); then over the contract on both routes."""
     entries = []
     H, D = 12, 64
     scale = D ** -0.5
-    for label, B, Sq, Skv, mask in (
-            ("text self-attention", 2 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN, "pad"),
-            ("fusion self-attention", 4 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN, "pad"),
-            ("fusion cross-attention", 4 * TRAIN_BATCH, TEXT_LEN, 200, "pad"),
-            ("region text self-attention", 2 * REGION_ROWS, TEXT_LEN, TEXT_LEN, "pad"),
-            ("region fusion self-attention", 4 * REGION_ROWS, TEXT_LEN, TEXT_LEN, "pad"),
-            ("region fusion cross-attention", 4 * REGION_ROWS, TEXT_LEN, 200, "region")):
+    for label, B, Sq, Skv, train_ops, mask in TINY_MAIN_SHAPES:
+        if not train_ops:
+            continue
         q, k, v, km, dm = tiny_operands(gen, dev, B, Sq, Skv, H, D, torch.bfloat16, mask,
                                         True)
         ops = "region_key_mask" if mask == "region" else "key_mask"
         g = torch.randn(B, Sq, H * D, generator=gen, device=dev).to(torch.bfloat16)
+        tag = f"tiny_attention_bwd {{}} {label} B{B} {Sq}x{Skv} H{H} D{D} {ops} dropout bf16"
+        err = 0.0
+        tq, tk, tv, tg = as_f32(q, k, v, g)
+        for mult in (dm, None):
+            out, probs = tiny_attention_fwd(q, k, v, H, km, mult, scale, return_probs=True)
+            before = dict(tiny_attention_bwd.launches_by_route)
+            got = tiny_attention_bwd(q, k, v, probs, mult, g, H, scale, out=out)
+            expect_route(f"tiny_attention_bwd {label} B{B}", tiny_attention_bwd, before,
+                         torch.bfloat16, D)
+            _, p_probs = tiny_attention_reference(q, k, v, H, km, mult, scale)
+            plain = tiny_attention_bwd_reference(q, k, v, p_probs, mult, g, H, scale)
+            t_mult = None if mult is None else mult.float()
+            _, t_probs = tiny_attention_reference(tq, tk, tv, H, km, t_mult, scale)
+            truth = tiny_attention_bwd_reference(tq, tk, tv, t_probs, t_mult, tg, H, scale)
+            t = tag if mult is not None else tag + ", no multiplier"
+            err = max(err, *(rule_bf16(t.format(lab), a, p, tr)
+                             for lab, a, p, tr in zip(("dq", "dk", "dv"), got, plain, truth)))
         out, probs = tiny_attention_fwd(q, k, v, H, km, dm, scale, return_probs=True)
-        before = dict(tiny_attention_bwd.launches_by_route)
-        got = tiny_attention_bwd(q, k, v, probs, dm, g, H, scale, out=out)
-        expect_route(f"tiny_attention_bwd {label}", tiny_attention_bwd, before,
-                     torch.bfloat16, D)
-        _, p_probs = tiny_attention_reference(q, k, v, H, km, dm, scale)
-        plain = tiny_attention_bwd_reference(q, k, v, p_probs, dm, g, H, scale)
-        tq, tk, tv, tg, tdm = as_f32(q, k, v, g, dm)
-        _, t_probs = tiny_attention_reference(tq, tk, tv, H, km, tdm, scale)
-        truth = tiny_attention_bwd_reference(tq, tk, tv, t_probs, tdm, tg, H, scale)
-        err = max(rule_bf16(f"tiny_attention_bwd {lab} {label} B{B} {Sq}x{Skv} H{H} "
-                            f"D{D} {ops} dropout bf16", a, p, t)
-                  for lab, a, p, t in zip(("dq", "dk", "dv"), got, plain, truth))
         ms = time_ms(lambda: tiny_attention_bwd(q, k, v, probs, dm, g, H, scale, out=out),
                      host_ahead=True)
         plain_ms = time_ms(lambda: tiny_attention_bwd_reference(q, k, v, probs, dm, g, H,
@@ -881,11 +964,11 @@ def check_tiny_bwd(gen, dev):
                               g.view(B, Sq, H, D).transpose(1, 2), scale, host_ahead=True)
         b_ms, b_by = bound_ms(nbytes(q, k, v, g, probs, dm) + nbytes(q, k, v),
                               8.0 * B * H * Sq * Skv * D)
-        log(f"time tiny_attention_bwd {label}: kernel {ms:.4f} ms, plain "
+        log(f"time tiny_attention_bwd {label} B{B}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa backward {lib_ms} ms, bound {b_ms:.4f} ms ({b_by})")
         entries.append(tiny_entry(
             "tiny_attention_bwd", f"B{B} {Sq}x{Skv} H{H} D{D} {ops} dropout bf16",
-            (B, Sq, Skv), err, ms, plain_ms, b_ms, b_by, lib_ms))
+            (B, Sq, Skv), err, ms, plain_ms, b_ms, b_by, lib_ms, operands="training"))
 
     for name, (B, Sq, Skv, H, D, mask, drop) in {
         "non-multiple-of-8 13x27 D32": (3, 13, 27, 4, 32, "half", True),
@@ -958,14 +1041,19 @@ TILED_CASES = {
 }
 
 
-# (B, dropout, label) of the 40 x 584 checks: the retrieval fine-tune's ITM
-# fusion pass (batch 32: 96 rows, positives and two negatives each), the
-# fine-tune batch itself, and the two-stage eval's ITM rerank (8 images x 128
-# candidate texts; 8 texts x the 64 images of phase 8, its most launched)
-TILED_MAIN_SHAPES = ((3 * TRAIN_BATCH, True, "fine-tune ITM"),
-                     (TRAIN_BATCH, True, "fine-tune"),
-                     (RERANK_BATCH, False, "ITM rerank"),
-                     (RERANK_BATCH // 2, False, "ITM rerank, texts to images"))
+# (B, dropout, probabilities, label) of the 40 x 584 checks, every shape a
+# main path launches: the retrieval fine-tune's ITM fusion pass (batch 32:
+# 96 rows, positives and two negatives each), the two-stage eval's ITM
+# rerank (8 images x 128 candidate texts; 8 texts x the 64 images of phase
+# 8, its most launched); phase 9's grounding bbox pass (batch 20, trained
+# without dropout: probabilities saved, no multiplier), NLVR2's two
+# fusion passes (batch 16, dropout) and both tasks' evals (batch 32)
+TILED_MAIN_SHAPES = ((3 * TRAIN_BATCH, True, True, "fine-tune ITM"),
+                     (RERANK_BATCH, False, False, "ITM rerank"),
+                     (RERANK_BATCH // 2, False, False, "ITM rerank, texts to images"),
+                     (GROUNDING_BATCH, False, True, "grounding bbox pass"),
+                     (NLVR_BATCH, True, True, "NLVR2 fusion"),
+                     (FT_EVAL_BATCH, False, False, "grounding / NLVR2 eval"))
 
 
 def walk_delta(fn, before) -> dict:
@@ -975,17 +1063,16 @@ def walk_delta(fn, before) -> dict:
 
 def check_tiny_tiled(gen, dev, shapes):
     """K5 and K6 on the key-tiled walk: at the 384 px fusion cross-attention
-    (40 x 584) at each (B, mask, dropout) of ``shapes`` in bf16, forward and
+    (40 x 584) at each (B, dropout, probabilities) of ``shapes`` in bf16, forward and
     backward, checked and timed beside SDPA forward / backward (the card
     running ahead of the host); then over the walk's contract at small
     shapes on both routes. Returns the kernels-line entries."""
     entries = []
     H, D, Sq, Skv = 12, 64, TEXT_LEN, 584
     scale = D ** -0.5
-    for B, drop, label in shapes:
+    for B, drop, probs_wanted, label in shapes:
         q, k, v, km, dm = tiny_operands(gen, dev, B, Sq, Skv, H, D, torch.bfloat16, "pad",
                                         drop)
-        probs_wanted = drop   # the fine-tune saves them; the rerank serves
         ops = "key_mask dropout" if drop else "key_mask"
         f_before = dict(tiny_attention_fwd.launches_by_walk)
         out, probs = tiny_attention_fwd(q, k, v, H, km, dm, scale, return_probs=True)
@@ -1016,7 +1103,8 @@ def check_tiny_tiled(gen, dev, shapes):
         entries.append(tiny_entry(
             "tiny_attention_fwd", f"B{B} {Sq}x{Skv} H{H} D{D} {ops}"
             f"{' probs' if probs_wanted else ''} bf16", (B, Sq, Skv), err, ms, plain_ms, b_ms,
-            b_by, lib_ms, tiny_walk=TILED))
+            b_by, lib_ms, tiny_walk=TILED,
+            operands="training" if drop or probs_wanted else "serving"))
 
         g = torch.randn(B, Sq, H * D, generator=gen, device=dev).to(torch.bfloat16)
         b_before = dict(tiny_attention_bwd.launches_by_walk)
@@ -1043,7 +1131,8 @@ def check_tiny_tiled(gen, dev, shapes):
             f"{plain_ms:.4f} ms, sdpa backward {lib_ms} ms, bound {b_ms:.4f} ms ({b_by})")
         entries.append(tiny_entry(
             "tiny_attention_bwd", f"B{B} {Sq}x{Skv} H{H} D{D} {ops} bf16", (B, Sq, Skv), err,
-            ms, plain_ms, b_ms, b_by, lib_ms, tiny_walk=TILED))
+            ms, plain_ms, b_ms, b_by, lib_ms, tiny_walk=TILED,
+            operands="training" if drop or probs_wanted else "serving"))
         del q, k, v, km, dm, out, out1, probs, g, got, views
         torch.cuda.empty_cache()
 
@@ -1250,9 +1339,10 @@ def check_int8(gen, dev):
 
 def reset_counts() -> None:
     flash_attention_fwd.launches = 0
-    flash_attention_fwd.launches_by_route.clear()
     flash_attention_bwd.launches.clear()
-    flash_attention_bwd.launches_by_route.clear()
+    for fn in (flash_attention_fwd, flash_attention_bwd):
+        fn.launches_by_route.clear()
+        fn.launches_by_shape.clear()
     for fn in (tiny_attention_fwd, tiny_attention_bwd, int8_matmul, quantize_act):
         fn.launches = 0
         fn.launches_by_shape.clear()
@@ -1264,12 +1354,13 @@ def reset_counts() -> None:
 
 def train_counts():
     """Launches of every kernel since the last reset: flash by kernel, tiny
-    by (B, Sq, Skv)."""
+    by (B, Sq, Skv); and the ledger's parts (``launch_counts``)."""
+    c = launch_counts()
     return {"flash_attention_fwd": flash_attention_fwd.launches,
             **{f"flash_attention_bwd_{k}": flash_attention_bwd.launches[k]
                for k in ("dq", "dkv", "dbias")},
-            "tiny_attention_fwd": collections.Counter(tiny_attention_fwd.launches_by_shape),
-            "tiny_attention_bwd": collections.Counter(tiny_attention_bwd.launches_by_shape),
+            "tiny_attention_fwd": c["tiny_fwd"], "tiny_attention_bwd": c["tiny_bwd"],
+            **{k: c[k] for k in LEDGER_PARTS},
             "tiny_routes": {"tiny_attention_fwd": dict(tiny_attention_fwd.launches_by_route),
                             "tiny_attention_bwd": dict(tiny_attention_bwd.launches_by_route)},
             "flash_fwd_routes": dict(flash_attention_fwd.launches_by_route),
@@ -1290,7 +1381,7 @@ def serve(server, images, ids, atts):
     per_request = {}
     by_shape = {"tiny": collections.Counter(), "int8_matmul": collections.Counter(),
                 "int8_quantize": collections.Counter(), "tiny_route": collections.Counter(),
-                "flash_route": collections.Counter()}
+                "flash_route": collections.Counter(), "flash": collections.Counter()}
 
     def run(name, fn, *inputs):
         reset_counts()
@@ -1300,6 +1391,7 @@ def serve(server, images, ids, atts):
         by_shape["tiny"].update(tiny_attention_fwd.launches_by_shape)
         by_shape["tiny_route"].update(tiny_attention_fwd.launches_by_route)
         by_shape["flash_route"].update(flash_attention_fwd.launches_by_route)
+        by_shape["flash"].update(flash_attention_fwd.launches_by_shape)
         by_shape["int8_matmul"].update(int8_matmul.launches_by_shape)
         by_shape["int8_quantize"].update(quantize_act.launches_by_shape)
         return out
@@ -1656,31 +1748,55 @@ REGION_HOLD_BOXES = ((0, 0, 1, 1), (3, 4, 2, 2), None, (6, 2, 4, 5), (1, 7, 5, 6
 REGION_HOLD_DEGENERATE = 4          # this row's target box has a negative width
 
 
+def off_kink_targets(pred: torch.Tensor) -> torch.Tensor:
+    """cxcywh box targets for a gradient hold of the L1 + GIoU losses: each
+    predicted box grown by fixed margins (left 0.05, top 0.04, right 0.25,
+    bottom 0.16 of the image), so that no target coordinate (cx, cy, w, h)
+    or edge lies within 0.04 of the prediction's. Both losses have kinks
+    where a predicted coordinate or edge meets the target's; a target
+    within the card's bf16 rounding (~1e-3 of a box) of one flips a sign of
+    the gradient between the card and the CPU path, and the cosine then
+    reads that rounding, not the kernels."""
+    x0, y0, x1, y1 = box_ops.box_cxcywh_to_xyxy(pred.float()).unbind(-1)
+    return box_ops.box_xyxy_to_cxcywh(torch.stack([x0 - 0.05, y0 - 0.04, x1 + 0.25,
+                                                   y1 + 0.16], -1))
+
+
 def region_hold_batch(gen, dev, cfg):
     """A region batch of 2 images and one row per ``REGION_HOLD_BOXES`` entry,
-    as ``region_collate`` lays it out: the bitmaps of the boxes, their
-    cxcywh targets (one degenerate), a full-image row with ``is_image`` 1,
-    40-token texts with 12 masked positions."""
+    as ``region_collate`` lays it out: the bitmaps of the boxes, a
+    full-image row with ``is_image`` 1, 40-token texts with 12 masked
+    positions. ``target_bbox`` is left for ``region_hold`` to set."""
     side = cfg.vision.image_res // cfg.vision.patch_size
     n = len(REGION_HOLD_BOXES)
     grid = torch.zeros(n, side, side)
-    target = torch.tensor([[0.5, 0.5, 1.0, 1.0]]).repeat(n, 1)
     for r, b in enumerate(REGION_HOLD_BOXES):
         if b is None:
             grid[r] = 1
             continue
         x, y, w, h = b
         grid[r, y:y + h, x:x + w] = 1
-        target[r] = torch.tensor([x + w / 2, y + h / 2, w, h]) / side
-    target[REGION_HOLD_DEGENERATE, 2] *= -1
     batch = train_batch(gen, dev, cfg, n)
     return dict(
         batch, image=torch.randn(2, cfg.vision.image_res, cfg.vision.image_res, 3,
                                  generator=gen, device=dev),
         image_atts=torch.cat([torch.ones(n, 1), grid.view(n, -1)], 1).to(dev),
         idx_to_group_img=torch.tensor([0, 1, 0, 1, 0, 1], device=dev),
-        target_bbox=target.to(dev),
+        target_bbox=torch.zeros(n, 4, device=dev),
         is_image=torch.tensor([float(b is None) for b in REGION_HOLD_BOXES], device=dev))
+
+
+@torch.no_grad()
+def cpu_boxes(cpu_model, head, run) -> torch.Tensor:
+    """The boxes ``cpu_model``'s bbox head (``head``) predicts in ``run()``."""
+    boxes = []
+    hook = head.register_forward_hook(
+        lambda mod, inp, out: boxes.append(torch.sigmoid(out.float())))
+    try:
+        run()
+    finally:
+        hook.remove()
+    return boxes[-1]
 
 
 def region_cosine_params(cfg):
@@ -1695,32 +1811,59 @@ def region_cosine_params(cfg):
             "base.bbox_head.0.weight", "base.bbox_head.3.weight")
 
 
+# the region hold's injected hard negatives: (image, text) rows of each row
+REGION_HOLD_NEG = (torch.tensor([1, 0, 3, 2, 5, 4]), torch.tensor([2, 3, 4, 5, 0, 1]))
+
+
+def region_masked(km) -> bool:
+    """A key mask with a row narrower than the image: a region-masked call."""
+    return km is not None and bool(((km != 0).sum(1) < N_IMG).any())
+
+
+def region_step_grads(m, batch, cfg, ratios=None):
+    """One region step of ``m`` on ``batch`` (moved to ``m``'s device),
+    dropout off, ``REGION_HOLD_NEG`` injected: its losses and the gradients
+    of ``region_cosine_params``; with ``ratios``, each bf16 region-masked
+    40 x 200 call into the tiny kernel held (``held_tiny_calls``)."""
+    dev = next(m.parameters()).device
+    b = {k: v.to(dev) for k, v in batch.items()}
+    m.eval()
+    m.zero_grad(set_to_none=True)
+    with (held_tiny_calls(N_IMG + (-N_IMG % 8), ratios, only=region_masked)
+          if ratios is not None else contextlib.nullcontext()):
+        out = m(b, neg_idx=tuple(t.to(dev) for t in REGION_HOLD_NEG), ret_bbox_loss=True)
+    sum(out.values()).backward()
+    params = dict(m.named_parameters())
+    return ({k: v.item() for k, v in out.items()},
+            {k: params[k].grad.detach().double().cpu().reshape(-1)
+             for k in region_cosine_params(cfg)})
+
+
+def region_boxes(cpu_model, batch) -> torch.Tensor:
+    """The boxes the CPU model's bbox head predicts for ``batch``."""
+    return cpu_boxes(cpu_model, cpu_model.base.bbox_head, lambda: cpu_model(
+        {k: v.cpu() for k, v in batch.items()}, neg_idx=REGION_HOLD_NEG, ret_bbox_loss=True))
+
+
 def region_hold(model, cpu_model, gen, dev, cfg) -> None:
     """The region step with the weights of ``model``, dropout off and
     injected negatives, card bf16 against the port's CPU fp32 path: the five
     losses within 0.05 + 2%, gradient cosines >= 0.99; and each bf16 call of
     the ITM + MLM fusion pass into the tiny kernel (40 x 200, the region
     bitmaps as key masks) held on the model's operands to the plain version,
-    within ``FUSION_CALL_RATIO`` of the bf16 rule's bound."""
+    within ``FUSION_CALL_RATIO`` of the bf16 rule's bound. The box targets
+    are ``off_kink_targets`` of the CPU path's boxes, one made degenerate
+    (``tools/region_kink_witness.py`` reads the hold with targets on and
+    off the kinks)."""
     batch = region_hold_batch(gen, dev, cfg)
-    neg = (torch.tensor([1, 0, 3, 2, 5, 4]), torch.tensor([2, 3, 4, 5, 0, 1]))
+    cpu_model.eval()
+    target = off_kink_targets(region_boxes(cpu_model, batch))
+    target[REGION_HOLD_DEGENERATE, 2] *= -1
+    batch["target_bbox"] = target.to(dev)
     ratios, grads, losses = [], {}, {}
     n_fusion = cfg.text.num_layers - cfg.text.fusion_layer
-
-    def region_masked(km):   # a key mask with a row narrower than the image
-        return km is not None and bool(((km != 0).sum(1) < N_IMG).any())
-
-    for tag, m, b, ng in (("card", model, batch, tuple(t.to(dev) for t in neg)),
-                          ("cpu", cpu_model, {k: v.cpu() for k, v in batch.items()}, neg)):
-        m.eval()
-        m.zero_grad(set_to_none=True)
-        with held_tiny_calls(N_IMG + (-N_IMG % 8), ratios, only=region_masked):
-            out = m(b, neg_idx=ng, ret_bbox_loss=True)
-        sum(out.values()).backward()
-        losses[tag] = {k: v.item() for k, v in out.items()}
-        params = dict(m.named_parameters())
-        grads[tag] = {k: params[k].grad.detach().double().cpu().reshape(-1)
-                      for k in region_cosine_params(cfg)}
+    for tag, m in (("card", model), ("cpu", cpu_model)):
+        losses[tag], grads[tag] = region_step_grads(m, batch, cfg, ratios)
     cos = {k: F.cosine_similarity(grads["card"][k], grads["cpu"][k], dim=0).item()
            for k in region_cosine_params(cfg)}
     log(f"region card bf16 vs CPU fp32 (2 images, {len(REGION_HOLD_BOXES)} rows, dropout off, "
@@ -1803,6 +1946,8 @@ def launch_counts():
             "flash_fwd_routes": dict(flash_attention_fwd.launches_by_route),
             "flash_bwd": dict(flash_attention_bwd.launches),
             "flash_bwd_routes": flash_bwd_route_delta({}),
+            "flash_fwd_shapes": collections.Counter(flash_attention_fwd.launches_by_shape),
+            "flash_bwd_shapes": collections.Counter(flash_attention_bwd.launches_by_shape),
             "tiny_fwd": collections.Counter(tiny_attention_fwd.launches_by_shape),
             "tiny_bwd": collections.Counter(tiny_attention_bwd.launches_by_shape),
             "tiny_routes": {"tiny_attention_fwd": dict(tiny_attention_fwd.launches_by_route),
@@ -1810,6 +1955,69 @@ def launch_counts():
             "tiny_walks": {"tiny_attention_fwd": dict(tiny_attention_fwd.launches_by_walk),
                            "tiny_attention_bwd": dict(tiny_attention_bwd.launches_by_walk)},
             "plain_attention": dot_product_attention.calls}
+
+
+# the parts of ``launch_counts`` the kernels line reads: the tiny launches
+# by (B, Sq, Skv), the flash ones by (B, Sq, Skv) and (kernel, B, Sq, Skv)
+LEDGER_PARTS = ("tiny_fwd", "tiny_bwd", "flash_fwd_shapes", "flash_bwd_shapes")
+# the main paths, as the kernels line's ``launches_by_path`` names them
+PATHS = ("serving", "train_step", "int8_serving", "pretrain_launcher", "retrieval_launcher",
+         "finetune_launcher")
+
+
+def ledger_add(ledger, path: str, operands: str, c: dict) -> None:
+    """Adds the attention launches of ``c`` (``LEDGER_PARTS``) to ``ledger``,
+    a Counter over (path, kernel, operands, shape): ``operands`` is
+    "serving" or "training" for the tiny forward (its checks differ in them:
+    a dropout multiplier, the probabilities saved), "training" for the tiny
+    backward and None for the flash kernels."""
+    for key, n in c.get("tiny_fwd", {}).items():
+        ledger[(path, "tiny_attention_fwd", operands, key)] += n
+    for key, n in c.get("tiny_bwd", {}).items():
+        ledger[(path, "tiny_attention_bwd", "training", key)] += n
+    for key, n in c.get("flash_fwd_shapes", {}).items():
+        ledger[(path, "flash_attention_fwd", None, key)] += n
+    for (kernel, *key), n in c.get("flash_bwd_shapes", {}).items():
+        ledger[(path, f"flash_attention_bwd_{kernel}", None, tuple(key))] += n
+
+
+def attention_kernels(ledger, checked: list, tiled: list) -> list:
+    """The kernels line's attention entries: each of ``checked`` and each of
+    ``tiled`` (the 40 x 584 checks) that a main path launched, with its
+    launches by path from ``ledger`` at its (kernel, operands, shape). A
+    launch in ``ledger`` that no entry holds fails the run."""
+    def entry(e):
+        e = dict(e)
+        key, operands = e.pop("key"), e.pop("operands", None)
+        by_path = {p: ledger[(p, e["name"], operands, key)] for p in PATHS}
+        return dict(e, launches=sum(by_path.values()), launches_by_path=by_path)
+
+    held = collections.Counter((e["name"], e.get("operands"), e["key"]) for e in checked + tiled)
+    for k, n in held.items():
+        if n > 1:
+            fail(f"{k}: {n} checks would take the same launches")
+    for (path, name, operands, key), n in sorted(ledger.items(), key=str):
+        if n and (name, operands, key) not in held:
+            fail(f"{name}: {n} launches on {path} at {key} ({operands} operands), a shape no "
+                 f"check of phase 2 holds")
+    kernels = [entry(e) for e in checked]
+    for e in map(entry, tiled):
+        if e["launches"]:
+            kernels.append(e)
+        else:
+            log(f"{e['name']} {e['shape']}: checked and timed; no main-path launch at this "
+                f"shape, so not in the kernels line")
+    return kernels
+
+
+def split_counts(total: dict, train_calls: list) -> dict:
+    """``LEDGER_PARTS`` of a launcher run's ``total``, split by operands:
+    the launches of its train steps (``train_calls``, each a
+    ``counts_delta``) and the rest, its eval."""
+    train = {k: sum((collections.Counter(c[k]) for c in train_calls), collections.Counter())
+             for k in LEDGER_PARTS}
+    return {"training": train,
+            "serving": {k: collections.Counter(total[k]) - train[k] for k in LEDGER_PARTS}}
 
 
 def show_counts(c) -> str:
@@ -1976,8 +2184,7 @@ def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = "")
     then ``--resume`` to step 6; each stream's calls timed, the region
     stream's launches read per call; the run's final weights exported as a
     reference-named ``.th``. Returns its path, the tokenizer directory and
-    words, the phase's launch counts and the region stream's summed over
-    the first run."""
+    words and the launch counts of the first run."""
     from x2vlm_tpu_torch import run as run_mod
 
     t0 = time.perf_counter()
@@ -2050,12 +2257,6 @@ def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = "")
     for i, c in enumerate(region_calls):
         check_launcher_counts(f"pretrain launcher region step {i}", c["launches"], 12, 12,
                               {"tiny_fwd": region, "tiny_bwd": region})
-    # the flash launches at B=50, for the kernels line
-    region_flash = {"flash_attention_fwd": sum(c["launches"]["flash_fwd"]
-                                               for c in region_calls)}
-    for k in ("dq", "dkv", "dbias"):
-        region_flash[f"flash_attention_bwd_{k}"] = sum(c["launches"]["flash_bwd"].get(k, 0)
-                                                       for c in region_calls)
     log(f"phase 7 by stream (CUDA-event ms and wall ms of each call, median; peak GiB; "
         f"{smi}): {json.dumps(timer.summary())}")
 
@@ -2103,7 +2304,7 @@ def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = "")
     th_path = os.path.join(root, "x2vlm_phase7.th")
     torch.save({"model": {k[len("base."):]: v for k, v in final["params"].items()}}, th_path)
     log(f"phase 7 seconds: {time.perf_counter() - t0:.1f}")
-    return th_path, tok_dir, words, counts1, region_flash
+    return th_path, tok_dir, words, counts1
 
 
 # Phase 8's hold on the fine-tuned model at 384 px, through its own calls:
@@ -2245,7 +2446,8 @@ def retrieval_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
     steps at batch 32, then the two-stage eval with k_test 128; the card's
     ITM scores against the port's CPU fp32 path. With ``--profile`` the last
     fine-tune step and the eval run under torch.profiler (their wall times
-    then include its cost). Returns the launch counts."""
+    then include its cost). Returns the launch counts, split into those of
+    the steps and of the eval (``split_counts``)."""
     from x2vlm_tpu_torch import run as run_mod
     from x2vlm_tpu_torch.data.factory import create_dataset
     from x2vlm_tpu_torch.tasks import retrieval as retrieval_mod
@@ -2278,7 +2480,7 @@ def retrieval_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
     imported = {}
     orig_load = ckpt_lib.load_reference_checkpoint
     orig_step = run_mod.make_train_step
-    step_ms = []
+    step_ms, step_counts = [], []
 
     def load(model, path):
         imported["missing"], imported["unexpected"] = orig_load(model, path)
@@ -2289,6 +2491,7 @@ def retrieval_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
 
         def timed(*a):
             last = args.profile and len(step_ms) == N_FT_STEPS - 1   # profiled
+            before = launch_counts()
             with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if last
                   else contextlib.nullcontext()) as prof:
                 start = torch.cuda.Event(enable_timing=True)
@@ -2299,6 +2502,7 @@ def retrieval_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
                 end.record()
                 end.synchronize()
             step_ms.append((start.elapsed_time(end), (time.perf_counter() - t) * 1e3))
+            step_counts.append(counts_delta(launch_counts(), before))
             if last:
                 write_profile(args, smi, prof, "chip_smoke_finetune384_profile.txt", 40)
             return m
@@ -2382,7 +2586,398 @@ def retrieval_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
     for msg in fusion_384_faults(readings):
         fail(f"retrieval launcher, fusion at 384 px: {msg}")
     log(f"phase 8 seconds: {time.perf_counter() - t0:.1f}")
-    return counts
+    return split_counts(counts, step_counts)
+
+
+# ---- phase 9: the launcher's grounding and NLVR2 fine-tunes at 384 px ----
+
+GROUNDING_CONFIG = "configs/finetune/refcoco_grounding_base.yaml"
+NLVR_CONFIG = "configs/finetune/nlvr_base.yaml"
+N_FT_EVAL = 2 * FT_EVAL_BATCH        # phase 9's eval lines: 2 eval calls a task
+
+
+@contextlib.contextmanager
+def held_tiny_bwd_calls(n_keys: int, ratios: list):
+    """Within the block, each bf16 backward on the card of the model's tiny
+    attention (``ops.tiny_attention._TinyAttention``) with ``n_keys`` keys
+    is held on the operands it saved, the forward's probabilities and
+    output among them, to the plain backward that takes its row sums from
+    that output, as the key-tiled kernel does (rowsum(g * out)): its
+    largest error over the bf16 rule's bound (dq, dk, dv) is appended to
+    ``ratios``."""
+    from x2vlm_tpu_torch.ops.tiny_attention import _TinyAttention
+
+    backward = _TinyAttention.backward
+
+    def held(ctx, g):
+        grads = backward(ctx, g)
+        q, k, v, probs, dmask, out = ctx.saved_tensors
+        if q.is_cuda and q.dtype == torch.bfloat16 and k.shape[1] == n_keys:
+            with torch.no_grad():
+                args = (ctx.num_heads, ctx.scale)
+                plain = tiny_attention_bwd_reference(q, k, v, probs, dmask, g, *args, out=out)
+                truth = tiny_attention_bwd_reference(
+                    *as_f32(q, k, v), probs, None if dmask is None else dmask.float(),
+                    g.float(), *args)
+                ratios.append(max(
+                    max_err(a, t) / max(4.0 * max_err(p, t),
+                                        1e-3 * max(t.abs().max().item(), 1e-6))
+                    for a, p, t in zip(grads[:3], plain, truth)))
+        return grads
+
+    _TinyAttention.backward = staticmethod(held)
+    try:
+        yield
+    finally:
+        _TinyAttention.backward = staticmethod(backward)
+
+
+def write_grounding_corpus(root: str, rng: np.random.Generator, words, n_images: int):
+    """RefCOCO-style lines over the ``n_images`` PNGs of phase 8 (320 px):
+    {image, bbox: pixel xywh, text, ref_id}, a fifth of the texts naming
+    left or right (the careful hflip); ``GROUNDING_BATCH`` x ``N_FT_STEPS``
+    train lines, ``N_FT_EVAL`` test lines and a ``refs_file`` giving each
+    test line its split (val / testA / testB), box and image size. Returns
+    the (train, test, refs) paths."""
+    side = 320
+
+    def line(i):
+        w, h = (int(x) for x in rng.integers(24, 200, 2))
+        x, y = float(rng.integers(0, side - w)) + 0.5, float(rng.integers(0, side - h))
+        text = caption(rng, words, 2, 12)
+        if rng.random() < 0.2:
+            text += " on the left" if rng.random() < 0.5 else " to the right"
+        return {"image": f"{i % n_images}.png", "bbox": [x, y, w, h], "text": text,
+                "ref_id": i}
+
+    train = [line(i) for i in range(GROUNDING_BATCH * N_FT_STEPS)]
+    test = [line(1000 + i) for i in range(N_FT_EVAL)]
+    refs = {str(a["ref_id"]): {"split": ("val", "testA", "testB")[j % 3], "bbox": a["bbox"],
+                               "width": side, "height": side} for j, a in enumerate(test)}
+    paths = [os.path.join(root, f"refcoco_{n}.json") for n in ("train", "test", "refs")]
+    for path, data in zip(paths, (train, test, refs)):
+        with open(path, "w") as f:
+            json.dump(data, f)
+    return paths
+
+
+def write_nlvr_corpus(root: str, rng: np.random.Generator, words, n_images: int):
+    """NLVR2 lines {images: [a, b], sentence, label: "True" | "False"} over
+    the PNGs of phase 8: ``NLVR_BATCH`` x ``N_FT_STEPS`` train lines and
+    ``N_FT_EVAL`` test lines. Returns the (train, test) paths."""
+    def line():
+        a, b = (int(x) for x in rng.choice(n_images, 2, replace=False))
+        return {"images": [f"{a}.png", f"{b}.png"], "sentence": caption(rng, words, 4, 20),
+                "label": "True" if rng.random() < 0.5 else "False"}
+
+    paths = []
+    for name, n in (("train", NLVR_BATCH * N_FT_STEPS), ("test", N_FT_EVAL)):
+        paths.append(os.path.join(root, f"nlvr_{name}.json"))
+        with open(paths[-1], "w") as f:
+            json.dump([line() for _ in range(n)], f)
+    return paths
+
+
+def finetune_step_launches(task: str, B: int, train: bool) -> dict:
+    """The attention launches of one grounding / NLVR2 train step at batch
+    ``B`` (``train``) or of one eval call: 12 flash (the vision pass over B
+    or 2B images, S=577), tiny at 40 x 40 (the 12 text layers and each
+    fusion pass's 6 self-attentions) and 40 x 584 (each fusion pass's 6
+    cross-attentions); the backward the same."""
+    n_fusion_passes = 2 if task == "nlvr" else 1
+    tiny = {(B, TEXT_LEN, TEXT_LEN): 12 + 6 * n_fusion_passes,
+            (B, TEXT_LEN, N_KEYS_384): 6 * n_fusion_passes}
+    return {"flash_fwd": 12, "flash_bwd": 12 if train else 0, "tiny_fwd": tiny,
+            "tiny_bwd": tiny if train else {}}
+
+
+def call_launches(c: dict) -> dict:
+    """The parts of ``counts_delta`` that ``finetune_step_launches`` states."""
+    return {"flash_fwd": c["flash_fwd"], "flash_bwd": c["flash_bwd"].get("dq", 0),
+            "tiny_fwd": dict(c["tiny_fwd"]), "tiny_bwd": dict(c["tiny_bwd"])}
+
+
+def finetune_cosine_params(cfg, head: str):
+    """Gradients held to the CPU path: the vision tower (K2/K3, K4), a
+    fusion layer's self and cross attention (K6, 40 x 40 and 40 x 584) and
+    the task's head."""
+    f = f"text_encoder.bert.encoder.layer.{cfg.text.fusion_layer}"
+    return ("vision_encoder.blocks.0.attn.qkv.weight",
+            "vision_encoder.blocks.0.attn.relative_position_bias_table",
+            f"{f}.attention.self.query.weight", f"{f}.crossattention.self.key.weight",
+            f"{head}.0.weight", f"{head}.3.weight")
+
+
+def finetune_hold(task: str, state: dict, mcfg, samples, dev) -> dict:
+    """The fine-tuned weights ``state`` on 2 rows, dropout off: the card in
+    bf16 against the port's CPU fp32 path (the task's outputs: grounding's
+    boxes, NLVR2's logits; its losses; gradient cosines of
+    ``finetune_cosine_params``), each bf16 40 x 584 call of the card's pass
+    into the tiny forward and backward held on the model's operands to the
+    plain version (``FUSION_CALL_RATIO``). Grounding's
+    box targets are ``off_kink_targets`` of the CPU path's boxes. Returns
+    the readings and the faults found."""
+    from x2vlm_tpu_torch.models import XVLMForGrounding, XVLMForNLVR
+
+    cls, head = ((XVLMForGrounding, "bbox_head") if task == "grounding"
+                 else (XVLMForNLVR, "cls_head"))
+    batch = {k: torch.from_numpy(np.stack([s[k] for s in samples])) for k in samples[0]
+             if k != "ref_id"}
+    if "labels" in batch:
+        batch["labels"] = batch["labels"].long()
+    names = finetune_cosine_params(mcfg, head)
+    fwd_ratios, bwd_ratios, outs, losses, grads = [], [], {}, {}, {}
+    for tag, dtype, device in (("cpu", torch.float32, torch.device("cpu")),
+                               ("card", torch.bfloat16, dev)):
+        model = cls(mcfg, dtype=dtype, device=device, seed=None)
+        model.load_state_dict(state)
+        if task == "grounding" and tag == "cpu":
+            batch["target_bbox"] = off_kink_targets(cpu_boxes(
+                model, model.bbox_head,
+                lambda: model.predict(batch["image"], batch["text_ids"], batch["text_atts"])))
+        b = {k: v.to(device) for k, v in batch.items()}
+        with torch.no_grad():
+            outs[tag] = (model.predict(b["image"], b["text_ids"], b["text_atts"])
+                         if task == "grounding" else model.predict(b)).float().cpu()
+        with held_tiny_calls(N_KEYS_384, fwd_ratios), held_tiny_bwd_calls(N_KEYS_384,
+                                                                          bwd_ratios):
+            out = model(b)
+            sum(out.values()).backward()
+        losses[tag] = {k: v.item() for k, v in out.items()}
+        params = dict(model.named_parameters())
+        grads[tag] = {k: params[k].grad.detach().double().cpu().reshape(-1) for k in names}
+        del model
+    torch.cuda.empty_cache()
+    cos = {k: F.cosine_similarity(grads["card"][k], grads["cpu"][k], dim=0).item()
+           for k in names}
+    out_err = max_err(outs["card"], outs["cpu"])
+    r = {"out_err": out_err, "out_scale": outs["cpu"].abs().max().item(), "losses": losses,
+         "cosine": cos, "fwd_ratios": fwd_ratios, "bwd_ratios": bwd_ratios}
+    faults = []
+    n_calls = 6 * (2 if task == "nlvr" else 1)
+    for kind, ratios in (("forward", fwd_ratios), ("backward", bwd_ratios)):
+        if len(ratios) != n_calls or not all(x <= FUSION_CALL_RATIO for x in ratios):
+            faults.append(f"the 40 x {N_KEYS_384} {kind} calls' errors over the bf16 rule's "
+                          f"bound {[round(x, 3) for x in ratios]}, expected {n_calls} at most "
+                          f"{FUSION_CALL_RATIO}")
+    # boxes are fractions of the image; logits are held as phase 3 holds ITM scores
+    limit = 0.02 if task == "grounding" else 0.05 + 0.05 * r["out_scale"]
+    if not out_err <= limit:
+        faults.append(f"card outputs off the CPU fp32 path's by {out_err:.4f} > {limit:.4f}")
+    for k, ref in losses["cpu"].items():
+        if not abs(losses["card"][k] - ref) <= 0.05 + 0.02 * abs(ref):
+            faults.append(f"{k}: card {losses['card'][k]:.5f} vs CPU fp32 {ref:.5f}")
+    for k, c in cos.items():
+        if not c >= 0.99:
+            faults.append(f"gradient {k}: cosine to the CPU fp32 path {c:.5f} < 0.99")
+    return r, faults
+
+
+def finetune_task_phase(args, task: str, root: str, th_path: str, tok_dir: str, words,
+                        image_root: str, dev, smi: str = "") -> dict:
+    """One task of phase 9: ``x2vlm_tpu_torch.run --task grounding | nlvr``
+    in process, the shipped config with its data paths pointed at files
+    written under ``root`` and cut to ``N_FT_STEPS`` steps, from phase 7's
+    ``.th``: the steps (each timed and its launches read), the eval (its
+    calls timed and read), for grounding a ``--resume`` whose restored
+    state must equal the saved one bit for bit; then ``finetune_hold``.
+    Returns the phase's launches and those by call."""
+    from x2vlm_tpu_torch import run as run_mod
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.tasks import classification as cls_mod, grounding as grounding_mod
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + (9 if task == "grounding" else 10))
+    n_images = len(os.listdir(image_root))
+    shipped = shipped_config(GROUNDING_CONFIG if task == "grounding" else NLVR_CONFIG)
+    cfg = dict(shipped, image_root=image_root, text_encoder=tok_dir)
+    if task == "grounding":
+        train, test, refs = write_grounding_corpus(root, rng, words, n_images)
+        cfg.update(train_file=[train], test_file=[test], refs_file=refs)
+        batch, eval_keys = GROUNDING_BATCH, ("val_acc", "testA_acc", "testB_acc")
+        eval_mod, eval_name = grounding_mod, "predict_grounding"
+    else:
+        train, test = write_nlvr_corpus(root, rng, words, n_images)
+        cfg.update(train_file=[train], test_file=[test])
+        batch, eval_keys = NLVR_BATCH, ("accuracy",)
+        eval_mod, eval_name = cls_mod, "evaluate_classification"
+    if (cfg["batch_size"], cfg["batch_size_test"], cfg["image_res"]) != \
+            (batch, FT_EVAL_BATCH, 384):
+        fail(f"{task} launcher: the shipped config's batch sizes / resolution "
+             f"{cfg['batch_size']}, {cfg['batch_size_test']}, {cfg['image_res']} changed")
+    cfg_path = os.path.join(root, f"{task}.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    out = os.path.join(root, f"out_{task}")
+    log(f"phase 9 {task} data and config: {time.perf_counter() - t0:.1f} s")
+
+    imported, steps, evals = {}, [], []
+    orig_load = ckpt_lib.load_reference_checkpoint
+    orig_step = run_mod.make_train_step
+    orig_eval = getattr(eval_mod, eval_name)
+
+    def load(model, path):
+        imported["missing"], imported["unexpected"] = orig_load(model, path)
+        return imported["missing"], imported["unexpected"]
+
+    def timed(fn, records, fname, profiled):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = launch_counts()
+            with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                  if profiled(len(records)) else contextlib.nullcontext()) as prof:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t = time.perf_counter()
+                start.record()
+                result = fn(*a, **kw)
+                end.record()
+                end.synchronize()
+            delta = counts_delta(launch_counts(), before)
+            records.append({"ms": start.elapsed_time(end),
+                            "wall_ms": (time.perf_counter() - t) * 1e3,
+                            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                            "launches": call_launches(delta), "delta": delta})
+            if prof is not None:
+                write_profile(args, smi, prof, fname, 40)
+            return result
+
+        return call
+
+    def make_step(model, optimizer, **kw):
+        return timed(orig_step(model, optimizer, **kw), steps,
+                     f"chip_smoke_{task}_step_profile.txt",
+                     lambda i: args.profile and i == N_FT_STEPS - 1)
+
+    evaluate = timed(orig_eval, evals, f"chip_smoke_{task}_eval_profile.txt",
+                     lambda i: bool(args.profile))
+    argv = ["--task", task, "--config", cfg_path, "--output_dir", out, "--checkpoint", th_path,
+            "--epoch", "1", "--seed", str(args.seed), "--device", dev.type]
+    t1 = time.perf_counter()
+    reset_counts()
+    ckpt_lib.load_reference_checkpoint, run_mod.make_train_step = load, make_step
+    setattr(eval_mod, eval_name, evaluate)
+    try:
+        record = run_mod.main(argv)
+    finally:
+        ckpt_lib.load_reference_checkpoint, run_mod.make_train_step = orig_load, orig_step
+        setattr(eval_mod, eval_name, orig_eval)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"phase 9 {task} run ({len(steps)} fine-tune steps + eval): "
+        f"{time.perf_counter() - t1:.1f} s; {json.dumps(record)}")
+    step_ms = [[round(r["ms"], 3), round(r["wall_ms"], 3)] for r in steps]
+    log(f"phase 9 {task} fine-tune step ms at 384 px, B={batch} (CUDA events, wall): "
+        f"{json.dumps(step_ms)}{' (the last one profiled)' if args.profile else ''}; peak "
+        f"device memory GiB {[round(r['peak_gib'], 2) for r in steps]}; eval calls (B="
+        f"{FT_EVAL_BATCH}) ms (CUDA events, wall) "
+        f"{[[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in evals]}, eval seconds "
+        f"{sum(r['wall_ms'] for r in evals) / 1e3:.3f}, peak GiB "
+        f"{[round(r['peak_gib'], 2) for r in evals]}"
+        f"{' (profiled)' if args.profile else ''}; {smi}")
+
+    # the import: every parameter the task has from the 224 px .th, but the
+    # fresh cls_head of NLVR2; left over what the task does not carry
+    missing, unexpected = imported.get("missing"), imported.get("unexpected", [])
+    log(f"phase 9 {task} import: missing {missing}, unexpected {len(unexpected)} "
+        f"({sorted({'.'.join(k.split('.')[:2]) for k in unexpected})})")
+    fresh = [] if task == "grounding" else sorted(
+        f"cls_head.{i}.{w}" for i in (0, 1, 3) for w in ("weight", "bias"))
+    leftover = ("vision_proj.", "text_proj.", "temp", "itm_head.", "text_encoder.cls.") + \
+        (() if task == "grounding" else ("bbox_head.",))
+    if missing != fresh or not unexpected or \
+            not all(k.startswith(leftover) for k in unexpected) or \
+            (task == "nlvr" and "temp" in unexpected):
+        fail(f"{task} launcher import of {th_path}: missing {missing}, unexpected {unexpected}")
+
+    vals = [record.get(f"eval_{k}") for k in eval_keys] + [record.get("loss_total")]
+    if not all(isinstance(v, float) and math.isfinite(v) for v in vals) or \
+            len(steps) != N_FT_STEPS or len(evals) != 1:
+        fail(f"{task} launcher: {len(steps)} steps, {len(evals)} evals, record {record}")
+    want_step = finetune_step_launches(task, batch, True)
+    want_eval = finetune_step_launches(task, FT_EVAL_BATCH, False)
+    for i, r in enumerate(steps):
+        if r["launches"] != want_step:
+            fail(f"{task} launcher step {i}: launches {r['launches']}, expected {want_step}")
+    n_eval_calls = N_FT_EVAL // FT_EVAL_BATCH
+    want_evals = {"flash_fwd": 12 * n_eval_calls, "flash_bwd": 0, "tiny_bwd": {},
+                  "tiny_fwd": {k: n * n_eval_calls for k, n in want_eval["tiny_fwd"].items()}}
+    if [r["launches"] for r in evals] != [want_evals]:
+        fail(f"{task} launcher eval: launches {[r['launches'] for r in evals]}, expected "
+             f"{want_evals}")
+    tiny = collections.Counter()
+    for shape, n in want_step["tiny_fwd"].items():
+        tiny[shape] += n * N_FT_STEPS
+    for shape, n in want_eval["tiny_fwd"].items():
+        tiny[shape] += n * n_eval_calls
+    check_launcher_counts(
+        f"{task} launcher", counts, 12 * (N_FT_STEPS + n_eval_calls), 12 * N_FT_STEPS,
+        {"tiny_fwd": dict(tiny),
+         "tiny_bwd": {k: n * N_FT_STEPS for k, n in want_step["tiny_bwd"].items()}})
+    if counts["tiny_walks"]["tiny_attention_fwd"].get(TILED, 0) != \
+            sum(n for (b, sq, skv), n in tiny.items() if skv == N_KEYS_384):
+        fail(f"{task} launcher: the 40 x {N_KEYS_384} launches are not all key-tiled: "
+             f"{counts['tiny_walks']}")
+
+    if task == "grounding":   # --resume: the restored state is the saved one
+        saved = torch.load(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE),
+                           map_location="cpu", weights_only=False)
+        restored = {}
+        orig_restore = ckpt_lib.restore_train_state
+
+        def restore(ckpt_dir, model, optimizer):
+            result = orig_restore(ckpt_dir, model, optimizer)
+            restored.update(
+                params={n: p.detach().cpu() for n, p in model.named_parameters()},
+                mu=dict(zip(optimizer.names, (m.cpu() for m in optimizer.mu))),
+                nu=dict(zip(optimizer.names, (v.cpu() for v in optimizer.nu))),
+                count=optimizer.count)
+            return result
+
+        reset_counts()
+        ckpt_lib.restore_train_state = restore
+        try:
+            run_mod.main(argv + ["--resume"])
+        finally:
+            ckpt_lib.restore_train_state = orig_restore
+        same = bool(restored) and restored["count"] == saved["count"] and all(
+            restored[part].keys() == saved[part].keys() and
+            all(torch.equal(restored[part][k], saved[part][k]) for k in saved[part])
+            for part in ("params", "mu", "nu"))
+        log(f"phase 9 grounding --resume: restored state equal to the saved one bit for bit: "
+            f"{same} (step {saved['step']}, count {saved['count']}); launches after it "
+            f"{launch_counts()['flash_fwd']} flash (nothing left to train)")
+        if not same or launch_counts()["flash_fwd"]:
+            fail("grounding launcher --resume: the restored state differs from the saved one, "
+                 "or it trained again")
+        del saved, restored
+
+    # the fine-tuned weights on 2 rows, card bf16 against CPU fp32
+    state = torch.load(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE), map_location="cpu",
+                       weights_only=False)["params"]
+    train_ds, _ = create_dataset(task, cfg, rng=random.Random(args.seed))
+    hold, faults = finetune_hold(task, state, xvlm_config_from_yaml(cfg),
+                                 [train_ds[0], train_ds[1]], dev)
+    log(f"phase 9 {task} card bf16 vs CPU fp32 (2 rows, dropout off): {json.dumps(hold)}")
+    for msg in faults:
+        fail(f"{task} launcher, 2 rows card vs CPU: {msg}")
+    log(f"phase 9 {task} seconds: {time.perf_counter() - t0:.1f}")
+    return {"counts": counts, "steps": steps, "evals": evals}
+
+
+def finetune_launcher_phase(args, root, th_path, tok_dir, words, image_root, dev, smi=""):
+    """Phase 9: grounding, then NLVR2. Returns both runs' launch counts,
+    split into those of the steps and of the evals (``split_counts``)."""
+    out = {ops: {k: collections.Counter() for k in LEDGER_PARTS}
+           for ops in ("training", "serving")}
+    for task in ("grounding", "nlvr"):
+        r = finetune_task_phase(args, task, root, th_path, tok_dir, words, image_root, dev, smi)
+        torch.cuda.empty_cache()
+        for ops, c in split_counts(r["counts"], [s["delta"] for s in r["steps"]]).items():
+            for k in LEDGER_PARTS:
+                out[ops][k].update(c[k])
+    return out
 
 
 def main(argv=None) -> int:
@@ -2482,60 +3077,39 @@ def run(args, dev: torch.device) -> int:
 
     # ---- phases 7 and 8: the launcher's pretrain and retrieval tasks ----
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        th_path, tok_dir, words, pre_counts, region_flash = pretrain_launcher_phase(
+        th_path, tok_dir, words, pre_counts = pretrain_launcher_phase(
             root, args.seed, dev, args, smi)
         torch.cuda.empty_cache()
         ret_counts = retrieval_launcher_phase(args, root, th_path, tok_dir, words, dev, smi)
+        torch.cuda.empty_cache()
+        # ---- phase 9: the launcher's grounding and NLVR2 fine-tunes ----
+        ft_counts = finetune_launcher_phase(args, root, th_path, tok_dir, words,
+                                            os.path.join(root, "flickr"), dev, smi)
     torch.cuda.empty_cache()
 
-    # launches on the main paths: bf16 serving requests, one train step,
-    # int8 serving requests
-    def entry(e, serving, training, int8=0, pretrain_launcher=0, retrieval_launcher=0):
-        e = {k: v for k, v in e.items() if k != "key"}
-        return dict(e, launches=serving + training + int8 + pretrain_launcher
-                    + retrieval_launcher,
-                    launches_by_path={"serving": serving, "train_step": training,
-                                      "int8_serving": int8,
-                                      "pretrain_launcher": pretrain_launcher,
-                                      "retrieval_launcher": retrieval_launcher})
+    # the attention launches of the main paths (bf16 serving requests, one
+    # train step, int8 serving requests, the launcher's tasks) by kernel,
+    # operands and shape; each entry of the kernels line takes those of its
+    # checked shape, and a launch at a shape no check held fails the run
+    ledger = collections.Counter()
+    for path, c in (("serving", by_shape), ("int8_serving", q_by_shape)):
+        ledger_add(ledger, path, "serving", {"tiny_fwd": c["tiny"],
+                                             "flash_fwd_shapes": c["flash"]})
+    ledger_add(ledger, "train_step", "training", train)
+    ledger_add(ledger, "pretrain_launcher", "training", pre_counts)
+    for path, split in (("retrieval_launcher", ret_counts), ("finetune_launcher", ft_counts)):
+        for operands, c in split.items():
+            ledger_add(ledger, path, operands, c)
 
-    def launcher(e, counts):   # a tiny entry's launches in phase 7 or 8, by shape
-        return counts["tiny_fwd" if e["name"] == "tiny_attention_fwd" else "tiny_bwd"][e["key"]]
-
-    kernels = []
-    for e in flash_entries:   # B=128 serving, B=32 the train step, B=50 the region stream
-        path = e.pop("path")
-        if path == "region":
-            kernels.append(entry(e, 0, 0, 0, region_flash["flash_attention_fwd"]))
-            continue
-        serving = path == "serving"
-        kernels.append(entry(e, sum(p[0] for p in per_request.values()) if serving else 0,
-                             0 if serving else train["flash_attention_fwd"],
-                             sum(p[0] for p in q_per_request.values()) if serving else 0))
-    for e in tiny_entries:
-        serving = e.pop("main_path_launches") == "all"
-        kernels.append(entry(e, by_shape["tiny"][e["key"]] if serving else 0,
-                             train["tiny_attention_fwd"][e["key"]],
-                             q_by_shape["tiny"][e["key"]] if serving else 0,
-                             launcher(e, pre_counts), launcher(e, ret_counts)))
-    for e in tiled_entries:   # the 40 x 584 shapes: phase 8's fine-tune and rerank
-        if launcher(e, ret_counts) or launcher(e, pre_counts):
-            kernels.append(entry(e, 0, 0, 0, launcher(e, pre_counts), launcher(e, ret_counts)))
-        else:
-            log(f"{e['name']} {e['shape']}: checked and timed; no main-path launch at this "
-                f"shape, so not in the kernels line")
-    for e in flash_bwd_entries:   # B=32 the train step, B=50 the region stream
-        if e.pop("path") == "region":
-            kernels.append(entry(e, 0, 0, 0, region_flash[e["name"]]))
-        else:
-            kernels.append(entry(e, 0, train[e["name"]]))
-    for e in tiny_bwd_entries:
-        kernels.append(entry(e, 0, train["tiny_attention_bwd"][e["key"]], 0,
-                             launcher(e, pre_counts), launcher(e, ret_counts)))
-    for e in int8_gemm_entries:
-        kernels.append(entry(e, 0, 0, q_by_shape["int8_matmul"][e["key"]]))
-    for e in int8_quant_entries:
-        kernels.append(entry(e, 0, 0, q_by_shape["int8_quantize"][e["key"]]))
+    kernels = attention_kernels(ledger, flash_entries + tiny_entries + flash_bwd_entries +
+                                tiny_bwd_entries, tiled_entries)
+    for entries, counter in ((int8_gemm_entries, "int8_matmul"),
+                             (int8_quant_entries, "int8_quantize")):
+        for e in entries:   # the int8 serving path only, by (M, K, N) / (M, K)
+            n = q_by_shape[counter][e["key"]]
+            kernels.append(dict({k: v for k, v in e.items() if k != "key"}, launches=n,
+                                launches_by_path={p: n if p == "int8_serving" else 0
+                                                  for p in PATHS}))
     for e in kernels:
         if e["launches"] == 0:
             fail(f"{e['name']} ({e['shape']}) was not launched on the main path")

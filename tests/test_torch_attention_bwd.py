@@ -187,6 +187,22 @@ def test_tiny_bwd_reference_matches_jax(name):
 
 
 @pytest.mark.parametrize("name", sorted(TINY_CASES))
+def test_tiny_bwd_reference_with_out_matches_jax(name):
+    """The plain backward taking its row sums from the forward's ``out``
+    (as the key-tiled kernel does) gives the JAX gradients in fp32."""
+    q, k, v, g, key_mask, dmask, H, scale = _tiny_inputs(name)
+    want = _jax_tiny_grads(q, k, v, g, key_mask, dmask, H, scale)
+    dm = None if dmask is None else _t(dmask)
+    out, probs = tiny_attention_fwd(_t(q), _t(k), _t(v), H,
+                                    None if key_mask is None else _t(key_mask), dm,
+                                    scale, return_probs=True)
+    got = tiny_attention_bwd_reference(_t(q), _t(k), _t(v), probs, dm, _t(g), H, scale,
+                                       out=out)
+    for label, a, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), w, err_msg=label, **TOL)
+
+
+@pytest.mark.parametrize("name", sorted(TINY_CASES))
 def test_tiny_autograd_matches_jax(name):
     q, k, v, g, key_mask, dmask, H, scale = _tiny_inputs(name)
     want = _jax_tiny_grads(q, k, v, g, key_mask, dmask, H, scale)

@@ -7,6 +7,7 @@ a CUDA tensor when the kernel cannot be built. The kernels themselves run only o
 (``chip_smoke.py`` holds the C route rule, the C formulas and the C group
 count equal to these)."""
 
+import collections
 import contextlib
 import ctypes
 import importlib.util
@@ -259,6 +260,19 @@ def _fake_launch(kernel, dtype, head_dim, bias_bh, monkeypatch, B=3, S=197):
     else:
         fa._bwd_launchers(q, k, v, bias, None, out, lse, dout, False, 1.0)[kernel]()
     return {r: n - before.get(r, 0) for r, n in counter.items() if n != before.get(r, 0)}, calls
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv", "dbias"])
+def test_flash_launches_are_counted_by_shape(kernel, monkeypatch):
+    """Each launch is counted once by its (B, Sq, Skv), the backward's by
+    (kernel, B, Sq, Skv), beside its route."""
+    counter = fa.flash_attention_fwd.launches_by_shape if kernel == "fwd" \
+        else fa.flash_attention_bwd.launches_by_shape
+    before = collections.Counter(counter)
+    routes, _ = _fake_launch(kernel, BF16, 64, (1, 2), monkeypatch, B=5, S=77)
+    key = (5, 77, 77) if kernel == "fwd" else (kernel, 5, 77, 77)
+    assert counter - before == collections.Counter({key: 1})
+    assert routes == {"tensor_core" if kernel == "fwd" else (kernel, "tensor_core"): 1}
 
 
 @pytest.mark.parametrize("dtype,head_dim,bias_bh,groups", [

@@ -156,10 +156,19 @@ def test_a_reference_th_loads_through_checkpoint(corpus, tmp_path):
     assert run.load_initial_params(args, cfg, model) == []
 
 
-@pytest.mark.parametrize("task,item", [("vqa", "A6"), ("nlvr", "A6"), ("xretrieval", "A8"),
+@pytest.mark.parametrize("task,item", [("vqa", "A6"), ("classification", "A8"),
+                                       ("marvl", "A8"), ("xretrieval", "A8"),
                                        ("video_qa", "A8"), ("captioning", "A6")])
 def test_unported_tasks_raise_naming_their_item(corpus, task, item):
     with pytest.raises(NotImplementedError, match=item):
+        _main(corpus, f"task_{task}", _model_cfg(corpus), task)
+
+
+@pytest.mark.parametrize("task", ["grounding", "nlvr"])
+def test_grounding_and_nlvr_are_no_longer_refused(corpus, task):
+    """They pass the task gate and build their model; the config here has
+    no data for them, so the run stops at the dataset."""
+    with pytest.raises(KeyError, match="test_file"):
         _main(corpus, f"task_{task}", _model_cfg(corpus), task)
 
 

@@ -121,7 +121,7 @@ def _heads(sd, src) -> None:
             _linear(sd, src, name, name)
     if "temp" in src:
         sd["temp"] = np.asarray(src.pop("temp")).reshape(())
-    for head in ("itm_head", "bbox_head"):
+    for head in ("itm_head", "bbox_head", "cls_head"):
         if f"{head}/fc1/kernel" in src:
             _linear(sd, src, f"{head}/fc1", f"{head}.0")
             _norm(sd, src, f"{head}/ln", f"{head}.1")
@@ -130,12 +130,15 @@ def _heads(sd, src) -> None:
 
 def convert_jax_params(params: Mapping, *, device=None
                        ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
-    """JAX ``XVLMForRetrieval`` / ``XVLMForPretrain`` / ``XVLMBase`` params
-    -> (state dict of the port's ``XVLMBase`` under the reference names, on
-    ``device`` (the card unless ``device="cpu"``); sorted JAX keys the port
-    does not carry, none for these models). The ``params/`` collection and
-    a task head's ``base/`` scope are dropped: load the result into
-    ``XVLMForRetrieval`` itself or into ``XVLMForPretrain.base``."""
+    """JAX ``XVLMForRetrieval`` / ``XVLMForPretrain`` / ``XVLMForGrounding``
+    / ``XVLMForNLVR`` / ``XVLMBase`` params -> (state dict of the port's
+    model under the reference names, on ``device`` (the card unless
+    ``device="cpu"``); sorted JAX keys the port does not carry, none for
+    these models). The ``params/`` collection and a task head's ``base/``
+    scope are dropped, a head the task keeps beside the core (NLVR's
+    ``cls_head``) stays: load the result into ``XVLMForRetrieval``,
+    ``XVLMForGrounding`` or ``XVLMForNLVR`` itself, or into
+    ``XVLMForPretrain.base``."""
     device = resolve_device(device)
     flat = params if all(not isinstance(v, Mapping) for v in params.values()) \
         else flatten_params(params)

@@ -3,10 +3,12 @@ x2vlm_tpu/factory.py): the YAML schema's vision / text / XVLM keys ->
 ``XVLMConfig`` and the task's model.
 
 The port builds BEiT-2 + BERT X2-VLM models for ``"pretrain"``
-(``XVLMForPretrain``) and ``"retrieval"`` (``XVLMForRetrieval``). A config
-that asks for what the port does not build raises, naming the ROADMAP
-queue item that brings it: CLIP / Swin towers (A7), RoBERTa text encoders
-and ``model_type: cclm`` / video encodings (A8), other tasks' heads (A6),
+(``XVLMForPretrain``), ``"retrieval"`` (``XVLMForRetrieval``),
+``"grounding"`` (``XVLMForGrounding``) and ``"nlvr"`` (``XVLMForNLVR``). A
+config that asks for what the port does not build raises, naming the
+ROADMAP queue item that brings it: CLIP / Swin towers (A7), RoBERTa text
+encoders, ``model_type: cclm`` / video encodings and the generic
+classification / multiple-choice heads (A8), VQA and captioning (A6),
 int8 serving from a config, and ``remat`` (not ported, by decision: the
 step peaks far below the card's memory).
 """
@@ -119,18 +121,21 @@ def model_dtype(config: Dict) -> torch.dtype:
 
 
 def build_model(config: Dict, task: str, *, device, dtype=None, seed=0):
-    """(model, XVLMConfig) for ``task`` ("pretrain" | "retrieval") on
-    ``device``, its parameters filled from ``seed`` (None: left for
-    ``load_state_dict``)."""
-    from x2vlm_tpu_torch.models.heads import XVLMForPretrain, XVLMForRetrieval
+    """(model, XVLMConfig) for ``task`` ("pretrain" | "retrieval" |
+    "grounding" | "nlvr") on ``device``, its parameters filled from
+    ``seed`` (None: left for ``load_state_dict``)."""
+    from x2vlm_tpu_torch.models import (
+        XVLMForGrounding, XVLMForNLVR, XVLMForPretrain, XVLMForRetrieval,
+    )
 
+    models = {"pretrain": XVLMForPretrain, "retrieval": XVLMForRetrieval,
+              "grounding": XVLMForGrounding, "nlvr": XVLMForNLVR}
+    if task in ("vqa", "captioning"):
+        _refuse(f"the {task} model", "A6")
+    if task in ("classification", "multiple_choice"):
+        _refuse(f"the {task} model", "A8")
+    if task not in models:
+        raise ValueError(f"unknown task {task!r}")
     dtype = dtype or model_dtype(config)
     cfg = xvlm_config_from_yaml(config)
-    if task == "pretrain":
-        return XVLMForPretrain(cfg, dtype=dtype, device=device, seed=seed), cfg
-    if task == "retrieval":
-        return XVLMForRetrieval(cfg, dtype=dtype, device=device, seed=seed), cfg
-    if task in ("vqa", "nlvr", "grounding", "captioning", "classification",
-                "multiple_choice"):
-        _refuse(f"the {task} model", "A6")
-    raise ValueError(f"unknown task {task!r}")
+    return models[task](cfg, dtype=dtype, device=device, seed=seed), cfg

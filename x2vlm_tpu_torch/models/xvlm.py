@@ -74,15 +74,18 @@ class MlpHead(nn.Sequential):
 class XVLMBase(nn.Module):
     """Composition core. ``seed`` fills every parameter from a
     ``torch.Generator`` on ``device``; ``seed=None`` leaves them for
-    ``load_state_dict``. Modules start in eval mode. ``mlm_head`` builds
-    the MLM head and ``bbox_head`` the bbox head, for a task that trains
-    them: the JAX package creates a head's parameters only where a task
-    calls it."""
+    ``load_state_dict``. Modules start in eval mode. The head flags build
+    the parameters a task has, as the JAX package creates a head's
+    parameters only where a task's ``setup`` makes them: ``projections``
+    the contrastive ``vision_proj`` / ``text_proj``, ``temp`` the
+    temperature (unless ``fix_temp``), ``itm_head``, ``mlm_head`` and
+    ``bbox_head``."""
 
     def __init__(self, config: Optional[XVLMConfig] = None, *,
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  seed: Optional[int] = 0, mlm_head: bool = False,
-                 bbox_head: bool = False):
+                 bbox_head: bool = False, projections: bool = True, temp: bool = True,
+                 itm_head: bool = True):
         super().__init__()
         device = resolve_device(device)
         cfg = self.config = config or XVLMConfig.base()
@@ -94,21 +97,28 @@ class XVLMBase(nn.Module):
         self.text_encoder = TextEncoder(cfg.text, dtype=dtype, device=device,
                                         mlm_head=mlm_head)
         vw, tw = cfg.vision.embed_dim, cfg.text.hidden_size
-        self.vision_proj = linear(vw, cfg.embed_dim, device=device)
-        self.text_proj = linear(tw, cfg.embed_dim, device=device)
-        if not cfg.fix_temp:
+        if projections:
+            self.vision_proj = linear(vw, cfg.embed_dim, device=device)
+            self.text_proj = linear(tw, cfg.embed_dim, device=device)
+        if temp and not cfg.fix_temp:
             self.temp = nn.Parameter(torch.empty((), device=device))
-        self.itm_head = MlpHead(tw, 2, dtype=dtype, device=device)
+        if itm_head:
+            self.itm_head = MlpHead(tw, 2, dtype=dtype, device=device)
         if bbox_head:
             self.bbox_head = MlpHead(tw, 4, dtype=dtype, device=device)
+        self.fill(seed)
+
+    def fill(self, seed: Optional[int]) -> None:
+        """Every parameter from ``seed`` (None: left as allocated); eval mode.
+        A task model that adds a head after the core calls it again."""
         if seed is not None:
-            gen = torch.Generator(device=device)
+            gen = torch.Generator(device=self.vision_encoder.cls_token.device)
             gen.manual_seed(seed)
             init_weights(self, gen)
         self.eval()
 
     def init_extra(self, generator: torch.Generator, std: float) -> None:
-        if not self.config.fix_temp:
+        if "temp" in self._parameters:
             self.temp.fill_(self.config.temp)
 
     def get_vision_embeds(self, image: torch.Tensor, generator=None, image_atts=None,
@@ -177,7 +187,7 @@ class XVLMBase(nn.Module):
     def get_temp(self) -> torch.Tensor:
         if self.config.fix_temp:
             return torch.tensor(self.config.temp, dtype=torch.float32,
-                                device=self.text_proj.weight.device)
+                                device=self.vision_encoder.cls_token.device)
         # clamped in the graph; the optimizer also projects the parameter
         return self.temp.clamp(0.001, 0.5)
 

@@ -347,12 +347,15 @@ tiny_attention_fwd.launches_by_walk = collections.Counter()
 def tiny_attention_bwd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, probs: torch.Tensor,
     dmask: Optional[torch.Tensor], g: torch.Tensor, num_heads: int,
-    scale: float = 1.0,
+    scale: float = 1.0, *, out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch tiny backward from the forward's fp32 probabilities:
     returns (dq, dk, dv) on the projection layout, dq for the unscaled q.
     dL and P * dm are cast to the input dtype before their products, as the
-    JAX ``_bwd_kernel`` casts them; products accumulate in fp32."""
+    JAX ``_bwd_kernel`` casts them; products accumulate in fp32. The
+    softmax backward's row sums are rowsum(dP * dm * P); given the
+    forward's ``out``, rowsum(g * out) in fp32 over its stored values
+    instead, as the key-tiled tensor-core kernel takes them."""
     B, Sq, HD = q.shape
     Skv = k.shape[1]
     H = num_heads
@@ -369,7 +372,9 @@ def tiny_attention_bwd_reference(
     dp = torch.matmul(g4, v4.transpose(-1, -2))
     if dm is not None:
         dp = dp * dm
-    dl = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(dt).float()
+    rows = (dp * p).sum(-1, keepdim=True) if out is None else \
+        (g4 * heads(out, Sq)).sum(-1, keepdim=True)
+    dl = (p * (dp - rows)).to(dt).float()
     dqs4 = torch.matmul(dl, k4).to(dt)
     dk4 = torch.matmul(dl.transpose(-1, -2), qs4)
     merge = lambda t, n: t.transpose(1, 2).reshape(B, n, HD)

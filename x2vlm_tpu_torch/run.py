@@ -1,5 +1,5 @@
 """The launcher (the port's counterpart of x2vlm_tpu/run.py), for the tasks
-the port has: ``pretrain`` and ``retrieval``.
+the port has: ``pretrain``, ``retrieval``, ``grounding`` and ``nlvr``.
 
 Usage:
     python -m x2vlm_tpu_torch.run --task retrieval \\
@@ -21,11 +21,15 @@ process, one card.
   AdamW ``mu`` / ``nu`` / ``count``, step) and, for pretraining, the data
   cursors of the streams (image, aux, region, text), so the run continues
   where it stopped.
-- ``--evaluate`` evaluates only (retrieval).
+- ``--evaluate`` evaluates only (the fine-tune tasks): retrieval's R@k,
+  grounding's IoU >= 0.5 accuracy per split (``refs_file``; a VLUE test
+  set with ``vlue_test``), NLVR2's accuracy (per split when ``test_file``
+  is a dict).
 
 The config is validated against the JAX package's key registry
 (core/config_schema.py). What the port does not run raises, naming its
-ROADMAP item: every other task (A6, A8), the video / parallel-text and
+ROADMAP item: every other task (A6: VQA, captioning; A8: MARVL, classification
+and the other multilingual and video tasks), the video / parallel-text and
 multilingual (``languages``) streams (A8), other vision towers and
 converters (A7), and, as in the JAX launcher, ``mixed_in_batch: false``
 and ``tokenized: true``.
@@ -54,7 +58,8 @@ from x2vlm_tpu_torch.train import create_optimizer, lr_schedule, make_train_step
 from x2vlm_tpu_torch.train import checkpoint as ckpt_lib
 
 __all__ = ["TASKS", "UNPORTED", "parse_args", "setup", "make_optimizer", "maybe_resume",
-           "load_initial_params", "run_retrieval", "run_pretrain", "main", "to_device"]
+           "load_initial_params", "eval_multi", "finetune", "run_retrieval", "run_grounding",
+           "run_nlvr", "run_pretrain", "main", "to_device"]
 
 TASKS = ("pretrain", "retrieval", "xretrieval", "wit", "xflickrco", "video_retrieval", "vqa",
          "xgqa", "nlvr", "marvl", "grounding", "captioning", "classification", "xvnli",
@@ -62,8 +67,7 @@ TASKS = ("pretrain", "retrieval", "xretrieval", "wit", "xflickrco", "video_retri
 # the JAX launcher's other tasks and the ROADMAP items that bring them
 UNPORTED = {"xretrieval": "A8", "wit": "A8", "xflickrco": "A8", "video_retrieval": "A8",
             "xgqa": "A8", "marvl": "A8", "xvnli": "A8", "video_qa": "A8", "next_qa_mc": "A8",
-            "vqa": "A6", "nlvr": "A6", "grounding": "A6", "captioning": "A6",
-            "classification": "A6"}
+            "classification": "A8", "vqa": "A6", "captioning": "A6"}
 # pretraining streams the port does not build: (config file key, block) -> item
 UNPORTED_STREAMS = {("train_file_videos", "videos"): "A8",
                     ("train_file_videos_aux", "videos"): "A8",
@@ -105,8 +109,8 @@ def setup(args):
     to ``output_dir/config.json``; the global RNGs seeded."""
     if args.task in UNPORTED:
         raise NotImplementedError(f"--task {args.task} comes with ROADMAP queue item "
-                                  f"{UNPORTED[args.task]}; the port runs pretrain and "
-                                  f"retrieval")
+                                  f"{UNPORTED[args.task]}; the port runs pretrain, "
+                                  f"retrieval, grounding and nlvr")
     if args.fewshot:
         raise NotImplementedError("--fewshot (IGLUE) comes with ROADMAP queue item A8")
     os.makedirs(args.output_dir, exist_ok=True)
@@ -224,33 +228,32 @@ def to_device(batch: Dict, device: torch.device) -> Dict:
     return out
 
 
-def run_retrieval(args, cfg, device):
-    """Fine-tune and / or evaluate with the two-stage ITC -> ITM protocol
-    (reference Retrieval.py)."""
-    from x2vlm_tpu_torch.data.factory import create_dataset
-    from x2vlm_tpu_torch.tasks.retrieval import evaluate_retrieval
+def eval_multi(eval_one, eval_sets, mean_key=None) -> Dict:
+    """``eval_one`` over a {split: dataset} dict, each metric as
+    ``{split}_{key}``, and ``mean_key`` averaged over the splits (the JAX
+    launcher's ``eval_multi``); a single dataset passes through."""
+    if not isinstance(eval_sets, dict):
+        return eval_one(eval_sets)
+    out, vals = {}, []
+    for split, ds in eval_sets.items():
+        m = eval_one(ds)
+        out.update({f"{split}_{k}": v for k, v in m.items()})
+        if mean_key and mean_key in m:
+            vals.append(m[mean_key])
+    if mean_key and vals:
+        out[mean_key] = sum(vals) / len(vals)
+    return out
 
-    model, mcfg = build_model(cfg, "retrieval", device=device, seed=args.seed)
-    train_ds, test_ds = create_dataset("retrieval", cfg, evaluate=args.evaluate,
-                                       rng=random.Random(args.seed))
+
+def finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, metric_key):
+    """The tail every fine-tune task shares (the JAX ``_finetune_common`` and
+    ``_train_state_and_loop``): the ``--checkpoint`` import, then either
+    ``--evaluate`` (returns the metrics) or the epochs: AdamW with its
+    groups, ``--resume``, one step per batch of ``batch_size``, an eval after
+    each epoch, the train state saved every epoch and the best by
+    ``metric_key`` (None: none) kept in ``ckpt_best`` (returns the last
+    epoch's record)."""
     fresh = load_initial_params(args, cfg, model)
-    metric_key = ("img_r_mean" if cfg.get("pick_best_t2v") else
-                  "r1_mean" if cfg.get("pick_best_r1") else "r_mean")
-
-    def eval_fn():
-        kw = dict(device=device, k_test=cfg.get("k_test", 128),
-                  batch_images=cfg.get("batch_size_test", 64),
-                  batch_texts=cfg.get("batch_size_test_text", 256))
-        if isinstance(test_ds, dict):
-            out, vals = {}, []
-            for lang, ds in test_ds.items():
-                m = evaluate_retrieval(model, ds, **kw)
-                out.update({f"{lang}_{k}": v for k, v in m.items()})
-                vals.append(m[metric_key])
-            out[metric_key] = sum(vals) / len(vals)
-            return out
-        return evaluate_retrieval(model, test_ds, **kw)
-
     if args.evaluate:
         metrics = eval_fn()
         print(metrics)
@@ -280,6 +283,75 @@ def run_retrieval(args, cfg, device):
     return train_epochs(step_fn, loader, num_epochs=epochs, start_epoch=start_epoch,
                         eval_fn=eval_fn, eval_start_epoch=int(cfg.get("start_eval", 0)),
                         metric_key=metric_key, output_dir=args.output_dir, save_fn=save_fn)
+
+
+def run_retrieval(args, cfg, device):
+    """Fine-tune and / or evaluate with the two-stage ITC -> ITM protocol
+    (reference Retrieval.py)."""
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.tasks.retrieval import evaluate_retrieval
+
+    model, mcfg = build_model(cfg, "retrieval", device=device, seed=args.seed)
+    train_ds, test_ds = create_dataset("retrieval", cfg, evaluate=args.evaluate,
+                                       rng=random.Random(args.seed))
+    metric_key = ("img_r_mean" if cfg.get("pick_best_t2v") else
+                  "r1_mean" if cfg.get("pick_best_r1") else "r_mean")
+
+    def eval_fn():
+        return eval_multi(lambda ds: evaluate_retrieval(
+            model, ds, device=device, k_test=cfg.get("k_test", 128),
+            batch_images=cfg.get("batch_size_test", 64),
+            batch_texts=cfg.get("batch_size_test_text", 256)), test_ds, mean_key=metric_key)
+
+    return finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, metric_key)
+
+
+def run_grounding(args, cfg, device):
+    """Fine-tune and / or evaluate the bbox grounding head (reference
+    Grounding_bbox.py): IoU >= 0.5 accuracy per split against ``refs_file``
+    (``val_acc`` picks the best epoch), or a VLUE test set's ``score``."""
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.evalkit import grounding_eval_bbox, grounding_eval_bbox_vlue
+    from x2vlm_tpu_torch.tasks.grounding import predict_grounding
+
+    model, mcfg = build_model(cfg, "grounding", device=device, seed=args.seed)
+    train_ds, test_ds = create_dataset("grounding", cfg, evaluate=args.evaluate,
+                                       rng=random.Random(args.seed))
+    refs = None
+    if cfg.get("refs_file"):
+        with open(cfg["refs_file"]) as f:
+            refs = {int(k): v for k, v in json.load(f).items()}
+
+    def eval_fn():
+        results = predict_grounding(model, test_ds, device=device,
+                                    batch_size=cfg.get("batch_size_test", 32))
+        if cfg.get("vlue_test"):   # the test json carries its own boxes
+            tf = cfg["test_file"]
+            return grounding_eval_bbox_vlue(results, tf[0] if isinstance(tf, (list, tuple))
+                                            else tf)
+        return grounding_eval_bbox(results, refs) if refs else {"n": len(results)}
+
+    metric_key = "score" if cfg.get("vlue_test") else "val_acc" if refs else None
+    return finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, metric_key)
+
+
+def run_nlvr(args, cfg, device):
+    """Fine-tune and / or evaluate NLVR2 (reference NLVR.py): one text
+    against two images, accuracy (averaged over the splits of a dict
+    ``test_file``)."""
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.tasks.classification import evaluate_classification
+
+    model, mcfg = build_model(cfg, "nlvr", device=device, seed=args.seed)
+    train_ds, test_ds = create_dataset("nlvr", cfg, evaluate=args.evaluate,
+                                       rng=random.Random(args.seed))
+
+    def eval_fn():
+        return eval_multi(lambda ds: evaluate_classification(
+            model, ds, device=device, batch_size=cfg.get("batch_size_test", 32)), test_ds,
+            mean_key="accuracy")
+
+    return finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, "accuracy")
 
 
 class _Tracked:
@@ -459,10 +531,9 @@ def main(argv=None):
     cfg = setup(args)
     device = resolve_device(args.device)
     t0 = time.time()
-    if args.task == "pretrain":
-        out = run_pretrain(args, cfg, device)
-    else:
-        out = run_retrieval(args, cfg, device)
+    runners = {"pretrain": run_pretrain, "retrieval": run_retrieval,
+               "grounding": run_grounding, "nlvr": run_nlvr}
+    out = runners[args.task](args, cfg, device)
     print(f"total time: {time.time() - t0:.0f}s")
     return out
 

@@ -1,10 +1,12 @@
-"""Retrieval serving on the card (counterpart of the JAX package's
-``serving.ServingBundle``): the two encoders and the ITM rerank head.
+"""Serving on the card (counterpart of the JAX package's
+``serving.ServingBundle`` and ``GroundingBundle``): retrieval's two
+encoders and ITM rerank head, and the grounding box predictor.
 
-``RetrievalServer.from_npz`` loads the ``params.npz`` of a JAX retrieval
-bundle through ``convert.py``; ``RetrievalServer(model)`` serves a model
-built in the port. Requests run under ``torch.inference_mode`` and return
-tensors on the serving device.
+``RetrievalServer.from_npz`` / ``GroundingServer.from_npz`` load the
+``params.npz`` of a JAX retrieval / grounding bundle through
+``convert.py``; ``RetrievalServer(model)`` / ``GroundingServer(model)``
+serve a model built in the port. Requests run under
+``torch.inference_mode`` and return tensors on the serving device.
 """
 
 from __future__ import annotations
@@ -17,35 +19,44 @@ import torch
 
 from x2vlm_tpu_torch.convert import convert_jax_params, load_params_npz
 from x2vlm_tpu_torch.device import resolve_device
+from x2vlm_tpu_torch.models.grounding import XVLMForGrounding
 from x2vlm_tpu_torch.models.heads import XVLMForRetrieval
 from x2vlm_tpu_torch.models.xvlm import XVLMConfig
 
-__all__ = ["RetrievalServer"]
+__all__ = ["RetrievalServer", "GroundingServer"]
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
 
-class RetrievalServer:
-    def __init__(self, model: XVLMForRetrieval):
+class _Server:
+    """A model in eval mode on its device; ``from_npz`` builds ``MODEL``
+    from a JAX bundle's parameters."""
+
+    MODEL = XVLMForRetrieval
+    IMAGE_RES = 224   # the default config's resolution
+
+    def __init__(self, model):
         self.model = model.eval()
         self.device = model.vision_encoder.cls_token.device
 
     @classmethod
     def from_npz(cls, path: Union[str, os.PathLike],
                  config: Optional[XVLMConfig] = None, *,
-                 dtype: torch.dtype = torch.bfloat16, device=None) -> "RetrievalServer":
-        """Serve the JAX parameters in ``path`` (a retrieval bundle's
-        ``params.npz``) with ``config`` (X2VLM-base by default)."""
+                 dtype: torch.dtype = torch.bfloat16, device=None):
+        """Serve the JAX parameters in ``path`` (a bundle's ``params.npz``)
+        with ``config`` (X2VLM-base at ``IMAGE_RES`` by default)."""
         device = resolve_device(device)
         state, _ = convert_jax_params(load_params_npz(path), device=device)
-        model = XVLMForRetrieval(config or XVLMConfig.base(), dtype=dtype,
-                                 device=device, seed=None)
+        model = cls.MODEL(config or XVLMConfig.base(image_res=cls.IMAGE_RES), dtype=dtype,
+                          device=device, seed=None)
         model.load_state_dict(state)
         return cls(model)
 
     def _in(self, x: ArrayLike) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device, non_blocking=True)
 
+
+class RetrievalServer(_Server):
     @torch.inference_mode()
     def encode_images(self, images: ArrayLike):
         """NHWC float or uint8 images -> (embeds, feat)."""
@@ -62,3 +73,18 @@ class RetrievalServer:
         """(N,) ITM match logits of the candidate pairs, fp32."""
         return self.model.itm_score(self._in(image_embeds), self._in(text_embeds),
                                     self._in(text_atts))
+
+
+class GroundingServer(_Server):
+    """Image + referring expression -> box (reference model_grounding.py),
+    at 384 px by default, the shipped grounding config's resolution."""
+
+    MODEL = XVLMForGrounding
+    IMAGE_RES = 384
+
+    @torch.inference_mode()
+    def predict(self, image: ArrayLike, text_ids: ArrayLike, text_atts: ArrayLike
+                ) -> torch.Tensor:
+        """NHWC images, (B, L) token ids and attention mask -> (B, 4) boxes,
+        cxcywh normalised to [0, 1], fp32."""
+        return self.model.predict(self._in(image), self._in(text_ids), self._in(text_atts))

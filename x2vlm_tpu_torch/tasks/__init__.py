@@ -1,2 +1,3 @@
 """The launcher's tasks: the mixed-stream pretraining loop, the fine-tune
-epoch loop and the two-stage retrieval evaluation."""
+epoch loop, the two-stage retrieval evaluation, grounding prediction and
+classification accuracy."""

@@ -1,7 +1,8 @@
 """Fine-tune epoch loop (the port's counterpart of
 x2vlm_tpu/tasks/finetune.py; reference Retrieval.py:218-282): epochs from
 a resume point, an eval after each (from ``start_eval`` on), a JSON-lines
-``log.txt``, a save every epoch and the best epoch kept aside."""
+``log.txt``, a save every epoch and the best epoch kept aside; and the
+fixed-size batches the map-style evals run on."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Callable, Dict, Optional
 
 from x2vlm_tpu_torch.train.metrics import MetricLogger
 
-__all__ = ["train_epochs", "append_log"]
+__all__ = ["train_epochs", "append_log", "padded_batches"]
 
 
 def append_log(output_dir: str, record: Dict):
@@ -19,6 +20,17 @@ def append_log(output_dir: str, record: Dict):
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, "log.txt"), "a") as f:
         f.write(json.dumps(record) + "\n")
+
+
+def padded_batches(dataset, batch_size: int):
+    """(samples, rows) per batch of ``dataset`` in order: the last batch's
+    rows padded with copies of its last sample, as the JAX eval loops pad
+    it, so every call has ``batch_size`` rows; the copies' outputs are
+    dropped."""
+    n = len(dataset)
+    for lo in range(0, n, batch_size):
+        samples = [dataset[i] for i in range(lo, min(lo + batch_size, n))]
+        yield samples, samples + [samples[-1]] * (batch_size - len(samples))
 
 
 def train_epochs(step_fn: Callable[[Dict, int], Dict], loader, *, num_epochs: int,

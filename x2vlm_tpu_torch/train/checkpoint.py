@@ -13,9 +13,12 @@ JAX ``_interp_rel_pos_table``), checks shapes and loads with
 reported as unexpected: the tied MLM decoder (the word-embedding table),
 the static relative-position index (rebuilt from the window) and, in a
 retrieval model, the MLM and bbox heads (its JAX counterpart has neither:
-flax creates a head's parameters only where the task calls it). The bbox
-head ``bbox_head.{0,1,3}`` loads into a pretraining model. Parameters the
-file lacks stay fresh; their names (inside the composition core) are
+flax creates a head's parameters only where the task calls it), and in a
+grounding or NLVR2 model whatever of the projections, ``temp`` and the
+ITM, MLM and bbox heads it does not carry. The bbox head
+``bbox_head.{0,1,3}`` loads into a pretraining and a grounding model.
+Parameters the file lacks stay fresh (NLVR2's ``cls_head`` from a
+pretraining file); their names (inside the composition core) are
 returned for the optimizer's ``lr_mult`` group, and :func:`import_report`
 names the subtrees left wholly fresh, as the JAX launcher's
 ``_import_report`` does. The CLIP / Swin / HF-BERT converters and the
@@ -102,8 +105,9 @@ def interp_rel_pos_table(table: np.ndarray, src_window: int, dst_window: int) ->
 
 
 def _core(model: nn.Module) -> nn.Module:
-    """The composition core that carries the reference names (a task model
-    such as ``XVLMForPretrain`` holds it under ``base``)."""
+    """The composition core that carries the reference names:
+    ``XVLMForPretrain`` holds it under ``base``; the retrieval, grounding and
+    NLVR2 models are it, their heads beside its modules."""
     return model.base if hasattr(model, "base") else model
 
 
