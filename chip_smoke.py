@@ -143,17 +143,48 @@ Phases (any failure exits non-zero and prints no result line):
    and backward held on the model's operands to the plain version (the
    backward's taking its row sums from the forward's output, as the kernel
    does), within half the bf16 rule. Step times (CUDA events and wall), the
-   eval's wall seconds and the peak device memory of each are printed.
+   eval's wall seconds and the peak device memory of each are printed;
+10. the launcher's VQA fine-tune at 768 px from phase 7's ``.th`` (rel-pos
+   tables interpolated 14 -> 48, the answer decoder fresh):
+   ``configs/finetune/vqa2_base.yaml`` at its own sizes (8 questions and
+   16 answer rows a step, 32 questions an eval call, k_test 128, 40
+   question and 10 answer tokens), the data paths pointed at phase 8's PNGs
+   (resized to 768 by the transforms), a written answer list of 3,000
+   answers and question lines (train: 10 human answers or a ``weight``
+   field; test: half with 10 human answers, half with one), cut to 2
+   epochs of 2 steps, the eval of 64 questions (two calls) after the last;
+   then ``--resume`` from the state saved at step 2. Checked: finite
+   losses, ``overall`` and ``acc``, ``vqa_result.json``; the import (only
+   the decoder fresh; the table interpolated 14 -> 48); the launches of
+   each step (12 of each flash kernel at B=8, S=2305; tiny forward and
+   backward 18 at 8 x 40 x 40, 6 key-tiled at 8 x 40 x 2312 and 6 at 16 x
+   10 x 40; the 6 causal decoder self-attentions on the plain core) and
+   eval call (12 flash forwards at B=32; tiny 18 at 32 x 40 x 40, 6 at 32
+   x 40 x 2312, 6 at 32 x 1 x 40 and 6 at 4096 x 10 x 40; 12 plain), every
+   launch on the tensor-core route, the plain attention's calls exactly
+   those; the resumed state equal to the saved one and its batches (data
+   cursor, answer-cut rng) equal to the whole run's bit for bit; and the
+   fine-tuned weights on 2 questions with dropout off, card bf16 against
+   the port's CPU fp32 path: ``loss_vqa`` within 0.05 + 2%, gradient
+   cosines >= 0.99 (the vision tower, a fusion layer, a decoder layer, the
+   decoder head), each bf16 40 x 2312 forward and backward call within
+   half the bf16 rule, ``rank_answer``'s first answers equal and its top-k
+   scores within 0.05. The step's CUDA-event and wall ms, the eval's wall
+   seconds and both peaks are printed.
 
 The 40 x 584 shapes of phases 8 and 9 (the fine-tune's 96-row ITM pass
 with dropout, the 1024- and 512-row rerank, grounding's 20-row bbox pass
 with probabilities and no multiplier, NLVR2's 16-row passes with dropout,
-the 32-row evals) are held in phase 2 too:
+the 32-row evals) and the 40 x 2312 ones of phase 10 (8 rows with
+dropout, 32 rows serving) are held in phase 2 too:
 K5 and K6 on the key-tiled walk against their plain version, timed beside
 SDPA, with the walk rule and its shared-memory formulas held to Python's
-and contract cases of the walk on both routes.
+and contract cases of the walk on both routes. So are phase 10's flash
+shapes at S=2305 (the step's B=8 forward and backward, the eval's B=32
+forward) and its resident tiny shapes (8 x 40 x 40 and 16 x 10 x 40 with
+training operands, 4096 x 10 x 40 and 32 x 1 x 40 serving).
 
-Every attention launch of phases 3 and 5-9 is counted by kernel, shape and
+Every attention launch of phases 3 and 5-10 is counted by kernel, shape and
 operands (serving: no multiplier, no probabilities; training) and must fall
 on a shape phase 2 checked and timed (``FLASH_MAIN_SHAPES``,
 ``TINY_MAIN_SHAPES``, ``TILED_MAIN_SHAPES``); the kernels line gives each
@@ -166,7 +197,8 @@ torch.profiler tables of one round of requests, one int8 round, one train
 step and one region-stream call of phase 7 to ``DIR/chip_smoke_profile.txt``,
 ``DIR/chip_smoke_int8_profile.txt``, ``DIR/chip_smoke_train_profile.txt``
 and ``DIR/chip_smoke_region_profile.txt`` (and phase 8's two, and phase
-9's ``chip_smoke_{grounding,nlvr}_{step,eval}_profile.txt``), each with a
+9's ``chip_smoke_{grounding,nlvr}_{step,eval}_profile.txt`` and phase
+10's ``chip_smoke_vqa_{step,eval}_profile.txt``), each with a
 last line of the port kernels' (attention and K7) device time and
 launches.
 """
@@ -233,6 +265,7 @@ FP32_FLOP_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores (data shee
 BATCH, TEXT_LEN = 128, 40          # serving requests
 N_IMG = 197                        # image stream at 224 px; 200 once padded to 8
 N_IMG_384 = 577                    # at 384 px (the retrieval fine-tune); 584 once padded
+N_IMG_768 = 2305                   # at 768 px (the VQA fine-tune); 2312 once padded
 RERANK_BATCH = 1024                # ITM rerank rows a call at 384 px: 8 images x k_test 128
 # (label, M, K, N, act) of every int8 matmul of the int8 serving path at B=128
 INT8_SHAPES = (("vision qkv", BATCH * N_IMG, 768, 2304, None),
@@ -255,6 +288,11 @@ GROUNDING_BATCH, NLVR_BATCH, FT_EVAL_BATCH = 20, 16, 32
 # the region stream of configs/pretrain/x2vlm_base_4m.yaml: its images a
 # batch (max_images) and its region rows (batch_size)
 REGION_IMAGES, REGION_ROWS = 50, 128
+# vqa2_base.yaml (phase 10): its questions a step, answer rows a step
+# (answers_per_batch, 2 x batch_size), answer length, questions an eval call
+# and answers reranked a question: the rank pass decodes 32 x 128 rows
+VQA_BATCH, VQA_ANSWERS, ANSWER_LEN, VQA_EVAL_BATCH, K_TEST = 8, 16, 10, 32, 128
+VQA_RANK_ROWS = VQA_EVAL_BATCH * K_TEST
 TINY_REPLACES = {"tiny_attention_fwd": "x2vlm_tpu/ops/tiny_attention.py:88",
                  "tiny_attention_bwd": "x2vlm_tpu/ops/tiny_attention.py:135"}
 FLASH_BWD_REPLACES = {"dq": "x2vlm_tpu/ops/flash_attention.py:368",
@@ -373,10 +411,12 @@ def expect_flash_fwd_route(tag, before, dtype, D, n=1) -> None:
 # stream) at B=32 and the region stream at B=50 at 224 px (S=197); at 384 px
 # (S=577) the grounding step's B=20, the 32 images of the NLVR2 step, of
 # phase 8's fine-tune step and of the grounding eval, and the 64 of the
-# NLVR2 eval and of phase 8's eval
+# NLVR2 eval and of phase 8's eval; at 768 px (S=2305) phase 10's VQA step
+# (B=8) and eval call (B=32)
 FLASH_MAIN_SHAPES = ((BATCH, N_IMG, False), (TRAIN_BATCH, N_IMG, True),
                      (REGION_IMAGES, N_IMG, True), (GROUNDING_BATCH, N_IMG_384, True),
-                     (2 * NLVR_BATCH, N_IMG_384, True), (2 * FT_EVAL_BATCH, N_IMG_384, False))
+                     (2 * NLVR_BATCH, N_IMG_384, True), (2 * FT_EVAL_BATCH, N_IMG_384, False),
+                     (VQA_BATCH, N_IMG_768, True), (VQA_EVAL_BATCH, N_IMG_768, False))
 
 
 def check_flash(gen, dev):
@@ -474,11 +514,11 @@ def tiny_operands(gen, dev, B, Sq, Skv, H, D, dtype, mask, drop):
         km = region_bitmaps(gen, dev, B, Skv)
     elif mask == "pad":
         km = torch.ones(B, Skv, dtype=torch.int32, device=dev)
-        if Skv == Sq:   # padded texts
+        if Skv in (Sq, TEXT_LEN):   # padded texts (the decoder's: the questions)
             lens = torch.randint(5, Skv + 1, (B,), generator=gen, device=dev)
             km = (torch.arange(Skv, device=dev)[None] < lens[:, None]).to(torch.int32)
-        else:           # the 197 -> 200 (577 -> 584) pad of the image stream
-            km[:, N_IMG if Skv <= 200 else N_IMG_384:] = 0
+        else:           # the 197 -> 200 (577 -> 584, 2305 -> 2312) pad of the image stream
+            km[:, N_IMG if Skv <= 200 else N_IMG_384 if Skv <= 584 else N_IMG_768:] = 0
     elif mask == "half":
         km = torch.ones(B, Skv, dtype=torch.int32, device=dev)
         km[0, Skv // 2:] = 0
@@ -589,7 +629,12 @@ def tiny_entry(name, shape, key, err, ms, plain_ms, b_ms, b_by, lib_ms, **extra)
 # multiplier, the probabilities saved): the pretraining step (the text pass
 # over 2 x 32 rows, the fusion passes over 4 x 32) and phase 7's text stream
 # (32), the region stream (2, 4 and 1 x 128 rows), phase 8's fine-tune step
-# (32; ITM 3 x 32) and phase 9's steps (grounding 20, NLVR2 16)
+# (32; ITM 3 x 32) and phase 9's steps (grounding 20, NLVR2 16). Phase 10's
+# VQA step: the question's text and fusion self-attention (8 rows) and the
+# answer decoder's cross-attention to the 40 question states (16 answer
+# rows of 10 tokens); its eval calls: the question's 40 x 40 (32 rows, the
+# shape of phase 9's evals), the decoder's first-token pass (32 x 1 x 40)
+# and its rank pass (32 x 128 answers of 10 tokens)
 TINY_MAIN_SHAPES = (
     ("text self-attention", BATCH, TEXT_LEN, TEXT_LEN, False, "pad"),
     ("fusion cross-attention", BATCH, TEXT_LEN, 200, False, "pad"),
@@ -609,7 +654,11 @@ TINY_MAIN_SHAPES = (
     ("region text self-attention", 2 * REGION_ROWS, TEXT_LEN, TEXT_LEN, True, "pad"),
     ("region fusion self-attention", 4 * REGION_ROWS, TEXT_LEN, TEXT_LEN, True, "pad"),
     ("region fusion cross-attention, region key masks", 4 * REGION_ROWS, TEXT_LEN, 200, True,
-     "region"))
+     "region"),
+    ("VQA step text / fusion self-attention", VQA_BATCH, TEXT_LEN, TEXT_LEN, True, "pad"),
+    ("VQA step decoder cross-attention", VQA_ANSWERS, ANSWER_LEN, TEXT_LEN, True, "pad"),
+    ("VQA rank decoder cross-attention", VQA_RANK_ROWS, ANSWER_LEN, TEXT_LEN, False, "pad"),
+    ("VQA first-token decoder cross-attention", VQA_EVAL_BATCH, 1, TEXT_LEN, False, "pad"))
 
 
 def check_tiny(gen, dev):
@@ -1041,19 +1090,26 @@ TILED_CASES = {
 }
 
 
-# (B, dropout, probabilities, label) of the 40 x 584 checks, every shape a
-# main path launches: the retrieval fine-tune's ITM fusion pass (batch 32:
-# 96 rows, positives and two negatives each), the two-stage eval's ITM
-# rerank (8 images x 128 candidate texts; 8 texts x the 64 images of phase
-# 8, its most launched); phase 9's grounding bbox pass (batch 20, trained
-# without dropout: probabilities saved, no multiplier), NLVR2's two
-# fusion passes (batch 16, dropout) and both tasks' evals (batch 32)
-TILED_MAIN_SHAPES = ((3 * TRAIN_BATCH, True, True, "fine-tune ITM"),
-                     (RERANK_BATCH, False, False, "ITM rerank"),
-                     (RERANK_BATCH // 2, False, False, "ITM rerank, texts to images"),
-                     (GROUNDING_BATCH, False, True, "grounding bbox pass"),
-                     (NLVR_BATCH, True, True, "NLVR2 fusion"),
-                     (FT_EVAL_BATCH, False, False, "grounding / NLVR2 eval"))
+# (B, Skv, dropout, probabilities, label) of the key-tiled checks, every
+# shape a main path launches. 40 x 584 (384 px): the retrieval fine-tune's
+# ITM fusion pass (batch 32: 96 rows, positives and two negatives each),
+# the two-stage eval's ITM rerank (8 images x 128 candidate texts; 8 texts x
+# the 64 images of phase 8, its most launched); phase 9's grounding bbox
+# pass (batch 20, trained without dropout: probabilities saved, no
+# multiplier), NLVR2's two fusion passes (batch 16, dropout) and both
+# tasks' evals (batch 32). 40 x 2312 (768 px): phase 10's VQA question
+# pass (batch 8, dropout) and its eval calls (batch 32)
+N_KEYS_384 = N_IMG_384 + (-N_IMG_384 % 8)   # 584: the fusion's padded image stream
+N_KEYS_768 = N_IMG_768 + (-N_IMG_768 % 8)   # 2312
+TILED_MAIN_SHAPES = ((3 * TRAIN_BATCH, N_KEYS_384, True, True, "fine-tune ITM"),
+                     (RERANK_BATCH, N_KEYS_384, False, False, "ITM rerank"),
+                     (RERANK_BATCH // 2, N_KEYS_384, False, False,
+                      "ITM rerank, texts to images"),
+                     (GROUNDING_BATCH, N_KEYS_384, False, True, "grounding bbox pass"),
+                     (NLVR_BATCH, N_KEYS_384, True, True, "NLVR2 fusion"),
+                     (FT_EVAL_BATCH, N_KEYS_384, False, False, "grounding / NLVR2 eval"),
+                     (VQA_BATCH, N_KEYS_768, True, True, "VQA question fusion"),
+                     (VQA_EVAL_BATCH, N_KEYS_768, False, False, "VQA eval question fusion"))
 
 
 def walk_delta(fn, before) -> dict:
@@ -1062,15 +1118,16 @@ def walk_delta(fn, before) -> dict:
 
 
 def check_tiny_tiled(gen, dev, shapes):
-    """K5 and K6 on the key-tiled walk: at the 384 px fusion cross-attention
-    (40 x 584) at each (B, dropout, probabilities) of ``shapes`` in bf16, forward and
-    backward, checked and timed beside SDPA forward / backward (the card
-    running ahead of the host); then over the walk's contract at small
-    shapes on both routes. Returns the kernels-line entries."""
+    """K5 and K6 on the key-tiled walk: at the 384 px and 768 px fusion
+    cross-attention (40 x 584, 40 x 2312) at each (B, Skv, dropout,
+    probabilities) of ``shapes`` in bf16, forward and backward, checked and
+    timed beside SDPA forward / backward (the card running ahead of the
+    host); then over the walk's contract at small shapes on both routes.
+    Returns the kernels-line entries."""
     entries = []
-    H, D, Sq, Skv = 12, 64, TEXT_LEN, 584
+    H, D, Sq = 12, 64, TEXT_LEN
     scale = D ** -0.5
-    for B, drop, probs_wanted, label in shapes:
+    for B, Skv, drop, probs_wanted, label in shapes:
         q, k, v, km, dm = tiny_operands(gen, dev, B, Sq, Skv, H, D, torch.bfloat16, "pad",
                                         drop)
         ops = "key_mask dropout" if drop else "key_mask"
@@ -1962,7 +2019,7 @@ def launch_counts():
 LEDGER_PARTS = ("tiny_fwd", "tiny_bwd", "flash_fwd_shapes", "flash_bwd_shapes")
 # the main paths, as the kernels line's ``launches_by_path`` names them
 PATHS = ("serving", "train_step", "int8_serving", "pretrain_launcher", "retrieval_launcher",
-         "finetune_launcher")
+         "finetune_launcher", "vqa_launcher")
 
 
 def ledger_add(ledger, path: str, operands: str, c: dict) -> None:
@@ -2025,13 +2082,15 @@ def show_counts(c) -> str:
                            else v) for k, v in c.items()})
 
 
-def check_launcher_counts(tag, c, n_flash_fwd, n_flash_bwd, want_tiny) -> None:
+def check_launcher_counts(tag, c, n_flash_fwd, n_flash_bwd, want_tiny, n_plain=0) -> None:
     """Every flash launch on the tensor-core route, every tiny launch on the
-    tensor-core route and on the walk its shape takes, no plain attention,
+    tensor-core route and on the walk its shape takes, the plain attention
+    ``n_plain`` times (the VQA decoder's causal self-attention; else never),
     and the counts expected."""
     log(f"launches ({tag}): {show_counts(c)}")
-    if c["plain_attention"]:
-        fail(f"{tag}: the plain attention ran {c['plain_attention']} times")
+    if c["plain_attention"] != n_plain:
+        fail(f"{tag}: the plain attention ran {c['plain_attention']} times, expected "
+             f"{n_plain}")
     if c["flash_fwd"] != n_flash_fwd or c["flash_fwd_routes"] != {TENSOR_CORE: n_flash_fwd}:
         fail(f"{tag}: flash forward {c['flash_fwd']} launches, routes "
              f"{c['flash_fwd_routes']}, expected {n_flash_fwd} on {TENSOR_CORE}")
@@ -2323,7 +2382,6 @@ def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = "")
 # fault (tools/fusion384_faults.py; PERF.md).
 FUSION_LIMITS = {"bf16": 0.25, "fp32": 1e-3}
 FUSION_CALL_RATIO = 0.5
-N_KEYS_384 = N_IMG_384 + (-N_IMG_384 % 8)   # 584: the fusion's padded image stream
 
 
 @contextlib.contextmanager
@@ -2697,6 +2755,38 @@ def call_launches(c: dict) -> dict:
             "tiny_fwd": dict(c["tiny_fwd"]), "tiny_bwd": dict(c["tiny_bwd"])}
 
 
+def timed_call(args, smi, fn, records, fname, profiled):
+    """``fn`` wrapped: each call timed (CUDA events and wall), its peak
+    device memory and its launches (``counts_delta``; ``call_launches``
+    with the plain attention's calls) appended to ``records``; the call
+    with ``profiled(len(records))`` true runs under torch.profiler, its
+    table written to ``args.profile/fname``."""
+    def call(*a, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = launch_counts()
+        with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+              if profiled(len(records)) else contextlib.nullcontext()) as prof:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            result = fn(*a, **kw)
+            end.record()
+            end.synchronize()
+        delta = counts_delta(launch_counts(), before)
+        records.append({"ms": start.elapsed_time(end),
+                        "wall_ms": (time.perf_counter() - t) * 1e3,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "launches": call_launches(delta),
+                        "plain": delta["plain_attention"], "delta": delta})
+        if prof is not None:
+            write_profile(args, smi, prof, fname, 40)
+        return result
+
+    return call
+
+
 def finetune_cosine_params(cfg, head: str):
     """Gradients held to the CPU path: the vision tower (K2/K3, K4), a
     fusion layer's self and cross attention (K6, 40 x 40 and 40 x 584) and
@@ -2820,30 +2910,7 @@ def finetune_task_phase(args, task: str, root: str, th_path: str, tok_dir: str, 
         imported["missing"], imported["unexpected"] = orig_load(model, path)
         return imported["missing"], imported["unexpected"]
 
-    def timed(fn, records, fname, profiled):
-        def call(*a, **kw):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            before = launch_counts()
-            with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-                  if profiled(len(records)) else contextlib.nullcontext()) as prof:
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                t = time.perf_counter()
-                start.record()
-                result = fn(*a, **kw)
-                end.record()
-                end.synchronize()
-            delta = counts_delta(launch_counts(), before)
-            records.append({"ms": start.elapsed_time(end),
-                            "wall_ms": (time.perf_counter() - t) * 1e3,
-                            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                            "launches": call_launches(delta), "delta": delta})
-            if prof is not None:
-                write_profile(args, smi, prof, fname, 40)
-            return result
-
-        return call
+    timed = functools.partial(timed_call, args, smi)
 
     def make_step(model, optimizer, **kw):
         return timed(orig_step(model, optimizer, **kw), steps,
@@ -2980,6 +3047,376 @@ def finetune_launcher_phase(args, root, th_path, tok_dir, words, image_root, dev
     return out
 
 
+# ---- phase 10: the launcher's VQA fine-tune at 768 px ----
+
+VQA_CONFIG = "configs/finetune/vqa2_base.yaml"
+N_VQA_ANSWERS = 3000                 # the answer list (VQAv2's holds ~3.1k)
+VQA_EPOCHS = 2                       # 2 steps an epoch: 4 steps, a save after step 2
+N_VQA_TRAIN = 2 * VQA_BATCH          # train questions: 2 steps an epoch
+N_VQA_EVAL = 2 * VQA_EVAL_BATCH      # test questions: 2 eval calls
+N_VQA_STEPS = VQA_EPOCHS * N_VQA_TRAIN // VQA_BATCH
+VQA_RESUME_STEP = N_VQA_TRAIN // VQA_BATCH   # --resume from the state saved after epoch 0
+
+
+def write_vqa_corpus(root: str, rng: np.random.Generator, words, n_images: int):
+    """An answer list of ``N_VQA_ANSWERS`` distinct answers of 1-3 words and
+    VQAv2-style lines over the ``n_images`` PNGs of phase 8: train lines
+    with 10 human answers drawn from 3 of the list (merged to count / 10
+    weights) or, every fourth, two answers with a ``weight`` field, so a
+    batch of 8 has more than 16 answer rows and the seeded cut runs; test
+    lines with a ``question_id``, half with 10 human answers and half with
+    one. Returns the (train, test, answer list) paths."""
+    answers, seen = [], set()
+    while len(answers) < N_VQA_ANSWERS:
+        a = caption(rng, words, 1, 4)
+        if a not in seen:
+            seen.add(a)
+            answers.append(a)
+
+    def humans():
+        pool = [answers[j] for j in rng.choice(N_VQA_ANSWERS, 3, replace=False)]
+        return [pool[j] for j in rng.integers(0, 3, 10)], pool
+
+    train = []
+    for i in range(N_VQA_TRAIN):
+        line = {"image": f"{i % n_images}.png", "question": caption(rng, words, 4, 14),
+                "question_id": i}
+        human, pool = humans()
+        if i % 4 == 3:
+            line.update(answer=pool[:2], weight=[0.6, 0.4])
+        else:
+            line["answer"] = human
+        train.append(line)
+    test = []
+    for i in range(N_VQA_EVAL):
+        human, _ = humans()
+        test.append({"image": f"{(i + 7) % n_images}.png", "question_id": 1000 + i,
+                     "question": caption(rng, words, 4, 14),
+                     "answer": human if i % 2 == 0 else human[:1]})
+    paths = [os.path.join(root, f"vqa_{n}.json") for n in ("train", "test", "answers")]
+    for path, data in zip(paths, (train, test, answers)):
+        with open(path, "w") as f:
+            json.dump(data, f)
+    return paths
+
+
+def vqa_launches(train: bool) -> dict:
+    """The attention launches of one VQA train step (8 questions, 16 answer
+    rows) or eval call (32 questions): 12 flash (the vision pass, S=2305);
+    tiny at 40 x 40 (the 12 text layers and the 6 fusion self-attentions)
+    and 40 x 2312 (the 6 fusion cross-attentions, key-tiled); the 6 decoder
+    layers' cross-attention at 10 x 40 over the answer rows (eval: 1 x 40
+    for the first token, 10 x 40 over the 32 x 128 ranked answers) and
+    their causal self-attention on the plain core; the backward the same."""
+    B = VQA_BATCH if train else VQA_EVAL_BATCH
+    dec = ({(VQA_ANSWERS, ANSWER_LEN, TEXT_LEN): 6} if train else
+           {(VQA_EVAL_BATCH, 1, TEXT_LEN): 6, (VQA_RANK_ROWS, ANSWER_LEN, TEXT_LEN): 6})
+    tiny = {(B, TEXT_LEN, TEXT_LEN): 18, (B, TEXT_LEN, N_KEYS_768): 6, **dec}
+    return {"flash_fwd": 12, "flash_bwd": 12 if train else 0, "tiny_fwd": tiny,
+            "tiny_bwd": tiny if train else {}, "plain": 6 if train else 12}
+
+
+def vqa_cosine_params(cfg):
+    """Gradients held to the CPU path: the vision tower (K2 / K3, K4), a
+    fusion layer's self and cross attention (K6 at 40 x 40 and 40 x 2312), a
+    decoder layer's causal self-attention (plain) and cross-attention (K6 at
+    10 x 40), and the decoder head."""
+    f = f"text_encoder.bert.encoder.layer.{cfg.text.fusion_layer}"
+    d = "text_decoder.bert.encoder.layer.0"
+    return ("vision_encoder.blocks.0.attn.qkv.weight",
+            "vision_encoder.blocks.0.attn.relative_position_bias_table",
+            f"{f}.attention.self.query.weight", f"{f}.crossattention.self.key.weight",
+            f"{d}.attention.self.query.weight", f"{d}.crossattention.self.key.weight",
+            "text_decoder.cls.predictions.transform.dense.weight",
+            "text_decoder.cls.predictions.bias")
+
+
+def vqa_hold(state: dict, cfg: dict, batch: dict, answers: dict, dev) -> tuple:
+    """The fine-tuned weights ``state`` on the questions of ``batch`` (their
+    answer rows injected), dropout off, the card in bf16 against the port's
+    CPU fp32 path: ``loss_vqa`` within 0.05 + 2%, gradient cosines of
+    ``vqa_cosine_params`` >= 0.99, each bf16 40 x 2312 forward and backward
+    call held on the model's operands within ``FUSION_CALL_RATIO`` of the
+    bf16 rule's bound; and ``rank_answer`` over ``answers`` (the answer
+    list) with ``K_TEST``: the first answer equal, the top-k scores within
+    0.05. Returns the readings and the faults found."""
+    from x2vlm_tpu_torch.factory import build_model
+
+    names = vqa_cosine_params(xvlm_config_from_yaml(cfg))
+    fwd_ratios, bwd_ratios, ranks, losses, grads = [], [], {}, {}, {}
+    rank_in = {k: batch[k] for k in ("image", "question_ids", "question_atts")}
+    rank_in.update(answers)
+    for tag, dtype, device in (("cpu", torch.float32, torch.device("cpu")),
+                               ("card", torch.bfloat16, dev)):
+        model, _ = build_model(cfg, "vqa", device=device, dtype=dtype, seed=None)
+        model.load_state_dict(state)
+        with torch.no_grad():
+            ids, probs = model.predict({k: v.to(device) for k, v in rank_in.items()}, K_TEST)
+        ranks[tag] = (ids.cpu(), probs.float().cpu())
+        b = {k: v.to(device) for k, v in batch.items()}
+        with held_tiny_calls(N_KEYS_768, fwd_ratios), held_tiny_bwd_calls(N_KEYS_768,
+                                                                          bwd_ratios):
+            out = model(b)
+            out["loss_vqa"].backward()
+        losses[tag] = out["loss_vqa"].item()
+        params = dict(model.named_parameters())
+        grads[tag] = {k: params[k].grad.detach().double().cpu().reshape(-1) for k in names}
+        del model, out, b
+    torch.cuda.empty_cache()
+    cos = {k: F.cosine_similarity(grads["card"][k], grads["cpu"][k], dim=0).item()
+           for k in names}
+    score_err = max_err(ranks["card"][1], ranks["cpu"][1])
+    first = {tag: ids[:, 0].tolist() for tag, (ids, _) in ranks.items()}
+    r = {"loss_vqa": losses, "cosine": cos, "first_answer": first, "score_err": score_err,
+         "cpu_top_scores": ranks["cpu"][1][:, :3].tolist(), "fwd_ratios": fwd_ratios,
+         "bwd_ratios": bwd_ratios}
+    faults = []
+    for kind, ratios in (("forward", fwd_ratios), ("backward", bwd_ratios)):
+        if len(ratios) != 6 or not all(x <= FUSION_CALL_RATIO for x in ratios):
+            faults.append(f"the 40 x {N_KEYS_768} {kind} calls' errors over the bf16 rule's "
+                          f"bound {[round(x, 3) for x in ratios]}, expected 6 at most "
+                          f"{FUSION_CALL_RATIO}")
+    if not abs(losses["card"] - losses["cpu"]) <= 0.05 + 0.02 * abs(losses["cpu"]):
+        faults.append(f"loss_vqa: card {losses['card']:.5f} vs CPU fp32 {losses['cpu']:.5f}")
+    for k, c in cos.items():
+        if not c >= 0.99:
+            faults.append(f"gradient {k}: cosine to the CPU fp32 path {c:.5f} < 0.99")
+    if first["card"] != first["cpu"]:
+        faults.append(f"rank_answer's first answers {first['card']} differ from the CPU "
+                      f"fp32 path's {first['cpu']}")
+    if not score_err <= 0.05:
+        faults.append(f"rank_answer's top-k scores off the CPU fp32 path's by {score_err:.4f}")
+    return r, faults
+
+
+def vqa_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, image_root: str,
+                       dev, smi: str = "") -> dict:
+    """Phase 10: ``x2vlm_tpu_torch.run --task vqa`` in process on
+    ``configs/finetune/vqa2_base.yaml`` at its own sizes (768 px, 8
+    questions and 16 answer rows a step, 32 questions an eval call, k_test
+    128), the data paths pointed at files written under ``root`` over phase
+    8's PNGs, cut to 2 epochs of 2 steps with the eval after the last, from
+    phase 7's ``.th`` (rel-pos tables interpolated 14 -> 48, the decoder
+    fresh): each step and eval call timed and its launches read; then
+    ``--resume`` from the state saved at step 2, whose restored state must
+    equal the saved one and whose batches (the data cursor and the
+    answer-cut rng) must equal the whole run's steps 3 and 4, bit for bit;
+    then ``vqa_hold`` on 2 questions. Returns the launches and those by
+    call."""
+    import hashlib
+
+    from x2vlm_tpu_torch import run as run_mod
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.data.finetune import vqa_collate
+    from x2vlm_tpu_torch.models import XVLMForVQA
+    from x2vlm_tpu_torch.tasks import vqa as vqa_mod
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 12)
+    train, test, answers = write_vqa_corpus(root, rng, words, len(os.listdir(image_root)))
+    cfg = dict(shipped_config(VQA_CONFIG), vqa_root=image_root, text_encoder=tok_dir,
+               train_file=[train], test_file=[test], answer_list=answers,
+               start_eval=VQA_EPOCHS - 1)
+    sizes = (cfg["batch_size"], cfg.get("answers_per_batch", 2 * cfg["batch_size"]),
+             cfg["answer_max_tokens"], cfg["batch_size_test"], cfg["k_test"], cfg["image_res"],
+             cfg["max_tokens"])
+    if sizes != (VQA_BATCH, VQA_ANSWERS, ANSWER_LEN, VQA_EVAL_BATCH, K_TEST, 768, TEXT_LEN):
+        fail(f"vqa launcher: the shipped config's sizes {sizes} changed")
+    cfg_path = os.path.join(root, "vqa.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    out, out_resumed = os.path.join(root, "out_vqa"), os.path.join(root, "out_vqa_resumed")
+    log(f"phase 10 data and config: {time.perf_counter() - t0:.1f} s")
+
+    imported, steps, evals, eval_walls = {}, [], [], []
+    batches = {"whole": [], "resumed": []}
+    run_name = ["whole"]
+    orig = {"load": ckpt_lib.load_reference_checkpoint, "save": ckpt_lib.save_train_state,
+            "step": run_mod.make_train_step, "to_device": run_mod.to_device,
+            "predict": XVLMForVQA.predict, "evaluate": vqa_mod.evaluate_vqa}
+    timed = functools.partial(timed_call, args, smi)
+    table_key = "vision_encoder.blocks.0.attn.relative_position_bias_table"
+
+    def load(model, path):
+        imported["missing"], imported["unexpected"] = orig["load"](model, path)
+        imported["decoder"] = sorted(n for n, _ in model.named_parameters()
+                                     if n.startswith("text_decoder."))
+        src = torch.load(path, map_location="cpu", weights_only=False)["model"][table_key]
+        got = model.state_dict()[table_key].cpu().numpy()
+        window = lambda rows: int(round((math.sqrt(rows - 3) + 1) / 2))
+        want = ckpt_lib.interp_rel_pos_table(src.float().numpy(), window(src.shape[0]),
+                                             window(got.shape[0]))
+        imported["rel_pos"] = [list(src.shape), list(got.shape),
+                               bool(np.array_equal(got, want))]
+        return imported["missing"], imported["unexpected"]
+
+    def save(ckpt_dir, model, optimizer, step, data_state=None):
+        path = orig["save"](ckpt_dir, model, optimizer, step, data_state)
+        if step == VQA_RESUME_STEP and ckpt_dir == os.path.join(out, "ckpt"):
+            orig["save"](os.path.join(out_resumed, "ckpt"), model, optimizer, step, data_state)
+        return path
+
+    def to_device(batch, device):
+        batches[run_name[0]].append({k: hashlib.sha256(np.ascontiguousarray(v)).hexdigest()
+                                     for k, v in batch.items()})
+        return orig["to_device"](batch, device)
+
+    def make_step(model, optimizer, **kw):
+        return timed(orig["step"](model, optimizer, **kw), steps,
+                     "chip_smoke_vqa_step_profile.txt",
+                     lambda i: args.profile and i == N_VQA_STEPS - 1)
+
+    def evaluate(*a, **kw):
+        t = time.perf_counter()
+        results = orig["evaluate"](*a, **kw)
+        eval_walls.append(time.perf_counter() - t)
+        return results
+
+    def patch(on: bool):
+        ckpt_lib.load_reference_checkpoint = load if on else orig["load"]
+        ckpt_lib.save_train_state = save if on else orig["save"]
+        run_mod.make_train_step = make_step if on else orig["step"]
+        run_mod.to_device = to_device if on else orig["to_device"]
+        vqa_mod.evaluate_vqa = evaluate if on else orig["evaluate"]
+        XVLMForVQA.predict = timed(orig["predict"], evals, "chip_smoke_vqa_eval_profile.txt",
+                                   lambda i: bool(args.profile) and i == 0) \
+            if on else orig["predict"]
+
+    argv = ["--task", "vqa", "--config", cfg_path, "--checkpoint", th_path, "--epoch",
+            str(VQA_EPOCHS), "--seed", str(args.seed), "--device", dev.type]
+    t1 = time.perf_counter()
+    reset_counts()
+    patch(True)
+    try:
+        record = run_mod.main(argv + ["--output_dir", out])
+    finally:
+        patch(False)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"phase 10 run ({len(steps)} fine-tune steps + eval): "
+        f"{time.perf_counter() - t1:.1f} s; {json.dumps(record)}")
+    log(f"phase 10 VQA fine-tune step ms at 768 px, B={VQA_BATCH} questions, {VQA_ANSWERS} "
+        f"answer rows (CUDA events, wall): "
+        f"{json.dumps([[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in steps])}"
+        f"{' (the last one profiled)' if args.profile else ''}; peak device memory GiB "
+        f"{[round(r['peak_gib'], 2) for r in steps]}; eval calls (B={VQA_EVAL_BATCH}, k_test "
+        f"{K_TEST}: {VQA_RANK_ROWS} ranked rows) ms (CUDA events, wall) "
+        f"{[[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in evals]}"
+        f"{' (the first profiled)' if args.profile else ''}, peak GiB "
+        f"{[round(r['peak_gib'], 2) for r in evals]}; eval wall seconds "
+        f"{[round(w, 3) for w in eval_walls]} ({N_VQA_EVAL} questions); {smi}")
+
+    # the import: everything but the decoder from the 224 px .th, the tables
+    # interpolated 14 -> 48; left over what a VQA model does not carry
+    missing, unexpected = imported.get("missing"), imported.get("unexpected", [])
+    log(f"phase 10 import: {len(missing or [])} missing (fresh), unexpected {len(unexpected)} "
+        f"({sorted({'.'.join(k.split('.')[:2]) for k in unexpected})}); rel-pos table "
+        f"(.th shape, model shape, equal to the 14 -> 48 interpolation): "
+        f"{imported.get('rel_pos')}")
+    leftover = ("vision_proj.", "text_proj.", "temp", "itm_head.", "text_encoder.cls.",
+                "bbox_head.")
+    if not missing or missing != imported["decoder"] or not unexpected or \
+            not all(k.startswith(leftover) for k in unexpected) or \
+            imported.get("rel_pos") != [[27 * 27 + 3, 12], [95 * 95 + 3, 12], True]:
+        fail(f"vqa launcher import of {th_path}: missing {missing}, unexpected {unexpected}, "
+             f"rel-pos {imported.get('rel_pos')}")
+
+    with open(os.path.join(out, "vqa_result.json")) as f:
+        results = json.load(f)
+    with open(answers) as f:
+        answer_set = set(json.load(f))
+    vals = [record.get(k) for k in ("eval_overall", "eval_acc", "loss_vqa", "loss_total")]
+    if not all(isinstance(v, float) and math.isfinite(v) for v in vals) or \
+            len(steps) != N_VQA_STEPS or len(evals) != N_VQA_EVAL // VQA_EVAL_BATCH or \
+            record.get("eval_n") != N_VQA_EVAL or len(results) != N_VQA_EVAL or \
+            not all(r["answer"] in answer_set for r in results):
+        fail(f"vqa launcher: {len(steps)} steps, {len(evals)} eval calls, {len(results)} "
+             f"results, record {record}")
+    want_step, want_eval = vqa_launches(True), vqa_launches(False)
+    for tag, records, want in (("step", steps, want_step), ("eval call", evals, want_eval)):
+        for i, r in enumerate(records):
+            got = dict(r["launches"], plain=r["plain"])
+            if got != want:
+                fail(f"vqa launcher {tag} {i}: launches {got}, expected {want}")
+    n_eval = len(evals)
+    tiny = collections.Counter()
+    for want, n in ((want_step, N_VQA_STEPS), (want_eval, n_eval)):
+        for shape, k in want["tiny_fwd"].items():
+            tiny[shape] += k * n
+    check_launcher_counts(
+        "vqa launcher", counts, 12 * (N_VQA_STEPS + n_eval), 12 * N_VQA_STEPS,
+        {"tiny_fwd": dict(tiny),
+         "tiny_bwd": {k: n * N_VQA_STEPS for k, n in want_step["tiny_bwd"].items()}},
+        n_plain=want_step["plain"] * N_VQA_STEPS + want_eval["plain"] * n_eval)
+    if counts["tiny_walks"]["tiny_attention_fwd"].get(TILED, 0) != \
+            sum(n for (b, sq, skv), n in tiny.items() if skv == N_KEYS_768):
+        fail(f"vqa launcher: the 40 x {N_KEYS_768} launches are not all key-tiled: "
+             f"{counts['tiny_walks']}")
+
+    # --resume from the state saved at step 2: restored bit for bit, and the
+    # batches of steps 3 and 4 those of the whole run
+    saved = torch.load(os.path.join(out_resumed, "ckpt", ckpt_lib.TRAIN_STATE_FILE),
+                       map_location="cpu", weights_only=False)
+    restored = {}
+    orig_restore = ckpt_lib.restore_train_state
+
+    def restore(ckpt_dir, model, optimizer):
+        result = orig_restore(ckpt_dir, model, optimizer)
+        copy = lambda t: t.detach().to("cpu", copy=True)   # the run goes on in place
+        restored.update(params={n: copy(p) for n, p in model.named_parameters()},
+                        mu=dict(zip(optimizer.names, map(copy, optimizer.mu))),
+                        nu=dict(zip(optimizer.names, map(copy, optimizer.nu))),
+                        count=optimizer.count)
+        return result
+
+    t2 = time.perf_counter()
+    run_name[0] = "resumed"
+    steps_before = len(steps)
+    ckpt_lib.restore_train_state = restore
+    patch(True)
+    try:
+        run_mod.main(argv + ["--output_dir", out_resumed, "--resume"])
+    finally:
+        patch(False)
+        ckpt_lib.restore_train_state = orig_restore
+    same = bool(restored) and saved["step"] == VQA_RESUME_STEP and \
+        restored["count"] == saved["count"] and all(
+            restored[part].keys() == saved[part].keys() and
+            all(torch.equal(restored[part][k], saved[part][k]) for k in saved[part])
+            for part in ("params", "mu", "nu"))
+    same_batches = batches["resumed"] == batches["whole"][VQA_RESUME_STEP:]
+    log(f"phase 10 --resume from step {saved['step']}: {time.perf_counter() - t2:.1f} s; "
+        f"restored state equal to the saved one bit for bit: {same}; its "
+        f"{len(batches['resumed'])} batches equal to the whole run's steps "
+        f"{VQA_RESUME_STEP + 1}-{N_VQA_STEPS} bit for bit: {same_batches} "
+        f"({len(steps) - steps_before} steps)")
+    if not same or not same_batches or len(steps) - steps_before != \
+            N_VQA_STEPS - VQA_RESUME_STEP:
+        fail("vqa launcher --resume: the restored state or the batches after it differ from "
+             "the whole run's")
+    del saved, restored
+    steps = steps[:steps_before]
+    evals = evals[:n_eval]
+
+    # the fine-tuned weights on 2 questions, card bf16 against CPU fp32
+    state = torch.load(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE), map_location="cpu",
+                       weights_only=False)["params"]
+    train_ds, test_ds = create_dataset("vqa", cfg, rng=random.Random(args.seed))
+    batch = vqa_collate([train_ds[0], train_ds[1]], 4, rng=random.Random(args.seed))
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    for k in ("question_ids", "answer_ids", "answer_index"):
+        batch[k] = batch[k].long()
+    hold, faults = vqa_hold(state, cfg, batch,
+                            {"answer_ids": torch.from_numpy(test_ds.answer_ids).long(),
+                             "answer_atts": torch.from_numpy(test_ds.answer_atts)}, dev)
+    log(f"phase 10 card bf16 vs CPU fp32 (2 questions, 4 answer rows, dropout off): "
+        f"{json.dumps(hold)}")
+    for msg in faults:
+        fail(f"vqa launcher, 2 questions card vs CPU: {msg}")
+    log(f"phase 10 seconds: {time.perf_counter() - t0:.1f}")
+    return split_counts(counts, [r["delta"] for r in steps])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3085,6 +3522,10 @@ def run(args, dev: torch.device) -> int:
         # ---- phase 9: the launcher's grounding and NLVR2 fine-tunes ----
         ft_counts = finetune_launcher_phase(args, root, th_path, tok_dir, words,
                                             os.path.join(root, "flickr"), dev, smi)
+        torch.cuda.empty_cache()
+        # ---- phase 10: the launcher's VQA fine-tune at 768 px ----
+        vqa_counts = vqa_launcher_phase(args, root, th_path, tok_dir, words,
+                                        os.path.join(root, "flickr"), dev, smi)
     torch.cuda.empty_cache()
 
     # the attention launches of the main paths (bf16 serving requests, one
@@ -3097,7 +3538,8 @@ def run(args, dev: torch.device) -> int:
                                              "flash_fwd_shapes": c["flash"]})
     ledger_add(ledger, "train_step", "training", train)
     ledger_add(ledger, "pretrain_launcher", "training", pre_counts)
-    for path, split in (("retrieval_launcher", ret_counts), ("finetune_launcher", ft_counts)):
+    for path, split in (("retrieval_launcher", ret_counts), ("finetune_launcher", ft_counts),
+                        ("vqa_launcher", vqa_counts)):
         for operands, c in split.items():
             ledger_add(ledger, path, operands, c)
 

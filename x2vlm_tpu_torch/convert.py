@@ -5,10 +5,10 @@ Input: the flat ``'/'``-joined numpy dict that the JAX package's
 parameter tree in memory. Output: the port's state dict, under the
 reference X2-VLM checkpoint names (the exact inverse of the JAX package's
 ``train/checkpoint.convert_xvlm_state_dict`` for the modules the port
-carries, the tied MLM head included): flax kernels (in, out) become torch
-Linear weights (out, in), the BEiT-2 query/key/value kernels are fused into
-``attn.qkv.weight``, the patch kernel (p, p, in, C) becomes the conv weight
-(C, in, p, p).
+carries, the tied MLM head and the VQA answer decoder included): flax
+kernels (in, out) become torch Linear weights (out, in), the BEiT-2
+query/key/value kernels are fused into ``attn.qkv.weight``, the patch
+kernel (p, p, in, C) becomes the conv weight (C, in, p, p).
 """
 
 from __future__ import annotations
@@ -88,15 +88,17 @@ def _vision(sd, src) -> None:
         _linear(sd, src, f"{q}/mlp/fc2", f"{p}.mlp.fc2")
 
 
-def _text(sd, src) -> None:
-    e, t = "text_encoder/embeddings", "text_encoder.bert.embeddings"
+def _text(sd, src, tower: str = "text_encoder") -> None:
+    """A BERT stack: the text encoder, or the VQA answer decoder
+    (``tower="text_decoder"``)."""
+    e, t = f"{tower}/embeddings", f"{tower}.bert.embeddings"
     for n in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
         sd[f"{t}.{n}.weight"] = src.pop(f"{e}/{n}/embedding")
     _norm(sd, src, f"{e}/ln", f"{t}.LayerNorm")
     n_layers = 1 + max(int(m.group(1)) for k in src
-                       if (m := re.match(r"text_encoder/layer_(\d+)/", k)))
+                       if (m := re.match(rf"{tower}/layer_(\d+)/", k)))
     for i in range(n_layers):
-        q, p = f"text_encoder/layer_{i}", f"text_encoder.bert.encoder.layer.{i}"
+        q, p = f"{tower}/layer_{i}", f"{tower}.bert.encoder.layer.{i}"
         for jax_attn, ref_attn, ln in (("self_attn", "attention", "attn_ln"),
                                        ("cross_attn", "crossattention", "cross_ln")):
             if f"{q}/{jax_attn}/query/kernel" not in src:
@@ -111,11 +113,13 @@ def _text(sd, src) -> None:
 
 
 def _heads(sd, src) -> None:
-    if "mlm_head/transform_dense/kernel" in src:
-        m = "text_encoder.cls.predictions"
-        _linear(sd, src, "mlm_head/transform_dense", f"{m}.transform.dense")
-        _norm(sd, src, "mlm_head/transform_ln", f"{m}.transform.LayerNorm")
-        sd[f"{m}.bias"] = src.pop("mlm_head/decoder_bias")
+    # the tied LM heads: the MLM head and the VQA answer decoder's
+    for head, m in (("mlm_head", "text_encoder.cls.predictions"),
+                    ("dec_head", "text_decoder.cls.predictions")):
+        if f"{head}/transform_dense/kernel" in src:
+            _linear(sd, src, f"{head}/transform_dense", f"{m}.transform.dense")
+            _norm(sd, src, f"{head}/transform_ln", f"{m}.transform.LayerNorm")
+            sd[f"{m}.bias"] = src.pop(f"{head}/decoder_bias")
     for name in ("vision_proj", "text_proj"):
         if f"{name}/kernel" in src:
             _linear(sd, src, name, name)
@@ -131,13 +135,15 @@ def _heads(sd, src) -> None:
 def convert_jax_params(params: Mapping, *, device=None
                        ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
     """JAX ``XVLMForRetrieval`` / ``XVLMForPretrain`` / ``XVLMForGrounding``
-    / ``XVLMForNLVR`` / ``XVLMBase`` params -> (state dict of the port's
+    / ``XVLMForNLVR`` / ``XVLMForVQA`` / ``XVLMBase`` params -> (state dict of the port's
     model under the reference names, on ``device`` (the card unless
     ``device="cpu"``); sorted JAX keys the port does not carry, none for
     these models). The ``params/`` collection and a task head's ``base/``
     scope are dropped, a head the task keeps beside the core (NLVR's
-    ``cls_head``) stays: load the result into ``XVLMForRetrieval``,
-    ``XVLMForGrounding`` or ``XVLMForNLVR`` itself, or into
+    ``cls_head``; VQA's ``text_decoder`` and ``dec_head``, as
+    ``text_decoder.bert.*`` and ``text_decoder.cls.predictions.*``) stays:
+    load the result into ``XVLMForRetrieval``, ``XVLMForGrounding``,
+    ``XVLMForNLVR`` or ``XVLMForVQA`` itself, or into
     ``XVLMForPretrain.base``."""
     device = resolve_device(device)
     flat = params if all(not isinstance(v, Mapping) for v in params.values()) \
@@ -146,6 +152,8 @@ def convert_jax_params(params: Mapping, *, device=None
     sd: Dict[str, np.ndarray] = {}
     _vision(sd, src)
     _text(sd, src)
+    if "text_decoder/embeddings/ln/scale" in src:
+        _text(sd, src, "text_decoder")
     _heads(sd, src)
     state = {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
              for k, v in sd.items()}

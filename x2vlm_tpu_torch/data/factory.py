@@ -1,7 +1,7 @@
 """Dataset factory (the port's counterpart of x2vlm_tpu/data/factory.py,
 ``create_dataset``): task name + config -> (train_dataset, eval_dataset).
 
-The port builds the retrieval, NLVR2 and grounding datasets; the launcher
+The port builds the retrieval, VQA, NLVR2 and grounding datasets; the launcher
 (run.py) refuses the JAX factory's other tasks before they reach here,
 naming the ROADMAP queue item each comes with. Pretraining streams are
 built by the launcher."""
@@ -26,11 +26,11 @@ def _per_split(files, build):
 def create_dataset(task: str, config, evaluate: bool = False, tokenizer=None,
                    rng: Optional[random.Random] = None
                    ) -> Tuple[Optional[object], Optional[object]]:
-    if task not in ("retrieval", "itr_coco", "itr_flickr", "nlvr", "grounding",
+    if task not in ("retrieval", "itr_coco", "itr_flickr", "vqa", "nlvr", "grounding",
                     "refcoco_bbox"):
         raise NotImplementedError(f"dataset task {task!r}: the port builds the retrieval, "
-                                  f"NLVR2 and grounding datasets (ROADMAP queue A6 / A8 "
-                                  f"bring the others)")
+                                  f"VQA, NLVR2 and grounding datasets (ROADMAP queue A6 / "
+                                  f"A8 bring the others)")
     tokenizer = tokenizer or build_tokenizer(config["text_encoder"])
     res = config["image_res"]
     pre = TextPreprocessor(tokenizer, max_tokens=config.get("max_tokens", 40),
@@ -38,6 +38,29 @@ def create_dataset(task: str, config, evaluate: bool = False, tokenizer=None,
     train_tf = T.train_transform(res, rng=rng)
     test_tf = T.test_transform(res)
     rng = rng or random
+
+    if task == "vqa":
+        from x2vlm_tpu_torch.data.finetune import VQAEvalDataset, VQATrainDataset
+
+        root = config.get("vqa_root", config.get("image_root"))
+        if config.get("vg_root"):   # Visual Genome lines say dataset: "vg"
+            root = {"vqa": root, "vg": config["vg_root"]}
+        a_max = config.get("answer_max_tokens", 10)
+
+        def build_eval(f):
+            # a [path, answer list] pair names the split's own answer list
+            ans = config.get("answer_list")
+            if isinstance(f, (list, tuple)) and len(f) == 2 and \
+                    isinstance(f[1], str) and f[1].endswith(".json"):
+                f, ans = f[0], f[1]
+            return VQAEvalDataset(f, test_tf, root, pre, tokenizer, answer_list_file=ans,
+                                  answer_max_tokens=a_max)
+
+        ev = _per_split(config["test_file"], build_eval)
+        if evaluate:
+            return None, ev
+        return VQATrainDataset(config["train_file"], train_tf, root, pre, tokenizer,
+                               answer_max_tokens=a_max, rng=rng), ev
 
     if task == "nlvr":
         from x2vlm_tpu_torch.data.finetune import NLVRDataset

@@ -1,28 +1,176 @@
-"""Fine-tune datasets of the grounding and NLVR2 tasks (the port's copy of
-``NLVRDataset``, ``GroundingTrainDataset`` and ``GroundingEvalDataset`` in
-x2vlm_tpu/data/finetune.py; reference dataset/nlvr_dataset.py and
+"""Fine-tune datasets of the VQA, grounding and NLVR2 tasks (the port's
+copy of ``VQATrainDataset``, ``vqa_collate``, ``VQAEvalDataset``,
+``tokenize_answers``, ``NLVRDataset``, ``GroundingTrainDataset`` and
+``GroundingEvalDataset`` in x2vlm_tpu/data/finetune.py; reference
+dataset/vqa_dataset.py, dataset/nlvr_dataset.py and
 dataset/grounding_dataset.py:89-147).
 
-Each sample is a dict of numpy arrays of fixed shape. The grounding train
-set crops at random around the box, flips (not a caption naming left or
-right, with ``careful_hflip``), resizes and renormalises the target to
-cxcywh in [0, 1]; its ``random`` draws come in the JAX package's order,
-so both packages give equal samples from equal seeds.
+Each sample is a dict of numpy arrays of fixed shape. A VQA batch has a
+fixed ``answers_per_batch`` answer rows: the questions' answers flattened,
+cut to that many by a seeded draw or padded with rows of weight 0. The
+grounding train set crops at random around the box, flips (not a caption
+naming left or right, with ``careful_hflip``), resizes and renormalises
+the target to cxcywh in [0, 1]. The ``random`` draws come in the JAX
+package's order, so both packages give equal samples from equal seeds.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
 import random
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from x2vlm_tpu_torch.core.io import hopen
 from x2vlm_tpu_torch.data.imageio import open_image, pil
+from x2vlm_tpu_torch.data.loader import collate
 from x2vlm_tpu_torch.data.retrieval import _load_annotations
 from x2vlm_tpu_torch.data.transforms import hflip
 
-__all__ = ["NLVRDataset", "GroundingTrainDataset", "GroundingEvalDataset"]
+__all__ = ["VQATrainDataset", "VQAEvalDataset", "vqa_collate", "tokenize_answers",
+           "NLVRDataset", "GroundingTrainDataset", "GroundingEvalDataset"]
+
+
+def tokenize_answers(answers: Sequence[str], tokenizer, max_tokens: int):
+    """Answer list -> (A, L) int32 ids / atts: CLS, the answer's pieces, SEP,
+    padded to ``max_tokens`` (the rank-answer protocol, reference VQA.py:78)."""
+    ids, atts = [], []
+    for a in answers:
+        toks = [tokenizer.cls_token] + tokenizer.tokenize(a)
+        toks = toks[: max_tokens - 1] + [tokenizer.sep_token]
+        ii = tokenizer.convert_tokens_to_ids(toks)
+        pad = max_tokens - len(ii)
+        ids.append(ii + [tokenizer.pad_token_id] * pad)
+        atts.append([1] * len(ii) + [0] * pad)
+    return np.asarray(ids, np.int32), np.asarray(atts, np.int32)
+
+
+class _VQAImages:
+    """The image of a VQA line: ``image_roots`` one root, or a dict from
+    the line's ``dataset`` ("vqa" by default; Visual Genome lines say "vg")
+    to its root."""
+
+    def _image_path(self, a) -> str:
+        if isinstance(self.image_roots, str):
+            return os.path.join(self.image_roots, a["image"])
+        return os.path.join(self.image_roots[a.get("dataset", "vqa")], a["image"])
+
+    def _question(self, a):
+        image = self.transform(open_image(self._image_path(a))).astype(np.float32)
+        q_ids, q_atts = self.text_pre(a["question"])
+        return {"image": image, "question_ids": q_ids, "question_atts": q_atts}
+
+
+class VQATrainDataset(_VQAImages):
+    """Lines {image, question, answer: [..], (weight | dataset)}: without
+    ``weight`` the duplicate answers merge, each weighted count / len (10
+    human answers give count / 10; reference vqa_dataset.py:92-156)."""
+
+    def __init__(self, ann_files, transform, image_roots, text_pre, tokenizer,
+                 answer_max_tokens: int = 10, rng: Optional[random.Random] = None):
+        self.ann = _load_annotations(ann_files)
+        self.transform = transform
+        self.image_roots = image_roots
+        self.text_pre = text_pre
+        self.tokenizer = tokenizer
+        self.answer_max_tokens = answer_max_tokens
+        self.rng = rng or random
+
+    def __len__(self):
+        return len(self.ann)
+
+    def __getitem__(self, index):
+        a = self.ann[index]
+        out = self._question(a)
+        answers = a["answer"] if isinstance(a["answer"], list) else [a["answer"]]
+        if "weight" in a:
+            weights = list(a["weight"])
+        else:
+            uniq: Dict[str, float] = {}
+            for ans in answers:
+                uniq[ans] = uniq.get(ans, 0.0) + 1.0 / len(answers)
+            answers, weights = list(uniq.keys()), list(uniq.values())
+        out["answers"], out["answer_atts"] = tokenize_answers(answers, self.tokenizer,
+                                                              self.answer_max_tokens)
+        out["weights"] = np.asarray(weights, np.float32)
+        return out
+
+
+def vqa_collate(samples: Sequence[Dict], answers_per_batch: int,
+                rng: Optional[random.Random] = None) -> Dict[str, np.ndarray]:
+    """A VQA train batch: the questions stacked, their answers flattened to
+    ``answers_per_batch`` rows with ``answer_weights`` and ``answer_index``
+    (each row's question). More rows are cut to a sorted ``rng.sample``;
+    fewer are padded with weight-0 rows whose first key stays visible, so
+    no attention row is wholly masked."""
+    rng = rng or random.Random(0)
+    base = collate([{k: s[k] for k in ("image", "question_ids", "question_atts")}
+                    for s in samples])
+    ans_ids, ans_atts, weights, index = [], [], [], []
+    for qi, s in enumerate(samples):
+        for j in range(s["answers"].shape[0]):
+            ans_ids.append(s["answers"][j])
+            ans_atts.append(s["answer_atts"][j])
+            weights.append(s["weights"][j])
+            index.append(qi)
+    if len(ans_ids) > answers_per_batch:
+        keep = sorted(rng.sample(range(len(ans_ids)), answers_per_batch))
+        ans_ids = [ans_ids[i] for i in keep]
+        ans_atts = [ans_atts[i] for i in keep]
+        weights = [weights[i] for i in keep]
+        index = [index[i] for i in keep]
+    while len(ans_ids) < answers_per_batch:
+        ans_ids.append(np.zeros_like(ans_ids[0]))
+        ans_atts.append(np.zeros_like(ans_atts[0]))
+        ans_atts[-1][0] = 1
+        weights.append(0.0)
+        index.append(0)
+    base["answer_ids"] = np.stack(ans_ids)
+    base["answer_atts"] = np.stack(ans_atts)
+    base["answer_weights"] = np.asarray(weights, np.float32)
+    base["answer_index"] = np.asarray(index, np.int32)
+    return base
+
+
+class VQAEvalDataset(_VQAImages):
+    """Test lines {image, question, question_id, (answer)}; the answer list
+    (``answer_list_file``, a JSON list) tokenised once as ``answer_ids`` /
+    ``answer_atts``."""
+
+    def __init__(self, ann_files, transform, image_roots, text_pre, tokenizer,
+                 answer_list_file: Optional[str] = None, answer_max_tokens: int = 10):
+        self.ann = _load_annotations(ann_files)
+        self.transform = transform
+        self.image_roots = image_roots
+        self.text_pre = text_pre
+        self.answer_list = None
+        if answer_list_file:
+            with hopen(answer_list_file, "r") as f:
+                self.answer_list = json.load(f)
+            self.answer_ids, self.answer_atts = tokenize_answers(
+                self.answer_list, tokenizer, answer_max_tokens)
+
+    def __len__(self):
+        return len(self.ann)
+
+    def gt_answers(self) -> Dict[int, list]:
+        """question_id -> the human answers, for the lines that carry them
+        (a test-std split carries none)."""
+        out = {}
+        for i, a in enumerate(self.ann):
+            if "answer" in a:
+                ans = a["answer"] if isinstance(a["answer"], list) else [a["answer"]]
+                out[int(a.get("question_id", i))] = ans
+        return out
+
+    def __getitem__(self, index):
+        a = self.ann[index]
+        out = self._question(a)
+        out["question_id"] = np.int64(a.get("question_id", index))
+        return out
 
 
 class NLVRDataset:

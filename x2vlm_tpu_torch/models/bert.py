@@ -5,6 +5,8 @@
   cross-attention K/V projected from the vision width
 - ``mode='multi_modal'`` runs all layers
 - cross-attention exists only in layers >= fusion_layer
+- decoder mode (``is_decoder``): every layer has a cross-attention and a
+  causal self-attention (the VQA answer decoder, ``text_decoder``)
 
 Post-LN layers. Parameter names are the reference's HF BERT names under
 ``text_encoder.bert`` (``embeddings.*``, ``encoder.layer.N.attention.self.
@@ -12,8 +14,9 @@ Post-LN layers. Parameter names are the reference's HF BERT names under
 ``crossattention.*``, ``intermediate.dense``, ``output.{dense,LayerNorm}``).
 The MLM head is ``text_encoder.cls.predictions.{transform.dense,
 transform.LayerNorm, bias}`` with its decoder tied to
-``embeddings.word_embeddings.weight``. The decoder cache arrives with a
-later slice.
+``embeddings.word_embeddings.weight``; the answer decoder's stack and head
+are the same modules under ``text_decoder``. The decode cache arrives with
+a later slice.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ class BertConfig:
     attn_dropout: float = 0.1
     act: str = "gelu"              # "gelu" (erf) | "gelu_fast" (tanh)
     quant_int8: bool = False       # int8 W8A8 projections and FFN (serving only)
+    is_decoder: bool = False       # causal self-attention, cross-attention in every layer
     text_drop_path_rate: float = 0.0
     cross_drop_path_rate: float = 0.0
 
@@ -147,9 +151,11 @@ class BertAttention(nn.Module):
         self.output = BertOutput(cfg.hidden_size, cfg, dtype=dtype, device=device)
 
     def forward(self, x, kv=None, *, key_mask=None, drop_path: DropPath,
-                generator=None, kv_gather_idx=None, deterministic: bool = False):
+                generator=None, kv_gather_idx=None, causal: bool = False,
+                deterministic: bool = False):
         h = self.self(x, kv, key_mask=key_mask, generator=generator,
-                      kv_gather_idx=kv_gather_idx, deterministic=deterministic)
+                      kv_gather_idx=kv_gather_idx, causal=causal,
+                      deterministic=deterministic)
         return self.output(h, x, drop_path, generator, deterministic)
 
 
@@ -188,6 +194,7 @@ class BertLayer(nn.Module):
         self.output = BertOutput(cfg.intermediate_size, cfg, dtype=dtype,
                                  device=device)
         self.drop_path = DropPath(drop_path)
+        self.causal = cfg.is_decoder
 
     def forward(self, x, attention_mask=None, encoder_hidden_states=None,
                 encoder_attention_mask=None,
@@ -198,7 +205,8 @@ class BertLayer(nn.Module):
         each query row attends to (the stream holds only unique rows).
         ``deterministic`` turns dropout and drop-path off in training mode."""
         x = self.attention(x, key_mask=attention_mask, drop_path=self.drop_path,
-                           generator=generator, deterministic=deterministic)
+                           generator=generator, causal=self.causal,
+                           deterministic=deterministic)
         # cross-attention is skipped (not an error) without an image stream:
         # the text-only path runs the full stack uni-modally
         if self.crossattention is not None and encoder_hidden_states is not None:
@@ -220,7 +228,8 @@ class _LayerStack(nn.Module):
 
 
 class BertEncoder(nn.Module):
-    """The text / fusion stack. Call with mode='text'|'fusion'|'multi_modal'."""
+    """The text / fusion / decoder stack. Call with
+    mode='text'|'fusion'|'multi_modal'."""
 
     def __init__(self, config: BertConfig, add_embeddings: bool = True, *,
                  dtype: torch.dtype = torch.bfloat16, device=None):
@@ -232,7 +241,7 @@ class BertEncoder(nn.Module):
                            if add_embeddings else None)
         dpr = drop_path_schedule(cfg)
         self.encoder = _LayerStack(
-            BertLayer(cfg, has_cross=i >= cfg.fusion_layer,
+            BertLayer(cfg, has_cross=i >= cfg.fusion_layer or cfg.is_decoder,
                       drop_path=dpr[i], dtype=dtype, device=device)
             for i in range(cfg.num_layers))
 
@@ -288,16 +297,25 @@ class BertMLMHead(nn.Module):
     def init_extra(self, generator: torch.Generator, std: float) -> None:
         self.bias.zero_()
 
+    def _transform(self, h: torch.Tensor) -> torch.Tensor:
+        t = self.transform
+        h = gelu_exact(dense(h, t.dense.weight, t.dense.bias, self.dtype))
+        return layer_norm(h, t.LayerNorm.weight, t.LayerNorm.bias,
+                          t.LayerNorm.eps).to(self.dtype)
+
+    def logits(self, hidden: torch.Tensor, embedding_table: torch.Tensor) -> torch.Tensor:
+        """hidden (B, S, C) -> (B, S, vocab) fp32 logits at every position:
+        the tied decoder in the compute dtype, then the cast (the JAX head
+        without ``masked_pos`` and labels, as the answer decoder calls it)."""
+        return dense(self._transform(hidden), embedding_table, self.bias,
+                     self.dtype).float()
+
     def forward(self, hidden: torch.Tensor, masked_pos: torch.Tensor,
                 embedding_table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """hidden (B, S, C), masked_pos / labels (B, M) -> mean MLM loss (fp32)
         over the labels that are not -100."""
-        t = self.transform
-        h = torch.gather(hidden, 1, masked_pos.long()[:, :, None].expand(
-            -1, -1, hidden.shape[-1]))
-        h = gelu_exact(dense(h, t.dense.weight, t.dense.bias, self.dtype))
-        h = layer_norm(h, t.LayerNorm.weight, t.LayerNorm.bias,
-                       t.LayerNorm.eps).to(self.dtype)
+        h = self._transform(torch.gather(hidden, 1, masked_pos.long()[:, :, None].expand(
+            -1, -1, hidden.shape[-1])))
         flat = labels.reshape(-1)
         return fused_vocab_ce(h.reshape(-1, h.shape[-1]), embedding_table, self.bias,
                               flat, torch.ones_like(flat, dtype=torch.bool))
@@ -312,7 +330,8 @@ class _MLMPredictions(nn.Module):
 class TextEncoder(nn.Module):
     """The text tower under the reference's names: ``text_encoder.bert`` and,
     with ``mlm_head``, ``text_encoder.cls.predictions`` (:class:`BertMLMHead`,
-    reached as ``.mlm_head``)."""
+    reached as ``.mlm_head``); the VQA answer decoder (``is_decoder``) is
+    one too, under ``text_decoder``."""
 
     def __init__(self, config: BertConfig, *, dtype: torch.dtype = torch.bfloat16,
                  device=None, mlm_head: bool = False):

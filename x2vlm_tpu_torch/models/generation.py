@@ -1,0 +1,178 @@
+"""VQA as generation (counterpart of ``XVLMForVQA`` in
+x2vlm_tpu/models/generation.py; reference models/model_generation.py):
+the question runs through the multimodal encoder, and a causal answer
+decoder, whose every layer cross-attends to the question states, scores
+the answers. Inference ranks an answer list: first-token probabilities ->
+top-k -> the chain-rule rerank of the k full answers (``rank_answer``,
+vectorised as the JAX package's: one decoder pass a stage).
+
+Like the reference's VQA model it *is* the composition core (the vision
+tower and the text / fusion stack: the JAX base turns the contrastive,
+matching, MLM and bbox heads off) plus ``text_decoder``, a
+:class:`TextEncoder` in decoder mode with its tied LM head, so the state
+dict carries the reference names: ``text_decoder.bert.*`` and
+``text_decoder.cls.predictions.*``. Sampling and the decode cache come
+with captioning (ROADMAP A6d).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+
+from x2vlm_tpu_torch.models.bert import TextEncoder
+from x2vlm_tpu_torch.models.xvlm import XVLMBase, XVLMConfig
+
+__all__ = ["XVLMForVQA", "causal_lm_loss", "decoder_params_from_text_encoder", "top_k"]
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                   ignore_index: int = -100) -> torch.Tensor:
+    """Next-token cross-entropy summed per row (fp32): logits (B, L, V),
+    labels (B, L) aligned to the inputs, label[t] the target of position t
+    (the shift is made here); labels equal to ``ignore_index`` add 0."""
+    logits = logits[:, :-1, :].float()
+    targets = labels[:, 1:]
+    valid = targets != ignore_index
+    safe = torch.where(valid, targets, torch.zeros_like(targets)).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    return torch.where(valid, nll, torch.zeros_like(nll)).sum(-1)
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the ``k`` largest along the last dim, equal
+    values in index order, as ``jax.lax.top_k`` gives them (answers that
+    share a first token tie in the first stage)."""
+    values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+class XVLMForVQA(XVLMBase):
+    def __init__(self, config: Optional[XVLMConfig] = None, *, num_dec_layers: int = 6,
+                 pad_token_id: int = 0, dtype: torch.dtype = torch.bfloat16, device=None,
+                 seed: Optional[int] = 0):
+        super().__init__(config, dtype=dtype, device=device, seed=None, projections=False,
+                         temp=False, itm_head=False)
+        text = self.config.text
+        self.num_dec_layers = num_dec_layers
+        self.pad_token_id = pad_token_id
+        self.dec_config = dataclasses.replace(
+            text, num_layers=num_dec_layers, fusion_layer=0, encoder_width=text.hidden_size,
+            is_decoder=True)
+        self.text_decoder = TextEncoder(self.dec_config, dtype=dtype,
+                                        device=self.vision_encoder.cls_token.device,
+                                        mlm_head=True)
+        self.fill(seed)
+
+    def encode_question(self, image: torch.Tensor, text_ids: torch.Tensor,
+                        text_atts: torch.Tensor,
+                        dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, L, C) question states: the fusion stack over the question and
+        the image."""
+        image_embeds, image_atts = self.get_vision_embeds(image, dropout_generator)
+        return self.get_cross_embeds(image_embeds, image_atts, text_ids=text_ids,
+                                     text_atts=text_atts, generator=dropout_generator)
+
+    def decode_logits(self, answer_ids: torch.Tensor, answer_atts: torch.Tensor,
+                      question_states: torch.Tensor, question_atts: torch.Tensor,
+                      dropout_generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(A, La, vocab) fp32 logits of the causal decoder over the answer
+        rows, each row attending to its question's states."""
+        dec = self.text_decoder
+        h = dec(answer_ids, attention_mask=answer_atts, encoder_hidden_states=question_states,
+                encoder_attention_mask=question_atts, generator=dropout_generator)
+        return dec.mlm_head.logits(h, dec.bert.embeddings.word_embeddings.weight)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None,
+                dropout_generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """batch: image, question_ids / question_atts (B rows), answer_ids /
+        answer_atts / answer_weights / answer_index (the flattened answers,
+        ``answer_index`` naming each one's question) -> {loss_vqa}: the
+        answers' summed next-token losses weighted by ``answer_weights``,
+        over the image count. ``generator`` is unused (no draw but
+        dropout's)."""
+        states = self.encode_question(batch["image"], batch["question_ids"],
+                                      batch["question_atts"], dropout_generator)
+        idx = batch["answer_index"].long()
+        answer_ids = batch["answer_ids"]
+        targets = torch.where(answer_ids == self.pad_token_id,
+                              torch.full_like(answer_ids, -100), answer_ids)
+        logits = self.decode_logits(answer_ids, batch["answer_atts"],
+                                    states.index_select(0, idx),
+                                    batch["question_atts"].index_select(0, idx),
+                                    dropout_generator)
+        per_answer = causal_lm_loss(logits, targets)
+        loss = (batch["answer_weights"].float() * per_answer).sum() / batch["image"].shape[0]
+        return {"loss_vqa": loss}
+
+    def rank_answer(self, question_states: torch.Tensor, question_atts: torch.Tensor,
+                    answer_ids: torch.Tensor, answer_atts: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """question_states (Q, Lq, C); answer_ids / answer_atts (A, La), the
+        tokenised answer list, row 0's first token the BOS. The first-token
+        probabilities of every answer, the ``k`` best, each scored by its
+        first-token log-probability less its sequence loss, reranked by
+        the softmax of that. Returns (answer indices (Q, k), probabilities
+        (Q, k)), the best first."""
+        num_q = question_states.shape[0]
+        bos = answer_ids[0, :1].expand(num_q, 1)
+        logits0 = self.decode_logits(bos, torch.ones_like(bos), question_states,
+                                     question_atts)[:, 0, :]
+        probs0 = torch.softmax(logits0.float(), dim=-1)
+        prob_first = probs0[:, answer_ids[:, 1].long()]                 # (Q, A)
+        topk_probs, topk_ids = top_k(prob_first, k)
+
+        flat = topk_ids.reshape(-1)
+        input_ids = answer_ids.index_select(0, flat)
+        targets = torch.where(input_ids == self.pad_token_id,
+                              torch.full_like(input_ids, -100), input_ids)
+        logits = self.decode_logits(input_ids, answer_atts.index_select(0, flat),
+                                    question_states.repeat_interleave(k, dim=0),
+                                    question_atts.repeat_interleave(k, dim=0))
+        answer_loss = causal_lm_loss(logits, targets).reshape(num_q, k)
+        del logits
+        probs = torch.softmax(torch.log(topk_probs) - answer_loss, dim=-1)
+        topk_probs2, rerank = top_k(probs, k)
+        return torch.gather(topk_ids, 1, rerank), topk_probs2
+
+    def predict(self, batch: Dict[str, torch.Tensor], k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """batch: image, question_ids / question_atts, answer_ids /
+        answer_atts (the answer list) -> ``rank_answer``."""
+        states = self.encode_question(batch["image"], batch["question_ids"],
+                                      batch["question_atts"])
+        return self.rank_answer(states, batch["question_atts"], batch["answer_ids"],
+                                batch["answer_atts"], k)
+
+
+def decoder_params_from_text_encoder(state: Mapping[str, torch.Tensor], *,
+                                     num_text_layers: int, num_cross_layers: int,
+                                     num_dec_layers: int) -> Dict[str, torch.Tensor]:
+    """The decoder's parameters from a pretrained text encoder's state dict
+    (reference load surgery, model_generation.py:454-512; the JAX
+    function on the reference names): decoder layer j <- text layer
+    ``num_text_layers + j``, or every other fusion layer
+    (``num_text_layers + 2 j + 1``) when ``num_dec_layers`` is half
+    ``num_cross_layers``; the embeddings and the MLM head as they are."""
+    if num_dec_layers == num_cross_layers:
+        src = [num_text_layers + j for j in range(num_dec_layers)]
+    elif num_dec_layers == num_cross_layers // 2:
+        src = [num_text_layers + 2 * j + 1 for j in range(num_dec_layers)]
+    else:
+        raise ValueError("initialization not implemented")
+    layer_of = {s: j for j, s in enumerate(src)}
+    out = {}
+    layer = re.compile(r"text_encoder\.bert\.encoder\.layer\.(\d+)\.(.*)")
+    for k, v in state.items():
+        if k.startswith(("text_encoder.bert.embeddings.", "text_encoder.cls.")):
+            out["text_decoder." + k[len("text_encoder."):]] = v
+        elif (m := layer.fullmatch(k)) and int(m.group(1)) in layer_of:
+            out[f"text_decoder.bert.encoder.layer.{layer_of[int(m.group(1))]}."
+                f"{m.group(2)}"] = v
+    return out

@@ -217,6 +217,11 @@ class MultiHeadAttention(nn.Module):
     - anything else runs the plain ``dot_product_attention``, with the scale
       folded the same way.
 
+    ``causal=True`` (the decoder's self-attention) never takes the tiny
+    kernel, as the JAX rule gates it on ``not causal``: it goes to the flash
+    kernel where that admits the shape, else to the plain core with its
+    causal mask.
+
     ``quant=True`` (serving only) projects through the int8 kernel
     (``ops/quant.qdense``) with each source (x, and ``kv`` when given)
     quantized once and shared by the projections it feeds; the output
@@ -323,7 +328,7 @@ class MultiHeadAttention(nn.Module):
                 bias: Optional[torch.Tensor] = None,
                 key_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                kv_gather_idx: Optional[torch.Tensor] = None,
+                kv_gather_idx: Optional[torch.Tensor] = None, causal: bool = False,
                 cache=None, deterministic: bool = False) -> torch.Tensor:
         if cache is not None:
             raise NotImplementedError(
@@ -338,7 +343,7 @@ class MultiHeadAttention(nn.Module):
         training = self.training and not deterministic
         drop = self.attn_dropout_rate if training else 0.0
 
-        if bias is None and tiny_supported(Sq, Skv, D):
+        if bias is None and not causal and tiny_supported(Sq, Skv, D):
             q, k, v = self._gather(*self._project(x, kv_src, 1.0), kv_gather_idx)
             out = tiny_block_attention(q, k, v, num_heads=H, key_mask=key_mask,
                                        dropout_rate=drop, generator=generator,
@@ -353,11 +358,11 @@ class MultiHeadAttention(nn.Module):
             v = v.reshape(B, Skv, H, D).transpose(1, 2).contiguous()
             if drop == 0.0 and flash_supported(q, k):
                 out = flash_attention(q, k, v, bias=bias, key_mask=key_mask,
-                                      scale=core_scale)
+                                      causal=causal, scale=core_scale)
             else:
                 out = dot_product_attention(
-                    q, k, v, bias=bias, key_mask=key_mask, scale=core_scale,
-                    dropout_rate=drop, generator=generator,
+                    q, k, v, bias=bias, key_mask=key_mask, causal=causal,
+                    scale=core_scale, dropout_rate=drop, generator=generator,
                     training=training)
             out = out.transpose(1, 2).reshape(B, Sq, H * D)
         if self.proj is not None:

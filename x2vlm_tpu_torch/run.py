@@ -1,5 +1,6 @@
 """The launcher (the port's counterpart of x2vlm_tpu/run.py), for the tasks
-the port has: ``pretrain``, ``retrieval``, ``grounding`` and ``nlvr``.
+the port has: ``pretrain``, ``retrieval``, ``grounding``, ``nlvr`` and
+``vqa``.
 
 Usage:
     python -m x2vlm_tpu_torch.run --task retrieval \\
@@ -24,11 +25,13 @@ process, one card.
 - ``--evaluate`` evaluates only (the fine-tune tasks): retrieval's R@k,
   grounding's IoU >= 0.5 accuracy per split (``refs_file``; a VLUE test
   set with ``vlue_test``), NLVR2's accuracy (per split when ``test_file``
-  is a dict).
+  is a dict), VQA's answers ranked over ``answer_list`` (written to
+  ``vqa_result.json``; the VQAv2 accuracy ``overall`` and the exact-match
+  ``acc`` where the test lines carry answers).
 
 The config is validated against the JAX package's key registry
 (core/config_schema.py). What the port does not run raises, naming its
-ROADMAP item: every other task (A6: VQA, captioning; A8: MARVL, classification
+ROADMAP item: every other task (A6: captioning; A8: xGQA, MARVL, classification
 and the other multilingual and video tasks), the video / parallel-text and
 multilingual (``languages``) streams (A8), other vision towers and
 converters (A7), and, as in the JAX launcher, ``mixed_in_batch: false``
@@ -49,7 +52,7 @@ import torch
 
 from x2vlm_tpu_torch.core import config as config_lib
 from x2vlm_tpu_torch.core import config_schema
-from x2vlm_tpu_torch.data.loader import MapLoader, Prefetcher, collate
+from x2vlm_tpu_torch.data.loader import MapLoader, Prefetcher, batch_indices, collate
 from x2vlm_tpu_torch.device import resolve_device
 from x2vlm_tpu_torch.factory import build_model
 from x2vlm_tpu_torch.tasks.finetune import append_log, train_epochs
@@ -59,7 +62,7 @@ from x2vlm_tpu_torch.train import checkpoint as ckpt_lib
 
 __all__ = ["TASKS", "UNPORTED", "parse_args", "setup", "make_optimizer", "maybe_resume",
            "load_initial_params", "eval_multi", "finetune", "run_retrieval", "run_grounding",
-           "run_nlvr", "run_pretrain", "main", "to_device"]
+           "run_nlvr", "VQALoader", "run_vqa", "run_pretrain", "main", "to_device"]
 
 TASKS = ("pretrain", "retrieval", "xretrieval", "wit", "xflickrco", "video_retrieval", "vqa",
          "xgqa", "nlvr", "marvl", "grounding", "captioning", "classification", "xvnli",
@@ -67,7 +70,7 @@ TASKS = ("pretrain", "retrieval", "xretrieval", "wit", "xflickrco", "video_retri
 # the JAX launcher's other tasks and the ROADMAP items that bring them
 UNPORTED = {"xretrieval": "A8", "wit": "A8", "xflickrco": "A8", "video_retrieval": "A8",
             "xgqa": "A8", "marvl": "A8", "xvnli": "A8", "video_qa": "A8", "next_qa_mc": "A8",
-            "classification": "A8", "vqa": "A6", "captioning": "A6"}
+            "classification": "A8", "captioning": "A6"}
 # pretraining streams the port does not build: (config file key, block) -> item
 UNPORTED_STREAMS = {("train_file_videos", "videos"): "A8",
                     ("train_file_videos_aux", "videos"): "A8",
@@ -110,7 +113,7 @@ def setup(args):
     if args.task in UNPORTED:
         raise NotImplementedError(f"--task {args.task} comes with ROADMAP queue item "
                                   f"{UNPORTED[args.task]}; the port runs pretrain, "
-                                  f"retrieval, grounding and nlvr")
+                                  f"retrieval, grounding, nlvr and vqa")
     if args.fewshot:
         raise NotImplementedError("--fewshot (IGLUE) comes with ROADMAP queue item A8")
     os.makedirs(args.output_dir, exist_ok=True)
@@ -146,7 +149,9 @@ def setup(args):
 def make_optimizer(cfg, model, total_steps: int, fusion_layer: int, fresh_names=()):
     """AdamW with the reference's groups (reference optim.py:26-104): the
     base lr, per-tower vision / text / cross lr, ``lr_mult`` on the
-    parameters the checkpoint left fresh; the linear warmup-decay schedule."""
+    parameters the checkpoint left fresh and, with ``large_lr_for_dec``, on
+    the whole VQA decoder (reference model_generation.py:445-447); the
+    linear warmup-decay schedule."""
     opt = cfg.get("optimizer", {})
     sched_cfg = cfg.get("schedular", {})
     if str(opt.get("opt", "adamW")).lower() != "adamw":
@@ -162,7 +167,9 @@ def make_optimizer(cfg, model, total_steps: int, fusion_layer: int, fresh_names=
     sched = lr_schedule(base_lr, total_steps,
                         warmup_steps=sched_cfg.get("num_warmup_steps", 0.1),
                         min_rate=sched_cfg.get("min_rate", 0.0))
-    labels = param_labels(model.named_parameters(), fusion_layer, fresh_names=fresh_names)
+    labels = param_labels(model.named_parameters(), fusion_layer, fresh_names=fresh_names,
+                          fresh_prefixes=("text_decoder.",)
+                          if cfg.get("large_lr_for_dec", False) else ())
     return create_optimizer(
         model, sched, weight_decay=float(opt.get("weight_decay", 0.01)),
         clip_grad_norm=cfg.get("accelerator", {}).get("CLIP_GRAD_NORM", 1.0),
@@ -245,14 +252,14 @@ def eval_multi(eval_one, eval_sets, mean_key=None) -> Dict:
     return out
 
 
-def finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, metric_key):
+def finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, metric_key, loader=None):
     """The tail every fine-tune task shares (the JAX ``_finetune_common`` and
     ``_train_state_and_loop``): the ``--checkpoint`` import, then either
     ``--evaluate`` (returns the metrics) or the epochs: AdamW with its
-    groups, ``--resume``, one step per batch of ``batch_size``, an eval after
-    each epoch, the train state saved every epoch and the best by
-    ``metric_key`` (None: none) kept in ``ckpt_best`` (returns the last
-    epoch's record)."""
+    groups, ``--resume``, one step per batch of ``loader`` (default:
+    ``batch_size`` samples of ``train_ds``), an eval after each epoch, the
+    train state saved every epoch and the best by ``metric_key`` (None:
+    none) kept in ``ckpt_best`` (returns the last epoch's record)."""
     fresh = load_initial_params(args, cfg, model)
     if args.evaluate:
         metrics = eval_fn()
@@ -262,7 +269,7 @@ def finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, metric_key):
 
     epochs = cfg.get("schedular", {}).get("epochs", 5)
     accum = int(cfg.get("accumulate_steps", 1))
-    loader = MapLoader(train_ds, cfg.get("batch_size", 32), seed=args.seed)
+    loader = loader or MapLoader(train_ds, cfg.get("batch_size", 32), seed=args.seed)
     steps_per_epoch = max(1, len(loader))
     optimizer = make_optimizer(cfg, model, steps_per_epoch * epochs,
                                mcfg.text.fusion_layer, fresh_names=fresh)
@@ -352,6 +359,83 @@ def run_nlvr(args, cfg, device):
             mean_key="accuracy")
 
     return finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, "accuracy")
+
+
+class VQALoader(MapLoader):
+    """Batches of ``vqa_collate`` over a VQA train set, each batch's samples
+    read in order (the transform draws from one rng). At each epoch's start
+    the answer-truncation rng is ``random.Random(seed * 1000003 + epoch)``,
+    as the JAX launcher's, and the transform's rng ``data_rng`` is reseeded
+    from ``seed`` and the epoch (epoch 0: ``seed`` itself, the JAX
+    launcher's draws), so a resumed run reads the batches the whole run
+    read. The batch order is the JAX loader's (``MapLoader``'s seed 0, not
+    ``run_seed``)."""
+
+    def __init__(self, dataset, batch_size: int, answers_per_batch: int, *, run_seed: int,
+                 data_rng: random.Random):
+        super().__init__(dataset, batch_size)
+        self.answers_per_batch = answers_per_batch
+        self.run_seed = run_seed
+        self.data_rng = data_rng
+
+    def __iter__(self):
+        from x2vlm_tpu_torch.data.finetune import vqa_collate
+
+        seed, epoch = self.run_seed, self.epoch
+        rng = random.Random(seed * 1000003 + epoch)
+        self.data_rng.seed(seed if epoch == 0 else f"{seed}/{epoch}")
+        for b in batch_indices(len(self.dataset), self.batch_size, shuffle=self.shuffle,
+                               seed=self.seed, epoch=epoch, drop_last=self.drop_last):
+            yield vqa_collate([self.dataset[i] for i in b], self.answers_per_batch, rng=rng)
+
+
+def run_vqa(args, cfg, device):
+    """Fine-tune and / or evaluate VQA (reference VQA.py): the decoder's
+    loss over each question's weighted answers; the eval ranks
+    ``answer_list`` (``k_test`` answers reranked) and scores with the
+    VQAv2 protocol (``overall``) where the test lines carry several human
+    answers, else the exact match (``acc``)."""
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.evalkit.vqa import exact_match_accuracy, vqa_eval
+    from x2vlm_tpu_torch.tasks.vqa import evaluate_vqa
+
+    model, mcfg = build_model(cfg, "vqa", device=device, seed=args.seed)
+    data_rng = random.Random(args.seed)
+    train_ds, test_ds = create_dataset("vqa", cfg, evaluate=args.evaluate, rng=data_rng)
+    gts0 = (next(iter(test_ds.values())) if isinstance(test_ds, dict) else test_ds).gt_answers()
+    metric_key = None
+    if gts0:   # the VQAv2 protocol needs several human answers a question
+        metric_key = "overall" if max(len(v) for v in gts0.values()) >= 4 else "acc"
+
+    def eval_one(ds):
+        results = evaluate_vqa(model, ds, ds.answer_list, ds.answer_ids, ds.answer_atts,
+                               device=device, k_test=cfg.get("k_test", 128),
+                               batch_size=cfg.get("batch_size_test", 32))
+        seen, merged = set(), []
+        for r in results:
+            if r["question_id"] not in seen:
+                seen.add(r["question_id"])
+                merged.append(r)
+        split = next((k for k, v in test_ds.items() if v is ds), None) \
+            if isinstance(test_ds, dict) else None
+        with open(os.path.join(args.output_dir,
+                               f"vqa_result{f'_{split}' if split else ''}.json"), "w") as f:
+            json.dump(merged, f)
+        out = {"n": len(merged)}
+        gts = ds.gt_answers()
+        if gts:
+            out.update(vqa_eval(merged, gts))
+            out["acc"] = exact_match_accuracy(merged, gts)
+        return out
+
+    loader = None
+    if not args.evaluate:
+        batch_size = cfg.get("batch_size", 32)
+        loader = VQALoader(train_ds, batch_size, cfg.get("answers_per_batch", 2 * batch_size),
+                           run_seed=args.seed, data_rng=data_rng)
+    return finetune(args, cfg, device, model, mcfg, train_ds,
+                    lambda: eval_multi(eval_one, test_ds, mean_key=metric_key), metric_key,
+                    loader=loader)
 
 
 class _Tracked:
@@ -532,7 +616,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     t0 = time.time()
     runners = {"pretrain": run_pretrain, "retrieval": run_retrieval,
-               "grounding": run_grounding, "nlvr": run_nlvr}
+               "grounding": run_grounding, "nlvr": run_nlvr, "vqa": run_vqa}
     out = runners[args.task](args, cfg, device)
     print(f"total time: {time.time() - t0:.0f}s")
     return out

@@ -1,11 +1,12 @@
 """Serving on the card (counterpart of the JAX package's
-``serving.ServingBundle`` and ``GroundingBundle``): retrieval's two
-encoders and ITM rerank head, and the grounding box predictor.
+``serving.ServingBundle``, ``GroundingBundle`` and ``VQABundle``):
+retrieval's two encoders and ITM rerank head, the grounding box predictor
+and VQA's answer ranking.
 
-``RetrievalServer.from_npz`` / ``GroundingServer.from_npz`` load the
-``params.npz`` of a JAX retrieval / grounding bundle through
-``convert.py``; ``RetrievalServer(model)`` / ``GroundingServer(model)``
-serve a model built in the port. Requests run under
+``RetrievalServer.from_npz`` / ``GroundingServer.from_npz`` /
+``VQAServer.from_npz`` load the ``params.npz`` of a JAX retrieval /
+grounding / VQA bundle through ``convert.py``; ``RetrievalServer(model)``
+(and the others) serve a model built in the port. Requests run under
 ``torch.inference_mode`` and return tensors on the serving device.
 """
 
@@ -19,11 +20,12 @@ import torch
 
 from x2vlm_tpu_torch.convert import convert_jax_params, load_params_npz
 from x2vlm_tpu_torch.device import resolve_device
+from x2vlm_tpu_torch.models.generation import XVLMForVQA
 from x2vlm_tpu_torch.models.grounding import XVLMForGrounding
 from x2vlm_tpu_torch.models.heads import XVLMForRetrieval
 from x2vlm_tpu_torch.models.xvlm import XVLMConfig
 
-__all__ = ["RetrievalServer", "GroundingServer"]
+__all__ = ["RetrievalServer", "GroundingServer", "VQAServer"]
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
@@ -48,9 +50,14 @@ class _Server:
         device = resolve_device(device)
         state, _ = convert_jax_params(load_params_npz(path), device=device)
         model = cls.MODEL(config or XVLMConfig.base(image_res=cls.IMAGE_RES), dtype=dtype,
-                          device=device, seed=None)
+                          device=device, seed=None, **cls._model_kwargs(state))
         model.load_state_dict(state)
         return cls(model)
+
+    @staticmethod
+    def _model_kwargs(state) -> dict:
+        """``MODEL``'s arguments that the parameters decide."""
+        return {}
 
     def _in(self, x: ArrayLike) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device, non_blocking=True)
@@ -88,3 +95,30 @@ class GroundingServer(_Server):
         """NHWC images, (B, L) token ids and attention mask -> (B, 4) boxes,
         cxcywh normalised to [0, 1], fp32."""
         return self.model.predict(self._in(image), self._in(text_ids), self._in(text_atts))
+
+
+class VQAServer(_Server):
+    """Image + question -> the answer list ranked (reference VQA.py's
+    protocol), at 768 px by default, the shipped VQAv2 config's resolution.
+    The decoder's depth is read from the parameters."""
+
+    MODEL = XVLMForVQA
+    IMAGE_RES = 768
+
+    @staticmethod
+    def _model_kwargs(state) -> dict:
+        layers = {k.split(".")[4] for k in state
+                  if k.startswith("text_decoder.bert.encoder.layer.")}
+        return {"num_dec_layers": len(layers)}
+
+    @torch.inference_mode()
+    def rank(self, image: ArrayLike, q_ids: ArrayLike, q_atts: ArrayLike,
+             answer_ids: ArrayLike, answer_atts: ArrayLike, k_test: int = 128):
+        """NHWC images, (B, L) question ids and mask, the tokenised answer
+        list (A, La) -> (answer indices (B, k), scores (B, k)), k =
+        min(k_test, A); column 0 is each question's prediction."""
+        answer_ids = self._in(answer_ids).long()
+        batch = {"image": self._in(image), "question_ids": self._in(q_ids).long(),
+                 "question_atts": self._in(q_atts), "answer_ids": answer_ids,
+                 "answer_atts": self._in(answer_atts)}
+        return self.model.predict(batch, min(k_test, answer_ids.shape[0]))

@@ -14,7 +14,8 @@ reproducible from the two generators' states. ``accum_steps > 1`` splits
 the batch along its first dim into that many microbatches, each a part
 weighted ``1 / accum_steps`` (the JAX package's scan). In-batch losses
 (ITC, ITM negatives) then see microbatch-local negatives, as in the
-reference's accumulation.
+reference's accumulation. A batch whose tensors differ in rows (a VQA
+batch: its answer rows are not its questions) takes whole steps only.
 """
 
 from __future__ import annotations
@@ -93,14 +94,22 @@ def make_train_step(model: nn.Module, optimizer: AdamW, *,
         for p in optimizer.params:
             p.grad = None
         n = accum_steps
-        rows = next(v.shape[0] for v in batch.values() if torch.is_tensor(v))
-        if rows % n:
-            raise ValueError(f"batch of {rows} rows does not split into {n} microbatches")
-        mb_rows = rows // n
+        if n == 1:
+            microbatches = [batch]
+        else:
+            rows = {v.shape[0] for v in batch.values() if torch.is_tensor(v)}
+            if len(rows) != 1:
+                raise ValueError(f"accumulation splits every tensor along its first dim; "
+                                 f"this batch's tensors have {sorted(rows)} rows (a VQA "
+                                 f"batch's answer rows are not its questions')")
+            rows = rows.pop()
+            if rows % n:
+                raise ValueError(f"batch of {rows} rows does not split into {n} microbatches")
+            mb_rows = rows // n
+            microbatches = [{k: v[i * mb_rows:(i + 1) * mb_rows] if torch.is_tensor(v) else v
+                             for k, v in batch.items()} for i in range(n)]
         sums: Dict[str, torch.Tensor] = {}
-        for i in range(n):
-            mb = {k: v[i * mb_rows:(i + 1) * mb_rows] if torch.is_tensor(v) else v
-                  for k, v in batch.items()}
+        for mb in microbatches:
             for k, v in grad_fn(mb, generator, dropout_generator).items():
                 sums[k] = sums.get(k, 0.0) + v
         metrics = {k: v if k == "loss_total" else v / n for k, v in sums.items()}
