@@ -170,7 +170,36 @@ Phases (any failure exits non-zero and prints no result line):
    decoder head), each bf16 40 x 2312 forward and backward call within
    half the bf16 rule, ``rank_answer``'s first answers equal and its top-k
    scores within 0.05. The step's CUDA-event and wall ms, the eval's wall
-   seconds and both peaks are printed.
+   seconds and both peaks are printed;
+11. the launcher's captioning fine-tune at 384 px from phase 7's ``.th``
+   (rel-pos tables interpolated 14 -> 24, nothing fresh):
+   ``configs/finetune/coco_captioning_base.yaml`` at its own sizes (16
+   images a step and an eval call, 25 tokens, 12 masks, label smoothing
+   0.1, 3 beams, captions of 5 to 20 tokens after "a picture of "), the
+   data paths pointed at phase 8's PNGs (Karpathy-style train / test lines
+   with 5 captions an image, a ``caption_gt_file``), cut to 2 epochs of 2
+   steps and an eval of 32 images (two calls) after the last; then
+   ``--resume`` from the state saved at step 2; then ``scst: true`` from
+   the fine-tuned state, 2 steps of 16 images x 5 rollouts. Checked:
+   finite losses, BLEU-1 / 4, CIDEr-D, ROUGE-L and METEOR; the import; the
+   launches of each step (12 of each flash kernel at B=16; tiny forward and
+   backward 6 at 16 x 25 x 584; the 18 UniLM self-attentions on the plain
+   core), eval call (12 flash forwards; tiny 6 at 16 x 5 x 584 and 6 x 19
+   at 48 x 2 x 584; 18 x 20 plain: the cached decode), SCST rollout call
+   (12 flash forwards; tiny 6 at 80 x 5 and 6 x 19 at 80 x 2 x 584; 18 x
+   20 plain) and SCST step (12 of each flash kernel at B=80; tiny 6 at 80
+   x 46 x 584; 18 plain), every launch tensor-core and key-tiled; the
+   resumed state and its batches bit for bit; and the fine-tuned weights
+   on 2 images with dropout off, card bf16 against the port's CPU fp32
+   path: ``loss_caption`` and ``loss_scst`` (a 10-row SCST batch, 5
+   reference captions an image, with planted non-zero advantages) each
+   within 0.05 + 2% with gradient cosines >= 0.99, each 25 x 584 and 46 x
+   584 forward and backward call within half the bf16 rule, a
+   teacher-forced decode (each frame fed the CPU's greedy token) whose
+   logits stay within 0.05 + 5% of their scale, frame 0's top-3 ids equal;
+   the two paths' beam-search captions are printed, not held. Step, eval
+   call, rollout call and SCST step ms (CUDA events, wall), the eval's wall
+   seconds and the peaks are printed.
 
 The 40 x 584 shapes of phases 8 and 9 (the fine-tune's 96-row ITM pass
 with dropout, the 1024- and 512-row rerank, grounding's 20-row bbox pass
@@ -182,9 +211,12 @@ SDPA, with the walk rule and its shared-memory formulas held to Python's
 and contract cases of the walk on both routes. So are phase 10's flash
 shapes at S=2305 (the step's B=8 forward and backward, the eval's B=32
 forward) and its resident tiny shapes (8 x 40 x 40 and 16 x 10 x 40 with
-training operands, 4096 x 10 x 40 and 32 x 1 x 40 serving).
+training operands, 4096 x 10 x 40 and 32 x 1 x 40 serving), and phase
+11's: K1-K4 at S=577 with B=16 and B=80, key-tiled K5 / K6 at 16 x 25 x
+584 and 80 x 46 x 584 with training operands, K5 at 16 x 5, 48 x 2, 80 x
+5 and 80 x 2 x 584 serving.
 
-Every attention launch of phases 3 and 5-10 is counted by kernel, shape and
+Every attention launch of phases 3 and 5-11 is counted by kernel, shape and
 operands (serving: no multiplier, no probabilities; training) and must fall
 on a shape phase 2 checked and timed (``FLASH_MAIN_SHAPES``,
 ``TINY_MAIN_SHAPES``, ``TILED_MAIN_SHAPES``); the kernels line gives each
@@ -197,8 +229,9 @@ torch.profiler tables of one round of requests, one int8 round, one train
 step and one region-stream call of phase 7 to ``DIR/chip_smoke_profile.txt``,
 ``DIR/chip_smoke_int8_profile.txt``, ``DIR/chip_smoke_train_profile.txt``
 and ``DIR/chip_smoke_region_profile.txt`` (and phase 8's two, and phase
-9's ``chip_smoke_{grounding,nlvr}_{step,eval}_profile.txt`` and phase
-10's ``chip_smoke_vqa_{step,eval}_profile.txt``), each with a
+9's ``chip_smoke_{grounding,nlvr}_{step,eval}_profile.txt``, phase
+10's ``chip_smoke_vqa_{step,eval}_profile.txt`` and phase 11's
+``chip_smoke_captioning_{step,eval}_profile.txt``), each with a
 last line of the port kernels' (attention and K7) device time and
 launches.
 """
@@ -293,6 +326,14 @@ REGION_IMAGES, REGION_ROWS = 50, 128
 # and answers reranked a question: the rank pass decodes 32 x 128 rows
 VQA_BATCH, VQA_ANSWERS, ANSWER_LEN, VQA_EVAL_BATCH, K_TEST = 8, 16, 10, 32, 128
 VQA_RANK_ROWS = VQA_EVAL_BATCH * K_TEST
+# coco_captioning_base.yaml (phase 11): images a step and an eval call, caption
+# tokens, beams, the longest caption, rollouts an image in SCST; the prompt
+# "a picture of " is [CLS] and 3 tokens, so the decode's frame 0 has
+# CAP_PROMPT + 1 queries, each later frame 2 (its token and a [MASK]); an
+# SCST row holds the prompt and a [MASK] before each of max_length + 1 targets
+CAP_BATCH, CAP_TOKENS, CAP_EVAL_BATCH, CAP_BEAMS, CAP_MAX_LEN = 16, 25, 16, 3, 20
+CAP_PROMPT, SCST_SAMPLES = 4, 5
+SCST_ROWS, SCST_LEN = CAP_BATCH * SCST_SAMPLES, CAP_PROMPT + 2 * (CAP_MAX_LEN + 1)
 TINY_REPLACES = {"tiny_attention_fwd": "x2vlm_tpu/ops/tiny_attention.py:88",
                  "tiny_attention_bwd": "x2vlm_tpu/ops/tiny_attention.py:135"}
 FLASH_BWD_REPLACES = {"dq": "x2vlm_tpu/ops/flash_attention.py:368",
@@ -411,11 +452,13 @@ def expect_flash_fwd_route(tag, before, dtype, D, n=1) -> None:
 # stream) at B=32 and the region stream at B=50 at 224 px (S=197); at 384 px
 # (S=577) the grounding step's B=20, the 32 images of the NLVR2 step, of
 # phase 8's fine-tune step and of the grounding eval, and the 64 of the
-# NLVR2 eval and of phase 8's eval; at 768 px (S=2305) phase 10's VQA step
-# (B=8) and eval call (B=32)
+# NLVR2 eval and of phase 8's eval, phase 11's captioning step, eval call
+# and SCST rollouts (B=16) and its SCST step (16 images x 5 rollouts); at
+# 768 px (S=2305) phase 10's VQA step (B=8) and eval call (B=32)
 FLASH_MAIN_SHAPES = ((BATCH, N_IMG, False), (TRAIN_BATCH, N_IMG, True),
                      (REGION_IMAGES, N_IMG, True), (GROUNDING_BATCH, N_IMG_384, True),
                      (2 * NLVR_BATCH, N_IMG_384, True), (2 * FT_EVAL_BATCH, N_IMG_384, False),
+                     (CAP_BATCH, N_IMG_384, True), (SCST_ROWS, N_IMG_384, True),
                      (VQA_BATCH, N_IMG_768, True), (VQA_EVAL_BATCH, N_IMG_768, False))
 
 
@@ -1090,26 +1133,35 @@ TILED_CASES = {
 }
 
 
-# (B, Skv, dropout, probabilities, label) of the key-tiled checks, every
+# (B, Sq, Skv, dropout, probabilities, label) of the key-tiled checks, every
 # shape a main path launches. 40 x 584 (384 px): the retrieval fine-tune's
 # ITM fusion pass (batch 32: 96 rows, positives and two negatives each),
 # the two-stage eval's ITM rerank (8 images x 128 candidate texts; 8 texts x
 # the 64 images of phase 8, its most launched); phase 9's grounding bbox
 # pass (batch 20, trained without dropout: probabilities saved, no
 # multiplier), NLVR2's two fusion passes (batch 16, dropout) and both
-# tasks' evals (batch 32). 40 x 2312 (768 px): phase 10's VQA question
-# pass (batch 8, dropout) and its eval calls (batch 32)
+# tasks' evals (batch 32); phase 11's captioning step (16 x 25 x 584,
+# dropout), its decode (frame 0 at 16 x 5 x 584, then 3 beams x 16 images
+# at 2 queries), its SCST rollouts (5 x 16 rows at 5 and 2 queries) and
+# SCST step (80 x 46 x 584, dropout). 40 x 2312 (768 px): phase 10's VQA
+# question pass (batch 8, dropout) and its eval calls (batch 32)
 N_KEYS_384 = N_IMG_384 + (-N_IMG_384 % 8)   # 584: the fusion's padded image stream
 N_KEYS_768 = N_IMG_768 + (-N_IMG_768 % 8)   # 2312
-TILED_MAIN_SHAPES = ((3 * TRAIN_BATCH, N_KEYS_384, True, True, "fine-tune ITM"),
-                     (RERANK_BATCH, N_KEYS_384, False, False, "ITM rerank"),
-                     (RERANK_BATCH // 2, N_KEYS_384, False, False,
-                      "ITM rerank, texts to images"),
-                     (GROUNDING_BATCH, N_KEYS_384, False, True, "grounding bbox pass"),
-                     (NLVR_BATCH, N_KEYS_384, True, True, "NLVR2 fusion"),
-                     (FT_EVAL_BATCH, N_KEYS_384, False, False, "grounding / NLVR2 eval"),
-                     (VQA_BATCH, N_KEYS_768, True, True, "VQA question fusion"),
-                     (VQA_EVAL_BATCH, N_KEYS_768, False, False, "VQA eval question fusion"))
+TILED_MAIN_SHAPES = (
+    (3 * TRAIN_BATCH, TEXT_LEN, N_KEYS_384, True, True, "fine-tune ITM"),
+    (RERANK_BATCH, TEXT_LEN, N_KEYS_384, False, False, "ITM rerank"),
+    (RERANK_BATCH // 2, TEXT_LEN, N_KEYS_384, False, False, "ITM rerank, texts to images"),
+    (GROUNDING_BATCH, TEXT_LEN, N_KEYS_384, False, True, "grounding bbox pass"),
+    (NLVR_BATCH, TEXT_LEN, N_KEYS_384, True, True, "NLVR2 fusion"),
+    (FT_EVAL_BATCH, TEXT_LEN, N_KEYS_384, False, False, "grounding / NLVR2 eval"),
+    (CAP_BATCH, CAP_TOKENS, N_KEYS_384, True, True, "captioning step"),
+    (CAP_EVAL_BATCH, CAP_PROMPT + 1, N_KEYS_384, False, False, "caption decode frame 0"),
+    (CAP_BEAMS * CAP_EVAL_BATCH, 2, N_KEYS_384, False, False, "caption decode step"),
+    (SCST_ROWS, CAP_PROMPT + 1, N_KEYS_384, False, False, "SCST rollout frame 0"),
+    (SCST_ROWS, 2, N_KEYS_384, False, False, "SCST rollout step"),
+    (SCST_ROWS, SCST_LEN, N_KEYS_384, True, True, "SCST step"),
+    (VQA_BATCH, TEXT_LEN, N_KEYS_768, True, True, "VQA question fusion"),
+    (VQA_EVAL_BATCH, TEXT_LEN, N_KEYS_768, False, False, "VQA eval question fusion"))
 
 
 def walk_delta(fn, before) -> dict:
@@ -1119,15 +1171,15 @@ def walk_delta(fn, before) -> dict:
 
 def check_tiny_tiled(gen, dev, shapes):
     """K5 and K6 on the key-tiled walk: at the 384 px and 768 px fusion
-    cross-attention (40 x 584, 40 x 2312) at each (B, Skv, dropout,
+    cross-attention (Sq x 584, 40 x 2312) at each (B, Sq, Skv, dropout,
     probabilities) of ``shapes`` in bf16, forward and backward, checked and
     timed beside SDPA forward / backward (the card running ahead of the
     host); then over the walk's contract at small shapes on both routes.
     Returns the kernels-line entries."""
     entries = []
-    H, D, Sq = 12, 64, TEXT_LEN
+    H, D = 12, 64
     scale = D ** -0.5
-    for B, Skv, drop, probs_wanted, label in shapes:
+    for B, Sq, Skv, drop, probs_wanted, label in shapes:
         q, k, v, km, dm = tiny_operands(gen, dev, B, Sq, Skv, H, D, torch.bfloat16, "pad",
                                         drop)
         ops = "key_mask dropout" if drop else "key_mask"
@@ -2019,7 +2071,7 @@ def launch_counts():
 LEDGER_PARTS = ("tiny_fwd", "tiny_bwd", "flash_fwd_shapes", "flash_bwd_shapes")
 # the main paths, as the kernels line's ``launches_by_path`` names them
 PATHS = ("serving", "train_step", "int8_serving", "pretrain_launcher", "retrieval_launcher",
-         "finetune_launcher", "vqa_launcher")
+         "finetune_launcher", "vqa_launcher", "caption_launcher")
 
 
 def ledger_add(ledger, path: str, operands: str, c: dict) -> None:
@@ -3417,6 +3469,465 @@ def vqa_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, image
     return split_counts(counts, [r["delta"] for r in steps])
 
 
+CAPTION_CONFIG = "configs/finetune/coco_captioning_base.yaml"
+CAP_EPOCHS = 2                       # 2 steps an epoch: 4 steps, a save after step 2
+N_CAP_TRAIN = 2 * CAP_BATCH          # train images: 2 steps an epoch (and 2 SCST steps)
+N_CAP_EVAL = 2 * CAP_EVAL_BATCH      # test images: 2 eval calls
+N_CAP_STEPS = CAP_EPOCHS * N_CAP_TRAIN // CAP_BATCH
+CAP_RESUME_STEP = N_CAP_TRAIN // CAP_BATCH   # --resume from the state saved after epoch 0
+N_SCST_STEPS = N_CAP_TRAIN // CAP_BATCH
+CAP_LOGIT_RULE = (0.05, 0.05)        # phase 9's logits rule: 0.05 + 5% of their scale
+# the SCST hold's advantages, 5 rollouts of each of 2 images: planted, since
+# with random weights every CIDEr-D reward of the launcher's run is 0
+SCST_HOLD_ADV = np.array([0.7, -1.2, 0.4, -0.3, 1.1, -0.5, 0.9, -0.8, 0.2, -0.6], np.float32)
+
+
+def write_caption_corpus(root: str, rng: np.random.Generator, words, n_images: int):
+    """Karpathy-style lines over the ``n_images`` PNGs of phase 8: train, one
+    line an image with its 5 captions (the train set draws one a read; the
+    SCST set takes all 5 as references); test, an ``image_id`` and 5
+    captions a line; and the ``caption_gt_file`` of the test images.
+    Returns the (train, test, gt) paths."""
+    caps = lambda: [caption(rng, words, 5, 16) for _ in range(5)]
+    train = [{"image": f"{i % n_images}.png", "caption": caps(), "image_id": i}
+             for i in range(N_CAP_TRAIN)]
+    test = [{"image": f"{(i + 11) % n_images}.png", "caption": caps(), "image_id": 5000 + i}
+            for i in range(N_CAP_EVAL)]
+    gt = {str(line["image_id"]): line["caption"] for line in test}
+    paths = [os.path.join(root, f"caption_{n}.json") for n in ("train", "test", "gt")]
+    for path, data in zip(paths, (train, test, gt)):
+        with open(path, "w") as f:
+            json.dump(data, f)
+    return paths
+
+
+def caption_launches(kind: str) -> dict:
+    """The attention launches of one captioning train step ("step", 16
+    images), eval call ("eval": 16 images, 3 beams), SCST rollout call
+    ("rollout": 16 images x 5 rollouts) or SCST step ("scst": 80 rows): 12
+    flash (the vision pass, S=577); tiny only for the 6 fusion
+    cross-attentions, key-tiled at 584 keys (a decode: frame 0 at the
+    prompt's 5 queries, then 19 frames of 2 over the expanded rows); the 18
+    text self-attentions on the plain core, once a step (the UniLM attention
+    matrix) or once a frame (the static cache); the backward as the
+    forward in training."""
+    train = kind in ("step", "scst")
+    if train:
+        rows, sq = (CAP_BATCH, CAP_TOKENS) if kind == "step" else (SCST_ROWS, SCST_LEN)
+        tiny, plain = {(rows, sq, N_KEYS_384): 6}, 18
+    else:
+        first, rows = ((CAP_EVAL_BATCH, CAP_BEAMS * CAP_EVAL_BATCH) if kind == "eval"
+                       else (SCST_ROWS, SCST_ROWS))
+        tiny = {(first, CAP_PROMPT + 1, N_KEYS_384): 6,
+                (rows, 2, N_KEYS_384): 6 * (CAP_MAX_LEN - 1)}
+        plain = 18 * CAP_MAX_LEN
+    return {"flash_fwd": 12, "flash_bwd": 12 if train else 0, "tiny_fwd": tiny,
+            "tiny_bwd": tiny if train else {}, "plain": plain}
+
+
+def caption_cosine_params(cfg):
+    """Gradients held to the CPU path: the vision tower (K2 / K3, K4), a
+    fusion layer's masked self-attention (plain) and cross-attention (K6 at
+    25 x 584), and the MLM head."""
+    f = f"text_encoder.bert.encoder.layer.{cfg.text.fusion_layer}"
+    return ("vision_encoder.blocks.0.attn.qkv.weight",
+            "vision_encoder.blocks.0.attn.relative_position_bias_table",
+            f"{f}.attention.self.query.weight", f"{f}.crossattention.self.key.weight",
+            "text_encoder.cls.predictions.transform.dense.weight",
+            "text_encoder.cls.predictions.bias")
+
+
+def caption_hold(state: dict, cfg: dict, batch: dict, sampled: list, prompt: list, tok,
+                 dev) -> tuple:
+    """The fine-tuned weights ``state`` on the 2 images of ``batch``, dropout
+    off, the card in bf16 against the port's CPU fp32 path: ``loss_caption``
+    and ``loss_scst`` (the SCST step's batch of ``build_scst_batch`` over
+    the captions ``sampled``, 5 an image, weighted by ``SCST_HOLD_ADV``)
+    each within 0.05 + 2%, the gradient cosines of
+    ``caption_cosine_params`` of each >= 0.99, each bf16 x 584 forward and
+    backward call of both (25 and 46 queries) held on the model's operands
+    within ``FUSION_CALL_RATIO`` of the bf16 rule's bound; a
+    teacher-forced decode (each frame fed the CPU path's greedy token) whose
+    logits stay within ``CAP_LOGIT_RULE`` of the CPU's, frame 0's top-3 ids
+    equal; and the beam search's captions of both (compared, not held).
+    Returns the readings and the faults found."""
+    from x2vlm_tpu_torch.factory import build_model
+    from x2vlm_tpu_torch.models.captioning import beam_search_generate_device
+    from x2vlm_tpu_torch.models.generation import top_k
+    from x2vlm_tpu_torch.tasks.scst import build_scst_batch
+
+    names = caption_cosine_params(xvlm_config_from_yaml(cfg))
+    keys = ("loss_caption", "loss_scst")
+    ratios = {(key, kind): [] for key in keys for kind in ("forward", "backward")}
+    losses, grads = {key: {} for key in keys}, {key: {} for key in keys}
+    logits, top3, captions, cpu_tokens = {}, {}, {}, []
+    for tag, dtype, device in (("cpu", torch.float32, torch.device("cpu")),
+                               ("card", torch.bfloat16, dev)):
+        model, _ = build_model(cfg, "captioning", device=device, dtype=dtype, seed=None)
+        model.load_state_dict(state)
+        b = {k: v.to(device) for k, v in batch.items()}
+        scst_batch = build_scst_batch(b["image"], sampled, SCST_HOLD_ADV, prompt,
+                                      mask_token_id=tok.mask_token_id,
+                                      sep_token_id=tok.sep_token_id,
+                                      pad_token_id=tok.pad_token_id, max_length=CAP_MAX_LEN)
+        params = dict(model.named_parameters())
+        for key, inputs in zip(keys, (b, scst_batch)):
+            with held_tiny_calls(N_KEYS_384, ratios[key, "forward"]), \
+                    held_tiny_bwd_calls(N_KEYS_384, ratios[key, "backward"]):
+                out = model(inputs)
+                out[key].backward()
+            losses[key][tag] = out[key].item()
+            grads[key][tag] = {k: params[k].grad.detach().double().cpu().reshape(-1)
+                               for k in names}
+            del out
+            model.zero_grad(set_to_none=True)
+        del params, scst_batch
+        with torch.no_grad():
+            emb, atts = model.encode_image(b["image"])
+            cache = model.init_cache(2, CAP_PROMPT + CAP_MAX_LEN + 1)
+            x = torch.tensor([prompt + [tok.mask_token_id]] * 2, device=device)
+            frames = []
+            for t in range(CAP_MAX_LEN):
+                lg, cache = model.decode_step(x, 0 if t == 0 else CAP_PROMPT + t - 1, cache,
+                                              emb, atts)
+                frames.append(lg.float().cpu())
+                if tag == "cpu":
+                    cpu_tokens.append(lg.argmax(-1))
+                x = torch.stack([cpu_tokens[t].to(device),
+                                 torch.full((2,), tok.mask_token_id, device=device)], 1)
+            logits[tag] = torch.stack(frames)
+            top3[tag] = top_k(torch.log_softmax(frames[0], -1), 3)[1].tolist()
+            captions[tag] = [tok.decode(c, skip_special_tokens=True) for c in
+                             beam_search_generate_device(
+                                 model, b["image"], prompt, mask_token_id=tok.mask_token_id,
+                                 eos_token_id=tok.sep_token_id, num_beams=CAP_BEAMS,
+                                 min_length=cfg["min_length"], max_length=CAP_MAX_LEN)]
+        del model, b, cache, emb, atts
+    torch.cuda.empty_cache()
+    cos = {key: {k: F.cosine_similarity(grads[key]["card"][k], grads[key]["cpu"][k],
+                                        dim=0).item() for k in names} for key in keys}
+    logit_err = max_err(logits["card"], logits["cpu"])
+    logit_bound = CAP_LOGIT_RULE[0] + CAP_LOGIT_RULE[1] * logits["cpu"].abs().max().item()
+    r = {"losses": losses, "cosine": cos, "logit_err": logit_err,
+         "logit_bound": logit_bound, "frame0_top3": top3, "captions": captions,
+         "captions_equal": captions["card"] == captions["cpu"],
+         "call_ratios": {f"{key} {kind}": v for (key, kind), v in ratios.items()}}
+    faults = []
+    for (key, kind), got in ratios.items():
+        sq = CAP_TOKENS if key == "loss_caption" else SCST_LEN
+        if len(got) != 6 or not all(x <= FUSION_CALL_RATIO for x in got):
+            faults.append(f"{key}: the {sq} x {N_KEYS_384} {kind} calls' errors over the bf16 "
+                          f"rule's bound {[round(x, 3) for x in got]}, expected 6 at most "
+                          f"{FUSION_CALL_RATIO}")
+    for key in keys:
+        card, cpu = losses[key]["card"], losses[key]["cpu"]
+        if not abs(card - cpu) <= 0.05 + 0.02 * abs(cpu):
+            faults.append(f"{key}: card {card:.5f} vs CPU fp32 {cpu:.5f}")
+        for k, c in cos[key].items():
+            if not c >= 0.99:
+                faults.append(f"{key} gradient {k}: cosine to the CPU fp32 path {c:.5f} < 0.99")
+    if not logit_err <= logit_bound:
+        faults.append(f"teacher-forced decode logits off the CPU fp32 path's by "
+                      f"{logit_err:.4f} > {logit_bound:.4f}")
+    if top3["card"] != top3["cpu"]:
+        faults.append(f"frame 0's top-3 ids {top3['card']} differ from the CPU fp32 path's "
+                      f"{top3['cpu']}")
+    return r, faults
+
+
+def caption_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
+                           image_root: str, dev, smi: str = "") -> list:
+    """Phase 11: ``x2vlm_tpu_torch.run --task captioning`` in process on
+    ``configs/finetune/coco_captioning_base.yaml`` at its own sizes (384 px,
+    16 images a step and an eval call, 25 tokens, 12 masks, beams 3,
+    captions of 5 to 20 tokens after the prompt "a picture of "), the data
+    paths pointed at files written under ``root`` over phase 8's PNGs, cut
+    to 2 epochs of 2 steps with the eval of 32 images after the last, from
+    phase 7's ``.th`` (rel-pos tables interpolated 14 -> 24): each step and
+    eval call timed and its launches read; ``--resume`` from the state saved
+    at step 2 (restored state and the batches of steps 3 and 4 equal to the
+    whole run's, bit for bit); ``scst: true`` from the fine-tuned state, 2
+    steps of 16 images x 5 rollouts (each rollout call and step timed and
+    read); then ``caption_hold`` on 2 images. Returns the launches of the
+    two runs, each split by operands."""
+    import hashlib
+
+    from x2vlm_tpu_torch import run as run_mod
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.data.loader import collate
+    from x2vlm_tpu_torch.data.tokenization import build_tokenizer
+    from x2vlm_tpu_torch.tasks import captioning as cap_mod, scst as scst_mod
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 13)
+    train, test, gt = write_caption_corpus(root, rng, words, len(os.listdir(image_root)))
+    cfg = dict(shipped_config(CAPTION_CONFIG), image_root=image_root, text_encoder=tok_dir,
+               train_file=[train], test_file=[test], caption_gt_file=gt,
+               start_eval=CAP_EPOCHS - 1)
+    sizes = (cfg["batch_size"], cfg["batch_size_test"], cfg["max_tokens"], cfg["num_beams"],
+             cfg["max_length"], cfg["image_res"])
+    if sizes != (CAP_BATCH, CAP_EVAL_BATCH, CAP_TOKENS, CAP_BEAMS, CAP_MAX_LEN, 384):
+        fail(f"caption launcher: the shipped config's sizes {sizes} changed")
+    tok = build_tokenizer(tok_dir)
+    prompt = cap_mod.prompt_ids(tok, cfg["prompt"])
+    if len(prompt) != CAP_PROMPT:
+        fail(f"caption launcher: the prompt {cfg['prompt']!r} is {len(prompt)} tokens with "
+             f"this vocab, the shapes of phase 2 assume {CAP_PROMPT}")
+    cfg_path, scst_path = os.path.join(root, "caption.json"), os.path.join(root, "scst.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    scst_cfg = {k: v for k, v in cfg.items() if k != "caption_gt_file"}
+    scst_cfg.update(scst=True, batch_size_scst=CAP_BATCH, scst_num_samples=SCST_SAMPLES)
+    with open(scst_path, "w") as f:
+        json.dump(scst_cfg, f)
+    out, out_resumed = os.path.join(root, "out_cap"), os.path.join(root, "out_cap_resumed")
+    out_scst = os.path.join(root, "out_scst")
+    log(f"phase 11 data and config: {time.perf_counter() - t0:.1f} s")
+
+    imported, steps, evals, rollouts, eval_walls = {}, [], [], [], []
+    step_sink = [steps]        # the list the timed train steps go to
+    batches = {"whole": [], "resumed": []}
+    run_name = ["whole"]
+    orig = {"load": ckpt_lib.load_reference_checkpoint, "save": ckpt_lib.save_train_state,
+            "step": run_mod.make_train_step, "to_device": run_mod.to_device,
+            "search": cap_mod.beam_search_generate_device,
+            "generate": cap_mod.generate_captions,
+            "rollout": scst_mod.sample_generate_captioning}
+    timed = functools.partial(timed_call, args, smi)
+    table_key = "vision_encoder.blocks.0.attn.relative_position_bias_table"
+
+    def load(model, path):
+        imported["missing"], imported["unexpected"] = orig["load"](model, path)
+        src = torch.load(path, map_location="cpu", weights_only=False)["model"][table_key]
+        got = model.state_dict()[table_key].cpu().numpy()
+        window = lambda rows: int(round((math.sqrt(rows - 3) + 1) / 2))
+        want = ckpt_lib.interp_rel_pos_table(src.float().numpy(), window(src.shape[0]),
+                                             window(got.shape[0]))
+        imported["rel_pos"] = [list(src.shape), list(got.shape),
+                               bool(np.array_equal(got, want))]
+        return imported["missing"], imported["unexpected"]
+
+    def link(src_dir, dst_dir):
+        os.makedirs(dst_dir, exist_ok=True)
+        dst = os.path.join(dst_dir, ckpt_lib.TRAIN_STATE_FILE)
+        if os.path.exists(dst):
+            os.remove(dst)
+        os.link(os.path.join(src_dir, ckpt_lib.TRAIN_STATE_FILE), dst)
+        return dst
+
+    def save(ckpt_dir, model, optimizer, step, data_state=None):
+        # an X2VLM-base train state is ~3.4 GB and the script's disk writes
+        # add up over its phases: the best epoch's copy and the resume's
+        # start are hard links, and the resumed run (held in memory) writes
+        # none
+        if run_name[0] == "resumed":
+            return None
+        if ckpt_dir.endswith("ckpt_best"):
+            return link(os.path.join(os.path.dirname(ckpt_dir), "ckpt"), ckpt_dir)
+        path = orig["save"](ckpt_dir, model, optimizer, step, data_state)
+        if step == CAP_RESUME_STEP and ckpt_dir == os.path.join(out, "ckpt"):
+            link(ckpt_dir, os.path.join(out_resumed, "ckpt"))
+        return path
+
+    def to_device(batch, device):
+        batches[run_name[0]].append({k: hashlib.sha256(np.ascontiguousarray(v)).hexdigest()
+                                     for k, v in batch.items()})
+        return orig["to_device"](batch, device)
+
+    def make_step(model, optimizer, **kw):
+        return timed(orig["step"](model, optimizer, **kw), step_sink[0],
+                     "chip_smoke_captioning_step_profile.txt",
+                     lambda i: args.profile and i == N_CAP_STEPS - 1)
+
+    def generate(*a, **kw):
+        t = time.perf_counter()
+        results = orig["generate"](*a, **kw)
+        eval_walls.append(time.perf_counter() - t)
+        return results
+
+    def patch(on: bool):
+        ckpt_lib.load_reference_checkpoint = load if on else orig["load"]
+        ckpt_lib.save_train_state = save if on else orig["save"]
+        run_mod.make_train_step = make_step if on else orig["step"]
+        run_mod.to_device = to_device if on else orig["to_device"]
+        cap_mod.generate_captions = generate if on else orig["generate"]
+        cap_mod.beam_search_generate_device = timed(
+            orig["search"], evals, "chip_smoke_captioning_eval_profile.txt",
+            lambda i: bool(args.profile) and i == 0) if on else orig["search"]
+        scst_mod.sample_generate_captioning = timed(
+            orig["rollout"], rollouts, "", lambda i: False) if on else orig["rollout"]
+
+    argv = ["--task", "captioning", "--seed", str(args.seed), "--device", dev.type]
+    t1 = time.perf_counter()
+    reset_counts()
+    patch(True)
+    try:
+        record = run_mod.main(argv + ["--config", cfg_path, "--checkpoint", th_path,
+                                      "--epoch", str(CAP_EPOCHS), "--output_dir", out])
+    finally:
+        patch(False)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"phase 11 run ({len(steps)} fine-tune steps + eval): "
+        f"{time.perf_counter() - t1:.1f} s; {json.dumps(record)}")
+    log(f"phase 11 captioning step ms at 384 px, B={CAP_BATCH} (CUDA events, wall): "
+        f"{json.dumps([[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in steps])}"
+        f"{' (the last one profiled)' if args.profile else ''}; peak device memory GiB "
+        f"{[round(r['peak_gib'], 2) for r in steps]}; eval calls (B={CAP_EVAL_BATCH}, "
+        f"{CAP_BEAMS} beams, {CAP_MAX_LEN} frames) ms (CUDA events, wall) "
+        f"{[[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in evals]}"
+        f"{' (the first profiled)' if args.profile else ''}, peak GiB "
+        f"{[round(r['peak_gib'], 2) for r in evals]}; eval wall seconds "
+        f"{[round(w, 3) for w in eval_walls]} ({N_CAP_EVAL} images); {smi}")
+
+    # the import: every parameter from the 224 px .th, the tables
+    # interpolated 14 -> 24; left over what a captioning model does not carry
+    missing, unexpected = imported.get("missing"), imported.get("unexpected", [])
+    log(f"phase 11 import: {len(missing or [])} missing (fresh), unexpected {len(unexpected)} "
+        f"({sorted({'.'.join(k.split('.')[:2]) for k in unexpected})}); rel-pos table "
+        f"(.th shape, model shape, equal to the 14 -> 24 interpolation): "
+        f"{imported.get('rel_pos')}")
+    leftover = ("vision_proj.", "text_proj.", "temp", "itm_head.", "bbox_head.",
+                "text_encoder.cls.predictions.decoder.")
+    if missing != [] or not unexpected or not all(k.startswith(leftover) for k in unexpected) \
+            or imported.get("rel_pos") != [[27 * 27 + 3, 12], [47 * 47 + 3, 12], True]:
+        fail(f"caption launcher import of {th_path}: missing {missing}, unexpected "
+             f"{unexpected}, rel-pos {imported.get('rel_pos')}")
+
+    metrics = ("eval_bleu1", "eval_bleu4", "eval_cider", "eval_rouge_l", "eval_meteor",
+               "loss_caption", "loss_total")
+    vals = [record.get(k) for k in metrics]
+    if not all(isinstance(v, float) and math.isfinite(v) for v in vals) or \
+            len(steps) != N_CAP_STEPS or len(evals) != N_CAP_EVAL // CAP_EVAL_BATCH or \
+            record.get("eval_n") != N_CAP_EVAL:
+        fail(f"caption launcher: {len(steps)} steps, {len(evals)} eval calls, record {record}")
+    want = {k: caption_launches(k) for k in ("step", "eval", "rollout", "scst")}
+    for tag, records, w in (("step", steps, want["step"]), ("eval call", evals, want["eval"])):
+        for i, r in enumerate(records):
+            got = dict(r["launches"], plain=r["plain"])
+            if got != w:
+                fail(f"caption launcher {tag} {i}: launches {got}, expected {w}")
+
+    def check_run(tag, c, parts):
+        tiny_f, tiny_b = collections.Counter(), collections.Counter()
+        for kind, n in parts:
+            for shape, k in want[kind]["tiny_fwd"].items():
+                tiny_f[shape] += k * n
+            for shape, k in want[kind]["tiny_bwd"].items():
+                tiny_b[shape] += k * n
+        check_launcher_counts(
+            tag, c, sum(12 * n for _, n in parts),
+            sum(want[kind]["flash_bwd"] * n for kind, n in parts),
+            {"tiny_fwd": dict(tiny_f), "tiny_bwd": dict(tiny_b)},
+            n_plain=sum(want[kind]["plain"] * n for kind, n in parts))
+        if c["tiny_walks"]["tiny_attention_fwd"].get(TILED, 0) != sum(tiny_f.values()) or \
+                c["tiny_walks"]["tiny_attention_bwd"].get(TILED, 0) != sum(tiny_b.values()):
+            fail(f"{tag}: the x {N_KEYS_384} launches are not all key-tiled: "
+                 f"{c['tiny_walks']}")
+
+    n_eval = len(evals)
+    check_run("caption launcher", counts, (("step", N_CAP_STEPS), ("eval", n_eval)))
+
+    # --resume from the state saved at step 2: restored bit for bit, and the
+    # batches of steps 3 and 4 those of the whole run
+    saved = torch.load(os.path.join(out_resumed, "ckpt", ckpt_lib.TRAIN_STATE_FILE),
+                       map_location="cpu", weights_only=False)
+    restored = {}
+    orig_restore = ckpt_lib.restore_train_state
+
+    def restore(ckpt_dir, model, optimizer):
+        result = orig_restore(ckpt_dir, model, optimizer)
+        copy = lambda t: t.detach().to("cpu", copy=True)   # the run goes on in place
+        restored.update(params={n: copy(p) for n, p in model.named_parameters()},
+                        mu=dict(zip(optimizer.names, map(copy, optimizer.mu))),
+                        nu=dict(zip(optimizer.names, map(copy, optimizer.nu))),
+                        count=optimizer.count)
+        return result
+
+    t2 = time.perf_counter()
+    run_name[0] = "resumed"
+    steps_before, evals_before = len(steps), len(evals)
+    ckpt_lib.restore_train_state = restore
+    patch(True)
+    try:
+        run_mod.main(argv + ["--config", cfg_path, "--checkpoint", th_path, "--epoch",
+                             str(CAP_EPOCHS), "--output_dir", out_resumed, "--resume"])
+    finally:
+        patch(False)
+        ckpt_lib.restore_train_state = orig_restore
+    same = bool(restored) and saved["step"] == CAP_RESUME_STEP and \
+        restored["count"] == saved["count"] and all(
+            restored[part].keys() == saved[part].keys() and
+            all(torch.equal(restored[part][k], saved[part][k]) for k in saved[part])
+            for part in ("params", "mu", "nu"))
+    same_batches = batches["resumed"] == batches["whole"][CAP_RESUME_STEP:]
+    log(f"phase 11 --resume from step {saved['step']}: {time.perf_counter() - t2:.1f} s; "
+        f"restored state equal to the saved one bit for bit: {same}; its "
+        f"{len(batches['resumed'])} batches equal to the whole run's steps "
+        f"{CAP_RESUME_STEP + 1}-{N_CAP_STEPS} bit for bit: {same_batches} "
+        f"({len(steps) - steps_before} steps)")
+    if not same or not same_batches or len(steps) - steps_before != \
+            N_CAP_STEPS - CAP_RESUME_STEP:
+        fail("caption launcher --resume: the restored state or the batches after it differ "
+             "from the whole run's")
+    del saved, restored
+    steps, evals = steps[:steps_before], evals[:evals_before]
+
+    # scst: true from the fine-tuned state: 2 steps of 16 images x 5 rollouts
+    t3 = time.perf_counter()
+    scst_steps = []
+    step_sink[0] = scst_steps
+    run_name[0] = "scst"
+    reset_counts()
+    patch(True)
+    try:
+        scst_record = run_mod.main(argv + ["--config", scst_path, "--checkpoint",
+                                           os.path.join(out, "ckpt"), "--epoch", "1",
+                                           "--output_dir", out_scst])
+    finally:
+        patch(False)
+    torch.cuda.synchronize()
+    scst_counts = launch_counts()
+    log(f"phase 11 SCST ({len(scst_steps)} steps of {CAP_BATCH} images x {SCST_SAMPLES} "
+        f"rollouts): {time.perf_counter() - t3:.1f} s; {json.dumps(scst_record)}; rollout "
+        f"calls ms (CUDA events, wall) "
+        f"{[[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in rollouts]}, peak GiB "
+        f"{[round(r['peak_gib'], 2) for r in rollouts]}; SCST step ms (CUDA events, wall) "
+        f"{[[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in scst_steps]}, peak GiB "
+        f"{[round(r['peak_gib'], 2) for r in scst_steps]}; {smi}")
+    if len(scst_steps) != N_SCST_STEPS or len(rollouts) != N_SCST_STEPS or \
+            not math.isfinite(scst_record.get("loss_scst", float("nan"))):
+        fail(f"caption launcher scst: {len(scst_steps)} steps, {len(rollouts)} rollout "
+             f"calls, record {scst_record}")
+    for tag, records, w in (("SCST rollout call", rollouts, want["rollout"]),
+                            ("SCST step", scst_steps, want["scst"])):
+        for i, r in enumerate(records):
+            got = dict(r["launches"], plain=r["plain"])
+            if got != w:
+                fail(f"caption launcher {tag} {i}: launches {got}, expected {w}")
+    check_run("caption launcher scst", scst_counts,
+              (("rollout", len(rollouts)), ("scst", len(scst_steps))))
+
+    # the fine-tuned weights on 2 images, card bf16 against CPU fp32
+    state = torch.load(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE), map_location="cpu",
+                       weights_only=False)["params"]
+    train_ds, _ = create_dataset("captioning", cfg, tokenizer=tok,
+                                 rng=random.Random(args.seed))
+    batch = run_mod.to_device(collate([train_ds[0], train_ds[1]]), torch.device("cpu"))
+    # the SCST batch's captions: the 5 references of each of the 2 images
+    with open(train) as f:
+        lines = json.load(f)[:2]
+    sampled = [tok.convert_tokens_to_ids(tok.tokenize(c))[:CAP_MAX_LEN]
+               for line in lines for c in line["caption"]]
+    hold, faults = caption_hold(state, cfg, batch, sampled, prompt, tok, dev)
+    log(f"phase 11 card bf16 vs CPU fp32 (2 images, dropout off): {json.dumps(hold)}")
+    for msg in faults:
+        fail(f"caption launcher, 2 images card vs CPU: {msg}")
+    log(f"phase 11 seconds: {time.perf_counter() - t0:.1f}")
+    return [split_counts(counts, [r["delta"] for r in steps]),
+            split_counts(scst_counts, [r["delta"] for r in scst_steps])]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3526,6 +4037,10 @@ def run(args, dev: torch.device) -> int:
         # ---- phase 10: the launcher's VQA fine-tune at 768 px ----
         vqa_counts = vqa_launcher_phase(args, root, th_path, tok_dir, words,
                                         os.path.join(root, "flickr"), dev, smi)
+        torch.cuda.empty_cache()
+        # ---- phase 11: the launcher's captioning fine-tune, eval and SCST ----
+        cap_counts = caption_launcher_phase(args, root, th_path, tok_dir, words,
+                                            os.path.join(root, "flickr"), dev, smi)
     torch.cuda.empty_cache()
 
     # the attention launches of the main paths (bf16 serving requests, one
@@ -3539,7 +4054,8 @@ def run(args, dev: torch.device) -> int:
     ledger_add(ledger, "train_step", "training", train)
     ledger_add(ledger, "pretrain_launcher", "training", pre_counts)
     for path, split in (("retrieval_launcher", ret_counts), ("finetune_launcher", ft_counts),
-                        ("vqa_launcher", vqa_counts)):
+                        ("vqa_launcher", vqa_counts), ("caption_launcher", cap_counts[0]),
+                        ("caption_launcher", cap_counts[1])):
         for operands, c in split.items():
             ledger_add(ledger, path, operands, c)
 

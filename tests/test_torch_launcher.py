@@ -158,7 +158,7 @@ def test_a_reference_th_loads_through_checkpoint(corpus, tmp_path):
 
 @pytest.mark.parametrize("task,item", [("xgqa", "A8"), ("classification", "A8"),
                                        ("marvl", "A8"), ("xretrieval", "A8"),
-                                       ("video_qa", "A8"), ("captioning", "A6")])
+                                       ("video_qa", "A8"), ("next_qa_mc", "A8")])
 def test_unported_tasks_raise_naming_their_item(corpus, task, item):
     with pytest.raises(NotImplementedError, match=item):
         _main(corpus, f"task_{task}", _model_cfg(corpus), task)
@@ -170,6 +170,13 @@ def test_grounding_and_nlvr_are_no_longer_refused(corpus, task):
     no data for them, so the run stops at the dataset."""
     with pytest.raises(KeyError, match="test_file"):
         _main(corpus, f"task_{task}", _model_cfg(corpus), task)
+
+
+def test_captioning_is_no_longer_refused(corpus):
+    """Captioning passes the task gate and builds its model; the config here
+    has no data for it, so the run stops at the dataset."""
+    with pytest.raises(KeyError, match="test_file"):
+        _main(corpus, "task_captioning", _model_cfg(corpus), "captioning")
 
 
 def test_vqa_is_no_longer_refused(corpus):

@@ -175,8 +175,16 @@ def test_multi_head_attention_routes(name):
 
 
 def test_modules_refuse_unported_options():
-    # int8 projections (quant) are ported; the static decode cache is not
+    # int8 projections (quant) and the static decode cache are ported: a
+    # cached call returns the new cache (K / V written at the index) in
+    # both; int8 stays serving-only, so training mode is refused
     for quant in (False, True):
         mha = tl.MultiHeadAttention(64, 2, quant=quant, device="cpu").eval()
-        with pytest.raises(NotImplementedError, match="cache"):
-            mha(torch.zeros(1, 3, 64), cache={"index": 0})
+        tl.init_weights(mha, torch.Generator().manual_seed(0))
+        buf = torch.zeros(1, 2, 6, 32, dtype=torch.bfloat16)   # the compute dtype
+        cache = {"k": buf, "v": buf, "index": 2}
+        out, new = mha(torch.randn(1, 3, 64), cache=cache)
+        assert out.shape == (1, 3, 64) and new["index"] == 2
+        assert new["k"][:, :, 2:5].abs().sum() > 0 and new["k"][:, :, 5:].abs().sum() == 0
+    with pytest.raises(ValueError, match="serving-only"):
+        mha.train()(torch.zeros(1, 3, 64))

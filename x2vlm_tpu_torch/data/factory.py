@@ -1,7 +1,8 @@
 """Dataset factory (the port's counterpart of x2vlm_tpu/data/factory.py,
 ``create_dataset``): task name + config -> (train_dataset, eval_dataset).
 
-The port builds the retrieval, VQA, NLVR2 and grounding datasets; the launcher
+The port builds the retrieval, VQA, NLVR2, grounding and captioning
+datasets; the launcher
 (run.py) refuses the JAX factory's other tasks before they reach here,
 naming the ROADMAP queue item each comes with. Pretraining streams are
 built by the launcher."""
@@ -27,10 +28,10 @@ def create_dataset(task: str, config, evaluate: bool = False, tokenizer=None,
                    rng: Optional[random.Random] = None
                    ) -> Tuple[Optional[object], Optional[object]]:
     if task not in ("retrieval", "itr_coco", "itr_flickr", "vqa", "nlvr", "grounding",
-                    "refcoco_bbox"):
+                    "refcoco_bbox", "captioning", "coco_captioning_mlm"):
         raise NotImplementedError(f"dataset task {task!r}: the port builds the retrieval, "
-                                  f"VQA, NLVR2 and grounding datasets (ROADMAP queue A6 / "
-                                  f"A8 bring the others)")
+                                  f"VQA, NLVR2, grounding and captioning datasets (ROADMAP "
+                                  f"queue A8 brings the others)")
     tokenizer = tokenizer or build_tokenizer(config["text_encoder"])
     res = config["image_res"]
     pre = TextPreprocessor(tokenizer, max_tokens=config.get("max_tokens", 40),
@@ -80,6 +81,19 @@ def create_dataset(task: str, config, evaluate: bool = False, tokenizer=None,
         return GroundingTrainDataset(
             config["train_file"], T.box_transform(rng=rng), config["image_root"], pre,
             image_res=res, careful_hflip=config.get("careful_hflip", True), rng=rng), ev
+
+    if task in ("captioning", "coco_captioning_mlm"):
+        from x2vlm_tpu_torch.data.finetune import CaptioningEvalDataset, CaptioningTrainDataset
+
+        ev = CaptioningEvalDataset(config["test_file"], test_tf, config["image_root"])
+        if evaluate:
+            return None, ev
+        return CaptioningTrainDataset(
+            config["train_file"], T.train_transform(res, rng=rng, with_hflip=False),
+            config["image_root"], tokenizer, prompt=config.get("prompt", ""),
+            max_tokens=config.get("max_tokens", 25), max_masks=config.get("max_masks", 12),
+            mask_prob=config.get("mask_prob", 0.5), fg_free=config.get("fg_free", False),
+            rng=rng), ev
 
     from x2vlm_tpu_torch.data.retrieval import RetrievalEvalDataset, RetrievalTrainDataset
 

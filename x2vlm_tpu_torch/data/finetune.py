@@ -1,16 +1,20 @@
-"""Fine-tune datasets of the VQA, grounding and NLVR2 tasks (the port's
-copy of ``VQATrainDataset``, ``vqa_collate``, ``VQAEvalDataset``,
-``tokenize_answers``, ``NLVRDataset``, ``GroundingTrainDataset`` and
-``GroundingEvalDataset`` in x2vlm_tpu/data/finetune.py; reference
-dataset/vqa_dataset.py, dataset/nlvr_dataset.py and
-dataset/grounding_dataset.py:89-147).
+"""Fine-tune datasets of the VQA, grounding, NLVR2 and captioning tasks (the
+port's copy of ``VQATrainDataset``, ``vqa_collate``, ``VQAEvalDataset``,
+``tokenize_answers``, ``NLVRDataset``, ``GroundingTrainDataset``,
+``GroundingEvalDataset`` and the three captioning sets in
+x2vlm_tpu/data/finetune.py; reference dataset/vqa_dataset.py,
+dataset/nlvr_dataset.py, dataset/grounding_dataset.py:89-147 and
+dataset/captioning_dataset.py:99-230).
 
 Each sample is a dict of numpy arrays of fixed shape. A VQA batch has a
 fixed ``answers_per_batch`` answer rows: the questions' answers flattened,
 cut to that many by a seeded draw or padded with rows of weight 0. The
 grounding train set crops at random around the box, flips (not a caption
 naming left or right, with ``careful_hflip``), resizes and renormalises
-the target to cxcywh in [0, 1]. The ``random`` draws come in the JAX
+the target to cxcywh in [0, 1]. The captioning train set encodes a caption
+for UniLM's MLM (whole-word masks after the prompt, a tril attention
+matrix; ``fg_free``: a [MASK] inserted before each masked token, both at
+its position, the [MASK] columns hidden). The ``random`` draws come in the JAX
 package's order, so both packages give equal samples from equal seeds.
 """
 
@@ -27,11 +31,14 @@ import numpy as np
 from x2vlm_tpu_torch.core.io import hopen
 from x2vlm_tpu_torch.data.imageio import open_image, pil
 from x2vlm_tpu_torch.data.loader import collate
+from x2vlm_tpu_torch.data.masking import TextMaskingGenerator
 from x2vlm_tpu_torch.data.retrieval import _load_annotations
+from x2vlm_tpu_torch.data.tokenization import pre_caption
 from x2vlm_tpu_torch.data.transforms import hflip
 
 __all__ = ["VQATrainDataset", "VQAEvalDataset", "vqa_collate", "tokenize_answers",
-           "NLVRDataset", "GroundingTrainDataset", "GroundingEvalDataset"]
+           "NLVRDataset", "GroundingTrainDataset", "GroundingEvalDataset",
+           "CaptioningTrainDataset", "CaptioningSCSTDataset", "CaptioningEvalDataset"]
 
 
 def tokenize_answers(answers: Sequence[str], tokenizer, max_tokens: int):
@@ -267,3 +274,140 @@ class GroundingEvalDataset:
         ids, atts = self.text_pre(a["text"])
         return {"image": self.transform(img).astype(np.float32),
                 "text_ids": ids, "text_atts": atts, "ref_id": np.int64(a["ref_id"])}
+
+
+class CaptioningTrainDataset:
+    """COCO captioning with UniLM MLM preprocessing (reference
+    captioning_dataset.py:99-202): the standard encoding (tril attention)
+    or ``fg_free`` (a [MASK] before each masked token, both at its
+    position; the [MASK] columns hidden from every other row)."""
+
+    def __init__(self, ann_files, transform, image_root, tokenizer, *, prompt: str = "",
+                 max_tokens: int = 25, max_masks: int = 12, mask_prob: float = 0.5,
+                 fg_free: bool = False, rng: Optional[random.Random] = None):
+        self.ann = _load_annotations(ann_files)
+        self.transform = transform
+        self.image_root = image_root
+        self.tokenizer = tokenizer
+        self.prompt_tokens = tokenizer.tokenize(prompt) if prompt else []
+        self.max_tokens = max_tokens
+        self.max_masks = max_masks
+        self.fg_free = fg_free
+        self.rng = rng or random.Random()
+        self.mask_generator = TextMaskingGenerator(tokenizer, mask_prob, max_masks,
+                                                   mask_whole_word=True, rng=self.rng)
+        self.pad_id = tokenizer.pad_token_id
+        self.mask_token = tokenizer.mask_token
+
+    def __len__(self):
+        return len(self.ann)
+
+    @property
+    def seq_len(self):
+        return self.max_tokens + (self.max_masks if self.fg_free else 0)
+
+    def _tokens(self, caption):
+        toks = self.tokenizer.tokenize(pre_caption(caption, self.max_tokens))
+        toks = ([self.tokenizer.cls_token] + self.prompt_tokens + toks
+                + [self.tokenizer.sep_token])
+        return toks[: self.max_tokens]
+
+    def preprocess(self, caption: str) -> Dict[str, np.ndarray]:
+        tok = self.tokenizer
+        toks = self._tokens(caption)
+        masked, masked_pos = self.mask_generator(list(toks),
+                                                 num_source_tokens=len(self.prompt_tokens))
+        if not self.fg_free:
+            ids = tok.convert_tokens_to_ids(toks)
+            masked_ids = [ids[p] for p in masked_pos]
+            L = self.max_tokens
+            ids_masked = tok.convert_tokens_to_ids(masked)
+            ids_masked += [self.pad_id] * (L - len(ids_masked))
+            atts = np.tril(np.ones((L, L), np.int32))
+            position_ids = np.arange(L, dtype=np.int32)
+        else:
+            masked_set = set(masked_pos)
+            tokens_masked, positions, masked_pos, masked_ids = [], [], [], []
+            for p, t in enumerate(toks):
+                if p in masked_set:
+                    masked_pos.append(len(tokens_masked))
+                    tokens_masked += [self.mask_token, t]
+                    positions += [p, p]
+                    masked_ids.append(tok.convert_tokens_to_ids(t))
+                else:
+                    tokens_masked.append(t)
+                    positions.append(p)
+            L = self.max_tokens + self.max_masks
+            atts = np.tril(np.ones((L, L), np.int32))
+            for p in masked_pos:
+                atts[:, p] = 0
+                atts[p, p] = 1
+            ids_masked = tok.convert_tokens_to_ids(tokens_masked)
+            ids_masked += [self.pad_id] * (L - len(ids_masked))
+            nxt = len(toks)
+            positions += list(range(nxt, nxt + L - len(positions)))
+            position_ids = np.asarray(positions, np.int32)
+        n_mask = len(masked_pos)
+        pad_m = self.max_masks - n_mask
+        return {
+            "text_ids_masked": np.asarray(ids_masked, np.int32),
+            "text_atts_matrix": atts,
+            "position_ids": position_ids,
+            "masked_pos": np.asarray(list(masked_pos) + [0] * pad_m, np.int32),
+            "masked_ids": np.asarray(list(masked_ids) + [-100] * pad_m, np.int32),
+            "masked_weight": np.asarray([1.0] * n_mask + [0.0] * pad_m, np.float32),
+        }
+
+    def __getitem__(self, index):
+        a = self.ann[index]
+        img = open_image(a["image"], self.image_root)
+        caption = a["caption"]
+        if isinstance(caption, list):
+            caption = self.rng.choice(caption)
+        out = self.preprocess(caption)
+        out["image"] = self.transform(img).astype(np.float32)
+        return out
+
+
+class CaptioningSCSTDataset:
+    """The SCST set (reference captioning_dataset.py:230
+    ``coco_karpathy_train_scst``): one row per image, sorted by path, with
+    every ground-truth caption as a reward reference."""
+
+    def __init__(self, ann_files, transform, image_root):
+        by_image: Dict[str, list] = {}
+        for a in _load_annotations(ann_files):
+            caps = a["caption"] if isinstance(a["caption"], list) else [a["caption"]]
+            by_image.setdefault(a["image"], []).extend(str(c) for c in caps)
+        self.items = sorted(by_image.items())
+        self.transform = transform
+        self.image_root = image_root
+
+    def __len__(self):
+        return len(self.items)
+
+    def __getitem__(self, index):
+        path, captions = self.items[index]
+        img = open_image(path, self.image_root)
+        return {"image": self.transform(img).astype(np.float32), "captions": captions}
+
+
+class CaptioningEvalDataset:
+    """The captioning test set: an image and its ``image_id`` (the number at
+    the end of a COCO file name, else the line's index)."""
+
+    def __init__(self, ann_files, transform, image_root):
+        self.ann = _load_annotations(ann_files)
+        self.transform = transform
+        self.image_root = image_root
+
+    def __len__(self):
+        return len(self.ann)
+
+    def __getitem__(self, index):
+        a = self.ann[index]
+        img = open_image(a["image"], self.image_root)
+        image_id = a.get("image_id", index)
+        if isinstance(image_id, str) and "_" in image_id:
+            image_id = int(image_id.split("_")[-1].split(".")[0])
+        return {"image": self.transform(img).astype(np.float32), "image_id": np.int64(image_id)}

@@ -7,7 +7,8 @@ to ``transformers.BertTokenizerFast`` in the CPU tests: basic tokenization
 (control characters dropped, whitespace normalised, CJK characters split
 off, lower-casing, accents stripped, punctuation split off), then greedy
 longest-match-first WordPiece with ``##`` continuations, words over 100
-characters and words with no match becoming ``[UNK]``.
+characters and words with no match becoming ``[UNK]``; and ``decode``, the
+ids back to text as ``BertTokenizerFast.decode`` gives it.
 ``TextPreprocessor`` and ``pre_caption`` are copies of the JAX ones.
 RoBERTa and XLM-R tokenizers come with the multilingual models (ROADMAP
 queue A8).
@@ -75,6 +76,12 @@ class BertWordPiece:
                 raise ValueError(f"{vocab_file}: the special token {t} is not in the vocab")
         self.pad_token_id = self.vocab[self.pad_token]
         self.unk_token_id = self.vocab[self.unk_token]
+        self.cls_token_id = self.vocab[self.cls_token]
+        self.sep_token_id = self.vocab[self.sep_token]
+        self.mask_token_id = self.vocab[self.mask_token]
+        self.ids_to_tokens = {i: t for t, i in self.vocab.items()}
+        self.all_special_ids = sorted({self.vocab[t] for t in (
+            self.unk_token, self.sep_token, self.pad_token, self.cls_token, self.mask_token)})
 
     def get_vocab(self) -> Dict[str, int]:
         return dict(self.vocab)
@@ -147,6 +154,38 @@ class BertWordPiece:
         if isinstance(tokens, str):
             return self.vocab.get(tokens, self.unk_token_id)
         return [self.vocab.get(t, self.unk_token_id) for t in tokens]
+
+
+    def decode(self, ids: Sequence[int], skip_special_tokens: bool = False) -> str:
+        """Token ids -> text, as ``BertTokenizerFast.decode`` gives it: the
+        special tokens dropped with ``skip_special_tokens`` (before the
+        merge, so a leading ``##`` piece keeps its prefix), each later
+        ``##`` piece glued to the one before and every other token after a
+        space, the cleanup applied to each token and then to the text
+        (``clean_up_tokenization_spaces``)."""
+        special = set(self.all_special_ids) if skip_special_tokens else set()
+        out = []
+        for i in (int(i) for i in ids):
+            if i in special:
+                continue
+            tok = self.ids_to_tokens.get(i, self.unk_token)
+            if out:
+                tok = tok[2:] if tok.startswith("##") else " " + tok
+            out.append(_cleanup(tok))
+        return _cleanup("".join(out))
+
+
+_CLEANUP = ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"), (" n't", "n't"),
+            (" 'm", "'m"), (" 's", "'s"), (" 've", "'ve"), (" 're", "'re"))
+
+
+def _cleanup(text: str) -> str:
+    """``clean_up_tokenization`` of ``transformers`` (the WordPiece
+    decoder's per-token cleanup also turns " do not" into " don't", which
+    a single token never holds)."""
+    for a, b in _CLEANUP:
+        text = text.replace(a, b)
+    return text
 
 
 def build_tokenizer(path: str) -> BertWordPiece:

@@ -134,13 +134,16 @@ def pretrain_transform(image_res: int, rng: Optional[random.Random] = None,
     return f
 
 
-def train_transform(image_res: int, rng: Optional[random.Random] = None):
+def train_transform(image_res: int, rng: Optional[random.Random] = None,
+                    with_hflip: bool = True):
+    """Random resized crop, a flip (not with ``with_hflip=False``: the
+    captioning set keeps left and right), RandomAugment, normalise."""
     aug = RandomAugment(rng)
     rng = rng or random
 
     def f(img):
         img = random_resized_crop(img, image_res, scale=(0.5, 1.0), rng=rng)
-        if rng.random() < 0.5:
+        if with_hflip and rng.random() < 0.5:
             img = hflip(img)
         return normalize(aug(img))
 

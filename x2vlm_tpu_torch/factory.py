@@ -6,10 +6,11 @@ The port builds BEiT-2 + BERT X2-VLM models for ``"pretrain"``
 (``XVLMForPretrain``), ``"retrieval"`` (``XVLMForRetrieval``),
 ``"grounding"`` (``XVLMForGrounding``), ``"nlvr"`` (``XVLMForNLVR``) and
 ``"vqa"`` (``XVLMForVQA``, with the config's ``num_dec_layers`` and
-``pad_token_id``). A config that asks for what the port does not build
+``pad_token_id``), ``"captioning"`` (``XVLMForMLMCaptioning``, with the
+config's ``label_smoothing``). A config that asks for what the port does not build
 raises, naming the ROADMAP queue item that brings it: CLIP / Swin towers
 (A7), RoBERTa text encoders, ``model_type: cclm`` / video encodings and the
-generic classification / multiple-choice heads (A8), captioning (A6),
+generic classification / multiple-choice heads (A8),
 int8 serving from a config, and ``remat`` (not ported, by decision: the
 step peaks far below the card's memory).
 """
@@ -124,19 +125,20 @@ def model_dtype(config: Dict) -> torch.dtype:
 
 def build_model(config: Dict, task: str, *, device, dtype=None, seed=0):
     """(model, XVLMConfig) for ``task`` ("pretrain" | "retrieval" |
-    "grounding" | "nlvr" | "vqa") on ``device``, its parameters filled from
-    ``seed`` (None: left for ``load_state_dict``)."""
+    "grounding" | "nlvr" | "vqa" | "captioning") on ``device``, its
+    parameters filled from ``seed`` (None: left for ``load_state_dict``)."""
     from x2vlm_tpu_torch.models import (
-        XVLMForGrounding, XVLMForNLVR, XVLMForPretrain, XVLMForRetrieval, XVLMForVQA,
+        XVLMForGrounding, XVLMForMLMCaptioning, XVLMForNLVR, XVLMForPretrain,
+        XVLMForRetrieval, XVLMForVQA,
     )
 
     models = {"pretrain": XVLMForPretrain, "retrieval": XVLMForRetrieval,
               "grounding": XVLMForGrounding, "nlvr": XVLMForNLVR,
               "vqa": functools.partial(XVLMForVQA,
                                        num_dec_layers=config.get("num_dec_layers", 6),
-                                       pad_token_id=config.get("pad_token_id", 0))}
-    if task == "captioning":
-        _refuse(f"the {task} model", "A6")
+                                       pad_token_id=config.get("pad_token_id", 0)),
+              "captioning": functools.partial(
+                  XVLMForMLMCaptioning, label_smoothing=config.get("label_smoothing", 0.1))}
     if task in ("classification", "multiple_choice"):
         _refuse(f"the {task} model", "A8")
     if task not in models:

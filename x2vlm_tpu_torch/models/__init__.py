@@ -1,5 +1,6 @@
 from x2vlm_tpu_torch.models.beit2 import BEiT2, BEiT2Config
 from x2vlm_tpu_torch.models.bert import BertConfig, BertEncoder
+from x2vlm_tpu_torch.models.captioning import XVLMForMLMCaptioning
 from x2vlm_tpu_torch.models.classification import XVLMForNLVR
 from x2vlm_tpu_torch.models.generation import XVLMForVQA
 from x2vlm_tpu_torch.models.grounding import XVLMForGrounding
@@ -7,5 +8,5 @@ from x2vlm_tpu_torch.models.heads import XVLMForPretrain, XVLMForRetrieval
 from x2vlm_tpu_torch.models.xvlm import MlpHead, XVLMBase, XVLMConfig
 
 __all__ = ["BEiT2", "BEiT2Config", "BertConfig", "BertEncoder", "MlpHead",
-           "XVLMBase", "XVLMConfig", "XVLMForGrounding", "XVLMForNLVR", "XVLMForPretrain",
+           "XVLMBase", "XVLMConfig", "XVLMForGrounding", "XVLMForMLMCaptioning", "XVLMForNLVR", "XVLMForPretrain",
            "XVLMForRetrieval", "XVLMForVQA"]

@@ -15,8 +15,14 @@ Post-LN layers. Parameter names are the reference's HF BERT names under
 The MLM head is ``text_encoder.cls.predictions.{transform.dense,
 transform.LayerNorm, bias}`` with its decoder tied to
 ``embeddings.word_embeddings.weight``; the answer decoder's stack and head
-are the same modules under ``text_decoder``. The decode cache arrives with
-a later slice.
+are the same modules under ``text_decoder``.
+
+UniLM captioning (models/captioning.py) passes ``attention_matrix`` (B, Sq,
+Skv), which becomes the self-attention's full mask (and'ed with the key
+mask), and ``position_ids``; its decode threads a list of per-layer static
+caches through the stack (``cache=``; the stack then returns ``(x, new
+caches)``). The cross-attention never takes a cache: it attends to the
+image keys at every step, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from x2vlm_tpu_torch.device import resolve_device
-from x2vlm_tpu_torch.ops.fused_ce import fused_vocab_ce
+from x2vlm_tpu_torch.ops.fused_ce import fused_vocab_ce, fused_vocab_ce_weighted
 from x2vlm_tpu_torch.ops.layers import (
     ACTIVATIONS, DropPath, FusedLayerNorm, LayerNorm, MultiHeadAttention, dense,
     dropout, epilogue_act, gelu_exact, layer_norm, linear, serving_only,
@@ -101,11 +107,19 @@ class BertEmbeddings(nn.Module):
 
     def forward(self, input_ids: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
-                deterministic: bool = False) -> torch.Tensor:
+                deterministic: bool = False,
+                position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``position_ids`` (S,) or (B, S), default 0 .. S-1 (the UniLM
+        encodings repeat a position for a [MASK] and its token)."""
         cfg, dt = self.config, self.dtype
         S = input_ids.shape[1]
         word = F.embedding(input_ids.long(), self.word_embeddings.weight).to(dt)
-        pos = self.position_embeddings.weight[:S].to(dt)[None]
+        if position_ids is None:
+            pos = self.position_embeddings.weight[:S].to(dt)[None]
+        else:
+            pos = F.embedding(position_ids.long(), self.position_embeddings.weight).to(dt)
+            if pos.dim() == 2:
+                pos = pos[None]
         tok = self.token_type_embeddings.weight[0].to(dt)
         x = self.LayerNorm(word + pos + tok)
         return dropout(x, cfg.hidden_dropout, generator, self.training and not deterministic)
@@ -152,10 +166,14 @@ class BertAttention(nn.Module):
 
     def forward(self, x, kv=None, *, key_mask=None, drop_path: DropPath,
                 generator=None, kv_gather_idx=None, causal: bool = False,
-                deterministic: bool = False):
+                mask=None, cache=None, deterministic: bool = False):
+        """With ``cache``: returns (out, new cache)."""
         h = self.self(x, kv, key_mask=key_mask, generator=generator,
-                      kv_gather_idx=kv_gather_idx, causal=causal,
-                      deterministic=deterministic)
+                      kv_gather_idx=kv_gather_idx, causal=causal, mask=mask,
+                      cache=cache, deterministic=deterministic)
+        if cache is not None:
+            h, new_cache = h
+            return self.output(h, x, drop_path, generator, deterministic), new_cache
         return self.output(h, x, drop_path, generator, deterministic)
 
 
@@ -200,13 +218,24 @@ class BertLayer(nn.Module):
                 encoder_attention_mask=None,
                 generator: Optional[torch.Generator] = None,
                 encoder_gather_idx: Optional[torch.Tensor] = None,
-                deterministic: bool = False):
+                deterministic: bool = False, attention_matrix: Optional[torch.Tensor] = None,
+                cache=None):
         """``encoder_gather_idx`` (B,): the row of ``encoder_hidden_states``
         each query row attends to (the stream holds only unique rows).
-        ``deterministic`` turns dropout and drop-path off in training mode."""
+        ``deterministic`` turns dropout and drop-path off in training mode.
+        ``attention_matrix`` (B, Sq, Skv), nonzero = attend: the
+        self-attention's full mask, and'ed with ``attention_mask``. With
+        ``cache`` (this layer's): returns (x, new cache)."""
+        full_mask, new_cache = None, None
+        if attention_matrix is not None and cache is None:
+            full_mask = attention_matrix[:, None] != 0
+            if attention_mask is not None:
+                full_mask = full_mask & (attention_mask[:, None, None, :] != 0)
         x = self.attention(x, key_mask=attention_mask, drop_path=self.drop_path,
-                           generator=generator, causal=self.causal,
-                           deterministic=deterministic)
+                           generator=generator, causal=self.causal, mask=full_mask,
+                           cache=cache, deterministic=deterministic)
+        if cache is not None:
+            x, new_cache = x
         # cross-attention is skipped (not an error) without an image stream:
         # the text-only path runs the full stack uni-modally
         if self.crossattention is not None and encoder_hidden_states is not None:
@@ -215,8 +244,8 @@ class BertLayer(nn.Module):
                                     drop_path=self.drop_path, generator=generator,
                                     kv_gather_idx=encoder_gather_idx,
                                     deterministic=deterministic)
-        return self.output(self.intermediate(x), x, self.drop_path, generator,
-                           deterministic)
+        x = self.output(self.intermediate(x), x, self.drop_path, generator, deterministic)
+        return x if cache is None else (x, new_cache)
 
 
 class _LayerStack(nn.Module):
@@ -249,7 +278,10 @@ class BertEncoder(nn.Module):
                 encoder_hidden_states=None, encoder_attention_mask=None,
                 mode: str = "multi_modal", generator: Optional[torch.Generator] = None,
                 encoder_gather_idx: Optional[torch.Tensor] = None,
-                deterministic: bool = False) -> torch.Tensor:
+                deterministic: bool = False, attention_matrix: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None, cache=None):
+        """``cache``: a list of per-layer static caches, one for each layer
+        the mode runs; the stack then returns (x, the new caches)."""
         cfg = self.config
         if mode == "fusion":
             lo, hi = cfg.fusion_layer, cfg.num_layers
@@ -259,14 +291,19 @@ class BertEncoder(nn.Module):
         elif mode in ("text", "multi_modal"):
             lo, hi = 0, (cfg.fusion_layer if mode == "text" else cfg.num_layers)
             x = (encoder_embeds.to(self.dtype) if encoder_embeds is not None
-                 else self.embeddings(input_ids, generator, deterministic))
+                 else self.embeddings(input_ids, generator, deterministic, position_ids))
         else:
             raise ValueError(f"mode {mode!r}: one of text, fusion, multi_modal")
-        for layer in self.encoder.layer[lo:hi]:
+        new_caches = [] if cache is not None else None
+        for li, layer in enumerate(self.encoder.layer[lo:hi]):
             x = layer(x, attention_mask, encoder_hidden_states,
                       encoder_attention_mask, generator, encoder_gather_idx,
-                      deterministic)
-        return x
+                      deterministic, attention_matrix,
+                      None if cache is None else cache[li])
+            if cache is not None:
+                x, layer_cache = x
+                new_caches.append(layer_cache)
+        return x if cache is None else (x, new_caches)
 
 
 class _MLMTransform(nn.Module):
@@ -311,14 +348,24 @@ class BertMLMHead(nn.Module):
                      self.dtype).float()
 
     def forward(self, hidden: torch.Tensor, masked_pos: torch.Tensor,
-                embedding_table: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+                embedding_table: torch.Tensor, labels: torch.Tensor,
+                label_weights: Optional[torch.Tensor] = None,
+                label_smoothing: float = 0.0) -> torch.Tensor:
         """hidden (B, S, C), masked_pos / labels (B, M) -> mean MLM loss (fp32)
-        over the labels that are not -100."""
+        over the labels that are not -100; with ``label_smoothing`` the
+        smoothed CE (reference model_generation.py:16-50), same mean; with
+        ``label_weights`` (B, M) fp32 the weighted sum (rows to drop weigh
+        0), the SCST form."""
         h = self._transform(torch.gather(hidden, 1, masked_pos.long()[:, :, None].expand(
             -1, -1, hidden.shape[-1])))
+        h = h.reshape(-1, h.shape[-1])
         flat = labels.reshape(-1)
-        return fused_vocab_ce(h.reshape(-1, h.shape[-1]), embedding_table, self.bias,
-                              flat, torch.ones_like(flat, dtype=torch.bool))
+        if label_weights is not None:
+            return fused_vocab_ce_weighted(h, embedding_table, self.bias, flat,
+                                           label_weights.reshape(-1).float(), label_smoothing)
+        return fused_vocab_ce(h, embedding_table, self.bias, flat,
+                              torch.ones_like(flat, dtype=torch.bool),
+                              smoothing=label_smoothing)
 
 
 class _MLMPredictions(nn.Module):

@@ -11,22 +11,31 @@ tower and the text / fusion stack: the JAX base turns the contrastive,
 matching, MLM and bbox heads off) plus ``text_decoder``, a
 :class:`TextEncoder` in decoder mode with its tied LM head, so the state
 dict carries the reference names: ``text_decoder.bert.*`` and
-``text_decoder.cls.predictions.*``. Sampling and the decode cache come
-with captioning (ROADMAP A6d).
+``text_decoder.cls.predictions.*``.
+
+The generation helpers (JAX ``generation.py:47, 177-257``):
+``label_smoothing_loss``, ``top_k_top_p_filtering`` and ``sample_generate``,
+the answer decoder's token-by-token decode with the static cache, its
+draws from an explicit ``torch.Generator`` (or injected Gumbel noise).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from x2vlm_tpu_torch.models.bert import TextEncoder
 from x2vlm_tpu_torch.models.xvlm import XVLMBase, XVLMConfig
+from x2vlm_tpu_torch.ops.layers import static_caches
 
-__all__ = ["XVLMForVQA", "causal_lm_loss", "decoder_params_from_text_encoder", "top_k"]
+__all__ = ["XVLMForVQA", "causal_lm_loss", "decoder_params_from_text_encoder",
+           "gumbel_noise", "inference", "label_smoothing_loss", "sample_generate", "top_k",
+           "top_k_top_p_filtering"]
 
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -41,6 +50,69 @@ def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     return torch.where(valid, nll, torch.zeros_like(nll)).sum(-1)
+
+
+def label_smoothing_loss(logits: torch.Tensor, labels: torch.Tensor, smoothing: float = 0.1,
+                         ignore_index: int = -100) -> torch.Tensor:
+    """Smoothed CE averaged over the valid positions (fp32; reference
+    model_generation.py:16-50): (1 - s) * NLL + s * the mean over the vocab
+    of -log p."""
+    logits = logits.float()
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    loss = (1.0 - smoothing) * nll + smoothing * (-logp.mean(-1))
+    loss = torch.where(valid, loss, torch.zeros_like(loss))
+    return loss.sum() / valid.sum().clamp(min=1)
+
+
+def top_k_top_p_filtering(logits: torch.Tensor, top_k: int = 0,
+                          top_p: float = 1.0) -> torch.Tensor:
+    """(B, V) fp32 logits with everything outside the ``top_k`` largest and
+    the nucleus of mass ``top_p`` set to -1e30 (reference xbert.py:1521;
+    the first token is always kept)."""
+    neg = torch.full((), -1e30, dtype=logits.dtype, device=logits.device)
+    if top_k > 0:
+        kth = torch.sort(logits, dim=-1).values[:, -top_k][:, None]
+        logits = torch.where(logits < kth, neg, logits)
+    if top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        cut = torch.cumsum(probs, dim=-1) - probs > top_p
+        cutoff = torch.where(cut, torch.full_like(sorted_logits, float("inf")),
+                             sorted_logits).min(-1, keepdim=True).values
+        logits = torch.where(logits < cutoff, neg, logits)
+    return logits
+
+
+# noise(t, shape) -> fp32 Gumbel noise on the logits' device for draw t
+Noise = Callable[[int, Tuple[int, ...]], torch.Tensor]
+
+
+@contextlib.contextmanager
+def inference(model: torch.nn.Module):
+    """No autograd and eval mode (dropout off) for a decode, the mode
+    restored after."""
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            yield
+    finally:
+        model.train(was_training)
+
+
+def gumbel_noise(generator: Optional[torch.Generator], device) -> Noise:
+    """Gumbel noise -log(-log(u)) from ``generator``: ``argmax(logits +
+    noise)`` is a categorical draw, as ``jax.random.categorical`` draws."""
+    tiny = torch.finfo(torch.float32).tiny
+
+    def noise(t: int, shape: Tuple[int, ...]) -> torch.Tensor:
+        u = torch.rand(shape, generator=generator, device=device).clamp_(min=tiny)
+        return -torch.log(-torch.log(u))
+
+    return noise
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -175,4 +247,50 @@ def decoder_params_from_text_encoder(state: Mapping[str, torch.Tensor], *,
         elif (m := layer.fullmatch(k)) and int(m.group(1)) in layer_of:
             out[f"text_decoder.bert.encoder.layer.{layer_of[int(m.group(1))]}."
                 f"{m.group(2)}"] = v
+    return out
+
+
+def sample_generate(model: XVLMForVQA, batch: Dict[str, torch.Tensor], *, max_length: int,
+                    bos_token_id: int, eos_token_id: int, pad_token_id: int = 0,
+                    temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
+                    greedy: bool = False, generator: Optional[torch.Generator] = None,
+                    noise: Optional[Noise] = None) -> np.ndarray:
+    """Token-by-token decode of the answer decoder with its static cache
+    (reference xbert.py:1427 ``_generate_no_beam_search``; the JAX
+    ``sample_generate``): from BOS, ``max_length`` tokens, each the argmax
+    (``greedy``) or a draw ``argmax(filtered logits + noise(t, shape))``
+    (Gumbel noise from ``generator`` unless ``noise`` is given). Returns
+    (B, max_length) int64 on the host, PAD after a row's EOS; stops when
+    every row has ended."""
+    image = batch["image"]
+    B, dev = image.shape[0], image.device
+    tcfg = model.config.text
+    noise = noise or gumbel_noise(generator, dev)
+    dec = model.text_decoder
+    table = dec.bert.embeddings.word_embeddings.weight
+    out = np.full((B, max_length), pad_token_id, np.int64)
+    done = np.zeros(B, bool)
+    with inference(model):
+        states = model.encode_question(image, batch["question_ids"], batch["question_atts"])
+        cache = static_caches(model.num_dec_layers, B, tcfg.num_heads, max_length,
+                              tcfg.hidden_size // tcfg.num_heads, model.dtype, dev)
+        tok = torch.full((B, 1), bos_token_id, dtype=torch.long, device=dev)
+        for t in range(max_length):
+            h, cache = dec(tok, position_ids=torch.arange(t, t + 1, device=dev),
+                           encoder_hidden_states=states,
+                           encoder_attention_mask=batch["question_atts"],
+                           cache=[dict(c, index=t) for c in cache], deterministic=True)
+            logits = dec.mlm_head.logits(h[:, -1:, :], table)[:, 0].float()
+            logits = logits / max(temperature, 1e-6)
+            if greedy:
+                nxt = torch.argmax(logits, dim=-1)
+            else:
+                logits = top_k_top_p_filtering(logits, top_k=top_k, top_p=top_p)
+                nxt = torch.argmax(logits + noise(t, tuple(logits.shape)), dim=-1)
+            nxt = np.where(done, pad_token_id, nxt.cpu().numpy())
+            out[:, t] = nxt
+            done |= nxt == eos_token_id
+            if done.all():
+                break
+            tok = torch.from_numpy(nxt[:, None]).to(dev)
     return out

@@ -122,9 +122,10 @@ def fused_vocab_ce_weighted(h: torch.Tensor, table: torch.Tensor, bias: torch.Te
 
 def fused_vocab_ce(h: torch.Tensor, table: torch.Tensor, bias: torch.Tensor,
                    labels: torch.Tensor, valid: torch.Tensor,
-                   ignore_index: int = -100) -> torch.Tensor:
+                   ignore_index: int = -100, smoothing: float = 0.0) -> torch.Tensor:
     """Mean CE over the valid rows (``valid`` AND ``labels != ignore_index``),
-    HF CrossEntropyLoss semantics: sum(nll * valid) / max(count, 1)."""
+    HF CrossEntropyLoss semantics: sum(nll * valid) / max(count, 1); with
+    ``smoothing`` the label-smoothed CE, same mean."""
     valid = valid & (labels != ignore_index)
     count = valid.sum().clamp(min=1).float()
-    return fused_vocab_ce_weighted(h, table, bias, labels, valid.float() / count, 0.0)
+    return fused_vocab_ce_weighted(h, table, bias, labels, valid.float() / count, smoothing)

@@ -28,7 +28,7 @@ from x2vlm_tpu_torch.ops.tiny_attention import tiny_block_attention, tiny_suppor
 __all__ = ["LayerNorm", "FusedLayerNorm", "Mlp", "DropPath", "MultiHeadAttention",
            "PatchEmbed", "gelu_exact", "gelu_fast", "ACTIVATIONS", "dense",
            "dropout", "epilogue_act", "init_weights", "linear", "layer_norm",
-           "serving_only", "IMAGE_MEAN", "IMAGE_STD"]
+           "serving_only", "static_caches", "IMAGE_MEAN", "IMAGE_STD"]
 
 # CLIP image statistics (same values as x2vlm_tpu/data/transforms.py; the
 # uint8 path must match host normalization bit for bit)
@@ -222,6 +222,16 @@ class MultiHeadAttention(nn.Module):
     kernel where that admits the shape, else to the plain core with its
     causal mask.
 
+    ``mask`` (a full boolean (B, 1, Sq, Skv) mask: the UniLM attention
+    matrix) and ``cache`` (the static decode cache) take neither kernel:
+    the call runs the plain core, as the JAX package runs it outside Pallas.
+    A cache is ``{"k", "v"}`` buffers of shape (B, H, Lmax, D) in the
+    compute dtype plus ``index`` (an int): the new keys and values go in at
+    ``index .. index + Sq - 1`` (on the device, no host sync), every query sees the keys at positions ``<= index + its
+    offset``, and the call returns ``(out, new cache)`` with ``index`` as
+    given: the caller moves it (the UniLM decode rewrites its trailing
+    [MASK] slot each step).
+
     ``quant=True`` (serving only) projects through the int8 kernel
     (``ops/quant.qdense``) with each source (x, and ``kv`` when given)
     quantized once and shared by the projections it feeds; the output
@@ -329,10 +339,8 @@ class MultiHeadAttention(nn.Module):
                 key_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 kv_gather_idx: Optional[torch.Tensor] = None, causal: bool = False,
-                cache=None, deterministic: bool = False) -> torch.Tensor:
-        if cache is not None:
-            raise NotImplementedError(
-                "the static decode cache (captioning) arrives with a later slice")
+                mask: Optional[torch.Tensor] = None, cache=None,
+                deterministic: bool = False):
         if self.quant:
             serving_only(self)
         B, Sq, _ = x.shape
@@ -343,7 +351,8 @@ class MultiHeadAttention(nn.Module):
         training = self.training and not deterministic
         drop = self.attn_dropout_rate if training else 0.0
 
-        if bias is None and not causal and tiny_supported(Sq, Skv, D):
+        if bias is None and not causal and mask is None and cache is None \
+                and tiny_supported(Sq, Skv, D):
             q, k, v = self._gather(*self._project(x, kv_src, 1.0), kv_gather_idx)
             out = tiny_block_attention(q, k, v, num_heads=H, key_mask=key_mask,
                                        dropout_rate=drop, generator=generator,
@@ -356,12 +365,15 @@ class MultiHeadAttention(nn.Module):
             q = q.reshape(B, Sq, H, D).transpose(1, 2).contiguous()
             k = k.reshape(B, Skv, H, D).transpose(1, 2).contiguous()
             v = v.reshape(B, Skv, H, D).transpose(1, 2).contiguous()
-            if drop == 0.0 and flash_supported(q, k):
+            if cache is not None:
+                k, v, mask = _cache_write(cache, k, v)
+                key_mask, causal = None, False
+            if mask is None and drop == 0.0 and flash_supported(q, k):
                 out = flash_attention(q, k, v, bias=bias, key_mask=key_mask,
                                       causal=causal, scale=core_scale)
             else:
                 out = dot_product_attention(
-                    q, k, v, bias=bias, key_mask=key_mask, causal=causal,
+                    q, k, v, bias=bias, mask=mask, key_mask=key_mask, causal=causal,
                     scale=core_scale, dropout_rate=drop, generator=generator,
                     training=training)
             out = out.transpose(1, 2).reshape(B, Sq, H * D)
@@ -371,7 +383,34 @@ class MultiHeadAttention(nn.Module):
             else:
                 out = dense(out, self.proj.weight, self.proj.bias, self.dtype)
             out = dropout(out, self.proj_dropout_rate, generator, training)
+        if cache is not None:
+            return out, {"k": k, "v": v, "index": cache["index"]}
         return out
+
+
+def static_caches(num_layers: int, batch: int, num_heads: int, max_len: int,
+                  head_dim: int, dtype: torch.dtype, device) -> list:
+    """One zeroed static decode cache a layer: ``k`` / ``v`` (batch,
+    num_heads, max_len, head_dim) in ``dtype``, ``index`` 0."""
+    shape = (batch, num_heads, max_len, head_dim)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device), "index": 0}
+            for _ in range(num_layers)]
+
+
+def _cache_write(cache, k: torch.Tensor, v: torch.Tensor):
+    """The static cache with (B, H, Sq, D) ``k`` / ``v`` written at
+    ``cache["index"] ..`` (out of place, on the device), and the
+    (B, 1, Sq, Lmax) mask of the keys each query sees."""
+    ck, cv = cache["k"], cache["v"]
+    B, _, Lmax, _ = ck.shape
+    Sq = k.shape[2]
+    index = cache["index"]
+    q_pos = torch.arange(index, index + Sq, device=ck.device)
+    ck = ck.index_copy(2, q_pos, k.to(ck.dtype))
+    cv = cv.index_copy(2, q_pos, v.to(cv.dtype))
+    mask = torch.arange(Lmax, device=ck.device)[None, :] <= q_pos[:, None]
+    return ck, cv, mask[None, None].expand(B, 1, Sq, Lmax)
 
 
 @torch.no_grad()

@@ -1,6 +1,6 @@
 """The launcher (the port's counterpart of x2vlm_tpu/run.py), for the tasks
-the port has: ``pretrain``, ``retrieval``, ``grounding``, ``nlvr`` and
-``vqa``.
+the port has: ``pretrain``, ``retrieval``, ``grounding``, ``nlvr``, ``vqa``
+and ``captioning``.
 
 Usage:
     python -m x2vlm_tpu_torch.run --task retrieval \\
@@ -27,12 +27,16 @@ process, one card.
   set with ``vlue_test``), NLVR2's accuracy (per split when ``test_file``
   is a dict), VQA's answers ranked over ``answer_list`` (written to
   ``vqa_result.json``; the VQAv2 accuracy ``overall`` and the exact-match
-  ``acc`` where the test lines carry answers).
+  ``acc`` where the test lines carry answers), captioning's beam-search
+  captions scored with BLEU-1..4, CIDEr-D (``cider`` picks the best epoch),
+  ROUGE-L and METEOR against ``caption_gt_file``.
+- ``scst: true`` (captioning) fine-tunes with self-critical sequence
+  training instead of the MLM loss: sampled rollouts, CIDEr-D advantages.
 
 The config is validated against the JAX package's key registry
 (core/config_schema.py). What the port does not run raises, naming its
-ROADMAP item: every other task (A6: captioning; A8: xGQA, MARVL, classification
-and the other multilingual and video tasks), the video / parallel-text and
+ROADMAP item: every other task (A8: xGQA, MARVL, classification and the
+other multilingual and video tasks), the video / parallel-text and
 multilingual (``languages``) streams (A8), other vision towers and
 converters (A7), and, as in the JAX launcher, ``mixed_in_batch: false``
 and ``tokenized: true``.
@@ -62,7 +66,8 @@ from x2vlm_tpu_torch.train import checkpoint as ckpt_lib
 
 __all__ = ["TASKS", "UNPORTED", "parse_args", "setup", "make_optimizer", "maybe_resume",
            "load_initial_params", "eval_multi", "finetune", "run_retrieval", "run_grounding",
-           "run_nlvr", "VQALoader", "run_vqa", "run_pretrain", "main", "to_device"]
+           "run_nlvr", "SeededLoader", "VQALoader", "run_vqa", "run_captioning", "run_pretrain",
+           "main", "to_device"]
 
 TASKS = ("pretrain", "retrieval", "xretrieval", "wit", "xflickrco", "video_retrieval", "vqa",
          "xgqa", "nlvr", "marvl", "grounding", "captioning", "classification", "xvnli",
@@ -70,7 +75,7 @@ TASKS = ("pretrain", "retrieval", "xretrieval", "wit", "xflickrco", "video_retri
 # the JAX launcher's other tasks and the ROADMAP items that bring them
 UNPORTED = {"xretrieval": "A8", "wit": "A8", "xflickrco": "A8", "video_retrieval": "A8",
             "xgqa": "A8", "marvl": "A8", "xvnli": "A8", "video_qa": "A8", "next_qa_mc": "A8",
-            "classification": "A8", "captioning": "A6"}
+            "classification": "A8"}
 # pretraining streams the port does not build: (config file key, block) -> item
 UNPORTED_STREAMS = {("train_file_videos", "videos"): "A8",
                     ("train_file_videos_aux", "videos"): "A8",
@@ -113,7 +118,7 @@ def setup(args):
     if args.task in UNPORTED:
         raise NotImplementedError(f"--task {args.task} comes with ROADMAP queue item "
                                   f"{UNPORTED[args.task]}; the port runs pretrain, "
-                                  f"retrieval, grounding, nlvr and vqa")
+                                  f"retrieval, grounding, nlvr, vqa and captioning")
     if args.fewshot:
         raise NotImplementedError("--fewshot (IGLUE) comes with ROADMAP queue item A8")
     os.makedirs(args.output_dir, exist_ok=True)
@@ -361,32 +366,48 @@ def run_nlvr(args, cfg, device):
     return finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, "accuracy")
 
 
-class VQALoader(MapLoader):
-    """Batches of ``vqa_collate`` over a VQA train set, each batch's samples
-    read in order (the transform draws from one rng). At each epoch's start
-    the answer-truncation rng is ``random.Random(seed * 1000003 + epoch)``,
-    as the JAX launcher's, and the transform's rng ``data_rng`` is reseeded
-    from ``seed`` and the epoch (epoch 0: ``seed`` itself, the JAX
-    launcher's draws), so a resumed run reads the batches the whole run
-    read. The batch order is the JAX loader's (``MapLoader``'s seed 0, not
-    ``run_seed``)."""
+class SeededLoader(MapLoader):
+    """Batches of a map-style train set whose samples draw from one rng
+    (``data_rng``: the transform, the caption masking), read in order. At
+    each epoch's start ``data_rng`` is reseeded from ``run_seed`` and the
+    epoch (epoch 0: ``run_seed`` itself, the JAX launcher's draws), so a
+    resumed run reads the batches the whole run read. The batch order is
+    the JAX loader's (``MapLoader``'s seed 0, not ``run_seed``)."""
 
-    def __init__(self, dataset, batch_size: int, answers_per_batch: int, *, run_seed: int,
-                 data_rng: random.Random):
+    def __init__(self, dataset, batch_size: int, *, run_seed: int, data_rng: random.Random):
         super().__init__(dataset, batch_size)
-        self.answers_per_batch = answers_per_batch
         self.run_seed = run_seed
         self.data_rng = data_rng
 
-    def __iter__(self):
-        from x2vlm_tpu_torch.data.finetune import vqa_collate
+    def collate(self, samples):
+        return collate(samples)
 
-        seed, epoch = self.run_seed, self.epoch
-        rng = random.Random(seed * 1000003 + epoch)
-        self.data_rng.seed(seed if epoch == 0 else f"{seed}/{epoch}")
+    def __iter__(self):
+        epoch = self.epoch
+        self.data_rng.seed(self.run_seed if epoch == 0 else f"{self.run_seed}/{epoch}")
         for b in batch_indices(len(self.dataset), self.batch_size, shuffle=self.shuffle,
                                seed=self.seed, epoch=epoch, drop_last=self.drop_last):
-            yield vqa_collate([self.dataset[i] for i in b], self.answers_per_batch, rng=rng)
+            yield self.collate([self.dataset[i] for i in b])
+
+
+class VQALoader(SeededLoader):
+    """``SeededLoader`` batches through ``vqa_collate``, whose answer cut
+    draws from ``random.Random(seed * 1000003 + epoch)``, as the JAX
+    launcher's."""
+
+    def __init__(self, dataset, batch_size: int, answers_per_batch: int, *, run_seed: int,
+                 data_rng: random.Random):
+        super().__init__(dataset, batch_size, run_seed=run_seed, data_rng=data_rng)
+        self.answers_per_batch = answers_per_batch
+
+    def collate(self, samples):
+        from x2vlm_tpu_torch.data.finetune import vqa_collate
+
+        return vqa_collate(samples, self.answers_per_batch, rng=self.cut_rng)
+
+    def __iter__(self):
+        self.cut_rng = random.Random(self.run_seed * 1000003 + self.epoch)
+        return super().__iter__()
 
 
 def run_vqa(args, cfg, device):
@@ -436,6 +457,99 @@ def run_vqa(args, cfg, device):
     return finetune(args, cfg, device, model, mcfg, train_ds,
                     lambda: eval_multi(eval_one, test_ds, mean_key=metric_key), metric_key,
                     loader=loader)
+
+
+def run_captioning(args, cfg, device):
+    """Fine-tune and / or evaluate UniLM MLM captioning (reference
+    Captioning_MLM.py): the smoothed MLM loss over masked caption slots;
+    the eval's beam-search captions scored against ``caption_gt_file``
+    (``cider`` picks the best epoch), else counted. With ``scst: true`` the
+    fine-tune is self-critical (:func:`_run_captioning_scst`)."""
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.data.tokenization import build_tokenizer
+    from x2vlm_tpu_torch.evalkit.caption import caption_eval
+    from x2vlm_tpu_torch.tasks.captioning import generate_captions
+
+    model, mcfg = build_model(cfg, "captioning", device=device, seed=args.seed)
+    tokenizer = build_tokenizer(cfg["text_encoder"])
+    data_rng = random.Random(args.seed)
+    train_ds, test_ds = create_dataset("captioning", cfg, evaluate=args.evaluate,
+                                       tokenizer=tokenizer, rng=data_rng)
+    anns = None
+    if cfg.get("caption_gt_file"):
+        with open(cfg["caption_gt_file"]) as f:
+            anns = {int(k): v for k, v in json.load(f).items()}
+
+    def eval_fn():
+        results = generate_captions(
+            model, test_ds, tokenizer, device=device, prompt=cfg.get("prompt", ""),
+            num_beams=cfg.get("num_beams", 3), min_length=cfg.get("min_length", 5),
+            max_length=cfg.get("max_length", 20),
+            length_penalty=float(cfg.get("length_penalty", 0.0)),
+            batch_size=cfg.get("batch_size_test", 16))
+        return caption_eval(results, anns) if anns else {"n": len(results)}
+
+    if cfg.get("scst") and not args.evaluate:
+        return _run_captioning_scst(args, cfg, device, model, mcfg, tokenizer,
+                                    eval_fn if anns else None)
+    loader = None if args.evaluate else SeededLoader(
+        train_ds, cfg.get("batch_size", 16), run_seed=args.seed, data_rng=data_rng)
+    return finetune(args, cfg, device, model, mcfg, train_ds, eval_fn,
+                    "cider" if anns else None, loader=loader)
+
+
+def _run_captioning_scst(args, cfg, device, model, mcfg, tokenizer, eval_fn):
+    """Self-critical fine-tune (the JAX ``_run_captioning_scst``; the
+    reference declares ``--scst`` with no loop behind it): per epoch the
+    images of the train set (one row an image, the deterministic eval
+    transform), shuffled by ``seed + epoch`` on the last epoch's order, in
+    whole batches only; each step ``scst_num_samples`` rollouts an image
+    and one policy-gradient step; after each epoch the last step's loss
+    logged, the train state saved and the eval run. Unlike the JAX loop,
+    which reruns every epoch from the restored state, ``--resume`` goes on
+    after the last saved epoch (the rollout draws are seeded by the global
+    step, so the resumed run reads the whole run's batches)."""
+    from x2vlm_tpu_torch.data.finetune import CaptioningSCSTDataset
+    from x2vlm_tpu_torch.data.transforms import test_transform
+    from x2vlm_tpu_torch.tasks.captioning import prompt_ids
+    from x2vlm_tpu_torch.tasks.scst import scst_train_step
+
+    ds = CaptioningSCSTDataset(cfg["train_file"], test_transform(cfg["image_res"]),
+                               cfg.get("image_root", cfg.get("image_root_train", "")))
+    ids = prompt_ids(tokenizer, cfg.get("prompt", ""))
+    bsz = cfg.get("batch_size_scst", cfg.get("batch_size", 8))
+    epochs = cfg.get("schedular", {}).get("epochs", 3)
+    fresh = load_initial_params(args, cfg, model)
+    steps_per_epoch = len(ds) // bsz
+    optimizer = make_optimizer(cfg, model, max(1, steps_per_epoch) * epochs,
+                               mcfg.text.fusion_layer, fresh_names=fresh)
+    _, data_state = maybe_resume(args, model, optimizer)
+    step = make_train_step(model, optimizer)
+    idx = list(range(len(ds)))
+    record = None
+    for epoch in range(epochs):
+        random.Random(args.seed + epoch).shuffle(idx)
+        if epoch < data_state.get("epochs_done", 0):
+            continue
+        loss = float("nan")
+        for i in range(steps_per_epoch):
+            rows = [ds[j] for j in idx[i * bsz: (i + 1) * bsz]]
+            images = torch.from_numpy(np.stack([r["image"] for r in rows])).to(device)
+            n = epoch * steps_per_epoch + i
+            metrics, _ = scst_train_step(
+                model, step, images, [r["captions"] for r in rows], tokenizer,
+                step_generators(device, args.seed, n, 1)[0], prompt_ids=ids,
+                num_samples=cfg.get("scst_num_samples", 5),
+                max_length=cfg.get("max_length", 20),
+                step_generators=step_generators(device, args.seed, n, 0))
+            loss = float(metrics["loss_scst"])
+        record = {"epoch": epoch, "loss_scst": loss}
+        ckpt_lib.save_train_state(os.path.join(args.output_dir, "ckpt"), model, optimizer,
+                                  (epoch + 1) * steps_per_epoch, {"epochs_done": epoch + 1})
+        if eval_fn is not None:
+            record["eval"] = eval_fn()
+        append_log(args.output_dir, record)
+    return record
 
 
 class _Tracked:
@@ -616,7 +730,8 @@ def main(argv=None):
     device = resolve_device(args.device)
     t0 = time.time()
     runners = {"pretrain": run_pretrain, "retrieval": run_retrieval,
-               "grounding": run_grounding, "nlvr": run_nlvr, "vqa": run_vqa}
+               "grounding": run_grounding, "nlvr": run_nlvr, "vqa": run_vqa,
+               "captioning": run_captioning}
     out = runners[args.task](args, cfg, device)
     print(f"total time: {time.time() - t0:.0f}s")
     return out

@@ -1,31 +1,36 @@
 """Serving on the card (counterpart of the JAX package's
-``serving.ServingBundle``, ``GroundingBundle`` and ``VQABundle``):
-retrieval's two encoders and ITM rerank head, the grounding box predictor
-and VQA's answer ranking.
+``serving.ServingBundle``, ``GroundingBundle``, ``VQABundle`` and
+``CaptioningBundle``): retrieval's two encoders and ITM rerank head, the
+grounding box predictor, VQA's answer ranking and the captioning beam
+search.
 
 ``RetrievalServer.from_npz`` / ``GroundingServer.from_npz`` /
 ``VQAServer.from_npz`` load the ``params.npz`` of a JAX retrieval /
-grounding / VQA bundle through ``convert.py``; ``RetrievalServer(model)``
+grounding / VQA bundle through ``convert.py``; ``CaptioningServer.from_npz``
+reads a JAX captioning bundle's directory (``params.npz`` and the search
+settings in ``manifest.json``); ``RetrievalServer(model)``
 (and the others) serve a model built in the port. Requests run under
 ``torch.inference_mode`` and return tensors on the serving device.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
 
 from x2vlm_tpu_torch.convert import convert_jax_params, load_params_npz
 from x2vlm_tpu_torch.device import resolve_device
+from x2vlm_tpu_torch.models.captioning import XVLMForMLMCaptioning, beam_search_generate_device
 from x2vlm_tpu_torch.models.generation import XVLMForVQA
 from x2vlm_tpu_torch.models.grounding import XVLMForGrounding
 from x2vlm_tpu_torch.models.heads import XVLMForRetrieval
 from x2vlm_tpu_torch.models.xvlm import XVLMConfig
 
-__all__ = ["RetrievalServer", "GroundingServer", "VQAServer"]
+__all__ = ["RetrievalServer", "GroundingServer", "VQAServer", "CaptioningServer"]
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
@@ -122,3 +127,43 @@ class VQAServer(_Server):
                  "question_atts": self._in(q_atts), "answer_ids": answer_ids,
                  "answer_atts": self._in(answer_atts)}
         return self.model.predict(batch, min(k_test, answer_ids.shape[0]))
+
+
+class CaptioningServer(_Server):
+    """Image -> caption token ids by the beam search on the card (the JAX
+    ``CaptioningBundle``: the search's settings are the bundle's manifest,
+    the length penalty a knob of each request), at 384 px by default, the
+    shipped COCO config's resolution."""
+
+    MODEL = XVLMForMLMCaptioning
+    IMAGE_RES = 384
+
+    def __init__(self, model, manifest: Optional[dict] = None):
+        super().__init__(model)
+        self.manifest = dict(manifest or {})
+
+    @classmethod
+    def from_npz(cls, bundle_dir: Union[str, os.PathLike],
+                 config: Optional[XVLMConfig] = None, *,
+                 dtype: torch.dtype = torch.bfloat16, device=None) -> "CaptioningServer":
+        """Serve the bundle in ``bundle_dir`` (``params.npz``, and
+        ``manifest.json``: prompt ids, [MASK] / EOS ids, beams, min / max
+        length, image resolution) with ``config`` (X2VLM-base at the
+        manifest's resolution by default)."""
+        with open(os.path.join(bundle_dir, "manifest.json")) as f:
+            manifest = json.load(f)
+        server = super().from_npz(os.path.join(bundle_dir, "params.npz"),
+                                  config or XVLMConfig.base(image_res=manifest["image_res"]),
+                                  dtype=dtype, device=device)
+        server.manifest = manifest
+        return server
+
+    def generate(self, images: ArrayLike, length_penalty: float = 0.0) -> List[List[int]]:
+        """NHWC images -> each image's best token ids (without the prompt or
+        the EOS; the caller detokenizes)."""
+        m = self.manifest
+        return beam_search_generate_device(
+            self.model, self._in(images), m["prompt_ids"], mask_token_id=m["mask_token_id"],
+            eos_token_id=m["eos_token_id"], num_beams=m["num_beams"],
+            min_length=m["min_length"], max_length=m["max_length"],
+            length_penalty=length_penalty)
