@@ -199,7 +199,24 @@ Phases (any failure exits non-zero and prints no result line):
    logits stay within 0.05 + 5% of their scale, frame 0's top-3 ids equal;
    the two paths' beam-search captions are printed, not held. Step, eval
    call, rollout call and SCST step ms (CUDA events, wall), the eval's wall
-   seconds and the peaks are printed.
+   seconds and the peaks are printed;
+12. the launcher's retrieval task on the other two vision towers at 224 px:
+   ``configs/finetune/retrieval_flickr_clip_base.yaml`` (CLIP ViT-B/16) and
+   ``retrieval_flickr_swin_base.yaml`` (Swin-B/224, output width 1024),
+   each with the 18-layer BERT-base, at their own sizes (32 a step, 64
+   images an eval call, k_test 128) from weights drawn from ``--seed`` (no
+   published file is in the repository), on phase 8's PNGs: 2 steps and
+   the two-stage eval (64 images, 320 texts), each call's launches read
+   (CLIP: 12 flash forward / dQ / dK-dV without a bias and no dBias a
+   step; Swin: no flash launch, its 24 window attentions on the plain
+   core; tiny at 40 x 40 and 40 x 200 / 40 x 56), ``--resume`` restoring
+   the saved state bit for bit, 2 rows card bf16 against CPU fp32 (ITC and
+   ITM within 0.05 + 2%, gradient cosines >= 0.99, each 40 x 200 / 56
+   fusion call within half the bf16 rule), the trained state exported with
+   ``python -m x2vlm_tpu_torch.export_serving`` and served by
+   ``RetrievalServer.from_npz`` with the tower from the bundle's manifest
+   (features equal to the trained model's), and its requests at B=128
+   timed with their launches read.
 
 The 40 x 584 shapes of phases 8 and 9 (the fine-tune's 96-row ITM pass
 with dropout, the 1024- and 512-row rerank, grounding's 20-row bbox pass
@@ -214,10 +231,14 @@ forward) and its resident tiny shapes (8 x 40 x 40 and 16 x 10 x 40 with
 training operands, 4096 x 10 x 40 and 32 x 1 x 40 serving), and phase
 11's: K1-K4 at S=577 with B=16 and B=80, key-tiled K5 / K6 at 16 x 25 x
 584 and 80 x 46 x 584 with training operands, K5 at 16 x 5, 48 x 2, 80 x
-5 and 80 x 2 x 584 serving.
+5 and 80 x 2 x 584 serving; and phase 12's: K1-K3 without a bias at S=197
+(the CLIP step's B=32, its eval's B=64, the requests' B=128), K5 / K6 at
+96 x 40 x 200 and 96 x 40 x 56 with training operands, K5 at 1024 and 512
+x 40 x 200 / 56 and 128 x 40 x 56 serving.
 
-Every attention launch of phases 3 and 5-11 is counted by kernel, shape and
-operands (serving: no multiplier, no probabilities; training) and must fall
+Every attention launch of phases 3 and 5-12 is counted by kernel, shape and
+operands (serving: no multiplier, no probabilities; training; the flash
+kernels' with or without a bias) and must fall
 on a shape phase 2 checked and timed (``FLASH_MAIN_SHAPES``,
 ``TINY_MAIN_SHAPES``, ``TILED_MAIN_SHAPES``); the kernels line gives each
 such shape its launches by path.
@@ -230,8 +251,9 @@ step and one region-stream call of phase 7 to ``DIR/chip_smoke_profile.txt``,
 ``DIR/chip_smoke_int8_profile.txt``, ``DIR/chip_smoke_train_profile.txt``
 and ``DIR/chip_smoke_region_profile.txt`` (and phase 8's two, and phase
 9's ``chip_smoke_{grounding,nlvr}_{step,eval}_profile.txt``, phase
-10's ``chip_smoke_vqa_{step,eval}_profile.txt`` and phase 11's
-``chip_smoke_captioning_{step,eval}_profile.txt``), each with a
+10's ``chip_smoke_vqa_{step,eval}_profile.txt``, phase 11's
+``chip_smoke_captioning_{step,eval}_profile.txt`` and phase 12's
+``chip_smoke_{clip,swin}_{step,eval}_profile.txt``), each with a
 last line of the port kernels' (attention and K7) device time and
 launches.
 """
@@ -249,6 +271,7 @@ import json
 import math
 import os
 import random
+import shutil
 import statistics
 import subprocess
 import sys
@@ -299,6 +322,7 @@ BATCH, TEXT_LEN = 128, 40          # serving requests
 N_IMG = 197                        # image stream at 224 px; 200 once padded to 8
 N_IMG_384 = 577                    # at 384 px (the retrieval fine-tune); 584 once padded
 N_IMG_768 = 2305                   # at 768 px (the VQA fine-tune); 2312 once padded
+N_IMG_SWIN = 50                    # Swin-B at 224 px: the pooled token + 7 x 7; 56 once padded
 RERANK_BATCH = 1024                # ITM rerank rows a call at 384 px: 8 images x k_test 128
 # (label, M, K, N, act) of every int8 matmul of the int8 serving path at B=128
 INT8_SHAPES = (("vision qkv", BATCH * N_IMG, 768, 2304, None),
@@ -454,12 +478,18 @@ def expect_flash_fwd_route(tag, before, dtype, D, n=1) -> None:
 # phase 8's fine-tune step and of the grounding eval, and the 64 of the
 # NLVR2 eval and of phase 8's eval, phase 11's captioning step, eval call
 # and SCST rollouts (B=16) and its SCST step (16 images x 5 rollouts); at
-# 768 px (S=2305) phase 10's VQA step (B=8) and eval call (B=32)
-FLASH_MAIN_SHAPES = ((BATCH, N_IMG, False), (TRAIN_BATCH, N_IMG, True),
-                     (REGION_IMAGES, N_IMG, True), (GROUNDING_BATCH, N_IMG_384, True),
-                     (2 * NLVR_BATCH, N_IMG_384, True), (2 * FT_EVAL_BATCH, N_IMG_384, False),
-                     (CAP_BATCH, N_IMG_384, True), (SCST_ROWS, N_IMG_384, True),
-                     (VQA_BATCH, N_IMG_768, True), (VQA_EVAL_BATCH, N_IMG_768, False))
+# 768 px (S=2305) phase 10's VQA step (B=8) and eval call (B=32); without a
+# bias (CLIP ViT, phase 12) at 224 px: the fine-tune step (B=32), the eval's
+# image calls (B=64) and the requests (B=128). (B, S, with a backward, with
+# the rel-pos bias)
+FLASH_MAIN_SHAPES = ((BATCH, N_IMG, False, True), (TRAIN_BATCH, N_IMG, True, True),
+                     (REGION_IMAGES, N_IMG, True, True), (GROUNDING_BATCH, N_IMG_384, True, True),
+                     (2 * NLVR_BATCH, N_IMG_384, True, True),
+                     (2 * FT_EVAL_BATCH, N_IMG_384, False, True),
+                     (CAP_BATCH, N_IMG_384, True, True), (SCST_ROWS, N_IMG_384, True, True),
+                     (VQA_BATCH, N_IMG_768, True, True), (VQA_EVAL_BATCH, N_IMG_768, False, True),
+                     (TRAIN_BATCH, N_IMG, True, False), (2 * FT_EVAL_BATCH, N_IMG, False, False),
+                     (BATCH, N_IMG, False, False))
 
 
 def check_flash(gen, dev):
@@ -468,17 +498,20 @@ def check_flash(gen, dev):
     on both routes. Returns an entry per shape."""
     entries = []
     H, D = 12, 64
-    for B, S, _ in FLASH_MAIN_SHAPES:
-        q, k, v, bias = flash_inputs(gen, dev, B, H, S, S, D, torch.bfloat16, (1, H, S, S))
+    for B, S, _, with_bias in FLASH_MAIN_SHAPES:
+        q, k, v, bias = flash_inputs(gen, dev, B, H, S, S, D, torch.bfloat16,
+                                     (1, H, S, S) if with_bias else None)
+        kind = f"bias(1,{H},{S},{S})" if with_bias else "no bias"
         before = dict(flash_attention_fwd.launches_by_route)
         out, lse = flash_attention_fwd(q, k, v, bias)
-        expect_flash_fwd_route(f"flash_attention_fwd B{B}", before, q.dtype, D)
+        expect_flash_fwd_route(f"flash_attention_fwd B{B} {kind}", before, q.dtype, D)
         p_out, p_lse = flash_attention_reference(q, k, v, bias)
         t_out, t_lse = flash_attention_reference(*as_f32(q, k, v, bias))
         route = flash_route(q.dtype, D)
-        err = rule_bf16(f"flash_attention_fwd out B{B} H{H} S{S} D{D} bias(1,H,S,S) bf16 "
+        err = rule_bf16(f"flash_attention_fwd out B{B} H{H} S{S} D{D} {kind} bf16 "
                         f"({route})", out, p_out, t_out)
-        rule_bf16(f"flash_attention_fwd lse B{B} H{H} S{S} D{D} ({route})", lse, p_lse, t_lse)
+        rule_bf16(f"flash_attention_fwd lse B{B} H{H} S{S} D{D} {kind} ({route})", lse, p_lse,
+                  t_lse)
         ms = time_ms(lambda: flash_attention_fwd(q, k, v, bias), host_ahead=True)
         plain_ms = time_ms(lambda: flash_attention_reference(q, k, v, bias), inner=2, reps=5,
                            host_ahead=True)
@@ -486,12 +519,13 @@ def check_flash(gen, dev):
                                                                 scale=1.0), host_ahead=True)
         b_ms, b_by = bound_ms(nbytes(q, k, v, out, bias, lse), 4.0 * B * H * S * S * D)
         entries.append(dict(
-            name="flash_attention_fwd", shape=f"B{B} H{H} S{S} D{D} bias(1,{H},{S},{S}) bf16",
+            name="flash_attention_fwd", shape=f"B{B} H{H} S{S} D{D} {kind} bf16",
             route="cuda", source="x2vlm_tpu_torch/csrc/flash_attention_fwd.cu",
             replaces="x2vlm_tpu/ops/flash_attention.py:174", max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            flash_route=route, key=(B, S, S)))
-        log(f"time flash_attention_fwd B{B} S{S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            flash_route=route, key=(B, S, S), operands=flash_operands(with_bias)))
+        log(f"time flash_attention_fwd B{B} S{S} {kind}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         del q, k, v, bias, out, lse, p_out, p_lse, t_out, t_lse
 
@@ -560,8 +594,9 @@ def tiny_operands(gen, dev, B, Sq, Skv, H, D, dtype, mask, drop):
         if Skv in (Sq, TEXT_LEN):   # padded texts (the decoder's: the questions)
             lens = torch.randint(5, Skv + 1, (B,), generator=gen, device=dev)
             km = (torch.arange(Skv, device=dev)[None] < lens[:, None]).to(torch.int32)
-        else:           # the 197 -> 200 (577 -> 584, 2305 -> 2312) pad of the image stream
-            km[:, N_IMG if Skv <= 200 else N_IMG_384 if Skv <= 584 else N_IMG_768:] = 0
+        else:   # the 50 -> 56 (197 -> 200, 577 -> 584, 2305 -> 2312) pad of the images
+            km[:, min(n for n in (N_IMG_SWIN, N_IMG, N_IMG_384, N_IMG_768)
+                      if n + (-n % 8) >= Skv):] = 0
     elif mask == "half":
         km = torch.ones(B, Skv, dtype=torch.int32, device=dev)
         km[0, Skv // 2:] = 0
@@ -677,7 +712,10 @@ def tiny_entry(name, shape, key, err, ms, plain_ms, b_ms, b_by, lib_ms, **extra)
 # answer decoder's cross-attention to the 40 question states (16 answer
 # rows of 10 tokens); its eval calls: the question's 40 x 40 (32 rows, the
 # shape of phase 9's evals), the decoder's first-token pass (32 x 1 x 40)
-# and its rank pass (32 x 128 answers of 10 tokens)
+# and its rank pass (32 x 128 answers of 10 tokens). Phase 12's towers at
+# 224 px: the fine-tune's ITM fusion cross-attention (3 x 32 rows) and the
+# rerank's (1024 and 512 rows) over CLIP's 200 keys and Swin's 56, and the
+# Swin requests' 128 rows
 TINY_MAIN_SHAPES = (
     ("text self-attention", BATCH, TEXT_LEN, TEXT_LEN, False, "pad"),
     ("fusion cross-attention", BATCH, TEXT_LEN, 200, False, "pad"),
@@ -701,7 +739,16 @@ TINY_MAIN_SHAPES = (
     ("VQA step text / fusion self-attention", VQA_BATCH, TEXT_LEN, TEXT_LEN, True, "pad"),
     ("VQA step decoder cross-attention", VQA_ANSWERS, ANSWER_LEN, TEXT_LEN, True, "pad"),
     ("VQA rank decoder cross-attention", VQA_RANK_ROWS, ANSWER_LEN, TEXT_LEN, False, "pad"),
-    ("VQA first-token decoder cross-attention", VQA_EVAL_BATCH, 1, TEXT_LEN, False, "pad"))
+    ("VQA first-token decoder cross-attention", VQA_EVAL_BATCH, 1, TEXT_LEN, False, "pad"),
+    ("CLIP fine-tune ITM fusion cross-attention", 3 * TRAIN_BATCH, TEXT_LEN, 200, True, "pad"),
+    ("CLIP ITM rerank fusion cross-attention", RERANK_BATCH, TEXT_LEN, 200, False, "pad"),
+    ("CLIP ITM rerank fusion cross-attention, texts to images", RERANK_BATCH // 2, TEXT_LEN,
+     200, False, "pad"),
+    ("Swin fine-tune ITM fusion cross-attention", 3 * TRAIN_BATCH, TEXT_LEN, 56, True, "pad"),
+    ("Swin ITM rerank fusion cross-attention", RERANK_BATCH, TEXT_LEN, 56, False, "pad"),
+    ("Swin ITM rerank fusion cross-attention, texts to images", RERANK_BATCH // 2, TEXT_LEN,
+     56, False, "pad"),
+    ("Swin request fusion cross-attention", BATCH, TEXT_LEN, 56, False, "pad"))
 
 
 def check_tiny(gen, dev):
@@ -881,17 +928,26 @@ def expect_flash_bwd_route(tag, before, dtype, D, with_dbias) -> None:
         fail(f"{tag}: launches by route {got}, expected {want}")
 
 
-def _check_flash_bwd_main(gen, dev, B, S):
-    """K2/K3/K4 at (B, 12, S, 64) with the shared bias, bf16: checked
-    against the plain version, dBias bit-identical in two launches, timed.
-    Returns their entries."""
+def flash_operands(with_bias: bool) -> str:
+    """The operands a flash entry of the kernels line holds: with the
+    rel-pos bias (every tower but CLIP) or without one."""
+    return "bias" if with_bias else "no bias"
+
+
+def _check_flash_bwd_main(gen, dev, B, S, with_bias=True):
+    """K2/K3/K4 at (B, 12, S, 64) with the shared bias (K2/K3 alone without
+    one), bf16: checked against the plain version, dBias bit-identical in
+    two launches, timed. Returns their entries."""
     H, D = 12, 64
-    q, k, v, bias = flash_inputs(gen, dev, B, H, S, S, D, torch.bfloat16, (1, H, S, S))
+    q, k, v, bias = flash_inputs(gen, dev, B, H, S, S, D, torch.bfloat16,
+                                 (1, H, S, S) if with_bias else None)
+    kind = f"bias(1,{H},{S},{S})" if with_bias else "no bias"
     dout = torch.randn(B, H, S, D, generator=gen, device=dev).to(torch.bfloat16)
     out, lse = flash_attention_fwd(q, k, v, bias)
     before = dict(flash_attention_bwd.launches_by_route)
     got = flash_attention_bwd(q, k, v, bias, None, out, lse, dout)
-    expect_flash_bwd_route(f"flash_attention_bwd B{B}", before, torch.bfloat16, D, True)
+    expect_flash_bwd_route(f"flash_attention_bwd B{B} {kind}", before, torch.bfloat16, D,
+                           with_bias)
     p_out, p_lse = flash_attention_reference(q, k, v, bias)
     plain = flash_attention_bwd_reference(q, k, v, bias, None, p_out, p_lse, dout)
     tq, tk, tv, tb, tdo = as_f32(q, k, v, bias, dout)
@@ -899,31 +955,36 @@ def _check_flash_bwd_main(gen, dev, B, S):
     truth = flash_attention_bwd_reference(tq, tk, tv, tb, None, t_out, t_lse, tdo)
     errs = {}
     for label, a, p, t in zip(("dq", "dk", "dv", "dbias"), got, plain, truth):
-        errs[label] = rule_bf16(f"flash_attention_bwd {label} B{B} H{H} S{S} D{D} "
-                                f"bias(1,H,S,S) bf16 ({flash_route(q.dtype, D)})", a, p, t)
+        if t is not None:
+            errs[label] = rule_bf16(f"flash_attention_bwd {label} B{B} H{H} S{S} D{D} "
+                                    f"{kind} bf16 ({flash_route(q.dtype, D)})", a, p, t)
 
     launch = _bwd_launchers(q, k, v, bias, None, out, lse, dout, False, 1.0)
-    # dBias sums the batch in a fixed order (no atomics): bit-identical run to run
-    db1, db2 = launch["dbias"](), launch["dbias"]()
-    same = torch.equal(db1, db2)
-    log(f"check flash_attention_bwd dbias B{B} bit-identical across two launches: {same}")
-    if not same:
-        fail(f"flash_attention_bwd dbias B{B}: two launches differ by {max_err(db1, db2):.3e}")
-    del db1, db2
+    if with_bias:
+        # dBias sums the batch in a fixed order (no atomics): bit-identical run to run
+        db1, db2 = launch["dbias"](), launch["dbias"]()
+        same = torch.equal(db1, db2)
+        log(f"check flash_attention_bwd dbias B{B} bit-identical across two launches: {same}")
+        if not same:
+            fail(f"flash_attention_bwd dbias B{B}: two launches differ by "
+                 f"{max_err(db1, db2):.3e}")
+        del db1, db2
     plain_ms = time_ms(lambda: flash_attention_bwd_reference(q, k, v, bias, None, out, lse,
                                                              dout), inner=2, reps=5,
                        host_ahead=True)
-    lib_all = _sdpa_bwd_ms(q, k, v, bias, dout, 1.0, host_ahead=True)
+    lib_all = _sdpa_bwd_ms(q, k, v, bias, dout, 1.0, host_ahead=True) if with_bias else None
     lib_qkv = _sdpa_bwd_ms(q, k, v, bias, dout, 1.0, host_ahead=True, mask_grad=False)
     read = nbytes(q, k, v, dout, bias, lse) + lse.numel() * 4   # + delta
     ops = float(B * H * S * S * D)
-    shape = f"B{B} H{H} S{S} D{D} bias(1,{H},{S},{S}) bf16"
+    shape = f"B{B} H{H} S{S} D{D} {kind} bf16"
     entries, ms_of = [], {}
-    for name, kern, wbytes, flops, err in (
-            ("flash_attention_bwd_dq", "dq", nbytes(q), 6 * ops, errs["dq"]),
-            ("flash_attention_bwd_dkv", "dkv", nbytes(k, v), 8 * ops,
-             max(errs["dk"], errs["dv"])),
-            ("flash_attention_bwd_dbias", "dbias", H * S * S * 4, 4 * ops, errs["dbias"])):
+    kernels = (("flash_attention_bwd_dq", "dq", nbytes(q), 6 * ops, errs["dq"]),
+               ("flash_attention_bwd_dkv", "dkv", nbytes(k, v), 8 * ops,
+                max(errs["dk"], errs["dv"])))
+    if with_bias:
+        kernels += (("flash_attention_bwd_dbias", "dbias", H * S * S * 4, 4 * ops,
+                     errs["dbias"]),)
+    for name, kern, wbytes, flops, err in kernels:
         ms_of[kern] = ms = time_ms(launch[kern], host_ahead=True)
         b_ms, b_by = bound_ms(read + wbytes, flops)
         lib_ms, lib_cover = (lib_all, "dq+dk+dv+dbias") if kern == "dbias" else \
@@ -934,8 +995,10 @@ def _check_flash_bwd_main(gen, dev, B, S):
             source="x2vlm_tpu_torch/csrc/flash_attention_bwd.cu",
             replaces=FLASH_BWD_REPLACES[kern], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            plain_and_library_cover=f"plain: dq+dk+dv+dbias; library: {lib_cover}",
-            flash_route=flash_route(q.dtype, D), key=(B, S, S)))
+            plain_and_library_cover=f"plain: dq+dk+dv{'+dbias' if with_bias else ''}; "
+                                    f"library: {lib_cover}",
+            flash_route=flash_route(q.dtype, D), key=(B, S, S),
+            operands=flash_operands(with_bias)))
     fmt = lambda x: x if x is None else round(x, 4)
     log(f"time flash_attention_bwd B{B} S{S} plain (all three) {plain_ms:.4f} ms, sdpa backward "
         f"dq+dk+dv {fmt(lib_qkv)} ms, dq+dk+dv+dbias {fmt(lib_all)} ms")
@@ -953,9 +1016,9 @@ def check_flash_bwd(gen, dev):
     the card ahead of the host, beside two SDPA backward yardsticks), then
     over the contract at small shapes on both routes."""
     entries = []
-    for B, S, backward in FLASH_MAIN_SHAPES:
+    for B, S, backward, with_bias in FLASH_MAIN_SHAPES:
         if backward:
-            entries += _check_flash_bwd_main(gen, dev, B, S)
+            entries += _check_flash_bwd_main(gen, dev, B, S, with_bias)
 
     # the rest of the contract, at small shapes, with scale = D^-0.5: bf16
     # at D = 64 on the tensor cores (D = 128 / 192 / 256 on the CUDA cores),
@@ -1452,6 +1515,7 @@ def reset_counts() -> None:
     for fn in (flash_attention_fwd, flash_attention_bwd):
         fn.launches_by_route.clear()
         fn.launches_by_shape.clear()
+        fn.launches_without_bias.clear()
     for fn in (tiny_attention_fwd, tiny_attention_bwd, int8_matmul, quantize_act):
         fn.launches = 0
         fn.launches_by_shape.clear()
@@ -2057,6 +2121,8 @@ def launch_counts():
             "flash_bwd_routes": flash_bwd_route_delta({}),
             "flash_fwd_shapes": collections.Counter(flash_attention_fwd.launches_by_shape),
             "flash_bwd_shapes": collections.Counter(flash_attention_bwd.launches_by_shape),
+            "flash_fwd_nobias": collections.Counter(flash_attention_fwd.launches_without_bias),
+            "flash_bwd_nobias": collections.Counter(flash_attention_bwd.launches_without_bias),
             "tiny_fwd": collections.Counter(tiny_attention_fwd.launches_by_shape),
             "tiny_bwd": collections.Counter(tiny_attention_bwd.launches_by_shape),
             "tiny_routes": {"tiny_attention_fwd": dict(tiny_attention_fwd.launches_by_route),
@@ -2067,11 +2133,14 @@ def launch_counts():
 
 
 # the parts of ``launch_counts`` the kernels line reads: the tiny launches
-# by (B, Sq, Skv), the flash ones by (B, Sq, Skv) and (kernel, B, Sq, Skv)
-LEDGER_PARTS = ("tiny_fwd", "tiny_bwd", "flash_fwd_shapes", "flash_bwd_shapes")
+# by (B, Sq, Skv), the flash ones by (B, Sq, Skv) and (kernel, B, Sq, Skv),
+# and those of them without a bias
+LEDGER_PARTS = ("tiny_fwd", "tiny_bwd", "flash_fwd_shapes", "flash_bwd_shapes",
+                "flash_fwd_nobias", "flash_bwd_nobias")
 # the main paths, as the kernels line's ``launches_by_path`` names them
 PATHS = ("serving", "train_step", "int8_serving", "pretrain_launcher", "retrieval_launcher",
-         "finetune_launcher", "vqa_launcher", "caption_launcher")
+         "finetune_launcher", "vqa_launcher", "caption_launcher", "clip_launcher",
+         "swin_launcher")
 
 
 def ledger_add(ledger, path: str, operands: str, c: dict) -> None:
@@ -2079,15 +2148,20 @@ def ledger_add(ledger, path: str, operands: str, c: dict) -> None:
     a Counter over (path, kernel, operands, shape): ``operands`` is
     "serving" or "training" for the tiny forward (its checks differ in them:
     a dropout multiplier, the probabilities saved), "training" for the tiny
-    backward and None for the flash kernels."""
+    backward; the flash kernels' are "bias" or "no bias" (CLIP ViT)."""
     for key, n in c.get("tiny_fwd", {}).items():
         ledger[(path, "tiny_attention_fwd", operands, key)] += n
     for key, n in c.get("tiny_bwd", {}).items():
         ledger[(path, "tiny_attention_bwd", "training", key)] += n
-    for key, n in c.get("flash_fwd_shapes", {}).items():
-        ledger[(path, "flash_attention_fwd", None, key)] += n
-    for (kernel, *key), n in c.get("flash_bwd_shapes", {}).items():
-        ledger[(path, f"flash_attention_bwd_{kernel}", None, tuple(key))] += n
+    for part, name in (("flash_fwd", lambda key: ("flash_attention_fwd", key)),
+                       ("flash_bwd", lambda key: (f"flash_attention_bwd_{key[0]}",
+                                                  tuple(key[1:])))):
+        nobias = c.get(f"{part}_nobias", {})
+        for key, n in c.get(f"{part}_shapes", {}).items():
+            kernel, shape = name(key)
+            for ops, m in (("bias", n - nobias.get(key, 0)), ("no bias", nobias.get(key, 0))):
+                if m:
+                    ledger[(path, kernel, ops, shape)] += m
 
 
 def attention_kernels(ledger, checked: list, tiled: list) -> list:
@@ -2134,20 +2208,22 @@ def show_counts(c) -> str:
                            else v) for k, v in c.items()})
 
 
-def check_launcher_counts(tag, c, n_flash_fwd, n_flash_bwd, want_tiny, n_plain=0) -> None:
+def check_launcher_counts(tag, c, n_flash_fwd, n_flash_bwd, want_tiny, n_plain=0,
+                          bwd_kernels=("dq", "dkv", "dbias")) -> None:
     """Every flash launch on the tensor-core route, every tiny launch on the
     tensor-core route and on the walk its shape takes, the plain attention
-    ``n_plain`` times (the VQA decoder's causal self-attention; else never),
-    and the counts expected."""
+    ``n_plain`` times (the VQA decoder's causal self-attention, Swin's
+    window attention; else never), and the counts expected; the flash
+    backward's ``bwd_kernels`` (no dBias without a bias)."""
     log(f"launches ({tag}): {show_counts(c)}")
     if c["plain_attention"] != n_plain:
         fail(f"{tag}: the plain attention ran {c['plain_attention']} times, expected "
              f"{n_plain}")
-    if c["flash_fwd"] != n_flash_fwd or c["flash_fwd_routes"] != {TENSOR_CORE: n_flash_fwd}:
+    if c["flash_fwd"] != n_flash_fwd or \
+            c["flash_fwd_routes"] != ({TENSOR_CORE: n_flash_fwd} if n_flash_fwd else {}):
         fail(f"{tag}: flash forward {c['flash_fwd']} launches, routes "
              f"{c['flash_fwd_routes']}, expected {n_flash_fwd} on {TENSOR_CORE}")
-    want_bwd = {f"{k}/{TENSOR_CORE}": n_flash_bwd for k in ("dq", "dkv", "dbias")
-                if n_flash_bwd}
+    want_bwd = {f"{k}/{TENSOR_CORE}": n_flash_bwd for k in bwd_kernels if n_flash_bwd}
     if c["flash_bwd_routes"] != want_bwd:
         fail(f"{tag}: flash backward routes {c['flash_bwd_routes']}, expected {want_bwd}")
     check_tiny_routes(tag, c["tiny_routes"])
@@ -3928,6 +4004,364 @@ def caption_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
             split_counts(scst_counts, [r["delta"] for r in scst_steps])]
 
 
+# ---- phase 12: the launcher's retrieval task on the CLIP ViT and Swin towers ----
+
+TOWER_CONFIGS = {"clip": "configs/finetune/retrieval_flickr_clip_base.yaml",
+                 "swin": "configs/finetune/retrieval_flickr_swin_base.yaml"}
+N_TOWER_STEPS = 2                    # phase 12: fine-tune steps a tower (64 captions, B=32)
+TOWER_EVAL_BATCH = 64                # the YAMLs' batch_size_test: the eval's image calls
+N_SWIN_WINDOW_CALLS = 24             # Swin-B's 2 + 2 + 18 + 2 window attentions a forward
+
+
+def tower_keys(tower: str) -> int:
+    """The fusion's image keys at 224 px once padded to 8: CLIP's 197 ->
+    200, Swin's 50 -> 56."""
+    n = N_IMG_SWIN if tower == "swin" else N_IMG
+    return n + (-n % 8)
+
+
+def tower_call_launches(tower: str, kind: str) -> dict:
+    """The attention launches of one phase-12 call (``call_launches`` and
+    the plain attention's): a fine-tune ``step`` (B=32: the vision pass,
+    12 text layers, the ITM fusion pass over 3 x 32 rows; the backward the
+    same), an ``eval`` (one image call of 64, two text calls of 256, the
+    rerank's 8 calls of 1024 rows and 40 of 512), or the requests at B=128
+    (``encode_images``, ``encode_texts``, ``itm_score``). CLIP's vision
+    pass is 12 flash launches without a bias (no dBias), Swin's 24 window
+    attentions on the plain core."""
+    K, clip = tower_keys(tower), tower == "clip"
+    n_img = {"step": TRAIN_BATCH, "eval": TOWER_EVAL_BATCH, "encode_images": BATCH}.get(kind)
+    tiny = {"step": {(TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 12,
+                     (3 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 6,
+                     (3 * TRAIN_BATCH, TEXT_LEN, K): 6},
+            "eval": {(256, TEXT_LEN, TEXT_LEN): 12 * 2,
+                     (RERANK_BATCH, TEXT_LEN, TEXT_LEN): 6 * (N_LAUNCH_IMAGES // 8),
+                     (RERANK_BATCH, TEXT_LEN, K): 6 * (N_LAUNCH_IMAGES // 8),
+                     (RERANK_BATCH // 2, TEXT_LEN, TEXT_LEN): 6 * (5 * N_LAUNCH_IMAGES // 8),
+                     (RERANK_BATCH // 2, TEXT_LEN, K): 6 * (5 * N_LAUNCH_IMAGES // 8)},
+            "encode_images": {},
+            "encode_texts": {(BATCH, TEXT_LEN, TEXT_LEN): 12},
+            "itm_score": {(BATCH, TEXT_LEN, TEXT_LEN): 6, (BATCH, TEXT_LEN, K): 6}}[kind]
+    train = kind == "step"
+    return {"flash_fwd": 12 if clip and n_img else 0,
+            "flash_bwd": 12 if clip and train else 0, "tiny_fwd": tiny,
+            "tiny_bwd": tiny if train else {},
+            "plain": 0 if clip or not n_img else N_SWIN_WINDOW_CALLS}
+
+
+def tower_cosine_params(cfg, tower: str):
+    """Gradients held to the CPU path: CLIP's first layer's q / k
+    projections (K2 / K3) or a shifted Swin block's qkv and window table
+    (the plain window attention), a fusion layer's self and cross attention
+    (K6, 40 x 40 and 40 x 200 / 56) and the ITM head."""
+    f = f"text_encoder.bert.encoder.layer.{cfg.text.fusion_layer}"
+    vision = (("vision_encoder.encoder.layers.0.self_attn.q_proj.weight",
+               "vision_encoder.encoder.layers.0.self_attn.k_proj.weight")
+              if tower == "clip" else
+              ("vision_encoder.layers.0.blocks.1.attn.qkv.weight",
+               "vision_encoder.layers.0.blocks.1.attn.relative_position_bias_table",
+               "vision_encoder.layers.2.blocks.1.attn.qkv.weight"))
+    return vision + (f"{f}.attention.self.query.weight", f"{f}.crossattention.self.key.weight",
+                     "itm_head.0.weight", "itm_head.3.weight")
+
+
+def tower_hold(tower: str, state: dict, mcfg, batch: dict, dev):
+    """The fine-tuned weights on 2 rows in eval mode (dropout and drop path
+    off), the hard negatives injected: the card in bf16 against the port's
+    CPU fp32 path: ITC and ITM within 0.05 + 2%, gradient cosines of
+    ``tower_cosine_params`` >= 0.99, each bf16 40 x 200 / 56 fusion call
+    into the tiny forward and backward held on the model's operands to the
+    plain version (``FUSION_CALL_RATIO``). Returns (readings, faults)."""
+    K = tower_keys(tower)
+    names = tower_cosine_params(mcfg, tower)
+    neg = (torch.tensor([1, 0]), torch.tensor([1, 0]))
+    fwd_ratios, bwd_ratios, losses, grads = [], [], {}, {}
+    for tag, dtype, device in (("cpu", torch.float32, torch.device("cpu")),
+                               ("card", torch.bfloat16, dev)):
+        model = XVLMForRetrieval(mcfg, dtype=dtype, device=device, seed=None)
+        model.load_state_dict(state)
+        b = {k: v.to(device) for k, v in batch.items()}
+        with held_tiny_calls(K, fwd_ratios), held_tiny_bwd_calls(K, bwd_ratios):
+            out = model(b, neg_idx=tuple(n.to(device) for n in neg))
+            sum(out.values()).backward()
+        losses[tag] = {k: v.item() for k, v in out.items()}
+        params = dict(model.named_parameters())
+        grads[tag] = {k: params[k].grad.detach().double().cpu().reshape(-1) for k in names}
+        del model
+    torch.cuda.empty_cache()
+    cos = {k: F.cosine_similarity(grads["card"][k], grads["cpu"][k], dim=0).item()
+           for k in names}
+    r = {"losses": losses, "cosine": cos, "fwd_ratios": fwd_ratios, "bwd_ratios": bwd_ratios}
+    faults = []
+    for kind, ratios in (("forward", fwd_ratios), ("backward", bwd_ratios)):
+        if len(ratios) != 6 or not all(x <= FUSION_CALL_RATIO for x in ratios):
+            faults.append(f"the 40 x {K} {kind} calls' errors over the bf16 rule's bound "
+                          f"{[round(x, 3) for x in ratios]}, expected 6 at most "
+                          f"{FUSION_CALL_RATIO}")
+    for k, ref in losses["cpu"].items():
+        if not abs(losses["card"][k] - ref) <= 0.05 + 0.02 * abs(ref):
+            faults.append(f"{k}: card {losses['card'][k]:.5f} vs CPU fp32 {ref:.5f}")
+    for k, c in cos.items():
+        if not c >= 0.99:
+            faults.append(f"gradient {k}: cosine to the CPU fp32 path {c:.5f} < 0.99")
+    return r, faults
+
+
+def work_dir(root: str, need_bytes: int) -> str:
+    """A directory in RAM (``/dev/shm``) with room for ``need_bytes``, else
+    ``root``: the card's machine caps what one call writes to its disk at
+    45 GiB, and phases 7-11 write most of that (a train state of X2VLM-base
+    is ~3.4 GB), so phase 12's train states and bundles go to RAM."""
+    shm = "/dev/shm"
+    free = shutil.disk_usage(shm).free if os.path.isdir(shm) else 0
+    log(f"{shm}: {free / 2**30:.1f} GiB free")
+    if free >= need_bytes:
+        return tempfile.mkdtemp(prefix="chip_smoke_", dir=shm)
+    return root
+
+
+def tower_task_phase(args, tower: str, root: str, tok_dir: str, image_root: str,
+                     test_file: str, requests, dev, smi: str = "") -> dict:
+    """One tower of phase 12: ``x2vlm_tpu_torch.run --task retrieval`` on
+    the shipped config at its own sizes (steps of 32, eval calls of 64
+    images, k_test 128) from weights drawn from ``--seed`` (no published
+    file is in the repository), ``N_TOWER_STEPS`` steps and the two-stage
+    eval, each call timed and its launches read; ``--resume`` restoring the
+    saved state bit for bit; the 2-row hold; the trained state exported
+    with ``python -m x2vlm_tpu_torch.export_serving`` and served by
+    ``RetrievalServer.from_npz`` with the tower from the bundle's manifest:
+    its features equal to the trained model's, the requests at B=128 timed
+    and their launches read. Returns the launches: the run's (split into
+    steps and eval) and the requests'."""
+    from x2vlm_tpu_torch import run as run_mod
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.tasks import retrieval as retrieval_mod
+
+    t0 = time.perf_counter()
+    shipped = shipped_config(TOWER_CONFIGS[tower])
+    with open(test_file) as f:
+        test_ann = json.load(f)
+    train_ann = [{"image": a["image"], "image_id": a["image_id"], "caption": c}
+                 for a in test_ann[:N_TOWER_STEPS * TRAIN_BATCH // 2] for c in a["caption"][:2]]
+    train_file = os.path.join(root, f"{tower}_train.json")
+    with open(train_file, "w") as f:
+        json.dump(train_ann, f)
+    cfg = dict(shipped, train_file=[train_file], test_file=[test_file], image_root=image_root,
+               text_encoder=tok_dir,
+               vision_config=os.path.join(REPO_ROOT, shipped["vision_config"]))
+    if (cfg["batch_size"], cfg["batch_size_test"], cfg["k_test"], cfg["image_res"]) != \
+            (TRAIN_BATCH, TOWER_EVAL_BATCH, K_TEST, 224):
+        fail(f"{tower} launcher: the shipped config's sizes {cfg['batch_size']}, "
+             f"{cfg['batch_size_test']}, {cfg['k_test']}, {cfg['image_res']} changed")
+    cfg_path = os.path.join(root, f"{tower}.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    mcfg = xvlm_config_from_yaml(cfg)
+    work = work_dir(root, 8 * 2**30)   # a train state (~3.5 GB) and a bundle (~1.2 GB)
+    out = os.path.join(work, f"out_{tower}")
+
+    steps, evals = [], []
+    orig = {"step": run_mod.make_train_step, "eval": retrieval_mod.evaluate_retrieval,
+            "save": ckpt_lib.save_train_state}
+    timed = functools.partial(timed_call, args, smi)
+
+    def make_step(model, optimizer, **kw):
+        return timed(orig["step"](model, optimizer, **kw), steps,
+                     f"chip_smoke_{tower}_step_profile.txt",
+                     lambda i: args.profile and i == N_TOWER_STEPS - 1)
+
+    def save(ckpt_dir, model, optimizer, step, data_state=None):
+        # the best epoch's copy is a hard link: a train state is ~3.4 GB
+        if not ckpt_dir.endswith("ckpt_best"):
+            return orig["save"](ckpt_dir, model, optimizer, step, data_state)
+        os.makedirs(ckpt_dir, exist_ok=True)
+        dst = os.path.join(ckpt_dir, ckpt_lib.TRAIN_STATE_FILE)
+        if os.path.exists(dst):
+            os.remove(dst)
+        os.link(os.path.join(os.path.dirname(ckpt_dir), "ckpt", ckpt_lib.TRAIN_STATE_FILE), dst)
+        return dst
+
+    argv = ["--task", "retrieval", "--config", cfg_path, "--output_dir", out, "--epoch", "1",
+            "--seed", str(args.seed), "--device", dev.type]
+    t1 = time.perf_counter()
+    reset_counts()
+    run_mod.make_train_step, ckpt_lib.save_train_state = make_step, save
+    retrieval_mod.evaluate_retrieval = timed(orig["eval"], evals,
+                                             f"chip_smoke_{tower}_eval_profile.txt",
+                                             lambda i: bool(args.profile))
+    try:
+        record = run_mod.main(argv)
+    finally:
+        run_mod.make_train_step, ckpt_lib.save_train_state = orig["step"], orig["save"]
+        retrieval_mod.evaluate_retrieval = orig["eval"]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"phase 12 {tower} run ({len(steps)} fine-tune steps + eval): "
+        f"{time.perf_counter() - t1:.1f} s; {json.dumps(record)}")
+    log(f"phase 12 {tower} fine-tune step ms at 224 px, B={TRAIN_BATCH} (CUDA events, wall): "
+        f"{json.dumps([[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in steps])}"
+        f"{' (the last one profiled)' if args.profile else ''}; peak device memory GiB "
+        f"{[round(r['peak_gib'], 2) for r in steps]}; eval (64 images, 320 texts, k_test "
+        f"{K_TEST}) ms (CUDA events, wall) "
+        f"{[[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in evals]}, peak GiB "
+        f"{[round(r['peak_gib'], 2) for r in evals]}"
+        f"{' (profiled)' if args.profile else ''}; {smi}")
+    keys = ("txt_r1", "txt_r5", "txt_r10", "img_r1", "img_r5", "img_r10", "r_mean")
+    vals = [record.get(f"eval_{k}") for k in keys] + [record.get("loss_itc"),
+                                                       record.get("loss_itm")]
+    if not all(isinstance(v, float) and math.isfinite(v) for v in vals) or \
+            len(steps) != N_TOWER_STEPS or len(evals) != 1:
+        fail(f"{tower} launcher: {len(steps)} steps, {len(evals)} evals, record {record}")
+    for kind, records in (("step", steps), ("eval", evals)):
+        want = tower_call_launches(tower, kind)
+        for i, r in enumerate(records):
+            got = dict(r["launches"], plain=r["plain"])
+            if got != want:
+                fail(f"{tower} launcher {kind} {i}: launches {got}, expected {want}")
+            d = r["delta"]
+            if sum(d["flash_fwd_nobias"].values()) != d["flash_fwd"] or \
+                    sum(d["flash_bwd_nobias"].values()) != sum(d["flash_bwd"].values()):
+                fail(f"{tower} launcher {kind} {i}: flash launches with a bias: {d}")
+    tiny = collections.Counter()
+    for kind, n in (("step", N_TOWER_STEPS), ("eval", 1)):
+        for shape, m in tower_call_launches(tower, kind)["tiny_fwd"].items():
+            tiny[shape] += n * m
+    per_call = tower_call_launches(tower, "step")
+    check_launcher_counts(
+        f"{tower} launcher", counts, (12 * (N_TOWER_STEPS + 1)) if tower == "clip" else 0,
+        per_call["flash_bwd"] * N_TOWER_STEPS,
+        {"tiny_fwd": dict(tiny),
+         "tiny_bwd": {k: n * N_TOWER_STEPS for k, n in per_call["tiny_bwd"].items()}},
+        n_plain=(N_TOWER_STEPS + 1) * tower_call_launches(tower, "eval")["plain"],
+        bwd_kernels=("dq", "dkv"))
+
+    # --resume: the restored state is the saved one (nothing left to train)
+    saved = torch.load(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE), map_location="cpu",
+                       weights_only=False)
+    restored = {}
+    orig_restore = ckpt_lib.restore_train_state
+
+    def restore(ckpt_dir, model, optimizer):
+        result = orig_restore(ckpt_dir, model, optimizer)
+        restored.update(params={n: p.detach().cpu() for n, p in model.named_parameters()},
+                        mu=dict(zip(optimizer.names, (m.cpu() for m in optimizer.mu))),
+                        nu=dict(zip(optimizer.names, (v.cpu() for v in optimizer.nu))),
+                        count=optimizer.count)
+        return result
+
+    t2 = time.perf_counter()
+    ckpt_lib.restore_train_state = restore
+    try:
+        run_mod.main(argv + ["--resume"])
+    finally:
+        ckpt_lib.restore_train_state = orig_restore
+    same = bool(restored) and restored["count"] == saved["count"] and all(
+        restored[part].keys() == saved[part].keys() and
+        all(torch.equal(restored[part][k], saved[part][k]) for k in saved[part])
+        for part in ("params", "mu", "nu"))
+    log(f"phase 12 {tower} --resume: restored state equal to the saved one bit for bit: "
+        f"{same} (step {saved['step']}, count {saved['count']}); "
+        f"{time.perf_counter() - t2:.1f} s")
+    if not same:
+        fail(f"{tower} launcher --resume: the restored state differs from the saved one")
+    state = saved["params"]
+    del saved, restored
+
+    # the trained weights on 2 rows, card bf16 against CPU fp32
+    _, test_ds = create_dataset("retrieval", cfg, evaluate=True)
+    ids, atts = (torch.from_numpy(a) for a in test_ds.text_batch([0, 5]))
+    batch = {"image": torch.from_numpy(test_ds.image_batch([0, 1])), "text_ids": ids.long(),
+             "text_atts": atts, "idx": torch.tensor([0, 1])}
+    hold, faults = tower_hold(tower, state, mcfg, batch, dev)
+    log(f"phase 12 {tower} card bf16 vs CPU fp32 (2 rows, dropout and drop path off): "
+        f"{json.dumps(hold)}")
+    for msg in faults:
+        fail(f"{tower} launcher, 2 rows card vs CPU: {msg}")
+
+    # the export CLI, then the bundle served with the tower from its manifest
+    bundle = os.path.join(work, f"bundle_{tower}")
+    t3 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "x2vlm_tpu_torch.export_serving", "--task", "retrieval",
+         "--config", cfg_path, "--checkpoint", os.path.join(out, "ckpt"), "--out", bundle,
+         "--device", "cpu"], cwd=REPO_ROOT, capture_output=True, text=True, timeout=900)
+    shutil.rmtree(out)
+    log(f"phase 12 {tower} export: exit {proc.returncode}, {time.perf_counter() - t3:.1f} s; "
+        f"{proc.stdout.strip()[-300:]}")
+    if proc.returncode:
+        fail(f"{tower} export_serving: exit {proc.returncode}: {proc.stderr[-2000:]}")
+        if work != root:
+            shutil.rmtree(work)
+        return {"run": split_counts(counts, [r["delta"] for r in steps]), "requests": {}}
+    server = RetrievalServer.from_npz(os.path.join(bundle, "params.npz"), device=dev)
+    model = XVLMForRetrieval(mcfg, dtype=torch.bfloat16, device=dev, seed=None)
+    model.load_state_dict(state)
+    del state
+    served_tower = type(server.model.vision_encoder).__name__
+    with torch.inference_mode():
+        pairs = ((server.encode_images(batch["image"])[1],
+                  model.encode_images(batch["image"].to(dev))[1]),
+                 (server.encode_texts(ids, atts)[1],
+                  model.encode_texts(ids.to(dev), atts.to(dev))[1]))
+    same = all(torch.equal(a, b) for a, b in pairs)
+    log(f"phase 12 {tower} bundle: tower {served_tower} from the manifest, served features "
+        f"equal to the trained model's: {same} (largest difference "
+        f"{max(max_err(a, b) for a, b in pairs):.3e})")
+    if not same or server.model.config != mcfg:
+        fail(f"{tower} bundle: the served model differs from the trained one "
+             f"({served_tower})")
+    del model, pairs
+    shutil.rmtree(bundle)
+    if work != root:
+        shutil.rmtree(work)
+
+    # the requests at B=128 through the served bundle
+    req_counts = {k: collections.Counter() for k in LEDGER_PARTS}
+    outs = []
+    images, r_ids, r_atts = requests
+    for name, fn, inputs in (("encode_images", server.encode_images, lambda: (images,)),
+                             ("encode_texts", server.encode_texts, lambda: (r_ids, r_atts)),
+                             ("itm_score", server.itm_score,
+                              lambda: (outs[0][0], outs[1][0], r_atts))):
+        reset_counts()
+        outs.append(fn(*inputs()))
+        torch.cuda.synchronize()
+        c = launch_counts()
+        got = {"flash_fwd": c["flash_fwd"], "flash_bwd": 0, "tiny_fwd": dict(c["tiny_fwd"]),
+               "tiny_bwd": {}, "plain": c["plain_attention"]}
+        if got != tower_call_launches(tower, name) or \
+                sum(c["flash_fwd_nobias"].values()) != c["flash_fwd"] or \
+                c["flash_fwd_routes"] != ({TENSOR_CORE: c["flash_fwd"]} if c["flash_fwd"]
+                                          else {}):
+            fail(f"{tower} request {name}: launches {got}, expected "
+                 f"{tower_call_launches(tower, name)}")
+        if c["tiny_fwd"]:
+            check_tiny_routes(f"{tower} request {name}",
+                              {"tiny_attention_fwd": c["tiny_routes"]["tiny_attention_fwd"]})
+        for k in LEDGER_PARTS:
+            req_counts[k].update(c[k])
+    if not all(torch.isfinite(o if torch.is_tensor(o) else o[1]).all() for o in outs):
+        fail(f"{tower} requests: outputs not finite")
+    req_ms = time_requests(server, requests, (outs[0][0], outs[0][1], outs[1][0]))
+    log(f"phase 12 {tower} request ms (B={BATCH}, CUDA events, median of 5): "
+        f"{json.dumps({k: round(v, 3) for k, v in req_ms.items()})}; {smi}")
+    del server, outs
+    torch.cuda.empty_cache()
+    log(f"phase 12 {tower} seconds: {time.perf_counter() - t0:.1f}")
+    return {"run": split_counts(counts, [r["delta"] for r in steps]), "requests": req_counts}
+
+
+def tower_launcher_phase(args, root, tok_dir, image_root, test_file, requests, dev, smi=""):
+    """Phase 12: CLIP ViT-B/16, then Swin-B/224. Returns each tower's
+    launches (``tower_task_phase``)."""
+    out = {}
+    for tower in ("clip", "swin"):
+        out[tower] = tower_task_phase(args, tower, root, tok_dir, image_root, test_file,
+                                      requests, dev, smi)
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4041,6 +4475,11 @@ def run(args, dev: torch.device) -> int:
         # ---- phase 11: the launcher's captioning fine-tune, eval and SCST ----
         cap_counts = caption_launcher_phase(args, root, th_path, tok_dir, words,
                                             os.path.join(root, "flickr"), dev, smi)
+        torch.cuda.empty_cache()
+        # ---- phase 12: the launcher's retrieval task on CLIP ViT and Swin ----
+        tower_counts = tower_launcher_phase(args, root, tok_dir, os.path.join(root, "flickr"),
+                                            os.path.join(root, "flickr_test.json"), requests,
+                                            dev, smi)
     torch.cuda.empty_cache()
 
     # the attention launches of the main paths (bf16 serving requests, one
@@ -4058,6 +4497,10 @@ def run(args, dev: torch.device) -> int:
                         ("caption_launcher", cap_counts[1])):
         for operands, c in split.items():
             ledger_add(ledger, path, operands, c)
+    for tower, r in tower_counts.items():
+        for operands, c in r["run"].items():
+            ledger_add(ledger, f"{tower}_launcher", operands, c)
+        ledger_add(ledger, f"{tower}_launcher", "serving", r["requests"])
 
     kernels = attention_kernels(ledger, flash_entries + tiny_entries + flash_bwd_entries +
                                 tiny_bwd_entries, tiled_entries)

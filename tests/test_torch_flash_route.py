@@ -241,6 +241,8 @@ def _fake_launch(kernel, dtype, head_dim, bias_bh, monkeypatch, B=3, S=197):
                         lambda d=None: types.SimpleNamespace(cuda_stream=0))
 
     def operands(name, q, k, v, bias, key_mask):   # _kernel_operands, less its device check
+        if bias is None:
+            return q, k, v, (None, None, 0, (0, 0, 0)), key_mask
         strides = tuple(0 if bias.shape[i] == 1 else bias.stride(i) for i in (0, 1)) + \
             (bias.stride(2),)
         return q, k, v, (bias, bias.data_ptr(), _build.OPERAND_KINDS[bias.dtype], strides), \
@@ -250,7 +252,7 @@ def _fake_launch(kernel, dtype, head_dim, bias_bh, monkeypatch, B=3, S=197):
     H = 2
     q, k, v, out, dout = (torch.empty(B, H, S, head_dim, dtype=dtype, device="meta")
                           for _ in range(5))
-    bias = torch.empty(*bias_bh, S, S, dtype=dtype, device="meta")
+    bias = None if bias_bh is None else torch.empty(*bias_bh, S, S, dtype=dtype, device="meta")
     lse = torch.empty(B, H, S, 1, device="meta")
     counter = fa.flash_attention_fwd.launches_by_route if kernel == "fwd" \
         else fa.flash_attention_bwd.launches_by_route
@@ -273,6 +275,21 @@ def test_flash_launches_are_counted_by_shape(kernel, monkeypatch):
     key = (5, 77, 77) if kernel == "fwd" else (kernel, 5, 77, 77)
     assert counter - before == collections.Counter({key: 1})
     assert routes == {"tensor_core" if kernel == "fwd" else (kernel, "tensor_core"): 1}
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
+def test_flash_launches_without_a_bias_are_counted_apart(kernel, monkeypatch):
+    """A launch with no bias (CLIP's tower) is counted by shape as any
+    other, and again in ``launches_without_bias``; one with a bias is not."""
+    fn = fa.flash_attention_fwd if kernel == "fwd" else fa.flash_attention_bwd
+    key = (6, 197, 197) if kernel == "fwd" else (kernel, 6, 197, 197)
+    for bias_bh, want in ((None, 1), ((1, 2), 0)):
+        before = collections.Counter(fn.launches_without_bias)
+        shapes = collections.Counter(fn.launches_by_shape)
+        _fake_launch(kernel, BF16, 64, bias_bh, monkeypatch, B=6)
+        assert fn.launches_by_shape - shapes == collections.Counter({key: 1})
+        assert fn.launches_without_bias - before == collections.Counter({key: want} if want
+                                                                        else {})
 
 
 @pytest.mark.parametrize("dtype,head_dim,bias_bh,groups", [

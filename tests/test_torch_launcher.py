@@ -193,7 +193,7 @@ def test_vqa_is_no_longer_refused(corpus):
      "A8"),
     ({"mixed_in_batch": False}, ValueError, "mixed_in_batch"),
     ({"images": {"batch_size": 4, "tokenized": True}}, ValueError, "tokenized"),
-    ({"use_clip_vit": True, "use_beit_v2": False}, NotImplementedError, "A7"),
+    ({"use_swin": True, "patch_size": 16}, ValueError, "use_swin requires patch_size"),
     ({"model_type": "cclm"}, NotImplementedError, "A8"),
     ({"remat": True}, NotImplementedError, "remat"),
     ({"flat_optimizer": True}, NotImplementedError, "flat_optimizer"),

@@ -45,10 +45,10 @@ def test_tiny_route(dtype, head_dim, route):
 
 # (Sq, Skv, D) of every shape the kernels are held to on the card: the main
 # path's and the contract's (chip_smoke.py check_tiny / check_tiny_bwd)
-FWD_SHAPES = [(40, 40, 64), (40, 200, 64), (40, 197, 64), (64, 420, 64), (13, 27, 32),
+FWD_SHAPES = [(40, 40, 64), (40, 200, 64), (40, 56, 64), (40, 197, 64), (64, 420, 64), (13, 27, 32),
               (80, 50, 64), (1, 7, 128), (5, 9, 256), (17, 33, 16), (40, 77, 48),
               (24, 61, 96), (9, 45, 112)]
-BWD_SHAPES = [(40, 40, 64), (40, 200, 64), (40, 197, 64), (64, 209, 64), (13, 27, 32),
+BWD_SHAPES = [(40, 40, 64), (40, 200, 64), (40, 56, 64), (40, 197, 64), (64, 209, 64), (13, 27, 32),
               (1, 7, 128), (5, 9, 256), (40, 257, 64), (40, 120, 128), (80, 50, 64),
               (17, 33, 16), (40, 77, 48), (24, 61, 96), (9, 45, 112)]
 
@@ -197,6 +197,20 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert torch.equal(out, ref) and torch.equal(probs, ref_probs)
     assert (ta.tiny_attention_fwd.launches,
             dict(ta.tiny_attention_fwd.launches_by_route)) == before
+
+
+def test_the_swin_fusion_shape_takes_the_resident_walk():
+    """Swin-B's 50 image tokens, padded to 56: the fusion cross-attention
+    (K / V projected from width 1024 to 768) runs 40 x 56 at D = 64 on the
+    resident tensor-core kernels, as the JAX rule admits it."""
+    from x2vlm_tpu.ops import tiny_attention as jta
+    for B in (32, 96, 1024):
+        assert jta.tiny_supported(B, 40, 56, 12, 64, has_mask=True, has_drop=True)
+    assert tiny_supported(40, 56, 64) and tiny_walk(40, 56, 64) == RESIDENT
+    assert tiny_route(BF16, 64) == TENSOR_CORE
+    for route in (CUDA_CORE, TENSOR_CORE):
+        assert smem_bytes(56, 64, route) < smem_bytes(200, 64, route) <= SMEM_LIMIT
+        assert bwd_smem_bytes(40, 56, 64, route) < bwd_smem_bytes(40, 200, 64, route)
 
 
 # ---- the key-tiled walk (the fusion cross-attention at 384 px: 40 x 584) ----

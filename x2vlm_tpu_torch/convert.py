@@ -1,14 +1,22 @@
-"""Carry the JAX package's parameters into the port.
+"""Carry parameters between the JAX package's layout and the port's.
 
-Input: the flat ``'/'``-joined numpy dict that the JAX package's
+JAX side: the flat ``'/'``-joined numpy dict that the JAX package's
 ``serving.save_params_npz`` writes (``params.npz``), or the nested
-parameter tree in memory. Output: the port's state dict, under the
-reference X2-VLM checkpoint names (the exact inverse of the JAX package's
+parameter tree in memory. Port side: the state dict under the reference
+X2-VLM checkpoint names. :func:`convert_jax_params` goes from JAX to the
+port (the exact inverse of the JAX package's
 ``train/checkpoint.convert_xvlm_state_dict`` for the modules the port
-carries, the tied MLM head and the VQA answer decoder included): flax
-kernels (in, out) become torch Linear weights (out, in), the BEiT-2
-query/key/value kernels are fused into ``attn.qkv.weight``, the patch
-kernel (p, p, in, C) becomes the conv weight (C, in, p, p).
+carries); :func:`to_jax_params` goes back, under the names a JAX task
+model's ``init`` gives (``params/base/...`` for the composition core,
+``params/{text_decoder,dec_head,cls_head}/...`` for the heads a task keeps
+beside it).
+
+One table of rules (:func:`_rules`) serves both directions, built from the
+layout either side's names show: the vision tower (BEiT-2, CLIP ViT, Swin
+or ViT) and its depth, the text stacks' layers and the heads. flax kernels
+(in, out) are torch Linear weights (out, in); the patch kernel (p, p, in,
+C) is the conv weight (C, in, p, p); BEiT-2's and ViT's query / key / value
+kernels are the fused ``attn.qkv.weight``.
 """
 
 from __future__ import annotations
@@ -22,7 +30,10 @@ import torch
 
 from x2vlm_tpu_torch.device import resolve_device
 
-__all__ = ["convert_jax_params", "load_params_npz", "flatten_params"]
+__all__ = ["convert_jax_params", "to_jax_params", "load_params_npz", "flatten_params"]
+
+# the JAX task models keep these beside the composition core, not under ``base``
+HEAD_LEVEL = ("text_decoder", "dec_head", "cls_head")
 
 
 def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -53,108 +64,278 @@ def _strip_scope(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
-def _linear(sd, src, dst: str, name: str) -> None:
-    sd[f"{name}.weight"] = src.pop(f"{dst}/kernel").T
-    sd[f"{name}.bias"] = src.pop(f"{dst}/bias")
+# ---- the layout of a parameter set, read from either side's names ----
+
+def _indices(keys, pattern: str) -> List[int]:
+    return sorted({int(m.group(1)) for k in keys if (m := re.match(pattern, k))})
 
 
-def _norm(sd, src, dst: str, name: str) -> None:
-    sd[f"{name}.weight"] = src.pop(f"{dst}/scale")
-    sd[f"{name}.bias"] = src.pop(f"{dst}/bias")
+def _layout_from_jax(keys) -> dict:
+    ks = set(keys)
+    v = "vision_encoder/"
+    if f"{v}class_embedding" in ks:
+        vision = "clip"
+    elif any(k.startswith(f"{v}stage_") for k in ks):
+        vision = "swin"
+    elif f"{v}rel_pos_table_0" in ks:
+        vision = "beit2"
+    elif f"{v}cls_token" in ks:
+        vision = "vit"
+    else:
+        vision = None
+    stages = _indices(ks, rf"{v}stage_(\d+)_block_")
+    return {
+        "vision": vision,
+        "depth": len(_indices(ks, rf"{v}block_(\d+)/")),
+        "depths": tuple(len(_indices(ks, rf"{v}stage_{s}_block_(\d+)/")) for s in stages),
+        "merges": tuple(_indices(ks, rf"{v}merge_(\d+)/")),
+        "text": {t: [(i, f"{t}/layer_{i}/cross_attn/query/kernel" in ks)
+                     for i in _indices(ks, rf"{t}/layer_(\d+)/")]
+                 for t in ("text_encoder", "text_decoder")},
+        "heads": {h for h in ("mlm_head", "dec_head", "vision_proj", "text_proj", "temp",
+                              "itm_head", "bbox_head", "cls_head")
+                  if any(k == h or k.startswith(h + "/") for k in ks)},
+    }
 
 
-def _vision(sd, src) -> None:
-    sd["vision_encoder.cls_token"] = src.pop("vision_encoder/cls_token")
-    sd["vision_encoder.patch_embed.proj.weight"] = \
-        src.pop("vision_encoder/patch_embed/kernel").transpose(3, 2, 0, 1)
-    sd["vision_encoder.patch_embed.proj.bias"] = src.pop("vision_encoder/patch_embed/bias")
-    _norm(sd, src, "vision_encoder/fc_norm", "vision_encoder.fc_norm")
-    depth = 1 + max(int(m.group(1)) for k in src
-                    if (m := re.match(r"vision_encoder/block_(\d+)/", k)))
-    for i in range(depth):
-        q, p = f"vision_encoder/block_{i}", f"vision_encoder.blocks.{i}"
-        _norm(sd, src, f"{q}/norm1", f"{p}.norm1")
-        _norm(sd, src, f"{q}/norm2", f"{p}.norm2")
-        sd[f"{p}.attn.qkv.weight"] = np.concatenate(
-            [src.pop(f"{q}/attn/{n}/kernel").T for n in ("query", "key", "value")])
-        sd[f"{p}.attn.q_bias"] = src.pop(f"{q}/attn/query/bias")
-        sd[f"{p}.attn.v_bias"] = src.pop(f"{q}/attn/value/bias")
-        _linear(sd, src, f"{q}/attn/out", f"{p}.attn.proj")
-        sd[f"{p}.attn.relative_position_bias_table"] = \
-            src.pop(f"vision_encoder/rel_pos_table_{i}")
-        sd[f"{p}.gamma_1"] = src.pop(f"{q}/gamma_1")
-        sd[f"{p}.gamma_2"] = src.pop(f"{q}/gamma_2")
-        _linear(sd, src, f"{q}/mlp/fc1", f"{p}.mlp.fc1")
-        _linear(sd, src, f"{q}/mlp/fc2", f"{p}.mlp.fc2")
+def _layout_from_port(keys) -> dict:
+    ks = set(keys)
+    v = r"vision_encoder\."
+    if "vision_encoder.class_embedding" in ks:
+        vision = "clip"
+    elif "vision_encoder.patch_embed.norm.weight" in ks:
+        vision = "swin"
+    elif "vision_encoder.blocks.0.attn.q_bias" in ks:
+        vision = "beit2"
+    elif "vision_encoder.cls_token" in ks:
+        vision = "vit"
+    else:
+        vision = None
+    stages = _indices(ks, rf"{v}layers\.(\d+)\.blocks\.")
+    return {
+        "vision": vision,
+        "depth": len(_indices(ks, rf"{v}(?:blocks|encoder\.layers)\.(\d+)\.")),
+        "depths": tuple(len(_indices(ks, rf"{v}layers\.{s}\.blocks\.(\d+)\."))
+                        for s in stages),
+        "merges": tuple(_indices(ks, rf"{v}layers\.(\d+)\.downsample\.")),
+        "text": {t: [(i, f"{t}.bert.encoder.layer.{i}.crossattention.self.query.weight" in ks)
+                     for i in _indices(ks, rf"{t}\.bert\.encoder\.layer\.(\d+)\.")]
+                 for t in ("text_encoder", "text_decoder")},
+        "heads": {h for h, probe in (
+            ("mlm_head", "text_encoder.cls.predictions.bias"),
+            ("dec_head", "text_decoder.cls.predictions.bias"),
+            ("vision_proj", "vision_proj.weight"), ("text_proj", "text_proj.weight"),
+            ("temp", "temp"), ("itm_head", "itm_head.0.weight"),
+            ("bbox_head", "bbox_head.0.weight"), ("cls_head", "cls_head.0.weight"))
+            if probe in ks},
+    }
 
 
-def _text(sd, src, tower: str = "text_encoder") -> None:
-    """A BERT stack: the text encoder, or the VQA answer decoder
-    (``tower="text_decoder"``)."""
-    e, t = f"{tower}/embeddings", f"{tower}.bert.embeddings"
+# ---- the rules: (kind, port names, JAX names) ----
+
+def _dense(p: str, j: str):
+    return ("dense", (f"{p}.weight", f"{p}.bias"), (f"{j}/kernel", f"{j}/bias"))
+
+
+def _norm(p: str, j: str):
+    return ("copy", (f"{p}.weight", f"{p}.bias"), (f"{j}/scale", f"{j}/bias"))
+
+
+def _copy(p: str, j: str):
+    return ("copy", (p,), (j,))
+
+
+def _fused_qkv(p: str, j: str, bias: bool):
+    """A fused ``qkv`` projection <-> separate query / key / value ones."""
+    out = [("qkv", (f"{p}.weight",), tuple(f"{j}/{n}/kernel" for n in ("query", "key",
+                                                                          "value")))]
+    if bias:
+        out.append(("cat", (f"{p}.bias",), tuple(f"{j}/{n}/bias" for n in ("query", "key",
+                                                                             "value"))))
+    return out
+
+
+def _vision_rules(lay: dict):
+    p, j = "vision_encoder", "vision_encoder"
+    kind = lay["vision"]
+    if kind in ("beit2", "vit"):
+        yield ("conv", (f"{p}.patch_embed.proj.weight",), (f"{j}/patch_embed/kernel",))
+        yield _copy(f"{p}.patch_embed.proj.bias", f"{j}/patch_embed/bias")
+        yield _copy(f"{p}.cls_token", f"{j}/cls_token")
+        yield _norm(f"{p}.{'fc_norm' if kind == 'beit2' else 'norm'}",
+                    f"{j}/{'fc_norm' if kind == 'beit2' else 'norm'}")
+        if kind == "vit":
+            yield _copy(f"{p}.pos_embed", f"{j}/pos_embed")
+        for i in range(lay["depth"]):
+            b, q = f"{p}.blocks.{i}", f"{j}/block_{i}"
+            yield _norm(f"{b}.norm1", f"{q}/norm1")
+            yield _norm(f"{b}.norm2", f"{q}/norm2")
+            yield from _fused_qkv(f"{b}.attn.qkv", f"{q}/attn", bias=kind == "vit")
+            if kind == "beit2":
+                yield _copy(f"{b}.attn.q_bias", f"{q}/attn/query/bias")
+                yield _copy(f"{b}.attn.v_bias", f"{q}/attn/value/bias")
+                yield _copy(f"{b}.attn.relative_position_bias_table",
+                            f"{j}/rel_pos_table_{i}")
+                yield _copy(f"{b}.gamma_1", f"{q}/gamma_1")
+                yield _copy(f"{b}.gamma_2", f"{q}/gamma_2")
+            yield _dense(f"{b}.attn.proj", f"{q}/attn/out")
+            yield _dense(f"{b}.mlp.fc1", f"{q}/mlp/fc1")
+            yield _dense(f"{b}.mlp.fc2", f"{q}/mlp/fc2")
+    elif kind == "clip":
+        yield ("conv", (f"{p}.patch_embed.weight",), (f"{j}/patch_embed/kernel",))
+        yield _copy(f"{p}.class_embedding", f"{j}/class_embedding")
+        yield _copy(f"{p}.pos_embed.weight", f"{j}/pos_embed")
+        yield _norm(f"{p}.pre_layrnorm", f"{j}/pre_layernorm")
+        yield _norm(f"{p}.post_layernorm", f"{j}/post_layernorm")
+        for i in range(lay["depth"]):
+            b, q = f"{p}.encoder.layers.{i}", f"{j}/block_{i}"
+            yield _norm(f"{b}.layer_norm1", f"{q}/layer_norm1")
+            yield _norm(f"{b}.layer_norm2", f"{q}/layer_norm2")
+            for ours, theirs in (("q_proj", "query"), ("k_proj", "key"), ("v_proj", "value"),
+                                 ("out_proj", "out")):
+                yield _dense(f"{b}.self_attn.{ours}", f"{q}/attn/{theirs}")
+            yield _dense(f"{b}.mlp.fc1", f"{q}/fc1")
+            yield _dense(f"{b}.mlp.fc2", f"{q}/fc2")
+    elif kind == "swin":
+        yield ("conv", (f"{p}.patch_embed.proj.weight",), (f"{j}/patch_embed/kernel",))
+        yield _copy(f"{p}.patch_embed.proj.bias", f"{j}/patch_embed/bias")
+        yield _norm(f"{p}.patch_embed.norm", f"{j}/patch_norm")
+        yield _norm(f"{p}.norm", f"{j}/norm")
+        for s, depth in enumerate(lay["depths"]):
+            for i in range(depth):
+                b, q = f"{p}.layers.{s}.blocks.{i}", f"{j}/stage_{s}_block_{i}"
+                yield _norm(f"{b}.norm1", f"{q}/norm1")
+                yield _norm(f"{b}.norm2", f"{q}/norm2")
+                yield _dense(f"{b}.attn.qkv", f"{q}/attn/qkv")
+                yield _dense(f"{b}.attn.proj", f"{q}/attn/proj")
+                yield _copy(f"{b}.attn.relative_position_bias_table", f"{q}/attn/rel_pos_table")
+                yield _dense(f"{b}.mlp.fc1", f"{q}/mlp/fc1")
+                yield _dense(f"{b}.mlp.fc2", f"{q}/mlp/fc2")
+        for s in lay["merges"]:
+            d, q = f"{p}.layers.{s}.downsample", f"{j}/merge_{s}"
+            yield _norm(f"{d}.norm", f"{q}/norm")
+            yield ("linear", (f"{d}.reduction.weight",), (f"{q}/reduction/kernel",))
+
+
+def _text_rules(tower: str, layers):
+    e, t = f"{tower}.bert.embeddings", f"{tower}/embeddings"
     for n in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
-        sd[f"{t}.{n}.weight"] = src.pop(f"{e}/{n}/embedding")
-    _norm(sd, src, f"{e}/ln", f"{t}.LayerNorm")
-    n_layers = 1 + max(int(m.group(1)) for k in src
-                       if (m := re.match(rf"{tower}/layer_(\d+)/", k)))
-    for i in range(n_layers):
-        q, p = f"{tower}/layer_{i}", f"{tower}.bert.encoder.layer.{i}"
-        for jax_attn, ref_attn, ln in (("self_attn", "attention", "attn_ln"),
-                                       ("cross_attn", "crossattention", "cross_ln")):
-            if f"{q}/{jax_attn}/query/kernel" not in src:
+        yield _copy(f"{e}.{n}.weight", f"{t}/{n}/embedding")
+    yield _norm(f"{e}.LayerNorm", f"{t}/ln")
+    for i, cross in layers:
+        p, q = f"{tower}.bert.encoder.layer.{i}", f"{tower}/layer_{i}"
+        for ref, jax_attn, ln, present in (("attention", "self_attn", "attn_ln", True),
+                                           ("crossattention", "cross_attn", "cross_ln", cross)):
+            if not present:
                 continue
             for proj in ("query", "key", "value"):
-                _linear(sd, src, f"{q}/{jax_attn}/{proj}", f"{p}.{ref_attn}.self.{proj}")
-            _linear(sd, src, f"{q}/{jax_attn}/out", f"{p}.{ref_attn}.output.dense")
-            _norm(sd, src, f"{q}/{ln}", f"{p}.{ref_attn}.output.LayerNorm")
-        _linear(sd, src, f"{q}/mlp/fc1", f"{p}.intermediate.dense")
-        _linear(sd, src, f"{q}/mlp/fc2", f"{p}.output.dense")
-        _norm(sd, src, f"{q}/mlp_ln", f"{p}.output.LayerNorm")
+                yield _dense(f"{p}.{ref}.self.{proj}", f"{q}/{jax_attn}/{proj}")
+            yield _dense(f"{p}.{ref}.output.dense", f"{q}/{jax_attn}/out")
+            yield _norm(f"{p}.{ref}.output.LayerNorm", f"{q}/{ln}")
+        yield _dense(f"{p}.intermediate.dense", f"{q}/mlp/fc1")
+        yield _dense(f"{p}.output.dense", f"{q}/mlp/fc2")
+        yield _norm(f"{p}.output.LayerNorm", f"{q}/mlp_ln")
 
 
-def _heads(sd, src) -> None:
+def _head_rules(heads):
     # the tied LM heads: the MLM head and the VQA answer decoder's
     for head, m in (("mlm_head", "text_encoder.cls.predictions"),
                     ("dec_head", "text_decoder.cls.predictions")):
-        if f"{head}/transform_dense/kernel" in src:
-            _linear(sd, src, f"{head}/transform_dense", f"{m}.transform.dense")
-            _norm(sd, src, f"{head}/transform_ln", f"{m}.transform.LayerNorm")
-            sd[f"{m}.bias"] = src.pop(f"{head}/decoder_bias")
+        if head in heads:
+            yield _dense(f"{m}.transform.dense", f"{head}/transform_dense")
+            yield _norm(f"{m}.transform.LayerNorm", f"{head}/transform_ln")
+            yield _copy(f"{m}.bias", f"{head}/decoder_bias")
     for name in ("vision_proj", "text_proj"):
-        if f"{name}/kernel" in src:
-            _linear(sd, src, name, name)
-    if "temp" in src:
-        sd["temp"] = np.asarray(src.pop("temp")).reshape(())
+        if name in heads:
+            yield _dense(name, name)
+    if "temp" in heads:
+        yield ("scalar", ("temp",), ("temp",))
     for head in ("itm_head", "bbox_head", "cls_head"):
-        if f"{head}/fc1/kernel" in src:
-            _linear(sd, src, f"{head}/fc1", f"{head}.0")
-            _norm(sd, src, f"{head}/ln", f"{head}.1")
-            _linear(sd, src, f"{head}/fc2", f"{head}.3")
+        if head in heads:
+            yield _dense(f"{head}.0", f"{head}/fc1")
+            yield _norm(f"{head}.1", f"{head}/ln")
+            yield _dense(f"{head}.3", f"{head}/fc2")
+
+
+def _rules(lay: dict):
+    yield from _vision_rules(lay)
+    for tower, layers in lay["text"].items():
+        if layers:
+            yield from _text_rules(tower, layers)
+    yield from _head_rules(lay["heads"])
+
+
+def _to_port(kind: str, src: List[np.ndarray]) -> List[np.ndarray]:
+    if kind == "dense":
+        return [src[0].T, src[1]]
+    if kind == "linear":
+        return [src[0].T]
+    if kind == "conv":
+        return [src[0].transpose(3, 2, 0, 1)]
+    if kind == "qkv":
+        return [np.concatenate([k.T for k in src])]
+    if kind == "cat":
+        return [np.concatenate(src)]
+    if kind == "scalar":
+        return [np.asarray(src[0]).reshape(())]
+    return list(src)
+
+
+def _to_jax(kind: str, src: List[np.ndarray], n_out: int) -> List[np.ndarray]:
+    if kind == "dense":
+        return [src[0].T, src[1]]
+    if kind == "linear":
+        return [src[0].T]
+    if kind == "conv":
+        return [src[0].transpose(2, 3, 1, 0)]
+    if kind == "qkv":
+        return [w.T for w in np.split(src[0], n_out)]
+    if kind == "cat":
+        return list(np.split(src[0], n_out))
+    if kind == "scalar":
+        return [np.asarray(src[0]).reshape(())]
+    return list(src)
 
 
 def convert_jax_params(params: Mapping, *, device=None
                        ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
-    """JAX ``XVLMForRetrieval`` / ``XVLMForPretrain`` / ``XVLMForGrounding``
-    / ``XVLMForNLVR`` / ``XVLMForVQA`` / ``XVLMBase`` params -> (state dict of the port's
-    model under the reference names, on ``device`` (the card unless
-    ``device="cpu"``); sorted JAX keys the port does not carry, none for
-    these models). The ``params/`` collection and a task head's ``base/``
-    scope are dropped, a head the task keeps beside the core (NLVR's
-    ``cls_head``; VQA's ``text_decoder`` and ``dec_head``, as
+    """JAX task-model or ``XVLMBase`` params (any vision tower) -> (state
+    dict of the port's model under the reference names, on ``device`` (the
+    card unless ``device="cpu"``); sorted JAX keys the port does not carry,
+    none for these models). The ``params/`` collection and a task head's
+    ``base/`` scope are dropped; a head the task keeps beside the core
+    (NLVR's ``cls_head``; VQA's ``text_decoder`` and ``dec_head``, as
     ``text_decoder.bert.*`` and ``text_decoder.cls.predictions.*``) stays:
-    load the result into ``XVLMForRetrieval``, ``XVLMForGrounding``,
-    ``XVLMForNLVR`` or ``XVLMForVQA`` itself, or into
+    load the result into the task model itself, or into
     ``XVLMForPretrain.base``."""
     device = resolve_device(device)
     flat = params if all(not isinstance(v, Mapping) for v in params.values()) \
         else flatten_params(params)
     src = _strip_scope(flat)
+    layout = _layout_from_jax(src)
+    if layout["vision"] is None and not layout["text"]["text_encoder"]:
+        raise KeyError("no vision_encoder / text_encoder parameters in the JAX tree")
     sd: Dict[str, np.ndarray] = {}
-    _vision(sd, src)
-    _text(sd, src)
-    if "text_decoder/embeddings/ln/scale" in src:
-        _text(sd, src, "text_decoder")
-    _heads(sd, src)
+    for kind, ours, theirs in _rules(layout):
+        sd.update(zip(ours, _to_port(kind, [np.asarray(src.pop(k)) for k in theirs])))
     state = {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
              for k, v in sd.items()}
     return state, sorted(src)
+
+
+def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A port task model's state dict (``XVLMForPretrain``'s ``base.``
+    prefix dropped) -> the flat fp32 ``params/...`` dict of its JAX
+    counterpart, the layout of a JAX bundle's ``params.npz``. Raises on a
+    key no rule carries."""
+    src = {k[len("base."):] if k.startswith("base.") else k:
+           v.detach().float().cpu().numpy() for k, v in state.items()}
+    out: Dict[str, np.ndarray] = {}
+    for kind, ours, theirs in _rules(_layout_from_port(src)):
+        vals = _to_jax(kind, [src.pop(k) for k in ours], len(theirs))
+        for name, val in zip(theirs, vals):
+            scope = "params/" if name.split("/")[0] in HEAD_LEVEL else "params/base/"
+            out[scope + name] = np.array(val, dtype=np.float32, order="C")
+    if src:
+        raise ValueError(f"to_jax_params: no JAX name for {sorted(src)[:8]}")
+    return out

@@ -2,17 +2,18 @@
 x2vlm_tpu/factory.py): the YAML schema's vision / text / XVLM keys ->
 ``XVLMConfig`` and the task's model.
 
-The port builds BEiT-2 + BERT X2-VLM models for ``"pretrain"``
+The port builds X2-VLM models on a BEiT-2, CLIP ViT or Swin vision tower
+(``use_beit_v2`` / ``use_clip_vit`` / ``use_swin``) and BERT for ``"pretrain"``
 (``XVLMForPretrain``), ``"retrieval"`` (``XVLMForRetrieval``),
 ``"grounding"`` (``XVLMForGrounding``), ``"nlvr"`` (``XVLMForNLVR``) and
 ``"vqa"`` (``XVLMForVQA``, with the config's ``num_dec_layers`` and
 ``pad_token_id``), ``"captioning"`` (``XVLMForMLMCaptioning``, with the
-config's ``label_smoothing``). A config that asks for what the port does not build
-raises, naming the ROADMAP queue item that brings it: CLIP / Swin towers
-(A7), RoBERTa text encoders, ``model_type: cclm`` / video encodings and the
-generic classification / multiple-choice heads (A8),
-int8 serving from a config, and ``remat`` (not ported, by decision: the
-step peaks far below the card's memory).
+config's ``label_smoothing``). A config that asks for what the port does
+not build raises, naming the ROADMAP queue item that brings it: RoBERTa
+text encoders, ``model_type: cclm`` / video encodings and the generic
+classification / multiple-choice heads (A8), int8 serving from a config,
+and ``remat`` (not ported, by decision: the step peaks far below the
+card's memory).
 """
 
 from __future__ import annotations
@@ -20,14 +21,16 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 
 from x2vlm_tpu_torch.core.config import Config, read_json
 from x2vlm_tpu_torch.models.beit2 import BEiT2Config
 from x2vlm_tpu_torch.models.bert import BertConfig
-from x2vlm_tpu_torch.models.xvlm import XVLMConfig
+from x2vlm_tpu_torch.models.clip_vit import CLIPViTConfig
+from x2vlm_tpu_torch.models.swin import SwinConfig
+from x2vlm_tpu_torch.models.xvlm import XVLMConfig, vision_width
 
 __all__ = ["vision_config_from_yaml", "text_config_from_yaml", "xvlm_config_from_yaml",
            "model_dtype", "build_model"]
@@ -35,10 +38,10 @@ __all__ = ["vision_config_from_yaml", "text_config_from_yaml", "xvlm_config_from
 
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(f"{what} comes with ROADMAP queue item {item}; the port "
-                              f"builds BEiT-2 + BERT X2-VLM models")
+                              f"builds BEiT-2 / CLIP ViT / Swin + BERT X2-VLM models")
 
 
-def vision_config_from_yaml(config: Dict) -> BEiT2Config:
+def vision_config_from_yaml(config: Dict) -> Any:
     image_res = config["image_res"]
     vc_path = config.get("vision_config")
     vc = read_json(vc_path) if vc_path and os.path.exists(vc_path) else Config(
@@ -47,11 +50,28 @@ def vision_config_from_yaml(config: Dict) -> BEiT2Config:
     if len(switches) > 1:
         raise ValueError(f"vision switches are mutually exclusive: {switches}")
     if config.get("use_clip_vit", False):
-        _refuse("the CLIP ViT vision tower (use_clip_vit)", "A7")
+        return CLIPViTConfig(
+            image_res=image_res, patch_size=vc.get("patch_size", 16),
+            embed_dim=vc.get("vision_width", 768), depth=vc.get("num_hidden_layers", 12),
+            num_heads=vc.get("num_attention_heads", 12),
+            intermediate_size=vc.get("intermediate_size", 3072),
+            attn_dropout_rate=vc.get("attention_dropout", 0.0),
+            act=vc.get("hidden_act", "quick_gelu"),
+            # -1 and 0 both mean off (reference configs ship either)
+            local_attn_depth=max(0, vc.get("local_attn_depth", 0)))
     if config.get("use_swin", False):
-        _refuse("the Swin vision tower (use_swin)", "A7")
-    if vc.get("local_attn_depth", 0) > 0:
-        _refuse("local_attn_depth (CLIP ViT)", "A7")
+        out = SwinConfig(
+            image_res=image_res, patch_size=vc.get("patch_size", 4),
+            embed_dim=vc.get("embed_dim", 128), depths=tuple(vc.get("depths", (2, 2, 18, 2))),
+            num_heads=tuple(vc.get("num_heads", (4, 8, 16, 32))),
+            window_size=vc.get("window_size", 7))
+        # the region bitmaps lie on the output token grid: the YAML's
+        # patch_size must be Swin's final stride, stem patch x 2^(stages - 1)
+        stride = out.patch_size * 2 ** (out.num_layers - 1)
+        if config.get("patch_size", stride) != stride:
+            raise ValueError(f"use_swin requires patch_size: {stride} (the final-stage "
+                             f"token grid), got {config.get('patch_size')}")
+        return out
     width = vc.get("vision_width", 768)
     patch = vc.get("patch_size", config.get("patch_size", 16))
     if "num_hidden_layers" in vc or "num_attention_heads" in vc:
@@ -107,7 +127,7 @@ def xvlm_config_from_yaml(config: Dict) -> XVLMConfig:
         raise NotImplementedError("remat: gradient checkpointing is not ported (by "
                                   "decision: ROADMAP 'Not ported'), drop the key")
     vision = vision_config_from_yaml(config)
-    text = text_config_from_yaml(config, vision.embed_dim)
+    text = text_config_from_yaml(config, vision_width(vision))
     return XVLMConfig(vision=vision, text=text, embed_dim=config.get("embed_dim", 256),
                       temp=config.get("temp", 0.07), fix_temp=config.get("fix_temp", False))
 

@@ -109,7 +109,7 @@ class XVLMForMLMCaptioning(XVLMBase):
         cfg = self.config.text
         return static_caches(cfg.num_layers, batch_size, cfg.num_heads, max_len,
                              cfg.hidden_size // cfg.num_heads, self.dtype,
-                             self.vision_encoder.cls_token.device)
+                             self.device)
 
     def decode_step(self, x_ids: torch.Tensor, index: int, cache: List[Dict],
                     image_embeds: torch.Tensor, image_atts: torch.Tensor):

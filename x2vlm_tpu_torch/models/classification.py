@@ -28,7 +28,7 @@ class XVLMForNLVR(XVLMBase):
                          itm_head=False)
         width = self.config.text.hidden_size
         self.cls_head = MlpHead(2 * width, num_labels, dtype=dtype,
-                                device=self.vision_encoder.cls_token.device)
+                                device=self.device)
         self.fill(seed)
 
     def logits(self, image0: torch.Tensor, image1: torch.Tensor, text_ids: torch.Tensor,

@@ -136,7 +136,7 @@ class XVLMForVQA(XVLMBase):
             text, num_layers=num_dec_layers, fusion_layer=0, encoder_width=text.hidden_size,
             is_decoder=True)
         self.text_decoder = TextEncoder(self.dec_config, dtype=dtype,
-                                        device=self.vision_encoder.cls_token.device,
+                                        device=self.device,
                                         mlm_head=True)
         self.fill(seed)
 

@@ -1,5 +1,6 @@
-"""XVLM composition (counterpart of x2vlm_tpu/models/xvlm.py): the BEiT-2
-vision tower, the BERT text / fusion stack, the contrastive projections, the
+"""XVLM composition (counterpart of x2vlm_tpu/models/xvlm.py): a vision
+tower (BEiT-2, CLIP ViT or Swin, dispatched on its config's type by
+``build_vision_tower``), the BERT text / fusion stack, the contrastive projections, the
 temperature, the ITM head and the bbox head.
 
 Parameter names are the reference's (``vision_encoder.*``,
@@ -16,7 +17,7 @@ sharding constraints have no counterpart here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,16 +26,48 @@ from torch import nn
 from x2vlm_tpu_torch.device import resolve_device
 from x2vlm_tpu_torch.models.beit2 import BEiT2, BEiT2Config, grouped_image_embeds
 from x2vlm_tpu_torch.models.bert import BertConfig, TextEncoder
+from x2vlm_tpu_torch.models.clip_vit import CLIPViT, CLIPViTConfig
+from x2vlm_tpu_torch.models.swin import SwinConfig, SwinTransformer
+from x2vlm_tpu_torch.models.vit import ViT, ViTConfig
 from x2vlm_tpu_torch.ops import box as box_ops
 from x2vlm_tpu_torch.ops.fused_ce import softmax_ce
 from x2vlm_tpu_torch.ops.layers import dense, init_weights, layer_norm, linear
 
-__all__ = ["XVLMConfig", "XVLMBase", "MlpHead", "cross_entropy"]
+__all__ = ["XVLMConfig", "XVLMBase", "MlpHead", "cross_entropy", "build_vision_tower",
+           "vision_width", "vision_seq_len"]
+
+
+def vision_width(vision_cfg) -> int:
+    """A vision tower's output width: Swin's is its stem width times
+    2^(stages - 1) (1024 for Swin-B), the others' their ``embed_dim``."""
+    w = getattr(vision_cfg, "vision_width", None)
+    return w if isinstance(w, int) else vision_cfg.embed_dim
+
+
+def vision_seq_len(vision_cfg) -> int:
+    """A vision tower's output tokens, the pooled / CLS token included:
+    1 + (res/patch)^2; Swin's final grid is (res / (patch * 2^(stages-1)))^2."""
+    if isinstance(vision_cfg, SwinConfig):
+        stride = vision_cfg.patch_size * 2 ** (vision_cfg.num_layers - 1)
+        return 1 + (vision_cfg.image_res // stride) ** 2
+    return 1 + vision_cfg.num_patches
+
+
+def build_vision_tower(vision_cfg, *, dtype: torch.dtype, device) -> nn.Module:
+    """The tower of ``vision_cfg``'s type. Every tower returns (B, S+1, C)
+    with a summary token at position 0 (BEiT-2 and Swin: a mean; CLIP and
+    ViT: a CLS token)."""
+    for cfg_type, tower in ((BEiT2Config, BEiT2), (CLIPViTConfig, CLIPViT),
+                            (SwinConfig, SwinTransformer), (ViTConfig, ViT)):
+        if isinstance(vision_cfg, cfg_type):
+            return tower(vision_cfg, dtype=dtype, device=device)
+    raise TypeError(f"unknown vision config type {type(vision_cfg).__name__}")
 
 
 @dataclasses.dataclass(frozen=True)
 class XVLMConfig:
-    vision: BEiT2Config = dataclasses.field(default_factory=BEiT2Config)
+    # BEiT2Config | CLIPViTConfig | SwinConfig | ViTConfig
+    vision: Any = dataclasses.field(default_factory=BEiT2Config)
     text: BertConfig = dataclasses.field(default_factory=BertConfig)
     embed_dim: int = 256
     temp: float = 0.07
@@ -89,14 +122,11 @@ class XVLMBase(nn.Module):
         super().__init__()
         device = resolve_device(device)
         cfg = self.config = config or XVLMConfig.base()
-        if not isinstance(cfg.vision, BEiT2Config):
-            raise NotImplementedError(
-                f"vision tower {type(cfg.vision).__name__}: this slice ports BEiT-2")
         self.dtype = dtype
-        self.vision_encoder = BEiT2(cfg.vision, dtype=dtype, device=device)
+        self.vision_encoder = build_vision_tower(cfg.vision, dtype=dtype, device=device)
         self.text_encoder = TextEncoder(cfg.text, dtype=dtype, device=device,
                                         mlm_head=mlm_head)
-        vw, tw = cfg.vision.embed_dim, cfg.text.hidden_size
+        vw, tw = vision_width(cfg.vision), cfg.text.hidden_size
         if projections:
             self.vision_proj = linear(vw, cfg.embed_dim, device=device)
             self.text_proj = linear(tw, cfg.embed_dim, device=device)
@@ -112,10 +142,15 @@ class XVLMBase(nn.Module):
         """Every parameter from ``seed`` (None: left as allocated); eval mode.
         A task model that adds a head after the core calls it again."""
         if seed is not None:
-            gen = torch.Generator(device=self.vision_encoder.cls_token.device)
+            gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             init_weights(self, gen)
         self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        """The device of the parameters, whatever the vision tower."""
+        return self._tied_table().device
 
     def init_extra(self, generator: torch.Generator, std: float) -> None:
         if "temp" in self._parameters:
@@ -127,11 +162,17 @@ class XVLMBase(nn.Module):
         (embeds (B, S+1, C), atts (B, S+1)). With ``idx_to_group_img``
         (B_r,) and the region bitmaps ``image_atts`` (B_r, S+1), the region
         stream's rows of the images: (region rows with the region-masked
-        pooled slot, ``image_atts``, the full rows for the bbox head)."""
+        pooled slot, ``image_atts``, the full rows for the bbox head). A CLIP
+        tower with ``local_attn_depth > 0`` makes the region rows itself: its
+        last layers attend inside each region."""
         if idx_to_group_img is not None and image_atts is None:
             raise NotImplementedError(
                 "idx_to_group_img without region bitmaps (grounding) comes with "
                 "ROADMAP item A6")
+        if idx_to_group_img is not None and \
+                getattr(self.config.vision, "local_attn_depth", 0) > 0:
+            region, full = self.vision_encoder(image, generator, idx_to_group_img, image_atts)
+            return region, image_atts, full.index_select(0, idx_to_group_img)
         embeds = self.vision_encoder(image, generator)
         if idx_to_group_img is not None:
             region, full = grouped_image_embeds(embeds, idx_to_group_img, image_atts)
@@ -152,8 +193,9 @@ class XVLMBase(nn.Module):
         ``deterministic`` turns dropout and drop-path off in training mode."""
         if text_atts is None:
             raise ValueError("get_cross_embeds requires text_atts")
-        # pad the image stream to a multiple of 8 (197 -> 200) with masked
-        # positions, as the JAX package does; the output is query-side only
+        # pad the image stream to a multiple of 8 (197 -> 200; Swin's 50 ->
+        # 56) with masked positions, as the JAX package does; the output is
+        # query-side only
         pad = (-image_embeds.shape[1]) % 8
         if pad:
             image_embeds = F.pad(image_embeds, (0, 0, 0, pad))
@@ -186,8 +228,7 @@ class XVLMBase(nn.Module):
 
     def get_temp(self) -> torch.Tensor:
         if self.config.fix_temp:
-            return torch.tensor(self.config.temp, dtype=torch.float32,
-                                device=self.vision_encoder.cls_token.device)
+            return torch.tensor(self.config.temp, dtype=torch.float32, device=self.device)
         # clamped in the graph; the optimizer also projects the parameter
         return self.temp.clamp(0.001, 0.5)
 

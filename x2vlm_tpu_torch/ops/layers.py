@@ -13,7 +13,7 @@ checkpoint names, so a released state dict loads with ``load_state_dict``.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +26,7 @@ from x2vlm_tpu_torch.ops.quant import qdense, quantize_act
 from x2vlm_tpu_torch.ops.tiny_attention import tiny_block_attention, tiny_supported
 
 __all__ = ["LayerNorm", "FusedLayerNorm", "Mlp", "DropPath", "MultiHeadAttention",
-           "PatchEmbed", "gelu_exact", "gelu_fast", "ACTIVATIONS", "dense",
+           "PatchEmbed", "patchify", "gelu_exact", "gelu_fast", "ACTIVATIONS", "dense",
            "dropout", "epilogue_act", "init_weights", "linear", "layer_norm",
            "serving_only", "static_caches", "IMAGE_MEAN", "IMAGE_STD"]
 
@@ -76,18 +76,26 @@ class PatchEmbed(nn.Module):
             device=device)
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
-        p = self.patch_size
-        B, H, W, C = pixels.shape
-        if pixels.dtype == torch.uint8:
-            mean = torch.tensor(IMAGE_MEAN, dtype=torch.float32, device=pixels.device)
-            std = torch.tensor(IMAGE_STD, dtype=torch.float32, device=pixels.device)
-            pixels = (pixels.to(torch.float32) / 255.0 - mean) / std
-        x = pixels.to(self.dtype)
-        # (B, H, W, C) -> (B, N, p*p*C), flattened in (ph, pw, C) order
-        x = x.reshape(B, H // p, p, W // p, p, C).permute(0, 1, 3, 2, 4, 5)
-        x = x.reshape(B, (H // p) * (W // p), p * p * C)
-        w = self.proj.weight.permute(0, 2, 3, 1).reshape(-1, p * p * C)
-        return dense(x, w, self.proj.bias, self.dtype)
+        return patchify(pixels, self.proj.weight, self.proj.bias, self.dtype)
+
+
+def patchify(pixels: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+             dtype: torch.dtype) -> torch.Tensor:
+    """NHWC pixels through a stride-p conv weight (C, in, p, p) as one
+    matmul; uint8 pixels are CLIP-normalised in fp32 first. Returns
+    (B, num_patches, C)."""
+    p = weight.shape[-1]
+    B, H, W, C = pixels.shape
+    if pixels.dtype == torch.uint8:
+        mean = torch.tensor(IMAGE_MEAN, dtype=torch.float32, device=pixels.device)
+        std = torch.tensor(IMAGE_STD, dtype=torch.float32, device=pixels.device)
+        pixels = (pixels.to(torch.float32) / 255.0 - mean) / std
+    x = pixels.to(dtype)
+    # (B, H, W, C) -> (B, N, p*p*C), flattened in (ph, pw, C) order
+    x = x.reshape(B, H // p, p, W // p, p, C).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(B, (H // p) * (W // p), p * p * C)
+    w = weight.permute(0, 2, 3, 1).reshape(-1, p * p * C)
+    return dense(x, w, bias, dtype)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -241,12 +249,15 @@ class MultiHeadAttention(nn.Module):
 
     Parameter names follow the reference checkpoints. ``qkv_bias_mode="qv"``
     is BEiT-2's fused ``qkv`` weight with ``q_bias`` / ``v_bias`` (no key
-    bias); "full" (q, k, v biases) and "none" are BERT's separate ``query`` /
-    ``key`` / ``value``. ``out_proj=True`` adds the output projection
-    ``proj`` (BEiT-2); BERT keeps its output projection outside, in
-    ``attention.output.dense``. Without ``proj`` the module returns the
-    merged heads, (B, Sq, H*D). ``deterministic`` turns the attention and
-    output dropout off in training mode (the JAX module's argument).
+    bias); "fused" is one ``qkv`` projection with its bias (ViT); "full" (q,
+    k, v biases) and "none" are separate ``query`` / ``key`` / ``value``
+    projections (BERT; CLIP names them ``q_proj`` / ``k_proj`` / ``v_proj``
+    through ``names``). ``out_proj=True`` adds the output projection
+    ``proj`` (BEiT-2, ViT; CLIP's ``out_proj``); BERT keeps its output
+    projection outside, in ``attention.output.dense``. Without it the module
+    returns the merged heads, (B, Sq, H*D). ``deterministic`` turns the
+    attention and output dropout off in training mode (the JAX module's
+    argument).
 
     ``kv_gather_idx`` (B,) says which row of ``kv`` each query row attends
     to: ``kv`` then holds only the unique K/V sources (the fusion pass of
@@ -259,9 +270,11 @@ class MultiHeadAttention(nn.Module):
                  qkv_bias_mode: str = "full", out_proj: bool = False,
                  attn_dropout_rate: float = 0.0, proj_dropout_rate: float = 0.0,
                  dtype: torch.dtype = torch.bfloat16, quant: bool = False,
+                 names: Tuple[str, str, str, str] = ("query", "key", "value", "proj"),
                  device=None):
         super().__init__()
         device = resolve_device(device)
+        self._names = names
         self.quant = quant
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
@@ -271,20 +284,40 @@ class MultiHeadAttention(nn.Module):
         self.attn_dropout_rate = attn_dropout_rate
         self.proj_dropout_rate = proj_dropout_rate
         self.dtype = dtype
-        if qkv_bias_mode == "qv":
+        if qkv_bias_mode in ("qv", "fused"):
             if kv_dim != dim:
                 raise ValueError("the fused qkv projection is self-attention only")
-            self.qkv = linear(dim, 3 * inner, bias=False, device=device)
-            self.q_bias = nn.Parameter(torch.empty(inner, device=device))
-            self.v_bias = nn.Parameter(torch.empty(inner, device=device))
+            fused_bias = qkv_bias_mode == "fused"
+            self.qkv = linear(dim, 3 * inner, bias=fused_bias, device=device)
+            if not fused_bias:
+                self.q_bias = nn.Parameter(torch.empty(inner, device=device))
+                self.v_bias = nn.Parameter(torch.empty(inner, device=device))
         elif qkv_bias_mode in ("full", "none"):
             with_bias = qkv_bias_mode == "full"
-            self.query = linear(dim, inner, with_bias, device=device)
-            self.key = linear(kv_dim, inner, with_bias, device=device)
-            self.value = linear(kv_dim, inner, with_bias, device=device)
+            for name, width in zip(names[:3], (dim, kv_dim, kv_dim)):
+                setattr(self, name, linear(width, inner, with_bias, device=device))
         else:
-            raise ValueError(f"qkv_bias_mode {qkv_bias_mode!r}: one of full, qv, none")
-        self.proj = linear(inner, dim, device=device) if out_proj else None
+            raise ValueError(f"qkv_bias_mode {qkv_bias_mode!r}: one of full, fused, qv, none")
+        setattr(self, names[3], linear(inner, dim, device=device) if out_proj else None)
+
+    @property
+    def out(self) -> Optional[nn.Linear]:
+        """The output projection (``proj`` / ``out_proj``), or None."""
+        return getattr(self, self._names[3])
+
+    def _qkv_fused(self, q_scale: float):
+        """The fused ``qkv`` weight and bias with ``q_scale`` folded into the
+        query rows."""
+        inner = self.qkv.weight.shape[0] // 3
+        w = self.qkv.weight
+        if self.qkv_bias_mode == "qv":
+            b = torch.cat([self.q_bias, torch.zeros_like(self.v_bias), self.v_bias])
+        else:
+            b = self.qkv.bias
+        if q_scale != 1.0:
+            w = torch.cat([w[:inner] * q_scale, w[inner:]])
+            b = torch.cat([b[:inner] * q_scale, b[inner:]])
+        return w, b
 
     def _project(self, x, kv_src, q_scale: float):
         """(q, k, v) in (B, S, H*D); ``q_scale`` is folded into the query
@@ -292,14 +325,9 @@ class MultiHeadAttention(nn.Module):
         dt = self.dtype
         if self.quant:
             return self._project_int8(x, kv_src)
-        if self.qkv_bias_mode == "qv":
-            inner = self.q_bias.shape[0]
-            w = self.qkv.weight
-            if q_scale != 1.0:
-                w = torch.cat([w[:inner] * q_scale, w[inner:]])
-            b = torch.cat([self.q_bias * q_scale, torch.zeros_like(self.v_bias),
-                           self.v_bias])
-            return dense(x, w, b, dt).split(inner, dim=-1)
+        if self.qkv_bias_mode in ("qv", "fused"):
+            return dense(x, *self._qkv_fused(q_scale), dt).split(
+                self.qkv.weight.shape[0] // 3, dim=-1)
 
         def fold(layer):
             b = layer.bias
@@ -307,9 +335,10 @@ class MultiHeadAttention(nn.Module):
                 return layer.weight, b
             return layer.weight * q_scale, None if b is None else b * q_scale
 
-        q = dense(x, *fold(self.query), dt)
-        k = dense(kv_src, self.key.weight, self.key.bias, dt)
-        v = dense(kv_src, self.value.weight, self.value.bias, dt)
+        query, key, value = (getattr(self, n) for n in self._names[:3])
+        q = dense(x, *fold(query), dt)
+        k = dense(kv_src, key.weight, key.bias, dt)
+        v = dense(kv_src, value.weight, value.bias, dt)
         return q, k, v
 
     def _project_int8(self, x, kv_src):
@@ -317,15 +346,15 @@ class MultiHeadAttention(nn.Module):
         fused ``qkv`` is one launch (per-row weight scales make it equal to
         three); separate projections share one quantization per source."""
         dt = self.dtype
-        if self.qkv_bias_mode == "qv":
-            inner = self.q_bias.shape[0]
-            b = torch.cat([self.q_bias, torch.zeros_like(self.v_bias), self.v_bias])
-            return qdense(x, self.qkv.weight, b, dtype=dt).split(inner, dim=-1)
+        if self.qkv_bias_mode in ("qv", "fused"):
+            return qdense(x, *self._qkv_fused(1.0), dtype=dt).split(
+                self.qkv.weight.shape[0] // 3, dim=-1)
         xq, sx = quantize_act(x)
         kvq, skv = (xq, sx) if kv_src is x else quantize_act(kv_src)
-        q = qdense(x, self.query.weight, self.query.bias, xq=xq, sx=sx, dtype=dt)
-        k = qdense(kv_src, self.key.weight, self.key.bias, xq=kvq, sx=skv, dtype=dt)
-        v = qdense(kv_src, self.value.weight, self.value.bias, xq=kvq, sx=skv, dtype=dt)
+        query, key, value = (getattr(self, n) for n in self._names[:3])
+        q = qdense(x, query.weight, query.bias, xq=xq, sx=sx, dtype=dt)
+        k = qdense(kv_src, key.weight, key.bias, xq=kvq, sx=skv, dtype=dt)
+        v = qdense(kv_src, value.weight, value.bias, xq=kvq, sx=skv, dtype=dt)
         return q, k, v
 
     @staticmethod
@@ -377,11 +406,12 @@ class MultiHeadAttention(nn.Module):
                     scale=core_scale, dropout_rate=drop, generator=generator,
                     training=training)
             out = out.transpose(1, 2).reshape(B, Sq, H * D)
-        if self.proj is not None:
+        proj = self.out
+        if proj is not None:
             if self.quant:
-                out = qdense(out, self.proj.weight, self.proj.bias, dtype=self.dtype)
+                out = qdense(out, proj.weight, proj.bias, dtype=self.dtype)
             else:
-                out = dense(out, self.proj.weight, self.proj.bias, self.dtype)
+                out = dense(out, proj.weight, proj.bias, self.dtype)
             out = dropout(out, self.proj_dropout_rate, generator, training)
         if cache is not None:
             return out, {"k": k, "v": v, "index": cache["index"]}

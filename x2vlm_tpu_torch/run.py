@@ -13,11 +13,13 @@ The flags are the JAX launcher's, less ``--fsdp`` and ``--output_hdfs``
 ``cuda``; ``cpu`` runs the plain PyTorch path, as the tests do). One
 process, one card.
 
-- ``--checkpoint`` a reference ``.th``: imported under the reference names,
-  the rel-pos tables interpolated to the config's resolution
+- ``--checkpoint`` a reference ``.th`` (or a published CLIP / Swin / BEiT-2
+  / HF BERT file): imported under the reference names by its flavour, the
+  rel-pos tables interpolated to the config's resolution
   (train/checkpoint.py); the parameters it leaves fresh train at
   ``optimizer.lr_mult``. A directory: the parameters of a train state this
-  launcher saved.
+  launcher saved. Without it, the vision JSON's ``ckpt`` and the text
+  encoder's ``pytorch_model.bin`` initialise the model where they exist.
 - ``--resume`` restores the train state in ``output_dir/ckpt`` (parameters,
   AdamW ``mu`` / ``nu`` / ``count``, step) and, for pretraining, the data
   cursors of the streams (image, aux, region, text), so the run continues
@@ -37,9 +39,8 @@ The config is validated against the JAX package's key registry
 (core/config_schema.py). What the port does not run raises, naming its
 ROADMAP item: every other task (A8: xGQA, MARVL, classification and the
 other multilingual and video tasks), the video / parallel-text and
-multilingual (``languages``) streams (A8), other vision towers and
-converters (A7), and, as in the JAX launcher, ``mixed_in_batch: false``
-and ``tokenized: true``.
+multilingual (``languages``) streams (A8), and, as in the JAX launcher,
+``mixed_in_batch: false`` and ``tokenized: true``.
 """
 
 from __future__ import annotations
@@ -200,23 +201,36 @@ def maybe_resume(args, model, optimizer):
 
 
 def load_initial_params(args, cfg, model) -> List[str]:
-    """The ``--checkpoint`` import; returns the names (inside the
-    composition core) of the parameters it left fresh."""
+    """The initial parameters; returns the names (inside the composition
+    core) of those left fresh, for the optimizer's ``lr_mult`` group.
+    ``--checkpoint`` a file: a whole X2-VLM ``.th`` or a published backbone,
+    by its flavour. A directory: the parameters of a train state this
+    launcher saved. Without one: the vision JSON's ``ckpt`` (a raw BEiT-2,
+    CLIP or Swin file) and the text encoder's ``pytorch_model.bin`` (HF
+    BERT, expanded to the config's layers), where those files exist."""
     if not args.checkpoint:
+        mcfg = getattr(model, "base", model).config
+        paths = []
         vc_path = cfg.get("vision_config")
-        raw = []
         if vc_path and os.path.exists(vc_path):
-            vp = config_lib.read_json(vc_path).get("ckpt")
-            if vp and os.path.exists(vp):
-                raw.append(vp)
-        tbin = os.path.join(str(cfg.get("text_encoder", "")), "pytorch_model.bin")
-        if os.path.exists(tbin):
-            raw.append(tbin)
-        if raw:
-            raise NotImplementedError(
-                f"initialising from raw BEiT-2 / HF BERT weights ({raw}) comes with the "
-                f"converters of ROADMAP queue item A7; give a reference .th as --checkpoint")
-        return []
+            paths.append(config_lib.read_json(vc_path).get("ckpt"))
+        paths.append(os.path.join(str(cfg.get("text_encoder", "")), "pytorch_model.bin"))
+        state, unused = {}, []
+        for path in paths:
+            if not path or not os.path.isfile(path):
+                continue
+            part, left, kind = ckpt_lib.convert_checkpoint_auto(
+                ckpt_lib.load_torch_checkpoint(path), vision_cfg=mcfg.vision,
+                text_layers=mcfg.text.num_layers, text_fusion_layer=mcfg.text.fusion_layer)
+            print(f"### {kind} init from {path} ({len(left)} unused)")
+            state.update(part)
+            unused += left
+        if not state:
+            return []
+        missing, unexpected = ckpt_lib.load_converted(model, state)
+        print(ckpt_lib.import_report(model, missing, sorted(unexpected + unused),
+                                     "raw vision / text init"))
+        return missing
     if os.path.isdir(args.checkpoint):
         path = os.path.join(args.checkpoint, ckpt_lib.TRAIN_STATE_FILE)
         state = torch.load(path, map_location="cpu", weights_only=False)

@@ -5,10 +5,13 @@ grounding box predictor, VQA's answer ranking and the captioning beam
 search.
 
 ``RetrievalServer.from_npz`` / ``GroundingServer.from_npz`` /
-``VQAServer.from_npz`` load the ``params.npz`` of a JAX retrieval /
-grounding / VQA bundle through ``convert.py``; ``CaptioningServer.from_npz``
-reads a JAX captioning bundle's directory (``params.npz`` and the search
-settings in ``manifest.json``); ``RetrievalServer(model)``
+``VQAServer.from_npz`` load the ``params.npz`` of a retrieval / grounding /
+VQA bundle (the JAX package's, or one ``export_serving.py`` wrote) through
+``convert.py``; ``CaptioningServer.from_npz`` reads a captioning bundle's
+directory (``params.npz`` and the search settings in ``manifest.json``).
+Without a config given, the model is built from the ``config`` echo of
+the bundle's ``manifest.json`` (the export's YAML: any vision tower), else
+X2VLM-base. ``RetrievalServer(model)``
 (and the others) serve a model built in the port. Requests run under
 ``torch.inference_mode`` and return tensors on the serving device.
 """
@@ -24,15 +27,29 @@ import torch
 
 from x2vlm_tpu_torch.convert import convert_jax_params, load_params_npz
 from x2vlm_tpu_torch.device import resolve_device
+from x2vlm_tpu_torch.factory import xvlm_config_from_yaml
 from x2vlm_tpu_torch.models.captioning import XVLMForMLMCaptioning, beam_search_generate_device
 from x2vlm_tpu_torch.models.generation import XVLMForVQA
 from x2vlm_tpu_torch.models.grounding import XVLMForGrounding
 from x2vlm_tpu_torch.models.heads import XVLMForRetrieval
 from x2vlm_tpu_torch.models.xvlm import XVLMConfig
 
-__all__ = ["RetrievalServer", "GroundingServer", "VQAServer", "CaptioningServer"]
+__all__ = ["RetrievalServer", "GroundingServer", "VQAServer", "CaptioningServer",
+           "bundle_config"]
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
+
+
+def bundle_config(bundle_dir: Union[str, os.PathLike], image_res: int) -> XVLMConfig:
+    """The model config of the bundle in ``bundle_dir``: its manifest's
+    ``config`` echo read as a YAML config, else X2VLM-base at
+    ``image_res``."""
+    path = os.path.join(bundle_dir, "manifest.json")
+    echo = {}
+    if os.path.isfile(path):
+        with open(path) as f:
+            echo = json.load(f).get("config") or {}
+    return xvlm_config_from_yaml(echo) if echo else XVLMConfig.base(image_res=image_res)
 
 
 class _Server:
@@ -44,18 +61,20 @@ class _Server:
 
     def __init__(self, model):
         self.model = model.eval()
-        self.device = model.vision_encoder.cls_token.device
+        self.device = model.device
 
     @classmethod
     def from_npz(cls, path: Union[str, os.PathLike],
                  config: Optional[XVLMConfig] = None, *,
                  dtype: torch.dtype = torch.bfloat16, device=None):
         """Serve the JAX parameters in ``path`` (a bundle's ``params.npz``)
-        with ``config`` (X2VLM-base at ``IMAGE_RES`` by default)."""
+        with ``config`` (default: :func:`bundle_config` of its directory, at
+        ``IMAGE_RES`` without an echo)."""
         device = resolve_device(device)
         state, _ = convert_jax_params(load_params_npz(path), device=device)
-        model = cls.MODEL(config or XVLMConfig.base(image_res=cls.IMAGE_RES), dtype=dtype,
-                          device=device, seed=None, **cls._model_kwargs(state))
+        config = config or bundle_config(os.path.dirname(os.path.abspath(path)), cls.IMAGE_RES)
+        model = cls.MODEL(config, dtype=dtype, device=device, seed=None,
+                          **cls._model_kwargs(state))
         model.load_state_dict(state)
         return cls(model)
 
@@ -148,12 +167,12 @@ class CaptioningServer(_Server):
                  dtype: torch.dtype = torch.bfloat16, device=None) -> "CaptioningServer":
         """Serve the bundle in ``bundle_dir`` (``params.npz``, and
         ``manifest.json``: prompt ids, [MASK] / EOS ids, beams, min / max
-        length, image resolution) with ``config`` (X2VLM-base at the
-        manifest's resolution by default)."""
+        length, image resolution) with ``config`` (default: the manifest's
+        echo, else X2VLM-base at its resolution)."""
         with open(os.path.join(bundle_dir, "manifest.json")) as f:
             manifest = json.load(f)
         server = super().from_npz(os.path.join(bundle_dir, "params.npz"),
-                                  config or XVLMConfig.base(image_res=manifest["image_res"]),
+                                  config or bundle_config(bundle_dir, manifest["image_res"]),
                                   dtype=dtype, device=device)
         server.manifest = manifest
         return server

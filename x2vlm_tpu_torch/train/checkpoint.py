@@ -21,8 +21,22 @@ Parameters the file lacks stay fresh (NLVR2's ``cls_head`` from a
 pretraining file); their names (inside the composition core) are
 returned for the optimizer's ``lr_mult`` group, and :func:`import_report`
 names the subtrees left wholly fresh, as the JAX launcher's
-``_import_report`` does. The CLIP / Swin / HF-BERT converters and the
-Base -> Plus split come with ROADMAP items A7 and A8.
+``_import_report`` does.
+
+Published backbones (own copies of the JAX package's converters, returning
+the port's reference-named state dict instead of a flax tree):
+:func:`convert_beit2_checkpoint` (a raw BEiT-2 file, its shared
+``rel_pos_bias`` table expanded to every block),
+:func:`convert_clip_vit_checkpoint` (HF CLIP, ``vision_model.`` /
+``embeddings.`` stripped; a 2N-layer file into N layers takes layers 2i +
+1), :func:`convert_swin_checkpoint` (timm Swin, each window table resized
+to the model's window by :func:`resize_swin_rel_pos_table`) and
+:func:`convert_hf_bert_checkpoint` (HF BERT, 12 layers expanded to the
+model's 18 with the upper six copied into the fusion slots);
+:func:`convert_checkpoint_auto` picks one by the file's key flavour, and
+:func:`load_reference_checkpoint` goes through it, so a whole X2-VLM file's
+CLIP or Swin tower is converted by its own flavour too. A RoBERTa / XLM-R
+file and the Base -> Plus split come with ROADMAP item A8.
 
 Train state. :func:`save_train_state` writes the parameters, AdamW's
 ``mu`` / ``nu`` / ``count``, the step and the data cursors with
@@ -34,8 +48,10 @@ them back bit for bit.
 from __future__ import annotations
 
 import collections
+import math
 import os
-from typing import Dict, List, Optional, Tuple
+import re
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,8 +59,11 @@ from torch import nn
 
 from x2vlm_tpu_torch.core.io import hopen
 
-__all__ = ["load_torch_checkpoint", "interp_rel_pos_table", "load_reference_checkpoint",
-           "import_report", "save_train_state", "restore_train_state", "TRAIN_STATE_FILE"]
+__all__ = ["load_torch_checkpoint", "interp_rel_pos_table", "resize_swin_rel_pos_table",
+           "convert_beit2_checkpoint", "convert_clip_vit_checkpoint", "convert_swin_checkpoint",
+           "convert_hf_bert_checkpoint", "convert_checkpoint_auto", "load_reference_checkpoint",
+           "load_converted", "import_report", "save_train_state", "restore_train_state",
+           "TRAIN_STATE_FILE"]
 
 TRAIN_STATE_FILE = "train_state.pt"
 
@@ -111,14 +130,268 @@ def _core(model: nn.Module) -> nn.Module:
     return model.base if hasattr(model, "base") else model
 
 
-def load_reference_checkpoint(model: nn.Module, path_or_state) -> Tuple[List[str], List[str]]:
-    """Load a reference ``.th`` (a path or its state dict) into ``model``.
-    Returns (missing, unexpected): the core's parameter names the file did
-    not fill (left as initialised), and the file's keys the model has no
-    place for. Raises on a shape mismatch the window interpolation does not
-    explain."""
-    sd = (load_torch_checkpoint(path_or_state) if isinstance(path_or_state, str)
-          else dict(path_or_state))
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel, a = -0.5."""
+    x = np.abs(x)
+    near = ((1.5 * x - 2.5) * x) * x + 1.0
+    far = ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0
+    return np.where(x >= 2.0, 0.0, np.where(x >= 1.0, far, near))
+
+
+def _cubic_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) weights of a 1-D cubic resize with half-pixel centres,
+    the kernel widened by n_in / n_out when shrinking (antialiased), each
+    column normalised to sum 1: the rule of ``jax.image.resize(...,
+    "cubic")``, in float64."""
+    inv_scale = n_in / n_out
+    sample = (np.arange(n_out) + 0.5) * inv_scale - 0.5
+    w = _keys_cubic((sample[None, :] - np.arange(n_in)[:, None]) / max(inv_scale, 1.0))
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    return np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], w, 0.0)
+
+
+def resize_swin_rel_pos_table(table: np.ndarray, dst_window: int) -> np.ndarray:
+    """A Swin relative-position table ((2 sw - 1)^2, heads) resized to
+    ((2 dw - 1)^2, heads) on its square lattice (Swin tables have no cls
+    rows), as the JAX ``_interp_swin_rel_pos_table`` resizes it (which
+    computes in fp32: its result is within ~1e-6 of the table's scale of
+    this float64 one). Keys' cubic (a = -0.5), not ``F.interpolate``'s
+    bicubic (a = -0.75)."""
+    rows, heads = table.shape
+    src, dst = math.isqrt(rows), 2 * dst_window - 1
+    if src == dst:
+        return table
+    w = _cubic_weights(src, dst)
+    body = table.reshape(src, src, heads).astype(np.float64)
+    out = np.einsum("ih,jw,ijc->hwc", w, w, body)
+    return out.reshape(dst * dst, heads).astype(table.dtype)
+
+
+def _tensors(sd: Mapping) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(np.asarray(v)) if not torch.is_tensor(v) else v
+            for k, v in sd.items()}
+
+
+def convert_beit2_checkpoint(sd: Mapping, *, depth: int, dst_window: Optional[int] = None
+                             ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """A raw BEiT-2 file (``blocks.{i}...``, maybe a shared
+    ``rel_pos_bias.relative_position_bias_table``) -> (the vision tower's
+    state under ``vision_encoder.``, unused keys): the shared table copied
+    to every block, each table interpolated to ``dst_window``, the
+    classifier head dropped."""
+    sd = _tensors(sd)
+    sd.pop("head.weight", None)
+    sd.pop("head.bias", None)
+    shared = sd.pop("rel_pos_bias.relative_position_bias_table", None)
+    if shared is not None:
+        for i in range(depth):
+            sd.setdefault(f"blocks.{i}.attn.relative_position_bias_table", shared.clone())
+    out, unused = {}, []
+    for k, v in sd.items():
+        m = re.match(r"blocks\.(\d+)\.", k)
+        if k.endswith("relative_position_index") or (m and int(m.group(1)) >= depth):
+            unused.append(k)
+            continue
+        if k.endswith("relative_position_bias_table") and dst_window is not None:
+            src = int((math.sqrt(v.shape[0] - 3) + 1) / 2)
+            if src != dst_window:
+                v = torch.from_numpy(interp_rel_pos_table(v.float().numpy(), src, dst_window))
+        out["vision_encoder." + k] = v
+    return out, sorted(unused)
+
+
+def convert_clip_vit_checkpoint(sd: Mapping, *, depth: int
+                                ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """An OpenAI CLIP vision tower (HF names, raw ``vision_model.`` or
+    stripped) -> (the CLIP tower's state under ``vision_encoder.``, unused
+    keys). ``depth`` is the model's: a checkpoint of 2 x depth layers loads
+    every other layer from 1 (the reference's {1: 0, 3: 1, ...})."""
+    norm = {}
+    for k, v in _tensors(sd).items():
+        if k.startswith("vision_model."):
+            k = k[len("vision_model."):]
+        if k.startswith("embeddings."):
+            k = k[len("embeddings."):]
+        k = k.replace("patch_embedding.weight", "patch_embed.weight")
+        k = k.replace("position_embedding.weight", "pos_embed.weight")
+        k = k.replace("pre_layernorm.", "pre_layrnorm.")
+        if k != "position_ids":
+            norm[k] = v
+    n_src = 1 + max((int(m.group(1)) for k in norm
+                     if (m := re.match(r"encoder\.layers\.(\d+)\.", k))), default=-1)
+    if n_src in (0, depth):
+        src_of = {i: i for i in range(depth)}
+    elif n_src == 2 * depth:
+        src_of = {2 * i + 1: i for i in range(depth)}
+    else:
+        raise ValueError(f"CLIP layer-count mismatch: checkpoint has {n_src}, model wants "
+                         f"{depth} (only N -> N and 2N -> N every-other init are defined)")
+    out, unused = {}, []
+    for k, v in norm.items():
+        m = re.match(r"encoder\.layers\.(\d+)\.(.*)", k)
+        if m:
+            i = int(m.group(1))
+            if i not in src_of:
+                unused.append(k)
+                continue
+            k = f"encoder.layers.{src_of[i]}.{m.group(2)}"
+        elif k == "class_embedding":
+            v = v.reshape(-1)
+        out["vision_encoder." + k] = v
+    return out, sorted(unused)
+
+
+def convert_swin_checkpoint(sd: Mapping, *, depths: tuple, dst_window: Optional[int] = None
+                            ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """A timm Swin file (``layers.{s}.blocks.{b}...``) -> (the Swin tower's
+    state under ``vision_encoder.``, unused keys), each block's
+    ``relative_position_bias_table`` resized to ``dst_window``
+    (:func:`resize_swin_rel_pos_table`); the static index, shift masks and
+    classifier head are dropped."""
+    out, unused = {}, []
+    for k, v in _tensors(sd).items():
+        if "attn_mask" in k or "relative_position_index" in k or k.startswith("head."):
+            continue
+        m = re.match(r"layers\.(\d+)\.blocks\.(\d+)\.", k)
+        if m and (int(m.group(1)) >= len(depths) or int(m.group(2)) >= depths[int(m.group(1))]):
+            unused.append(k)
+            continue
+        if k.endswith("relative_position_bias_table") and dst_window is not None:
+            v = torch.from_numpy(resize_swin_rel_pos_table(v.float().numpy(), dst_window))
+        out["vision_encoder." + k] = v
+    return out, sorted(unused)
+
+
+def _expand_text_layers(sd: Dict[str, torch.Tensor], prefix: str, from_layers: int,
+                        to_layers: int) -> Dict[str, torch.Tensor]:
+    """12 -> N layers: the upper ``N - 12`` copied into the new slots
+    (layers 6-11 -> 12-17 for 18); or 2N -> N, every other layer from 1."""
+    pat = re.compile(re.escape(prefix) + r"(\d+)\.(.*)")
+    out = {k: v for k, v in sd.items() if not pat.match(k)}
+    layers = {}
+    for k, v in sd.items():
+        if (m := pat.match(k)):
+            layers.setdefault(int(m.group(1)), {})[m.group(2)] = v
+    if to_layers >= from_layers:
+        src_of = {i: i for i in range(from_layers)}
+        src_of.update({from_layers + j: from_layers - (to_layers - from_layers) + j
+                       for j in range(to_layers - from_layers)})
+    elif from_layers == 2 * to_layers:
+        src_of = {j: 2 * j + 1 for j in range(to_layers)}
+    else:
+        raise ValueError(f"text layers {from_layers} -> {to_layers}: only expansion and "
+                         f"every-other subsampling are defined")
+    for dst, src in src_of.items():
+        for rest, v in layers[src].items():
+            out[f"{prefix}{dst}.{rest}"] = v.clone() if dst != src else v
+    return out
+
+
+def convert_hf_bert_checkpoint(sd: Mapping, *, to_layers: Optional[int] = None,
+                               fusion_layer: int = 12
+                               ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """A raw HF BERT file (``bert.*`` / ``cls.*``, or ``embeddings.*`` /
+    ``encoder.*``) -> (the text encoder's state under ``text_encoder.``,
+    unused keys), its layers expanded to ``to_layers``; the cross-attention
+    stays fresh. RoBERTa / XLM-R files come with ROADMAP item A8."""
+    if any(k.startswith(("roberta.", "lm_head.")) for k in sd):
+        raise NotImplementedError("a RoBERTa / XLM-R text checkpoint comes with ROADMAP "
+                                  "queue item A8")
+    out, unused = {}, []
+    for k, v in _tensors(sd).items():
+        if k.startswith(("bert.", "cls.")):
+            out["text_encoder." + k] = v
+        elif k.startswith(("embeddings.", "encoder.")):
+            out["text_encoder.bert." + k] = v
+        else:
+            unused.append(k)
+    prefix = "text_encoder.bert.encoder.layer."
+    from_layers = 1 + max((int(m.group(1)) for k in out
+                           if (m := re.match(re.escape(prefix) + r"(\d+)\.", k))),
+                          default=-1)
+    if to_layers is not None and from_layers > 0:
+        out = _expand_text_layers(out, prefix, from_layers, to_layers)
+    return out, sorted(unused)
+
+
+def _is_clip(keys) -> bool:
+    return any(k.startswith(("vision_model.", "encoder.layers.")) or
+               k.endswith("class_embedding") for k in keys)
+
+
+def _is_swin(keys) -> bool:
+    return any(re.match(r"layers\.\d+\.blocks\.", k) for k in keys)
+
+
+def _convert_vision_by_flavour(sd: Dict[str, torch.Tensor], vision_cfg
+                               ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+    """A whole X2-VLM file: its ``vision_encoder.*`` keys through the
+    converter of their tower's flavour (CLIP: the layer map; Swin: the
+    window resize); BEiT-2 keys as they are."""
+    vis = {k[len("vision_encoder."):]: v for k, v in sd.items()
+           if k.startswith("vision_encoder.")}
+    rest = {k: v for k, v in sd.items() if not k.startswith("vision_encoder.")}
+    if _is_clip(vis):
+        n_src = 1 + max((int(m.group(1)) for k in vis
+                         if (m := re.match(r"encoder\.layers\.(\d+)\.", k))), default=-1)
+        conv, unused = convert_clip_vit_checkpoint(
+            vis, depth=getattr(vision_cfg, "depth", None) or n_src)
+    elif _is_swin(vis):
+        stage = collections.Counter()
+        for k in vis:
+            if (m := re.match(r"layers\.(\d+)\.blocks\.(\d+)\.", k)):
+                stage[int(m.group(1))] = max(stage[int(m.group(1))], int(m.group(2)) + 1)
+        conv, unused = convert_swin_checkpoint(
+            vis, depths=tuple(stage[s] for s in sorted(stage)),
+            dst_window=getattr(vision_cfg, "window_size", None))
+    else:
+        return sd, []
+    return dict(rest, **conv), ["vision_encoder." + k for k in unused]
+
+
+def convert_checkpoint_auto(sd: Mapping, *, vision_cfg=None, text_layers: Optional[int] = None,
+                            text_fusion_layer: int = 12
+                            ) -> Tuple[Dict[str, torch.Tensor], List[str], str]:
+    """A state dict's flavour sniffed and converted to the port's reference
+    names -> (state, unused keys, kind): ``"xvlm"`` (a whole X2-VLM file:
+    ``vision_encoder.*`` / ``text_encoder.*``, its vision keys by their own
+    flavour), ``"clip"`` (HF CLIP vision tower), ``"swin"`` (timm Swin),
+    ``"beit2"`` (raw BEiT-2) or ``"bert"`` (HF BERT)."""
+    sd = _tensors(sd)
+    keys = list(sd)
+    window = getattr(vision_cfg, "window", None)
+    if any(k.startswith(("vision_encoder.", "text_encoder.")) for k in keys):
+        state, unused = _convert_vision_by_flavour(sd, vision_cfg)
+        return state, unused, "xvlm"
+    if _is_clip(keys):
+        return (*convert_clip_vit_checkpoint(sd, depth=getattr(vision_cfg, "depth", 12)),
+                "clip")
+    if _is_swin(keys):
+        return (*convert_swin_checkpoint(
+            sd, depths=getattr(vision_cfg, "depths", (2, 2, 18, 2)),
+            dst_window=getattr(vision_cfg, "window_size", None)), "swin")
+    if any(re.match(r"blocks\.\d+\.", k) for k in keys) or \
+            "rel_pos_bias.relative_position_bias_table" in sd:
+        return (*convert_beit2_checkpoint(sd, depth=getattr(vision_cfg, "depth", 12),
+                                          dst_window=window[0] if window else None), "beit2")
+    if any(k.startswith(("bert.", "roberta.", "encoder.layer.", "embeddings.word_embeddings"))
+           for k in keys):
+        return (*convert_hf_bert_checkpoint(sd, to_layers=text_layers,
+                                            fusion_layer=text_fusion_layer), "bert")
+    raise ValueError("unrecognized checkpoint flavour; expected an X2-VLM .th, a raw CLIP / "
+                     "Swin / BEiT-2 vision tower, or an HF BERT state dict (first keys: "
+                     f"{sorted(sd)[:5]})")
+
+
+def load_converted(model: nn.Module, sd: Mapping[str, torch.Tensor]
+                   ) -> Tuple[List[str], List[str]]:
+    """Load a reference-named state dict into ``model``'s composition core
+    (``strict=False``), each BEiT-2 relative-position table interpolated to
+    the model's window when its grid differs. Returns (missing, unexpected)
+    as :func:`load_reference_checkpoint`; raises on any other shape
+    mismatch."""
     core = _core(model)
     own = core.state_dict()
     load, unexpected = {}, []
@@ -126,7 +399,8 @@ def load_reference_checkpoint(model: nn.Module, path_or_state) -> Tuple[List[str
         if k not in own:
             unexpected.append(k)
             continue
-        if k.endswith("relative_position_bias_table") and v.shape != own[k].shape:
+        if re.match(r"vision_encoder\.blocks\.\d+\.attn\.relative_position_bias_table$", k) \
+                and v.shape != own[k].shape:
             src = int(round((np.sqrt(v.shape[0] - 3) + 1) / 2))
             dst = int(round((np.sqrt(own[k].shape[0] - 3) + 1) / 2))
             v = torch.from_numpy(interp_rel_pos_table(v.float().numpy(), src, dst))
@@ -138,6 +412,23 @@ def load_reference_checkpoint(model: nn.Module, path_or_state) -> Tuple[List[str
     names = {n for n, _ in core.named_parameters()}
     missing = sorted(n for n in names if n not in load)
     return missing, sorted(unexpected)
+
+
+def load_reference_checkpoint(model: nn.Module, path_or_state) -> Tuple[List[str], List[str]]:
+    """Load a checkpoint (a path or its state dict) into ``model``: a whole
+    X2-VLM ``.th`` or a published backbone, by its flavour
+    (:func:`convert_checkpoint_auto`). Returns (missing, unexpected): the
+    core's parameter names the file did not fill (left as initialised),
+    and the file's keys the model has no place for. Raises on a shape
+    mismatch the window interpolation does not explain."""
+    sd = (load_torch_checkpoint(path_or_state) if isinstance(path_or_state, str)
+          else dict(path_or_state))
+    cfg = _core(model).config
+    state, unused, _ = convert_checkpoint_auto(
+        sd, vision_cfg=cfg.vision, text_layers=cfg.text.num_layers,
+        text_fusion_layer=cfg.text.fusion_layer)
+    missing, unexpected = load_converted(model, state)
+    return missing, sorted(unexpected + unused)
 
 
 def import_report(model: nn.Module, missing: List[str], unexpected: List[str],

@@ -16,8 +16,10 @@ chain computes it, in this order:
 
 The decay mask follows the JAX names leaf for leaf: no decay on biases,
 LayerNorm scales, LayerScale gammas, ``temp``, ``cls_token``, relative
-position tables and anything of rank <= 1; BERT's ``position_embeddings``
-IS decayed (its JAX leaf is ``embedding``).
+position tables, the vision towers' position tables (ViT's ``pos_embed``,
+CLIP's ``pos_embed.weight``: the JAX leaf of both is ``pos_embed``) and
+anything of rank <= 1; BERT's ``position_embeddings`` IS decayed (its JAX
+leaf is ``embedding``).
 """
 
 from __future__ import annotations
@@ -51,9 +53,9 @@ def lr_schedule(base_lr: float, total_steps: int, warmup_steps: float = 0,
 def is_no_decay(name: str, param: torch.Tensor) -> bool:
     """The JAX package's no-decay rule, by the port's (reference) names."""
     last = name.rsplit(".", 1)[-1]
-    if last in ("temp", "cls_token", "gamma_1", "gamma_2"):
+    if last in ("temp", "cls_token", "gamma_1", "gamma_2", "pos_embed"):
         return True
-    if "relative_position_bias_table" in name or "pos_embed" in last:
+    if "relative_position_bias_table" in name or name.endswith(".pos_embed.weight"):
         return True
     return param.dim() <= 1
 
