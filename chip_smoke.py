@@ -216,7 +216,32 @@ Phases (any failure exits non-zero and prints no result line):
    ``python -m x2vlm_tpu_torch.export_serving`` and served by
    ``RetrievalServer.from_npz`` with the tower from the bundle's manifest
    (features equal to the trained model's), and its requests at B=128
-   timed with their launches read.
+   timed with their launches read;
+13. the video path at 224 px (X2VLM-base, BEiT-2 over batch x frames, the
+   frame positions added, the mean over frames): (a) the launcher's
+   ``--task pretrain`` on ``configs/pretrain/x2vlm_base_1b_stage2_video
+   .yaml`` from phase 7's ``.th`` (its frame positions fresh), the image
+   stream cut to 32 on phase 7's lines, the region block as shipped, the
+   video block as shipped (40 videos x 3 frames = 120 frames a call) on 64
+   lines of 8 base64 PNG frames written here (a quarter of them
+   clip-of-clips lines); 2 steps, then ``--resume`` to step 3, the state
+   and the data cursors (the video cursor among them) restored bit for bit,
+   each video call's launches read (12 of each flash kernel at 120 frames;
+   tiny 80 x 40 x 40 x12, 160 x 40 x 40 x6, 160 x 40 x 200 x6), the final
+   weights exported as ``x2vlm_phase13.th``; (c) the stage-2 weights on 2
+   videos, card bf16 against CPU fp32 with the negatives injected (ITC /
+   ITM / MLM, gradient cosines, each 40 x 200 fusion call within half the
+   bf16 rule); (b) ``--task video_qa`` on ``configs/finetune/
+   vqa_msrvtt_base.yaml`` at its own sizes (8 videos x 5 frames a step, 16
+   videos an eval call) from that ``.th`` (3 frame positions into 5: the
+   first three loaded, two fresh; ``cls_head`` fresh over a 1,500-answer
+   list), 2 epochs of 2 steps and an eval of 32 videos, each step (12 of
+   each flash kernel at 40 frames, tiny 18 at 8 x 40 x 40 and 6 at 8 x 40 x
+   200) and eval call (12 flash at 80 frames, tiny 18 + 6 at 16 rows)
+   read, no plain attention, ``--resume`` from step 2 restoring the state
+   and the batches bit for bit, and (c) the fine-tuned weights on 2 videos,
+   card bf16 against CPU fp32 (``loss_cls``, logits, gradient cosines, each
+   40 x 200 call). Train states go to ``/dev/shm``.
 
 The 40 x 584 shapes of phases 8 and 9 (the fine-tune's 96-row ITM pass
 with dropout, the 1024- and 512-row rerank, grounding's 20-row bbox pass
@@ -234,9 +259,13 @@ training operands, 4096 x 10 x 40 and 32 x 1 x 40 serving), and phase
 5 and 80 x 2 x 584 serving; and phase 12's: K1-K3 without a bias at S=197
 (the CLIP step's B=32, its eval's B=64, the requests' B=128), K5 / K6 at
 96 x 40 x 200 and 96 x 40 x 56 with training operands, K5 at 1024 and 512
-x 40 x 200 / 56 and 128 x 40 x 56 serving.
+x 40 x 200 / 56 and 128 x 40 x 56 serving; and phase 13's: K1-K4 at S=197
+with B=40 (the video QA step) and B=120 (the video stream), K1 at B=80
+(its eval call), K5 / K6 at 8 x 40 x 200, 80 x 40 x 40, 160 x 40 x 40 and
+160 x 40 x 200 with training operands, K5 at 16 x 40 x 40 and 16 x 40 x 200
+serving.
 
-Every attention launch of phases 3 and 5-12 is counted by kernel, shape and
+Every attention launch of phases 3 and 5-13 is counted by kernel, shape and
 operands (serving: no multiplier, no probabilities; training; the flash
 kernels' with or without a bias) and must fall
 on a shape phase 2 checked and timed (``FLASH_MAIN_SHAPES``,
@@ -253,7 +282,8 @@ and ``DIR/chip_smoke_region_profile.txt`` (and phase 8's two, and phase
 9's ``chip_smoke_{grounding,nlvr}_{step,eval}_profile.txt``, phase
 10's ``chip_smoke_vqa_{step,eval}_profile.txt``, phase 11's
 ``chip_smoke_captioning_{step,eval}_profile.txt`` and phase 12's
-``chip_smoke_{clip,swin}_{step,eval}_profile.txt``), each with a
+``chip_smoke_{clip,swin}_{step,eval}_profile.txt`` and phase 13's
+``chip_smoke_video_{pretrain,step,eval}_profile.txt``), each with a
 last line of the port kernels' (attention and K7) device time and
 launches.
 """
@@ -357,6 +387,11 @@ VQA_RANK_ROWS = VQA_EVAL_BATCH * K_TEST
 # SCST row holds the prompt and a [MASK] before each of max_length + 1 targets
 CAP_BATCH, CAP_TOKENS, CAP_EVAL_BATCH, CAP_BEAMS, CAP_MAX_LEN = 16, 25, 16, 3, 20
 CAP_PROMPT, SCST_SAMPLES = 4, 5
+# phase 13's video cells at 224 px: vqa_msrvtt_base.yaml's step (8 videos x 5
+# frames) and eval call (16 videos x 5), and x2vlm_base_1b_stage2_video.yaml's
+# video stream (40 videos x 3 frames)
+QA_VIDEOS, QA_FRAMES, QA_EVAL_VIDEOS = 8, 5, 16
+STREAM_VIDEOS, STREAM_FRAMES = 40, 3
 SCST_ROWS, SCST_LEN = CAP_BATCH * SCST_SAMPLES, CAP_PROMPT + 2 * (CAP_MAX_LEN + 1)
 TINY_REPLACES = {"tiny_attention_fwd": "x2vlm_tpu/ops/tiny_attention.py:88",
                  "tiny_attention_bwd": "x2vlm_tpu/ops/tiny_attention.py:135"}
@@ -489,7 +524,10 @@ FLASH_MAIN_SHAPES = ((BATCH, N_IMG, False, True), (TRAIN_BATCH, N_IMG, True, Tru
                      (CAP_BATCH, N_IMG_384, True, True), (SCST_ROWS, N_IMG_384, True, True),
                      (VQA_BATCH, N_IMG_768, True, True), (VQA_EVAL_BATCH, N_IMG_768, False, True),
                      (TRAIN_BATCH, N_IMG, True, False), (2 * FT_EVAL_BATCH, N_IMG, False, False),
-                     (BATCH, N_IMG, False, False))
+                     (BATCH, N_IMG, False, False),
+                     (QA_VIDEOS * QA_FRAMES, N_IMG, True, True),
+                     (STREAM_VIDEOS * STREAM_FRAMES, N_IMG, True, True),
+                     (QA_EVAL_VIDEOS * QA_FRAMES, N_IMG, False, True))
 
 
 def check_flash(gen, dev):
@@ -748,7 +786,15 @@ TINY_MAIN_SHAPES = (
     ("Swin ITM rerank fusion cross-attention", RERANK_BATCH, TEXT_LEN, 56, False, "pad"),
     ("Swin ITM rerank fusion cross-attention, texts to images", RERANK_BATCH // 2, TEXT_LEN,
      56, False, "pad"),
-    ("Swin request fusion cross-attention", BATCH, TEXT_LEN, 56, False, "pad"))
+    ("Swin request fusion cross-attention", BATCH, TEXT_LEN, 56, False, "pad"),
+    ("video QA step fusion cross-attention", QA_VIDEOS, TEXT_LEN, 200, True, "pad"),
+    ("video QA eval text / fusion self-attention", QA_EVAL_VIDEOS, TEXT_LEN, TEXT_LEN, False,
+     "pad"),
+    ("video QA eval fusion cross-attention", QA_EVAL_VIDEOS, TEXT_LEN, 200, False, "pad"),
+    ("video stream text self-attention, clean and masked rows", 2 * STREAM_VIDEOS, TEXT_LEN,
+     TEXT_LEN, True, "pad"),
+    ("video stream fusion self-attention", 4 * STREAM_VIDEOS, TEXT_LEN, TEXT_LEN, True, "pad"),
+    ("video stream fusion cross-attention", 4 * STREAM_VIDEOS, TEXT_LEN, 200, True, "pad"))
 
 
 def check_tiny(gen, dev):
@@ -2140,7 +2186,7 @@ LEDGER_PARTS = ("tiny_fwd", "tiny_bwd", "flash_fwd_shapes", "flash_bwd_shapes",
 # the main paths, as the kernels line's ``launches_by_path`` names them
 PATHS = ("serving", "train_step", "int8_serving", "pretrain_launcher", "retrieval_launcher",
          "finetune_launcher", "vqa_launcher", "caption_launcher", "clip_launcher",
-         "swin_launcher")
+         "swin_launcher", "video_launcher")
 
 
 def ledger_add(ledger, path: str, operands: str, c: dict) -> None:
@@ -2310,7 +2356,9 @@ class StreamTimer:
     def _timed(self, stream, fn):
         def call(*a):
             record = {}
-            last = self.profile_call == (stream, len(self.calls[stream]))
+            # the video stream shares the image stream's grad function
+            name = "video" if stream == "image" and a[0]["image"].dim() == 5 else stream
+            last = self.profile_call == (name, len(self.calls[name]))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             before = launch_counts()
@@ -2326,7 +2374,7 @@ class StreamTimer:
             record.update(ms=start.elapsed_time(end), wall_ms=(time.perf_counter() - t) * 1e3,
                           peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                           launches=counts_delta(launch_counts(), before))
-            self.calls[stream].append(record)
+            self.calls[name].append(record)
             if last:
                 args, smi, fname = self.profile_to
                 write_profile(args, smi, prof, fname, 40)
@@ -2404,7 +2452,9 @@ def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = "")
     cfg_path = os.path.join(root, "pretrain.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
-    out = os.path.join(root, "out_pretrain")
+    # the train states (~3.4 GB, three saves) go to RAM: the call's disk-write cap
+    work = work_dir(root, 12 * 2**30)
+    out = os.path.join(work, "out_pretrain")
     argv = ["--task", "pretrain", "--config", cfg_path, "--output_dir", out,
             "--seed", str(seed), "--device", dev.type]
     log(f"phase 7 data and config: {time.perf_counter() - t0:.1f} s")
@@ -2490,6 +2540,8 @@ def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = "")
     final = torch.load(state_path, map_location="cpu", weights_only=False)
     th_path = os.path.join(root, "x2vlm_phase7.th")
     torch.save({"model": {k[len("base."):]: v for k, v in final["params"].items()}}, th_path)
+    if work != root:
+        shutil.rmtree(work, ignore_errors=True)
     log(f"phase 7 seconds: {time.perf_counter() - t0:.1f}")
     return th_path, tok_dir, words, counts1
 
@@ -4110,8 +4162,9 @@ def tower_hold(tower: str, state: dict, mcfg, batch: dict, dev):
 def work_dir(root: str, need_bytes: int) -> str:
     """A directory in RAM (``/dev/shm``) with room for ``need_bytes``, else
     ``root``: the card's machine caps what one call writes to its disk at
-    45 GiB, and phases 7-11 write most of that (a train state of X2VLM-base
-    is ~3.4 GB), so phase 12's train states and bundles go to RAM."""
+    45 GiB, and phases 8-11 write most of that (a train state of X2VLM-base
+    is ~3.4 GB), so phase 7's, 12's and 13's train states (and phase 13's
+    data) go to RAM."""
     shm = "/dev/shm"
     free = shutil.disk_usage(shm).free if os.path.isdir(shm) else 0
     log(f"{shm}: {free / 2**30:.1f} GiB free")
@@ -4362,6 +4415,605 @@ def tower_launcher_phase(args, root, tok_dir, image_root, test_file, requests, d
     return out
 
 
+# ---- phase 13: the video path (stage-2 video-text pretraining, video QA) ----
+
+STAGE2_CONFIG = "configs/pretrain/x2vlm_base_1b_stage2_video.yaml"
+VIDEO_QA_CONFIG = "configs/finetune/vqa_msrvtt_base.yaml"
+N_VIDEO_LINES, N_VIDEO_FRAMES = 64, 8  # 13a: video lines, frames a video (PNG, 224 px)
+VIDEO_STEPS, VIDEO_RESUME_STEPS = 2, 3  # 13a: 2 steps, then --resume to step 3
+N_QA_ANSWERS = 1500                  # 13b: the answer list
+QA_EPOCHS = 2                        # 13b: 2 steps an epoch, a save after step 2
+N_QA_TRAIN = 2 * QA_VIDEOS           # train questions: 2 steps an epoch
+N_QA_EVAL = 2 * QA_EVAL_VIDEOS       # test videos: 2 eval calls
+N_QA_STEPS = QA_EPOCHS * N_QA_TRAIN // QA_VIDEOS
+QA_RESUME_STEP = N_QA_TRAIN // QA_VIDEOS
+VISION_WIDTH = 768                   # BEiT-2-base: the frame positions' width
+
+
+def write_video_corpus(path: str, rng: np.random.Generator, words) -> None:
+    """``N_VIDEO_LINES`` stage-2 video lines (reference FrameTextDataset):
+    ``frames`` a list of ``N_VIDEO_FRAMES`` base64 PNGs of 224 px and a
+    caption (a list of two for some); every fourth line a clip-of-clips
+    (clips of 2 to 3 frames, a caption each, one of them "[Music]", which
+    the stream never picks)."""
+    frame = lambda: base64.b64encode(random_png(rng, 224)).decode()
+    with open(path, "w") as f:
+        for i in range(N_VIDEO_LINES):
+            if i % 4 == 3:
+                clips = [[frame() for _ in range(n)] for n in (3, 3, 2)]
+                caps = [caption(rng, words, 4, 12) for _ in clips]
+                caps[int(rng.integers(0, 3))] = "[Music]"
+                line = {"frames": clips, "caption": caps}
+            else:
+                cap = caption(rng, words)
+                line = {"frames": [frame() for _ in range(N_VIDEO_FRAMES)],
+                        "caption": [cap, caption(rng, words)] if i % 3 == 0 else cap}
+            f.write(json.dumps(line) + "\n")
+
+
+def video_stream_launches() -> dict:
+    """The tiny launches of one video-stream step (forward and backward
+    alike): the text pass over the 40 clean and 40 masked rows, the ITM +
+    MLM fusion pass over 4 x 40 rows, its self- and cross-attentions."""
+    V = STREAM_VIDEOS
+    return {(2 * V, TEXT_LEN, TEXT_LEN): 12, (4 * V, TEXT_LEN, TEXT_LEN): 6,
+            (4 * V, TEXT_LEN, 200): 6}
+
+
+def video_pretrain_phase(args, root: str, th_path: str, tok_dir: str, words, work: str, dev,
+                         smi: str = ""):
+    """13a: ``x2vlm_tpu_torch.run --task pretrain`` on the shipped stage-2
+    video config from phase 7's ``.th`` (its frame positions fresh): the
+    image stream cut to batch 32 on phase 7's lines, the region block as
+    shipped on phase 7's region lines, the video block as shipped (40
+    videos x 3 frames) on ``N_VIDEO_LINES`` lines written here; 2 steps,
+    then ``--resume`` to step 3, whose restored state and data cursors (the
+    video cursor among them) must equal the saved ones bit for bit. Each
+    stream's calls timed and the video stream's launches read per call.
+    Returns the path of the final weights exported as a reference-named
+    ``.th``, those weights, the run's ``XVLMConfig`` and the launches of the
+    first run."""
+    from x2vlm_tpu_torch import run as run_mod
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 13)
+    video_file = os.path.join(work, "videos.jsonl")
+    write_video_corpus(video_file, rng, words)
+    shipped = shipped_config(STAGE2_CONFIG)
+    cfg = dict(shipped, train_file=[os.path.join(root, "images.jsonl")],
+               train_file_regions=[os.path.join(root, "regions.jsonl")],
+               train_file_videos=[video_file], text_encoder=tok_dir,
+               images=dict(shipped["images"], batch_size=TRAIN_BATCH),
+               train_dataset_size=TRAIN_BATCH,          # 1 step an epoch
+               ckpt_frequent=1000, ckpt_frequent_step=1000)   # a save after the last step
+    sizes = (cfg["videos"]["batch_size"], cfg["frame_len"], cfg["regions"]["batch_size"],
+             cfg["regions"]["max_images"], cfg["video_encoding"], cfg["add_frame_pos"])
+    if sizes != (STREAM_VIDEOS, STREAM_FRAMES, REGION_ROWS, REGION_IMAGES, "avgpool", True):
+        fail(f"video pretrain launcher: the shipped config's sizes {sizes} changed")
+    cfg_path = os.path.join(work, "stage2.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    out = os.path.join(work, "out_video_pretrain")
+    argv = ["--task", "pretrain", "--config", cfg_path, "--output_dir", out, "--checkpoint",
+            th_path, "--seed", str(args.seed), "--device", dev.type]
+    log(f"phase 13a data and config: {time.perf_counter() - t0:.1f} s")
+
+    imported = {}
+    orig_load = ckpt_lib.load_reference_checkpoint
+
+    def load(model, path):
+        imported["missing"], imported["unexpected"] = orig_load(model, path)
+        return imported["missing"], imported["unexpected"]
+
+    t1 = time.perf_counter()
+    reset_counts()
+    ckpt_lib.load_reference_checkpoint = load
+    try:
+        with StreamTimer(("video", VIDEO_STEPS - 1) if args.profile else None,
+                         (args, smi, "chip_smoke_video_pretrain_profile.txt")) as timer:
+            record = run_mod.main(argv + ["--epoch", str(VIDEO_STEPS)])
+    finally:
+        ckpt_lib.load_reference_checkpoint = orig_load
+    torch.cuda.synchronize()
+    counts1 = launch_counts()
+    log(f"phase 13a run 1 ({VIDEO_STEPS} steps): {time.perf_counter() - t1:.1f} s; "
+        f"{json.dumps(record)}")
+    if imported.get("missing") != ["absolute_frame_pos_embed"]:
+        fail(f"video pretrain launcher import of {th_path}: missing {imported.get('missing')},"
+             f" expected only the fresh frame positions")
+    losses = [f"{s}_loss_{k}" for s in ("image", "video") for k in ("itc", "itm", "mlm")] + \
+        ["region_loss_bbox", "region_loss_giou"]
+    if not all(isinstance(record.get(k), float) and math.isfinite(record[k]) for k in losses) \
+            or record.get("broken", -1) != 0:
+        fail(f"video pretrain launcher: losses {[record.get(k) for k in losses]}, broken "
+             f"{record.get('broken')}")
+    n = VIDEO_STEPS
+    want_tiny = collections.Counter({(2 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 12 * n,
+                                     (4 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 6 * n,
+                                     (4 * TRAIN_BATCH, TEXT_LEN, 200): 6 * n})
+    for part in (region_step_launches(6), video_stream_launches()):
+        want_tiny.update({k: v * n for k, v in part.items()})
+    check_launcher_counts("video pretrain launcher", counts1, 36 * n, 36 * n,
+                          {"tiny_fwd": dict(want_tiny), "tiny_bwd": dict(want_tiny)})
+    frames = STREAM_VIDEOS * STREAM_FRAMES
+    video_calls = timer.calls["video"]
+    if len(video_calls) != n:
+        fail(f"video pretrain launcher: {len(video_calls)} video-stream calls, expected {n}")
+    for i, c in enumerate(video_calls):
+        tag = f"video pretrain launcher video step {i}"
+        check_launcher_counts(tag, c["launches"], 12, 12, {"tiny_fwd": video_stream_launches(),
+                                                           "tiny_bwd": video_stream_launches()})
+        if dict(c["launches"]["flash_fwd_shapes"]) != {(frames, N_IMG, N_IMG): 12}:
+            fail(f"{tag}: flash shapes {dict(c['launches']['flash_fwd_shapes'])}, expected 12 "
+                 f"at {frames} frames")
+    log(f"phase 13a by stream (CUDA-event ms and wall ms of each call, median; peak GiB; "
+        f"{smi}): {json.dumps(timer.summary())}")
+    video_ms = [[round(c["ms"], 3), round(c["wall_ms"], 3), round(c["peak_gib"], 2)]
+                for c in video_calls]
+
+    # --resume to step 3: the saved state and data cursors restored bit for bit
+    state_path = os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE)
+    saved = torch.load(state_path, map_location="cpu", weights_only=False)
+    seen = {}
+    orig = run_mod.maybe_resume
+
+    def resumed(a, model, optimizer):
+        step, data_state = orig(a, model, optimizer)
+        params = dict(model.named_parameters())
+        seen.update(
+            step=step, data_state=data_state,
+            params=all(torch.equal(params[k].detach().cpu(), v)
+                       for k, v in saved["params"].items()),
+            mu=all(torch.equal(m.cpu(), saved["mu"][k])
+                   for k, m in zip(optimizer.names, optimizer.mu)),
+            nu=all(torch.equal(v.cpu(), saved["nu"][k])
+                   for k, v in zip(optimizer.names, optimizer.nu)),
+            count=optimizer.count == saved["count"])
+        return step, data_state
+
+    t2 = time.perf_counter()
+    run_mod.maybe_resume = resumed
+    try:
+        with StreamTimer() as timer2:
+            record2 = run_mod.main(argv + ["--resume", "--epoch", str(VIDEO_RESUME_STEPS)])
+    finally:
+        run_mod.maybe_resume = orig
+    torch.cuda.synchronize()
+    video_ms += [[round(c["ms"], 3), round(c["wall_ms"], 3), round(c["peak_gib"], 2)]
+                 for c in timer2.calls["video"]]
+    log(f"phase 13a video-stream calls ({STREAM_VIDEOS} videos x {STREAM_FRAMES} frames; CUDA "
+        f"events ms, wall ms, peak GiB; steps 1-{VIDEO_RESUME_STEPS}"
+        f"{', step 2 profiled' if args.profile else ''}): {json.dumps(video_ms)}; {smi}")
+    log(f"phase 13a run 2 (--resume to step {VIDEO_RESUME_STEPS}): "
+        f"{time.perf_counter() - t2:.1f} s; resumed at step {seen.get('step')}, data cursors "
+        f"{seen.get('data_state')}; equal to the saved state: params {seen.get('params')}, "
+        f"mu {seen.get('mu')}, nu {seen.get('nu')}, count {seen.get('count')}; "
+        f"{json.dumps(record2)}")
+    if not (seen.get("step") == VIDEO_STEPS and seen.get("params") and seen.get("mu")
+            and seen.get("nu") and seen.get("count")
+            and seen.get("data_state") == saved["data_state"]
+            and set(saved["data_state"]) == {"image", "region", "video"}):
+        fail(f"video pretrain launcher --resume: {seen} against the saved step "
+             f"{saved['step']}")
+    if record2.get("pretrain_steps") != [VIDEO_STEPS, VIDEO_RESUME_STEPS] or \
+            record2.get("broken", -1) != 0:
+        fail(f"video pretrain launcher --resume: {record2}")
+    del saved
+
+    final = torch.load(state_path, map_location="cpu", weights_only=False)["params"]
+    th13 = os.path.join(work, "x2vlm_phase13.th")
+    torch.save({"model": {k[len("base."):]: v for k, v in final.items()}}, th13)
+    fp = final.get("base.absolute_frame_pos_embed")
+    log(f"phase 13a exported {th13}: absolute_frame_pos_embed "
+        f"{None if fp is None else list(fp.shape)}")
+    if fp is None or tuple(fp.shape) != (1, STREAM_FRAMES, 1, VISION_WIDTH):
+        fail("video pretrain launcher: the exported .th lacks the (1, 3, 1, 768) frame "
+             "positions")
+    shutil.rmtree(out, ignore_errors=True)
+    log(f"phase 13a seconds: {time.perf_counter() - t0:.1f}")
+    return th13, final, xvlm_config_from_yaml(cfg), counts1
+
+
+def video_pretrain_hold(final: dict, cfg, dev) -> tuple:
+    """The stage-2 weights on 2 videos of 3 uint8 frames, dropout off, the
+    ITM negatives injected: the card in bf16 against the port's CPU fp32
+    path: ITC, ITM and MLM within 0.05 + 2%, gradient cosines >= 0.99 (the
+    vision tower, the frame positions, a fusion layer, the ITM head), each
+    bf16 40 x 200 call of the ITM + MLM fusion pass held on the model's
+    operands to the plain version (``FUSION_CALL_RATIO``). ``cfg`` is the
+    run's ``XVLMConfig``."""
+    res = cfg.vision.image_res
+    gen = torch.Generator().manual_seed(13)
+    batch = {"image": torch.randint(0, 256, (2, STREAM_FRAMES, res, res, 3), generator=gen,
+                                    dtype=torch.uint8),
+             "text_ids": torch.randint(1000, 30000, (2, TEXT_LEN), generator=gen),
+             "text_atts": torch.ones(2, TEXT_LEN, dtype=torch.int32),
+             "masked_pos": torch.tensor([[3, 7, 9], [2, 5, 20]]),
+             "masked_ids": torch.randint(1000, 30000, (2, 3), generator=gen)}
+    batch["text_atts"][1, 25:] = 0
+    batch["text_ids"][:, 0] = 101
+    batch["text_ids"] = batch["text_ids"] * batch["text_atts"]
+    masked = batch["text_ids"].clone()
+    masked[torch.arange(2)[:, None], batch["masked_pos"]] = 103
+    batch["text_ids_masked"] = masked
+    neg = (torch.tensor([1, 0]), torch.tensor([1, 0]))
+    f = f"base.text_encoder.bert.encoder.layer.{cfg.text.fusion_layer}"
+    names = ("base.vision_encoder.blocks.0.attn.qkv.weight",
+             "base.vision_encoder.blocks.0.attn.relative_position_bias_table",
+             "base.absolute_frame_pos_embed", f"{f}.attention.self.query.weight",
+             f"{f}.crossattention.self.key.weight", "base.itm_head.0.weight")
+    fwd_ratios, bwd_ratios, losses, grads = [], [], {}, {}
+    for tag, dtype, device in (("cpu", torch.float32, torch.device("cpu")),
+                               ("card", torch.bfloat16, dev)):
+        model = XVLMForPretrain(cfg, dtype=dtype, device=device, seed=None)
+        model.load_state_dict(final)
+        b = {k: v.to(device) for k, v in batch.items()}
+        with held_tiny_calls(200, fwd_ratios), held_tiny_bwd_calls(200, bwd_ratios):
+            out = model(b, neg_idx=tuple(t.to(device) for t in neg))
+            sum(out.values()).backward()
+        losses[tag] = {k: v.item() for k, v in out.items()}
+        params = dict(model.named_parameters())
+        grads[tag] = {k: params[k].grad.detach().double().cpu().reshape(-1) for k in names}
+        del model, out, b
+    torch.cuda.empty_cache()
+    cos = {k: F.cosine_similarity(grads["card"][k], grads["cpu"][k], dim=0).item()
+           for k in names}
+    r = {"losses": losses, "cosine": cos, "fwd_ratios": fwd_ratios, "bwd_ratios": bwd_ratios}
+    faults = []
+    for kind, ratios in (("forward", fwd_ratios), ("backward", bwd_ratios)):
+        if len(ratios) != 6 or not all(x <= FUSION_CALL_RATIO for x in ratios):
+            faults.append(f"the 40 x 200 {kind} calls' errors over the bf16 rule's bound "
+                          f"{[round(x, 3) for x in ratios]}, expected 6 at most "
+                          f"{FUSION_CALL_RATIO}")
+    for k, ref in losses["cpu"].items():
+        if not abs(losses["card"][k] - ref) <= 0.05 + 0.02 * abs(ref):
+            faults.append(f"{k}: card {losses['card'][k]:.5f} vs CPU fp32 {ref:.5f}")
+    for k, c in cos.items():
+        if not c >= 0.99:
+            faults.append(f"gradient {k}: cosine to the CPU fp32 path {c:.5f} < 0.99")
+    return r, faults
+
+
+def write_video_qa_corpus(root: str, rng: np.random.Generator, words):
+    """``N_QA_EVAL`` videos as directories of ``N_VIDEO_FRAMES`` PNG frames
+    (224 px) under ``root/videos``, an answer list of ``N_QA_ANSWERS``
+    distinct answers, ``N_QA_TRAIN`` train and ``N_QA_EVAL`` test
+    questions (MSRVTT-QA lines {video, question, answer}, an answer off the
+    list now and then). Returns (video root, train, test, answer list)."""
+    video_root = os.path.join(root, "videos")
+    for v in range(N_QA_EVAL):
+        d = os.path.join(video_root, f"video{v}")
+        os.makedirs(d)
+        for j in range(N_VIDEO_FRAMES):
+            with open(os.path.join(d, f"{j:05d}.png"), "wb") as f:
+                f.write(random_png(rng, 224))
+    answers, seen = [], set()
+    while len(answers) < N_QA_ANSWERS:
+        a = caption(rng, words, 1, 3)
+        if a not in seen:
+            seen.add(a)
+            answers.append(a)
+
+    def line(v):
+        answer = answers[int(rng.integers(0, N_QA_ANSWERS))] if rng.random() < 0.9 \
+            else "an answer off the list"
+        return {"video": f"video{v}", "question": caption(rng, words, 4, 14), "answer": answer}
+
+    paths = [os.path.join(root, f"video_qa_{n}.json") for n in ("train", "test", "answers")]
+    for path, data in zip(paths, ([line(v) for v in range(N_QA_TRAIN)],
+                                  [line(v) for v in range(N_QA_EVAL)], answers)):
+        with open(path, "w") as f:
+            json.dump(data, f)
+    return (video_root, *paths)
+
+
+def video_qa_launches(train: bool) -> dict:
+    """The attention launches of one video QA step (8 videos) or eval call
+    (16 videos): 12 flash over the 5-frame batch; tiny at 40 x 40 (the 12
+    text layers and the 6 fusion self-attentions) and 40 x 200 (the 6
+    fusion cross-attentions); the backward the same; no plain attention."""
+    B = QA_VIDEOS if train else QA_EVAL_VIDEOS
+    tiny = {(B, TEXT_LEN, TEXT_LEN): 18, (B, TEXT_LEN, 200): 6}
+    return {"flash_fwd": 12, "flash_bwd": 12 if train else 0, "tiny_fwd": tiny,
+            "tiny_bwd": tiny if train else {}}
+
+
+def video_qa_hold(state: dict, mcfg, samples, dev) -> tuple:
+    """The fine-tuned video QA weights on 2 videos, dropout off, the card in
+    bf16 against the port's CPU fp32 path: ``loss_cls`` within 0.05 + 2%,
+    the logits within 0.05 + 5% of their scale, gradient cosines >= 0.99
+    (the vision tower, the frame positions, a fusion layer, ``cls_head``),
+    each bf16 40 x 200 forward and backward call held on the model's
+    operands (``FUSION_CALL_RATIO``)."""
+    from x2vlm_tpu_torch.models import XVLMForClassification
+
+    n_labels = state["cls_head.3.weight"].shape[0]
+    batch = {k: torch.from_numpy(np.stack([s[k] for s in samples])) for k in samples[0]}
+    batch["labels"] = batch["labels"].long()
+    f = f"text_encoder.bert.encoder.layer.{mcfg.text.fusion_layer}"
+    names = ("vision_encoder.blocks.0.attn.qkv.weight",
+             "vision_encoder.blocks.0.attn.relative_position_bias_table",
+             "absolute_frame_pos_embed", f"{f}.attention.self.query.weight",
+             f"{f}.crossattention.self.key.weight", "cls_head.0.weight", "cls_head.3.weight")
+    fwd_ratios, bwd_ratios, outs, losses, grads = [], [], {}, {}, {}
+    for tag, dtype, device in (("cpu", torch.float32, torch.device("cpu")),
+                               ("card", torch.bfloat16, dev)):
+        model = XVLMForClassification(mcfg, dtype=dtype, device=device, seed=None,
+                                      num_labels=n_labels)
+        model.load_state_dict(state)
+        b = {k: v.to(device) for k, v in batch.items()}
+        with torch.no_grad():
+            outs[tag] = model.predict(b).float().cpu()
+        with held_tiny_calls(200, fwd_ratios), held_tiny_bwd_calls(200, bwd_ratios):
+            out = model(b)
+            out["loss_cls"].backward()
+        losses[tag] = out["loss_cls"].item()
+        params = dict(model.named_parameters())
+        grads[tag] = {k: params[k].grad.detach().double().cpu().reshape(-1) for k in names}
+        del model, out, b
+    torch.cuda.empty_cache()
+    cos = {k: F.cosine_similarity(grads["card"][k], grads["cpu"][k], dim=0).item()
+           for k in names}
+    out_err, scale = max_err(outs["card"], outs["cpu"]), outs["cpu"].abs().max().item()
+    r = {"loss_cls": losses, "logit_err": out_err, "logit_scale": scale, "cosine": cos,
+         "fwd_ratios": fwd_ratios, "bwd_ratios": bwd_ratios}
+    faults = []
+    for kind, ratios in (("forward", fwd_ratios), ("backward", bwd_ratios)):
+        if len(ratios) != 6 or not all(x <= FUSION_CALL_RATIO for x in ratios):
+            faults.append(f"the 40 x 200 {kind} calls' errors over the bf16 rule's bound "
+                          f"{[round(x, 3) for x in ratios]}, expected 6 at most "
+                          f"{FUSION_CALL_RATIO}")
+    if not out_err <= 0.05 + 0.05 * scale:
+        faults.append(f"logits off the CPU fp32 path's by {out_err:.4f} (scale {scale:.4f})")
+    if not abs(losses["card"] - losses["cpu"]) <= 0.05 + 0.02 * abs(losses["cpu"]):
+        faults.append(f"loss_cls: card {losses['card']:.5f} vs CPU fp32 {losses['cpu']:.5f}")
+    for k, c in cos.items():
+        if not c >= 0.99:
+            faults.append(f"gradient {k}: cosine to the CPU fp32 path {c:.5f} < 0.99")
+    return r, faults
+
+
+def video_qa_phase(args, root: str, th13: str, tok_dir: str, words, work: str, dev,
+                   smi: str = "") -> dict:
+    """13b: ``x2vlm_tpu_torch.run --task video_qa`` on the shipped
+    ``vqa_msrvtt_base.yaml`` at its own sizes (8 videos x 5 frames a step,
+    16 videos an eval call), data written under ``root``, from 13a's
+    ``.th`` (its 3 frame positions into 5: the first three loaded, two
+    fresh), 2 epochs of 2 steps and the eval of 32 videos after the last:
+    each step and eval call timed and its launches read; ``--resume`` from
+    the state saved at step 2, its restored state and the batches after it
+    equal to the whole run's bit for bit; then ``video_qa_hold`` on 2
+    videos. Returns the launches split by operands."""
+    import hashlib
+
+    from x2vlm_tpu_torch import run as run_mod
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.models import XVLMForClassification
+    from x2vlm_tpu_torch.tasks import classification as cls_mod
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 14)
+    video_root, train, test, answers = write_video_qa_corpus(work, rng, words)
+    cfg = dict(shipped_config(VIDEO_QA_CONFIG), video_root=video_root, text_encoder=tok_dir,
+               train_file=[train], test_file=[test], answer_list=answers,
+               start_eval=QA_EPOCHS - 1)
+    sizes = (cfg["batch_size"], cfg["batch_size_test"], cfg["frame_len"], cfg["image_res"],
+             cfg["dataset_type"], cfg["add_frame_pos"])
+    if sizes != (QA_VIDEOS, QA_EVAL_VIDEOS, QA_FRAMES, 224, "video_qa", True):
+        fail(f"video qa launcher: the shipped config's sizes {sizes} changed")
+    cfg_path = os.path.join(work, "video_qa.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    out, out_resumed = os.path.join(work, "out_video_qa"), os.path.join(work, "out_qa_resumed")
+    log(f"phase 13b data and config: {time.perf_counter() - t0:.1f} s")
+
+    imported, steps, evals, eval_walls = {}, [], [], []
+    batches = {"whole": [], "resumed": []}
+    run_name = ["whole"]
+    orig = {"load": ckpt_lib.load_reference_checkpoint, "save": ckpt_lib.save_train_state,
+            "step": run_mod.make_train_step, "to_device": run_mod.to_device,
+            "predict": XVLMForClassification.predict,
+            "evaluate": cls_mod.evaluate_classification}
+    timed = functools.partial(timed_call, args, smi)
+    th_frames = torch.load(th13, map_location="cpu",
+                           weights_only=False)["model"]["absolute_frame_pos_embed"]
+
+    def load(model, path):
+        fresh = model.absolute_frame_pos_embed.detach().cpu().clone()
+        imported["missing"], imported["unexpected"] = orig["load"](model, path)
+        got = model.absolute_frame_pos_embed.detach().cpu()
+        imported["frames"] = [list(th_frames.shape), list(got.shape),
+                              bool(torch.equal(got[:, :STREAM_FRAMES], th_frames)),
+                              bool(torch.equal(got[:, STREAM_FRAMES:], fresh[:, STREAM_FRAMES:]))]
+        return imported["missing"], imported["unexpected"]
+
+    def save(ckpt_dir, model, optimizer, step, data_state=None):
+        path = orig["save"](ckpt_dir, model, optimizer, step, data_state)
+        if step == QA_RESUME_STEP and ckpt_dir == os.path.join(out, "ckpt"):
+            orig["save"](os.path.join(out_resumed, "ckpt"), model, optimizer, step, data_state)
+        return path
+
+    def to_device(batch, device):
+        batches[run_name[0]].append({k: hashlib.sha256(np.ascontiguousarray(v)).hexdigest()
+                                     for k, v in batch.items()})
+        return orig["to_device"](batch, device)
+
+    def make_step(model, optimizer, **kw):
+        return timed(orig["step"](model, optimizer, **kw), steps,
+                     "chip_smoke_video_step_profile.txt",
+                     lambda i: args.profile and i == N_QA_STEPS - 1)
+
+    def evaluate(*a, **kw):
+        t = time.perf_counter()
+        result = orig["evaluate"](*a, **kw)
+        eval_walls.append(time.perf_counter() - t)
+        return result
+
+    def patch(on: bool):
+        ckpt_lib.load_reference_checkpoint = load if on else orig["load"]
+        ckpt_lib.save_train_state = save if on else orig["save"]
+        run_mod.make_train_step = make_step if on else orig["step"]
+        run_mod.to_device = to_device if on else orig["to_device"]
+        cls_mod.evaluate_classification = evaluate if on else orig["evaluate"]
+        XVLMForClassification.predict = timed(
+            orig["predict"], evals, "chip_smoke_video_eval_profile.txt",
+            lambda i: bool(args.profile) and i == 0) if on else orig["predict"]
+
+    argv = ["--task", "video_qa", "--config", cfg_path, "--checkpoint", th13, "--epoch",
+            str(QA_EPOCHS), "--seed", str(args.seed), "--device", dev.type]
+    t1 = time.perf_counter()
+    reset_counts()
+    patch(True)
+    try:
+        record = run_mod.main(argv + ["--output_dir", out])
+    finally:
+        patch(False)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"phase 13b run ({len(steps)} fine-tune steps + eval): "
+        f"{time.perf_counter() - t1:.1f} s; {json.dumps(record)}")
+    log(f"phase 13b video QA step ms at 224 px, {QA_VIDEOS} videos x {QA_FRAMES} frames "
+        f"(CUDA events, wall): "
+        f"{json.dumps([[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in steps])}"
+        f"{' (the last one profiled)' if args.profile else ''}; peak device memory GiB "
+        f"{[round(r['peak_gib'], 2) for r in steps]}; eval calls ({QA_EVAL_VIDEOS} videos) ms "
+        f"(CUDA events, wall) {[[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in evals]}"
+        f"{' (the first profiled)' if args.profile else ''}, peak GiB "
+        f"{[round(r['peak_gib'], 2) for r in evals]}; eval wall seconds "
+        f"{[round(w, 3) for w in eval_walls]} ({N_QA_EVAL} videos); {smi}")
+
+    # the import: all but the fresh cls_head from 13a's .th, its 3 frame
+    # positions into the first 3 of 5; left over what the model does not carry
+    missing, unexpected = imported.get("missing"), imported.get("unexpected", [])
+    log(f"phase 13b import: missing {missing}, unexpected {len(unexpected)} "
+        f"({sorted({'.'.join(k.split('.')[:2]) for k in unexpected})}); frame positions "
+        f"(.th shape, model shape, first 3 loaded, last 2 fresh): {imported.get('frames')}")
+    fresh = sorted(f"cls_head.{i}.{w}" for i in (0, 1, 3) for w in ("weight", "bias"))
+    leftover = ("vision_proj.", "text_proj.", "itm_head.", "text_encoder.cls.", "bbox_head.")
+    if missing != fresh or not unexpected or \
+            not all(k.startswith(leftover) for k in unexpected) or \
+            imported.get("frames") != [[1, STREAM_FRAMES, 1, VISION_WIDTH],
+                                       [1, QA_FRAMES, 1, VISION_WIDTH], True, True]:
+        fail(f"video qa launcher import of {th13}: missing {missing}, unexpected {unexpected}, "
+             f"frames {imported.get('frames')}")
+    with open(answers) as f:
+        n_answers = len(json.load(f))
+    vals = [record.get(k) for k in ("eval_accuracy", "loss_cls")]
+    if not all(isinstance(v, float) and math.isfinite(v) for v in vals) or \
+            len(steps) != N_QA_STEPS or len(evals) != N_QA_EVAL // QA_EVAL_VIDEOS or \
+            record.get("eval_n") != N_QA_EVAL or n_answers != N_QA_ANSWERS:
+        fail(f"video qa launcher: {len(steps)} steps, {len(evals)} eval calls, record {record}")
+    want_step, want_eval = video_qa_launches(True), video_qa_launches(False)
+    for tag, records, want, frames in (("step", steps, want_step, QA_VIDEOS * QA_FRAMES),
+                                       ("eval call", evals, want_eval,
+                                        QA_EVAL_VIDEOS * QA_FRAMES)):
+        for i, r in enumerate(records):
+            if r["launches"] != want or r["plain"] or \
+                    dict(r["delta"]["flash_fwd_shapes"]) != {(frames, N_IMG, N_IMG): 12}:
+                fail(f"video qa launcher {tag} {i}: launches {r['launches']}, plain "
+                     f"{r['plain']}, flash shapes {dict(r['delta']['flash_fwd_shapes'])}; "
+                     f"expected {want} at {frames} frames")
+    n_eval = len(evals)
+    tiny = collections.Counter()
+    for want, k in ((want_step, N_QA_STEPS), (want_eval, n_eval)):
+        for shape, m in want["tiny_fwd"].items():
+            tiny[shape] += m * k
+    check_launcher_counts(
+        "video qa launcher", counts, 12 * (N_QA_STEPS + n_eval), 12 * N_QA_STEPS,
+        {"tiny_fwd": dict(tiny),
+         "tiny_bwd": {k: m * N_QA_STEPS for k, m in want_step["tiny_bwd"].items()}})
+
+    # --resume from the state saved at step 2
+    saved = torch.load(os.path.join(out_resumed, "ckpt", ckpt_lib.TRAIN_STATE_FILE),
+                       map_location="cpu", weights_only=False)
+    restored = {}
+    orig_restore = ckpt_lib.restore_train_state
+
+    def restore(ckpt_dir, model, optimizer):
+        result = orig_restore(ckpt_dir, model, optimizer)
+        copy = lambda t: t.detach().to("cpu", copy=True)
+        restored.update(params={n: copy(p) for n, p in model.named_parameters()},
+                        mu=dict(zip(optimizer.names, map(copy, optimizer.mu))),
+                        nu=dict(zip(optimizer.names, map(copy, optimizer.nu))),
+                        count=optimizer.count)
+        return result
+
+    t2 = time.perf_counter()
+    run_name[0] = "resumed"
+    steps_before = len(steps)
+    ckpt_lib.restore_train_state = restore
+    patch(True)
+    try:
+        run_mod.main(argv + ["--output_dir", out_resumed, "--resume"])
+    finally:
+        patch(False)
+        ckpt_lib.restore_train_state = orig_restore
+    same = bool(restored) and saved["step"] == QA_RESUME_STEP and \
+        restored["count"] == saved["count"] and all(
+            restored[part].keys() == saved[part].keys() and
+            all(torch.equal(restored[part][k], saved[part][k]) for k in saved[part])
+            for part in ("params", "mu", "nu"))
+    same_batches = batches["resumed"] == batches["whole"][QA_RESUME_STEP:]
+    log(f"phase 13b --resume from step {saved['step']}: {time.perf_counter() - t2:.1f} s; "
+        f"restored state equal to the saved one bit for bit: {same}; its "
+        f"{len(batches['resumed'])} batches equal to the whole run's steps "
+        f"{QA_RESUME_STEP + 1}-{N_QA_STEPS} bit for bit: {same_batches} "
+        f"({len(steps) - steps_before} steps)")
+    if not same or not same_batches or len(steps) - steps_before != \
+            N_QA_STEPS - QA_RESUME_STEP:
+        fail("video qa launcher --resume: the restored state or the batches after it differ "
+             "from the whole run's")
+    del saved, restored
+    steps = steps[:steps_before]
+
+    # 13c: the fine-tuned weights on 2 videos, card bf16 against CPU fp32
+    state = torch.load(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE), map_location="cpu",
+                       weights_only=False)["params"]
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(out_resumed, ignore_errors=True)
+    cfg["num_labels"] = N_QA_ANSWERS
+    train_ds, _ = create_dataset("video_qa", cfg, rng=random.Random(args.seed))
+    samples = [train_ds[0], train_ds[1]]
+    for s in samples:
+        s["labels"] = np.int32(max(int(s["labels"]), 0))   # an answer off the list: class 0
+    hold, faults = video_qa_hold(state, xvlm_config_from_yaml(cfg), samples, dev)
+    log(f"phase 13c video QA card bf16 vs CPU fp32 (2 videos x {QA_FRAMES} frames, dropout "
+        f"off): {json.dumps(hold)}")
+    for msg in faults:
+        fail(f"video qa launcher, 2 videos card vs CPU: {msg}")
+    log(f"phase 13b seconds: {time.perf_counter() - t0:.1f}")
+    return split_counts(counts, [r["delta"] for r in steps])
+
+
+def video_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, dev,
+                         smi: str = "") -> dict:
+    """Phase 13: 13a, the stage-2 stream's hold on 2 videos (13c), then 13b.
+    Every file the phase writes (corpora, configs, train states, the
+    ``.th``) goes to ``work_dir``: phases 7-12 write most of the call's
+    disk-write cap. Returns the launches of 13a's first run and of 13b, by
+    operands."""
+    work = work_dir(root, 24 * 2**30)
+    try:
+        th13, final, mcfg, pre = video_pretrain_phase(args, root, th_path, tok_dir, words,
+                                                      work, dev, smi)
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        hold, faults = video_pretrain_hold(final, mcfg, dev)
+        log(f"phase 13c video stream card bf16 vs CPU fp32 (2 videos x {STREAM_FRAMES} frames,"
+            f" negatives injected, dropout off): {json.dumps(hold)} "
+            f"({time.perf_counter() - t:.1f} s)")
+        for msg in faults:
+            fail(f"video stream, 2 videos card vs CPU: {msg}")
+        del final
+        qa = video_qa_phase(args, root, th13, tok_dir, words, work, dev, smi)
+    finally:
+        if work != root:
+            shutil.rmtree(work, ignore_errors=True)
+    return {"training": {k: collections.Counter(pre[k]) + qa["training"][k]
+                         for k in LEDGER_PARTS},
+            "serving": qa["serving"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4480,6 +5132,11 @@ def run(args, dev: torch.device) -> int:
         tower_counts = tower_launcher_phase(args, root, tok_dir, os.path.join(root, "flickr"),
                                             os.path.join(root, "flickr_test.json"), requests,
                                             dev, smi)
+        torch.cuda.empty_cache()
+        # ---- phase 13: the video path (stage-2 video pretraining, video QA) ----
+        t13 = time.perf_counter()
+        video_counts = video_launcher_phase(args, root, th_path, tok_dir, words, dev, smi)
+        log(f"phase 13 seconds: {time.perf_counter() - t13:.1f}")
     torch.cuda.empty_cache()
 
     # the attention launches of the main paths (bf16 serving requests, one
@@ -4494,7 +5151,7 @@ def run(args, dev: torch.device) -> int:
     ledger_add(ledger, "pretrain_launcher", "training", pre_counts)
     for path, split in (("retrieval_launcher", ret_counts), ("finetune_launcher", ft_counts),
                         ("vqa_launcher", vqa_counts), ("caption_launcher", cap_counts[0]),
-                        ("caption_launcher", cap_counts[1])):
+                        ("caption_launcher", cap_counts[1]), ("video_launcher", video_counts)):
         for operands, c in split.items():
             ledger_add(ledger, path, operands, c)
     for tower, r in tower_counts.items():

@@ -175,7 +175,9 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 def test_gradients_flow_through_the_autograd_wrappers_on_cpu(kernel):
     """On CPU tensors the autograd Functions run the plain forward and
     backward versions; their gradients equal autograd through the plain
-    forward version."""
+    forward version. The case runs in float64, which the plain versions
+    keep end to end, so the comparison does not hang on the order of fp32
+    sums (a thread count or an instruction set can change it)."""
     gen = torch.Generator().manual_seed(0)
     if kernel == "flash":
         from x2vlm_tpu_torch.ops.flash_attention import (
@@ -191,8 +193,8 @@ def test_gradients_flow_through_the_autograd_wrappers_on_cpu(kernel):
         shapes = [(2, 10, 64), (2, 30, 64), (2, 30, 64)]
         fused = lambda q, k, v: tiny_block_attention(q, k, v, num_heads=4)
         plain = lambda q, k, v: tiny_attention_reference(q, k, v, 4, scale=0.25)[0]
-    inputs = [torch.randn(s, generator=gen) for s in shapes]
-    g = torch.randn(shapes[0], generator=gen)
+    inputs = [torch.randn(s, generator=gen, dtype=torch.float64) for s in shapes]
+    g = torch.randn(shapes[0], generator=gen, dtype=torch.float64)
     grads = []
     for fn in (fused, plain):
         leaves = [t.clone().requires_grad_() for t in inputs]

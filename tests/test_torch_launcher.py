@@ -156,11 +156,21 @@ def test_a_reference_th_loads_through_checkpoint(corpus, tmp_path):
     assert run.load_initial_params(args, cfg, model) == []
 
 
-@pytest.mark.parametrize("task,item", [("xgqa", "A8"), ("classification", "A8"),
-                                       ("marvl", "A8"), ("xretrieval", "A8"),
-                                       ("video_qa", "A8"), ("next_qa_mc", "A8")])
+@pytest.mark.parametrize("task,item", [("xgqa", "A8c"), ("classification", "A8c"),
+                                       ("marvl", "A8c"), ("xretrieval", "A8c"),
+                                       ("xvnli", "A8c"), ("wit", "A8c")])
 def test_unported_tasks_raise_naming_their_item(corpus, task, item):
+    """The IGLUE tasks; ``classification`` of an IGLUE ``dataset_type`` (the
+    default, XVNLI)."""
     with pytest.raises(NotImplementedError, match=item):
+        _main(corpus, f"task_{task}", _model_cfg(corpus), task)
+
+
+@pytest.mark.parametrize("task", ["video_qa", "next_qa_mc", "video_retrieval"])
+def test_video_tasks_are_no_longer_refused(corpus, task):
+    """The video tasks pass the task gate; the config here has no data for
+    them, so the run stops at its first file key."""
+    with pytest.raises(KeyError):
         _main(corpus, f"task_{task}", _model_cfg(corpus), task)
 
 
@@ -188,13 +198,13 @@ def test_vqa_is_no_longer_refused(corpus):
 
 @pytest.mark.parametrize("extra,err,match", [
     ({"train_file_regions": ["r.jsonl"], "regions": {"batch_size": 4, "languages": ["en"]}},
-     NotImplementedError, "A8"),
-    ({"train_file_videos": ["v.jsonl"], "videos": {"batch_size": 4}}, NotImplementedError,
-     "A8"),
+     NotImplementedError, "A8b"),
+    ({"train_file_mtext": ["m.jsonl"], "mtexts": {"batch_size": 4}}, NotImplementedError,
+     "A8b"),
     ({"mixed_in_batch": False}, ValueError, "mixed_in_batch"),
     ({"images": {"batch_size": 4, "tokenized": True}}, ValueError, "tokenized"),
     ({"use_swin": True, "patch_size": 16}, ValueError, "use_swin requires patch_size"),
-    ({"model_type": "cclm"}, NotImplementedError, "A8"),
+    ({"model_type": "cclm"}, NotImplementedError, "A8b"),
     ({"remat": True}, NotImplementedError, "remat"),
     ({"flat_optimizer": True}, NotImplementedError, "flat_optimizer"),
 ])

@@ -128,6 +128,24 @@ def test_swin_shapes_cover_the_shifted_and_single_window_stages():
     assert vision_width(full) == 1024 and vision_seq_len(full) == 50
 
 
+def test_swin_trains_after_an_inference_mode_forward():
+    """The window index and shift mask a Swin forward caches are built
+    outside inference mode, so a training step after a served request (or
+    an eval) in the same process can save them for its backward."""
+    from x2vlm_tpu_torch.models import swin as swin_mod
+
+    cfg = SwinConfig(**SWIN)
+    tower = SwinTransformer(cfg, dtype=torch.float32, device="cpu")
+    x = torch.randn(1, cfg.image_res, cfg.image_res, 3)
+    swin_mod._REL_INDEX.cache.clear()
+    swin_mod._SHIFT_MASK.cache.clear()
+    with torch.inference_mode():
+        tower(x)
+    assert not any(t.is_inference() for t in swin_mod._REL_INDEX.cache.values())
+    tower(x).sum().backward()
+    assert tower.layers[0].blocks[0].attn.relative_position_bias_table.grad is not None
+
+
 # ---- CLIP's region path ----
 
 REGION = dict(CLIP, depth=3, local_attn_depth=2)

@@ -18,7 +18,11 @@ needs: configs and their key registry (``core/``), the BERT WordPiece
 tokenizer, image decode and transforms, the data streams and datasets
 (``data/``), the model factory (``factory.py``), the reference ``.th``
 import and save / resume (``train/checkpoint.py``), the multi-stream step
-(``train/trainer.py``) and the tasks' loops (``tasks/``).
+(``train/trainer.py``) and the tasks' loops (``tasks/``). Later slices add
+the region stream, the grounding, NLVR2, VQA and captioning tasks, the CLIP
+ViT / Swin / ViT towers with the export CLI, and the video path (5-D frame
+batches through ``XVLMBase.get_frame_embeds``: the stage-2 video stream,
+video QA, NExT-QA multiple choice and video retrieval).
 
 Entry points run on the card unless the caller passes ``device="cpu"``
 (see ``device.resolve_device``).

@@ -8,8 +8,8 @@ port (the exact inverse of the JAX package's
 ``train/checkpoint.convert_xvlm_state_dict`` for the modules the port
 carries); :func:`to_jax_params` goes back, under the names a JAX task
 model's ``init`` gives (``params/base/...`` for the composition core,
-``params/{text_decoder,dec_head,cls_head}/...`` for the heads a task keeps
-beside it).
+``params/{text_decoder,dec_head,cls_head,mc_head}/...`` for the heads a
+task keeps beside it).
 
 One table of rules (:func:`_rules`) serves both directions, built from the
 layout either side's names show: the vision tower (BEiT-2, CLIP ViT, Swin
@@ -33,7 +33,7 @@ from x2vlm_tpu_torch.device import resolve_device
 __all__ = ["convert_jax_params", "to_jax_params", "load_params_npz", "flatten_params"]
 
 # the JAX task models keep these beside the composition core, not under ``base``
-HEAD_LEVEL = ("text_decoder", "dec_head", "cls_head")
+HEAD_LEVEL = ("text_decoder", "dec_head", "cls_head", "mc_head")
 
 
 def flatten_params(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -93,8 +93,9 @@ def _layout_from_jax(keys) -> dict:
                      for i in _indices(ks, rf"{t}/layer_(\d+)/")]
                  for t in ("text_encoder", "text_decoder")},
         "heads": {h for h in ("mlm_head", "dec_head", "vision_proj", "text_proj", "temp",
-                              "itm_head", "bbox_head", "cls_head")
+                              "itm_head", "bbox_head", "cls_head", "mc_head", "frame_pos_embed")
                   if any(k == h or k.startswith(h + "/") for k in ks)},
+        "resampler": len(_indices(ks, r"resampler/attn_(\d+)/")),
     }
 
 
@@ -126,8 +127,10 @@ def _layout_from_port(keys) -> dict:
             ("dec_head", "text_decoder.cls.predictions.bias"),
             ("vision_proj", "vision_proj.weight"), ("text_proj", "text_proj.weight"),
             ("temp", "temp"), ("itm_head", "itm_head.0.weight"),
-            ("bbox_head", "bbox_head.0.weight"), ("cls_head", "cls_head.0.weight"))
+            ("bbox_head", "bbox_head.0.weight"), ("cls_head", "cls_head.0.weight"),
+            ("mc_head", "mc_head.0.weight"), ("frame_pos_embed", "absolute_frame_pos_embed"))
             if probe in ks},
+        "resampler": len(_indices(ks, r"resampler\.attn_(\d+)\.")),
     }
 
 
@@ -250,11 +253,32 @@ def _head_rules(heads):
             yield _dense(name, name)
     if "temp" in heads:
         yield ("scalar", ("temp",), ("temp",))
-    for head in ("itm_head", "bbox_head", "cls_head"):
+    for head in ("itm_head", "bbox_head", "cls_head", "mc_head"):
         if head in heads:
             yield _dense(f"{head}.0", f"{head}/fc1")
             yield _norm(f"{head}.1", f"{head}/ln")
             yield _dense(f"{head}.3", f"{head}/fc2")
+    if "frame_pos_embed" in heads:
+        yield _copy("absolute_frame_pos_embed", "frame_pos_embed")
+
+
+def _resampler_rules(depth: int):
+    """The Perceiver resampler: its torch names are the JAX ones with
+    ``.`` for ``/`` (LayerNorm ``scale`` -> ``weight``; bias-free dense
+    kernels transposed)."""
+    p, j = "resampler", "resampler"
+    yield _copy(f"{p}.latents", f"{j}/latents")
+    yield _copy(f"{p}.time_pos_emb", f"{j}/time_pos_emb")
+    for i in range(depth):
+        a, q = f"{p}.attn_{i}", f"{j}/attn_{i}"
+        yield _norm(f"{a}.norm_media", f"{q}/norm_media")
+        yield _norm(f"{a}.norm_latents", f"{q}/norm_latents")
+        for proj in ("to_q", "to_k", "to_v", "to_out"):
+            yield ("linear", (f"{a}.{proj}.weight",), (f"{q}/{proj}/kernel",))
+        yield _norm(f"{p}.ff_norm_{i}", f"{j}/ff_norm_{i}")
+        for ff in ("ff1", "ff2"):
+            yield ("linear", (f"{p}.{ff}_{i}.weight",), (f"{j}/{ff}_{i}/kernel",))
+    yield _norm(f"{p}.norm_out", f"{j}/norm_out")
 
 
 def _rules(lay: dict):
@@ -263,6 +287,8 @@ def _rules(lay: dict):
         if layers:
             yield from _text_rules(tower, layers)
     yield from _head_rules(lay["heads"])
+    if lay["resampler"]:
+        yield from _resampler_rules(lay["resampler"])
 
 
 def _to_port(kind: str, src: List[np.ndarray]) -> List[np.ndarray]:
@@ -304,7 +330,8 @@ def convert_jax_params(params: Mapping, *, device=None
     card unless ``device="cpu"``); sorted JAX keys the port does not carry,
     none for these models). The ``params/`` collection and a task head's
     ``base/`` scope are dropped; a head the task keeps beside the core
-    (NLVR's ``cls_head``; VQA's ``text_decoder`` and ``dec_head``, as
+    (NLVR's and classification's ``cls_head``; multiple choice's
+    ``mc_head``; VQA's ``text_decoder`` and ``dec_head``, as
     ``text_decoder.bert.*`` and ``text_decoder.cls.predictions.*``) stays:
     load the result into the task model itself, or into
     ``XVLMForPretrain.base``."""

@@ -2,13 +2,14 @@
 ``create_dataset``): task name + config -> (train_dataset, eval_dataset).
 
 The port builds the retrieval, VQA, NLVR2, grounding and captioning
-datasets; the launcher
-(run.py) refuses the JAX factory's other tasks before they reach here,
-naming the ROADMAP queue item each comes with. Pretraining streams are
-built by the launcher."""
+datasets and the video ones (video QA, NExT-QA multiple choice, video
+retrieval); the launcher (run.py) refuses the JAX factory's other tasks
+(the IGLUE sets, ROADMAP A8c) before they reach here. Pretraining streams
+are built by the launcher."""
 
 from __future__ import annotations
 
+import json
 import random
 from typing import Optional, Tuple
 
@@ -28,10 +29,12 @@ def create_dataset(task: str, config, evaluate: bool = False, tokenizer=None,
                    rng: Optional[random.Random] = None
                    ) -> Tuple[Optional[object], Optional[object]]:
     if task not in ("retrieval", "itr_coco", "itr_flickr", "vqa", "nlvr", "grounding",
-                    "refcoco_bbox", "captioning", "coco_captioning_mlm"):
+                    "refcoco_bbox", "captioning", "coco_captioning_mlm", "video_qa",
+                    "vqa_msrvtt", "vqa_msvd", "next_qa_mc", "video_qa_mc", "video_retrieval",
+                    "itr_coco_msrvtt"):
         raise NotImplementedError(f"dataset task {task!r}: the port builds the retrieval, "
-                                  f"VQA, NLVR2, grounding and captioning datasets (ROADMAP "
-                                  f"queue A8 brings the others)")
+                                  f"VQA, NLVR2, grounding, captioning and video datasets "
+                                  f"(ROADMAP queue A8c brings the IGLUE ones)")
     tokenizer = tokenizer or build_tokenizer(config["text_encoder"])
     res = config["image_res"]
     pre = TextPreprocessor(tokenizer, max_tokens=config.get("max_tokens", 40),
@@ -94,6 +97,42 @@ def create_dataset(task: str, config, evaluate: bool = False, tokenizer=None,
             max_tokens=config.get("max_tokens", 25), max_masks=config.get("max_masks", 12),
             mask_prob=config.get("mask_prob", 0.5), fg_free=config.get("fg_free", False),
             rng=rng), ev
+
+    if task in ("video_qa", "vqa_msrvtt", "vqa_msvd"):
+        from x2vlm_tpu_torch.data.video import VideoQADataset
+
+        with open(config["answer_list"]) as f:
+            answers = json.load(f)
+        kw = dict(video_root=config["video_root"], text_pre=pre, answer_list=answers,
+                  frame_len=config.get("frame_len", 5))
+        ev = _per_split(config["test_file"], lambda f: VideoQADataset(
+            f, test_tf, training=False, **kw))
+        if evaluate:
+            return None, ev
+        # the JAX factory passes no rng here: the train set draws from `random`
+        return VideoQADataset(config["train_file"], train_tf, **kw), ev
+
+    if task in ("next_qa_mc", "video_qa_mc"):
+        from x2vlm_tpu_torch.data.video import NextQAMCDataset
+
+        kw = dict(video_root=config["video_root"], text_pre=pre,
+                  frame_len=config.get("frame_len", 5), num_options=config.get("num_options", 5))
+        ev = _per_split(config["test_file"], lambda f: NextQAMCDataset(
+            f, test_tf, training=False, **kw))
+        if evaluate:
+            return None, ev
+        return NextQAMCDataset(config["train_file"], train_tf, training=True, rng=rng, **kw), ev
+
+    if task in ("video_retrieval", "itr_coco_msrvtt"):
+        from x2vlm_tpu_torch.data.video import VideoRetrievalDataset
+
+        frame_len = config.get("frame_len", 5)
+        ev = _per_split(config["test_file"], lambda f: VideoRetrievalDataset(
+            f, test_tf, config["video_root"], pre, frame_len=frame_len))
+        if evaluate:
+            return None, ev
+        return VideoRetrievalDataset(config["train_file"], train_tf, config["video_root"], pre,
+                                     frame_len=frame_len, training=True, rng=rng), ev
 
     from x2vlm_tpu_torch.data.retrieval import RetrievalEvalDataset, RetrievalTrainDataset
 

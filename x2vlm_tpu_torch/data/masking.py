@@ -49,7 +49,7 @@ class TextMaskingGenerator:
 
     @staticmethod
     def _is_continuation(token: str) -> bool:
-        return token.startswith("##")   # WordPiece; sentencepiece comes with A8
+        return token.startswith("##")   # WordPiece; sentencepiece comes with A8b
 
     def word_starts(self, tokens: Sequence[str], lo: int) -> List[int]:
         return [i for i in range(lo, len(tokens))

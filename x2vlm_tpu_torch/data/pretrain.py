@@ -1,16 +1,19 @@
 """Pretraining data streams (the port's counterpart of
-x2vlm_tpu/data/pretrain.py): the image-text, the region-text and the
-text-only JSONL streams over the sharded line reader, emitting fixed-shape
-numpy samples, and ``region_collate``, the region stream's batches.
+x2vlm_tpu/data/pretrain.py): the image-text, the region-text, the
+video-frame-text and the text-only JSONL streams over the sharded line
+reader, emitting fixed-shape numpy samples; ``region_collate``, the region
+stream's batches; ``sample_frame_ids`` / ``sample_clip_ids``, the temporal
+sampling of the video stream and the video datasets.
 
 A broken sample (an undecodable image, a missing key) is skipped and
 counted in ``broken``, as in the JAX package; and once
 ``max_consecutive_broken`` samples in a row have broken (a batch's worth,
 as the launcher sets it) the stream raises instead of spinning, so a
-missing decoder cannot turn into a stream that never yields. The video
-and multilingual streams come with ROADMAP item A8; the JAX package's
-native decode path is not ported (the region stream decodes with PIL, as
-the JAX package's PIL path does).
+missing decoder cannot turn into a stream that never yields. A video line
+whose caption is empty or in the skip set is passed over without counting,
+as in the JAX package. The multilingual streams come with ROADMAP item
+A8b; the JAX package's native decode path is not ported (every stream
+decodes with PIL, as the JAX package's PIL path does).
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ from x2vlm_tpu_torch.data.streaming import DistLineReader
 from x2vlm_tpu_torch.data.tokenization import TextPreprocessor
 from x2vlm_tpu_torch.data.transforms import hflip
 
-__all__ = ["ImageTextStream", "RegionTextStream", "TextStream", "BrokenStreamError",
-           "region_collate"]
+__all__ = ["ImageTextStream", "RegionTextStream", "TextStream", "VideoTextStream",
+           "BrokenStreamError", "region_collate", "sample_frame_ids", "sample_clip_ids"]
 
 
 class BrokenStreamError(RuntimeError):
@@ -70,6 +73,8 @@ class _StreamBase:
                         f"{type(self).__name__}: the last {self._in_a_row} samples were "
                         f"broken ({self.broken} in all); the last: "
                         f"{type(e).__name__}: {e}") from e
+                continue
+            if sample is None:     # passed over, not broken
                 continue
             self._in_a_row = 0
             yield sample
@@ -112,6 +117,129 @@ class TextStream(_StreamBase):
         ids, atts, ids_masked, pos, labels = self.text_pre(caption, with_masking=True)
         return {"text_ids": ids, "text_atts": atts, "text_ids_masked": ids_masked,
                 "masked_pos": pos, "masked_ids": labels}
+
+    def __iter__(self):
+        return self._samples(self._sample)
+
+
+def sample_frame_ids(n_frames: int, frame_len: int, training: bool,
+                     rng: Optional[random.Random] = None) -> List[int]:
+    """Temporal sampling (reference dataset/utils.py:66-92): the video split
+    into ``frame_len`` segments; training picks a random frame of each, eval
+    its middle; a video of at most ``frame_len`` frames wraps."""
+    rng = rng or random
+    if n_frames <= frame_len:
+        return [i % n_frames for i in range(frame_len)]
+    seg = n_frames / frame_len
+    ids = []
+    for i in range(frame_len):
+        lo = int(math.floor(seg * i))
+        hi = max(lo, int(math.floor(seg * (i + 1))) - 1)
+        ids.append(rng.randint(lo, hi) if training else (lo + hi) // 2)
+    return ids
+
+
+def sample_clip_ids(clips, minimum_frames: int, clip_captions=None, skip_caption_set=None,
+                    rng=None) -> List[int]:
+    """A contiguous run of clips grown around a random anchor, one side at a
+    time, until it holds ``minimum_frames`` frames (reference
+    dataset/utils.py:19-63); clips whose caption is in the skip set count no
+    frames and are left out of the result."""
+    rng = rng or random
+    skip_caption_set = skip_caption_set or set()
+    caps = [c.strip() for c in clip_captions] if clip_captions else None
+
+    def count(ids):
+        return sum(len(clips[i]) for i in ids
+                   if caps is None or caps[i] not in skip_caption_set)
+
+    mid = rng.randrange(len(clips))
+    ids, left, right = [mid], mid, mid
+    while count(ids) < minimum_frames and len(ids) < len(clips):
+        if left - 1 < 0:
+            right += 1
+            ids.append(right)
+        elif right + 1 >= len(clips):
+            left -= 1
+            ids.append(left)
+        elif rng.random() < 0.5:
+            right += 1
+            ids.append(right)
+        else:
+            left -= 1
+            ids.append(left)
+    ids = sorted(ids)
+    if caps is not None:
+        ids = [i for i in ids if caps[i] not in skip_caption_set]
+    return ids
+
+
+class VideoTextStream(_StreamBase):
+    """Frame-list videos -> (frame_len, H, W, 3) samples (reference
+    FrameTextDataset:290-424), each frame a base64 image or a path. A
+    clip-of-clips line (``frames`` a list of clips, each a frame list, with
+    a caption per clip) takes one clip whose caption is not skipped, or,
+    with ``combine_continuous_clips`` on an ``is_continuous`` line,
+    neighbouring clips merged until ``minimum_frames_before_sampling``
+    frames (``sample_clip_ids``), their captions joined. The frames keep the
+    transform's dtype (uint8 from the pretraining transform)."""
+
+    def __init__(self, reader, text_pre, transform: Callable, frame_len: int = 3,
+                 frames_key: str = "frames", caption_key: str = "caption",
+                 is_image_rpath: bool = False, training: bool = True,
+                 skip_captions: Sequence[str] = ("[Music]",),
+                 combine_continuous_clips: bool = False,
+                 minimum_frames_before_sampling: int = -1, rng=None,
+                 max_consecutive_broken: int = 128):
+        super().__init__(reader, text_pre, rng, max_consecutive_broken)
+        self.transform = transform
+        self.frame_len = frame_len
+        self.frames_key = frames_key
+        self.caption_key = caption_key
+        self.is_image_rpath = is_image_rpath
+        self.training = training
+        self.skip_captions = set(skip_captions)
+        self.combine_continuous_clips = combine_continuous_clips
+        self.minimum_frames_before_sampling = minimum_frames_before_sampling
+        if combine_continuous_clips and minimum_frames_before_sampling <= 0:
+            raise ValueError("combine_continuous_clips needs minimum_frames_before_sampling")
+
+    def _get_clips(self, clips, captions, is_continuous):
+        """(frames, clip ids) of a clip-of-clips line (reference get_clips,
+        pretrain_dataset.py:321-345)."""
+        if len(clips) == 1:
+            return clips[0], [0]
+        if is_continuous and self.combine_continuous_clips:
+            ids = sample_clip_ids(clips, self.minimum_frames_before_sampling,
+                                  clip_captions=captions, skip_caption_set=self.skip_captions,
+                                  rng=self.rng)
+            return [f for i in ids for f in clips[i]], ids
+        if not isinstance(captions, list):   # one caption for every clip
+            i = self.rng.randrange(len(clips))
+            return clips[i], [i]
+        eligible = [j for j, c in enumerate(captions) if c not in self.skip_captions]
+        if not eligible:
+            raise ValueError("every clip caption is in the skip set")
+        i = self.rng.choice(eligible)
+        return clips[i], [i]
+
+    def _sample(self, ann: dict) -> Optional[Dict]:
+        frames = ann[self.frames_key]
+        raw_cap = ann[self.caption_key]
+        if frames and isinstance(frames[0], list):
+            frames, clip_ids = self._get_clips(frames, raw_cap, ann.get("is_continuous", False))
+            caption = " ".join(raw_cap[i] for i in clip_ids) \
+                if isinstance(raw_cap, list) else raw_cap
+        else:
+            caption = _choose_caption(raw_cap, self.rng)
+        if not caption or caption in self.skip_captions:
+            return None
+        ids = sample_frame_ids(len(frames), self.frame_len, self.training, self.rng)
+        image = np.stack([np.asarray(self.transform(
+            _image({"f": frames[i]}, "f", self.is_image_rpath))) for i in ids])
+        t_ids, atts, ids_masked, pos, labels = self.text_pre(caption, with_masking=True)
+        return {"image": image, "text_ids": t_ids, "text_atts": atts,
+                "text_ids_masked": ids_masked, "masked_pos": pos, "masked_ids": labels}
 
     def __iter__(self):
         return self._samples(self._sample)

@@ -11,7 +11,7 @@ characters and words with no match becoming ``[UNK]``; and ``decode``, the
 ids back to text as ``BertTokenizerFast.decode`` gives it.
 ``TextPreprocessor`` and ``pre_caption`` are copies of the JAX ones.
 RoBERTa and XLM-R tokenizers come with the multilingual models (ROADMAP
-queue A8).
+queue A8b).
 """
 
 from __future__ import annotations
@@ -196,7 +196,7 @@ def build_tokenizer(path: str) -> BertWordPiece:
     if "roberta" in lowered or "xlmr" in lowered:
         raise NotImplementedError(
             f"{path}: RoBERTa / XLM-R tokenizers come with the multilingual models "
-            f"(ROADMAP queue A8); the port tokenizes with BERT's WordPiece")
+            f"(ROADMAP queue A8b); the port tokenizes with BERT's WordPiece")
     vocab = os.path.join(path, "vocab.txt") if os.path.isdir(path) else path
     if not os.path.isfile(vocab):
         raise FileNotFoundError(f"no vocab.txt for the text encoder at {path}")

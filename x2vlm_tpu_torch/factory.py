@@ -8,12 +8,15 @@ The port builds X2-VLM models on a BEiT-2, CLIP ViT or Swin vision tower
 ``"grounding"`` (``XVLMForGrounding``), ``"nlvr"`` (``XVLMForNLVR``) and
 ``"vqa"`` (``XVLMForVQA``, with the config's ``num_dec_layers`` and
 ``pad_token_id``), ``"captioning"`` (``XVLMForMLMCaptioning``, with the
-config's ``label_smoothing``). A config that asks for what the port does
-not build raises, naming the ROADMAP queue item that brings it: RoBERTa
-text encoders, ``model_type: cclm`` / video encodings and the generic
-classification / multiple-choice heads (A8), int8 serving from a config,
-and ``remat`` (not ported, by decision: the step peaks far below the
-card's memory).
+config's ``label_smoothing``), ``"classification"``
+(``XVLMForClassification`` with the config's ``num_labels``) and
+``"multiple_choice"`` (``XVLMForMultipleChoice``); the video keys
+(``video_encoding``, ``frame_len``, ``add_frame_pos``, ``resampler_depth``,
+``resampler_latents``) as the JAX factory reads them. A config that asks
+for what the port does not build raises, naming the ROADMAP queue item that
+brings it: RoBERTa / XLM-R text encoders and ``model_type: cclm`` (A8b),
+int8 serving from a config, and ``remat`` (not ported, by decision: the
+step peaks far below the card's memory).
 """
 
 from __future__ import annotations
@@ -89,7 +92,7 @@ def text_config_from_yaml(config: Dict, vision_width: int) -> BertConfig:
     num_layers = config.get("text_num_hidden_layers", 18)
     fusion = config.get("text_fusion_start_at", config.get("text_fusion_layer", num_layers))
     if "xlm-roberta" in name or "roberta" in name:
-        _refuse(f"the RoBERTa / XLM-R text encoder ({name})", "A8")
+        _refuse(f"the RoBERTa / XLM-R text encoder ({name})", "A8b")
     if "large" in name:   # the JAX BertConfig.bert_large preset
         out = BertConfig(hidden_size=1024, num_heads=16, intermediate_size=4096,
                          num_layers=num_layers, fusion_layer=fusion,
@@ -112,7 +115,7 @@ def text_config_from_yaml(config: Dict, vision_width: int) -> BertConfig:
         fields = {f.name for f in dataclasses.fields(BertConfig)}
         unported = sorted(set(inline) - fields)
         if unported:
-            _refuse(f"text_config_inline keys {unported}", "A8")
+            _refuse(f"text_config_inline keys {unported}", "A8b")
         out = dataclasses.replace(out, **inline)
     return out
 
@@ -120,16 +123,19 @@ def text_config_from_yaml(config: Dict, vision_width: int) -> BertConfig:
 def xvlm_config_from_yaml(config: Dict) -> XVLMConfig:
     if config.get("model_type", "") in ("xvlm_plus", "cclm") or \
             config.get("replace_text_encoder", False):
-        _refuse("model_type xvlm_plus / cclm", "A8")
-    if config.get("video_encoding") or config.get("frame_len", 1) != 1:
-        _refuse("video encoding (video_encoding / frame_len)", "A8")
+        _refuse("model_type xvlm_plus / cclm", "A8b")
     if config.get("remat", False):
         raise NotImplementedError("remat: gradient checkpointing is not ported (by "
                                   "decision: ROADMAP 'Not ported'), drop the key")
     vision = vision_config_from_yaml(config)
     text = text_config_from_yaml(config, vision_width(vision))
     return XVLMConfig(vision=vision, text=text, embed_dim=config.get("embed_dim", 256),
-                      temp=config.get("temp", 0.07), fix_temp=config.get("fix_temp", False))
+                      temp=config.get("temp", 0.07), fix_temp=config.get("fix_temp", False),
+                      video_encoding=config.get("video_encoding", ""),
+                      frame_len=config.get("frame_len", 1),
+                      add_frame_pos=config.get("add_frame_pos", False),
+                      resampler_depth=config.get("resampler_depth", 2),
+                      resampler_latents=config.get("resampler_latents", 64))
 
 
 def model_dtype(config: Dict) -> torch.dtype:
@@ -145,11 +151,12 @@ def model_dtype(config: Dict) -> torch.dtype:
 
 def build_model(config: Dict, task: str, *, device, dtype=None, seed=0):
     """(model, XVLMConfig) for ``task`` ("pretrain" | "retrieval" |
-    "grounding" | "nlvr" | "vqa" | "captioning") on ``device``, its
-    parameters filled from ``seed`` (None: left for ``load_state_dict``)."""
+    "grounding" | "nlvr" | "vqa" | "captioning" | "classification" |
+    "multiple_choice") on ``device``, its parameters filled from ``seed``
+    (None: left for ``load_state_dict``)."""
     from x2vlm_tpu_torch.models import (
-        XVLMForGrounding, XVLMForMLMCaptioning, XVLMForNLVR, XVLMForPretrain,
-        XVLMForRetrieval, XVLMForVQA,
+        XVLMForClassification, XVLMForGrounding, XVLMForMLMCaptioning,
+        XVLMForMultipleChoice, XVLMForNLVR, XVLMForPretrain, XVLMForRetrieval, XVLMForVQA,
     )
 
     models = {"pretrain": XVLMForPretrain, "retrieval": XVLMForRetrieval,
@@ -158,9 +165,11 @@ def build_model(config: Dict, task: str, *, device, dtype=None, seed=0):
                                        num_dec_layers=config.get("num_dec_layers", 6),
                                        pad_token_id=config.get("pad_token_id", 0)),
               "captioning": functools.partial(
-                  XVLMForMLMCaptioning, label_smoothing=config.get("label_smoothing", 0.1))}
-    if task in ("classification", "multiple_choice"):
-        _refuse(f"the {task} model", "A8")
+                  XVLMForMLMCaptioning, label_smoothing=config.get("label_smoothing", 0.1)),
+              "multiple_choice": XVLMForMultipleChoice}
+    if task == "classification":
+        models[task] = functools.partial(XVLMForClassification,
+                                         num_labels=config["num_labels"])
     if task not in models:
         raise ValueError(f"unknown task {task!r}")
     dtype = dtype or model_dtype(config)

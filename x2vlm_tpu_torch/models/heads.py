@@ -127,7 +127,8 @@ class XVLMForRetrieval(XVLMBase):
         }
 
     def encode_images(self, image: torch.Tensor):
-        """(B, H, W, 3) -> (embeds (B, S+1, C) compute dtype, feat (B, E) fp32)."""
+        """(B, H, W, 3) images, or (B, F, H, W, 3) videos pooled over their
+        frames -> (embeds (B, S+1, C) compute dtype, feat (B, E) fp32)."""
         embeds, _ = self.get_vision_embeds(image)
         return embeds, self.get_features(image_embeds=embeds)
 

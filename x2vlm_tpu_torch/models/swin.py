@@ -101,7 +101,10 @@ def window_merge(wins: torch.Tensor, window: int, H: int, W: int) -> torch.Tenso
 
 
 class _Static:
-    """Index and mask tensors built once per (key, device)."""
+    """Index and mask tensors built once per (key, device), outside
+    inference mode: a tensor first built under ``torch.inference_mode``
+    (an eval, a request) could not be saved for a later training step's
+    backward."""
 
     def __init__(self, make):
         self.make, self.cache = make, {}
@@ -109,7 +112,8 @@ class _Static:
     def get(self, key, device: torch.device) -> torch.Tensor:
         t = self.cache.get((key, device))
         if t is None:
-            t = self.cache[(key, device)] = torch.from_numpy(self.make(*key)).to(device)
+            with torch.inference_mode(False):
+                t = self.cache[(key, device)] = torch.from_numpy(self.make(*key)).to(device)
         return t
 
 

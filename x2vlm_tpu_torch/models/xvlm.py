@@ -5,7 +5,11 @@ temperature, the ITM head and the bbox head.
 
 Parameter names are the reference's (``vision_encoder.*``,
 ``text_encoder.bert.*``, ``text_encoder.cls.predictions.*``, ``vision_proj``,
-``text_proj``, ``temp``, ``itm_head.{0,1,3}``, ``bbox_head.{0,1,3}``). The
+``text_proj``, ``temp``, ``itm_head.{0,1,3}``, ``bbox_head.{0,1,3}``, the
+video frame positions ``absolute_frame_pos_embed``). Video (5-D input,
+``get_frame_embeds``): the tower runs once over every frame of the batch,
+then the frame positions are added and the frames mean-pooled, or
+summarised by the Perceiver resampler (``resampler.*``). The
 losses are here: ITC (``get_contrastive_loss``), ITM with hard negatives
 (``get_hard_negatives``, ``get_matching_loss``) and MLM, the last two fused
 into one fusion pass (``get_matching_and_mlm_loss``), and the region
@@ -27,6 +31,7 @@ from x2vlm_tpu_torch.device import resolve_device
 from x2vlm_tpu_torch.models.beit2 import BEiT2, BEiT2Config, grouped_image_embeds
 from x2vlm_tpu_torch.models.bert import BertConfig, TextEncoder
 from x2vlm_tpu_torch.models.clip_vit import CLIPViT, CLIPViTConfig
+from x2vlm_tpu_torch.models.resampler import PerceiverResampler
 from x2vlm_tpu_torch.models.swin import SwinConfig, SwinTransformer
 from x2vlm_tpu_torch.models.vit import ViT, ViTConfig
 from x2vlm_tpu_torch.ops import box as box_ops
@@ -75,6 +80,14 @@ class XVLMConfig:
     # ITM hard negatives: 0 = sample from the whole batch; > 0 = only within
     # blocks of this many rows along the batch
     itm_neg_block: int = 0
+    # video (reference xvlm.py:482-501): "" (images only) | "avgpool" (the
+    # mean over frames) | "resampler" (models/resampler.py); the frame
+    # positions (1, frame_len, 1, width) with add_frame_pos
+    video_encoding: str = ""
+    frame_len: int = 1
+    add_frame_pos: bool = False
+    resampler_depth: int = 2
+    resampler_latents: int = 64
 
     @classmethod
     def base(cls, image_res: int = 224, **kw) -> "XVLMConfig":
@@ -136,6 +149,13 @@ class XVLMBase(nn.Module):
             self.itm_head = MlpHead(tw, 2, dtype=dtype, device=device)
         if bbox_head:
             self.bbox_head = MlpHead(tw, 4, dtype=dtype, device=device)
+        if cfg.video_encoding and cfg.add_frame_pos:
+            self.absolute_frame_pos_embed = nn.Parameter(
+                torch.empty(1, cfg.frame_len, 1, vw, device=device))
+        if cfg.video_encoding == "resampler":
+            self.resampler = PerceiverResampler(vw, cfg.frame_len, depth=cfg.resampler_depth,
+                                                num_latents=cfg.resampler_latents,
+                                                dtype=dtype, device=device)
         self.fill(seed)
 
     def fill(self, seed: Optional[int]) -> None:
@@ -155,6 +175,9 @@ class XVLMBase(nn.Module):
     def init_extra(self, generator: torch.Generator, std: float) -> None:
         if "temp" in self._parameters:
             self.temp.fill_(self.config.temp)
+        if "absolute_frame_pos_embed" in self._parameters:   # flax truncated_normal(0.02)
+            nn.init.trunc_normal_(self.absolute_frame_pos_embed, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
 
     def get_vision_embeds(self, image: torch.Tensor, generator=None, image_atts=None,
                           idx_to_group_img=None):
@@ -164,7 +187,12 @@ class XVLMBase(nn.Module):
         stream's rows of the images: (region rows with the region-masked
         pooled slot, ``image_atts``, the full rows for the bbox head). A CLIP
         tower with ``local_attn_depth > 0`` makes the region rows itself: its
-        last layers attend inside each region."""
+        last layers attend inside each region. A 5-D ``image`` (B, F, H, W,
+        3) is a video: :meth:`get_frame_embeds`."""
+        if image.dim() == 5:
+            if idx_to_group_img is not None:
+                raise ValueError("a video batch has no region rows")
+            return self.get_frame_embeds(image, generator)
         if idx_to_group_img is not None and image_atts is None:
             raise NotImplementedError(
                 "idx_to_group_img without region bitmaps (grounding) comes with "
@@ -179,6 +207,22 @@ class XVLMBase(nn.Module):
             return region, image_atts, full
         atts = torch.ones(embeds.shape[:2], dtype=torch.int32, device=embeds.device)
         return embeds, atts
+
+    def get_frame_embeds(self, frames: torch.Tensor, generator=None):
+        """(B, F, H, W, 3) frames -> (embeds, atts): one tower call over the
+        B * F frames, video-major (a video's frames neighbours), the frame
+        positions added in the compute dtype, then the mean over the frames
+        (B, S+1, C), or the resampler's latents (B, num_latents, C)."""
+        cfg = self.config
+        B, n = frames.shape[:2]
+        embeds = self.vision_encoder(frames.reshape((B * n,) + frames.shape[2:]), generator)
+        embeds = embeds.reshape((B, n) + embeds.shape[1:])        # (B, F, S+1, C)
+        if cfg.video_encoding and cfg.add_frame_pos:
+            embeds = embeds + self.absolute_frame_pos_embed[:, :n].to(embeds.dtype)
+        pooled = (self.resampler(embeds) if cfg.video_encoding == "resampler"
+                  else embeds.mean(dim=1))
+        atts = torch.ones(pooled.shape[:2], dtype=torch.int32, device=pooled.device)
+        return pooled, atts
 
     def get_text_embeds(self, text_ids, text_atts, generator=None):
         return self.text_encoder(text_ids, attention_mask=text_atts, mode="text",

@@ -17,10 +17,17 @@ from typing import Optional
 
 import torch
 
-__all__ = ["dot_product_attention", "make_attention_mask", "dropout_multiplier",
+__all__ = ["dot_product_attention", "make_attention_mask", "dropout_multiplier", "wide",
            "NEG_INF"]
 
 NEG_INF = -1e30  # large-but-finite: keeps fully-masked rows NaN-free
+
+
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the kernels' plain versions' working dtype: fp32 for bf16 and
+    fp32, float64 as it is (a float64 case then holds an autograd wrapper
+    to autograd with no fp32 rounding on either side)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def make_attention_mask(key_mask: Optional[torch.Tensor], q_len: int,

@@ -52,7 +52,7 @@ from typing import Optional, Tuple
 import torch
 
 from x2vlm_tpu_torch.ops import _build
-from x2vlm_tpu_torch.ops.attention import NEG_INF, make_attention_mask
+from x2vlm_tpu_torch.ops.attention import NEG_INF, make_attention_mask, wide
 
 __all__ = ["BWD_KERNELS", "bwd_smem_bytes", "dbias_groups", "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_reference", "flash_attention_fwd",
@@ -193,9 +193,9 @@ def flash_attention_reference(
     """Plain PyTorch flash forward: fp32 logits and softmax, probabilities
     cast to q's dtype before P @ V. Returns (out, lse)."""
     Sq, Skv = q.shape[2], k.shape[2]
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = torch.matmul(wide(q), wide(k).transpose(-1, -2)) * scale
     if bias is not None:
-        logits = logits + bias.float()
+        logits = logits + wide(bias)
     if key_mask is not None or causal:
         mask = make_attention_mask(key_mask, Sq, causal=causal, kv_len=Skv,
                                    device=q.device)
@@ -303,9 +303,9 @@ def flash_attention_bwd_reference(
     bias's shape and dtype (summed over broadcast batch / head dims)."""
     Sq, Skv = q.shape[2], k.shape[2]
     dt = q.dtype
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = torch.matmul(wide(q), wide(k).transpose(-1, -2)) * scale
     if bias is not None:
-        logits = logits + bias.float()
+        logits = logits + wide(bias)
     p = torch.exp(logits - lse)
     dead = lse < _DEAD_LSE                 # no visible key: the forward averaged V
     p = torch.where(dead, torch.full_like(p, 1.0 / Skv), p)
@@ -314,16 +314,16 @@ def flash_attention_bwd_reference(
         visible = make_attention_mask(key_mask, Sq, causal=causal, kv_len=Skv,
                                       device=q.device)
         p = torch.where(visible | dead, p, torch.zeros_like(p))
-    delta = (dout.float() * out.float()).sum(-1, keepdim=True)
-    dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
+    delta = (wide(dout) * wide(out)).sum(-1, keepdim=True)
+    dp = torch.matmul(wide(dout), wide(v).transpose(-1, -2))
     ds = p * (dp - delta)
     ds = torch.where(dead, torch.zeros_like(ds), ds)
     if visible is not None:
         ds = torch.where(visible, ds, torch.zeros_like(ds))
-    dsc = ds.to(dt).float()
-    dq = (torch.matmul(dsc, k.float()) * scale).to(dt)
-    dk = (torch.matmul(dsc.transpose(-1, -2), q.float()) * scale).to(k.dtype)
-    dv = torch.matmul(p.to(dt).float().transpose(-1, -2), dout.float()).to(v.dtype)
+    dsc = wide(ds.to(dt))
+    dq = (torch.matmul(dsc, wide(k)) * scale).to(dt)
+    dk = (torch.matmul(dsc.transpose(-1, -2), wide(q)) * scale).to(k.dtype)
+    dv = torch.matmul(wide(p.to(dt)).transpose(-1, -2), wide(dout)).to(v.dtype)
     dbias = None
     if bias is not None and need_dbias:
         dims = [i for i in (0, 1) if bias.shape[i] == 1 and ds.shape[i] != 1]

@@ -62,7 +62,7 @@ from typing import Optional, Tuple
 import torch
 
 from x2vlm_tpu_torch.ops import _build
-from x2vlm_tpu_torch.ops.attention import NEG_INF, dropout_multiplier
+from x2vlm_tpu_torch.ops.attention import NEG_INF, dropout_multiplier, wide
 
 __all__ = ["CUDA_CORE", "RESIDENT", "ROUTE_CODES", "TENSOR_CORE", "TILED", "WALK_CODES",
            "tiny_attention_bwd", "tiny_attention_bwd_reference", "tiny_attention_fwd",
@@ -259,14 +259,14 @@ def tiny_attention_reference(
     q4 = qs.view(B, Sq, H, D).transpose(1, 2)
     k4 = k.view(B, Skv, H, D).transpose(1, 2)
     v4 = v.view(B, Skv, H, D).transpose(1, 2)
-    logits = torch.matmul(q4.float(), k4.float().transpose(-1, -2))
+    logits = torch.matmul(wide(q4), wide(k4).transpose(-1, -2))
     if key_mask is not None:
-        krow = torch.where(key_mask != 0, 0.0, NEG_INF).to(torch.float32)
+        krow = torch.where(key_mask != 0, 0.0, NEG_INF).to(logits.dtype)
         logits = logits + krow[:, None, None, :]
     p = torch.softmax(logits, dim=-1)                     # (B, H, Sq, Skv)
     probs = p.transpose(1, 2).reshape(B, Sq, H * Skv)
     if dmask is not None:
-        p = p * dmask.view(B, Sq, H, Skv).transpose(1, 2).float()
+        p = p * wide(dmask.view(B, Sq, H, Skv).transpose(1, 2))
     out = torch.matmul(p.to(v.dtype), v4)                 # (B, H, Sq, D)
     return out.transpose(1, 2).reshape(B, Sq, HD), probs
 
@@ -362,19 +362,19 @@ def tiny_attention_bwd_reference(
     D = HD // H
     dt = q.dtype
     s = _dtype_scale(scale, dt)
-    heads = lambda t, n: t.view(B, n, H, D).transpose(1, 2).float()
+    heads = lambda t, n: wide(t.view(B, n, H, D).transpose(1, 2))
     qs4 = heads(q * s, Sq)
     k4, v4, g4 = heads(k, Skv), heads(v, Skv), heads(g, Sq)
-    p = probs.view(B, Sq, H, Skv).transpose(1, 2).float()       # (B, H, Sq, Skv)
-    dm = None if dmask is None else dmask.view(B, Sq, H, Skv).transpose(1, 2).float()
+    p = wide(probs.view(B, Sq, H, Skv).transpose(1, 2))       # (B, H, Sq, Skv)
+    dm = None if dmask is None else wide(dmask.view(B, Sq, H, Skv).transpose(1, 2))
     pu = p if dm is None else p * dm
-    dv4 = torch.matmul(pu.to(dt).float().transpose(-1, -2), g4)
+    dv4 = torch.matmul(wide(pu.to(dt)).transpose(-1, -2), g4)
     dp = torch.matmul(g4, v4.transpose(-1, -2))
     if dm is not None:
         dp = dp * dm
     rows = (dp * p).sum(-1, keepdim=True) if out is None else \
         (g4 * heads(out, Sq)).sum(-1, keepdim=True)
-    dl = (p * (dp - rows)).to(dt).float()
+    dl = wide((p * (dp - rows)).to(dt))
     dqs4 = torch.matmul(dl, k4).to(dt)
     dk4 = torch.matmul(dl.transpose(-1, -2), qs4)
     merge = lambda t, n: t.transpose(1, 2).reshape(B, n, HD)

@@ -1,6 +1,7 @@
 """The launcher (the port's counterpart of x2vlm_tpu/run.py), for the tasks
-the port has: ``pretrain``, ``retrieval``, ``grounding``, ``nlvr``, ``vqa``
-and ``captioning``.
+the port has: ``pretrain``, ``retrieval``, ``video_retrieval``,
+``grounding``, ``nlvr``, ``vqa``, ``captioning``, ``video_qa``,
+``next_qa_mc`` and ``classification`` with a video ``dataset_type``.
 
 Usage:
     python -m x2vlm_tpu_torch.run --task retrieval \\
@@ -22,8 +23,8 @@ process, one card.
   encoder's ``pytorch_model.bin`` initialise the model where they exist.
 - ``--resume`` restores the train state in ``output_dir/ckpt`` (parameters,
   AdamW ``mu`` / ``nu`` / ``count``, step) and, for pretraining, the data
-  cursors of the streams (image, aux, region, text), so the run continues
-  where it stopped.
+  cursors of the streams (image, aux, region, video, video aux, text), so
+  the run continues where it stopped.
 - ``--evaluate`` evaluates only (the fine-tune tasks): retrieval's R@k,
   grounding's IoU >= 0.5 accuracy per split (``refs_file``; a VLUE test
   set with ``vlue_test``), NLVR2's accuracy (per split when ``test_file``
@@ -31,16 +32,18 @@ process, one card.
   ``vqa_result.json``; the VQAv2 accuracy ``overall`` and the exact-match
   ``acc`` where the test lines carry answers), captioning's beam-search
   captions scored with BLEU-1..4, CIDEr-D (``cider`` picks the best epoch),
-  ROUGE-L and METEOR against ``caption_gt_file``.
+  ROUGE-L and METEOR against ``caption_gt_file``; video QA's and NExT-QA's
+  accuracy; video retrieval's R@k (``pick_best_t2v`` picks the best epoch
+  by text-to-video recall, ``img_r_mean``).
 - ``scst: true`` (captioning) fine-tunes with self-critical sequence
   training instead of the MLM loss: sampled rollouts, CIDEr-D advantages.
 
 The config is validated against the JAX package's key registry
 (core/config_schema.py). What the port does not run raises, naming its
-ROADMAP item: every other task (A8: xGQA, MARVL, classification and the
-other multilingual and video tasks), the video / parallel-text and
-multilingual (``languages``) streams (A8), and, as in the JAX launcher,
-``mixed_in_batch: false`` and ``tokenized: true``.
+ROADMAP item: the IGLUE tasks (A8c: xGQA, MARVL, XVNLI, WIT, xFlickrCO,
+xretrieval, and ``classification`` with their ``dataset_type``), the
+parallel-text and multilingual (``languages``) streams (A8b), and, as in
+the JAX launcher, ``mixed_in_batch: false`` and ``tokenized: true``.
 """
 
 from __future__ import annotations
@@ -67,20 +70,21 @@ from x2vlm_tpu_torch.train import checkpoint as ckpt_lib
 
 __all__ = ["TASKS", "UNPORTED", "parse_args", "setup", "make_optimizer", "maybe_resume",
            "load_initial_params", "eval_multi", "finetune", "run_retrieval", "run_grounding",
-           "run_nlvr", "SeededLoader", "VQALoader", "run_vqa", "run_captioning", "run_pretrain",
-           "main", "to_device"]
+           "run_nlvr", "SeededLoader", "VQALoader", "run_vqa", "run_captioning",
+           "run_classification", "run_pretrain", "main", "to_device"]
 
 TASKS = ("pretrain", "retrieval", "xretrieval", "wit", "xflickrco", "video_retrieval", "vqa",
          "xgqa", "nlvr", "marvl", "grounding", "captioning", "classification", "xvnli",
          "video_qa", "next_qa_mc")
 # the JAX launcher's other tasks and the ROADMAP items that bring them
-UNPORTED = {"xretrieval": "A8", "wit": "A8", "xflickrco": "A8", "video_retrieval": "A8",
-            "xgqa": "A8", "marvl": "A8", "xvnli": "A8", "video_qa": "A8", "next_qa_mc": "A8",
-            "classification": "A8"}
+UNPORTED = {"xretrieval": "A8c", "wit": "A8c", "xflickrco": "A8c", "xgqa": "A8c",
+            "marvl": "A8c", "xvnli": "A8c"}
 # pretraining streams the port does not build: (config file key, block) -> item
-UNPORTED_STREAMS = {("train_file_videos", "videos"): "A8",
-                    ("train_file_videos_aux", "videos"): "A8",
-                    ("train_file_mtext", "mtexts"): "A8"}
+UNPORTED_STREAMS = {("train_file_mtext", "mtexts"): "A8b"}
+# the dataset types ``run_classification`` runs: video QA over an answer
+# list, and NExT-QA multiple choice
+VIDEO_QA_TASKS = ("video_qa", "vqa_msrvtt", "vqa_msvd")
+MULTIPLE_CHOICE_TASKS = ("next_qa_mc", "video_qa_mc")
 
 
 def parse_args(argv=None):
@@ -99,7 +103,7 @@ def parse_args(argv=None):
     p.add_argument("--bs", default=-1, type=int, help="override batch_size")
     p.add_argument("--epoch", default=-1, type=int, help="override epochs")
     p.add_argument("--wait", default=0, type=int, help="minutes to sleep before starting")
-    p.add_argument("--fewshot", default="", help="IGLUE few-shot (ROADMAP A8)")
+    p.add_argument("--fewshot", default="", help="IGLUE few-shot (ROADMAP A8c)")
     p.add_argument("--lr", default=0.0, type=float, help="override the learning rate")
     p.add_argument("--k_test", default=-1, type=int, help="override the rerank depth")
     p.add_argument("--num_workers", default=-1, type=int,
@@ -119,9 +123,10 @@ def setup(args):
     if args.task in UNPORTED:
         raise NotImplementedError(f"--task {args.task} comes with ROADMAP queue item "
                                   f"{UNPORTED[args.task]}; the port runs pretrain, "
-                                  f"retrieval, grounding, nlvr, vqa and captioning")
+                                  f"retrieval, grounding, nlvr, vqa, captioning and the video "
+                                  f"tasks")
     if args.fewshot:
-        raise NotImplementedError("--fewshot (IGLUE) comes with ROADMAP queue item A8")
+        raise NotImplementedError("--fewshot (IGLUE) comes with ROADMAP queue item A8c")
     os.makedirs(args.output_dir, exist_ok=True)
     cfg = config_lib.load_config(args.config, overrides=args.override_cfg)
     config_schema.validate_config(cfg, source=args.config)
@@ -311,14 +316,15 @@ def finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, metric_key, load
                         metric_key=metric_key, output_dir=args.output_dir, save_fn=save_fn)
 
 
-def run_retrieval(args, cfg, device):
+def run_retrieval(args, cfg, device, task: str = "retrieval"):
     """Fine-tune and / or evaluate with the two-stage ITC -> ITM protocol
-    (reference Retrieval.py)."""
+    (reference Retrieval.py), on images or, with ``task="video_retrieval"``,
+    on videos of ``frame_len`` frames."""
     from x2vlm_tpu_torch.data.factory import create_dataset
     from x2vlm_tpu_torch.tasks.retrieval import evaluate_retrieval
 
     model, mcfg = build_model(cfg, "retrieval", device=device, seed=args.seed)
-    train_ds, test_ds = create_dataset("retrieval", cfg, evaluate=args.evaluate,
+    train_ds, test_ds = create_dataset(task, cfg, evaluate=args.evaluate,
                                        rng=random.Random(args.seed))
     metric_key = ("img_r_mean" if cfg.get("pick_best_t2v") else
                   "r1_mean" if cfg.get("pick_best_r1") else "r_mean")
@@ -378,6 +384,48 @@ def run_nlvr(args, cfg, device):
             mean_key="accuracy")
 
     return finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, "accuracy")
+
+
+def run_classification(args, cfg, device, task: str = "classification"):
+    """Fine-tune and / or evaluate a video classification task (reference
+    VQA_msrvtt.py / VQA_msvd.py; the JAX ``run_classification``): video QA
+    over ``answer_list`` (its length sets ``num_labels``) or NExT-QA
+    multiple choice (K options a question); accuracy picks the best epoch.
+    ``--task classification`` runs its config's ``dataset_type``; the IGLUE
+    ones (XVNLI, MARVL, ...) come with ROADMAP item A8c. The train set reads
+    its frames with the seeded data rng, reseeded each epoch
+    (``SeededLoader``), so a resumed run reads the whole run's batches."""
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.tasks.classification import evaluate_classification
+
+    if task == "classification":
+        task = cfg.get("dataset_type", "xvnli")
+    if task in MULTIPLE_CHOICE_TASKS:
+        model_task = "multiple_choice"
+    elif task in VIDEO_QA_TASKS:
+        model_task = "classification"
+        with open(cfg["answer_list"]) as f:
+            cfg["num_labels"] = len(json.load(f))
+    else:
+        raise NotImplementedError(f"classification of dataset_type {task!r} (IGLUE) comes "
+                                  f"with ROADMAP queue item A8c; the port runs "
+                                  f"{VIDEO_QA_TASKS + MULTIPLE_CHOICE_TASKS}")
+    data_rng = random.Random(args.seed)
+    train_ds, test_ds = create_dataset(task, cfg, evaluate=args.evaluate, rng=data_rng)
+    model, mcfg = build_model(cfg, model_task, device=device, seed=args.seed)
+
+    def eval_fn():
+        return eval_multi(lambda ds: evaluate_classification(
+            model, ds, device=device, batch_size=cfg.get("batch_size_test", 32)), test_ds,
+            mean_key="accuracy")
+
+    loader = None
+    if not args.evaluate:
+        train_ds.rng = data_rng
+        loader = SeededLoader(train_ds, cfg.get("batch_size", 32), run_seed=args.seed,
+                              data_rng=data_rng)
+    return finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, "accuracy",
+                    loader=loader)
 
 
 class SeededLoader(MapLoader):
@@ -603,11 +651,11 @@ def _stream_pairs(name: str, stream, rngs, n_samples: int, seed: int, batch_fn=c
 
 def run_pretrain(args, cfg, device):
     """Mixed-stream pretraining: the image-text stream (+ the aux clean-data
-    replacement), the region-text stream and the text stream (reference
-    Pretrain.py:255-423)."""
+    replacement), the region-text stream, the video-frame-text stream (+ its
+    aux replacement) and the text stream (reference Pretrain.py:255-423)."""
     from x2vlm_tpu_torch.data import transforms as T
     from x2vlm_tpu_torch.data.pretrain import (
-        ImageTextStream, RegionTextStream, TextStream, region_collate,
+        ImageTextStream, RegionTextStream, TextStream, VideoTextStream, region_collate,
     )
     from x2vlm_tpu_torch.data.streaming import DistLineReader
     from x2vlm_tpu_torch.data.tokenization import TextPreprocessor, build_tokenizer
@@ -622,7 +670,7 @@ def run_pretrain(args, cfg, device):
                              f"pretrain_dataset.py:147)")
         if (cfg.get(block) or {}).get("languages"):
             raise NotImplementedError(f"{block}.languages (multilingual streams) comes "
-                                      f"with ROADMAP queue item A8")
+                                      f"with ROADMAP queue item A8b")
     for (key, block), item in UNPORTED_STREAMS.items():
         if cfg.get(key):
             raise NotImplementedError(f"the {block} stream ({key}) comes with ROADMAP "
@@ -696,6 +744,25 @@ def run_pretrain(args, cfg, device):
             batch_fn=lambda samples: region_collate(samples, rcfg.get("batch_size", 128),
                                                     max_images, region_rng),
             rngs=(region_rng, box_rng))
+    vcfg = cfg.get("videos")
+    if vcfg and cfg.get("train_file_videos"):
+        def video_stream(reader, pre, rng, n):
+            return VideoTextStream(
+                reader, pre, T.pretrain_transform(cfg["image_res"], rng=rng, as_float=False),
+                frame_len=vcfg.get("frame_len", cfg.get("frame_len", 3)),
+                # the reference names the frame list by the block's image_key
+                frames_key=vcfg.get("frames_key", vcfg.get("image_key", "frames")),
+                caption_key=vcfg.get("caption_key", "caption"),
+                is_image_rpath=vcfg.get("is_image_rpath", False),
+                combine_continuous_clips=vcfg.get("combine_continuous_clips", False),
+                minimum_frames_before_sampling=vcfg.get("mininum_frames_before_sampling", -1),
+                rng=rng, max_consecutive_broken=n)
+
+        n_videos = vcfg.get("batch_size", 40)
+        add("video", vcfg, cfg["train_file_videos"], video_stream, n_samples=n_videos)
+        if cfg.get("train_file_videos_aux"):
+            add("video_aux", vcfg, cfg["train_file_videos_aux"], video_stream,
+                n_samples=n_videos)
     tcfg = cfg.get("texts")
     if tcfg and cfg.get("train_file_text"):
         add("text", tcfg, cfg["train_file_text"],
@@ -705,10 +772,13 @@ def run_pretrain(args, cfg, device):
 
     ps = PretrainStreams(
         image=streams["image"], region=streams.get("region"), text=streams.get("text"),
-        aux=streams.get("aux"), image_weight=icfg.get("iter_perc", 1.0),
+        aux=streams.get("aux"), video=streams.get("video"), video_aux=streams.get("video_aux"),
+        image_weight=icfg.get("iter_perc", 1.0),
         region_weight=(rcfg or {}).get("iter_perc", 1.0),
         text_weight=(tcfg or {}).get("iter_perc", 1.0),
+        video_weight=(vcfg or {}).get("iter_perc", 1.0),
         aux_perc=cfg.get("aux_iter_perc", 0.0),
+        video_aux_perc=cfg.get("video_aux_iter_perc", 0.0),
         regions_use_bbox_only=cfg.get("regions_use_bbox_only", False),
         rng=random.Random(args.seed))
     ckpt_dir = os.path.join(args.output_dir, "ckpt")
@@ -744,8 +814,11 @@ def main(argv=None):
     device = resolve_device(args.device)
     t0 = time.time()
     runners = {"pretrain": run_pretrain, "retrieval": run_retrieval,
+               "video_retrieval": lambda *a: run_retrieval(*a, task="video_retrieval"),
                "grounding": run_grounding, "nlvr": run_nlvr, "vqa": run_vqa,
-               "captioning": run_captioning}
+               "captioning": run_captioning, "classification": run_classification,
+               "video_qa": lambda *a: run_classification(*a, task="video_qa"),
+               "next_qa_mc": lambda *a: run_classification(*a, task="next_qa_mc")}
     out = runners[args.task](args, cfg, device)
     print(f"total time: {time.time() - t0:.0f}s")
     return out

@@ -19,7 +19,8 @@ def evaluate_classification(model, dataset, *, device, batch_size: int = 32,
     """``{accuracy: percent, n}`` of argmax(``model.predict(batch)``)
     against ``label_key``. The batch holds every key of a sample but the
     label, as the JAX function's does (NLVR's predict reads image0 /
-    image1)."""
+    image1; multiple choice's image, option_ids and option_atts; a video
+    batch's image is (B, F, H, W, 3))."""
     model.eval()
     correct = total = 0
     for samples, rows in padded_batches(dataset, batch_size):

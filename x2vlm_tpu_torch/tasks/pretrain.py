@@ -8,6 +8,11 @@ As in the JAX package:
 - ``aux_iter_perc`` is a probability: with it the image batch is replaced
   by a clean-data (aux) batch; when an aux stream exists, noisy image
   batches never compute the matching loss;
+- the video stream (5-D frame batches through the image stream's losses)
+  takes the image batch's matching-loss flag: when a noisy image batch was
+  drawn beside an aux stream, the video batch computes no matching loss
+  either; ``video_aux_iter_perc`` replaces the video batch by a video-aux
+  batch the same way, drawn from the same rng after the image draw;
 - ``stop_calc_itm`` turns the matching loss off from that step on, on the
   image and the region streams;
 - the region stream adds the bbox losses (L1 + GIoU); with
@@ -20,7 +25,7 @@ As in the JAX package:
 Randomness: each step draws its hard negatives and dropout masks from
 generators seeded by (seed, step, stream), as the JAX loop folds the step
 into its key, so a resumed run draws what the uninterrupted one would.
-The video and parallel-text streams come with ROADMAP item A8.
+The parallel-text stream comes with ROADMAP item A8b.
 """
 
 from __future__ import annotations
@@ -39,23 +44,28 @@ __all__ = ["PretrainStreams", "pretrain_loop", "step_generators"]
 
 class PretrainStreams:
     """Per-stream infinite batch iterators, their loss weights (``iter_perc``),
-    the aux replacement probability (``aux_iter_perc``) and
-    ``regions_use_bbox_only``."""
+    the aux replacement probabilities (``aux_iter_perc``,
+    ``video_aux_iter_perc``) and ``regions_use_bbox_only``."""
 
     def __init__(self, image: Iterator, region: Optional[Iterator] = None,
                  text: Optional[Iterator] = None, aux: Optional[Iterator] = None,
+                 video: Optional[Iterator] = None, video_aux: Optional[Iterator] = None,
                  image_weight: float = 1.0, region_weight: float = 1.0,
-                 text_weight: float = 1.0, aux_perc: float = 0.0,
-                 regions_use_bbox_only: bool = False,
+                 text_weight: float = 1.0, video_weight: float = 1.0, aux_perc: float = 0.0,
+                 video_aux_perc: float = 0.0, regions_use_bbox_only: bool = False,
                  rng: Optional[random.Random] = None):
         self.image = image
         self.region = region
         self.text = text
         self.aux = aux
+        self.video = video
+        self.video_aux = video_aux
         self.image_weight = image_weight
         self.region_weight = region_weight
         self.text_weight = text_weight
+        self.video_weight = video_weight
         self.aux_perc = aux_perc
+        self.video_aux_perc = video_aux_perc
         self.regions_use_bbox_only = regions_use_bbox_only
         self.rng = rng or random.Random(0)
 
@@ -143,6 +153,15 @@ def pretrain_loop(
                 rb["is_image"] = rb["is_image"] * 0
             losses = grad_region[calc_itm](to_device(rb), *step_generators(device, seed, it, 1))
             metrics.update({f"region_{k}": v for k, v in losses.items()})
+        if s.video is not None:
+            if s.video_aux is not None and s.rng.random() < s.video_aux_perc:
+                vb = next(s.video_aux)
+            else:
+                vb = next(s.video)
+            # the image batch's matching flag, as the JAX loop passes it
+            losses = image_grad_fn(s.video_weight, itm)(
+                to_device(vb), *step_generators(device, seed, it, 2))
+            metrics.update({f"video_{k}": v for k, v in losses.items()})
         if s.text is not None:
             tb = dict(to_device(next(s.text)))
             tb["image"] = None

@@ -33,9 +33,11 @@ def _pad_rows(arr: np.ndarray, size: int) -> np.ndarray:
 
 @torch.inference_mode()
 def encode_corpus(model, dataset, *, device, batch_images: int = 64, batch_texts: int = 256):
-    """Encode every image and text of ``dataset`` (RetrievalEvalDataset).
-    Returns device tensors: img_embeds, img_feats, txt_embeds, txt_feats,
-    txt_atts. Ragged tails are padded to the batch size, then sliced off."""
+    """Encode every image and text of ``dataset`` (RetrievalEvalDataset, or
+    VideoRetrievalDataset: its (B, F, H, W, 3) videos pooled over frames by
+    ``encode_images``). Returns device tensors: img_embeds, img_feats,
+    txt_embeds, txt_feats, txt_atts. Ragged tails are padded to the batch
+    size, then sliced off."""
     img_embeds, img_feats = [], []
     n_img = dataset.n_images()
     for lo in range(0, n_img, batch_images):

@@ -16,7 +16,10 @@ retrieval model, the MLM and bbox heads (its JAX counterpart has neither:
 flax creates a head's parameters only where the task calls it), and in a
 grounding or NLVR2 model whatever of the projections, ``temp`` and the
 ITM, MLM and bbox heads it does not carry. The bbox head
-``bbox_head.{0,1,3}`` loads into a pretraining and a grounding model.
+``bbox_head.{0,1,3}`` loads into a pretraining and a grounding model, a
+fine-tuned ``cls_head.{0,1,3}`` into an NLVR2 or a classification model, and
+a stage-2 video file's ``absolute_frame_pos_embed`` into a video model of
+any frame count (:func:`load_converted`).
 Parameters the file lacks stay fresh (NLVR2's ``cls_head`` from a
 pretraining file); their names (inside the composition core) are
 returned for the optimizer's ``lr_mult`` group, and :func:`import_report`
@@ -36,7 +39,7 @@ model's 18 with the upper six copied into the fusion slots);
 :func:`convert_checkpoint_auto` picks one by the file's key flavour, and
 :func:`load_reference_checkpoint` goes through it, so a whole X2-VLM file's
 CLIP or Swin tower is converted by its own flavour too. A RoBERTa / XLM-R
-file and the Base -> Plus split come with ROADMAP item A8.
+file and the Base -> Plus split come with ROADMAP item A8b.
 
 Train state. :func:`save_train_state` writes the parameters, AdamW's
 ``mu`` / ``nu`` / ``count``, the step and the data cursors with
@@ -295,10 +298,10 @@ def convert_hf_bert_checkpoint(sd: Mapping, *, to_layers: Optional[int] = None,
     """A raw HF BERT file (``bert.*`` / ``cls.*``, or ``embeddings.*`` /
     ``encoder.*``) -> (the text encoder's state under ``text_encoder.``,
     unused keys), its layers expanded to ``to_layers``; the cross-attention
-    stays fresh. RoBERTa / XLM-R files come with ROADMAP item A8."""
+    stays fresh. RoBERTa / XLM-R files come with ROADMAP item A8b."""
     if any(k.startswith(("roberta.", "lm_head.")) for k in sd):
         raise NotImplementedError("a RoBERTa / XLM-R text checkpoint comes with ROADMAP "
-                                  "queue item A8")
+                                  "queue item A8b")
     out, unused = {}, []
     for k, v in _tensors(sd).items():
         if k.startswith(("bert.", "cls.")):
@@ -389,9 +392,12 @@ def load_converted(model: nn.Module, sd: Mapping[str, torch.Tensor]
                    ) -> Tuple[List[str], List[str]]:
     """Load a reference-named state dict into ``model``'s composition core
     (``strict=False``), each BEiT-2 relative-position table interpolated to
-    the model's window when its grid differs. Returns (missing, unexpected)
-    as :func:`load_reference_checkpoint`; raises on any other shape
-    mismatch."""
+    the model's window when its grid differs, and the video frame positions
+    ``absolute_frame_pos_embed`` of another frame count merged (the first
+    min(frame_len) frames from the file, the others left as they were; the
+    parameter counts as loaded, as in the JAX merge). Returns (missing,
+    unexpected) as :func:`load_reference_checkpoint`; raises on any other
+    shape mismatch."""
     core = _core(model)
     own = core.state_dict()
     load, unexpected = {}, []
@@ -404,6 +410,12 @@ def load_converted(model: nn.Module, sd: Mapping[str, torch.Tensor]
             src = int(round((np.sqrt(v.shape[0] - 3) + 1) / 2))
             dst = int(round((np.sqrt(own[k].shape[0] - 3) + 1) / 2))
             v = torch.from_numpy(interp_rel_pos_table(v.float().numpy(), src, dst))
+        if k == "absolute_frame_pos_embed" and v.dim() == own[k].dim() == 4 and \
+                v.shape[0] == own[k].shape[0] and v.shape[2:] == own[k].shape[2:]:
+            # another frame count: the first min(frame_len) frames load, the
+            # rest keep their fresh values (reference xvlm.py:603-607)
+            n = min(v.shape[1], own[k].shape[1])
+            v = torch.cat([v[:, :n].to(own[k]), own[k][:, n:]], dim=1)
         if v.shape != own[k].shape:
             raise ValueError(f"shape mismatch at {k}: checkpoint {tuple(v.shape)}, "
                              f"model {tuple(own[k].shape)}")

@@ -17,9 +17,11 @@ chain computes it, in this order:
 The decay mask follows the JAX names leaf for leaf: no decay on biases,
 LayerNorm scales, LayerScale gammas, ``temp``, ``cls_token``, relative
 position tables, the vision towers' position tables (ViT's ``pos_embed``,
-CLIP's ``pos_embed.weight``: the JAX leaf of both is ``pos_embed``) and
+CLIP's ``pos_embed.weight``: the JAX leaf of both is ``pos_embed``), any
+name whose last part holds ``pos_embed`` (the video frame positions
+``absolute_frame_pos_embed``, the JAX leaf ``frame_pos_embed``) and
 anything of rank <= 1; BERT's ``position_embeddings`` IS decayed (its JAX
-leaf is ``embedding``).
+leaf is ``embedding``), and so is the resampler's ``time_pos_emb``.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ def lr_schedule(base_lr: float, total_steps: int, warmup_steps: float = 0,
 def is_no_decay(name: str, param: torch.Tensor) -> bool:
     """The JAX package's no-decay rule, by the port's (reference) names."""
     last = name.rsplit(".", 1)[-1]
-    if last in ("temp", "cls_token", "gamma_1", "gamma_2", "pos_embed"):
+    if last in ("temp", "cls_token", "gamma_1", "gamma_2") or "pos_embed" in last:
         return True
     if "relative_position_bias_table" in name or name.endswith(".pos_embed.weight"):
         return True
