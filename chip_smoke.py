@@ -241,7 +241,38 @@ Phases (any failure exits non-zero and prints no result line):
    read, no plain attention, ``--resume`` from step 2 restoring the state
    and the batches bit for bit, and (c) the fine-tuned weights on 2 videos,
    card bf16 against CPU fp32 (``loss_cls``, logits, gradient cosines, each
-   40 x 200 call). Train states go to ``/dev/shm``.
+   40 x 200 call). Train states go to ``/dev/shm``;
+14. the Plus / CCLM base at 224 px (BEiT-2-base, XLM-R-base's 12 layers
+   over 64-token texts and a 250,002-row vocabulary, a 6-layer cross
+   encoder): the launcher's ``--task pretrain`` on
+   ``configs/pretrain/cclm_x2vlm_base.yaml`` from phase 7's ``.th``
+   (``is_xvlm_ckpt`` with ``replace_text_encoder``: its text layers 12-17
+   become the cross encoder, XLM-R starts fresh from ``--seed``), a written
+   250,002-entry XLM-R ``tokenizer.json`` read by the port's own tokenizer,
+   phase 7's images with captions keyed by the config's eight languages,
+   its region lines (monolingual: the shipped region block sets no
+   ``languages``) and 256 written parallel lines; images cut 128 -> 32, the
+   region block (128 rows over 50 images) and the parallel-text block (128
+   pairs of 64 tokens) as shipped; 2 steps, then ``--resume`` from the state
+   of step 1. Checked: the import (XLM-R and the MLM decoder bias fresh,
+   nothing unexpected), finite losses of the three streams, the launches of
+   the run and of each stream call (image: 12 of each flash kernel at B=32,
+   tiny 30 at 32 x 64 x 64, 6 at 96 x 64 x 64, 96 x 64 x 200 and 32 x 64 x
+   200; region: 12 at B=50, tiny 36 at 128 x 64 x 64, 6 at 384 x 64 x 64 and
+   384 x 64 x 200, 12 at 128 x 64 x 200; parallel text: no flash, tiny 48 at
+   128 x 64 x 64 and 12 at 384 x 64 x 64), all tensor-core, no plain
+   attention; the restored state and cursors (the parallel text's among
+   them) bit for bit; then the weights on 2 images, 2 region rows and 2
+   parallel pairs, card bf16 against CPU fp32 with the negatives injected:
+   every loss within 0.05 + 2%, gradient cosines >= 0.99 (XLM-R's table
+   and a layer, the cross encoder's self- and cross-attention among them),
+   each bf16 call with 200 or 64 keys into K5 and K6 within half the bf16
+   rule; and the fused MLM CE timed at 250,002 rows. Each stream call's
+   CUDA-event and wall ms and peak memory are printed.
+
+Each launcher phase (7-14) logs its seconds split into data, run,
+``--resume``, the CPU fp32 hold, phase 12's export and the rest (``phase N
+seconds``).
 
 The 40 x 584 shapes of phases 8 and 9 (the fine-tune's 96-row ITM pass
 with dropout, the 1024- and 512-row rerank, grounding's 20-row bbox pass
@@ -263,9 +294,11 @@ x 40 x 200 / 56 and 128 x 40 x 56 serving; and phase 13's: K1-K4 at S=197
 with B=40 (the video QA step) and B=120 (the video stream), K1 at B=80
 (its eval call), K5 / K6 at 8 x 40 x 200, 80 x 40 x 40, 160 x 40 x 40 and
 160 x 40 x 200 with training operands, K5 at 16 x 40 x 40 and 16 x 40 x 200
-serving.
+serving; and phase 14's: K5 / K6 with training operands at 32, 96, 128 and
+384 x 64 x 64, 32 and 96 x 64 x 200, and 128 and 384 x 64 x 200 with region
+key masks.
 
-Every attention launch of phases 3 and 5-13 is counted by kernel, shape and
+Every attention launch of phases 3 and 5-14 is counted by kernel, shape and
 operands (serving: no multiplier, no probabilities; training; the flash
 kernels' with or without a bias) and must fall
 on a shape phase 2 checked and timed (``FLASH_MAIN_SHAPES``,
@@ -283,7 +316,9 @@ and ``DIR/chip_smoke_region_profile.txt`` (and phase 8's two, and phase
 10's ``chip_smoke_vqa_{step,eval}_profile.txt``, phase 11's
 ``chip_smoke_captioning_{step,eval}_profile.txt`` and phase 12's
 ``chip_smoke_{clip,swin}_{step,eval}_profile.txt`` and phase 13's
-``chip_smoke_video_{pretrain,step,eval}_profile.txt``), each with a
+``chip_smoke_video_{pretrain,step,eval}_profile.txt`` and phase 14's
+``chip_smoke_cclm_{image,region,mtext}_profile.txt``, the last call of each
+stream), each with a
 last line of the port kernels' (attention and K7) device time and
 launches.
 """
@@ -392,6 +427,9 @@ CAP_PROMPT, SCST_SAMPLES = 4, 5
 # video stream (40 videos x 3 frames)
 QA_VIDEOS, QA_FRAMES, QA_EVAL_VIDEOS = 8, 5, 16
 STREAM_VIDEOS, STREAM_FRAMES = 40, 3
+# phase 14's CCLM cell (cclm_x2vlm_base.yaml): 64-token texts, the
+# parallel-text block's pairs a step, XLM-R's vocabulary
+CCLM_LEN, PARA_PAIRS, XLMR_VOCAB = 64, 128, 250002
 SCST_ROWS, SCST_LEN = CAP_BATCH * SCST_SAMPLES, CAP_PROMPT + 2 * (CAP_MAX_LEN + 1)
 TINY_REPLACES = {"tiny_attention_fwd": "x2vlm_tpu/ops/tiny_attention.py:88",
                  "tiny_attention_bwd": "x2vlm_tpu/ops/tiny_attention.py:135"}
@@ -409,6 +447,31 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     FAILURES.append(msg)
     log(f"FAIL {msg}")
+
+
+# each launcher phase's seconds by part: "data" (corpora and configs
+# written), "run" (the launcher's run), "resume" (its --resume run),
+# "hold" (the card bf16 against CPU fp32 hold), "export"; the rest is state
+# loads, hashing and model builds around them
+PHASE_PARTS = collections.defaultdict(collections.Counter)
+
+
+def part_done(phase: str, part: str, since: float) -> float:
+    """Adds the seconds since ``since`` to ``phase``'s ``part``; returns them."""
+    secs = time.perf_counter() - since
+    PHASE_PARTS[phase][part] += secs
+    return secs
+
+
+def phase_seconds(phase: str, since: float) -> float:
+    """Logs ``phase``'s seconds since ``since`` split into its parts and the
+    rest; returns them."""
+    total = time.perf_counter() - since
+    parts = PHASE_PARTS[phase]
+    split = ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+    log(f"phase {phase} seconds: {total:.1f} ({split}{', ' if split else ''}rest "
+        f"{total - sum(parts.values()):.1f})")
+    return total
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S):
@@ -794,7 +857,21 @@ TINY_MAIN_SHAPES = (
     ("video stream text self-attention, clean and masked rows", 2 * STREAM_VIDEOS, TEXT_LEN,
      TEXT_LEN, True, "pad"),
     ("video stream fusion self-attention", 4 * STREAM_VIDEOS, TEXT_LEN, TEXT_LEN, True, "pad"),
-    ("video stream fusion cross-attention", 4 * STREAM_VIDEOS, TEXT_LEN, 200, True, "pad"))
+    ("video stream fusion cross-attention", 4 * STREAM_VIDEOS, TEXT_LEN, 200, True, "pad"),
+    ("CCLM image stream XLM-R / cross-encoder self-attention", TRAIN_BATCH, CCLM_LEN, CCLM_LEN,
+     True, "pad"),
+    ("CCLM image ITM cross-encoder self-attention", 3 * TRAIN_BATCH, CCLM_LEN, CCLM_LEN, True,
+     "pad"),
+    ("CCLM image ITM cross-attention", 3 * TRAIN_BATCH, CCLM_LEN, 200, True, "pad"),
+    ("CCLM image MLM cross-attention", TRAIN_BATCH, CCLM_LEN, 200, True, "pad"),
+    ("CCLM region and parallel-text self-attention, TLM cross-attention", REGION_ROWS,
+     CCLM_LEN, CCLM_LEN, True, "pad"),
+    ("CCLM region ITM / TTM self-attention, TTM cross-attention", 3 * REGION_ROWS, CCLM_LEN,
+     CCLM_LEN, True, "pad"),
+    ("CCLM region ITM cross-attention, region key masks", 3 * REGION_ROWS, CCLM_LEN, 200, True,
+     "region"),
+    ("CCLM region MLM and bbox cross-attention, region key masks", REGION_ROWS, CCLM_LEN, 200,
+     True, "region"))
 
 
 def check_tiny(gen, dev):
@@ -2186,7 +2263,7 @@ LEDGER_PARTS = ("tiny_fwd", "tiny_bwd", "flash_fwd_shapes", "flash_bwd_shapes",
 # the main paths, as the kernels line's ``launches_by_path`` names them
 PATHS = ("serving", "train_step", "int8_serving", "pretrain_launcher", "retrieval_launcher",
          "finetune_launcher", "vqa_launcher", "caption_launcher", "clip_launcher",
-         "swin_launcher", "video_launcher")
+         "swin_launcher", "video_launcher", "cclm_launcher")
 
 
 def ledger_add(ledger, path: str, operands: str, c: dict) -> None:
@@ -2343,22 +2420,27 @@ class StreamTimer:
     optimizer step (``tasks.pretrain.make_grad_fn`` / ``make_apply_grads``):
     each call's CUDA-event ms, wall ms and peak device memory by stream, and
     the region stream's launches per call. With ``profile_call`` (stream,
-    index) that call runs under torch.profiler, written to ``profile_to``
-    (args, smi, file name)."""
+    index), or a set of them, those calls run under torch.profiler, written
+    to ``profile_to`` (args, smi, file name; a ``{stream}`` in the name
+    takes the stream's)."""
 
     def __init__(self, profile_call=None, profile_to=None):
         from x2vlm_tpu_torch.tasks import pretrain as pretrain_mod
 
         self.mod = pretrain_mod
         self.calls = collections.defaultdict(list)
-        self.profile_call, self.profile_to = profile_call, profile_to
+        self.profile_calls = (set(profile_call) if isinstance(profile_call, (set, frozenset))
+                              else {profile_call})
+        self.profile_to = profile_to
 
     def _timed(self, stream, fn):
         def call(*a):
             record = {}
-            # the video stream shares the image stream's grad function
-            name = "video" if stream == "image" and a[0]["image"].dim() == 5 else stream
-            last = self.profile_call == (name, len(self.calls[name]))
+            # the video stream shares the image stream's grad function, the
+            # parallel text (its pairs' second texts) the text stream's signature
+            name = ("video" if stream == "image" and a[0]["image"].dim() == 5 else
+                    "mtext" if a and "text_ids_2" in a[0] else stream)
+            last = (name, len(self.calls[name])) in self.profile_calls
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             before = launch_counts()
@@ -2377,7 +2459,7 @@ class StreamTimer:
             self.calls[name].append(record)
             if last:
                 args, smi, fname = self.profile_to
-                write_profile(args, smi, prof, fname, 40)
+                write_profile(args, smi, prof, fname.format(stream=name), 40)
             return out
 
         return call
@@ -2457,7 +2539,7 @@ def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = "")
     out = os.path.join(work, "out_pretrain")
     argv = ["--task", "pretrain", "--config", cfg_path, "--output_dir", out,
             "--seed", str(seed), "--device", dev.type]
-    log(f"phase 7 data and config: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 7 data and config: {part_done('7', 'data', t0):.1f} s")
 
     t1 = time.perf_counter()
     reset_counts()
@@ -2467,7 +2549,7 @@ def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = "")
         record = run_mod.main(argv + ["--epoch", str(LAUNCH_STEPS // 2)])
     torch.cuda.synchronize()
     counts1 = launch_counts()
-    log(f"phase 7 run 1 ({LAUNCH_STEPS} steps): {time.perf_counter() - t1:.1f} s; "
+    log(f"phase 7 run 1 ({LAUNCH_STEPS} steps): {part_done('7', 'run', t1):.1f} s; "
         f"{json.dumps(record)}")
     if not all(math.isfinite(v) for v in record.values() if isinstance(v, float)):
         fail(f"pretrain launcher: non-finite metrics {record}")
@@ -2524,7 +2606,8 @@ def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = "")
     finally:
         run_mod.maybe_resume = orig
     torch.cuda.synchronize()
-    log(f"phase 7 run 2 (--resume to step {RESUME_STEPS}): {time.perf_counter() - t2:.1f} s; "
+    log(f"phase 7 run 2 (--resume to step {RESUME_STEPS}): "
+        f"{part_done('7', 'resume', t2):.1f} s; "
         f"resumed at step {seen.get('step')}, data cursors {seen.get('data_state')}; "
         f"equal to the saved state: params {seen.get('params')}, mu {seen.get('mu')}, "
         f"nu {seen.get('nu')}, count {seen.get('count')}; {json.dumps(record2)}")
@@ -2537,12 +2620,12 @@ def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = "")
             record2.get("broken", -1) != 0:
         fail(f"pretrain launcher --resume: {record2}")
 
-    final = torch.load(state_path, map_location="cpu", weights_only=False)
+    final = load_params(state_path)
     th_path = os.path.join(root, "x2vlm_phase7.th")
-    torch.save({"model": {k[len("base."):]: v for k, v in final["params"].items()}}, th_path)
+    torch.save({"model": {k[len("base."):]: v for k, v in final.items()}}, th_path)
     if work != root:
         shutil.rmtree(work, ignore_errors=True)
-    log(f"phase 7 seconds: {time.perf_counter() - t0:.1f}")
+    phase_seconds("7", t0)
     return th_path, tok_dir, words, counts1
 
 
@@ -2713,7 +2796,7 @@ def retrieval_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
     out = os.path.join(root, "out_retrieval")
-    log(f"phase 8 data and config: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 8 data and config: {part_done('8', 'data', t0):.1f} s")
 
     imported = {}
     orig_load = ckpt_lib.load_reference_checkpoint
@@ -2771,7 +2854,8 @@ def retrieval_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
         retrieval_mod.evaluate_retrieval = orig_eval
     torch.cuda.synchronize()
     counts = launch_counts()
-    log(f"phase 8 run ({len(step_ms)} fine-tune steps + eval): {time.perf_counter() - t1:.1f} s; "
+    log(f"phase 8 run ({len(step_ms)} fine-tune steps + eval): "
+        f"{part_done('8', 'run', t1):.1f} s; "
         f"{json.dumps(record)}")
     log(f"phase 8 fine-tune step ms at 384 px, B={TRAIN_BATCH} (CUDA events, wall): "
         f"{json.dumps([[round(a, 3), round(b, 3)] for a, b in step_ms])}"
@@ -2814,16 +2898,17 @@ def retrieval_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
 
     # the fine-tuned weights through the model's own calls at 384 px: the
     # card in bf16 and in fp32 against the port's CPU fp32 path, 8 pairs
-    state = torch.load(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE),
-                       map_location="cpu", weights_only=False)["params"]
+    state = load_params(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE))
     _, test_ds = create_dataset("retrieval", cfg, evaluate=True)
     images = torch.from_numpy(test_ds.image_batch([0, 1]))
     ids, atts = (torch.from_numpy(a) for a in test_ds.text_batch([0, 1, 5, 6]))
+    t_hold = time.perf_counter()
     readings = fusion_384_readings(state, xvlm_config_from_yaml(cfg), images, ids, atts, dev)
+    part_done("8", "hold", t_hold)
     log(f"phase 8 fusion at 384 px, 8 pairs, card vs CPU fp32: {json.dumps(readings)}")
     for msg in fusion_384_faults(readings):
         fail(f"retrieval launcher, fusion at 384 px: {msg}")
-    log(f"phase 8 seconds: {time.perf_counter() - t0:.1f}")
+    phase_seconds("8", t0)
     return split_counts(counts, step_counts)
 
 
@@ -3079,7 +3164,7 @@ def finetune_task_phase(args, task: str, root: str, th_path: str, tok_dir: str, 
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
     out = os.path.join(root, f"out_{task}")
-    log(f"phase 9 {task} data and config: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 9 {task} data and config: {part_done(f'9 {task}', 'data', t0):.1f} s")
 
     imported, steps, evals = {}, [], []
     orig_load = ckpt_lib.load_reference_checkpoint
@@ -3113,7 +3198,7 @@ def finetune_task_phase(args, task: str, root: str, th_path: str, tok_dir: str, 
     torch.cuda.synchronize()
     counts = launch_counts()
     log(f"phase 9 {task} run ({len(steps)} fine-tune steps + eval): "
-        f"{time.perf_counter() - t1:.1f} s; {json.dumps(record)}")
+        f"{part_done(f'9 {task}', 'run', t1):.1f} s; {json.dumps(record)}")
     step_ms = [[round(r["ms"], 3), round(r["wall_ms"], 3)] for r in steps]
     log(f"phase 9 {task} fine-tune step ms at 384 px, B={batch} (CUDA events, wall): "
         f"{json.dumps(step_ms)}{' (the last one profiled)' if args.profile else ''}; peak "
@@ -3183,11 +3268,13 @@ def finetune_task_phase(args, task: str, root: str, th_path: str, tok_dir: str, 
             return result
 
         reset_counts()
+        t2 = time.perf_counter()
         ckpt_lib.restore_train_state = restore
         try:
             run_mod.main(argv + ["--resume"])
         finally:
             ckpt_lib.restore_train_state = orig_restore
+        part_done(f"9 {task}", "resume", t2)
         same = bool(restored) and restored["count"] == saved["count"] and all(
             restored[part].keys() == saved[part].keys() and
             all(torch.equal(restored[part][k], saved[part][k]) for k in saved[part])
@@ -3198,18 +3285,23 @@ def finetune_task_phase(args, task: str, root: str, th_path: str, tok_dir: str, 
         if not same or launch_counts()["flash_fwd"]:
             fail("grounding launcher --resume: the restored state differs from the saved one, "
                  "or it trained again")
+        # the resumed run trained nothing and saved nothing: the hold reads
+        # the saved parameters already loaded
+        state = saved["params"]
         del saved, restored
+    else:
+        state = load_params(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE))
 
     # the fine-tuned weights on 2 rows, card bf16 against CPU fp32
-    state = torch.load(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE), map_location="cpu",
-                       weights_only=False)["params"]
     train_ds, _ = create_dataset(task, cfg, rng=random.Random(args.seed))
+    t_hold = time.perf_counter()
     hold, faults = finetune_hold(task, state, xvlm_config_from_yaml(cfg),
                                  [train_ds[0], train_ds[1]], dev)
+    part_done(f"9 {task}", "hold", t_hold)
     log(f"phase 9 {task} card bf16 vs CPU fp32 (2 rows, dropout off): {json.dumps(hold)}")
     for msg in faults:
         fail(f"{task} launcher, 2 rows card vs CPU: {msg}")
-    log(f"phase 9 {task} seconds: {time.perf_counter() - t0:.1f}")
+    phase_seconds(f"9 {task}", t0)
     return {"counts": counts, "steps": steps, "evals": evals}
 
 
@@ -3406,7 +3498,7 @@ def vqa_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, image
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
     out, out_resumed = os.path.join(root, "out_vqa"), os.path.join(root, "out_vqa_resumed")
-    log(f"phase 10 data and config: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 10 data and config: {part_done('10', 'data', t0):.1f} s")
 
     imported, steps, evals, eval_walls = {}, [], [], []
     batches = {"whole": [], "resumed": []}
@@ -3421,7 +3513,8 @@ def vqa_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, image
         imported["missing"], imported["unexpected"] = orig["load"](model, path)
         imported["decoder"] = sorted(n for n, _ in model.named_parameters()
                                      if n.startswith("text_decoder."))
-        src = torch.load(path, map_location="cpu", weights_only=False)["model"][table_key]
+        src = torch.load(path, map_location="cpu", weights_only=False,
+                         mmap=True)["model"][table_key].clone()
         got = model.state_dict()[table_key].cpu().numpy()
         window = lambda rows: int(round((math.sqrt(rows - 3) + 1) / 2))
         want = ckpt_lib.interp_rel_pos_table(src.float().numpy(), window(src.shape[0]),
@@ -3474,7 +3567,7 @@ def vqa_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, image
     torch.cuda.synchronize()
     counts = launch_counts()
     log(f"phase 10 run ({len(steps)} fine-tune steps + eval): "
-        f"{time.perf_counter() - t1:.1f} s; {json.dumps(record)}")
+        f"{part_done('10', 'run', t1):.1f} s; {json.dumps(record)}")
     log(f"phase 10 VQA fine-tune step ms at 768 px, B={VQA_BATCH} questions, {VQA_ANSWERS} "
         f"answer rows (CUDA events, wall): "
         f"{json.dumps([[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in steps])}"
@@ -3565,7 +3658,7 @@ def vqa_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, image
             all(torch.equal(restored[part][k], saved[part][k]) for k in saved[part])
             for part in ("params", "mu", "nu"))
     same_batches = batches["resumed"] == batches["whole"][VQA_RESUME_STEP:]
-    log(f"phase 10 --resume from step {saved['step']}: {time.perf_counter() - t2:.1f} s; "
+    log(f"phase 10 --resume from step {saved['step']}: {part_done('10', 'resume', t2):.1f} s; "
         f"restored state equal to the saved one bit for bit: {same}; its "
         f"{len(batches['resumed'])} batches equal to the whole run's steps "
         f"{VQA_RESUME_STEP + 1}-{N_VQA_STEPS} bit for bit: {same_batches} "
@@ -3579,21 +3672,22 @@ def vqa_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, image
     evals = evals[:n_eval]
 
     # the fine-tuned weights on 2 questions, card bf16 against CPU fp32
-    state = torch.load(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE), map_location="cpu",
-                       weights_only=False)["params"]
+    state = load_params(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE))
     train_ds, test_ds = create_dataset("vqa", cfg, rng=random.Random(args.seed))
     batch = vqa_collate([train_ds[0], train_ds[1]], 4, rng=random.Random(args.seed))
     batch = {k: torch.from_numpy(v) for k, v in batch.items()}
     for k in ("question_ids", "answer_ids", "answer_index"):
         batch[k] = batch[k].long()
+    t_hold = time.perf_counter()
     hold, faults = vqa_hold(state, cfg, batch,
                             {"answer_ids": torch.from_numpy(test_ds.answer_ids).long(),
                              "answer_atts": torch.from_numpy(test_ds.answer_atts)}, dev)
+    part_done("10", "hold", t_hold)
     log(f"phase 10 card bf16 vs CPU fp32 (2 questions, 4 answer rows, dropout off): "
         f"{json.dumps(hold)}")
     for msg in faults:
         fail(f"vqa launcher, 2 questions card vs CPU: {msg}")
-    log(f"phase 10 seconds: {time.perf_counter() - t0:.1f}")
+    phase_seconds("10", t0)
     return split_counts(counts, [r["delta"] for r in steps])
 
 
@@ -3810,7 +3904,7 @@ def caption_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
         json.dump(scst_cfg, f)
     out, out_resumed = os.path.join(root, "out_cap"), os.path.join(root, "out_cap_resumed")
     out_scst = os.path.join(root, "out_scst")
-    log(f"phase 11 data and config: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 11 data and config: {part_done('11', 'data', t0):.1f} s")
 
     imported, steps, evals, rollouts, eval_walls = {}, [], [], [], []
     step_sink = [steps]        # the list the timed train steps go to
@@ -3826,7 +3920,8 @@ def caption_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
 
     def load(model, path):
         imported["missing"], imported["unexpected"] = orig["load"](model, path)
-        src = torch.load(path, map_location="cpu", weights_only=False)["model"][table_key]
+        src = torch.load(path, map_location="cpu", weights_only=False,
+                         mmap=True)["model"][table_key].clone()
         got = model.state_dict()[table_key].cpu().numpy()
         window = lambda rows: int(round((math.sqrt(rows - 3) + 1) / 2))
         want = ckpt_lib.interp_rel_pos_table(src.float().numpy(), window(src.shape[0]),
@@ -3897,7 +3992,7 @@ def caption_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
     torch.cuda.synchronize()
     counts = launch_counts()
     log(f"phase 11 run ({len(steps)} fine-tune steps + eval): "
-        f"{time.perf_counter() - t1:.1f} s; {json.dumps(record)}")
+        f"{part_done('11', 'run', t1):.1f} s; {json.dumps(record)}")
     log(f"phase 11 captioning step ms at 384 px, B={CAP_BATCH} (CUDA events, wall): "
         f"{json.dumps([[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in steps])}"
         f"{' (the last one profiled)' if args.profile else ''}; peak device memory GiB "
@@ -3989,7 +4084,7 @@ def caption_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
             all(torch.equal(restored[part][k], saved[part][k]) for k in saved[part])
             for part in ("params", "mu", "nu"))
     same_batches = batches["resumed"] == batches["whole"][CAP_RESUME_STEP:]
-    log(f"phase 11 --resume from step {saved['step']}: {time.perf_counter() - t2:.1f} s; "
+    log(f"phase 11 --resume from step {saved['step']}: {part_done('11', 'resume', t2):.1f} s; "
         f"restored state equal to the saved one bit for bit: {same}; its "
         f"{len(batches['resumed'])} batches equal to the whole run's steps "
         f"{CAP_RESUME_STEP + 1}-{N_CAP_STEPS} bit for bit: {same_batches} "
@@ -4017,7 +4112,7 @@ def caption_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
     torch.cuda.synchronize()
     scst_counts = launch_counts()
     log(f"phase 11 SCST ({len(scst_steps)} steps of {CAP_BATCH} images x {SCST_SAMPLES} "
-        f"rollouts): {time.perf_counter() - t3:.1f} s; {json.dumps(scst_record)}; rollout "
+        f"rollouts): {part_done('11', 'run', t3):.1f} s; {json.dumps(scst_record)}; rollout "
         f"calls ms (CUDA events, wall) "
         f"{[[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in rollouts]}, peak GiB "
         f"{[round(r['peak_gib'], 2) for r in rollouts]}; SCST step ms (CUDA events, wall) "
@@ -4037,8 +4132,7 @@ def caption_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
               (("rollout", len(rollouts)), ("scst", len(scst_steps))))
 
     # the fine-tuned weights on 2 images, card bf16 against CPU fp32
-    state = torch.load(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE), map_location="cpu",
-                       weights_only=False)["params"]
+    state = load_params(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE))
     train_ds, _ = create_dataset("captioning", cfg, tokenizer=tok,
                                  rng=random.Random(args.seed))
     batch = run_mod.to_device(collate([train_ds[0], train_ds[1]]), torch.device("cpu"))
@@ -4047,11 +4141,13 @@ def caption_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
         lines = json.load(f)[:2]
     sampled = [tok.convert_tokens_to_ids(tok.tokenize(c))[:CAP_MAX_LEN]
                for line in lines for c in line["caption"]]
+    t_hold = time.perf_counter()
     hold, faults = caption_hold(state, cfg, batch, sampled, prompt, tok, dev)
+    part_done("11", "hold", t_hold)
     log(f"phase 11 card bf16 vs CPU fp32 (2 images, dropout off): {json.dumps(hold)}")
     for msg in faults:
         fail(f"caption launcher, 2 images card vs CPU: {msg}")
-    log(f"phase 11 seconds: {time.perf_counter() - t0:.1f}")
+    phase_seconds("11", t0)
     return [split_counts(counts, [r["delta"] for r in steps]),
             split_counts(scst_counts, [r["delta"] for r in scst_steps])]
 
@@ -4159,6 +4255,13 @@ def tower_hold(tower: str, state: dict, mcfg, batch: dict, dev):
     return r, faults
 
 
+def load_params(path: str) -> dict:
+    """The parameters of a saved train state, memory-mapped: AdamW's ``mu``
+    and ``nu`` (two thirds of the file) are never read."""
+    state = torch.load(path, map_location="cpu", weights_only=False, mmap=True)
+    return {k: v.clone() for k, v in state["params"].items()}
+
+
 def work_dir(root: str, need_bytes: int) -> str:
     """A directory in RAM (``/dev/shm``) with room for ``need_bytes``, else
     ``root``: the card's machine caps what one call writes to its disk at
@@ -4210,6 +4313,7 @@ def tower_task_phase(args, tower: str, root: str, tok_dir: str, image_root: str,
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
     mcfg = xvlm_config_from_yaml(cfg)
+    part_done(f"12 {tower}", "data", t0)
     work = work_dir(root, 8 * 2**30)   # a train state (~3.5 GB) and a bundle (~1.2 GB)
     out = os.path.join(work, f"out_{tower}")
 
@@ -4250,7 +4354,7 @@ def tower_task_phase(args, tower: str, root: str, tok_dir: str, image_root: str,
     torch.cuda.synchronize()
     counts = launch_counts()
     log(f"phase 12 {tower} run ({len(steps)} fine-tune steps + eval): "
-        f"{time.perf_counter() - t1:.1f} s; {json.dumps(record)}")
+        f"{part_done(f'12 {tower}', 'run', t1):.1f} s; {json.dumps(record)}")
     log(f"phase 12 {tower} fine-tune step ms at 224 px, B={TRAIN_BATCH} (CUDA events, wall): "
         f"{json.dumps([[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in steps])}"
         f"{' (the last one profiled)' if args.profile else ''}; peak device memory GiB "
@@ -4314,7 +4418,7 @@ def tower_task_phase(args, tower: str, root: str, tok_dir: str, image_root: str,
         for part in ("params", "mu", "nu"))
     log(f"phase 12 {tower} --resume: restored state equal to the saved one bit for bit: "
         f"{same} (step {saved['step']}, count {saved['count']}); "
-        f"{time.perf_counter() - t2:.1f} s")
+        f"{part_done(f'12 {tower}', 'resume', t2):.1f} s")
     if not same:
         fail(f"{tower} launcher --resume: the restored state differs from the saved one")
     state = saved["params"]
@@ -4325,7 +4429,9 @@ def tower_task_phase(args, tower: str, root: str, tok_dir: str, image_root: str,
     ids, atts = (torch.from_numpy(a) for a in test_ds.text_batch([0, 5]))
     batch = {"image": torch.from_numpy(test_ds.image_batch([0, 1])), "text_ids": ids.long(),
              "text_atts": atts, "idx": torch.tensor([0, 1])}
+    t_hold = time.perf_counter()
     hold, faults = tower_hold(tower, state, mcfg, batch, dev)
+    part_done(f"12 {tower}", "hold", t_hold)
     log(f"phase 12 {tower} card bf16 vs CPU fp32 (2 rows, dropout and drop path off): "
         f"{json.dumps(hold)}")
     for msg in faults:
@@ -4339,8 +4445,8 @@ def tower_task_phase(args, tower: str, root: str, tok_dir: str, image_root: str,
          "--config", cfg_path, "--checkpoint", os.path.join(out, "ckpt"), "--out", bundle,
          "--device", "cpu"], cwd=REPO_ROOT, capture_output=True, text=True, timeout=900)
     shutil.rmtree(out)
-    log(f"phase 12 {tower} export: exit {proc.returncode}, {time.perf_counter() - t3:.1f} s; "
-        f"{proc.stdout.strip()[-300:]}")
+    log(f"phase 12 {tower} export: exit {proc.returncode}, "
+        f"{part_done(f'12 {tower}', 'export', t3):.1f} s; {proc.stdout.strip()[-300:]}")
     if proc.returncode:
         fail(f"{tower} export_serving: exit {proc.returncode}: {proc.stderr[-2000:]}")
         if work != root:
@@ -4400,7 +4506,7 @@ def tower_task_phase(args, tower: str, root: str, tok_dir: str, image_root: str,
         f"{json.dumps({k: round(v, 3) for k, v in req_ms.items()})}; {smi}")
     del server, outs
     torch.cuda.empty_cache()
-    log(f"phase 12 {tower} seconds: {time.perf_counter() - t0:.1f}")
+    phase_seconds(f"12 {tower}", t0)
     return {"run": split_counts(counts, [r["delta"] for r in steps]), "requests": req_counts}
 
 
@@ -4496,7 +4602,7 @@ def video_pretrain_phase(args, root: str, th_path: str, tok_dir: str, words, wor
     out = os.path.join(work, "out_video_pretrain")
     argv = ["--task", "pretrain", "--config", cfg_path, "--output_dir", out, "--checkpoint",
             th_path, "--seed", str(args.seed), "--device", dev.type]
-    log(f"phase 13a data and config: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 13a data and config: {part_done('13a', 'data', t0):.1f} s")
 
     imported = {}
     orig_load = ckpt_lib.load_reference_checkpoint
@@ -4516,7 +4622,7 @@ def video_pretrain_phase(args, root: str, th_path: str, tok_dir: str, words, wor
         ckpt_lib.load_reference_checkpoint = orig_load
     torch.cuda.synchronize()
     counts1 = launch_counts()
-    log(f"phase 13a run 1 ({VIDEO_STEPS} steps): {time.perf_counter() - t1:.1f} s; "
+    log(f"phase 13a run 1 ({VIDEO_STEPS} steps): {part_done('13a', 'run', t1):.1f} s; "
         f"{json.dumps(record)}")
     if imported.get("missing") != ["absolute_frame_pos_embed"]:
         fail(f"video pretrain launcher import of {th_path}: missing {imported.get('missing')},"
@@ -4585,7 +4691,7 @@ def video_pretrain_phase(args, root: str, th_path: str, tok_dir: str, words, wor
         f"events ms, wall ms, peak GiB; steps 1-{VIDEO_RESUME_STEPS}"
         f"{', step 2 profiled' if args.profile else ''}): {json.dumps(video_ms)}; {smi}")
     log(f"phase 13a run 2 (--resume to step {VIDEO_RESUME_STEPS}): "
-        f"{time.perf_counter() - t2:.1f} s; resumed at step {seen.get('step')}, data cursors "
+        f"{part_done('13a', 'resume', t2):.1f} s; resumed at step {seen.get('step')}, data cursors "
         f"{seen.get('data_state')}; equal to the saved state: params {seen.get('params')}, "
         f"mu {seen.get('mu')}, nu {seen.get('nu')}, count {seen.get('count')}; "
         f"{json.dumps(record2)}")
@@ -4600,7 +4706,7 @@ def video_pretrain_phase(args, root: str, th_path: str, tok_dir: str, words, wor
         fail(f"video pretrain launcher --resume: {record2}")
     del saved
 
-    final = torch.load(state_path, map_location="cpu", weights_only=False)["params"]
+    final = load_params(state_path)
     th13 = os.path.join(work, "x2vlm_phase13.th")
     torch.save({"model": {k[len("base."):]: v for k, v in final.items()}}, th13)
     fp = final.get("base.absolute_frame_pos_embed")
@@ -4610,7 +4716,7 @@ def video_pretrain_phase(args, root: str, th_path: str, tok_dir: str, words, wor
         fail("video pretrain launcher: the exported .th lacks the (1, 3, 1, 768) frame "
              "positions")
     shutil.rmtree(out, ignore_errors=True)
-    log(f"phase 13a seconds: {time.perf_counter() - t0:.1f}")
+    phase_seconds("13a", t0)
     return th13, final, xvlm_config_from_yaml(cfg), counts1
 
 
@@ -4805,7 +4911,7 @@ def video_qa_phase(args, root: str, th13: str, tok_dir: str, words, work: str, d
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
     out, out_resumed = os.path.join(work, "out_video_qa"), os.path.join(work, "out_qa_resumed")
-    log(f"phase 13b data and config: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 13b data and config: {part_done('13b', 'data', t0):.1f} s")
 
     imported, steps, evals, eval_walls = {}, [], [], []
     batches = {"whole": [], "resumed": []}
@@ -4815,8 +4921,8 @@ def video_qa_phase(args, root: str, th13: str, tok_dir: str, words, work: str, d
             "predict": XVLMForClassification.predict,
             "evaluate": cls_mod.evaluate_classification}
     timed = functools.partial(timed_call, args, smi)
-    th_frames = torch.load(th13, map_location="cpu",
-                           weights_only=False)["model"]["absolute_frame_pos_embed"]
+    th_frames = torch.load(th13, map_location="cpu", weights_only=False,
+                           mmap=True)["model"]["absolute_frame_pos_embed"].clone()
 
     def load(model, path):
         fresh = model.absolute_frame_pos_embed.detach().cpu().clone()
@@ -4871,7 +4977,7 @@ def video_qa_phase(args, root: str, th13: str, tok_dir: str, words, work: str, d
     torch.cuda.synchronize()
     counts = launch_counts()
     log(f"phase 13b run ({len(steps)} fine-tune steps + eval): "
-        f"{time.perf_counter() - t1:.1f} s; {json.dumps(record)}")
+        f"{part_done('13b', 'run', t1):.1f} s; {json.dumps(record)}")
     log(f"phase 13b video QA step ms at 224 px, {QA_VIDEOS} videos x {QA_FRAMES} frames "
         f"(CUDA events, wall): "
         f"{json.dumps([[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in steps])}"
@@ -4954,7 +5060,7 @@ def video_qa_phase(args, root: str, th13: str, tok_dir: str, words, work: str, d
             all(torch.equal(restored[part][k], saved[part][k]) for k in saved[part])
             for part in ("params", "mu", "nu"))
     same_batches = batches["resumed"] == batches["whole"][QA_RESUME_STEP:]
-    log(f"phase 13b --resume from step {saved['step']}: {time.perf_counter() - t2:.1f} s; "
+    log(f"phase 13b --resume from step {saved['step']}: {part_done('13b', 'resume', t2):.1f} s; "
         f"restored state equal to the saved one bit for bit: {same}; its "
         f"{len(batches['resumed'])} batches equal to the whole run's steps "
         f"{QA_RESUME_STEP + 1}-{N_QA_STEPS} bit for bit: {same_batches} "
@@ -4967,8 +5073,7 @@ def video_qa_phase(args, root: str, th13: str, tok_dir: str, words, work: str, d
     steps = steps[:steps_before]
 
     # 13c: the fine-tuned weights on 2 videos, card bf16 against CPU fp32
-    state = torch.load(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE), map_location="cpu",
-                       weights_only=False)["params"]
+    state = load_params(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE))
     shutil.rmtree(out, ignore_errors=True)
     shutil.rmtree(out_resumed, ignore_errors=True)
     cfg["num_labels"] = N_QA_ANSWERS
@@ -4976,12 +5081,14 @@ def video_qa_phase(args, root: str, th13: str, tok_dir: str, words, work: str, d
     samples = [train_ds[0], train_ds[1]]
     for s in samples:
         s["labels"] = np.int32(max(int(s["labels"]), 0))   # an answer off the list: class 0
+    t_hold = time.perf_counter()
     hold, faults = video_qa_hold(state, xvlm_config_from_yaml(cfg), samples, dev)
+    part_done("13b", "hold", t_hold)
     log(f"phase 13c video QA card bf16 vs CPU fp32 (2 videos x {QA_FRAMES} frames, dropout "
         f"off): {json.dumps(hold)}")
     for msg in faults:
         fail(f"video qa launcher, 2 videos card vs CPU: {msg}")
-    log(f"phase 13b seconds: {time.perf_counter() - t0:.1f}")
+    phase_seconds("13b", t0)
     return split_counts(counts, [r["delta"] for r in steps])
 
 
@@ -5014,6 +5121,440 @@ def video_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, dev
             "serving": qa["serving"]}
 
 
+
+# ---- phase 14: the Plus / CCLM base (XLM-R text tower, cross encoder) ----
+
+CCLM_CONFIG = "configs/pretrain/cclm_x2vlm_base.yaml"
+CCLM_LANGS = ("en", "de", "fr", "cs", "ja", "zh", "ru", "es")   # the config's image languages
+N_PARA_LINES = 2 * PARA_PAIRS        # 14: parallel lines, two steps' worth
+CCLM_STEPS, CCLM_RESUME_STEP = 2, 1  # 14: 2 steps, then --resume from the state of step 1
+# characters of the image captions' scripts beside the corpus words, each a
+# piece of the written vocabulary (with and without the word-start mark)
+CCLM_SCRIPT_CHARS = ("一二三四五六七八九十人大小中上下山水火木金土日月犬猫"
+                     "あいうえおかきくけこさしすせそ"
+                     "абвгдежзийклмнопрстуфхцчшщыэюя"
+                     "àâäçéèêëîïôöùûüñßčďěňřšťůž")
+
+
+def write_xlmr_tokenizer(root: str, words) -> str:
+    """``root/xlm-roberta-base/tokenizer.json`` of XLM-R's size and layout:
+    ``<s> <pad> </s> <unk>``, a piece for each of ``words`` and each script
+    character, filler pieces, ``<mask>`` last: ``XLMR_VOCAB`` entries, so
+    the masking's random replacement and the MLM head span the real table.
+    NFKC with space runs folded, Metaspace, a Unigram with unk id 3."""
+    vocab, seen = [["<s>", 0.0], ["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0]], set()
+    seen.update(p for p, _ in vocab)
+
+    def add(piece, score):
+        if piece not in seen:
+            seen.add(piece)
+            vocab.append([piece, score])
+
+    for w in words:
+        add("▁" + w, -8.0 - 0.05 * len(w))
+    for ch in CCLM_SCRIPT_CHARS:
+        add("▁" + ch, -10.5)
+        add(ch, -11.0)
+    i = 0
+    while len(vocab) < XLMR_VOCAB - 1:
+        add(f"▁x{i}q", -14.0)
+        i += 1
+    vocab.append(["<mask>", 0.0])
+    special = [(0, "<s>"), (1, "<pad>"), (2, "</s>"), (3, "<unk>"), (XLMR_VOCAB - 1, "<mask>")]
+    spec = {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [{"id": i, "content": t, "single_word": False,
+                              "lstrip": t == "<mask>", "rstrip": False, "normalized": False,
+                              "special": True} for i, t in special],
+            "normalizer": {"type": "Sequence", "normalizers": [
+                {"type": "NFKC"},
+                {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+            "pre_tokenizer": {"type": "Metaspace", "replacement": "▁",
+                              "prepend_scheme": "always", "split": True},
+            "post_processor": None, "decoder": None,
+            "model": {"type": "Unigram", "unk_id": 3, "vocab": vocab, "byte_fallback": False}}
+    tok_dir = os.path.join(root, "xlm-roberta-base")
+    os.makedirs(tok_dir)
+    with open(os.path.join(tok_dir, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    return tok_dir
+
+
+def cclm_caption(rng: np.random.Generator, words, lang: str, lo: int = 6, hi: int = 30) -> str:
+    """A caption of ``words``, with characters of ``lang``'s script mixed in."""
+    text = caption(rng, words, lo, hi).split()
+    script = {"zh": CCLM_SCRIPT_CHARS[:25], "ja": CCLM_SCRIPT_CHARS[25:40],
+              "ru": CCLM_SCRIPT_CHARS[40:70]}.get(lang, CCLM_SCRIPT_CHARS[70:])
+    for j in rng.integers(0, len(text), max(1, len(text) // 3)):
+        text[j] = "".join(rng.choice(list(script), int(rng.integers(1, 4))))
+    return " ".join(text)
+
+
+def write_cclm_corpus(root: str, work: str, rng: np.random.Generator, words):
+    """Phase 7's image lines with captions keyed by some of the config's
+    eight languages, and ``N_PARA_LINES`` parallel lines (``text1`` /
+    ``text2`` of two languages; a few with ``text`` for ``text1``)."""
+    img_file, para_file = os.path.join(work, "images_ml.jsonl"), os.path.join(work, "para.jsonl")
+    with open(os.path.join(root, "images.jsonl")) as src, open(img_file, "w") as f:
+        for line in src:
+            langs = [lang for lang in CCLM_LANGS if rng.random() < 0.6] or ["en"]
+            f.write(json.dumps({"binary": json.loads(line)["binary"],
+                                "caption": {lang: cclm_caption(rng, words, lang)
+                                            for lang in langs}}, ensure_ascii=False) + "\n")
+    with open(para_file, "w") as f:
+        for i in range(N_PARA_LINES):
+            a, b = rng.choice(CCLM_LANGS, 2, replace=False)
+            f.write(json.dumps({"text1" if i % 7 else "text": cclm_caption(rng, words, a, 10, 60),
+                                "text2": cclm_caption(rng, words, b, 10, 60)},
+                               ensure_ascii=False) + "\n")
+    return img_file, para_file
+
+
+def cclm_stream_launches(stream: str) -> dict:
+    """The tiny launches of one call of a CCLM stream (forward and backward
+    alike), 64-token texts through XLM-R's 12 layers and the 6 cross
+    layers: the image stream (the clean and the masked text, ITM over 3 x
+    32 rows, MLM over 32), the region stream (the same over 128 rows with
+    region key masks, and the bbox pass) and the parallel text (both
+    languages and the masked text; TTM over 3 x 128 rows and TLM, language
+    2 as the keys)."""
+    L, B, R, P = CCLM_LEN, TRAIN_BATCH, REGION_ROWS, PARA_PAIRS
+    if stream == "image":
+        return {(B, L, L): 30, (3 * B, L, L): 6, (3 * B, L, 200): 6, (B, L, 200): 6}
+    if stream == "region":
+        return {(R, L, L): 36, (3 * R, L, L): 6, (3 * R, L, 200): 6, (R, L, 200): 12}
+    return {(P, L, L): 48, (3 * P, L, L): 12}
+
+
+def cclm_cosine_params():
+    """Gradients held to the CPU path: the vision tower, XLM-R's embeddings
+    (the tied 250,002-row MLM decoder) and a layer, the cross encoder's
+    self- and cross-attention, the MLM head, the ITM and bbox heads."""
+    return ("base.vision_encoder.blocks.0.attn.qkv.weight",
+            "base.vision_encoder.blocks.0.attn.relative_position_bias_table",
+            "base.text_encoder.roberta.embeddings.word_embeddings.weight",
+            "base.text_encoder.roberta.encoder.layer.0.attention.self.query.weight",
+            "base.cross_encoder.encoder.layer.0.attention.self.query.weight",
+            "base.cross_encoder.encoder.layer.0.crossattention.self.key.weight",
+            "base.text_encoder.lm_head.dense.weight", "base.itm_head.0.weight",
+            "base.bbox_head.0.weight")
+
+
+def cclm_hold_batches(mcfg):
+    """2 images with 64-token texts, 2 region rows over 2 images, 2
+    parallel pairs; 4 masked positions a row, the last row padded."""
+    g = torch.Generator().manual_seed(14)
+    res, side = mcfg.vision.image_res, mcfg.vision.image_res // mcfg.vision.patch_size
+
+    def texts(pad_from):
+        ids = torch.randint(5, XLMR_VOCAB - 1, (2, CCLM_LEN), generator=g)
+        ids[:, 0] = 0
+        atts = torch.ones(2, CCLM_LEN, dtype=torch.int32)
+        atts[1, pad_from:] = 0
+        ids = ids * atts
+        pos = torch.tensor([[3, 7, 9, 15], [2, 5, 20, 30]])
+        masked = ids.clone()
+        masked[torch.arange(2)[:, None], pos] = XLMR_VOCAB - 1
+        return {"text_ids": ids, "text_atts": atts, "text_ids_masked": masked,
+                "masked_pos": pos, "masked_ids": torch.gather(ids, 1, pos)}
+
+    image = dict(texts(40), image=torch.randint(0, 256, (2, res, res, 3), generator=g,
+                                                dtype=torch.uint8))
+    grid = torch.zeros(2, side, side)
+    grid[0, 4:10, 3:8] = 1
+    grid[1, 2:7, 6:10] = 1
+    region = dict(texts(33), image=torch.randint(0, 256, (2, res, res, 3), generator=g,
+                                                 dtype=torch.uint8),
+                  image_atts=torch.cat([torch.ones(2, 1), grid.view(2, -1)], 1),
+                  idx_to_group_img=torch.tensor([0, 1]), target_bbox=torch.zeros(2, 4),
+                  is_image=torch.zeros(2))
+    second = texts(50)
+    para = dict(texts(45), text_ids_2=second["text_ids"], text_atts_2=second["text_atts"])
+    return image, region, para
+
+
+def cclm_hold(final: dict, mcfg, dev) -> tuple:
+    """The run's weights on 2 images, 2 region rows and 2 parallel pairs,
+    dropout off, the negatives injected: the card in bf16 against the
+    port's CPU fp32 path: each loss (ITC, ITM, MLM of the image and the
+    region stream, bbox L1 and GIoU; TTC, TTM, TLM) within 0.05 + 2%,
+    gradient cosines of ``cclm_cosine_params`` >= 0.99, and each bf16 call
+    into K5 and K6 with 200 keys (the image) or 64 (XLM-R's self-attention,
+    the cross encoder's, language 2 as the keys) held on the model's
+    operands within ``FUSION_CALL_RATIO`` of the bf16 rule's bound. The
+    box targets are ``off_kink_targets`` of the CPU path's boxes."""
+    from x2vlm_tpu_torch.models import XVLMPlusForPretrain
+
+    image, region, para = cclm_hold_batches(mcfg)
+    neg = (torch.tensor([1, 0]), torch.tensor([1, 0]))
+    names = cclm_cosine_params()
+    ratios = {(kind, n): [] for kind in ("forward", "backward") for n in (200, CCLM_LEN)}
+    losses, grads = {}, {}
+    for tag, dtype, device in (("cpu", torch.float32, torch.device("cpu")),
+                               ("card", torch.bfloat16, dev)):
+        model = XVLMPlusForPretrain(mcfg, dtype=dtype, device=device, seed=None)
+        model.load_state_dict(final)
+        to = lambda b: {k: v.to(device) for k, v in b.items()}
+        negs = tuple(t.to(device) for t in neg)
+        if tag == "cpu":
+            region["target_bbox"] = off_kink_targets(cpu_boxes(
+                model, model.base.bbox_head,
+                lambda: model(to(region), neg_idx=negs, ret_bbox_loss=True)))
+        with held_tiny_calls(200, ratios[("forward", 200)]), \
+                held_tiny_calls(CCLM_LEN, ratios[("forward", CCLM_LEN)]), \
+                held_tiny_bwd_calls(200, ratios[("backward", 200)]), \
+                held_tiny_bwd_calls(CCLM_LEN, ratios[("backward", CCLM_LEN)]):
+            out = {f"image_{k}": v for k, v in model(to(image), neg_idx=negs).items()}
+            out.update({f"region_{k}": v for k, v in model(
+                to(region), neg_idx=negs, ret_bbox_loss=True).items()})
+            out.update({f"para_{k}": v for k, v in model(to(para), neg_idx=negs).items()})
+            sum(out.values()).backward()
+        losses[tag] = {k: v.item() for k, v in out.items()}
+        params = dict(model.named_parameters())
+        grads[tag] = {k: params[k].grad.detach().double().cpu().reshape(-1) for k in names}
+        del model, out, params
+    torch.cuda.empty_cache()
+    cos = {k: F.cosine_similarity(grads["card"][k], grads["cpu"][k], dim=0).item()
+           for k in names}
+    r = {"losses": losses, "cosine": cos,
+         "ratios": {f"{kind} {n} keys": [round(x, 3) for x in v]
+                    for (kind, n), v in ratios.items()}}
+    faults = []
+    want = {"image_loss_itc", "image_loss_itm", "image_loss_mlm", "region_loss_itc",
+            "region_loss_itm", "region_loss_mlm", "region_loss_bbox", "region_loss_giou",
+            "para_loss_ttc", "para_loss_ttm", "para_loss_mlm"}
+    if set(losses["card"]) != want:
+        faults.append(f"losses {sorted(losses['card'])}, expected {sorted(want)}")
+    for k, ref in losses["cpu"].items():
+        if not abs(losses["card"][k] - ref) <= 0.05 + 0.02 * abs(ref):
+            faults.append(f"{k}: card {losses['card'][k]:.5f} vs CPU fp32 {ref:.5f}")
+    for k, c in cos.items():
+        if not c >= 0.99:
+            faults.append(f"gradient {k}: cosine to the CPU fp32 path {c:.5f} < 0.99")
+    # 200 keys: ITM + MLM of the images, ITM + MLM + bbox of the regions (6
+    # layers each); 64 keys: 7 text passes x 12 XLM-R layers, and x 6 cross
+    # layers the 7 cross passes' self-attention and TTM's and TLM's
+    # cross-attention to language 2
+    for (kind, n), v in ratios.items():
+        expect = 30 if n == 200 else 7 * 12 + 9 * 6
+        if len(v) != expect or not all(x <= FUSION_CALL_RATIO for x in v):
+            faults.append(f"the {kind} calls with {n} keys: {len(v)} held (expected "
+                          f"{expect}), errors over the bf16 rule's bound up to "
+                          f"{max(v, default=float('nan')):.3f} (at most {FUSION_CALL_RATIO})")
+    return r, faults
+
+
+def fused_ce_times(dev, smi: str) -> None:
+    """The MLM head's fused vocabulary CE at XLM-R's 250,002 rows, forward
+    and backward in bf16 at each CCLM stream's masked rows (32 / 128 rows x
+    16 masks), against the same function on the full logits (one matmul and
+    ``F.cross_entropy``): CUDA events, the card ahead of the host."""
+    from x2vlm_tpu_torch.ops.fused_ce import fused_vocab_ce
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    table = (torch.randn(XLMR_VOCAB, 768, generator=gen, device=dev) * 0.02).requires_grad_()
+    bias = torch.zeros(XLMR_VOCAB, device=dev, requires_grad=True)
+    out = {}
+    for n in (TRAIN_BATCH * 16, REGION_ROWS * 16):
+        h = torch.randn(n, 768, generator=gen, device=dev).to(torch.bfloat16).requires_grad_()
+        labels = torch.randint(0, XLMR_VOCAB, (n,), generator=gen, device=dev)
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+
+        def fused():
+            torch.autograd.grad(fused_vocab_ce(h, table, bias, labels, valid), (h, table, bias))
+
+        def full():
+            logits = (h @ table.to(torch.bfloat16).t()).float() + bias
+            torch.autograd.grad(F.cross_entropy(logits, labels), (h, table, bias))
+
+        out[n] = {"fused_ms": time_ms(fused, inner=3, reps=5, host_ahead=True),
+                  "full_logits_ms": time_ms(full, inner=3, reps=5, host_ahead=True)}
+    log(f"phase 14 fused vocab CE at {XLMR_VOCAB} rows, D=768, bf16, forward + backward "
+        f"(CUDA events; by masked rows; {smi}): {json.dumps(out)}")
+
+
+def cclm_launcher_phase(args, root: str, th_path: str, words, dev, smi: str = "") -> dict:
+    """Phase 14: ``x2vlm_tpu_torch.run --task pretrain`` in process on the
+    shipped ``cclm_x2vlm_base.yaml`` from phase 7's ``.th`` (``is_xvlm_ckpt``
+    with ``replace_text_encoder``: the cross encoder from its text layers
+    12-17, the XLM-R tower fresh from ``--seed``), a written 250,002-entry
+    XLM-R ``tokenizer.json``, phase 7's images with captions in the
+    config's languages, phase 7's (monolingual) region lines and
+    ``N_PARA_LINES`` parallel lines; the images cut to 32 a step, the region
+    (128 rows over 50 images) and parallel-text (128 pairs of 64 tokens)
+    blocks as shipped. 2 steps, then ``--resume`` from the state of step 1,
+    its state and cursors (the parallel text's among them) restored bit for
+    bit; each stream's calls timed and their launches read; then
+    ``cclm_hold``. Every file goes to ``work_dir``. Returns the launches of
+    the first run."""
+    from x2vlm_tpu_torch import run as run_mod
+
+    t0 = time.perf_counter()
+    work = work_dir(root, 24 * 2**30)
+    try:
+        return _cclm_phase(args, root, th_path, words, work, dev, smi, t0, run_mod)
+    finally:
+        if work != root:
+            shutil.rmtree(work, ignore_errors=True)
+
+
+def _cclm_phase(args, root, th_path, words, work, dev, smi, t0, run_mod) -> dict:
+    rng = np.random.default_rng(args.seed + 14)
+    tok_dir = write_xlmr_tokenizer(work, words)
+    img_file, para_file = write_cclm_corpus(root, work, rng, words)
+    shipped = shipped_config(CCLM_CONFIG)
+    cfg = dict(shipped, train_file=[img_file], train_file_regions=[os.path.join(root,
+                                                                                "regions.jsonl")],
+               train_file_mtext=[para_file], text_encoder=tok_dir,
+               images=dict(shipped["images"], batch_size=TRAIN_BATCH),
+               train_dataset_size=TRAIN_BATCH,          # 1 step an epoch: a save each step
+               ckpt_frequent=1, ckpt_frequent_step=1000)
+    sizes = (cfg["model_type"], cfg["is_xvlm_ckpt"], cfg["replace_text_encoder"],
+             cfg["regions"]["batch_size"], cfg["regions"]["max_images"],
+             cfg["mtexts"]["batch_size"], cfg["mtexts"]["max_tokens"], cfg["max_tokens"],
+             cfg["text_num_hidden_layers"], cfg["num_cross_layers"],
+             tuple(cfg["images"]["languages"]), cfg["regions"].get("languages"))
+    if sizes != ("cclm", True, True, REGION_ROWS, REGION_IMAGES, PARA_PAIRS, CCLM_LEN, CCLM_LEN,
+                 12, 6, CCLM_LANGS, None):
+        fail(f"cclm launcher: the shipped config's sizes {sizes} changed")
+    cfg_path = os.path.join(work, "cclm.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    out, out_resumed = os.path.join(work, "out_cclm"), os.path.join(work, "out_cclm_resumed")
+    argv = ["--task", "pretrain", "--config", cfg_path, "--checkpoint", th_path, "--seed",
+            str(args.seed), "--device", dev.type, "--epoch", str(CCLM_STEPS)]
+    log(f"phase 14 data and config: {part_done('14', 'data', t0):.1f} s")
+
+    imported = {}
+    orig = {"load": ckpt_lib.load_converted, "save": ckpt_lib.save_train_state}
+
+    def load(model, sd):
+        imported["missing"], imported["unexpected"] = orig["load"](model, sd)
+        imported["fresh_text"] = sorted(
+            n for n, _ in model.base.named_parameters()
+            if n.startswith("text_encoder.roberta.") or n == "text_encoder.lm_head.bias")
+        return imported["missing"], imported["unexpected"]
+
+    def save(ckpt_dir, model, optimizer, step, data_state=None):
+        if ckpt_dir.startswith(out_resumed):     # the resumed run saves nothing
+            return os.path.join(ckpt_dir, ckpt_lib.TRAIN_STATE_FILE)
+        path = orig["save"](ckpt_dir, model, optimizer, step, data_state)
+        if step == CCLM_RESUME_STEP:   # kept for --resume: a link, not a copy
+            os.makedirs(os.path.join(out_resumed, "ckpt"))
+            os.link(path, os.path.join(out_resumed, "ckpt", ckpt_lib.TRAIN_STATE_FILE))
+        return path
+
+    t1 = time.perf_counter()
+    reset_counts()
+    ckpt_lib.load_converted, ckpt_lib.save_train_state = load, save
+    try:
+        with StreamTimer({(k, CCLM_STEPS - 1) for k in ("image", "region", "mtext")}
+                         if args.profile else None,
+                         (args, smi, "chip_smoke_cclm_{stream}_profile.txt")) as timer:
+            record = run_mod.main(argv + ["--output_dir", out])
+    finally:
+        ckpt_lib.load_converted, ckpt_lib.save_train_state = orig["load"], orig["save"]
+    torch.cuda.synchronize()
+    counts1 = launch_counts()
+    log(f"phase 14 run 1 ({CCLM_STEPS} steps): {part_done('14', 'run', t1):.1f} s; "
+        f"{json.dumps(record)}")
+    log(f"phase 14 import of {th_path}: {len(imported.get('missing') or [])} missing (fresh), "
+        f"unexpected {imported.get('unexpected')}")
+    if imported.get("missing") != imported.get("fresh_text") or imported.get("unexpected"):
+        fail(f"cclm launcher import: missing {imported.get('missing')}, unexpected "
+             f"{imported.get('unexpected')}; expected XLM-R and the MLM decoder bias fresh, "
+             f"the cross encoder from the .th's text layers 12-17")
+    losses = [f"{s}_loss_{k}" for s in ("image", "region") for k in ("itc", "itm", "mlm")] + \
+        ["region_loss_bbox", "region_loss_giou", "mtext_loss_ttc", "mtext_loss_ttm",
+         "mtext_loss_mlm"]
+    if not all(isinstance(record.get(k), float) and math.isfinite(record[k]) for k in losses) \
+            or record.get("broken", -1) != 0:
+        fail(f"cclm launcher: losses {[record.get(k) for k in losses]}, broken "
+             f"{record.get('broken')}")
+    n = CCLM_STEPS
+    want_tiny = collections.Counter()
+    for stream in ("image", "region", "mtext"):
+        want_tiny.update({k: v * n for k, v in cclm_stream_launches(stream).items()})
+    check_launcher_counts("cclm launcher", counts1, 24 * n, 24 * n,
+                          {"tiny_fwd": dict(want_tiny), "tiny_bwd": dict(want_tiny)})
+    for stream, flash in (("image", {(TRAIN_BATCH, N_IMG, N_IMG): 12}),
+                          ("region", {(REGION_IMAGES, N_IMG, N_IMG): 12}), ("mtext", {})):
+        calls = timer.calls[stream]
+        if len(calls) != n:
+            fail(f"cclm launcher: {len(calls)} {stream}-stream calls, expected {n}")
+        for i, c in enumerate(calls):
+            tag = f"cclm launcher {stream} step {i}"
+            want = cclm_stream_launches(stream)
+            check_launcher_counts(tag, c["launches"], 12 if flash else 0, 12 if flash else 0,
+                                  {"tiny_fwd": want, "tiny_bwd": want})
+            if dict(c["launches"]["flash_fwd_shapes"]) != flash:
+                fail(f"{tag}: flash shapes {dict(c['launches']['flash_fwd_shapes'])}, "
+                     f"expected {flash}")
+    log(f"phase 14 by stream (CUDA-event ms and wall ms of each call, median; peak GiB; "
+        f"apply: the AdamW step; {smi}): {json.dumps(timer.summary())}")
+    log(f"phase 14 calls (CUDA-event ms, wall ms, peak GiB): " + json.dumps(
+        {k: [[round(c["ms"], 3), round(c["wall_ms"], 3), round(c["peak_gib"], 2)] for c in v]
+         for k, v in timer.calls.items()}))
+
+    # --resume from the state of step 1: restored bit for bit, cursors included
+    saved = torch.load(os.path.join(out_resumed, "ckpt", ckpt_lib.TRAIN_STATE_FILE),
+                       map_location="cpu", weights_only=False)
+    seen = {}
+    orig_resume = run_mod.maybe_resume
+
+    def resumed(a, model, optimizer):
+        step, data_state = orig_resume(a, model, optimizer)
+        params = dict(model.named_parameters())
+        seen.update(
+            step=step, data_state=data_state,
+            params=all(torch.equal(params[k].detach().cpu(), v)
+                       for k, v in saved["params"].items()),
+            mu=all(torch.equal(m.cpu(), saved["mu"][k])
+                   for k, m in zip(optimizer.names, optimizer.mu)),
+            nu=all(torch.equal(v.cpu(), saved["nu"][k])
+                   for k, v in zip(optimizer.names, optimizer.nu)),
+            count=optimizer.count == saved["count"])
+        return step, data_state
+
+    t2 = time.perf_counter()
+    run_mod.maybe_resume, ckpt_lib.save_train_state = resumed, save
+    try:
+        record2 = run_mod.main(argv + ["--output_dir", out_resumed, "--resume"])
+    finally:
+        run_mod.maybe_resume, ckpt_lib.save_train_state = orig_resume, orig["save"]
+    torch.cuda.synchronize()
+    log(f"phase 14 run 2 (--resume from step {CCLM_RESUME_STEP}): "
+        f"{part_done('14', 'resume', t2):.1f} s; resumed at step {seen.get('step')}, data "
+        f"cursors {seen.get('data_state')}; equal to the saved state: params "
+        f"{seen.get('params')}, mu {seen.get('mu')}, nu {seen.get('nu')}, count "
+        f"{seen.get('count')}; {json.dumps(record2)}")
+    if not (seen.get("step") == CCLM_RESUME_STEP and seen.get("params") and seen.get("mu")
+            and seen.get("nu") and seen.get("count")
+            and seen.get("data_state") == saved["data_state"]
+            and set(saved["data_state"]) == {"image", "region", "mtext"}):
+        fail(f"cclm launcher --resume: {seen} against the saved step {saved['step']}")
+    if record2.get("pretrain_steps") != [CCLM_RESUME_STEP, CCLM_STEPS] or \
+            record2.get("broken", -1) != 0:
+        fail(f"cclm launcher --resume: {record2}")
+    del saved
+    shutil.rmtree(out_resumed, ignore_errors=True)
+
+    final = load_params(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE))
+    shutil.rmtree(out, ignore_errors=True)
+    mcfg = xvlm_config_from_yaml(cfg)
+    t3 = time.perf_counter()
+    hold, faults = cclm_hold(final, mcfg, dev)
+    log(f"phase 14 card bf16 vs CPU fp32 (2 images, 2 region rows, 2 parallel pairs; "
+        f"negatives injected, dropout off): {json.dumps(hold)} "
+        f"({part_done('14', 'hold', t3):.1f} s)")
+    for msg in faults:
+        fail(f"cclm, card vs CPU: {msg}")
+    del final
+    torch.cuda.empty_cache()
+    fused_ce_times(dev, smi)
+    phase_seconds("14", t0)
+    return counts1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5037,6 +5578,10 @@ def run(args, dev: torch.device) -> int:
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     log(smi)
+    cores = len(os.sched_getaffinity(0))
+    if torch.get_num_threads() < cores:   # the CPU fp32 holds of phases 6-14
+        torch.set_num_threads(cores)
+    log(f"torch CPU threads: {torch.get_num_threads()} of {cores} cores")
 
     secs = _build.build()
     log(f"build: {json.dumps({k: round(v, 1) for k, v in secs.items()})}")
@@ -5137,6 +5682,9 @@ def run(args, dev: torch.device) -> int:
         t13 = time.perf_counter()
         video_counts = video_launcher_phase(args, root, th_path, tok_dir, words, dev, smi)
         log(f"phase 13 seconds: {time.perf_counter() - t13:.1f}")
+        torch.cuda.empty_cache()
+        # ---- phase 14: the Plus / CCLM base, the multilingual and parallel-text streams ----
+        cclm_counts = cclm_launcher_phase(args, root, th_path, words, dev, smi)
     torch.cuda.empty_cache()
 
     # the attention launches of the main paths (bf16 serving requests, one
@@ -5149,6 +5697,7 @@ def run(args, dev: torch.device) -> int:
                                              "flash_fwd_shapes": c["flash"]})
     ledger_add(ledger, "train_step", "training", train)
     ledger_add(ledger, "pretrain_launcher", "training", pre_counts)
+    ledger_add(ledger, "cclm_launcher", "training", cclm_counts)
     for path, split in (("retrieval_launcher", ret_counts), ("finetune_launcher", ft_counts),
                         ("vqa_launcher", vqa_counts), ("caption_launcher", cap_counts[0]),
                         ("caption_launcher", cap_counts[1]), ("video_launcher", video_counts)):

@@ -68,10 +68,13 @@ def _module_level_roots(path):
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_file_needs_no_transformers_pil_or_yaml_to_import(path):
-    """No port file imports ``transformers`` anywhere (the tokenizer is the
-    port's own), and none imports PIL or yaml when it is imported (only
-    inside the functions that decode images or read YAML)."""
-    anywhere = [m for m in _imported_roots(path) if m.split(".")[0] == "transformers"]
+    """No port file imports ``transformers``, ``tokenizers`` or
+    ``sentencepiece`` anywhere (the WordPiece and XLM-R tokenizers are the
+    port's own; the card has none of the three), and none imports PIL or
+    yaml when it is imported (only inside the functions that decode images
+    or read YAML)."""
+    anywhere = [m for m in _imported_roots(path)
+                if m.split(".")[0] in ("transformers", "tokenizers", "sentencepiece")]
     assert anywhere == [], f"{path} imports {anywhere}"
     top = [m for m in _module_level_roots(path) if m.split(".")[0] in ("PIL", "yaml")]
     assert top == [], f"{path} imports {top} at module level"
@@ -79,11 +82,12 @@ def test_port_file_needs_no_transformers_pil_or_yaml_to_import(path):
 
 def test_port_imports_with_transformers_pil_and_yaml_blocked():
     """Import every port module (and chip_smoke) in a fresh interpreter in
-    which importing transformers, PIL or yaml fails."""
+    which importing transformers, tokenizers, sentencepiece, PIL or yaml
+    fails."""
     modules = [".".join(p.relative_to(ROOT).with_suffix("").parts) for p in PORT_FILES]
     modules = [m[:-len(".__init__")] if m.endswith(".__init__") else m for m in modules]
     code = ("import sys\n"
-            "for name in ('transformers', 'PIL', 'yaml'):\n"
+            "for name in ('transformers', 'tokenizers', 'sentencepiece', 'PIL', 'yaml'):\n"
             "    sys.modules[name] = None\n"
             f"for m in {modules!r}:\n"
             "    __import__(m)\n"

@@ -197,14 +197,15 @@ def test_vqa_is_no_longer_refused(corpus):
 
 
 @pytest.mark.parametrize("extra,err,match", [
-    ({"train_file_regions": ["r.jsonl"], "regions": {"batch_size": 4, "languages": ["en"]}},
-     NotImplementedError, "A8b"),
-    ({"train_file_mtext": ["m.jsonl"], "mtexts": {"batch_size": 4}}, NotImplementedError,
-     "A8b"),
+    # the multilingual streams and the Plus base run (tests/test_torch_plus.py);
+    # what stays refused around them:
+    ({"native_aug": True}, NotImplementedError, "A12"),
+    ({"train_file_mtext": ["m.jsonl"], "mtexts": {"batch_size": 4}}, ValueError,
+     "model_type: cclm"),
     ({"mixed_in_batch": False}, ValueError, "mixed_in_batch"),
     ({"images": {"batch_size": 4, "tokenized": True}}, ValueError, "tokenized"),
     ({"use_swin": True, "patch_size": 16}, ValueError, "use_swin requires patch_size"),
-    ({"model_type": "cclm"}, NotImplementedError, "A8b"),
+    ({"is_xvlm_ckpt": True}, ValueError, "is_xvlm_ckpt"),
     ({"remat": True}, NotImplementedError, "remat"),
     ({"flat_optimizer": True}, NotImplementedError, "flat_optimizer"),
 ])

@@ -44,13 +44,15 @@ def test_tiny_route(dtype, head_dim, route):
 
 
 # (Sq, Skv, D) of every shape the kernels are held to on the card: the main
-# path's and the contract's (chip_smoke.py check_tiny / check_tiny_bwd)
+# path's and the contract's (chip_smoke.py check_tiny / check_tiny_bwd; the
+# CCLM cell's 64 x 64 and 64 x 200)
 FWD_SHAPES = [(40, 40, 64), (40, 200, 64), (40, 56, 64), (40, 197, 64), (64, 420, 64), (13, 27, 32),
               (80, 50, 64), (1, 7, 128), (5, 9, 256), (17, 33, 16), (40, 77, 48),
-              (24, 61, 96), (9, 45, 112)]
+              (24, 61, 96), (9, 45, 112), (64, 64, 64), (64, 200, 64)]
 BWD_SHAPES = [(40, 40, 64), (40, 200, 64), (40, 56, 64), (40, 197, 64), (64, 209, 64), (13, 27, 32),
               (1, 7, 128), (5, 9, 256), (40, 257, 64), (40, 120, 128), (80, 50, 64),
-              (17, 33, 16), (40, 77, 48), (24, 61, 96), (9, 45, 112)]
+              (17, 33, 16), (40, 77, 48), (24, 61, 96), (9, 45, 112), (64, 64, 64),
+              (64, 200, 64)]
 
 
 @pytest.mark.parametrize("Sq,Skv,D", FWD_SHAPES)

@@ -67,7 +67,12 @@ def test_special_tokens_and_vocab_equal_bert_tokenizer_fast(both):
 
 
 def test_build_tokenizer_refuses_roberta_paths(tmp_path):
-    with pytest.raises(NotImplementedError, match="A8"):
+    """A plain RoBERTa path (byte-level BPE) is refused, naming A8d; an
+    XLM-R path reads its tokenizer.json (tests/test_torch_xlmr_tokenizer.py)
+    and needs one."""
+    with pytest.raises(NotImplementedError, match="A8d"):
+        build_tokenizer(str(tmp_path / "roberta-base"))
+    with pytest.raises(FileNotFoundError, match="tokenizer.json"):
         build_tokenizer(str(tmp_path / "xlm-roberta-base"))
     with pytest.raises(FileNotFoundError):
         build_tokenizer(str(tmp_path / "bert-missing"))

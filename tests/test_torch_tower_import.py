@@ -250,10 +250,49 @@ def test_hf_bert_converter_matches_jax(bert_prefix, to_layers):
     _assert_same(carried, dict(tree, **({"mlm_head": mlm} if mlm else {})))
 
 
-def test_a_roberta_file_is_refused_with_a8():
-    with pytest.raises(NotImplementedError, match="A8"):
-        ckpt.convert_hf_bert_checkpoint({"roberta.embeddings.word_embeddings.weight":
-                                         np.zeros((4, 2), np.float32)})
+def xlmr_file(rng, layers=2, width=32, vocab=50):
+    """An HF XLM-R file: ``roberta.*`` (one token type, 514-style offset
+    positions) and the ``lm_head`` with its tied decoder and bias."""
+    sd = {k.replace("bert.", "roberta."): v for k, v in
+          bert_file(rng, layers=layers, width=width, vocab=vocab).items()
+          if k.startswith("bert.")}
+    sd["roberta.embeddings.token_type_embeddings.weight"] = _f32(rng, 1, width)
+    sd.update({"lm_head.dense.weight": _f32(rng, width, width),
+               "lm_head.dense.bias": _f32(rng, width),
+               "lm_head.layer_norm.weight": _f32(rng, width),
+               "lm_head.layer_norm.bias": _f32(rng, width),
+               "lm_head.decoder.weight": _f32(rng, vocab, width),
+               "lm_head.decoder.bias": _f32(rng, vocab), "lm_head.bias": _f32(rng, vocab)})
+    return sd
+
+
+def test_an_xlmr_file_converts_as_the_jax_one():
+    """A raw XLM-R file (formerly refused with A8b) lands under the
+    xroberta names of a Plus model's text tower: bit for bit the JAX
+    converter's tree after ``to_jax_params``; the pooler and the tied
+    decoder weight are not the model's."""
+    import dataclasses
+
+    from x2vlm_tpu_torch.models import XVLMPlusConfig, XVLMPlusForPretrain
+
+    rng = np.random.default_rng(5)
+    sd = xlmr_file(rng)
+    tree, _ = jax_ckpt.convert_hf_bert_checkpoint(sd, to_layers=2, fusion_layer=2)
+    state, unused, kind = ckpt.convert_checkpoint_auto(sd, text_layers=2, text_fusion_layer=2)
+    assert kind == "bert" and unused == []
+    text = dataclasses.replace(BertConfig.roberta_base(
+        vocab_size=50, hidden_size=32, num_layers=2, fusion_layer=2, num_heads=2,
+        intermediate_size=64, encoder_width=32), max_position_embeddings=16)
+    cfg = XVLMPlusConfig(vision=BEiT2Config(image_res=32, patch_size=16, embed_dim=32,
+                                            depth=1, num_heads=2),
+                         text=text, embed_dim=8, num_cross_layers=1)
+    own = XVLMPlusForPretrain(cfg, dtype=torch.float32, device="cpu", seed=0).base.state_dict()
+    carried = {k: v for k, v in state.items() if k in own}
+    assert sorted(set(state) - set(carried)) == sorted(
+        k for k in state if "pooler" in k or ".decoder." in k)
+    mlm = tree.pop("mlm_head")
+    mlm.pop("decoder")
+    _assert_same(carried, dict(tree, mlm_head=mlm))
 
 
 @pytest.mark.parametrize("flavour", ["clip", "swin", "beit2", "bert", "xvlm"])

@@ -13,7 +13,12 @@ task keeps beside it).
 
 One table of rules (:func:`_rules`) serves both directions, built from the
 layout either side's names show: the vision tower (BEiT-2, CLIP ViT, Swin
-or ViT) and its depth, the text stacks' layers and the heads. flax kernels
+or ViT) and its depth, the text stacks' layers (the RoBERTa form's
+``text_encoder.roberta`` where the JAX tree's text tower has one token
+type), the Plus base's ``cross_encoder/layer_j`` (``cross_encoder.encoder.
+layer.j``) and the heads (the MLM head's ``lm_head`` names in the RoBERTa
+form, its own decoder when untied). A rule none of whose parameters is
+present is skipped, so a partial set (a checkpoint split) converts too. flax kernels
 (in, out) are torch Linear weights (out, in); the patch kernel (p, p, in,
 C) is the conv weight (C, in, p, p); BEiT-2's and ViT's query / key / value
 kernels are the fused ``attn.qkv.weight``.
@@ -70,8 +75,8 @@ def _indices(keys, pattern: str) -> List[int]:
     return sorted({int(m.group(1)) for k in keys if (m := re.match(pattern, k))})
 
 
-def _layout_from_jax(keys) -> dict:
-    ks = set(keys)
+def _layout_from_jax(src: Mapping[str, np.ndarray]) -> dict:
+    ks = set(src)
     v = "vision_encoder/"
     if f"{v}class_embedding" in ks:
         vision = "clip"
@@ -92,6 +97,11 @@ def _layout_from_jax(keys) -> dict:
         "text": {t: [(i, f"{t}/layer_{i}/cross_attn/query/kernel" in ks)
                      for i in _indices(ks, rf"{t}/layer_(\d+)/")]
                  for t in ("text_encoder", "text_decoder")},
+        # the RoBERTa form: one token type (models/bert.py ``roberta_form``)
+        "roberta": np.shape(src.get("text_encoder/embeddings/token_type_embeddings/embedding",
+                                    np.zeros((2, 1))))[0] == 1,
+        "cross": _indices(ks, r"cross_encoder/layer_(\d+)/"),
+        "untied": "mlm_head/decoder/kernel" in ks,
         "heads": {h for h in ("mlm_head", "dec_head", "vision_proj", "text_proj", "temp",
                               "itm_head", "bbox_head", "cls_head", "mc_head", "frame_pos_embed")
                   if any(k == h or k.startswith(h + "/") for k in ks)},
@@ -101,6 +111,7 @@ def _layout_from_jax(keys) -> dict:
 
 def _layout_from_port(keys) -> dict:
     ks = set(keys)
+    roberta = any(k.startswith(("text_encoder.roberta.", "text_encoder.lm_head.")) for k in ks)
     v = r"vision_encoder\."
     if "vision_encoder.class_embedding" in ks:
         vision = "clip"
@@ -119,11 +130,18 @@ def _layout_from_port(keys) -> dict:
         "depths": tuple(len(_indices(ks, rf"{v}layers\.{s}\.blocks\.(\d+)\."))
                         for s in stages),
         "merges": tuple(_indices(ks, rf"{v}layers\.(\d+)\.downsample\.")),
-        "text": {t: [(i, f"{t}.bert.encoder.layer.{i}.crossattention.self.query.weight" in ks)
-                     for i in _indices(ks, rf"{t}\.bert\.encoder\.layer\.(\d+)\.")]
-                 for t in ("text_encoder", "text_decoder")},
+        "text": {t: [(i, f"{t}.{stack}.encoder.layer.{i}.crossattention.self.query.weight"
+                      in ks)
+                     for i in _indices(ks, rf"{t}\.{stack}\.encoder\.layer\.(\d+)\.")]
+                 for t, stack in (("text_encoder", "roberta" if roberta else "bert"),
+                                  ("text_decoder", "bert"))},
+        "roberta": roberta,
+        "cross": _indices(ks, r"cross_encoder\.encoder\.layer\.(\d+)\."),
+        "untied": any(k.startswith(("text_encoder.lm_head.decoder.",
+                                    "text_encoder.cls.predictions.decoder.")) for k in ks),
         "heads": {h for h, probe in (
-            ("mlm_head", "text_encoder.cls.predictions.bias"),
+            ("mlm_head", "text_encoder.lm_head.dense.weight" if roberta
+             else "text_encoder.cls.predictions.transform.dense.weight"),
             ("dec_head", "text_decoder.cls.predictions.bias"),
             ("vision_proj", "vision_proj.weight"), ("text_proj", "text_proj.weight"),
             ("temp", "temp"), ("itm_head", "itm_head.0.weight"),
@@ -220,34 +238,51 @@ def _vision_rules(lay: dict):
             yield ("linear", (f"{d}.reduction.weight",), (f"{q}/reduction/kernel",))
 
 
-def _text_rules(tower: str, layers):
-    e, t = f"{tower}.bert.embeddings", f"{tower}/embeddings"
+def _layer_rules(p: str, q: str, cross: bool):
+    """One post-LN BERT layer: ``p`` its reference prefix, ``q`` its JAX one."""
+    for ref, jax_attn, ln, present in (("attention", "self_attn", "attn_ln", True),
+                                       ("crossattention", "cross_attn", "cross_ln", cross)):
+        if not present:
+            continue
+        for proj in ("query", "key", "value"):
+            yield _dense(f"{p}.{ref}.self.{proj}", f"{q}/{jax_attn}/{proj}")
+        yield _dense(f"{p}.{ref}.output.dense", f"{q}/{jax_attn}/out")
+        yield _norm(f"{p}.{ref}.output.LayerNorm", f"{q}/{ln}")
+    yield _dense(f"{p}.intermediate.dense", f"{q}/mlp/fc1")
+    yield _dense(f"{p}.output.dense", f"{q}/mlp/fc2")
+    yield _norm(f"{p}.output.LayerNorm", f"{q}/mlp_ln")
+
+
+def _text_rules(tower: str, layers, stack: str = "bert"):
+    e, t = f"{tower}.{stack}.embeddings", f"{tower}/embeddings"
     for n in ("word_embeddings", "position_embeddings", "token_type_embeddings"):
         yield _copy(f"{e}.{n}.weight", f"{t}/{n}/embedding")
     yield _norm(f"{e}.LayerNorm", f"{t}/ln")
     for i, cross in layers:
-        p, q = f"{tower}.bert.encoder.layer.{i}", f"{tower}/layer_{i}"
-        for ref, jax_attn, ln, present in (("attention", "self_attn", "attn_ln", True),
-                                           ("crossattention", "cross_attn", "cross_ln", cross)):
-            if not present:
-                continue
-            for proj in ("query", "key", "value"):
-                yield _dense(f"{p}.{ref}.self.{proj}", f"{q}/{jax_attn}/{proj}")
-            yield _dense(f"{p}.{ref}.output.dense", f"{q}/{jax_attn}/out")
-            yield _norm(f"{p}.{ref}.output.LayerNorm", f"{q}/{ln}")
-        yield _dense(f"{p}.intermediate.dense", f"{q}/mlp/fc1")
-        yield _dense(f"{p}.output.dense", f"{q}/mlp/fc2")
-        yield _norm(f"{p}.output.LayerNorm", f"{q}/mlp_ln")
+        yield from _layer_rules(f"{tower}.{stack}.encoder.layer.{i}", f"{tower}/layer_{i}", cross)
 
 
-def _head_rules(heads):
-    # the tied LM heads: the MLM head and the VQA answer decoder's
-    for head, m in (("mlm_head", "text_encoder.cls.predictions"),
-                    ("dec_head", "text_decoder.cls.predictions")):
-        if head in heads:
-            yield _dense(f"{m}.transform.dense", f"{head}/transform_dense")
-            yield _norm(f"{m}.transform.LayerNorm", f"{head}/transform_ln")
-            yield _copy(f"{m}.bias", f"{head}/decoder_bias")
+def _head_rules(heads, roberta: bool = False, untied: bool = False):
+    # the LM heads: the MLM head (XLM-R's ``lm_head`` names in the RoBERTa
+    # form; its own decoder when untied) and the VQA answer decoder's
+    if "mlm_head" in heads:
+        if roberta:
+            m = "text_encoder.lm_head"
+            yield _dense(f"{m}.dense", "mlm_head/transform_dense")
+            yield _norm(f"{m}.layer_norm", "mlm_head/transform_ln")
+        else:
+            m = "text_encoder.cls.predictions"
+            yield _dense(f"{m}.transform.dense", "mlm_head/transform_dense")
+            yield _norm(f"{m}.transform.LayerNorm", "mlm_head/transform_ln")
+        if untied:
+            yield _dense(f"{m}.decoder", "mlm_head/decoder")
+        else:
+            yield _copy(f"{m}.bias", "mlm_head/decoder_bias")
+    if "dec_head" in heads:
+        m = "text_decoder.cls.predictions"
+        yield _dense(f"{m}.transform.dense", "dec_head/transform_dense")
+        yield _norm(f"{m}.transform.LayerNorm", "dec_head/transform_ln")
+        yield _copy(f"{m}.bias", "dec_head/decoder_bias")
     for name in ("vision_proj", "text_proj"):
         if name in heads:
             yield _dense(name, name)
@@ -285,8 +320,12 @@ def _rules(lay: dict):
     yield from _vision_rules(lay)
     for tower, layers in lay["text"].items():
         if layers:
-            yield from _text_rules(tower, layers)
-    yield from _head_rules(lay["heads"])
+            yield from _text_rules(tower, layers, "roberta" if lay["roberta"] and
+                                   tower == "text_encoder" else "bert")
+    for j in lay["cross"]:   # the Plus base's standalone cross encoder
+        yield from _layer_rules(f"cross_encoder.encoder.layer.{j}", f"cross_encoder/layer_{j}",
+                                True)
+    yield from _head_rules(lay["heads"], lay["roberta"], lay["untied"])
     if lay["resampler"]:
         yield from _resampler_rules(lay["resampler"])
 
@@ -323,6 +362,16 @@ def _to_jax(kind: str, src: List[np.ndarray], n_out: int) -> List[np.ndarray]:
     return list(src)
 
 
+def _absent(names, src) -> bool:
+    """A rule none of whose names is in ``src`` (a partial parameter set: a
+    checkpoint split leaves the MLM decoder out) is skipped; a rule only
+    part of whose names are there raises."""
+    there = [n in src for n in names]
+    if any(there) and not all(there):
+        raise KeyError(f"only part of {names} is in the parameters")
+    return not any(there)
+
+
 def convert_jax_params(params: Mapping, *, device=None
                        ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
     """JAX task-model or ``XVLMBase`` params (any vision tower) -> (state
@@ -340,10 +389,14 @@ def convert_jax_params(params: Mapping, *, device=None
         else flatten_params(params)
     src = _strip_scope(flat)
     layout = _layout_from_jax(src)
-    if layout["vision"] is None and not layout["text"]["text_encoder"]:
-        raise KeyError("no vision_encoder / text_encoder parameters in the JAX tree")
+    if layout["vision"] is None and not layout["text"]["text_encoder"] and \
+            not layout["cross"]:
+        raise KeyError("no vision_encoder / text_encoder / cross_encoder parameters in the "
+                       "JAX tree")
     sd: Dict[str, np.ndarray] = {}
     for kind, ours, theirs in _rules(layout):
+        if _absent(theirs, src):
+            continue
         sd.update(zip(ours, _to_port(kind, [np.asarray(src.pop(k)) for k in theirs])))
     state = {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
              for k, v in sd.items()}
@@ -359,6 +412,8 @@ def to_jax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
            v.detach().float().cpu().numpy() for k, v in state.items()}
     out: Dict[str, np.ndarray] = {}
     for kind, ours, theirs in _rules(_layout_from_port(src)):
+        if _absent(ours, src):
+            continue
         vals = _to_jax(kind, [src.pop(k) for k in ours], len(theirs))
         for name, val in zip(theirs, vals):
             scope = "params/" if name.split("/")[0] in HEAD_LEVEL else "params/base/"

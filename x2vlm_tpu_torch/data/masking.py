@@ -49,7 +49,9 @@ class TextMaskingGenerator:
 
     @staticmethod
     def _is_continuation(token: str) -> bool:
-        return token.startswith("##")   # WordPiece; sentencepiece comes with A8b
+        # WordPiece's continuation; no XLM-R piece has it, and like the JAX
+        # launcher the port builds the CCLM masking without use_roberta
+        return token.startswith("##")
 
     def word_starts(self, tokens: Sequence[str], lo: int) -> List[int]:
         return [i for i in range(lo, len(tokens))

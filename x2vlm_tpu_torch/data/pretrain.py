@@ -11,9 +11,9 @@ counted in ``broken``, as in the JAX package; and once
 as the launcher sets it) the stream raises instead of spinning, so a
 missing decoder cannot turn into a stream that never yields. A video line
 whose caption is empty or in the skip set is passed over without counting,
-as in the JAX package. The multilingual streams come with ROADMAP item
-A8b; the JAX package's native decode path is not ported (every stream
-decodes with PIL, as the JAX package's PIL path does).
+as in the JAX package. The multilingual streams subclass these
+(data/multilingual.py); the JAX package's native decode path is not ported
+(every stream decodes with PIL, as the JAX package's PIL path does).
 """
 
 from __future__ import annotations
@@ -95,6 +95,9 @@ class ImageTextStream(_StreamBase):
 
     def _sample(self, ann: dict) -> Dict:
         image = np.asarray(self.transform(_image(ann, self.image_key, self.is_image_rpath)))
+        return self._text_sample(ann, image)
+
+    def _text_sample(self, ann: dict, image: np.ndarray) -> Dict:
         caption = _choose_caption(ann[self.caption_key], self.rng)
         ids, atts, ids_masked, pos, labels = self.text_pre(caption, with_masking=True)
         return {"image": image, "text_ids": ids, "text_atts": atts,

@@ -1,31 +1,51 @@
-"""The BERT WordPiece tokenizer and fixed-shape text preprocessing (the
-port's counterpart of x2vlm_tpu/data/tokenization.py).
+"""The port's tokenizers and fixed-shape text preprocessing (the port's
+counterpart of x2vlm_tpu/data/tokenization.py).
 
-The JAX package builds its tokenizer with ``transformers``; the port has its
-own :class:`BertWordPiece`, read from ``<text_encoder>/vocab.txt`` and held
-to ``transformers.BertTokenizerFast`` in the CPU tests: basic tokenization
-(control characters dropped, whitespace normalised, CJK characters split
-off, lower-casing, accents stripped, punctuation split off), then greedy
-longest-match-first WordPiece with ``##`` continuations, words over 100
-characters and words with no match becoming ``[UNK]``; and ``decode``, the
-ids back to text as ``BertTokenizerFast.decode`` gives it.
-``TextPreprocessor`` and ``pre_caption`` are copies of the JAX ones.
-RoBERTa and XLM-R tokenizers come with the multilingual models (ROADMAP
-queue A8b).
+The JAX package builds its tokenizer with ``transformers``, picking the
+family by a substring of the ``text_encoder`` path. The port reads the
+files itself and imports neither ``transformers`` nor ``tokenizers`` nor
+``sentencepiece``:
+
+- :class:`BertWordPiece`, read from ``<text_encoder>/vocab.txt`` and held to
+  ``transformers.BertTokenizerFast`` in the CPU tests: basic tokenization
+  (control characters dropped, whitespace normalised, CJK characters split
+  off, lower-casing, accents stripped, punctuation split off), then greedy
+  longest-match-first WordPiece with ``##`` continuations, words over 100
+  characters and words with no match becoming ``[UNK]``; and ``decode``,
+  the ids back to text as ``BertTokenizerFast.decode`` gives it.
+- :class:`XLMRUnigram`, read from ``<text_encoder>/tokenizer.json`` with
+  ``json`` and held to ``transformers.XLMRobertaTokenizerFast`` in the CPU
+  tests: the special tokens split off the raw text (with their ``lstrip`` /
+  ``rstrip``), the file's normalizers (``Precompiled``: SentencePiece's
+  compiled character map, a darts-clone double-array trie and its string
+  pool; ``NFKC``, ``Replace``, ``Strip``, ``Lowercase``, ``Sequence``), the
+  ``Metaspace`` pre-tokenizer, then the Viterbi of the ``Unigram`` model
+  over its pieces (an unknown character scores the lowest piece's score
+  less 10, adjacent unknowns fuse into one token).
+
+A plain RoBERTa path (byte-level BPE) is reached by no shipped config and
+comes with ROADMAP queue item A8d. ``TextPreprocessor`` and ``pre_caption``
+are copies of the JAX ones; like the JAX launcher, the port builds the
+CCLM preprocessor without ``use_roberta``, so whole-word masking looks for
+``##`` continuations, which no XLM-R piece has (README deviations).
 """
 
 from __future__ import annotations
 
+import base64
+import json
 import os
 import re
+import struct
 import unicodedata
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from x2vlm_tpu_torch.data.masking import TextMaskingGenerator, pad_masks
 
-__all__ = ["BertWordPiece", "build_tokenizer", "TextPreprocessor", "pre_caption"]
+__all__ = ["BertWordPiece", "XLMRUnigram", "build_tokenizer", "TextPreprocessor",
+           "pre_caption"]
 
 
 def _is_whitespace(ch: str) -> bool:
@@ -188,15 +208,368 @@ def _cleanup(text: str) -> str:
     return text
 
 
-def build_tokenizer(path: str) -> BertWordPiece:
-    """The tokenizer of the ``text_encoder`` directory ``path``: BERT's
-    WordPiece over its ``vocab.txt``. RoBERTa / XLM-R paths (picked by path
-    substring, as the JAX ``build_tokenizer`` picks them) raise."""
+# ---- XLM-R: SentencePiece Unigram read from tokenizer.json ----
+
+# Rust's char::is_whitespace: the Unicode White_Space property
+_WHITE_SPACE = frozenset(map(chr, [*range(0x9, 0xE), 0x20, 0x85, 0xA0, 0x1680,
+                                   *range(0x2000, 0x200B), 0x2028, 0x2029, 0x202F, 0x205F,
+                                   0x3000]))
+_ZWJ = "\u200d"
+
+
+def _hangul(cp: int) -> str:
+    """The Hangul syllable type of a code point: L, V, T, LV, LVT or ''."""
+    if 0x1100 <= cp <= 0x115F or 0xA960 <= cp <= 0xA97C:
+        return "L"
+    if 0x1160 <= cp <= 0x11A7 or 0xD7B0 <= cp <= 0xD7C6:
+        return "V"
+    if 0x11A8 <= cp <= 0x11FF or 0xD7CB <= cp <= 0xD7FB:
+        return "T"
+    if 0xAC00 <= cp <= 0xD7A3:
+        return "LV" if (cp - 0xAC00) % 28 == 0 else "LVT"
+    return ""
+
+
+def _extends(ch: str) -> bool:
+    """Grapheme_Extend, ZWJ or SpacingMark: the characters that join the
+    cluster before them (combining marks, emoji modifiers, ZWJ / ZWNJ)."""
+    cp = ord(ch)
+    return (unicodedata.category(ch) in ("Mn", "Me", "Mc") or cp in (0x200C, 0x200D)
+            or 0x1F3FB <= cp <= 0x1F3FF or 0xE0020 <= cp <= 0xE007F)
+
+
+def graphemes(text: str) -> List[str]:
+    """Extended grapheme clusters (UAX #29) as the Precompiled normalizer
+    walks them: CR LF, Hangul syllable sequences, regional-indicator pairs,
+    a character and the extending marks after it, and ZWJ emoji sequences.
+    Prepend characters and Indic conjunct joins are not modelled."""
+    out: List[str] = []
+    i, n = 0, len(text)
+    while i < n:
+        j = i + 1
+        c = text[i]
+        if c == "\r" and j < n and text[j] == "\n":
+            j += 1
+        elif unicodedata.category(c) in ("Cc", "Zl", "Zp"):
+            pass
+        else:
+            if 0x1F1E6 <= ord(c) <= 0x1F1FF and j < n and 0x1F1E6 <= ord(text[j]) <= 0x1F1FF:
+                j += 1
+            h = _hangul(ord(c))
+            while h and j < n:
+                nxt = _hangul(ord(text[j]))
+                if ((h == "L" and nxt in ("L", "V", "LV", "LVT")) or
+                        (h in ("LV", "V") and nxt in ("V", "T")) or
+                        (h in ("LVT", "T") and nxt == "T")):
+                    h, j = nxt, j + 1
+                else:
+                    break
+            pict = unicodedata.category(c) == "So"
+            while j < n:
+                if _extends(text[j]):
+                    # ExtPict Extend* ZWJ x ExtPict: an emoji joined by ZWJ
+                    if (text[j] == _ZWJ and pict and j + 1 < n and
+                            unicodedata.category(text[j + 1]) == "So"):
+                        j += 2
+                    else:
+                        j += 1
+                else:
+                    break
+        out.append(text[i:j])
+        i = j
+    return out
+
+
+class _Charsmap:
+    """SentencePiece's compiled character map (``precompiled_charsmap``): a
+    little-endian u32 byte length, the darts-clone double-array units (u32
+    each), then the NUL-terminated replacement strings. A key's leaf holds
+    the offset of its replacement in the pool."""
+
+    def __init__(self, blob: bytes):
+        (size,) = struct.unpack_from("<I", blob, 0)
+        self.units = struct.unpack_from(f"<{size // 4}I", blob, 4)
+        self.pool = blob[4 + size:]
+
+    def first_match(self, chunk: str) -> Optional[str]:
+        """The replacement of the shortest key that is a prefix of
+        ``chunk``'s UTF-8 bytes (darts-clone ``commonPrefixSearch``, first
+        result), or None."""
+        units = self.units
+        unit = units[0]
+        pos = (unit >> 10) << ((unit & (1 << 9)) >> 6)
+        for c in chunk.encode("utf-8"):
+            if c == 0:
+                return None
+            pos ^= c
+            if pos >= len(units):
+                return None
+            unit = units[pos]
+            if unit & ((1 << 31) | 0xFF) != c:
+                return None
+            pos ^= (unit >> 10) << ((unit & (1 << 9)) >> 6)
+            if (unit >> 8) & 1:
+                start = units[pos] & ((1 << 31) - 1)
+                return self.pool[start:self.pool.index(b"\0", start)].decode("utf-8")
+        return None
+
+    def __call__(self, text: str) -> str:
+        """As the ``tokenizers`` Precompiled normalizer: a grapheme of fewer
+        than 6 bytes whose prefix is a key is replaced whole by that key's
+        replacement; else each of its characters that is a key is
+        replaced."""
+        out = []
+        for g in graphemes(text):
+            if len(g.encode("utf-8")) < 6:
+                norm = self.first_match(g)
+                if norm is not None:
+                    out.append(norm)
+                    continue
+            for ch in g:
+                norm = self.first_match(ch)
+                out.append(ch if norm is None else norm)
+        return "".join(out)
+
+
+def _normalizer(spec: Optional[dict]):
+    """A ``tokenizer.json`` normalizer as a str -> str function."""
+    if spec is None:
+        return lambda s: s
+    kind = spec["type"]
+    if kind == "Sequence":
+        steps = [_normalizer(n) for n in spec["normalizers"]]
+
+        def run(s: str) -> str:
+            for step in steps:
+                s = step(s)
+            return s
+        return run
+    if kind == "Precompiled":
+        blob = spec.get("precompiled_charsmap")
+        return _Charsmap(base64.b64decode(blob)) if blob else (lambda s: s)
+    if kind == "NFKC":
+        return lambda s: unicodedata.normalize("NFKC", s)
+    if kind == "Lowercase":
+        return str.lower
+    if kind == "Strip":
+        left, right = spec.get("strip_left", True), spec.get("strip_right", True)
+
+        def strip(s: str) -> str:
+            i, j = 0, len(s)
+            while left and i < j and s[i] in _WHITE_SPACE:
+                i += 1
+            while right and j > i and s[j - 1] in _WHITE_SPACE:
+                j -= 1
+            return s[i:j]
+        return strip
+    if kind == "Replace":
+        pat, content = spec["pattern"], spec["content"]
+        if "String" in pat:
+            return lambda s: s.replace(pat["String"], content)
+        regex = re.compile(pat["Regex"])
+        return lambda s: regex.sub(lambda _: content, s)
+    raise NotImplementedError(f"tokenizer.json normalizer {kind!r} is not read by the port "
+                              f"(it reads Precompiled, NFKC, Replace, Strip, Lowercase, "
+                              f"Sequence)")
+
+
+class XLMRUnigram:
+    """XLM-R's SentencePiece Unigram tokenizer over a ``tokenizer.json``
+    (the vocabulary: ``[piece, score]`` pairs whose list index is the id).
+    The attributes and methods the data pipeline uses are those of
+    ``transformers.XLMRobertaTokenizerFast``: ``<s>`` is the CLS and BOS
+    token, ``</s>`` the SEP and EOS token."""
+
+    unk_token, sep_token, pad_token, cls_token, mask_token = (
+        "<unk>", "</s>", "<pad>", "<s>", "<mask>")
+    bos_token, eos_token = "<s>", "</s>"
+    unk_penalty = 10.0
+
+    def __init__(self, path: str):
+        with open(path, "r", encoding="utf-8") as f:
+            spec = json.load(f)
+        model = spec["model"]
+        if model.get("type") != "Unigram":
+            raise NotImplementedError(f"{path}: model {model.get('type')!r}; the port reads a "
+                                      f"Unigram tokenizer.json here")
+        if model.get("byte_fallback"):
+            raise NotImplementedError(f"{path}: a byte-fallback Unigram is not read by the "
+                                      f"port")
+        pieces = [(str(p), float(s)) for p, s in model["vocab"]]
+        self.scores = [s for _, s in pieces]
+        self.unk_id = model.get("unk_id")
+        if self.unk_id is None:
+            raise ValueError(f"{path}: the Unigram has no unk_id")
+        self.min_score = min(self.scores)
+        self.pieces: Dict[str, int] = {}   # the Unigram's own: a repeated piece keeps its last id
+        for i, (p, _) in enumerate(pieces):
+            self.pieces[p] = i
+        self.vocab = dict(self.pieces)
+        self.max_piece_len = max(len(p) for p, _ in pieces)
+        self.added: List[dict] = []
+        for t in spec.get("added_tokens", []):
+            if t.get("normalized") or t.get("single_word"):
+                raise NotImplementedError(f"{path}: added token {t['content']!r} is normalized "
+                                          f"or single-word, which the port does not read")
+            self.added.append(t)
+            self.vocab[t["content"]] = t["id"]
+        # the longest added token first at each position (leftmost-longest)
+        self._added_re = (re.compile("|".join(re.escape(t["content"]) for t in sorted(
+            self.added, key=lambda t: -len(t["content"])))) if self.added else None)
+        self._added = {t["content"]: t for t in self.added}
+        self.normalize = _normalizer(spec.get("normalizer"))
+        pre = spec.get("pre_tokenizer") or {}
+        if pre.get("type") != "Metaspace":
+            raise NotImplementedError(f"{path}: pre-tokenizer {pre.get('type')!r}; the port "
+                                      f"reads Metaspace")
+        self.replacement = pre.get("replacement", "\u2581")
+        scheme = pre.get("prepend_scheme")
+        if scheme is None:
+            scheme = "always" if pre.get("add_prefix_space", True) else "never"
+        self.prepend_scheme = scheme
+        self.split = pre.get("split", True)
+        for t in (self.unk_token, self.sep_token, self.pad_token, self.cls_token,
+                  self.mask_token):
+            if t not in self.vocab:
+                raise ValueError(f"{path}: the special token {t} is not in the vocab")
+        self.pad_token_id = self.vocab[self.pad_token]
+        self.unk_token_id = self.vocab[self.unk_token]
+        self.cls_token_id = self.vocab[self.cls_token]
+        self.sep_token_id = self.vocab[self.sep_token]
+        self.mask_token_id = self.vocab[self.mask_token]
+
+    def get_vocab(self) -> Dict[str, int]:
+        return dict(self.vocab)
+
+    def __len__(self) -> int:
+        return len(self.vocab)
+
+    # ---- the added (special) tokens, split off the raw text ----
+    def _split_added(self, text: str) -> List[Tuple[str, bool, int]]:
+        """(segment, is an added token, its start in ``text``) in order,
+        empty segments dropped."""
+        out: List[Tuple[str, bool, int]] = []
+        at = 0
+        for m in (self._added_re.finditer(text) if self._added_re else ()):
+            tok = self._added[m.group(0)]
+            start, stop = m.start(), m.end()
+            if tok.get("lstrip"):
+                while start > at and text[start - 1] in _WHITE_SPACE:
+                    start -= 1
+            if tok.get("rstrip"):
+                while stop < len(text) and text[stop] in _WHITE_SPACE:
+                    stop += 1
+            if start > at:
+                out.append((text[at:start], False, at))
+            # the token is the text it took, the stripped whitespace included
+            # (so " <mask>" is no vocab entry, as transformers tokenizes it)
+            out.append((text[start:stop], True, start))
+            at = stop
+        if at < len(text):
+            out.append((text[at:], False, at))
+        return out
+
+    def _pre_tokenize(self, text: str, first: bool) -> List[str]:
+        """Metaspace: spaces -> the replacement, the replacement prepended
+        (scheme ``always``, or ``first`` on the text's first segment), then
+        a split before each replacement run."""
+        r = self.replacement
+        text = text.replace(" ", r)
+        if not text.startswith(r) and (self.prepend_scheme == "always" or
+                                       (self.prepend_scheme == "first" and first)):
+            text = r + text
+        if not self.split:
+            return [text]
+        out, start = [], 0
+        for i in range(1, len(text)):
+            if text[i] == r and text[i - 1] != r:
+                out.append(text[start:i])
+                start = i
+        out.append(text[start:])
+        return out
+
+    def _viterbi(self, text: str) -> List[str]:
+        """The best segmentation of one pre-token: at each character, every
+        piece that starts there, shortest first, improves its end's best
+        path on a strictly higher score; a character no piece of its own
+        length covers gets the unknown score; unknowns next to each other
+        fuse (the ``tokenizers`` Unigram's ``encode_optimized``)."""
+        n = len(text)
+        score = [0.0] * (n + 1)
+        start = [-1] * (n + 1)
+        ids = [0] * (n + 1)
+        unk_score = self.min_score - self.unk_penalty
+        pieces, scores = self.pieces, self.scores
+        for i in range(n):
+            here = score[i]
+            single = False
+            for j in range(i + 1, min(n, i + self.max_piece_len) + 1):
+                pid = pieces.get(text[i:j])
+                if pid is None:
+                    continue
+                cand = scores[pid] + here
+                if start[j] < 0 or cand > score[j]:
+                    score[j], start[j], ids[j] = cand, i, pid
+                if j == i + 1:
+                    single = True
+            if not single:
+                cand = unk_score + here
+                if start[i + 1] < 0 or cand > score[i + 1]:
+                    score[i + 1], start[i + 1], ids[i + 1] = cand, i, self.unk_id
+        out: List[str] = []
+        unk: List[str] = []
+        end = n
+        while end > 0:
+            s = start[end]
+            if ids[end] == self.unk_id:
+                unk.append(text[s:end])
+            else:
+                if unk:
+                    out.append("".join(reversed(unk)))
+                    unk = []
+                out.append(text[s:end])
+            end = s
+        if unk:
+            out.append("".join(reversed(unk)))
+        return out[::-1]
+
+    def tokenize(self, text: str) -> List[str]:
+        """The pieces of ``text`` (an unknown run as its own characters, as
+        ``XLMRobertaTokenizerFast.tokenize`` gives them), no ``<s>`` /
+        ``</s>`` added."""
+        out: List[str] = []
+        for seg, added, at in self._split_added(text):
+            if added:
+                out.append(seg)
+                continue
+            seg = self.normalize(seg)
+            if not seg:
+                continue
+            for word in self._pre_tokenize(seg, at == 0):
+                out.extend(self._viterbi(word))
+        return out
+
+    def convert_tokens_to_ids(self, tokens: Union[str, Sequence[str]]):
+        if isinstance(tokens, str):
+            return self.vocab.get(tokens, self.unk_token_id)
+        return [self.vocab.get(t, self.unk_token_id) for t in tokens]
+
+
+def build_tokenizer(path: str):
+    """The tokenizer of the ``text_encoder`` directory ``path``, its family
+    picked by path substring as the JAX ``build_tokenizer`` picks it: XLM-R
+    (``xlm-roberta`` / ``xlmr``) reads ``tokenizer.json``; BERT reads
+    ``vocab.txt``. A plain RoBERTa path raises (ROADMAP A8d)."""
     lowered = str(path).lower()
-    if "roberta" in lowered or "xlmr" in lowered:
+    if "xlm-roberta" in lowered or "xlmr" in lowered:
+        spec = os.path.join(path, "tokenizer.json") if os.path.isdir(path) else path
+        if not os.path.isfile(spec):
+            raise FileNotFoundError(f"no tokenizer.json for the text encoder at {path}")
+        return XLMRUnigram(spec)
+    if "roberta" in lowered:
         raise NotImplementedError(
-            f"{path}: RoBERTa / XLM-R tokenizers come with the multilingual models "
-            f"(ROADMAP queue A8b); the port tokenizes with BERT's WordPiece")
+            f"{path}: the RoBERTa byte-level BPE tokenizer comes with ROADMAP queue item "
+            f"A8d; the port tokenizes with BERT's WordPiece and XLM-R's Unigram")
     vocab = os.path.join(path, "vocab.txt") if os.path.isdir(path) else path
     if not os.path.isfile(vocab):
         raise FileNotFoundError(f"no vocab.txt for the text encoder at {path}")

@@ -127,7 +127,9 @@ def main(argv=None) -> Optional[Dict]:
 
     cfg = load_config(args.config)
     device = resolve_device(args.device)
-    model, _ = build_model(cfg, args.task, device=device, seed=args.seed)
+    # a train state fills every parameter: nothing to draw from the seed
+    seed = None if os.path.isdir(args.checkpoint) else args.seed
+    model, _ = build_model(cfg, args.task, device=device, seed=seed)
     load_initial_params(argparse.Namespace(checkpoint=args.checkpoint), cfg, model)
     tokenizer = None
     if args.task == "captioning":

@@ -12,11 +12,14 @@ config's ``label_smoothing``), ``"classification"``
 (``XVLMForClassification`` with the config's ``num_labels``) and
 ``"multiple_choice"`` (``XVLMForMultipleChoice``); the video keys
 (``video_encoding``, ``frame_len``, ``add_frame_pos``, ``resampler_depth``,
-``resampler_latents``) as the JAX factory reads them. A config that asks
-for what the port does not build raises, naming the ROADMAP queue item that
-brings it: RoBERTa / XLM-R text encoders and ``model_type: cclm`` (A8b),
-int8 serving from a config, and ``remat`` (not ported, by decision: the
-step peaks far below the card's memory).
+``resampler_latents``) as the JAX factory reads them. The RoBERTa / XLM-R
+text tower (a ``text_encoder`` path naming ``roberta``) and ``model_type:
+cclm | xvlm_plus`` (or ``replace_text_encoder``) build the Plus / CCLM base
+(``XVLMPlusConfig`` with ``num_cross_layers``; ``"pretrain"`` builds
+``XVLMPlusForPretrain``), which refuses drop-path as the JAX factory does.
+A config that asks for what the port does not build raises, naming the
+ROADMAP queue item that brings it: the Plus base under a task other than
+pretraining and retrieval (A8c, with the IGLUE tasks), and ``remat`` (A11).
 """
 
 from __future__ import annotations
@@ -34,14 +37,16 @@ from x2vlm_tpu_torch.models.bert import BertConfig
 from x2vlm_tpu_torch.models.clip_vit import CLIPViTConfig
 from x2vlm_tpu_torch.models.swin import SwinConfig
 from x2vlm_tpu_torch.models.xvlm import XVLMConfig, vision_width
+from x2vlm_tpu_torch.models.xvlm_plus import XVLMPlusConfig
 
 __all__ = ["vision_config_from_yaml", "text_config_from_yaml", "xvlm_config_from_yaml",
-           "model_dtype", "build_model"]
+           "is_plus_config", "model_dtype", "build_model"]
 
 
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(f"{what} comes with ROADMAP queue item {item}; the port "
-                              f"builds BEiT-2 / CLIP ViT / Swin + BERT X2-VLM models")
+                              f"builds BEiT-2 / CLIP ViT / Swin + BERT / XLM-R X2-VLM and "
+                              f"CCLM models")
 
 
 def vision_config_from_yaml(config: Dict) -> Any:
@@ -92,8 +97,9 @@ def text_config_from_yaml(config: Dict, vision_width: int) -> BertConfig:
     num_layers = config.get("text_num_hidden_layers", 18)
     fusion = config.get("text_fusion_start_at", config.get("text_fusion_layer", num_layers))
     if "xlm-roberta" in name or "roberta" in name:
-        _refuse(f"the RoBERTa / XLM-R text encoder ({name})", "A8b")
-    if "large" in name:   # the JAX BertConfig.bert_large preset
+        out = BertConfig.roberta_base(num_layers=num_layers, fusion_layer=fusion,
+                                      encoder_width=vision_width)
+    elif "large" in name:   # the JAX BertConfig.bert_large preset
         out = BertConfig(hidden_size=1024, num_heads=16, intermediate_size=4096,
                          num_layers=num_layers, fusion_layer=fusion,
                          encoder_width=vision_width)
@@ -114,28 +120,39 @@ def text_config_from_yaml(config: Dict, vision_width: int) -> BertConfig:
     if inline:
         fields = {f.name for f in dataclasses.fields(BertConfig)}
         unported = sorted(set(inline) - fields)
-        if unported:
-            _refuse(f"text_config_inline keys {unported}", "A8b")
+        if unported:   # remat / remat_policy: the JAX package's gradient checkpointing
+            _refuse(f"text_config_inline keys {unported}", "A11")
         out = dataclasses.replace(out, **inline)
     return out
 
 
+def is_plus_config(config: Dict) -> bool:
+    """``model_type: cclm | xvlm_plus`` or ``replace_text_encoder``: the Plus
+    / CCLM base (the JAX factory's rule)."""
+    return config.get("model_type", "") in ("xvlm_plus", "cclm") or \
+        bool(config.get("replace_text_encoder", False))
+
+
 def xvlm_config_from_yaml(config: Dict) -> XVLMConfig:
-    if config.get("model_type", "") in ("xvlm_plus", "cclm") or \
-            config.get("replace_text_encoder", False):
-        _refuse("model_type xvlm_plus / cclm", "A8b")
     if config.get("remat", False):
-        raise NotImplementedError("remat: gradient checkpointing is not ported (by "
-                                  "decision: ROADMAP 'Not ported'), drop the key")
+        raise NotImplementedError("remat: gradient checkpointing comes with ROADMAP queue "
+                                  "item A11; drop the key")
     vision = vision_config_from_yaml(config)
     text = text_config_from_yaml(config, vision_width(vision))
-    return XVLMConfig(vision=vision, text=text, embed_dim=config.get("embed_dim", 256),
-                      temp=config.get("temp", 0.07), fix_temp=config.get("fix_temp", False),
-                      video_encoding=config.get("video_encoding", ""),
-                      frame_len=config.get("frame_len", 1),
-                      add_frame_pos=config.get("add_frame_pos", False),
-                      resampler_depth=config.get("resampler_depth", 2),
-                      resampler_latents=config.get("resampler_latents", 64))
+    common = dict(vision=vision, text=text, embed_dim=config.get("embed_dim", 256),
+                  temp=config.get("temp", 0.07), fix_temp=config.get("fix_temp", False),
+                  video_encoding=config.get("video_encoding", ""),
+                  frame_len=config.get("frame_len", 1),
+                  add_frame_pos=config.get("add_frame_pos", False),
+                  resampler_depth=config.get("resampler_depth", 2),
+                  resampler_latents=config.get("resampler_latents", 64))
+    if is_plus_config(config):
+        # the reference's Plus stack asserts drop-path away (xvlm.py:1012)
+        if config.get("cross_drop_path_rate", 0.0) or config.get("text_drop_path_rate", 0.0):
+            raise ValueError("drop-path is not implemented for XVLMPlus / CCLM (reference "
+                             "xvlm.py:1012)")
+        return XVLMPlusConfig(num_cross_layers=config.get("num_cross_layers", 6), **common)
+    return XVLMConfig(**common)
 
 
 def model_dtype(config: Dict) -> torch.dtype:
@@ -157,6 +174,7 @@ def build_model(config: Dict, task: str, *, device, dtype=None, seed=0):
     from x2vlm_tpu_torch.models import (
         XVLMForClassification, XVLMForGrounding, XVLMForMLMCaptioning,
         XVLMForMultipleChoice, XVLMForNLVR, XVLMForPretrain, XVLMForRetrieval, XVLMForVQA,
+        XVLMPlusForPretrain,
     )
 
     models = {"pretrain": XVLMForPretrain, "retrieval": XVLMForRetrieval,
@@ -174,4 +192,8 @@ def build_model(config: Dict, task: str, *, device, dtype=None, seed=0):
         raise ValueError(f"unknown task {task!r}")
     dtype = dtype or model_dtype(config)
     cfg = xvlm_config_from_yaml(config)
+    if cfg.is_plus:
+        if task not in ("pretrain", "retrieval"):
+            _refuse(f"the Plus / CCLM base under task {task!r}", "A8c")
+        models["pretrain"] = XVLMPlusForPretrain
     return models[task](cfg, dtype=dtype, device=device, seed=seed), cfg

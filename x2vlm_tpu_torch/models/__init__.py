@@ -14,10 +14,13 @@ from x2vlm_tpu_torch.models.vit import ViT, ViTConfig
 from x2vlm_tpu_torch.models.xvlm import (
     MlpHead, XVLMBase, XVLMConfig, build_vision_tower, vision_seq_len, vision_width,
 )
+from x2vlm_tpu_torch.models.xvlm_plus import (
+    XVLMPlusConfig, XVLMPlusForPretrain, split_params_to_plus,
+)
 
 __all__ = ["BEiT2", "BEiT2Config", "BertConfig", "BertEncoder", "CLIPViT", "CLIPViTConfig",
            "MlpHead", "PerceiverResampler", "SwinConfig", "SwinTransformer", "ViT",
            "ViTConfig", "XVLMBase", "XVLMConfig", "XVLMForClassification", "XVLMForGrounding",
            "XVLMForMLMCaptioning", "XVLMForMultipleChoice", "XVLMForNLVR", "XVLMForPretrain",
-           "XVLMForRetrieval", "XVLMForVQA", "build_vision_tower", "vision_seq_len",
-           "vision_width"]
+           "XVLMForRetrieval", "XVLMForVQA", "XVLMPlusConfig", "XVLMPlusForPretrain",
+           "build_vision_tower", "split_params_to_plus", "vision_seq_len", "vision_width"]

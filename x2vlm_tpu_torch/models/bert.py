@@ -17,6 +17,16 @@ transform.LayerNorm, bias}`` with its decoder tied to
 ``embeddings.word_embeddings.weight``; the answer decoder's stack and head
 are the same modules under ``text_decoder``.
 
+The RoBERTa / XLM-R form (the CCLM text tower, ``BertConfig.roberta_base``)
+is the text tower with one token type: its stack is ``text_encoder.roberta``
+and its head ``text_encoder.lm_head.{dense, layer_norm, bias}``, the
+reference's xroberta names. Its position ids start at ``position_offset``
+(2: padding_idx + 1), as in the JAX package, which does not skip padded
+positions. ``embedding_dim`` narrows the MLM head's transform (the CCLM
+bottleneck), and ``tie_word_embeddings=False`` gives the head its own
+``decoder`` (a plain fp32 cross-entropy over its logits, as the JAX head's
+untied path computes it).
+
 UniLM captioning (models/captioning.py) passes ``attention_matrix`` (B, Sq,
 Skv), which becomes the self-attention's full mask (and'ed with the key
 mask), and ``position_ids``; its decode threads a list of per-layer static
@@ -36,7 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from x2vlm_tpu_torch.device import resolve_device
-from x2vlm_tpu_torch.ops.fused_ce import fused_vocab_ce, fused_vocab_ce_weighted
+from x2vlm_tpu_torch.ops.fused_ce import fused_vocab_ce, fused_vocab_ce_weighted, softmax_ce
 from x2vlm_tpu_torch.ops.layers import (
     ACTIVATIONS, DropPath, FusedLayerNorm, LayerNorm, MultiHeadAttention, dense,
     dropout, epilogue_act, gelu_exact, layer_norm, linear, serving_only,
@@ -61,8 +71,11 @@ class BertConfig:
     ln_eps: float = 1e-12
     hidden_dropout: float = 0.1
     attn_dropout: float = 0.1
+    position_offset: int = 0       # 2 for RoBERTa / XLM-R
     act: str = "gelu"              # "gelu" (erf) | "gelu_fast" (tanh)
     quant_int8: bool = False       # int8 W8A8 projections and FFN (serving only)
+    embedding_dim: Optional[int] = None  # the MLM head's bottleneck width (CCLM)
+    tie_word_embeddings: bool = True     # the MLM decoder is the word-embedding table
     is_decoder: bool = False       # causal self-attention, cross-attention in every layer
     text_drop_path_rate: float = 0.0
     cross_drop_path_rate: float = 0.0
@@ -80,6 +93,23 @@ class BertConfig:
     def bert_base(cls, num_layers=18, fusion_layer=12, encoder_width=768, **kw):
         return cls(num_layers=num_layers, fusion_layer=fusion_layer,
                    encoder_width=encoder_width, **kw)
+
+    @classmethod
+    def roberta_base(cls, vocab_size=250002, num_layers=12, fusion_layer=12,
+                     encoder_width=768, **kw):
+        """XLM-R base (the CCLM text tower): 514 positions from offset 2, one
+        token type; ``ln_eps`` stays the JAX preset's 1e-12 (XLM-R's own is
+        1e-5; README deviations)."""
+        return cls(vocab_size=vocab_size, num_layers=num_layers, fusion_layer=fusion_layer,
+                   encoder_width=encoder_width, max_position_embeddings=514,
+                   type_vocab_size=1, position_offset=2, **kw)
+
+    @property
+    def roberta_form(self) -> bool:
+        """The RoBERTa / XLM-R tower (one token type): the reference names
+        ``roberta`` and ``lm_head`` instead of ``bert`` and
+        ``cls.predictions``."""
+        return self.type_vocab_size == 1
 
 
 def drop_path_schedule(cfg: BertConfig) -> List[float]:
@@ -109,13 +139,15 @@ class BertEmbeddings(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 deterministic: bool = False,
                 position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``position_ids`` (S,) or (B, S), default 0 .. S-1 (the UniLM
-        encodings repeat a position for a [MASK] and its token)."""
+        """``position_ids`` (S,) or (B, S), default ``position_offset`` ..
+        ``position_offset`` + S - 1 (the UniLM encodings repeat a position
+        for a [MASK] and its token)."""
         cfg, dt = self.config, self.dtype
         S = input_ids.shape[1]
         word = F.embedding(input_ids.long(), self.word_embeddings.weight).to(dt)
         if position_ids is None:
-            pos = self.position_embeddings.weight[:S].to(dt)[None]
+            off = cfg.position_offset
+            pos = self.position_embeddings.weight[off:off + S].to(dt)[None]
         else:
             pos = F.embedding(position_ids.long(), self.position_embeddings.weight).to(dt)
             if pos.dim() == 2:
@@ -311,41 +343,61 @@ class _MLMTransform(nn.Module):
 
     def __init__(self, cfg: BertConfig, *, device):
         super().__init__()
-        self.dense = linear(cfg.hidden_size, cfg.hidden_size, device=device)
-        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.ln_eps, device=device)
+        dim = cfg.embedding_dim or cfg.hidden_size
+        self.dense = linear(cfg.hidden_size, dim, device=device)
+        self.LayerNorm = nn.LayerNorm(dim, eps=cfg.ln_eps, device=device)
 
 
 class BertMLMHead(nn.Module):
-    """The MLM head under the reference's name ``cls.predictions``:
-    ``transform`` (dense -> GELU -> LayerNorm) at the masked positions only,
-    then the tied decoder (the word-embedding table passed in, and ``bias``)
-    fused with the cross-entropy (``ops/fused_ce.py``), so the (B*M, vocab)
-    logits are never held at once. Counterpart of the JAX ``BertMLMHead``
-    on its tied-decoder path with labels."""
+    """The MLM head: the transform (dense -> GELU -> LayerNorm, to
+    ``embedding_dim`` when set) at the masked positions only, then the tied
+    decoder (the word-embedding table passed in, and ``bias``) fused with
+    the cross-entropy (``ops/fused_ce.py``), so the (B*M, vocab) logits are
+    never held at once; or, with ``tie_word_embeddings=False``, its own
+    ``decoder`` and a plain cross-entropy. Its names are the reference's:
+    ``cls.predictions.{transform.dense, transform.LayerNorm, bias}``, or in
+    the RoBERTa form ``lm_head.{dense, layer_norm, bias}``. Counterpart of
+    the JAX ``BertMLMHead`` with labels."""
 
     def __init__(self, cfg: BertConfig, *, dtype: torch.dtype = torch.bfloat16,
                  device=None):
         super().__init__()
         device = resolve_device(device)
         self.dtype = dtype
-        self.transform = _MLMTransform(cfg, device=device)
-        self.bias = nn.Parameter(torch.empty(cfg.vocab_size, device=device))
+        dim = cfg.embedding_dim or cfg.hidden_size
+        self.roberta_form = cfg.roberta_form
+        if self.roberta_form:
+            self.dense = linear(cfg.hidden_size, dim, device=device)
+            self.layer_norm = nn.LayerNorm(dim, eps=cfg.ln_eps, device=device)
+        else:
+            self.transform = _MLMTransform(cfg, device=device)
+        self.tied = cfg.tie_word_embeddings
+        if self.tied:
+            self.bias = nn.Parameter(torch.empty(cfg.vocab_size, device=device))
+        else:
+            self.decoder = linear(dim, cfg.vocab_size, device=device)
 
     def init_extra(self, generator: torch.Generator, std: float) -> None:
-        self.bias.zero_()
+        if self.tied:
+            self.bias.zero_()
 
     def _transform(self, h: torch.Tensor) -> torch.Tensor:
-        t = self.transform
-        h = gelu_exact(dense(h, t.dense.weight, t.dense.bias, self.dtype))
-        return layer_norm(h, t.LayerNorm.weight, t.LayerNorm.bias,
-                          t.LayerNorm.eps).to(self.dtype)
+        dense_, ln = ((self.dense, self.layer_norm) if self.roberta_form
+                      else (self.transform.dense, self.transform.LayerNorm))
+        h = gelu_exact(dense(h, dense_.weight, dense_.bias, self.dtype))
+        return layer_norm(h, ln.weight, ln.bias, ln.eps).to(self.dtype)
+
+    def _decode(self, h: torch.Tensor, embedding_table: Optional[torch.Tensor]) -> torch.Tensor:
+        """The decoder in the compute dtype: the tied table or ``decoder``."""
+        if self.tied:
+            return dense(h, embedding_table, self.bias, self.dtype)
+        return dense(h, self.decoder.weight, self.decoder.bias, self.dtype)
 
     def logits(self, hidden: torch.Tensor, embedding_table: torch.Tensor) -> torch.Tensor:
         """hidden (B, S, C) -> (B, S, vocab) fp32 logits at every position:
-        the tied decoder in the compute dtype, then the cast (the JAX head
+        the decoder in the compute dtype, then the cast (the JAX head
         without ``masked_pos`` and labels, as the answer decoder calls it)."""
-        return dense(self._transform(hidden), embedding_table, self.bias,
-                     self.dtype).float()
+        return self._decode(self._transform(hidden), embedding_table).float()
 
     def forward(self, hidden: torch.Tensor, masked_pos: torch.Tensor,
                 embedding_table: torch.Tensor, labels: torch.Tensor,
@@ -358,6 +410,10 @@ class BertMLMHead(nn.Module):
         0), the SCST form."""
         h = self._transform(torch.gather(hidden, 1, masked_pos.long()[:, :, None].expand(
             -1, -1, hidden.shape[-1])))
+        if not self.tied:
+            if label_weights is not None or label_smoothing:
+                raise NotImplementedError("the untied MLM decoder takes the plain loss only")
+            return softmax_ce(self._decode(h, None).float(), labels)
         h = h.reshape(-1, h.shape[-1])
         flat = labels.reshape(-1)
         if label_weights is not None:
@@ -376,20 +432,32 @@ class _MLMPredictions(nn.Module):
 
 class TextEncoder(nn.Module):
     """The text tower under the reference's names: ``text_encoder.bert`` and,
-    with ``mlm_head``, ``text_encoder.cls.predictions`` (:class:`BertMLMHead`,
-    reached as ``.mlm_head``); the VQA answer decoder (``is_decoder``) is
-    one too, under ``text_decoder``."""
+    with ``mlm_head``, ``text_encoder.cls.predictions``; in the RoBERTa
+    form ``text_encoder.roberta`` and ``text_encoder.lm_head``
+    (:class:`BertMLMHead`, reached as ``.mlm_head``, the stack as
+    ``.stack``); the VQA answer decoder (``is_decoder``) is one too, under
+    ``text_decoder``."""
 
     def __init__(self, config: BertConfig, *, dtype: torch.dtype = torch.bfloat16,
                  device=None, mlm_head: bool = False):
         super().__init__()
-        self.bert = BertEncoder(config, dtype=dtype, device=device)
-        self.cls = (_MLMPredictions(BertMLMHead(config, dtype=dtype, device=device))
-                    if mlm_head else None)
+        stack = BertEncoder(config, dtype=dtype, device=device)
+        head = BertMLMHead(config, dtype=dtype, device=device) if mlm_head else None
+        if config.roberta_form:
+            self.roberta, self.lm_head = stack, head
+        else:
+            self.bert = stack
+            self.cls = None if head is None else _MLMPredictions(head)
+
+    @property
+    def stack(self) -> BertEncoder:
+        return self.roberta if hasattr(self, "roberta") else self.bert
 
     @property
     def mlm_head(self) -> Optional[BertMLMHead]:
+        if hasattr(self, "roberta"):
+            return self.lm_head
         return None if self.cls is None else self.cls.predictions
 
     def forward(self, *args, **kwargs) -> torch.Tensor:
-        return self.bert(*args, **kwargs)
+        return self.stack(*args, **kwargs)

@@ -6,7 +6,13 @@ temperature, the ITM head and the bbox head.
 Parameter names are the reference's (``vision_encoder.*``,
 ``text_encoder.bert.*``, ``text_encoder.cls.predictions.*``, ``vision_proj``,
 ``text_proj``, ``temp``, ``itm_head.{0,1,3}``, ``bbox_head.{0,1,3}``, the
-video frame positions ``absolute_frame_pos_embed``). Video (5-D input,
+video frame positions ``absolute_frame_pos_embed``). On an
+``XVLMPlusConfig`` (models/xvlm_plus.py; the JAX ``make_base`` picks the
+Plus base the same way) the core is the Plus / CCLM base: the text tower
+(XLM-R's ``text_encoder.roberta`` for CCLM) runs all its layers
+uni-modally and a standalone cross encoder without embeddings
+(``cross_encoder.encoder.layer.{j}``, cross-attention in every layer) fuses
+the text with the image, or with another text's embeddings. Video (5-D input,
 ``get_frame_embeds``): the tower runs once over every frame of the batch,
 then the frame positions are added and the frames mean-pooled, or
 summarised by the Perceiver resampler (``resampler.*``). The
@@ -29,7 +35,7 @@ from torch import nn
 
 from x2vlm_tpu_torch.device import resolve_device
 from x2vlm_tpu_torch.models.beit2 import BEiT2, BEiT2Config, grouped_image_embeds
-from x2vlm_tpu_torch.models.bert import BertConfig, TextEncoder
+from x2vlm_tpu_torch.models.bert import BertConfig, BertEncoder, TextEncoder
 from x2vlm_tpu_torch.models.clip_vit import CLIPViT, CLIPViTConfig
 from x2vlm_tpu_torch.models.resampler import PerceiverResampler
 from x2vlm_tpu_torch.models.swin import SwinConfig, SwinTransformer
@@ -94,6 +100,11 @@ class XVLMConfig:
         return cls(vision=BEiT2Config.base(image_res=image_res),
                    text=BertConfig.bert_base(), **kw)
 
+    @property
+    def is_plus(self) -> bool:
+        """A standalone cross encoder (``XVLMPlusConfig``)."""
+        return False
+
 
 cross_entropy = softmax_ce  # the JAX package's models.xvlm.cross_entropy
 
@@ -139,6 +150,9 @@ class XVLMBase(nn.Module):
         self.vision_encoder = build_vision_tower(cfg.vision, dtype=dtype, device=device)
         self.text_encoder = TextEncoder(cfg.text, dtype=dtype, device=device,
                                         mlm_head=mlm_head)
+        if cfg.is_plus:
+            self.cross_encoder = BertEncoder(cfg.cross_config, add_embeddings=False,
+                                             dtype=dtype, device=device)
         vw, tw = vision_width(cfg.vision), cfg.text.hidden_size
         if projections:
             self.vision_proj = linear(vw, cfg.embed_dim, device=device)
@@ -225,7 +239,9 @@ class XVLMBase(nn.Module):
         return pooled, atts
 
     def get_text_embeds(self, text_ids, text_atts, generator=None):
-        return self.text_encoder(text_ids, attention_mask=text_atts, mode="text",
+        """The text layers; on the Plus base the whole uni-modal stack."""
+        return self.text_encoder(text_ids, attention_mask=text_atts,
+                                 mode="multi_modal" if self.config.is_plus else "text",
                                  generator=generator)
 
     def get_cross_embeds(self, image_embeds, image_atts, text_ids=None,
@@ -240,10 +256,24 @@ class XVLMBase(nn.Module):
         # pad the image stream to a multiple of 8 (197 -> 200; Swin's 50 ->
         # 56) with masked positions, as the JAX package does; the output is
         # query-side only
-        pad = (-image_embeds.shape[1]) % 8
+        pad = 0 if image_embeds is None else (-image_embeds.shape[1]) % 8
         if pad:
             image_embeds = F.pad(image_embeds, (0, 0, 0, pad))
             image_atts = F.pad(image_atts, (0, pad))
+        if self.config.is_plus:
+            # the Plus base: the uni-modal text stack (unless given its
+            # output), then the cross encoder; without an image stream its
+            # cross-attentions are skipped (the text-only MLM)
+            if text_embeds is None:
+                if text_ids is None:
+                    raise ValueError("get_cross_embeds requires text_ids or text_embeds")
+                text_embeds = self.get_text_embeds(text_ids, text_atts, generator)
+            return self.cross_encoder(encoder_embeds=text_embeds, attention_mask=text_atts,
+                                      encoder_hidden_states=image_embeds,
+                                      encoder_attention_mask=image_atts, mode="fusion",
+                                      generator=generator,
+                                      encoder_gather_idx=encoder_gather_idx,
+                                      deterministic=deterministic)
         if text_embeds is not None:
             return self.text_encoder(encoder_embeds=text_embeds,
                                      attention_mask=text_atts,
@@ -348,7 +378,7 @@ class XVLMBase(nn.Module):
         return cross_entropy(self.itm_head(cross), labels)
 
     def _tied_table(self) -> torch.Tensor:
-        return self.text_encoder.bert.embeddings.word_embeddings.weight
+        return self.text_encoder.stack.embeddings.word_embeddings.weight
 
     def get_matching_and_mlm_loss(self, image_embeds, image_atts, image_feat,
                                   text_embeds, text_atts, text_feat, mlm_text_embeds,
@@ -385,7 +415,7 @@ class XVLMBase(nn.Module):
         attend to ``image_embeds`` when given (the image stream without the
         matching loss, the JAX ``get_mlm_loss``), else they run without
         cross-attention (the text-only stream)."""
-        if image_embeds is not None:
+        if image_embeds is not None or self.config.is_plus:
             cross = self.get_cross_embeds(image_embeds, image_atts, text_ids=text_ids_masked,
                                           text_atts=text_atts, generator=dropout_generator)
         else:

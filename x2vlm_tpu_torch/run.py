@@ -23,8 +23,12 @@ process, one card.
   encoder's ``pytorch_model.bin`` initialise the model where they exist.
 - ``--resume`` restores the train state in ``output_dir/ckpt`` (parameters,
   AdamW ``mu`` / ``nu`` / ``count``, step) and, for pretraining, the data
-  cursors of the streams (image, aux, region, video, video aux, text), so
-  the run continues where it stopped.
+  cursors of the streams (image, aux, region, video, video aux, text,
+  parallel text), so the run continues where it stopped.
+- ``model_type: cclm`` (the Plus / CCLM base, models/xvlm_plus.py) runs
+  ``pretrain`` (with the multilingual ``languages`` streams and the
+  parallel-text ``mtexts`` stream) and ``retrieval``; ``is_xvlm_ckpt``
+  splits an X2-VLM ``.th`` into the Plus text tower and cross encoder.
 - ``--evaluate`` evaluates only (the fine-tune tasks): retrieval's R@k,
   grounding's IoU >= 0.5 accuracy per split (``refs_file``; a VLUE test
   set with ``vlue_test``), NLVR2's accuracy (per split when ``test_file``
@@ -41,9 +45,11 @@ process, one card.
 The config is validated against the JAX package's key registry
 (core/config_schema.py). What the port does not run raises, naming its
 ROADMAP item: the IGLUE tasks (A8c: xGQA, MARVL, XVNLI, WIT, xFlickrCO,
-xretrieval, and ``classification`` with their ``dataset_type``), the
-parallel-text and multilingual (``languages``) streams (A8b), and, as in
-the JAX launcher, ``mixed_in_batch: false`` and ``tokenized: true``.
+xretrieval, ``classification`` with their ``dataset_type``, and
+``--fewshot``), ``native_aug: true`` (A12: the port decodes with PIL,
+which is what ``auto`` and ``false`` give in the JAX launcher without its
+native library), and, as in the JAX launcher, ``mixed_in_batch: false``
+and ``tokenized: true``.
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ from x2vlm_tpu_torch.core import config as config_lib
 from x2vlm_tpu_torch.core import config_schema
 from x2vlm_tpu_torch.data.loader import MapLoader, Prefetcher, batch_indices, collate
 from x2vlm_tpu_torch.device import resolve_device
-from x2vlm_tpu_torch.factory import build_model
+from x2vlm_tpu_torch.factory import build_model, is_plus_config
 from x2vlm_tpu_torch.tasks.finetune import append_log, train_epochs
 from x2vlm_tpu_torch.tasks.pretrain import step_generators
 from x2vlm_tpu_torch.train import create_optimizer, lr_schedule, make_train_step, param_labels
@@ -79,8 +85,6 @@ TASKS = ("pretrain", "retrieval", "xretrieval", "wit", "xflickrco", "video_retri
 # the JAX launcher's other tasks and the ROADMAP items that bring them
 UNPORTED = {"xretrieval": "A8c", "wit": "A8c", "xflickrco": "A8c", "xgqa": "A8c",
             "marvl": "A8c", "xvnli": "A8c"}
-# pretraining streams the port does not build: (config file key, block) -> item
-UNPORTED_STREAMS = {("train_file_mtext", "mtexts"): "A8b"}
 # the dataset types ``run_classification`` runs: video QA over an answer
 # list, and NExT-QA multiple choice
 VIDEO_QA_TASKS = ("video_qa", "vqa_msrvtt", "vqa_msvd")
@@ -130,6 +134,10 @@ def setup(args):
     os.makedirs(args.output_dir, exist_ok=True)
     cfg = config_lib.load_config(args.config, overrides=args.override_cfg)
     config_schema.validate_config(cfg, source=args.config)
+    if cfg.get("native_aug", "auto") is True:
+        raise NotImplementedError("native_aug: true (the native decode + augment library) "
+                                  "comes with ROADMAP queue item A12; the port decodes with "
+                                  "PIL, as native_aug: auto or false do without the library")
     if args.bs > 0:
         cfg["batch_size"] = args.bs
     if args.epoch > 0:
@@ -209,12 +217,19 @@ def load_initial_params(args, cfg, model) -> List[str]:
     """The initial parameters; returns the names (inside the composition
     core) of those left fresh, for the optimizer's ``lr_mult`` group.
     ``--checkpoint`` a file: a whole X2-VLM ``.th`` or a published backbone,
-    by its flavour. A directory: the parameters of a train state this
-    launcher saved. Without one: the vision JSON's ``ckpt`` (a raw BEiT-2,
-    CLIP or Swin file) and the text encoder's ``pytorch_model.bin`` (HF
-    BERT, expanded to the config's layers), where those files exist."""
+    by its flavour; on a Plus model with ``is_xvlm_ckpt`` an X2-VLM file is
+    split into the Plus text tower and cross encoder
+    (``xvlm_ckpt_text_num_hidden_layers``; with ``replace_text_encoder``
+    the text tower stays fresh), and a cross encoder left wholly fresh
+    raises. A directory: the parameters of a train state this launcher
+    saved. Without one: the vision JSON's ``ckpt`` (a raw BEiT-2, CLIP or
+    Swin file) and the text encoder's ``pytorch_model.bin`` (HF BERT or
+    XLM-R, expanded to the config's layers), where those files exist."""
+    mcfg = getattr(model, "base", model).config
+    if cfg.get("is_xvlm_ckpt") and not mcfg.is_plus:
+        raise ValueError("is_xvlm_ckpt is a Plus / CCLM import knob (the Base -> Plus text "
+                         "stack split); this model is not XVLMPlus")
     if not args.checkpoint:
-        mcfg = getattr(model, "base", model).config
         paths = []
         vc_path = cfg.get("vision_config")
         if vc_path and os.path.exists(vc_path):
@@ -238,12 +253,33 @@ def load_initial_params(args, cfg, model) -> List[str]:
         return missing
     if os.path.isdir(args.checkpoint):
         path = os.path.join(args.checkpoint, ckpt_lib.TRAIN_STATE_FILE)
-        state = torch.load(path, map_location="cpu", weights_only=False)
+        # memory-mapped: the optimizer state (two thirds of the file) is never read
+        state = torch.load(path, map_location="cpu", weights_only=False, mmap=True)
         model.load_state_dict(state["params"], strict=True)
         print(f"### parameters of step {state['step']} from {path}")
         return []
-    missing, unexpected = ckpt_lib.load_reference_checkpoint(model, args.checkpoint)
-    print(ckpt_lib.import_report(model, missing, unexpected, args.checkpoint))
+    if not (mcfg.is_plus and cfg.get("is_xvlm_ckpt")):
+        missing, unexpected = ckpt_lib.load_reference_checkpoint(model, args.checkpoint)
+        print(ckpt_lib.import_report(model, missing, unexpected, args.checkpoint))
+        return missing
+    sd = ckpt_lib.load_torch_checkpoint(args.checkpoint)
+    state, unused, kind = ckpt_lib.convert_checkpoint_auto(
+        sd, vision_cfg=mcfg.vision, text_layers=mcfg.text.num_layers,
+        text_fusion_layer=mcfg.text.fusion_layer)
+    split = kind == "xvlm" and not any(k.startswith("cross_encoder.") for k in state)
+    if split:   # Base -> Plus (reference load_pretrained_xvlm)
+        state = ckpt_lib.split_imported_to_plus(
+            state, xvlm_text_layers=cfg.get("xvlm_ckpt_text_num_hidden_layers"),
+            replace_text_encoder=cfg.get("replace_text_encoder", False))
+    missing, unexpected = ckpt_lib.load_converted(model, state)
+    print(ckpt_lib.import_report(model, missing, sorted(unexpected + unused), args.checkpoint))
+    if split:
+        core = getattr(model, "base", model)
+        cross = [n for n, _ in core.named_parameters() if n.startswith("cross_encoder.")]
+        if cross and all(n in set(missing) for n in cross):
+            raise ValueError(f"checkpoint import left ['cross_encoder'] entirely fresh, but "
+                             f"the config promises it loads from {args.checkpoint} "
+                             f"(is_xvlm_ckpt / xvlm_ckpt_text_num_hidden_layers)")
     return missing
 
 
@@ -652,8 +688,14 @@ def _stream_pairs(name: str, stream, rngs, n_samples: int, seed: int, batch_fn=c
 def run_pretrain(args, cfg, device):
     """Mixed-stream pretraining: the image-text stream (+ the aux clean-data
     replacement), the region-text stream, the video-frame-text stream (+ its
-    aux replacement) and the text stream (reference Pretrain.py:255-423)."""
+    aux replacement), the text stream and, for the Plus / CCLM model, the
+    parallel-text stream (reference Pretrain.py:255-423); an image or region
+    block with ``languages`` reads ``{language: caption}`` captions
+    (data/multilingual.py)."""
     from x2vlm_tpu_torch.data import transforms as T
+    from x2vlm_tpu_torch.data.multilingual import (
+        ImageMultiTextStream, ParaTextStream, RegionMultiTextStream,
+    )
     from x2vlm_tpu_torch.data.pretrain import (
         ImageTextStream, RegionTextStream, TextStream, VideoTextStream, region_collate,
     )
@@ -668,13 +710,10 @@ def run_pretrain(args, cfg, device):
         if (cfg.get(block) or {}).get("tokenized", False):
             raise ValueError(f"{block}.tokenized: true is not implemented (reference "
                              f"pretrain_dataset.py:147)")
-        if (cfg.get(block) or {}).get("languages"):
-            raise NotImplementedError(f"{block}.languages (multilingual streams) comes "
-                                      f"with ROADMAP queue item A8b")
-    for (key, block), item in UNPORTED_STREAMS.items():
-        if cfg.get(key):
-            raise NotImplementedError(f"the {block} stream ({key}) comes with ROADMAP "
-                                      f"queue item {item}; drop it from the config")
+    xcfg = cfg.get("mtexts")
+    if xcfg and cfg.get("train_file_mtext") and not is_plus_config(cfg):
+        raise ValueError("parallel-text (mtexts) pretraining needs model_type: cclm / "
+                         "xvlm_plus")
 
     model, mcfg = build_model(cfg, "pretrain", device=device, seed=args.seed)
     tokenizer = build_tokenizer(cfg["text_encoder"])
@@ -700,23 +739,28 @@ def run_pretrain(args, cfg, device):
     streams: Dict[str, _Tracked] = {}
     counted = []
 
-    def add(name, block, paths, make, n_samples=None, batch_fn=collate, rngs=None):
+    def add(name, block, paths, make, n_samples=None, batch_fn=collate, rngs=None,
+            pre=preprocessor):
         """``rngs[0]`` is the stream's, the others its transform's own."""
         rngs = rngs or (random.Random(),)
         n = n_samples or block.get("batch_size", 128)
         reader = DistLineReader(paths, seed=args.seed, start_state=data_state.get(name))
-        stream = make(reader, preprocessor(rngs[0]), rngs[0], n)
+        stream = make(reader, pre(rngs[0]), rngs[0], n)
         counted.append(stream)
         pairs = _stream_pairs(name, stream, rngs, n, args.seed, batch_fn)
         streams[name] = _Tracked(pairs, max(1, int(block.get("num_workers", 2))),
                                  data_state.get(name))
 
     def image_stream(blk):
-        return lambda reader, pre, rng, bs: ImageTextStream(
-            reader, pre, T.pretrain_transform(cfg["image_res"], rng=rng, as_float=False),
-            image_key=blk.get("image_key", "binary"), caption_key=blk["caption_key"],
-            is_image_rpath=blk.get("is_image_rpath", False), rng=rng,
-            max_consecutive_broken=bs)
+        def make(reader, pre, rng, bs):
+            kw = dict(image_key=blk.get("image_key", "binary"), caption_key=blk["caption_key"],
+                      is_image_rpath=blk.get("is_image_rpath", False), rng=rng,
+                      max_consecutive_broken=bs)
+            tf = T.pretrain_transform(cfg["image_res"], rng=rng, as_float=False)
+            if blk.get("languages"):   # CCLM: captions keyed by language
+                return ImageMultiTextStream(reader, pre, tf, languages=blk["languages"], **kw)
+            return ImageTextStream(reader, pre, tf, **kw)
+        return make
 
     add("image", icfg, cfg["train_file"], image_stream(icfg))
     if cfg.get("train_file_aux"):
@@ -732,13 +776,17 @@ def run_pretrain(args, cfg, device):
         max_images = rcfg.get("max_images", 50)
 
         def region_stream(reader, pre, rng, n):
-            return RegionTextStream(
-                reader, pre, T.box_transform(box_rng), image_res=mcfg.vision.image_res,
-                patch_size=mcfg.vision.patch_size, max_regions=rcfg.get("max_regions", 5),
-                min_perc_in_image=rcfg.get("min_perc_in_image", 0.5),
-                careful_hflip=rcfg.get("careful_hflip", True),
-                image_key=rcfg.get("image_key", "binary"), rng=rng,
-                max_consecutive_broken=n)
+            kw = dict(image_res=mcfg.vision.image_res, patch_size=mcfg.vision.patch_size,
+                      max_regions=rcfg.get("max_regions", 5),
+                      min_perc_in_image=rcfg.get("min_perc_in_image", 0.5),
+                      careful_hflip=rcfg.get("careful_hflip", True),
+                      image_key=rcfg.get("image_key", "binary"), rng=rng,
+                      max_consecutive_broken=n)
+            if rcfg.get("languages"):
+                return RegionMultiTextStream(reader, pre, T.box_transform(box_rng),
+                                             languages=rcfg["languages"],
+                                             code_switch=rcfg.get("code_switch", True), **kw)
+            return RegionTextStream(reader, pre, T.box_transform(box_rng), **kw)
 
         add("region", rcfg, cfg["train_file_regions"], region_stream, n_samples=max_images,
             batch_fn=lambda samples: region_collate(samples, rcfg.get("batch_size", 128),
@@ -770,13 +818,35 @@ def run_pretrain(args, cfg, device):
                 reader, pre, caption_key=tcfg.get("caption_key", "text"), rng=rng,
                 max_consecutive_broken=bs))
 
+    if xcfg and cfg.get("train_file_mtext"):
+        # CCLM parallel text (reference Pretrain.py:238-247): its own
+        # preprocessor at the block's lengths, as the JAX launcher builds it
+        def mtext_pre(rng):
+            return TextPreprocessor(
+                tokenizer, max_tokens=xcfg.get("max_tokens", cfg.get("max_tokens", 64)),
+                max_words=xcfg.get("max_words", xcfg.get("max_tokens",
+                                                         cfg.get("max_words", 64))),
+                max_masks=xcfg.get("max_masks", cfg.get("max_masks", 12)),
+                mask_prob=xcfg.get("mask_prob", cfg.get("mask_prob", 0.5)),
+                mask_whole_word=cfg.get("mask_whole_word", True),
+                skipgram_prb=cfg.get("skipgram_prb", 0.2),
+                skipgram_size=cfg.get("skipgram_size", 3), rng=rng)
+
+        add("mtext", xcfg, cfg["train_file_mtext"],
+            lambda reader, pre, rng, bs: ParaTextStream(
+                reader, pre, key_a=xcfg.get("source_key", "text1"),
+                key_b=xcfg.get("target_key", "text2"), rng=rng, max_consecutive_broken=bs),
+            pre=mtext_pre)
+
     ps = PretrainStreams(
         image=streams["image"], region=streams.get("region"), text=streams.get("text"),
         aux=streams.get("aux"), video=streams.get("video"), video_aux=streams.get("video_aux"),
+        mtext=streams.get("mtext"),
         image_weight=icfg.get("iter_perc", 1.0),
         region_weight=(rcfg or {}).get("iter_perc", 1.0),
         text_weight=(tcfg or {}).get("iter_perc", 1.0),
         video_weight=(vcfg or {}).get("iter_perc", 1.0),
+        mtext_weight=(xcfg or {}).get("iter_perc", 1.0),
         aux_perc=cfg.get("aux_iter_perc", 0.0),
         video_aux_perc=cfg.get("video_aux_iter_perc", 0.0),
         regions_use_bbox_only=cfg.get("regions_use_bbox_only", False),

@@ -18,14 +18,18 @@ As in the JAX package:
 - the region stream adds the bbox losses (L1 + GIoU); with
   ``regions_use_bbox_only`` its ITC / ITM / MLM weigh 0, and
   ``calc_image_bbox_loss`` keeps its full-image rows in the bbox losses;
+- the parallel-text (mtext) stream drives the CCLM TTC / TTM / TLM
+  objectives (reference Pretrain.py:238-247): its batch has no image,
+  which routes it to ``XVLMPlusForPretrain.forward_para_text``, and its
+  metrics are prefixed ``mtext_``;
 - the streams' gradients are summed in ``.grad`` and applied in one
   optimizer step (``train/trainer.py`` ``make_grad_fn`` /
   ``make_apply_grads``).
 
 Randomness: each step draws its hard negatives and dropout masks from
 generators seeded by (seed, step, stream), as the JAX loop folds the step
-into its key, so a resumed run draws what the uninterrupted one would.
-The parallel-text stream comes with ROADMAP item A8b.
+into its key (stream 4 for the parallel text, as the JAX loop folds 4),
+so a resumed run draws what the uninterrupted one would.
 """
 
 from __future__ import annotations
@@ -50,13 +54,17 @@ class PretrainStreams:
     def __init__(self, image: Iterator, region: Optional[Iterator] = None,
                  text: Optional[Iterator] = None, aux: Optional[Iterator] = None,
                  video: Optional[Iterator] = None, video_aux: Optional[Iterator] = None,
+                 mtext: Optional[Iterator] = None,
                  image_weight: float = 1.0, region_weight: float = 1.0,
-                 text_weight: float = 1.0, video_weight: float = 1.0, aux_perc: float = 0.0,
+                 text_weight: float = 1.0, video_weight: float = 1.0,
+                 mtext_weight: float = 1.0, aux_perc: float = 0.0,
                  video_aux_perc: float = 0.0, regions_use_bbox_only: bool = False,
                  rng: Optional[random.Random] = None):
         self.image = image
         self.region = region
         self.text = text
+        self.mtext = mtext
+        self.mtext_weight = mtext_weight
         self.aux = aux
         self.video = video
         self.video_aux = video_aux
@@ -129,6 +137,7 @@ def pretrain_loop(
                                                    "ret_match_loss": itm})
                    for itm in (True, False)}
     grad_text = make_grad_fn(model, loss_scale=s.text_weight)
+    grad_mtext = make_grad_fn(model, loss_scale=s.mtext_weight)
     apply_grads = make_apply_grads(optimizer)
     for p in optimizer.params:
         p.grad = None
@@ -167,6 +176,11 @@ def pretrain_loop(
             tb["image"] = None
             losses = grad_text(tb, *step_generators(device, seed, it, 3))
             metrics.update({f"text_{k}": v for k, v in losses.items()})
+        if s.mtext is not None:
+            mb = dict(to_device(next(s.mtext)))
+            mb["image"] = None   # routes the Plus model to forward_para_text
+            losses = grad_mtext(mb, *step_generators(device, seed, it, 4))
+            metrics.update({f"mtext_{k}": v for k, v in losses.items()})
         metrics["grad_norm"] = apply_grads()
         logger.update(**metrics)
         if extra_metrics is not None:

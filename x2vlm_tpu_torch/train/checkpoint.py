@@ -35,11 +35,17 @@ the port's reference-named state dict instead of a flax tree):
 1), :func:`convert_swin_checkpoint` (timm Swin, each window table resized
 to the model's window by :func:`resize_swin_rel_pos_table`) and
 :func:`convert_hf_bert_checkpoint` (HF BERT, 12 layers expanded to the
-model's 18 with the upper six copied into the fusion slots);
+model's 18 with the upper six copied into the fusion slots; HF RoBERTa /
+XLM-R, ``roberta.*`` and ``lm_head.*``, under the xroberta names);
 :func:`convert_checkpoint_auto` picks one by the file's key flavour, and
 :func:`load_reference_checkpoint` goes through it, so a whole X2-VLM file's
-CLIP or Swin tower is converted by its own flavour too. A RoBERTa / XLM-R
-file and the Base -> Plus split come with ROADMAP item A8b.
+CLIP or Swin tower is converted by its own flavour too. A Plus / CCLM file's
+cross encoder loads under ``cross_encoder.encoder.layer.{j}`` (its
+``cross_encoder.bert.`` form too), and an MLM head loads into the model's
+own form of it (``cls.predictions.transform.*`` <-> ``lm_head.{dense,
+layer_norm}``, as the JAX converter reads both into one ``mlm_head``).
+:func:`split_imported_to_plus` is the Base -> Plus surgery of an
+X2-VLM file for a Plus model (``is_xvlm_ckpt``).
 
 Train state. :func:`save_train_state` writes the parameters, AdamW's
 ``mu`` / ``nu`` / ``count``, the step and the data cursors with
@@ -65,8 +71,8 @@ from x2vlm_tpu_torch.core.io import hopen
 __all__ = ["load_torch_checkpoint", "interp_rel_pos_table", "resize_swin_rel_pos_table",
            "convert_beit2_checkpoint", "convert_clip_vit_checkpoint", "convert_swin_checkpoint",
            "convert_hf_bert_checkpoint", "convert_checkpoint_auto", "load_reference_checkpoint",
-           "load_converted", "import_report", "save_train_state", "restore_train_state",
-           "TRAIN_STATE_FILE"]
+           "load_converted", "import_report", "split_imported_to_plus", "save_train_state",
+           "restore_train_state", "TRAIN_STATE_FILE"]
 
 TRAIN_STATE_FILE = "train_state.pt"
 
@@ -298,25 +304,60 @@ def convert_hf_bert_checkpoint(sd: Mapping, *, to_layers: Optional[int] = None,
     """A raw HF BERT file (``bert.*`` / ``cls.*``, or ``embeddings.*`` /
     ``encoder.*``) -> (the text encoder's state under ``text_encoder.``,
     unused keys), its layers expanded to ``to_layers``; the cross-attention
-    stays fresh. RoBERTa / XLM-R files come with ROADMAP item A8b."""
-    if any(k.startswith(("roberta.", "lm_head.")) for k in sd):
-        raise NotImplementedError("a RoBERTa / XLM-R text checkpoint comes with ROADMAP "
-                                  "queue item A8b")
+    stays fresh. An HF RoBERTa / XLM-R file (``roberta.*``, ``lm_head.*``)
+    -> ``text_encoder.roberta.*`` and ``text_encoder.lm_head.{dense,
+    layer_norm, bias, decoder}`` (the bias from ``lm_head.bias``, else
+    ``lm_head.decoder.bias``, as the JAX converter takes it)."""
+    sd = _tensors(sd)
+    roberta = any(k.startswith(("roberta.", "lm_head.")) for k in sd)
+    stack = "roberta" if roberta else "bert"
     out, unused = {}, []
-    for k, v in _tensors(sd).items():
-        if k.startswith(("bert.", "cls.")):
+    for k, v in sd.items():
+        if k.startswith(("bert.", "cls.", "roberta.")):
             out["text_encoder." + k] = v
+        elif k.startswith("lm_head."):
+            if k not in ("lm_head.bias", "lm_head.decoder.bias"):
+                out["text_encoder." + k] = v
         elif k.startswith(("embeddings.", "encoder.")):
-            out["text_encoder.bert." + k] = v
+            out[f"text_encoder.{stack}." + k] = v
         else:
             unused.append(k)
-    prefix = "text_encoder.bert.encoder.layer."
+    bias = sd.get("lm_head.bias", sd.get("lm_head.decoder.bias"))
+    if bias is not None:
+        out["text_encoder.lm_head.bias"] = bias
+        out["text_encoder.lm_head.decoder.bias"] = bias
+    prefix = f"text_encoder.{stack}.encoder.layer."
     from_layers = 1 + max((int(m.group(1)) for k in out
                            if (m := re.match(re.escape(prefix) + r"(\d+)\.", k))),
                           default=-1)
     if to_layers is not None and from_layers > 0:
         out = _expand_text_layers(out, prefix, from_layers, to_layers)
     return out, sorted(unused)
+
+
+def split_imported_to_plus(state: Mapping[str, torch.Tensor], *,
+                           xvlm_text_layers: Optional[int] = None,
+                           replace_text_encoder: bool = False) -> Dict[str, torch.Tensor]:
+    """Base -> Plus surgery on an imported X2-VLM state (the JAX
+    ``split_imported_to_plus``): the fused text stack splits into
+    text[0:T] / cross_encoder[T:] (``T`` the config's
+    ``xvlm_ckpt_text_num_hidden_layers``, 12 when unset). With
+    ``replace_text_encoder`` (CCLM: a fresh XLM-R takes the text tower's
+    place) the text tower is dropped and the MLM head keeps only its
+    vocabulary-independent transform (the reference deletes
+    cls.predictions.decoder / bias, xvlm.py:1105-1115)."""
+    from x2vlm_tpu_torch.models.xvlm_plus import split_params_to_plus
+
+    n_layers = 1 + max((int(m.group(1)) for k in state
+                        if (m := re.match(r"text_encoder\.bert\.encoder\.layer\.(\d+)\.", k))),
+                       default=-1)
+    out = split_params_to_plus(state, fusion_layer=12 if xvlm_text_layers is None
+                               else xvlm_text_layers, num_layers=n_layers,
+                               replace_text_encoder=replace_text_encoder)
+    if replace_text_encoder:
+        out = {k: v for k, v in out.items()
+               if not re.match(r"text_encoder\.(cls\.predictions|lm_head)\.(bias|decoder\.)", k)}
+    return out
 
 
 def _is_clip(keys) -> bool:
@@ -361,7 +402,7 @@ def convert_checkpoint_auto(sd: Mapping, *, vision_cfg=None, text_layers: Option
     names -> (state, unused keys, kind): ``"xvlm"`` (a whole X2-VLM file:
     ``vision_encoder.*`` / ``text_encoder.*``, its vision keys by their own
     flavour), ``"clip"`` (HF CLIP vision tower), ``"swin"`` (timm Swin),
-    ``"beit2"`` (raw BEiT-2) or ``"bert"`` (HF BERT)."""
+    ``"beit2"`` (raw BEiT-2) or ``"bert"`` (HF BERT or RoBERTa / XLM-R)."""
     sd = _tensors(sd)
     keys = list(sd)
     window = getattr(vision_cfg, "window", None)
@@ -379,13 +420,40 @@ def convert_checkpoint_auto(sd: Mapping, *, vision_cfg=None, text_layers: Option
             "rel_pos_bias.relative_position_bias_table" in sd:
         return (*convert_beit2_checkpoint(sd, depth=getattr(vision_cfg, "depth", 12),
                                           dst_window=window[0] if window else None), "beit2")
-    if any(k.startswith(("bert.", "roberta.", "encoder.layer.", "embeddings.word_embeddings"))
-           for k in keys):
+    if any(k.startswith(("bert.", "roberta.", "lm_head.", "encoder.layer.",
+                         "embeddings.word_embeddings")) for k in keys):
         return (*convert_hf_bert_checkpoint(sd, to_layers=text_layers,
                                             fusion_layer=text_fusion_layer), "bert")
     raise ValueError("unrecognized checkpoint flavour; expected an X2-VLM .th, a raw CLIP / "
-                     "Swin / BEiT-2 vision tower, or an HF BERT state dict (first keys: "
+                     "Swin / BEiT-2 vision tower, or an HF BERT / XLM-R state dict (first keys: "
                      f"{sorted(sd)[:5]})")
+
+
+# the MLM head's two forms of the reference names: BERT's, XLM-R's
+_HEAD_NAMES = (("text_encoder.cls.predictions.transform.dense.", "text_encoder.lm_head.dense."),
+               ("text_encoder.cls.predictions.transform.LayerNorm.",
+                "text_encoder.lm_head.layer_norm."),
+               ("text_encoder.cls.predictions.bias", "text_encoder.lm_head.bias"),
+               ("text_encoder.cls.predictions.decoder.", "text_encoder.lm_head.decoder."),
+               ("text_encoder.lm_head.transform.dense.", "text_encoder.lm_head.dense."),
+               ("text_encoder.lm_head.transform.LayerNorm.", "text_encoder.lm_head.layer_norm."),
+               ("cross_encoder.bert.encoder.layer.", "cross_encoder.encoder.layer."))
+
+
+def _own_names(sd: Mapping[str, torch.Tensor], own) -> Dict[str, torch.Tensor]:
+    """``sd`` with its MLM head under the form the model has (a Base file's
+    BERT head into an XLM-R Plus model, and back) and a Plus file's
+    ``cross_encoder.bert.`` layers under the model's name."""
+    out = {}
+    for k, v in sd.items():
+        if k not in own:
+            for a, b in _HEAD_NAMES:
+                for src, dst in ((a, b), (b, a)):
+                    if k.startswith(src) and (dst + k[len(src):]) in own:
+                        k = dst + k[len(src):]
+                        break
+        out[k] = v
+    return out
 
 
 def load_converted(model: nn.Module, sd: Mapping[str, torch.Tensor]
@@ -401,7 +469,7 @@ def load_converted(model: nn.Module, sd: Mapping[str, torch.Tensor]
     core = _core(model)
     own = core.state_dict()
     load, unexpected = {}, []
-    for k, v in sd.items():
+    for k, v in _own_names(sd, own).items():
         if k not in own:
             unexpected.append(k)
             continue

@@ -72,10 +72,12 @@ def param_labels(named_params: Iterable[Tuple[str, torch.Tensor]], fusion_layer:
                  fresh_names: Iterable[str] = (),
                  fresh_prefixes: Iterable[str] = ()) -> Dict[str, str]:
     """name -> 'vision' | 'text' | 'cross' | 'other' | 'fresh', as the JAX
-    ``param_labels``: BERT layers below ``fusion_layer`` are text, the rest
-    cross; the MLM head (the JAX ``mlm_head``, outside the text encoder
-    there) is other. ``fresh_names`` / ``fresh_prefixes`` (names inside the
-    composition core) take the ``lr_mult`` group."""
+    ``param_labels``: text-tower layers (BERT's or XLM-R's) below
+    ``fusion_layer`` are text, the rest cross; the MLM head (the JAX
+    ``mlm_head``, outside the text encoder there) is other, and so is the
+    Plus base's standalone ``cross_encoder`` (the JAX rule looks for
+    ``text_encoder/layer_`` only). ``fresh_names`` / ``fresh_prefixes``
+    (names inside the composition core) take the ``lr_mult`` group."""
     fresh = set(fresh_names)
     prefixes = tuple(fresh_prefixes)
     labels = {}
@@ -85,10 +87,11 @@ def param_labels(named_params: Iterable[Tuple[str, torch.Tensor]], fusion_layer:
             lab = "fresh"
         elif rel.startswith("vision_encoder."):
             lab = "vision"
-        elif rel.startswith("text_encoder.bert.encoder.layer."):
+        elif rel.startswith(("text_encoder.bert.encoder.layer.",
+                             "text_encoder.roberta.encoder.layer.")):
             layer = int(rel.split(".")[4])
             lab = "text" if layer < fusion_layer else "cross"
-        elif rel.startswith("text_encoder.bert."):
+        elif rel.startswith(("text_encoder.bert.", "text_encoder.roberta.")):
             lab = "text"
         else:
             lab = "other"
