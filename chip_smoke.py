@@ -268,11 +268,47 @@ Phases (any failure exits non-zero and prints no result line):
    and a layer, the cross encoder's self- and cross-attention among them),
    each bf16 call with 200 or 64 keys into K5 and K6 within half the bf16
    rule; and the fused MLM CE timed at 250,002 rows. Each stream call's
-   CUDA-event and wall ms and peak memory are printed.
+   CUDA-event and wall ms and peak memory are printed;
+15. the IGLUE tasks on the Plus base at 384 px: the launcher's ``--task
+   xvnli``, ``marvl``, ``xgqa``, ``wit`` and ``xflickrco`` on the five
+   shipped ``configs/finetune/*_cclm_base.yaml`` at their own sizes (16
+   rows a step, 32 an eval call, k_test 128; 40 tokens, WIT's and
+   xFlickrCO's 80; xGQA's 6-layer RoBERTa-form decoder over 10-token
+   answers), each from phase 14's Plus train state (``--checkpoint <dir>``,
+   memory-mapped, the task's head fresh) with phase 14's XLM-R tokenizer,
+   on data written over phase 8's PNGs: ``{lang: path}`` test sets of two
+   languages (MARVL's: NLVR2's ``en`` and a MARVL ``zh`` set), WIT's rows
+   with base64 images, xGQA's lists of 1,000 answers (one language's a
+   [path, list] pair), 128 test lines a language for WIT and xFlickrCO so
+   the rerank takes 128 candidates both ways. 2 steps and the eval each;
+   xGQA in 2 epochs of a step, then ``--resume`` from step 1 (its restored
+   state and next batch bit for bit); XVNLI once more as ``--task
+   classification`` (its ``dataset_type``) under ``--fewshot de,16`` (a
+   two-slot train template, a one-slot test template), one step and its
+   eval. Checked: the import (only the task's head fresh), finite losses
+   and per-language metrics, each step's and eval call's launches (XVNLI:
+   12 of each flash kernel at B=16, tiny 18 at 16 x 40 x 40 and 6 at 16 x
+   40 x 584; MARVL as phase 9's NLVR2; xGQA as XVNLI plus 6 at 32 x 10 x 40
+   and 6 plain causal self-attentions, an eval call 12 flash, tiny 18 + 6
+   at 32 rows, 6 at 32 x 1 x 40 and 48 at 512 x 10 x 40 (the rank pass in
+   8 chunks), 54 plain; WIT / xFlickrCO: no tiny launch at 80 tokens, 24
+   plain calls a step at 16 x 80 x 80, 48 x 80 x 80 and 48 x 80 x 584, a
+   language's eval 48 flash at B=32 and 396 plain), every plain call
+   counted by shape; xGQA's rank pass at Q = 32, k = 128 timed with its
+   peak memory (under the card's); then the fine-tuned weights of each head
+   family (retrieval at 80 tokens, NLVR2 / MARVL, XVNLI, xGQA) on 2 rows,
+   card bf16 against CPU fp32: losses within 0.05 + 2%, logits and ITM
+   scores within 0.05 + 5% of their scale, gradient cosines >= 0.99, each
+   40 x 584 call within half the bf16 rule (none at 80 tokens), xGQA's
+   first answers equal and its top-k scores within 0.05. Step and eval ms
+   (CUDA events, wall) and peaks are printed.
 
-Each launcher phase (7-14) logs its seconds split into data, run,
+Each launcher phase (7-15) logs its seconds split into data, run,
 ``--resume``, the CPU fp32 hold, phase 12's export and the rest (``phase N
-seconds``).
+seconds``). The card-against-CPU holds of phases 9-11 and 13-15 run in
+one spawned worker process (its own card context, kernel libraries and
+launch counters) beside the later phases; their readings are logged and
+their faults failed before the kernels line (``holds collected``).
 
 The 40 x 584 shapes of phases 8 and 9 (the fine-tune's 96-row ITM pass
 with dropout, the 1024- and 512-row rerank, grounding's 20-row bbox pass
@@ -296,9 +332,11 @@ with B=40 (the video QA step) and B=120 (the video stream), K1 at B=80
 160 x 40 x 200 with training operands, K5 at 16 x 40 x 40 and 16 x 40 x 200
 serving; and phase 14's: K5 / K6 with training operands at 32, 96, 128 and
 384 x 64 x 64, 32 and 96 x 64 x 200, and 128 and 384 x 64 x 200 with region
-key masks.
+key masks; and phase 15's: K5 / K6 at 32 x 10 x 40 with training operands
+(xGQA's decoder over a step's answer rows) and K5 at 512 x 10 x 40 serving
+(a chunk of its rank pass).
 
-Every attention launch of phases 3 and 5-14 is counted by kernel, shape and
+Every attention launch of phases 3 and 5-15 is counted by kernel, shape and
 operands (serving: no multiplier, no probabilities; training; the flash
 kernels' with or without a bias) and must fall
 on a shape phase 2 checked and timed (``FLASH_MAIN_SHAPES``,
@@ -318,7 +356,8 @@ and ``DIR/chip_smoke_region_profile.txt`` (and phase 8's two, and phase
 ``chip_smoke_{clip,swin}_{step,eval}_profile.txt`` and phase 13's
 ``chip_smoke_video_{pretrain,step,eval}_profile.txt`` and phase 14's
 ``chip_smoke_cclm_{image,region,mtext}_profile.txt``, the last call of each
-stream), each with a
+stream, and phase 15's ``chip_smoke_iglue_{run}_{step,eval}_profile.txt``,
+each run's second step and first eval call), each with a
 last line of the port kernels' (attention and K7) device time and
 launches.
 """
@@ -328,12 +367,14 @@ from __future__ import annotations
 import argparse
 import base64
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
 import io
 import json
 import math
+import multiprocessing
 import os
 import random
 import shutil
@@ -341,6 +382,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -430,6 +472,12 @@ STREAM_VIDEOS, STREAM_FRAMES = 40, 3
 # phase 14's CCLM cell (cclm_x2vlm_base.yaml): 64-token texts, the
 # parallel-text block's pairs a step, XLM-R's vocabulary
 CCLM_LEN, PARA_PAIRS, XLMR_VOCAB = 64, 128, 250002
+# phase 15's IGLUE cells (configs/finetune/{xvnli,marvl,xgqa,wit,xflickrco}_cclm_base.yaml on
+# the Plus base at 384 px): rows a step and an eval call, WIT's and xFlickrCO's text
+# length, xGQA's answer rows a step (answers_per_batch, 2 x batch_size) and the rows a
+# chunk of its rank pass decodes at XLM-R's vocabulary (models/generation.rank_chunk_rows)
+IGLUE_BATCH, IGLUE_EVAL_BATCH, IGLUE_LONG = 16, 32, 80
+XGQA_ANSWERS, XGQA_RANK_CHUNK = 2 * IGLUE_BATCH, 512
 SCST_ROWS, SCST_LEN = CAP_BATCH * SCST_SAMPLES, CAP_PROMPT + 2 * (CAP_MAX_LEN + 1)
 TINY_REPLACES = {"tiny_attention_fwd": "x2vlm_tpu/ops/tiny_attention.py:88",
                  "tiny_attention_bwd": "x2vlm_tpu/ops/tiny_attention.py:135"}
@@ -472,6 +520,89 @@ def phase_seconds(phase: str, since: float) -> float:
     log(f"phase {phase} seconds: {total:.1f} ({split}{', ' if split else ''}rest "
         f"{total - sum(parts.values()):.1f})")
     return total
+
+
+# the launcher phases' card-against-CPU holds (phases 9-11, 13-15) run in
+# one worker process, spawned, so its card context, kernel libraries, launch
+# counters and patched functions are its own: a hold's CPU fp32 pass takes
+# minutes of the host's cores and its card pass seconds, and the card's later
+# phases go on beside it. ``run`` opens the pool and collects every hold
+# before the kernels line; without a pool (a phase called alone) a hold runs
+# in place
+HOLDS = {"pool": None, "pending": [], "dir": None}
+
+
+def _hold_worker_init(threads: int) -> None:
+    os.nice(10)      # off the critical path: this process's phases come first
+    torch.set_num_threads(threads)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def open_holds(cores: int) -> None:
+    """The holds' worker pool, leaving two of ``cores`` to this process's
+    host work. Its OpenMP threads sleep between parallel regions
+    (``OMP_WAIT_POLICY=PASSIVE``, read when the worker starts) instead of
+    spinning on the cores this process's phases run on."""
+    os.environ["OMP_WAIT_POLICY"] = "PASSIVE"
+    HOLDS["pool"] = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_hold_worker_init, initargs=(max(1, cores - 2),))
+    # the states deferred holds read, in RAM (the card's machine caps disk writes)
+    HOLDS["dir"] = tempfile.mkdtemp(prefix="chip_smoke_holds_",
+                                    dir="/dev/shm" if os.path.isdir("/dev/shm") else None)
+
+
+def close_holds() -> None:
+    HOLDS["pool"].shutdown(wait=True, cancel_futures=True)
+    shutil.rmtree(HOLDS["dir"], ignore_errors=True)
+    HOLDS.update(pool=None, dir=None)
+
+
+def _timed_hold(fn, *args):
+    t = time.perf_counter()
+    return (*fn(*args), time.perf_counter() - t)
+
+
+def defer_hold(label: str, fn, *args) -> None:
+    """``fn(*args)`` -> (readings, faults) in the holds' worker; its
+    readings are logged and its faults failed under ``label`` by
+    ``collect_holds``. A train state goes to ``fn`` as its file's path."""
+    if HOLDS["pool"] is None:
+        HOLDS["pending"].append((label, None, _timed_hold(fn, *args)))
+    else:
+        HOLDS["pending"].append((label, HOLDS["pool"].submit(_timed_hold, fn, *args), None))
+
+
+def collect_holds() -> float:
+    """Logs every deferred hold's readings (waiting for the worker) and fails
+    its faults; returns the seconds waited."""
+    t = time.perf_counter()
+    for label, future, done in HOLDS["pending"]:
+        r, faults, secs = future.result() if future is not None else done
+        log(f"{label}: {json.dumps(r)} ({secs:.1f} s"
+            f"{' in the holds worker' if future is not None else ''})")
+        for msg in faults:
+            fail(f"{label}: {msg}")
+    HOLDS["pending"].clear()
+    waited = time.perf_counter() - t
+    log(f"holds collected: {waited:.1f} s waited for the worker")
+    return waited
+
+
+def params_of(state) -> dict:
+    """``state``, or the parameters of the train state saved at that path."""
+    return load_params(state) if isinstance(state, str) else state
+
+
+def hold_state(state: dict, name: str):
+    """``state`` saved for a deferred hold (its path), or ``state`` itself
+    when holds run in place."""
+    if HOLDS["dir"] is None:
+        return state
+    path = os.path.join(HOLDS["dir"], name)
+    torch.save({"params": state}, path)
+    return path
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S):
@@ -816,7 +947,10 @@ def tiny_entry(name, shape, key, err, ms, plain_ms, b_ms, b_by, lib_ms, **extra)
 # and its rank pass (32 x 128 answers of 10 tokens). Phase 12's towers at
 # 224 px: the fine-tune's ITM fusion cross-attention (3 x 32 rows) and the
 # rerank's (1024 and 512 rows) over CLIP's 200 keys and Swin's 56, and the
-# Swin requests' 128 rows
+# Swin requests' 128 rows. Phase 15's xGQA on the Plus base: the decoder's
+# cross-attention over the step's 32 answer rows and over a rank-pass chunk
+# of 512 of the eval call's 32 x 128 ranked answers (XLM-R's 250,002-row
+# vocabulary); its other shapes are phases 9's and 10's
 TINY_MAIN_SHAPES = (
     ("text self-attention", BATCH, TEXT_LEN, TEXT_LEN, False, "pad"),
     ("fusion cross-attention", BATCH, TEXT_LEN, 200, False, "pad"),
@@ -871,7 +1005,10 @@ TINY_MAIN_SHAPES = (
     ("CCLM region ITM cross-attention, region key masks", 3 * REGION_ROWS, CCLM_LEN, 200, True,
      "region"),
     ("CCLM region MLM and bbox cross-attention, region key masks", REGION_ROWS, CCLM_LEN, 200,
-     True, "region"))
+     True, "region"),
+    ("xGQA step decoder cross-attention", XGQA_ANSWERS, ANSWER_LEN, TEXT_LEN, True, "pad"),
+    ("xGQA rank decoder cross-attention, a chunk at XLM-R's vocabulary", XGQA_RANK_CHUNK,
+     ANSWER_LEN, TEXT_LEN, False, "pad"))
 
 
 def check_tiny(gen, dev):
@@ -1646,6 +1783,7 @@ def reset_counts() -> None:
         fn.launches_by_route.clear()
         fn.launches_by_walk.clear()
     dot_product_attention.calls = 0
+    dot_product_attention.calls_by_shape.clear()
 
 
 def train_counts():
@@ -2252,7 +2390,8 @@ def launch_counts():
                             "tiny_attention_bwd": dict(tiny_attention_bwd.launches_by_route)},
             "tiny_walks": {"tiny_attention_fwd": dict(tiny_attention_fwd.launches_by_walk),
                            "tiny_attention_bwd": dict(tiny_attention_bwd.launches_by_walk)},
-            "plain_attention": dot_product_attention.calls}
+            "plain_attention": dot_product_attention.calls,
+            "plain_shapes": collections.Counter(dot_product_attention.calls_by_shape)}
 
 
 # the parts of ``launch_counts`` the kernels line reads: the tiny launches
@@ -2263,7 +2402,7 @@ LEDGER_PARTS = ("tiny_fwd", "tiny_bwd", "flash_fwd_shapes", "flash_bwd_shapes",
 # the main paths, as the kernels line's ``launches_by_path`` names them
 PATHS = ("serving", "train_step", "int8_serving", "pretrain_launcher", "retrieval_launcher",
          "finetune_launcher", "vqa_launcher", "caption_launcher", "clip_launcher",
-         "swin_launcher", "video_launcher", "cclm_launcher")
+         "swin_launcher", "video_launcher", "cclm_launcher", "iglue_launcher")
 
 
 def ledger_add(ledger, path: str, operands: str, c: dict) -> None:
@@ -2349,7 +2488,8 @@ def check_launcher_counts(tag, c, n_flash_fwd, n_flash_bwd, want_tiny, n_plain=0
     want_bwd = {f"{k}/{TENSOR_CORE}": n_flash_bwd for k in bwd_kernels if n_flash_bwd}
     if c["flash_bwd_routes"] != want_bwd:
         fail(f"{tag}: flash backward routes {c['flash_bwd_routes']}, expected {want_bwd}")
-    check_tiny_routes(tag, c["tiny_routes"])
+    if any(c["tiny_fwd"].values()) or any(c["tiny_bwd"].values()):
+        check_tiny_routes(tag, c["tiny_routes"])
     for name, key in (("tiny_attention_fwd", "tiny_fwd"), ("tiny_attention_bwd", "tiny_bwd")):
         walks = collections.Counter()
         for (b, sq, skv), n in c[key].items():
@@ -3063,8 +3203,9 @@ def finetune_cosine_params(cfg, head: str):
             f"{head}.0.weight", f"{head}.3.weight")
 
 
-def finetune_hold(task: str, state: dict, mcfg, samples, dev) -> dict:
-    """The fine-tuned weights ``state`` on 2 rows, dropout off: the card in
+def finetune_hold(task: str, state, mcfg, samples, dev) -> tuple:
+    """The fine-tuned weights ``state`` (or the train state saved at that
+    path) on 2 rows, dropout off: the card in
     bf16 against the port's CPU fp32 path (the task's outputs: grounding's
     boxes, NLVR2's logits; its losses; gradient cosines of
     ``finetune_cosine_params``), each bf16 40 x 584 call of the card's pass
@@ -3072,6 +3213,7 @@ def finetune_hold(task: str, state: dict, mcfg, samples, dev) -> dict:
     plain version (``FUSION_CALL_RATIO``). Grounding's
     box targets are ``off_kink_targets`` of the CPU path's boxes. Returns
     the readings and the faults found."""
+    state = params_of(state)
     from x2vlm_tpu_torch.models import XVLMForGrounding, XVLMForNLVR
 
     cls, head = ((XVLMForGrounding, "bbox_head") if task == "grounding"
@@ -3285,22 +3427,16 @@ def finetune_task_phase(args, task: str, root: str, th_path: str, tok_dir: str, 
         if not same or launch_counts()["flash_fwd"]:
             fail("grounding launcher --resume: the restored state differs from the saved one, "
                  "or it trained again")
-        # the resumed run trained nothing and saved nothing: the hold reads
-        # the saved parameters already loaded
-        state = saved["params"]
+        # the resumed run trained nothing and saved nothing
         del saved, restored
-    else:
-        state = load_params(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE))
 
-    # the fine-tuned weights on 2 rows, card bf16 against CPU fp32
+    # the fine-tuned weights on 2 rows, card bf16 against CPU fp32 (deferred)
     train_ds, _ = create_dataset(task, cfg, rng=random.Random(args.seed))
     t_hold = time.perf_counter()
-    hold, faults = finetune_hold(task, state, xvlm_config_from_yaml(cfg),
-                                 [train_ds[0], train_ds[1]], dev)
+    defer_hold(f"phase 9 {task} card bf16 vs CPU fp32 (2 rows, dropout off)", finetune_hold,
+               task, os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE),
+               xvlm_config_from_yaml(cfg), [train_ds[0], train_ds[1]], dev)
     part_done(f"9 {task}", "hold", t_hold)
-    log(f"phase 9 {task} card bf16 vs CPU fp32 (2 rows, dropout off): {json.dumps(hold)}")
-    for msg in faults:
-        fail(f"{task} launcher, 2 rows card vs CPU: {msg}")
     phase_seconds(f"9 {task}", t0)
     return {"counts": counts, "steps": steps, "evals": evals}
 
@@ -3403,8 +3539,9 @@ def vqa_cosine_params(cfg):
             "text_decoder.cls.predictions.bias")
 
 
-def vqa_hold(state: dict, cfg: dict, batch: dict, answers: dict, dev) -> tuple:
-    """The fine-tuned weights ``state`` on the questions of ``batch`` (their
+def vqa_hold(state, cfg: dict, batch: dict, answers: dict, dev) -> tuple:
+    """The fine-tuned weights ``state`` (or the train state saved at that
+    path) on the questions of ``batch`` (their
     answer rows injected), dropout off, the card in bf16 against the port's
     CPU fp32 path: ``loss_vqa`` within 0.05 + 2%, gradient cosines of
     ``vqa_cosine_params`` >= 0.99, each bf16 40 x 2312 forward and backward
@@ -3412,6 +3549,7 @@ def vqa_hold(state: dict, cfg: dict, batch: dict, answers: dict, dev) -> tuple:
     bf16 rule's bound; and ``rank_answer`` over ``answers`` (the answer
     list) with ``K_TEST``: the first answer equal, the top-k scores within
     0.05. Returns the readings and the faults found."""
+    state = params_of(state)
     from x2vlm_tpu_torch.factory import build_model
 
     names = vqa_cosine_params(xvlm_config_from_yaml(cfg))
@@ -3671,22 +3809,18 @@ def vqa_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, image
     steps = steps[:steps_before]
     evals = evals[:n_eval]
 
-    # the fine-tuned weights on 2 questions, card bf16 against CPU fp32
-    state = load_params(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE))
+    # the fine-tuned weights on 2 questions, card bf16 against CPU fp32 (deferred)
     train_ds, test_ds = create_dataset("vqa", cfg, rng=random.Random(args.seed))
     batch = vqa_collate([train_ds[0], train_ds[1]], 4, rng=random.Random(args.seed))
     batch = {k: torch.from_numpy(v) for k, v in batch.items()}
     for k in ("question_ids", "answer_ids", "answer_index"):
         batch[k] = batch[k].long()
     t_hold = time.perf_counter()
-    hold, faults = vqa_hold(state, cfg, batch,
-                            {"answer_ids": torch.from_numpy(test_ds.answer_ids).long(),
-                             "answer_atts": torch.from_numpy(test_ds.answer_atts)}, dev)
+    defer_hold("phase 10 card bf16 vs CPU fp32 (2 questions, 4 answer rows, dropout off)",
+               vqa_hold, os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE), cfg, batch,
+               {"answer_ids": torch.from_numpy(test_ds.answer_ids).long(),
+                "answer_atts": torch.from_numpy(test_ds.answer_atts)}, dev)
     part_done("10", "hold", t_hold)
-    log(f"phase 10 card bf16 vs CPU fp32 (2 questions, 4 answer rows, dropout off): "
-        f"{json.dumps(hold)}")
-    for msg in faults:
-        fail(f"vqa launcher, 2 questions card vs CPU: {msg}")
     phase_seconds("10", t0)
     return split_counts(counts, [r["delta"] for r in steps])
 
@@ -3759,9 +3893,10 @@ def caption_cosine_params(cfg):
             "text_encoder.cls.predictions.bias")
 
 
-def caption_hold(state: dict, cfg: dict, batch: dict, sampled: list, prompt: list, tok,
+def caption_hold(state, cfg: dict, batch: dict, sampled: list, prompt: list, tok,
                  dev) -> tuple:
-    """The fine-tuned weights ``state`` on the 2 images of ``batch``, dropout
+    """The fine-tuned weights ``state`` (or the train state saved at that
+    path) on the 2 images of ``batch``, dropout
     off, the card in bf16 against the port's CPU fp32 path: ``loss_caption``
     and ``loss_scst`` (the SCST step's batch of ``build_scst_batch`` over
     the captions ``sampled``, 5 an image, weighted by ``SCST_HOLD_ADV``)
@@ -3773,6 +3908,7 @@ def caption_hold(state: dict, cfg: dict, batch: dict, sampled: list, prompt: lis
     logits stay within ``CAP_LOGIT_RULE`` of the CPU's, frame 0's top-3 ids
     equal; and the beam search's captions of both (compared, not held).
     Returns the readings and the faults found."""
+    state = params_of(state)
     from x2vlm_tpu_torch.factory import build_model
     from x2vlm_tpu_torch.models.captioning import beam_search_generate_device
     from x2vlm_tpu_torch.models.generation import top_k
@@ -4131,8 +4267,7 @@ def caption_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
     check_run("caption launcher scst", scst_counts,
               (("rollout", len(rollouts)), ("scst", len(scst_steps))))
 
-    # the fine-tuned weights on 2 images, card bf16 against CPU fp32
-    state = load_params(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE))
+    # the fine-tuned weights on 2 images, card bf16 against CPU fp32 (deferred)
     train_ds, _ = create_dataset("captioning", cfg, tokenizer=tok,
                                  rng=random.Random(args.seed))
     batch = run_mod.to_device(collate([train_ds[0], train_ds[1]]), torch.device("cpu"))
@@ -4142,11 +4277,10 @@ def caption_launcher_phase(args, root: str, th_path: str, tok_dir: str, words,
     sampled = [tok.convert_tokens_to_ids(tok.tokenize(c))[:CAP_MAX_LEN]
                for line in lines for c in line["caption"]]
     t_hold = time.perf_counter()
-    hold, faults = caption_hold(state, cfg, batch, sampled, prompt, tok, dev)
+    defer_hold("phase 11 card bf16 vs CPU fp32 (2 images, dropout off)", caption_hold,
+               os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE), cfg, batch, sampled, prompt,
+               tok, dev)
     part_done("11", "hold", t_hold)
-    log(f"phase 11 card bf16 vs CPU fp32 (2 images, dropout off): {json.dumps(hold)}")
-    for msg in faults:
-        fail(f"caption launcher, 2 images card vs CPU: {msg}")
     phase_seconds("11", t0)
     return [split_counts(counts, [r["delta"] for r in steps]),
             split_counts(scst_counts, [r["delta"] for r in scst_steps])]
@@ -4277,7 +4411,7 @@ def work_dir(root: str, need_bytes: int) -> str:
 
 
 def tower_task_phase(args, tower: str, root: str, tok_dir: str, image_root: str,
-                     test_file: str, requests, dev, smi: str = "") -> dict:
+                     test_file: str, requests, dev, smi: str = ""):
     """One tower of phase 12: ``x2vlm_tpu_torch.run --task retrieval`` on
     the shipped config at its own sizes (steps of 32, eval calls of 64
     images, k_test 128) from weights drawn from ``--seed`` (no published
@@ -4287,8 +4421,10 @@ def tower_task_phase(args, tower: str, root: str, tok_dir: str, image_root: str,
     with ``python -m x2vlm_tpu_torch.export_serving`` and served by
     ``RetrievalServer.from_npz`` with the tower from the bundle's manifest:
     its features equal to the trained model's, the requests at B=128 timed
-    and their launches read. Returns the launches: the run's (split into
-    steps and eval) and the requests'."""
+    and their launches read. A generator: it yields once the export has
+    started and the hold is done, and on its next step serves the bundle
+    and returns (``StopIteration.value``) the launches: the run's (split
+    into steps and eval) and the requests'."""
     from x2vlm_tpu_torch import run as run_mod
     from x2vlm_tpu_torch.data.factory import create_dataset
     from x2vlm_tpu_torch.tasks import retrieval as retrieval_mod
@@ -4424,6 +4560,15 @@ def tower_task_phase(args, tower: str, root: str, tok_dir: str, image_root: str,
     state = saved["params"]
     del saved, restored
 
+    # the export CLI, on the host beside the hold and the other tower's run
+    bundle = os.path.join(work, f"bundle_{tower}")
+    t_export = time.perf_counter()
+    export = subprocess.Popen(
+        [sys.executable, "-m", "x2vlm_tpu_torch.export_serving", "--task", "retrieval",
+         "--config", cfg_path, "--checkpoint", os.path.join(out, "ckpt"), "--out", bundle,
+         "--device", "cpu"], cwd=REPO_ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
     # the trained weights on 2 rows, card bf16 against CPU fp32
     _, test_ds = create_dataset("retrieval", cfg, evaluate=True)
     ids, atts = (torch.from_numpy(a) for a in test_ds.text_batch([0, 5]))
@@ -4436,19 +4581,17 @@ def tower_task_phase(args, tower: str, root: str, tok_dir: str, image_root: str,
         f"{json.dumps(hold)}")
     for msg in faults:
         fail(f"{tower} launcher, 2 rows card vs CPU: {msg}")
+    yield   # the caller runs the other tower up to here
 
-    # the export CLI, then the bundle served with the tower from its manifest
-    bundle = os.path.join(work, f"bundle_{tower}")
+    # the bundle served with the tower from its manifest
     t3 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "x2vlm_tpu_torch.export_serving", "--task", "retrieval",
-         "--config", cfg_path, "--checkpoint", os.path.join(out, "ckpt"), "--out", bundle,
-         "--device", "cpu"], cwd=REPO_ROOT, capture_output=True, text=True, timeout=900)
+    stdout, stderr = export.communicate(timeout=900)
     shutil.rmtree(out)
-    log(f"phase 12 {tower} export: exit {proc.returncode}, "
-        f"{part_done(f'12 {tower}', 'export', t3):.1f} s; {proc.stdout.strip()[-300:]}")
-    if proc.returncode:
-        fail(f"{tower} export_serving: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    log(f"phase 12 {tower} export: exit {export.returncode}, "
+        f"{time.perf_counter() - t_export:.1f} s of its own, "
+        f"{part_done(f'12 {tower}', 'export', t3):.1f} s waited; {stdout.strip()[-300:]}")
+    if export.returncode:
+        fail(f"{tower} export_serving: exit {export.returncode}: {stderr[-2000:]}")
         if work != root:
             shutil.rmtree(work)
         return {"run": split_counts(counts, [r["delta"] for r in steps]), "requests": {}}
@@ -4511,12 +4654,21 @@ def tower_task_phase(args, tower: str, root: str, tok_dir: str, image_root: str,
 
 
 def tower_launcher_phase(args, root, tok_dir, image_root, test_file, requests, dev, smi=""):
-    """Phase 12: CLIP ViT-B/16, then Swin-B/224. Returns each tower's
-    launches (``tower_task_phase``)."""
+    """Phase 12: CLIP ViT-B/16, then Swin-B/224, each up to its export
+    (``tower_task_phase`` yields there: the export CLI runs on the host
+    beside the next tower's run), then each tower's served bundle. Returns
+    each tower's launches."""
+    towers = {tower: tower_task_phase(args, tower, root, tok_dir, image_root, test_file,
+                                      requests, dev, smi) for tower in ("clip", "swin")}
+    for phase in towers.values():
+        next(phase)
+        torch.cuda.empty_cache()
     out = {}
-    for tower in ("clip", "swin"):
-        out[tower] = tower_task_phase(args, tower, root, tok_dir, image_root, test_file,
-                                      requests, dev, smi)
+    for tower, phase in towers.items():
+        try:
+            next(phase)
+        except StopIteration as done:
+            out[tower] = done.value
         torch.cuda.empty_cache()
     return out
 
@@ -4720,14 +4872,16 @@ def video_pretrain_phase(args, root: str, th_path: str, tok_dir: str, words, wor
     return th13, final, xvlm_config_from_yaml(cfg), counts1
 
 
-def video_pretrain_hold(final: dict, cfg, dev) -> tuple:
-    """The stage-2 weights on 2 videos of 3 uint8 frames, dropout off, the
+def video_pretrain_hold(final, cfg, dev) -> tuple:
+    """The stage-2 weights ``final`` (or the train state saved at that path)
+    on 2 videos of 3 uint8 frames, dropout off, the
     ITM negatives injected: the card in bf16 against the port's CPU fp32
     path: ITC, ITM and MLM within 0.05 + 2%, gradient cosines >= 0.99 (the
     vision tower, the frame positions, a fusion layer, the ITM head), each
     bf16 40 x 200 call of the ITM + MLM fusion pass held on the model's
     operands to the plain version (``FUSION_CALL_RATIO``). ``cfg`` is the
     run's ``XVLMConfig``."""
+    final = params_of(final)
     res = cfg.vision.image_res
     gen = torch.Generator().manual_seed(13)
     batch = {"image": torch.randint(0, 256, (2, STREAM_FRAMES, res, res, 3), generator=gen,
@@ -4824,13 +4978,15 @@ def video_qa_launches(train: bool) -> dict:
             "tiny_bwd": tiny if train else {}}
 
 
-def video_qa_hold(state: dict, mcfg, samples, dev) -> tuple:
-    """The fine-tuned video QA weights on 2 videos, dropout off, the card in
+def video_qa_hold(state, mcfg, samples, dev) -> tuple:
+    """The fine-tuned video QA weights ``state`` (or the train state saved
+    at that path) on 2 videos, dropout off, the card in
     bf16 against the port's CPU fp32 path: ``loss_cls`` within 0.05 + 2%,
     the logits within 0.05 + 5% of their scale, gradient cosines >= 0.99
     (the vision tower, the frame positions, a fusion layer, ``cls_head``),
     each bf16 40 x 200 forward and backward call held on the model's
     operands (``FUSION_CALL_RATIO``)."""
+    state = params_of(state)
     from x2vlm_tpu_torch.models import XVLMForClassification
 
     n_labels = state["cls_head.3.weight"].shape[0]
@@ -5072,7 +5228,7 @@ def video_qa_phase(args, root: str, th13: str, tok_dir: str, words, work: str, d
     del saved, restored
     steps = steps[:steps_before]
 
-    # 13c: the fine-tuned weights on 2 videos, card bf16 against CPU fp32
+    # 13c: the fine-tuned weights on 2 videos, card bf16 against CPU fp32 (deferred)
     state = load_params(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE))
     shutil.rmtree(out, ignore_errors=True)
     shutil.rmtree(out_resumed, ignore_errors=True)
@@ -5082,12 +5238,10 @@ def video_qa_phase(args, root: str, th13: str, tok_dir: str, words, work: str, d
     for s in samples:
         s["labels"] = np.int32(max(int(s["labels"]), 0))   # an answer off the list: class 0
     t_hold = time.perf_counter()
-    hold, faults = video_qa_hold(state, xvlm_config_from_yaml(cfg), samples, dev)
+    defer_hold(f"phase 13c video QA card bf16 vs CPU fp32 (2 videos x {QA_FRAMES} frames, "
+               f"dropout off)", video_qa_hold, hold_state(state, "video_qa.pt"),
+               xvlm_config_from_yaml(cfg), samples, dev)
     part_done("13b", "hold", t_hold)
-    log(f"phase 13c video QA card bf16 vs CPU fp32 (2 videos x {QA_FRAMES} frames, dropout "
-        f"off): {json.dumps(hold)}")
-    for msg in faults:
-        fail(f"video qa launcher, 2 videos card vs CPU: {msg}")
     phase_seconds("13b", t0)
     return split_counts(counts, [r["delta"] for r in steps])
 
@@ -5104,13 +5258,9 @@ def video_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, dev
         th13, final, mcfg, pre = video_pretrain_phase(args, root, th_path, tok_dir, words,
                                                       work, dev, smi)
         torch.cuda.empty_cache()
-        t = time.perf_counter()
-        hold, faults = video_pretrain_hold(final, mcfg, dev)
-        log(f"phase 13c video stream card bf16 vs CPU fp32 (2 videos x {STREAM_FRAMES} frames,"
-            f" negatives injected, dropout off): {json.dumps(hold)} "
-            f"({time.perf_counter() - t:.1f} s)")
-        for msg in faults:
-            fail(f"video stream, 2 videos card vs CPU: {msg}")
+        defer_hold(f"phase 13c video stream card bf16 vs CPU fp32 (2 videos x {STREAM_FRAMES} "
+                   f"frames, negatives injected, dropout off)", video_pretrain_hold,
+                   hold_state(final, "video_pretrain.pt"), mcfg, dev)
         del final
         qa = video_qa_phase(args, root, th13, tok_dir, words, work, dev, smi)
     finally:
@@ -5272,8 +5422,9 @@ def cclm_hold_batches(mcfg):
     return image, region, para
 
 
-def cclm_hold(final: dict, mcfg, dev) -> tuple:
-    """The run's weights on 2 images, 2 region rows and 2 parallel pairs,
+def cclm_hold(final, mcfg, dev) -> tuple:
+    """The run's weights ``final`` (or the train state saved at that path)
+    on 2 images, 2 region rows and 2 parallel pairs,
     dropout off, the negatives injected: the card in bf16 against the
     port's CPU fp32 path: each loss (ITC, ITM, MLM of the image and the
     region stream, bbox L1 and GIoU; TTC, TTM, TLM) within 0.05 + 2%,
@@ -5282,6 +5433,7 @@ def cclm_hold(final: dict, mcfg, dev) -> tuple:
     the cross encoder's, language 2 as the keys) held on the model's
     operands within ``FUSION_CALL_RATIO`` of the bf16 rule's bound. The
     box targets are ``off_kink_targets`` of the CPU path's boxes."""
+    final = params_of(final)
     from x2vlm_tpu_torch.models import XVLMPlusForPretrain
 
     image, region, para = cclm_hold_batches(mcfg)
@@ -5372,7 +5524,8 @@ def fused_ce_times(dev, smi: str) -> None:
         f"(CUDA events; by masked rows; {smi}): {json.dumps(out)}")
 
 
-def cclm_launcher_phase(args, root: str, th_path: str, words, dev, smi: str = "") -> dict:
+def cclm_launcher_phase(args, root: str, th_path: str, words, work: str, dev,
+                        smi: str = "") -> tuple:
     """Phase 14: ``x2vlm_tpu_torch.run --task pretrain`` in process on the
     shipped ``cclm_x2vlm_base.yaml`` from phase 7's ``.th`` (``is_xvlm_ckpt``
     with ``replace_text_encoder``: the cross encoder from its text layers
@@ -5384,20 +5537,13 @@ def cclm_launcher_phase(args, root: str, th_path: str, words, dev, smi: str = ""
     blocks as shipped. 2 steps, then ``--resume`` from the state of step 1,
     its state and cursors (the parallel text's among them) restored bit for
     bit; each stream's calls timed and their launches read; then
-    ``cclm_hold``. Every file goes to ``work_dir``. Returns the launches of
-    the first run."""
+    ``cclm_hold``. Every file goes to ``work`` (``work_dir``); the first
+    run's last state (``out_cclm/ckpt``) and the tokenizer stay there for
+    phase 15. Returns the launches of the first run and ``{"tok_dir",
+    "ckpt"}``."""
     from x2vlm_tpu_torch import run as run_mod
 
     t0 = time.perf_counter()
-    work = work_dir(root, 24 * 2**30)
-    try:
-        return _cclm_phase(args, root, th_path, words, work, dev, smi, t0, run_mod)
-    finally:
-        if work != root:
-            shutil.rmtree(work, ignore_errors=True)
-
-
-def _cclm_phase(args, root, th_path, words, work, dev, smi, t0, run_mod) -> dict:
     rng = np.random.default_rng(args.seed + 14)
     tok_dir = write_xlmr_tokenizer(work, words)
     img_file, para_file = write_cclm_corpus(root, work, rng, words)
@@ -5538,21 +5684,658 @@ def _cclm_phase(args, root, th_path, words, work, dev, smi, t0, run_mod) -> dict
     del saved
     shutil.rmtree(out_resumed, ignore_errors=True)
 
-    final = load_params(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE))
-    shutil.rmtree(out, ignore_errors=True)
-    mcfg = xvlm_config_from_yaml(cfg)
     t3 = time.perf_counter()
-    hold, faults = cclm_hold(final, mcfg, dev)
-    log(f"phase 14 card bf16 vs CPU fp32 (2 images, 2 region rows, 2 parallel pairs; "
-        f"negatives injected, dropout off): {json.dumps(hold)} "
-        f"({part_done('14', 'hold', t3):.1f} s)")
-    for msg in faults:
-        fail(f"cclm, card vs CPU: {msg}")
-    del final
+    defer_hold("phase 14 card bf16 vs CPU fp32 (2 images, 2 region rows, 2 parallel pairs; "
+               "negatives injected, dropout off)", cclm_hold,
+               os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE), xvlm_config_from_yaml(cfg),
+               dev)
+    part_done("14", "hold", t3)
     torch.cuda.empty_cache()
     fused_ce_times(dev, smi)
     phase_seconds("14", t0)
-    return counts1
+    return counts1, {"tok_dir": tok_dir, "ckpt": os.path.join(out, "ckpt")}
+
+
+# ---- phase 15: the IGLUE tasks on the Plus / CCLM base at 384 px ----
+
+IGLUE_TASKS = ("xvnli", "marvl", "xgqa", "wit", "xflickrco")
+IGLUE_LANGS = ("de", "zh")            # the test sets' languages (MARVL's: NLVR2's "en", "zh")
+N_IGLUE_TRAIN = 2 * IGLUE_BATCH       # train lines: 2 steps (xGQA: 1 an epoch, 2 epochs)
+N_RET_EVAL = 128                      # WIT / xFlickrCO test lines a language: k_test 128 both ways
+N_XGQA_ANSWERS = 1000                 # xGQA's answer lists (each language's own)
+XVNLI_FEWSHOT = f"de,{IGLUE_BATCH}"   # the few-shot run: 16 German train lines, 1 step
+XGQA_RESUME_STEP = 1                  # --resume from the state of step 1 (of 2)
+IGLUE_CONFIGS = {task: f"configs/finetune/{task}_cclm_base.yaml" for task in IGLUE_TASKS}
+
+
+def write_iglue_corpus(work: str, rng: np.random.Generator, words, image_root: str) -> dict:
+    """Each task's data over phase 8's PNGs, captions in the test
+    languages' scripts (``cclm_caption``): XVNLI lines (``<id>.jpg`` names
+    linked to the PNGs, a line without a label dropped), NLVR2 train and
+    ``en`` test lines and MARVL ``zh`` lines for MARVL, xGQA's questions and
+    an answer list of ``N_XGQA_ANSWERS`` a language (``zh`` a [path, list]
+    pair), WIT lines with the PNGs in base64 and xFlickrCO lines, both with
+    captions long enough to fill 80 tokens; ``N_IGLUE_TRAIN`` train lines
+    (16 for xGQA and the few-shot file), 32 test lines a language (128 for
+    WIT and xFlickrCO). Returns the paths by name."""
+    n_img = len([f for f in os.listdir(image_root) if f.endswith(".png")])
+    d = os.path.join(work, "iglue")
+    os.makedirs(os.path.join(d, "jpg"))
+    paths = {}
+
+    def dump(name, data, lines=True):
+        paths[name] = os.path.join(d, name)
+        with open(paths[name], "w", encoding="utf-8") as f:
+            if lines:
+                f.writelines(json.dumps(r, ensure_ascii=False) + "\n" for r in data)
+            else:
+                json.dump(data, f, ensure_ascii=False)
+
+    def img():
+        return int(rng.integers(n_img))
+
+    for i in range(n_img):    # XVNLI names its images <Flikr30kID>.jpg
+        os.symlink(os.path.join(image_root, f"{i}.png"),
+                   os.path.join(d, "jpg", f"{1000 + i}.jpg"))
+    labels = ("contradiction", "entailment", "neutral")
+
+    def xvnli(n, lang):
+        return [{"Flikr30kID": str(1000 + img()), "gold_label": labels[int(rng.integers(3))],
+                 "sentence2": cclm_caption(rng, words, lang, 4, 30)} for _ in range(n)] + \
+            [{"Flikr30kID": "1000", "gold_label": "-", "sentence2": "x"}]
+
+    dump("xvnli_train_en.jsonl", xvnli(N_IGLUE_TRAIN, "en"))
+    dump(f"xvnli_{XVNLI_FEWSHOT.replace(',', '_')}.jsonl", xvnli(IGLUE_BATCH, "de"))
+    for lang in IGLUE_LANGS:
+        dump(f"xvnli_test_{lang}.jsonl", xvnli(IGLUE_EVAL_BATCH, lang))
+
+    def nlvr(n):
+        return [{"images": [f"{img()}.png", f"{img()}.png"], "label": str(rng.random() < 0.5),
+                 "sentence": cclm_caption(rng, words, "en", 4, 30)} for _ in range(n)]
+
+    dump("nlvr_train.json", nlvr(N_IGLUE_TRAIN), lines=False)
+    dump("nlvr_test_en.json", nlvr(IGLUE_EVAL_BATCH), lines=False)
+    dump("marvl_test_zh.jsonl", [
+        {"left_img": f"{img()}.png", "right_img": f"{img()}.png", "label": rng.random() < 0.5,
+         "caption": cclm_caption(rng, words, "zh", 4, 30)} for _ in range(IGLUE_EVAL_BATCH)])
+
+    answers = sorted({cclm_caption(rng, words, "en", 1, 4) for _ in range(2 * N_XGQA_ANSWERS)})
+    answers = [answers[i] for i in rng.permutation(len(answers))[:N_XGQA_ANSWERS]]
+    dump("gqa_answers.json", answers, lines=False)
+    dump("gqa_answers_zh.json", answers[::-1], lines=False)
+
+    def gqa(n, lang, first_id):
+        return [{"image": f"{img()}.png", "question_id": first_id + i,
+                 "question": cclm_caption(rng, words, lang, 4, 30),
+                 "answer": answers[int(rng.integers(N_XGQA_ANSWERS))]} for i in range(n)]
+
+    dump("gqa_train.json", gqa(IGLUE_BATCH, "en", 0), lines=False)
+    for j, lang in enumerate(IGLUE_LANGS):
+        dump(f"gqa_test_{lang}.json", gqa(IGLUE_EVAL_BATCH, lang, 1000 * (j + 1)), lines=False)
+
+    pngs = []
+    for i in range(n_img):
+        with open(os.path.join(image_root, f"{i}.png"), "rb") as f:
+            pngs.append(base64.b64encode(f.read()).decode())
+
+    def wit(n, lang):
+        return [{"image_url": f"https://example.org/{lang}/{i}.png",
+                 "image_content": pngs[img()],
+                 "caption_reference_description": cclm_caption(rng, words, lang, 60, 90)}
+                for i in range(n)]
+
+    def xflickrco(n, lang):
+        return [{"id": f"{lang}{i}", "img_path": f"{img()}.png",
+                 "sentences": [cclm_caption(rng, words, lang, 60, 90)]} for i in range(n)]
+
+    for name, make in (("wit", wit), ("xflickrco", xflickrco)):
+        dump(f"{name}_train_en.jsonl", make(N_IGLUE_TRAIN, "en"))
+        for lang in IGLUE_LANGS:
+            dump(f"{name}_test_{lang}.jsonl", make(N_RET_EVAL, lang))
+    return paths
+
+
+def iglue_config(task: str, paths: dict, plus: dict, image_root: str) -> dict:
+    """The task's shipped config (its own sizes), the data paths pointed at
+    ``paths``, the tokenizer phase 14 wrote."""
+    cfg = dict(shipped_config(IGLUE_CONFIGS[task]), text_encoder=plus["tok_dir"])
+    per_lang = lambda stem, ext: {lang: paths[f"{stem}_test_{lang}.{ext}"]  # noqa: E731
+                                  for lang in IGLUE_LANGS}
+    if task == "xvnli":
+        cfg.update(train_file=[paths["xvnli_train_en.jsonl"]],
+                   test_file=per_lang("xvnli", "jsonl"),
+                   image_root=os.path.dirname(paths["xvnli_train_en.jsonl"]) + "/jpg")
+    elif task == "marvl":
+        cfg.update(train_file=[paths["nlvr_train.json"]], image_root=image_root,
+                   marvl_image_root=image_root,
+                   test_file={"en": paths["nlvr_test_en.json"],
+                              "zh": paths["marvl_test_zh.jsonl"]})
+    elif task == "xgqa":
+        cfg.update(train_file=[paths["gqa_train.json"]], vqa_root=image_root,
+                   answer_list=paths["gqa_answers.json"], start_eval=1,
+                   test_file={"de": paths["gqa_test_de.json"],
+                              "zh": [paths["gqa_test_zh.json"], paths["gqa_answers_zh.json"]]})
+    else:
+        cfg.update(train_file=[paths[f"{task}_train_en.jsonl"]],
+                   test_file=per_lang(task, "jsonl"))
+        if task == "xflickrco":
+            cfg["image_root"] = image_root
+    return cfg
+
+
+def iglue_launches(task: str, train: bool) -> dict:
+    """The attention launches of one step (16 rows) or eval call (32 rows;
+    WIT's and xFlickrCO's: one language's whole eval) of ``task`` on the Plus
+    base: 12 flash over the images (S=577; MARVL's 2 a row); at 40 tokens
+    tiny at 40 x 40 (XLM-R's 12 layers, each cross-encoder pass's 6
+    self-attentions) and 40 x 584 (its 6 cross-attentions, key-tiled);
+    xGQA's decoder cross-attention at 10 x 40 over the 32 answer rows (an
+    eval: 1 x 40, then 10 x 40 over each 512-row chunk of the 32 x 128
+    ranked answers) and its causal self-attention on the plain core; at 80
+    tokens (WIT, xFlickrCO) no tiny launch: XLM-R's and the cross encoder's
+    attention on the plain core (a step: the text pass, ITM over 3 x 16
+    rows; an eval: the texts in one call of 256, the ITM rerank's 2 x 16
+    calls of 1,024 rows). ``plain`` by (B, Sq, Skv); the backward's tiny
+    launches are the forward's."""
+    L, K, LONG = TEXT_LEN, N_KEYS_384, IGLUE_LONG
+    B = IGLUE_BATCH if train else IGLUE_EVAL_BATCH
+    if task in ("wit", "xflickrco"):
+        if train:
+            return {"flash_fwd": 12, "flash_bwd": 12, "tiny_fwd": {}, "tiny_bwd": {},
+                    "plain": {(B, LONG, LONG): 12, (3 * B, LONG, LONG): 6,
+                              (3 * B, LONG, K): 6}}
+        n_rerank = 2 * N_RET_EVAL // 8
+        return {"flash_fwd": 12 * N_RET_EVAL // B, "flash_bwd": 0, "tiny_fwd": {},
+                "tiny_bwd": {},
+                "plain": {(256, LONG, LONG): 12, (RERANK_BATCH, LONG, LONG): 6 * n_rerank,
+                          (RERANK_BATCH, LONG, K): 6 * n_rerank}}
+    passes = 2 if task == "marvl" else 1
+    tiny = {(B, L, L): 12 + 6 * passes, (B, L, K): 6 * passes}
+    plain = {}
+    if task == "xgqa" and train:
+        tiny[(XGQA_ANSWERS, ANSWER_LEN, L)] = 6
+        plain = {(XGQA_ANSWERS, ANSWER_LEN, ANSWER_LEN): 6}
+    elif task == "xgqa":
+        chunks = B * K_TEST // XGQA_RANK_CHUNK
+        tiny.update({(B, 1, L): 6, (XGQA_RANK_CHUNK, ANSWER_LEN, L): 6 * chunks})
+        plain = {(B, 1, 1): 6, (XGQA_RANK_CHUNK, ANSWER_LEN, ANSWER_LEN): 6 * chunks}
+    return {"flash_fwd": 12, "flash_bwd": 12 if train else 0, "tiny_fwd": tiny,
+            "tiny_bwd": tiny if train else {}, "plain": plain}
+
+
+def iglue_cosine_params(family: str):
+    """Gradients held to the CPU path: the vision tower (K2 / K3, K4),
+    XLM-R's table and a layer, the cross encoder's self- and
+    cross-attention (K6 at 40 x 40 and 40 x 584 at 40 tokens) and the
+    family's head (retrieval: the ITM head; xGQA: a decoder layer's causal
+    self- and cross-attention and its head)."""
+    x = "cross_encoder.encoder.layer.0"
+    common = ("vision_encoder.blocks.0.attn.qkv.weight",
+              "vision_encoder.blocks.0.attn.relative_position_bias_table",
+              "text_encoder.roberta.embeddings.word_embeddings.weight",
+              "text_encoder.roberta.encoder.layer.0.attention.self.query.weight",
+              f"{x}.attention.self.query.weight", f"{x}.crossattention.self.key.weight")
+    d = "text_decoder.roberta.encoder.layer.0"
+    return common + {
+        "retrieval": ("itm_head.0.weight", "itm_head.3.weight"),
+        "nlvr": ("cls_head.0.weight", "cls_head.3.weight"),
+        "classification": ("cls_head.0.weight", "cls_head.3.weight"),
+        "vqa": (f"{d}.attention.self.query.weight", f"{d}.crossattention.self.key.weight",
+                "text_decoder.lm_head.dense.weight", "text_decoder.lm_head.bias")}[family]
+
+
+def iglue_pass(family: str, state: dict, cfg: dict, batch: dict, device, dtype,
+               answers=None, ratios=None) -> dict:
+    """One side of a phase-15 hold: the fine-tuned weights ``state`` of a
+    head family on ``device`` in ``dtype`` (dropout off) over the 2 rows of
+    ``batch``: the losses of one forward (retrieval with the negatives
+    injected), the gradients of ``iglue_cosine_params``, the head's output
+    read in that forward (the ITM head's logits over the 3 x 2 ITM rows,
+    NLVR2's and XVNLI's logits) and, for xGQA, ``rank_answer`` over
+    ``answers`` with ``K_TEST``. ``ratios`` (forward, backward lists): each
+    bf16 40 x 584 tiny call held on the model's operands into them."""
+    from x2vlm_tpu_torch.factory import build_model
+
+    model, _ = build_model(cfg, family, device=device, dtype=dtype, seed=None)
+    model.load_state_dict(state)
+    b = {k: v.to(device) for k, v in batch.items()}
+    res, kw, outs = {}, {}, []
+    if family == "retrieval":
+        kw["neg_idx"] = (torch.tensor([1, 0], device=device),) * 2
+    if family == "vqa":
+        with torch.no_grad():
+            ids, probs = model.predict(dict({k: b[k] for k in (
+                "image", "question_ids", "question_atts")}, **{
+                    k: v.to(device) for k, v in answers.items()}), K_TEST)
+        res["rank"] = (ids.cpu(), probs.float().cpu())
+    head = getattr(model, "itm_head" if family == "retrieval" else "cls_head", None)
+    hook = head.register_forward_hook(
+        lambda mod, inp, out: outs.append(out.detach().float().cpu())) if head is not None \
+        else None
+    with (held_tiny_calls(N_KEYS_384, ratios[0]) if ratios else contextlib.nullcontext()), \
+            (held_tiny_bwd_calls(N_KEYS_384, ratios[1]) if ratios else contextlib.nullcontext()):
+        out = model(b, **kw)
+        sum(out.values()).backward()
+    if hook is not None:
+        hook.remove()
+        res["out"] = torch.cat(outs)
+    res["losses"] = {k: v.item() for k, v in out.items()}
+    params = dict(model.named_parameters())
+    res["grads"] = {k: params[k].grad.detach().float().cpu().reshape(-1)
+                    for k in iglue_cosine_params(family)}
+    return res
+
+
+def iglue_hold(family: str, state, cfg: dict, batch: dict, dev, answers=None) -> tuple:
+    """A phase-15 hold: ``iglue_pass`` on the CPU in fp32 and on the card in
+    bf16 with the trained weights ``state`` (or the state saved at that
+    path), ``iglue_compare`` of the two."""
+    state = params_of(state)
+    cpu = iglue_pass(family, state, cfg, batch, torch.device("cpu"), torch.float32, answers)
+    ratios = ([], [])
+    card = iglue_pass(family, state, cfg, batch, dev, torch.bfloat16, answers, ratios)
+    del state
+    torch.cuda.empty_cache()
+    return iglue_compare(family, cpu, card, ratios)
+
+
+def iglue_compare(family: str, cpu: dict, card: dict, ratios) -> tuple:
+    """A phase-15 hold's readings and faults, card bf16 against CPU fp32:
+    losses within 0.05 + 2%, the head's outputs within 0.05 + 5% of their
+    scale, gradient cosines >= 0.99, each 40 x 584 call forward and
+    backward within ``FUSION_CALL_RATIO`` of the bf16 rule's bound (XVNLI's
+    and xGQA's 6 cross-attentions, NLVR2's 12; none at retrieval's 80
+    tokens, where the plain core runs), xGQA's first answers equal and its
+    top-k scores within 0.05."""
+    cos = {k: F.cosine_similarity(card["grads"][k].double(), cpu["grads"][k].double(),
+                                  dim=0).item() for k in cpu["grads"]}
+    r = {"losses": {"cpu": cpu["losses"], "card": card["losses"]}, "cosine": cos,
+         "fwd_ratios": [round(x, 3) for x in ratios[0]],
+         "bwd_ratios": [round(x, 3) for x in ratios[1]]}
+    faults = []
+    n_calls = {"retrieval": 0, "nlvr": 12, "classification": 6, "vqa": 6}[family]
+    for kind, got in zip(("forward", "backward"), ratios):
+        if len(got) != n_calls or not all(x <= FUSION_CALL_RATIO for x in got):
+            faults.append(f"the 40 x {N_KEYS_384} {kind} calls' errors over the bf16 rule's "
+                          f"bound {[round(x, 3) for x in got]}, expected {n_calls} at most "
+                          f"{FUSION_CALL_RATIO}")
+    if "out" in cpu:
+        r["out_err"] = max_err(card["out"], cpu["out"])
+        r["out_scale"] = cpu["out"].abs().max().item()
+        if not r["out_err"] <= 0.05 + 0.05 * r["out_scale"]:
+            faults.append(f"card outputs off the CPU fp32 path's by {r['out_err']:.4f} (scale "
+                          f"{r['out_scale']:.4f})")
+    if "rank" in cpu:
+        r["first_answer"] = {"cpu": cpu["rank"][0][:, 0].tolist(),
+                             "card": card["rank"][0][:, 0].tolist()}
+        r["score_err"] = max_err(card["rank"][1], cpu["rank"][1])
+        r["cpu_top_scores"] = cpu["rank"][1][:, :3].tolist()
+        if r["first_answer"]["card"] != r["first_answer"]["cpu"]:
+            faults.append(f"rank_answer's first answers {r['first_answer']}")
+        if not r["score_err"] <= 0.05:
+            faults.append(f"rank_answer's top-k scores off the CPU fp32 path's by "
+                          f"{r['score_err']:.4f}")
+    for k, ref in cpu["losses"].items():
+        if not abs(card["losses"][k] - ref) <= 0.05 + 0.02 * abs(ref):
+            faults.append(f"{k}: card {card['losses'][k]:.5f} vs CPU fp32 {ref:.5f}")
+    for k, c in cos.items():
+        if not c >= 0.99:
+            faults.append(f"gradient {k}: cosine to the CPU fp32 path {c:.5f} < 0.99")
+    return r, faults
+
+
+def iglue_launcher_phase(args, root: str, plus: dict, words, work: str, dev,
+                         smi: str = "") -> dict:
+    """Phase 15: ``x2vlm_tpu_torch.run`` in process on the five shipped
+    IGLUE configs at their own sizes (384 px; 16 rows a step, 32 an eval
+    call; k_test 128; 40 tokens, WIT's and xFlickrCO's 80; xGQA's 10-token
+    answers and 6-layer RoBERTa-form decoder), each from phase 14's Plus
+    train state (``--checkpoint <dir>``: memory-mapped, parameters only, the
+    task's head fresh), phase 14's 250,002-entry XLM-R tokenizer and
+    ``write_iglue_corpus``'s data, ``{lang: path}`` test sets: 2 steps and
+    the eval each (``--task xvnli`` ... ``--task xflickrco``); xGQA in 2
+    epochs of a step, then ``--resume`` from the state of step 1 (state and
+    the next batch bit for bit); XVNLI once more as ``--task
+    classification`` (its ``dataset_type``) under ``--fewshot`` (a
+    two-slot train template, a one-slot test template), one step and its
+    eval. Each step and eval call timed (CUDA events and wall, peak memory)
+    and its launches read against ``iglue_launches`` (plain calls by
+    shape); xGQA's rank pass timed with its peak memory; each head family's
+    ``iglue_hold`` on 2 rows (WIT's weights for retrieval at 80 tokens),
+    deferred to the holds' worker as soon as its run has trained it. Only
+    xGQA's run saves a train state (step 1's, in ``work``); each hold's
+    trained state is saved for the worker (``hold_state``) beside the next
+    run. Returns the launches, split into steps and evals."""
+    import hashlib
+
+    from x2vlm_tpu_torch import run as run_mod
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.data.finetune import vqa_collate
+    from x2vlm_tpu_torch.data.loader import collate
+    from x2vlm_tpu_torch.models import XVLMForClassification, XVLMForNLVR, XVLMForVQA
+    from x2vlm_tpu_torch.tasks import retrieval as retrieval_mod
+
+    t0 = time.perf_counter()
+    image_root = os.path.join(root, "flickr")
+    paths = write_iglue_corpus(work, np.random.default_rng(args.seed + 15), words, image_root)
+    cfgs = {task: iglue_config(task, paths, plus, image_root) for task in IGLUE_TASKS}
+    for task, cfg in cfgs.items():
+        sizes = (cfg["model_type"], cfg["image_res"], cfg["batch_size"], cfg["batch_size_test"],
+                 cfg["max_tokens"], cfg["text_num_hidden_layers"], cfg["num_cross_layers"],
+                 cfg.get("k_test", K_TEST), cfg.get("num_dec_layers", 6),
+                 cfg.get("answer_max_tokens", ANSWER_LEN))
+        want = ("cclm", 384, IGLUE_BATCH, IGLUE_EVAL_BATCH,
+                IGLUE_LONG if task in ("wit", "xflickrco") else TEXT_LEN, 12, 6, K_TEST, 6,
+                ANSWER_LEN)
+        if sizes != want:
+            fail(f"iglue {task}: the shipped config's sizes {sizes} changed (expected {want})")
+    log(f"phase 15 data and configs: {part_done('15', 'data', t0):.1f} s")
+
+    records = {}             # run name -> {"steps", "evals", "ranks", "import", "state"}
+    batches = collections.defaultdict(list)
+    orig = {"step": run_mod.make_train_step, "save": ckpt_lib.save_train_state,
+            "load": ckpt_lib.load_converted, "to_device": run_mod.to_device,
+            "restore": ckpt_lib.restore_train_state, "rank": XVLMForVQA.rank_answer,
+            "retrieval": retrieval_mod.evaluate_retrieval,
+            "predict": {c: c.predict for c in (XVLMForClassification, XVLMForNLVR, XVLMForVQA)}}
+    evaluated = {"xvnli": XVLMForClassification, "marvl": XVLMForNLVR, "xgqa": XVLMForVQA}
+    timed = functools.partial(timed_call, args, smi)
+    counts, train_deltas, savers = [], [], []
+
+    def launch(name: str, task: str, argv: list, save=None, restore=None,
+               keep_state: bool = False):
+        """One launcher run with its steps, eval calls, rank passes and
+        import read; ``save`` / ``restore`` stand in for the train state's
+        (default: nothing saved); with ``keep_state`` the trained
+        parameters are kept (on the host) for the hold."""
+        rec = records[name] = {"steps": [], "evals": [], "ranks": [], "import": {}}
+        model_ref = []
+
+        def make_step(model, optimizer, **kw):
+            model_ref.append(model)
+            rec["params"] = [n for n, _ in model.named_parameters()]
+            return timed(orig["step"](model, optimizer, **kw), rec["steps"],
+                         f"chip_smoke_iglue_{name}_step_profile.txt",
+                         lambda i: bool(args.profile) and i == 1)
+
+        def load(model, sd):
+            rec["import"]["missing"], rec["import"]["unexpected"] = orig["load"](model, sd)
+            return rec["import"]["missing"], rec["import"]["unexpected"]
+
+        def to_device(batch, device):
+            batches[name].append({k: hashlib.sha256(np.ascontiguousarray(v)).hexdigest()
+                                  for k, v in batch.items()})
+            return orig["to_device"](batch, device)
+
+        def rank(*a, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            t = time.perf_counter()
+            start.record()
+            result = orig["rank"](*a, **kw)
+            end.record()
+            end.synchronize()
+            rec["ranks"].append({"ms": start.elapsed_time(end),
+                                 "wall_ms": (time.perf_counter() - t) * 1e3,
+                                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                                 "rows": a[1].shape[0] * a[5]})
+            return result
+
+        profiled = lambda i: bool(args.profile) and i == 0   # noqa: E731
+        evaluator = timed(orig["retrieval"] if task in ("wit", "xflickrco") else
+                          orig["predict"][evaluated[task]], rec["evals"],
+                          f"chip_smoke_iglue_{name}_eval_profile.txt", profiled)
+        ckpt_lib.save_train_state = save or (
+            lambda ckpt_dir, *a, **kw: os.path.join(ckpt_dir, ckpt_lib.TRAIN_STATE_FILE))
+        ckpt_lib.restore_train_state = restore or orig["restore"]
+        ckpt_lib.load_converted, run_mod.make_train_step = load, make_step
+        run_mod.to_device, XVLMForVQA.rank_answer = to_device, rank
+        if task in ("wit", "xflickrco"):
+            retrieval_mod.evaluate_retrieval = evaluator
+        else:
+            evaluated[task].predict = evaluator
+        reset_counts()
+        t = time.perf_counter()
+        try:
+            rec["record"] = run_mod.main(argv)
+        finally:
+            ckpt_lib.save_train_state, ckpt_lib.restore_train_state = orig["save"], \
+                orig["restore"]
+            ckpt_lib.load_converted, run_mod.make_train_step = orig["load"], orig["step"]
+            run_mod.to_device, XVLMForVQA.rank_answer = orig["to_device"], orig["rank"]
+            retrieval_mod.evaluate_retrieval = orig["retrieval"]
+            for c, fn in orig["predict"].items():
+                c.predict = fn
+        torch.cuda.synchronize()
+        rec["seconds"] = part_done("15", "resume" if restore else "run", t)
+        rec["counts"] = launch_counts()
+        if keep_state:
+            rec["state"] = {k: v.detach().to("cpu", copy=True)
+                            for k, v in model_ref[0].state_dict().items()}
+        del model_ref
+        torch.cuda.empty_cache()
+        return rec
+
+    def check(name: str, task: str, n_steps: int, cfg: dict):
+        """The run's import, record, each call's launches and the totals."""
+        rec = records[name]
+        fresh = {"xvnli": ("cls_head.",), "marvl": ("cls_head.",), "xgqa": ("text_decoder.",),
+                 "wit": (), "xflickrco": ()}[task]
+        # what the pretraining core has and the task model does not
+        leftover = ("text_encoder.lm_head.", "bbox_head.")
+        if task not in ("wit", "xflickrco"):
+            leftover += ("vision_proj.", "text_proj.", "itm_head.")
+        if task == "xgqa":
+            leftover += ("temp",)
+        missing, unexpected = rec["import"].get("missing"), rec["import"].get("unexpected", [])
+        want_missing = sorted(k for k in rec.get("params", []) if k.startswith(fresh)) \
+            if fresh else []
+        log(f"phase 15 {name} import of phase 14's state: {len(missing or [])} missing (fresh: "
+            f"{sorted({'.'.join(k.split('.')[:2]) for k in missing or []})}), unexpected "
+            f"{sorted({'.'.join(k.split('.')[:2]) for k in unexpected})}")
+        if missing != want_missing or not all(k.startswith(leftover) for k in unexpected) or \
+                not unexpected:
+            fail(f"iglue {name} import: missing {missing}, unexpected {unexpected}")
+        record = rec["record"]
+        loss = "loss_vqa" if task == "xgqa" else "loss_itm" if task in (
+            "wit", "xflickrco") else "loss_cls"
+        metric = "acc" if task == "xgqa" else "r_mean" if task in ("wit", "xflickrco") \
+            else "accuracy"
+        langs = tuple(cfg["test_file"]) if isinstance(cfg["test_file"], dict) else ()
+        vals = [record.get(loss), record.get(f"eval_{metric}")] + \
+            [record.get(f"eval_{lang}_{metric}") for lang in langs]
+        if not all(isinstance(v, float) and math.isfinite(v) for v in vals) or \
+                len(rec["steps"]) != n_steps:
+            fail(f"iglue {name}: {len(rec['steps'])} steps, record {record}")
+        n_evals = len(langs) or 1
+        want = {True: iglue_launches(task, True), False: iglue_launches(task, False)}
+        for kind, calls, train in (("step", rec["steps"], True), ("eval", rec["evals"], False)):
+            for i, r in enumerate(calls):
+                got = dict(r["launches"], plain=dict(r["delta"]["plain_shapes"]))
+                if got != want[train]:
+                    fail(f"iglue {name} {kind} {i}: launches {got}, expected {want[train]}")
+        if len(rec["evals"]) != n_evals:
+            fail(f"iglue {name}: {len(rec['evals'])} eval calls, expected {n_evals}")
+        tiny, plain = collections.Counter(), collections.Counter()
+        for train, n in ((True, len(rec["steps"])), (False, len(rec["evals"]))):
+            for shape, k in want[train]["tiny_fwd"].items():
+                tiny[shape] += k * n
+            for shape, k in want[train]["plain"].items():
+                plain[shape] += k * n
+        c = rec["counts"]
+        check_launcher_counts(
+            f"iglue {name}", c, sum(want[t]["flash_fwd"] * n for t, n in (
+                (True, len(rec["steps"])), (False, len(rec["evals"])))),
+            12 * len(rec["steps"]),
+            {"tiny_fwd": dict(tiny),
+             "tiny_bwd": {k: n * len(rec["steps"]) for k, n in
+                          want[True]["tiny_bwd"].items()}},
+            n_plain=sum(plain.values()))
+        if dict(c["plain_shapes"]) != dict(plain):
+            fail(f"iglue {name}: plain attention by shape {dict(c['plain_shapes'])}, expected "
+                 f"{dict(plain)}")
+        if c["tiny_walks"]["tiny_attention_fwd"].get(TILED, 0) != \
+                sum(n for (b, sq, skv), n in tiny.items() if skv == N_KEYS_384):
+            fail(f"iglue {name}: the 40 x {N_KEYS_384} launches are not all key-tiled: "
+                 f"{c['tiny_walks']}")
+        images = 2 * IGLUE_BATCH if task == "marvl" else IGLUE_BATCH
+        want_flash = {(images, N_IMG_384, N_IMG_384): 12 * len(rec["steps"])}
+        eval_images = 2 * IGLUE_EVAL_BATCH if task == "marvl" else IGLUE_EVAL_BATCH
+        want_flash[(eval_images, N_IMG_384, N_IMG_384)] = \
+            want_flash.get((eval_images, N_IMG_384, N_IMG_384), 0) + \
+            want[False]["flash_fwd"] * len(rec["evals"])
+        if dict(c["flash_fwd_shapes"]) != want_flash:
+            fail(f"iglue {name}: flash shapes {dict(c['flash_fwd_shapes'])}, expected "
+                 f"{want_flash}")
+        counts.append(c)
+        train_deltas.extend(r["delta"] for r in rec["steps"])
+        ms = lambda rs: [[round(r["ms"], 3), round(r["wall_ms"], 3)] for r in rs]  # noqa: E731
+        log(f"phase 15 {name} ({IGLUE_CONFIGS[task]}): step ms at 384 px, B={IGLUE_BATCH} "
+            f"(CUDA events, wall) {json.dumps(ms(rec['steps']))}, peak GiB "
+            f"{[round(r['peak_gib'], 2) for r in rec['steps']]}; eval calls ms "
+            f"{json.dumps(ms(rec['evals']))}, eval seconds "
+            f"{sum(r['wall_ms'] for r in rec['evals']) / 1e3:.3f}, peak GiB "
+            f"{[round(r['peak_gib'], 2) for r in rec['evals']]}; run {rec['seconds']:.1f} s; "
+            f"{smi}; {json.dumps(record)}")
+
+    def cfg_path(name, cfg):
+        path = os.path.join(work, "iglue", f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f, ensure_ascii=False)
+        return path
+
+    def argv(task, name, cfg, *extra, out=None):
+        return ["--task", task, "--config", cfg_path(name, cfg), "--output_dir",
+                out or os.path.join(work, f"out_{name}"), "--checkpoint", plus["ckpt"],
+                "--seed", str(args.seed), "--device", dev.type, *extra]
+
+    def submit_hold(family: str, task: str):
+        """The hold of 2 rows of ``task``'s train set with its trained state
+        (saved to ``work``), deferred to the holds' worker."""
+        th = time.perf_counter()
+        train_ds, test_ds = create_dataset(task, cfgs[task], rng=random.Random(args.seed))
+        answers = None
+        if family == "vqa":
+            batch = vqa_collate([train_ds[0], train_ds[1]], 4, rng=random.Random(args.seed))
+            first = next(iter(test_ds.values()))
+            answers = {"answer_ids": torch.from_numpy(first.answer_ids).long(),
+                       "answer_atts": torch.from_numpy(first.answer_atts)}
+        else:
+            batch = collate([train_ds[0], train_ds[1]])
+        batch = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+        for k in ("text_ids", "labels", "question_ids", "answer_ids", "answer_index", "idx"):
+            if k in batch:
+                batch[k] = batch[k].long()
+        state = records[task].pop("state")
+
+        def save_and_defer():
+            defer_hold(f"phase 15 {family} ({task}'s weights) card bf16 vs CPU fp32 (2 rows, "
+                       f"dropout off{', negatives injected' if family == 'retrieval' else ''})",
+                       iglue_hold, family, hold_state(state, f"iglue_{family}.pt"), cfgs[task],
+                       batch, dev, answers)
+
+        if HOLDS["pool"] is None:
+            save_and_defer()
+        else:    # the state's save beside the next run
+            savers.append(threading.Thread(target=save_and_defer))
+            savers[-1].start()
+        part_done("15", "hold", th)
+
+    for task, family in (("xvnli", "classification"), ("marvl", "nlvr"), ("wit", "retrieval"),
+                         ("xflickrco", None)):
+        launch(task, task, argv(task, task, cfgs[task], "--epoch", "1"),
+               keep_state=family is not None)
+        check(task, task, N_IGLUE_TRAIN // IGLUE_BATCH, cfgs[task])
+        if family is not None:
+            submit_hold(family, task)
+    # XVNLI once more: --task classification (its dataset_type) under --fewshot
+    few = dict(cfgs["xvnli"], train_file=[os.path.join(work, "iglue", "xvnli_{}_{}.jsonl")],
+               test_file=os.path.join(work, "iglue", "xvnli_test_{}.jsonl"))
+    launch("xvnli_fewshot", "xvnli", argv("classification", "xvnli_fewshot", few, "--epoch",
+                                          "1", "--fewshot", XVNLI_FEWSHOT))
+    with open(os.path.join(work, "out_xvnli_fewshot", "config.json")) as f:
+        filled = json.load(f)
+    lang, shots = XVNLI_FEWSHOT.split(",")
+    if filled["train_file"] != [os.path.join(work, "iglue", f"xvnli_{lang}_{shots}.jsonl")] or \
+            filled["test_file"] != os.path.join(work, "iglue", f"xvnli_test_{lang}.jsonl"):
+        fail(f"iglue --fewshot {XVNLI_FEWSHOT}: filled {filled['train_file']}, "
+             f"{filled['test_file']}")
+    check("xvnli_fewshot", "xvnli", 1, few)
+
+    # xGQA: 2 epochs of a step, the state of step 1 kept for --resume
+    out, out_resumed = os.path.join(work, "out_xgqa"), os.path.join(work, "out_xgqa_resumed")
+
+    def save(ckpt_dir, model, optimizer, step, data_state=None):
+        """The state of step 1 straight into the resumed run's ``ckpt``;
+        nothing else (the hold reads the trained model's parameters)."""
+        if ckpt_dir == os.path.join(out, "ckpt") and step == XGQA_RESUME_STEP:
+            return orig["save"](os.path.join(out_resumed, "ckpt"), model, optimizer, step,
+                                data_state)
+        return os.path.join(ckpt_dir, ckpt_lib.TRAIN_STATE_FILE)
+
+    launch("xgqa", "xgqa", argv("xgqa", "xgqa", cfgs["xgqa"], "--epoch", "2"), save=save,
+           keep_state=True)
+    check("xgqa", "xgqa", 2, cfgs["xgqa"])
+    submit_hold("vqa", "xgqa")
+    for lang in IGLUE_LANGS:
+        with open(os.path.join(out, f"vqa_result_{lang}.json")) as f:
+            if len(json.load(f)) != IGLUE_EVAL_BATCH:
+                fail(f"iglue xgqa: vqa_result_{lang}.json holds no answer for each question")
+    ranks = records["xgqa"]["ranks"]
+    capacity = torch.cuda.get_device_properties(dev).total_memory / 2**30 \
+        if dev.type == "cuda" else float("inf")
+    log(f"phase 15 xgqa rank pass (Q = {IGLUE_EVAL_BATCH}, k = {K_TEST}: "
+        f"{IGLUE_EVAL_BATCH * K_TEST} rows in chunks of {XGQA_RANK_CHUNK} at {XLMR_VOCAB} "
+        f"vocabulary rows; CUDA-event ms, wall ms, peak GiB of the card's {capacity:.1f}; {smi}): "
+        + json.dumps([[round(r["ms"], 3), round(r["wall_ms"], 3), round(r["peak_gib"], 2)]
+                      for r in ranks]))
+    if len(ranks) != len(IGLUE_LANGS) or \
+            not all(r["rows"] == IGLUE_EVAL_BATCH * K_TEST and r["peak_gib"] < capacity
+                    for r in ranks):
+        fail(f"iglue xgqa rank pass: {ranks}")
+
+    saved = torch.load(os.path.join(out_resumed, "ckpt", ckpt_lib.TRAIN_STATE_FILE),
+                       map_location="cpu", weights_only=False)
+    restored = {}
+
+    def restore(ckpt_dir, model, optimizer):
+        result = orig["restore"](ckpt_dir, model, optimizer)
+        copy = lambda t: t.detach().to("cpu", copy=True)   # noqa: E731
+        restored.update(params={n: copy(p) for n, p in model.named_parameters()},
+                        mu=dict(zip(optimizer.names, map(copy, optimizer.mu))),
+                        nu=dict(zip(optimizer.names, map(copy, optimizer.nu))),
+                        count=optimizer.count)
+        return result
+
+    launch("xgqa_resumed", "xgqa", argv("xgqa", "xgqa_resumed", cfgs["xgqa"], "--epoch", "2",
+                                        "--resume", out=out_resumed), restore=restore)
+    same = bool(restored) and saved["step"] == XGQA_RESUME_STEP and \
+        restored["count"] == saved["count"] and all(
+            restored[part].keys() == saved[part].keys() and
+            all(torch.equal(restored[part][k], saved[part][k]) for k in saved[part])
+            for part in ("params", "mu", "nu"))
+    same_batches = batches["xgqa_resumed"] == batches["xgqa"][XGQA_RESUME_STEP:]
+    log(f"phase 15 xgqa --resume from step {saved['step']}: "
+        f"{records['xgqa_resumed']['seconds']:.1f} s; restored state equal to the saved one bit "
+        f"for bit: {same}; its {len(batches['xgqa_resumed'])} batch equal to the whole run's "
+        f"step {XGQA_RESUME_STEP + 1} bit for bit: {same_batches} "
+        f"({len(records['xgqa_resumed']['steps'])} step)")
+    if not same or not same_batches:
+        fail("iglue xgqa --resume: the restored state or the batch after it differs from the "
+             "whole run's")
+    check("xgqa_resumed", "xgqa", 1, cfgs["xgqa"])
+    del saved, restored
+    shutil.rmtree(out_resumed, ignore_errors=True)
+    shutil.rmtree(out, ignore_errors=True)
+
+    for saver in savers:
+        saver.join()
+    records.clear()
+    phase_seconds("15", t0)
+    return split_counts({k: sum((collections.Counter(c[k]) for c in counts),
+                                collections.Counter()) for k in LEDGER_PARTS}, train_deltas)
 
 
 def main(argv=None) -> int:
@@ -5579,9 +6362,18 @@ def run(args, dev: torch.device) -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     log(smi)
     cores = len(os.sched_getaffinity(0))
-    if torch.get_num_threads() < cores:   # the CPU fp32 holds of phases 6-14
+    if torch.get_num_threads() < cores:   # the CPU fp32 holds of phases 6-8, 12, 13
         torch.set_num_threads(cores)
     log(f"torch CPU threads: {torch.get_num_threads()} of {cores} cores")
+    open_holds(cores)
+    try:
+        return _run(args, dev, smi, t_start)
+    finally:
+        close_holds()
+
+
+def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
+    """``run`` with the holds' worker open."""
 
     secs = _build.build()
     log(f"build: {json.dumps({k: round(v, 1) for k, v in secs.items()})}")
@@ -5684,7 +6476,18 @@ def run(args, dev: torch.device) -> int:
         log(f"phase 13 seconds: {time.perf_counter() - t13:.1f}")
         torch.cuda.empty_cache()
         # ---- phase 14: the Plus / CCLM base, the multilingual and parallel-text streams ----
-        cclm_counts = cclm_launcher_phase(args, root, th_path, words, dev, smi)
+        # ---- phase 15: the IGLUE tasks on phase 14's Plus state ----
+        plus_work = work_dir(root, 40 * 2**30)
+        try:
+            cclm_counts, plus = cclm_launcher_phase(args, root, th_path, words, plus_work, dev,
+                                                    smi)
+            torch.cuda.empty_cache()
+            iglue_counts = iglue_launcher_phase(args, root, plus, words, plus_work, dev, smi)
+            # the deferred holds read states under root and plus_work
+            collect_holds()
+        finally:
+            if plus_work != root:
+                shutil.rmtree(plus_work, ignore_errors=True)
     torch.cuda.empty_cache()
 
     # the attention launches of the main paths (bf16 serving requests, one
@@ -5700,7 +6503,8 @@ def run(args, dev: torch.device) -> int:
     ledger_add(ledger, "cclm_launcher", "training", cclm_counts)
     for path, split in (("retrieval_launcher", ret_counts), ("finetune_launcher", ft_counts),
                         ("vqa_launcher", vqa_counts), ("caption_launcher", cap_counts[0]),
-                        ("caption_launcher", cap_counts[1]), ("video_launcher", video_counts)):
+                        ("caption_launcher", cap_counts[1]), ("video_launcher", video_counts),
+                        ("iglue_launcher", iglue_counts)):
         for operands, c in split.items():
             ledger_add(ledger, path, operands, c)
     for tower, r in tower_counts.items():

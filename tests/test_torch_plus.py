@@ -443,16 +443,23 @@ def test_factory_refuses_what_the_plus_base_does_not_build(extra, err, match):
         factory.xvlm_config_from_yaml(_yaml(**extra))
 
 
-def test_the_plus_base_under_another_task_names_a8c():
-    with pytest.raises(NotImplementedError, match="A8c"):
-        factory.build_model(_yaml(), "nlvr", device="cpu")
+@pytest.mark.parametrize("task,extra", [("nlvr", {}), ("vqa", {"pad_token_id": 1}),
+                                        ("classification", {"num_labels": 3})])
+def test_the_plus_base_is_no_longer_refused_under_another_task(task, extra):
+    """The IGLUE tasks' models build on the Plus core: its cross encoder,
+    no fused text stack; the VQA decoder in the RoBERTa form."""
+    model, mcfg = factory.build_model(_yaml(**extra), task, device="cpu")
+    assert mcfg.is_plus and hasattr(model, "cross_encoder")
+    assert hasattr(model.text_encoder, "roberta")
+    if task == "vqa":
+        assert hasattr(model.text_decoder, "roberta") and model.pad_token_id == 1
 
 
 # ---- the registry audit (the JAX tests/test_config_zoo.py meta-audit) ----
 
-# keys later items read: MARVL's image root (A8c), remat's policy (A11);
-# use_random_sampling is read-and-unused by the reference too
-AUDIT_EXEMPT = {"marvl_image_root", "remat_policy", "use_random_sampling"}
+# keys later items read: remat's policy (A11); use_random_sampling is
+# read-and-unused by the reference too
+AUDIT_EXEMPT = {"remat_policy", "use_random_sampling"}
 
 
 def test_registry_keys_are_actually_read_by_the_port():
@@ -476,5 +483,5 @@ def test_registry_keys_are_actually_read_by_the_port():
                       not re.search(r"['\"]" + re.escape(k) + r"['\"]", src)})
     assert missing == []
     for k in ("code_switch", "source_key", "target_key", "num_cross_layers", "is_xvlm_ckpt",
-              "xvlm_ckpt_text_num_hidden_layers", "native_aug"):
+              "xvlm_ckpt_text_num_hidden_layers", "native_aug", "marvl_image_root"):
         assert k not in AUDIT_EXEMPT and re.search(r"['\"]" + k + r"['\"]", src), k

@@ -400,14 +400,19 @@ def test_video_qa_launcher_train_evaluate_resume(corpus, qa_run, monkeypatch):
 
 def test_classification_task_runs_its_video_dataset_type_and_refuses_iglue(corpus, qa_run):
     """``--task classification`` runs the config's video ``dataset_type``
-    (an eval of the QA run's state) and refuses an IGLUE one with A8c."""
+    (an eval of the QA run's state); an IGLUE one (XVNLI) is no longer
+    refused: with no test lines it builds its 3-label model and evaluates
+    nothing; an unknown one raises."""
     cfg = dict(qa_run["cfg"], train_file=[])
     th = corpus / "out_qa" / "ckpt"
     metrics = _main(corpus, "classification", "cls_eval", cfg, "--evaluate",
                     "--checkpoint", str(th))
     assert metrics["n"] == 16
-    with pytest.raises(NotImplementedError, match="A8c"):
-        _main(corpus, "classification", "cls_xvnli", dict(cfg, dataset_type="xvnli"))
+    xvnli = _main(corpus, "classification", "cls_xvnli",
+                  dict(cfg, dataset_type="xvnli", test_file=[], image_root=""), "--evaluate")
+    assert xvnli == {"accuracy": 0.0, "n": 0}
+    with pytest.raises(ValueError, match="dataset_type"):
+        _main(corpus, "classification", "cls_other", dict(cfg, dataset_type="gqa"))
 
 
 def test_a_th_of_another_frame_count_imports(corpus, qa_run):

@@ -14,10 +14,11 @@ task keeps beside it).
 One table of rules (:func:`_rules`) serves both directions, built from the
 layout either side's names show: the vision tower (BEiT-2, CLIP ViT, Swin
 or ViT) and its depth, the text stacks' layers (the RoBERTa form's
-``text_encoder.roberta`` where the JAX tree's text tower has one token
-type), the Plus base's ``cross_encoder/layer_j`` (``cross_encoder.encoder.
-layer.j``) and the heads (the MLM head's ``lm_head`` names in the RoBERTa
-form, its own decoder when untied). A rule none of whose parameters is
+``text_encoder.roberta`` and ``text_decoder.roberta`` where the JAX tree's
+text tower has one token type), the Plus base's ``cross_encoder/layer_j``
+(``cross_encoder.encoder.layer.j``) and the heads (the MLM head's and the
+answer decoder's ``lm_head`` names in the RoBERTa form, the MLM head's own
+decoder when untied). A rule none of whose parameters is
 present is skipped, so a partial set (a checkpoint split) converts too. flax kernels
 (in, out) are torch Linear weights (out, in); the patch kernel (p, p, in,
 C) is the conv weight (C, in, p, p); BEiT-2's and ViT's query / key / value
@@ -98,8 +99,10 @@ def _layout_from_jax(src: Mapping[str, np.ndarray]) -> dict:
                      for i in _indices(ks, rf"{t}/layer_(\d+)/")]
                  for t in ("text_encoder", "text_decoder")},
         # the RoBERTa form: one token type (models/bert.py ``roberta_form``)
-        "roberta": np.shape(src.get("text_encoder/embeddings/token_type_embeddings/embedding",
-                                    np.zeros((2, 1))))[0] == 1,
+        "roberta": np.shape(src.get(
+            "text_encoder/embeddings/token_type_embeddings/embedding",
+            src.get("text_decoder/embeddings/token_type_embeddings/embedding",
+                    np.zeros((2, 1)))))[0] == 1,
         "cross": _indices(ks, r"cross_encoder/layer_(\d+)/"),
         "untied": "mlm_head/decoder/kernel" in ks,
         "heads": {h for h in ("mlm_head", "dec_head", "vision_proj", "text_proj", "temp",
@@ -111,7 +114,9 @@ def _layout_from_jax(src: Mapping[str, np.ndarray]) -> dict:
 
 def _layout_from_port(keys) -> dict:
     ks = set(keys)
-    roberta = any(k.startswith(("text_encoder.roberta.", "text_encoder.lm_head.")) for k in ks)
+    roberta = any(k.startswith(("text_encoder.roberta.", "text_encoder.lm_head.",
+                                "text_decoder.roberta.")) for k in ks)
+    stack = "roberta" if roberta else "bert"
     v = r"vision_encoder\."
     if "vision_encoder.class_embedding" in ks:
         vision = "clip"
@@ -133,8 +138,7 @@ def _layout_from_port(keys) -> dict:
         "text": {t: [(i, f"{t}.{stack}.encoder.layer.{i}.crossattention.self.query.weight"
                       in ks)
                      for i in _indices(ks, rf"{t}\.{stack}\.encoder\.layer\.(\d+)\.")]
-                 for t, stack in (("text_encoder", "roberta" if roberta else "bert"),
-                                  ("text_decoder", "bert"))},
+                 for t in ("text_encoder", "text_decoder")},
         "roberta": roberta,
         "cross": _indices(ks, r"cross_encoder\.encoder\.layer\.(\d+)\."),
         "untied": any(k.startswith(("text_encoder.lm_head.decoder.",
@@ -142,7 +146,8 @@ def _layout_from_port(keys) -> dict:
         "heads": {h for h, probe in (
             ("mlm_head", "text_encoder.lm_head.dense.weight" if roberta
              else "text_encoder.cls.predictions.transform.dense.weight"),
-            ("dec_head", "text_decoder.cls.predictions.bias"),
+            ("dec_head", "text_decoder.lm_head.bias" if roberta
+             else "text_decoder.cls.predictions.bias"),
             ("vision_proj", "vision_proj.weight"), ("text_proj", "text_proj.weight"),
             ("temp", "temp"), ("itm_head", "itm_head.0.weight"),
             ("bbox_head", "bbox_head.0.weight"), ("cls_head", "cls_head.0.weight"),
@@ -279,9 +284,14 @@ def _head_rules(heads, roberta: bool = False, untied: bool = False):
         else:
             yield _copy(f"{m}.bias", "mlm_head/decoder_bias")
     if "dec_head" in heads:
-        m = "text_decoder.cls.predictions"
-        yield _dense(f"{m}.transform.dense", "dec_head/transform_dense")
-        yield _norm(f"{m}.transform.LayerNorm", "dec_head/transform_ln")
+        if roberta:
+            m = "text_decoder.lm_head"
+            yield _dense(f"{m}.dense", "dec_head/transform_dense")
+            yield _norm(f"{m}.layer_norm", "dec_head/transform_ln")
+        else:
+            m = "text_decoder.cls.predictions"
+            yield _dense(f"{m}.transform.dense", "dec_head/transform_dense")
+            yield _norm(f"{m}.transform.LayerNorm", "dec_head/transform_ln")
         yield _copy(f"{m}.bias", "dec_head/decoder_bias")
     for name in ("vision_proj", "text_proj"):
         if name in heads:
@@ -320,8 +330,7 @@ def _rules(lay: dict):
     yield from _vision_rules(lay)
     for tower, layers in lay["text"].items():
         if layers:
-            yield from _text_rules(tower, layers, "roberta" if lay["roberta"] and
-                                   tower == "text_encoder" else "bert")
+            yield from _text_rules(tower, layers, "roberta" if lay["roberta"] else "bert")
     for j in lay["cross"]:   # the Plus base's standalone cross encoder
         yield from _layer_rules(f"cross_encoder.encoder.layer.{j}", f"cross_encoder/layer_{j}",
                                 True)
@@ -381,7 +390,9 @@ def convert_jax_params(params: Mapping, *, device=None
     ``base/`` scope are dropped; a head the task keeps beside the core
     (NLVR's and classification's ``cls_head``; multiple choice's
     ``mc_head``; VQA's ``text_decoder`` and ``dec_head``, as
-    ``text_decoder.bert.*`` and ``text_decoder.cls.predictions.*``) stays:
+    ``text_decoder.bert.*`` and ``text_decoder.cls.predictions.*``, or
+    ``text_decoder.roberta.*`` and ``text_decoder.lm_head.*`` on the Plus /
+    CCLM base's XLM-R) stays:
     load the result into the task model itself, or into
     ``XVLMForPretrain.base``."""
     device = resolve_device(device)

@@ -1,11 +1,15 @@
 """Dataset factory (the port's counterpart of x2vlm_tpu/data/factory.py,
 ``create_dataset``): task name + config -> (train_dataset, eval_dataset).
 
-The port builds the retrieval, VQA, NLVR2, grounding and captioning
-datasets and the video ones (video QA, NExT-QA multiple choice, video
-retrieval); the launcher (run.py) refuses the JAX factory's other tasks
-(the IGLUE sets, ROADMAP A8c) before they reach here. Pretraining streams
-are built by the launcher."""
+The fine-tune datasets of every task the launcher runs: retrieval and the
+IGLUE retrieval sets (``xretrieval``, ``wit``, ``xflickrco``), VQA and
+xGQA, NLVR2 and MARVL, XVNLI, grounding, captioning and the video ones
+(video QA, NExT-QA multiple choice, video retrieval). A ``test_file`` dict
+gives one eval dataset a split or language (``{lang: dataset}``). MARVL
+trains on English NLVR2; its ``en`` test set is NLVR2 on ``image_root``,
+the other languages ``MARVLDataset`` on ``marvl_image_root`` (the
+annotations' paths as they are without one). Pretraining streams are
+built by the launcher."""
 
 from __future__ import annotations
 
@@ -28,13 +32,6 @@ def _per_split(files, build):
 def create_dataset(task: str, config, evaluate: bool = False, tokenizer=None,
                    rng: Optional[random.Random] = None
                    ) -> Tuple[Optional[object], Optional[object]]:
-    if task not in ("retrieval", "itr_coco", "itr_flickr", "vqa", "nlvr", "grounding",
-                    "refcoco_bbox", "captioning", "coco_captioning_mlm", "video_qa",
-                    "vqa_msrvtt", "vqa_msvd", "next_qa_mc", "video_qa_mc", "video_retrieval",
-                    "itr_coco_msrvtt"):
-        raise NotImplementedError(f"dataset task {task!r}: the port builds the retrieval, "
-                                  f"VQA, NLVR2, grounding, captioning and video datasets "
-                                  f"(ROADMAP queue A8c brings the IGLUE ones)")
     tokenizer = tokenizer or build_tokenizer(config["text_encoder"])
     res = config["image_res"]
     pre = TextPreprocessor(tokenizer, max_tokens=config.get("max_tokens", 40),
@@ -43,7 +40,17 @@ def create_dataset(task: str, config, evaluate: bool = False, tokenizer=None,
     test_tf = T.test_transform(res)
     rng = rng or random
 
-    if task == "vqa":
+    if task in ("retrieval", "xretrieval", "xre", "itr_coco", "itr_flickr"):
+        from x2vlm_tpu_torch.data.retrieval import RetrievalEvalDataset, RetrievalTrainDataset
+
+        ev = _per_split(config["test_file"], lambda f: RetrievalEvalDataset(
+            f, test_tf, config["image_root"], pre))
+        if evaluate:
+            return None, ev
+        return RetrievalTrainDataset(config["train_file"], train_tf, config["image_root"],
+                                     pre, rng=rng), ev
+
+    if task in ("vqa", "xgqa"):
         from x2vlm_tpu_torch.data.finetune import VQAEvalDataset, VQATrainDataset
 
         root = config.get("vqa_root", config.get("image_root"))
@@ -53,6 +60,7 @@ def create_dataset(task: str, config, evaluate: bool = False, tokenizer=None,
 
         def build_eval(f):
             # a [path, answer list] pair names the split's own answer list
+            # (xGQA's languages)
             ans = config.get("answer_list")
             if isinstance(f, (list, tuple)) and len(f) == 2 and \
                     isinstance(f[1], str) and f[1].endswith(".json"):
@@ -74,6 +82,49 @@ def create_dataset(task: str, config, evaluate: bool = False, tokenizer=None,
         if evaluate:
             return None, ev
         return NLVRDataset(config["train_file"], train_tf, config["image_root"], pre), ev
+
+    if task == "marvl":
+        from x2vlm_tpu_torch.data.finetune import NLVRDataset
+        from x2vlm_tpu_torch.data.iglue import MARVLDataset
+
+        def build_marvl(f, lang=None):
+            if lang == "en":
+                return NLVRDataset(f, test_tf, config["image_root"], pre)
+            return MARVLDataset(f, test_tf, config.get("marvl_image_root"), pre)
+
+        files = config["test_file"]
+        ev = ({k: build_marvl(v, lang=k) for k, v in files.items()}
+              if isinstance(files, dict) else build_marvl(files))
+        if evaluate:
+            return None, ev
+        return NLVRDataset(config["train_file"], train_tf, config["image_root"], pre), ev
+
+    if task == "xvnli":
+        from x2vlm_tpu_torch.data.iglue import XVNLIDataset
+
+        ev = _per_split(config["test_file"], lambda f: XVNLIDataset(
+            f, test_tf, config["image_root"], pre))
+        if evaluate:
+            return None, ev
+        return XVNLIDataset(config["train_file"], train_tf, config["image_root"], pre), ev
+
+    if task == "xflickrco":
+        from x2vlm_tpu_torch.data.iglue import XFlickrCODataset
+
+        ev = _per_split(config["test_file"], lambda f: XFlickrCODataset(
+            f, test_tf, config["image_root"], pre))
+        if evaluate:
+            return None, ev
+        return XFlickrCODataset(config["train_file"], train_tf, config["image_root"], pre,
+                                rng=rng), ev
+
+    if task == "wit":
+        from x2vlm_tpu_torch.data.iglue import WITRetrievalDataset
+
+        ev = _per_split(config["test_file"], lambda f: WITRetrievalDataset(f, test_tf, pre))
+        if evaluate:
+            return None, ev
+        return WITRetrievalDataset(config["train_file"], train_tf, pre), ev
 
     if task in ("grounding", "refcoco_bbox"):
         from x2vlm_tpu_torch.data.finetune import GroundingEvalDataset, GroundingTrainDataset
@@ -134,11 +185,4 @@ def create_dataset(task: str, config, evaluate: bool = False, tokenizer=None,
         return VideoRetrievalDataset(config["train_file"], train_tf, config["video_root"], pre,
                                      frame_len=frame_len, training=True, rng=rng), ev
 
-    from x2vlm_tpu_torch.data.retrieval import RetrievalEvalDataset, RetrievalTrainDataset
-
-    ev = _per_split(config["test_file"], lambda f: RetrievalEvalDataset(
-        f, test_tf, config["image_root"], pre))
-    if evaluate:
-        return None, ev
-    return RetrievalTrainDataset(config["train_file"], train_tf, config["image_root"], pre,
-                                 rng=rng), ev
+    raise ValueError(f"unknown dataset task {task!r}")

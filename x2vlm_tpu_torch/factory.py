@@ -16,10 +16,12 @@ config's ``label_smoothing``), ``"classification"``
 text tower (a ``text_encoder`` path naming ``roberta``) and ``model_type:
 cclm | xvlm_plus`` (or ``replace_text_encoder``) build the Plus / CCLM base
 (``XVLMPlusConfig`` with ``num_cross_layers``; ``"pretrain"`` builds
-``XVLMPlusForPretrain``), which refuses drop-path as the JAX factory does.
-A config that asks for what the port does not build raises, naming the
-ROADMAP queue item that brings it: the Plus base under a task other than
-pretraining and retrieval (A8c, with the IGLUE tasks), and ``remat`` (A11).
+``XVLMPlusForPretrain``, every other task its model on the Plus core, as the
+JAX ``make_base`` arranges: the IGLUE tasks' ``"retrieval"``, ``"nlvr"``,
+``"vqa"`` with the RoBERTa-form decoder and ``"classification"``), which
+refuses drop-path as the JAX factory does. A config that asks for what the
+port does not build raises, naming the ROADMAP queue item that brings it:
+``remat`` (A11).
 """
 
 from __future__ import annotations
@@ -193,7 +195,5 @@ def build_model(config: Dict, task: str, *, device, dtype=None, seed=0):
     dtype = dtype or model_dtype(config)
     cfg = xvlm_config_from_yaml(config)
     if cfg.is_plus:
-        if task not in ("pretrain", "retrieval"):
-            _refuse(f"the Plus / CCLM base under task {task!r}", "A8c")
         models["pretrain"] = XVLMPlusForPretrain
     return models[task](cfg, dtype=dtype, device=device, seed=seed), cfg

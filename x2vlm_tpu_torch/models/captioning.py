@@ -86,7 +86,7 @@ class XVLMForMLMCaptioning(XVLMBase):
         labels = torch.where(batch["masked_weight"] > 0, batch["masked_ids"], ignore)
         labels = torch.where(labels == self.cls_token_id, ignore, labels)
         head = self.text_encoder.mlm_head
-        table = self.text_encoder.bert.embeddings.word_embeddings.weight
+        table = self.text_encoder.stack.embeddings.word_embeddings.weight
         if batch.get("sample_weights") is not None:
             # w[b, m] = valid / row count * advantage[b] / B: one weighted sum
             valid = (labels != -100).float()
@@ -124,7 +124,7 @@ class XVLMForMLMCaptioning(XVLMBase):
             deterministic=True)
         head = self.text_encoder.mlm_head
         logits = head.logits(hidden[:, -1:, :],
-                             self.text_encoder.bert.embeddings.word_embeddings.weight)
+                             self.text_encoder.stack.embeddings.word_embeddings.weight)
         return logits[:, 0, :], new_cache
 
 

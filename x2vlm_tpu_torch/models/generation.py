@@ -7,11 +7,19 @@ top-k -> the chain-rule rerank of the k full answers (``rank_answer``,
 vectorised as the JAX package's: one decoder pass a stage).
 
 Like the reference's VQA model it *is* the composition core (the vision
-tower and the text / fusion stack: the JAX base turns the contrastive,
-matching, MLM and bbox heads off) plus ``text_decoder``, a
-:class:`TextEncoder` in decoder mode with its tied LM head, so the state
-dict carries the reference names: ``text_decoder.bert.*`` and
-``text_decoder.cls.predictions.*``.
+tower and the text / fusion stack, or on the Plus / CCLM base the text
+tower and the cross encoder: the JAX base turns the contrastive, matching,
+MLM and bbox heads off) plus ``text_decoder``, a :class:`TextEncoder` in
+decoder mode with its tied LM head, so the state dict carries the
+reference names: ``text_decoder.bert.*`` and
+``text_decoder.cls.predictions.*``, or in the RoBERTa / XLM-R form
+``text_decoder.roberta.*`` and ``text_decoder.lm_head.*``.
+
+The rank pass scores its Q x k answer rows in chunks of
+:func:`rank_chunk_rows` rows, so that its fp32 logits and
+log-probabilities stay within ``RANK_CHUNK_BYTES`` whatever the vocabulary
+(XLM-R's 250,002 rows at Q = 32, k = 128 would take 78 GB at once); each
+row's loss depends on its own row only.
 
 The generation helpers (JAX ``generation.py:47, 177-257``):
 ``label_smoothing_loss``, ``top_k_top_p_filtering`` and ``sample_generate``,
@@ -33,9 +41,23 @@ from x2vlm_tpu_torch.models.bert import TextEncoder
 from x2vlm_tpu_torch.models.xvlm import XVLMBase, XVLMConfig
 from x2vlm_tpu_torch.ops.layers import static_caches
 
-__all__ = ["XVLMForVQA", "causal_lm_loss", "decoder_params_from_text_encoder",
-           "gumbel_noise", "inference", "label_smoothing_loss", "sample_generate", "top_k",
+__all__ = ["XVLMForVQA", "RANK_CHUNK_BYTES", "causal_lm_loss",
+           "decoder_params_from_text_encoder", "gumbel_noise", "inference",
+           "label_smoothing_loss", "rank_chunk_rows", "sample_generate", "top_k",
            "top_k_top_p_filtering"]
+
+# the rank pass's fp32 logits and log-probabilities of one chunk of rows
+RANK_CHUNK_BYTES = 10 * 2 ** 30
+
+
+def rank_chunk_rows(answer_len: int, vocab_size: int) -> int:
+    """Rows a chunk of the rank pass decodes: the largest power of two
+    whose fp32 logits and log-probabilities (4 bytes each a row, position
+    and vocabulary entry) fit in ``RANK_CHUNK_BYTES``; at least 1. 4,096 at
+    BERT's 30,522 rows and 10 tokens (VQAv2's whole rank pass), 512 at
+    XLM-R's 250,002."""
+    rows = max(1, RANK_CHUNK_BYTES // (2 * 4 * answer_len * vocab_size))
+    return 1 << (rows.bit_length() - 1)
 
 
 def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -157,7 +179,7 @@ class XVLMForVQA(XVLMBase):
         dec = self.text_decoder
         h = dec(answer_ids, attention_mask=answer_atts, encoder_hidden_states=question_states,
                 encoder_attention_mask=question_atts, generator=dropout_generator)
-        return dec.mlm_head.logits(h, dec.bert.embeddings.word_embeddings.weight)
+        return dec.mlm_head.logits(h, dec.stack.embeddings.word_embeddings.weight)
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None,
@@ -190,8 +212,9 @@ class XVLMForVQA(XVLMBase):
         tokenised answer list, row 0's first token the BOS. The first-token
         probabilities of every answer, the ``k`` best, each scored by its
         first-token log-probability less its sequence loss, reranked by
-        the softmax of that. Returns (answer indices (Q, k), probabilities
-        (Q, k)), the best first."""
+        the softmax of that; the Q x k full answers are decoded in chunks
+        of :func:`rank_chunk_rows` rows. Returns (answer indices (Q, k),
+        probabilities (Q, k)), the best first."""
         num_q = question_states.shape[0]
         bos = answer_ids[0, :1].expand(num_q, 1)
         logits0 = self.decode_logits(bos, torch.ones_like(bos), question_states,
@@ -202,13 +225,19 @@ class XVLMForVQA(XVLMBase):
 
         flat = topk_ids.reshape(-1)
         input_ids = answer_ids.index_select(0, flat)
+        input_atts = answer_atts.index_select(0, flat)
         targets = torch.where(input_ids == self.pad_token_id,
                               torch.full_like(input_ids, -100), input_ids)
-        logits = self.decode_logits(input_ids, answer_atts.index_select(0, flat),
-                                    question_states.repeat_interleave(k, dim=0),
-                                    question_atts.repeat_interleave(k, dim=0))
-        answer_loss = causal_lm_loss(logits, targets).reshape(num_q, k)
-        del logits
+        rows = rank_chunk_rows(input_ids.shape[1], self.dec_config.vocab_size)
+        losses = []
+        for lo in range(0, flat.shape[0], rows):
+            q = torch.arange(lo, min(lo + rows, flat.shape[0]), device=flat.device) // k
+            logits = self.decode_logits(input_ids[lo:lo + rows], input_atts[lo:lo + rows],
+                                        question_states.index_select(0, q),
+                                        question_atts.index_select(0, q))
+            losses.append(causal_lm_loss(logits, targets[lo:lo + rows]))
+            del logits
+        answer_loss = torch.cat(losses).reshape(num_q, k)
         probs = torch.softmax(torch.log(topk_probs) - answer_loss, dim=-1)
         topk_probs2, rerank = top_k(probs, k)
         return torch.gather(topk_ids, 1, rerank), topk_probs2
@@ -228,24 +257,34 @@ def decoder_params_from_text_encoder(state: Mapping[str, torch.Tensor], *,
                                      num_dec_layers: int) -> Dict[str, torch.Tensor]:
     """The decoder's parameters from a pretrained text encoder's state dict
     (reference load surgery, model_generation.py:454-512; the JAX
-    function on the reference names): decoder layer j <- text layer
-    ``num_text_layers + j``, or every other fusion layer
-    (``num_text_layers + 2 j + 1``) when ``num_dec_layers`` is half
-    ``num_cross_layers``; the embeddings and the MLM head as they are."""
+    function on the reference names): decoder layer j <- fusion layer j,
+    or every other fusion layer (2 j + 1) when ``num_dec_layers`` is half
+    ``num_cross_layers``; the embeddings and the MLM head as they are. The
+    fusion layers are the text stack's from ``num_text_layers`` on
+    (``text_encoder.bert.encoder.layer.{num_text_layers + i}``), or on the
+    Plus / CCLM base the cross encoder's (``cross_encoder.encoder.layer.
+    {i}``); in the RoBERTa / XLM-R form ``text_encoder.roberta.*`` and
+    ``text_encoder.lm_head.*`` go to ``text_decoder.roberta.*`` and
+    ``text_decoder.lm_head.*``."""
     if num_dec_layers == num_cross_layers:
-        src = [num_text_layers + j for j in range(num_dec_layers)]
+        src = list(range(num_dec_layers))
     elif num_dec_layers == num_cross_layers // 2:
-        src = [num_text_layers + 2 * j + 1 for j in range(num_dec_layers)]
+        src = [2 * j + 1 for j in range(num_dec_layers)]
     else:
         raise ValueError("initialization not implemented")
     layer_of = {s: j for j, s in enumerate(src)}
+    plus = any(k.startswith("cross_encoder.encoder.layer.") for k in state)
+    stack = "roberta" if any(k.startswith("text_encoder.roberta.") for k in state) else "bert"
+    fusion = re.compile(r"cross_encoder\.encoder\.layer\.(\d+)\.(.*)" if plus else
+                        rf"text_encoder\.{stack}\.encoder\.layer\.(\d+)\.(.*)")
+    first = 0 if plus else num_text_layers
     out = {}
-    layer = re.compile(r"text_encoder\.bert\.encoder\.layer\.(\d+)\.(.*)")
     for k, v in state.items():
-        if k.startswith(("text_encoder.bert.embeddings.", "text_encoder.cls.")):
+        if k.startswith((f"text_encoder.{stack}.embeddings.", "text_encoder.cls.",
+                         "text_encoder.lm_head.")):
             out["text_decoder." + k[len("text_encoder."):]] = v
-        elif (m := layer.fullmatch(k)) and int(m.group(1)) in layer_of:
-            out[f"text_decoder.bert.encoder.layer.{layer_of[int(m.group(1))]}."
+        elif (m := fusion.fullmatch(k)) and int(m.group(1)) - first in layer_of:
+            out[f"text_decoder.{stack}.encoder.layer.{layer_of[int(m.group(1)) - first]}."
                 f"{m.group(2)}"] = v
     return out
 
@@ -267,7 +306,7 @@ def sample_generate(model: XVLMForVQA, batch: Dict[str, torch.Tensor], *, max_le
     tcfg = model.config.text
     noise = noise or gumbel_noise(generator, dev)
     dec = model.text_decoder
-    table = dec.bert.embeddings.word_embeddings.weight
+    table = dec.stack.embeddings.word_embeddings.weight
     out = np.full((B, max_length), pad_token_id, np.int64)
     done = np.zeros(B, bool)
     with inference(model):

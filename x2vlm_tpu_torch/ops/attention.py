@@ -13,6 +13,7 @@ them in ``flash_attention.py`` and ``tiny_attention.py``.
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
@@ -76,10 +77,12 @@ def dot_product_attention(
 ) -> torch.Tensor:
     """Scaled dot-product attention with ``torch.matmul``; returns
     (B, H, Sq, D) in q's dtype. Dropout is active only with ``training``.
-    ``dot_product_attention.calls`` counts the calls, so a run can show that
-    a path took the kernels instead."""
-    dot_product_attention.calls += 1
+    ``dot_product_attention.calls`` counts the calls, and ``.calls_by_shape``
+    them by (B, Sq, Skv), so a run can show that a path took the kernels
+    instead, or which of its shapes did not."""
     Sq, D = q.shape[2], q.shape[3]
+    dot_product_attention.calls += 1
+    dot_product_attention.calls_by_shape[(q.shape[0], Sq, k.shape[2])] += 1
     if scale is None:
         scale = D ** -0.5
     if mask is None and (key_mask is not None or causal):
@@ -100,3 +103,4 @@ def dot_product_attention(
 
 
 dot_product_attention.calls = 0
+dot_product_attention.calls_by_shape = collections.Counter()

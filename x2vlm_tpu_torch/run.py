@@ -1,7 +1,9 @@
-"""The launcher (the port's counterpart of x2vlm_tpu/run.py), for the tasks
-the port has: ``pretrain``, ``retrieval``, ``video_retrieval``,
+"""The launcher (the port's counterpart of x2vlm_tpu/run.py), for the JAX
+launcher's sixteen tasks: ``pretrain``, ``retrieval``, ``video_retrieval``,
 ``grounding``, ``nlvr``, ``vqa``, ``captioning``, ``video_qa``,
-``next_qa_mc`` and ``classification`` with a video ``dataset_type``.
+``next_qa_mc``, ``classification`` (its config's ``dataset_type``) and the
+IGLUE tasks ``xretrieval``, ``wit``, ``xflickrco``, ``xgqa``, ``marvl`` and
+``xvnli``.
 
 Usage:
     python -m x2vlm_tpu_torch.run --task retrieval \\
@@ -19,7 +21,9 @@ process, one card.
   rel-pos tables interpolated to the config's resolution
   (train/checkpoint.py); the parameters it leaves fresh train at
   ``optimizer.lr_mult``. A directory: the parameters of a train state this
-  launcher saved. Without it, the vision JSON's ``ckpt`` and the text
+  launcher saved (another task's, e.g. a CCLM pretraining state for an IGLUE
+  fine-tune, loads its core as a ``.th`` does, the heads it lacks fresh).
+  Without it, the vision JSON's ``ckpt`` and the text
   encoder's ``pytorch_model.bin`` initialise the model where they exist.
 - ``--resume`` restores the train state in ``output_dir/ckpt`` (parameters,
   AdamW ``mu`` / ``nu`` / ``count``, step) and, for pretraining, the data
@@ -27,14 +31,21 @@ process, one card.
   parallel text), so the run continues where it stopped.
 - ``model_type: cclm`` (the Plus / CCLM base, models/xvlm_plus.py) runs
   ``pretrain`` (with the multilingual ``languages`` streams and the
-  parallel-text ``mtexts`` stream) and ``retrieval``; ``is_xvlm_ckpt``
-  splits an X2-VLM ``.th`` into the Plus text tower and cross encoder.
+  parallel-text ``mtexts`` stream) and every fine-tune task, the IGLUE
+  ones among them; ``is_xvlm_ckpt`` splits an X2-VLM ``.th`` into the Plus
+  text tower and cross encoder.
+- ``--fewshot <lang>,<shots>`` (IGLUE few-shot) fills the ``{}`` templates
+  of ``train_file`` / ``valid_file`` / ``val_file`` / ``test_file``: a path
+  of two or more slots takes the parts in order; a path of one slot takes
+  the language alone in ``val_file`` / ``test_file`` and the joined
+  ``<lang>,<shots>`` in the others (the JAX ``setup``).
 - ``--evaluate`` evaluates only (the fine-tune tasks): retrieval's R@k,
   grounding's IoU >= 0.5 accuracy per split (``refs_file``; a VLUE test
   set with ``vlue_test``), NLVR2's accuracy (per split when ``test_file``
-  is a dict), VQA's answers ranked over ``answer_list`` (written to
-  ``vqa_result.json``; the VQAv2 accuracy ``overall`` and the exact-match
-  ``acc`` where the test lines carry answers), captioning's beam-search
+  is a dict; MARVL's languages), XVNLI's accuracy, VQA's and xGQA's
+  answers ranked over ``answer_list`` (written to ``vqa_result.json``, or
+  ``vqa_result_<lang>.json`` a language; the VQAv2 accuracy ``overall`` and
+  the exact-match ``acc`` where the test lines carry answers), captioning's beam-search
   captions scored with BLEU-1..4, CIDEr-D (``cider`` picks the best epoch),
   ROUGE-L and METEOR against ``caption_gt_file``; video QA's and NExT-QA's
   accuracy; video retrieval's R@k (``pick_best_t2v`` picks the best epoch
@@ -44,9 +55,7 @@ process, one card.
 
 The config is validated against the JAX package's key registry
 (core/config_schema.py). What the port does not run raises, naming its
-ROADMAP item: the IGLUE tasks (A8c: xGQA, MARVL, XVNLI, WIT, xFlickrCO,
-xretrieval, ``classification`` with their ``dataset_type``, and
-``--fewshot``), ``native_aug: true`` (A12: the port decodes with PIL,
+ROADMAP item: ``native_aug: true`` (A12: the port decodes with PIL,
 which is what ``auto`` and ``false`` give in the JAX launcher without its
 native library), and, as in the JAX launcher, ``mixed_in_batch: false``
 and ``tokenized: true``.
@@ -74,21 +83,22 @@ from x2vlm_tpu_torch.tasks.pretrain import step_generators
 from x2vlm_tpu_torch.train import create_optimizer, lr_schedule, make_train_step, param_labels
 from x2vlm_tpu_torch.train import checkpoint as ckpt_lib
 
-__all__ = ["TASKS", "UNPORTED", "parse_args", "setup", "make_optimizer", "maybe_resume",
-           "load_initial_params", "eval_multi", "finetune", "run_retrieval", "run_grounding",
-           "run_nlvr", "SeededLoader", "VQALoader", "run_vqa", "run_captioning",
-           "run_classification", "run_pretrain", "main", "to_device"]
+__all__ = ["TASKS", "parse_args", "setup", "fill_fewshot", "make_optimizer",
+           "maybe_resume", "load_initial_params", "eval_multi", "finetune", "run_retrieval",
+           "run_grounding", "run_nlvr", "SeededLoader", "VQALoader", "run_vqa",
+           "run_captioning", "run_classification", "run_pretrain", "main", "to_device"]
 
 TASKS = ("pretrain", "retrieval", "xretrieval", "wit", "xflickrco", "video_retrieval", "vqa",
          "xgqa", "nlvr", "marvl", "grounding", "captioning", "classification", "xvnli",
          "video_qa", "next_qa_mc")
-# the JAX launcher's other tasks and the ROADMAP items that bring them
-UNPORTED = {"xretrieval": "A8c", "wit": "A8c", "xflickrco": "A8c", "xgqa": "A8c",
-            "marvl": "A8c", "xvnli": "A8c"}
 # the dataset types ``run_classification`` runs: video QA over an answer
-# list, and NExT-QA multiple choice
+# list, NExT-QA multiple choice, and XVNLI's three labels
 VIDEO_QA_TASKS = ("video_qa", "vqa_msrvtt", "vqa_msvd")
 MULTIPLE_CHOICE_TASKS = ("next_qa_mc", "video_qa_mc")
+LABEL_TASKS = ("xvnli",)
+# --fewshot's path keys; the last two take the language alone in a one-slot
+# template
+FEWSHOT_KEYS = ("train_file", "valid_file", "val_file", "test_file")
 
 
 def parse_args(argv=None):
@@ -107,7 +117,9 @@ def parse_args(argv=None):
     p.add_argument("--bs", default=-1, type=int, help="override batch_size")
     p.add_argument("--epoch", default=-1, type=int, help="override epochs")
     p.add_argument("--wait", default=0, type=int, help="minutes to sleep before starting")
-    p.add_argument("--fewshot", default="", help="IGLUE few-shot (ROADMAP A8c)")
+    p.add_argument("--fewshot", default="",
+                   help="IGLUE few-shot, <lang>,<shots> (e.g. ar,25): fills the '{}' "
+                        "templates of the config's data paths")
     p.add_argument("--lr", default=0.0, type=float, help="override the learning rate")
     p.add_argument("--k_test", default=-1, type=int, help="override the rerank depth")
     p.add_argument("--num_workers", default=-1, type=int,
@@ -122,18 +134,14 @@ def parse_args(argv=None):
 
 
 def setup(args):
-    """The config with the command line's overrides, validated and dumped
-    to ``output_dir/config.json``; the global RNGs seeded."""
-    if args.task in UNPORTED:
-        raise NotImplementedError(f"--task {args.task} comes with ROADMAP queue item "
-                                  f"{UNPORTED[args.task]}; the port runs pretrain, "
-                                  f"retrieval, grounding, nlvr, vqa, captioning and the video "
-                                  f"tasks")
-    if args.fewshot:
-        raise NotImplementedError("--fewshot (IGLUE) comes with ROADMAP queue item A8c")
+    """The config with the command line's overrides, validated, its
+    ``--fewshot`` templates filled, dumped to ``output_dir/config.json``;
+    the global RNGs seeded."""
     os.makedirs(args.output_dir, exist_ok=True)
     cfg = config_lib.load_config(args.config, overrides=args.override_cfg)
     config_schema.validate_config(cfg, source=args.config)
+    if args.fewshot:
+        fill_fewshot(cfg, args.fewshot)
     if cfg.get("native_aug", "auto") is True:
         raise NotImplementedError("native_aug: true (the native decode + augment library) "
                                   "comes with ROADMAP queue item A12; the port decodes with "
@@ -163,6 +171,29 @@ def setup(args):
     with open(os.path.join(args.output_dir, "config.json"), "w") as f:
         json.dump(cfg.to_dict(), f, indent=1)
     return cfg
+
+
+def fill_fewshot(cfg, fewshot: str) -> None:
+    """``--fewshot <lang>,<shots>``: the ``{}`` templates of ``cfg``'s
+    ``FEWSHOT_KEYS`` filled in place (a path or a list of paths; the JAX
+    launcher's three variants): two or more slots take the parts in order;
+    one slot takes the language alone in ``val_file`` / ``test_file`` and
+    the joined string in the others."""
+    parts = fewshot.split(",")
+
+    def fill(path, lang_only: bool):
+        if not (isinstance(path, str) and "{}" in path):
+            return path
+        n = path.count("{}")
+        if n >= 2:
+            return path.format(*parts[:n])
+        return path.format(parts[0] if lang_only else fewshot)
+
+    for key in FEWSHOT_KEYS:
+        if key in cfg:
+            v, lang_only = cfg[key], key in ("val_file", "test_file")
+            cfg[key] = [fill(p, lang_only) for p in v] if isinstance(v, list) \
+                else fill(v, lang_only)
 
 
 def make_optimizer(cfg, model, total_steps: int, fusion_layer: int, fresh_names=()):
@@ -222,7 +253,9 @@ def load_initial_params(args, cfg, model) -> List[str]:
     (``xvlm_ckpt_text_num_hidden_layers``; with ``replace_text_encoder``
     the text tower stays fresh), and a cross encoder left wholly fresh
     raises. A directory: the parameters of a train state this launcher
-    saved. Without one: the vision JSON's ``ckpt`` (a raw BEiT-2, CLIP or
+    saved, strict for the same task's; another task's (a pretraining
+    model's ``base.`` core) loads as a reference-named state, the heads it
+    lacks fresh. Without one: the vision JSON's ``ckpt`` (a raw BEiT-2, CLIP or
     Swin file) and the text encoder's ``pytorch_model.bin`` (HF BERT or
     XLM-R, expanded to the config's layers), where those files exist."""
     mcfg = getattr(model, "base", model).config
@@ -255,9 +288,17 @@ def load_initial_params(args, cfg, model) -> List[str]:
         path = os.path.join(args.checkpoint, ckpt_lib.TRAIN_STATE_FILE)
         # memory-mapped: the optimizer state (two thirds of the file) is never read
         state = torch.load(path, map_location="cpu", weights_only=False, mmap=True)
-        model.load_state_dict(state["params"], strict=True)
         print(f"### parameters of step {state['step']} from {path}")
-        return []
+        if set(state["params"]) == {n for n, _ in model.named_parameters()}:
+            model.load_state_dict(state["params"], strict=True)
+            return []
+        # another task's state (a pretraining model's ``base.`` core): its
+        # reference-named parameters into this model's core, the rest fresh
+        sd = {k[len("base."):] if k.startswith("base.") else k: v
+              for k, v in state["params"].items()}
+        missing, unexpected = ckpt_lib.load_converted(model, sd)
+        print(ckpt_lib.import_report(model, missing, unexpected, path))
+        return missing
     if not (mcfg.is_plus and cfg.get("is_xvlm_ckpt")):
         missing, unexpected = ckpt_lib.load_reference_checkpoint(model, args.checkpoint)
         print(ckpt_lib.import_report(model, missing, unexpected, args.checkpoint))
@@ -354,8 +395,10 @@ def finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, metric_key, load
 
 def run_retrieval(args, cfg, device, task: str = "retrieval"):
     """Fine-tune and / or evaluate with the two-stage ITC -> ITM protocol
-    (reference Retrieval.py), on images or, with ``task="video_retrieval"``,
-    on videos of ``frame_len`` frames."""
+    (reference Retrieval.py; XRetrieval.py, WIT.py and xFlickrCO.py for
+    ``task`` ``xretrieval``, ``wit`` and ``xflickrco``, averaged over a
+    ``test_file`` dict's languages), on images or, with
+    ``task="video_retrieval"``, on videos of ``frame_len`` frames."""
     from x2vlm_tpu_torch.data.factory import create_dataset
     from x2vlm_tpu_torch.tasks.retrieval import evaluate_retrieval
 
@@ -403,15 +446,16 @@ def run_grounding(args, cfg, device):
     return finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, metric_key)
 
 
-def run_nlvr(args, cfg, device):
-    """Fine-tune and / or evaluate NLVR2 (reference NLVR.py): one text
-    against two images, accuracy (averaged over the splits of a dict
-    ``test_file``)."""
+def run_nlvr(args, cfg, device, task: str = "nlvr"):
+    """Fine-tune and / or evaluate NLVR2 (reference NLVR.py) or, with
+    ``task="marvl"``, MARVL (reference MARVL.py: trained on English NLVR2,
+    tested on the multilingual sets): one text against two images,
+    accuracy (averaged over the splits of a dict ``test_file``)."""
     from x2vlm_tpu_torch.data.factory import create_dataset
     from x2vlm_tpu_torch.tasks.classification import evaluate_classification
 
     model, mcfg = build_model(cfg, "nlvr", device=device, seed=args.seed)
-    train_ds, test_ds = create_dataset("nlvr", cfg, evaluate=args.evaluate,
+    train_ds, test_ds = create_dataset(task, cfg, evaluate=args.evaluate,
                                        rng=random.Random(args.seed))
 
     def eval_fn():
@@ -423,14 +467,15 @@ def run_nlvr(args, cfg, device):
 
 
 def run_classification(args, cfg, device, task: str = "classification"):
-    """Fine-tune and / or evaluate a video classification task (reference
-    VQA_msrvtt.py / VQA_msvd.py; the JAX ``run_classification``): video QA
-    over ``answer_list`` (its length sets ``num_labels``) or NExT-QA
-    multiple choice (K options a question); accuracy picks the best epoch.
-    ``--task classification`` runs its config's ``dataset_type``; the IGLUE
-    ones (XVNLI, MARVL, ...) come with ROADMAP item A8c. The train set reads
-    its frames with the seeded data rng, reseeded each epoch
-    (``SeededLoader``), so a resumed run reads the whole run's batches."""
+    """Fine-tune and / or evaluate a classification task (reference
+    XVNLI.py, VQA_msrvtt.py / VQA_msvd.py; the JAX ``run_classification``):
+    XVNLI's three labels (``num_labels`` 3 unless the config sets it),
+    video QA over ``answer_list`` (its length sets ``num_labels``) or
+    NExT-QA multiple choice (K options a question); accuracy picks the best
+    epoch. ``--task classification`` runs its config's ``dataset_type``
+    (XVNLI by default). The train set draws its transforms from the seeded
+    data rng, reseeded each epoch (``SeededLoader``), so a resumed run reads
+    the whole run's batches."""
     from x2vlm_tpu_torch.data.factory import create_dataset
     from x2vlm_tpu_torch.tasks.classification import evaluate_classification
 
@@ -442,10 +487,12 @@ def run_classification(args, cfg, device, task: str = "classification"):
         model_task = "classification"
         with open(cfg["answer_list"]) as f:
             cfg["num_labels"] = len(json.load(f))
+    elif task in LABEL_TASKS:
+        model_task = "classification"
+        cfg.setdefault("num_labels", 3)
     else:
-        raise NotImplementedError(f"classification of dataset_type {task!r} (IGLUE) comes "
-                                  f"with ROADMAP queue item A8c; the port runs "
-                                  f"{VIDEO_QA_TASKS + MULTIPLE_CHOICE_TASKS}")
+        raise ValueError(f"classification of dataset_type {task!r}: the launcher runs "
+                         f"{VIDEO_QA_TASKS + MULTIPLE_CHOICE_TASKS + LABEL_TASKS}")
     data_rng = random.Random(args.seed)
     train_ds, test_ds = create_dataset(task, cfg, evaluate=args.evaluate, rng=data_rng)
     model, mcfg = build_model(cfg, model_task, device=device, seed=args.seed)
@@ -508,19 +555,21 @@ class VQALoader(SeededLoader):
         return super().__iter__()
 
 
-def run_vqa(args, cfg, device):
-    """Fine-tune and / or evaluate VQA (reference VQA.py): the decoder's
-    loss over each question's weighted answers; the eval ranks
-    ``answer_list`` (``k_test`` answers reranked) and scores with the
-    VQAv2 protocol (``overall``) where the test lines carry several human
-    answers, else the exact match (``acc``)."""
+def run_vqa(args, cfg, device, task: str = "vqa"):
+    """Fine-tune and / or evaluate VQA (reference VQA.py) or, with
+    ``task="xgqa"``, xGQA (reference XGQA.py: a ``test_file`` dict of
+    languages, each entry a path or a [path, answer list] pair): the
+    decoder's loss over each question's weighted answers; the eval ranks
+    ``answer_list`` (``k_test`` answers reranked), writes a result file a
+    split, and scores with the VQAv2 protocol (``overall``) where the test
+    lines carry several human answers, else the exact match (``acc``)."""
     from x2vlm_tpu_torch.data.factory import create_dataset
     from x2vlm_tpu_torch.evalkit.vqa import exact_match_accuracy, vqa_eval
     from x2vlm_tpu_torch.tasks.vqa import evaluate_vqa
 
     model, mcfg = build_model(cfg, "vqa", device=device, seed=args.seed)
     data_rng = random.Random(args.seed)
-    train_ds, test_ds = create_dataset("vqa", cfg, evaluate=args.evaluate, rng=data_rng)
+    train_ds, test_ds = create_dataset(task, cfg, evaluate=args.evaluate, rng=data_rng)
     gts0 = (next(iter(test_ds.values())) if isinstance(test_ds, dict) else test_ds).gt_answers()
     metric_key = None
     if gts0:   # the VQAv2 protocol needs several human answers a question
@@ -884,12 +933,15 @@ def main(argv=None):
     device = resolve_device(args.device)
     t0 = time.time()
     runners = {"pretrain": run_pretrain, "retrieval": run_retrieval,
-               "video_retrieval": lambda *a: run_retrieval(*a, task="video_retrieval"),
-               "grounding": run_grounding, "nlvr": run_nlvr, "vqa": run_vqa,
+               "xretrieval": run_retrieval, "wit": run_retrieval, "xflickrco": run_retrieval,
+               "video_retrieval": run_retrieval, "grounding": run_grounding,
+               "nlvr": run_nlvr, "marvl": run_nlvr, "vqa": run_vqa, "xgqa": run_vqa,
                "captioning": run_captioning, "classification": run_classification,
-               "video_qa": lambda *a: run_classification(*a, task="video_qa"),
-               "next_qa_mc": lambda *a: run_classification(*a, task="next_qa_mc")}
-    out = runners[args.task](args, cfg, device)
+               "xvnli": run_classification, "video_qa": run_classification,
+               "next_qa_mc": run_classification}
+    # the runners shared by several tasks take the task's name
+    kw = {} if args.task in ("pretrain", "grounding", "captioning") else {"task": args.task}
+    out = runners[args.task](args, cfg, device, **kw)
     print(f"total time: {time.time() - t0:.0f}s")
     return out
 

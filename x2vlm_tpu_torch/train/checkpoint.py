@@ -43,7 +43,11 @@ CLIP or Swin tower is converted by its own flavour too. A Plus / CCLM file's
 cross encoder loads under ``cross_encoder.encoder.layer.{j}`` (its
 ``cross_encoder.bert.`` form too), and an MLM head loads into the model's
 own form of it (``cls.predictions.transform.*`` <-> ``lm_head.{dense,
-layer_norm}``, as the JAX converter reads both into one ``mlm_head``).
+layer_norm}``, as the JAX converter reads both into one ``mlm_head``); a
+fine-tuned VQA file's answer decoder likewise (``text_decoder.bert.`` <->
+``text_decoder.roberta.``, its head's ``cls.predictions.transform.*`` or
+``lm_head.transform.*`` <-> ``lm_head.{dense, layer_norm}``), and a
+fine-tuned ``cls_head`` on either base.
 :func:`split_imported_to_plus` is the Base -> Plus surgery of an
 X2-VLM file for a Plus model (``is_xvlm_ckpt``).
 
@@ -437,13 +441,24 @@ _HEAD_NAMES = (("text_encoder.cls.predictions.transform.dense.", "text_encoder.l
                ("text_encoder.cls.predictions.decoder.", "text_encoder.lm_head.decoder."),
                ("text_encoder.lm_head.transform.dense.", "text_encoder.lm_head.dense."),
                ("text_encoder.lm_head.transform.LayerNorm.", "text_encoder.lm_head.layer_norm."),
-               ("cross_encoder.bert.encoder.layer.", "cross_encoder.encoder.layer."))
+               ("cross_encoder.bert.encoder.layer.", "cross_encoder.encoder.layer."),
+               # the answer decoder's, as the JAX import reads them: its stack
+               # under either form's name, its head's transform under
+               # ``cls.predictions`` or ``lm_head``
+               ("text_decoder.bert.", "text_decoder.roberta."),
+               ("text_decoder.cls.predictions.transform.dense.", "text_decoder.lm_head.dense."),
+               ("text_decoder.cls.predictions.transform.LayerNorm.",
+                "text_decoder.lm_head.layer_norm."),
+               ("text_decoder.cls.predictions.bias", "text_decoder.lm_head.bias"),
+               ("text_decoder.lm_head.transform.dense.", "text_decoder.lm_head.dense."),
+               ("text_decoder.lm_head.transform.LayerNorm.", "text_decoder.lm_head.layer_norm."))
 
 
 def _own_names(sd: Mapping[str, torch.Tensor], own) -> Dict[str, torch.Tensor]:
     """``sd`` with its MLM head under the form the model has (a Base file's
-    BERT head into an XLM-R Plus model, and back) and a Plus file's
-    ``cross_encoder.bert.`` layers under the model's name."""
+    BERT head into an XLM-R Plus model, and back), a Plus file's
+    ``cross_encoder.bert.`` layers under the model's name, and the VQA
+    answer decoder's stack and head under the model's form."""
     out = {}
     for k, v in sd.items():
         if k not in own:
