@@ -301,11 +301,54 @@ Phases (any failure exits non-zero and prints no result line):
    scores within 0.05 + 5% of their scale, gradient cosines >= 0.99, each
    40 x 584 call within half the bf16 rule (none at 80 tokens), xGQA's
    first answers equal and its top-k scores within 0.05. Step and eval ms
-   (CUDA events, wall) and peaks are printed.
+   (CUDA events, wall) and peaks are printed;
+16. X2VLM-large pretraining (BEiT-2-large, 24 blocks of width 1024, and
+   the 18-layer BERT-large: 16 heads everywhere): the launcher's ``--task
+   pretrain`` on the shipped ``configs/pretrain/x2vlm_large_4m.yaml`` at
+   its own sizes (64 images at 224 px, the region block's 64 rows over 25
+   images, no remat) from ``--seed`` weights on phase 7's image and region
+   lines, 2 steps, the state saved once at the end (its seconds apart); no
+   ``--resume`` (the code phases 7 and 10 hold bit for bit; a resume of
+   this model loads an ~11 GB state). Checked: finite losses, the launches
+   of the run and of each stream call (image: 24 of each flash kernel at
+   B=64, tiny 12 at 128 x 40 x 40, 6 at 256 x 40 x 40 and 256 x 40 x 200;
+   region: 24 at 25 images, the same tiny and 6 at 64 x 40 x 40 and 64 x
+   40 x 200), every one at 16 heads and on the tensor-core route, no plain
+   attention; the weights exported as a reference-named ``.th``. Then the
+   remat hold on the card (2 images, the config's dropouts on, the same
+   generator seeds): one step without remat, under ``dots`` and under full
+   remat, the forward losses and the dropout generator's state after it
+   equal bit for bit, each gradient family (the vision tower, a text
+   layer, a fusion layer, the heads) within cosine 0.9999 and relative L2
+   1e-3 of the plain step's, every block rematerialised; and the weights
+   on 2 images and 2 region rows, card bf16 against CPU fp32 with the
+   negatives injected (losses within 0.05 + 2%, gradient cosines >= 0.99,
+   each 40 x 200 call within half the bf16 rule);
+17. VQA on X2VLM-large at 768 px: the launcher's ``--task vqa`` on the
+   shipped ``configs/finetune/vqa2_large.yaml`` at its own sizes (16
+   questions a step, ``accumulate_steps`` 2: two microbatches of 8, each
+   with the step's 32 answer rows; ``remat: true`` under ``dots``;
+   ``large_lr_for_dec``; 32 questions an eval call, k_test 128) from phase
+   16's ``.th`` (24 rel-pos tables interpolated 14 -> 48, the decoder
+   fresh) on 32 train and 32 test questions written over phase 8's PNGs:
+   one epoch of 2 steps and its eval, the state saved once (the best
+   state a hard link to it; the save's seconds apart). Checked: finite
+   losses and metrics, the import, ``accum_steps`` 2 and the decoder at
+   ``lr_mult``, the launches of each step and eval call (under remat each
+   rematerialised layer's forward kernels launch twice a microbatch, its
+   backward kernels once: ``large_vqa_launches``), every one at 16 heads,
+   the 40 x 2312 ones key-tiled; then on the card from the run's weights,
+   dropout off, the 16-question step split by question against the
+   unsplit step (``loss_vqa`` within 0.05 + 2%, gradient cosines >=
+   0.99), a step's CUDA-event ms and peak memory under ``dots``, full remat
+   and no remat, and 2 questions card bf16 against CPU fp32 in training
+   mode under ``dots`` (``loss_vqa``, gradient cosines, each 40 x 2312
+   call, ``rank_answer``).
 
-Each launcher phase (7-15) logs its seconds split into data, run,
-``--resume``, the CPU fp32 hold, phase 12's export and the rest (``phase N
-seconds``). The card-against-CPU holds of phases 9-11 and 13-15 run in
+Each launcher phase (7-17) logs its seconds split into data, run,
+``--resume``, the CPU fp32 hold, phase 12's export, phases 16's and 17's
+state saves and the rest (``phase N seconds``). The card-against-CPU holds
+of phases 9-11 and 13-17 run in
 one spawned worker process (its own card context, kernel libraries and
 launch counters) beside the later phases; their readings are logged and
 their faults failed before the kernels line (``holds collected``).
@@ -334,14 +377,23 @@ serving; and phase 14's: K5 / K6 with training operands at 32, 96, 128 and
 384 x 64 x 64, 32 and 96 x 64 x 200, and 128 and 384 x 64 x 200 with region
 key masks; and phase 15's: K5 / K6 at 32 x 10 x 40 with training operands
 (xGQA's decoder over a step's answer rows) and K5 at 512 x 10 x 40 serving
-(a chunk of its rank pass).
+(a chunk of its rank pass). At 16 heads (X2VLM-large, ``*_MAIN_SHAPES_16``):
+phase 16's K1-K4 at S=197 with B=64 (the image stream) and B=25 (the
+region stream's images), K5 / K6 at 128 x 40 x 40, 256 x 40 x 40, 256 x 40
+x 200 (region key masks), 64 x 40 x 40 and 64 x 40 x 200 with training
+operands; phase 17's K1-K4 at S=2305 with B=8 (a microbatch) and K1 with
+B=32 (an eval call), K5 / K6 at 8 x 40 x 40, 32 x 10 x 40 and, key-tiled,
+8 x 40 x 2312 with training operands, K5 at 32 x 40 x 40, 32 x 1 x 40,
+4096 x 10 x 40 and, key-tiled, 32 x 40 x 2312 serving.
 
-Every attention launch of phases 3 and 5-15 is counted by kernel, shape and
-operands (serving: no multiplier, no probabilities; training; the flash
-kernels' with or without a bias) and must fall
+Every attention launch of phases 3 and 5-17 is counted by kernel, shape,
+head count and operands (serving: no multiplier, no probabilities;
+training; the flash kernels' with or without a bias) and must fall
 on a shape phase 2 checked and timed (``FLASH_MAIN_SHAPES``,
-``TINY_MAIN_SHAPES``, ``TILED_MAIN_SHAPES``); the kernels line gives each
-such shape its launches by path.
+``TINY_MAIN_SHAPES``, ``TILED_MAIN_SHAPES`` and their ``_16``); the
+kernels line gives each such shape its launches by path. The holds'
+launches (2 rows, 2 images, phase 17's unsplit step) are held by their own
+comparisons and not counted there.
 
 Prints the card's name and power limit (``nvidia-smi``), one JSON line of
 kernels (with their launches on the main paths), and as its last line
@@ -357,7 +409,9 @@ and ``DIR/chip_smoke_region_profile.txt`` (and phase 8's two, and phase
 ``chip_smoke_video_{pretrain,step,eval}_profile.txt`` and phase 14's
 ``chip_smoke_cclm_{image,region,mtext}_profile.txt``, the last call of each
 stream, and phase 15's ``chip_smoke_iglue_{run}_{step,eval}_profile.txt``,
-each run's second step and first eval call), each with a
+each run's second step and first eval call, phase 16's
+``chip_smoke_large_{image,region}_profile.txt`` and phase 17's
+``chip_smoke_large_vqa_{step,eval}_profile.txt``), each with a
 last line of the port kernels' (attention and K7) device time and
 launches.
 """
@@ -478,6 +532,16 @@ CCLM_LEN, PARA_PAIRS, XLMR_VOCAB = 64, 128, 250002
 # chunk of its rank pass decodes at XLM-R's vocabulary (models/generation.rank_chunk_rows)
 IGLUE_BATCH, IGLUE_EVAL_BATCH, IGLUE_LONG = 16, 32, 80
 XGQA_ANSWERS, XGQA_RANK_CHUNK = 2 * IGLUE_BATCH, 512
+# phases 16 and 17: X2VLM-large (BEiT-2-large and BERT-large: 16 heads of 64
+# everywhere; every other path runs 12); x2vlm_large_4m.yaml's image stream
+# (64 images) and region block (64 rows over 25 images); vqa2_large.yaml's
+# step of 16 questions in 2 microbatches of 8 (accumulate_steps), each
+# microbatch holding the step's 32 answer rows (train/trainer.split_batch),
+# its eval calls as vqa2_base.yaml's (32 questions, k_test 128)
+BASE_HEADS, LARGE_HEADS = 12, 16
+LARGE_BATCH, LARGE_REGION_ROWS, LARGE_REGION_IMAGES = 64, 64, 25
+LARGE_VQA_BATCH, LARGE_VQA_ACCUM = 16, 2
+LARGE_VQA_MB, LARGE_VQA_ANSWERS = LARGE_VQA_BATCH // LARGE_VQA_ACCUM, 2 * LARGE_VQA_BATCH
 SCST_ROWS, SCST_LEN = CAP_BATCH * SCST_SAMPLES, CAP_PROMPT + 2 * (CAP_MAX_LEN + 1)
 TINY_REPLACES = {"tiny_attention_fwd": "x2vlm_tpu/ops/tiny_attention.py:88",
                  "tiny_attention_bwd": "x2vlm_tpu/ops/tiny_attention.py:135"}
@@ -518,8 +582,21 @@ def phase_seconds(phase: str, since: float) -> float:
     parts = PHASE_PARTS[phase]
     split = ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
     log(f"phase {phase} seconds: {total:.1f} ({split}{', ' if split else ''}rest "
-        f"{total - sum(parts.values()):.1f})")
+        f"{total - sum(parts.values()):.1f}); host memory available {host_available_gib()}")
     return total
+
+
+def host_available_gib():
+    """The host's ``MemAvailable`` in GiB (``/dev/shm`` files count against
+    it), or None where ``/proc/meminfo`` is not there."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return round(int(line.split()[1]) / 2**20, 1)
+    except OSError:
+        pass
+    return None
 
 
 # the launcher phases' card-against-CPU holds (phases 9-11, 13-15) run in
@@ -722,6 +799,23 @@ FLASH_MAIN_SHAPES = ((BATCH, N_IMG, False, True), (TRAIN_BATCH, N_IMG, True, Tru
                      (QA_VIDEOS * QA_FRAMES, N_IMG, True, True),
                      (STREAM_VIDEOS * STREAM_FRAMES, N_IMG, True, True),
                      (QA_EVAL_VIDEOS * QA_FRAMES, N_IMG, False, True))
+# the same at 16 heads (X2VLM-large): phase 16's image stream (B=64) and
+# region stream (its 25 images) at 224 px, phase 17's VQA microbatch (B=8)
+# and eval call (B=32) at 768 px
+FLASH_MAIN_SHAPES_16 = ((LARGE_BATCH, N_IMG, True, True), (LARGE_REGION_IMAGES, N_IMG, True, True),
+                        (LARGE_VQA_MB, N_IMG_768, True, True),
+                        (VQA_EVAL_BATCH, N_IMG_768, False, True))
+
+
+def with_heads(shapes, shapes_16) -> list:
+    """(shape, heads) of the checks: ``shapes`` at 12 heads, ``shapes_16`` at 16."""
+    return [(s, BASE_HEADS) for s in shapes] + [(s, LARGE_HEADS) for s in shapes_16]
+
+
+def shape_key(key: tuple, heads: int) -> tuple:
+    """A launch's key in the kernels line's ledger: (B, Sq, Skv) at 12 heads,
+    (B, Sq, Skv, heads) at any other head count."""
+    return key if heads == BASE_HEADS else tuple(key) + (heads,)
 
 
 def check_flash(gen, dev):
@@ -729,8 +823,8 @@ def check_flash(gen, dev):
     ahead of the host, beside SDPA), then over the contract at small shapes
     on both routes. Returns an entry per shape."""
     entries = []
-    H, D = 12, 64
-    for B, S, _, with_bias in FLASH_MAIN_SHAPES:
+    D = 64
+    for (B, S, _, with_bias), H in with_heads(FLASH_MAIN_SHAPES, FLASH_MAIN_SHAPES_16):
         q, k, v, bias = flash_inputs(gen, dev, B, H, S, S, D, torch.bfloat16,
                                      (1, H, S, S) if with_bias else None)
         kind = f"bias(1,{H},{S},{S})" if with_bias else "no bias"
@@ -755,8 +849,9 @@ def check_flash(gen, dev):
             route="cuda", source="x2vlm_tpu_torch/csrc/flash_attention_fwd.cu",
             replaces="x2vlm_tpu/ops/flash_attention.py:174", max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            flash_route=route, key=(B, S, S), operands=flash_operands(with_bias)))
-        log(f"time flash_attention_fwd B{B} S{S} {kind}: kernel {ms:.4f} ms, plain "
+            flash_route=route, key=shape_key((B, S, S), H),
+            operands=flash_operands(with_bias)))
+        log(f"time flash_attention_fwd B{B} H{H} S{S} {kind}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, "
             f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         del q, k, v, bias, out, lse, p_out, p_lse, t_out, t_lse
@@ -1009,6 +1104,31 @@ TINY_MAIN_SHAPES = (
     ("xGQA step decoder cross-attention", XGQA_ANSWERS, ANSWER_LEN, TEXT_LEN, True, "pad"),
     ("xGQA rank decoder cross-attention, a chunk at XLM-R's vocabulary", XGQA_RANK_CHUNK,
      ANSWER_LEN, TEXT_LEN, False, "pad"))
+# the same at 16 heads (X2VLM-large). Phase 16's image stream (64 images) and
+# region stream (64 rows) share their shapes: the text pass over the clean and
+# masked rows (128), the ITM + MLM fusion pass (256; its cross-attention held
+# with region key masks, the region stream's), the region stream's bbox pass
+# over its 64 rows' full images. Phase 17's VQA microbatch (8 questions; the
+# decoder over the step's 32 answer rows) and its eval calls (32 questions,
+# the first-token pass, the rank pass over 32 x 128 answers)
+TINY_MAIN_SHAPES_16 = (
+    ("large text self-attention, clean and masked rows", 2 * LARGE_BATCH, TEXT_LEN, TEXT_LEN,
+     True, "pad"),
+    ("large ITM + MLM fusion self-attention", 4 * LARGE_BATCH, TEXT_LEN, TEXT_LEN, True, "pad"),
+    ("large ITM + MLM fusion cross-attention, region key masks", 4 * LARGE_BATCH, TEXT_LEN,
+     200, True, "region"),
+    ("large region bbox self-attention", LARGE_REGION_ROWS, TEXT_LEN, TEXT_LEN, True, "pad"),
+    ("large region bbox cross-attention", LARGE_REGION_ROWS, TEXT_LEN, 200, True, "pad"),
+    ("large VQA microbatch text / fusion self-attention", LARGE_VQA_MB, TEXT_LEN, TEXT_LEN,
+     True, "pad"),
+    ("large VQA microbatch decoder cross-attention", LARGE_VQA_ANSWERS, ANSWER_LEN, TEXT_LEN,
+     True, "pad"),
+    ("large VQA eval text / fusion self-attention", VQA_EVAL_BATCH, TEXT_LEN, TEXT_LEN, False,
+     "pad"),
+    ("large VQA first-token decoder cross-attention", VQA_EVAL_BATCH, 1, TEXT_LEN, False,
+     "pad"),
+    ("large VQA rank decoder cross-attention", VQA_RANK_ROWS, ANSWER_LEN, TEXT_LEN, False,
+     "pad"))
 
 
 def check_tiny(gen, dev):
@@ -1018,9 +1138,10 @@ def check_tiny(gen, dev):
     region stream's and grounding's bbox pass); then over the contract at
     small shapes on both routes."""
     entries = []
-    H, D = 12, 64
+    D = 64
     scale = D ** -0.5
-    for label, B, Sq, Skv, train_ops, mask in TINY_MAIN_SHAPES:
+    for (label, B, Sq, Skv, train_ops, mask), H in with_heads(TINY_MAIN_SHAPES,
+                                                              TINY_MAIN_SHAPES_16):
         q, k, v, km, dm = tiny_operands(gen, dev, B, Sq, Skv, H, D, torch.bfloat16,
                                         mask, train_ops)
         ops = ("region_key_mask" if mask == "region" else "key_mask") + \
@@ -1050,12 +1171,12 @@ def check_tiny(gen, dev):
             *views, attn_mask=amask, scale=scale), host_ahead=True)
         b_ms, b_by = bound_ms(nbytes(q, k, v, out, probs, dm) + km.numel(),
                               4.0 * B * H * Sq * Skv * D)
-        log(f"time tiny_attention_fwd {label} B{B}{' training' if train_ops else ''}: kernel "
+        log(f"time tiny_attention_fwd {label} B{B} H{H}{' training' if train_ops else ''}: kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (no dropout, no "
             f"probabilities), bound {b_ms:.4f} ms ({b_by})")
         entries.append(tiny_entry(
             "tiny_attention_fwd", f"B{B} {Sq}x{Skv} H{H} D{D} {ops} bf16",
-            (B, Sq, Skv), err, ms, plain_ms, b_ms, b_by, lib_ms,
+            shape_key((B, Sq, Skv), H), err, ms, plain_ms, b_ms, b_by, lib_ms,
             operands="training" if train_ops else "serving"))
 
     # the rest of the contract, at small shapes: bf16 on the tensor cores
@@ -1194,11 +1315,11 @@ def flash_operands(with_bias: bool) -> str:
     return "bias" if with_bias else "no bias"
 
 
-def _check_flash_bwd_main(gen, dev, B, S, with_bias=True):
-    """K2/K3/K4 at (B, 12, S, 64) with the shared bias (K2/K3 alone without
+def _check_flash_bwd_main(gen, dev, B, S, with_bias=True, H=BASE_HEADS):
+    """K2/K3/K4 at (B, H, S, 64) with the shared bias (K2/K3 alone without
     one), bf16: checked against the plain version, dBias bit-identical in
     two launches, timed. Returns their entries."""
-    H, D = 12, 64
+    D = 64
     q, k, v, bias = flash_inputs(gen, dev, B, H, S, S, D, torch.bfloat16,
                                  (1, H, S, S) if with_bias else None)
     kind = f"bias(1,{H},{S},{S})" if with_bias else "no bias"
@@ -1224,9 +1345,10 @@ def _check_flash_bwd_main(gen, dev, B, S, with_bias=True):
         # dBias sums the batch in a fixed order (no atomics): bit-identical run to run
         db1, db2 = launch["dbias"](), launch["dbias"]()
         same = torch.equal(db1, db2)
-        log(f"check flash_attention_bwd dbias B{B} bit-identical across two launches: {same}")
+        log(f"check flash_attention_bwd dbias B{B} H{H} bit-identical across two launches: "
+            f"{same}")
         if not same:
-            fail(f"flash_attention_bwd dbias B{B}: two launches differ by "
+            fail(f"flash_attention_bwd dbias B{B} H{H}: two launches differ by "
                  f"{max_err(db1, db2):.3e}")
         del db1, db2
     plain_ms = time_ms(lambda: flash_attention_bwd_reference(q, k, v, bias, None, out, lse,
@@ -1249,7 +1371,7 @@ def _check_flash_bwd_main(gen, dev, B, S, with_bias=True):
         b_ms, b_by = bound_ms(read + wbytes, flops)
         lib_ms, lib_cover = (lib_all, "dq+dk+dv+dbias") if kern == "dbias" else \
             (lib_qkv, "dq+dk+dv")
-        log(f"time {name} B{B} S{S}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        log(f"time {name} B{B} H{H} S{S}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         entries.append(dict(
             name=name, shape=shape, route="cuda",
             source="x2vlm_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -1257,13 +1379,13 @@ def _check_flash_bwd_main(gen, dev, B, S, with_bias=True):
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             plain_and_library_cover=f"plain: dq+dk+dv{'+dbias' if with_bias else ''}; "
                                     f"library: {lib_cover}",
-            flash_route=flash_route(q.dtype, D), key=(B, S, S),
+            flash_route=flash_route(q.dtype, D), key=shape_key((B, S, S), H),
             operands=flash_operands(with_bias)))
     fmt = lambda x: x if x is None else round(x, 4)
-    log(f"time flash_attention_bwd B{B} S{S} plain (all three) {plain_ms:.4f} ms, sdpa backward "
+    log(f"time flash_attention_bwd B{B} H{H} S{S} plain (all three) {plain_ms:.4f} ms, sdpa backward "
         f"dq+dk+dv {fmt(lib_qkv)} ms, dq+dk+dv+dbias {fmt(lib_all)} ms")
     if lib_qkv:
-        log(f"flash backward B{B} S{S} K2 + K3 {ms_of['dq'] + ms_of['dkv']:.4f} ms against sdpa "
+        log(f"flash backward B{B} H{H} S{S} K2 + K3 {ms_of['dq'] + ms_of['dkv']:.4f} ms against sdpa "
             f"backward dq+dk+dv {lib_qkv:.4f} ms: factor "
             f"{(ms_of['dq'] + ms_of['dkv']) / lib_qkv:.3f}")
     return entries
@@ -1276,9 +1398,9 @@ def check_flash_bwd(gen, dev):
     the card ahead of the host, beside two SDPA backward yardsticks), then
     over the contract at small shapes on both routes."""
     entries = []
-    for B, S, backward, with_bias in FLASH_MAIN_SHAPES:
+    for (B, S, backward, with_bias), H in with_heads(FLASH_MAIN_SHAPES, FLASH_MAIN_SHAPES_16):
         if backward:
-            entries += _check_flash_bwd_main(gen, dev, B, S, with_bias)
+            entries += _check_flash_bwd_main(gen, dev, B, S, with_bias, H)
 
     # the rest of the contract, at small shapes, with scale = D^-0.5: bf16
     # at D = 64 on the tensor cores (D = 128 / 192 / 256 on the CUDA cores),
@@ -1342,9 +1464,10 @@ def check_tiny_bwd(gen, dev):
     of the host), also checked without a multiplier (the deterministic
     passes); then over the contract on both routes."""
     entries = []
-    H, D = 12, 64
+    D = 64
     scale = D ** -0.5
-    for label, B, Sq, Skv, train_ops, mask in TINY_MAIN_SHAPES:
+    for (label, B, Sq, Skv, train_ops, mask), H in with_heads(TINY_MAIN_SHAPES,
+                                                              TINY_MAIN_SHAPES_16):
         if not train_ops:
             continue
         q, k, v, km, dm = tiny_operands(gen, dev, B, Sq, Skv, H, D, torch.bfloat16, mask,
@@ -1379,11 +1502,12 @@ def check_tiny_bwd(gen, dev):
                               g.view(B, Sq, H, D).transpose(1, 2), scale, host_ahead=True)
         b_ms, b_by = bound_ms(nbytes(q, k, v, g, probs, dm) + nbytes(q, k, v),
                               8.0 * B * H * Sq * Skv * D)
-        log(f"time tiny_attention_bwd {label} B{B}: kernel {ms:.4f} ms, plain "
+        log(f"time tiny_attention_bwd {label} B{B} H{H}: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa backward {lib_ms} ms, bound {b_ms:.4f} ms ({b_by})")
         entries.append(tiny_entry(
             "tiny_attention_bwd", f"B{B} {Sq}x{Skv} H{H} D{D} {ops} dropout bf16",
-            (B, Sq, Skv), err, ms, plain_ms, b_ms, b_by, lib_ms, operands="training"))
+            shape_key((B, Sq, Skv), H), err, ms, plain_ms, b_ms, b_by, lib_ms,
+            operands="training"))
 
     for name, (B, Sq, Skv, H, D, mask, drop) in {
         "non-multiple-of-8 13x27 D32": (3, 13, 27, 4, 32, "half", True),
@@ -1485,6 +1609,11 @@ TILED_MAIN_SHAPES = (
     (SCST_ROWS, SCST_LEN, N_KEYS_384, True, True, "SCST step"),
     (VQA_BATCH, TEXT_LEN, N_KEYS_768, True, True, "VQA question fusion"),
     (VQA_EVAL_BATCH, TEXT_LEN, N_KEYS_768, False, False, "VQA eval question fusion"))
+# the same walk at 16 heads: phase 17's VQA microbatch (8 questions) and eval
+# call (32)
+TILED_MAIN_SHAPES_16 = (
+    (LARGE_VQA_MB, TEXT_LEN, N_KEYS_768, True, True, "large VQA question fusion"),
+    (VQA_EVAL_BATCH, TEXT_LEN, N_KEYS_768, False, False, "large VQA eval question fusion"))
 
 
 def walk_delta(fn, before) -> dict:
@@ -1492,17 +1621,18 @@ def walk_delta(fn, before) -> dict:
             if n != before.get(w, 0)}
 
 
-def check_tiny_tiled(gen, dev, shapes):
+def check_tiny_tiled(gen, dev, shapes, shapes_16=()):
     """K5 and K6 on the key-tiled walk: at the 384 px and 768 px fusion
     cross-attention (Sq x 584, 40 x 2312) at each (B, Sq, Skv, dropout,
     probabilities) of ``shapes`` in bf16, forward and backward, checked and
     timed beside SDPA forward / backward (the card running ahead of the
-    host); then over the walk's contract at small shapes on both routes.
-    Returns the kernels-line entries."""
+    host), and at each of ``shapes_16`` at 16 heads; then over the walk's
+    contract at small shapes on both routes. Returns the kernels-line
+    entries."""
     entries = []
-    H, D = 12, 64
+    D = 64
     scale = D ** -0.5
-    for B, Sq, Skv, drop, probs_wanted, label in shapes:
+    for (B, Sq, Skv, drop, probs_wanted, label), H in with_heads(shapes, shapes_16):
         q, k, v, km, dm = tiny_operands(gen, dev, B, Sq, Skv, H, D, torch.bfloat16, "pad",
                                         drop)
         ops = "key_mask dropout" if drop else "key_mask"
@@ -1534,8 +1664,8 @@ def check_tiny_tiled(gen, dev, shapes):
             f"probabilities), bound {b_ms:.4f} ms ({b_by})")
         entries.append(tiny_entry(
             "tiny_attention_fwd", f"B{B} {Sq}x{Skv} H{H} D{D} {ops}"
-            f"{' probs' if probs_wanted else ''} bf16", (B, Sq, Skv), err, ms, plain_ms, b_ms,
-            b_by, lib_ms, tiny_walk=TILED,
+            f"{' probs' if probs_wanted else ''} bf16", shape_key((B, Sq, Skv), H), err, ms,
+            plain_ms, b_ms, b_by, lib_ms, tiny_walk=TILED,
             operands="training" if drop or probs_wanted else "serving"))
 
         g = torch.randn(B, Sq, H * D, generator=gen, device=dev).to(torch.bfloat16)
@@ -1562,8 +1692,8 @@ def check_tiny_tiled(gen, dev, shapes):
         log(f"time tiny_attention_bwd {label} (tiled): kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa backward {lib_ms} ms, bound {b_ms:.4f} ms ({b_by})")
         entries.append(tiny_entry(
-            "tiny_attention_bwd", f"B{B} {Sq}x{Skv} H{H} D{D} {ops} bf16", (B, Sq, Skv), err,
-            ms, plain_ms, b_ms, b_by, lib_ms, tiny_walk=TILED,
+            "tiny_attention_bwd", f"B{B} {Sq}x{Skv} H{H} D{D} {ops} bf16",
+            shape_key((B, Sq, Skv), H), err, ms, plain_ms, b_ms, b_by, lib_ms, tiny_walk=TILED,
             operands="training" if drop or probs_wanted else "serving"))
         del q, k, v, km, dm, out, out1, probs, g, got, views
         torch.cuda.empty_cache()
@@ -1776,6 +1906,9 @@ def reset_counts() -> None:
         fn.launches_by_route.clear()
         fn.launches_by_shape.clear()
         fn.launches_without_bias.clear()
+    for fn in (flash_attention_fwd, flash_attention_bwd, tiny_attention_fwd,
+               tiny_attention_bwd):
+        fn.launches_by_heads.clear()
     for fn in (tiny_attention_fwd, tiny_attention_bwd, int8_matmul, quantize_act):
         fn.launches = 0
         fn.launches_by_shape.clear()
@@ -2373,10 +2506,23 @@ def caption(rng: np.random.Generator, words, lo: int = 6, hi: int = 30) -> str:
     return " ".join(words[i] for i in rng.integers(0, len(words), int(rng.integers(lo, hi))))
 
 
+def heads_counts() -> collections.Counter:
+    """The attention launches since the last reset by "kernel/heads"."""
+    out = collections.Counter()
+    for name, fn in (("flash_fwd", flash_attention_fwd), ("tiny_fwd", tiny_attention_fwd),
+                     ("tiny_bwd", tiny_attention_bwd)):
+        for h, n in fn.launches_by_heads.items():
+            out[f"{name}/{h}"] += n
+    for (kern, h), n in flash_attention_bwd.launches_by_heads.items():
+        out[f"flash_bwd_{kern}/{h}"] += n
+    return out
+
+
 def launch_counts():
-    """Every attention launch since the last reset, by kernel, shape, route
-    and walk, and the plain attention's calls."""
+    """Every attention launch since the last reset, by kernel, shape, route,
+    walk and head count, and the plain attention's calls."""
     return {"flash_fwd": flash_attention_fwd.launches,
+            "heads": heads_counts(),
             "flash_fwd_routes": dict(flash_attention_fwd.launches_by_route),
             "flash_bwd": dict(flash_attention_bwd.launches),
             "flash_bwd_routes": flash_bwd_route_delta({}),
@@ -2402,19 +2548,21 @@ LEDGER_PARTS = ("tiny_fwd", "tiny_bwd", "flash_fwd_shapes", "flash_bwd_shapes",
 # the main paths, as the kernels line's ``launches_by_path`` names them
 PATHS = ("serving", "train_step", "int8_serving", "pretrain_launcher", "retrieval_launcher",
          "finetune_launcher", "vqa_launcher", "caption_launcher", "clip_launcher",
-         "swin_launcher", "video_launcher", "cclm_launcher", "iglue_launcher")
+         "swin_launcher", "video_launcher", "cclm_launcher", "iglue_launcher",
+         "large_pretrain_launcher", "large_vqa_launcher")
 
 
-def ledger_add(ledger, path: str, operands: str, c: dict) -> None:
-    """Adds the attention launches of ``c`` (``LEDGER_PARTS``) to ``ledger``,
-    a Counter over (path, kernel, operands, shape): ``operands`` is
+def ledger_add(ledger, path: str, operands: str, c: dict, heads: int = BASE_HEADS) -> None:
+    """Adds the attention launches of ``c`` (``LEDGER_PARTS``), all at
+    ``heads`` heads, to ``ledger``, a Counter over (path, kernel, operands,
+    shape key; ``shape_key``): ``operands`` is
     "serving" or "training" for the tiny forward (its checks differ in them:
     a dropout multiplier, the probabilities saved), "training" for the tiny
     backward; the flash kernels' are "bias" or "no bias" (CLIP ViT)."""
     for key, n in c.get("tiny_fwd", {}).items():
-        ledger[(path, "tiny_attention_fwd", operands, key)] += n
+        ledger[(path, "tiny_attention_fwd", operands, shape_key(key, heads))] += n
     for key, n in c.get("tiny_bwd", {}).items():
-        ledger[(path, "tiny_attention_bwd", "training", key)] += n
+        ledger[(path, "tiny_attention_bwd", "training", shape_key(key, heads))] += n
     for part, name in (("flash_fwd", lambda key: ("flash_attention_fwd", key)),
                        ("flash_bwd", lambda key: (f"flash_attention_bwd_{key[0]}",
                                                   tuple(key[1:])))):
@@ -2423,7 +2571,7 @@ def ledger_add(ledger, path: str, operands: str, c: dict) -> None:
             kernel, shape = name(key)
             for ops, m in (("bias", n - nobias.get(key, 0)), ("no bias", nobias.get(key, 0))):
                 if m:
-                    ledger[(path, kernel, ops, shape)] += m
+                    ledger[(path, kernel, ops, shape_key(shape, heads))] += m
 
 
 def attention_kernels(ledger, checked: list, tiled: list) -> list:
@@ -3067,14 +3215,23 @@ def held_tiny_bwd_calls(n_keys: int, ratios: list):
     output among them, to the plain backward that takes its row sums from
     that output, as the key-tiled kernel does (rowsum(g * out)): its
     largest error over the bf16 rule's bound (dq, dk, dv) is appended to
-    ``ratios``."""
+    ``ratios``. The saved tensors are read once (a rematerialised block's
+    may be unpacked only once) and handed to the backward."""
     from x2vlm_tpu_torch.ops.tiny_attention import _TinyAttention
 
     backward = _TinyAttention.backward
 
+    class Saved:
+        def __init__(self, ctx, saved):
+            self.ctx, self.saved_tensors = ctx, saved
+
+        def __getattr__(self, name):
+            return getattr(self.ctx, name)
+
     def held(ctx, g):
-        grads = backward(ctx, g)
-        q, k, v, probs, dmask, out = ctx.saved_tensors
+        saved = ctx.saved_tensors
+        grads = backward(Saved(ctx, saved), g)
+        q, k, v, probs, dmask, out = saved
         if q.is_cuda and q.dtype == torch.bfloat16 and k.shape[1] == n_keys:
             with torch.no_grad():
                 args = (ctx.num_heads, ctx.scale)
@@ -3466,9 +3623,11 @@ N_VQA_STEPS = VQA_EPOCHS * N_VQA_TRAIN // VQA_BATCH
 VQA_RESUME_STEP = N_VQA_TRAIN // VQA_BATCH   # --resume from the state saved after epoch 0
 
 
-def write_vqa_corpus(root: str, rng: np.random.Generator, words, n_images: int):
+def write_vqa_corpus(root: str, rng: np.random.Generator, words, n_images: int,
+                     n_train: int = N_VQA_TRAIN, n_eval: int = N_VQA_EVAL, name: str = "vqa"):
     """An answer list of ``N_VQA_ANSWERS`` distinct answers of 1-3 words and
-    VQAv2-style lines over the ``n_images`` PNGs of phase 8: train lines
+    VQAv2-style lines over the ``n_images`` PNGs of phase 8 (``n_train`` and
+    ``n_eval`` of them, in ``{name}_*.json``): train lines
     with 10 human answers drawn from 3 of the list (merged to count / 10
     weights) or, every fourth, two answers with a ``weight`` field, so a
     batch of 8 has more than 16 answer rows and the seeded cut runs; test
@@ -3486,7 +3645,7 @@ def write_vqa_corpus(root: str, rng: np.random.Generator, words, n_images: int):
         return [pool[j] for j in rng.integers(0, 3, 10)], pool
 
     train = []
-    for i in range(N_VQA_TRAIN):
+    for i in range(n_train):
         line = {"image": f"{i % n_images}.png", "question": caption(rng, words, 4, 14),
                 "question_id": i}
         human, pool = humans()
@@ -3496,12 +3655,12 @@ def write_vqa_corpus(root: str, rng: np.random.Generator, words, n_images: int):
             line["answer"] = human
         train.append(line)
     test = []
-    for i in range(N_VQA_EVAL):
+    for i in range(n_eval):
         human, _ = humans()
         test.append({"image": f"{(i + 7) % n_images}.png", "question_id": 1000 + i,
                      "question": caption(rng, words, 4, 14),
                      "answer": human if i % 2 == 0 else human[:1]})
-    paths = [os.path.join(root, f"vqa_{n}.json") for n in ("train", "test", "answers")]
+    paths = [os.path.join(root, f"{name}_{n}.json") for n in ("train", "test", "answers")]
     for path, data in zip(paths, (train, test, answers)):
         with open(path, "w") as f:
             json.dump(data, f)
@@ -3539,7 +3698,32 @@ def vqa_cosine_params(cfg):
             "text_decoder.cls.predictions.bias")
 
 
-def vqa_hold(state, cfg: dict, batch: dict, answers: dict, dev) -> tuple:
+def no_dropout(mcfg):
+    """``mcfg`` with every dropout and drop-path rate at 0."""
+    return dataclasses.replace(
+        mcfg, vision=dataclasses.replace(mcfg.vision, drop_path_rate=0.0, dropout_rate=0.0,
+                                         attn_dropout_rate=0.0),
+        text=dataclasses.replace(mcfg.text, hidden_dropout=0.0, attn_dropout=0.0,
+                                 text_drop_path_rate=0.0, cross_drop_path_rate=0.0))
+
+
+def vqa_model(cfg: dict, dtype, device, remat_train: bool):
+    """The VQA model of ``cfg`` (no parameters filled): as the factory builds
+    it, or with ``remat_train`` its dropouts at 0, to run the loss in
+    training mode (its remat on, as ``cfg`` sets it)."""
+    from x2vlm_tpu_torch.factory import build_model
+    from x2vlm_tpu_torch.models import XVLMForVQA
+
+    if not remat_train:
+        return build_model(cfg, "vqa", device=device, dtype=dtype, seed=None)[0]
+    return XVLMForVQA(no_dropout(xvlm_config_from_yaml(cfg)),
+                      num_dec_layers=cfg.get("num_dec_layers", 6),
+                      pad_token_id=cfg.get("pad_token_id", 0), dtype=dtype, device=device,
+                      seed=None)
+
+
+def vqa_hold(state, cfg: dict, batch: dict, answers: dict, dev,
+             remat_train: bool = False) -> tuple:
     """The fine-tuned weights ``state`` (or the train state saved at that
     path) on the questions of ``batch`` (their
     answer rows injected), dropout off, the card in bf16 against the port's
@@ -3548,30 +3732,42 @@ def vqa_hold(state, cfg: dict, batch: dict, answers: dict, dev) -> tuple:
     call held on the model's operands within ``FUSION_CALL_RATIO`` of the
     bf16 rule's bound; and ``rank_answer`` over ``answers`` (the answer
     list) with ``K_TEST``: the first answer equal, the top-k scores within
-    0.05. Returns the readings and the faults found."""
-    state = params_of(state)
-    from x2vlm_tpu_torch.factory import build_model
+    0.05. The rank takes the question states of the loss pass (one vision
+    pass a device). With ``remat_train`` the loss runs in training mode with
+    the dropouts at 0 and ``cfg``'s remat (``vqa_model``): each
+    rematerialised fusion layer's 40 x 2312 forward runs twice, its forward
+    and its recompute. Returns the readings and the faults found."""
+    from x2vlm_tpu_torch.models.generation import inference
 
+    state = params_of(state)
     names = vqa_cosine_params(xvlm_config_from_yaml(cfg))
     fwd_ratios, bwd_ratios, ranks, losses, grads = [], [], {}, {}, {}
-    rank_in = {k: batch[k] for k in ("image", "question_ids", "question_atts")}
-    rank_in.update(answers)
     for tag, dtype, device in (("cpu", torch.float32, torch.device("cpu")),
                                ("card", torch.bfloat16, dev)):
-        model, _ = build_model(cfg, "vqa", device=device, dtype=dtype, seed=None)
+        model = vqa_model(cfg, dtype, device, remat_train)
         model.load_state_dict(state)
-        with torch.no_grad():
-            ids, probs = model.predict({k: v.to(device) for k, v in rank_in.items()}, K_TEST)
-        ranks[tag] = (ids.cpu(), probs.float().cpu())
         b = {k: v.to(device) for k, v in batch.items()}
+        model.train(remat_train)
+        states, encode = [], model.encode_question
+
+        def kept_encode(*a, **kw):
+            states.append(encode(*a, **kw))
+            return states[-1]
+
+        model.encode_question = kept_encode
         with held_tiny_calls(N_KEYS_768, fwd_ratios), held_tiny_bwd_calls(N_KEYS_768,
                                                                           bwd_ratios):
             out = model(b)
             out["loss_vqa"].backward()
+        with inference(model):
+            ids, probs = model.rank_answer(states[0].detach(), b["question_atts"],
+                                           answers["answer_ids"].to(device),
+                                           answers["answer_atts"].to(device), K_TEST)
+        ranks[tag] = (ids.cpu(), probs.float().cpu())
         losses[tag] = out["loss_vqa"].item()
         params = dict(model.named_parameters())
         grads[tag] = {k: params[k].grad.detach().double().cpu().reshape(-1) for k in names}
-        del model, out, b
+        del model, out, b, states
     torch.cuda.empty_cache()
     cos = {k: F.cosine_similarity(grads["card"][k], grads["cpu"][k], dim=0).item()
            for k in names}
@@ -3581,10 +3777,11 @@ def vqa_hold(state, cfg: dict, batch: dict, answers: dict, dev) -> tuple:
          "cpu_top_scores": ranks["cpu"][1][:, :3].tolist(), "fwd_ratios": fwd_ratios,
          "bwd_ratios": bwd_ratios}
     faults = []
-    for kind, ratios in (("forward", fwd_ratios), ("backward", bwd_ratios)):
-        if len(ratios) != 6 or not all(x <= FUSION_CALL_RATIO for x in ratios):
+    for kind, ratios, n in (("forward", fwd_ratios, 12 if remat_train else 6),
+                            ("backward", bwd_ratios, 6)):
+        if len(ratios) != n or not all(x <= FUSION_CALL_RATIO for x in ratios):
             faults.append(f"the 40 x {N_KEYS_768} {kind} calls' errors over the bf16 rule's "
-                          f"bound {[round(x, 3) for x in ratios]}, expected 6 at most "
+                          f"bound {[round(x, 3) for x in ratios]}, expected {n} at most "
                           f"{FUSION_CALL_RATIO}")
     if not abs(losses["card"] - losses["cpu"]) <= 0.05 + 0.02 * abs(losses["cpu"]):
         faults.append(f"loss_vqa: card {losses['card']:.5f} vs CPU fp32 {losses['cpu']:.5f}")
@@ -6338,6 +6535,666 @@ def iglue_launcher_phase(args, root: str, plus: dict, words, work: str, dev,
                                 collections.Counter()) for k in LEDGER_PARTS}, train_deltas)
 
 
+# ---- phases 16 and 17: X2VLM-large, remat and accumulation ----
+
+LARGE_PRETRAIN_CONFIG = "configs/pretrain/x2vlm_large_4m.yaml"
+LARGE_VQA_CONFIG = "configs/finetune/vqa2_large.yaml"
+LARGE_STEPS = 2                      # phase 16: 2 pretraining steps, one epoch
+N_LARGE_VQA_TRAIN = 2 * LARGE_VQA_BATCH   # phase 17: 2 steps in one epoch
+# phase 16's remat hold: remat changes no forward operation, so the losses
+# are equal bit for bit; the gradients differ by the card's backward alone
+# (ROADMAP C: its atomics), while a dropout mask replayed wrong moves about
+# a fifth of the dropped elements
+REMAT_HOLD_COSINE, REMAT_HOLD_REL_L2 = 0.9999, 1e-3
+
+
+def large_tok_dir(root: str, tok_dir: str) -> str:
+    """Phase 7's vocab under a directory named for BERT-large: the factory
+    takes the text preset from the ``text_encoder`` path, as the JAX one."""
+    d = os.path.join(root, "bert-large-uncased")
+    if not os.path.isdir(d):
+        os.makedirs(d)
+        shutil.copy(os.path.join(tok_dir, "vocab.txt"), d)
+    return d
+
+
+def set_remat(model, on: bool, policy=None) -> None:
+    """Every tower and stack of ``model`` with remat ``on`` under ``policy``
+    (their configs replaced; the parameters stay)."""
+    from x2vlm_tpu_torch.models import BEiT2Config, BertConfig
+
+    for m in model.modules():
+        if isinstance(getattr(m, "config", None), (BEiT2Config, BertConfig)):
+            m.config = dataclasses.replace(m.config, remat=on, remat_policy=policy)
+
+
+def check_heads(tag: str, c: dict, heads: int) -> None:
+    """Every attention launch of ``c`` (a ``launch_counts`` or its delta) at
+    ``heads`` heads."""
+    other = {k: n for k, n in c["heads"].items() if n and not k.endswith(f"/{heads}")}
+    if other or not any(c["heads"].values()):
+        fail(f"{tag}: attention launches by kernel / heads {dict(c['heads'])}, expected every "
+             f"one at {heads}")
+
+
+def large_stream_launches(stream: str) -> dict:
+    """The tiny launches of one phase-16 stream call (forward and backward
+    alike): the text pass over the clean and masked rows (12 layers), the
+    ITM + MLM fusion pass over 4 x 64 rows (6); the region stream also the
+    bbox pass over its 64 rows' full images."""
+    B = LARGE_BATCH if stream == "image" else LARGE_REGION_ROWS
+    out = {(2 * B, TEXT_LEN, TEXT_LEN): 12, (4 * B, TEXT_LEN, TEXT_LEN): 6,
+           (4 * B, TEXT_LEN, 200): 6}
+    if stream == "region":
+        out.update({(B, TEXT_LEN, TEXT_LEN): 6, (B, TEXT_LEN, 200): 6})
+    return out
+
+
+def grad_families(model, fusion_layer: int) -> dict:
+    """The parameters of each gradient family of the remat hold: the vision
+    tower, a text layer, a fusion layer, the heads (ITM, projections, the
+    MLM transform)."""
+    p = "base.text_encoder.bert.encoder.layer."
+    fams = {"vision": "base.vision_encoder.", "text layer": f"{p}0.",
+            "fusion layer": f"{p}{fusion_layer}.",
+            "heads": ("base.itm_head.", "base.vision_proj.", "base.text_proj.",
+                      "base.text_encoder.cls.")}
+    return {f: [(n, t) for n, t in model.named_parameters() if n.startswith(pre)]
+            for f, pre in fams.items()}
+
+
+def remat_hold(final: dict, mcfg, seed: int, dev) -> None:
+    """Phase 16's remat hold on the card: the run's weights on 2 images with
+    the config's dropouts on, one step's loss and gradients without remat,
+    under ``dots`` and under full remat, each from the same generator seeds
+    (the hard negatives', the dropouts'): the forward losses and the dropout
+    generator's state after the step equal bit for bit, each gradient
+    family within ``REMAT_HOLD_COSINE`` / ``REMAT_HOLD_REL_L2`` of the plain
+    step's, every block rematerialised."""
+    from x2vlm_tpu_torch.ops.remat import rematerialised
+
+    model = XVLMForPretrain(mcfg, dtype=torch.bfloat16, device=dev, seed=None)
+    model.load_state_dict(final)
+    model.train()
+    gen = torch.Generator(device=dev).manual_seed(seed + 16)
+    batch = train_batch(gen, dev, mcfg, 2)
+    fams = grad_families(model, mcfg.text.fusion_layer)
+    runs = {}
+    for label, on, policy in (("plain", False, None), ("dots", True, "dots"),
+                              ("full", True, None)):
+        set_remat(model, on, policy)
+        model.zero_grad(set_to_none=True)
+        rematerialised.calls.clear()
+        itm_gen = torch.Generator(device=dev).manual_seed(seed + 17)
+        drop_gen = torch.Generator(device=dev).manual_seed(seed + 18)
+        losses = model(batch, itm_gen, drop_gen)
+        sum(losses.values()).backward()
+        runs[label] = {"losses": {k: v.item() for k, v in losses.items()},
+                       "state": drop_gen.get_state(), "calls": dict(rematerialised.calls),
+                       "grads": {f: [t.grad.detach().clone() for _, t in ps]
+                                 for f, ps in fams.items()}}
+    set_remat(model, False)
+    plain = runs["plain"]
+    want_calls = {"BEiT2Block": mcfg.vision.depth, "BertLayer": mcfg.text.num_layers}
+    readings = {}
+    for label in ("dots", "full"):
+        r = runs[label]
+        fam = {}
+        for f, grads in r["grads"].items():
+            dot = sum((a.double() * b.double()).sum() for a, b in zip(grads, plain["grads"][f]))
+            na = sum((a.double() ** 2).sum() for a in grads).sqrt()
+            nb = sum((b.double() ** 2).sum() for b in plain["grads"][f]).sqrt()
+            diff = sum(((a.double() - b.double()) ** 2).sum()
+                       for a, b in zip(grads, plain["grads"][f])).sqrt()
+            fam[f] = {"cosine": (dot / (na * nb)).item(), "rel_l2": (diff / nb).item()}
+        readings[label] = fam
+        if r["losses"] != plain["losses"]:
+            fail(f"remat hold {label}: forward losses {r['losses']} differ from the plain "
+                 f"step's {plain['losses']}")
+        if not torch.equal(r["state"], plain["state"]):
+            fail(f"remat hold {label}: the dropout generator ends elsewhere than the plain "
+                 f"step's")
+        if r["calls"] != want_calls:
+            fail(f"remat hold {label}: rematerialised blocks {r['calls']}, expected "
+                 f"{want_calls}")
+        for f, x in fam.items():
+            if not (x["cosine"] >= REMAT_HOLD_COSINE and x["rel_l2"] <= REMAT_HOLD_REL_L2):
+                fail(f"remat hold {label} {f}: cosine {x['cosine']:.6f}, relative L2 "
+                     f"{x['rel_l2']:.2e} to the plain step's gradient (limits "
+                     f"{REMAT_HOLD_COSINE}, {REMAT_HOLD_REL_L2})")
+    log(f"phase 16 remat hold (2 images, dropouts on, the same generator seeds): losses "
+        f"{json.dumps(plain['losses'])} in all three, equal bit for bit: "
+        f"{all(runs[k]['losses'] == plain['losses'] for k in ('dots', 'full'))}; gradient "
+        f"families against the plain step's {json.dumps(readings)}")
+    del model, runs
+    torch.cuda.empty_cache()
+
+
+def large_hold_batches(mcfg):
+    """2 images with 40-token texts and 2 region rows over 2 images, 4
+    masked positions a row, the last row padded."""
+    g = torch.Generator().manual_seed(16)
+    res, side = mcfg.vision.image_res, mcfg.vision.image_res // mcfg.vision.patch_size
+
+    def texts(pad_from):
+        ids = torch.randint(1000, VOCAB_SIZE, (2, TEXT_LEN), generator=g)
+        ids[:, 0] = 101
+        atts = torch.ones(2, TEXT_LEN, dtype=torch.int32)
+        atts[1, pad_from:] = 0
+        ids = ids * atts
+        pos = torch.tensor([[3, 7, 9, 15], [2, 5, 20, 30]])
+        masked = ids.clone()
+        masked[torch.arange(2)[:, None], pos] = 103
+        return {"text_ids": ids, "text_atts": atts, "text_ids_masked": masked,
+                "masked_pos": pos, "masked_ids": torch.gather(ids, 1, pos)}
+
+    image = dict(texts(33), image=torch.randint(0, 256, (2, res, res, 3), generator=g,
+                                                dtype=torch.uint8))
+    grid = torch.zeros(2, side, side)
+    grid[0, 4:10, 3:8] = 1
+    grid[1, 2:7, 6:10] = 1
+    region = dict(texts(36), image=torch.randint(0, 256, (2, res, res, 3), generator=g,
+                                                 dtype=torch.uint8),
+                  image_atts=torch.cat([torch.ones(2, 1), grid.view(2, -1)], 1),
+                  idx_to_group_img=torch.tensor([0, 1]), target_bbox=torch.zeros(2, 4),
+                  is_image=torch.zeros(2))
+    return image, region
+
+
+def large_cosine_params(mcfg):
+    """Gradients held to the CPU path: the vision tower (K2/K3, K4), a text
+    layer (K6 at 40 x 40), a fusion layer's self and cross attention (K6 at
+    40 x 200), the ITM and bbox heads."""
+    p = "base.text_encoder.bert.encoder.layer."
+    f = f"{p}{mcfg.text.fusion_layer}"
+    return ("base.vision_encoder.blocks.0.attn.qkv.weight",
+            "base.vision_encoder.blocks.0.attn.relative_position_bias_table",
+            f"{p}0.attention.self.query.weight", f"{f}.attention.self.query.weight",
+            f"{f}.crossattention.self.key.weight", "base.itm_head.0.weight",
+            "base.bbox_head.0.weight")
+
+
+def large_pretrain_hold(final, mcfg, dev) -> tuple:
+    """Phase 16's weights ``final`` (or the state saved at that path) on 2
+    images and 2 region rows, dropout off, the negatives injected: the card
+    in bf16 against the port's CPU fp32 path, each loss (ITC, ITM, MLM of
+    both streams, bbox L1 and GIoU) within 0.05 + 2%, gradient cosines of
+    ``large_cosine_params`` >= 0.99, each bf16 40 x 200 call into K5 and K6
+    (the image pass's and the region passes' fusion cross-attention, 16
+    heads) within ``FUSION_CALL_RATIO`` of the bf16 rule's bound. The box
+    targets are ``off_kink_targets`` of the CPU path's boxes."""
+    final = params_of(final)
+    image, region = large_hold_batches(mcfg)
+    neg = (torch.tensor([1, 0]), torch.tensor([1, 0]))
+    names = large_cosine_params(mcfg)
+    n_fusion = mcfg.text.num_layers - mcfg.text.fusion_layer
+    fwd_ratios, bwd_ratios, losses, grads = [], [], {}, {}
+    for tag, dtype, device in (("cpu", torch.float32, torch.device("cpu")),
+                               ("card", torch.bfloat16, dev)):
+        model = XVLMForPretrain(mcfg, dtype=dtype, device=device, seed=None)
+        model.load_state_dict(final)
+        to = lambda b: {k: v.to(device) for k, v in b.items()}
+        negs = tuple(t.to(device) for t in neg)
+        if tag == "cpu":
+            region["target_bbox"] = off_kink_targets(cpu_boxes(
+                model, model.base.bbox_head,
+                lambda: model(to(region), neg_idx=negs, ret_bbox_loss=True)))
+        with held_tiny_calls(200, fwd_ratios), held_tiny_bwd_calls(200, bwd_ratios):
+            out = {f"image_{k}": v for k, v in model(to(image), neg_idx=negs).items()}
+            out.update({f"region_{k}": v for k, v in model(
+                to(region), neg_idx=negs, ret_bbox_loss=True).items()})
+            sum(out.values()).backward()
+        losses[tag] = {k: v.item() for k, v in out.items()}
+        params = dict(model.named_parameters())
+        grads[tag] = {k: params[k].grad.detach().double().cpu().reshape(-1) for k in names}
+        del model, out, params
+    torch.cuda.empty_cache()
+    cos = {k: F.cosine_similarity(grads["card"][k], grads["cpu"][k], dim=0).item()
+           for k in names}
+    r = {"losses": losses, "cosine": cos, "fwd_ratios": [round(x, 3) for x in fwd_ratios],
+         "bwd_ratios": [round(x, 3) for x in bwd_ratios]}
+    faults = []
+    want = {"image_loss_itc", "image_loss_itm", "image_loss_mlm", "region_loss_itc",
+            "region_loss_itm", "region_loss_mlm", "region_loss_bbox", "region_loss_giou"}
+    if set(losses["card"]) != want:
+        faults.append(f"losses {sorted(losses['card'])}, expected {sorted(want)}")
+    for k, ref in losses["cpu"].items():
+        if not abs(losses["card"][k] - ref) <= 0.05 + 0.02 * abs(ref):
+            faults.append(f"{k}: card {losses['card'][k]:.5f} vs CPU fp32 {ref:.5f}")
+    for k, c in cos.items():
+        if not c >= 0.99:
+            faults.append(f"gradient {k}: cosine to the CPU fp32 path {c:.5f} < 0.99")
+    # the image's ITM + MLM fusion pass, the region's and its bbox pass
+    for kind, ratios in (("forward", fwd_ratios), ("backward", bwd_ratios)):
+        if len(ratios) != 3 * n_fusion or not all(x <= FUSION_CALL_RATIO for x in ratios):
+            faults.append(f"the 40 x 200 {kind} calls: {len(ratios)} held (expected "
+                          f"{3 * n_fusion}), errors over the bf16 rule's bound "
+                          f"{[round(x, 3) for x in ratios]} (at most {FUSION_CALL_RATIO})")
+    return r, faults
+
+
+def large_pretrain_phase(args, root: str, tok_dir: str, work: str, dev, smi: str = ""):
+    """Phase 16: ``x2vlm_tpu_torch.run --task pretrain`` in process on the
+    shipped ``configs/pretrain/x2vlm_large_4m.yaml`` (X2VLM-large from
+    ``--seed``) at its own sizes, on phase 7's image and region lines: 2
+    steps, each stream call timed and its launches read; the state saved
+    once, at the end (its seconds apart). Then ``remat_hold`` on the card
+    and ``large_pretrain_hold`` deferred. Returns the launches, the large
+    tokenizer directory and the path of the run's weights as a
+    reference-named ``.th`` (in ``work``)."""
+    from x2vlm_tpu_torch import run as run_mod
+
+    t0 = time.perf_counter()
+    large_tok = large_tok_dir(root, tok_dir)
+    shipped = shipped_config(LARGE_PRETRAIN_CONFIG)
+    cfg = dict(shipped, train_file=[os.path.join(root, "images.jsonl")],
+               train_file_regions=[os.path.join(root, "regions.jsonl")], text_encoder=large_tok,
+               train_dataset_size=LARGE_STEPS * LARGE_BATCH)
+    sizes = (cfg["images"]["batch_size"], cfg["regions"]["batch_size"],
+             cfg["regions"]["max_images"], cfg["image_res"], cfg.get("remat", False))
+    if sizes != (LARGE_BATCH, LARGE_REGION_ROWS, LARGE_REGION_IMAGES, 224, False):
+        fail(f"large pretrain launcher: the shipped config's sizes {sizes} changed")
+    mcfg = xvlm_config_from_yaml(cfg)
+    cfg_path = os.path.join(root, "large_pretrain.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    out = os.path.join(work, "out_large_pretrain")
+    argv = ["--task", "pretrain", "--config", cfg_path, "--output_dir", out, "--seed",
+            str(args.seed), "--device", dev.type, "--epoch", "1"]
+    log(f"phase 16 data and config: {part_done('16', 'data', t0):.1f} s")
+
+    t1 = time.perf_counter()
+    saves = []
+    save = ckpt_lib.save_train_state
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        path = save(*a, **kw)
+        saves.append(time.perf_counter() - t)
+        return path
+
+    reset_counts()
+    ckpt_lib.save_train_state = timed_save
+    try:
+        with StreamTimer({("image", LARGE_STEPS - 1), ("region", LARGE_STEPS - 1)}
+                         if args.profile else None,
+                         (args, smi, "chip_smoke_large_{stream}_profile.txt")) as timer:
+            record = run_mod.main(argv)
+    finally:
+        ckpt_lib.save_train_state = save
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    PHASE_PARTS["16"]["save"] += sum(saves)
+    PHASE_PARTS["16"]["run"] += time.perf_counter() - t1 - sum(saves)
+    log(f"phase 16 run ({LARGE_STEPS} steps): {time.perf_counter() - t1:.1f} s, the state "
+        f"saves {[round(s, 1) for s in saves]} s; {json.dumps(record)}")
+    want_losses = [f"{s}_loss_{k}" for s in ("image", "region") for k in ("itc", "itm", "mlm")] + \
+        ["region_loss_bbox", "region_loss_giou"]
+    if not all(isinstance(record.get(k), float) and math.isfinite(record[k])
+               for k in want_losses) or record.get("broken", -1) != 0 or \
+            record.get("pretrain_steps") != [0, LARGE_STEPS] or len(saves) != 1:
+        fail(f"large pretrain launcher: record {record}, {len(saves)} saves")
+    n = LARGE_STEPS
+    want_tiny = collections.Counter()
+    for stream in ("image", "region"):
+        want_tiny.update({k: v * n for k, v in large_stream_launches(stream).items()})
+    check_launcher_counts("large pretrain launcher", counts, 48 * n, 48 * n,
+                          {"tiny_fwd": dict(want_tiny), "tiny_bwd": dict(want_tiny)})
+    check_heads("large pretrain launcher", counts, LARGE_HEADS)
+    for stream, B in (("image", LARGE_BATCH), ("region", LARGE_REGION_IMAGES)):
+        calls = timer.calls[stream]
+        if len(calls) != n:
+            fail(f"large pretrain launcher: {len(calls)} {stream}-stream calls, expected {n}")
+        want = large_stream_launches(stream)
+        for i, c in enumerate(calls):
+            tag = f"large pretrain launcher {stream} call {i}"
+            check_launcher_counts(tag, c["launches"], 24, 24,
+                                  {"tiny_fwd": want, "tiny_bwd": want})
+            if dict(c["launches"]["flash_fwd_shapes"]) != {(B, N_IMG, N_IMG): 24}:
+                fail(f"{tag}: flash shapes {dict(c['launches']['flash_fwd_shapes'])}")
+    log(f"phase 16 by stream (CUDA-event ms and wall ms of each call, median; peak GiB; "
+        f"{smi}): {json.dumps(timer.summary())}")
+
+    t2 = time.perf_counter()
+    state_path = os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE)
+    final = load_params(state_path)
+    th_path = os.path.join(work, "x2vlm_large_phase16.th")
+    torch.save({"model": {k[len("base."):]: v for k, v in final.items()}}, th_path)
+    hold_path = hold_state(final, "large_pretrain.pt")
+    os.remove(state_path)
+    part_done("16", "export", t2)
+    t3 = time.perf_counter()
+    remat_hold(final, mcfg, args.seed, dev)
+    part_done("16", "remat hold", t3)
+    defer_hold("phase 16 card bf16 vs CPU fp32 (2 images, 2 region rows, dropout off)",
+               large_pretrain_hold, hold_path, mcfg, dev)
+    del final
+    phase_seconds("16", t0)
+    return counts, large_tok, th_path
+
+
+def large_vqa_launches(train: bool) -> dict:
+    """The attention launches of one phase-17 train step (16 questions in 2
+    microbatches of 8, ``remat: dots``) or eval call (32 questions, no
+    remat). A microbatch runs the vision pass (24 flash at S=2305), tiny
+    at 8 x 40 x 40 (12 text layers, 6 fusion self-attentions), 8 x 40 x
+    2312 (6 fusion cross-attentions, key-tiled) and 32 x 10 x 40 (the 6
+    decoder layers' cross-attention over the step's 32 answer rows), and
+    the decoder's 6 causal self-attentions on the plain core; each
+    rematerialised layer's forward kernels launch twice (its forward and
+    its recompute), its backward kernels once: a step is 2 x 2 x 24 flash
+    forwards, 2 x 24 of each backward kernel, tiny forwards 2 x 2 x (18, 6,
+    6), backwards 2 x (18, 6, 6), 2 x 2 x 6 plain calls. An eval call: 24
+    flash, tiny 18 at 32 x 40 x 40, 6 at 32 x 40 x 2312, 6 at 32 x 1 x 40
+    and 6 at 4096 x 10 x 40, 12 plain."""
+    if not train:
+        tiny = {(VQA_EVAL_BATCH, TEXT_LEN, TEXT_LEN): 18,
+                (VQA_EVAL_BATCH, TEXT_LEN, N_KEYS_768): 6, (VQA_EVAL_BATCH, 1, TEXT_LEN): 6,
+                (VQA_RANK_ROWS, ANSWER_LEN, TEXT_LEN): 6}
+        return {"flash_fwd": 24, "flash_bwd": 0, "tiny_fwd": tiny, "tiny_bwd": {}, "plain": 12}
+    a = LARGE_VQA_ACCUM
+    per_mb = {(LARGE_VQA_MB, TEXT_LEN, TEXT_LEN): 18, (LARGE_VQA_MB, TEXT_LEN, N_KEYS_768): 6,
+              (LARGE_VQA_ANSWERS, ANSWER_LEN, TEXT_LEN): 6}
+    return {"flash_fwd": 2 * a * 24, "flash_bwd": a * 24,
+            "tiny_fwd": {k: 2 * a * v for k, v in per_mb.items()},
+            "tiny_bwd": {k: a * v for k, v in per_mb.items()}, "plain": 2 * a * 6}
+
+
+def large_vqa_batch(cfg: dict, n: int, seed: int) -> dict:
+    """``n`` train questions of ``cfg``'s data as the launcher collates them
+    (``2 n`` answer rows), as CPU tensors."""
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.data.finetune import vqa_collate
+
+    train_ds, _ = create_dataset("vqa", cfg, rng=random.Random(seed))
+    batch = vqa_collate([train_ds[i] for i in range(n)], 2 * n, rng=random.Random(seed))
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    for k in ("question_ids", "answer_ids", "answer_index"):
+        batch[k] = batch[k].long()
+    return batch
+
+
+def split_hold(model, batch: dict, dev, names) -> dict:
+    """On the card, dropout off: the step's ``loss_vqa`` and gradients of
+    ``names`` over ``batch`` split by question into ``LARGE_VQA_ACCUM``
+    microbatches (each weighted 1 / accum, as ``make_train_step``) and
+    unsplit."""
+    from x2vlm_tpu_torch.train.trainer import split_batch
+
+    b = {k: v.to(dev) for k, v in batch.items()}
+    out = {}
+    for label, parts in (("split", split_batch(b, LARGE_VQA_ACCUM)), ("unsplit", [b])):
+        model.zero_grad(set_to_none=True)
+        loss = 0.0
+        for mb in parts:
+            part = model(mb)["loss_vqa"] / len(parts)
+            part.backward()
+            loss += part.item()
+        params = dict(model.named_parameters())
+        out[label] = (loss, {k: params[k].grad.detach().double().reshape(-1) for k in names})
+        torch.cuda.synchronize()
+    model.zero_grad(set_to_none=True)
+    cos = {k: F.cosine_similarity(out["split"][1][k], out["unsplit"][1][k], dim=0).item()
+           for k in names}
+    return {"loss_vqa": {k: v[0] for k, v in out.items()}, "cosine": cos}
+
+
+def remat_step_times(model, cfg: dict, batch: dict, dev, policies) -> dict:
+    """One train step of ``model`` (AdamW with the launcher's groups,
+    ``accumulate_steps`` 2, the config's dropouts on) on ``batch`` under
+    each of ``policies`` ("none": no remat): the CUDA-event ms of the
+    second of two steps and the peak device memory."""
+    from x2vlm_tpu_torch import run as run_mod
+
+    opt = run_mod.make_optimizer(cfg, model, 100, model.config.text.fusion_layer)
+    step = make_train_step(model, opt, accum_steps=LARGE_VQA_ACCUM)
+    b = {k: v.to(dev) for k, v in batch.items()}
+    gens = (torch.Generator(device=dev).manual_seed(1), torch.Generator(device=dev).manual_seed(2))
+    out = {}
+    for policy in policies:
+        set_remat(model, policy != "none", None if policy in ("none", "full") else policy)
+        step(b, *gens)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(b, *gens)
+        end.record()
+        end.synchronize()
+        out[policy] = {"ms": start.elapsed_time(end),
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "loss_vqa": m["loss_vqa"].item()}
+        if not math.isfinite(out[policy]["loss_vqa"]):
+            fail(f"remat step under {policy}: loss_vqa {out[policy]['loss_vqa']}")
+    set_remat(model, True, "dots")
+    del opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+# the remat policies phase 17 times a step under ("none": no remat)
+LARGE_STEP_POLICIES = ("dots", "full", "none")
+
+
+def large_vqa_phase(args, root: str, th_path: str, large_tok: str, words, image_root: str,
+                    work: str, dev, smi: str = "") -> dict:
+    """Phase 17: ``x2vlm_tpu_torch.run --task vqa`` in process on the shipped
+    ``configs/finetune/vqa2_large.yaml`` at its own sizes (768 px, 16
+    questions a step in 2 microbatches, ``remat: dots``,
+    ``large_lr_for_dec``; 32 questions an eval call, k_test 128) from phase
+    16's ``.th`` (24 tables interpolated 14 -> 48, the decoder fresh), on
+    32 train and 32 test questions written over phase 8's PNGs: one epoch
+    of 2 steps and its eval, each step and eval call timed and its launches
+    read (``large_vqa_launches``); the state saved once (its seconds
+    apart). No ``--resume``: the launcher's resume is the code phases 7 and
+    10 hold bit for bit, and one resume of this model loads an ~11 GB
+    state. Then on the card, from the run's weights: the split step against
+    the unsplit one (``split_hold``, dropout off) and a step's ms and peak
+    memory under each of ``LARGE_STEP_POLICIES``; and ``vqa_hold`` on 2
+    questions (training mode under ``dots``) deferred. Returns the
+    launches split into the steps' and the eval's."""
+    from x2vlm_tpu_torch import run as run_mod
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.models import XVLMForVQA
+    from x2vlm_tpu_torch.tasks import vqa as vqa_mod
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 17)
+    train, test, answers = write_vqa_corpus(root, rng, words, len(os.listdir(image_root)),
+                                            N_LARGE_VQA_TRAIN, VQA_EVAL_BATCH, "vqa_large")
+    shipped = shipped_config(LARGE_VQA_CONFIG)
+    cfg = dict(shipped, vqa_root=image_root, text_encoder=large_tok, train_file=[train],
+               test_file=[test], answer_list=answers, start_eval=0)
+    sizes = (cfg["batch_size"], cfg.get("answers_per_batch", 2 * cfg["batch_size"]),
+             cfg.get("answer_max_tokens", ANSWER_LEN), cfg["accumulate_steps"], cfg["remat"],
+             cfg["remat_policy"], cfg["large_lr_for_dec"], cfg["batch_size_test"],
+             cfg["k_test"], cfg["image_res"], cfg["max_tokens"])
+    if sizes != (LARGE_VQA_BATCH, LARGE_VQA_ANSWERS, ANSWER_LEN, LARGE_VQA_ACCUM, True, "dots",
+                 True, VQA_EVAL_BATCH, K_TEST, 768, TEXT_LEN):
+        fail(f"large vqa launcher: the shipped config's sizes {sizes} changed")
+    mcfg = xvlm_config_from_yaml(cfg)
+    cfg_path = os.path.join(root, "vqa_large.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    out = os.path.join(work, "out_vqa_large")
+    log(f"phase 17 data and config: {part_done('17', 'data', t0):.1f} s")
+
+    imported, steps, evals, saves, last = {}, [], [], [], [""]
+    orig = {"load": ckpt_lib.load_reference_checkpoint, "save": ckpt_lib.save_train_state,
+            "step": run_mod.make_train_step, "predict": XVLMForVQA.predict,
+            "optimizer": run_mod.make_optimizer}
+    timed = functools.partial(timed_call, args, smi)
+    table_key = "vision_encoder.blocks.0.attn.relative_position_bias_table"
+
+    def load(model, path):
+        imported["missing"], imported["unexpected"] = orig["load"](model, path)
+        imported["decoder"] = sorted(n for n, _ in model.named_parameters()
+                                     if n.startswith("text_decoder."))
+        src = torch.load(path, map_location="cpu", weights_only=False, mmap=True)["model"]
+        got = model.state_dict()
+        imported["rel_pos"] = []
+        for i in range(mcfg.vision.depth):
+            key = table_key.replace(".0.", f".{i}.")
+            t = src[key].float().numpy()
+            want = ckpt_lib.interp_rel_pos_table(t, 14, 48)
+            imported["rel_pos"].append([list(t.shape), list(got[key].shape),
+                                        bool(np.array_equal(got[key].cpu().numpy(), want))])
+        return imported["missing"], imported["unexpected"]
+
+    def save(ckpt_dir, *a, **kw):
+        # the best state is the last one (one epoch): a hard link, not a
+        # second ~11 GB write
+        if os.path.basename(ckpt_dir) == "ckpt_best" and os.path.exists(last[0]):
+            os.makedirs(ckpt_dir, exist_ok=True)
+            path = os.path.join(ckpt_dir, ckpt_lib.TRAIN_STATE_FILE)
+            if os.path.exists(path):
+                os.remove(path)
+            os.link(last[0], path)
+            return path
+        t = time.perf_counter()
+        last[0] = orig["save"](ckpt_dir, *a, **kw)
+        saves.append(time.perf_counter() - t)
+        return last[0]
+
+    def make_optimizer(cfg_, model, *a, **kw):
+        opt = orig["optimizer"](cfg_, model, *a, **kw)
+        at_mult = {opt.names[i] for (_, scale), idx in opt.groups if scale == 2.0 for i in idx}
+        imported["decoder_at_lr_mult"] = {n for n in opt.names
+                                          if n.startswith("text_decoder.")} <= at_mult
+        return opt
+
+    def make_step(model, optimizer, **kw):
+        imported["accum_steps"] = kw.get("accum_steps")
+        return timed(orig["step"](model, optimizer, **kw), steps,
+                     "chip_smoke_large_vqa_step_profile.txt",
+                     lambda i: args.profile and i == 1)
+
+    def patch(on: bool):
+        ckpt_lib.load_reference_checkpoint = load if on else orig["load"]
+        ckpt_lib.save_train_state = save if on else orig["save"]
+        run_mod.make_train_step = make_step if on else orig["step"]
+        run_mod.make_optimizer = make_optimizer if on else orig["optimizer"]
+        XVLMForVQA.predict = timed(orig["predict"], evals,
+                                   "chip_smoke_large_vqa_eval_profile.txt",
+                                   lambda i: bool(args.profile) and i == 0) \
+            if on else orig["predict"]
+
+    argv = ["--task", "vqa", "--config", cfg_path, "--checkpoint", th_path, "--epoch", "1",
+            "--seed", str(args.seed), "--device", dev.type, "--output_dir", out]
+    t1 = time.perf_counter()
+    reset_counts()
+    patch(True)
+    try:
+        record = run_mod.main(argv)
+    finally:
+        patch(False)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    PHASE_PARTS["17"]["save"] += sum(saves)
+    PHASE_PARTS["17"]["run"] += time.perf_counter() - t1 - sum(saves)
+    log(f"phase 17 run ({len(steps)} steps + eval): {time.perf_counter() - t1:.1f} s, the "
+        f"state saves {[round(s, 1) for s in saves]} s; {json.dumps(record)}")
+    log(f"phase 17 VQA step ms at 768 px, {LARGE_VQA_BATCH} questions in {LARGE_VQA_ACCUM} "
+        f"microbatches, remat dots (CUDA events, wall): "
+        f"{json.dumps([[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in steps])}; peak "
+        f"device memory GiB {[round(r['peak_gib'], 2) for r in steps]}; eval calls "
+        f"(B={VQA_EVAL_BATCH}, k_test {K_TEST}) ms (CUDA events, wall) "
+        f"{[[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in evals]}, peak GiB "
+        f"{[round(r['peak_gib'], 2) for r in evals]}; {smi}")
+
+    missing, unexpected = imported.get("missing"), imported.get("unexpected", [])
+    rel_pos = imported.get("rel_pos", [])
+    tables_ok = len(rel_pos) == mcfg.vision.depth and all(
+        r == [[27 * 27 + 3, LARGE_HEADS], [95 * 95 + 3, LARGE_HEADS], True] for r in rel_pos)
+    log(f"phase 17 import: {len(missing or [])} missing (fresh), unexpected {len(unexpected)} "
+        f"({sorted({'.'.join(k.split('.')[:2]) for k in unexpected})}); {len(rel_pos)} rel-pos "
+        f"tables interpolated 14 -> 48 as interp_rel_pos_table: {tables_ok}; accum_steps "
+        f"{imported.get('accum_steps')}; the decoder at lr_mult: "
+        f"{imported.get('decoder_at_lr_mult')}")
+    leftover = ("vision_proj.", "text_proj.", "temp", "itm_head.", "text_encoder.cls.",
+                "bbox_head.")
+    if not missing or missing != imported["decoder"] or not unexpected or \
+            not all(k.startswith(leftover) for k in unexpected) or not tables_ok or \
+            imported.get("accum_steps") != LARGE_VQA_ACCUM or \
+            not imported.get("decoder_at_lr_mult"):
+        fail(f"large vqa launcher import of {th_path}: missing {missing}, unexpected "
+             f"{unexpected}, rel-pos {rel_pos}, accum {imported.get('accum_steps')}, decoder "
+             f"at lr_mult {imported.get('decoder_at_lr_mult')}")
+    with open(os.path.join(out, "vqa_result.json")) as f:
+        results = json.load(f)
+    vals = [record.get(k) for k in ("eval_overall", "eval_acc", "loss_vqa", "loss_total")]
+    if not all(isinstance(v, float) and math.isfinite(v) for v in vals) or \
+            len(steps) != N_LARGE_VQA_TRAIN // LARGE_VQA_BATCH or len(evals) != 1 or \
+            len(results) != VQA_EVAL_BATCH or len(saves) != 1:
+        fail(f"large vqa launcher: {len(steps)} steps, {len(evals)} eval calls, {len(results)} "
+             f"results, {len(saves)} saves, record {record}")
+    want_step, want_eval = large_vqa_launches(True), large_vqa_launches(False)
+    for tag, records, want in (("step", steps, want_step), ("eval call", evals, want_eval)):
+        for i, r in enumerate(records):
+            got = dict(r["launches"], plain=r["plain"])
+            if got != want:
+                fail(f"large vqa launcher {tag} {i}: launches {got}, expected {want}")
+    tiny = collections.Counter()
+    for want, n in ((want_step, len(steps)), (want_eval, len(evals))):
+        for shape, k in want["tiny_fwd"].items():
+            tiny[shape] += k * n
+    check_launcher_counts(
+        "large vqa launcher", counts,
+        want_step["flash_fwd"] * len(steps) + want_eval["flash_fwd"] * len(evals),
+        want_step["flash_bwd"] * len(steps),
+        {"tiny_fwd": dict(tiny),
+         "tiny_bwd": {k: n * len(steps) for k, n in want_step["tiny_bwd"].items()}},
+        n_plain=want_step["plain"] * len(steps) + want_eval["plain"] * len(evals))
+    check_heads("large vqa launcher", counts, LARGE_HEADS)
+    if counts["tiny_walks"]["tiny_attention_fwd"].get(TILED, 0) != \
+            sum(n for (b, sq, skv), n in tiny.items() if skv == N_KEYS_768):
+        fail(f"large vqa launcher: the 40 x {N_KEYS_768} launches are not all key-tiled: "
+             f"{counts['tiny_walks']}")
+
+    # the run's weights on the card: the split step against the unsplit one,
+    # then a step's time and peak memory by remat policy
+    t2 = time.perf_counter()
+    state_path = os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE)
+    final = load_params(state_path)
+    batch = large_vqa_batch(cfg, LARGE_VQA_BATCH, args.seed)
+    model = vqa_model(cfg, torch.bfloat16, dev, remat_train=True)
+    model.load_state_dict(final)
+    model.train()
+    split = split_hold(model, batch, dev, vqa_cosine_params(mcfg))
+    loss = split["loss_vqa"]
+    log(f"phase 17 split hold on the card ({LARGE_VQA_BATCH} questions, dropout off, remat "
+        f"dots): {json.dumps(split)}")
+    if not abs(loss["split"] - loss["unsplit"]) <= 0.05 + 0.02 * abs(loss["unsplit"]) or \
+            not all(math.isfinite(v) for v in loss.values()):
+        fail(f"large vqa split step: loss_vqa {loss['split']:.5f} against the unsplit step's "
+             f"{loss['unsplit']:.5f}")
+    for k, c in split["cosine"].items():
+        if not c >= 0.99:
+            fail(f"large vqa split step: gradient {k} cosine to the unsplit step's {c:.5f}")
+    del model
+    torch.cuda.empty_cache()
+    model = vqa_model(cfg, torch.bfloat16, dev, remat_train=False)
+    model.load_state_dict(final)
+    times = remat_step_times(model, cfg, batch, dev, LARGE_STEP_POLICIES)
+    log(f"phase 17 train step by remat policy ({LARGE_VQA_BATCH} questions at 768 px in "
+        f"{LARGE_VQA_ACCUM} microbatches, dropouts on, AdamW; CUDA-event ms of the second of "
+        f"two steps, peak device GiB; {smi}): {json.dumps(times)}")
+    del model
+    torch.cuda.empty_cache()
+    part_done("17", "card holds", t2)
+
+    _, test_ds = create_dataset("vqa", cfg, rng=random.Random(args.seed))
+    hold_batch = large_vqa_batch(cfg, 2, args.seed)
+    hold_path = hold_state(final, "large_vqa.pt")
+    del final
+    defer_hold("phase 17 card bf16 vs CPU fp32 (2 questions, 4 answer rows, dropout off, "
+               "remat dots)", vqa_hold, hold_path, cfg, hold_batch,
+               {"answer_ids": torch.from_numpy(test_ds.answer_ids).long(),
+                "answer_atts": torch.from_numpy(test_ds.answer_atts)}, dev, True)
+    phase_seconds("17", t0)
+    return split_counts(counts, [r["delta"] for r in steps])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6391,7 +7248,7 @@ def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
         flash_bwd_entries = check_flash_bwd(gen, dev)
         tiny_bwd_entries = check_tiny_bwd(gen, dev)
         t_tiled = time.perf_counter()
-        tiled_entries = check_tiny_tiled(gen, dev, TILED_MAIN_SHAPES)
+        tiled_entries = check_tiny_tiled(gen, dev, TILED_MAIN_SHAPES, TILED_MAIN_SHAPES_16)
         log(f"key-tiled tiny checks: {time.perf_counter() - t_tiled:.1f} s")
     torch.cuda.empty_cache()
 
@@ -6461,6 +7318,23 @@ def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
         vqa_counts = vqa_launcher_phase(args, root, th_path, tok_dir, words,
                                         os.path.join(root, "flickr"), dev, smi)
         torch.cuda.empty_cache()
+        # ---- phase 16: X2VLM-large pretraining through the launcher, remat held ----
+        # ---- phase 17: VQA on X2VLM-large at 768 px, accumulate_steps 2, remat dots ----
+        # (here, so that their CPU fp32 holds, the slowest, run in the worker
+        # beside phases 11-15; their states leave RAM before phase 11, the
+        # holds keep the parameters only)
+        large_work = work_dir(root, 24 * 2**30)
+        try:
+            large_pre_counts, large_tok, large_th = large_pretrain_phase(
+                args, root, tok_dir, large_work, dev, smi)
+            torch.cuda.empty_cache()
+            large_vqa_counts = large_vqa_phase(args, root, large_th, large_tok, words,
+                                               os.path.join(root, "flickr"), large_work, dev,
+                                               smi)
+        finally:
+            if large_work != root:
+                shutil.rmtree(large_work, ignore_errors=True)
+        torch.cuda.empty_cache()
         # ---- phase 11: the launcher's captioning fine-tune, eval and SCST ----
         cap_counts = caption_launcher_phase(args, root, th_path, tok_dir, words,
                                             os.path.join(root, "flickr"), dev, smi)
@@ -6501,6 +7375,9 @@ def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
     ledger_add(ledger, "train_step", "training", train)
     ledger_add(ledger, "pretrain_launcher", "training", pre_counts)
     ledger_add(ledger, "cclm_launcher", "training", cclm_counts)
+    ledger_add(ledger, "large_pretrain_launcher", "training", large_pre_counts, LARGE_HEADS)
+    for operands, c in large_vqa_counts.items():
+        ledger_add(ledger, "large_vqa_launcher", operands, c, LARGE_HEADS)
     for path, split in (("retrieval_launcher", ret_counts), ("finetune_launcher", ft_counts),
                         ("vqa_launcher", vqa_counts), ("caption_launcher", cap_counts[0]),
                         ("caption_launcher", cap_counts[1]), ("video_launcher", video_counts),

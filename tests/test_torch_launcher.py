@@ -206,12 +206,25 @@ def test_vqa_is_no_longer_refused(corpus):
     ({"images": {"batch_size": 4, "tokenized": True}}, ValueError, "tokenized"),
     ({"use_swin": True, "patch_size": 16}, ValueError, "use_swin requires patch_size"),
     ({"is_xvlm_ckpt": True}, ValueError, "is_xvlm_ckpt"),
-    ({"remat": True}, NotImplementedError, "remat"),
+    ({"remat": True, "remat_policy": "dot"}, ValueError, "remat_policy"),
     ({"flat_optimizer": True}, NotImplementedError, "flat_optimizer"),
 ])
 def test_unported_streams_and_options_raise(corpus, extra, err, match):
     with pytest.raises(err, match=match):
         _main(corpus, "refused", _pretrain_cfg(corpus, **extra), "pretrain")
+
+
+def test_remat_pretraining_equals_the_plain_run_bit_for_bit(corpus):
+    """``remat: true`` under ``dots`` (the image and text streams, dropout
+    on): the saved state equals the plain run's bit for bit."""
+    _main(corpus, "plain", _pretrain_cfg(corpus), "pretrain")
+    _main(corpus, "remat", _pretrain_cfg(corpus, remat=True, remat_policy="dots"), "pretrain")
+    plain, remat = _state(corpus, "plain"), _state(corpus, "remat")
+    assert remat["step"] == plain["step"] == 2
+    for part in ("params", "mu", "nu"):
+        assert remat[part].keys() == plain[part].keys()
+        for k, v in plain[part].items():
+            assert torch.equal(remat[part][k], v), (part, k)
 
 
 def test_unknown_config_keys_are_refused(corpus):

@@ -436,11 +436,29 @@ def test_factory_builds_the_cclm_model_as_the_jax_factory():
 
 @pytest.mark.parametrize("extra,err,match", [
     ({"cross_drop_path_rate": 0.1, "text_drop_path_rate": 0.1}, ValueError, "drop-path"),
-    ({"text_config_inline": {"remat": True}}, NotImplementedError, "A11"),
+    ({"text_config_inline": {"remat": True, "remat_policy": "dot"}}, ValueError,
+     "remat_policy"),
 ])
 def test_factory_refuses_what_the_plus_base_does_not_build(extra, err, match):
     with pytest.raises(err, match=match):
         factory.xvlm_config_from_yaml(_yaml(**extra))
+
+
+def test_text_config_inline_remats_the_text_tower_alone():
+    """``text_config_inline`` remat keys reach the text tower, the cross
+    encoder and the decoder (the text config carries them) and not the
+    vision tower, as in the JAX factory."""
+    from x2vlm_tpu.factory import xvlm_config_from_yaml as jax_config_from_yaml
+
+    cfg = _yaml(text_config_inline=dict(_yaml()["text_config_inline"], remat=True,
+                                        remat_policy="dots_saveable"))
+    got, want = factory.xvlm_config_from_yaml(cfg), jax_config_from_yaml(cfg)
+    for stack in (got.text, got.cross_config):
+        assert (stack.remat, stack.remat_policy) == (True, "dots_saveable")
+    assert (want.text.remat, want.text.remat_policy) == (True, "dots_saveable")
+    assert not got.vision.remat and not want.vision.remat
+    model, _ = factory.build_model(cfg, "vqa", device="cpu")
+    assert model.text_decoder.stack.config.remat
 
 
 @pytest.mark.parametrize("task,extra", [("nlvr", {}), ("vqa", {"pad_token_id": 1}),
@@ -457,9 +475,8 @@ def test_the_plus_base_is_no_longer_refused_under_another_task(task, extra):
 
 # ---- the registry audit (the JAX tests/test_config_zoo.py meta-audit) ----
 
-# keys later items read: remat's policy (A11); use_random_sampling is
-# read-and-unused by the reference too
-AUDIT_EXEMPT = {"remat_policy", "use_random_sampling"}
+# use_random_sampling is read-and-unused by the reference too
+AUDIT_EXEMPT = {"use_random_sampling"}
 
 
 def test_registry_keys_are_actually_read_by_the_port():
@@ -483,5 +500,6 @@ def test_registry_keys_are_actually_read_by_the_port():
                       not re.search(r"['\"]" + re.escape(k) + r"['\"]", src)})
     assert missing == []
     for k in ("code_switch", "source_key", "target_key", "num_cross_layers", "is_xvlm_ckpt",
-              "xvlm_ckpt_text_num_hidden_layers", "native_aug", "marvl_image_root"):
+              "xvlm_ckpt_text_num_hidden_layers", "native_aug", "marvl_image_root", "remat",
+              "remat_policy"):
         assert k not in AUDIT_EXEMPT and re.search(r"['\"]" + k + r"['\"]", src), k

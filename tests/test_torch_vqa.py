@@ -148,7 +148,9 @@ def test_loss_and_gradients_equal_jax(vqa):
 def test_the_train_step_takes_every_answer_row(vqa):
     """One ``make_train_step`` step over the 3 questions and 5 answer rows:
     its ``loss_vqa`` is the model's on the whole batch (no row cut to the
-    question count); accumulation refuses the batch rather than split it."""
+    question count); under accumulation the batch splits by question (3
+    microbatches of one question, each with the 5 answer rows) and the
+    step's ``loss_vqa`` is the unsplit one up to summation order."""
     from x2vlm_tpu_torch.train import create_optimizer, lr_schedule, make_train_step
 
     port = to_port(vqa["variables"], XVLMForVQA(port_config(), num_dec_layers=N_DEC,
@@ -158,10 +160,13 @@ def test_the_train_step_takes_every_answer_row(vqa):
     with torch.no_grad():
         want = port(batch)["loss_vqa"].item()
     opt = create_optimizer(port, lr_schedule(1e-3, 10))
+    fresh = {k: v.clone() for k, v in port.state_dict().items()}
     got = make_train_step(port, opt)(batch)["loss_vqa"].item()
     assert got == want
-    with pytest.raises(ValueError, match="rows"):
-        make_train_step(port, opt, accum_steps=2)(batch)
+    port.load_state_dict(fresh)
+    opt = create_optimizer(port, lr_schedule(1e-3, 10))
+    split = make_train_step(port, opt, accum_steps=3)(batch)["loss_vqa"].item()
+    np.testing.assert_allclose(split, want, **BOXES)
 
 
 @pytest.mark.parametrize("k", [4, N_ANS])

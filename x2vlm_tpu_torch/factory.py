@@ -19,9 +19,13 @@ cclm | xvlm_plus`` (or ``replace_text_encoder``) build the Plus / CCLM base
 ``XVLMPlusForPretrain``, every other task its model on the Plus core, as the
 JAX ``make_base`` arranges: the IGLUE tasks' ``"retrieval"``, ``"nlvr"``,
 ``"vqa"`` with the RoBERTa-form decoder and ``"classification"``), which
-refuses drop-path as the JAX factory does. A config that asks for what the
-port does not build raises, naming the ROADMAP queue item that brings it:
-``remat`` (A11).
+refuses drop-path as the JAX factory does. ``remat: true`` sets ``remat``
+and the YAML's ``remat_policy`` on both towers' configs, as the JAX
+factory does (the text config carries them to the fusion, decoder and
+cross-encoder stacks); ``text_config_inline`` may set them on the text
+tower alone. The JAX presets are kept as they are, also where they are odd:
+a ``text_encoder`` naming ``xlm-roberta-large`` takes the ``roberta_base``
+preset (width 768) in both factories.
 """
 
 from __future__ import annotations
@@ -43,12 +47,6 @@ from x2vlm_tpu_torch.models.xvlm_plus import XVLMPlusConfig
 
 __all__ = ["vision_config_from_yaml", "text_config_from_yaml", "xvlm_config_from_yaml",
            "is_plus_config", "model_dtype", "build_model"]
-
-
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(f"{what} comes with ROADMAP queue item {item}; the port "
-                              f"builds BEiT-2 / CLIP ViT / Swin + BERT / XLM-R X2-VLM and "
-                              f"CCLM models")
 
 
 def vision_config_from_yaml(config: Dict) -> Any:
@@ -118,13 +116,9 @@ def text_config_from_yaml(config: Dict, vision_width: int) -> BertConfig:
         overrides["cross_drop_path_rate"] = float(config.get("cross_drop_path_rate", 0.0))
     if overrides:
         out = dataclasses.replace(out, **overrides)
-    inline = dict(config.get("text_config_inline") or {})
+    inline = config.get("text_config_inline")
     if inline:
-        fields = {f.name for f in dataclasses.fields(BertConfig)}
-        unported = sorted(set(inline) - fields)
-        if unported:   # remat / remat_policy: the JAX package's gradient checkpointing
-            _refuse(f"text_config_inline keys {unported}", "A11")
-        out = dataclasses.replace(out, **inline)
+        out = dataclasses.replace(out, **dict(inline))
     return out
 
 
@@ -136,11 +130,13 @@ def is_plus_config(config: Dict) -> bool:
 
 
 def xvlm_config_from_yaml(config: Dict) -> XVLMConfig:
-    if config.get("remat", False):
-        raise NotImplementedError("remat: gradient checkpointing comes with ROADMAP queue "
-                                  "item A11; drop the key")
     vision = vision_config_from_yaml(config)
     text = text_config_from_yaml(config, vision_width(vision))
+    # gradient checkpointing per block (the JAX factory's rule): both towers
+    if config.get("remat", False):
+        policy = config.get("remat_policy")
+        vision = dataclasses.replace(vision, remat=True, remat_policy=policy)
+        text = dataclasses.replace(text, remat=True, remat_policy=policy)
     common = dict(vision=vision, text=text, embed_dim=config.get("embed_dim", 256),
                   temp=config.get("temp", 0.07), fix_temp=config.get("fix_temp", False),
                   video_encoding=config.get("video_encoding", ""),

@@ -5,8 +5,10 @@ position embedding, pre-LN blocks with LayerScale and stochastic depth, and
 a per-block relative-position bias table over the (Wh, Ww) window with 3
 extra cls-interaction rows. All depth x H tables are gathered in one indexed
 read per forward and handed to the attention in the compute dtype, shared
-over the batch as (1, H, S, S). Output: (B, num_patches + 1, C) =
-[mean-pooled patch tokens after fc_norm || patch tokens].
+over the batch as (1, H, S, S); with ``remat`` each block is rematerialised
+under ``remat_policy`` (``ops/remat.py``), the gathered biases its inputs.
+Output: (B, num_patches + 1, C) = [mean-pooled patch tokens after fc_norm
+|| patch tokens].
 ``grouped_image_embeds`` turns the per-image output into the region
 stream's rows.
 
@@ -30,6 +32,7 @@ from x2vlm_tpu_torch.ops.layers import (
     ACTIVATIONS, DropPath, FusedLayerNorm, LayerNorm, Mlp, MultiHeadAttention,
     PatchEmbed,
 )
+from x2vlm_tpu_torch.ops.remat import block_call, checkpoint_policy
 
 __all__ = ["BEiT2Config", "BEiT2", "BEiT2Block", "relative_position_index",
            "grouped_image_embeds"]
@@ -50,6 +53,11 @@ class BEiT2Config:
     ln_eps: float = 1e-6
     act: str = "gelu"          # "gelu" (erf) | "gelu_fast" (tanh)
     quant_int8: bool = False   # int8 W8A8 projections and FFN (serving only)
+    remat: bool = False        # rematerialise each block in the backward (ops/remat.py)
+    remat_policy: Optional[str] = None  # None / "full" | "dots" | "dots_saveable" | "nothing"
+
+    def __post_init__(self):
+        checkpoint_policy(self.remat_policy)
 
     @property
     def window(self) -> Tuple[int, int]:
@@ -187,9 +195,11 @@ class BEiT2(nn.Module):
                              f"config expects {cfg.num_patches}")
         cls = self.cls_token.to(self.dtype).expand(B, 1, C)
         x = torch.cat([cls, x], dim=1)
-        biases = self.rel_pos_biases()
-        for i, blk in enumerate(self.blocks):
-            x = blk(x, biases[i], generator)
+        # unbind: the backward stacks the blocks' bias gradients once (a
+        # select a block would zero-fill and add a depth-sized gradient each)
+        for blk, bias in zip(self.blocks, self.rel_pos_biases().unbind(0)):
+            x = block_call(blk, x, bias, remat=cfg.remat, policy=cfg.remat_policy,
+                           generator=generator)
         # mean-pooling contract: fc_norm over the patches; token 0 is their mean
         patches = self.fc_norm(x[:, 1:].float())
         pooled = patches.mean(dim=1, keepdim=True)

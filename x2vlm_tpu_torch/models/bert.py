@@ -33,6 +33,11 @@ mask), and ``position_ids``; its decode threads a list of per-layer static
 caches through the stack (``cache=``; the stack then returns ``(x, new
 caches)``). The cross-attention never takes a cache: it attends to the
 image keys at every step, as the JAX package does.
+
+With ``remat`` every layer of the text, fusion and decoder stacks (and the
+Plus base's cross encoder, a stack too) is rematerialised under
+``remat_policy`` (``ops/remat.py``); the static-cache decode never is, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from x2vlm_tpu_torch.ops.layers import (
     dropout, epilogue_act, gelu_exact, layer_norm, linear, serving_only,
 )
 from x2vlm_tpu_torch.ops.quant import qdense
+from x2vlm_tpu_torch.ops.remat import block_call, checkpoint_policy
 
 __all__ = ["BertConfig", "BertEncoder", "BertLayer", "BertMLMHead", "TextEncoder",
            "drop_path_schedule"]
@@ -74,6 +80,8 @@ class BertConfig:
     position_offset: int = 0       # 2 for RoBERTa / XLM-R
     act: str = "gelu"              # "gelu" (erf) | "gelu_fast" (tanh)
     quant_int8: bool = False       # int8 W8A8 projections and FFN (serving only)
+    remat: bool = False            # rematerialise each layer in the backward (ops/remat.py)
+    remat_policy: Optional[str] = None  # None / "full" | "dots" | "dots_saveable" | "nothing"
     embedding_dim: Optional[int] = None  # the MLM head's bottleneck width (CCLM)
     tie_word_embeddings: bool = True     # the MLM decoder is the word-embedding table
     is_decoder: bool = False       # causal self-attention, cross-attention in every layer
@@ -81,6 +89,7 @@ class BertConfig:
     cross_drop_path_rate: float = 0.0
 
     def __post_init__(self):
+        checkpoint_policy(self.remat_policy)
         if self.text_drop_path_rate > 0:
             # text drop-path requires cross drop-path and replaces hidden
             # dropout (reference xbert.py:637-641)
@@ -326,16 +335,20 @@ class BertEncoder(nn.Module):
                  else self.embeddings(input_ids, generator, deterministic, position_ids))
         else:
             raise ValueError(f"mode {mode!r}: one of text, fusion, multi_modal")
-        new_caches = [] if cache is not None else None
-        for li, layer in enumerate(self.encoder.layer[lo:hi]):
-            x = layer(x, attention_mask, encoder_hidden_states,
-                      encoder_attention_mask, generator, encoder_gather_idx,
-                      deterministic, attention_matrix,
-                      None if cache is None else cache[li])
-            if cache is not None:
-                x, layer_cache = x
+        if cache is not None:   # the static-cache decode: no backward, no remat
+            new_caches = []
+            for li, layer in enumerate(self.encoder.layer[lo:hi]):
+                x, layer_cache = layer(x, attention_mask, encoder_hidden_states,
+                                       encoder_attention_mask, generator, encoder_gather_idx,
+                                       deterministic, attention_matrix, cache[li])
                 new_caches.append(layer_cache)
-        return x if cache is None else (x, new_caches)
+            return x, new_caches
+        for layer in self.encoder.layer[lo:hi]:
+            x = block_call(layer, x, attention_mask, encoder_hidden_states,
+                           encoder_attention_mask, remat=cfg.remat, policy=cfg.remat_policy,
+                           generator=generator, encoder_gather_idx=encoder_gather_idx,
+                           deterministic=deterministic, attention_matrix=attention_matrix)
+        return x
 
 
 class _MLMTransform(nn.Module):

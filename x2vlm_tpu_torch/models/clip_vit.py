@@ -12,6 +12,8 @@ at 197 tokens it takes the flash kernel.
 last k layers run on [region rows || full rows], the region rows gathered
 from their images before those layers, each row attending with its own key
 mask (the region's patches for a region row, every key for a full row).
+With ``remat`` each layer is rematerialised under ``remat_policy``
+(``ops/remat.py``).
 
 Parameter names are the reference's (HF CLIP's after its loader strips
 ``vision_model.`` and ``embeddings.``): ``patch_embed.weight``,
@@ -32,6 +34,7 @@ from x2vlm_tpu_torch.device import resolve_device
 from x2vlm_tpu_torch.ops.layers import (
     FusedLayerNorm, LayerNorm, Mlp, MultiHeadAttention, gelu_exact, patchify,
 )
+from x2vlm_tpu_torch.ops.remat import block_call, checkpoint_policy
 
 __all__ = ["CLIPViTConfig", "CLIPViT", "quick_gelu", "CLIP_ACTIVATIONS"]
 
@@ -56,6 +59,11 @@ class CLIPViTConfig:
     act: str = "quick_gelu"          # the vision JSON's ``hidden_act``
     local_attn_depth: int = 0        # the region path's last k layers; <= 0: off
     ln_eps: float = 1e-5
+    remat: bool = False        # rematerialise each block in the backward (ops/remat.py)
+    remat_policy: Optional[str] = None  # None / "full" | "dots" | "dots_saveable" | "nothing"
+
+    def __post_init__(self):
+        checkpoint_policy(self.remat_policy)
 
     @property
     def num_patches(self) -> int:
@@ -142,7 +150,8 @@ class CLIPViT(nn.Module):
                 key_mask = torch.cat([image_atts.to(torch.int32),
                                       torch.ones(B, S + 1, dtype=torch.int32,
                                                  device=x.device)])
-            x = layer(x, key_mask, generator)
+            x = block_call(layer, x, key_mask, remat=cfg.remat, policy=cfg.remat_policy,
+                           generator=generator)
         x = self.post_layernorm(x)
         if grouped:
             n_region = idx_to_group_img.shape[0]

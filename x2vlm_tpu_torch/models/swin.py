@@ -7,7 +7,9 @@ window, with the roll and the additive 0 / -100 region mask), a
 (B, 1 + (res/32)^2, vision_width): the fp32 mean of the final tokens in
 front of them, as the reference's X2-VLM adaptation appends its avgpool
 token. A stage whose grid is no larger than the window runs one unshifted
-window over it. Stochastic depth runs one linspace over all blocks.
+window over it. Stochastic depth runs one linspace over all blocks. With
+``remat`` each block is rematerialised under ``remat_policy``
+(``ops/remat.py``); the patch merging between stages is not.
 
 The window attention runs the plain ``ops/attention.dot_product_attention``
 with the per-head relative-position table bias plus the shift mask, as the
@@ -34,6 +36,7 @@ from x2vlm_tpu_torch.ops.attention import dot_product_attention
 from x2vlm_tpu_torch.ops.layers import (
     DropPath, FusedLayerNorm, Mlp, PatchEmbed, dense, gelu_exact, layer_norm, linear,
 )
+from x2vlm_tpu_torch.ops.remat import block_call, checkpoint_policy
 
 __all__ = ["SwinConfig", "SwinTransformer", "rel_pos_index", "shift_attn_mask",
            "window_partition", "window_merge"]
@@ -50,6 +53,11 @@ class SwinConfig:
     mlp_ratio: float = 4.0
     drop_path_rate: float = 0.1
     ln_eps: float = 1e-5
+    remat: bool = False        # rematerialise each block in the backward (ops/remat.py)
+    remat_policy: Optional[str] = None  # None / "full" | "dots" | "dots_saveable" | "nothing"
+
+    def __post_init__(self):
+        checkpoint_policy(self.remat_policy)
 
     @property
     def num_layers(self) -> int:
@@ -261,7 +269,8 @@ class SwinTransformer(nn.Module):
                              f"config expects {side * side}")
         for stage in self.layers:
             for block in stage.blocks:
-                x = block(x, generator)
+                x = block_call(block, x, remat=cfg.remat, policy=cfg.remat_policy,
+                               generator=generator)
             if stage.downsample is not None:
                 x = stage.downsample(x, side, side)
                 side //= 2

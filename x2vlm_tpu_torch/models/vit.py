@@ -4,7 +4,8 @@ family of vision towers for checkpoints of the older X-VLM.
 
 A conv patchify, a CLS token and learned absolute position embeddings,
 pre-LN blocks with stochastic depth, a final LayerNorm. Output
-(B, num_patches + 1, C), token 0 the CLS token.
+(B, num_patches + 1, C), token 0 the CLS token. With ``remat`` each block is
+rematerialised under ``remat_policy`` (``ops/remat.py``).
 
 Parameter names are timm's: ``patch_embed.proj``, ``cls_token``,
 ``pos_embed``, ``blocks.N.{norm1, attn.qkv, attn.proj, norm2, mlp.fc1,
@@ -24,6 +25,7 @@ from x2vlm_tpu_torch.device import resolve_device
 from x2vlm_tpu_torch.ops.layers import (
     ACTIVATIONS, DropPath, FusedLayerNorm, Mlp, MultiHeadAttention, PatchEmbed, dropout,
 )
+from x2vlm_tpu_torch.ops.remat import block_call, checkpoint_policy
 
 __all__ = ["ViTConfig", "ViT"]
 
@@ -41,6 +43,11 @@ class ViTConfig:
     attn_dropout_rate: float = 0.0
     ln_eps: float = 1e-6
     act: str = "gelu"
+    remat: bool = False        # rematerialise each block in the backward (ops/remat.py)
+    remat_policy: Optional[str] = None  # None / "full" | "dots" | "dots_saveable" | "nothing"
+
+    def __post_init__(self):
+        checkpoint_policy(self.remat_policy)
 
     @property
     def num_patches(self) -> int:
@@ -103,5 +110,6 @@ class ViT(nn.Module):
         x = dropout(x + self.pos_embed.to(self.dtype), cfg.dropout_rate, generator,
                     self.training)
         for blk in self.blocks:
-            x = blk(x, generator)
+            x = block_call(blk, x, remat=cfg.remat, policy=cfg.remat_policy,
+                           generator=generator)
         return self.norm(x)

@@ -10,14 +10,15 @@ Counterpart of x2vlm_tpu/ops/flash_attention.py. The functions:
   :func:`flash_attention_reference`. It returns ``(out, lse)``; ``lse``
   (B, H, Sq, 1) fp32 is what the backward reads. ``flash_attention_fwd.
   launches`` counts kernel launches, ``.launches_by_route`` by route,
-  ``.launches_by_shape`` by (B, Sq, Skv), ``.launches_without_bias`` those
-  of them with no bias, by the same key.
+  ``.launches_by_shape`` by (B, Sq, Skv), ``.launches_by_heads`` by H,
+  ``.launches_without_bias`` those of them with no bias, by (B, Sq, Skv).
 - :func:`flash_attention_bwd` is the backward kernels' wrapper (dQ, dK/dV
   and dBias, ``csrc/flash_attention_bwd.cu``); for CPU tensors it runs
   :func:`flash_attention_bwd_reference`. ``flash_attention_bwd.launches``
   counts the launches of each kernel ("dq", "dkv", "dbias"),
   ``.launches_by_route`` by (kernel, route), ``.launches_by_shape`` by
-  (kernel, B, Sq, Skv), ``.launches_without_bias`` likewise.
+  (kernel, B, Sq, Skv), ``.launches_by_heads`` by (kernel, H),
+  ``.launches_without_bias`` by (kernel, B, Sq, Skv).
 - :func:`flash_attention_reference` / :func:`flash_attention_bwd_reference`
   are the plain PyTorch versions (counterparts of ``_xla_attention`` and of
   the math of ``_flash_backward``).
@@ -279,6 +280,7 @@ def flash_attention_fwd(
     flash_attention_fwd.launches += 1
     flash_attention_fwd.launches_by_route[flash_route(q.dtype, D)] += 1
     flash_attention_fwd.launches_by_shape[(B, Sq, Skv)] += 1
+    flash_attention_fwd.launches_by_heads[H] += 1
     if bias is None:
         flash_attention_fwd.launches_without_bias[(B, Sq, Skv)] += 1
     return out, lse
@@ -287,6 +289,7 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_by_route = collections.Counter()
 flash_attention_fwd.launches_by_shape = collections.Counter()
+flash_attention_fwd.launches_by_heads = collections.Counter()
 flash_attention_fwd.launches_without_bias = collections.Counter()
 
 
@@ -365,6 +368,7 @@ def _bwd_launchers(q, k, v, bias, key_mask, out, lse, dout, causal, scale):
         flash_attention_bwd.launches[name] += 1
         flash_attention_bwd.launches_by_route[(name, route)] += 1
         flash_attention_bwd.launches_by_shape[(name, B, Sq, Skv)] += 1
+        flash_attention_bwd.launches_by_heads[(name, H)] += 1
         if bias is None:
             flash_attention_bwd.launches_without_bias[(name, B, Sq, Skv)] += 1
 
@@ -426,6 +430,7 @@ def flash_attention_bwd(
 flash_attention_bwd.launches = collections.Counter()
 flash_attention_bwd.launches_by_route = collections.Counter()
 flash_attention_bwd.launches_by_shape = collections.Counter()
+flash_attention_bwd.launches_by_heads = collections.Counter()
 flash_attention_bwd.launches_without_bias = collections.Counter()
 
 

@@ -16,8 +16,8 @@ Counterpart of x2vlm_tpu/ops/tiny_attention.py. The functions:
   ``out``, from which the key-tiled tensor-core kernel takes its softmax
   row sums, rowsum(g * out).
 - Each wrapper's ``.launches`` counts its kernel launches,
-  ``.launches_by_shape`` splits them by (B, Sq, Skv) and
-  ``.launches_by_route`` by route.
+  ``.launches_by_shape`` splits them by (B, Sq, Skv), ``.launches_by_heads``
+  by H and ``.launches_by_route`` by route.
 - :func:`tiny_attention_reference` / :func:`tiny_attention_bwd_reference`
   are the plain PyTorch versions (counterparts of ``_xla_reference`` and of
   the math of ``_bwd_kernel``).
@@ -333,6 +333,7 @@ def tiny_attention_fwd(
     _build.check(lib, err, "tiny_attention_fwd")
     tiny_attention_fwd.launches += 1
     tiny_attention_fwd.launches_by_shape[(B, Sq, Skv)] += 1
+    tiny_attention_fwd.launches_by_heads[H] += 1
     tiny_attention_fwd.launches_by_route[route] += 1
     tiny_attention_fwd.launches_by_walk[walk] += 1
     return out, probs
@@ -340,6 +341,7 @@ def tiny_attention_fwd(
 
 tiny_attention_fwd.launches = 0
 tiny_attention_fwd.launches_by_shape = collections.Counter()
+tiny_attention_fwd.launches_by_heads = collections.Counter()
 tiny_attention_fwd.launches_by_route = collections.Counter()
 tiny_attention_fwd.launches_by_walk = collections.Counter()
 
@@ -445,6 +447,7 @@ def tiny_attention_bwd(
     _build.check(lib, err, "tiny_attention_bwd")
     tiny_attention_bwd.launches += 1
     tiny_attention_bwd.launches_by_shape[(B, Sq, Skv)] += 1
+    tiny_attention_bwd.launches_by_heads[H] += 1
     tiny_attention_bwd.launches_by_route[route] += 1
     tiny_attention_bwd.launches_by_walk[walk] += 1
     return dq, dk, dv
@@ -452,6 +455,7 @@ def tiny_attention_bwd(
 
 tiny_attention_bwd.launches = 0
 tiny_attention_bwd.launches_by_shape = collections.Counter()
+tiny_attention_bwd.launches_by_heads = collections.Counter()
 tiny_attention_bwd.launches_by_route = collections.Counter()
 tiny_attention_bwd.launches_by_walk = collections.Counter()
 

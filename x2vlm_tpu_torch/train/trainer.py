@@ -14,20 +14,35 @@ reproducible from the two generators' states. ``accum_steps > 1`` splits
 the batch along its first dim into that many microbatches, each a part
 weighted ``1 / accum_steps`` (the JAX package's scan). In-batch losses
 (ITC, ITM negatives) then see microbatch-local negatives, as in the
-reference's accumulation. A batch whose tensors differ in rows (a VQA
-batch: its answer rows are not its questions) takes whole steps only.
+reference's accumulation.
+
+A VQA batch (one with ``answer_index``: its answer rows are not its
+questions) splits by question (:func:`split_batch`): microbatch i takes
+questions ``[i * mb, (i + 1) * mb)`` and every answer row, those of its own
+questions with their weights and the index rebased, the rest at weight 0
+pointing at its first question. Every microbatch keeps the batch's shapes
+of answer rows, and since ``loss_vqa`` sums the weighted answer losses over
+the question count, the accumulated step's loss and gradient are the
+unsplit step's up to summation order: ``accumulate_steps`` only caps
+memory, as the JAX launcher documents it. (The JAX step splits every leaf
+along its first dim, so a microbatch's ``answer_index`` still counts the
+whole batch's questions and reads out of range.) Any other batch whose
+tensors differ in rows raises.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
 
 from x2vlm_tpu_torch.train.optim import AdamW
 
-__all__ = ["make_train_step", "make_grad_fn", "make_apply_grads"]
+__all__ = ["make_train_step", "make_grad_fn", "make_apply_grads", "split_batch"]
+
+# the per-answer-row keys of a VQA train batch (data/finetune.vqa_collate)
+ANSWER_KEYS = ("answer_ids", "answer_atts", "answer_weights", "answer_index")
 
 
 def _total_loss(losses: Dict[str, torch.Tensor],
@@ -78,6 +93,46 @@ def make_apply_grads(optimizer: AdamW) -> Callable[[], torch.Tensor]:
     return apply_grads
 
 
+def _split_rows(batch: Dict[str, torch.Tensor], keys, n: int, what: str):
+    """(rows of ``keys``' tensors, rows a microbatch) for ``n`` microbatches;
+    raises unless they all have one row count that ``n`` divides."""
+    rows = {batch[k].shape[0] for k in keys}
+    if len(rows) != 1:
+        raise ValueError(f"accumulation splits {what} along their first dim; this batch's "
+                         f"tensors have {sorted(rows)} rows")
+    rows = rows.pop()
+    if rows % n:
+        raise ValueError(f"batch of {rows} rows does not split into {n} microbatches")
+    return rows, rows // n
+
+
+def split_batch(batch: Dict[str, torch.Tensor], n: int) -> List[Dict[str, torch.Tensor]]:
+    """``batch`` as ``n`` microbatches along its first dim; a VQA batch (with
+    ``answer_index``) by question, every microbatch holding all the answer
+    rows, those of other questions at weight 0 (module docstring)."""
+    if n == 1:
+        return [batch]
+    tensors = [k for k, v in batch.items() if torch.is_tensor(v)]
+    if "answer_index" not in batch:
+        _, mb = _split_rows(batch, tensors, n, "every tensor")
+        return [{k: v[i * mb:(i + 1) * mb] if torch.is_tensor(v) else v
+                 for k, v in batch.items()} for i in range(n)]
+    _, mb = _split_rows(batch, [k for k in tensors if k not in ANSWER_KEYS], n,
+                        "the question tensors")
+    index = batch["answer_index"]
+    out = []
+    for i in range(n):
+        lo = i * mb
+        own = (index >= lo) & (index < lo + mb)
+        part = {k: v[lo:lo + mb] if torch.is_tensor(v) and k not in ANSWER_KEYS else v
+                for k, v in batch.items()}
+        part["answer_weights"] = torch.where(own, batch["answer_weights"],
+                                             torch.zeros_like(batch["answer_weights"]))
+        part["answer_index"] = torch.where(own, index - lo, torch.zeros_like(index))
+        out.append(part)
+    return out
+
+
 def make_train_step(model: nn.Module, optimizer: AdamW, *,
                     loss_weights: Optional[Dict[str, float]] = None,
                     accum_steps: int = 1) -> Callable[..., Dict[str, torch.Tensor]]:
@@ -94,22 +149,8 @@ def make_train_step(model: nn.Module, optimizer: AdamW, *,
         for p in optimizer.params:
             p.grad = None
         n = accum_steps
-        if n == 1:
-            microbatches = [batch]
-        else:
-            rows = {v.shape[0] for v in batch.values() if torch.is_tensor(v)}
-            if len(rows) != 1:
-                raise ValueError(f"accumulation splits every tensor along its first dim; "
-                                 f"this batch's tensors have {sorted(rows)} rows (a VQA "
-                                 f"batch's answer rows are not its questions')")
-            rows = rows.pop()
-            if rows % n:
-                raise ValueError(f"batch of {rows} rows does not split into {n} microbatches")
-            mb_rows = rows // n
-            microbatches = [{k: v[i * mb_rows:(i + 1) * mb_rows] if torch.is_tensor(v) else v
-                             for k, v in batch.items()} for i in range(n)]
         sums: Dict[str, torch.Tensor] = {}
-        for mb in microbatches:
+        for mb in split_batch(batch, n):
             for k, v in grad_fn(mb, generator, dropout_generator).items():
                 sums[k] = sums.get(k, 0.0) + v
         metrics = {k: v if k == "loss_total" else v / n for k, v in sums.items()}
