@@ -81,18 +81,19 @@ Phases (any failure exits non-zero and prints no result line):
    ``tools/region_kink_witness.py`` reads why);
 7. the launcher's pretraining task, ``x2vlm_tpu_torch.run.main`` in process
    on data written to a temporary directory (a 30,522-entry BERT vocab
-   drawn from ``--seed``, 64 base64 PNG image-text lines of 256 px, 64
+   drawn from ``--seed``, 256 base64 PNG image-text lines of 256 px, 64
    region lines of 256 px with 1-6 boxes each and 64 text lines):
    ``configs/pretrain/x2vlm_base_4m.yaml`` read with the port's
-   ``load_config``, the data paths pointed there, the region block as
-   shipped (128 rows over 50 images a step), a text stream added, the
-   images at batch 32, a save every 2 steps; 4 steps, then ``--resume`` to
-   step 6. Checked: finite losses (the region stream's bbox L1 and GIoU
-   among them), no broken sample, the launches of the 4 steps (24 of each
-   flash kernel a step on the tensor-core route, 12 at B=32 and 12 at
-   B=50; tiny forward and backward as phase 6, 18 at 32 x 40 x 40 for the
-   text stream and the region stream's, all tensor-core, all on the
-   resident walk; no plain attention), each region-stream call's own
+   ``load_config``, the data paths pointed there, the image and region
+   blocks as shipped (128 images; 128 rows over 50 images a step), a text
+   stream added at batch 32, a save every 2 steps; 4 steps, then
+   ``--resume`` to step 6. Checked: finite losses (the region stream's
+   bbox L1 and GIoU among them), no broken sample, the launches of the 4
+   steps (24 of each flash kernel a step on the tensor-core route, 12 at
+   B=128 and 12 at B=50; tiny forward and backward 12 at 256 x 40 x 40, 6
+   at 512 x 40 x 40 and 512 x 40 x 200 for the image stream, 18 at 32 x 40
+   x 40 for the text stream and the region stream's, all tensor-core, all
+   on the resident walk; no plain attention), each region-stream call's own
    launches (12 of each flash kernel; tiny at 256 x 40 x 40 x12, 512 x 40
    x 40 x6, 512 x 40 x 200 x6, 128 x 40 x 40 x6, 128 x 40 x 200 x6), the
    resumed run's parameters, AdamW state and data cursors (the region
@@ -221,7 +222,7 @@ Phases (any failure exits non-zero and prints no result line):
    frame positions added, the mean over frames): (a) the launcher's
    ``--task pretrain`` on ``configs/pretrain/x2vlm_base_1b_stage2_video
    .yaml`` from phase 7's ``.th`` (its frame positions fresh), the image
-   stream cut to 32 on phase 7's lines, the region block as shipped, the
+   stream as shipped (128) on phase 7's lines, the region block as shipped, the
    video block as shipped (40 videos x 3 frames = 120 frames a call) on 64
    lines of 8 base64 PNG frames written here (a quarter of them
    clip-of-clips lines); 2 steps, then ``--resume`` to step 3, the state
@@ -251,16 +252,17 @@ Phases (any failure exits non-zero and prints no result line):
    250,002-entry XLM-R ``tokenizer.json`` read by the port's own tokenizer,
    phase 7's images with captions keyed by the config's eight languages,
    its region lines (monolingual: the shipped region block sets no
-   ``languages``) and 256 written parallel lines; images cut 128 -> 32, the
-   region block (128 rows over 50 images) and the parallel-text block (128
-   pairs of 64 tokens) as shipped; 2 steps, then ``--resume`` from the state
-   of step 1. Checked: the import (XLM-R and the MLM decoder bias fresh,
-   nothing unexpected), finite losses of the three streams, the launches of
-   the run and of each stream call (image: 12 of each flash kernel at B=32,
-   tiny 30 at 32 x 64 x 64, 6 at 96 x 64 x 64, 96 x 64 x 200 and 32 x 64 x
-   200; region: 12 at B=50, tiny 36 at 128 x 64 x 64, 6 at 384 x 64 x 64 and
-   384 x 64 x 200, 12 at 128 x 64 x 200; parallel text: no flash, tiny 48 at
-   128 x 64 x 64 and 12 at 384 x 64 x 64), all tensor-core, no plain
+   ``languages``) and 256 written parallel lines; the image block (128
+   images), the region block (128 rows over 50 images) and the
+   parallel-text block (128 pairs of 64 tokens) as shipped; 2 steps, then
+   ``--resume`` from the state of step 1. Checked: the import (XLM-R and
+   the MLM decoder bias fresh, nothing unexpected), finite losses of the
+   three streams, the launches of the run and of each stream call (image:
+   12 of each flash kernel at B=128, tiny 30 at 128 x 64 x 64, 6 at 384 x
+   64 x 64, 384 x 64 x 200 and 128 x 64 x 200; region: 12 at B=50, tiny
+   36 at 128 x 64 x 64, 6 at 384 x 64 x 64 and 384 x 64 x 200, 12 at 128 x
+   64 x 200; parallel text: no flash, tiny 48 at 128 x 64 x 64 and 12 at
+   384 x 64 x 64), all tensor-core, no plain
    attention; the restored state and cursors (the parallel text's among
    them) bit for bit; then the weights on 2 images, 2 region rows and 2
    parallel pairs, card bf16 against CPU fp32 with the negatives injected:
@@ -345,10 +347,45 @@ Phases (any failure exits non-zero and prints no result line):
    mode under ``dots`` (``loss_vqa``, gradient cosines, each 40 x 2312
    call, ``rank_answer``).
 
-Each launcher phase (7-17) logs its seconds split into data, run,
-``--resume``, the CPU fp32 hold, phase 12's export, phases 16's and 17's
-state saves and the rest (``phase N seconds``). The card-against-CPU holds
-of phases 9-11 and 13-17 run in
+18-21. the remaining shipped pretraining configs at their own sizes
+   through ``--task pretrain`` (``config_pretrain_phase``), 2 steps each,
+   at the first ``--seed`` from the script's whose loop draws (the
+   launcher's ``random.Random(--seed)``) give an aux and a noisy image
+   batch, or a video and a video-aux batch, within the 2 steps (the draws
+   are printed; the replacement probabilities stay as shipped): 18
+   ``x2vlm_base_1b.yaml`` from ``--seed`` (128 images at 30 tokens beside
+   the clean-data aux stream at 0.15, read by ``aux_caption_key``; 64
+   region rows over 26 images at ``iter_perc`` 0.5); 19
+   ``x2vlm_large_1b.yaml`` from ``--seed`` (BEiT-2-large and a 24-layer
+   BERT-large stack fusing from 18, 16 heads; 128 images beside the aux
+   stream, 128 region rows over 50 images; no remat: its aux image call
+   peaks at ~74 GiB; it runs right after phase 8, while the holds' worker
+   is idle); 20 ``x2vlm_large_1b_stage2.yaml`` from phase 16's ``.th``
+   (frame positions fresh; 32 images, 32 region rows over 14 images, 20
+   clips x 3 frames beside the video-aux stream at 0.35); 21
+   ``multilingual_cclm_x2vlm_large.yaml`` from ``--seed`` (an X2VLM-large
+   ``.th`` is refused by both launchers: ROADMAP C; BEiT-2-large at 16
+   heads, XLM-R of 24 layers at the JAX preset's width 768 and 6 cross
+   layers at 12; 30 images, 30 region rows over 14 images with
+   ``code_switch`` over the block's eight ``languages``, the languages each
+   image's captions were read in printed; the parallel-text block asserted
+   as shipped but not run: its cross-attention to language 2 raises in
+   both packages at these widths). Checked in each: the sizes against the
+   YAML, finite losses, no broken sample, each stream call's launches (by
+   its kind: an aux batch's ITM + MLM fusion over 4 x B rows, a noisy
+   batch's MLM through the whole stack over B rows, no matching loss) and
+   its matching flag, every launch tensor-core on the resident walk at
+   the phase's head counts, no plain attention; each call's CUDA-event
+   and wall ms and peak GiB; the state saved once, its parameters kept
+   for the deferred card bf16 vs CPU fp32 hold (18: an aux, a noisy and a
+   region batch at 30 tokens; 19: the same on the 24-layer stack, at the
+   weights its seed gives on the CPU; 20: 2 videos of 3 frames; 21: 2
+   images and 2 code-switched region rows) and the train state deleted.
+
+Each launcher phase (7-21) logs its seconds split into data, run,
+``--resume``, the CPU fp32 hold, phase 12's export, the state saves and
+the rest (``phase N seconds``). The card-against-CPU holds
+of phases 9-11 and 13-21 run in
 one spawned worker process (its own card context, kernel libraries and
 launch counters) beside the later phases; their readings are logged and
 their faults failed before the kernels line (``holds collected``).
@@ -384,9 +421,18 @@ x 200 (region key masks), 64 x 40 x 40 and 64 x 40 x 200 with training
 operands; phase 17's K1-K4 at S=2305 with B=8 (a microbatch) and K1 with
 B=32 (an eval call), K5 / K6 at 8 x 40 x 40, 32 x 10 x 40 and, key-tiled,
 8 x 40 x 2312 with training operands, K5 at 32 x 40 x 40, 32 x 1 x 40,
-4096 x 10 x 40 and, key-tiled, 32 x 40 x 2312 serving.
+4096 x 10 x 40 and, key-tiled, 32 x 40 x 2312 serving. Phases 7, 13a, 14
+and 18 at 128 images: K1-K4 at S=197, B=128 (12 heads); phase 18's K1-K4 at
+B=26 and K5 / K6 with training operands at 256, 128, 512 and 64 x 30 x 30,
+128 and 512 x 30 x 200, 256 x 30 x 200 (region key masks) and 64 x 30 x
+200; phase 21's K5 / K6 at 30 and 90 x 64 x 64, 90 and 30 x 64 x 200
+(region key masks). At 16 heads: K1-K4 at S=197 with B=128 and 50 (phase
+19), 32, 14 and 60 (phase 20's images, regions and frames) and 30 (phase
+21; its 14 region images are phase 20's), K5 / K6 at 512 x 40 x 40, 512 x
+40 x 200 (region key masks), 128 x 40 x 200, 32 x 40 x 40, 32 x 40 x 200,
+40 x 40 x 40, 80 x 40 x 40 and 80 x 40 x 200.
 
-Every attention launch of phases 3 and 5-17 is counted by kernel, shape,
+Every attention launch of phases 3 and 5-21 is counted by kernel, shape,
 head count and operands (serving: no multiplier, no probabilities;
 training; the flash kernels' with or without a bias) and must fall
 on a shape phase 2 checked and timed (``FLASH_MAIN_SHAPES``,
@@ -411,7 +457,8 @@ and ``DIR/chip_smoke_region_profile.txt`` (and phase 8's two, and phase
 stream, and phase 15's ``chip_smoke_iglue_{run}_{step,eval}_profile.txt``,
 each run's second step and first eval call, phase 16's
 ``chip_smoke_large_{image,region}_profile.txt`` and phase 17's
-``chip_smoke_large_vqa_{step,eval}_profile.txt``), each with a
+``chip_smoke_large_vqa_{step,eval}_profile.txt``, phases 18-21's
+``chip_smoke_phase{N}_{stream}_profile.txt``), each with a
 last line of the port kernels' (attention and K7) device time and
 launches.
 """
@@ -543,6 +590,22 @@ LARGE_BATCH, LARGE_REGION_ROWS, LARGE_REGION_IMAGES = 64, 64, 25
 LARGE_VQA_BATCH, LARGE_VQA_ACCUM = 16, 2
 LARGE_VQA_MB, LARGE_VQA_ANSWERS = LARGE_VQA_BATCH // LARGE_VQA_ACCUM, 2 * LARGE_VQA_BATCH
 SCST_ROWS, SCST_LEN = CAP_BATCH * SCST_SAMPLES, CAP_PROMPT + 2 * (CAP_MAX_LEN + 1)
+# the image batch of x2vlm_base_4m.yaml, x2vlm_base_1b_stage2_video.yaml,
+# cclm_x2vlm_base.yaml, x2vlm_base_1b.yaml and x2vlm_large_1b.yaml (phases 7,
+# 13a, 14, 18, 19 run them at their own sizes)
+PRETRAIN_BATCH = 128
+# phase 18, x2vlm_base_1b.yaml: 30-token texts, 64 region rows over 26 images
+B1B_LEN, B1B_REGION_ROWS, B1B_REGION_IMAGES = 30, 64, 26
+# phase 19, x2vlm_large_1b.yaml: 128 region rows over 50 images, a 24-layer
+# text stack fusing from layer 18
+L1B_REGION_ROWS, L1B_REGION_IMAGES, L1B_TEXT_LAYERS, L1B_FUSION = 128, 50, 24, 18
+# phase 20, x2vlm_large_1b_stage2.yaml: 32 images, 32 region rows over 14
+# images, 20 clips of 3 frames
+S2L_BATCH, S2L_REGION_ROWS, S2L_REGION_IMAGES, S2L_VIDEOS = 32, 32, 14, 20
+# phase 21, multilingual_cclm_x2vlm_large.yaml: 30 images, 30 region rows
+# over 14 images, 30 parallel pairs; XLM-R of 24 layers (at width 768: the
+# JAX factory's preset) and 6 cross layers, BEiT-2-large
+CL_BATCH, CL_REGION_IMAGES, CL_TEXT_LAYERS = 30, 14, 24
 TINY_REPLACES = {"tiny_attention_fwd": "x2vlm_tpu/ops/tiny_attention.py:88",
                  "tiny_attention_bwd": "x2vlm_tpu/ops/tiny_attention.py:135"}
 FLASH_BWD_REPLACES = {"dq": "x2vlm_tpu/ops/flash_attention.py:368",
@@ -788,7 +851,7 @@ def expect_flash_fwd_route(tag, before, dtype, D, n=1) -> None:
 # bias (CLIP ViT, phase 12) at 224 px: the fine-tune step (B=32), the eval's
 # image calls (B=64) and the requests (B=128). (B, S, with a backward, with
 # the rel-pos bias)
-FLASH_MAIN_SHAPES = ((BATCH, N_IMG, False, True), (TRAIN_BATCH, N_IMG, True, True),
+FLASH_MAIN_SHAPES = ((BATCH, N_IMG, True, True), (TRAIN_BATCH, N_IMG, True, True),
                      (REGION_IMAGES, N_IMG, True, True), (GROUNDING_BATCH, N_IMG_384, True, True),
                      (2 * NLVR_BATCH, N_IMG_384, True, True),
                      (2 * FT_EVAL_BATCH, N_IMG_384, False, True),
@@ -798,13 +861,23 @@ FLASH_MAIN_SHAPES = ((BATCH, N_IMG, False, True), (TRAIN_BATCH, N_IMG, True, Tru
                      (BATCH, N_IMG, False, False),
                      (QA_VIDEOS * QA_FRAMES, N_IMG, True, True),
                      (STREAM_VIDEOS * STREAM_FRAMES, N_IMG, True, True),
-                     (QA_EVAL_VIDEOS * QA_FRAMES, N_IMG, False, True))
+                     (QA_EVAL_VIDEOS * QA_FRAMES, N_IMG, False, True),
+                     (B1B_REGION_IMAGES, N_IMG, True, True))
 # the same at 16 heads (X2VLM-large): phase 16's image stream (B=64) and
 # region stream (its 25 images) at 224 px, phase 17's VQA microbatch (B=8)
-# and eval call (B=32) at 768 px
+# and eval call (B=32) at 768 px; phase 19's image stream (B=128, also the
+# 12-head pretraining image streams of phases 7, 13a, 14 and 18 above) and
+# region stream (50 images), phase 20's image stream (32), its region
+# stream and phase 21's (14 images) and its video stream (60 frames),
+# phase 21's image stream (30)
 FLASH_MAIN_SHAPES_16 = ((LARGE_BATCH, N_IMG, True, True), (LARGE_REGION_IMAGES, N_IMG, True, True),
                         (LARGE_VQA_MB, N_IMG_768, True, True),
-                        (VQA_EVAL_BATCH, N_IMG_768, False, True))
+                        (VQA_EVAL_BATCH, N_IMG_768, False, True),
+                        (PRETRAIN_BATCH, N_IMG, True, True),
+                        (L1B_REGION_IMAGES, N_IMG, True, True), (S2L_BATCH, N_IMG, True, True),
+                        (S2L_REGION_IMAGES, N_IMG, True, True),
+                        (S2L_VIDEOS * STREAM_FRAMES, N_IMG, True, True),
+                        (CL_BATCH, N_IMG, True, True))
 
 
 def with_heads(shapes, shapes_16) -> list:
@@ -1045,7 +1118,13 @@ def tiny_entry(name, shape, key, err, ms, plain_ms, b_ms, b_by, lib_ms, **extra)
 # Swin requests' 128 rows. Phase 15's xGQA on the Plus base: the decoder's
 # cross-attention over the step's 32 answer rows and over a rank-pass chunk
 # of 512 of the eval call's 32 x 128 ranked answers (XLM-R's 250,002-row
-# vocabulary); its other shapes are phases 9's and 10's
+# vocabulary); its other shapes are phases 9's and 10's. The pretraining image
+# streams at 128 images (phases 7, 13a, 14) take the region stream's
+# shapes. Phase 18 (x2vlm_base_1b.yaml, 30-token texts): an aux batch's text
+# pass (2 x 128 rows) and ITM + MLM fusion (4 x 128), a noisy batch's text
+# pass and its MLM through the whole stack (128 rows), the region stream's
+# (2, 4 and 1 x 64 rows). Phase 21 (CCLM-large, XLM-R and the cross encoder
+# at 12 heads over 30 images, 30 region rows, 30 parallel pairs)
 TINY_MAIN_SHAPES = (
     ("text self-attention", BATCH, TEXT_LEN, TEXT_LEN, False, "pad"),
     ("fusion cross-attention", BATCH, TEXT_LEN, 200, False, "pad"),
@@ -1087,20 +1166,35 @@ TINY_MAIN_SHAPES = (
      TEXT_LEN, True, "pad"),
     ("video stream fusion self-attention", 4 * STREAM_VIDEOS, TEXT_LEN, TEXT_LEN, True, "pad"),
     ("video stream fusion cross-attention", 4 * STREAM_VIDEOS, TEXT_LEN, 200, True, "pad"),
-    ("CCLM image stream XLM-R / cross-encoder self-attention", TRAIN_BATCH, CCLM_LEN, CCLM_LEN,
-     True, "pad"),
-    ("CCLM image ITM cross-encoder self-attention", 3 * TRAIN_BATCH, CCLM_LEN, CCLM_LEN, True,
-     "pad"),
-    ("CCLM image ITM cross-attention", 3 * TRAIN_BATCH, CCLM_LEN, 200, True, "pad"),
-    ("CCLM image MLM cross-attention", TRAIN_BATCH, CCLM_LEN, 200, True, "pad"),
-    ("CCLM region and parallel-text self-attention, TLM cross-attention", REGION_ROWS,
+    ("CCLM image, region and parallel-text self-attention, TLM cross-attention", REGION_ROWS,
      CCLM_LEN, CCLM_LEN, True, "pad"),
-    ("CCLM region ITM / TTM self-attention, TTM cross-attention", 3 * REGION_ROWS, CCLM_LEN,
+    ("CCLM image / region ITM and TTM self-attention, TTM cross-attention", 3 * REGION_ROWS,
+     CCLM_LEN, CCLM_LEN, True, "pad"),
+    ("CCLM image / region ITM cross-attention, region key masks", 3 * REGION_ROWS, CCLM_LEN,
+     200, True, "region"),
+    ("CCLM image / region MLM and bbox cross-attention, region key masks", REGION_ROWS,
+     CCLM_LEN, 200, True, "region"),
+    ("base 1B text self-attention, clean and masked rows; region ITM + MLM fusion",
+     2 * PRETRAIN_BATCH, B1B_LEN, B1B_LEN, True, "pad"),
+    ("base 1B noisy MLM text / fusion self-attention; region text pass", PRETRAIN_BATCH,
+     B1B_LEN, B1B_LEN, True, "pad"),
+    ("base 1B noisy MLM cross-attention", PRETRAIN_BATCH, B1B_LEN, 200, True, "pad"),
+    ("base 1B aux ITM + MLM fusion self-attention", 4 * PRETRAIN_BATCH, B1B_LEN, B1B_LEN, True,
+     "pad"),
+    ("base 1B aux ITM + MLM fusion cross-attention", 4 * PRETRAIN_BATCH, B1B_LEN, 200, True,
+     "pad"),
+    ("base 1B region ITM + MLM fusion cross-attention, region key masks", 4 * B1B_REGION_ROWS,
+     B1B_LEN, 200, True, "region"),
+    ("base 1B region bbox self-attention", B1B_REGION_ROWS, B1B_LEN, B1B_LEN, True, "pad"),
+    ("base 1B region bbox cross-attention", B1B_REGION_ROWS, B1B_LEN, 200, True, "pad"),
+    ("CCLM-large image, region and parallel-text self-attention, TLM cross-attention",
+     CL_BATCH, CCLM_LEN, CCLM_LEN, True, "pad"),
+    ("CCLM-large ITM and TTM self-attention, TTM cross-attention", 3 * CL_BATCH, CCLM_LEN,
      CCLM_LEN, True, "pad"),
-    ("CCLM region ITM cross-attention, region key masks", 3 * REGION_ROWS, CCLM_LEN, 200, True,
-     "region"),
-    ("CCLM region MLM and bbox cross-attention, region key masks", REGION_ROWS, CCLM_LEN, 200,
-     True, "region"),
+    ("CCLM-large image / region ITM cross-attention, region key masks", 3 * CL_BATCH, CCLM_LEN,
+     200, True, "region"),
+    ("CCLM-large image / region MLM and bbox cross-attention, region key masks", CL_BATCH,
+     CCLM_LEN, 200, True, "region"),
     ("xGQA step decoder cross-attention", XGQA_ANSWERS, ANSWER_LEN, TEXT_LEN, True, "pad"),
     ("xGQA rank decoder cross-attention, a chunk at XLM-R's vocabulary", XGQA_RANK_CHUNK,
      ANSWER_LEN, TEXT_LEN, False, "pad"))
@@ -1110,7 +1204,12 @@ TINY_MAIN_SHAPES = (
 # with region key masks, the region stream's), the region stream's bbox pass
 # over its 64 rows' full images. Phase 17's VQA microbatch (8 questions; the
 # decoder over the step's 32 answer rows) and its eval calls (32 questions,
-# the first-token pass, the rank pass over 32 x 128 answers)
+# the first-token pass, the rank pass over 32 x 128 answers). Phase 19
+# (x2vlm_large_1b.yaml) adds the aux batch's and the region stream's ITM +
+# MLM fusion over 4 x 128 rows and the noisy batch's MLM (and the region bbox
+# pass) over 128; phase 20 (stage-2 large) its region bbox pass (32 rows)
+# and video stream (2 and 4 x 20 clips); its image and region fusion run at
+# 128 rows
 TINY_MAIN_SHAPES_16 = (
     ("large text self-attention, clean and masked rows", 2 * LARGE_BATCH, TEXT_LEN, TEXT_LEN,
      True, "pad"),
@@ -1128,7 +1227,22 @@ TINY_MAIN_SHAPES_16 = (
     ("large VQA first-token decoder cross-attention", VQA_EVAL_BATCH, 1, TEXT_LEN, False,
      "pad"),
     ("large VQA rank decoder cross-attention", VQA_RANK_ROWS, ANSWER_LEN, TEXT_LEN, False,
-     "pad"))
+     "pad"),
+    ("large 1B aux and region ITM + MLM fusion self-attention", 4 * PRETRAIN_BATCH, TEXT_LEN,
+     TEXT_LEN, True, "pad"),
+    ("large 1B aux and region ITM + MLM fusion cross-attention, region key masks",
+     4 * PRETRAIN_BATCH, TEXT_LEN, 200, True, "region"),
+    ("large 1B noisy MLM and region bbox cross-attention; stage-2 large fusion", PRETRAIN_BATCH,
+     TEXT_LEN, 200, True, "region"),
+    ("stage-2 large region bbox self-attention", S2L_REGION_ROWS, TEXT_LEN, TEXT_LEN, True,
+     "pad"),
+    ("stage-2 large region bbox cross-attention", S2L_REGION_ROWS, TEXT_LEN, 200, True, "pad"),
+    ("stage-2 large video text self-attention, clean and masked rows", 2 * S2L_VIDEOS,
+     TEXT_LEN, TEXT_LEN, True, "pad"),
+    ("stage-2 large video ITM + MLM fusion self-attention", 4 * S2L_VIDEOS, TEXT_LEN, TEXT_LEN,
+     True, "pad"),
+    ("stage-2 large video ITM + MLM fusion cross-attention", 4 * S2L_VIDEOS, TEXT_LEN, 200,
+     True, "pad"))
 
 
 def check_tiny(gen, dev):
@@ -2458,7 +2572,8 @@ PRETRAIN_CONFIG = "configs/pretrain/x2vlm_base_4m.yaml"
 RETRIEVAL_CONFIG = "configs/finetune/retrieval_flickr_base.yaml"
 SPECIAL_TOKENS = {0: "[PAD]", 100: "[UNK]", 101: "[CLS]", 102: "[SEP]", 103: "[MASK]"}
 VOCAB_SIZE = 30522
-N_LAUNCH_IMAGES = 64                 # image-text lines of phase 7; images of phase 8
+N_LAUNCH_IMAGES = 64                 # text and region lines of phase 7; images of phase 8
+N_PRETRAIN_IMAGES = 2 * PRETRAIN_BATCH   # image-text lines of phase 7: 2 steps' worth
 LAUNCH_STEPS, RESUME_STEPS = 4, 6    # phase 7: 4 steps, then --resume to step 6
 N_FT_STEPS = 4                       # phase 8: fine-tune steps (128 train captions, B=32)
 
@@ -2549,7 +2664,8 @@ LEDGER_PARTS = ("tiny_fwd", "tiny_bwd", "flash_fwd_shapes", "flash_bwd_shapes",
 PATHS = ("serving", "train_step", "int8_serving", "pretrain_launcher", "retrieval_launcher",
          "finetune_launcher", "vqa_launcher", "caption_launcher", "clip_launcher",
          "swin_launcher", "video_launcher", "cclm_launcher", "iglue_launcher",
-         "large_pretrain_launcher", "large_vqa_launcher")
+         "large_pretrain_launcher", "large_vqa_launcher", "base_1b_launcher",
+         "large_1b_launcher", "large_stage2_launcher", "cclm_large_launcher")
 
 
 def ledger_add(ledger, path: str, operands: str, c: dict, heads: int = BASE_HEADS) -> None:
@@ -2706,8 +2822,9 @@ def region_step_launches(n_fusion: int = 6, n_text: int = 12) -> dict:
 class StreamTimer:
     """Wraps the pretraining loop's per-stream grad functions and its
     optimizer step (``tasks.pretrain.make_grad_fn`` / ``make_apply_grads``):
-    each call's CUDA-event ms, wall ms and peak device memory by stream, and
-    the region stream's launches per call. With ``profile_call`` (stream,
+    each call's CUDA-event ms, wall ms and peak device memory by stream, its
+    launches and its matching-loss flag (``itm``; None for the text
+    streams). With ``profile_call`` (stream,
     index), or a set of them, those calls run under torch.profiler, written
     to ``profile_to`` (args, smi, file name; a ``{stream}`` in the name
     takes the stream's)."""
@@ -2721,9 +2838,9 @@ class StreamTimer:
                               else {profile_call})
         self.profile_to = profile_to
 
-    def _timed(self, stream, fn):
+    def _timed(self, stream, fn, itm=None):
         def call(*a):
-            record = {}
+            record = {"itm": itm}
             # the video stream shares the image stream's grad function, the
             # parallel text (its pairs' second texts) the text stream's signature
             name = ("video" if stream == "image" and a[0]["image"].dim() == 5 else
@@ -2759,7 +2876,7 @@ class StreamTimer:
             apply = kw.get("apply_kwargs") or {}
             stream = ("region" if apply.get("ret_bbox_loss") else
                       "image" if "ret_match_loss" in apply else "text")
-            return self._timed(stream, self.orig[0](model, **kw))
+            return self._timed(stream, self.orig[0](model, **kw), apply.get("ret_match_loss"))
 
         self.mod.make_grad_fn = make_grad_fn
         self.mod.make_apply_grads = lambda opt: self._timed("apply", self.orig[1](opt))
@@ -2798,7 +2915,7 @@ def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = "")
     img_file, txt_file = os.path.join(root, "images.jsonl"), os.path.join(root, "texts.jsonl")
     region_file = os.path.join(root, "regions.jsonl")
     with open(img_file, "w") as f:
-        for _ in range(N_LAUNCH_IMAGES):
+        for _ in range(N_PRETRAIN_IMAGES):
             f.write(json.dumps({"binary": base64.b64encode(random_png(rng, 256)).decode(),
                                 "desc": caption(rng, words)}) + "\n")
     with open(txt_file, "w") as f:
@@ -2807,18 +2924,19 @@ def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = "")
     write_region_corpus(region_file, rng, words)
     shipped = shipped_config(PRETRAIN_CONFIG)
     cfg = dict(shipped)
-    # the region block as shipped (128 rows, 50 images); the images at batch 32
+    # the image and region blocks as shipped (128 images; 128 rows over 50
+    # images); the text stream this phase adds at batch 32
     cfg.update(train_file=[img_file], train_file_regions=[region_file],
                text_encoder=tok_dir, ckpt_frequent_step=2,
-               images=dict(shipped["images"], batch_size=TRAIN_BATCH),
-               train_dataset_size=2 * TRAIN_BATCH,      # 2 steps an epoch
+               train_dataset_size=2 * PRETRAIN_BATCH,   # 2 steps an epoch
                train_file_text=[txt_file],
                texts={"caption_key": "text", "batch_size": TRAIN_BATCH, "iter_perc": 1,
                       "num_workers": 2})
-    if (cfg["regions"]["batch_size"], cfg["regions"]["max_images"]) != \
-            (REGION_ROWS, REGION_IMAGES):
-        fail(f"pretrain launcher: the shipped region block is {cfg['regions']}, this phase "
-             f"expects {REGION_ROWS} rows over {REGION_IMAGES} images")
+    if (cfg["images"]["batch_size"], cfg["regions"]["batch_size"],
+            cfg["regions"]["max_images"]) != (PRETRAIN_BATCH, REGION_ROWS, REGION_IMAGES):
+        fail(f"pretrain launcher: the shipped blocks are {cfg['images']}, {cfg['regions']}; "
+             f"this phase expects {PRETRAIN_BATCH} images, {REGION_ROWS} region rows over "
+             f"{REGION_IMAGES} images")
     cfg_path = os.path.join(root, "pretrain.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
@@ -2849,13 +2967,18 @@ def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = "")
     n = LAUNCH_STEPS
     n_fusion = 6
     region = region_step_launches(n_fusion)
-    want_tiny = collections.Counter({(2 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 12 * n,
-                                     (4 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): n_fusion * n,
-                                     (4 * TRAIN_BATCH, TEXT_LEN, 200): n_fusion * n,
+    want_tiny = collections.Counter({(2 * PRETRAIN_BATCH, TEXT_LEN, TEXT_LEN): 12 * n,
+                                     (4 * PRETRAIN_BATCH, TEXT_LEN, TEXT_LEN): n_fusion * n,
+                                     (4 * PRETRAIN_BATCH, TEXT_LEN, 200): n_fusion * n,
                                      (TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 18 * n})
     want_tiny.update({k: v * n for k, v in region.items()})
     check_launcher_counts("pretrain launcher", counts1, 24 * n, 24 * n,
                           {"tiny_fwd": dict(want_tiny), "tiny_bwd": dict(want_tiny)})
+    # each image-stream call: 12 of each flash kernel at B=128
+    for i, c in enumerate(timer.calls["image"]):
+        if dict(c["launches"]["flash_fwd_shapes"]) != {(PRETRAIN_BATCH, N_IMG, N_IMG): 12}:
+            fail(f"pretrain launcher image step {i}: flash shapes "
+                 f"{dict(c['launches']['flash_fwd_shapes'])}, expected 12 at B={PRETRAIN_BATCH}")
     # the region stream alone, each of its calls: 12 of each flash kernel at
     # B=50, its tiny launches, all on the tensor-core route
     region_calls = timer.calls["region"]
@@ -3212,10 +3335,11 @@ def held_tiny_bwd_calls(n_keys: int, ratios: list):
     """Within the block, each bf16 backward on the card of the model's tiny
     attention (``ops.tiny_attention._TinyAttention``) with ``n_keys`` keys
     is held on the operands it saved, the forward's probabilities and
-    output among them, to the plain backward that takes its row sums from
-    that output, as the key-tiled kernel does (rowsum(g * out)): its
-    largest error over the bf16 rule's bound (dq, dk, dv) is appended to
-    ``ratios``. The saved tensors are read once (a rematerialised block's
+    output among them, to the plain backward of the walk the kernel takes:
+    on the key-tiled walk it takes its row sums from that output, as the
+    key-tiled kernel does (rowsum(g * out)); on the resident walk from dP,
+    dm and P, as the resident kernels do. Its largest error over the bf16
+    rule's bound (dq, dk, dv) is appended to ``ratios``. The saved tensors are read once (a rematerialised block's
     may be unpacked only once) and handed to the backward."""
     from x2vlm_tpu_torch.ops.tiny_attention import _TinyAttention
 
@@ -3235,7 +3359,9 @@ def held_tiny_bwd_calls(n_keys: int, ratios: list):
         if q.is_cuda and q.dtype == torch.bfloat16 and k.shape[1] == n_keys:
             with torch.no_grad():
                 args = (ctx.num_heads, ctx.scale)
-                plain = tiny_attention_bwd_reference(q, k, v, probs, dmask, g, *args, out=out)
+                tiled = tiny_walk(q.shape[1], k.shape[1], q.shape[2] // ctx.num_heads) == TILED
+                plain = tiny_attention_bwd_reference(q, k, v, probs, dmask, g, *args,
+                                                     out=out if tiled else None)
                 truth = tiny_attention_bwd_reference(
                     *as_f32(q, k, v), probs, None if dmask is None else dmask.float(),
                     g.float(), *args)
@@ -4778,7 +4904,9 @@ def tower_task_phase(args, tower: str, root: str, tok_dir: str, image_root: str,
         f"{json.dumps(hold)}")
     for msg in faults:
         fail(f"{tower} launcher, 2 rows card vs CPU: {msg}")
+    t_other = time.perf_counter()
     yield   # the caller runs the other tower up to here
+    part_done(f"12 {tower}", "other tower", t_other)
 
     # the bundle served with the tower from its manifest
     t3 = time.perf_counter()
@@ -4792,6 +4920,7 @@ def tower_task_phase(args, tower: str, root: str, tok_dir: str, image_root: str,
         if work != root:
             shutil.rmtree(work)
         return {"run": split_counts(counts, [r["delta"] for r in steps]), "requests": {}}
+    t_serve = time.perf_counter()
     server = RetrievalServer.from_npz(os.path.join(bundle, "params.npz"), device=dev)
     model = XVLMForRetrieval(mcfg, dtype=torch.bfloat16, device=dev, seed=None)
     model.load_state_dict(state)
@@ -4813,8 +4942,10 @@ def tower_task_phase(args, tower: str, root: str, tok_dir: str, image_root: str,
     shutil.rmtree(bundle)
     if work != root:
         shutil.rmtree(work)
+    part_done(f"12 {tower}", "bundle load and check", t_serve)
 
     # the requests at B=128 through the served bundle
+    t_req = time.perf_counter()
     req_counts = {k: collections.Counter() for k in LEDGER_PARTS}
     outs = []
     images, r_ids, r_atts = requests
@@ -4846,6 +4977,7 @@ def tower_task_phase(args, tower: str, root: str, tok_dir: str, image_root: str,
         f"{json.dumps({k: round(v, 3) for k, v in req_ms.items()})}; {smi}")
     del server, outs
     torch.cuda.empty_cache()
+    part_done(f"12 {tower}", "requests", t_req)
     phase_seconds(f"12 {tower}", t0)
     return {"run": split_counts(counts, [r["delta"] for r in steps]), "requests": req_counts}
 
@@ -4885,12 +5017,13 @@ QA_RESUME_STEP = N_QA_TRAIN // QA_VIDEOS
 VISION_WIDTH = 768                   # BEiT-2-base: the frame positions' width
 
 
-def write_video_corpus(path: str, rng: np.random.Generator, words) -> None:
+def write_video_corpus(path: str, rng: np.random.Generator, words, frames_key: str = "frames",
+                       caption_key: str = "caption") -> None:
     """``N_VIDEO_LINES`` stage-2 video lines (reference FrameTextDataset):
-    ``frames`` a list of ``N_VIDEO_FRAMES`` base64 PNGs of 224 px and a
-    caption (a list of two for some); every fourth line a clip-of-clips
-    (clips of 2 to 3 frames, a caption each, one of them "[Music]", which
-    the stream never picks)."""
+    under ``frames_key`` a list of ``N_VIDEO_FRAMES`` base64 PNGs of 224 px
+    and under ``caption_key`` a caption (a list of two for some); every
+    fourth line a clip-of-clips (clips of 2 to 3 frames, a caption each, one
+    of them "[Music]", which the stream never picks)."""
     frame = lambda: base64.b64encode(random_png(rng, 224)).decode()
     with open(path, "w") as f:
         for i in range(N_VIDEO_LINES):
@@ -4898,11 +5031,11 @@ def write_video_corpus(path: str, rng: np.random.Generator, words) -> None:
                 clips = [[frame() for _ in range(n)] for n in (3, 3, 2)]
                 caps = [caption(rng, words, 4, 12) for _ in clips]
                 caps[int(rng.integers(0, 3))] = "[Music]"
-                line = {"frames": clips, "caption": caps}
+                line = {frames_key: clips, caption_key: caps}
             else:
                 cap = caption(rng, words)
-                line = {"frames": [frame() for _ in range(N_VIDEO_FRAMES)],
-                        "caption": [cap, caption(rng, words)] if i % 3 == 0 else cap}
+                line = {frames_key: [frame() for _ in range(N_VIDEO_FRAMES)],
+                        caption_key: [cap, caption(rng, words)] if i % 3 == 0 else cap}
             f.write(json.dumps(line) + "\n")
 
 
@@ -4919,7 +5052,7 @@ def video_pretrain_phase(args, root: str, th_path: str, tok_dir: str, words, wor
                          smi: str = ""):
     """13a: ``x2vlm_tpu_torch.run --task pretrain`` on the shipped stage-2
     video config from phase 7's ``.th`` (its frame positions fresh): the
-    image stream cut to batch 32 on phase 7's lines, the region block as
+    image stream as shipped (128 a step) on phase 7's lines, the region block as
     shipped on phase 7's region lines, the video block as shipped (40
     videos x 3 frames) on ``N_VIDEO_LINES`` lines written here; 2 steps,
     then ``--resume`` to step 3, whose restored state and data cursors (the
@@ -4938,12 +5071,13 @@ def video_pretrain_phase(args, root: str, th_path: str, tok_dir: str, words, wor
     cfg = dict(shipped, train_file=[os.path.join(root, "images.jsonl")],
                train_file_regions=[os.path.join(root, "regions.jsonl")],
                train_file_videos=[video_file], text_encoder=tok_dir,
-               images=dict(shipped["images"], batch_size=TRAIN_BATCH),
-               train_dataset_size=TRAIN_BATCH,          # 1 step an epoch
+               train_dataset_size=PRETRAIN_BATCH,       # 1 step an epoch
                ckpt_frequent=1000, ckpt_frequent_step=1000)   # a save after the last step
-    sizes = (cfg["videos"]["batch_size"], cfg["frame_len"], cfg["regions"]["batch_size"],
-             cfg["regions"]["max_images"], cfg["video_encoding"], cfg["add_frame_pos"])
-    if sizes != (STREAM_VIDEOS, STREAM_FRAMES, REGION_ROWS, REGION_IMAGES, "avgpool", True):
+    sizes = (cfg["images"]["batch_size"], cfg["videos"]["batch_size"], cfg["frame_len"],
+             cfg["regions"]["batch_size"], cfg["regions"]["max_images"],
+             cfg["video_encoding"], cfg["add_frame_pos"])
+    if sizes != (PRETRAIN_BATCH, STREAM_VIDEOS, STREAM_FRAMES, REGION_ROWS, REGION_IMAGES,
+                 "avgpool", True):
         fail(f"video pretrain launcher: the shipped config's sizes {sizes} changed")
     cfg_path = os.path.join(work, "stage2.json")
     with open(cfg_path, "w") as f:
@@ -4983,9 +5117,9 @@ def video_pretrain_phase(args, root: str, th_path: str, tok_dir: str, words, wor
         fail(f"video pretrain launcher: losses {[record.get(k) for k in losses]}, broken "
              f"{record.get('broken')}")
     n = VIDEO_STEPS
-    want_tiny = collections.Counter({(2 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 12 * n,
-                                     (4 * TRAIN_BATCH, TEXT_LEN, TEXT_LEN): 6 * n,
-                                     (4 * TRAIN_BATCH, TEXT_LEN, 200): 6 * n})
+    want_tiny = collections.Counter({(2 * PRETRAIN_BATCH, TEXT_LEN, TEXT_LEN): 12 * n,
+                                     (4 * PRETRAIN_BATCH, TEXT_LEN, TEXT_LEN): 6 * n,
+                                     (4 * PRETRAIN_BATCH, TEXT_LEN, 200): 6 * n})
     for part in (region_step_launches(6), video_stream_launches()):
         want_tiny.update({k: v * n for k, v in part.items()})
     check_launcher_counts("video pretrain launcher", counts1, 36 * n, 36 * n,
@@ -5556,20 +5690,22 @@ def write_cclm_corpus(root: str, work: str, rng: np.random.Generator, words):
     return img_file, para_file
 
 
-def cclm_stream_launches(stream: str) -> dict:
+def cclm_stream_launches(stream: str, B: int = PRETRAIN_BATCH, R: int = REGION_ROWS,
+                         P: int = PARA_PAIRS, n_text: int = 12) -> dict:
     """The tiny launches of one call of a CCLM stream (forward and backward
-    alike), 64-token texts through XLM-R's 12 layers and the 6 cross
+    alike), 64-token texts through XLM-R's ``n_text`` layers and the 6 cross
     layers: the image stream (the clean and the masked text, ITM over 3 x
-    32 rows, MLM over 32), the region stream (the same over 128 rows with
-    region key masks, and the bbox pass) and the parallel text (both
-    languages and the masked text; TTM over 3 x 128 rows and TLM, language
+    ``B`` rows, MLM over ``B``), the region stream (the same over ``R`` rows
+    with region key masks, and the bbox pass) and the parallel text (both
+    languages and the masked text; TTM over 3 x ``P`` rows and TLM, language
     2 as the keys)."""
-    L, B, R, P = CCLM_LEN, TRAIN_BATCH, REGION_ROWS, PARA_PAIRS
+    L = CCLM_LEN
     if stream == "image":
-        return {(B, L, L): 30, (3 * B, L, L): 6, (3 * B, L, 200): 6, (B, L, 200): 6}
+        return {(B, L, L): 2 * n_text + 6, (3 * B, L, L): 6, (3 * B, L, 200): 6, (B, L, 200): 6}
     if stream == "region":
-        return {(R, L, L): 36, (3 * R, L, L): 6, (3 * R, L, 200): 6, (R, L, 200): 12}
-    return {(P, L, L): 48, (3 * P, L, L): 12}
+        return {(R, L, L): 2 * n_text + 12, (3 * R, L, L): 6, (3 * R, L, 200): 6,
+                (R, L, 200): 12}
+    return {(P, L, L): 3 * n_text + 12, (3 * P, L, L): 12}
 
 
 def cclm_cosine_params():
@@ -5619,7 +5755,7 @@ def cclm_hold_batches(mcfg):
     return image, region, para
 
 
-def cclm_hold(final, mcfg, dev) -> tuple:
+def cclm_hold(final, mcfg, dev, with_pairs: bool = True) -> tuple:
     """The run's weights ``final`` (or the train state saved at that path)
     on 2 images, 2 region rows and 2 parallel pairs,
     dropout off, the negatives injected: the card in bf16 against the
@@ -5629,7 +5765,10 @@ def cclm_hold(final, mcfg, dev) -> tuple:
     into K5 and K6 with 200 keys (the image) or 64 (XLM-R's self-attention,
     the cross encoder's, language 2 as the keys) held on the model's
     operands within ``FUSION_CALL_RATIO`` of the bf16 rule's bound. The
-    box targets are ``off_kink_targets`` of the CPU path's boxes."""
+    box targets are ``off_kink_targets`` of the CPU path's boxes. Without
+    ``with_pairs`` the parallel pairs stay out (phase 21: CCLM-large's text tower
+    is narrower than its vision tower, and the pairs' cross-attention to
+    language 2 raises in both packages; ROADMAP C)."""
     final = params_of(final)
     from x2vlm_tpu_torch.models import XVLMPlusForPretrain
 
@@ -5655,7 +5794,8 @@ def cclm_hold(final, mcfg, dev) -> tuple:
             out = {f"image_{k}": v for k, v in model(to(image), neg_idx=negs).items()}
             out.update({f"region_{k}": v for k, v in model(
                 to(region), neg_idx=negs, ret_bbox_loss=True).items()})
-            out.update({f"para_{k}": v for k, v in model(to(para), neg_idx=negs).items()})
+            if with_pairs:
+                out.update({f"para_{k}": v for k, v in model(to(para), neg_idx=negs).items()})
             sum(out.values()).backward()
         losses[tag] = {k: v.item() for k, v in out.items()}
         params = dict(model.named_parameters())
@@ -5669,8 +5809,9 @@ def cclm_hold(final, mcfg, dev) -> tuple:
                     for (kind, n), v in ratios.items()}}
     faults = []
     want = {"image_loss_itc", "image_loss_itm", "image_loss_mlm", "region_loss_itc",
-            "region_loss_itm", "region_loss_mlm", "region_loss_bbox", "region_loss_giou",
-            "para_loss_ttc", "para_loss_ttm", "para_loss_mlm"}
+            "region_loss_itm", "region_loss_mlm", "region_loss_bbox", "region_loss_giou"}
+    if with_pairs:
+        want |= {"para_loss_ttc", "para_loss_ttm", "para_loss_mlm"}
     if set(losses["card"]) != want:
         faults.append(f"losses {sorted(losses['card'])}, expected {sorted(want)}")
     for k, ref in losses["cpu"].items():
@@ -5679,12 +5820,15 @@ def cclm_hold(final, mcfg, dev) -> tuple:
     for k, c in cos.items():
         if not c >= 0.99:
             faults.append(f"gradient {k}: cosine to the CPU fp32 path {c:.5f} < 0.99")
-    # 200 keys: ITM + MLM of the images, ITM + MLM + bbox of the regions (6
-    # layers each); 64 keys: 7 text passes x 12 XLM-R layers, and x 6 cross
-    # layers the 7 cross passes' self-attention and TTM's and TLM's
-    # cross-attention to language 2
+    # 200 keys: ITM + MLM of the images, ITM + MLM + bbox of the regions (a
+    # call each a cross layer); 64 keys: 7 text passes a XLM-R layer (4
+    # without the pairs), and a cross layer the 7 cross passes'
+    # self-attention and TTM's and TLM's cross-attention to language 2 (the
+    # 5 of the images and regions without them)
     for (kind, n), v in ratios.items():
-        expect = 30 if n == 200 else 7 * 12 + 9 * 6
+        expect = (5 * mcfg.num_cross_layers if n == 200 else
+                  (7 if with_pairs else 4) * mcfg.text.num_layers +
+                  (9 if with_pairs else 5) * mcfg.num_cross_layers)
         if len(v) != expect or not all(x <= FUSION_CALL_RATIO for x in v):
             faults.append(f"the {kind} calls with {n} keys: {len(v)} held (expected "
                           f"{expect}), errors over the bf16 rule's bound up to "
@@ -5694,8 +5838,8 @@ def cclm_hold(final, mcfg, dev) -> tuple:
 
 def fused_ce_times(dev, smi: str) -> None:
     """The MLM head's fused vocabulary CE at XLM-R's 250,002 rows, forward
-    and backward in bf16 at each CCLM stream's masked rows (32 / 128 rows x
-    16 masks), against the same function on the full logits (one matmul and
+    and backward in bf16 at the image and region streams' masked rows (128
+    rows x 16 masks), against the same function on the full logits (one matmul and
     ``F.cross_entropy``): CUDA events, the card ahead of the host."""
     from x2vlm_tpu_torch.ops.fused_ce import fused_vocab_ce
 
@@ -5703,7 +5847,7 @@ def fused_ce_times(dev, smi: str) -> None:
     table = (torch.randn(XLMR_VOCAB, 768, generator=gen, device=dev) * 0.02).requires_grad_()
     bias = torch.zeros(XLMR_VOCAB, device=dev, requires_grad=True)
     out = {}
-    for n in (TRAIN_BATCH * 16, REGION_ROWS * 16):
+    for n in (PRETRAIN_BATCH * 16,):
         h = torch.randn(n, 768, generator=gen, device=dev).to(torch.bfloat16).requires_grad_()
         labels = torch.randint(0, XLMR_VOCAB, (n,), generator=gen, device=dev)
         valid = torch.ones(n, dtype=torch.bool, device=dev)
@@ -5729,9 +5873,9 @@ def cclm_launcher_phase(args, root: str, th_path: str, words, work: str, dev,
     12-17, the XLM-R tower fresh from ``--seed``), a written 250,002-entry
     XLM-R ``tokenizer.json``, phase 7's images with captions in the
     config's languages, phase 7's (monolingual) region lines and
-    ``N_PARA_LINES`` parallel lines; the images cut to 32 a step, the region
-    (128 rows over 50 images) and parallel-text (128 pairs of 64 tokens)
-    blocks as shipped. 2 steps, then ``--resume`` from the state of step 1,
+    ``N_PARA_LINES`` parallel lines; the image (128 a step), region (128
+    rows over 50 images) and parallel-text (128 pairs of 64 tokens) blocks
+    as shipped. 2 steps, then ``--resume`` from the state of step 1,
     its state and cursors (the parallel text's among them) restored bit for
     bit; each stream's calls timed and their launches read; then
     ``cclm_hold``. Every file goes to ``work`` (``work_dir``); the first
@@ -5748,16 +5892,16 @@ def cclm_launcher_phase(args, root: str, th_path: str, words, work: str, dev,
     cfg = dict(shipped, train_file=[img_file], train_file_regions=[os.path.join(root,
                                                                                 "regions.jsonl")],
                train_file_mtext=[para_file], text_encoder=tok_dir,
-               images=dict(shipped["images"], batch_size=TRAIN_BATCH),
-               train_dataset_size=TRAIN_BATCH,          # 1 step an epoch: a save each step
+               train_dataset_size=PRETRAIN_BATCH,       # 1 step an epoch: a save each step
                ckpt_frequent=1, ckpt_frequent_step=1000)
     sizes = (cfg["model_type"], cfg["is_xvlm_ckpt"], cfg["replace_text_encoder"],
-             cfg["regions"]["batch_size"], cfg["regions"]["max_images"],
+             cfg["images"]["batch_size"], cfg["regions"]["batch_size"],
+             cfg["regions"]["max_images"],
              cfg["mtexts"]["batch_size"], cfg["mtexts"]["max_tokens"], cfg["max_tokens"],
              cfg["text_num_hidden_layers"], cfg["num_cross_layers"],
              tuple(cfg["images"]["languages"]), cfg["regions"].get("languages"))
-    if sizes != ("cclm", True, True, REGION_ROWS, REGION_IMAGES, PARA_PAIRS, CCLM_LEN, CCLM_LEN,
-                 12, 6, CCLM_LANGS, None):
+    if sizes != ("cclm", True, True, PRETRAIN_BATCH, REGION_ROWS, REGION_IMAGES, PARA_PAIRS,
+                 CCLM_LEN, CCLM_LEN, 12, 6, CCLM_LANGS, None):
         fail(f"cclm launcher: the shipped config's sizes {sizes} changed")
     cfg_path = os.path.join(work, "cclm.json")
     with open(cfg_path, "w") as f:
@@ -5819,7 +5963,7 @@ def cclm_launcher_phase(args, root: str, th_path: str, words, work: str, dev,
         want_tiny.update({k: v * n for k, v in cclm_stream_launches(stream).items()})
     check_launcher_counts("cclm launcher", counts1, 24 * n, 24 * n,
                           {"tiny_fwd": dict(want_tiny), "tiny_bwd": dict(want_tiny)})
-    for stream, flash in (("image", {(TRAIN_BATCH, N_IMG, N_IMG): 12}),
+    for stream, flash in (("image", {(PRETRAIN_BATCH, N_IMG, N_IMG): 12}),
                           ("region", {(REGION_IMAGES, N_IMG, N_IMG): 12}), ("mtext", {})):
         calls = timer.calls[stream]
         if len(calls) != n:
@@ -6568,13 +6712,16 @@ def set_remat(model, on: bool, policy=None) -> None:
             m.config = dataclasses.replace(m.config, remat=on, remat_policy=policy)
 
 
-def check_heads(tag: str, c: dict, heads: int) -> None:
+def check_heads(tag: str, c: dict, heads: int, tiny_heads: int = None) -> None:
     """Every attention launch of ``c`` (a ``launch_counts`` or its delta) at
-    ``heads`` heads."""
-    other = {k: n for k, n in c["heads"].items() if n and not k.endswith(f"/{heads}")}
+    ``heads`` heads; given ``tiny_heads``, the tiny ones (the text stacks')
+    at that count instead (the flash ones are the vision tower's)."""
+    tiny_heads = tiny_heads or heads
+    other = {k: n for k, n in c["heads"].items() if n and not k.endswith(
+        f"/{tiny_heads if k.startswith('tiny') else heads}")}
     if other or not any(c["heads"].values()):
-        fail(f"{tag}: attention launches by kernel / heads {dict(c['heads'])}, expected every "
-             f"one at {heads}")
+        fail(f"{tag}: attention launches by kernel / heads {dict(c['heads'])}, expected flash "
+             f"at {heads}, tiny at {tiny_heads}")
 
 
 def large_stream_launches(stream: str) -> dict:
@@ -6670,19 +6817,20 @@ def remat_hold(final: dict, mcfg, seed: int, dev) -> None:
     torch.cuda.empty_cache()
 
 
-def large_hold_batches(mcfg):
-    """2 images with 40-token texts and 2 region rows over 2 images, 4
-    masked positions a row, the last row padded."""
+def large_hold_batches(mcfg, text_len: int = TEXT_LEN):
+    """2 images with ``text_len``-token texts and 2 region rows over 2
+    images, 4 masked positions a row, the last row padded."""
     g = torch.Generator().manual_seed(16)
     res, side = mcfg.vision.image_res, mcfg.vision.image_res // mcfg.vision.patch_size
 
     def texts(pad_from):
-        ids = torch.randint(1000, VOCAB_SIZE, (2, TEXT_LEN), generator=g)
+        pad_from -= TEXT_LEN - text_len
+        ids = torch.randint(1000, VOCAB_SIZE, (2, text_len), generator=g)
         ids[:, 0] = 101
-        atts = torch.ones(2, TEXT_LEN, dtype=torch.int32)
+        atts = torch.ones(2, text_len, dtype=torch.int32)
         atts[1, pad_from:] = 0
         ids = ids * atts
-        pos = torch.tensor([[3, 7, 9, 15], [2, 5, 20, 30]])
+        pos = torch.tensor([[3, 7, 9, 15], [2, 5, 20, min(30, pad_from - 2)]])
         masked = ids.clone()
         masked[torch.arange(2)[:, None], pos] = 103
         return {"text_ids": ids, "text_atts": atts, "text_ids_masked": masked,
@@ -6714,17 +6862,24 @@ def large_cosine_params(mcfg):
             "base.bbox_head.0.weight")
 
 
-def large_pretrain_hold(final, mcfg, dev) -> tuple:
+def large_pretrain_hold(final, mcfg, dev, text_len: int = TEXT_LEN,
+                        noisy: bool = False) -> tuple:
     """Phase 16's weights ``final`` (or the state saved at that path) on 2
     images and 2 region rows, dropout off, the negatives injected: the card
     in bf16 against the port's CPU fp32 path, each loss (ITC, ITM, MLM of
     both streams, bbox L1 and GIoU) within 0.05 + 2%, gradient cosines of
-    ``large_cosine_params`` >= 0.99, each bf16 40 x 200 call into K5 and K6
-    (the image pass's and the region passes' fusion cross-attention, 16
-    heads) within ``FUSION_CALL_RATIO`` of the bf16 rule's bound. The box
-    targets are ``off_kink_targets`` of the CPU path's boxes."""
-    final = params_of(final)
-    image, region = large_hold_batches(mcfg)
+    ``large_cosine_params`` >= 0.99, each bf16 ``text_len`` x 200 call into
+    K5 and K6 (the image pass's and the region passes' fusion
+    cross-attention) within ``FUSION_CALL_RATIO`` of the bf16 rule's bound.
+    The box targets are ``off_kink_targets`` of the CPU path's boxes. With
+    ``noisy`` (phases 18, 19: an aux stream beside the image stream) the
+    image batch also runs as a noisy batch: no matching loss, the MLM
+    through the whole stack. Phases 18 and 19 call it with their own
+    weights and text length. ``final`` an int: the weights the model takes
+    from that seed on the CPU."""
+    final = (XVLMForPretrain(mcfg, dtype=torch.float32, device="cpu", seed=final).state_dict()
+             if isinstance(final, int) else params_of(final))
+    image, region = large_hold_batches(mcfg, text_len)
     neg = (torch.tensor([1, 0]), torch.tensor([1, 0]))
     names = large_cosine_params(mcfg)
     n_fusion = mcfg.text.num_layers - mcfg.text.fusion_layer
@@ -6743,6 +6898,9 @@ def large_pretrain_hold(final, mcfg, dev) -> tuple:
             out = {f"image_{k}": v for k, v in model(to(image), neg_idx=negs).items()}
             out.update({f"region_{k}": v for k, v in model(
                 to(region), neg_idx=negs, ret_bbox_loss=True).items()})
+            if noisy:
+                out.update({f"noisy_{k}": v for k, v in model(
+                    to(image), ret_match_loss=False).items()})
             sum(out.values()).backward()
         losses[tag] = {k: v.item() for k, v in out.items()}
         params = dict(model.named_parameters())
@@ -6756,19 +6914,23 @@ def large_pretrain_hold(final, mcfg, dev) -> tuple:
     faults = []
     want = {"image_loss_itc", "image_loss_itm", "image_loss_mlm", "region_loss_itc",
             "region_loss_itm", "region_loss_mlm", "region_loss_bbox", "region_loss_giou"}
-    if set(losses["card"]) != want:
-        faults.append(f"losses {sorted(losses['card'])}, expected {sorted(want)}")
+    if noisy:
+        want |= {"noisy_loss_itc", "noisy_loss_itm", "noisy_loss_mlm"}
+    if set(losses["card"]) != want or (noisy and losses["card"]["noisy_loss_itm"] != 0.0):
+        faults.append(f"losses {losses['card']}, expected {sorted(want)} (a noisy ITM of 0)")
     for k, ref in losses["cpu"].items():
         if not abs(losses["card"][k] - ref) <= 0.05 + 0.02 * abs(ref):
             faults.append(f"{k}: card {losses['card'][k]:.5f} vs CPU fp32 {ref:.5f}")
     for k, c in cos.items():
         if not c >= 0.99:
             faults.append(f"gradient {k}: cosine to the CPU fp32 path {c:.5f} < 0.99")
-    # the image's ITM + MLM fusion pass, the region's and its bbox pass
+    # the image's ITM + MLM fusion pass, the region's and its bbox pass (and
+    # the noisy batch's MLM pass)
+    n_calls = (4 if noisy else 3) * n_fusion
     for kind, ratios in (("forward", fwd_ratios), ("backward", bwd_ratios)):
-        if len(ratios) != 3 * n_fusion or not all(x <= FUSION_CALL_RATIO for x in ratios):
-            faults.append(f"the 40 x 200 {kind} calls: {len(ratios)} held (expected "
-                          f"{3 * n_fusion}), errors over the bf16 rule's bound "
+        if len(ratios) != n_calls or not all(x <= FUSION_CALL_RATIO for x in ratios):
+            faults.append(f"the {text_len} x 200 {kind} calls: {len(ratios)} held (expected "
+                          f"{n_calls}), errors over the bf16 rule's bound "
                           f"{[round(x, 3) for x in ratios]} (at most {FUSION_CALL_RATIO})")
     return r, faults
 
@@ -7195,6 +7357,422 @@ def large_vqa_phase(args, root: str, th_path: str, large_tok: str, words, image_
     return split_counts(counts, [r["delta"] for r in steps])
 
 
+
+# ---- phases 18-21: the shipped pretraining configs at their own sizes ----
+
+BASE_1B_CONFIG = "configs/pretrain/x2vlm_base_1b.yaml"
+LARGE_1B_CONFIG = "configs/pretrain/x2vlm_large_1b.yaml"
+LARGE_STAGE2_CONFIG = "configs/pretrain/x2vlm_large_1b_stage2.yaml"
+CCLM_LARGE_CONFIG = "configs/pretrain/multilingual_cclm_x2vlm_large.yaml"
+CONFIG_STEPS = 2                     # phases 18-21: 2 steps, one epoch
+
+
+def replaced_draws(seed: int, steps: int, aux_perc=None, video_aux_perc=None) -> list:
+    """The batch kinds ``pretrain_loop`` draws at each of ``steps`` steps
+    from ``random.Random(seed)``, as the launcher seeds it: "aux" / "noisy"
+    where an aux stream replaces the image batch, then "video_aux" / "video"
+    where a video-aux stream replaces the video batch."""
+    rng = random.Random(seed)
+    out = []
+    for _ in range(steps):
+        kinds = []
+        if aux_perc is not None:
+            kinds.append("aux" if rng.random() < aux_perc else "noisy")
+        if video_aux_perc is not None:
+            kinds.append("video_aux" if rng.random() < video_aux_perc else "video")
+        out.append(tuple(kinds))
+    return out
+
+
+def seed_with_both_kinds(seed: int, steps: int, aux_perc=None, video_aux_perc=None):
+    """The first ``--seed`` from ``seed`` on whose loop draws give each
+    replaced stream both of its kinds within ``steps`` steps, and the
+    draws: the replacement probabilities and the loop's seeding stay as
+    shipped, and the run still sees both kinds."""
+    for s in range(seed, seed + 1000):
+        draws = replaced_draws(s, steps, aux_perc, video_aux_perc)
+        if all(len({d[i] for d in draws}) == 2 for i in range(len(draws[0]))):
+            return s, draws
+    raise RuntimeError("no seed draws both kinds")
+
+
+def recaption(src: str, dst: str, rng: np.random.Generator, words, key: str = "desc") -> None:
+    """``src``'s image lines with new captions under ``key``: another stream
+    over the same pixels, written without encoding a PNG."""
+    with open(src) as fi, open(dst, "w") as fo:
+        for line in fi:
+            fo.write(json.dumps({"binary": json.loads(line)["binary"],
+                                 key: caption(rng, words)}) + "\n")
+
+
+def write_multilingual_regions(src: str, dst: str, rng: np.random.Generator, words) -> None:
+    """Phase 7's region lines with each element's caption (and the image's)
+    in 2-5 of ``CCLM_LANGS``: what ``code_switch`` draws a language from,
+    caption by caption."""
+    def ml(cap):
+        first = cap[0] if isinstance(cap, list) else cap
+        langs = list(rng.choice(CCLM_LANGS, int(rng.integers(2, 6)), replace=False))
+        return {lang: first if lang == "en" else cclm_caption(rng, words, lang, 2, 10)
+                for lang in langs}
+
+    with open(src) as fi, open(dst, "w") as fo:
+        for line in fi:
+            ann = json.loads(line)
+            ann["elems"] = [dict(e, caption=ml(e["caption"])) for e in ann["elems"]]
+            if "caption" in ann:
+                ann["caption"] = ml(ann["caption"])
+            fo.write(json.dumps(ann, ensure_ascii=False) + "\n")
+
+
+@contextlib.contextmanager
+def code_switch_reading(seen: list):
+    """Within the block, for each image ``RegionMultiTextStream`` localises,
+    the languages its element captions were read in."""
+    from x2vlm_tpu_torch.data.multilingual import RegionMultiTextStream
+
+    orig = RegionMultiTextStream._localized
+
+    def spy(self, ann):
+        out = orig(self, ann)
+        seen.append([next((lang for lang, c in e["caption"].items() if c == o["caption"]), "?")
+                     for e, o in zip(ann["elems"], out["elems"])
+                     if isinstance(e["caption"], dict)])
+        return out
+
+    RegionMultiTextStream._localized = spy
+    try:
+        yield
+    finally:
+        RegionMultiTextStream._localized = orig
+
+
+def config_stream_launches(phase: str, stream: str, kind: str) -> tuple:
+    """(flash launches by shape, tiny launches by shape, forward and backward
+    alike) of one stream call of phases 18-21; ``kind`` is the image
+    batch's ("aux", "noisy", or the stream's name without an aux stream) or
+    the video batch's. A noisy batch runs no matching loss: its MLM goes
+    through the whole stack from the masked text alone."""
+    S, L, K = N_IMG, TEXT_LEN, 200
+    if phase in ("18", "19"):   # base: 12 text + 6 fusion layers at 30 tokens; large: 18 + 6
+        B = PRETRAIN_BATCH
+        Lt, n_text = (B1B_LEN, 12) if phase == "18" else (L, L1B_FUSION)
+        depth = 12 if phase == "18" else 24
+        if stream == "image":
+            tiny = ({(2 * B, Lt, Lt): n_text, (4 * B, Lt, Lt): 6, (4 * B, Lt, K): 6}
+                    if kind == "aux" else
+                    {(2 * B, Lt, Lt): n_text, (B, Lt, Lt): n_text + 6, (B, Lt, K): 6})
+            return {(B, S, S): depth}, tiny
+        R, n_img = ((B1B_REGION_ROWS, B1B_REGION_IMAGES) if phase == "18" else
+                    (L1B_REGION_ROWS, L1B_REGION_IMAGES))
+        return {(n_img, S, S): depth}, {(2 * R, Lt, Lt): n_text, (4 * R, Lt, Lt): 6,
+                                        (4 * R, Lt, K): 6, (R, Lt, Lt): 6, (R, Lt, K): 6}
+    if phase == "20":           # BEiT-2-large, 12 text + 6 fusion layers
+        if stream == "video":
+            V = S2L_VIDEOS
+            return {(V * STREAM_FRAMES, S, S): 24}, {(2 * V, L, L): 12, (4 * V, L, L): 6,
+                                                     (4 * V, L, K): 6}
+        B = S2L_BATCH if stream == "image" else S2L_REGION_ROWS
+        tiny = {(2 * B, L, L): 12, (4 * B, L, L): 6, (4 * B, L, K): 6}
+        if stream == "region":
+            tiny.update({(B, L, L): 6, (B, L, K): 6})
+        return {(S2L_BATCH if stream == "image" else S2L_REGION_IMAGES, S, S): 24}, tiny
+    # 21: BEiT-2-large, XLM-R of 24 layers, 6 cross layers
+    flash = {"image": {(CL_BATCH, S, S): 24}, "region": {(CL_REGION_IMAGES, S, S): 24},
+             "mtext": {}}[stream]
+    return flash, cclm_stream_launches(stream, CL_BATCH, CL_BATCH, CL_BATCH, CL_TEXT_LAYERS)
+
+
+def config_pretrain_phase(args, phase: str, rel: str, overrides: dict, sizes, want_sizes,
+                          work: str, dev, smi: str = "", checkpoint: str = None,
+                          hold=None, heads=(BASE_HEADS, BASE_HEADS), t0: float = None,
+                          hold_at_init: bool = False):
+    """Phases 18-21: ``x2vlm_tpu_torch.run --task pretrain`` in process on
+    the shipped config ``rel`` at its own sizes (``sizes(cfg)`` must give
+    ``want_sizes``), its data paths set by ``overrides``, from ``--seed``
+    weights or ``checkpoint``: ``CONFIG_STEPS`` steps of one epoch at the
+    first seed whose loop draws give both kinds of each replaced stream
+    (``seed_with_both_kinds``); each stream call timed (CUDA events, wall,
+    peak GiB), its launches read against ``config_stream_launches`` and its
+    matching flag against its kind; the state saved once, its parameters
+    kept for the deferred hold ``hold`` = (label, fn, extra args), called
+    ``fn(params, mcfg, dev, *extra)``, and the train state deleted.
+    ``heads`` = (flash, tiny) head counts; ``t0`` when the phase began
+    writing its data. With ``hold_at_init`` the hold takes the weights the
+    model gets from the run's ``--seed`` on the CPU (``fn`` builds them from
+    the seed) instead of the run's last state. Returns the run's
+    launches."""
+    from x2vlm_tpu_torch import run as run_mod
+
+    t0 = t0 or time.perf_counter()
+    shipped = shipped_config(rel)
+    cfg = dict(shipped, train_dataset_size=CONFIG_STEPS * shipped["images"]["batch_size"],
+               **overrides)
+    got_sizes = sizes(cfg)
+    if got_sizes != want_sizes:
+        fail(f"phase {phase}: the shipped config's sizes {got_sizes}, expected {want_sizes}")
+    aux_perc = cfg.get("aux_iter_perc") if cfg.get("train_file_aux") else None
+    video_aux_perc = (cfg.get("video_aux_iter_perc") if cfg.get("train_file_videos_aux")
+                      else None)
+    seed, draws = args.seed, [()] * CONFIG_STEPS
+    if aux_perc is not None or video_aux_perc is not None:
+        seed, draws = seed_with_both_kinds(args.seed, CONFIG_STEPS, aux_perc, video_aux_perc)
+        log(f"phase {phase} draws (the loop's random.Random(--seed); aux_iter_perc "
+            f"{aux_perc}, video_aux_iter_perc {video_aux_perc}): --seed {seed} draws "
+            f"{draws} at steps 0-{CONFIG_STEPS - 1} (--seed {args.seed} would draw "
+            f"{replaced_draws(args.seed, CONFIG_STEPS, aux_perc, video_aux_perc)})")
+    mcfg = xvlm_config_from_yaml(cfg)
+    cfg_path = os.path.join(work, f"config_{phase}.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    out = os.path.join(work, f"out_{phase}")
+    argv = ["--task", "pretrain", "--config", cfg_path, "--output_dir", out, "--seed",
+            str(seed), "--device", dev.type, "--epoch", "1"]
+    if checkpoint:
+        argv += ["--checkpoint", checkpoint]
+    log(f"phase {phase} data and config ({rel}, remat {cfg.get('remat', False)}): "
+        f"{part_done(phase, 'data', t0):.1f} s")
+
+    t1 = time.perf_counter()
+    saves, imported, switched = [], {}, []
+    orig = {"save": ckpt_lib.save_train_state, "load": ckpt_lib.load_reference_checkpoint}
+
+    def timed_save(*a, **kw):
+        t = time.perf_counter()
+        path = orig["save"](*a, **kw)
+        saves.append(time.perf_counter() - t)
+        return path
+
+    def load(model, path):
+        imported["missing"], imported["unexpected"] = orig["load"](model, path)
+        return imported["missing"], imported["unexpected"]
+
+    reset_counts()
+    ckpt_lib.save_train_state, ckpt_lib.load_reference_checkpoint = timed_save, load
+    try:
+        with code_switch_reading(switched), StreamTimer(
+                {(k, CONFIG_STEPS - 1) for k in ("image", "region", "video", "mtext")}
+                if args.profile else None,
+                (args, smi, f"chip_smoke_phase{phase}_{{stream}}_profile.txt")) as timer:
+            record = run_mod.main(argv)
+    finally:
+        ckpt_lib.save_train_state, ckpt_lib.load_reference_checkpoint = \
+            orig["save"], orig["load"]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    PHASE_PARTS[phase]["save"] += sum(saves)
+    PHASE_PARTS[phase]["run"] += time.perf_counter() - t1 - sum(saves)
+    log(f"phase {phase} run ({CONFIG_STEPS} steps, --seed {seed}): "
+        f"{time.perf_counter() - t1:.1f} s, the state save {[round(x, 1) for x in saves]} s; "
+        f"{json.dumps(record)}")
+    losses = [k for k in record if "_loss_" in k]
+    if not losses or not all(isinstance(record[k], float) and math.isfinite(record[k])
+                             for k in losses) or record.get("broken", -1) != 0 or \
+            record.get("pretrain_steps") != [0, CONFIG_STEPS] or len(saves) != 1:
+        fail(f"phase {phase} launcher: record {record}, {len(saves)} saves")
+    if checkpoint:
+        log(f"phase {phase} import of {checkpoint}: missing {imported.get('missing')}, "
+            f"unexpected {imported.get('unexpected')}")
+        if imported.get("missing") != ["absolute_frame_pos_embed"] or imported.get("unexpected"):
+            fail(f"phase {phase} import: missing {imported.get('missing')}, unexpected "
+                 f"{imported.get('unexpected')}; expected only the fresh frame positions")
+    if cfg.get("regions", {}).get("languages"):
+        mixed = [langs for langs in switched if len(set(langs)) > 1]
+        log(f"phase {phase} code-switched region captions: {len(switched)} images read, "
+            f"{len(mixed)} with their captions in more than one language, e.g. {mixed[:4]}")
+        if not mixed:
+            fail(f"phase {phase}: no image's region captions were code-switched")
+
+    # each stream call's launches and matching flag, against its kind
+    want_flash, want_tiny, by_call = 0, collections.Counter(), {}
+    for stream, calls in timer.calls.items():
+        if stream == "apply":
+            continue
+        if len(calls) != CONFIG_STEPS:
+            fail(f"phase {phase}: {len(calls)} {stream}-stream calls, expected {CONFIG_STEPS}")
+        for i, c in enumerate(calls):
+            kind = (draws[i][0] if stream == "image" and aux_perc is not None else
+                    draws[i][-1] if stream == "video" and video_aux_perc is not None else
+                    stream)
+            flash, tiny = config_stream_launches(phase, stream, kind)
+            tag = f"phase {phase} {stream} call {i} ({kind})"
+            n_flash = sum(flash.values())
+            check_launcher_counts(tag, c["launches"], n_flash, n_flash,
+                                  {"tiny_fwd": tiny, "tiny_bwd": tiny})
+            if dict(c["launches"]["flash_fwd_shapes"]) != flash:
+                fail(f"{tag}: flash shapes {dict(c['launches']['flash_fwd_shapes'])}, "
+                     f"expected {flash}")
+            want_itm = None if stream == "mtext" else kind != "noisy"
+            if c["itm"] != want_itm:
+                fail(f"{tag}: matching loss {c['itm']}, expected {want_itm}")
+            want_flash += n_flash
+            want_tiny.update(tiny)
+            by_call[f"{stream} {i} ({kind})"] = [round(c["ms"], 3), round(c["wall_ms"], 3),
+                                                 round(c["peak_gib"], 2)]
+    check_launcher_counts(f"phase {phase} launcher", counts, want_flash, want_flash,
+                          {"tiny_fwd": dict(want_tiny), "tiny_bwd": dict(want_tiny)})
+    check_heads(f"phase {phase} launcher", counts, *heads)
+    log(f"phase {phase} stream calls (CUDA-event ms, wall ms, peak GiB; {smi}): "
+        f"{json.dumps(by_call)}")
+    log(f"phase {phase} by stream (median; the largest peak; apply: the AdamW step): "
+        f"{json.dumps(timer.summary())}")
+
+    t2 = time.perf_counter()
+    params = seed if hold_at_init else hold_state(
+        load_params(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE)), f"phase{phase}.pt")
+    # the train state goes once the hold has its parameters
+    shutil.rmtree(out, ignore_errors=True)
+    part_done(phase, "state to hold", t2)
+    if hold is not None:
+        label, fn, extra = hold
+        defer_hold(label, fn, params, mcfg, dev, *extra)
+    del params
+    phase_seconds(phase, t0)
+    return counts
+
+
+def base_1b_phase(args, root: str, tok_dir: str, words, work: str, dev, smi: str = ""):
+    """Phase 18: the shipped ``x2vlm_base_1b.yaml`` from ``--seed``: 128
+    images at 30 tokens beside the clean-data aux stream (``aux_iter_perc``
+    0.15, captions under ``aux_caption_key``; phase 7's pixels recaptioned),
+    64 region rows over 26 images at ``iter_perc`` 0.5, ``stop_calc_itm``
+    200,000; an aux and a noisy batch both run. Hold: an aux batch, the
+    same as a noisy batch (no matching loss) and a region batch at 30
+    tokens."""
+    t0 = time.perf_counter()
+    aux_file = os.path.join(work, "aux_1b.jsonl")
+    recaption(os.path.join(root, "images.jsonl"), aux_file,
+              np.random.default_rng(args.seed + 18), words)
+    overrides = {"train_file": [os.path.join(root, "images.jsonl")],
+                 "train_file_aux": [aux_file],
+                 "train_file_regions": [os.path.join(root, "regions.jsonl")],
+                 "text_encoder": tok_dir}
+
+    def sizes(c):
+        return (c["images"]["batch_size"], c["images"]["aux_caption_key"], c["aux_iter_perc"],
+                c["max_tokens"], c["regions"]["batch_size"], c["regions"]["max_images"],
+                c["regions"]["iter_perc"], c["stop_calc_itm"], c["text_num_hidden_layers"],
+                c["text_fusion_start_at"])
+
+    return config_pretrain_phase(
+        args, "18", BASE_1B_CONFIG, overrides, sizes,
+        (PRETRAIN_BATCH, "desc", 0.15, B1B_LEN, B1B_REGION_ROWS, B1B_REGION_IMAGES, 0.5,
+         200000, 18, 12), work, dev, smi,
+        hold=("phase 18 card bf16 vs CPU fp32 (x2vlm_base_1b: 2 images as an aux and a noisy "
+              "batch, 2 region rows, 30 tokens; dropout off)", large_pretrain_hold,
+              (B1B_LEN, True)), t0=t0)
+
+
+def large_1b_phase(args, root: str, large_tok: str, words, work: str, dev, smi: str = ""):
+    """Phase 19: the shipped ``x2vlm_large_1b.yaml`` from ``--seed``
+    (BEiT-2-large, a 24-layer BERT-large stack fusing from 18; 16 heads
+    everywhere): 128 images beside the aux stream at 0.15, 128 region rows
+    over 50 images; an aux and a noisy batch both run; each stream call's
+    peak memory read. No remat, as shipped: a probe run on the card read
+    74.04 GiB at the aux image call's peak (PERF.md §6). Hold: the
+    24-layer stack on an aux, a noisy and a region batch, at the weights
+    the model takes from the run's seed on the CPU: at the run's own
+    weights the ITM rows' p - y nearly cancel over the random stack's
+    collapsed features (ITM loss 0.640 against 0.637 at p = 1/3), and the
+    ITM head's gradient reads 0.989-0.991 against CPU fp32 on the card and
+    0.991 on the CPU in bf16 with no kernel (ROADMAP C, PERF.md §6)."""
+    t0 = time.perf_counter()
+    aux_file = os.path.join(work, "aux_1b.jsonl")
+    recaption(os.path.join(root, "images.jsonl"), aux_file,
+              np.random.default_rng(args.seed + 19), words)
+    overrides = {"train_file": [os.path.join(root, "images.jsonl")],
+                 "train_file_aux": [aux_file],
+                 "train_file_regions": [os.path.join(root, "regions.jsonl")],
+                 "text_encoder": large_tok}
+
+    def sizes(c):
+        return (c["images"]["batch_size"], c["aux_iter_perc"], c["max_tokens"],
+                c["regions"]["batch_size"], c["regions"]["max_images"],
+                c["text_num_hidden_layers"], c["text_fusion_start_at"], c["image_res"])
+
+    return config_pretrain_phase(
+        args, "19", LARGE_1B_CONFIG, overrides, sizes,
+        (PRETRAIN_BATCH, 0.15, TEXT_LEN, L1B_REGION_ROWS, L1B_REGION_IMAGES, L1B_TEXT_LAYERS,
+         L1B_FUSION, 224), work, dev, smi,
+        hold=("phase 19 card bf16 vs CPU fp32 (x2vlm_large_1b, 24 text layers fusing from 18, "
+              "the weights of the run's seed on the CPU: 2 images as an aux and a noisy batch, "
+              "2 region rows; dropout off)", large_pretrain_hold, (TEXT_LEN, True)),
+        heads=(LARGE_HEADS, LARGE_HEADS), t0=t0, hold_at_init=True)
+
+
+def large_stage2_phase(args, root: str, large_tok: str, words, th_path: str, work: str, dev,
+                       smi: str = ""):
+    """Phase 20: the shipped ``x2vlm_large_1b_stage2.yaml`` from phase 16's
+    ``.th`` (its frame positions fresh): 32 images, 32 region rows over 14
+    images, 20 clips of 3 frames (``video_frames`` / ``text`` lines written
+    here; the clip-of-clips lines combined to 8 frames) beside the
+    video-aux stream at 0.35 (the same frames recaptioned); a video and a
+    video-aux batch both run. Hold: 2 videos of 3 frames."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 20)
+    video_file, aux_file = (os.path.join(work, "videos_large.jsonl"),
+                            os.path.join(work, "videos_large_aux.jsonl"))
+    write_video_corpus(video_file, rng, words, frames_key="video_frames", caption_key="text")
+    with open(video_file) as fi, open(aux_file, "w") as fo:
+        for line in fi:
+            fo.write(json.dumps(dict(json.loads(line), text=caption(rng, words))) + "\n")
+    overrides = {"train_file": [os.path.join(root, "images.jsonl")],
+                 "train_file_regions": [os.path.join(root, "regions.jsonl")],
+                 "train_file_videos": [video_file], "train_file_videos_aux": [aux_file],
+                 "text_encoder": large_tok}
+
+    def sizes(c):
+        return (c["images"]["batch_size"], c["regions"]["batch_size"],
+                c["regions"]["max_images"], c["videos"]["batch_size"], c["videos"]["frame_len"],
+                c["video_aux_iter_perc"], c["video_encoding"], c["add_frame_pos"])
+
+    return config_pretrain_phase(
+        args, "20", LARGE_STAGE2_CONFIG, overrides, sizes,
+        (S2L_BATCH, S2L_REGION_ROWS, S2L_REGION_IMAGES, S2L_VIDEOS, STREAM_FRAMES, 0.35,
+         "avgpool", True), work, dev, smi, checkpoint=th_path,
+        hold=("phase 20 card bf16 vs CPU fp32 (x2vlm_large_1b_stage2: 2 videos x 3 frames; "
+              "negatives injected, dropout off)", video_pretrain_hold, ()),
+        heads=(LARGE_HEADS, LARGE_HEADS), t0=t0)
+
+
+def cclm_large_phase(args, root: str, plus_work: str, tok_dir: str, words, dev,
+                     smi: str = ""):
+    """Phase 21: the shipped ``multilingual_cclm_x2vlm_large.yaml`` from
+    ``--seed`` (an X2VLM-large ``.th`` does not load: its 1024-wide fusion
+    layers against the 768-wide cross encoder of the JAX factory's XLM-R
+    preset, refused by both launchers; ROADMAP C): BEiT-2-large (16 heads),
+    XLM-R of 24 layers and 6 cross layers (12 heads); 30 images with
+    captions in the 8 languages (phase 14's), 30 region rows over 14
+    images with ``code_switch`` over the block's ``languages`` (phase 7's
+    region lines in 2-5 languages a caption); phase 14's XLM-R tokenizer.
+    The parallel-text block (30 pairs of 64 tokens) is asserted as shipped
+    but not run: with the text tower 768 wide and the vision tower 1024,
+    the cross encoder's cross-attention (1024-wide keys) cannot take
+    language 2's 768-wide states, and both packages raise there (ROADMAP
+    C). Hold: 2 images and 2 region rows."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 21)
+    regions = os.path.join(plus_work, "regions_ml.jsonl")
+    write_multilingual_regions(os.path.join(root, "regions.jsonl"), regions, rng, words)
+    overrides = {"train_file": [os.path.join(plus_work, "images_ml.jsonl")],
+                 "train_file_regions": [regions], "train_file_mtext": [],
+                 "text_encoder": tok_dir}
+
+    def sizes(c):
+        return (c["model_type"], c["images"]["batch_size"], c["regions"]["batch_size"],
+                c["regions"]["max_images"], c["regions"]["code_switch"],
+                tuple(c["regions"]["languages"]), c["mtexts"]["batch_size"],
+                c["mtexts"]["max_tokens"], c["text_num_hidden_layers"], c["num_cross_layers"])
+
+    return config_pretrain_phase(
+        args, "21", CCLM_LARGE_CONFIG, overrides, sizes,
+        ("cclm", CL_BATCH, CL_BATCH, CL_REGION_IMAGES, True, CCLM_LANGS, CL_BATCH, CCLM_LEN,
+         CL_TEXT_LAYERS, 6), plus_work, dev, smi,
+        hold=("phase 21 card bf16 vs CPU fp32 (multilingual_cclm_x2vlm_large: 2 images, 2 "
+              "code-switched region rows; negatives injected, dropout off)", cclm_hold,
+              (False,)),
+        heads=(LARGE_HEADS, BASE_HEADS), t0=t0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7310,6 +7888,18 @@ def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
         torch.cuda.empty_cache()
         ret_counts = retrieval_launcher_phase(args, root, th_path, tok_dir, words, dev, smi)
         torch.cuda.empty_cache()
+        # ---- phase 19: X2VLM-large 1B pretraining at its own sizes ----
+        # (here, while the holds' worker has no hold queued: its image call
+        # peaks at ~74 GiB of the card's 80, and a hold's card pass beside it
+        # would not fit)
+        large_tok = large_tok_dir(root, tok_dir)
+        l1b_work = work_dir(root, 16 * 2**30)
+        try:
+            l1b_counts = large_1b_phase(args, root, large_tok, words, l1b_work, dev, smi)
+        finally:
+            if l1b_work != root:
+                shutil.rmtree(l1b_work, ignore_errors=True)
+        torch.cuda.empty_cache()
         # ---- phase 9: the launcher's grounding and NLVR2 fine-tunes ----
         ft_counts = finetune_launcher_phase(args, root, th_path, tok_dir, words,
                                             os.path.join(root, "flickr"), dev, smi)
@@ -7320,6 +7910,7 @@ def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
         torch.cuda.empty_cache()
         # ---- phase 16: X2VLM-large pretraining through the launcher, remat held ----
         # ---- phase 17: VQA on X2VLM-large at 768 px, accumulate_steps 2, remat dots ----
+        # ---- phase 20: stage-2 large video pretraining from phase 16's .th ----
         # (here, so that their CPU fp32 holds, the slowest, run in the worker
         # beside phases 11-15; their states leave RAM before phase 11, the
         # holds keep the parameters only)
@@ -7331,6 +7922,9 @@ def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
             large_vqa_counts = large_vqa_phase(args, root, large_th, large_tok, words,
                                                os.path.join(root, "flickr"), large_work, dev,
                                                smi)
+            torch.cuda.empty_cache()
+            s2l_counts = large_stage2_phase(args, root, large_tok, words, large_th, large_work,
+                                            dev, smi)
         finally:
             if large_work != root:
                 shutil.rmtree(large_work, ignore_errors=True)
@@ -7349,12 +7943,24 @@ def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
         video_counts = video_launcher_phase(args, root, th_path, tok_dir, words, dev, smi)
         log(f"phase 13 seconds: {time.perf_counter() - t13:.1f}")
         torch.cuda.empty_cache()
+        # ---- phase 18: X2VLM-base 1B pretraining (the aux stream) at its own sizes ----
+        b1b_work = work_dir(root, 8 * 2**30)
+        try:
+            b1b_counts = base_1b_phase(args, root, tok_dir, words, b1b_work, dev, smi)
+        finally:
+            if b1b_work != root:
+                shutil.rmtree(b1b_work, ignore_errors=True)
+        torch.cuda.empty_cache()
         # ---- phase 14: the Plus / CCLM base, the multilingual and parallel-text streams ----
         # ---- phase 15: the IGLUE tasks on phase 14's Plus state ----
         plus_work = work_dir(root, 40 * 2**30)
         try:
             cclm_counts, plus = cclm_launcher_phase(args, root, th_path, words, plus_work, dev,
                                                     smi)
+            torch.cuda.empty_cache()
+            # ---- phase 21: CCLM-large (code-switched regions) at its own sizes ----
+            cl_counts = cclm_large_phase(args, root, plus_work, plus["tok_dir"], words, dev,
+                                         smi)
             torch.cuda.empty_cache()
             iglue_counts = iglue_launcher_phase(args, root, plus, words, plus_work, dev, smi)
             # the deferred holds read states under root and plus_work
@@ -7378,6 +7984,14 @@ def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
     ledger_add(ledger, "large_pretrain_launcher", "training", large_pre_counts, LARGE_HEADS)
     for operands, c in large_vqa_counts.items():
         ledger_add(ledger, "large_vqa_launcher", operands, c, LARGE_HEADS)
+    ledger_add(ledger, "base_1b_launcher", "training", b1b_counts)
+    ledger_add(ledger, "large_1b_launcher", "training", l1b_counts, LARGE_HEADS)
+    ledger_add(ledger, "large_stage2_launcher", "training", s2l_counts, LARGE_HEADS)
+    # CCLM-large: its vision tower at 16 heads, XLM-R and the cross encoder at 12
+    ledger_add(ledger, "cclm_large_launcher", "training",
+               {k: cl_counts[k] for k in LEDGER_PARTS if k.startswith("flash")}, LARGE_HEADS)
+    ledger_add(ledger, "cclm_large_launcher", "training",
+               {k: cl_counts[k] for k in ("tiny_fwd", "tiny_bwd")})
     for path, split in (("retrieval_launcher", ret_counts), ("finetune_launcher", ft_counts),
                         ("vqa_launcher", vqa_counts), ("caption_launcher", cap_counts[0]),
                         ("caption_launcher", cap_counts[1]), ("video_launcher", video_counts),
