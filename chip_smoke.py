@@ -7,7 +7,10 @@ Run from the repository root, on a machine with a CUDA card and ``nvcc``.
 Phases (any failure exits non-zero and prints no result line):
 
 1. build every CUDA kernel of the port from ``x2vlm_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together);
+   ``nvcc`` per source, all started together, in the background: phase 2
+   checks the flash kernels, built first, while the others compile) and,
+   beside them, the native data plane from ``x2vlm_tpu_torch/csrc_host``
+   (``g++``; below);
 2. hold each kernel (flash forward, dQ, dK/dV, dBias; tiny forward and
    backward) against its plain PyTorch version on the card: at the main
    paths' shapes in bf16, with fp32 plain as truth and the rule
@@ -279,10 +282,11 @@ Phases (any failure exits non-zero and prints no result line):
    answers), each from phase 14's Plus train state (``--checkpoint <dir>``,
    memory-mapped, the task's head fresh) with phase 14's XLM-R tokenizer,
    on data written over phase 8's PNGs: ``{lang: path}`` test sets of two
-   languages (MARVL's: NLVR2's ``en`` and a MARVL ``zh`` set), WIT's rows
-   with base64 images, xGQA's lists of 1,000 answers (one language's a
-   [path, list] pair), 128 test lines a language for WIT and xFlickrCO so
-   the rerank takes 128 candidates both ways. 2 steps and the eval each;
+   languages (MARVL's: NLVR2's ``en`` and a MARVL ``zh`` set; WIT's and
+   xFlickrCO's one, ``RET_EVAL_LANGS``), WIT's rows with base64 images,
+   xGQA's lists of 1,000 answers (one language's a [path, list] pair), 128
+   test lines a language for WIT and xFlickrCO so the rerank takes 128
+   candidates both ways. 2 steps and the eval each;
    xGQA in 2 epochs of a step, then ``--resume`` from step 1 (its restored
    state and next batch bit for bit); XVNLI once more as ``--task
    classification`` (its ``dataset_type``) under ``--fewshot de,16`` (a
@@ -309,7 +313,8 @@ Phases (any failure exits non-zero and prints no result line):
    pretrain`` on the shipped ``configs/pretrain/x2vlm_large_4m.yaml`` at
    its own sizes (64 images at 224 px, the region block's 64 rows over 25
    images, no remat) from ``--seed`` weights on phase 7's image and region
-   lines, 2 steps, the state saved once at the end (its seconds apart); no
+   lines, 2 steps, the state saved once at the end, in memory (its
+   parameters, which the ``.th`` and the holds read); no
    ``--resume`` (the code phases 7 and 10 hold bit for bit; a resume of
    this model loads an ~11 GB state). Checked: finite losses, the launches
    of the run and of each stream call (image: 24 of each flash kernel at
@@ -333,8 +338,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``large_lr_for_dec``; 32 questions an eval call, k_test 128) from phase
    16's ``.th`` (24 rel-pos tables interpolated 14 -> 48, the decoder
    fresh) on 32 train and 32 test questions written over phase 8's PNGs:
-   one epoch of 2 steps and its eval, the state saved once (the best
-   state a hard link to it; the save's seconds apart). Checked: finite
+   one epoch of 2 steps and its eval, the state saved in memory (its
+   parameters, which the holds below read). Checked: finite
    losses and metrics, the import, ``accum_steps`` 2 and the decoder at
    ``lr_mult``, the launches of each step and eval call (under remat each
    rematerialised layer's forward kernels launch twice a microbatch, its
@@ -376,16 +381,49 @@ Phases (any failure exits non-zero and prints no result line):
    batch's MLM through the whole stack over B rows, no matching loss) and
    its matching flag, every launch tensor-core on the resident walk at
    the phase's head counts, no plain attention; each call's CUDA-event
-   and wall ms and peak GiB; the state saved once, its parameters kept
-   for the deferred card bf16 vs CPU fp32 hold (18: an aux, a noisy and a
-   region batch at 30 tokens; 19: the same on the 24-layer stack, at the
-   weights its seed gives on the CPU; 20: 2 videos of 3 frames; 21: 2
-   images and 2 code-switched region rows) and the train state deleted.
+   and wall ms and peak GiB; the state saved once, in memory (no later
+   phase reads it), its parameters kept for the deferred card bf16 vs
+   CPU fp32 hold (18: an aux, a noisy and a region batch at 30 tokens; 19:
+   the same on the 24-layer stack at the run's weights, the ITM head's
+   first weight held term by term, ``itm_term_faults``: each row's fused
+   CLS features, each call's p - y and each row's gradient at cosine 0.99,
+   the card's applied gradient against its own terms summed, and the
+   summed gradient, a near-cancelling sum of them there, within 0.06 of
+   the larger of its terms' scale and its norm; 20: 2 videos of 3 frames; 21:
+   2 images and 2 code-switched region rows);
+22-23. the two large fine-tunes at their own sizes from phase 16's ``.th``
+   (24 rel-pos tables interpolated 14 -> 24) on lines written over phase
+   8's PNGs, one epoch of 2 steps and its eval (``large_ft_phase``): 22
+   ``refcoco_grounding_large.yaml`` (384 px, 20 rows a step, 32 an eval
+   call, text and cross drop path 0.1, ``careful_hflip``, ``lr_mult`` 2);
+   23 ``coco_captioning_large.yaml`` (16 images a step at 40 + 18 = 58
+   FG-free tokens, label smoothing 0.1; an eval call of 20 images, 3
+   beams, 5 to 50 frames after the prompt; ``vision_lr`` 1e-5, ``text_lr``
+   5e-6). Checked: the sizes against the YAML, the import, the optimizer's
+   scale of each parameter against the YAML's groups, finite losses and
+   metrics, the launches of each step and eval call at 16 heads
+   (``large_ft_launches``: the x 584 ones key-tiled; captioning's
+   self-attentions on the plain core); each call's CUDA-event and wall
+   ms and peak GiB; the state kept in memory for the deferred hold: one
+   step on 2 rows in training mode, the attention dropout off and every
+   drop path on with the same keep masks injected on both sides
+   (``injected_drop_path``), card bf16 against CPU fp32 (losses within
+   0.05 + 2%, gradient cosines >= 0.99, each x 584 call within half the
+   bf16 rule, grounding's boxes within 0.02).
 
-Each launcher phase (7-21) logs its seconds split into data, run,
+Beside the kernels, phase 1 builds the port's native data plane
+(``x2vlm_tpu_torch/csrc_host``, ``g++`` with the libjpeg / libpng
+headers): where it builds, each of its pixel ops is held against PIL by
+the per-op rules (``data/native.pil_parity_failures``) and every
+pretraining phase's streams must take it (``native_aug: auto``); where it
+does not, ``native dataplane: unavailable (<the compiler's reason>)`` is
+printed on a line of its own and every stream must take PIL. Each
+pretraining phase logs the decoder its streams took (``data plane``).
+
+Each launcher phase (7-23) logs its seconds split into data, run,
 ``--resume``, the CPU fp32 hold, phase 12's export, the state saves and
 the rest (``phase N seconds``). The card-against-CPU holds
-of phases 9-11 and 13-21 run in
+of phases 9-11 and 13-23 run in
 one spawned worker process (its own card context, kernel libraries and
 launch counters) beside the later phases; their readings are logged and
 their faults failed before the kernels line (``holds collected``).
@@ -430,9 +468,14 @@ B=26 and K5 / K6 with training operands at 256, 128, 512 and 64 x 30 x 30,
 19), 32, 14 and 60 (phase 20's images, regions and frames) and 30 (phase
 21; its 14 region images are phase 20's), K5 / K6 at 512 x 40 x 40, 512 x
 40 x 200 (region key masks), 128 x 40 x 200, 32 x 40 x 40, 32 x 40 x 200,
-40 x 40 x 40, 80 x 40 x 40 and 80 x 40 x 200.
+40 x 40 x 40, 80 x 40 x 40 and 80 x 40 x 200. Phases 22 and 23 at 16 heads:
+K1-K4 at S=577 with B=20 (the grounding step; the caption eval's images)
+and B=16 (the captioning step), K1 with B=32 (the grounding eval), K5 /
+K6 at 20 x 40 x 40 and, key-tiled, 20 x 40 x 584 and 16 x 58 x 584 with
+training operands, K5 at 32 x 40 x 584, 20 x 5 x 584 and 60 x 2 x 584
+serving.
 
-Every attention launch of phases 3 and 5-21 is counted by kernel, shape,
+Every attention launch of phases 3 and 5-23 is counted by kernel, shape,
 head count and operands (serving: no multiplier, no probabilities;
 training; the flash kernels' with or without a bias) and must fall
 on a shape phase 2 checked and timed (``FLASH_MAIN_SHAPES``,
@@ -606,6 +649,12 @@ S2L_BATCH, S2L_REGION_ROWS, S2L_REGION_IMAGES, S2L_VIDEOS = 32, 32, 14, 20
 # over 14 images, 30 parallel pairs; XLM-R of 24 layers (at width 768: the
 # JAX factory's preset) and 6 cross layers, BEiT-2-large
 CL_BATCH, CL_REGION_IMAGES, CL_TEXT_LAYERS = 30, 14, 24
+# phases 22 and 23, X2VLM-large at 384 px: refcoco_grounding_large.yaml's
+# step (20 rows) and eval call (32); coco_captioning_large.yaml's FG-free
+# step (16 images at 40 + 18 tokens: a [MASK] before each of up to 18
+# masked tokens) and eval call (20 images, 3 beams, 50 frames)
+LG_BATCH, LG_EVAL_BATCH = 20, 32
+LC_BATCH, LC_TOKENS, LC_EVAL_BATCH, LC_MAX_LEN = 16, 58, 20, 50
 TINY_REPLACES = {"tiny_attention_fwd": "x2vlm_tpu/ops/tiny_attention.py:88",
                  "tiny_attention_bwd": "x2vlm_tpu/ops/tiny_attention.py:135"}
 FLASH_BWD_REPLACES = {"dq": "x2vlm_tpu/ops/flash_attention.py:368",
@@ -869,7 +918,9 @@ FLASH_MAIN_SHAPES = ((BATCH, N_IMG, True, True), (TRAIN_BATCH, N_IMG, True, True
 # 12-head pretraining image streams of phases 7, 13a, 14 and 18 above) and
 # region stream (50 images), phase 20's image stream (32), its region
 # stream and phase 21's (14 images) and its video stream (60 frames),
-# phase 21's image stream (30)
+# phase 21's image stream (30); at 384 px phase 22's grounding step (20
+# rows, also phase 23's eval call of 20 images) and eval call (32), phase
+# 23's captioning step (16)
 FLASH_MAIN_SHAPES_16 = ((LARGE_BATCH, N_IMG, True, True), (LARGE_REGION_IMAGES, N_IMG, True, True),
                         (LARGE_VQA_MB, N_IMG_768, True, True),
                         (VQA_EVAL_BATCH, N_IMG_768, False, True),
@@ -877,7 +928,9 @@ FLASH_MAIN_SHAPES_16 = ((LARGE_BATCH, N_IMG, True, True), (LARGE_REGION_IMAGES, 
                         (L1B_REGION_IMAGES, N_IMG, True, True), (S2L_BATCH, N_IMG, True, True),
                         (S2L_REGION_IMAGES, N_IMG, True, True),
                         (S2L_VIDEOS * STREAM_FRAMES, N_IMG, True, True),
-                        (CL_BATCH, N_IMG, True, True))
+                        (CL_BATCH, N_IMG, True, True),
+                        (LG_BATCH, N_IMG_384, True, True), (LC_BATCH, N_IMG_384, True, True),
+                        (LG_EVAL_BATCH, N_IMG_384, False, True))
 
 
 def with_heads(shapes, shapes_16) -> list:
@@ -1209,7 +1262,8 @@ TINY_MAIN_SHAPES = (
 # MLM fusion over 4 x 128 rows and the noisy batch's MLM (and the region bbox
 # pass) over 128; phase 20 (stage-2 large) its region bbox pass (32 rows)
 # and video stream (2 and 4 x 20 clips); its image and region fusion run at
-# 128 rows
+# 128 rows. Phase 22's grounding step (20 rows; its eval calls at 32 rows
+# share the VQA eval's shape)
 TINY_MAIN_SHAPES_16 = (
     ("large text self-attention, clean and masked rows", 2 * LARGE_BATCH, TEXT_LEN, TEXT_LEN,
      True, "pad"),
@@ -1242,7 +1296,9 @@ TINY_MAIN_SHAPES_16 = (
     ("stage-2 large video ITM + MLM fusion self-attention", 4 * S2L_VIDEOS, TEXT_LEN, TEXT_LEN,
      True, "pad"),
     ("stage-2 large video ITM + MLM fusion cross-attention", 4 * S2L_VIDEOS, TEXT_LEN, 200,
-     True, "pad"))
+     True, "pad"),
+    ("large grounding step text / fusion self-attention", LG_BATCH, TEXT_LEN, TEXT_LEN, True,
+     "pad"))
 
 
 def check_tiny(gen, dev):
@@ -1724,10 +1780,18 @@ TILED_MAIN_SHAPES = (
     (VQA_BATCH, TEXT_LEN, N_KEYS_768, True, True, "VQA question fusion"),
     (VQA_EVAL_BATCH, TEXT_LEN, N_KEYS_768, False, False, "VQA eval question fusion"))
 # the same walk at 16 heads: phase 17's VQA microbatch (8 questions) and eval
-# call (32)
+# call (32); phase 22's grounding step (20 rows) and eval call (32), phase
+# 23's FG-free captioning step (16 x 58: the first training shape whose
+# rows are no multiple of 8 / 16) and its decode (frame 0 at 20 images,
+# then 3 beams x 20 at 2 queries)
 TILED_MAIN_SHAPES_16 = (
     (LARGE_VQA_MB, TEXT_LEN, N_KEYS_768, True, True, "large VQA question fusion"),
-    (VQA_EVAL_BATCH, TEXT_LEN, N_KEYS_768, False, False, "large VQA eval question fusion"))
+    (VQA_EVAL_BATCH, TEXT_LEN, N_KEYS_768, False, False, "large VQA eval question fusion"),
+    (LG_BATCH, TEXT_LEN, N_KEYS_384, False, True, "large grounding bbox pass"),
+    (LG_EVAL_BATCH, TEXT_LEN, N_KEYS_384, False, False, "large grounding eval"),
+    (LC_BATCH, LC_TOKENS, N_KEYS_384, True, True, "large captioning FG-free step"),
+    (LC_EVAL_BATCH, CAP_PROMPT + 1, N_KEYS_384, False, False, "large caption decode frame 0"),
+    (CAP_BEAMS * LC_EVAL_BATCH, 2, N_KEYS_384, False, False, "large caption decode step"))
 
 
 def walk_delta(fn, before) -> dict:
@@ -2665,7 +2729,8 @@ PATHS = ("serving", "train_step", "int8_serving", "pretrain_launcher", "retrieva
          "finetune_launcher", "vqa_launcher", "caption_launcher", "clip_launcher",
          "swin_launcher", "video_launcher", "cclm_launcher", "iglue_launcher",
          "large_pretrain_launcher", "large_vqa_launcher", "base_1b_launcher",
-         "large_1b_launcher", "large_stage2_launcher", "cclm_large_launcher")
+         "large_1b_launcher", "large_stage2_launcher", "cclm_large_launcher",
+         "large_grounding_launcher", "large_caption_launcher")
 
 
 def ledger_add(ledger, path: str, operands: str, c: dict, heads: int = BASE_HEADS) -> None:
@@ -2900,6 +2965,21 @@ class StreamTimer:
         return out
 
 
+NATIVE = {"available": None}   # the native data plane on this host: set by _run
+
+
+def check_data_plane(tag: str, record: dict) -> None:
+    """Log the decoder each stream of a launcher pretraining run took (its
+    record's ``data_plane``) and hold it to ``native_aug: auto``: every
+    stream on the native data plane where this host built it, every stream
+    on PIL where it did not."""
+    planes = dict(record.get("data_plane") or {})
+    want = "native" if NATIVE["available"] else "pil"
+    log(f"{tag} data plane: {json.dumps(planes)}")
+    if not planes or set(planes.values()) != {want}:
+        fail(f"{tag}: the streams took {planes}; native_aug: auto on this host gives {want}")
+
+
 def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = ""):
     """Phase 7: ``x2vlm_tpu_torch.run --task pretrain`` in process on data
     written under ``root``, the image, region and text streams: 4 steps,
@@ -2953,6 +3033,7 @@ def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = "")
     with StreamTimer(("region", LAUNCH_STEPS - 1) if profiled else None,
                      (args, smi, "chip_smoke_region_profile.txt")) as timer:
         record = run_mod.main(argv + ["--epoch", str(LAUNCH_STEPS // 2)])
+        check_data_plane("phase 7", record)
     torch.cuda.synchronize()
     counts1 = launch_counts()
     log(f"phase 7 run 1 ({LAUNCH_STEPS} steps): {part_done('7', 'run', t1):.1f} s; "
@@ -3378,13 +3459,15 @@ def held_tiny_bwd_calls(n_keys: int, ratios: list):
         _TinyAttention.backward = staticmethod(backward)
 
 
-def write_grounding_corpus(root: str, rng: np.random.Generator, words, n_images: int):
+def write_grounding_corpus(root: str, rng: np.random.Generator, words, n_images: int,
+                           n_train: int = GROUNDING_BATCH * N_FT_STEPS,
+                           n_test: int = N_FT_EVAL, name: str = "refcoco"):
     """RefCOCO-style lines over the ``n_images`` PNGs of phase 8 (320 px):
     {image, bbox: pixel xywh, text, ref_id}, a fifth of the texts naming
-    left or right (the careful hflip); ``GROUNDING_BATCH`` x ``N_FT_STEPS``
-    train lines, ``N_FT_EVAL`` test lines and a ``refs_file`` giving each
-    test line its split (val / testA / testB), box and image size. Returns
-    the (train, test, refs) paths."""
+    left or right (the careful hflip); ``n_train`` train lines, ``n_test``
+    test lines and a ``refs_file`` giving each test line its split (val /
+    testA / testB), box and image size. Returns the (train, test, refs)
+    paths."""
     side = 320
 
     def line(i):
@@ -3396,11 +3479,11 @@ def write_grounding_corpus(root: str, rng: np.random.Generator, words, n_images:
         return {"image": f"{i % n_images}.png", "bbox": [x, y, w, h], "text": text,
                 "ref_id": i}
 
-    train = [line(i) for i in range(GROUNDING_BATCH * N_FT_STEPS)]
-    test = [line(1000 + i) for i in range(N_FT_EVAL)]
+    train = [line(i) for i in range(n_train)]
+    test = [line(1000 + i) for i in range(n_test)]
     refs = {str(a["ref_id"]): {"split": ("val", "testA", "testB")[j % 3], "bbox": a["bbox"],
                                "width": side, "height": side} for j, a in enumerate(test)}
-    paths = [os.path.join(root, f"refcoco_{n}.json") for n in ("train", "test", "refs")]
+    paths = [os.path.join(root, f"{name}_{n}.json") for n in ("train", "test", "refs")]
     for path, data in zip(paths, (train, test, refs)):
         with open(path, "w") as f:
             json.dump(data, f)
@@ -3862,7 +3945,8 @@ def vqa_hold(state, cfg: dict, batch: dict, answers: dict, dev,
     pass a device). With ``remat_train`` the loss runs in training mode with
     the dropouts at 0 and ``cfg``'s remat (``vqa_model``): each
     rematerialised fusion layer's 40 x 2312 forward runs twice, its forward
-    and its recompute. Returns the readings and the faults found."""
+    and its recompute, on the card (the CPU fp32 reference runs without
+    remat: the same function). Returns the readings and the faults found."""
     from x2vlm_tpu_torch.models.generation import inference
 
     state = params_of(state)
@@ -3870,7 +3954,10 @@ def vqa_hold(state, cfg: dict, batch: dict, answers: dict, dev,
     fwd_ratios, bwd_ratios, ranks, losses, grads = [], [], {}, {}, {}
     for tag, dtype, device in (("cpu", torch.float32, torch.device("cpu")),
                                ("card", torch.bfloat16, dev)):
-        model = vqa_model(cfg, dtype, device, remat_train)
+        # the CPU fp32 reference without remat: remat changes no forward
+        # operation, and the CPU's recompute (and dispatch mode) only costs
+        model = vqa_model(cfg if tag == "card" else dict(cfg, remat=False), dtype, device,
+                          remat_train)
         model.load_state_dict(state)
         b = {k: v.to(device) for k, v in batch.items()}
         model.train(remat_train)
@@ -4161,19 +4248,21 @@ CAP_LOGIT_RULE = (0.05, 0.05)        # phase 9's logits rule: 0.05 + 5% of their
 SCST_HOLD_ADV = np.array([0.7, -1.2, 0.4, -0.3, 1.1, -0.5, 0.9, -0.8, 0.2, -0.6], np.float32)
 
 
-def write_caption_corpus(root: str, rng: np.random.Generator, words, n_images: int):
-    """Karpathy-style lines over the ``n_images`` PNGs of phase 8: train, one
-    line an image with its 5 captions (the train set draws one a read; the
-    SCST set takes all 5 as references); test, an ``image_id`` and 5
-    captions a line; and the ``caption_gt_file`` of the test images.
-    Returns the (train, test, gt) paths."""
+def write_caption_corpus(root: str, rng: np.random.Generator, words, n_images: int,
+                         n_train: int = N_CAP_TRAIN, n_test: int = N_CAP_EVAL,
+                         name: str = "caption"):
+    """Karpathy-style lines over the ``n_images`` PNGs of phase 8: ``n_train``
+    train lines, one an image with its 5 captions (the train set draws one
+    a read; the SCST set takes all 5 as references); ``n_test`` test lines,
+    an ``image_id`` and 5 captions a line; and the ``caption_gt_file`` of
+    the test images. Returns the (train, test, gt) paths."""
     caps = lambda: [caption(rng, words, 5, 16) for _ in range(5)]
     train = [{"image": f"{i % n_images}.png", "caption": caps(), "image_id": i}
-             for i in range(N_CAP_TRAIN)]
+             for i in range(n_train)]
     test = [{"image": f"{(i + 11) % n_images}.png", "caption": caps(), "image_id": 5000 + i}
-            for i in range(N_CAP_EVAL)]
+            for i in range(n_test)]
     gt = {str(line["image_id"]): line["caption"] for line in test}
-    paths = [os.path.join(root, f"caption_{n}.json") for n in ("train", "test", "gt")]
+    paths = [os.path.join(root, f"{name}_{n}.json") for n in ("train", "test", "gt")]
     for path, data in zip(paths, (train, test, gt)):
         with open(path, "w") as f:
             json.dump(data, f)
@@ -4719,6 +4808,23 @@ def load_params(path: str) -> dict:
     return {k: v.clone() for k, v in state["params"].items()}
 
 
+def kept_params_save(kept: dict, saves: list):
+    """A stand-in for ``ckpt_lib.save_train_state`` for the launcher runs
+    whose saved state no later phase and no resume reads (phases 18-23): it
+    keeps the model's parameters, as ``load_params`` would read them back,
+    in ``kept["params"]`` and writes nothing (a large model's train state
+    with AdamW's moments is ~11 GB, ~13 s a save); ``saves`` gets each
+    call's seconds."""
+    def save(ckpt_dir, model, optimizer, step, data_state=None):
+        t = time.perf_counter()
+        kept.update(params={n: p.detach().cpu() for n, p in model.named_parameters()},
+                    step=step, dir=ckpt_dir)
+        saves.append(time.perf_counter() - t)
+        return None
+
+    return save
+
+
 def work_dir(root: str, need_bytes: int) -> str:
     """A directory in RAM (``/dev/shm``) with room for ``need_bytes``, else
     ``root``: the card's machine caps what one call writes to its disk at
@@ -5101,6 +5207,7 @@ def video_pretrain_phase(args, root: str, th_path: str, tok_dir: str, words, wor
         with StreamTimer(("video", VIDEO_STEPS - 1) if args.profile else None,
                          (args, smi, "chip_smoke_video_pretrain_profile.txt")) as timer:
             record = run_mod.main(argv + ["--epoch", str(VIDEO_STEPS)])
+            check_data_plane("phase 13a", record)
     finally:
         ckpt_lib.load_reference_checkpoint = orig_load
     torch.cuda.synchronize()
@@ -5938,6 +6045,7 @@ def cclm_launcher_phase(args, root: str, th_path: str, words, work: str, dev,
                          if args.profile else None,
                          (args, smi, "chip_smoke_cclm_{stream}_profile.txt")) as timer:
             record = run_mod.main(argv + ["--output_dir", out])
+        check_data_plane("phase 14", record)
     finally:
         ckpt_lib.load_converted, ckpt_lib.save_train_state = orig["load"], orig["save"]
     torch.cuda.synchronize()
@@ -6041,6 +6149,10 @@ def cclm_launcher_phase(args, root: str, th_path: str, words, work: str, dev,
 
 IGLUE_TASKS = ("xvnli", "marvl", "xgqa", "wit", "xflickrco")
 IGLUE_LANGS = ("de", "zh")            # the test sets' languages (MARVL's: NLVR2's "en", "zh")
+# WIT's and xFlickrCO's one test language: each language's eval reranks
+# 128 x 128 pairs both ways at 80 tokens in the plain fp32 core (~8 s of
+# the script a language)
+RET_EVAL_LANGS = IGLUE_LANGS[:1]
 N_IGLUE_TRAIN = 2 * IGLUE_BATCH       # train lines: 2 steps (xGQA: 1 an epoch, 2 epochs)
 N_RET_EVAL = 128                      # WIT / xFlickrCO test lines a language: k_test 128 both ways
 N_XGQA_ANSWERS = 1000                 # xGQA's answer lists (each language's own)
@@ -6058,7 +6170,8 @@ def write_iglue_corpus(work: str, rng: np.random.Generator, words, image_root: s
     pair), WIT lines with the PNGs in base64 and xFlickrCO lines, both with
     captions long enough to fill 80 tokens; ``N_IGLUE_TRAIN`` train lines
     (16 for xGQA and the few-shot file), 32 test lines a language (128 for
-    WIT and xFlickrCO). Returns the paths by name."""
+    WIT and xFlickrCO, in ``RET_EVAL_LANGS`` only). Returns the paths by
+    name."""
     n_img = len([f for f in os.listdir(image_root) if f.endswith(".png")])
     d = os.path.join(work, "iglue")
     os.makedirs(os.path.join(d, "jpg"))
@@ -6131,7 +6244,7 @@ def write_iglue_corpus(work: str, rng: np.random.Generator, words, image_root: s
 
     for name, make in (("wit", wit), ("xflickrco", xflickrco)):
         dump(f"{name}_train_en.jsonl", make(N_IGLUE_TRAIN, "en"))
-        for lang in IGLUE_LANGS:
+        for lang in RET_EVAL_LANGS:
             dump(f"{name}_test_{lang}.jsonl", make(N_RET_EVAL, lang))
     return paths
 
@@ -6140,8 +6253,8 @@ def iglue_config(task: str, paths: dict, plus: dict, image_root: str) -> dict:
     """The task's shipped config (its own sizes), the data paths pointed at
     ``paths``, the tokenizer phase 14 wrote."""
     cfg = dict(shipped_config(IGLUE_CONFIGS[task]), text_encoder=plus["tok_dir"])
-    per_lang = lambda stem, ext: {lang: paths[f"{stem}_test_{lang}.{ext}"]  # noqa: E731
-                                  for lang in IGLUE_LANGS}
+    per_lang = lambda stem, ext, langs=IGLUE_LANGS: {  # noqa: E731
+        lang: paths[f"{stem}_test_{lang}.{ext}"] for lang in langs}
     if task == "xvnli":
         cfg.update(train_file=[paths["xvnli_train_en.jsonl"]],
                    test_file=per_lang("xvnli", "jsonl"),
@@ -6158,7 +6271,7 @@ def iglue_config(task: str, paths: dict, plus: dict, image_root: str) -> dict:
                               "zh": [paths["gqa_test_zh.json"], paths["gqa_answers_zh.json"]]})
     else:
         cfg.update(train_file=[paths[f"{task}_train_en.jsonl"]],
-                   test_file=per_lang(task, "jsonl"))
+                   test_file=per_lang(task, "jsonl", RET_EVAL_LANGS))
         if task == "xflickrco":
             cfg["image_root"] = image_root
     return cfg
@@ -6862,8 +6975,130 @@ def large_cosine_params(mcfg):
             "base.bbox_head.0.weight")
 
 
+ITM_TERM_COSINE = 0.99                # the terms' limit: the gradient cosines' 0.99
+# the summed gradient's distance from the CPU's, over the larger of the
+# terms' root-sum-square and the CPU sum's norm: card runs at five seeds
+# read 0.0132-0.0355 (PERF.md); a zeroed card gradient reads 0.0975 at
+# --seed 1, where the rows' p - y cancel (a smaller fault in the product
+# is the applied hold's)
+ITM_SUM_LIMIT = 0.06
+# the applied gradient against the pass's own terms summed: each call's sum
+# is rounded once to the compute dtype (bf16: 2^-9 of each element), 4x that
+ITM_APPLIED_LIMIT = 2.0 ** -7
+ITM_HEAD_WEIGHT = "base.itm_head.0.weight"
+
+
+@contextlib.contextmanager
+def itm_head_terms(model, calls: list):
+    """Record the terms of the ITM head's first weight gradient, one entry
+    of ``calls`` an ITM head call: its input ``x`` (the fused CLS features,
+    a row a pair, in the compute dtype the product reads), the gradient
+    ``delta`` of the loss at its first dense's output and the gradient
+    ``dlogits`` at its logits, (p - y) / rows. The weight's gradient is the
+    sum over rows of ``delta_r`` x ``x_r`` (outer products), which
+    ``itm_term_faults`` holds term by term."""
+    from x2vlm_tpu_torch.models import xvlm as xvlm_mod
+
+    head = model.base.itm_head
+    orig = xvlm_mod.dense
+
+    def dense(x, w, b, dtype):
+        out = orig(x, w, b, dtype)
+        if w is head[0].weight and torch.is_grad_enabled():
+            rec = {"x": x.detach().to(dtype).double().cpu()}
+            out.register_hook(lambda g: rec.__setitem__("delta", g.detach().double().cpu()))
+            calls.append(rec)
+        return out
+
+    def logits_hook(module, inputs, out):
+        if out.requires_grad:
+            rec = calls[-1]
+            out.register_hook(lambda g: rec.__setitem__("dlogits",
+                                                        g.detach().double().cpu()))
+
+    handle = head.register_forward_hook(logits_hook)
+    xvlm_mod.dense = dense
+    try:
+        yield calls
+    finally:
+        xvlm_mod.dense = orig
+        handle.remove()
+
+
+def itm_term_faults(cpu: list, card: list, cpu_grad: torch.Tensor, card_grad: torch.Tensor,
+                    limit: float = ITM_TERM_COSINE) -> tuple:
+    """Hold the ITM head's first weight gradient term by term, card (or any
+    pass under test) against CPU fp32: every row's fused CLS features
+    (cosine), each call's p - y over its rows (cosine of the vectors), every
+    row's gradient before the sum (the outer product delta_r x_r, whose
+    cosine is cos(delta) cos(x)), each at ``limit``. Each pass's terms must
+    add up to the gradient it applied: the CPU's within 1e-4 of their
+    scale, the card's within ``ITM_APPLIED_LIMIT`` of its calls' sums
+    (the product rounds each call's sum once). The summed gradient is a
+    near-cancelling sum of the terms (the rows' p - y nearly cancel at
+    trained weights), so its cosine reads the compute dtype's floor; its
+    distance from the CPU's is held to ``ITM_SUM_LIMIT`` of the larger of
+    the terms' root-sum-square and the CPU sum's norm. Returns (readings,
+    faults)."""
+    faults = []
+    if len(cpu) != len(card) or not cpu or any(
+            set(c) != {"x", "delta", "dlogits"} for c in cpu + card):
+        return {}, [f"ITM head calls recorded: {len(cpu)} on the CPU, {len(card)} on the card "
+                    f"(each with x, delta and dlogits)"]
+    cos = lambda a, b: F.cosine_similarity(a, b, dim=-1)
+    x_cos, d_cos, row_cos, py_cos = [], [], [], []
+    for i, (c, g) in enumerate(zip(cpu, card)):
+        if c["x"].shape != g["x"].shape or c["delta"].shape != g["delta"].shape:
+            faults.append(f"ITM call {i}: shapes {tuple(g['x'].shape)} / "
+                          f"{tuple(g['delta'].shape)}, CPU {tuple(c['x'].shape)} / "
+                          f"{tuple(c['delta'].shape)}")
+            continue
+        xc, dc = cos(g["x"], c["x"]), cos(g["delta"], c["delta"])
+        x_cos += xc.tolist()
+        d_cos += dc.tolist()
+        row_cos += (xc * dc).tolist()
+        # p - y of the positive class, a row each; the two columns are opposites
+        py_cos.append(cos(g["dlogits"][:, 1], c["dlogits"][:, 1]).item())
+    if faults:
+        return {}, faults
+    for name, vals in (("fused CLS features", x_cos), ("p - y", py_cos),
+                       ("per-row gradient", row_cos)):
+        low = [round(v, 5) for v in vals if not v >= limit]
+        if low:
+            faults.append(f"ITM head {name}: cosines {low} below {limit} "
+                          f"(of {len(vals)})")
+
+    def call_sums(calls):
+        return [torch.einsum("ro,ri->oi", c["delta"], c["x"]).reshape(-1) for c in calls]
+
+    cpu_calls, card_calls = call_sums(cpu), call_sums(card)
+    scale = math.sqrt(sum(float(torch.einsum("ro,ri->r", c["delta"] ** 2, c["x"] ** 2).sum())
+                          for c in cpu))
+    cpu_sum, card_sum = sum(cpu_calls), sum(card_calls)
+    cpu_grad, card_grad = cpu_grad.double().reshape(-1), card_grad.double().reshape(-1)
+    own = float((cpu_sum - cpu_grad).norm()) / scale
+    applied = float((card_sum - card_grad).norm()) / sum(float(t.norm()) for t in card_calls)
+    sum_scale = max(scale, float(cpu_sum.norm()))
+    dist = float((card_grad - cpu_grad).norm()) / sum_scale
+    summed_cos = F.cosine_similarity(card_grad, cpu_grad, dim=0).item()
+    if not own <= 1e-4:
+        faults.append(f"ITM head: the CPU's terms add to its gradient within {own:.2e} of "
+                      f"their scale (at most 1e-4)")
+    if not applied <= ITM_APPLIED_LIMIT:
+        faults.append(f"ITM head: the card's applied gradient is {applied:.5f} of its calls' "
+                      f"sums from its own terms (at most {ITM_APPLIED_LIMIT:.5f})")
+    if not dist <= ITM_SUM_LIMIT:
+        faults.append(f"ITM head summed gradient: {dist:.5f} of the larger of the terms' scale "
+                      f"and the sum's from the CPU's (at most {ITM_SUM_LIMIT})")
+    readings = {"rows": len(x_cos), "min_feature_cos": min(x_cos), "min_p_y_cos": min(py_cos),
+                "min_row_grad_cos": min(row_cos), "applied_over_call_sums": applied,
+                "summed_dist_over_scale": dist, "summed_cos": summed_cos,
+                "summed_norm_over_terms": float(cpu_sum.norm()) / scale}
+    return readings, faults
+
+
 def large_pretrain_hold(final, mcfg, dev, text_len: int = TEXT_LEN,
-                        noisy: bool = False) -> tuple:
+                        noisy: bool = False, itm_terms: bool = False) -> tuple:
     """Phase 16's weights ``final`` (or the state saved at that path) on 2
     images and 2 region rows, dropout off, the negatives injected: the card
     in bf16 against the port's CPU fp32 path, each loss (ITC, ITM, MLM of
@@ -6875,26 +7110,30 @@ def large_pretrain_hold(final, mcfg, dev, text_len: int = TEXT_LEN,
     ``noisy`` (phases 18, 19: an aux stream beside the image stream) the
     image batch also runs as a noisy batch: no matching loss, the MLM
     through the whole stack. Phases 18 and 19 call it with their own
-    weights and text length. ``final`` an int: the weights the model takes
-    from that seed on the CPU."""
-    final = (XVLMForPretrain(mcfg, dtype=torch.float32, device="cpu", seed=final).state_dict()
-             if isinstance(final, int) else params_of(final))
+    weights and text length. With ``itm_terms`` (phase 19, at its run's
+    weights) the ITM head's first weight is held term by term
+    (``itm_term_faults``): there the rows' p - y nearly cancel, and its
+    summed gradient's cosine reads the bf16 floor, not the path."""
+    final = params_of(final)
     image, region = large_hold_batches(mcfg, text_len)
     neg = (torch.tensor([1, 0]), torch.tensor([1, 0]))
     names = large_cosine_params(mcfg)
     n_fusion = mcfg.text.num_layers - mcfg.text.fusion_layer
     fwd_ratios, bwd_ratios, losses, grads = [], [], {}, {}
+    itm_calls = {}
     for tag, dtype, device in (("cpu", torch.float32, torch.device("cpu")),
                                ("card", torch.bfloat16, dev)):
         model = XVLMForPretrain(mcfg, dtype=dtype, device=device, seed=None)
         model.load_state_dict(final)
+        terms = itm_head_terms(model, itm_calls.setdefault(tag, [])) if itm_terms \
+            else contextlib.nullcontext()
         to = lambda b: {k: v.to(device) for k, v in b.items()}
         negs = tuple(t.to(device) for t in neg)
         if tag == "cpu":
             region["target_bbox"] = off_kink_targets(cpu_boxes(
                 model, model.base.bbox_head,
                 lambda: model(to(region), neg_idx=negs, ret_bbox_loss=True)))
-        with held_tiny_calls(200, fwd_ratios), held_tiny_bwd_calls(200, bwd_ratios):
+        with held_tiny_calls(200, fwd_ratios), held_tiny_bwd_calls(200, bwd_ratios), terms:
             out = {f"image_{k}": v for k, v in model(to(image), neg_idx=negs).items()}
             out.update({f"region_{k}": v for k, v in model(
                 to(region), neg_idx=negs, ret_bbox_loss=True).items()})
@@ -6912,6 +7151,11 @@ def large_pretrain_hold(final, mcfg, dev, text_len: int = TEXT_LEN,
     r = {"losses": losses, "cosine": cos, "fwd_ratios": [round(x, 3) for x in fwd_ratios],
          "bwd_ratios": [round(x, 3) for x in bwd_ratios]}
     faults = []
+    if itm_terms:
+        r["itm_terms"], term_faults = itm_term_faults(
+            itm_calls["cpu"], itm_calls["card"], grads["cpu"][ITM_HEAD_WEIGHT],
+            grads["card"][ITM_HEAD_WEIGHT])
+        faults += term_faults
     want = {"image_loss_itc", "image_loss_itm", "image_loss_mlm", "region_loss_itc",
             "region_loss_itm", "region_loss_mlm", "region_loss_bbox", "region_loss_giou"}
     if noisy:
@@ -6922,7 +7166,7 @@ def large_pretrain_hold(final, mcfg, dev, text_len: int = TEXT_LEN,
         if not abs(losses["card"][k] - ref) <= 0.05 + 0.02 * abs(ref):
             faults.append(f"{k}: card {losses['card'][k]:.5f} vs CPU fp32 {ref:.5f}")
     for k, c in cos.items():
-        if not c >= 0.99:
+        if not c >= 0.99 and not (itm_terms and k == ITM_HEAD_WEIGHT):
             faults.append(f"gradient {k}: cosine to the CPU fp32 path {c:.5f} < 0.99")
     # the image's ITM + MLM fusion pass, the region's and its bbox pass (and
     # the noisy batch's MLM pass)
@@ -6940,7 +7184,8 @@ def large_pretrain_phase(args, root: str, tok_dir: str, work: str, dev, smi: str
     shipped ``configs/pretrain/x2vlm_large_4m.yaml`` (X2VLM-large from
     ``--seed``) at its own sizes, on phase 7's image and region lines: 2
     steps, each stream call timed and its launches read; the state saved
-    once, at the end (its seconds apart). Then ``remat_hold`` on the card
+    once, at the end, in memory (``kept_params_save``; no resume reads it),
+    and exported as a ``.th``. Then ``remat_hold`` on the card
     and ``large_pretrain_hold`` deferred. Returns the launches, the large
     tokenizer directory and the path of the run's weights as a
     reference-named ``.th`` (in ``work``)."""
@@ -6966,22 +7211,16 @@ def large_pretrain_phase(args, root: str, tok_dir: str, work: str, dev, smi: str
     log(f"phase 16 data and config: {part_done('16', 'data', t0):.1f} s")
 
     t1 = time.perf_counter()
-    saves = []
+    saves, kept = [], {}
     save = ckpt_lib.save_train_state
-
-    def timed_save(*a, **kw):
-        t = time.perf_counter()
-        path = save(*a, **kw)
-        saves.append(time.perf_counter() - t)
-        return path
-
     reset_counts()
-    ckpt_lib.save_train_state = timed_save
+    ckpt_lib.save_train_state = kept_params_save(kept, saves)
     try:
         with StreamTimer({("image", LARGE_STEPS - 1), ("region", LARGE_STEPS - 1)}
                          if args.profile else None,
                          (args, smi, "chip_smoke_large_{stream}_profile.txt")) as timer:
             record = run_mod.main(argv)
+        check_data_plane("phase 16", record)
     finally:
         ckpt_lib.save_train_state = save
     torch.cuda.synchronize()
@@ -6994,7 +7233,8 @@ def large_pretrain_phase(args, root: str, tok_dir: str, work: str, dev, smi: str
         ["region_loss_bbox", "region_loss_giou"]
     if not all(isinstance(record.get(k), float) and math.isfinite(record[k])
                for k in want_losses) or record.get("broken", -1) != 0 or \
-            record.get("pretrain_steps") != [0, LARGE_STEPS] or len(saves) != 1:
+            record.get("pretrain_steps") != [0, LARGE_STEPS] or len(saves) != 1 or \
+            kept.get("step") != LARGE_STEPS:
         fail(f"large pretrain launcher: record {record}, {len(saves)} saves")
     n = LARGE_STEPS
     want_tiny = collections.Counter()
@@ -7018,12 +7258,10 @@ def large_pretrain_phase(args, root: str, tok_dir: str, work: str, dev, smi: str
         f"{smi}): {json.dumps(timer.summary())}")
 
     t2 = time.perf_counter()
-    state_path = os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE)
-    final = load_params(state_path)
+    final = kept.pop("params")
     th_path = os.path.join(work, "x2vlm_large_phase16.th")
     torch.save({"model": {k[len("base."):]: v for k, v in final.items()}}, th_path)
     hold_path = hold_state(final, "large_pretrain.pt")
-    os.remove(state_path)
     part_done("16", "export", t2)
     t3 = time.perf_counter()
     remat_hold(final, mcfg, args.seed, dev)
@@ -7147,8 +7385,8 @@ def large_vqa_phase(args, root: str, th_path: str, large_tok: str, words, image_
     16's ``.th`` (24 tables interpolated 14 -> 48, the decoder fresh), on
     32 train and 32 test questions written over phase 8's PNGs: one epoch
     of 2 steps and its eval, each step and eval call timed and its launches
-    read (``large_vqa_launches``); the state saved once (its seconds
-    apart). No ``--resume``: the launcher's resume is the code phases 7 and
+    read (``large_vqa_launches``); the state saved in memory
+    (``kept_params_save``). No ``--resume``: the launcher's resume is the code phases 7 and
     10 hold bit for bit, and one resume of this model loads an ~11 GB
     state. Then on the card, from the run's weights: the split step against
     the unsplit one (``split_hold``, dropout off) and a step's ms and peak
@@ -7181,7 +7419,7 @@ def large_vqa_phase(args, root: str, th_path: str, large_tok: str, words, image_
     out = os.path.join(work, "out_vqa_large")
     log(f"phase 17 data and config: {part_done('17', 'data', t0):.1f} s")
 
-    imported, steps, evals, saves, last = {}, [], [], [], [""]
+    imported, steps, evals, saves, kept = {}, [], [], [], {}
     orig = {"load": ckpt_lib.load_reference_checkpoint, "save": ckpt_lib.save_train_state,
             "step": run_mod.make_train_step, "predict": XVLMForVQA.predict,
             "optimizer": run_mod.make_optimizer}
@@ -7203,21 +7441,6 @@ def large_vqa_phase(args, root: str, th_path: str, large_tok: str, words, image_
                                         bool(np.array_equal(got[key].cpu().numpy(), want))])
         return imported["missing"], imported["unexpected"]
 
-    def save(ckpt_dir, *a, **kw):
-        # the best state is the last one (one epoch): a hard link, not a
-        # second ~11 GB write
-        if os.path.basename(ckpt_dir) == "ckpt_best" and os.path.exists(last[0]):
-            os.makedirs(ckpt_dir, exist_ok=True)
-            path = os.path.join(ckpt_dir, ckpt_lib.TRAIN_STATE_FILE)
-            if os.path.exists(path):
-                os.remove(path)
-            os.link(last[0], path)
-            return path
-        t = time.perf_counter()
-        last[0] = orig["save"](ckpt_dir, *a, **kw)
-        saves.append(time.perf_counter() - t)
-        return last[0]
-
     def make_optimizer(cfg_, model, *a, **kw):
         opt = orig["optimizer"](cfg_, model, *a, **kw)
         at_mult = {opt.names[i] for (_, scale), idx in opt.groups if scale == 2.0 for i in idx}
@@ -7233,7 +7456,7 @@ def large_vqa_phase(args, root: str, th_path: str, large_tok: str, words, image_
 
     def patch(on: bool):
         ckpt_lib.load_reference_checkpoint = load if on else orig["load"]
-        ckpt_lib.save_train_state = save if on else orig["save"]
+        ckpt_lib.save_train_state = kept_params_save(kept, saves) if on else orig["save"]
         run_mod.make_train_step = make_step if on else orig["step"]
         run_mod.make_optimizer = make_optimizer if on else orig["optimizer"]
         XVLMForVQA.predict = timed(orig["predict"], evals,
@@ -7285,9 +7508,11 @@ def large_vqa_phase(args, root: str, th_path: str, large_tok: str, words, image_
     with open(os.path.join(out, "vqa_result.json")) as f:
         results = json.load(f)
     vals = [record.get(k) for k in ("eval_overall", "eval_acc", "loss_vqa", "loss_total")]
+    # two saves: the one epoch's state and its best copy
     if not all(isinstance(v, float) and math.isfinite(v) for v in vals) or \
             len(steps) != N_LARGE_VQA_TRAIN // LARGE_VQA_BATCH or len(evals) != 1 or \
-            len(results) != VQA_EVAL_BATCH or len(saves) != 1:
+            len(results) != VQA_EVAL_BATCH or len(saves) != 2 or \
+            kept.get("step") != N_LARGE_VQA_TRAIN // LARGE_VQA_BATCH:
         fail(f"large vqa launcher: {len(steps)} steps, {len(evals)} eval calls, {len(results)} "
              f"results, {len(saves)} saves, record {record}")
     want_step, want_eval = large_vqa_launches(True), large_vqa_launches(False)
@@ -7316,8 +7541,7 @@ def large_vqa_phase(args, root: str, th_path: str, large_tok: str, words, image_
     # the run's weights on the card: the split step against the unsplit one,
     # then a step's time and peak memory by remat policy
     t2 = time.perf_counter()
-    state_path = os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE)
-    final = load_params(state_path)
+    final = kept.pop("params")
     batch = large_vqa_batch(cfg, LARGE_VQA_BATCH, args.seed)
     model = vqa_model(cfg, torch.bfloat16, dev, remat_train=True)
     model.load_state_dict(final)
@@ -7484,8 +7708,7 @@ def config_stream_launches(phase: str, stream: str, kind: str) -> tuple:
 
 def config_pretrain_phase(args, phase: str, rel: str, overrides: dict, sizes, want_sizes,
                           work: str, dev, smi: str = "", checkpoint: str = None,
-                          hold=None, heads=(BASE_HEADS, BASE_HEADS), t0: float = None,
-                          hold_at_init: bool = False):
+                          hold=None, heads=(BASE_HEADS, BASE_HEADS), t0: float = None):
     """Phases 18-21: ``x2vlm_tpu_torch.run --task pretrain`` in process on
     the shipped config ``rel`` at its own sizes (``sizes(cfg)`` must give
     ``want_sizes``), its data paths set by ``overrides``, from ``--seed``
@@ -7493,14 +7716,12 @@ def config_pretrain_phase(args, phase: str, rel: str, overrides: dict, sizes, wa
     first seed whose loop draws give both kinds of each replaced stream
     (``seed_with_both_kinds``); each stream call timed (CUDA events, wall,
     peak GiB), its launches read against ``config_stream_launches`` and its
-    matching flag against its kind; the state saved once, its parameters
-    kept for the deferred hold ``hold`` = (label, fn, extra args), called
-    ``fn(params, mcfg, dev, *extra)``, and the train state deleted.
+    matching flag against its kind; the state saved once, in memory
+    (``kept_params_save``), its parameters kept for the deferred hold
+    ``hold`` = (label, fn, extra args), called ``fn(params, mcfg, dev,
+    *extra)``.
     ``heads`` = (flash, tiny) head counts; ``t0`` when the phase began
-    writing its data. With ``hold_at_init`` the hold takes the weights the
-    model gets from the run's ``--seed`` on the CPU (``fn`` builds them from
-    the seed) instead of the run's last state. Returns the run's
-    launches."""
+    writing its data. Returns the run's launches."""
     from x2vlm_tpu_torch import run as run_mod
 
     t0 = t0 or time.perf_counter()
@@ -7533,14 +7754,9 @@ def config_pretrain_phase(args, phase: str, rel: str, overrides: dict, sizes, wa
         f"{part_done(phase, 'data', t0):.1f} s")
 
     t1 = time.perf_counter()
-    saves, imported, switched = [], {}, []
+    saves, imported, switched, kept = [], {}, [], {}
     orig = {"save": ckpt_lib.save_train_state, "load": ckpt_lib.load_reference_checkpoint}
-
-    def timed_save(*a, **kw):
-        t = time.perf_counter()
-        path = orig["save"](*a, **kw)
-        saves.append(time.perf_counter() - t)
-        return path
+    timed_save = kept_params_save(kept, saves)
 
     def load(model, path):
         imported["missing"], imported["unexpected"] = orig["load"](model, path)
@@ -7554,6 +7770,7 @@ def config_pretrain_phase(args, phase: str, rel: str, overrides: dict, sizes, wa
                 if args.profile else None,
                 (args, smi, f"chip_smoke_phase{phase}_{{stream}}_profile.txt")) as timer:
             record = run_mod.main(argv)
+        check_data_plane(f"phase {phase}", record)
     finally:
         ckpt_lib.save_train_state, ckpt_lib.load_reference_checkpoint = \
             orig["save"], orig["load"]
@@ -7617,9 +7834,9 @@ def config_pretrain_phase(args, phase: str, rel: str, overrides: dict, sizes, wa
         f"{json.dumps(timer.summary())}")
 
     t2 = time.perf_counter()
-    params = seed if hold_at_init else hold_state(
-        load_params(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE)), f"phase{phase}.pt")
-    # the train state goes once the hold has its parameters
+    if len(saves) != 1 or kept.get("step") != CONFIG_STEPS:
+        fail(f"phase {phase}: {len(saves)} state saves, the last at step {kept.get('step')}")
+    params = hold_state(kept.pop("params"), f"phase{phase}.pt")
     shutil.rmtree(out, ignore_errors=True)
     part_done(phase, "state to hold", t2)
     if hold is not None:
@@ -7669,12 +7886,12 @@ def large_1b_phase(args, root: str, large_tok: str, words, work: str, dev, smi: 
     over 50 images; an aux and a noisy batch both run; each stream call's
     peak memory read. No remat, as shipped: a probe run on the card read
     74.04 GiB at the aux image call's peak (PERF.md §6). Hold: the
-    24-layer stack on an aux, a noisy and a region batch, at the weights
-    the model takes from the run's seed on the CPU: at the run's own
-    weights the ITM rows' p - y nearly cancel over the random stack's
+    24-layer stack on an aux, a noisy and a region batch at the run's own
+    weights, the ITM head's first weight term by term (``itm_term_faults``):
+    there the ITM rows' p - y nearly cancel over the random stack's
     collapsed features (ITM loss 0.640 against 0.637 at p = 1/3), and the
-    ITM head's gradient reads 0.989-0.991 against CPU fp32 on the card and
-    0.991 on the CPU in bf16 with no kernel (ROADMAP C, PERF.md §6)."""
+    summed gradient's cosine reads 0.989-0.991 against CPU fp32 on the card
+    and 0.991 on the CPU in bf16 with no kernel (PERF.md §6)."""
     t0 = time.perf_counter()
     aux_file = os.path.join(work, "aux_1b.jsonl")
     recaption(os.path.join(root, "images.jsonl"), aux_file,
@@ -7694,9 +7911,9 @@ def large_1b_phase(args, root: str, large_tok: str, words, work: str, dev, smi: 
         (PRETRAIN_BATCH, 0.15, TEXT_LEN, L1B_REGION_ROWS, L1B_REGION_IMAGES, L1B_TEXT_LAYERS,
          L1B_FUSION, 224), work, dev, smi,
         hold=("phase 19 card bf16 vs CPU fp32 (x2vlm_large_1b, 24 text layers fusing from 18, "
-              "the weights of the run's seed on the CPU: 2 images as an aux and a noisy batch, "
-              "2 region rows; dropout off)", large_pretrain_hold, (TEXT_LEN, True)),
-        heads=(LARGE_HEADS, LARGE_HEADS), t0=t0, hold_at_init=True)
+              "the run's weights, the ITM head term by term: 2 images as an aux and a noisy "
+              "batch, 2 region rows; dropout off)", large_pretrain_hold, (TEXT_LEN, True, True)),
+        heads=(LARGE_HEADS, LARGE_HEADS), t0=t0)
 
 
 def large_stage2_phase(args, root: str, large_tok: str, words, th_path: str, work: str, dev,
@@ -7773,6 +7990,379 @@ def cclm_large_phase(args, root: str, plus_work: str, tok_dir: str, words, dev,
         heads=(LARGE_HEADS, BASE_HEADS), t0=t0)
 
 
+# ---- phases 22 and 23: the two large fine-tunes at their own sizes ----
+
+LARGE_GROUNDING_CONFIG = "configs/finetune/refcoco_grounding_large.yaml"
+LARGE_CAPTION_CONFIG = "configs/finetune/coco_captioning_large.yaml"
+LARGE_FT_STEPS = 2                   # phases 22 and 23: 2 steps in one epoch, then the eval
+DROP_PATH_SEED = 22                  # the keep masks both passes of a held step draw
+
+
+@contextlib.contextmanager
+def injected_drop_path(seed: int, dropped: list):
+    """Within the block, every drop path keeps the rows a CPU generator
+    seeded with ``seed`` draws (``ops.layers.drop_path_keep`` replaced; the
+    masks are moved to the layer's device), so a step held on the card and
+    on the CPU drops the same rows; the rows dropped a call are appended to
+    ``dropped``."""
+    from x2vlm_tpu_torch.ops import layers as layers_mod
+
+    g = torch.Generator().manual_seed(seed)
+    orig = layers_mod.drop_path_keep
+
+    def keep(shape, keep_prob, generator, device):
+        mask = torch.rand(shape, generator=g) < keep_prob
+        dropped.append(int((~mask).sum()))
+        return mask.to(device)
+
+    layers_mod.drop_path_keep = keep
+    try:
+        yield dropped
+    finally:
+        layers_mod.drop_path_keep = orig
+
+
+def attention_dropout_off(mcfg):
+    """``mcfg`` with the attention and hidden dropouts at 0 and every
+    drop-path rate kept (the hold injects its keep masks)."""
+    return dataclasses.replace(
+        mcfg, vision=dataclasses.replace(mcfg.vision, dropout_rate=0.0, attn_dropout_rate=0.0),
+        text=dataclasses.replace(mcfg.text, hidden_dropout=0.0, attn_dropout=0.0))
+
+
+def large_ft_launches(task: str, train: bool) -> dict:
+    """The attention launches of one phase-22 / 23 train step or eval call
+    at 16 heads: 24 flash (the vision pass at S=577); grounding (step 20
+    rows, eval 32) tiny at 40 x 40 (12 text layers, 6 fusion
+    self-attentions) and 40 x 584 (6 fusion cross-attentions, key-tiled);
+    captioning tiny only for the 6 cross-attentions, key-tiled: a step at
+    16 x 58 x 584 (FG-free: 40 + 18 tokens), its 18 self-attentions on the
+    plain core (the UniLM attention matrix); an eval call frame 0 at 20 x
+    (prompt + 1) x 584, then 49 frames of 2 queries over the 3 x 20
+    beams, 18 plain self-attentions a frame. The backward as the forward
+    in training."""
+    if task == "grounding":
+        B = LG_BATCH if train else LG_EVAL_BATCH
+        tiny, plain = {(B, TEXT_LEN, TEXT_LEN): 18, (B, TEXT_LEN, N_KEYS_384): 6}, 0
+    elif train:
+        tiny, plain = {(LC_BATCH, LC_TOKENS, N_KEYS_384): 6}, 18
+    else:
+        tiny = {(LC_EVAL_BATCH, CAP_PROMPT + 1, N_KEYS_384): 6,
+                (CAP_BEAMS * LC_EVAL_BATCH, 2, N_KEYS_384): 6 * (LC_MAX_LEN - 1)}
+        plain = 18 * LC_MAX_LEN
+    return {"flash_fwd": 24, "flash_bwd": 24 if train else 0, "tiny_fwd": tiny,
+            "tiny_bwd": tiny if train else {}, "plain": plain}
+
+
+def large_ft_hold(task: str, state, cfg: dict, batch: dict, dev) -> tuple:
+    """One step of phase 22 / 23's fine-tuned weights ``state`` (or the
+    train state saved at that path) on 2 rows in training mode, the
+    attention and hidden dropouts off and every drop path on at its rate,
+    its keep masks injected (``injected_drop_path``: both passes drop the
+    same rows): the card in bf16 against the port's CPU fp32 path, each
+    loss within 0.05 + 2%, the gradient cosines of
+    ``finetune_cosine_params`` (grounding's bbox head) or
+    ``caption_cosine_params`` >= 0.99, each bf16 x 584 forward and backward
+    call held on the model's operands within ``FUSION_CALL_RATIO`` of the
+    bf16 rule's bound; grounding's boxes (eval mode) within 0.02 and its
+    targets ``off_kink_targets`` of the CPU path's boxes. Returns the
+    readings and the faults found."""
+    from x2vlm_tpu_torch.models import XVLMForGrounding, XVLMForMLMCaptioning
+
+    state = params_of(state)
+    mcfg = attention_dropout_off(xvlm_config_from_yaml(cfg))
+    names = (finetune_cosine_params(mcfg, "bbox_head") if task == "grounding"
+             else caption_cosine_params(mcfg))
+    fwd_ratios, bwd_ratios, losses, grads, dropped, boxes = [], [], {}, {}, {}, {}
+    for tag, dtype, device in (("cpu", torch.float32, torch.device("cpu")),
+                               ("card", torch.bfloat16, dev)):
+        model = (XVLMForGrounding(mcfg, dtype=dtype, device=device, seed=None)
+                 if task == "grounding" else
+                 XVLMForMLMCaptioning(mcfg, label_smoothing=cfg["label_smoothing"],
+                                      dtype=dtype, device=device, seed=None))
+        model.load_state_dict(state)
+        b = {k: v.to(device) for k, v in batch.items()}
+        if task == "grounding":
+            with torch.no_grad():
+                boxes[tag] = model.predict(b["image"], b["text_ids"], b["text_atts"]).float()
+            if tag == "cpu":
+                batch["target_bbox"] = off_kink_targets(boxes["cpu"])
+                b["target_bbox"] = batch["target_bbox"]
+            boxes[tag] = boxes[tag].cpu()
+        model.train()
+        with held_tiny_calls(N_KEYS_384, fwd_ratios), held_tiny_bwd_calls(N_KEYS_384,
+                                                                          bwd_ratios), \
+                injected_drop_path(DROP_PATH_SEED, dropped.setdefault(tag, [])):
+            out = model(b)
+            sum(out.values()).backward()
+        losses[tag] = {k: v.item() for k, v in out.items()}
+        params = dict(model.named_parameters())
+        grads[tag] = {k: params[k].grad.detach().double().cpu().reshape(-1) for k in names}
+        del model, out, params, b
+    torch.cuda.empty_cache()
+    cos = {k: F.cosine_similarity(grads["card"][k], grads["cpu"][k], dim=0).item()
+           for k in names}
+    r = {"losses": losses, "cosine": cos, "fwd_ratios": fwd_ratios, "bwd_ratios": bwd_ratios,
+         "drop_path_calls": len(dropped["card"]), "rows_dropped": sum(dropped["card"])}
+    faults = []
+    if dropped["card"] != dropped["cpu"] or not sum(dropped["card"]):
+        faults.append(f"drop path: rows dropped a call {dropped['card']} on the card, "
+                      f"{dropped['cpu']} on the CPU (the same, and some)")
+    if task == "grounding":
+        r["box_err"] = max_err(boxes["card"], boxes["cpu"])
+        if not r["box_err"] <= 0.02:
+            faults.append(f"boxes off the CPU fp32 path's by {r['box_err']:.4f} > 0.02")
+    for kind, ratios in (("forward", fwd_ratios), ("backward", bwd_ratios)):
+        if len(ratios) != 6 or not all(x <= FUSION_CALL_RATIO for x in ratios):
+            faults.append(f"the x {N_KEYS_384} {kind} calls' errors over the bf16 rule's "
+                          f"bound {[round(x, 3) for x in ratios]}, expected 6 at most "
+                          f"{FUSION_CALL_RATIO}")
+    for k, ref in losses["cpu"].items():
+        if not abs(losses["card"][k] - ref) <= 0.05 + 0.02 * abs(ref):
+            faults.append(f"{k}: card {losses['card'][k]:.5f} vs CPU fp32 {ref:.5f}")
+    for k, c in cos.items():
+        if not c >= 0.99:
+            faults.append(f"gradient {k}: cosine to the CPU fp32 path {c:.5f} < 0.99")
+    return r, faults
+
+
+def lr_scale_faults(opt, labels: dict, cfg: dict) -> tuple:
+    """The optimizer's scale of each parameter against the YAML's groups:
+    the vision tower's ``vision_lr`` / ``lr``, the text tower's ``text_lr``
+    / ``lr``, the cross layers' ``cross_lr`` / ``lr``, a fresh head's
+    ``lr_mult``, the rest 1, by the parameters' ``labels``
+    (``train.param_labels``). Returns (the scales by label, faults)."""
+    o = cfg["optimizer"]
+    lr = float(o["lr"])
+    want = {"vision": float(o.get("vision_lr", lr)) / lr, "text": float(o.get("text_lr", lr)) / lr,
+            "cross": float(o.get("cross_lr", lr)) / lr, "fresh": float(o.get("lr_mult", 1.0)),
+            "other": 1.0}
+    scale = {opt.names[i]: s for (_, s), idx in opt.groups for i in idx}
+    seen = collections.defaultdict(set)
+    for name, s in scale.items():
+        seen[labels[name]].add(s)
+    faults = [f"{label}: scales {sorted(s)}, the YAML gives {want[label]}"
+              for label, s in seen.items() if s != {want[label]}]
+    return {k: sorted(v) for k, v in seen.items()}, faults
+
+
+def large_ft_phase(args, task: str, root: str, th_path: str, large_tok: str, words,
+                   image_root: str, work: str, dev, smi: str = "") -> dict:
+    """Phase 22 (``task`` grounding) or 23 (captioning):
+    ``x2vlm_tpu_torch.run --task <task>`` in process on the shipped
+    ``refcoco_grounding_large.yaml`` / ``coco_captioning_large.yaml`` at
+    their own sizes (384 px, 16 heads; grounding 20 rows a step and 32 an
+    eval call, text and cross drop path 0.1, ``careful_hflip``, ``lr_mult``
+    2; captioning 16 images a step at 58 FG-free tokens, label smoothing
+    0.1, 20 images an eval call, 3 beams, 5 to 50 frames, ``vision_lr`` /
+    ``text_lr``) from phase 16's ``.th`` (the 24 rel-pos tables
+    interpolated 14 -> 24), on lines written over phase 8's PNGs: one epoch
+    of 2 steps and its eval, each step and eval call timed (CUDA events,
+    wall, peak GiB) and its launches read (``large_ft_launches``); the
+    optimizer's scale of each parameter held to the YAML's groups; the
+    state saved in memory (``kept_params_save``); then ``large_ft_hold``
+    on 2 rows deferred. Returns the launches split into
+    the steps' and the eval's."""
+    from x2vlm_tpu_torch import run as run_mod
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.data.loader import collate
+    from x2vlm_tpu_torch.data.tokenization import build_tokenizer
+    from x2vlm_tpu_torch.tasks import captioning as cap_mod, grounding as grounding_mod
+
+    phase = "22" if task == "grounding" else "23"
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + int(phase))
+    n_images = len(os.listdir(image_root))
+    if task == "grounding":
+        shipped = shipped_config(LARGE_GROUNDING_CONFIG)
+        train, test, refs = write_grounding_corpus(root, rng, words, n_images,
+                                                   LG_BATCH * LARGE_FT_STEPS, LG_EVAL_BATCH,
+                                                   "refcoco_large")
+        cfg = dict(shipped, image_root=image_root, text_encoder=large_tok, train_file=[train],
+                   test_file=[test], refs_file=refs)
+        sizes = (cfg["batch_size"], cfg["batch_size_test"], cfg["max_tokens"],
+                 cfg["image_res"], cfg["careful_hflip"], cfg["text_drop_path_rate"],
+                 cfg["cross_drop_path_rate"], cfg["optimizer"]["lr_mult"])
+        want_sizes = (LG_BATCH, LG_EVAL_BATCH, TEXT_LEN, 384, True, 0.1, 0.1, 2)
+        eval_mod, eval_name, rel = grounding_mod, "predict_grounding", LARGE_GROUNDING_CONFIG
+    else:
+        shipped = shipped_config(LARGE_CAPTION_CONFIG)
+        train, test, gt = write_caption_corpus(root, rng, words, n_images,
+                                               LC_BATCH * LARGE_FT_STEPS, LC_EVAL_BATCH,
+                                               "caption_large")
+        cfg = dict(shipped, image_root=image_root, text_encoder=large_tok, train_file=[train],
+                   test_file=[test], caption_gt_file=gt)
+        o = cfg["optimizer"]
+        sizes = (cfg["batch_size"], cfg["batch_size_test"], cfg["fg_free"], cfg["max_tokens"],
+                 cfg["max_masks"], cfg["label_smoothing"], cfg["num_beams"],
+                 cfg["max_length"], cfg["min_length"], cfg["prompt"], cfg["image_res"],
+                 float(o["vision_lr"]), float(o["text_lr"]), cfg["start_eval"])
+        want_sizes = (LC_BATCH, LC_EVAL_BATCH, True, TEXT_LEN, LC_TOKENS - TEXT_LEN, 0.1,
+                      CAP_BEAMS, LC_MAX_LEN, 5, "a picture of ", 384, 1e-5, 5e-6, 0)
+        eval_mod, eval_name, rel = cap_mod, "beam_search_generate_device", LARGE_CAPTION_CONFIG
+        prompt = cap_mod.prompt_ids(build_tokenizer(large_tok), cfg["prompt"])
+        if len(prompt) != CAP_PROMPT:
+            fail(f"phase 23: the prompt is {len(prompt)} tokens, phase 2's shapes assume "
+                 f"{CAP_PROMPT}")
+    if sizes != want_sizes:
+        fail(f"phase {phase} ({rel}): the shipped config's sizes {sizes} changed from "
+             f"{want_sizes}")
+    mcfg = xvlm_config_from_yaml(cfg)
+    cfg_path = os.path.join(root, f"{task}_large.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    out = os.path.join(work, f"out_{task}_large")
+    log(f"phase {phase} data and config: {part_done(phase, 'data', t0):.1f} s")
+
+    imported, steps, evals, saves, kept = {}, [], [], [], {}
+    orig = {"load": ckpt_lib.load_reference_checkpoint, "save": ckpt_lib.save_train_state,
+            "step": run_mod.make_train_step, "optimizer": run_mod.make_optimizer,
+            "eval": getattr(eval_mod, eval_name)}
+    timed = functools.partial(timed_call, args, smi)
+    table_key = "vision_encoder.blocks.0.attn.relative_position_bias_table"
+
+    def load(model, path):
+        imported["missing"], imported["unexpected"] = orig["load"](model, path)
+        src = torch.load(path, map_location="cpu", weights_only=False, mmap=True)["model"]
+        got = model.state_dict()
+        imported["rel_pos"] = []
+        for i in range(mcfg.vision.depth):
+            key = table_key.replace(".0.", f".{i}.")
+            t = src[key].float().numpy()
+            want = ckpt_lib.interp_rel_pos_table(t, 14, 24)
+            imported["rel_pos"].append([list(t.shape), list(got[key].shape),
+                                        bool(np.array_equal(got[key].cpu().numpy(), want))])
+        return imported["missing"], imported["unexpected"]
+
+    def make_optimizer(cfg_, model, total_steps, fusion_layer, fresh_names=()):
+        from x2vlm_tpu_torch.train import param_labels
+
+        opt = orig["optimizer"](cfg_, model, total_steps, fusion_layer, fresh_names)
+        labels = param_labels(model.named_parameters(), fusion_layer, fresh_names=fresh_names)
+        imported["scales"], imported["scale_faults"] = lr_scale_faults(opt, labels, cfg)
+        return opt
+
+    def make_step(model, optimizer, **kw):
+        return timed(orig["step"](model, optimizer, **kw), steps,
+                     f"chip_smoke_{task}_large_step_profile.txt",
+                     lambda i: args.profile and i == LARGE_FT_STEPS - 1)
+
+    def patch(on: bool):
+        ckpt_lib.load_reference_checkpoint = load if on else orig["load"]
+        ckpt_lib.save_train_state = kept_params_save(kept, saves) if on else orig["save"]
+        run_mod.make_train_step = make_step if on else orig["step"]
+        run_mod.make_optimizer = make_optimizer if on else orig["optimizer"]
+        setattr(eval_mod, eval_name, timed(orig["eval"], evals,
+                                           f"chip_smoke_{task}_large_eval_profile.txt",
+                                           lambda i: bool(args.profile) and i == 0)
+                if on else orig["eval"])
+
+    argv = ["--task", task, "--config", cfg_path, "--checkpoint", th_path, "--epoch", "1",
+            "--seed", str(args.seed), "--device", dev.type, "--output_dir", out]
+    t1 = time.perf_counter()
+    reset_counts()
+    patch(True)
+    try:
+        record = run_mod.main(argv)
+    finally:
+        patch(False)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    PHASE_PARTS[phase]["save"] += sum(saves)
+    PHASE_PARTS[phase]["run"] += time.perf_counter() - t1 - sum(saves)
+    log(f"phase {phase} run ({len(steps)} steps + eval): {time.perf_counter() - t1:.1f} s, the "
+        f"state saves {[round(s, 1) for s in saves]} s; {json.dumps(record)}")
+    log(f"phase {phase} {task} step ms at 384 px, B={LG_BATCH if task == 'grounding' else LC_BATCH}"
+        f" (CUDA events, wall): "
+        f"{json.dumps([[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in steps])}; peak "
+        f"device memory GiB {[round(r['peak_gib'], 2) for r in steps]}; eval calls ms (CUDA "
+        f"events, wall) {[[round(r['ms'], 3), round(r['wall_ms'], 3)] for r in evals]}, peak "
+        f"GiB {[round(r['peak_gib'], 2) for r in evals]}; {smi}")
+
+    missing, unexpected = imported.get("missing"), imported.get("unexpected", [])
+    rel_pos = imported.get("rel_pos", [])
+    tables_ok = len(rel_pos) == mcfg.vision.depth and all(
+        r == [[27 * 27 + 3, LARGE_HEADS], [47 * 47 + 3, LARGE_HEADS], True] for r in rel_pos)
+    log(f"phase {phase} import: missing {missing}, unexpected {len(unexpected)} "
+        f"({sorted({'.'.join(k.split('.')[:2]) for k in unexpected})}); {len(rel_pos)} rel-pos "
+        f"tables interpolated 14 -> 24 as interp_rel_pos_table: {tables_ok}; learning-rate "
+        f"scales by label {imported.get('scales')}")
+    leftover = ("vision_proj.", "text_proj.", "temp", "itm_head.") + (
+        ("text_encoder.cls.",) if task == "grounding" else ("bbox_head.",))
+    if missing != [] or not unexpected or not all(k.startswith(leftover) for k in unexpected) \
+            or not tables_ok:
+        fail(f"phase {phase} import of {th_path}: missing {missing}, unexpected {unexpected}, "
+             f"rel-pos {rel_pos}")
+    if imported.get("scale_faults", ["no optimizer"]):
+        fail(f"phase {phase} learning rates: {imported.get('scale_faults', 'no optimizer')}")
+    eval_keys = (("val_acc", "testA_acc", "testB_acc") if task == "grounding"
+                 else ("bleu1", "bleu4", "cider", "rouge_l", "meteor"))
+    vals = [record.get(f"eval_{k}") for k in eval_keys] + [record.get("loss_total")]
+    # two saves: the one epoch's state and its best copy
+    if not all(isinstance(v, float) and math.isfinite(v) for v in vals) or \
+            len(steps) != LARGE_FT_STEPS or len(evals) != 1 or len(saves) != 2 or \
+            kept.get("step") != LARGE_FT_STEPS:
+        fail(f"phase {phase}: {len(steps)} steps, {len(evals)} eval calls, {len(saves)} saves, "
+             f"record {record}")
+    want_step, want_eval = large_ft_launches(task, True), large_ft_launches(task, False)
+    for tag, records, want in (("step", steps, want_step), ("eval call", evals, want_eval)):
+        for i, r in enumerate(records):
+            got = dict(r["launches"], plain=r["plain"])
+            if got != want:
+                fail(f"phase {phase} {tag} {i}: launches {got}, expected {want}")
+    tiny = collections.Counter()
+    for want, n in ((want_step, len(steps)), (want_eval, len(evals))):
+        for shape, k in want["tiny_fwd"].items():
+            tiny[shape] += k * n
+    check_launcher_counts(
+        f"phase {phase} launcher", counts,
+        want_step["flash_fwd"] * len(steps) + want_eval["flash_fwd"] * len(evals),
+        want_step["flash_bwd"] * len(steps),
+        {"tiny_fwd": dict(tiny),
+         "tiny_bwd": {k: n * len(steps) for k, n in want_step["tiny_bwd"].items()}},
+        n_plain=want_step["plain"] * len(steps) + want_eval["plain"] * len(evals))
+    check_heads(f"phase {phase} launcher", counts, LARGE_HEADS)
+    if counts["tiny_walks"]["tiny_attention_fwd"].get(TILED, 0) != \
+            sum(n for (b, sq, skv), n in tiny.items() if skv == N_KEYS_384):
+        fail(f"phase {phase}: the x {N_KEYS_384} launches are not all key-tiled: "
+             f"{counts['tiny_walks']}")
+
+    # the run's weights: one step on 2 rows, card bf16 against CPU fp32
+    # with the drop paths' keep masks injected (deferred)
+    t2 = time.perf_counter()
+    train_ds, _ = create_dataset(task, cfg, rng=random.Random(args.seed))
+    batch = {k: torch.from_numpy(v) for k, v in collate([train_ds[0], train_ds[1]]).items()
+             if k != "ref_id"}
+    hold_path = hold_state(kept.pop("params"), f"phase{phase}.pt")
+    shutil.rmtree(out, ignore_errors=True)
+    part_done(phase, "state to hold", t2)
+    defer_hold(f"phase {phase} card bf16 vs CPU fp32 ({task}, 2 rows, training mode, attention "
+               f"dropout off, drop path on with injected keep masks)", large_ft_hold, task,
+               hold_path, cfg, batch, dev)
+    phase_seconds(phase, t0)
+    return split_counts(counts, [r["delta"] for r in steps])
+
+
+def native_dataplane() -> None:
+    """Build the native data plane (``data/native.py``: ``g++`` with the
+    libjpeg / libpng headers) and, where it builds, hold each of its pixel
+    ops against PIL by the per-op rules (``pil_parity_failures``); where it
+    does not, say why on a line of its own. Sets ``NATIVE``."""
+    from x2vlm_tpu_torch.data import native as native_mod
+
+    t = time.perf_counter()
+    NATIVE["available"] = native_mod.native_available()
+    if not NATIVE["available"]:
+        log(f"native dataplane: unavailable ({native_mod.unavailable_reason()})")
+        return
+    log(f"native dataplane: built in {time.perf_counter() - t:.1f} s "
+        f"({native_mod.lib_path().name})")
+    bad = native_mod.pil_parity_failures()
+    log(f"native dataplane against PIL, per op: {json.dumps(bad) if bad else 'every op holds'}")
+    if bad:
+        fail(f"native dataplane against PIL: {bad}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7810,8 +8400,12 @@ def run(args, dev: torch.device) -> int:
 def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
     """``run`` with the holds' worker open."""
 
-    secs = _build.build()
-    log(f"build: {json.dumps({k: round(v, 1) for k, v in secs.items()})}")
+    # g++ builds the native data plane while the nvcc processes run
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native_build = pool.submit(native_dataplane)
+        secs = _build.build()
+        log(f"build: {json.dumps({k: round(v, 1) for k, v in secs.items()})}")
+        native_build.result()
     for name in _build.KERNELS:
         log(f"ptxas {name}:\n{_build.ptxas_report(name)}")
 
@@ -7925,6 +8519,14 @@ def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
             torch.cuda.empty_cache()
             s2l_counts = large_stage2_phase(args, root, large_tok, words, large_th, large_work,
                                             dev, smi)
+            torch.cuda.empty_cache()
+            # ---- phase 22: refcoco_grounding_large.yaml from phase 16's .th ----
+            # ---- phase 23: coco_captioning_large.yaml from phase 16's .th ----
+            lg_counts = large_ft_phase(args, "grounding", root, large_th, large_tok, words,
+                                       os.path.join(root, "flickr"), large_work, dev, smi)
+            torch.cuda.empty_cache()
+            lc_counts = large_ft_phase(args, "captioning", root, large_th, large_tok, words,
+                                       os.path.join(root, "flickr"), large_work, dev, smi)
         finally:
             if large_work != root:
                 shutil.rmtree(large_work, ignore_errors=True)
@@ -7987,6 +8589,10 @@ def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
     ledger_add(ledger, "base_1b_launcher", "training", b1b_counts)
     ledger_add(ledger, "large_1b_launcher", "training", l1b_counts, LARGE_HEADS)
     ledger_add(ledger, "large_stage2_launcher", "training", s2l_counts, LARGE_HEADS)
+    for path, split in (("large_grounding_launcher", lg_counts),
+                        ("large_caption_launcher", lc_counts)):
+        for operands, c in split.items():
+            ledger_add(ledger, path, operands, c, LARGE_HEADS)
     # CCLM-large: its vision tower at 16 heads, XLM-R and the cross encoder at 12
     ledger_add(ledger, "cclm_large_launcher", "training",
                {k: cl_counts[k] for k in LEDGER_PARTS if k.startswith("flash")}, LARGE_HEADS)

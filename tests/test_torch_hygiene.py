@@ -50,6 +50,29 @@ def test_port_file_imports_nothing_of_jax(path):
     assert bad == [], f"{path} imports {bad}"
 
 
+NATIVE_DIR_REF = re.compile(r"libdataplane|(^|[^\w/.])native/|/native[\"']")
+HOST_SOURCES = sorted((ROOT / "x2vlm_tpu_torch" / "csrc_host").glob("*"))
+
+
+@pytest.mark.parametrize("path", PORT_FILES + HOST_SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_file_names_not_the_jax_native_library(path):
+    """No port file reads or names the JAX package's ``native/`` directory
+    or its ``libdataplane.so``: the port builds its own copy of the data
+    plane (``x2vlm_tpu_torch/csrc_host``) into ``build/``."""
+    bad = [ln.strip() for ln in path.read_text().splitlines() if NATIVE_DIR_REF.search(ln)]
+    assert bad == [], f"{path} names the JAX package's native library: {bad}"
+
+
+def test_the_native_rule_catches_the_jax_library():
+    for line in ('lib = "native/libdataplane.so"', 'os.path.join(ROOT, "x/native")',
+                 "src = native/dataplane.cpp"):
+        assert NATIVE_DIR_REF.search(line), line
+    for line in ("from x2vlm_tpu_torch.data import native", "data/native.py",
+                 'data_plane[name] = "native"'):
+        assert not NATIVE_DIR_REF.search(line), line
+
+
 def _module_level_roots(path):
     """The roots a file imports when it is imported: top-level statements
     (through if / try / with blocks), not function or class bodies."""
@@ -164,6 +187,46 @@ def test_kernel_sources_and_build_rules():
     assert _build._lib_path("flash_attention_fwd") != _build._lib_path("tiny_attention_fwd")
     assert _build.BUILD_DIR.relative_to(ROOT).parts[0] == "build"
     assert "/build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def _fake_nvcc(tmp_path, seconds):
+    """A stand-in compiler: notes its start in ``calls.log``, sleeps, writes
+    its ``-o`` file (an empty library is enough for the build's
+    bookkeeping) and one log line, and notes its end."""
+    nvcc = tmp_path / "nvcc"
+    calls = tmp_path / "calls.log"
+    nvcc.write_text("#!/bin/sh\n"
+                    f"echo start >> {calls}\nsleep {seconds}\n"
+                    'while [ "$1" != "-o" ]; do shift; done\n'
+                    'echo built > "$2"\necho "ptxas info : Used 1 registers"\n'
+                    f"echo end >> {calls}\n")
+    nvcc.chmod(0o755)
+    return str(nvcc)
+
+
+def test_build_starts_every_compile_together_and_puts_each_in_place(monkeypatch, tmp_path):
+    """``build`` starts one compiler a kernel, all before waiting for any,
+    and renames each library into place from its temporary file."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc_path", lambda: _fake_nvcc(tmp_path, 1))
+    started = []
+    popen = subprocess.Popen
+
+    def counting_popen(cmd, *a, **kw):
+        started.append(Path(cmd[-1]).stem)
+        return popen(cmd, *a, **kw)
+
+    monkeypatch.setattr(_build.subprocess, "Popen", counting_popen)
+    names = ("flash_attention_fwd", "tiny_attention_fwd", "int8_matmul")
+    secs = _build.build(names)
+    assert started == list(names)
+    # every compile ran before the first ended
+    assert (tmp_path / "calls.log").read_text().split() == ["start"] * 3 + ["end"] * 3
+    assert set(secs) == set(names) and all(s > 0.5 for s in secs.values())
+    assert all(_build._lib_path(n).is_file() for n in names)
+    assert not list((tmp_path / "build").glob("*.tmp"))
+    assert "Used 1 registers" in _build.ptxas_report("flash_attention_fwd")
+    assert _build.build(names) == dict.fromkeys(names, 0.0)   # built once per source
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

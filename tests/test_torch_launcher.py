@@ -8,6 +8,7 @@ every IGLUE task reaching its runner."""
 import base64
 import io
 import json
+import re
 
 import numpy as np
 import pytest
@@ -199,7 +200,8 @@ def test_vqa_is_no_longer_refused(corpus):
 @pytest.mark.parametrize("extra,err,match", [
     # the multilingual streams and the Plus base run (tests/test_torch_plus.py);
     # what stays refused around them:
-    ({"native_aug": True}, NotImplementedError, "A12"),
+    # native_aug: true runs the native data plane (raises where it cannot build)
+    ({"native_aug": True}, None, "native"),
     ({"train_file_mtext": ["m.jsonl"], "mtexts": {"batch_size": 4}}, ValueError,
      "model_type: cclm"),
     ({"mixed_in_batch": False}, ValueError, "mixed_in_batch"),
@@ -210,6 +212,16 @@ def test_vqa_is_no_longer_refused(corpus):
     ({"flat_optimizer": True}, NotImplementedError, "flat_optimizer"),
 ])
 def test_unported_streams_and_options_raise(corpus, extra, err, match):
+    if err is None:   # no longer refused: the run takes the native data plane
+        from x2vlm_tpu_torch.data.native import native_available, unavailable_reason
+
+        if not native_available():
+            with pytest.raises(RuntimeError, match=re.escape(unavailable_reason())):
+                _main(corpus, "refused", _pretrain_cfg(corpus, **extra), "pretrain")
+            return
+        rec = _main(corpus, "refused", _pretrain_cfg(corpus, **extra), "pretrain")
+        assert set(rec["data_plane"].values()) == {match}
+        return
     with pytest.raises(err, match=match):
         _main(corpus, "refused", _pretrain_cfg(corpus, **extra), "pretrain")
 

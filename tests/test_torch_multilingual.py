@@ -8,7 +8,8 @@ runs the shipped ``configs/pretrain/cclm_x2vlm_base.yaml`` (its data paths
 pointed at a corpus written here, a tiny model, an X2-VLM ``.th`` split
 into the Plus base by ``is_xvlm_ckpt``) with an exact ``--resume``, the
 parallel-text cursor included, and ``--task retrieval`` on ``model_type:
-cclm``; ``native_aug: auto`` and ``false`` run on PIL."""
+cclm``; ``native_aug: auto`` runs the native data plane where it builds,
+``false`` PIL."""
 
 import base64
 import io
@@ -382,13 +383,24 @@ def test_retrieval_runs_on_model_type_cclm(corpus):
 
 
 @pytest.mark.parametrize("native_aug", ["auto", False])
-def test_native_aug_auto_and_false_run_on_pil(corpus, native_aug):
-    """``native_aug: true`` is refused with A12 (tests/test_torch_launcher.py);
-    ``auto`` and ``false`` take the PIL path, as the JAX launcher does
-    without its native library."""
-    args = run.parse_args(["--task", "pretrain", "--config", "x", "--output_dir",
-                           str(corpus[0] / "out_aug"), "--device", "cpu"])
-    cfg_path = corpus[0] / f"cfg_aug_{native_aug}.json"
-    cfg_path.write_text(json.dumps(_shipped(corpus, native_aug=native_aug)))
-    args.config = str(cfg_path)
-    assert run.setup(args)["native_aug"] == native_aug
+def test_native_aug_auto_runs_native_and_false_runs_pil(corpus, native_aug, monkeypatch):
+    """``native_aug: auto`` (the default) decodes the image and region
+    streams with the native data plane where it builds (uint8 images from
+    the C++ transforms), ``false`` with PIL, as the JAX launcher; the run
+    reads one batch of each stream and takes no step."""
+    from x2vlm_tpu_torch.data.native import native_available
+
+    seen, real_loop = {}, port_pretrain.pretrain_loop
+
+    def loop(model, optimizer, streams, **kw):
+        seen["image"], seen["region"] = next(streams.image), next(streams.region)
+        return real_loop(model, optimizer, streams, **dict(kw, num_steps=0))
+
+    monkeypatch.setattr(port_pretrain, "pretrain_loop", loop)
+    cfg = _shipped(corpus, native_aug=native_aug)
+    cfg["train_file_mtext"] = []
+    rec = _main(corpus, f"aug_{native_aug}", cfg, "pretrain", "--epoch", "1")
+    want = "native" if native_aug == "auto" and native_available() else "pil"
+    assert rec["data_plane"] == {"image": want, "region": want}
+    assert seen["image"]["image"].dtype == np.uint8     # both paths: on-device normalise
+    assert seen["region"]["image"].dtype == (np.uint8 if want == "native" else np.float32)

@@ -12,8 +12,20 @@ as the launcher sets it) the stream raises instead of spinning, so a
 missing decoder cannot turn into a stream that never yields. A video line
 whose caption is empty or in the skip set is passed over without counting,
 as in the JAX package. The multilingual streams subclass these
-(data/multilingual.py); the JAX package's native decode path is not ported
-(every stream decodes with PIL, as the JAX package's PIL path does).
+(data/multilingual.py).
+
+A transform with ``wants_bytes`` (``data/native.py``, the C++ decode and
+augment) is handed the encoded bytes, never a PIL image: the image stream
+transforms one image a call, the video stream a video's sampled frames in
+one call, the region stream the crop it chose (the bbox-aware crop stays
+here). The JAX package's image stream groups images into calls of several;
+one image a call draws the same seeds from the transform's rng, and a
+batch then reads no line past its end (the launcher seeds each batch from
+its first line, ``run._stream_pairs``). That costs the image and region
+streams the C++ thread pool: their images are decoded one after another on
+the stream's prefetch thread (the launcher gives their transforms one
+thread), where the JAX package's calls spread a chunk over the pool. Only
+the video stream's calls, a video's frames each, use several threads.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from x2vlm_tpu_torch.core.io import hopen
 from x2vlm_tpu_torch.data.imageio import decode_image, open_image, pil
 from x2vlm_tpu_torch.data.loader import collate
 from x2vlm_tpu_torch.data.streaming import DistLineReader
@@ -43,6 +56,18 @@ def _image(ann: dict, image_key: str, is_rpath: bool):
     if is_rpath:
         return open_image(ann[image_key])
     return decode_image(b64decode(ann[image_key]))
+
+
+def _image_bytes(ann: dict, image_key: str, is_rpath: bool) -> bytes:
+    """The encoded image, for a transform with ``wants_bytes``."""
+    if not is_rpath:
+        return b64decode(ann[image_key])
+    with hopen(ann[image_key], "rb") as f:
+        return f.read()
+
+
+def _wants_bytes(transform) -> bool:
+    return getattr(transform, "wants_bytes", False)
 
 
 def _choose_caption(caption, rng) -> str:
@@ -94,7 +119,11 @@ class ImageTextStream(_StreamBase):
         self.is_image_rpath = is_image_rpath
 
     def _sample(self, ann: dict) -> Dict:
-        image = np.asarray(self.transform(_image(ann, self.image_key, self.is_image_rpath)))
+        if _wants_bytes(self.transform):
+            image = self.transform(_image_bytes(ann, self.image_key, self.is_image_rpath))
+        else:
+            image = np.asarray(self.transform(_image(ann, self.image_key,
+                                                     self.is_image_rpath)))
         return self._text_sample(ann, image)
 
     def _text_sample(self, ann: dict, image: np.ndarray) -> Dict:
@@ -238,8 +267,14 @@ class VideoTextStream(_StreamBase):
         if not caption or caption in self.skip_captions:
             return None
         ids = sample_frame_ids(len(frames), self.frame_len, self.training, self.rng)
-        image = np.stack([np.asarray(self.transform(
-            _image({"f": frames[i]}, "f", self.is_image_rpath))) for i in ids])
+        if _wants_bytes(self.transform):   # the sampled frames in one call
+            image, ok = self.transform.transform_batch(
+                [_image_bytes({"f": frames[i]}, "f", self.is_image_rpath) for i in ids])
+            if not ok.all():
+                raise ValueError("broken frame (native decode failed)")
+        else:
+            image = np.stack([np.asarray(self.transform(
+                _image({"f": frames[i]}, "f", self.is_image_rpath))) for i in ids])
         t_ids, atts, ids_masked, pos, labels = self.text_pre(caption, with_masking=True)
         return {"image": image, "text_ids": t_ids, "text_atts": atts,
                 "text_ids_masked": ids_masked, "masked_pos": pos, "masked_ids": labels}
@@ -254,7 +289,8 @@ class RegionTextStream(_StreamBase):
     caption names "left" or "right"), then per region its caption, its
     patch bitmap and its normalised cxcywh box, plus the full-image caption
     as a row of its own (``is_image`` 1) where the line has one. Each
-    sample is ``{"image": (H, W, 3) float32, "rows": [row, ...]}``.
+    sample is ``{"image": (H, W, 3) float32 (uint8 from a ``wants_bytes``
+    box transform), "rows": [row, ...]}``.
 
     ``box_transform`` augments the resized crop (``transforms.box_transform``
     with its own rng, so the stream's draws from ``rng`` come in the JAX
@@ -310,8 +346,13 @@ class RegionTextStream(_StreamBase):
 
     def _sample(self, ann: dict) -> Dict:
         rng = self.rng
-        img = _image(ann, self.image_key, self.is_image_rpath)
-        W, H = img.size
+        native = _wants_bytes(self.box_transform)
+        if native:
+            raw = _image_bytes(ann, self.image_key, self.is_image_rpath)
+            W, H = self.box_transform.image_dims(raw)
+        else:
+            img = _image(ann, self.image_key, self.is_image_rpath)
+            W, H = img.size
         x, y, w, h = [int(v) for v in rng.choice(ann["elems"])["bb"]]
         if not (x >= 0 and y >= 0 and x + w <= W and y + h <= H and w > 0 and h > 0):
             raise ValueError(f"box {(x, y, w, h)} outside the {W}x{H} image")
@@ -324,12 +365,19 @@ class RegionTextStream(_StreamBase):
         do_hflip = bool(rng.random() < 0.5 and not (
             self.careful_hflip and self._left_right_in_captions(ann)))
 
-        img = img.crop((x0, y0, x1, y1))
-        W, H = img.size
-        if do_hflip:
-            img = hflip(img)
-        img = img.resize((self.image_res, self.image_res), pil().BICUBIC)
-        image = self.box_transform(img).astype(np.float32)
+        if native:   # ROI decode, resample, flip and augment in C++; uint8
+            images, ok = self.box_transform.region_batch([raw], [(x0, y0, w0, h0)],
+                                                         [do_hflip])
+            if not ok[0]:
+                raise ValueError("broken image (native decode failed)")
+            image, W, H = images[0], w0, h0
+        else:
+            img = img.crop((x0, y0, x1, y1))
+            W, H = img.size
+            if do_hflip:
+                img = hflip(img)
+            img = img.resize((self.image_res, self.image_res), pil().BICUBIC)
+            image = self.box_transform(img).astype(np.float32)
 
         rows: List[Dict] = []
         max_elems = self.max_regions

@@ -7,13 +7,17 @@ x2vlm_tpu/data/retrieval.py; reference dataset/retrieval_dataset.py).
   tables for the two-stage eval protocol.
 
 Annotations: JSON list of {"image": path, "caption": str | [str], "image_id"}.
-Images decode as data/imageio.py decodes them; the JAX package's native
-batch decode is not ported.
+Images decode as data/imageio.py decodes them; with ``use_native_decode``
+the eval's image batches decode in one call of the native data plane
+(``data/native.NativeDecoder``: bicubic resize and normalise, the test
+transform), falling back to PIL where the library is unavailable or an
+item of the batch is broken, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import random
 from typing import Callable, Dict, List, Optional
 
@@ -75,11 +79,20 @@ class RetrievalTrainDataset:
 
 class RetrievalEvalDataset:
     def __init__(self, ann_file, transform: Callable, image_root: str,
-                 text_preprocessor: TextPreprocessor):
+                 text_preprocessor: TextPreprocessor, use_native_decode: bool = False,
+                 image_res: int = 0):
         self.ann = _load_annotations(ann_file)
         self.transform = transform
         self.image_root = image_root
         self.text_pre = text_preprocessor
+        self.native = None
+        if use_native_decode:
+            from x2vlm_tpu_torch.data.native import NativeDecoder, native_available
+
+            if image_res <= 0:
+                raise ValueError("use_native_decode requires image_res")
+            if native_available():
+                self.native = NativeDecoder(image_res, filter="bicubic")
         self.texts: List[str] = []
         self.images: List[str] = []
         self.txt2img: Dict[int, int] = {}
@@ -102,6 +115,14 @@ class RetrievalEvalDataset:
         return len(self.texts)
 
     def image_batch(self, indices) -> np.ndarray:
+        if self.native is not None:
+            raws = []
+            for i in indices:
+                with hopen(os.path.join(self.image_root, self.images[i]), "rb") as f:
+                    raws.append(f.read())
+            out, ok = self.native.decode_raw(raws)
+            if ok.all():
+                return out
         out = [self.transform(open_image(self.images[i], self.image_root)) for i in indices]
         return np.stack(out).astype(np.float32)
 

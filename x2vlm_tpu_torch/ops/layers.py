@@ -27,7 +27,7 @@ from x2vlm_tpu_torch.ops.tiny_attention import tiny_block_attention, tiny_suppor
 
 __all__ = ["LayerNorm", "FusedLayerNorm", "Mlp", "DropPath", "MultiHeadAttention",
            "PatchEmbed", "patchify", "gelu_exact", "gelu_fast", "ACTIVATIONS", "dense",
-           "dropout", "epilogue_act", "init_weights", "linear", "layer_norm",
+           "dropout", "drop_path_keep", "epilogue_act", "init_weights", "linear", "layer_norm",
            "serving_only", "static_caches", "IMAGE_MEAN", "IMAGE_STD"]
 
 # CLIP image statistics (same values as x2vlm_tpu/data/transforms.py; the
@@ -191,11 +191,19 @@ class Mlp(nn.Module):
         return dropout(x, self.dropout_rate, generator, self.training)
 
 
+def drop_path_keep(shape, keep: float, generator: Optional[torch.Generator],
+                   device) -> torch.Tensor:
+    """The rows a drop path keeps, each with probability ``keep``, drawn
+    from ``generator``. Checks that hold one step on two devices replace it
+    to give both the same rows."""
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
 class DropPath(nn.Module):
     """Stochastic depth per sample: the identity in eval and with
     ``deterministic``; in training each row is dropped with probability
-    ``rate`` (drawn from ``generator``) and the kept rows are scaled by
-    1/(1-rate)."""
+    ``rate`` (``drop_path_keep``, drawn from ``generator``) and the kept rows
+    are scaled by 1/(1-rate)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -207,7 +215,7 @@ class DropPath(nn.Module):
             return x
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        mask = drop_path_keep(shape, keep, generator, x.device)
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -54,11 +54,13 @@ process, one card.
   training instead of the MLM loss: sampled rollouts, CIDEr-D advantages.
 
 The config is validated against the JAX package's key registry
-(core/config_schema.py). What the port does not run raises, naming its
-ROADMAP item: ``native_aug: true`` (A12: the port decodes with PIL,
-which is what ``auto`` and ``false`` give in the JAX launcher without its
-native library), and, as in the JAX launcher, ``mixed_in_batch: false``
-and ``tokenized: true``.
+(core/config_schema.py). ``native_aug`` picks the pretraining streams'
+decoder as the JAX launcher does: ``auto`` (the default) the C++ data
+plane (``data/native.py``) when it builds and PIL when it does not,
+``true`` the data plane or an error, ``false`` PIL; the pretraining
+record's ``data_plane`` names what each stream took. What the port does
+not run raises, as in the JAX launcher: ``mixed_in_batch: false`` and
+``tokenized: true``.
 """
 
 from __future__ import annotations
@@ -142,10 +144,6 @@ def setup(args):
     config_schema.validate_config(cfg, source=args.config)
     if args.fewshot:
         fill_fewshot(cfg, args.fewshot)
-    if cfg.get("native_aug", "auto") is True:
-        raise NotImplementedError("native_aug: true (the native decode + augment library) "
-                                  "comes with ROADMAP queue item A12; the port decodes with "
-                                  "PIL, as native_aug: auto or false do without the library")
     if args.bs > 0:
         cfg["batch_size"] = args.bs
     if args.epoch > 0:
@@ -800,31 +798,57 @@ def run_pretrain(args, cfg, device):
         streams[name] = _Tracked(pairs, max(1, int(block.get("num_workers", 2))),
                                  data_state.get(name))
 
-    def image_stream(blk):
+    data_plane: Dict[str, str] = {}   # the decoder each stream took: "native" or "pil"
+
+    def native_or_pil(name, native_cls, pil_fallback, rng, num_threads=1):
+        """The JAX launcher's dispatch (``native_or_pil``): the C++ transform
+        under ``native_aug`` true or auto when the library builds (true
+        raises when it does not), else the PIL one. Either draws from
+        ``rng``, the stream's transform rng."""
+        want = cfg.get("native_aug", "auto")
+        if want in (True, "auto"):
+            from x2vlm_tpu_torch.data import native
+            try:
+                tf = getattr(native, native_cls)(cfg["image_res"], rng=rng,
+                                                 num_threads=max(1, num_threads))
+                data_plane[name] = "native"
+                return tf
+            except RuntimeError:
+                if want is True:
+                    raise
+        data_plane[name] = "pil"
+        return pil_fallback()
+
+    def image_stream(name, blk):
         def make(reader, pre, rng, bs):
             kw = dict(image_key=blk.get("image_key", "binary"), caption_key=blk["caption_key"],
                       is_image_rpath=blk.get("is_image_rpath", False), rng=rng,
                       max_consecutive_broken=bs)
-            tf = T.pretrain_transform(cfg["image_res"], rng=rng, as_float=False)
+            tf = native_or_pil(
+                name, "NativeTrainTransform",
+                lambda: T.pretrain_transform(cfg["image_res"], rng=rng, as_float=False), rng)
             if blk.get("languages"):   # CCLM: captions keyed by language
                 return ImageMultiTextStream(reader, pre, tf, languages=blk["languages"], **kw)
             return ImageTextStream(reader, pre, tf, **kw)
         return make
 
-    add("image", icfg, cfg["train_file"], image_stream(icfg))
+    add("image", icfg, cfg["train_file"], image_stream("image", icfg))
     if cfg.get("train_file_aux"):
         aux = dict(icfg, caption_key=icfg.get("aux_caption_key",
                                               icfg.get("caption_key", "caption")))
-        add("aux", aux, cfg["train_file_aux"], image_stream(aux))
+        add("aux", aux, cfg["train_file_aux"], image_stream("aux", aux))
     rcfg = cfg.get("regions")
     if rcfg and cfg.get("train_file_regions"):
-        # the JAX launcher's PIL path: the crop and flip box-aware in the
-        # stream, the augmentation by box_transform with its own rng; a batch
-        # is region_collate of max_images samples, drawing from the stream's rng
+        # as the JAX launcher: the crop and flip box-aware in the stream, the
+        # pixels (native) or the augmentation (PIL) by the box transform with
+        # its own rng; a batch is region_collate of max_images samples,
+        # drawing from the stream's rng
         region_rng, box_rng = random.Random(), random.Random()
         max_images = rcfg.get("max_images", 50)
 
         def region_stream(reader, pre, rng, n):
+            box_tf = native_or_pil("region", "NativeBoxTransform",
+                                   lambda: T.box_transform(box_rng), box_rng)
             kw = dict(image_res=mcfg.vision.image_res, patch_size=mcfg.vision.patch_size,
                       max_regions=rcfg.get("max_regions", 5),
                       min_perc_in_image=rcfg.get("min_perc_in_image", 0.5),
@@ -832,10 +856,10 @@ def run_pretrain(args, cfg, device):
                       image_key=rcfg.get("image_key", "binary"), rng=rng,
                       max_consecutive_broken=n)
             if rcfg.get("languages"):
-                return RegionMultiTextStream(reader, pre, T.box_transform(box_rng),
+                return RegionMultiTextStream(reader, pre, box_tf,
                                              languages=rcfg["languages"],
                                              code_switch=rcfg.get("code_switch", True), **kw)
-            return RegionTextStream(reader, pre, T.box_transform(box_rng), **kw)
+            return RegionTextStream(reader, pre, box_tf, **kw)
 
         add("region", rcfg, cfg["train_file_regions"], region_stream, n_samples=max_images,
             batch_fn=lambda samples: region_collate(samples, rcfg.get("batch_size", 128),
@@ -843,9 +867,12 @@ def run_pretrain(args, cfg, device):
             rngs=(region_rng, box_rng))
     vcfg = cfg.get("videos")
     if vcfg and cfg.get("train_file_videos"):
-        def video_stream(reader, pre, rng, n):
-            return VideoTextStream(
-                reader, pre, T.pretrain_transform(cfg["image_res"], rng=rng, as_float=False),
+        def video_stream(name):
+            return lambda reader, pre, rng, n: VideoTextStream(
+                reader, pre, native_or_pil(
+                    name, "NativeTrainTransform",
+                    lambda: T.pretrain_transform(cfg["image_res"], rng=rng, as_float=False),
+                    rng, min(int(vcfg.get("num_workers", 2)), os.cpu_count() or 1)),
                 frame_len=vcfg.get("frame_len", cfg.get("frame_len", 3)),
                 # the reference names the frame list by the block's image_key
                 frames_key=vcfg.get("frames_key", vcfg.get("image_key", "frames")),
@@ -856,9 +883,10 @@ def run_pretrain(args, cfg, device):
                 rng=rng, max_consecutive_broken=n)
 
         n_videos = vcfg.get("batch_size", 40)
-        add("video", vcfg, cfg["train_file_videos"], video_stream, n_samples=n_videos)
+        add("video", vcfg, cfg["train_file_videos"], video_stream("video"),
+            n_samples=n_videos)
         if cfg.get("train_file_videos_aux"):
-            add("video_aux", vcfg, cfg["train_file_videos_aux"], video_stream,
+            add("video_aux", vcfg, cfg["train_file_videos_aux"], video_stream("video_aux"),
                 n_samples=n_videos)
     tcfg = cfg.get("texts")
     if tcfg and cfg.get("train_file_text"):
@@ -887,6 +915,8 @@ def run_pretrain(args, cfg, device):
                 key_b=xcfg.get("target_key", "text2"), rng=rng, max_consecutive_broken=bs),
             pre=mtext_pre)
 
+    print(f"### data plane (native_aug: {cfg.get('native_aug', 'auto')}): "
+          f"{json.dumps(data_plane)}")
     ps = PretrainStreams(
         image=streams["image"], region=streams.get("region"), text=streams.get("text"),
         aux=streams.get("aux"), video=streams.get("video"), video_aux=streams.get("video_aux"),
@@ -919,7 +949,8 @@ def run_pretrain(args, cfg, device):
     finally:
         for tracked in streams.values():
             tracked.prefetcher.close()
-    record = {"pretrain_steps": [start_step, total_steps], **logger.to_dict()}
+    record = {"pretrain_steps": [start_step, total_steps], **logger.to_dict(),
+              "data_plane": data_plane}
     append_log(args.output_dir, record)
     return record
 
