@@ -83,26 +83,25 @@ Phases (any failure exits non-zero and prints no result line):
    (the box targets off the L1 and GIoU losses' kinks, ``off_kink_targets``;
    ``tools/region_kink_witness.py`` reads why);
 7. the launcher's pretraining task, ``x2vlm_tpu_torch.run.main`` in process
-   on data written to a temporary directory (a 30,522-entry BERT vocab
+   on data written to a temporary directory while the kernels build (a
+   30,522-entry BERT vocab
    drawn from ``--seed``, 256 base64 PNG image-text lines of 256 px, 64
    region lines of 256 px with 1-6 boxes each and 64 text lines):
    ``configs/pretrain/x2vlm_base_4m.yaml`` read with the port's
    ``load_config``, the data paths pointed there, the image and region
    blocks as shipped (128 images; 128 rows over 50 images a step), a text
-   stream added at batch 32, a save every 2 steps; 4 steps, then
-   ``--resume`` to step 6. Checked: finite losses (the region stream's
-   bbox L1 and GIoU among them), no broken sample, the launches of the 4
-   steps (24 of each flash kernel a step on the tensor-core route, 12 at
+   stream added at batch 32, a save after 2 steps; 2 steps (their
+   ``--resume`` is held by phase 24). Checked: finite losses (the region
+   stream's bbox L1 and GIoU among them), no broken sample, the launches of
+   the 2 steps (24 of each flash kernel a step on the tensor-core route, 12 at
    B=128 and 12 at B=50; tiny forward and backward 12 at 256 x 40 x 40, 6
    at 512 x 40 x 40 and 512 x 40 x 200 for the image stream, 18 at 32 x 40
    x 40 for the text stream and the region stream's, all tensor-core, all
    on the resident walk; no plain attention), each region-stream call's own
    launches (12 of each flash kernel; tiny at 256 x 40 x 40 x12, 512 x 40
-   x 40 x6, 512 x 40 x 200 x6, 128 x 40 x 40 x6, 128 x 40 x 200 x6), the
-   resumed run's parameters, AdamW state and data cursors (the region
-   stream's included) equal to the saved ones bit for bit; each stream's
-   CUDA-event and wall ms and peak device memory printed; the final
-   weights exported as a reference-named ``.th``;
+   x 40 x6, 512 x 40 x 200 x6, 128 x 40 x 40 x6, 128 x 40 x 200 x6); each
+   stream's CUDA-event and wall ms and peak device memory printed; the
+   final weights exported as a reference-named ``.th``;
 8. the launcher's retrieval task at 384 px from that ``.th`` (rel-pos
    tables interpolated 14 -> 24): ``configs/finetune/retrieval_flickr_base
    .yaml`` with the data paths pointed at 64 PNG images of 320 px with 5 captions each, 4
@@ -410,6 +409,25 @@ Phases (any failure exits non-zero and prints no result line):
    (``injected_drop_path``), card bf16 against CPU fp32 (losses within
    0.05 + 2%, gradient cosines >= 0.99, each x 584 call within half the
    bf16 rule, grounding's boxes within 0.02).
+24. multi-GPU training and remote storage, at world 1 (one card): phase
+   7's run (its config, data and seed; one step an epoch) as a user starts
+   it on N cards, ``torchrun --standalone --nproc_per_node 1`` (``python -m
+   torch.distributed.run`` without a ``torchrun`` script), the rank being
+   this script with ``--phase24-child``, which runs
+   ``x2vlm_tpu_torch.run.main`` under the process group torchrun describes
+   (NCCL) for 2 steps, then ``--resume`` to step 3 with ``--output_hdfs``;
+   ``--config`` is an ``hdfs://`` path; a stand-in ``hdfs`` tool the phase
+   writes serves both from a local directory. Checked: the group (nccl,
+   world 1, rank 0, cuda:0); each call's launches, stream by stream, equal
+   to phase 7's call of the same step (step 3's to its step 2's; the
+   rank starts while phase 7 runs and waits for it; the gradient all-reduce runs at
+   world 1 through NCCL); steps 1 and 2's losses equal to phase 7's bit for
+   bit (the first update's lr is 0); the parameters after step 2 against
+   phase 7's per family (phase 16's rule: cosine >= 0.9999, relative L2 <=
+   1e-3); the resumed run's parameters, AdamW state, step and cursors
+   (region included) equal to the saved ones bit for bit; the mirror equal
+   to ``output_dir`` byte for byte; each call's CUDA-event ms and peak GiB
+   beside phase 7's.
 
 Beside the kernels, phase 1 builds the port's native data plane
 (``x2vlm_tpu_torch/csrc_host``, ``g++`` with the libjpeg / libpng
@@ -475,7 +493,7 @@ K6 at 20 x 40 x 40 and, key-tiled, 20 x 40 x 584 and 16 x 58 x 584 with
 training operands, K5 at 32 x 40 x 584, 20 x 5 x 584 and 60 x 2 x 584
 serving.
 
-Every attention launch of phases 3 and 5-23 is counted by kernel, shape,
+Every attention launch of phases 3 and 5-24 is counted by kernel, shape,
 head count and operands (serving: no multiplier, no probabilities;
 training; the flash kernels' with or without a bias) and must fall
 on a shape phase 2 checked and timed (``FLASH_MAIN_SHAPES``,
@@ -522,6 +540,7 @@ import multiprocessing
 import os
 import random
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2638,7 +2657,7 @@ SPECIAL_TOKENS = {0: "[PAD]", 100: "[UNK]", 101: "[CLS]", 102: "[SEP]", 103: "[M
 VOCAB_SIZE = 30522
 N_LAUNCH_IMAGES = 64                 # text and region lines of phase 7; images of phase 8
 N_PRETRAIN_IMAGES = 2 * PRETRAIN_BATCH   # image-text lines of phase 7: 2 steps' worth
-LAUNCH_STEPS, RESUME_STEPS = 4, 6    # phase 7: 4 steps, then --resume to step 6
+LAUNCH_STEPS = 2                     # phase 7's steps (phase 24 resumes its run)
 N_FT_STEPS = 4                       # phase 8: fine-tune steps (128 train captions, B=32)
 
 
@@ -2730,7 +2749,7 @@ PATHS = ("serving", "train_step", "int8_serving", "pretrain_launcher", "retrieva
          "swin_launcher", "video_launcher", "cclm_launcher", "iglue_launcher",
          "large_pretrain_launcher", "large_vqa_launcher", "base_1b_launcher",
          "large_1b_launcher", "large_stage2_launcher", "cclm_large_launcher",
-         "large_grounding_launcher", "large_caption_launcher")
+         "large_grounding_launcher", "large_caption_launcher", "ddp_launcher")
 
 
 def ledger_add(ledger, path: str, operands: str, c: dict, heads: int = BASE_HEADS) -> None:
@@ -2888,7 +2907,7 @@ class StreamTimer:
     """Wraps the pretraining loop's per-stream grad functions and its
     optimizer step (``tasks.pretrain.make_grad_fn`` / ``make_apply_grads``):
     each call's CUDA-event ms, wall ms and peak device memory by stream, its
-    launches and its matching-loss flag (``itm``; None for the text
+    launches, its losses and its matching-loss flag (``itm``; None for the text
     streams). With ``profile_call`` (stream,
     index), or a set of them, those calls run under torch.profiler, written
     to ``profile_to`` (args, smi, file name; a ``{stream}`` in the name
@@ -2925,7 +2944,9 @@ class StreamTimer:
                 end.synchronize()
             record.update(ms=start.elapsed_time(end), wall_ms=(time.perf_counter() - t) * 1e3,
                           peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                          launches=counts_delta(launch_counts(), before))
+                          launches=counts_delta(launch_counts(), before),
+                          losses=({k: v.item() for k, v in out.items()}
+                                  if isinstance(out, dict) else None))
             self.calls[name].append(record)
             if last:
                 args, smi, fname = self.profile_to
@@ -2980,15 +3001,14 @@ def check_data_plane(tag: str, record: dict) -> None:
         fail(f"{tag}: the streams took {planes}; native_aug: auto on this host gives {want}")
 
 
-def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = ""):
-    """Phase 7: ``x2vlm_tpu_torch.run --task pretrain`` in process on data
-    written under ``root``, the image, region and text streams: 4 steps,
-    then ``--resume`` to step 6; each stream's calls timed, the region
-    stream's launches read per call; the run's final weights exported as a
-    reference-named ``.th``. Returns its path, the tokenizer directory and
-    words and the launch counts of the first run."""
-    from x2vlm_tpu_torch import run as run_mod
+PHASE7 = {}   # phase 7's config, its calls (StreamTimer) and its parameters after step 2
 
+
+def write_pretrain_data(root: str, seed: int) -> dict:
+    """Phase 7's data and config under ``root`` (written while the kernels
+    build): the vocab, the image, region and text lines, the shipped config
+    pointed at them. Returns the tokenizer directory, the words, the config,
+    its path and the seconds taken."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed + 7)
     tok_dir, words = write_vocab(root, rng)
@@ -3020,21 +3040,55 @@ def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = "")
     cfg_path = os.path.join(root, "pretrain.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
+    return {"tok_dir": tok_dir, "words": words, "cfg": cfg, "cfg_path": cfg_path,
+            "seconds": time.perf_counter() - t0}
+
+
+def pretrain_launcher_phase(root: str, seed: int, dev, args, smi: str, data: dict):
+    """Phase 7: ``x2vlm_tpu_torch.run --task pretrain`` in process on the
+    data ``write_pretrain_data`` wrote under ``root``, the image, region and
+    text streams: 2 steps (phase 24 runs the same run under ``torchrun``
+    and holds its ``--resume``); each stream's calls timed, their losses
+    kept, the region stream's launches read per call, the parameters after
+    step 2 kept; the run's final weights exported as a reference-named
+    ``.th``. Returns its path, the tokenizer directory and words and the
+    launch counts of the run."""
+    from x2vlm_tpu_torch import run as run_mod
+
+    t0 = time.perf_counter()
+    tok_dir, words, cfg, cfg_path = (data[k] for k in ("tok_dir", "words", "cfg", "cfg_path"))
+    # phase 24's rank starts now: its imports and process group overlap this run
+    PHASE7["ddp"] = DdpRank(root, seed, cfg)
+    PHASE7["ddp"].start()
     # the train states (~3.4 GB, three saves) go to RAM: the call's disk-write cap
     work = work_dir(root, 12 * 2**30)
     out = os.path.join(work, "out_pretrain")
     argv = ["--task", "pretrain", "--config", cfg_path, "--output_dir", out,
             "--seed", str(seed), "--device", dev.type]
-    log(f"phase 7 data and config: {part_done('7', 'data', t0):.1f} s")
+    log(f"phase 7 data and config: {data['seconds']:.1f} s, written while the kernels built")
 
     t1 = time.perf_counter()
     reset_counts()
     profiled = args is not None and args.profile
-    with StreamTimer(("region", LAUNCH_STEPS - 1) if profiled else None,
-                     (args, smi, "chip_smoke_region_profile.txt")) as timer:
-        record = run_mod.main(argv + ["--epoch", str(LAUNCH_STEPS // 2)])
-        check_data_plane("phase 7", record)
+    orig_save = run_mod.ckpt_lib.save_train_state
+
+    def save_keeping(ckpt_dir, model, optimizer, step, data_state=None):
+        path = orig_save(ckpt_dir, model, optimizer, step, data_state)
+        if step == DDP_STEPS:   # phase 24's parameter hold reads the state after step 2
+            PHASE7["step_params"] = {n: p.detach().cpu().clone()
+                                     for n, p in model.named_parameters()}
+        return path
+
+    run_mod.ckpt_lib.save_train_state = save_keeping
+    try:
+        with StreamTimer(("region", LAUNCH_STEPS - 1) if profiled else None,
+                         (args, smi, "chip_smoke_region_profile.txt")) as timer:
+            record = run_mod.main(argv + ["--epoch", str(LAUNCH_STEPS // 2)])
+            check_data_plane("phase 7", record)
+    finally:
+        run_mod.ckpt_lib.save_train_state = orig_save
     torch.cuda.synchronize()
+    PHASE7.update(cfg=cfg, calls=timer.calls)
     counts1 = launch_counts()
     log(f"phase 7 run 1 ({LAUNCH_STEPS} steps): {part_done('7', 'run', t1):.1f} s; "
         f"{json.dumps(record)}")
@@ -3071,9 +3125,114 @@ def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = "")
     log(f"phase 7 by stream (CUDA-event ms and wall ms of each call, median; peak GiB; "
         f"{smi}): {json.dumps(timer.summary())}")
 
-    # --resume: the run must start from the saved state bit for bit
+    # the resume of this run is held by phase 24, through torchrun
     state_path = os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE)
-    saved = torch.load(state_path, map_location="cpu", weights_only=False)
+    final = load_params(state_path)
+    th_path = os.path.join(root, "x2vlm_phase7.th")
+    torch.save({"model": {k[len("base."):]: v for k, v in final.items()}}, th_path)
+    if work != root:
+        shutil.rmtree(work, ignore_errors=True)
+    phase_seconds("7", t0)
+    return th_path, tok_dir, words, counts1
+
+
+# ---- phase 24: multi-GPU training and remote storage at world 1 ----
+DDP_STEPS, DDP_RESUME_STEPS = 2, 3   # 2 steps under torchrun, then --resume takes a third
+DDP_HOLD_COSINE, DDP_HOLD_REL_L2 = 0.9999, 1e-3   # phase 16's rule, per family
+DDP_WAIT_S, DDP_RUN_S = 900, 600   # the rank's wait for phase 7, and its run after
+# A stand-in ``hdfs`` command-line tool (the surface core/io.py drives:
+# -cat, -ls, -test, -put [-f] of a file, a directory or standard input,
+# -get, -mkdir -p) over a local directory: hdfs://smoke/<p> is ROOT/<p>.
+HDFS_STANDIN = """#!/usr/bin/env python3
+import os, shutil, sys
+ROOT = {root!r}
+def local(p):
+    assert p.startswith("hdfs://smoke/"), p
+    return os.path.join(ROOT, p[len("hdfs://smoke/"):])
+args = [a for a in sys.argv[1:] if a != "-f"]
+op = args[1]
+if op == "-cat":
+    sys.stdout.buffer.write(open(local(args[2]), "rb").read())
+elif op == "-ls":
+    d = local(args[2])
+    for f in sorted(os.listdir(d)):
+        print("-rw-r--r--   1 u g 0 2024-01-01 00:00 hdfs://smoke/" +
+              os.path.relpath(os.path.join(d, f), ROOT))
+elif op == "-test":
+    sys.exit(0 if os.path.exists(local(args[3])) else 1)
+elif op == "-mkdir":
+    os.makedirs(local(args[3 if args[2] == "-p" else 2]), exist_ok=True)
+elif op == "-put":
+    src, dst = args[2], local(args[3])
+    if src == "-":
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        with open(dst, "wb") as f:
+            shutil.copyfileobj(sys.stdin.buffer, f)
+    elif os.path.isdir(src):
+        dst = os.path.join(dst, os.path.basename(src.rstrip("/")))
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(src, dst)
+    else:
+        os.makedirs(os.path.dirname(dst), exist_ok=True)
+        shutil.copy(src, dst)
+elif op == "-get":
+    src, dst = local(args[2]), args[3]
+    if os.path.isdir(dst):
+        dst = os.path.join(dst, os.path.basename(src))
+    shutil.copy(src, dst)
+else:
+    sys.exit(2)
+"""
+
+
+def launcher_command() -> list:
+    """``torchrun``, or ``python -m torch.distributed.run`` where this host
+    has no ``torchrun`` script on its PATH."""
+    exe = shutil.which("torchrun")
+    return [exe] if exe else [sys.executable, "-m", "torch.distributed.run"]
+
+
+def phase24_child(spec_path: str) -> int:
+    """Phase 24's rank, started by ``torchrun`` (``--phase24-child SPEC``)
+    while phase 7 runs: it joins the process group ``torchrun`` describes
+    (NCCL, world 1) and waits for the spec's ``go`` file (phase 7 done, the
+    card free), then runs ``x2vlm_tpu_torch.run.main`` for ``DDP_STEPS``
+    steps and ``--resume`` to ``DDP_RESUME_STEPS`` with ``--output_hdfs``;
+    each call timed and counted (``StreamTimer``), the resumed state held
+    against the saved one, the state after ``DDP_STEPS`` linked aside for
+    the parameter hold. Writes its readings to the spec's ``result`` (a
+    torch pickle)."""
+    from x2vlm_tpu_torch import run as run_mod
+    from x2vlm_tpu_torch.core import mesh
+
+    t_entry = time.perf_counter()
+    parent = os.getppid()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    argv = spec["argv"]
+    out = {"env": {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}}
+    with open(spec["pid"], "w") as f:   # the script stops this process if it must
+        f.write(str(os.getpid()))
+    mesh.initialize("cuda")   # run.main joins this group
+    torch.ones(1, device="cuda").sum().item()
+    out["ready_s"] = time.perf_counter() - t_entry
+    deadline = time.monotonic() + DDP_WAIT_S
+    while not os.path.exists(spec["go"]):
+        if time.monotonic() > deadline or os.getppid() != parent:
+            raise TimeoutError("phase 24: no go file, or the torchrun agent is gone")
+        time.sleep(0.05)
+    t = time.perf_counter()
+    reset_counts()
+    with StreamTimer() as timer:
+        record = run_mod.main(argv + ["--epoch", str(DDP_STEPS)])
+    torch.cuda.synchronize()
+    out.update(group=mesh.describe(), record=record, run_s=time.perf_counter() - t,
+               calls=dict(timer.calls), counts=launch_counts())
+    state_path = os.path.join(spec["output_dir"], "ckpt", ckpt_lib.TRAIN_STATE_FILE)
+    os.link(state_path, spec["step_state"])   # run 2 replaces the file, not the inode
+    saved = torch.load(state_path, map_location="cpu", weights_only=False, mmap=True)
     seen = {}
     orig = run_mod.maybe_resume
 
@@ -3091,34 +3250,242 @@ def pretrain_launcher_phase(root: str, seed: int, dev, args=None, smi: str = "")
             count=optimizer.count == saved["count"])
         return step, data_state
 
-    t2 = time.perf_counter()
+    t = time.perf_counter()
     run_mod.maybe_resume = resumed
     try:
-        record2 = run_mod.main(argv + ["--resume", "--epoch", str(RESUME_STEPS // 2)])
+        with StreamTimer() as timer2:
+            record2 = run_mod.main(argv + ["--resume", "--epoch", str(DDP_RESUME_STEPS),
+                                           "--output_hdfs", spec["output_hdfs"]])
     finally:
         run_mod.maybe_resume = orig
     torch.cuda.synchronize()
-    log(f"phase 7 run 2 (--resume to step {RESUME_STEPS}): "
-        f"{part_done('7', 'resume', t2):.1f} s; "
-        f"resumed at step {seen.get('step')}, data cursors {seen.get('data_state')}; "
-        f"equal to the saved state: params {seen.get('params')}, mu {seen.get('mu')}, "
-        f"nu {seen.get('nu')}, count {seen.get('count')}; {json.dumps(record2)}")
-    if not (seen.get("step") == LAUNCH_STEPS and seen.get("params") and seen.get("mu")
-            and seen.get("nu") and seen.get("count")
-            and seen.get("data_state") == saved["data_state"]
-            and set(saved["data_state"]) == {"image", "region", "text"}):
-        fail(f"pretrain launcher --resume: {seen} against the saved step {saved['step']}")
-    if record2.get("pretrain_steps") != [LAUNCH_STEPS, RESUME_STEPS] or \
-            record2.get("broken", -1) != 0:
-        fail(f"pretrain launcher --resume: {record2}")
+    out.update(resume_s=time.perf_counter() - t, seen=seen, saved_step=int(saved["step"]),
+               saved_data_state=saved["data_state"], record2=record2,
+               calls2=dict(timer2.calls), counts2=launch_counts())
+    torch.save(out, spec["result"])
+    mesh.shutdown()
+    return 0
 
-    final = load_params(state_path)
-    th_path = os.path.join(root, "x2vlm_phase7.th")
-    torch.save({"model": {k[len("base."):]: v for k, v in final.items()}}, th_path)
-    if work != root:
-        shutil.rmtree(work, ignore_errors=True)
-    phase_seconds("7", t0)
-    return th_path, tok_dir, words, counts1
+
+def same_tree(a: str, b: str) -> list:
+    """The files of two directories that differ in name or bytes."""
+    def files(root):
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _, fs in os.walk(root) for f in fs}
+    def same(x, y, chunk=64 * 2**20):
+        if os.path.getsize(x) != os.path.getsize(y):
+            return False
+        with open(x, "rb") as fx, open(y, "rb") as fy:
+            while True:
+                bx, by = fx.read(chunk), fy.read(chunk)
+                if bx != by:
+                    return False
+                if not bx:
+                    return True
+
+    fa, fb = files(a), files(b)
+    diff = sorted(fa ^ fb)
+    diff += [rel for rel in sorted(fa & fb)
+             if not same(os.path.join(a, rel), os.path.join(b, rel))]
+    return diff
+
+
+def param_family_rule(got: dict, want: dict, fusion_layer: int) -> dict:
+    """Phase 16's reading per family (``grad_families``' prefixes) of the
+    parameters ``got`` against ``want``: cosine and relative L2."""
+    p = "base.text_encoder.bert.encoder.layer."
+    fams = {"vision": ("base.vision_encoder.",), "text layer": (f"{p}0.",),
+            "fusion layer": (f"{p}{fusion_layer}.",),
+            "heads": ("base.itm_head.", "base.vision_proj.", "base.text_proj.",
+                      "base.text_encoder.cls.")}
+    out = {}
+    dev = torch.device("cuda", 0)
+    for f, pre in fams.items():
+        names = [n for n in want if n.startswith(pre)]
+        pairs = [(got[n].to(dev).double(), want[n].to(dev).double()) for n in names]
+        dot = sum((a * b).sum() for a, b in pairs)
+        na = sum((a ** 2).sum() for a, _ in pairs).sqrt()
+        nb = sum((b ** 2).sum() for _, b in pairs).sqrt()
+        diff = sum(((a - b) ** 2).sum() for a, b in pairs).sqrt()
+        del pairs
+        out[f] = {"cosine": (dot / (na * nb)).item(), "rel_l2": (diff / nb).item(),
+                  "params": len(names)}
+    return out
+
+
+class DdpRank:
+    """Phase 24's ``torchrun`` (its stand-in ``hdfs`` tool, its config on
+    the tool's side, its RAM work directory), started by :meth:`start`
+    while phase 7 runs: the rank imports, reaches the card and joins its
+    process group meanwhile, and waits for :meth:`release`. :meth:`stop`
+    kills it (and the torchrun agent) wherever it is."""
+
+    def __init__(self, root: str, seed: int, cfg: dict):
+        t0 = time.perf_counter()
+        base = work_dir(root, 12 * 2**30)
+        self.work = base if base != root else tempfile.mkdtemp(prefix="phase24_", dir=root)
+        self.hdfs_root = os.path.join(self.work, "hdfs_root")
+        os.makedirs(self.hdfs_root)
+        # the tool beside the kernels' libraries: /dev/shm may not execute files
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self.bin_dir = tempfile.mkdtemp(prefix="phase24_bin_", dir=_build.BUILD_DIR)
+        tool = os.path.join(self.bin_dir, "hdfs")
+        with open(tool, "w") as f:
+            f.write(HDFS_STANDIN.format(root=self.hdfs_root))
+        os.chmod(tool, 0o755)
+        # one step an epoch, and a save after the last step of each run only
+        self.cfg = dict(cfg, train_dataset_size=PRETRAIN_BATCH,
+                        ckpt_frequent=DDP_RESUME_STEPS + 1)
+        with open(os.path.join(self.hdfs_root, "pretrain.json"), "w") as f:
+            json.dump(self.cfg, f)
+        self.out = os.path.join(self.work, "out_ddp")
+        w = self.work
+        self.spec = {"argv": ["--task", "pretrain", "--config", "hdfs://smoke/pretrain.json",
+                              "--output_dir", self.out, "--seed", str(seed), "--device", "cuda"],
+                     "output_dir": self.out, "output_hdfs": "hdfs://smoke/mirror",
+                     "step_state": os.path.join(w, "step2_state.pt"),
+                     "result": os.path.join(w, "result.pt"), "go": os.path.join(w, "go"),
+                     "pid": os.path.join(w, "rank.pid")}
+        self.spec_path = os.path.join(w, "spec.json")
+        with open(self.spec_path, "w") as f:
+            json.dump(self.spec, f)
+        self.cmd = launcher_command() + ["--standalone", "--nproc_per_node", "1",
+                                         os.path.abspath(__file__), "--phase24-child",
+                                         self.spec_path]
+        self.proc = None
+        self.setup_s = time.perf_counter() - t0
+
+    def start(self) -> None:
+        env = dict(os.environ, PATH=f"{self.bin_dir}:{os.environ.get('PATH', '')}")
+        self.log_path = os.path.join(self.work, "rank.log")
+        with open(self.log_path, "w") as logf:
+            self.proc = subprocess.Popen(self.cmd, env=env, stdout=logf,
+                                         stderr=subprocess.STDOUT, start_new_session=True)
+        self.t_start = time.perf_counter()
+
+    def release(self) -> int:
+        """Let the rank run; returns its exit code (it has ``DDP_RUN_S``)."""
+        self.t_go = time.perf_counter()
+        open(self.spec["go"], "w").close()
+        try:
+            return self.proc.wait(timeout=DDP_RUN_S)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            return -1
+
+    def log_tail(self, n: int = 6000) -> str:
+        with open(self.log_path, errors="replace") as f:
+            return f.read()[-n:]
+
+    def stop(self) -> None:
+        """Kill the agent's process group and the rank (torchrun starts it in
+        a session of its own)."""
+        if self.proc is None:
+            return
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait(timeout=60)
+        try:
+            with open(self.spec["pid"]) as f:
+                os.kill(int(f.read()), signal.SIGKILL)
+        except (OSError, ValueError):
+            pass   # no pid written, or the rank has exited
+
+    def cleanup(self) -> None:
+        self.stop()
+        shutil.rmtree(self.bin_dir, ignore_errors=True)
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def ddp_launcher_phase(rank: "DdpRank", smi: str = ""):
+    """Phase 24: phase 7's pretraining run (its config, data and seed) as a
+    user starts it on N cards, ``torchrun --nproc_per_node 1``, at world 1
+    (NCCL): its ``--config`` read from ``hdfs://`` and its ``output_dir``
+    mirrored to ``--output_hdfs`` through a stand-in ``hdfs`` tool (the rank
+    started by phase 7, ``DdpRank``). Held: the process group; each step's
+    launches equal to phase 7's step's, stream by stream; steps 1 and 2's
+    losses equal to phase 7's bit for bit (the first update's lr is 0, so
+    step 2 reads step 1's weights); the parameters after step 2 against
+    phase 7's by phase 16's rule; the resumed state and cursors equal to
+    the saved ones bit for bit; the mirror equal to ``output_dir`` byte for
+    byte. Returns the launches of the two runs."""
+    t0 = time.perf_counter()
+    code = rank.release()
+    log(f"phase 24 torchrun (exit {code}; set up in {rank.setup_s:.1f} s and started "
+        f"{t0 - rank.t_start:.1f} s before phase 7 ended): {part_done('24', 'run', t0):.1f} "
+        f"s after phase 7; {' '.join(rank.cmd)}")
+    spec, out, hdfs_root, cfg = rank.spec, rank.out, rank.hdfs_root, rank.cfg
+    if code != 0 or not os.path.isfile(spec["result"]):
+        fail(f"phase 24: torchrun exited {code}:\n{rank.log_tail()}")
+        return {}
+    t2 = time.perf_counter()
+    r = torch.load(spec["result"], weights_only=False)
+    group = r["group"]
+    log(f"phase 24 process group: {json.dumps(group)}; torchrun environment "
+        f"{json.dumps(r['env'])}; the rank ready (imports, card, group) in "
+        f"{r['ready_s']:.1f} s, run {r['run_s']:.1f} s, resumed run {r['resume_s']:.1f} s")
+    if (group["backend"], group["world_size"], group["rank"], group["device"]) != \
+            ("nccl", 1, 0, "cuda:0") or r["env"]["WORLD_SIZE"] != "1":
+        fail(f"phase 24: process group {group}, environment {r['env']}")
+    # each step's launches and losses against phase 7's, stream by stream
+    p7 = PHASE7["calls"]
+    rows = {}
+    for stream in ("image", "region", "text", "apply"):
+        calls = r["calls"].get(stream, []) + r["calls2"].get(stream, [])
+        if len(calls) != DDP_RESUME_STEPS:
+            fail(f"phase 24 {stream}: {len(calls)} calls, expected {DDP_RESUME_STEPS}")
+            continue
+        for i, c in enumerate(calls):
+            want = p7[stream][min(i, len(p7[stream]) - 1)]   # every step launches alike
+            if c["launches"] != want["launches"]:
+                fail(f"phase 24 {stream} step {i + 1}: launches {show_counts(c['launches'])} "
+                     f"differ from phase 7's {show_counts(want['launches'])}")
+            if i < DDP_STEPS and c["losses"] != want["losses"]:
+                fail(f"phase 24 {stream} step {i + 1}: losses {c['losses']} differ from "
+                     f"phase 7's {want['losses']}")
+        rows[stream] = {"ms": [round(c["ms"], 3) for c in calls],
+                        "phase7_ms": [round(c["ms"], 3) for c in p7[stream]],
+                        "peak_gib": [round(c["peak_gib"], 2) for c in calls],
+                        "phase7_peak_gib": [round(c["peak_gib"], 2) for c in p7[stream]]}
+    log(f"phase 24 steps (CUDA-event ms and peak GiB of each call beside phase 7's, "
+        f"{smi}): {json.dumps(rows)}")
+    log(f"phase 24 step 1 losses, equal to phase 7's bit for bit: "
+        f"{json.dumps({k: p7[k][0]['losses'] for k in ('image', 'region', 'text')})}")
+    # the parameters after step 2
+    got = load_params(spec["step_state"])
+    fams = param_family_rule(got, PHASE7["step_params"],
+                             xvlm_config_from_yaml(cfg).text.fusion_layer)
+    for f, x in fams.items():
+        if not (x["cosine"] >= DDP_HOLD_COSINE and x["rel_l2"] <= DDP_HOLD_REL_L2):
+            fail(f"phase 24 parameters after step {DDP_STEPS}, {f}: {x} (limits "
+                 f"{DDP_HOLD_COSINE}, {DDP_HOLD_REL_L2})")
+    exact = sum(torch.equal(got[n], PHASE7["step_params"][n]) for n in got)
+    log(f"phase 24 parameters after step {DDP_STEPS} against phase 7's by family: "
+        f"{json.dumps(fams)}; {exact} of {len(got)} tensors equal bit for bit")
+    del got
+    # the resume
+    seen = r["seen"]
+    log(f"phase 24 --resume: resumed at step {seen.get('step')}, cursors "
+        f"{seen.get('data_state')}; equal to the saved state: params {seen.get('params')}, "
+        f"mu {seen.get('mu')}, nu {seen.get('nu')}, count {seen.get('count')}; "
+        f"{json.dumps(r['record2'])}")
+    if not (seen.get("step") == r["saved_step"] == DDP_STEPS and seen.get("params")
+            and seen.get("mu") and seen.get("nu") and seen.get("count")
+            and seen.get("data_state") == r["saved_data_state"]
+            and set(r["saved_data_state"]) == {"image", "region", "text"}):
+        fail(f"phase 24 --resume: {seen} against the saved step {r['saved_step']}")
+    if r["record2"].get("pretrain_steps") != [DDP_STEPS, DDP_RESUME_STEPS]:
+        fail(f"phase 24 --resume: {r['record2']}")
+    # the remote config and the mirror
+    diff = same_tree(out, os.path.join(hdfs_root, "mirror"))
+    log(f"phase 24 --output_hdfs mirror: {len(os.listdir(out))} entries, "
+        f"{'equal byte for byte' if not diff else f'differing: {diff}'}")
+    if diff or not os.path.isfile(os.path.join(out, "pretrain.json")):
+        fail(f"phase 24: the mirror differs from output_dir in {diff}, or the remote config "
+             f"was not fetched")
+    part_done("24", "hold", t2)
+    phase_seconds("24", t0)
+    return {k: r["counts2"][k] for k in LEDGER_PARTS}   # both runs' (counted from 0)
 
 
 # Phase 8's hold on the fine-tuned model at 384 px, through its own calls:
@@ -8369,11 +8736,14 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="DIR",
                     help="write torch.profiler tables of one round of requests and "
                          "one train step to DIR")
+    ap.add_argument("--phase24-child", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs the port "
               "on the GPU", file=sys.stderr)
         return 2
+    if args.phase24_child:   # phase 24's rank, started by torchrun
+        return phase24_child(args.phase24_child)
     return run(args, torch.device("cuda", 0))
 
 
@@ -8400,12 +8770,16 @@ def run(args, dev: torch.device) -> int:
 def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
     """``run`` with the holds' worker open."""
 
-    # g++ builds the native data plane while the nvcc processes run
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+    # g++ builds the native data plane, and phase 7's data is written, while
+    # the nvcc processes run
+    root_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
         native_build = pool.submit(native_dataplane)
+        pretrain_data = pool.submit(write_pretrain_data, root_dir.name, args.seed)
         secs = _build.build()
         log(f"build: {json.dumps({k: round(v, 1) for k, v in secs.items()})}")
         native_build.result()
+        pretrain_data = pretrain_data.result()
     for name in _build.KERNELS:
         log(f"ptxas {name}:\n{_build.ptxas_report(name)}")
 
@@ -8476,10 +8850,21 @@ def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
     train = train_phase(args, dev, gen, smi)
 
     # ---- phases 7 and 8: the launcher's pretrain and retrieval tasks ----
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        th_path, tok_dir, words, pre_counts = pretrain_launcher_phase(
-            root, args.seed, dev, args, smi)
+    with root_dir as root:
+        try:
+            th_path, tok_dir, words, pre_counts = pretrain_launcher_phase(
+                root, args.seed, dev, args, smi, pretrain_data)
+        except BaseException:
+            if "ddp" in PHASE7:   # phase 24's rank, waiting for this phase
+                PHASE7["ddp"].cleanup()
+            raise
         torch.cuda.empty_cache()
+        # ---- phase 24: phase 7's run under torchrun (NCCL, world 1), hdfs:// ----
+        try:
+            ddp_counts = ddp_launcher_phase(PHASE7["ddp"], smi)
+        finally:
+            PHASE7["ddp"].cleanup()
+            PHASE7.clear()
         ret_counts = retrieval_launcher_phase(args, root, th_path, tok_dir, words, dev, smi)
         torch.cuda.empty_cache()
         # ---- phase 19: X2VLM-large 1B pretraining at its own sizes ----
@@ -8582,6 +8967,7 @@ def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
                                              "flash_fwd_shapes": c["flash"]})
     ledger_add(ledger, "train_step", "training", train)
     ledger_add(ledger, "pretrain_launcher", "training", pre_counts)
+    ledger_add(ledger, "ddp_launcher", "training", ddp_counts)
     ledger_add(ledger, "cclm_launcher", "training", cclm_counts)
     ledger_add(ledger, "large_pretrain_launcher", "training", large_pre_counts, LARGE_HEADS)
     for operands, c in large_vqa_counts.items():

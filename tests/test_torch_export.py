@@ -187,5 +187,6 @@ def test_the_cli_exports_a_th_and_refuses_a_mesh(tmp_path):
                                       device="cpu").model.state_dict()
     for k, t in model.state_dict().items():
         assert torch.equal(served[k], t), k
-    with pytest.raises(NotImplementedError, match="A4"):
-        export_serving.main(argv + ["--mesh", "2"])
+    # a mesh is refused where it does not divide the global batch sizes
+    with pytest.raises(ValueError, match="must divide"):
+        export_serving.main(argv + ["--mesh", "3"])

@@ -229,6 +229,31 @@ def test_build_starts_every_compile_together_and_puts_each_in_place(monkeypatch,
     assert _build.build(names) == dict.fromkeys(names, 0.0)   # built once per source
 
 
+def test_build_looks_up_the_compiler_once_a_call_and_not_when_built(monkeypatch, tmp_path):
+    """One lookup of ``nvcc`` serves every compile of a ``build`` call; a
+    call that finds every library built never looks (a host without the
+    toolkit runs the libraries it has)."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    lookups = []
+
+    def counting_nvcc_path():
+        lookups.append(1)
+        return _fake_nvcc(tmp_path, 0)
+
+    monkeypatch.setattr(_build, "nvcc_path", counting_nvcc_path)
+    names = ("flash_attention_fwd", "tiny_attention_fwd", "int8_matmul")
+    _build.build(names)
+    assert len(lookups) == 1
+    _build.build(names)
+    assert len(lookups) == 1
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "nvcc_path", no_nvcc)
+    assert _build.build(names) == dict.fromkeys(names, 0.0)
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))

@@ -1,11 +1,12 @@
 """The streaming line reader of pretraining (the port's counterpart of
-x2vlm_tpu/data/streaming.py; reference dataset/dist_dataset.py:19-104), for
-one host and one reader: the files shuffled by ``seed + epoch``, repeated
-epoch after epoch, read line by line, with a checkpointable cursor:
-``state()`` -> {epoch, file_idx, line_idx} and
-``DistLineReader(..., start_state=...)`` resumes mid-epoch. The JAX
-package's split of the files over hosts and workers comes with multi-GPU
-training (ROADMAP A4). Local paths only (core/io.py)."""
+x2vlm_tpu/data/streaming.py; reference dataset/dist_dataset.py:19-104): the
+files shuffled by ``seed + epoch``, this rank's contiguous share of them
+taken (``split_shard`` over ``world_size`` ranks, as the JAX package splits
+them over hosts), repeated epoch after epoch and read line by line, with a
+checkpointable cursor: ``state()`` -> {epoch, file_idx, line_idx} (an index
+into the rank's own files) and ``DistLineReader(..., start_state=...)``
+resumes mid-epoch. ``hdfs://`` and ``gs://`` paths list and stream through
+core/io.py."""
 
 from __future__ import annotations
 
@@ -15,17 +16,23 @@ import os
 import random
 from typing import Dict, Iterator, List, Optional, Sequence
 
-from x2vlm_tpu_torch.core.io import hopen, require_local
+from x2vlm_tpu_torch.core.io import hlist_files, hopen, is_remote
 
-__all__ = ["list_data_files", "DistLineReader"]
+__all__ = ["list_data_files", "split_shard", "DistLineReader"]
 
 
 def list_data_files(paths: Sequence[str]) -> List[str]:
-    """Expand directories / globs into files; drop _SUCCESS markers."""
+    """Expand directories / globs into files; drop _SUCCESS markers. A
+    remote path lists through ``hlist_files``."""
     out: List[str] = []
     for p in paths:
-        require_local(p)
-        if os.path.isdir(p):
+        if is_remote(p):
+            listed = sorted(f for f in hlist_files([p])
+                            if not os.path.basename(f).startswith(("_", ".")))
+            if not listed:
+                raise FileNotFoundError(p)
+            out.extend(listed)
+        elif os.path.isdir(p):
             out.extend(sorted(
                 os.path.join(p, f) for f in os.listdir(p)
                 if not f.startswith("_") and not f.startswith(".")))
@@ -38,15 +45,29 @@ def list_data_files(paths: Sequence[str]) -> List[str]:
     return out
 
 
+def split_shard(items: Sequence, shard_id: int, num_shards: int) -> List:
+    """The contiguous ``shard_id``-th of ``num_shards`` parts of ``items``
+    (reference dist_dataset.py:98-104); parts differ by at most one item."""
+    if num_shards <= 1:
+        return list(items)
+    per = len(items) / num_shards
+    return list(items[round(per * shard_id):round(per * (shard_id + 1))])
+
+
 class DistLineReader:
-    """Iterates the non-empty lines of the files, epoch after epoch."""
+    """Iterates the non-empty lines of rank ``rank``'s share of the files,
+    epoch after epoch."""
 
     def __init__(self, paths: Sequence[str], seed: int = 0,
-                 start_state: Optional[Dict] = None):
+                 start_state: Optional[Dict] = None, rank: int = 0, world_size: int = 1):
         self.files = list_data_files(paths)
         if not self.files:
             raise ValueError(f"no data files in {paths}")
+        if len(self.files) < world_size:
+            raise ValueError(f"{len(self.files)} data files in {paths} cannot give each of "
+                             f"{world_size} ranks a share")
         self.seed = seed
+        self.rank, self.world_size = rank, world_size
         self._state = dict(start_state or {"epoch": 0, "file_idx": 0, "line_idx": 0})
 
     def state(self) -> Dict:
@@ -55,7 +76,7 @@ class DistLineReader:
     def _epoch_files(self, epoch: int) -> List[str]:
         files = list(self.files)
         random.Random(self.seed + epoch).shuffle(files)
-        return files
+        return split_shard(files, self.rank, self.world_size)
 
     def __iter__(self) -> Iterator[str]:
         epoch = self._state["epoch"]

@@ -17,8 +17,9 @@ file; ``manifest.json`` has the JAX manifest's keys (the captioning ones
 ``CaptioningServer.from_npz`` reads) and the config echo, with the vision
 JSON inlined so the bundle builds its tower anywhere. No ``.jexp`` is
 written: those are JAX programs, and the port's servers run the module
-(``"artifacts": []``). ``--mesh`` > 1 (data-parallel serving) comes with
-ROADMAP queue item A4. ``--selftest`` exports a tiny CPU bundle of each
+(``"artifacts": []``). ``--mesh N`` records ``nr_devices: N`` for
+data-parallel serving over N devices (serving.py; the batch sizes are
+global and N must divide each). ``--selftest`` exports a tiny CPU bundle of each
 kind into a temporary directory, serves it and holds the served outputs to
 the model's own.
 """
@@ -55,15 +56,20 @@ def manifest_config(cfg: Dict) -> Dict:
 
 def export_bundle(model, cfg: Dict, task: str, out_dir: str, *, batch_images: int = 64,
                   batch_texts: int = 256, rerank_pairs: int = 0, k_test: int = 128,
-                  n_answers: int = 3128, tokenizer=None) -> Dict:
+                  n_answers: int = 3128, tokenizer=None, mesh: int = 1) -> Dict:
     """Write ``out_dir/params.npz`` (JAX names) and ``manifest.json`` for
-    ``model`` (a port task model) built from ``cfg``; returns the
-    manifest. Captioning needs ``tokenizer`` (the prompt, [MASK] and [SEP]
-    ids)."""
+    ``model`` (a port task model) built from ``cfg``, served over ``mesh``
+    devices; returns the manifest. Captioning needs ``tokenizer`` (the
+    prompt, [MASK] and [SEP] ids)."""
+    mesh = max(1, mesh)
+    batches = [batch_images] + ([batch_texts, rerank_pairs or batch_texts]
+                                if task == "retrieval" else [])
+    if any(b % mesh for b in batches):
+        raise ValueError(f"--mesh {mesh} must divide the global batch sizes {batches}")
     os.makedirs(out_dir, exist_ok=True)
     np.savez(os.path.join(out_dir, "params.npz"), **to_jax_params(model.state_dict()))
     res, mt = cfg["image_res"], cfg.get("max_tokens", 40)
-    common = {"artifacts": [], "platforms": [], "nr_devices": 1, "image_res": res}
+    common = {"artifacts": [], "platforms": [], "nr_devices": mesh, "image_res": res}
     if task == "retrieval":
         manifest = dict(common, batch_images=batch_images, batch_texts=batch_texts,
                         rerank_pairs=rerank_pairs or None, max_tokens=mt,
@@ -105,7 +111,7 @@ def parse_args(argv=None):
     ap.add_argument("--n_answers", type=int, default=3128,
                     help="vqa answer-vocabulary rows (VQAv2 list = 3128)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="data-parallel serving over N devices (ROADMAP A4)")
+                    help="data-parallel serving over N devices (the batch sizes are global)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--device", default="cuda",
                     help="where the model is built: the card (default) or cpu")
@@ -118,9 +124,6 @@ def main(argv=None) -> Optional[Dict]:
         return selftest()
     if not (args.config and args.out):
         raise SystemExit("--config and --out are required")
-    if args.mesh > 1:
-        raise NotImplementedError("--mesh > 1 (data-parallel serving) comes with ROADMAP "
-                                  "queue item A4")
     from x2vlm_tpu_torch.device import resolve_device
     from x2vlm_tpu_torch.factory import build_model
     from x2vlm_tpu_torch.run import load_initial_params
@@ -138,7 +141,8 @@ def main(argv=None) -> Optional[Dict]:
         tokenizer = build_tokenizer(cfg["text_encoder"])
     manifest = export_bundle(model, cfg, args.task, args.out, batch_images=args.batch_images,
                              batch_texts=args.batch_texts, rerank_pairs=args.rerank_pairs,
-                             k_test=args.k_test, n_answers=args.n_answers, tokenizer=tokenizer)
+                             k_test=args.k_test, n_answers=args.n_answers, tokenizer=tokenizer,
+                             mesh=args.mesh)
     print(f"exported {args.task} bundle -> {args.out}")
     return manifest
 

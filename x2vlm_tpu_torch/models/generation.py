@@ -37,6 +37,7 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from x2vlm_tpu_torch.core import mesh
 from x2vlm_tpu_torch.models.bert import TextEncoder
 from x2vlm_tpu_torch.models.xvlm import XVLMBase, XVLMConfig
 from x2vlm_tpu_torch.ops.layers import static_caches
@@ -78,7 +79,7 @@ def label_smoothing_loss(logits: torch.Tensor, labels: torch.Tensor, smoothing: 
                          ignore_index: int = -100) -> torch.Tensor:
     """Smoothed CE averaged over the valid positions (fp32; reference
     model_generation.py:16-50): (1 - s) * NLL + s * the mean over the vocab
-    of -log p."""
+    of -log p; in a step at world N over the global count."""
     logits = logits.float()
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
@@ -86,7 +87,7 @@ def label_smoothing_loss(logits: torch.Tensor, labels: torch.Tensor, smoothing: 
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     loss = (1.0 - smoothing) * nll + smoothing * (-logp.mean(-1))
     loss = torch.where(valid, loss, torch.zeros_like(loss))
-    return loss.sum() / valid.sum().clamp(min=1)
+    return loss.sum() / mesh.batch_denominator(valid.sum())
 
 
 def top_k_top_p_filtering(logits: torch.Tensor, top_k: int = 0,

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from x2vlm_tpu_torch.core import mesh
 from x2vlm_tpu_torch.device import resolve_device
 from x2vlm_tpu_torch.models.beit2 import BEiT2, BEiT2Config, grouped_image_embeds
 from x2vlm_tpu_torch.models.bert import BertConfig, BertEncoder, TextEncoder
@@ -308,15 +309,24 @@ class XVLMBase(nn.Module):
 
     def get_contrastive_loss(self, image_feat, text_feat, idx=None) -> torch.Tensor:
         """In-batch ITC, both directions; ``idx`` (B,) marks rows that share
-        an image id as positives of each other (soft labels)."""
+        an image id as positives of each other (soft labels). In a step at
+        world N (core/mesh.py) the batch is the global one: this rank's rows
+        against every rank's features, gathered with their gradient, and
+        ``idx`` gathered likewise (the JAX package's global-batch ITC); the
+        loss is a mean over the rank's rows, which the ranks' mean makes the
+        global one."""
         temp = self.get_temp()
-        logits = image_feat @ text_feat.t() / temp
-        logits_t = text_feat @ image_feat.t() / temp
+        world = mesh.step_world()
+        gather = mesh.gather_rows if world > 1 else (lambda x: x)
+        rows = image_feat.shape[0]
+        lo = mesh.process_index() * rows if world > 1 else 0
+        logits = image_feat @ gather(text_feat).t() / temp
+        logits_t = text_feat @ gather(image_feat).t() / temp
         if idx is None:
-            labels = torch.arange(logits.shape[0], device=logits.device)
+            labels = torch.arange(lo, lo + rows, device=logits.device)
             return (cross_entropy(logits, labels) + cross_entropy(logits_t, labels)) / 2
-        idx = idx.reshape(-1, 1)
-        pos = (idx == idx.t()).float()
+        idx = idx.reshape(-1)
+        pos = (idx[:, None] == gather(idx)[None, :]).float()
         soft = pos / pos.sum(dim=1, keepdim=True)
         loss_i2t = -(torch.log_softmax(logits, dim=1) * soft).sum(1).mean()
         loss_t2i = -(torch.log_softmax(logits_t, dim=1) * soft).sum(1).mean()
@@ -330,22 +340,14 @@ class XVLMBase(nn.Module):
         with the positives masked at -1e30 (Gumbel-max: one categorical draw
         per row from ``generator``). Returns (image_neg_idx, text_neg_idx);
         ``neg_idx`` passes given indices through (tests inject the JAX
-        package's draws)."""
+        package's draws). In a step at world N the pool is the global batch
+        (README deviation 3): this rank draws for its own rows from their
+        similarity to every rank's features, and the indices are rows of
+        the global batch, whose order is rank-contiguous."""
         if neg_idx is not None:
             return neg_idx
-        sim = (image_feat @ text_feat.t()) / self.get_temp()
-        bsz = sim.shape[0]
-        dev = sim.device
-        if idx is None:
-            pos = torch.eye(bsz, dtype=torch.bool, device=dev)
-        else:
-            idx = idx.reshape(-1, 1)
-            pos = idx == idx.t()
-        if self.config.itm_neg_block > 0:
-            blk = torch.arange(bsz, device=dev) // self.config.itm_neg_block
-            pos = pos | (blk[:, None] != blk[None, :])
-        masked_i2t = sim.masked_fill(pos, -1e30)
-        masked_t2i = sim.t().masked_fill(pos, -1e30)
+        masked_i2t, masked_t2i = self.masked_similarity(image_feat, text_feat, idx)
+        dev = masked_i2t.device
 
         def draw(logits):
             u = torch.rand(logits.shape, generator=generator, device=dev)
@@ -356,6 +358,67 @@ class XVLMBase(nn.Module):
         image_neg_idx = draw(masked_t2i)
         return image_neg_idx, text_neg_idx
 
+    @torch.no_grad()
+    def masked_similarity(self, image_feat, text_feat, idx=None):
+        """The logits the negatives are drawn from: (this rank's rows'
+        image-to-text, text-to-image) similarity over the pool, / temp,
+        -1e30 where row ``lo + i`` of the global batch may not take column
+        j: a positive (the row itself, or a row of the same ``idx``) or,
+        with ``itm_neg_block``, a column of another block."""
+        world = mesh.step_world()
+        rows = image_feat.shape[0]
+        dev = image_feat.device
+        temp = self.get_temp()
+        if world > 1:
+            lo = mesh.process_index() * rows
+            sim_i2t = image_feat @ mesh.gather_rows(text_feat).t() / temp
+            sim_t2i = text_feat @ mesh.gather_rows(image_feat).t() / temp
+        else:
+            lo = 0
+            sim_i2t = (image_feat @ text_feat.t()) / temp
+            sim_t2i = sim_i2t.t()
+        g = torch.arange(lo, lo + rows, device=dev)
+        c = torch.arange(rows * world, device=dev)
+        if idx is None:
+            pos = g[:, None] == c[None, :]
+        else:
+            idx = idx.reshape(-1)
+            pos = idx[:, None] == (mesh.gather_rows(idx) if world > 1 else idx)[None, :]
+        if self.config.itm_neg_block > 0:
+            blk = self.config.itm_neg_block
+            pos = pos | ((g // blk)[:, None] != (c // blk)[None, :])
+        return sim_i2t.masked_fill(pos, -1e30), sim_t2i.masked_fill(pos, -1e30)
+
+    def _negative_operands(self, image_embeds, image_atts, text_embeds, text_atts,
+                           image_neg_idx, text_neg_idx):
+        """(images, the image rows' key masks for ``[pos | (img, text_neg) |
+        (img_neg, text)]``, their gather index into ``images``, text_neg,
+        text_atts_neg). At world 1, or when ``itm_neg_block`` keeps every
+        draw in this rank, ``images`` is the rank's own; else the negatives
+        come from every rank's embeds, gathered with a gradient that flows
+        back to the rank that owns the row."""
+        rows = image_embeds.shape[0]
+        ar = torch.arange(rows, device=image_embeds.device)
+        world = mesh.step_world()
+        blk = self.config.itm_neg_block
+        if world > 1 and blk > 0 and rows % blk == 0:
+            lo = mesh.process_index() * rows
+            image_neg_idx, text_neg_idx = image_neg_idx - lo, text_neg_idx - lo
+            world = 1
+        if world == 1:
+            gather_idx = torch.cat([ar, ar, image_neg_idx])
+            return (image_embeds, image_atts.index_select(0, gather_idx), gather_idx,
+                    text_embeds.index_select(0, text_neg_idx),
+                    text_atts.index_select(0, text_neg_idx))
+        text_neg = mesh.gather_rows(text_embeds).index_select(0, text_neg_idx)
+        text_atts_neg = mesh.gather_rows(text_atts).index_select(0, text_neg_idx)
+        images = torch.cat([image_embeds,
+                            mesh.gather_rows(image_embeds).index_select(0, image_neg_idx)])
+        atts = torch.cat([image_atts,
+                          mesh.gather_rows(image_atts).index_select(0, image_neg_idx)])
+        gather_idx = torch.cat([ar, ar, rows + ar])
+        return images, atts.index_select(0, gather_idx), gather_idx, text_neg, text_atts_neg
+
     def get_matching_loss(self, image_embeds, image_atts, image_feat, text_embeds,
                           text_atts, text_feat, generator=None, idx=None,
                           neg_idx=None, dropout_generator=None) -> torch.Tensor:
@@ -364,17 +427,15 @@ class XVLMBase(nn.Module):
         bs = image_embeds.shape[0]
         image_neg_idx, text_neg_idx = self.get_hard_negatives(
             image_feat, text_feat, generator, idx=idx, neg_idx=neg_idx)
-        ar = torch.arange(bs, device=image_embeds.device)
-        gather_idx = torch.cat([ar, ar, image_neg_idx])
+        images, atts_rows, gather_idx, text_neg, text_atts_neg = self._negative_operands(
+            image_embeds, image_atts, text_embeds, text_atts, image_neg_idx, text_neg_idx)
         cross = self.get_cross_embeds(
-            image_embeds, image_atts.index_select(0, gather_idx),
-            text_embeds=torch.cat([text_embeds, text_embeds.index_select(0, text_neg_idx),
-                                   text_embeds]),
-            text_atts=torch.cat([text_atts, text_atts.index_select(0, text_neg_idx),
-                                 text_atts]),
+            images, atts_rows, text_embeds=torch.cat([text_embeds, text_neg, text_embeds]),
+            text_atts=torch.cat([text_atts, text_atts_neg, text_atts]),
             generator=dropout_generator, encoder_gather_idx=gather_idx)[:, 0, :]
-        labels = torch.cat([torch.ones(bs, dtype=torch.long, device=ar.device),
-                            torch.zeros(2 * bs, dtype=torch.long, device=ar.device)])
+        dev = image_embeds.device
+        labels = torch.cat([torch.ones(bs, dtype=torch.long, device=dev),
+                            torch.zeros(2 * bs, dtype=torch.long, device=dev)])
         return cross_entropy(self.itm_head(cross), labels)
 
     def _tied_table(self) -> torch.Tensor:
@@ -391,14 +452,14 @@ class XVLMBase(nn.Module):
         bs = image_embeds.shape[0]
         image_neg_idx, text_neg_idx = self.get_hard_negatives(
             image_feat, text_feat, generator, idx=idx, neg_idx=neg_idx)
+        images, atts_rows, gather_idx, text_neg, text_atts_neg = self._negative_operands(
+            image_embeds, image_atts, text_embeds, text_atts, image_neg_idx, text_neg_idx)
         ar = torch.arange(bs, device=image_embeds.device)
-        gather_idx = torch.cat([ar, ar, image_neg_idx, ar])
-        text_all = torch.cat([text_embeds, text_embeds.index_select(0, text_neg_idx),
-                              text_embeds, mlm_text_embeds])
-        atts_all = torch.cat([text_atts, text_atts.index_select(0, text_neg_idx),
-                              text_atts, text_atts])
+        gather_idx = torch.cat([gather_idx, ar])
+        text_all = torch.cat([text_embeds, text_neg, text_embeds, mlm_text_embeds])
+        atts_all = torch.cat([text_atts, text_atts_neg, text_atts, text_atts])
         cross = self.get_cross_embeds(
-            image_embeds, image_atts.index_select(0, gather_idx), text_embeds=text_all,
+            images, torch.cat([atts_rows, image_atts]), text_embeds=text_all,
             text_atts=atts_all, generator=dropout_generator,
             encoder_gather_idx=gather_idx)
         labels = torch.cat([torch.ones(bs, dtype=torch.long, device=ar.device),
@@ -441,7 +502,9 @@ class XVLMBase(nn.Module):
     def get_bbox_loss(output_coord, target_bbox, is_image=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(L1, 1 - GIoU), each summed over the rows and divided by the rows
-        kept: ``is_image`` rows (full-image captions) are left out. A row
+        kept: ``is_image`` rows (full-image captions) are left out, and in a
+        step at world N the count is the global batch's
+        (``mesh.batch_denominator``). A row
         whose predicted or target box is degenerate adds 0 to the GIoU loss
         (README deviation 4: the reference zeroes the whole batch's)."""
         output_coord = output_coord.float()
@@ -456,7 +519,7 @@ class XVLMBase(nn.Module):
             num = output_coord.shape[0]
         else:
             keep = 1.0 - is_image.float()
-            num = keep.sum().clamp(min=1.0)
+            num = mesh.batch_denominator(keep.sum())
             loss_l1 = loss_l1 * keep[:, None]
             loss_giou = loss_giou * keep
         return loss_l1.sum() / num, loss_giou.sum() / num

@@ -72,18 +72,24 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     """Compile the named kernels that are not built yet, in parallel.
 
     Returns the seconds each compile took (0.0 for one already built).
-    Raises with nvcc's output if any compile fails."""
+    Raises with nvcc's output if any compile fails. The compiler is looked
+    up once a call, at the first kernel that needs it, and not at all when
+    every library is built: each lookup may find another file, and one
+    that is rewritten between two lookups must not reach a compile that
+    is already reading it."""
     names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     secs: Dict[str, float] = {}
+    nvcc = None
     for name in names:
         out = _lib_path(name)
         if out.is_file():
             secs[name] = 0.0
             continue
+        nvcc = nvcc or nvcc_path()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),

@@ -19,6 +19,8 @@ from typing import List, Tuple
 
 import torch
 
+from x2vlm_tpu_torch.core import mesh
+
 __all__ = ["fused_vocab_ce_weighted", "fused_vocab_ce", "softmax_ce", "CHUNK"]
 
 CHUNK = 7680  # vocab chunk width (the JAX package's _CHUNK)
@@ -27,15 +29,16 @@ CHUNK = 7680  # vocab chunk width (the JAX package's _CHUNK)
 def softmax_ce(logits: torch.Tensor, labels: torch.Tensor,
                ignore_index: int = -100) -> torch.Tensor:
     """Plain fp32 mean CE over non-ignored labels (HF CrossEntropyLoss
-    semantics). Materializes the logits: use :func:`fused_vocab_ce` for a
-    vocab-sized last axis."""
+    semantics; in a step at world N over the global count,
+    ``mesh.batch_denominator``). Materializes the logits: use
+    :func:`fused_vocab_ce` for a vocab-sized last axis."""
     logits = logits.float()
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / valid.sum().clamp(min=1)
+    return nll.sum() / mesh.batch_denominator(valid.sum())
 
 
 def _chunks(v: int) -> List[Tuple[int, int]]:
@@ -125,7 +128,9 @@ def fused_vocab_ce(h: torch.Tensor, table: torch.Tensor, bias: torch.Tensor,
                    ignore_index: int = -100, smoothing: float = 0.0) -> torch.Tensor:
     """Mean CE over the valid rows (``valid`` AND ``labels != ignore_index``),
     HF CrossEntropyLoss semantics: sum(nll * valid) / max(count, 1); with
-    ``smoothing`` the label-smoothed CE, same mean."""
+    ``smoothing`` the label-smoothed CE, same mean. In a step at world N
+    the count is the global batch's (``mesh.batch_denominator``), as the
+    JAX package's ``sum(nll) / max(sum(valid), 1)`` over the global batch."""
     valid = valid & (labels != ignore_index)
-    count = valid.sum().clamp(min=1).float()
+    count = mesh.batch_denominator(valid.sum()).float()
     return fused_vocab_ce_weighted(h, table, bias, labels, valid.float() / count, smoothing)

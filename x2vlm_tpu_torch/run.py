@@ -10,11 +10,25 @@ Usage:
         --config configs/finetune/retrieval_flickr_base.yaml --output_dir out/ \\
         [--checkpoint x2vlm_base_4m.th] [--evaluate] [--resume] \\
         [--override_cfg "batch_size:64;optimizer.lr:2e-5"] [--device cuda]
+    torchrun --nproc_per_node N -m x2vlm_tpu_torch.run --task pretrain \\
+        --config hdfs://... --output_dir out/ [--fsdp F] [--output_hdfs hdfs://...]
 
-The flags are the JAX launcher's, less ``--fsdp`` and ``--output_hdfs``
-(multi-GPU and remote storage, ROADMAP A4), plus ``--device`` (default
-``cuda``; ``cpu`` runs the plain PyTorch path, as the tests do). One
-process, one card.
+The flags are the JAX launcher's, plus ``--device`` (default ``cuda``;
+``cpu`` runs the plain PyTorch path, as the tests do). One process drives
+one card; under ``torchrun`` the processes join one group (core/mesh.py:
+NCCL, or gloo with ``--device cpu``), each rank reads its own share of
+every stream and loader (``batch_size`` and ``--bs`` are per rank, the
+global batch ``batch_size * world``), the losses see the global batch, the
+gradients are averaged over the ranks before the clip, the evals split
+their samples over the ranks and merge (tasks/collect.py), and only the
+main process writes checkpoints, logs and result files.
+
+- ``--fsdp F``: ZeRO split of the AdamW moments and update over groups of
+  F consecutive ranks (train/optim.py ``AdamW.shard``); F divides the
+  world. A saved state holds the whole model and loads at any world size.
+- ``--config`` may be an ``hdfs://`` or ``gs://`` path, fetched into
+  ``output_dir`` first; ``--output_hdfs DIR`` makes DIR at the start and
+  mirrors ``output_dir`` into it at the end (core/io.py).
 
 - ``--checkpoint`` a reference ``.th`` (or a published CLIP / Swin / BEiT-2
   / HF BERT file): imported under the reference names by its flavour, the
@@ -76,9 +90,9 @@ import numpy as np
 import torch
 
 from x2vlm_tpu_torch.core import config as config_lib
-from x2vlm_tpu_torch.core import config_schema
+from x2vlm_tpu_torch.core import config_schema, mesh
+from x2vlm_tpu_torch.core import io as io_lib
 from x2vlm_tpu_torch.data.loader import MapLoader, Prefetcher, batch_indices, collate
-from x2vlm_tpu_torch.device import resolve_device
 from x2vlm_tpu_torch.factory import build_model, is_plus_config
 from x2vlm_tpu_torch.tasks.finetune import append_log, train_epochs
 from x2vlm_tpu_torch.tasks.pretrain import step_generators
@@ -132,14 +146,27 @@ def parse_args(argv=None):
                    help="use the machine-translated test set (test_file := gmt_test_file)")
     p.add_argument("--device", default="cuda",
                    help="the card (default) or cpu, the plain PyTorch path")
+    p.add_argument("--fsdp", default=1, type=int,
+                   help="ranks of a ZeRO group sharding the AdamW moments and update")
+    p.add_argument("--output_hdfs", default="",
+                   help="remote (hdfs:// or gs://) directory mirroring output_dir at the end")
     return p.parse_args(argv)
 
 
 def setup(args):
-    """The config with the command line's overrides, validated, its
+    """The config (a remote one fetched into ``output_dir`` by the main
+    process) with the command line's overrides, validated, its
     ``--fewshot`` templates filled, dumped to ``output_dir/config.json``;
-    the global RNGs seeded."""
+    ``--output_hdfs`` made; the global RNGs seeded."""
     os.makedirs(args.output_dir, exist_ok=True)
+    if io_lib.is_remote(args.config):
+        local = os.path.join(args.output_dir, os.path.basename(args.config.rstrip("/")))
+        if mesh.is_main_process():
+            io_lib.fetch_local(args.config, args.output_dir)
+        mesh.barrier()
+        args.config = local
+    if args.output_hdfs and mesh.is_main_process():
+        io_lib.hmkdir(args.output_hdfs)
     cfg = config_lib.load_config(args.config, overrides=args.override_cfg)
     config_schema.validate_config(cfg, source=args.config)
     if args.fewshot:
@@ -166,8 +193,9 @@ def setup(args):
     random.seed(args.seed)
     np.random.seed(args.seed)
     torch.manual_seed(args.seed)
-    with open(os.path.join(args.output_dir, "config.json"), "w") as f:
-        json.dump(cfg.to_dict(), f, indent=1)
+    if mesh.is_main_process():
+        with open(os.path.join(args.output_dir, "config.json"), "w") as f:
+            json.dump(cfg.to_dict(), f, indent=1)
     return cfg
 
 
@@ -199,7 +227,8 @@ def make_optimizer(cfg, model, total_steps: int, fusion_layer: int, fresh_names=
     base lr, per-tower vision / text / cross lr, ``lr_mult`` on the
     parameters the checkpoint left fresh and, with ``large_lr_for_dec``, on
     the whole VQA decoder (reference model_generation.py:445-447); the
-    linear warmup-decay schedule."""
+    linear warmup-decay schedule; split over this rank's fsdp group with
+    ``--fsdp`` > 1."""
     opt = cfg.get("optimizer", {})
     sched_cfg = cfg.get("schedular", {})
     if str(opt.get("opt", "adamW")).lower() != "adamw":
@@ -218,7 +247,7 @@ def make_optimizer(cfg, model, total_steps: int, fusion_layer: int, fresh_names=
     labels = param_labels(model.named_parameters(), fusion_layer, fresh_names=fresh_names,
                           fresh_prefixes=("text_decoder.",)
                           if cfg.get("large_lr_for_dec", False) else ())
-    return create_optimizer(
+    optimizer = create_optimizer(
         model, sched, weight_decay=float(opt.get("weight_decay", 0.01)),
         clip_grad_norm=cfg.get("accelerator", {}).get("CLIP_GRAD_NORM", 1.0),
         lr_mult=float(opt.get("lr_mult", 1.0)),
@@ -226,6 +255,9 @@ def make_optimizer(cfg, model, total_steps: int, fusion_layer: int, fresh_names=
         text_lr_scale=float(opt.get("text_lr", base_lr)) / base_lr,
         cross_lr_scale=float(opt.get("cross_lr", base_lr)) / base_lr,
         labels=labels)
+    if mesh.fsdp_size() > 1:
+        optimizer.shard(mesh.fsdp_group(), mesh.fsdp_rank(), mesh.fsdp_size())
+    return optimizer
 
 
 def maybe_resume(args, model, optimizer):
@@ -323,15 +355,15 @@ def load_initial_params(args, cfg, model) -> List[str]:
 
 
 def to_device(batch: Dict, device: torch.device) -> Dict:
-    """A host batch (numpy) as tensors on ``device``: attention masks int32,
-    other integer arrays int64, images and floats as they are."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.as_tensor(v)
-        if t.dtype == torch.int32 and not k.endswith("atts"):
-            t = t.long()
-        out[k] = t.to(device, non_blocking=True)
-    return out
+    """A host batch (numpy) as tensors on ``device`` (``mesh.shard_batch``:
+    attention masks int32, other integer arrays int64, images and floats
+    as they are)."""
+    return mesh.shard_batch(batch, device)
+
+
+def hosts() -> Dict[str, int]:
+    """This rank's share of a loader or an eval: ``host_id`` / ``num_hosts``."""
+    return {"host_id": mesh.process_index(), "num_hosts": mesh.process_count()}
 
 
 def eval_multi(eval_one, eval_sets, mean_key=None) -> Dict:
@@ -368,7 +400,8 @@ def finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, metric_key, load
 
     epochs = cfg.get("schedular", {}).get("epochs", 5)
     accum = int(cfg.get("accumulate_steps", 1))
-    loader = loader or MapLoader(train_ds, cfg.get("batch_size", 32), seed=args.seed)
+    loader = loader or MapLoader(train_ds, cfg.get("batch_size", 32), seed=args.seed,
+                                 **hosts())
     steps_per_epoch = max(1, len(loader))
     optimizer = make_optimizer(cfg, model, steps_per_epoch * epochs,
                                mcfg.text.fusion_layer, fresh_names=fresh)
@@ -410,7 +443,8 @@ def run_retrieval(args, cfg, device, task: str = "retrieval"):
         return eval_multi(lambda ds: evaluate_retrieval(
             model, ds, device=device, k_test=cfg.get("k_test", 128),
             batch_images=cfg.get("batch_size_test", 64),
-            batch_texts=cfg.get("batch_size_test_text", 256)), test_ds, mean_key=metric_key)
+            batch_texts=cfg.get("batch_size_test_text", 256), **hosts()), test_ds,
+            mean_key=metric_key)
 
     return finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, metric_key)
 
@@ -421,6 +455,7 @@ def run_grounding(args, cfg, device):
     (``val_acc`` picks the best epoch), or a VLUE test set's ``score``."""
     from x2vlm_tpu_torch.data.factory import create_dataset
     from x2vlm_tpu_torch.evalkit import grounding_eval_bbox, grounding_eval_bbox_vlue
+    from x2vlm_tpu_torch.tasks.collect import collect_results
     from x2vlm_tpu_torch.tasks.grounding import predict_grounding
 
     model, mcfg = build_model(cfg, "grounding", device=device, seed=args.seed)
@@ -432,8 +467,9 @@ def run_grounding(args, cfg, device):
             refs = {int(k): v for k, v in json.load(f).items()}
 
     def eval_fn():
-        results = predict_grounding(model, test_ds, device=device,
-                                    batch_size=cfg.get("batch_size_test", 32))
+        results = collect_results(predict_grounding(
+            model, test_ds, device=device, batch_size=cfg.get("batch_size_test", 32),
+            **hosts()))
         if cfg.get("vlue_test"):   # the test json carries its own boxes
             tf = cfg["test_file"]
             return grounding_eval_bbox_vlue(results, tf[0] if isinstance(tf, (list, tuple))
@@ -442,6 +478,17 @@ def run_grounding(args, cfg, device):
 
     metric_key = "score" if cfg.get("vlue_test") else "val_acc" if refs else None
     return finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, metric_key)
+
+
+def merged_accuracy(metrics: Dict) -> Dict:
+    """``evaluate_classification``'s {accuracy, n} of this rank's share
+    merged over the ranks (identity at world 1)."""
+    if mesh.process_count() == 1:
+        return metrics
+    parts = mesh.all_gather_object((round(metrics["accuracy"] * metrics["n"] / 100.0),
+                                    metrics["n"]))
+    correct, total = (sum(p[i] for p in parts) for i in (0, 1))
+    return {"accuracy": 100.0 * correct / max(total, 1), "n": total}
 
 
 def run_nlvr(args, cfg, device, task: str = "nlvr"):
@@ -457,9 +504,9 @@ def run_nlvr(args, cfg, device, task: str = "nlvr"):
                                        rng=random.Random(args.seed))
 
     def eval_fn():
-        return eval_multi(lambda ds: evaluate_classification(
-            model, ds, device=device, batch_size=cfg.get("batch_size_test", 32)), test_ds,
-            mean_key="accuracy")
+        return eval_multi(lambda ds: merged_accuracy(evaluate_classification(
+            model, ds, device=device, batch_size=cfg.get("batch_size_test", 32),
+            **hosts())), test_ds, mean_key="accuracy")
 
     return finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, "accuracy")
 
@@ -496,15 +543,15 @@ def run_classification(args, cfg, device, task: str = "classification"):
     model, mcfg = build_model(cfg, model_task, device=device, seed=args.seed)
 
     def eval_fn():
-        return eval_multi(lambda ds: evaluate_classification(
-            model, ds, device=device, batch_size=cfg.get("batch_size_test", 32)), test_ds,
-            mean_key="accuracy")
+        return eval_multi(lambda ds: merged_accuracy(evaluate_classification(
+            model, ds, device=device, batch_size=cfg.get("batch_size_test", 32),
+            **hosts())), test_ds, mean_key="accuracy")
 
     loader = None
     if not args.evaluate:
         train_ds.rng = data_rng
         loader = SeededLoader(train_ds, cfg.get("batch_size", 32), run_seed=args.seed,
-                              data_rng=data_rng)
+                              data_rng=data_rng, **hosts())
     return finetune(args, cfg, device, model, mcfg, train_ds, eval_fn, "accuracy",
                     loader=loader)
 
@@ -517,8 +564,9 @@ class SeededLoader(MapLoader):
     resumed run reads the batches the whole run read. The batch order is
     the JAX loader's (``MapLoader``'s seed 0, not ``run_seed``)."""
 
-    def __init__(self, dataset, batch_size: int, *, run_seed: int, data_rng: random.Random):
-        super().__init__(dataset, batch_size)
+    def __init__(self, dataset, batch_size: int, *, run_seed: int, data_rng: random.Random,
+                 host_id: int = 0, num_hosts: int = 1):
+        super().__init__(dataset, batch_size, host_id=host_id, num_hosts=num_hosts)
         self.run_seed = run_seed
         self.data_rng = data_rng
 
@@ -529,7 +577,8 @@ class SeededLoader(MapLoader):
         epoch = self.epoch
         self.data_rng.seed(self.run_seed if epoch == 0 else f"{self.run_seed}/{epoch}")
         for b in batch_indices(len(self.dataset), self.batch_size, shuffle=self.shuffle,
-                               seed=self.seed, epoch=epoch, drop_last=self.drop_last):
+                               seed=self.seed, epoch=epoch, host_id=self.host_id,
+                               num_hosts=self.num_hosts, drop_last=self.drop_last):
             yield self.collate([self.dataset[i] for i in b])
 
 
@@ -539,8 +588,9 @@ class VQALoader(SeededLoader):
     launcher's."""
 
     def __init__(self, dataset, batch_size: int, answers_per_batch: int, *, run_seed: int,
-                 data_rng: random.Random):
-        super().__init__(dataset, batch_size, run_seed=run_seed, data_rng=data_rng)
+                 data_rng: random.Random, host_id: int = 0, num_hosts: int = 1):
+        super().__init__(dataset, batch_size, run_seed=run_seed, data_rng=data_rng,
+                         host_id=host_id, num_hosts=num_hosts)
         self.answers_per_batch = answers_per_batch
 
     def collate(self, samples):
@@ -563,6 +613,7 @@ def run_vqa(args, cfg, device, task: str = "vqa"):
     lines carry several human answers, else the exact match (``acc``)."""
     from x2vlm_tpu_torch.data.factory import create_dataset
     from x2vlm_tpu_torch.evalkit.vqa import exact_match_accuracy, vqa_eval
+    from x2vlm_tpu_torch.tasks.collect import collect_results
     from x2vlm_tpu_torch.tasks.vqa import evaluate_vqa
 
     model, mcfg = build_model(cfg, "vqa", device=device, seed=args.seed)
@@ -576,17 +627,14 @@ def run_vqa(args, cfg, device, task: str = "vqa"):
     def eval_one(ds):
         results = evaluate_vqa(model, ds, ds.answer_list, ds.answer_ids, ds.answer_atts,
                                device=device, k_test=cfg.get("k_test", 128),
-                               batch_size=cfg.get("batch_size_test", 32))
-        seen, merged = set(), []
-        for r in results:
-            if r["question_id"] not in seen:
-                seen.add(r["question_id"])
-                merged.append(r)
+                               batch_size=cfg.get("batch_size_test", 32), **hosts())
+        merged = collect_results(results, dedup_key="question_id")
         split = next((k for k, v in test_ds.items() if v is ds), None) \
             if isinstance(test_ds, dict) else None
-        with open(os.path.join(args.output_dir,
-                               f"vqa_result{f'_{split}' if split else ''}.json"), "w") as f:
-            json.dump(merged, f)
+        if mesh.is_main_process():
+            with open(os.path.join(args.output_dir,
+                                   f"vqa_result{f'_{split}' if split else ''}.json"), "w") as f:
+                json.dump(merged, f)
         out = {"n": len(merged)}
         gts = ds.gt_answers()
         if gts:
@@ -598,7 +646,7 @@ def run_vqa(args, cfg, device, task: str = "vqa"):
     if not args.evaluate:
         batch_size = cfg.get("batch_size", 32)
         loader = VQALoader(train_ds, batch_size, cfg.get("answers_per_batch", 2 * batch_size),
-                           run_seed=args.seed, data_rng=data_rng)
+                           run_seed=args.seed, data_rng=data_rng, **hosts())
     return finetune(args, cfg, device, model, mcfg, train_ds,
                     lambda: eval_multi(eval_one, test_ds, mean_key=metric_key), metric_key,
                     loader=loader)
@@ -614,6 +662,7 @@ def run_captioning(args, cfg, device):
     from x2vlm_tpu_torch.data.tokenization import build_tokenizer
     from x2vlm_tpu_torch.evalkit.caption import caption_eval
     from x2vlm_tpu_torch.tasks.captioning import generate_captions
+    from x2vlm_tpu_torch.tasks.collect import collect_results
 
     model, mcfg = build_model(cfg, "captioning", device=device, seed=args.seed)
     tokenizer = build_tokenizer(cfg["text_encoder"])
@@ -626,19 +675,19 @@ def run_captioning(args, cfg, device):
             anns = {int(k): v for k, v in json.load(f).items()}
 
     def eval_fn():
-        results = generate_captions(
+        results = collect_results(generate_captions(
             model, test_ds, tokenizer, device=device, prompt=cfg.get("prompt", ""),
             num_beams=cfg.get("num_beams", 3), min_length=cfg.get("min_length", 5),
             max_length=cfg.get("max_length", 20),
             length_penalty=float(cfg.get("length_penalty", 0.0)),
-            batch_size=cfg.get("batch_size_test", 16))
+            batch_size=cfg.get("batch_size_test", 16), **hosts()))
         return caption_eval(results, anns) if anns else {"n": len(results)}
 
     if cfg.get("scst") and not args.evaluate:
         return _run_captioning_scst(args, cfg, device, model, mcfg, tokenizer,
                                     eval_fn if anns else None)
     loader = None if args.evaluate else SeededLoader(
-        train_ds, cfg.get("batch_size", 16), run_seed=args.seed, data_rng=data_rng)
+        train_ds, cfg.get("batch_size", 16), run_seed=args.seed, data_rng=data_rng, **hosts())
     return finetune(args, cfg, device, model, mcfg, train_ds, eval_fn,
                     "cider" if anns else None, loader=loader)
 
@@ -732,6 +781,22 @@ def _stream_pairs(name: str, stream, rngs, n_samples: int, seed: int, batch_fn=c
         yield batch_fn(samples), stream.reader.state()
 
 
+def rank_cursors(data_state: Dict, rank: int, world: int) -> Dict:
+    """This rank's stream cursors from a saved ``data_state``: at world 1
+    the cursors themselves, at world N ``{"world_size": N, "ranks": [the
+    cursors of each rank]}`` (the main process writes every rank's, so
+    none overwrites another's). A state saved at another world size reads
+    other file shards and is refused."""
+    if not data_state:
+        return {}
+    saved = data_state.get("world_size", 1)
+    if saved != world:
+        raise ValueError(f"--resume: the data cursors were saved at world size {saved}, "
+                         f"this run has {world}; each rank's cursor indexes its own file "
+                         f"shard")
+    return data_state["ranks"][rank] if world > 1 else data_state
+
+
 def run_pretrain(args, cfg, device):
     """Mixed-stream pretraining: the image-text stream (+ the aux clean-data
     replacement), the region-text stream, the video-frame-text stream (+ its
@@ -769,11 +834,15 @@ def run_pretrain(args, cfg, device):
     icfg = dict(cfg.get("images", {}))
     icfg.setdefault("caption_key", "desc")
     sched_cfg = cfg.get("schedular", {})
-    steps_per_epoch = cfg.get("train_dataset_size", 10 ** 6) // icfg.get("batch_size", 128)
+    rank, world = mesh.process_index(), mesh.process_count()
+    # the JAX launcher's epoch: the dataset over the global batch
+    steps_per_epoch = cfg.get("train_dataset_size", 10 ** 6) // (
+        icfg.get("batch_size", 128) * world)
     total_steps = steps_per_epoch * sched_cfg.get("epochs", 3)
     optimizer = make_optimizer(cfg, model, total_steps, mcfg.text.fusion_layer,
                                fresh_names=fresh)
     start_step, data_state = maybe_resume(args, model, optimizer)
+    data_state = rank_cursors(data_state, rank, world)
 
     def preprocessor(rng):
         return TextPreprocessor(
@@ -791,7 +860,8 @@ def run_pretrain(args, cfg, device):
         """``rngs[0]`` is the stream's, the others its transform's own."""
         rngs = rngs or (random.Random(),)
         n = n_samples or block.get("batch_size", 128)
-        reader = DistLineReader(paths, seed=args.seed, start_state=data_state.get(name))
+        reader = DistLineReader(paths, seed=args.seed, start_state=data_state.get(name),
+                                rank=rank, world_size=world)
         stream = make(reader, pre(rngs[0]), rngs[0], n)
         counted.append(stream)
         pairs = _stream_pairs(name, stream, rngs, n, args.seed, batch_fn)
@@ -934,7 +1004,9 @@ def run_pretrain(args, cfg, device):
 
     def checkpoint_fn(step):
         cursors = {k: s.cursor for k, s in streams.items()}
-        ckpt_lib.save_train_state(ckpt_dir, model, optimizer, step, data_state=cursors)
+        saved = cursors if world == 1 else {"world_size": world,
+                                             "ranks": mesh.all_gather_object(cursors)}
+        ckpt_lib.save_train_state(ckpt_dir, model, optimizer, step, data_state=saved)
         print(f"### saved the train state at step {step} (data cursors {cursors})")
 
     try:
@@ -960,8 +1032,10 @@ def main(argv=None):
     if args.wait:
         print(f"### waiting {args.wait} minutes", flush=True)
         time.sleep(args.wait * 60)
+    device = mesh.initialize(args.device, fsdp=args.fsdp)
+    if mesh.process_count() > 1 or "RANK" in os.environ:
+        print(f"### process group: {json.dumps(mesh.describe())}", flush=True)
     cfg = setup(args)
-    device = resolve_device(args.device)
     t0 = time.time()
     runners = {"pretrain": run_pretrain, "retrieval": run_retrieval,
                "xretrieval": run_retrieval, "wit": run_retrieval, "xflickrco": run_retrieval,
@@ -973,9 +1047,15 @@ def main(argv=None):
     # the runners shared by several tasks take the task's name
     kw = {} if args.task in ("pretrain", "grounding", "captioning") else {"task": args.task}
     out = runners[args.task](args, cfg, device, **kw)
+    mesh.barrier()
+    if args.output_hdfs and mesh.is_main_process():
+        # once at the end (reference Pretrain.py:368-375 copies log and ckpts)
+        io_lib.mirror_to_remote(args.output_dir, args.output_hdfs)
+        print(f"### mirrored {args.output_dir} -> {args.output_hdfs}")
     print(f"total time: {time.time() - t0:.0f}s")
     return out
 
 
 if __name__ == "__main__":
     main()
+    mesh.shutdown()

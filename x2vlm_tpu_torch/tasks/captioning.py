@@ -23,14 +23,15 @@ def prompt_ids(tokenizer, prompt: str = "") -> List[int]:
 
 def generate_captions(model, dataset, tokenizer, *, device, prompt: str = "",
                       num_beams: int = 3, min_length: int = 5, max_length: int = 20,
-                      length_penalty: float = 0.0, batch_size: int = 16) -> List[Dict]:
-    """[{image_id, caption}] for every image of ``dataset``
+                      length_penalty: float = 0.0, batch_size: int = 16, host_id: int = 0,
+                      num_hosts: int = 1) -> List[Dict]:
+    """[{image_id, caption}] for rank ``host_id``'s share of ``dataset``'s images
     (``CaptioningEvalDataset``): the beam search over batches of
     ``batch_size`` images (the last padded with copies of its last sample,
     whose captions are dropped), decoded without the special tokens."""
     ids = prompt_ids(tokenizer, prompt)
     results: List[Dict] = []
-    for samples, rows in padded_batches(dataset, batch_size):
+    for samples, rows in padded_batches(dataset, batch_size, host_id, num_hosts):
         image = torch.from_numpy(np.stack([s["image"] for s in rows])).to(device)
         seqs = beam_search_generate_device(
             model, image, ids, mask_token_id=tokenizer.mask_token_id,

@@ -10,26 +10,38 @@ import json
 import os
 from typing import Callable, Dict, Optional
 
+from x2vlm_tpu_torch.core import mesh
 from x2vlm_tpu_torch.train.metrics import MetricLogger
 
-__all__ = ["train_epochs", "append_log", "padded_batches"]
+__all__ = ["train_epochs", "append_log", "padded_batches", "host_range"]
 
 
 def append_log(output_dir: str, record: Dict):
-    """One JSON line in ``output_dir/log.txt``."""
+    """One JSON line in ``output_dir/log.txt``, written by the main process
+    alone."""
+    if not mesh.is_main_process():
+        return
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, "log.txt"), "a") as f:
         f.write(json.dumps(record) + "\n")
 
 
-def padded_batches(dataset, batch_size: int):
-    """(samples, rows) per batch of ``dataset`` in order: the last batch's
-    rows padded with copies of its last sample, as the JAX eval loops pad
-    it, so every call has ``batch_size`` rows; the copies' outputs are
-    dropped."""
-    n = len(dataset)
-    for lo in range(0, n, batch_size):
-        samples = [dataset[i] for i in range(lo, min(lo + batch_size, n))]
+def host_range(n: int, host_id: int = 0, num_hosts: int = 1) -> range:
+    """Rank ``host_id``'s contiguous share of ``n`` eval samples, as the
+    JAX eval loops split them: ``n // num_hosts + 1`` a rank, the last
+    share shorter."""
+    step = n // num_hosts + 1 if num_hosts > 1 else n
+    return range(min(n, host_id * step), min(n, (host_id + 1) * step))
+
+
+def padded_batches(dataset, batch_size: int, host_id: int = 0, num_hosts: int = 1):
+    """(samples, rows) per batch of rank ``host_id``'s share of ``dataset``
+    (:func:`host_range`) in order: the last batch's rows padded with copies
+    of its last sample, as the JAX eval loops pad it, so every call has
+    ``batch_size`` rows; the copies' outputs are dropped."""
+    share = host_range(len(dataset), host_id, num_hosts)
+    for lo in range(share.start, share.stop, batch_size):
+        samples = [dataset[i] for i in range(lo, min(lo + batch_size, share.stop))]
         yield samples, samples + [samples[-1]] * (batch_size - len(samples))
 
 

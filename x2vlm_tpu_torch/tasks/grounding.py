@@ -15,12 +15,13 @@ __all__ = ["predict_grounding"]
 
 
 @torch.inference_mode()
-def predict_grounding(model, dataset, *, device, batch_size: int = 32) -> List[Dict]:
-    """[{ref_id, pred: normalised cxcywh}] for every sample of ``dataset``
+def predict_grounding(model, dataset, *, device, batch_size: int = 32, host_id: int = 0,
+                      num_hosts: int = 1) -> List[Dict]:
+    """[{ref_id, pred: normalised cxcywh}] for rank ``host_id``'s share of ``dataset``
     (``GroundingEvalDataset``), from ``model.predict`` (``XVLMForGrounding``)."""
     model.eval()
     results: List[Dict] = []
-    for samples, rows in padded_batches(dataset, batch_size):
+    for samples, rows in padded_batches(dataset, batch_size, host_id, num_hosts):
         image, ids, atts = (torch.from_numpy(np.stack([s[k] for s in rows])).to(device)
                             for k in ("image", "text_ids", "text_atts"))
         coords = model.predict(image, ids, atts).cpu().numpy()

@@ -40,6 +40,7 @@ from typing import Callable, Dict, Iterator, Optional
 import torch
 from torch import nn
 
+from x2vlm_tpu_torch.core import mesh
 from x2vlm_tpu_torch.train.metrics import MetricLogger
 from x2vlm_tpu_torch.train.trainer import make_apply_grads, make_grad_fn
 
@@ -79,11 +80,14 @@ class PretrainStreams:
 
 
 def step_generators(device, seed: int, step: int, stream: int):
-    """(negatives generator, dropout generator) of one stream at one step."""
+    """(negatives generator, dropout generator) of one stream at one step,
+    on this rank: each rank of a data-parallel run draws its own masks (the
+    rank in the seed's top bits; rank 0 draws what a single process does)."""
     gens = []
     for i in range(2):
         g = torch.Generator(device=device)
-        g.manual_seed(((seed * 1_000_003 + step) * 8 + stream) * 2 + i)
+        g.manual_seed(((seed * 1_000_003 + step) * 8 + stream) * 2 + i
+                      + (mesh.process_index() << 48))
         gens.append(g)
     return tuple(gens)
 

@@ -9,8 +9,10 @@ evaluation:71-168, itm_eval:171-215).
   texts = 1024 fusion rows a call at the defaults;
 - ``itm_eval`` turns the two score matrices into R@1/5/10 both ways.
 
-On one card each call scores all rows; the JAX package's row-sharded
-multi-host merge comes with ROADMAP item A4.
+At world N each rank reranks its contiguous share of the query rows
+(``n // N + 1`` a rank, ``-100`` elsewhere) and the ranks' matrices are
+all-gathered and merged by row ownership (``merge_row_sharded``), as the
+JAX package's multi-host rerank.
 """
 
 from __future__ import annotations
@@ -21,7 +23,11 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-__all__ = ["encode_corpus", "retrieval_scores", "itm_eval", "evaluate_retrieval"]
+from x2vlm_tpu_torch.core import mesh
+from x2vlm_tpu_torch.tasks.finetune import host_range
+
+__all__ = ["encode_corpus", "retrieval_scores", "merge_row_sharded", "itm_eval",
+           "evaluate_retrieval"]
 
 
 def _pad_rows(arr: np.ndarray, size: int) -> np.ndarray:
@@ -63,10 +69,12 @@ def encode_corpus(model, dataset, *, device, batch_images: int = 64, batch_texts
 
 @torch.inference_mode()
 def retrieval_scores(model, img_embeds, img_feats, txt_embeds, txt_feats, txt_atts, *,
-                     k_test: int, rerank_rows: int = 8):
+                     k_test: int, rerank_rows: int = 8, host_id: int = 0, num_hosts: int = 1):
     """Two-stage scores: (score_i2t (n_img, n_txt), score_t2i (n_txt, n_img))
     as numpy, -100 at the entries outside each row's top ``k_test``. The
-    last block of rows is padded with its last row, as the JAX package's."""
+    last block of rows is padded with its last row, as the JAX package's.
+    With ``num_hosts`` > 1 this rank scores its share of the rows
+    (``host_range``) and every rank returns the merged matrices."""
     n_img, n_txt = img_feats.shape[0], txt_feats.shape[0]
     k_i2t, k_t2i = min(k_test, n_txt), min(k_test, n_img)
     sims = img_feats @ txt_feats.t()      # (n_img, n_txt) fp32
@@ -76,8 +84,9 @@ def retrieval_scores(model, img_embeds, img_feats, txt_embeds, txt_feats, txt_at
         return topk, pairs(topk).reshape(-1, k)
 
     def score_block(query_embeds_fn, scores, sims_q, k, n_q):
-        for r0 in range(0, n_q, rerank_rows):
-            rows = np.arange(r0, min(r0 + rerank_rows, n_q))
+        share = host_range(n_q, host_id, num_hosts)
+        for r0 in range(share.start, share.stop, rerank_rows):
+            rows = np.arange(r0, min(r0 + rerank_rows, share.stop))
             rows_p = np.concatenate([rows, np.full(rerank_rows - len(rows), rows[-1])])
             idx = torch.from_numpy(rows_p).to(sims_q.device)
             topk, score = rerank(sims_q.index_select(0, idx), k,
@@ -102,7 +111,21 @@ def retrieval_scores(model, img_embeds, img_feats, txt_embeds, txt_feats, txt_at
     score_block(i2t_pairs, score_i2t, sims, k_i2t, n_img)
     score_t2i = np.full((n_txt, n_img), -100.0, np.float32)
     score_block(t2i_pairs, score_t2i, sims.t().contiguous(), k_t2i, n_txt)
+    if num_hosts > 1:
+        score_i2t = merge_row_sharded(mesh.all_gather_array(score_i2t), num_hosts)
+        score_t2i = merge_row_sharded(mesh.all_gather_array(score_t2i), num_hosts)
     return score_i2t, score_t2i
+
+
+def merge_row_sharded(gathered: np.ndarray, num_hosts: int) -> np.ndarray:
+    """The ranks' score matrices (num_hosts, n, m) merged by row ownership:
+    rank h's rows are ``host_range(n, h, num_hosts)``."""
+    merged = np.empty_like(gathered[0])
+    n = merged.shape[0]
+    for h in range(num_hosts):
+        rows = host_range(n, h, num_hosts)
+        merged[rows.start:rows.stop] = gathered[h, rows.start:rows.stop]
+    return merged
 
 
 def itm_eval(scores_i2t: np.ndarray, scores_t2i: np.ndarray, txt2img: Dict[int, int],
@@ -126,15 +149,18 @@ def itm_eval(scores_i2t: np.ndarray, scores_t2i: np.ndarray, txt2img: Dict[int, 
 
 
 def evaluate_retrieval(model, dataset, *, device, k_test: int = 128, batch_images: int = 64,
-                       batch_texts: int = 256, rerank_rows: int = 8) -> Dict[str, float]:
-    """Encode, score and rank ``dataset``; the metrics of :func:`itm_eval`
-    and ``eval_seconds`` (wall time, the card synchronised at the end)."""
+                       batch_texts: int = 256, rerank_rows: int = 8, host_id: int = 0,
+                       num_hosts: int = 1) -> Dict[str, float]:
+    """Encode, score (row-sharded over ``num_hosts`` ranks, merged) and
+    rank ``dataset``; the metrics of :func:`itm_eval` and ``eval_seconds``
+    (wall time, the card synchronised at the end)."""
     was_training = model.training
     model.eval()
     t0 = time.time()
     enc = encode_corpus(model, dataset, device=device, batch_images=batch_images,
                         batch_texts=batch_texts)
-    s_i2t, s_t2i = retrieval_scores(model, *enc, k_test=k_test, rerank_rows=rerank_rows)
+    s_i2t, s_t2i = retrieval_scores(model, *enc, k_test=k_test, rerank_rows=rerank_rows,
+                                    host_id=host_id, num_hosts=num_hosts)
     metrics = itm_eval(s_i2t, s_t2i, dataset.txt2img, dataset.img2txt)
     metrics["eval_seconds"] = round(time.time() - t0, 2)
     model.train(was_training)

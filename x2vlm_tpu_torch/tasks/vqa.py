@@ -16,8 +16,8 @@ __all__ = ["evaluate_vqa"]
 @torch.inference_mode()
 def evaluate_vqa(model, dataset, answer_list: List[str], answer_ids: np.ndarray,
                  answer_atts: np.ndarray, *, device, k_test: int = 128,
-                 batch_size: int = 32) -> List[Dict]:
-    """[{question_id, answer}] for every line of ``dataset``: each
+                 batch_size: int = 32, host_id: int = 0, num_hosts: int = 1) -> List[Dict]:
+    """[{question_id, answer}] for rank ``host_id``'s share of ``dataset``'s lines: each
     question's best answer of ``model.predict`` over the tokenised answer
     list, the ``min(k_test, len(answer_list))`` best first-token answers
     reranked. Each call has ``batch_size`` questions, the last padded with
@@ -27,7 +27,7 @@ def evaluate_vqa(model, dataset, answer_list: List[str], answer_ids: np.ndarray,
     ans_ids = torch.as_tensor(answer_ids).long().to(device)
     ans_atts = torch.as_tensor(answer_atts).to(device)
     results: List[Dict] = []
-    for samples, rows in padded_batches(dataset, batch_size):
+    for samples, rows in padded_batches(dataset, batch_size, host_id, num_hosts):
         batch = {key: torch.from_numpy(np.stack([s[key] for s in rows])).to(device)
                  for key in ("image", "question_ids", "question_atts")}
         batch["question_ids"] = batch["question_ids"].long()

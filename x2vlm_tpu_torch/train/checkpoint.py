@@ -61,6 +61,7 @@ them back bit for bit.
 from __future__ import annotations
 
 import collections
+import io
 import math
 import os
 import re
@@ -70,7 +71,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from x2vlm_tpu_torch.core.io import hopen
+from x2vlm_tpu_torch.core import mesh
+from x2vlm_tpu_torch.core.io import hopen, is_remote
 
 __all__ = ["load_torch_checkpoint", "interp_rel_pos_table", "resize_swin_rel_pos_table",
            "convert_beit2_checkpoint", "convert_clip_vit_checkpoint", "convert_swin_checkpoint",
@@ -84,9 +86,15 @@ TRAIN_STATE_FILE = "train_state.pt"
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     """A ``.th`` / ``.pth`` file's state dict on the CPU: the
     ``{'model': ...}`` / ``{'module': ...}`` / ``{'state_dict': ...}``
-    container unwrapped and ``module.`` prefixes dropped."""
-    with hopen(path, "rb") as f:
-        ckpt = torch.load(f, map_location="cpu", weights_only=False)
+    container unwrapped and ``module.`` prefixes dropped. A remote
+    (``hdfs://``, ``gs://``) path streams through ``hopen``'s pipe into
+    memory first (reference utils/torch_io.py:14-23)."""
+    if is_remote(path):
+        with hopen(path, "rb") as reader:
+            f = io.BytesIO(reader.read())
+    else:
+        f = path
+    ckpt = torch.load(f, map_location="cpu", weights_only=False)
     for key in ("model", "module", "state_dict"):
         if isinstance(ckpt, dict) and key in ckpt and isinstance(ckpt[key], dict):
             ckpt = ckpt[key]
@@ -545,18 +553,24 @@ def import_report(model: nn.Module, missing: List[str], unexpected: List[str],
 def save_train_state(ckpt_dir: str, model: nn.Module, optimizer, step: int,
                      data_state: Optional[Dict] = None) -> str:
     """Write the train state to ``ckpt_dir/train_state.pt`` (a temporary
-    file renamed into place). Returns the path."""
-    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
-    state = {"params": params,
-             "mu": {n: m.detach().cpu() for n, m in zip(optimizer.names, optimizer.mu)},
-             "nu": {n: v.detach().cpu() for n, v in zip(optimizer.names, optimizer.nu)},
-             "count": int(optimizer.count), "step": int(step),
-             "data_state": data_state or {}}
-    os.makedirs(ckpt_dir, exist_ok=True)
+    file renamed into place). Returns the path. Every rank calls it: the
+    moments of an ``--fsdp`` split are gathered whole first, the main
+    process alone writes, and every rank waits at a barrier until the file
+    is in place."""
+    mu, nu = optimizer.full_moments()
     path = os.path.join(ckpt_dir, TRAIN_STATE_FILE)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(state, tmp)
-    os.replace(tmp, path)
+    if mesh.is_main_process():
+        params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        state = {"params": params,
+                 "mu": {n: m.detach().cpu() for n, m in zip(optimizer.names, mu)},
+                 "nu": {n: v.detach().cpu() for n, v in zip(optimizer.names, nu)},
+                 "count": int(optimizer.count), "step": int(step),
+                 "data_state": data_state or {}}
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(state, tmp)
+        os.replace(tmp, path)
+    mesh.barrier()
     return path
 
 
@@ -564,8 +578,9 @@ def save_train_state(ckpt_dir: str, model: nn.Module, optimizer, step: int,
 def restore_train_state(ckpt_dir: str, model: nn.Module, optimizer
                         ) -> Tuple[Optional[int], Dict]:
     """Put the saved train state back into ``model`` and ``optimizer`` in
-    place. Returns (step, data_state), or (None, {}) when ``ckpt_dir`` holds
-    none."""
+    place, on every rank (an ``--fsdp`` split takes its slices of the
+    whole moments, so a state loads at any world size). Returns (step,
+    data_state), or (None, {}) when ``ckpt_dir`` holds none."""
     path = os.path.join(ckpt_dir, TRAIN_STATE_FILE)
     if not os.path.isfile(path):
         return None, {}
@@ -576,8 +591,6 @@ def restore_train_state(ckpt_dir: str, model: nn.Module, optimizer
                          f"({len(set(state['params']) ^ set(params))} names differ)")
     for n, t in state["params"].items():
         params[n].copy_(t)
-    for dst, key in ((optimizer.mu, "mu"), (optimizer.nu, "nu")):
-        for n, buf in zip(optimizer.names, dst):
-            buf.copy_(state[key][n])
+    optimizer.load_moments(state["mu"], state["nu"])
     optimizer.count = int(state["count"])
     return int(state["step"]), dict(state.get("data_state") or {})

@@ -14,6 +14,19 @@ chain computes it, in this order:
    update has lr = 0;
 6. the temperature is projected into [0.001, 0.5] after the update.
 
+``--fsdp N`` (:meth:`AdamW.shard`, the counterpart of
+x2vlm_tpu/parallel/partition.py) is a ZeRO split of the moments and the
+update over the N ranks of an fsdp group: each leaf of at least
+``min_size`` (2^16) elements with a dimension that N divides (the largest
+such, as ``_leaf_spec``) keeps only its rank's slice of ``mu`` / ``nu``,
+each rank updates only that slice of the parameter, and the group
+all-gathers the slices back into the whole parameter; smaller leaves and
+scalars stay whole on every rank. The gradient the slice reads is the
+all-reduced, clipped global one, and every update is elementwise, so a
+sharded step computes what the whole one does. A saved train state holds
+the whole moments (:meth:`AdamW.full_moments`) and loads at any world size
+(:meth:`AdamW.load_moments`).
+
 The decay mask follows the JAX names leaf for leaf: no decay on biases,
 LayerNorm scales, LayerScale gammas, ``temp``, ``cls_token``, relative
 position tables, the vision towers' position tables (ViT's ``pos_embed``,
@@ -26,12 +39,15 @@ leaf is ``embedding``), and so is the resampler's ``time_pos_emb``.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
-__all__ = ["AdamW", "create_optimizer", "is_no_decay", "lr_schedule", "param_labels"]
+__all__ = ["AdamW", "create_optimizer", "is_no_decay", "lr_schedule", "param_labels",
+           "shard_dim"]
 
 
 def lr_schedule(base_lr: float, total_steps: int, warmup_steps: float = 0,
@@ -99,6 +115,19 @@ def param_labels(named_params: Iterable[Tuple[str, torch.Tensor]], fusion_layer:
     return labels
 
 
+def shard_dim(shape, size: int, min_size: int = 2 ** 16) -> Optional[int]:
+    """The dimension a leaf of ``shape`` is split along over ``size``
+    ranks, or None to keep it whole (the JAX ``_leaf_spec``: the largest
+    dimension that ``size`` divides, for leaves of ``min_size`` elements or
+    more)."""
+    if size <= 1 or math.prod(shape) < min_size:
+        return None
+    for i in sorted(range(len(shape)), key=lambda i: -shape[i]):
+        if shape[i] % size == 0 and shape[i] >= size:
+            return i
+    return None
+
+
 class AdamW:
     """The optax chain of the module doc over named parameters, updated in
     place with ``torch._foreach`` ops per (decay, group scale) group.
@@ -128,11 +157,57 @@ class AdamW:
         temp = [i for i, n in enumerate(self.names)
                 if n.rsplit(".", 1)[-1] == "temp" and self.params[i].dim() == 0]
         self.temp_index = temp[0] if temp else None
+        # (dim, start, length) of this rank's slice of each leaf; None: whole
+        self.slices: List[Optional[Tuple[int, int, int]]] = [None] * len(self.params)
+        self.group, self.group_size = None, 1
+
+    def shard(self, group, rank: int, size: int, min_size: int = 2 ** 16) -> None:
+        """Keep only rank ``rank``'s slice of the moments of each leaf that
+        :func:`shard_dim` splits over the ``size`` ranks of ``group``; the
+        update then runs on those slices and the group all-gathers them
+        (module doc). Call before the first step."""
+        self.group, self.group_size = group, size
+        for i, p in enumerate(self.params):
+            dim = shard_dim(tuple(p.shape), size, min_size)
+            if dim is None:
+                continue
+            n = p.shape[dim] // size
+            self.slices[i] = (dim, rank * n, n)
+            self.mu[i] = self.mu[i].narrow(dim, rank * n, n).clone()
+            self.nu[i] = self.nu[i].narrow(dim, rank * n, n).clone()
+
+    def _local(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each whole leaf's slice that this rank updates (views)."""
+        return [t if s is None else t.narrow(*s) for t, s in zip(tensors, self.slices)]
+
+    def _gather(self, local: torch.Tensor, dim: int) -> torch.Tensor:
+        parts = [torch.empty_like(local) for _ in range(self.group_size)]
+        dist.all_gather(parts, local.contiguous(), group=self.group)
+        return torch.cat(parts, dim)
+
+    @torch.no_grad()
+    def full_moments(self) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """(mu, nu) of the whole leaves; with :meth:`shard`, gathered over
+        the group (every rank of it must call)."""
+        out = ([], [])
+        for i, s in enumerate(self.slices):
+            for dst, src in zip(out, (self.mu, self.nu)):
+                dst.append(src[i] if s is None else self._gather(src[i], s[0]))
+        return out
+
+    @torch.no_grad()
+    def load_moments(self, mu: Dict[str, torch.Tensor], nu: Dict[str, torch.Tensor]) -> None:
+        """Put whole moments (name -> tensor) back, each rank its slice."""
+        for i, n in enumerate(self.names):
+            s = self.slices[i]
+            for dst, src in ((self.mu, mu[n]), (self.nu, nu[n])):
+                dst[i].copy_(src if s is None else src.narrow(*s))
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
         g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        grads = self._local(grads)
         if self.clip is not None:
             trigger = g_norm < self.clip
             one = torch.ones_like(g_norm)
@@ -147,8 +222,9 @@ class AdamW:
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_add_(self.nu, torch._foreach_mul(torch._foreach_mul(grads, grads),
                                                         1.0 - b2))
+        params = self._local(self.params)
         for (decay, scale), idx in self.groups:
-            ps = [self.params[i] for i in idx]
+            ps = [params[i] for i in idx]
             den = torch._foreach_div([self.nu[i] for i in idx], bc2)
             torch._foreach_sqrt_(den)
             torch._foreach_add_(den, self.eps)
@@ -164,6 +240,9 @@ class AdamW:
                     p = self.params[i]
                     ui.copy_((p + ui).clamp(0.001, 0.5) - p)
             torch._foreach_add_(ps, u)
+        for p, s in zip(self.params, self.slices):
+            if s is not None:
+                p.copy_(self._gather(p.narrow(*s), s[0]))
         return g_norm
 
 

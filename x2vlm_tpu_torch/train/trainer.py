@@ -7,6 +7,18 @@ the JAX ``make_grad_fn`` / ``make_apply_grads`` sum their gradient trees.
 The multi-stream step of pretraining takes one part per stream, weighted by
 its ``iter_perc``.
 
+Data parallelism (core/mesh.py): each rank runs the parts on its own rows
+inside ``mesh.data_parallel``, where the losses see the global batch, and
+:func:`make_apply_grads` replaces every ``.grad`` by its mean over the
+ranks before the optimizer's clip, so the clip and the update see the
+global gradient, as in the JAX step. The all-reduce is explicit (flat
+buckets, ``mesh.all_reduce_grads``), not DDP's hooks: a step runs one
+backward per stream and microbatch into the same ``.grad``, and the
+streams leave different parameters unused (the bbox head off the region
+stream, the vision tower on the text streams), so one reduce after the
+last backward is both the cheaper and the simpler schedule. The returned
+losses are their means over the ranks, the global-batch values.
+
 ``make_train_step(model, optimizer)`` returns ``step(batch, generator,
 dropout_generator) -> metrics`` for one stream. ``generator`` draws the ITM
 hard negatives and ``dropout_generator`` every dropout mask, so a step is
@@ -37,6 +49,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 from torch import nn
 
+from x2vlm_tpu_torch.core import mesh
 from x2vlm_tpu_torch.train.optim import AdamW
 
 __all__ = ["make_train_step", "make_grad_fn", "make_apply_grads", "split_batch"]
@@ -69,22 +82,35 @@ def make_grad_fn(model: nn.Module, *, loss_weights: Optional[Dict[str, float]] =
                 dropout_generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
         model.train()
-        losses = model(batch, generator, dropout_generator, **kwargs)
-        total = loss_scale * _total_loss(losses, loss_weights)
-        total.backward()
+        with mesh.data_parallel():
+            losses = model(batch, generator, dropout_generator, **kwargs)
+            total = loss_scale * _total_loss(losses, loss_weights)
+            total.backward()
         out = {k: v.detach().float() for k, v in losses.items()}
         out["loss_total"] = total.detach()
-        return out
+        return _rank_mean(out)
 
     return grad_fn
 
 
+def _rank_mean(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The scalars' means over the ranks (one all-reduce); at world 1 as
+    they are."""
+    world = mesh.process_count()
+    if world == 1:
+        return metrics
+    stacked = torch.stack([metrics[k] for k in metrics])
+    torch.distributed.all_reduce(stacked)
+    return dict(zip(metrics, (stacked / world).unbind()))
+
+
 def make_apply_grads(optimizer: AdamW) -> Callable[[], torch.Tensor]:
     """``apply_grads()``: one optimizer step over the summed ``.grad`` of
-    the streams, which it then clears for the next step. Returns the
-    pre-clip gradient norm."""
+    the streams, averaged over the ranks first, which it then clears for
+    the next step. Returns the pre-clip gradient norm."""
 
     def apply_grads() -> torch.Tensor:
+        mesh.all_reduce_grads(optimizer.params)
         g_norm = optimizer.step()
         for p in optimizer.params:
             p.grad = None
