@@ -155,8 +155,9 @@ Phases (any failure exits non-zero and prints no result line):
    (resized to 768 by the transforms), a written answer list of 3,000
    answers and question lines (train: 10 human answers or a ``weight``
    field; test: half with 10 human answers, half with one), cut to 2
-   epochs of 2 steps, the eval of 64 questions (two calls) after the last;
-   then ``--resume`` from the state saved at step 2. Checked: finite
+   epochs of 2 steps, the eval of 64 questions (two calls) after the last
+   (its ``--resume`` held on the CPU, ``tests/test_torch_vqa_data.py``).
+   Checked: finite
    losses, ``overall`` and ``acc``, ``vqa_result.json``; the import (only
    the decoder fresh; the table interpolated 14 -> 48); the launches of
    each step (12 of each flash kernel at B=8, S=2305; tiny forward and
@@ -165,9 +166,7 @@ Phases (any failure exits non-zero and prints no result line):
    eval call (12 flash forwards at B=32; tiny 18 at 32 x 40 x 40, 6 at 32
    x 40 x 2312, 6 at 32 x 1 x 40 and 6 at 4096 x 10 x 40; 12 plain), every
    launch on the tensor-core route, the plain attention's calls exactly
-   those; the resumed state equal to the saved one and its batches (data
-   cursor, answer-cut rng) equal to the whole run's bit for bit; and the
-   fine-tuned weights on 2 questions with dropout off, card bf16 against
+   those; and the fine-tuned weights on 2 questions with dropout off, card bf16 against
    the port's CPU fp32 path: ``loss_vqa`` within 0.05 + 2%, gradient
    cosines >= 0.99 (the vision tower, a fusion layer, a decoder layer, the
    decoder head), each bf16 40 x 2312 forward and backward call within
@@ -241,10 +240,28 @@ Phases (any failure exits non-zero and prints no result line):
    list), 2 epochs of 2 steps and an eval of 32 videos, each step (12 of
    each flash kernel at 40 frames, tiny 18 at 8 x 40 x 40 and 6 at 8 x 40 x
    200) and eval call (12 flash at 80 frames, tiny 18 + 6 at 16 rows)
-   read, no plain attention, ``--resume`` from step 2 restoring the state
-   and the batches bit for bit, and (c) the fine-tuned weights on 2 videos,
+   read, no plain attention (its ``--resume`` held on the CPU), and (c)
+   the fine-tuned weights on 2 videos,
    card bf16 against CPU fp32 (``loss_cls``, logits, gradient cosines, each
-   40 x 200 call). Train states go to ``/dev/shm``;
+   40 x 200 call); then on 13b's videos (d) ``--task video_retrieval`` and
+   (e) ``--task next_qa_mc`` with ``vqa_msrvtt_base.yaml``'s model from
+   13a's ``.th``: (d) ``pick_best_t2v``, ``k_test`` 16 over 32 test videos
+   (the cut: the YAML's 128 would rank them all), a step 12 of each flash
+   kernel at 40 frames, tiny 12 at 8 x 40 x 40, 6 at 24 x 40 x 40 and 24 x
+   40 x 200 (the ITM pass), its eval 24 flash at 80 frames, tiny 12 at 256
+   x 40 x 40 and 48 each at 128 x 40 x 40 and 128 x 40 x 200 (8 rerank
+   calls of 8 rows x 16); (e) through the Perceiver resampler
+   (``video_encoding: resampler``, depth 2, 64 latents: its attention on
+   the plain core, 2 calls a forward at (videos x 5) x 64 x 261, the only
+   plain calls), 5 options a question: a step tiny 18 at 40 x 40 x 40 and 6
+   at 40 x 40 x 64 (the cross-attention over the latents), an eval call the
+   same at 80 rows; one epoch of 2 steps and its eval each, and a hold on 2
+   videos (the losses, the head's outputs and the losses' gradients at
+   them, each 40 x 200 / 40 x 64 call; the losses' parameter gradients at
+   cosine 0.99, or term by term by the head's rows, as phase 19's ITM head,
+   where only those rows reach them: the rows' terms may nearly cancel;
+   the gradients of the VJP of seeded cotangents on the losses' outputs at
+   cosine 0.99). Train states go to ``/dev/shm``;
 14. the Plus / CCLM base at 224 px (BEiT-2-base, XLM-R-base's 12 layers
    over 64-token texts and a 250,002-row vocabulary, a 6-layer cross
    encoder): the launcher's ``--task pretrain`` on
@@ -256,8 +273,9 @@ Phases (any failure exits non-zero and prints no result line):
    its region lines (monolingual: the shipped region block sets no
    ``languages``) and 256 written parallel lines; the image block (128
    images), the region block (128 rows over 50 images) and the
-   parallel-text block (128 pairs of 64 tokens) as shipped; 2 steps, then
-   ``--resume`` from the state of step 1. Checked: the import (XLM-R and
+   parallel-text block (128 pairs of 64 tokens) as shipped; 2 steps (the
+   ``--resume`` held on the CPU, ``tests/test_torch_multilingual.py``).
+   Checked: the import (XLM-R and
    the MLM decoder bias fresh, nothing unexpected), finite losses of the
    three streams, the launches of the run and of each stream call (image:
    12 of each flash kernel at B=128, tiny 30 at 128 x 64 x 64, 6 at 384 x
@@ -275,7 +293,11 @@ Phases (any failure exits non-zero and prints no result line):
    CUDA-event and wall ms and peak memory are printed;
 15. the IGLUE tasks on the Plus base at 384 px: the launcher's ``--task
    xvnli``, ``marvl``, ``xgqa``, ``wit`` and ``xflickrco`` on the five
-   shipped ``configs/finetune/*_cclm_base.yaml`` at their own sizes (16
+   shipped ``configs/finetune/*_cclm_base.yaml``, and ``--task xretrieval``
+   (XRetrieval's JSON annotations at 40 tokens on ``xflickrco_cclm_base
+   .yaml``'s model: a step tiny 12 at 16 x 40 x 40, 6 at 48 x 40 x 40 and
+   48 x 40 x 584, key-tiled; its eval over 128 test images the rerank's 32
+   calls of 1,024 rows on K5), at their own sizes (16
    rows a step, 32 an eval call, k_test 128; 40 tokens, WIT's and
    xFlickrCO's 80; xGQA's 6-layer RoBERTa-form decoder over 10-token
    answers), each from phase 14's Plus train state (``--checkpoint <dir>``,
@@ -286,8 +308,8 @@ Phases (any failure exits non-zero and prints no result line):
    xGQA's lists of 1,000 answers (one language's a [path, list] pair), 128
    test lines a language for WIT and xFlickrCO so the rerank takes 128
    candidates both ways. 2 steps and the eval each;
-   xGQA in 2 epochs of a step, then ``--resume`` from step 1 (its restored
-   state and next batch bit for bit); XVNLI once more as ``--task
+   xGQA in 2 epochs of a step (its ``--resume`` held on the CPU,
+   ``tests/test_torch_iglue.py``); XVNLI once more as ``--task
    classification`` (its ``dataset_type``) under ``--fewshot de,16`` (a
    two-slot train template, a one-slot test template), one step and its
    eval. Checked: the import (only the task's head fresh), finite losses
@@ -301,7 +323,8 @@ Phases (any failure exits non-zero and prints no result line):
    language's eval 48 flash at B=32 and 396 plain), every plain call
    counted by shape; xGQA's rank pass at Q = 32, k = 128 timed with its
    peak memory (under the card's); then the fine-tuned weights of each head
-   family (retrieval at 80 tokens, NLVR2 / MARVL, XVNLI, xGQA) on 2 rows,
+   family (retrieval at 80 tokens and xretrieval's at 40, NLVR2 / MARVL,
+   XVNLI, xGQA) on 2 rows,
    card bf16 against CPU fp32: losses within 0.05 + 2%, logits and ITM
    scores within 0.05 + 5% of their scale, gradient cosines >= 0.99, each
    40 x 584 call within half the bf16 rule (none at 80 tokens), xGQA's
@@ -314,8 +337,8 @@ Phases (any failure exits non-zero and prints no result line):
    images, no remat) from ``--seed`` weights on phase 7's image and region
    lines, 2 steps, the state saved once at the end, in memory (its
    parameters, which the ``.th`` and the holds read); no
-   ``--resume`` (the code phases 7 and 10 hold bit for bit; a resume of
-   this model loads an ~11 GB state). Checked: finite losses, the launches
+   ``--resume`` (the code phase 24 holds bit for bit; a resume of this
+   model loads an ~11 GB state). Checked: finite losses, the launches
    of the run and of each stream call (image: 24 of each flash kernel at
    B=64, tiny 12 at 128 x 40 x 40, 6 at 256 x 40 x 40 and 256 x 40 x 200;
    region: 24 at 25 images, the same tiny and 6 at 64 x 40 x 40 and 64 x
@@ -444,7 +467,9 @@ the rest (``phase N seconds``). The card-against-CPU holds
 of phases 9-11 and 13-23 run in
 one spawned worker process (its own card context, kernel libraries and
 launch counters) beside the later phases; their readings are logged and
-their faults failed before the kernels line (``holds collected``).
+their faults failed before the kernels line (``holds collected``), this
+process taking the holds the worker has not started by then. The video
+data of phases 13 and 20 is written beside the build, with phase 7's.
 
 The 40 x 584 shapes of phases 8 and 9 (the fine-tune's 96-row ITM pass
 with dropout, the 1024- and 512-row rerank, grounding's 20-row bbox pass
@@ -527,6 +552,7 @@ launches.
 from __future__ import annotations
 
 import argparse
+import atexit
 import base64
 import collections
 import concurrent.futures
@@ -632,6 +658,12 @@ CAP_PROMPT, SCST_SAMPLES = 4, 5
 # video stream (40 videos x 3 frames)
 QA_VIDEOS, QA_FRAMES, QA_EVAL_VIDEOS = 8, 5, 16
 STREAM_VIDEOS, STREAM_FRAMES = 40, 3
+# phase 13d (video retrieval on that model): k_test, below its 32 test
+# videos; 13e (NExT-QA multiple choice): options a question, and the JAX
+# factory's Perceiver resampler (depth 2, 64 latents), a latent's keys its
+# frame's 197 tokens and the latents
+VIDEO_RET_K, MC_OPTIONS, RESAMPLER_LATENTS = 16, 5, 64
+RESAMPLED_KEYS = N_IMG + RESAMPLER_LATENTS
 # phase 14's CCLM cell (cclm_x2vlm_base.yaml): 64-token texts, the
 # parallel-text block's pairs a step, XLM-R's vocabulary
 CCLM_LEN, PARA_PAIRS, XLMR_VOCAB = 64, 128, 250002
@@ -777,24 +809,39 @@ def defer_hold(label: str, fn, *args) -> None:
     readings are logged and its faults failed under ``label`` by
     ``collect_holds``. A train state goes to ``fn`` as its file's path."""
     if HOLDS["pool"] is None:
-        HOLDS["pending"].append((label, None, _timed_hold(fn, *args)))
+        HOLDS["pending"].append((label, None, _timed_hold(fn, *args), fn, args))
     else:
-        HOLDS["pending"].append((label, HOLDS["pool"].submit(_timed_hold, fn, *args), None))
+        HOLDS["pending"].append((label, HOLDS["pool"].submit(_timed_hold, fn, *args), None,
+                                 fn, args))
 
 
 def collect_holds() -> float:
-    """Logs every deferred hold's readings (waiting for the worker) and fails
-    its faults; returns the seconds waited."""
+    """Logs every deferred hold's readings and fails its faults; returns the
+    seconds waited. With nothing else left to run, this process takes the
+    holds the worker has not started, from the last back, on the two cores
+    the worker leaves it, while the worker goes on from the front."""
     t = time.perf_counter()
-    for label, future, done in HOLDS["pending"]:
+    pending, taken = HOLDS["pending"], 0
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        for i in range(len(pending) - 1, -1, -1):
+            label, future, done, fn, args = pending[i]
+            if future is None or not future.cancel():
+                break
+            pending[i] = (label, None, _timed_hold(fn, *args), fn, args)
+            taken += 1
+    finally:
+        torch.set_num_threads(threads)
+    for label, future, done, _, _ in pending:
         r, faults, secs = future.result() if future is not None else done
         log(f"{label}: {json.dumps(r)} ({secs:.1f} s"
             f"{' in the holds worker' if future is not None else ''})")
         for msg in faults:
             fail(f"{label}: {msg}")
-    HOLDS["pending"].clear()
+    pending.clear()
     waited = time.perf_counter() - t
-    log(f"holds collected: {waited:.1f} s waited for the worker")
+    log(f"holds collected: {waited:.1f} s waited for the worker ({taken} taken here)")
     return waited
 
 
@@ -1269,7 +1316,21 @@ TINY_MAIN_SHAPES = (
      CCLM_LEN, 200, True, "region"),
     ("xGQA step decoder cross-attention", XGQA_ANSWERS, ANSWER_LEN, TEXT_LEN, True, "pad"),
     ("xGQA rank decoder cross-attention, a chunk at XLM-R's vocabulary", XGQA_RANK_CHUNK,
-     ANSWER_LEN, TEXT_LEN, False, "pad"))
+     ANSWER_LEN, TEXT_LEN, False, "pad"),
+    ("video retrieval step ITM fusion self-attention", 3 * QA_VIDEOS, TEXT_LEN, TEXT_LEN, True,
+     "pad"),
+    ("video retrieval step ITM fusion cross-attention", 3 * QA_VIDEOS, TEXT_LEN, 200, True,
+     "pad"),
+    ("NExT-QA step text / fusion self-attention, 5 options a video", QA_VIDEOS * MC_OPTIONS,
+     TEXT_LEN, TEXT_LEN, True, "pad"),
+    ("NExT-QA step fusion cross-attention over the resampled latents", QA_VIDEOS * MC_OPTIONS,
+     TEXT_LEN, RESAMPLER_LATENTS, True, "pad"),
+    ("NExT-QA eval text / fusion self-attention", QA_EVAL_VIDEOS * MC_OPTIONS, TEXT_LEN,
+     TEXT_LEN, False, "pad"),
+    ("NExT-QA eval fusion cross-attention over the resampled latents",
+     QA_EVAL_VIDEOS * MC_OPTIONS, TEXT_LEN, RESAMPLER_LATENTS, False, "pad"),
+    ("xretrieval step ITM fusion self-attention", 3 * IGLUE_BATCH, TEXT_LEN, TEXT_LEN, True,
+     "pad"))
 # the same at 16 heads (X2VLM-large). Phase 16's image stream (64 images) and
 # region stream (64 rows) share their shapes: the text pass over the clean and
 # masked rows (128), the ITM + MLM fusion pass (256; its cross-attention held
@@ -1797,7 +1858,8 @@ TILED_MAIN_SHAPES = (
     (SCST_ROWS, 2, N_KEYS_384, False, False, "SCST rollout step"),
     (SCST_ROWS, SCST_LEN, N_KEYS_384, True, True, "SCST step"),
     (VQA_BATCH, TEXT_LEN, N_KEYS_768, True, True, "VQA question fusion"),
-    (VQA_EVAL_BATCH, TEXT_LEN, N_KEYS_768, False, False, "VQA eval question fusion"))
+    (VQA_EVAL_BATCH, TEXT_LEN, N_KEYS_768, False, False, "VQA eval question fusion"),
+    (3 * IGLUE_BATCH, TEXT_LEN, N_KEYS_384, True, True, "xretrieval fine-tune ITM"))
 # the same walk at 16 heads: phase 17's VQA microbatch (8 questions) and eval
 # call (32); phase 22's grounding step (20 rows) and eval call (32), phase
 # 23's FG-free captioning step (16 x 58: the first training shape whose
@@ -4196,7 +4258,6 @@ VQA_EPOCHS = 2                       # 2 steps an epoch: 4 steps, a save after s
 N_VQA_TRAIN = 2 * VQA_BATCH          # train questions: 2 steps an epoch
 N_VQA_EVAL = 2 * VQA_EVAL_BATCH      # test questions: 2 eval calls
 N_VQA_STEPS = VQA_EPOCHS * N_VQA_TRAIN // VQA_BATCH
-VQA_RESUME_STEP = N_VQA_TRAIN // VQA_BATCH   # --resume from the state saved after epoch 0
 
 
 def write_vqa_corpus(root: str, rng: np.random.Generator, words, n_images: int,
@@ -4385,13 +4446,10 @@ def vqa_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, image
     8's PNGs, cut to 2 epochs of 2 steps with the eval after the last, from
     phase 7's ``.th`` (rel-pos tables interpolated 14 -> 48, the decoder
     fresh): each step and eval call timed and its launches read; then
-    ``--resume`` from the state saved at step 2, whose restored state must
-    equal the saved one and whose batches (the data cursor and the
-    answer-cut rng) must equal the whole run's steps 3 and 4, bit for bit;
-    then ``vqa_hold`` on 2 questions. Returns the launches and those by
+    ``vqa_hold`` on 2 questions. Its ``--resume`` (the restored state and
+    the batches after it bit for bit) is held on the CPU
+    (``tests/test_torch_vqa_data.py``). Returns the launches and those by
     call."""
-    import hashlib
-
     from x2vlm_tpu_torch import run as run_mod
     from x2vlm_tpu_torch.data.factory import create_dataset
     from x2vlm_tpu_torch.data.finetune import vqa_collate
@@ -4412,14 +4470,11 @@ def vqa_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, image
     cfg_path = os.path.join(root, "vqa.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
-    out, out_resumed = os.path.join(root, "out_vqa"), os.path.join(root, "out_vqa_resumed")
+    out = os.path.join(root, "out_vqa")
     log(f"phase 10 data and config: {part_done('10', 'data', t0):.1f} s")
 
     imported, steps, evals, eval_walls = {}, [], [], []
-    batches = {"whole": [], "resumed": []}
-    run_name = ["whole"]
-    orig = {"load": ckpt_lib.load_reference_checkpoint, "save": ckpt_lib.save_train_state,
-            "step": run_mod.make_train_step, "to_device": run_mod.to_device,
+    orig = {"load": ckpt_lib.load_reference_checkpoint, "step": run_mod.make_train_step,
             "predict": XVLMForVQA.predict, "evaluate": vqa_mod.evaluate_vqa}
     timed = functools.partial(timed_call, args, smi)
     table_key = "vision_encoder.blocks.0.attn.relative_position_bias_table"
@@ -4438,17 +4493,6 @@ def vqa_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, image
                                bool(np.array_equal(got, want))]
         return imported["missing"], imported["unexpected"]
 
-    def save(ckpt_dir, model, optimizer, step, data_state=None):
-        path = orig["save"](ckpt_dir, model, optimizer, step, data_state)
-        if step == VQA_RESUME_STEP and ckpt_dir == os.path.join(out, "ckpt"):
-            orig["save"](os.path.join(out_resumed, "ckpt"), model, optimizer, step, data_state)
-        return path
-
-    def to_device(batch, device):
-        batches[run_name[0]].append({k: hashlib.sha256(np.ascontiguousarray(v)).hexdigest()
-                                     for k, v in batch.items()})
-        return orig["to_device"](batch, device)
-
     def make_step(model, optimizer, **kw):
         return timed(orig["step"](model, optimizer, **kw), steps,
                      "chip_smoke_vqa_step_profile.txt",
@@ -4462,9 +4506,7 @@ def vqa_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, image
 
     def patch(on: bool):
         ckpt_lib.load_reference_checkpoint = load if on else orig["load"]
-        ckpt_lib.save_train_state = save if on else orig["save"]
         run_mod.make_train_step = make_step if on else orig["step"]
-        run_mod.to_device = to_device if on else orig["to_device"]
         vqa_mod.evaluate_vqa = evaluate if on else orig["evaluate"]
         XVLMForVQA.predict = timed(orig["predict"], evals, "chip_smoke_vqa_eval_profile.txt",
                                    lambda i: bool(args.profile) and i == 0) \
@@ -4540,51 +4582,6 @@ def vqa_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, image
             sum(n for (b, sq, skv), n in tiny.items() if skv == N_KEYS_768):
         fail(f"vqa launcher: the 40 x {N_KEYS_768} launches are not all key-tiled: "
              f"{counts['tiny_walks']}")
-
-    # --resume from the state saved at step 2: restored bit for bit, and the
-    # batches of steps 3 and 4 those of the whole run
-    saved = torch.load(os.path.join(out_resumed, "ckpt", ckpt_lib.TRAIN_STATE_FILE),
-                       map_location="cpu", weights_only=False)
-    restored = {}
-    orig_restore = ckpt_lib.restore_train_state
-
-    def restore(ckpt_dir, model, optimizer):
-        result = orig_restore(ckpt_dir, model, optimizer)
-        copy = lambda t: t.detach().to("cpu", copy=True)   # the run goes on in place
-        restored.update(params={n: copy(p) for n, p in model.named_parameters()},
-                        mu=dict(zip(optimizer.names, map(copy, optimizer.mu))),
-                        nu=dict(zip(optimizer.names, map(copy, optimizer.nu))),
-                        count=optimizer.count)
-        return result
-
-    t2 = time.perf_counter()
-    run_name[0] = "resumed"
-    steps_before = len(steps)
-    ckpt_lib.restore_train_state = restore
-    patch(True)
-    try:
-        run_mod.main(argv + ["--output_dir", out_resumed, "--resume"])
-    finally:
-        patch(False)
-        ckpt_lib.restore_train_state = orig_restore
-    same = bool(restored) and saved["step"] == VQA_RESUME_STEP and \
-        restored["count"] == saved["count"] and all(
-            restored[part].keys() == saved[part].keys() and
-            all(torch.equal(restored[part][k], saved[part][k]) for k in saved[part])
-            for part in ("params", "mu", "nu"))
-    same_batches = batches["resumed"] == batches["whole"][VQA_RESUME_STEP:]
-    log(f"phase 10 --resume from step {saved['step']}: {part_done('10', 'resume', t2):.1f} s; "
-        f"restored state equal to the saved one bit for bit: {same}; its "
-        f"{len(batches['resumed'])} batches equal to the whole run's steps "
-        f"{VQA_RESUME_STEP + 1}-{N_VQA_STEPS} bit for bit: {same_batches} "
-        f"({len(steps) - steps_before} steps)")
-    if not same or not same_batches or len(steps) - steps_before != \
-            N_VQA_STEPS - VQA_RESUME_STEP:
-        fail("vqa launcher --resume: the restored state or the batches after it differ from "
-             "the whole run's")
-    del saved, restored
-    steps = steps[:steps_before]
-    evals = evals[:n_eval]
 
     # the fine-tuned weights on 2 questions, card bf16 against CPU fp32 (deferred)
     train_ds, test_ds = create_dataset("vqa", cfg, rng=random.Random(args.seed))
@@ -5486,7 +5483,6 @@ QA_EPOCHS = 2                        # 13b: 2 steps an epoch, a save after step 
 N_QA_TRAIN = 2 * QA_VIDEOS           # train questions: 2 steps an epoch
 N_QA_EVAL = 2 * QA_EVAL_VIDEOS       # test videos: 2 eval calls
 N_QA_STEPS = QA_EPOCHS * N_QA_TRAIN // QA_VIDEOS
-QA_RESUME_STEP = N_QA_TRAIN // QA_VIDEOS
 VISION_WIDTH = 768                   # BEiT-2-base: the frame positions' width
 
 
@@ -5512,6 +5508,30 @@ def write_video_corpus(path: str, rng: np.random.Generator, words, frames_key: s
             f.write(json.dumps(line) + "\n")
 
 
+def write_video_data(d: str, seed: int, words, parts=("13a", "13b", "20")) -> dict:
+    """The video data of 13a (``N_VIDEO_LINES`` stream lines), 13b (frame
+    directories, questions, answers: ``write_video_qa_corpus``'s tuple) and
+    phase 20 (its video lines and their recaptioned video-aux lines) under
+    ``d``, each from its phase's own seed; ``chip_smoke.py`` writes them
+    while the kernels build. Returns the paths by part."""
+    out = {}
+    if "13a" in parts:
+        out["13a"] = os.path.join(d, "videos.jsonl")
+        write_video_corpus(out["13a"], np.random.default_rng(seed + 13), words)
+    if "13b" in parts:
+        out["13b"] = write_video_qa_corpus(d, np.random.default_rng(seed + 14), words)
+    if "20" in parts:
+        rng = np.random.default_rng(seed + 20)
+        out["20"] = (os.path.join(d, "videos_large.jsonl"),
+                     os.path.join(d, "videos_large_aux.jsonl"))
+        write_video_corpus(out["20"][0], rng, words, frames_key="video_frames",
+                           caption_key="text")
+        with open(out["20"][0]) as fi, open(out["20"][1], "w") as fo:
+            for line in fi:
+                fo.write(json.dumps(dict(json.loads(line), text=caption(rng, words))) + "\n")
+    return out
+
+
 def video_stream_launches() -> dict:
     """The tiny launches of one video-stream step (forward and backward
     alike): the text pass over the 40 clean and 40 masked rows, the ITM +
@@ -5522,7 +5542,7 @@ def video_stream_launches() -> dict:
 
 
 def video_pretrain_phase(args, root: str, th_path: str, tok_dir: str, words, work: str, dev,
-                         smi: str = ""):
+                         smi: str = "", video_file=None):
     """13a: ``x2vlm_tpu_torch.run --task pretrain`` on the shipped stage-2
     video config from phase 7's ``.th`` (its frame positions fresh): the
     image stream as shipped (128 a step) on phase 7's lines, the region block as
@@ -5533,13 +5553,13 @@ def video_pretrain_phase(args, root: str, th_path: str, tok_dir: str, words, wor
     stream's calls timed and the video stream's launches read per call.
     Returns the path of the final weights exported as a reference-named
     ``.th``, those weights, the run's ``XVLMConfig`` and the launches of the
-    first run."""
+    first run. ``video_file``: the video lines, written earlier by
+    ``write_video_data`` (else here)."""
     from x2vlm_tpu_torch import run as run_mod
 
     t0 = time.perf_counter()
-    rng = np.random.default_rng(args.seed + 13)
-    video_file = os.path.join(work, "videos.jsonl")
-    write_video_corpus(video_file, rng, words)
+    if video_file is None:
+        video_file = write_video_data(work, args.seed, words, ("13a",))["13a"]
     shipped = shipped_config(STAGE2_CONFIG)
     cfg = dict(shipped, train_file=[os.path.join(root, "images.jsonl")],
                train_file_regions=[os.path.join(root, "regions.jsonl")],
@@ -5841,26 +5861,24 @@ def video_qa_hold(state, mcfg, samples, dev) -> tuple:
 
 
 def video_qa_phase(args, root: str, th13: str, tok_dir: str, words, work: str, dev,
-                   smi: str = "") -> dict:
+                   smi: str = "", corpus=None) -> dict:
     """13b: ``x2vlm_tpu_torch.run --task video_qa`` on the shipped
     ``vqa_msrvtt_base.yaml`` at its own sizes (8 videos x 5 frames a step,
     16 videos an eval call), data written under ``root``, from 13a's
     ``.th`` (its 3 frame positions into 5: the first three loaded, two
     fresh), 2 epochs of 2 steps and the eval of 32 videos after the last:
-    each step and eval call timed and its launches read; ``--resume`` from
-    the state saved at step 2, its restored state and the batches after it
-    equal to the whole run's bit for bit; then ``video_qa_hold`` on 2
-    videos. Returns the launches split by operands."""
-    import hashlib
-
+    each step and eval call timed and its launches read; then
+    ``video_qa_hold`` on 2 videos. Its ``--resume`` is held on the CPU
+    (``tests/test_torch_video_data.py``). Returns the launches split by
+    operands."""
     from x2vlm_tpu_torch import run as run_mod
     from x2vlm_tpu_torch.data.factory import create_dataset
     from x2vlm_tpu_torch.models import XVLMForClassification
     from x2vlm_tpu_torch.tasks import classification as cls_mod
 
     t0 = time.perf_counter()
-    rng = np.random.default_rng(args.seed + 14)
-    video_root, train, test, answers = write_video_qa_corpus(work, rng, words)
+    video_root, train, test, answers = corpus or write_video_data(
+        work, args.seed, words, ("13b",))["13b"]
     cfg = dict(shipped_config(VIDEO_QA_CONFIG), video_root=video_root, text_encoder=tok_dir,
                train_file=[train], test_file=[test], answer_list=answers,
                start_eval=QA_EPOCHS - 1)
@@ -5871,14 +5889,11 @@ def video_qa_phase(args, root: str, th13: str, tok_dir: str, words, work: str, d
     cfg_path = os.path.join(work, "video_qa.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
-    out, out_resumed = os.path.join(work, "out_video_qa"), os.path.join(work, "out_qa_resumed")
+    out = os.path.join(work, "out_video_qa")
     log(f"phase 13b data and config: {part_done('13b', 'data', t0):.1f} s")
 
     imported, steps, evals, eval_walls = {}, [], [], []
-    batches = {"whole": [], "resumed": []}
-    run_name = ["whole"]
-    orig = {"load": ckpt_lib.load_reference_checkpoint, "save": ckpt_lib.save_train_state,
-            "step": run_mod.make_train_step, "to_device": run_mod.to_device,
+    orig = {"load": ckpt_lib.load_reference_checkpoint, "step": run_mod.make_train_step,
             "predict": XVLMForClassification.predict,
             "evaluate": cls_mod.evaluate_classification}
     timed = functools.partial(timed_call, args, smi)
@@ -5894,17 +5909,6 @@ def video_qa_phase(args, root: str, th13: str, tok_dir: str, words, work: str, d
                               bool(torch.equal(got[:, STREAM_FRAMES:], fresh[:, STREAM_FRAMES:]))]
         return imported["missing"], imported["unexpected"]
 
-    def save(ckpt_dir, model, optimizer, step, data_state=None):
-        path = orig["save"](ckpt_dir, model, optimizer, step, data_state)
-        if step == QA_RESUME_STEP and ckpt_dir == os.path.join(out, "ckpt"):
-            orig["save"](os.path.join(out_resumed, "ckpt"), model, optimizer, step, data_state)
-        return path
-
-    def to_device(batch, device):
-        batches[run_name[0]].append({k: hashlib.sha256(np.ascontiguousarray(v)).hexdigest()
-                                     for k, v in batch.items()})
-        return orig["to_device"](batch, device)
-
     def make_step(model, optimizer, **kw):
         return timed(orig["step"](model, optimizer, **kw), steps,
                      "chip_smoke_video_step_profile.txt",
@@ -5918,9 +5922,7 @@ def video_qa_phase(args, root: str, th13: str, tok_dir: str, words, work: str, d
 
     def patch(on: bool):
         ckpt_lib.load_reference_checkpoint = load if on else orig["load"]
-        ckpt_lib.save_train_state = save if on else orig["save"]
         run_mod.make_train_step = make_step if on else orig["step"]
-        run_mod.to_device = to_device if on else orig["to_device"]
         cls_mod.evaluate_classification = evaluate if on else orig["evaluate"]
         XVLMForClassification.predict = timed(
             orig["predict"], evals, "chip_smoke_video_eval_profile.txt",
@@ -5990,53 +5992,9 @@ def video_qa_phase(args, root: str, th13: str, tok_dir: str, words, work: str, d
         {"tiny_fwd": dict(tiny),
          "tiny_bwd": {k: m * N_QA_STEPS for k, m in want_step["tiny_bwd"].items()}})
 
-    # --resume from the state saved at step 2
-    saved = torch.load(os.path.join(out_resumed, "ckpt", ckpt_lib.TRAIN_STATE_FILE),
-                       map_location="cpu", weights_only=False)
-    restored = {}
-    orig_restore = ckpt_lib.restore_train_state
-
-    def restore(ckpt_dir, model, optimizer):
-        result = orig_restore(ckpt_dir, model, optimizer)
-        copy = lambda t: t.detach().to("cpu", copy=True)
-        restored.update(params={n: copy(p) for n, p in model.named_parameters()},
-                        mu=dict(zip(optimizer.names, map(copy, optimizer.mu))),
-                        nu=dict(zip(optimizer.names, map(copy, optimizer.nu))),
-                        count=optimizer.count)
-        return result
-
-    t2 = time.perf_counter()
-    run_name[0] = "resumed"
-    steps_before = len(steps)
-    ckpt_lib.restore_train_state = restore
-    patch(True)
-    try:
-        run_mod.main(argv + ["--output_dir", out_resumed, "--resume"])
-    finally:
-        patch(False)
-        ckpt_lib.restore_train_state = orig_restore
-    same = bool(restored) and saved["step"] == QA_RESUME_STEP and \
-        restored["count"] == saved["count"] and all(
-            restored[part].keys() == saved[part].keys() and
-            all(torch.equal(restored[part][k], saved[part][k]) for k in saved[part])
-            for part in ("params", "mu", "nu"))
-    same_batches = batches["resumed"] == batches["whole"][QA_RESUME_STEP:]
-    log(f"phase 13b --resume from step {saved['step']}: {part_done('13b', 'resume', t2):.1f} s; "
-        f"restored state equal to the saved one bit for bit: {same}; its "
-        f"{len(batches['resumed'])} batches equal to the whole run's steps "
-        f"{QA_RESUME_STEP + 1}-{N_QA_STEPS} bit for bit: {same_batches} "
-        f"({len(steps) - steps_before} steps)")
-    if not same or not same_batches or len(steps) - steps_before != \
-            N_QA_STEPS - QA_RESUME_STEP:
-        fail("video qa launcher --resume: the restored state or the batches after it differ "
-             "from the whole run's")
-    del saved, restored
-    steps = steps[:steps_before]
-
     # 13c: the fine-tuned weights on 2 videos, card bf16 against CPU fp32 (deferred)
     state = load_params(os.path.join(out, "ckpt", ckpt_lib.TRAIN_STATE_FILE))
     shutil.rmtree(out, ignore_errors=True)
-    shutil.rmtree(out_resumed, ignore_errors=True)
     cfg["num_labels"] = N_QA_ANSWERS
     train_ds, _ = create_dataset("video_qa", cfg, rng=random.Random(args.seed))
     samples = [train_ds[0], train_ds[1]]
@@ -6051,29 +6009,290 @@ def video_qa_phase(args, root: str, th13: str, tok_dir: str, words, work: str, d
     return split_counts(counts, [r["delta"] for r in steps])
 
 
+VIDEO_TASK_PART = {"video_retrieval": "13d", "next_qa_mc": "13e"}
+
+
+def write_video_task_corpus(work: str, rng: np.random.Generator, words) -> dict:
+    """13d's and 13e's lines over 13b's videos (``video0`` ...): video
+    retrieval ``N_QA_TRAIN`` train lines (every third with two captions) and
+    ``N_QA_EVAL`` test lines of one caption, each video its own
+    ``video_id``; NExT-QA ``N_QA_TRAIN`` train and ``N_QA_EVAL`` test
+    questions of ``MC_OPTIONS`` options. Returns the paths by name."""
+    paths = {}
+
+    def dump(name, data):
+        paths[name] = os.path.join(work, name)
+        with open(paths[name], "w") as f:
+            json.dump(data, f)
+
+    def ret(v, train):
+        cap = [caption(rng, words), caption(rng, words)] if train and v % 3 == 0 \
+            else caption(rng, words)
+        return {"video": f"video{v}", "caption": cap, "video_id": f"video{v}"}
+
+    def mc(v):
+        return {"video": f"video{v}", "question": caption(rng, words, 4, 14),
+                "options": [caption(rng, words, 1, 6) for _ in range(MC_OPTIONS)],
+                "answer": int(rng.integers(MC_OPTIONS))}
+
+    dump("ret_train.json", [ret(v, True) for v in range(N_QA_TRAIN)])
+    dump("ret_test.json", [ret(v, False) for v in range(N_QA_EVAL)])
+    dump("mc_train.json", [mc(v) for v in range(N_QA_TRAIN)])
+    dump("mc_test.json", [mc(v) for v in range(N_QA_EVAL)])
+    return paths
+
+
+def video_task_launches(task: str, train: bool) -> dict:
+    """The attention launches of one step (8 videos) or eval call of 13d /
+    13e: 12 flash over the videos' 5 frames (S=197); 13d tiny at 40 x 40
+    (the 12 text layers; the ITM pass's 6 fusion self-attentions over 3 x 8
+    rows) and 40 x 200 (its 6 cross-attentions), its eval call the whole
+    two-stage eval (2 video calls of 16, the texts in one call of 256, 8
+    rerank calls of 8 rows x ``VIDEO_RET_K`` candidates); 13e tiny at 40 x
+    40 over the 5 (question, option) rows a video (12 text layers, 6 fusion
+    self-attentions) and 40 x 64 (the 6 cross-attentions over the 64
+    resampled latents), and the resampler's 2 latent attentions on the
+    plain core over each video frame (64 x 261). ``plain`` by (B, Sq,
+    Skv); the backward's tiny launches are the forward's."""
+    L = TEXT_LEN
+    if task == "video_retrieval":
+        if train:
+            B = QA_VIDEOS
+            tiny = {(B, L, L): 12, (3 * B, L, L): 6, (3 * B, L, 200): 6}
+            return {"flash_fwd": 12, "flash_bwd": 12, "tiny_fwd": tiny, "tiny_bwd": tiny,
+                    "plain": {}}
+        rerank = 2 * N_QA_EVAL // 8
+        rows = 8 * VIDEO_RET_K
+        return {"flash_fwd": 12 * N_QA_EVAL // QA_EVAL_VIDEOS, "flash_bwd": 0,
+                "tiny_fwd": {(256, L, L): 12, (rows, L, L): 6 * rerank,
+                             (rows, L, 200): 6 * rerank},
+                "tiny_bwd": {}, "plain": {}}
+    videos = QA_VIDEOS if train else QA_EVAL_VIDEOS
+    B = videos * MC_OPTIONS
+    tiny = {(B, L, L): 18, (B, L, RESAMPLER_LATENTS): 6}
+    return {"flash_fwd": 12, "flash_bwd": 12 if train else 0, "tiny_fwd": tiny,
+            "tiny_bwd": tiny if train else {},
+            "plain": {(videos * QA_FRAMES, RESAMPLER_LATENTS, RESAMPLED_KEYS): 2}}
+
+
+def video_task_names(task: str, cfg) -> tuple:
+    """13d's / 13e's gradients held to the CPU path: the vision tower (K2 /
+    K3, K4), the frame positions, a fusion layer's self- and
+    cross-attention (K6), the head; 13e's resampler too. Then those whose
+    loss gradient comes through the head's rows alone, held term by term:
+    13d's fusion layer and head (its ITC reaches the towers), all of 13e's."""
+    f = f"text_encoder.bert.encoder.layer.{cfg['text_fusion_start_at']}"
+    common = ("vision_encoder.blocks.0.attn.qkv.weight",
+              "vision_encoder.blocks.0.attn.relative_position_bias_table",
+              "absolute_frame_pos_embed", f"{f}.attention.self.query.weight",
+              f"{f}.crossattention.self.key.weight")
+    if task == "video_retrieval":
+        names = common + ("itm_head.0.weight", "itm_head.3.weight")
+        return names, tuple(k for k in names if k.startswith(("text_encoder.", "itm_head.")))
+    names = common + ("resampler.latents", "resampler.attn_0.to_q.weight",
+                      "resampler.ff1_1.weight", "mc_head.0.weight", "mc_head.3.weight")
+    return names, names
+
+
+def video_task_phase(args, task: str, th13: str, tok_dir: str, paths: dict, video_root: str,
+                     work: str, dev, smi: str = "") -> dict:
+    """13d (``task`` video_retrieval) or 13e (next_qa_mc):
+    ``x2vlm_tpu_torch.run --task <task>`` in process on
+    ``vqa_msrvtt_base.yaml``'s model (BEiT-2-base at 224 px, 5 frames with
+    their positions, the 18-layer BERT fusing from 12, 40 tokens, 8 videos a
+    step and 16 an eval call) with the task's own keys (13d:
+    ``pick_best_t2v``, ``k_test`` ``VIDEO_RET_K``; 13e: ``video_encoding:
+    resampler`` at the JAX factory's depth 2 and 64 latents, 5 options), on
+    13b's videos and ``write_video_task_corpus``'s lines, from 13a's
+    ``.th``: one epoch of 2 steps and its eval, each step and eval call timed
+    and its launches read against ``video_task_launches`` (13e's resampler
+    attention, counted by shape, the only plain calls); the state kept in
+    memory (``kept_params_save``), then ``iglue_hold`` on 2 videos deferred:
+    each bf16 40 x 200 / 40 x 64 call of both backward passes held; the
+    losses, the head's outputs and the losses' gradients there (p - y); the
+    losses' own parameter gradients, term by term by the head's rows where
+    only they reach (``video_task_names``; 13d's ITM rows, 13e's 5 options
+    of a video, whose terms may nearly cancel); the gradients of the VJP of
+    seeded cotangents on those outputs at cosine 0.99.
+    Returns the launches split into the steps' and the eval's."""
+    from x2vlm_tpu_torch import run as run_mod
+    from x2vlm_tpu_torch.data.factory import create_dataset
+    from x2vlm_tpu_torch.data.loader import collate
+    from x2vlm_tpu_torch.models import XVLMForMultipleChoice
+    from x2vlm_tpu_torch.tasks import retrieval as retrieval_mod
+
+    part, ret = VIDEO_TASK_PART[task], task == "video_retrieval"
+    t0 = time.perf_counter()
+    cfg = dict(shipped_config(VIDEO_QA_CONFIG), video_root=video_root, text_encoder=tok_dir)
+    del cfg["answer_list"], cfg["dataset_type"]
+    if ret:
+        cfg.update(train_file=[paths["ret_train.json"]], test_file=paths["ret_test.json"],
+                   pick_best_t2v=True, k_test=VIDEO_RET_K)
+    else:
+        cfg.update(train_file=[paths["mc_train.json"]], test_file=paths["mc_test.json"],
+                   video_encoding="resampler", num_options=MC_OPTIONS)
+    sizes = (cfg["batch_size"], cfg["batch_size_test"], cfg["frame_len"], cfg["image_res"],
+             cfg["embed_dim"], cfg["max_tokens"], cfg["add_frame_pos"])
+    if sizes != (QA_VIDEOS, QA_EVAL_VIDEOS, QA_FRAMES, 224, 256, TEXT_LEN, True):
+        fail(f"{task} launcher: the shipped config's sizes {sizes} changed")
+    cfg_path = os.path.join(work, f"{task}.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    part_done(part, "data", t0)
+
+    steps, evals, imported, kept, saves = [], [], {}, {}, []
+    orig = {"load": ckpt_lib.load_reference_checkpoint, "save": ckpt_lib.save_train_state,
+            "step": run_mod.make_train_step, "retrieval": retrieval_mod.evaluate_retrieval,
+            "predict": XVLMForMultipleChoice.predict}
+    timed = functools.partial(timed_call, args, smi)
+
+    def load(model, path):
+        imported["missing"], imported["unexpected"] = orig["load"](model, path)
+        imported["params"] = [n for n, _ in model.named_parameters()]
+        return imported["missing"], imported["unexpected"]
+
+    def make_step(model, optimizer, **kw):
+        return timed(orig["step"](model, optimizer, **kw), steps,
+                     f"chip_smoke_{task}_step_profile.txt",
+                     lambda i: bool(args.profile) and i == 1)
+
+    evaluator = timed(orig["retrieval"] if ret else orig["predict"], evals,
+                      f"chip_smoke_{task}_eval_profile.txt",
+                      lambda i: bool(args.profile) and i == 0)
+
+    def patch(on: bool):
+        ckpt_lib.load_reference_checkpoint = load if on else orig["load"]
+        ckpt_lib.save_train_state = kept_params_save(kept, saves) if on else orig["save"]
+        run_mod.make_train_step = make_step if on else orig["step"]
+        retrieval_mod.evaluate_retrieval = evaluator if on and ret else orig["retrieval"]
+        XVLMForMultipleChoice.predict = evaluator if on and not ret else orig["predict"]
+
+    argv = ["--task", task, "--config", cfg_path, "--checkpoint", th13, "--epoch", "1",
+            "--seed", str(args.seed), "--device", dev.type, "--output_dir",
+            os.path.join(work, f"out_{task}")]
+    t1 = time.perf_counter()
+    reset_counts()
+    patch(True)
+    try:
+        record = run_mod.main(argv)
+    finally:
+        patch(False)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    ms = lambda rs: [[round(r["ms"], 3), round(r["wall_ms"], 3)] for r in rs]  # noqa: E731
+    log(f"phase {part} {task} ({len(steps)} steps + eval): {part_done(part, 'run', t1):.1f} s; "
+        f"step ms at 224 px, {QA_VIDEOS} videos x {QA_FRAMES} frames (CUDA events, wall) "
+        f"{json.dumps(ms(steps))}, peak GiB {[round(r['peak_gib'], 2) for r in steps]}; eval "
+        f"calls ms {json.dumps(ms(evals))}, peak GiB {[round(r['peak_gib'], 2) for r in evals]}"
+        f"; {smi}; {json.dumps(record)}")
+
+    # the import: 13a's .th whole but the fresh head (13e: and the resampler)
+    missing, unexpected = imported.get("missing"), imported.get("unexpected", [])
+    fresh = () if ret else ("mc_head.", "resampler.")
+    leftover = ("text_encoder.cls.", "bbox_head.") + (
+        () if ret else ("vision_proj.", "text_proj.", "itm_head.", "temp"))
+    want_missing = sorted(k for k in imported.get("params", []) if k.startswith(fresh)) \
+        if fresh else []
+    log(f"phase {part} import of 13a's .th: missing {len(missing or [])} "
+        f"({sorted({'.'.join(k.split('.')[:2]) for k in missing or []})}), unexpected "
+        f"{sorted({'.'.join(k.split('.')[:2]) for k in unexpected})}")
+    if missing != want_missing or not unexpected or \
+            not all(k.startswith(leftover) for k in unexpected):
+        fail(f"{task} launcher import of {th13}: missing {missing}, unexpected {unexpected}")
+    keys = (("loss_itc", "loss_itm", "eval_img_r_mean", "eval_r_mean") if ret
+            else ("loss_cls", "eval_accuracy"))
+    n_evals = 1 if ret else N_QA_EVAL // QA_EVAL_VIDEOS
+    if not all(isinstance(record.get(k), float) and math.isfinite(record[k]) for k in keys) or \
+            len(steps) != N_QA_TRAIN // QA_VIDEOS or len(evals) != n_evals:
+        fail(f"{task} launcher: {len(steps)} steps, {len(evals)} eval calls, record {record}")
+    want = {True: video_task_launches(task, True), False: video_task_launches(task, False)}
+    frames = {True: QA_VIDEOS * QA_FRAMES, False: QA_EVAL_VIDEOS * QA_FRAMES}
+    for kind, calls, train in (("step", steps, True), ("eval call", evals, False)):
+        for i, r in enumerate(calls):
+            got = dict(r["launches"], plain=dict(r["delta"]["plain_shapes"]))
+            shapes = dict(r["delta"]["flash_fwd_shapes"])
+            if got != want[train] or shapes != {(frames[train], N_IMG, N_IMG):
+                                                want[train]["flash_fwd"]}:
+                fail(f"{task} launcher {kind} {i}: launches {got}, flash shapes {shapes}; "
+                     f"expected {want[train]} at {frames[train]} frames")
+    tiny, plain = collections.Counter(), collections.Counter()
+    for train, n in ((True, len(steps)), (False, len(evals))):
+        for shape, k in want[train]["tiny_fwd"].items():
+            tiny[shape] += k * n
+        for shape, k in want[train]["plain"].items():
+            plain[shape] += k * n
+    check_launcher_counts(
+        f"{task} launcher", counts,
+        sum(want[t]["flash_fwd"] * n for t, n in ((True, len(steps)), (False, len(evals)))),
+        12 * len(steps),
+        {"tiny_fwd": dict(tiny),
+         "tiny_bwd": {k: n * len(steps) for k, n in want[True]["tiny_bwd"].items()}},
+        n_plain=sum(plain.values()))
+    if dict(counts["plain_shapes"]) != dict(plain):
+        fail(f"{task} launcher: plain attention by shape {dict(counts['plain_shapes'])}, "
+             f"expected {dict(plain)}")
+    if counts["tiny_walks"]["tiny_attention_fwd"].get(TILED, 0):
+        fail(f"{task} launcher: key-tiled launches {counts['tiny_walks']}")
+    if not saves or kept.get("step") != len(steps):
+        fail(f"{task} launcher: {len(saves)} saves, the last at step {kept.get('step')}")
+
+    # 2 videos of the train set, the fine-tuned weights, card bf16 vs CPU fp32
+    th = time.perf_counter()
+    train_ds, _ = create_dataset(task, cfg, rng=random.Random(args.seed))
+    batch = {k: torch.from_numpy(np.asarray(v))
+             for k, v in collate([train_ds[0], train_ds[1]]).items()}
+    for k in ("text_ids", "option_ids", "labels", "idx"):
+        if k in batch:
+            batch[k] = batch[k].long()
+    family = "retrieval" if ret else "multiple_choice"
+    n_keys = 200 if ret else RESAMPLER_LATENTS
+    names, term_names = video_task_names(task, cfg)
+    defer_hold(f"phase {part} {task} card bf16 vs CPU fp32 (2 videos x {QA_FRAMES} frames, "
+               f"dropout off{', negatives injected' if ret else ''}; cosine: a seeded VJP at "
+               f"the losses' outputs, loss_cosine and row_terms: the losses' own)", iglue_hold,
+               family,
+               hold_state(kept.pop("params"), f"{task}.pt"), cfg, batch, dev, None,
+               names, n_keys, 6, args.seed + 17, term_names)
+    part_done(part, "hold", th)
+    phase_seconds(part, t0)
+    return split_counts(counts, [r["delta"] for r in steps])
+
+
 def video_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, dev,
-                         smi: str = "") -> dict:
-    """Phase 13: 13a, the stage-2 stream's hold on 2 videos (13c), then 13b.
-    Every file the phase writes (corpora, configs, train states, the
+                         smi: str = "", data=None) -> dict:
+    """Phase 13: 13a, the stage-2 stream's hold on 2 videos (13c), 13b, then
+    13d (video retrieval) and 13e (NExT-QA through the resampler) on 13b's
+    videos. Every file the phase writes (corpora, configs, train states, the
     ``.th``) goes to ``work_dir``: phases 7-12 write most of the call's
-    disk-write cap. Returns the launches of 13a's first run and of 13b, by
-    operands."""
+    disk-write cap. ``data``: 13a's and 13b's data written earlier by
+    ``write_video_data`` (else here). Returns the launches of 13a's first
+    run and of 13b, 13d and 13e, by operands."""
     work = work_dir(root, 24 * 2**30)
+    data = data or write_video_data(work, args.seed, words, ("13a", "13b"))
     try:
         th13, final, mcfg, pre = video_pretrain_phase(args, root, th_path, tok_dir, words,
-                                                      work, dev, smi)
+                                                      work, dev, smi, data["13a"])
         torch.cuda.empty_cache()
         defer_hold(f"phase 13c video stream card bf16 vs CPU fp32 (2 videos x {STREAM_FRAMES} "
                    f"frames, negatives injected, dropout off)", video_pretrain_hold,
                    hold_state(final, "video_pretrain.pt"), mcfg, dev)
         del final
-        qa = video_qa_phase(args, root, th13, tok_dir, words, work, dev, smi)
+        qa = video_qa_phase(args, root, th13, tok_dir, words, work, dev, smi, data["13b"])
+        torch.cuda.empty_cache()
+        # 13d and 13e on 13b's videos
+        paths = write_video_task_corpus(work, np.random.default_rng(args.seed + 16), words)
+        tasks = [video_task_phase(args, task, th13, tok_dir, paths, data["13b"][0], work, dev,
+                                  smi)
+                 for task in VIDEO_TASK_PART]
     finally:
         if work != root:
             shutil.rmtree(work, ignore_errors=True)
-    return {"training": {k: collections.Counter(pre[k]) + qa["training"][k]
+    return {"training": {k: sum((collections.Counter(t["training"][k]) for t in tasks),
+                                collections.Counter(pre[k]) + qa["training"][k])
                          for k in LEDGER_PARTS},
-            "serving": qa["serving"]}
+            "serving": {k: sum((collections.Counter(t["serving"][k]) for t in tasks),
+                               collections.Counter(qa["serving"][k]))
+                        for k in LEDGER_PARTS}}
 
 
 
@@ -6082,7 +6301,7 @@ def video_launcher_phase(args, root: str, th_path: str, tok_dir: str, words, dev
 CCLM_CONFIG = "configs/pretrain/cclm_x2vlm_base.yaml"
 CCLM_LANGS = ("en", "de", "fr", "cs", "ja", "zh", "ru", "es")   # the config's image languages
 N_PARA_LINES = 2 * PARA_PAIRS        # 14: parallel lines, two steps' worth
-CCLM_STEPS, CCLM_RESUME_STEP = 2, 1  # 14: 2 steps, then --resume from the state of step 1
+CCLM_STEPS = 2                       # 14
 # characters of the image captions' scripts beside the corpus words, each a
 # piece of the written vocabulary (with and without the word-start mark)
 CCLM_SCRIPT_CHARS = ("一二三四五六七八九十人大小中上下山水火木金土日月犬猫"
@@ -6349,10 +6568,9 @@ def cclm_launcher_phase(args, root: str, th_path: str, words, work: str, dev,
     config's languages, phase 7's (monolingual) region lines and
     ``N_PARA_LINES`` parallel lines; the image (128 a step), region (128
     rows over 50 images) and parallel-text (128 pairs of 64 tokens) blocks
-    as shipped. 2 steps, then ``--resume`` from the state of step 1,
-    its state and cursors (the parallel text's among them) restored bit for
-    bit; each stream's calls timed and their launches read; then
-    ``cclm_hold``. Every file goes to ``work`` (``work_dir``); the first
+    as shipped. 2 steps (the ``--resume`` that restores the parallel
+    text's cursor is held on the CPU, ``tests/test_torch_multilingual.py``);
+    each stream's calls timed and their launches read; then ``cclm_hold``. Every file goes to ``work`` (``work_dir``); the first
     run's last state (``out_cclm/ckpt``) and the tokenizer stay there for
     phase 15. Returns the launches of the first run and ``{"tok_dir",
     "ckpt"}``."""
@@ -6380,33 +6598,24 @@ def cclm_launcher_phase(args, root: str, th_path: str, words, work: str, dev,
     cfg_path = os.path.join(work, "cclm.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
-    out, out_resumed = os.path.join(work, "out_cclm"), os.path.join(work, "out_cclm_resumed")
+    out = os.path.join(work, "out_cclm")
     argv = ["--task", "pretrain", "--config", cfg_path, "--checkpoint", th_path, "--seed",
             str(args.seed), "--device", dev.type, "--epoch", str(CCLM_STEPS)]
     log(f"phase 14 data and config: {part_done('14', 'data', t0):.1f} s")
 
     imported = {}
-    orig = {"load": ckpt_lib.load_converted, "save": ckpt_lib.save_train_state}
+    orig_load = ckpt_lib.load_converted
 
     def load(model, sd):
-        imported["missing"], imported["unexpected"] = orig["load"](model, sd)
+        imported["missing"], imported["unexpected"] = orig_load(model, sd)
         imported["fresh_text"] = sorted(
             n for n, _ in model.base.named_parameters()
             if n.startswith("text_encoder.roberta.") or n == "text_encoder.lm_head.bias")
         return imported["missing"], imported["unexpected"]
 
-    def save(ckpt_dir, model, optimizer, step, data_state=None):
-        if ckpt_dir.startswith(out_resumed):     # the resumed run saves nothing
-            return os.path.join(ckpt_dir, ckpt_lib.TRAIN_STATE_FILE)
-        path = orig["save"](ckpt_dir, model, optimizer, step, data_state)
-        if step == CCLM_RESUME_STEP:   # kept for --resume: a link, not a copy
-            os.makedirs(os.path.join(out_resumed, "ckpt"))
-            os.link(path, os.path.join(out_resumed, "ckpt", ckpt_lib.TRAIN_STATE_FILE))
-        return path
-
     t1 = time.perf_counter()
     reset_counts()
-    ckpt_lib.load_converted, ckpt_lib.save_train_state = load, save
+    ckpt_lib.load_converted = load
     try:
         with StreamTimer({(k, CCLM_STEPS - 1) for k in ("image", "region", "mtext")}
                          if args.profile else None,
@@ -6414,7 +6623,7 @@ def cclm_launcher_phase(args, root: str, th_path: str, words, work: str, dev,
             record = run_mod.main(argv + ["--output_dir", out])
         check_data_plane("phase 14", record)
     finally:
-        ckpt_lib.load_converted, ckpt_lib.save_train_state = orig["load"], orig["save"]
+        ckpt_lib.load_converted = orig_load
     torch.cuda.synchronize()
     counts1 = launch_counts()
     log(f"phase 14 run 1 ({CCLM_STEPS} steps): {part_done('14', 'run', t1):.1f} s; "
@@ -6457,49 +6666,6 @@ def cclm_launcher_phase(args, root: str, th_path: str, words, work: str, dev,
         {k: [[round(c["ms"], 3), round(c["wall_ms"], 3), round(c["peak_gib"], 2)] for c in v]
          for k, v in timer.calls.items()}))
 
-    # --resume from the state of step 1: restored bit for bit, cursors included
-    saved = torch.load(os.path.join(out_resumed, "ckpt", ckpt_lib.TRAIN_STATE_FILE),
-                       map_location="cpu", weights_only=False)
-    seen = {}
-    orig_resume = run_mod.maybe_resume
-
-    def resumed(a, model, optimizer):
-        step, data_state = orig_resume(a, model, optimizer)
-        params = dict(model.named_parameters())
-        seen.update(
-            step=step, data_state=data_state,
-            params=all(torch.equal(params[k].detach().cpu(), v)
-                       for k, v in saved["params"].items()),
-            mu=all(torch.equal(m.cpu(), saved["mu"][k])
-                   for k, m in zip(optimizer.names, optimizer.mu)),
-            nu=all(torch.equal(v.cpu(), saved["nu"][k])
-                   for k, v in zip(optimizer.names, optimizer.nu)),
-            count=optimizer.count == saved["count"])
-        return step, data_state
-
-    t2 = time.perf_counter()
-    run_mod.maybe_resume, ckpt_lib.save_train_state = resumed, save
-    try:
-        record2 = run_mod.main(argv + ["--output_dir", out_resumed, "--resume"])
-    finally:
-        run_mod.maybe_resume, ckpt_lib.save_train_state = orig_resume, orig["save"]
-    torch.cuda.synchronize()
-    log(f"phase 14 run 2 (--resume from step {CCLM_RESUME_STEP}): "
-        f"{part_done('14', 'resume', t2):.1f} s; resumed at step {seen.get('step')}, data "
-        f"cursors {seen.get('data_state')}; equal to the saved state: params "
-        f"{seen.get('params')}, mu {seen.get('mu')}, nu {seen.get('nu')}, count "
-        f"{seen.get('count')}; {json.dumps(record2)}")
-    if not (seen.get("step") == CCLM_RESUME_STEP and seen.get("params") and seen.get("mu")
-            and seen.get("nu") and seen.get("count")
-            and seen.get("data_state") == saved["data_state"]
-            and set(saved["data_state"]) == {"image", "region", "mtext"}):
-        fail(f"cclm launcher --resume: {seen} against the saved step {saved['step']}")
-    if record2.get("pretrain_steps") != [CCLM_RESUME_STEP, CCLM_STEPS] or \
-            record2.get("broken", -1) != 0:
-        fail(f"cclm launcher --resume: {record2}")
-    del saved
-    shutil.rmtree(out_resumed, ignore_errors=True)
-
     t3 = time.perf_counter()
     defer_hold("phase 14 card bf16 vs CPU fp32 (2 images, 2 region rows, 2 parallel pairs; "
                "negatives injected, dropout off)", cclm_hold,
@@ -6514,7 +6680,10 @@ def cclm_launcher_phase(args, root: str, th_path: str, words, work: str, dev,
 
 # ---- phase 15: the IGLUE tasks on the Plus / CCLM base at 384 px ----
 
-IGLUE_TASKS = ("xvnli", "marvl", "xgqa", "wit", "xflickrco")
+IGLUE_TASKS = ("xvnli", "marvl", "xgqa", "wit", "xflickrco", "xretrieval")
+# the retrieval tasks: WIT and xFlickrCO at 80 tokens, xretrieval (XRetrieval's
+# JSON annotations) at 40 with xflickrco_cclm_base.yaml's model
+RET_TASKS = ("wit", "xflickrco", "xretrieval")
 IGLUE_LANGS = ("de", "zh")            # the test sets' languages (MARVL's: NLVR2's "en", "zh")
 # WIT's and xFlickrCO's one test language: each language's eval reranks
 # 128 x 128 pairs both ways at 80 tokens in the plain fp32 core (~8 s of
@@ -6524,8 +6693,8 @@ N_IGLUE_TRAIN = 2 * IGLUE_BATCH       # train lines: 2 steps (xGQA: 1 an epoch, 
 N_RET_EVAL = 128                      # WIT / xFlickrCO test lines a language: k_test 128 both ways
 N_XGQA_ANSWERS = 1000                 # xGQA's answer lists (each language's own)
 XVNLI_FEWSHOT = f"de,{IGLUE_BATCH}"   # the few-shot run: 16 German train lines, 1 step
-XGQA_RESUME_STEP = 1                  # --resume from the state of step 1 (of 2)
 IGLUE_CONFIGS = {task: f"configs/finetune/{task}_cclm_base.yaml" for task in IGLUE_TASKS}
+IGLUE_CONFIGS["xretrieval"] = IGLUE_CONFIGS["xflickrco"]
 
 
 def write_iglue_corpus(work: str, rng: np.random.Generator, words, image_root: str) -> dict:
@@ -6537,7 +6706,9 @@ def write_iglue_corpus(work: str, rng: np.random.Generator, words, image_root: s
     pair), WIT lines with the PNGs in base64 and xFlickrCO lines, both with
     captions long enough to fill 80 tokens; ``N_IGLUE_TRAIN`` train lines
     (16 for xGQA and the few-shot file), 32 test lines a language (128 for
-    WIT and xFlickrCO, in ``RET_EVAL_LANGS`` only). Returns the paths by
+    WIT and xFlickrCO, in ``RET_EVAL_LANGS`` only); xretrieval's JSON
+    annotations ({image, caption list}) at 40 tokens, ``N_IGLUE_TRAIN`` train
+    and ``N_RET_EVAL`` test lines in ``RET_EVAL_LANGS``. Returns the paths by
     name."""
     n_img = len([f for f in os.listdir(image_root) if f.endswith(".png")])
     d = os.path.join(work, "iglue")
@@ -6613,6 +6784,14 @@ def write_iglue_corpus(work: str, rng: np.random.Generator, words, image_root: s
         dump(f"{name}_train_en.jsonl", make(N_IGLUE_TRAIN, "en"))
         for lang in RET_EVAL_LANGS:
             dump(f"{name}_test_{lang}.jsonl", make(N_RET_EVAL, lang))
+
+    def xre(n, lang):
+        return [{"image": f"{img()}.png", "caption": [cclm_caption(rng, words, lang, 4, 30)]}
+                for _ in range(n)]
+
+    dump("xretrieval_train_en.json", xre(N_IGLUE_TRAIN, "en"), lines=False)
+    for lang in RET_EVAL_LANGS:
+        dump(f"xretrieval_test_{lang}.json", xre(N_RET_EVAL, lang), lines=False)
     return paths
 
 
@@ -6636,6 +6815,10 @@ def iglue_config(task: str, paths: dict, plus: dict, image_root: str) -> dict:
                    answer_list=paths["gqa_answers.json"], start_eval=1,
                    test_file={"de": paths["gqa_test_de.json"],
                               "zh": [paths["gqa_test_zh.json"], paths["gqa_answers_zh.json"]]})
+    elif task == "xretrieval":   # XRetrieval's own text length, the reference's 40
+        cfg.update(train_file=[paths["xretrieval_train_en.json"]],
+                   test_file=per_lang(task, "json", RET_EVAL_LANGS), image_root=image_root,
+                   max_tokens=TEXT_LEN)
     else:
         cfg.update(train_file=[paths[f"{task}_train_en.jsonl"]],
                    test_file=per_lang(task, "jsonl", RET_EVAL_LANGS))
@@ -6656,10 +6839,21 @@ def iglue_launches(task: str, train: bool) -> dict:
     tokens (WIT, xFlickrCO) no tiny launch: XLM-R's and the cross encoder's
     attention on the plain core (a step: the text pass, ITM over 3 x 16
     rows; an eval: the texts in one call of 256, the ITM rerank's 2 x 16
-    calls of 1,024 rows). ``plain`` by (B, Sq, Skv); the backward's tiny
-    launches are the forward's."""
+    calls of 1,024 rows); xretrieval the same calls at 40 tokens on the
+    kernels (40 x 584 key-tiled). ``plain`` by (B, Sq, Skv); the backward's
+    tiny launches are the forward's."""
     L, K, LONG = TEXT_LEN, N_KEYS_384, IGLUE_LONG
     B = IGLUE_BATCH if train else IGLUE_EVAL_BATCH
+    if task == "xretrieval":
+        if train:
+            tiny = {(B, L, L): 12, (3 * B, L, L): 6, (3 * B, L, K): 6}
+            return {"flash_fwd": 12, "flash_bwd": 12, "tiny_fwd": tiny, "tiny_bwd": tiny,
+                    "plain": {}}
+        n_rerank = 2 * N_RET_EVAL // 8
+        return {"flash_fwd": 12 * N_RET_EVAL // B, "flash_bwd": 0,
+                "tiny_fwd": {(256, L, L): 12, (RERANK_BATCH, L, L): 6 * n_rerank,
+                             (RERANK_BATCH, L, K): 6 * n_rerank},
+                "tiny_bwd": {}, "plain": {}}
     if task in ("wit", "xflickrco"):
         if train:
             return {"flash_fwd": 12, "flash_bwd": 12, "tiny_fwd": {}, "tiny_bwd": {},
@@ -6705,8 +6899,30 @@ def iglue_cosine_params(family: str):
                 "text_decoder.lm_head.dense.weight", "text_decoder.lm_head.bias")}[family]
 
 
+HEAD_OF = {"retrieval": "itm_head", "multiple_choice": "mc_head"}   # else cls_head
+
+
+@contextlib.contextmanager
+def loss_outputs(family: str, model, outputs: list):
+    """Within the block, the outputs the model's losses read are appended
+    to ``outputs`` as its forward makes them: retrieval's ITC image and
+    text features (``get_features``) and ITM logits, the head's output of
+    the other families."""
+    hook = getattr(model, HEAD_OF.get(family, "cls_head")).register_forward_hook(
+        lambda mod, inp, out: outputs.append(out))
+    features = model.get_features
+    if family == "retrieval":
+        model.get_features = lambda *a, **kw: outputs.append(features(*a, **kw)) or outputs[-1]
+    try:
+        yield outputs
+    finally:
+        hook.remove()
+        model.__dict__.pop("get_features", None)
+
+
 def iglue_pass(family: str, state: dict, cfg: dict, batch: dict, device, dtype,
-               answers=None, ratios=None) -> dict:
+               answers=None, ratios=None, names=None, n_keys: int = N_KEYS_384,
+               cotangent_seed=None, term_names=()) -> dict:
     """One side of a phase-15 hold: the fine-tuned weights ``state`` of a
     head family on ``device`` in ``dtype`` (dropout off) over the 2 rows of
     ``batch``: the losses of one forward (retrieval with the negatives
@@ -6714,7 +6930,17 @@ def iglue_pass(family: str, state: dict, cfg: dict, batch: dict, device, dtype,
     read in that forward (the ITM head's logits over the 3 x 2 ITM rows,
     NLVR2's and XVNLI's logits) and, for xGQA, ``rank_answer`` over
     ``answers`` with ``K_TEST``. ``ratios`` (forward, backward lists): each
-    bf16 40 x 584 tiny call held on the model's operands into them."""
+    bf16 tiny call with ``n_keys`` keys held on the model's operands into
+    them. ``names``: the gradients read (``iglue_cosine_params``). With
+    ``cotangent_seed`` (13d, 13e) the losses' own gradients are read first:
+    at the outputs the losses read (``loss_outputs``; p - y at the head) in
+    ``dloss``, of ``names`` in ``loss_grads``; then the VJP of seeded normal
+    cotangents on those outputs, a second backward through the same
+    kernels, gives ``grads``. ``term_names``: each of the head's rows' own
+    term of these parameters' loss gradients, (p - y)_r times its logits'
+    gradient, one backward a row outside the held calls (``row_terms``, a
+    row a term; these parameters' loss gradients come through the head's
+    rows alone)."""
     from x2vlm_tpu_torch.factory import build_model
 
     model, _ = build_model(cfg, family, device=device, dtype=dtype, seed=None)
@@ -6729,56 +6955,127 @@ def iglue_pass(family: str, state: dict, cfg: dict, batch: dict, device, dtype,
                 "image", "question_ids", "question_atts")}, **{
                     k: v.to(device) for k, v in answers.items()}), K_TEST)
         res["rank"] = (ids.cpu(), probs.float().cpu())
-    head = getattr(model, "itm_head" if family == "retrieval" else "cls_head", None)
+    head = getattr(model, HEAD_OF.get(family, "cls_head"), None)
     hook = head.register_forward_hook(
         lambda mod, inp, out: outs.append(out.detach().float().cpu())) if head is not None \
         else None
-    with (held_tiny_calls(N_KEYS_384, ratios[0]) if ratios else contextlib.nullcontext()), \
-            (held_tiny_bwd_calls(N_KEYS_384, ratios[1]) if ratios else contextlib.nullcontext()):
-        out = model(b, **kw)
-        sum(out.values()).backward()
+    with (held_tiny_calls(n_keys, ratios[0]) if ratios else contextlib.nullcontext()), \
+            (held_tiny_bwd_calls(n_keys, ratios[1]) if ratios else contextlib.nullcontext()):
+        names = names or iglue_cosine_params(family)
+        params = dict(model.named_parameters())
+        if cotangent_seed is None:
+            out = model(b, **kw)
+            sum(out.values()).backward()
+        else:
+            with loss_outputs(family, model, []) as outputs:
+                out = model(b, **kw)
+            grads = torch.autograd.grad(sum(out.values()), outputs + [params[k] for k in names],
+                                        retain_graph=True)
+            dloss = grads[:len(outputs)]
+            res["dloss"] = [g.detach().double().cpu().reshape(-1) for g in dloss]
+            res["loss_grads"] = {k: g.detach().float().cpu().reshape(-1)
+                                 for k, g in zip(names, grads[len(outputs):])}
+            gen = torch.Generator().manual_seed(cotangent_seed)
+            cot = [torch.randn(o.shape, generator=gen, dtype=torch.float64) for o in outputs]
+            sum((o.double() * w.to(device)).sum() for o, w in zip(outputs, cot)).backward(
+                retain_graph=bool(term_names))
+            res["bwd_passes"] = 2
+    if term_names:    # the head's rows, one backward each, not held
+        logits, dl = outputs[-1], dloss[-1]
+        rows = [torch.autograd.grad((logits[r] * dl[r]).sum(), [params[k] for k in term_names],
+                                    retain_graph=r + 1 < len(logits))
+                for r in range(len(logits))]
+        res["row_terms"] = {k: torch.stack([t[i].detach().float().cpu().reshape(-1)
+                                            for t in rows]) for i, k in enumerate(term_names)}
     if hook is not None:
         hook.remove()
         res["out"] = torch.cat(outs)
     res["losses"] = {k: v.item() for k, v in out.items()}
-    params = dict(model.named_parameters())
-    res["grads"] = {k: params[k].grad.detach().float().cpu().reshape(-1)
-                    for k in iglue_cosine_params(family)}
+    res["grads"] = {k: params[k].grad.detach().float().cpu().reshape(-1) for k in names}
     return res
 
 
-def iglue_hold(family: str, state, cfg: dict, batch: dict, dev, answers=None) -> tuple:
-    """A phase-15 hold: ``iglue_pass`` on the CPU in fp32 and on the card in
-    bf16 with the trained weights ``state`` (or the state saved at that
-    path), ``iglue_compare`` of the two."""
+def iglue_hold(family: str, state, cfg: dict, batch: dict, dev, answers=None, names=None,
+               n_keys: int = N_KEYS_384, n_calls=None, cotangent_seed=None,
+               term_names=()) -> tuple:
+    """A phase-15 hold (and 13d's, 13e's): ``iglue_pass`` on the CPU in fp32
+    and on the card in bf16 with the trained weights ``state`` (or the state
+    saved at that path), ``iglue_compare`` of the two."""
     state = params_of(state)
-    cpu = iglue_pass(family, state, cfg, batch, torch.device("cpu"), torch.float32, answers)
+    cpu = iglue_pass(family, state, cfg, batch, torch.device("cpu"), torch.float32, answers,
+                     names=names, n_keys=n_keys, cotangent_seed=cotangent_seed,
+                     term_names=term_names)
     ratios = ([], [])
-    card = iglue_pass(family, state, cfg, batch, dev, torch.bfloat16, answers, ratios)
+    card = iglue_pass(family, state, cfg, batch, dev, torch.bfloat16, answers, ratios, names,
+                      n_keys, cotangent_seed, term_names)
     del state
     torch.cuda.empty_cache()
-    return iglue_compare(family, cpu, card, ratios)
+    return iglue_compare(family, cpu, card, ratios, n_keys, n_calls)
 
 
-def iglue_compare(family: str, cpu: dict, card: dict, ratios) -> tuple:
+def iglue_compare(family: str, cpu: dict, card: dict, ratios, n_keys: int = N_KEYS_384,
+                  n_calls=None) -> tuple:
     """A phase-15 hold's readings and faults, card bf16 against CPU fp32:
     losses within 0.05 + 2%, the head's outputs within 0.05 + 5% of their
-    scale, gradient cosines >= 0.99, each 40 x 584 call forward and
-    backward within ``FUSION_CALL_RATIO`` of the bf16 rule's bound (XVNLI's
-    and xGQA's 6 cross-attentions, NLVR2's 12; none at retrieval's 80
-    tokens, where the plain core runs), xGQA's first answers equal and its
-    top-k scores within 0.05."""
+    scale, gradient cosines >= 0.99, each 40 x ``n_keys`` call forward and
+    backward within ``FUSION_CALL_RATIO`` of the bf16 rule's bound
+    (``n_calls`` of them; by default XVNLI's and xGQA's 6 cross-attentions,
+    NLVR2's 12, none at WIT's 80 tokens, where the plain core runs), xGQA's
+    first answers equal and its top-k scores within 0.05. With the losses'
+    own gradients read (13d, 13e, ``iglue_pass``'s ``cotangent_seed``), the
+    gradients held at 0.99 are the VJP's; the losses' gradients at their
+    outputs (p - y) are held at cosine 0.99, and so are their parameter
+    gradients (``loss_cosine``) but those read by rows (``row_terms``).
+    Those are held term by term as phase 19 holds the ITM head
+    (``itm_term_faults``): each row's term at cosine ``ITM_TERM_COSINE``,
+    the CPU's terms adding up to its loss gradient within 1e-4 of their
+    root-sum-square, and the loss gradient within ``ITM_SUM_LIMIT`` of the
+    larger of that and the CPU's norm: the rows' terms may nearly cancel
+    (``sum_over_rss``, the norm of their sum over their root-sum-square),
+    and the cosine of such a sum reads the compute dtype's floor."""
     cos = {k: F.cosine_similarity(card["grads"][k].double(), cpu["grads"][k].double(),
                                   dim=0).item() for k in cpu["grads"]}
     r = {"losses": {"cpu": cpu["losses"], "card": card["losses"]}, "cosine": cos,
          "fwd_ratios": [round(x, 3) for x in ratios[0]],
          "bwd_ratios": [round(x, 3) for x in ratios[1]]}
     faults = []
-    n_calls = {"retrieval": 0, "nlvr": 12, "classification": 6, "vqa": 6}[family]
-    for kind, got in zip(("forward", "backward"), ratios):
-        if len(got) != n_calls or not all(x <= FUSION_CALL_RATIO for x in got):
-            faults.append(f"the 40 x {N_KEYS_384} {kind} calls' errors over the bf16 rule's "
-                          f"bound {[round(x, 3) for x in got]}, expected {n_calls} at most "
+    if "dloss" in cpu:   # the losses' own gradients, then the VJP's
+        r["dloss_cosine"] = [F.cosine_similarity(g, c, dim=0).item()
+                             for g, c in zip(card["dloss"], cpu["dloss"])]
+        if not all(c >= 0.99 for c in r["dloss_cosine"]):
+            faults.append(f"the losses' gradients at their outputs (p - y): cosines "
+                          f"{r['dloss_cosine']} to the CPU fp32 path's, below 0.99")
+        r["loss_cosine"] = {k: F.cosine_similarity(card["loss_grads"][k].double(), g.double(),
+                                                   dim=0).item()
+                            for k, g in cpu["loss_grads"].items()}
+        for k, c in r["loss_cosine"].items():
+            if k not in cpu.get("row_terms", {}) and not c >= 0.99:
+                faults.append(f"loss gradient {k}: cosine to the CPU fp32 path {c:.5f} < 0.99")
+    for k, t in cpu.get("row_terms", {}).items():
+        t, card_t = t.double(), card["row_terms"][k].double()
+        cpu_g, card_g = cpu["loss_grads"][k].double(), card["loss_grads"][k].double()
+        rss = max(t.norm().item(), 1e-300)     # the rows' root-sum-square
+        own = (t.sum(0) - cpu_g).norm().item() / rss
+        rows = r.setdefault("row_terms", {})[k] = {
+            "rows": len(t), "sum_over_rss": t.sum(0).norm().item() / rss,
+            "min_row_cos": F.cosine_similarity(card_t, t, dim=1).min().item(),
+            "dist": (card_g - cpu_g).norm().item() / max(rss, cpu_g.norm().item())}
+        if not own <= 1e-4:
+            faults.append(f"{k}: the CPU's row terms add to its loss gradient within {own:.2e} "
+                          f"of their scale (at most 1e-4)")
+        if not rows["min_row_cos"] >= ITM_TERM_COSINE:
+            faults.append(f"{k}: a row's loss-gradient term at cosine {rows['min_row_cos']:.5f} "
+                          f"to the CPU fp32 path's (at least {ITM_TERM_COSINE})")
+        if not rows["dist"] <= ITM_SUM_LIMIT:
+            faults.append(f"{k}: the loss gradient {rows['dist']:.5f} of the larger of its "
+                          f"terms' scale and its norm from the CPU's (at most {ITM_SUM_LIMIT})")
+    if n_calls is None:
+        n_calls = {"retrieval": 0, "nlvr": 12, "classification": 6, "vqa": 6}[family]
+    for kind, got, n in zip(("forward", "backward"), ratios,
+                            (n_calls, n_calls * card.get("bwd_passes", 1))):
+        if len(got) != n or not all(x <= FUSION_CALL_RATIO for x in got):
+            faults.append(f"the 40 x {n_keys} {kind} calls' errors over the bf16 rule's "
+                          f"bound {[round(x, 3) for x in got]}, expected {n} at most "
                           f"{FUSION_CALL_RATIO}")
     if "out" in cpu:
         r["out_err"] = max_err(card["out"], cpu["out"])
@@ -6808,27 +7105,26 @@ def iglue_compare(family: str, cpu: dict, card: dict, ratios) -> tuple:
 def iglue_launcher_phase(args, root: str, plus: dict, words, work: str, dev,
                          smi: str = "") -> dict:
     """Phase 15: ``x2vlm_tpu_torch.run`` in process on the five shipped
-    IGLUE configs at their own sizes (384 px; 16 rows a step, 32 an eval
+    IGLUE configs and ``xretrieval`` (on ``xflickrco_cclm_base.yaml``'s
+    model at 40 tokens) at their own sizes (384 px; 16 rows a step, 32 an eval
     call; k_test 128; 40 tokens, WIT's and xFlickrCO's 80; xGQA's 10-token
     answers and 6-layer RoBERTa-form decoder), each from phase 14's Plus
     train state (``--checkpoint <dir>``: memory-mapped, parameters only, the
     task's head fresh), phase 14's 250,002-entry XLM-R tokenizer and
     ``write_iglue_corpus``'s data, ``{lang: path}`` test sets: 2 steps and
-    the eval each (``--task xvnli`` ... ``--task xflickrco``); xGQA in 2
-    epochs of a step, then ``--resume`` from the state of step 1 (state and
-    the next batch bit for bit); XVNLI once more as ``--task
+    the eval each (``--task xvnli`` ... ``--task xretrieval``); xGQA in 2
+    epochs of a step (its ``--resume`` held on the CPU,
+    ``tests/test_torch_iglue.py``); XVNLI once more as ``--task
     classification`` (its ``dataset_type``) under ``--fewshot`` (a
     two-slot train template, a one-slot test template), one step and its
     eval. Each step and eval call timed (CUDA events and wall, peak memory)
     and its launches read against ``iglue_launches`` (plain calls by
     shape); xGQA's rank pass timed with its peak memory; each head family's
     ``iglue_hold`` on 2 rows (WIT's weights for retrieval at 80 tokens),
-    deferred to the holds' worker as soon as its run has trained it. Only
-    xGQA's run saves a train state (step 1's, in ``work``); each hold's
-    trained state is saved for the worker (``hold_state``) beside the next
-    run. Returns the launches, split into steps and evals."""
-    import hashlib
-
+    deferred to the holds' worker as soon as its run has trained it. No run
+    saves a train state; each hold's trained state is saved for the worker
+    (``hold_state``) beside the next run. Returns the launches, split into
+    steps and evals."""
     from x2vlm_tpu_torch import run as run_mod
     from x2vlm_tpu_torch.data.factory import create_dataset
     from x2vlm_tpu_torch.data.finetune import vqa_collate
@@ -6853,21 +7149,17 @@ def iglue_launcher_phase(args, root: str, plus: dict, words, work: str, dev,
     log(f"phase 15 data and configs: {part_done('15', 'data', t0):.1f} s")
 
     records = {}             # run name -> {"steps", "evals", "ranks", "import", "state"}
-    batches = collections.defaultdict(list)
     orig = {"step": run_mod.make_train_step, "save": ckpt_lib.save_train_state,
-            "load": ckpt_lib.load_converted, "to_device": run_mod.to_device,
-            "restore": ckpt_lib.restore_train_state, "rank": XVLMForVQA.rank_answer,
+            "load": ckpt_lib.load_converted, "rank": XVLMForVQA.rank_answer,
             "retrieval": retrieval_mod.evaluate_retrieval,
             "predict": {c: c.predict for c in (XVLMForClassification, XVLMForNLVR, XVLMForVQA)}}
     evaluated = {"xvnli": XVLMForClassification, "marvl": XVLMForNLVR, "xgqa": XVLMForVQA}
     timed = functools.partial(timed_call, args, smi)
     counts, train_deltas, savers = [], [], []
 
-    def launch(name: str, task: str, argv: list, save=None, restore=None,
-               keep_state: bool = False):
+    def launch(name: str, task: str, argv: list, keep_state: bool = False):
         """One launcher run with its steps, eval calls, rank passes and
-        import read; ``save`` / ``restore`` stand in for the train state's
-        (default: nothing saved); with ``keep_state`` the trained
+        import read; no train state saved; with ``keep_state`` the trained
         parameters are kept (on the host) for the hold."""
         rec = records[name] = {"steps": [], "evals": [], "ranks": [], "import": {}}
         model_ref = []
@@ -6882,11 +7174,6 @@ def iglue_launcher_phase(args, root: str, plus: dict, words, work: str, dev,
         def load(model, sd):
             rec["import"]["missing"], rec["import"]["unexpected"] = orig["load"](model, sd)
             return rec["import"]["missing"], rec["import"]["unexpected"]
-
-        def to_device(batch, device):
-            batches[name].append({k: hashlib.sha256(np.ascontiguousarray(v)).hexdigest()
-                                  for k, v in batch.items()})
-            return orig["to_device"](batch, device)
 
         def rank(*a, **kw):
             torch.cuda.synchronize()
@@ -6905,15 +7192,14 @@ def iglue_launcher_phase(args, root: str, plus: dict, words, work: str, dev,
             return result
 
         profiled = lambda i: bool(args.profile) and i == 0   # noqa: E731
-        evaluator = timed(orig["retrieval"] if task in ("wit", "xflickrco") else
+        evaluator = timed(orig["retrieval"] if task in RET_TASKS else
                           orig["predict"][evaluated[task]], rec["evals"],
                           f"chip_smoke_iglue_{name}_eval_profile.txt", profiled)
-        ckpt_lib.save_train_state = save or (
+        ckpt_lib.save_train_state = (
             lambda ckpt_dir, *a, **kw: os.path.join(ckpt_dir, ckpt_lib.TRAIN_STATE_FILE))
-        ckpt_lib.restore_train_state = restore or orig["restore"]
         ckpt_lib.load_converted, run_mod.make_train_step = load, make_step
-        run_mod.to_device, XVLMForVQA.rank_answer = to_device, rank
-        if task in ("wit", "xflickrco"):
+        XVLMForVQA.rank_answer = rank
+        if task in RET_TASKS:
             retrieval_mod.evaluate_retrieval = evaluator
         else:
             evaluated[task].predict = evaluator
@@ -6922,15 +7208,14 @@ def iglue_launcher_phase(args, root: str, plus: dict, words, work: str, dev,
         try:
             rec["record"] = run_mod.main(argv)
         finally:
-            ckpt_lib.save_train_state, ckpt_lib.restore_train_state = orig["save"], \
-                orig["restore"]
+            ckpt_lib.save_train_state = orig["save"]
             ckpt_lib.load_converted, run_mod.make_train_step = orig["load"], orig["step"]
-            run_mod.to_device, XVLMForVQA.rank_answer = orig["to_device"], orig["rank"]
+            XVLMForVQA.rank_answer = orig["rank"]
             retrieval_mod.evaluate_retrieval = orig["retrieval"]
             for c, fn in orig["predict"].items():
                 c.predict = fn
         torch.cuda.synchronize()
-        rec["seconds"] = part_done("15", "resume" if restore else "run", t)
+        rec["seconds"] = part_done("15", "run", t)
         rec["counts"] = launch_counts()
         if keep_state:
             rec["state"] = {k: v.detach().to("cpu", copy=True)
@@ -6943,10 +7228,10 @@ def iglue_launcher_phase(args, root: str, plus: dict, words, work: str, dev,
         """The run's import, record, each call's launches and the totals."""
         rec = records[name]
         fresh = {"xvnli": ("cls_head.",), "marvl": ("cls_head.",), "xgqa": ("text_decoder.",),
-                 "wit": (), "xflickrco": ()}[task]
+                 "wit": (), "xflickrco": (), "xretrieval": ()}[task]
         # what the pretraining core has and the task model does not
         leftover = ("text_encoder.lm_head.", "bbox_head.")
-        if task not in ("wit", "xflickrco"):
+        if task not in RET_TASKS:
             leftover += ("vision_proj.", "text_proj.", "itm_head.")
         if task == "xgqa":
             leftover += ("temp",)
@@ -6960,10 +7245,8 @@ def iglue_launcher_phase(args, root: str, plus: dict, words, work: str, dev,
                 not unexpected:
             fail(f"iglue {name} import: missing {missing}, unexpected {unexpected}")
         record = rec["record"]
-        loss = "loss_vqa" if task == "xgqa" else "loss_itm" if task in (
-            "wit", "xflickrco") else "loss_cls"
-        metric = "acc" if task == "xgqa" else "r_mean" if task in ("wit", "xflickrco") \
-            else "accuracy"
+        loss = "loss_vqa" if task == "xgqa" else "loss_itm" if task in RET_TASKS else "loss_cls"
+        metric = "acc" if task == "xgqa" else "r_mean" if task in RET_TASKS else "accuracy"
         langs = tuple(cfg["test_file"]) if isinstance(cfg["test_file"], dict) else ()
         vals = [record.get(loss), record.get(f"eval_{metric}")] + \
             [record.get(f"eval_{lang}_{metric}") for lang in langs]
@@ -7032,9 +7315,10 @@ def iglue_launcher_phase(args, root: str, plus: dict, words, work: str, dev,
                 out or os.path.join(work, f"out_{name}"), "--checkpoint", plus["ckpt"],
                 "--seed", str(args.seed), "--device", dev.type, *extra]
 
-    def submit_hold(family: str, task: str):
+    def submit_hold(family: str, task: str, n_calls=None):
         """The hold of 2 rows of ``task``'s train set with its trained state
-        (saved to ``work``), deferred to the holds' worker."""
+        (saved to ``work``), deferred to the holds' worker; ``n_calls``
+        held 40 x 584 calls each way (``iglue_compare``)."""
         th = time.perf_counter()
         train_ds, test_ds = create_dataset(task, cfgs[task], rng=random.Random(args.seed))
         answers = None
@@ -7054,8 +7338,8 @@ def iglue_launcher_phase(args, root: str, plus: dict, words, work: str, dev,
         def save_and_defer():
             defer_hold(f"phase 15 {family} ({task}'s weights) card bf16 vs CPU fp32 (2 rows, "
                        f"dropout off{', negatives injected' if family == 'retrieval' else ''})",
-                       iglue_hold, family, hold_state(state, f"iglue_{family}.pt"), cfgs[task],
-                       batch, dev, answers)
+                       iglue_hold, family, hold_state(state, f"iglue_{task}.pt"), cfgs[task],
+                       batch, dev, answers, None, N_KEYS_384, n_calls)
 
         if HOLDS["pool"] is None:
             save_and_defer()
@@ -7065,12 +7349,13 @@ def iglue_launcher_phase(args, root: str, plus: dict, words, work: str, dev,
         part_done("15", "hold", th)
 
     for task, family in (("xvnli", "classification"), ("marvl", "nlvr"), ("wit", "retrieval"),
-                         ("xflickrco", None)):
+                         ("xflickrco", None), ("xretrieval", "retrieval")):
         launch(task, task, argv(task, task, cfgs[task], "--epoch", "1"),
                keep_state=family is not None)
         check(task, task, N_IGLUE_TRAIN // IGLUE_BATCH, cfgs[task])
         if family is not None:
-            submit_hold(family, task)
+            # xretrieval at 40 tokens: its 6 cross-attentions on K5 / K6 held
+            submit_hold(family, task, 6 if task == "xretrieval" else None)
     # XVNLI once more: --task classification (its dataset_type) under --fewshot
     few = dict(cfgs["xvnli"], train_file=[os.path.join(work, "iglue", "xvnli_{}_{}.jsonl")],
                test_file=os.path.join(work, "iglue", "xvnli_test_{}.jsonl"))
@@ -7085,18 +7370,10 @@ def iglue_launcher_phase(args, root: str, plus: dict, words, work: str, dev,
              f"{filled['test_file']}")
     check("xvnli_fewshot", "xvnli", 1, few)
 
-    # xGQA: 2 epochs of a step, the state of step 1 kept for --resume
-    out, out_resumed = os.path.join(work, "out_xgqa"), os.path.join(work, "out_xgqa_resumed")
-
-    def save(ckpt_dir, model, optimizer, step, data_state=None):
-        """The state of step 1 straight into the resumed run's ``ckpt``;
-        nothing else (the hold reads the trained model's parameters)."""
-        if ckpt_dir == os.path.join(out, "ckpt") and step == XGQA_RESUME_STEP:
-            return orig["save"](os.path.join(out_resumed, "ckpt"), model, optimizer, step,
-                                data_state)
-        return os.path.join(ckpt_dir, ckpt_lib.TRAIN_STATE_FILE)
-
-    launch("xgqa", "xgqa", argv("xgqa", "xgqa", cfgs["xgqa"], "--epoch", "2"), save=save,
+    # xGQA: 2 epochs of a step (its --resume is held on the CPU,
+    # tests/test_torch_iglue.py)
+    out = os.path.join(work, "out_xgqa")
+    launch("xgqa", "xgqa", argv("xgqa", "xgqa", cfgs["xgqa"], "--epoch", "2"),
            keep_state=True)
     check("xgqa", "xgqa", 2, cfgs["xgqa"])
     submit_hold("vqa", "xgqa")
@@ -7117,38 +7394,6 @@ def iglue_launcher_phase(args, root: str, plus: dict, words, work: str, dev,
                     for r in ranks):
         fail(f"iglue xgqa rank pass: {ranks}")
 
-    saved = torch.load(os.path.join(out_resumed, "ckpt", ckpt_lib.TRAIN_STATE_FILE),
-                       map_location="cpu", weights_only=False)
-    restored = {}
-
-    def restore(ckpt_dir, model, optimizer):
-        result = orig["restore"](ckpt_dir, model, optimizer)
-        copy = lambda t: t.detach().to("cpu", copy=True)   # noqa: E731
-        restored.update(params={n: copy(p) for n, p in model.named_parameters()},
-                        mu=dict(zip(optimizer.names, map(copy, optimizer.mu))),
-                        nu=dict(zip(optimizer.names, map(copy, optimizer.nu))),
-                        count=optimizer.count)
-        return result
-
-    launch("xgqa_resumed", "xgqa", argv("xgqa", "xgqa_resumed", cfgs["xgqa"], "--epoch", "2",
-                                        "--resume", out=out_resumed), restore=restore)
-    same = bool(restored) and saved["step"] == XGQA_RESUME_STEP and \
-        restored["count"] == saved["count"] and all(
-            restored[part].keys() == saved[part].keys() and
-            all(torch.equal(restored[part][k], saved[part][k]) for k in saved[part])
-            for part in ("params", "mu", "nu"))
-    same_batches = batches["xgqa_resumed"] == batches["xgqa"][XGQA_RESUME_STEP:]
-    log(f"phase 15 xgqa --resume from step {saved['step']}: "
-        f"{records['xgqa_resumed']['seconds']:.1f} s; restored state equal to the saved one bit "
-        f"for bit: {same}; its {len(batches['xgqa_resumed'])} batch equal to the whole run's "
-        f"step {XGQA_RESUME_STEP + 1} bit for bit: {same_batches} "
-        f"({len(records['xgqa_resumed']['steps'])} step)")
-    if not same or not same_batches:
-        fail("iglue xgqa --resume: the restored state or the batch after it differs from the "
-             "whole run's")
-    check("xgqa_resumed", "xgqa", 1, cfgs["xgqa"])
-    del saved, restored
-    shutil.rmtree(out_resumed, ignore_errors=True)
     shutil.rmtree(out, ignore_errors=True)
 
     for saver in savers:
@@ -8284,21 +8529,17 @@ def large_1b_phase(args, root: str, large_tok: str, words, work: str, dev, smi: 
 
 
 def large_stage2_phase(args, root: str, large_tok: str, words, th_path: str, work: str, dev,
-                       smi: str = ""):
+                       smi: str = "", files=None):
     """Phase 20: the shipped ``x2vlm_large_1b_stage2.yaml`` from phase 16's
     ``.th`` (its frame positions fresh): 32 images, 32 region rows over 14
     images, 20 clips of 3 frames (``video_frames`` / ``text`` lines written
     here; the clip-of-clips lines combined to 8 frames) beside the
     video-aux stream at 0.35 (the same frames recaptioned); a video and a
-    video-aux batch both run. Hold: 2 videos of 3 frames."""
+    video-aux batch both run. Hold: 2 videos of 3 frames. ``files``: the
+    video and video-aux lines, written earlier by ``write_video_data`` (else
+    here)."""
     t0 = time.perf_counter()
-    rng = np.random.default_rng(args.seed + 20)
-    video_file, aux_file = (os.path.join(work, "videos_large.jsonl"),
-                            os.path.join(work, "videos_large_aux.jsonl"))
-    write_video_corpus(video_file, rng, words, frames_key="video_frames", caption_key="text")
-    with open(video_file) as fi, open(aux_file, "w") as fo:
-        for line in fi:
-            fo.write(json.dumps(dict(json.loads(line), text=caption(rng, words))) + "\n")
+    video_file, aux_file = files or write_video_data(work, args.seed, words, ("20",))["20"]
     overrides = {"train_file": [os.path.join(root, "images.jsonl")],
                  "train_file_regions": [os.path.join(root, "regions.jsonl")],
                  "train_file_videos": [video_file], "train_file_videos_aux": [aux_file],
@@ -8770,16 +9011,28 @@ def run(args, dev: torch.device) -> int:
 def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
     """``run`` with the holds' worker open."""
 
-    # g++ builds the native data plane, and phase 7's data is written, while
-    # the nvcc processes run
+    # g++ builds the native data plane, and phase 7's data and the video
+    # data of phases 13 and 20 are written, while the nvcc processes run
     root_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    video_dir = work_dir(root_dir.name, 2**30)
+    if video_dir != root_dir.name:
+        atexit.register(shutil.rmtree, video_dir, True)
+
+    def write_data():
+        data = write_pretrain_data(root_dir.name, args.seed)
+        t = time.perf_counter()
+        videos = write_video_data(video_dir, args.seed, data["words"])
+        log(f"video data of phases 13 and 20 written beside the build: "
+            f"{time.perf_counter() - t:.1f} s")
+        return data, videos
+
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         native_build = pool.submit(native_dataplane)
-        pretrain_data = pool.submit(write_pretrain_data, root_dir.name, args.seed)
+        written = pool.submit(write_data)
         secs = _build.build()
         log(f"build: {json.dumps({k: round(v, 1) for k, v in secs.items()})}")
         native_build.result()
-        pretrain_data = pretrain_data.result()
+        pretrain_data, video_data = written.result()
     for name in _build.KERNELS:
         log(f"ptxas {name}:\n{_build.ptxas_report(name)}")
 
@@ -8903,7 +9156,7 @@ def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
                                                smi)
             torch.cuda.empty_cache()
             s2l_counts = large_stage2_phase(args, root, large_tok, words, large_th, large_work,
-                                            dev, smi)
+                                            dev, smi, video_data["20"])
             torch.cuda.empty_cache()
             # ---- phase 22: refcoco_grounding_large.yaml from phase 16's .th ----
             # ---- phase 23: coco_captioning_large.yaml from phase 16's .th ----
@@ -8927,7 +9180,8 @@ def _run(args, dev: torch.device, smi: str, t_start: float) -> int:
         torch.cuda.empty_cache()
         # ---- phase 13: the video path (stage-2 video pretraining, video QA) ----
         t13 = time.perf_counter()
-        video_counts = video_launcher_phase(args, root, th_path, tok_dir, words, dev, smi)
+        video_counts = video_launcher_phase(args, root, th_path, tok_dir, words, dev, smi,
+                                            video_data)
         log(f"phase 13 seconds: {time.perf_counter() - t13:.1f}")
         torch.cuda.empty_cache()
         # ---- phase 18: X2VLM-base 1B pretraining (the aux stream) at its own sizes ----

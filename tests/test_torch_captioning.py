@@ -16,6 +16,7 @@ text stack of width 32), dropout off. Tolerances: losses and logits to
 
 import numpy as np
 import pytest
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401 (autouse)
 
 torch = pytest.importorskip("torch")
 

@@ -16,6 +16,7 @@ import json
 
 import numpy as np
 import pytest
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401 (autouse)
 
 torch = pytest.importorskip("torch")
 pytest.importorskip("tokenizers")
@@ -32,16 +33,6 @@ from x2vlm_tpu_torch.models import (  # noqa: E402
     BEiT2Config, BertConfig, XVLMConfig, XVLMForPretrain,
 )
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    """Tiny models: a few CPU threads each (the suite runs on several
-    workers at once)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 4))
-    yield
-    torch.set_num_threads(n)
 
 def _large_th(path):
     """An X2VLM-large ``.th`` at the shipped widths, the depths cut: a

@@ -7,6 +7,7 @@ import json
 import sys
 
 import pytest
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401 (autouse)
 
 from x2vlm_tpu.core import config as jax_config  # noqa: E402
 from x2vlm_tpu.core import config_schema as jax_schema  # noqa: E402

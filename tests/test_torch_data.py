@@ -12,6 +12,7 @@ import sys
 
 import numpy as np
 import pytest
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401 (autouse)
 from PIL import Image
 
 from x2vlm_tpu.data import transforms as JT  # noqa: E402

@@ -13,6 +13,7 @@ import types
 from pathlib import Path
 
 import pytest
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401 (autouse)
 
 torch = pytest.importorskip("torch")
 

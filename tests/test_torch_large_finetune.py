@@ -28,6 +28,7 @@ import random
 
 import numpy as np
 import pytest
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401 (autouse)
 from PIL import Image
 
 torch = pytest.importorskip("torch")
@@ -62,16 +63,6 @@ CAPTION_YAML = "configs/finetune/coco_captioning_large.yaml"
 WORDS = VOCAB[5:]
 B = 3
 DROP = dict(text_drop_path_rate=0.1, cross_drop_path_rate=0.1)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    """Tiny models: a few CPU threads each (the suite runs on several
-    workers at once)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 4))
-    yield
-    torch.set_num_threads(n)
 
 
 def _shipped(rel):

@@ -12,6 +12,7 @@ import re
 
 import numpy as np
 import pytest
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401 (autouse)
 import yaml
 from PIL import Image
 
@@ -209,7 +210,6 @@ def test_vqa_is_no_longer_refused(corpus):
     ({"use_swin": True, "patch_size": 16}, ValueError, "use_swin requires patch_size"),
     ({"is_xvlm_ckpt": True}, ValueError, "is_xvlm_ckpt"),
     ({"remat": True, "remat_policy": "dot"}, ValueError, "remat_policy"),
-    ({"flat_optimizer": True}, NotImplementedError, "flat_optimizer"),
 ])
 def test_unported_streams_and_options_raise(corpus, extra, err, match):
     if err is None:   # no longer refused: the run takes the native data plane
@@ -224,6 +224,19 @@ def test_unported_streams_and_options_raise(corpus, extra, err, match):
         return
     with pytest.raises(err, match=match):
         _main(corpus, "refused", _pretrain_cfg(corpus, **extra), "pretrain")
+
+
+def test_flat_optimizer_runs_as_the_tree_update(corpus):
+    """``flat_optimizer: true`` (tests/test_torch_flat_optimizer.py holds its
+    update): the saved state equals the run's without the key bit for bit."""
+    rec = _main(corpus, "flat", _pretrain_cfg(corpus, flat_optimizer=True), "pretrain")
+    assert np.isfinite([v for k, v in rec.items() if "loss" in k]).all()
+    _main(corpus, "tree", _pretrain_cfg(corpus), "pretrain")
+    flat, tree = _state(corpus, "flat"), _state(corpus, "tree")
+    for part in ("params", "mu", "nu"):
+        assert flat[part].keys() == tree[part].keys()
+        for k, v in tree[part].items():
+            assert torch.equal(flat[part][k], v), (part, k)
 
 
 def test_remat_pretraining_equals_the_plain_run_bit_for_bit(corpus):

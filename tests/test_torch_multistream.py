@@ -7,6 +7,7 @@ tolerance of test_torch_pretrain.py)."""
 
 import numpy as np
 import pytest
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401 (autouse)
 
 torch = pytest.importorskip("torch")
 

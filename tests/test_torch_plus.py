@@ -20,6 +20,7 @@ import re
 
 import numpy as np
 import pytest
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401 (autouse)
 
 torch = pytest.importorskip("torch")
 

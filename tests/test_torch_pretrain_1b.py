@@ -22,6 +22,7 @@ import random
 
 import numpy as np
 import pytest
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401 (autouse)
 
 torch = pytest.importorskip("torch")
 
@@ -50,16 +51,6 @@ from x2vlm_tpu_torch.tasks import pretrain as loop_mod  # noqa: E402
 from x2vlm_tpu_torch.train import create_optimizer, lr_schedule  # noqa: E402
 from x2vlm_tpu_torch.train.metrics import MetricLogger  # noqa: E402
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    """Tiny models: a few CPU threads each (the suite runs on several
-    workers at once)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 4))
-    yield
-    torch.set_num_threads(n)
 
 # ---- the aux replacement and stop_calc_itm ----
 

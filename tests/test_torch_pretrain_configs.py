@@ -26,6 +26,7 @@ import random
 
 import numpy as np
 import pytest
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401 (autouse)
 from PIL import Image
 
 torch = pytest.importorskip("torch")
@@ -57,16 +58,6 @@ STREAM_FIELDS = ("image_weight", "region_weight", "video_weight", "text_weight",
                  "mtext_weight", "aux_perc", "video_aux_perc", "regions_use_bbox_only")
 STREAMS = ("image", "aux", "region", "video", "video_aux", "text", "mtext")
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    """Tiny models: a few CPU threads each (the suite runs on several
-    workers at once)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(min(n, 4))
-    yield
-    torch.set_num_threads(n)
 
 def _png(rng, side=40):
     buf = io.BytesIO()

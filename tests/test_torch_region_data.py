@@ -16,6 +16,7 @@ import random
 
 import numpy as np
 import pytest
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401 (autouse)
 from PIL import Image
 
 torch = pytest.importorskip("torch")

@@ -6,6 +6,7 @@ import random
 
 import numpy as np
 import pytest
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401 (autouse)
 
 transformers = pytest.importorskip("transformers")
 
@@ -67,10 +68,11 @@ def test_special_tokens_and_vocab_equal_bert_tokenizer_fast(both):
 
 
 def test_build_tokenizer_refuses_roberta_paths(tmp_path):
-    """A plain RoBERTa path (byte-level BPE) is refused, naming A8d; an
+    """A plain RoBERTa path (byte-level BPE) without its vocab.json and
+    merges.txt is refused (tests/test_torch_bpe_tokenizer.py reads them); an
     XLM-R path reads its tokenizer.json (tests/test_torch_xlmr_tokenizer.py)
     and needs one."""
-    with pytest.raises(NotImplementedError, match="A8d"):
+    with pytest.raises(FileNotFoundError, match="vocab.json / merges.txt"):
         build_tokenizer(str(tmp_path / "roberta-base"))
     with pytest.raises(FileNotFoundError, match="tokenizer.json"):
         build_tokenizer(str(tmp_path / "xlm-roberta-base"))

@@ -12,6 +12,7 @@ map, which is found by carrying leaf-numbered arrays through ``convert.py``.
 
 import numpy as np
 import pytest
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401 (autouse)
 
 torch = pytest.importorskip("torch")
 

@@ -20,6 +20,7 @@ import random
 
 import numpy as np
 import pytest
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401 (autouse)
 from PIL import Image
 
 torch = pytest.importorskip("torch")
@@ -434,11 +435,18 @@ def test_a_th_of_another_frame_count_imports(corpus, qa_run):
                        sd["absolute_frame_pos_embed"])
 
 
-@pytest.mark.parametrize("task", ["next_qa_mc", "video_retrieval"])
+@pytest.mark.parametrize("task", ["next_qa_mc", "video_retrieval", "next_qa_mc-resampler"])
 def test_next_qa_and_video_retrieval_launchers(corpus, task):
     """Written configs (3 frames, batch 2): 2 steps and the eval; the
     metrics finite; the retrieval one tracks ``img_r_mean``
-    (``pick_best_t2v``)."""
+    (``pick_best_t2v``); NExT-QA again through the Perceiver resampler
+    (``video_encoding: resampler``, the JAX factory's depth 2 and 64
+    latents), its 2 x 64 resampler attention calls a forward on the plain
+    core."""
+    from x2vlm_tpu_torch.ops.attention import dot_product_attention
+
+    task, _, encoding = task.partition("-")
+    name = f"{task}_{encoding}" if encoding else task
     ann = "mc.json" if task == "next_qa_mc" else "ret.json"
     cfg = _shipped(corpus, "configs/finetune/vqa_msrvtt_base.yaml",
                    video_root=str(corpus / "frames"), train_file=[str(corpus / ann)],
@@ -446,14 +454,26 @@ def test_next_qa_and_video_retrieval_launchers(corpus, task):
                    batch_size_test=4, k_test=4, pick_best_t2v=True,
                    schedular={"sched": "linear", "lr": 1e-4, "epochs": 1})
     del cfg["answer_list"], cfg["dataset_type"]
-    rec = _main(corpus, task, task, cfg)
+    if encoding:
+        cfg["video_encoding"] = encoding
+    plain = dot_product_attention.calls_by_shape.copy()
+    rec = _main(corpus, task, name, cfg)
+    plain = dot_product_attention.calls_by_shape - plain
     key = "eval_accuracy" if task == "next_qa_mc" else "eval_img_r_mean"
     losses = [v for k, v in rec.items() if k.startswith("loss")]
     assert np.isfinite(rec[key]) and losses and np.isfinite(losses).all()
-    state = _state(corpus, task)
+    state = _state(corpus, name)
     assert state["params"]["absolute_frame_pos_embed"].shape == (1, F, 1, 32)
     if task == "next_qa_mc":
         assert state["params"]["mc_head.3.weight"].shape == (1, 64)
+    resampled = {k: n for k, n in plain.items() if k[1:] == (64, 64 + (RES // 16) ** 2 + 1)}
+    if encoding:
+        assert state["params"]["resampler.latents"].shape == (64, 32)
+        assert state["params"]["resampler.attn_1.to_q.weight"].shape == (512, 32)
+        # per video-frame row: 2 layers a forward; the steps' and the eval's rows
+        assert resampled and all(n % 2 == 0 for n in resampled.values())
+    else:
+        assert not resampled and not any(k.startswith("resampler.") for k in state["params"])
 
 
 def test_stage2_video_pretraining_resumes_the_video_cursor_exactly(corpus):

@@ -14,6 +14,7 @@ import struct
 
 import numpy as np
 import pytest
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401 (autouse)
 
 transformers = pytest.importorskip("transformers")
 tokenizers = pytest.importorskip("tokenizers")
@@ -210,7 +211,7 @@ def test_vocab_order_and_specials_equal_xlm_roberta_fast(both):
 
 
 def test_build_tokenizer_families(tmp_path, xlmr_dir):
-    with pytest.raises(NotImplementedError, match="A8d"):
+    with pytest.raises(FileNotFoundError, match="RoBERTa"):
         build_tokenizer(str(tmp_path / "roberta-base"))
     with pytest.raises(FileNotFoundError):
         build_tokenizer(str(tmp_path / "xlm-roberta-missing"))

@@ -6,6 +6,7 @@ carried across with ``x2vlm_tpu_torch.convert``. Tolerance rtol = atol =
 
 import numpy as np
 import pytest
+from tests.torch_threads import few_torch_threads  # noqa: E402,F401 (autouse)
 
 torch = pytest.importorskip("torch")
 

@@ -1,4 +1,4 @@
-"""The port's tokenizers and fixed-shape text preprocessing (the port's
+r"""The port's tokenizers and fixed-shape text preprocessing (the port's
 counterpart of x2vlm_tpu/data/tokenization.py).
 
 The JAX package builds its tokenizer with ``transformers``, picking the
@@ -23,8 +23,17 @@ files itself and imports neither ``transformers`` nor ``tokenizers`` nor
   over its pieces (an unknown character scores the lowest piece's score
   less 10, adjacent unknowns fuse into one token).
 
-A plain RoBERTa path (byte-level BPE) is reached by no shipped config and
-comes with ROADMAP queue item A8d. ``TextPreprocessor`` and ``pre_caption``
+- :class:`RobertaBPE`, read from ``<text_encoder>/vocab.json`` and
+  ``merges.txt`` and held to ``transformers.RobertaTokenizerFast`` in the
+  CPU tests: the special tokens split off the raw text (``<mask>`` taking
+  the whitespace before it), GPT-2's pre-tokenization pattern (contractions,
+  runs of letters, of numbers and of other characters each with one
+  optional leading space, runs of whitespace) written as a scanner over
+  ``unicodedata`` categories, since the standard ``re`` has no ``\p{L}`` /
+  ``\p{N}``; each piece's UTF-8 bytes through GPT-2's byte-to-character
+  map, then the merges by rank.
+
+``TextPreprocessor`` and ``pre_caption``
 are copies of the JAX ones; like the JAX launcher, the port builds the
 CCLM preprocessor without ``use_roberta``, so whole-word masking looks for
 ``##`` continuations, which no XLM-R piece has (README deviations).
@@ -44,8 +53,8 @@ import numpy as np
 
 from x2vlm_tpu_torch.data.masking import TextMaskingGenerator, pad_masks
 
-__all__ = ["BertWordPiece", "XLMRUnigram", "build_tokenizer", "TextPreprocessor",
-           "pre_caption"]
+__all__ = ["BertWordPiece", "XLMRUnigram", "RobertaBPE", "build_tokenizer",
+           "TextPreprocessor", "pre_caption"]
 
 
 def _is_whitespace(ch: str) -> bool:
@@ -373,6 +382,37 @@ def _normalizer(spec: Optional[dict]):
                               f"Sequence)")
 
 
+def _added_pattern(added: Sequence[dict]):
+    """The longest added token first at each position (leftmost-longest)."""
+    return re.compile("|".join(re.escape(t["content"]) for t in sorted(
+        added, key=lambda t: -len(t["content"])))) if added else None
+
+
+def _split_added(text: str, pattern, added: Dict[str, dict]) -> List[Tuple[str, bool, int]]:
+    """The added (special) tokens split off the raw text: (segment, is an
+    added token, its start in ``text``) in order, empty segments dropped."""
+    out: List[Tuple[str, bool, int]] = []
+    at = 0
+    for m in (pattern.finditer(text) if pattern else ()):
+        tok = added[m.group(0)]
+        start, stop = m.start(), m.end()
+        if tok.get("lstrip"):
+            while start > at and text[start - 1] in _WHITE_SPACE:
+                start -= 1
+        if tok.get("rstrip"):
+            while stop < len(text) and text[stop] in _WHITE_SPACE:
+                stop += 1
+        if start > at:
+            out.append((text[at:start], False, at))
+        # the token is the text it took, the stripped whitespace included
+        # (so " <mask>" is no vocab entry, as transformers tokenizes it)
+        out.append((text[start:stop], True, start))
+        at = stop
+    if at < len(text):
+        out.append((text[at:], False, at))
+    return out
+
+
 class XLMRUnigram:
     """XLM-R's SentencePiece Unigram tokenizer over a ``tokenizer.json``
     (the vocabulary: ``[piece, score]`` pairs whose list index is the id).
@@ -413,9 +453,7 @@ class XLMRUnigram:
                                           f"or single-word, which the port does not read")
             self.added.append(t)
             self.vocab[t["content"]] = t["id"]
-        # the longest added token first at each position (leftmost-longest)
-        self._added_re = (re.compile("|".join(re.escape(t["content"]) for t in sorted(
-            self.added, key=lambda t: -len(t["content"])))) if self.added else None)
+        self._added_re = _added_pattern(self.added)
         self._added = {t["content"]: t for t in self.added}
         self.normalize = _normalizer(spec.get("normalizer"))
         pre = spec.get("pre_tokenizer") or {}
@@ -443,31 +481,6 @@ class XLMRUnigram:
 
     def __len__(self) -> int:
         return len(self.vocab)
-
-    # ---- the added (special) tokens, split off the raw text ----
-    def _split_added(self, text: str) -> List[Tuple[str, bool, int]]:
-        """(segment, is an added token, its start in ``text``) in order,
-        empty segments dropped."""
-        out: List[Tuple[str, bool, int]] = []
-        at = 0
-        for m in (self._added_re.finditer(text) if self._added_re else ()):
-            tok = self._added[m.group(0)]
-            start, stop = m.start(), m.end()
-            if tok.get("lstrip"):
-                while start > at and text[start - 1] in _WHITE_SPACE:
-                    start -= 1
-            if tok.get("rstrip"):
-                while stop < len(text) and text[stop] in _WHITE_SPACE:
-                    stop += 1
-            if start > at:
-                out.append((text[at:start], False, at))
-            # the token is the text it took, the stripped whitespace included
-            # (so " <mask>" is no vocab entry, as transformers tokenizes it)
-            out.append((text[start:stop], True, start))
-            at = stop
-        if at < len(text):
-            out.append((text[at:], False, at))
-        return out
 
     def _pre_tokenize(self, text: str, first: bool) -> List[str]:
         """Metaspace: spaces -> the replacement, the replacement prepended
@@ -538,7 +551,7 @@ class XLMRUnigram:
         ``XLMRobertaTokenizerFast.tokenize`` gives them), no ``<s>`` /
         ``</s>`` added."""
         out: List[str] = []
-        for seg, added, at in self._split_added(text):
+        for seg, added, at in _split_added(text, self._added_re, self._added):
             if added:
                 out.append(seg)
                 continue
@@ -555,11 +568,158 @@ class XLMRUnigram:
         return [self.vocab.get(t, self.unk_token_id) for t in tokens]
 
 
+def _byte_chars() -> List[str]:
+    """GPT-2's map of the 256 byte values to printable characters: the
+    printable Latin-1 bytes map to themselves, the rest to 256 and up."""
+    keep = [*range(ord("!"), ord("~") + 1), *range(ord("\u00a1"), ord("\u00ac") + 1),
+            *range(ord("\u00ae"), ord("\u00ff") + 1)]
+    out, extra = {}, 0
+    for b in range(256):
+        if b in keep:
+            out[b] = chr(b)
+        else:
+            out[b] = chr(256 + extra)
+            extra += 1
+    return [out[b] for b in range(256)]
+
+
+_BYTE_CHARS = _byte_chars()
+_CONTRACTIONS = ("s", "t", "re", "ve", "m", "ll", "d")
+
+
+def _char_kind(ch: str) -> str:
+    r"""'s' whitespace (the regex ``\s``: Unicode White_Space), 'L' a letter,
+    'N' a number, 'o' anything else."""
+    if ch in _WHITE_SPACE:
+        return "s"
+    cat = unicodedata.category(ch)[0]
+    return cat if cat in "LN" else "o"
+
+
+def byte_level_pieces(text: str) -> List[str]:
+    r"""GPT-2's pre-tokenization, the matches in order of
+    ``'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+``."""
+    kinds = [_char_kind(c) for c in text]
+    n, i, out = len(text), 0, []
+    while i < n:
+        if text[i] == "'":
+            suf = next((c for c in _CONTRACTIONS if text.startswith(c, i + 1)), None)
+            if suf is not None:
+                out.append(text[i:i + 1 + len(suf)])
+                i += 1 + len(suf)
+                continue
+        if text[i] == " " and i + 1 < n and kinds[i + 1] != "s":
+            j = i + 1            # one space, then a run of one kind
+        elif kinds[i] != "s":
+            j = i
+        else:
+            j = None
+        if j is not None:
+            e = j + 1
+            while e < n and kinds[e] == kinds[j]:
+                e += 1
+        else:                    # whitespace: all of it at the end, else all but
+            e = i + 1            # its last character (which leads the next piece)
+            while e < n and kinds[e] == "s":
+                e += 1
+            if e < n and e - i > 1:
+                e -= 1
+        out.append(text[i:e])
+        i = e
+    return out
+
+
+class RobertaBPE:
+    """RoBERTa's byte-level BPE over ``vocab.json`` (piece -> id) and
+    ``merges.txt`` (a ``#version`` line, then one merge a line, the rank its
+    order). The attributes and methods the data pipeline uses are those of
+    ``transformers.RobertaTokenizerFast``: ``<s>`` is the CLS and BOS token,
+    ``</s>`` the SEP and EOS token; ``<mask>`` takes the whitespace before
+    it; a byte with no piece is dropped (the model has no unknown token)."""
+
+    unk_token, sep_token, pad_token, cls_token, mask_token = (
+        "<unk>", "</s>", "<pad>", "<s>", "<mask>")
+    bos_token, eos_token = "<s>", "</s>"
+
+    def __init__(self, vocab_file: str, merges_file: str):
+        with open(vocab_file, "r", encoding="utf-8") as f:
+            self.vocab: Dict[str, int] = json.load(f)
+        self.ranks: Dict[Tuple[str, str], int] = {}
+        with open(merges_file, "r", encoding="utf-8") as f:
+            for line in f.read().split("\n"):
+                if line.startswith("#version") or not line.strip():
+                    continue
+                a, b = line.split(" ")
+                self.ranks.setdefault((a, b), len(self.ranks))
+        for t in (self.unk_token, self.sep_token, self.pad_token, self.cls_token,
+                  self.mask_token):
+            if t not in self.vocab:
+                raise ValueError(f"{vocab_file}: the special token {t} is not in the vocab")
+        self._added = {t: {"content": t, "lstrip": t == self.mask_token}
+                       for t in (self.cls_token, self.pad_token, self.sep_token,
+                                 self.unk_token, self.mask_token)}
+        self._added_re = _added_pattern(list(self._added.values()))
+        self._cache: Dict[str, List[str]] = {}
+        self.pad_token_id = self.vocab[self.pad_token]
+        self.unk_token_id = self.vocab[self.unk_token]
+        self.cls_token_id = self.vocab[self.cls_token]
+        self.sep_token_id = self.vocab[self.sep_token]
+        self.mask_token_id = self.vocab[self.mask_token]
+
+    def get_vocab(self) -> Dict[str, int]:
+        return dict(self.vocab)
+
+    def __len__(self) -> int:
+        return len(self.vocab)
+
+    def _bpe(self, word: str) -> List[str]:
+        """One pre-tokenized piece's characters merged by rank: the
+        lowest-ranked adjacent pair at each round, every occurrence left to
+        right."""
+        if word in self._cache:
+            return self._cache[word]
+        syms = list(word)
+        while len(syms) > 1:
+            pairs = {(a, b) for a, b in zip(syms, syms[1:]) if (a, b) in self.ranks}
+            if not pairs:
+                break
+            a, b = min(pairs, key=self.ranks.__getitem__)
+            merged, i = [], 0
+            while i < len(syms):
+                if i + 1 < len(syms) and syms[i] == a and syms[i + 1] == b:
+                    merged.append(a + b)
+                    i += 2
+                else:
+                    merged.append(syms[i])
+                    i += 1
+            syms = merged
+        out = [t for t in syms if t in self.vocab]
+        self._cache[word] = out
+        return out
+
+    def tokenize(self, text: str) -> List[str]:
+        """The pieces of ``text``, no ``<s>`` / ``</s>`` added."""
+        out: List[str] = []
+        for seg, added, _ in _split_added(text, self._added_re, self._added):
+            if added:
+                out.append(seg)
+                continue
+            for piece in byte_level_pieces(seg):
+                out.extend(self._bpe("".join(_BYTE_CHARS[b] for b in piece.encode("utf-8"))))
+        return out
+
+    def convert_tokens_to_ids(self, tokens: Union[str, Sequence[str]]):
+        if isinstance(tokens, str):
+            return self.vocab.get(tokens, self.unk_token_id)
+        return [self.vocab.get(t, self.unk_token_id) for t in tokens]
+
+
 def build_tokenizer(path: str):
     """The tokenizer of the ``text_encoder`` directory ``path``, its family
     picked by path substring as the JAX ``build_tokenizer`` picks it: XLM-R
     (``xlm-roberta`` / ``xlmr``) reads ``tokenizer.json``; BERT reads
-    ``vocab.txt``. A plain RoBERTa path raises (ROADMAP A8d)."""
+    ``vocab.txt``; a plain RoBERTa path reads ``vocab.json`` and
+    ``merges.txt`` (byte-level BPE)."""
     lowered = str(path).lower()
     if "xlm-roberta" in lowered or "xlmr" in lowered:
         spec = os.path.join(path, "tokenizer.json") if os.path.isdir(path) else path
@@ -567,9 +727,12 @@ def build_tokenizer(path: str):
             raise FileNotFoundError(f"no tokenizer.json for the text encoder at {path}")
         return XLMRUnigram(spec)
     if "roberta" in lowered:
-        raise NotImplementedError(
-            f"{path}: the RoBERTa byte-level BPE tokenizer comes with ROADMAP queue item "
-            f"A8d; the port tokenizes with BERT's WordPiece and XLM-R's Unigram")
+        files = [os.path.join(path, f) for f in ("vocab.json", "merges.txt")]
+        missing = [f for f in files if not os.path.isfile(f)]
+        if missing:
+            raise FileNotFoundError(f"no {' / '.join(map(os.path.basename, missing))} for "
+                                    f"the RoBERTa text encoder at {path}")
+        return RobertaBPE(*files)
     vocab = os.path.join(path, "vocab.txt") if os.path.isdir(path) else path
     if not os.path.isfile(vocab):
         raise FileNotFoundError(f"no vocab.txt for the text encoder at {path}")

@@ -24,8 +24,8 @@ reference's xroberta names. Its position ids start at ``position_offset``
 (2: padding_idx + 1), as in the JAX package, which does not skip padded
 positions. ``embedding_dim`` narrows the MLM head's transform (the CCLM
 bottleneck), and ``tie_word_embeddings=False`` gives the head its own
-``decoder`` (a plain fp32 cross-entropy over its logits, as the JAX head's
-untied path computes it).
+``decoder`` (an fp32 cross-entropy over its logits, plain, smoothed or
+weighted, as the JAX head's untied path computes it).
 
 UniLM captioning (models/captioning.py) passes ``attention_matrix`` (B, Sq,
 Skv), which becomes the self-attention's full mask (and'ed with the key
@@ -367,7 +367,8 @@ class BertMLMHead(nn.Module):
     decoder (the word-embedding table passed in, and ``bias``) fused with
     the cross-entropy (``ops/fused_ce.py``), so the (B*M, vocab) logits are
     never held at once; or, with ``tie_word_embeddings=False``, its own
-    ``decoder`` and a plain cross-entropy. Its names are the reference's:
+    ``decoder`` and the cross-entropy on its logits, in the same three
+    forms (plain, smoothed, weighted). Its names are the reference's:
     ``cls.predictions.{transform.dense, transform.LayerNorm, bias}``, or in
     the RoBERTa form ``lm_head.{dense, layer_norm, bias}``. Counterpart of
     the JAX ``BertMLMHead`` with labels."""
@@ -424,9 +425,8 @@ class BertMLMHead(nn.Module):
         h = self._transform(torch.gather(hidden, 1, masked_pos.long()[:, :, None].expand(
             -1, -1, hidden.shape[-1])))
         if not self.tied:
-            if label_weights is not None or label_smoothing:
-                raise NotImplementedError("the untied MLM decoder takes the plain loss only")
-            return softmax_ce(self._decode(h, None).float(), labels)
+            return self._untied_loss(self._decode(h, None).float(), labels, label_weights,
+                                     label_smoothing)
         h = h.reshape(-1, h.shape[-1])
         flat = labels.reshape(-1)
         if label_weights is not None:
@@ -435,6 +435,27 @@ class BertMLMHead(nn.Module):
         return fused_vocab_ce(h, embedding_table, self.bias, flat,
                               torch.ones_like(flat, dtype=torch.bool),
                               smoothing=label_smoothing)
+
+    @staticmethod
+    def _untied_loss(logits: torch.Tensor, labels: torch.Tensor,
+                     label_weights: Optional[torch.Tensor], label_smoothing: float
+                     ) -> torch.Tensor:
+        """The untied decoder's (B, M, vocab) fp32 logits -> the loss of the
+        JAX head's untied branch: with ``label_weights`` the weighted sum of
+        (1 - s) * NLL + s * the mean over the vocab of -log p; with only
+        ``label_smoothing`` the smoothed CE's mean; else the plain CE."""
+        if label_weights is None:
+            if label_smoothing:
+                from x2vlm_tpu_torch.models.generation import label_smoothing_loss
+
+                return label_smoothing_loss(logits, labels, smoothing=label_smoothing)
+            return softmax_ce(logits, labels)
+        logp = torch.log_softmax(logits, dim=-1)
+        safe = labels.clamp(0, logits.shape[-1] - 1).long()
+        row = (1.0 - label_smoothing) * -torch.gather(logp, -1, safe[..., None])[..., 0]
+        if label_smoothing:
+            row = row + label_smoothing * -logp.mean(-1)
+        return (label_weights.float() * row).sum()
 
 
 class _MLMPredictions(nn.Module):

@@ -228,7 +228,9 @@ def make_optimizer(cfg, model, total_steps: int, fusion_layer: int, fresh_names=
     parameters the checkpoint left fresh and, with ``large_lr_for_dec``, on
     the whole VQA decoder (reference model_generation.py:445-447); the
     linear warmup-decay schedule; split over this rank's fsdp group with
-    ``--fsdp`` > 1."""
+    ``--fsdp`` > 1. ``flat_optimizer: true`` (the JAX flat update, there to
+    give XLA fewer leaves to trace) is this same AdamW, refused with
+    ``--fsdp`` > 1 as the JAX one is."""
     opt = cfg.get("optimizer", {})
     sched_cfg = cfg.get("schedular", {})
     if str(opt.get("opt", "adamW")).lower() != "adamw":
@@ -237,9 +239,8 @@ def make_optimizer(cfg, model, total_steps: int, fusion_layer: int, fresh_names=
     if sched_cfg.get("sched", "linear") != "linear":
         raise ValueError(f"unsupported schedular.sched: {sched_cfg.get('sched')!r} "
                          f"(only linear)")
-    if cfg.get("flat_optimizer", False):
-        raise NotImplementedError("flat_optimizer is not ported (by decision: ROADMAP "
-                                  "'Not ported'); drop the key")
+    if cfg.get("flat_optimizer", False) and mesh.fsdp_size() > 1:
+        raise ValueError("flat_optimizer: true needs --fsdp 1, as the JAX flat update does")
     base_lr = float(opt.get("lr", sched_cfg.get("lr", 1e-4)))
     sched = lr_schedule(base_lr, total_steps,
                         warmup_steps=sched_cfg.get("num_warmup_steps", 0.1),
